@@ -1,0 +1,93 @@
+"""Parameters between the JAX tree and the port's Transformer.
+
+The JAX model's parameters are a pytree of nested dicts and lists:
+``embed`` (vocab, d), ``pos`` (max_seq_len, d) unless RoPE, ``ln_f.scale``
+and ``layers[i].{ln1.scale, ln2.scale, wqkv, wo, w_up, w_down}``, dense
+weights as (fan_in, fan_out). The port keeps the same names and layouts in
+its state dict (``layers.<i>.wqkv`` ...), so conversion copies arrays and
+checks shapes; nothing is transposed.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from gloo_tpu_torch.device import resolve_device
+from gloo_tpu_torch.models.transformer import TransformerConfig
+
+_DENSE = ("wqkv", "wo", "w_up", "w_down")
+
+
+def _expected_shapes(cfg: TransformerConfig) -> dict[str, tuple]:
+    d = cfg.d_model
+    kv_dim = cfg.head_dim * cfg.kv_heads
+    shapes = {"embed": (cfg.vocab_size, d), "ln_f.scale": (d,)}
+    if not cfg.use_rope:
+        shapes["pos"] = (cfg.max_seq_len, d)
+    for i in range(cfg.n_layers):
+        shapes.update({
+            f"layers.{i}.ln1.scale": (d,),
+            f"layers.{i}.ln2.scale": (d,),
+            f"layers.{i}.wqkv": (d, d + 2 * kv_dim),
+            f"layers.{i}.wo": (d, d),
+            f"layers.{i}.w_up": (d, cfg.d_ff),
+            f"layers.{i}.w_down": (cfg.d_ff, d),
+        })
+    return shapes
+
+
+def _flatten(tree) -> dict:
+    flat = {"embed": tree["embed"], "ln_f.scale": tree["ln_f"]["scale"]}
+    if "pos" in tree:
+        flat["pos"] = tree["pos"]
+    for i, layer in enumerate(tree["layers"]):
+        for ln in ("ln1", "ln2"):
+            flat[f"layers.{i}.{ln}.scale"] = layer[ln]["scale"]
+        for name in _DENSE:
+            flat[f"layers.{i}.{name}"] = layer[name]
+    return flat
+
+
+def _check(flat: dict, cfg: TransformerConfig) -> None:
+    want = _expected_shapes(cfg)
+    if set(flat) != set(want):
+        raise ValueError(
+            f"parameters do not match the config: missing "
+            f"{sorted(set(want) - set(flat))}, unexpected "
+            f"{sorted(set(flat) - set(want))}")
+    for name, shape in want.items():
+        if tuple(flat[name].shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(flat[name].shape)}, "
+                             f"the config needs {shape}")
+
+
+def transformer_params_from_numpy(tree, cfg: TransformerConfig,
+                                  device="cuda") -> dict[str, torch.Tensor]:
+    """JAX parameter tree (numpy leaves) -> state dict for
+    ``Transformer(cfg, device).load_state_dict``, f32 on `device`."""
+    dev = resolve_device(device)
+    flat = _flatten(tree)
+    _check(flat, cfg)
+    return {name: torch.tensor(np.asarray(x, dtype=np.float32), device=dev)
+            for name, x in flat.items()}
+
+
+def transformer_params_to_numpy(state_dict, cfg: TransformerConfig) -> dict:
+    """The reverse: a Transformer state dict -> the JAX parameter tree with
+    f32 numpy leaves."""
+    _check(state_dict, cfg)
+
+    def arr(name):
+        return state_dict[name].detach().to("cpu", torch.float32).numpy()
+
+    tree = {"embed": arr("embed"), "ln_f": {"scale": arr("ln_f.scale")},
+            "layers": []}
+    if not cfg.use_rope:
+        tree["pos"] = arr("pos")
+    for i in range(cfg.n_layers):
+        layer = {ln: {"scale": arr(f"layers.{i}.{ln}.scale")}
+                 for ln in ("ln1", "ln2")}
+        layer.update({name: arr(f"layers.{i}.{name}") for name in _DENSE})
+        tree["layers"].append(layer)
+    return tree
