@@ -30,22 +30,21 @@
 // in the input type, lse = m + log(max(l, 1e-30)) in f32. GQA: query head
 // hq reads kv head hq / group; k and v are never replicated.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "flash_common.cuh"
 
 #include <atomic>
 #include <cmath>
-#include <cstdint>
 #include <type_traits>
 
 namespace {
+
+using namespace gtt;
 
 constexpr int kBlockQ = 64;  // query rows per block
 constexpr int kBlockK = 64;  // keys per kv tile
 constexpr int kWarps = kBlockQ / 16;
 constexpr int kThreads = kWarps * 32;
 constexpr int kPLd = kBlockK + 4;  // row stride of the f32 path's p tile
-constexpr int kMaxDevices = 64;
 
 struct Params {
   const void* q;
@@ -60,79 +59,6 @@ struct Params {
   long long k_sb, k_sh, k_st;
   long long v_sb, v_sh, v_st;
 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Two bf16 in one register, lo in the low half (the lower k or n index).
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  __nv_bfloat162 v = __halves2bfloat162(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d[0..3] += A (16x16, row) * B (16x8, col), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-// Copies rows [row0, row0 + kRows) of a (t, D) slice with row stride
-// `stride` into shared memory (row stride kLd), 16 bytes per thread and
-// step. Rows at or past t are zero, so padded keys contribute 0 * 0 and
-// never NaN. With `scale` the values are multiplied and rounded back to T.
-template <typename T, int D, int kLd, int kRows, bool kScale>
-__device__ __forceinline__ void load_tile(T* dst, const T* src,
-                                          long long stride, int row0, int t,
-                                          float scale) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kPerRow = D / kVec;
-  for (int i = threadIdx.x; i < kRows * kPerRow; i += kThreads) {
-    const int r = i / kPerRow;
-    const int c = (i % kPerRow) * kVec;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < t) {
-      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * stride + c);
-    }
-    if constexpr (kScale) {
-      T* e = reinterpret_cast<T*>(&val);
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) e[j] = from_f32<T>(to_f32(e[j]) * scale);
-    }
-    *reinterpret_cast<uint4*>(dst + r * kLd + c) = val;
-  }
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -164,7 +90,7 @@ __global__ void __launch_bounds__(kThreads)
   const int c2 = 2 * (lane % 4);
   const int r0 = warp * 16 + g;  // this lane's tile rows: r0 and r0 + 8
 
-  load_tile<T, D, kLd, kBlockQ, true>(qs, qg, p.q_st, q0, p.t, p.scale);
+  load_tile<T, D, kLd, kBlockQ, kThreads, true>(qs, qg, p.q_st, q0, p.t, p.scale);
   __syncthreads();
 
   // bf16: the warp's 16 query rows as mma A fragments, for the whole loop.
@@ -194,8 +120,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int kb = 0; kb < kv_end; ++kb) {
     const int k0 = kb * kBlockK;
     __syncthreads();  // every warp is done with the previous k/v tile
-    load_tile<T, D, kLd, kBlockK, false>(ks, kg, p.k_st, k0, p.t, 1.f);
-    load_tile<T, D, kLd, kBlockK, false>(vs, vg, p.v_st, k0, p.t, 1.f);
+    load_tile<T, D, kLd, kBlockK, kThreads, false>(ks, kg, p.k_st, k0, p.t, 1.f);
+    load_tile<T, D, kLd, kBlockK, kThreads, false>(vs, vg, p.v_st, k0, p.t, 1.f);
     __syncthreads();
 
     // s = (q * scale) k^T in f32.
@@ -346,21 +272,10 @@ cudaError_t launch(const Params& p, int bh, cudaStream_t stream) {
   constexpr size_t kSmem =
       (kBlockQ + 2 * kBlockK) * kLd * sizeof(T) +
       (std::is_same_v<T, float> ? kBlockQ * kPLd * sizeof(float) : 0);
-  // Above 48 KB, dynamic shared memory must be allowed per kernel and
-  // device. It is allowed once per (T, D) and device, not on every launch:
-  // the forward is bound by the host's launches.
   static std::atomic<bool> smem_set[kMaxDevices];
-  int dev = 0;
-  const cudaError_t got = cudaGetDevice(&dev);
-  if (got != cudaSuccess) return got;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (!smem_set[dev].load(std::memory_order_acquire)) {
-    const cudaError_t attr = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kSmem));
-    if (attr != cudaSuccess) return attr;
-    smem_set[dev].store(true, std::memory_order_release);
-  }
+  const cudaError_t attr =
+      allow_dynamic_smem(flash_fwd_kernel<T, D>, kSmem, smem_set);
+  if (attr != cudaSuccess) return attr;
   const dim3 grid((p.t + kBlockQ - 1) / kBlockQ, bh);
   flash_fwd_kernel<T, D><<<grid, kThreads, kSmem, stream>>>(p);
   return cudaGetLastError();

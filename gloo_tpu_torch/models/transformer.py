@@ -1,4 +1,4 @@
-"""The flagship causal-LM transformer, for serving on one GPU.
+"""The flagship causal-LM transformer, for training and serving on one GPU.
 
 Counterpart of gloo_tpu/models/transformer.py with the same configuration,
 parameter shapes and numerics: bf16 activations over f32 parameters,
@@ -7,8 +7,8 @@ its variance in f32, tanh-approximated GELU, tied f32 logits. Parameter
 names follow the JAX tree (``embed``, ``pos``, ``ln_f.scale``,
 ``layers.<i>.wqkv`` ...), so gloo_tpu_torch.weights converts one into the
 other. ``forward`` is the counterpart of the JAX ``apply`` (nn.Module
-already has an ``apply``). The loss, and with it the backward, comes with
-training.
+already has an ``apply``) and ``loss`` of the JAX ``loss``; autograd
+takes the attention's gradient through the flash backward kernel.
 """
 
 from __future__ import annotations
@@ -189,6 +189,14 @@ class Transformer(nn.Module):
             x = x + self._mlp(layer, _rmsnorm(x, layer.ln2.scale))
         x = _rmsnorm(x, self.ln_f.scale)
         return x.float() @ self.embed.T
+
+    def loss(self, tokens: torch.Tensor,
+             targets: torch.Tensor) -> torch.Tensor:
+        """Mean next-token NLL of log_softmax over the f32 logits; tokens
+        and targets (batch, seq) int, int32 as in JAX."""
+        logits = self(tokens)
+        return F.cross_entropy(logits.flatten(0, 1),
+                               targets.flatten().long())
 
     # ---- incremental decoding (KV cache) ----
 

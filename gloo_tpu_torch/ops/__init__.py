@@ -1,7 +1,9 @@
-"""Tensor ops of the port: the flash-attention kernel and RoPE."""
+"""Tensor ops of the port: the flash-attention kernels and RoPE."""
 
 from gloo_tpu_torch.ops.attention import (
     flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_plain,
     flash_attention_fwd,
     flash_attention_plain,
     reference_attention,
@@ -13,6 +15,8 @@ __all__ = [
     "KERNELS",
     "apply_rope",
     "flash_attention",
+    "flash_attention_bwd",
+    "flash_attention_bwd_plain",
     "flash_attention_fwd",
     "flash_attention_plain",
     "reference_attention",

@@ -3,11 +3,11 @@
 One row per ``pl.pallas_call`` site in gloo_tpu/ops: the kernel function
 (file, ``def`` line, call line), the wrapper that reaches it, and its port
 status: ``ported: <source>`` or ``to port: slice <n>``. The slices are the
-order of the port: 1 serving (flash forward), 2 training (flash backward),
-3 the device plane on more than one card (ring allreduce, reduce-scatter,
-allgather), 4 tensor parallelism (collective matmuls), 5 sequence and
-expert parallelism (ring-attention steps, all-to-all), 6 the remaining
-ring variants. tests/test_torch_isolation.py holds this table against the
+order of the port: 1 serving (flash forward), 2 training on one card
+(flash backward), 3 the device plane on more than one card (ring
+allreduce, reduce-scatter, allgather), 4 tensor parallelism (collective
+matmuls), 5 sequence and expert parallelism (ring-attention steps,
+all-to-all), 6 the remaining ring variants. tests/test_torch_isolation.py holds this table against the
 JAX sources.
 """
 
@@ -34,7 +34,8 @@ KERNELS = (
     Kernel("B1", _A, "_flash_kernel", 92, 237, "flash_attention",
            "ported: gloo_tpu_torch/csrc/flash_fwd.cu"),
     Kernel("B2", _A, "_flash_bwd_fused_kernel", 313, 430,
-           "flash_attention_bwd_fused", "to port: slice 2"),
+           "flash_attention_bwd_fused",
+           "ported: gloo_tpu_torch/csrc/flash_bwd.cu"),
     Kernel("B6", _A, "_flash_step_kernel", 477, 534, "flash_attention_step",
            "to port: slice 5"),
     Kernel("B7a", _A, "_flash_bwd_dq_step_kernel", 588, 730,

@@ -1,18 +1,23 @@
 """gloo_tpu_torch.ops.attention against gloo_tpu.ops.attention.
 
-On the CPU the port runs flash_attention_plain, the step-by-step twin of
-the CUDA kernel; it is held against the JAX flash_attention in Pallas
-interpret mode (out) and against jax.nn.logsumexp over the JAX kernel's
-scaled, masked scores (lse). Inputs are made with numpy from a seed and
-handed to both.
+On the CPU the port runs flash_attention_plain and
+flash_attention_bwd_plain, the step-by-step twins of the CUDA kernels; they
+are held against the JAX flash_attention in Pallas interpret mode (out,
+and dq/dk/dv from jax.vjp of it with the same cotangent) and against
+jax.nn.logsumexp over the JAX kernel's scaled, masked scores (lse). Inputs
+are made with numpy from a seed and handed to both.
 
-Tolerances: f32 rtol 1e-4 / atol 1e-5 (the two walk different kv tiles,
-so the online softmax rescales at other places). bf16 out rtol 1.6e-2 /
-atol 1e-2: p and out are rounded to bf16, and a last-bit difference
-before a rounding flips one bf16 ulp (2**-8 relative), two allowed. lse
-is f32 in both: rtol 1e-5 / atol 1e-4.
+Tolerances: f32 rtol 1e-4 / atol 1e-5 (the two walk different tiles, so
+the online softmax rescales and the gradient sums add up at other places;
+~2e-6 seen on gradients of size ~5). bf16 out rtol 1.6e-2 / atol 1e-2: p
+and out are rounded to bf16, and a last-bit difference before a rounding
+flips one bf16 ulp (2**-8 relative), two allowed. bf16 gradients rtol
+1.6e-2 / atol 8e-3 of the tensor's largest magnitude: p and ds are
+rounded to bf16 inside the sums, so a flipped ulp there moves an element
+by a fraction of an ulp of the largest terms (one ulp of the largest seen).
+lse is f32 in both: rtol 1e-5 / atol 1e-4.
 
-Tests marked `cuda` run the kernel itself and skip without a card.
+Tests marked `cuda` run the kernels themselves and skip without a card.
 """
 
 import math
@@ -29,9 +34,18 @@ from gloo_tpu.ops import attention as jattn  # noqa: E402
 from gloo_tpu_torch.ops import attention as attn  # noqa: E402
 
 TOL = {
-    "float32": {"out": (1e-4, 1e-5), "lse": (1e-5, 1e-4)},
-    "bfloat16": {"out": (1.6e-2, 1e-2), "lse": (1e-5, 1e-4)},
+    "float32": {"out": (1e-4, 1e-5), "lse": (1e-5, 1e-4),
+                "grad": (1e-4, 1e-5)},
+    "bfloat16": {"out": (1.6e-2, 1e-2), "lse": (1e-5, 1e-4),
+                 "grad": (1.6e-2, 8e-3)},
 }
+# (h, h_kv, t, d) of the CPU comparisons with JAX.
+SHAPES = [
+    (4, 4, 128, 32),   # two of the kernel's 64-key tiles; 1/sqrt(32) is
+                       # not exact in bf16
+    (4, 2, 72, 16),    # GQA, and a ragged last tile (72 = 64 + 8)
+    (4, 1, 64, 64),    # multi-query, one tile
+]
 
 
 def _inputs(b, h, h_kv, t, d, dtype, seed=0):
@@ -65,13 +79,34 @@ def _assert_close(ours, ref, rtol, atol):
                                rtol=rtol, atol=atol)
 
 
+def _assert_grad_close(ours, ref, dtype):
+    """Gradients: rtol as stated, atol relative to the largest |ref| in
+    bf16 and absolute in f32 (module docstring)."""
+    ref = np.asarray(ref.astype(jnp.float32))
+    rtol, atol = TOL[dtype]["grad"]
+    if dtype == "bfloat16":
+        atol *= float(np.abs(ref).max())
+    _assert_close(ours, ref, rtol, atol)
+
+
+def _jax_and_port_grads(dtype, causal, h, h_kv, t, d, seed=0):
+    """(jax dq, dk, dv), (port dq, dk, dv) and the port's inputs for one
+    cotangent, through the interpreted JAX kernel and the autograd
+    flash_attention."""
+    (jq, jk, jv), (q, k, v) = _inputs(2, h, h_kv, t, d, dtype, seed)
+    jg = jnp.asarray(np.random.RandomState(seed + 100).randn(
+        2, h, t, d).astype(np.float32), jnp.dtype(dtype))
+    g = torch.from_numpy(np.array(jg.astype(jnp.float32))).to(q.dtype)
+    _, vjp = jax.vjp(lambda *a: jattn.flash_attention(
+        *a, causal=causal, interpret=True), jq, jk, jv)
+    leaves = [x.requires_grad_(True) for x in (q, k, v)]
+    out = attn.flash_attention(*leaves, causal=causal)
+    return vjp(jg), torch.autograd.grad(out, leaves, g)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("h,h_kv,t,d", [
-    (4, 4, 128, 32),   # two of the kernel's 64-key tiles
-    (4, 2, 72, 16),    # GQA, and a ragged last tile (72 = 64 + 8)
-    (4, 1, 64, 64),    # multi-query, one tile
-])
+@pytest.mark.parametrize("h,h_kv,t,d", SHAPES)
 def test_plain_matches_jax_flash(dtype, causal, h, h_kv, t, d):
     (jq, jk, jv), (q, k, v) = _inputs(2, h, h_kv, t, d, dtype)
     ref = jattn.flash_attention(jq, jk, jv, causal=causal, interpret=True)
@@ -80,6 +115,55 @@ def test_plain_matches_jax_flash(dtype, causal, h, h_kv, t, d):
     assert out.shape == q.shape and lse.shape == q.shape[:3]
     _assert_close(out, ref.astype(jnp.float32), *TOL[dtype]["out"])
     _assert_close(lse, _jax_lse(jq, jk, causal), *TOL[dtype]["lse"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("h,h_kv,t,d", SHAPES + [(2, 2, 72, 128)])
+def test_backward_matches_jax_vjp(dtype, causal, h, h_kv, t, d):
+    ref, ours = _jax_and_port_grads(dtype, causal, h, h_kv, t, d)
+    for name, a, r in zip(("dq", "dk", "dv"), ours, ref):
+        assert a.dtype == getattr(torch, dtype), name
+        assert tuple(a.shape) == r.shape, name
+        _assert_grad_close(a, r, dtype)
+
+
+@pytest.mark.parametrize("h,h_kv,t,d,causal", [(4, 2, 72, 32, True),
+                                               (2, 2, 72, 128, False)])
+def test_dq_takes_the_unrounded_scale(monkeypatch, h, h_kv, t, d, causal):
+    # dK carries the scale rounded to bf16 (it contracts ds with q * scale
+    # in q's dtype); dQ takes the unrounded f32 1/sqrt(d) at the end. At
+    # these d the two differ by ~1.1e-4 relative, far under a bf16 ulp, so
+    # it shows as a bias of dq against JAX summed over all elements:
+    # ~1e-5 or less with the right scale, ~1e-4 with the rounded one.
+    def bias():
+        ref, ours = _jax_and_port_grads("bfloat16", causal, h, h_kv, t, d)
+        a = ours[0].float().numpy()
+        r = np.asarray(ref[0].astype(jnp.float32))
+        return float(np.sum((a - r) * np.sign(r)) / np.sum(np.abs(r)))
+
+    assert abs(bias()) < 5e-5
+    monkeypatch.setattr(attn, "_dq_scale",
+                        lambda d: attn._folded_scale(d, torch.bfloat16))
+    assert abs(bias()) > 5e-5
+
+
+def test_grad_mode_decides_what_is_kept():
+    # Training keeps (q, k, v, out, lse) for the backward; serving keeps
+    # nothing and runs the forward alone, even on inputs that require grad.
+    _, (q, k, v) = _inputs(1, 2, 1, 24, 8, "float32", seed=4)
+    leaves = [x.requires_grad_(True) for x in (q, k, v)]
+    for mode, n_saved in ((torch.inference_mode, 0), (torch.no_grad, 0),
+                          (torch.enable_grad, 5)):
+        saved = []
+        with torch.autograd.graph.saved_tensors_hooks(
+                lambda x: saved.append(x) or x, lambda x: x), mode():
+            out = attn.flash_attention(*leaves, causal=True)
+        assert len(saved) == n_saved, mode
+        assert (out.grad_fn is None) == (n_saved == 0), mode
+        torch.testing.assert_close(
+            out.detach(), attn.flash_attention_plain(q, k, v, True)[0],
+            rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -98,6 +182,13 @@ def test_cpu_wrapper_runs_plain_and_counts_no_launch():
     assert torch.equal(out, plain_out) and torch.equal(lse, plain_lse)
     assert torch.equal(attn.flash_attention(q, k, v), plain_out)
     assert attn.flash_attention_fwd.launches == before
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(0))
+    before_bwd = attn.flash_attention_bwd.launches
+    grads = attn.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    plain = attn.flash_attention_bwd_plain(q, k, v, out, lse, do, True)
+    assert all(torch.equal(a, b) for a, b in zip(grads, plain))
+    assert [g.shape for g in grads] == [q.shape, k.shape, v.shape]
+    assert attn.flash_attention_bwd.launches == before_bwd
 
 
 def test_plain_is_differentiable_on_cpu():
@@ -153,6 +244,28 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype, causal):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bwd_kernel_matches_plain_on_card(cuda_device, dtype, causal):
+    _, (q, k, v) = _inputs(2, 4, 2, 136, 64, dtype)
+    q, k, v = (x.to(cuda_device) for x in (q, k, v))
+    # dO as the transformer hands it over: a strided (b, h, t, d) view.
+    do = torch.randn((2, 136, 4, 64), generator=torch.Generator(
+        cuda_device).manual_seed(1), device=cuda_device).to(q.dtype)
+    do = do.transpose(1, 2)
+    out, lse = attn.flash_attention_fwd(q, k, v, causal)
+    before = attn.flash_attention_bwd.launches
+    grads = attn.flash_attention_bwd(q, k, v, out, lse, do, causal)
+    plain = attn.flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
+    assert attn.flash_attention_bwd.launches == before + 1
+    rtol, atol = TOL[dtype]["grad"]
+    for a, r in zip(grads, plain):
+        r = r.float().cpu()
+        scale = float(r.abs().max()) if dtype == "bfloat16" else 1.0
+        _assert_close(a.cpu(), r.numpy(), rtol, atol * scale)
+
+
+@pytest.mark.cuda
 def test_kernel_rejects_what_it_does_not_take(cuda_device):
     ok = torch.zeros((1, 2, 64, 64), device=cuda_device,
                      dtype=torch.bfloat16)
@@ -163,6 +276,9 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
         attn.flash_attention(bad, bad, bad)
     with pytest.raises(ValueError, match="CUDA"):
         attn.flash_attention(ok, ok.cpu(), ok)
-    with pytest.raises(NotImplementedError, match="training"):
-        attn.flash_attention(ok.float().requires_grad_(True), ok.float(),
-                             ok.float())
+    # With grad on, the op trains through the backward kernel.
+    q = ok.float().requires_grad_(True)
+    before = attn.flash_attention_bwd.launches
+    attn.flash_attention(q, ok.float(), ok.float()).sum().backward()
+    assert attn.flash_attention_bwd.launches == before + 1
+    assert q.grad is not None and bool(torch.isfinite(q.grad).all())

@@ -51,11 +51,11 @@ def test_no_jax_or_gloo_tpu_import_in_source(path):
 
 def test_entry_points_raise_without_a_gpu(monkeypatch):
     from gloo_tpu_torch import weights
-    from gloo_tpu_torch.entry import ENTRY_CONFIG, entry
+    from gloo_tpu_torch.entry import ENTRY_CONFIG, entry, train_entry
     from gloo_tpu_torch.models import MLP, Transformer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for call in (entry, lambda: Transformer(ENTRY_CONFIG),
+    for call in (entry, train_entry, lambda: Transformer(ENTRY_CONFIG),
                  lambda: MLP((4, 4)),
                  lambda: weights.transformer_params_from_numpy({}, None)):
         with pytest.raises(RuntimeError, match="device='cpu'"):

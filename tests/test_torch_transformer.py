@@ -11,6 +11,17 @@ every activation is rounded to bf16, and XLA and PyTorch round elementwise
 chains (GELU, RMSNorm) and products at different places, each difference
 one bf16 ulp (2**-8 relative) that two layers carry on (~1.1e-2 seen at the
 entry width, ~6e-3 at the small one).
+
+Training: the loss and every parameter's gradient against
+jax.value_and_grad(model.loss) on the same weights and tokens. Gradients
+are compared by the per-tensor relative norm |g - g_ref| / |g_ref|, since a
+bf16 rounding that falls the other way moves single small elements by a
+large relative amount. f32: loss rtol 1e-5, gradients 1e-5 (~1e-6 seen).
+bf16: loss rtol 5e-4 (~5e-5 seen), gradients 5e-2 (up to ~1.8e-2 seen at
+the small width): the forward's bf16 differences above, carried back
+through two layers' backward in bf16. Parameters after Adam are compared
+only through the optimizer test (a step is +-lr sign(g), so a near-zero
+gradient of the other sign moves a parameter by 2 lr).
 """
 
 import dataclasses
@@ -28,10 +39,18 @@ from gloo_tpu.models import MLP as JaxMLP  # noqa: E402
 from gloo_tpu.models import Transformer as JaxTransformer  # noqa: E402
 from gloo_tpu.models import TransformerConfig as JaxConfig  # noqa: E402
 from gloo_tpu_torch import weights  # noqa: E402
-from gloo_tpu_torch.entry import ENTRY_CONFIG, entry  # noqa: E402
+from gloo_tpu_torch.entry import (  # noqa: E402
+    ADAM_SETTINGS,
+    ENTRY_CONFIG,
+    entry,
+    train_entry,
+)
+from gloo_tpu_torch.ops import attention as attn  # noqa: E402
 from gloo_tpu_torch.models import MLP, Transformer, TransformerConfig  # noqa: E402,E501
 
 LOGIT_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 2e-2)}
+# (loss rtol, per-tensor relative norm of the gradients); module docstring.
+GRAD_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (5e-4, 5e-2)}
 
 SMALL = dict(vocab_size=64, d_model=64, n_heads=4, n_layers=2, d_ff=128,
              max_seq_len=32)
@@ -99,6 +118,99 @@ def test_entry_width_matches_jax_entry():
     np.testing.assert_array_equal(tokens.numpy(), np.asarray(jtokens))
     ours = fn(tm, tokens)
     _assert_logits_close(ours, jax.jit(jfn)(jparams, jtokens), "bfloat16")
+
+
+def _assert_loss_and_grads_match_jax(jm, jparams, tm, tokens, dtype):
+    """Loss and parameter grads of the port (tm.loss, backward) against
+    jax.value_and_grad(jm.loss) on (tokens, tokens rolled left by one)."""
+    targets = np.roll(tokens, -1, axis=1)
+    jloss, jgrads = jax.value_and_grad(jm.loss)(
+        jparams, (jnp.asarray(tokens, jnp.int32),
+                  jnp.asarray(targets, jnp.int32)))
+    loss = tm.loss(torch.as_tensor(tokens, dtype=torch.int32),
+                   torch.as_tensor(targets, dtype=torch.int32))
+    loss.backward()
+    assert loss.dtype == torch.float32 and loss.shape == ()
+    loss_rtol, grad_tol = GRAD_TOL[dtype]
+    np.testing.assert_allclose(float(loss.detach()), float(jloss),
+                               rtol=loss_rtol)
+    grads = weights.transformer_params_to_numpy(
+        {name: p.grad for name, p in tm.named_parameters()}, tm.cfg)
+    flat = jax.tree_util.tree_flatten_with_path(jgrads)[0]
+    for (path, ref), ours in zip(flat, jax.tree.leaves(grads)):
+        ref = np.asarray(ref)
+        rel = np.linalg.norm(ours - ref) / np.linalg.norm(ref)
+        assert rel <= grad_tol, (jax.tree_util.keystr(path), rel)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("flash", [True, False])
+@pytest.mark.parametrize("variant", [
+    {},                                  # multi-head, learned positions
+    {"n_kv_heads": 2},                   # GQA
+    {"n_kv_heads": 1, "use_rope": True},  # multi-query with RoPE
+])
+def test_loss_and_grads_match_jax(dtype, flash, variant):
+    jm, jparams, tm = _pair(dtype, use_flash_attention=flash, **variant)
+    tokens = np.random.RandomState(6).randint(0, SMALL["vocab_size"], (2, 32))
+    _assert_loss_and_grads_match_jax(jm, jparams, tm, tokens, dtype)
+
+
+def test_entry_width_loss_and_grads_match_jax():
+    _, (jparams, jtokens) = __graft_entry__.entry()
+    cfg = ENTRY_CONFIG
+    jm = JaxTransformer(JaxConfig(
+        vocab_size=cfg.vocab_size, d_model=cfg.d_model, n_heads=cfg.n_heads,
+        n_layers=cfg.n_layers, d_ff=cfg.d_ff, max_seq_len=cfg.max_seq_len,
+        use_flash_attention=True))
+    tm = Transformer(cfg, device="cpu")
+    tm.load_state_dict(weights.transformer_params_from_numpy(
+        jax.tree.map(np.asarray, jparams), cfg, "cpu"))
+    _assert_loss_and_grads_match_jax(jm, jparams, tm, np.array(jtokens),
+                                     "bfloat16")
+
+
+def test_adam_matches_optax():
+    # torch.optim.Adam at train_entry's settings against optax.adam(1e-3),
+    # fed the same f32 gradients for three steps.
+    optax = pytest.importorskip("optax")
+    rng = np.random.RandomState(7)
+    shapes = [(5, 3), (4,)]
+    params = [rng.randn(*s).astype(np.float32) for s in shapes]
+    grads = [[rng.randn(*s).astype(np.float32) * 10.0 ** -i for s in shapes]
+             for i in range(3)]
+    ours = [torch.nn.Parameter(torch.from_numpy(p.copy())) for p in params]
+    opt = torch.optim.Adam(ours, **ADAM_SETTINGS)
+    tx = optax.adam(1e-3)
+    jp = [jnp.asarray(p) for p in params]
+    state = tx.init(jp)
+    for step in grads:
+        for p, g in zip(ours, step):
+            p.grad = torch.from_numpy(g)
+        opt.step()
+        updates, state = tx.update([jnp.asarray(g) for g in step], state, jp)
+        jp = optax.apply_updates(jp, updates)
+    for a, b in zip(ours, jp):
+        np.testing.assert_allclose(a.detach().numpy(), np.asarray(b),
+                                   rtol=0, atol=1e-6)
+
+
+def test_train_entry_on_cpu():
+    before = (attn.flash_attention_fwd.launches,
+              attn.flash_attention_bwd.launches)
+    step, (model, optimizer, tokens, targets) = train_entry("cpu")
+    assert isinstance(optimizer, torch.optim.Adam)
+    assert optimizer.defaults["weight_decay"] == 0
+    assert not optimizer.defaults["amsgrad"]
+    assert {k: optimizer.defaults[k] for k in ADAM_SETTINGS} == ADAM_SETTINGS
+    assert torch.equal(targets, tokens.roll(-1, dims=1))
+    assert targets.dtype == torch.int32 and targets.device.type == "cpu"
+    losses = [float(step(model, optimizer, tokens, targets))
+              for _ in range(3)]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+    assert all(p.grad is not None for p in model.parameters())
+    assert (attn.flash_attention_fwd.launches,
+            attn.flash_attention_bwd.launches) == before
 
 
 @pytest.mark.parametrize("variant", [{}, {"n_kv_heads": 2, "use_rope": True},
