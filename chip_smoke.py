@@ -17,7 +17,20 @@ Phases, each of which raises on failure:
      width, with the launch counts read around them, a falling loss, and
      the first step's loss and gradients against the same model on the CPU;
   7. times of each kernel, its plain version and the library yardstick,
-     and of the forward and the training step.
+     and of the forward and the training step;
+  8. the ring kernels (allreduce, reduce-scatter, allgather) against their
+     plain versions on the card, bitwise, over worlds of 2 to 8 ranks on
+     the card (RING_CASES), the torus composition on a 2 x 2 mesh;
+  9. the group path: CudaProcessGroup over a world of 4 ranks on the card,
+     every collective against its closed form, with the ring kernels'
+     launch counts read around it;
+ 10. the data-parallel path: 5 steps of gloo_tpu_torch.entry's
+     ddp_train_entry (4 ranks on the card, batch 8 split 2 per rank), with
+     the launch counts read around them, a falling loss, bitwise-equal
+     replicas, and the first step against train_step over the whole batch
+     on the same card;
+ 11. times of the ring kernels at the DDP gradient shape against their
+     bound, plain versions and library yardsticks, and of the DDP step.
 The line before the last is the JSON list of kernels; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or gloo_tpu.
 """
@@ -29,6 +42,7 @@ import json
 import subprocess
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -64,6 +78,25 @@ LOGITS_TOL = (2e-2, 2e-2)
 # by up to ~1.8e-2 in this norm and ~5e-5 in the loss.
 TRAIN_TOL = {"loss": 1e-3, "grad": 5e-2}
 TRAIN_STEPS = 5
+# The first DDP step (4 ranks of batch 2 on the card) against train_step
+# over the whole batch of 8 on the same card is held to TRAIN_TOL: the
+# model, weights and tokens are the same, and the only difference is that
+# the bf16 products run over batch 2 instead of batch 8 (cuBLAS may pick
+# other kernels and sum orders) and the mean over the batch is taken in two
+# stages (per rank, then over the ring) in f32.
+DDP_STEPS = 5
+
+# (name, ranks, rows per rank, cols, dtype): the ring kernels against their
+# plain versions, bitwise. rows = n * 8 as in the JAX tests; "ddp" cases
+# take the DDP step's gradient buffer (its shape is set in phase 8).
+RING_CASES = [
+    ("P2_f32", 2, 16, 128, torch.float32),
+    ("P3_f32", 3, 24, 128, torch.float32),
+    ("P4_f32", 4, 32, 128, torch.float32),
+    ("P8_f32", 8, 64, 128, torch.float32),
+    ("P4_bf16", 4, 32, 128, torch.bfloat16),
+    ("P4_f32_cols100", 4, 32, 100, torch.float32),
+]
 
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -252,15 +285,53 @@ def check_bwd(attn, name, b, h, h_kv, t, d, dtype, causal, gen):
     return worst, ok
 
 
+def ring_check(label, fn, plain, x, axis, mesh, want=None):
+    """One ring kernel against its plain version on the card: (output,
+    max |kernel - plain|, list of what failed). Every rank of a ring must
+    also end bitwise equal to the first rank of its ring where the
+    function says so (all but the reduce-scatter); `want` is the exact
+    result where there is one (the allgather's), else the f64 sum is shown
+    beside for information."""
+    out = fn(x, axis, mesh)
+    torch.cuda.synchronize()
+    ref = plain(x, axis, mesh)
+    diff = float((out.float() - ref.float()).abs().max())
+    failed = [] if torch.equal(out, ref) else ["differs from its plain version"]
+    if fn.__name__ != "ring_reduce_scatter":
+        first = [m[0] for m in mesh.ring_members(axis)]
+        if not torch.equal(out, out[first]):
+            failed.append("ranks of a ring differ")
+    shown = ""
+    if want is not None:
+        if not torch.equal(out, want):
+            failed.append("differs from the gathered input")
+    else:
+        exact = x.double()[torch.tensor(mesh.ring_members(axis))].sum(1)
+        if fn.__name__ == "ring_reduce_scatter":
+            n = mesh.shape[axis]
+            idx = torch.tensor(mesh.ring_index(axis))
+            exact = exact.view(x.shape[0], n, -1, x.shape[2])[
+                torch.arange(x.shape[0]), idx]
+        shown = f", vs the f64 sum {float((out.double() - exact).abs().max()):.3e}"
+    print(f"{fn.__name__} {label}: {x.shape[0]} ranks of "
+          f"{tuple(x.shape[1:])} {str(x.dtype)[6:]}: max |kernel - plain| "
+          f"{diff:.3e}{shown}{'; FAILED: ' + ', '.join(failed) if failed else ''}")
+    return out, diff, failed
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
 
     from gloo_tpu_torch import _build
-    from gloo_tpu_torch.entry import ENTRY_CONFIG, entry, train_entry
+    from gloo_tpu_torch.entry import (DDP_WORLD, ENTRY_CONFIG,
+                                      ddp_train_entry, entry, train_entry)
     from gloo_tpu_torch.entry import forward as entry_forward
     from gloo_tpu_torch.models import Transformer
     from gloo_tpu_torch.ops import attention as attn
+    from gloo_tpu_torch.ops import ring
+    from gloo_tpu_torch.parallel.ddp import buffer_width
+    from gloo_tpu_torch.tpu import CudaProcessGroup, make_mesh
 
     # Phase 1: the card.
     card = card_line()
@@ -486,20 +557,244 @@ def main():
     for dev_ms, calls, kname in train_rows[:8]:
         print(f"  {dev_ms:.6f} ms in {calls:g} calls: {kname[:90]}")
 
+    # Phase 8: the ring kernels against their plain versions, bitwise.
+    dev = torch.device("cuda")
+    failed = []
+    for name, n, n_rows, n_cols, dtype in RING_CASES:
+        mesh = make_mesh({"x": n}, devices=[dev] * n)
+        x = torch.randn((n, n_rows, n_cols), generator=gen,
+                        device="cuda").to(dtype)
+        for fn, plain in ((ring.ring_allreduce, ring.ring_allreduce_plain),
+                          (ring.ring_reduce_scatter,
+                           ring.ring_reduce_scatter_plain)):
+            failed += [f"{fn.__name__} {name}: {f}" for f in ring_check(
+                name, fn, plain, x, "x", mesh)[2]]
+        xs = x[:, :n_rows // n]
+        failed += [f"ring_allgather {name}: {f}" for f in ring_check(
+            name, ring.ring_allgather, ring.ring_allgather_plain, xs, "x",
+            mesh, want=xs.reshape(1, n_rows, n_cols).expand(n, -1, -1))[2]]
+    # The DDP step's gradient buffer: every parameter's gradient and the
+    # loss, padded (gloo_tpu_torch.parallel.ddp), 4 ranks on the card.
+    n_params = sum(p.numel() for p in model.parameters())
+    width = buffer_width(n_params, DDP_WORLD)
+    print(f"DDP buffer: {n_params} gradients + 1 loss, padded to {width} "
+          f"f32 per rank")
+    ddp_mesh = make_mesh({"data": DDP_WORLD}, devices=[dev] * DDP_WORLD)
+    grads = torch.randn((DDP_WORLD, DDP_WORLD, width // DDP_WORLD),
+                        generator=gen, device="cuda")
+    ring_err = {}
+    for fn, plain, x, want in (
+            (ring.ring_allreduce, ring.ring_allreduce_plain, grads, None),
+            (ring.ring_reduce_scatter, ring.ring_reduce_scatter_plain, grads,
+             None),
+            (ring.ring_allgather, ring.ring_allgather_plain, grads[:, :1],
+             grads[:, 0].reshape(1, DDP_WORLD, -1).expand(DDP_WORLD, -1,
+                                                           -1))):
+        _, diff, bad = ring_check("ddp", fn, plain, x, "data", ddp_mesh,
+                                  want)
+        ring_err[fn.__name__] = diff
+        failed += [f"{fn.__name__} ddp: {f}" for f in bad]
+    torus_mesh = make_mesh({"y": 2, "x": 2}, devices=[dev] * 4)
+    z = torch.randn((4, 8, 128), generator=gen, device="cuda")
+    before = (ring.ring_reduce_scatter.launches, ring.ring_allgather.launches)
+    out = ring.ring_allreduce_torus(z, ("x", "y"), torus_mesh)
+    torch.cuda.synchronize()
+    torus_launches = (ring.ring_reduce_scatter.launches - before[0],
+                      ring.ring_allgather.launches - before[1])
+    ref = z
+    for ax in ("x", "y"):
+        ref = ring.ring_reduce_scatter_plain(ref, ax, torus_mesh)
+    for ax in ("y", "x"):
+        ref = ring.ring_allgather_plain(ref, ax, torus_mesh)
+    diff = float((out - ref).abs().max())
+    print(f"ring_allreduce_torus 2x2 mesh (y, x) along (x, y): 4 ranks of "
+          f"(8, 128) f32: max |kernel - plain| {diff:.3e}, vs the f64 sum "
+          f"{float((out.double() - z.double().sum(0)).abs().max()):.3e}; "
+          f"launches (reduce-scatter, allgather) {torus_launches}")
+    if not torch.equal(out, ref) or not torch.equal(out, out[[0] * 4]) \
+            or torus_launches != (2, 2):
+        failed.append("ring_allreduce_torus")
+    if failed:
+        raise AssertionError(f"ring kernels disagree: {failed}")
+
+    # Phase 9: the group path, with the ring launch counts read around it.
+    pg = CudaProcessGroup(ddp_mesh)
+    p = pg.size
+    xr = np.arange(p * 16, dtype=np.float32).reshape(p, 16) + 1.0
+    xa = (np.arange(p)[:, None] * 100 + np.arange(p)[None, :]).astype(
+        np.float32)[..., None] * np.ones((p, p, 8), np.float32)
+    xs = xr[:, :1] * np.ones((p, p * 4), np.float32)
+    for fn in (ring.ring_allreduce, ring.ring_reduce_scatter,
+               ring.ring_allgather):
+        fn.launches = 0
+    got = {
+        "allreduce": pg.unshard(pg.allreduce(pg.shard(xr))),
+        "allreduce_max": pg.unshard(pg.allreduce(pg.shard(xr), op="max")),
+        "reduce_scatter": pg.unshard(pg.reduce_scatter(pg.shard(xs))),
+        "allgather": pg.unshard(pg.allgather(pg.shard(xr))),
+        "broadcast": pg.unshard(pg.broadcast(pg.shard(xr), root=2)),
+        "reduce": pg.unshard(pg.reduce(pg.shard(xr), root=1)),
+        "alltoall": pg.unshard(pg.alltoall(pg.shard(xa))),
+        "shift": pg.unshard(pg.shift(pg.shard(xr), offset=1)),
+    }
+    pg.barrier()
+    group_launches = (ring.ring_allreduce.launches,
+                      ring.ring_reduce_scatter.launches,
+                      ring.ring_allgather.launches)
+    total = xr.sum(0)
+    closed = {
+        "allreduce": np.broadcast_to(total, (p, 16)),
+        "allreduce_max": np.broadcast_to(xr.max(0), (p, 16)),
+        "reduce_scatter": xs.sum(0).reshape(p, 4),
+        "allgather": np.broadcast_to(xr, (p, p, 16)),
+        "broadcast": np.broadcast_to(xr[2], (p, 16)),
+        "reduce": np.where(np.arange(p)[:, None] == 1, total, 0.0),
+        "alltoall": xa.transpose(1, 0, 2),
+        "shift": np.roll(xr, 1, axis=0),
+    }
+    wrong = [k for k in closed
+             if got[k].shape != closed[k].shape
+             or not np.allclose(got[k], closed[k], rtol=1e-6, atol=0)]
+    print(f"group path (CudaProcessGroup, {p} ranks on the card): "
+          f"{', '.join(got)} and barrier against their closed forms: "
+          f"{'all agree' if not wrong else 'FAILED ' + str(wrong)}; "
+          f"launches ring_allreduce, ring_reduce_scatter, ring_allgather "
+          f"{group_launches}")
+    if wrong or group_launches != (2, 1, 1):
+        raise AssertionError(f"the group path failed: {wrong}, launches "
+                             f"{group_launches}, expected (2, 1, 1)")
+
+    # Phase 10: the data-parallel path, with the launch counts read around
+    # it, against train_step over the whole batch on the same card.
+    ddp_step, (replicas, optimizers, batch) = ddp_train_entry()
+    _, (smodel, sopt, stokens, stargets) = train_entry()
+    if not (torch.equal(batch[0], stokens) and torch.equal(batch[1],
+                                                           stargets)):
+        raise AssertionError("ddp_train_entry's batch is not train_entry's")
+    single_loss = float(step(smodel, sopt, stokens, stargets))
+    single_grads = {n: p.grad.clone() for n, p in smodel.named_parameters()}
+    for counter in (attn.flash_attention_fwd, attn.flash_attention_bwd,
+                    ring.ring_allreduce, ring.ring_reduce_scatter,
+                    ring.ring_allgather):
+        counter.launches = 0
+    ddp_losses = [ddp_step(replicas, optimizers, batch)]
+    ddp_grads = {n: p.grad.clone() for n, p in replicas[0].named_parameters()}
+    ddp_losses += [ddp_step(replicas, optimizers, batch)
+                   for _ in range(DDP_STEPS - 1)]
+    torch.cuda.synchronize()
+    ddp_launches = (attn.flash_attention_fwd.launches,
+                    attn.flash_attention_bwd.launches,
+                    ring.ring_allreduce.launches,
+                    ring.ring_reduce_scatter.launches,
+                    ring.ring_allgather.launches)
+    ddp_losses = [float(x) for x in ddp_losses]
+    print(f"DDP path: {DDP_STEPS} steps of {DDP_WORLD} ranks on the card, "
+          f"losses {', '.join(f'{x:.6f}' for x in ddp_losses)}; launches "
+          f"flash_fwd, flash_bwd, ring_allreduce, ring_reduce_scatter, "
+          f"ring_allgather {ddp_launches}")
+    per_step = DDP_WORLD * cfg.n_layers
+    want = (DDP_STEPS * per_step, DDP_STEPS * per_step, DDP_STEPS, 0, 0)
+    if ddp_launches != want:
+        raise AssertionError(f"the DDP path launched {ddp_launches}, "
+                             f"expected {want}")
+    if not all(np.isfinite(ddp_losses)) or not ddp_losses[-1] < \
+            ddp_losses[0]:
+        raise AssertionError(f"DDP loss is not finite and falling: "
+                             f"{ddp_losses}")
+    unequal = [n for m in replicas[1:]
+               for (n, a), b in zip(m.named_parameters(),
+                                    replicas[0].parameters())
+               if not torch.equal(a, b)]
+    print(f"replicas after {DDP_STEPS} steps: "
+          f"{'bitwise equal' if not unequal else 'DIFFER at ' + str(unequal)}")
+    if unequal:
+        raise AssertionError(f"the DDP replicas differ: {unequal}")
+    loss_rel = abs(ddp_losses[0] - single_loss) / abs(single_loss)
+    grad_rel = {n: float((ddp_grads[n] - g).norm() / g.norm())
+                for n, g in single_grads.items()}
+    worst = max(grad_rel, key=grad_rel.get)
+    print(f"first DDP step vs train_step over the whole batch on the card: "
+          f"loss {ddp_losses[0]:.6f} vs {single_loss:.6f} (rel "
+          f"{loss_rel:.3e}, tol {TRAIN_TOL['loss']}); grads |g - g_1| / "
+          f"|g_1| max {grad_rel[worst]:.3e} at {worst}, median "
+          f"{sorted(grad_rel.values())[len(grad_rel) // 2]:.3e} (tol "
+          f"{TRAIN_TOL['grad']})")
+    if loss_rel > TRAIN_TOL["loss"] or grad_rel[worst] > TRAIN_TOL["grad"]:
+        raise AssertionError("the first DDP step disagrees with train_step "
+                             "over the whole batch")
+
+    # Phase 11: ring kernel times at the DDP shape. Bounds: each input byte
+    # read once and each output byte written once at the HBM rate (B3 2 P S,
+    # B4a P S + S, B4b S + P S for S bytes per rank), against the adds at
+    # the f32 peak. The yardsticks are PyTorch calls the port never makes.
+    print(f"ring times at the DDP shape ({DDP_WORLD} ranks x {width} f32) "
+          f"on {card}:")
+    per_rank = width * 4
+    chunk = grads[:, :1].contiguous()
+    ring_rows = {}
+    for fn, plain, x, lib_label, lib_fn, nbytes, adds in (
+            (ring.ring_allreduce, ring.ring_allreduce_plain, grads,
+             "x.sum(0) then expand(P).contiguous(), two calls",
+             lambda: grads.sum(0).expand(DDP_WORLD, -1, -1).contiguous(),
+             2 * DDP_WORLD * per_rank, (DDP_WORLD - 1) * width),
+            (ring.ring_reduce_scatter, ring.ring_reduce_scatter_plain, grads,
+             "x.sum(0)", lambda: grads.sum(0),
+             DDP_WORLD * per_rank + per_rank, (DDP_WORLD - 1) * width),
+            (ring.ring_allgather, ring.ring_allgather_plain, chunk,
+             "expand(P).contiguous()",
+             lambda: chunk.reshape(1, DDP_WORLD, -1).expand(
+                 DDP_WORLD, -1, -1).contiguous(),
+             per_rank + DDP_WORLD * per_rank, 0)):
+        name = fn.__name__
+        ms = timed_kernel(f"{name} kernel",
+                          lambda: fn(x, "data", ddp_mesh), "ring_kernel")
+        timed(f"{name} whole call (flags, buffers, kernel)",
+              lambda: fn(x, "data", ddp_mesh))
+        plain_ms = timed(f"{name} plain",
+                         lambda: plain(x, "data", ddp_mesh), iters=5)
+        lib_ms = timed(f"{name} yardstick {lib_label}", lib_fn)
+        bound, bound_by = _bound(nbytes, adds, torch.float32)
+        print(f"  {name} bound {bound:.6f} ms ({bound_by}: {nbytes} bytes)")
+        ring_rows[name] = (ms, plain_ms, lib_ms, bound, bound_by)
+
+    def ddp_once():
+        ddp_step(replicas, optimizers, batch)
+
+    ddp_ms = event_ms(ddp_once, iters=10)
+    ddp_dev, ddp_rows = device_profile(ddp_once, iters=5)
+    busy = "not measured" if ddp_dev is None else f"{ddp_dev / ddp_ms:.3f}"
+    print(f"DDP step ({DDP_WORLD} ranks x batch 2, seq 128, Adam): "
+          f"{ddp_ms:.6f} ms per step, device time {ddp_dev} ms, device busy "
+          f"share {busy}")
+    for dev_ms, calls, kname in ddp_rows[:8]:
+        print(f"  {dev_ms:.6f} ms in {calls:g} calls: {kname[:90]}")
+
+    # Launches on the main paths: B1 on the serving path, B2 on the
+    # training path, B3 on the DDP path, B4a and B4b on the group path.
     kernels = []
-    for kname, source, line, n, err, (ms, plain, lib, bound, bound_by) in (
-            ("flash_fwd", "flash_fwd.cu", 92, launches, entry_err,
-             rows["entry"]),
-            ("flash_bwd", "flash_bwd.cu", 313, train_launches[1],
-             entry_bwd_err, bwd_rows["entry"])):
+    for kname, source, replaces, n, err, (ms, plain, lib, bound,
+                                          bound_by) in (
+            ("flash_fwd", "flash_fwd.cu", "attention.py:92", launches,
+             entry_err, rows["entry"]),
+            ("flash_bwd", "flash_bwd.cu", "attention.py:313",
+             train_launches[1], entry_bwd_err, bwd_rows["entry"]),
+            ("ring_allreduce", "ring.cu", "pallas_ring.py:63",
+             ddp_launches[2], ring_err["ring_allreduce"],
+             ring_rows["ring_allreduce"]),
+            ("ring_reduce_scatter", "ring.cu", "pallas_ring.py:876",
+             group_launches[1], ring_err["ring_reduce_scatter"],
+             ring_rows["ring_reduce_scatter"]),
+            ("ring_allgather", "ring.cu", "pallas_ring.py:995",
+             group_launches[2], ring_err["ring_allgather"],
+             ring_rows["ring_allgather"])):
         if None in (ms, plain, lib):
             raise AssertionError(
                 f"the profiler showed no device time for {kname}'s kernel, "
-                f"plain or library call at the entry shape")
+                f"plain or library call at the main path's shape")
         kernels.append({
             "name": kname, "route": "cuda",
             "source": f"gloo_tpu_torch/csrc/{source}",
-            "replaces": f"gloo_tpu/ops/attention.py:{line}",
+            "replaces": f"gloo_tpu/ops/{replaces}",
             "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": bound, "bound_by": bound_by, "library_ms": lib})
     print(json.dumps({"kernels": kernels}))

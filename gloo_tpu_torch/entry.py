@@ -1,5 +1,5 @@
 """Entry points: the flagship transformer's forward and training step on
-one GPU.
+one GPU, and its data-parallel training step over a world of ranks.
 
 ``entry()`` is the counterpart of ``__graft_entry__.entry()``: the same
 configuration (vocab 512, d_model 256, 4 heads, 2 layers, d_ff 1024, seq
@@ -8,6 +8,10 @@ configuration (vocab 512, d_model 256, 4 heads, 2 layers, d_ff 1024, seq
 seeded with 0. ``train_entry()`` is the one-device counterpart of the
 training step of ``__graft_entry__.dryrun_multichip``: the same model and
 tokens, next-token targets, and Adam at optax.adam(1e-3)'s settings.
+``ddp_train_entry()`` is the data-parallel counterpart of that training
+step: DDP_WORLD ranks on one card, each with a replica of the same model,
+train_entry()'s tokens and targets as the global batch, and the gradient
+mean on the ring allreduce kernel.
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ import torch
 
 from gloo_tpu_torch.device import resolve_device
 from gloo_tpu_torch.models.transformer import Transformer, TransformerConfig
+from gloo_tpu_torch.parallel.ddp import make_ddp_train_step
+from gloo_tpu_torch.tpu.mesh import make_mesh
 
 ENTRY_CONFIG = TransformerConfig(vocab_size=512, d_model=256, n_heads=4,
                                  n_layers=2, d_ff=1024, max_seq_len=128,
@@ -24,6 +30,9 @@ ENTRY_CONFIG = TransformerConfig(vocab_size=512, d_model=256, n_heads=4,
 ENTRY_BATCH = 8
 # optax.adam(1e-3): its defaults, eps outside the square root, no decay.
 ADAM_SETTINGS = dict(lr=1e-3, betas=(0.9, 0.999), eps=1e-8)
+# Ranks of ddp_train_entry's world, all on one card: ENTRY_BATCH / DDP_WORLD
+# sequences each.
+DDP_WORLD = 4
 
 
 def forward(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
@@ -66,7 +75,36 @@ def train_entry(device="cuda"):
     by one (np.roll, as the JAX step), and torch.optim.Adam at
     ADAM_SETTINGS."""
     _, (model, tokens) = entry(device)
-    targets = torch.as_tensor(np.roll(_entry_tokens(), -1, axis=1),
-                              dtype=torch.int32, device=tokens.device)
     optimizer = torch.optim.Adam(model.parameters(), **ADAM_SETTINGS)
-    return train_step, (model, optimizer, tokens, targets)
+    return train_step, (model, optimizer, tokens, _entry_targets(tokens))
+
+
+def _entry_targets(tokens: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(np.roll(_entry_tokens(), -1, axis=1),
+                           dtype=torch.int32, device=tokens.device)
+
+
+def _lm_loss(model: Transformer, batch) -> torch.Tensor:
+    tokens, targets = batch
+    return model.loss(tokens, targets)
+
+
+def ddp_train_entry(device="cuda"):
+    """Returns (step, (replicas, optimizers, (tokens, targets))) on
+    `device`: a mesh {"data": DDP_WORLD} of ranks on that one device, one
+    replica per rank loaded from train_entry()'s weights, one Adam at
+    ADAM_SETTINGS each, and train_entry()'s tokens and targets as the
+    global batch. step(replicas, optimizers, (tokens, targets)) is
+    make_ddp_train_step's: it returns the mean of the rank losses."""
+    _, (model, tokens) = entry(device)
+    dev = tokens.device
+    mesh = make_mesh({"data": DDP_WORLD}, devices=[dev] * DDP_WORLD)
+    replicas = [model]
+    for _ in range(DDP_WORLD - 1):
+        replica = Transformer(ENTRY_CONFIG, device=dev)
+        replica.load_state_dict(model.state_dict())
+        replicas.append(replica)
+    optimizers = [torch.optim.Adam(m.parameters(), **ADAM_SETTINGS)
+                  for m in replicas]
+    step = make_ddp_train_step(_lm_loss, mesh, "data")
+    return step, (replicas, optimizers, (tokens, _entry_targets(tokens)))

@@ -1,4 +1,5 @@
-"""Tensor ops of the port: the flash-attention kernels and RoPE."""
+"""Tensor ops of the port: the flash-attention kernels, the ring
+collective kernels and RoPE."""
 
 from gloo_tpu_torch.ops.attention import (
     flash_attention,
@@ -9,6 +10,15 @@ from gloo_tpu_torch.ops.attention import (
     reference_attention,
 )
 from gloo_tpu_torch.ops.kernel_table import KERNELS
+from gloo_tpu_torch.ops.ring import (
+    ring_allgather,
+    ring_allgather_plain,
+    ring_allreduce,
+    ring_allreduce_plain,
+    ring_allreduce_torus,
+    ring_reduce_scatter,
+    ring_reduce_scatter_plain,
+)
 from gloo_tpu_torch.ops.rope import apply_rope, rope_angles, rope_positions
 
 __all__ = [
@@ -20,6 +30,13 @@ __all__ = [
     "flash_attention_fwd",
     "flash_attention_plain",
     "reference_attention",
+    "ring_allgather",
+    "ring_allgather_plain",
+    "ring_allreduce",
+    "ring_allreduce_plain",
+    "ring_allreduce_torus",
+    "ring_reduce_scatter",
+    "ring_reduce_scatter_plain",
     "rope_angles",
     "rope_positions",
 ]

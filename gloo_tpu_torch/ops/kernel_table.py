@@ -4,11 +4,11 @@ One row per ``pl.pallas_call`` site in gloo_tpu/ops: the kernel function
 (file, ``def`` line, call line), the wrapper that reaches it, and its port
 status: ``ported: <source>`` or ``to port: slice <n>``. The slices are the
 order of the port: 1 serving (flash forward), 2 training on one card
-(flash backward), 3 the device plane on more than one card (ring
-allreduce, reduce-scatter, allgather), 4 tensor parallelism (collective
-matmuls), 5 sequence and expert parallelism (ring-attention steps,
-all-to-all), 6 the remaining ring variants. tests/test_torch_isolation.py holds this table against the
-JAX sources.
+(flash backward), 3 the device plane (ring allreduce, reduce-scatter,
+allgather) over a world of ranks on one card, 4 tensor parallelism
+(collective matmuls), 5 sequence and expert parallelism (ring-attention
+steps, all-to-all), 6 the remaining ring variants.
+tests/test_torch_isolation.py holds this table against the JAX sources.
 """
 
 from __future__ import annotations
@@ -47,7 +47,7 @@ KERNELS = (
     Kernel("B5b", _O, "_ag_matmul_kernel", 205, 294, "allgather_matmul",
            "to port: slice 4"),
     Kernel("B3", _R, "_ring_allreduce_kernel", 63, 183, "ring_allreduce",
-           "to port: slice 3"),
+           "ported: gloo_tpu_torch/csrc/ring.cu"),
     Kernel("B9", _R, "_ring_allreduce_hbm_kernel", 246, 440,
            "ring_allreduce_hbm", "to port: slice 6"),
     Kernel("B10", _R, "_ring_allreduce_q8_kernel", 485, 654,
@@ -55,9 +55,9 @@ KERNELS = (
     Kernel("B11", _R, "_ring_allreduce_bidir_kernel", 691, 842,
            "ring_allreduce_bidir", "to port: slice 6"),
     Kernel("B4a", _R, "_ring_reduce_scatter_kernel", 876, 963,
-           "ring_reduce_scatter", "to port: slice 3"),
+           "ring_reduce_scatter", "ported: gloo_tpu_torch/csrc/ring.cu"),
     Kernel("B4b", _R, "_ring_allgather_kernel", 995, 1050, "ring_allgather",
-           "to port: slice 3"),
+           "ported: gloo_tpu_torch/csrc/ring.cu"),
     Kernel("B8", _R, "_alltoall_kernel", 1109, 1178, "pallas_alltoall",
            "to port: slice 5"),
 )

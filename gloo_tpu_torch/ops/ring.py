@@ -1,0 +1,354 @@
+"""Ring allreduce, reduce-scatter and allgather on hand-written Hopper kernels.
+
+Counterpart of gloo_tpu/ops/pallas_ring.py's ``ring_allreduce`` (B3),
+``ring_reduce_scatter`` (B4a), ``ring_allgather`` (B4b) and their
+composition ``ring_allreduce_torus``. The Pallas kernels become
+``csrc/ring.cu``, one source with three entry points.
+
+Every function takes a world tensor ``x`` of shape (P, rows, cols): the
+leading axis is the flat rank of ``mesh`` (the TpuProcessGroup
+convention), and row r is what rank r holds. The rings run along one mesh
+axis, every ring of that axis in the same launch; ``rows`` must divide by
+the ring size n. Results, as in JAX:
+  - ring_allreduce: (P, rows, cols), each rank the sum over its ring;
+  - ring_reduce_scatter: (P, rows / n, cols), rank r chunk r of the sum;
+  - ring_allgather: (P, n rows, cols), the ring's rows in ring order.
+
+On CUDA tensors each wrapper launches its kernel or raises; on CPU tensors
+it runs its plain twin (``*_plain``), which walks the ring step by step
+with the kernel's send and receive chunk indices and adds in the same
+order, one add per step in the input dtype (bf16 rounds after every step,
+as the TPU kernel's ``o_ref[...] + comm_ref[slot]`` does). A chunk's B3
+sum is thus x[c + n - 1] + (... + (x[c + 1] + x[c])), ring indices mod n.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import TYPE_CHECKING
+
+import torch
+
+from gloo_tpu_torch import _build
+
+if TYPE_CHECKING:
+    # gloo_tpu_torch.tpu imports this module; the mesh is only read here.
+    from gloo_tpu_torch.tpu.mesh import Mesh
+
+KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+# Threads per block of csrc/ring.cu (kThreads) and the most ranks its peer
+# table holds (kMaxRanks).
+KERNEL_THREADS = 256
+KERNEL_MAX_RANKS = 32
+
+_lib: ctypes.CDLL | None = None
+# Most co-resident ring blocks per device index (gtt_ring_max_blocks).
+_max_blocks: dict[int, int] = {}
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_IP = ctypes.POINTER(ctypes.c_int)
+_TAIL = [_IP, _IP, _IP, _I, _I, _I, _L, _I, _I, _P]
+_SIGNATURES = {
+    "gtt_ring_allreduce": [_P, _P, _L, _P, _L, _P, _I] + _TAIL,
+    "gtt_ring_reduce_scatter": [_P, _L, _P, _L, _P, _P, _L, _P, _I] + _TAIL,
+    "gtt_ring_allgather": [_P, _L, _P, _L, _P, _I] + _TAIL,
+}
+
+
+def _ring_lib() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = _build.load("ring")
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.gtt_ring_max_blocks.argtypes = [_IP]
+        lib.gtt_ring_max_blocks.restype = ctypes.c_int
+        lib.gtt_ring_flag_stride.argtypes = [_I]
+        lib.gtt_ring_flag_stride.restype = ctypes.c_int
+        lib.gtt_error_string.argtypes = [_I]
+        lib.gtt_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _raise_on(err: int, name: str, lib: ctypes.CDLL) -> None:
+    if err != 0:
+        raise RuntimeError(
+            f"{name} kernel launch failed: "
+            f"{lib.gtt_error_string(err).decode()} (cudaError {err})")
+
+
+def _ring_size(x: torch.Tensor, axis_name: str, mesh: Mesh) -> int:
+    """Checks that hold on every device; returns the ring size n."""
+    if axis_name not in mesh.shape:
+        raise ValueError(f"axis {axis_name!r} is not one of "
+                         f"{mesh.axis_names}")
+    if x.dim() != 3 or x.shape[0] != mesh.size:
+        raise ValueError(f"x must be a world tensor (ranks={mesh.size}, "
+                         f"rows, cols); got {tuple(x.shape)}")
+    dev = mesh.device
+    if x.device.type != dev.type or (
+            dev.type == "cuda" and dev.index is not None
+            and x.device.index != dev.index):
+        raise ValueError(f"x lies on {x.device}, the mesh on {dev}")
+    return mesh.shape[axis_name]
+
+
+def _check_rows(rows: int, n: int) -> None:
+    if rows % n != 0:
+        raise ValueError(f"rows {rows} not divisible by ring size {n}")
+
+
+def _kernel_layout(x: torch.Tensor, chunk_elems: int, *more: torch.Tensor):
+    """(dtype code, vec, units per chunk): 16-byte units where every chunk
+    is a whole number of them and every buffer is 16-byte aligned."""
+    if x.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"the ring kernels take bf16 or f32, got {x.dtype}")
+    if x.shape[0] > KERNEL_MAX_RANKS:
+        raise ValueError(f"the ring kernels take at most {KERNEL_MAX_RANKS} "
+                         f"ranks, got {x.shape[0]}")
+    per_vec = 16 // x.element_size()
+    vec = chunk_elems % per_vec == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (x, *more))
+    return (KERNEL_DTYPES[x.dtype], int(vec),
+            chunk_elems // per_vec if vec else chunk_elems)
+
+
+def _launch_setup(x: torch.Tensor, mesh: Mesh, axis_name: str, units: int):
+    """(lib, slices, zeroed flags, flag stride, ctypes ring tables)."""
+    lib = _ring_lib()
+    ranks = x.shape[0]
+    index = x.device.index if x.device.index is not None \
+        else torch.cuda.current_device()
+    if index not in _max_blocks:
+        blocks = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            _raise_on(lib.gtt_ring_max_blocks(ctypes.byref(blocks)),
+                      "ring occupancy query", lib)
+        _max_blocks[index] = blocks.value
+    per_rank = _max_blocks[index] // ranks
+    if per_rank < 1:
+        raise RuntimeError(f"{ranks} ranks need {ranks} co-resident blocks; "
+                           f"the card holds {_max_blocks[index]}")
+    slices = max(1, min(per_rank, -(-units // KERNEL_THREADS)))
+    stride = lib.gtt_ring_flag_stride(mesh.shape[axis_name])
+    flags = torch.zeros(ranks * slices * stride, dtype=torch.int32,
+                        device=x.device)
+    tables = [(ctypes.c_int * ranks)(*t)
+              for t in mesh.ring_neighbors(axis_name)]
+    return lib, slices, flags, stride, tables
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+# ---- B3: ring allreduce ----
+
+def _allreduce(x: torch.Tensor, axis_name: str, mesh: Mesh) -> torch.Tensor:
+    n = _ring_size(x, axis_name, mesh)
+    ranks, rows, cols = x.shape
+    _check_rows(rows, n)
+    if n == 1:
+        return x
+    if x.device.type == "cpu":
+        return ring_allreduce_plain(x, axis_name, mesh)
+    x = x.contiguous()
+    chunk_elems = rows // n * cols
+    out = torch.empty_like(x)
+    dtype, vec, units = _kernel_layout(x, chunk_elems, out)
+    comm = torch.empty((ranks, 2, chunk_elems), dtype=x.dtype,
+                       device=x.device)
+    lib, slices, flags, stride, (my, right, left) = _launch_setup(
+        x, mesh, axis_name, units)
+    elt = x.element_size()
+    with torch.cuda.device(x.device):
+        err = lib.gtt_ring_allreduce(
+            x.data_ptr(), out.data_ptr(), rows * cols * elt, comm.data_ptr(),
+            2 * chunk_elems * elt, flags.data_ptr(), stride, my, right, left,
+            ranks, n, slices, units, dtype, vec, _stream(x))
+    _raise_on(err, "ring_allreduce", lib)
+    ring_allreduce.launches += 1
+    return out
+
+
+class _RingAllreduce(torch.autograd.Function):
+    """Sum-allreduce is linear: the VJP is the same allreduce of the
+    cotangent, on the same kernel (pallas_ring.py's _differentiable)."""
+
+    @staticmethod
+    def forward(ctx, x, axis_name, mesh):
+        ctx.axis_name, ctx.mesh = axis_name, mesh
+        return _allreduce(x, axis_name, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _allreduce(g, ctx.axis_name, ctx.mesh), None, None
+
+
+def ring_allreduce(x: torch.Tensor, axis_name: str,
+                   mesh: Mesh) -> torch.Tensor:
+    """Sum-allreduce of the world tensor x (P, rows, cols) along
+    `axis_name`: every rank gets the sum over its ring, bitwise the same on
+    every rank of a ring. Differentiable."""
+    if torch.is_grad_enabled() and x.requires_grad \
+            and _ring_size(x, axis_name, mesh) > 1:
+        return _RingAllreduce.apply(x, axis_name, mesh)
+    return _allreduce(x, axis_name, mesh)
+
+
+# Launches of the CUDA kernel in this process; counts nothing on the CPU.
+ring_allreduce.launches = 0
+
+
+def ring_allreduce_plain(x: torch.Tensor, axis_name: str,
+                         mesh: Mesh) -> torch.Tensor:
+    """B3's arithmetic in plain PyTorch: reduce-scatter then allgather,
+    step by step, with the kernel's chunk indices and add order."""
+    n = _ring_size(x, axis_name, mesh)
+    ranks, rows, cols = x.shape
+    _check_rows(rows, n)
+    my, _, left = (torch.tensor(t, device=x.device)
+                   for t in mesh.ring_neighbors(axis_name))
+    ar = torch.arange(ranks, device=x.device)
+    o = x.reshape(ranks, n, rows // n * cols).clone()
+    for s in range(n - 1):
+        # Every rank sends chunk (my - s) to its right neighbour, whose
+        # receive chunk (my_right - s - 1) is that same chunk; rank q gets
+        # its left neighbour's.
+        sent = o[ar, (my - s) % n]
+        recv = (my - s - 1) % n
+        o[ar, recv] = o[ar, recv] + sent[left]
+    for s in range(n - 1):
+        # Rank q's left neighbour forwards its chunk (my_left + 1 - s) into
+        # q's output at the same offset, verbatim.
+        idx = (my[left] + 1 - s) % n
+        o[ar, idx] = o[left, idx]
+    return o.reshape(ranks, rows, cols)
+
+
+# ---- B4a: ring reduce-scatter ----
+
+def ring_reduce_scatter(x: torch.Tensor, axis_name: str,
+                        mesh: Mesh) -> torch.Tensor:
+    """Ring reduce-scatter of the world tensor x (P, rows, cols) along
+    `axis_name`: (P, rows / n, cols), rank r holding chunk (ring index of
+    r) of its ring's sum."""
+    n = _ring_size(x, axis_name, mesh)
+    ranks, rows, cols = x.shape
+    if n == 1:
+        return x
+    _check_rows(rows, n)
+    if x.device.type == "cpu":
+        return ring_reduce_scatter_plain(x, axis_name, mesh)
+    x = x.contiguous()
+    chunk_elems = rows // n * cols
+    out = torch.empty((ranks, rows // n, cols), dtype=x.dtype,
+                      device=x.device)
+    work = torch.empty_like(x)
+    dtype, vec, units = _kernel_layout(x, chunk_elems, out, work)
+    comm = torch.empty((ranks, 2, chunk_elems), dtype=x.dtype,
+                       device=x.device)
+    lib, slices, flags, stride, (my, right, left) = _launch_setup(
+        x, mesh, axis_name, units)
+    elt = x.element_size()
+    with torch.cuda.device(x.device):
+        err = lib.gtt_ring_reduce_scatter(
+            x.data_ptr(), rows * cols * elt, out.data_ptr(),
+            chunk_elems * elt, work.data_ptr(), comm.data_ptr(),
+            2 * chunk_elems * elt, flags.data_ptr(), stride, my, right, left,
+            ranks, n, slices, units, dtype, vec, _stream(x))
+    _raise_on(err, "ring_reduce_scatter", lib)
+    ring_reduce_scatter.launches += 1
+    return out
+
+
+ring_reduce_scatter.launches = 0
+
+
+def ring_reduce_scatter_plain(x: torch.Tensor, axis_name: str,
+                              mesh: Mesh) -> torch.Tensor:
+    """B4a's arithmetic in plain PyTorch: the reduce-scatter phase with
+    start shift -1 (send chunk my - 1 - s, receive my - 2 - s), then each
+    rank keeps chunk my."""
+    n = _ring_size(x, axis_name, mesh)
+    ranks, rows, cols = x.shape
+    _check_rows(rows, n)
+    my, _, left = (torch.tensor(t, device=x.device)
+                   for t in mesh.ring_neighbors(axis_name))
+    ar = torch.arange(ranks, device=x.device)
+    work = x.reshape(ranks, n, rows // n * cols).clone()
+    for s in range(n - 1):
+        sent = work[ar, (my - 1 - s) % n]
+        recv = (my - 2 - s) % n
+        work[ar, recv] = work[ar, recv] + sent[left]
+    return work[ar, my].reshape(ranks, rows // n, cols)
+
+
+# ---- B4b: ring allgather ----
+
+def ring_allgather(x: torch.Tensor, axis_name: str,
+                   mesh: Mesh) -> torch.Tensor:
+    """Ring allgather of the world tensor x (P, rows, cols) along
+    `axis_name`: (P, n rows, cols), every rank of a ring holding the ring's
+    x rows stacked in ring order."""
+    n = _ring_size(x, axis_name, mesh)
+    ranks, rows, cols = x.shape
+    if n == 1:
+        return x
+    if x.device.type == "cpu":
+        return ring_allgather_plain(x, axis_name, mesh)
+    x = x.contiguous()
+    chunk_elems = rows * cols
+    out = torch.empty((ranks, n * rows, cols), dtype=x.dtype,
+                      device=x.device)
+    dtype, vec, units = _kernel_layout(x, chunk_elems, out)
+    lib, slices, flags, stride, (my, right, left) = _launch_setup(
+        x, mesh, axis_name, units)
+    elt = x.element_size()
+    with torch.cuda.device(x.device):
+        err = lib.gtt_ring_allgather(
+            x.data_ptr(), chunk_elems * elt, out.data_ptr(),
+            n * chunk_elems * elt, flags.data_ptr(), stride, my, right, left,
+            ranks, n, slices, units, dtype, vec, _stream(x))
+    _raise_on(err, "ring_allgather", lib)
+    ring_allgather.launches += 1
+    return out
+
+
+ring_allgather.launches = 0
+
+
+def ring_allgather_plain(x: torch.Tensor, axis_name: str,
+                         mesh: Mesh) -> torch.Tensor:
+    """B4b's data movement in plain PyTorch: own rows into chunk my, then
+    n - 1 steps that forward chunk (my - s) to the right neighbour."""
+    n = _ring_size(x, axis_name, mesh)
+    ranks, rows, cols = x.shape
+    my, _, left = (torch.tensor(t, device=x.device)
+                   for t in mesh.ring_neighbors(axis_name))
+    ar = torch.arange(ranks, device=x.device)
+    o = torch.zeros((ranks, n, rows * cols), dtype=x.dtype, device=x.device)
+    o[ar, my] = x.reshape(ranks, rows * cols)
+    for s in range(n - 1):
+        idx = (my[left] - s) % n
+        o[ar, idx] = o[left, idx]
+    return o.reshape(ranks, n * rows, cols)
+
+
+# ---- the torus composition (no kernel of its own) ----
+
+def ring_allreduce_torus(x: torch.Tensor, axis_names, mesh: Mesh):
+    """Dimension-ordered allreduce over a multi-axis mesh: reduce-scatter
+    along each of `axis_names` in order, then allgather in reverse order;
+    2 len(axis_names) launches. rows must divide by the product of the
+    axes' sizes. The mesh carries its own axis order, so the JAX version's
+    `mesh_axes` argument has no counterpart."""
+    axes = list(axis_names)
+    for ax in axes:
+        x = ring_reduce_scatter(x, ax, mesh)
+    for ax in reversed(axes):
+        x = ring_allgather(x, ax, mesh)
+    return x
