@@ -30,7 +30,27 @@ Phases, each of which raises on failure:
      replicas, and the first step against train_step over the whole batch
      on the same card;
  11. times of the ring kernels at the DDP gradient shape against their
-     bound, plain versions and library yardsticks, and of the DDP step.
+     bound, plain versions and library yardsticks, and of the DDP step;
+ 12. the collective matmul kernels (B5a matmul_reduce_scatter, B5b
+     allgather_matmul) against their plain versions on the card over
+     worlds of 2 to 8 ranks (OVERLAP_CASES), at the fused MLP's full
+     width, with a shared (stride-0) weight and along "model" of a 2 x 2
+     mesh; gx bitwise the gathered input, replicated results bitwise equal
+     on every rank of a ring;
+ 13. the fused Megatron-SP MLP (tensor-parallel path B): allgather_matmul
+     up, tanh GELU, matmul_reduce_scatter down, forward and backward at
+     full width over a ring of 4 ranks on the card, with the launch counts
+     read around it, against the same MLP run densely on the card; the
+     pair along "model" of a 2 x 2 mesh; both *_auto arms forced through
+     TPUCOLL_TP_OVERLAP against the fused result; measure_fused_ratio on
+     the card, and the fused arm that its cached probe selects;
+ 14. the dp x tp path (path A): 5 steps of gloo_tpu_torch.entry's
+     dp_tp_train_entry (a 2 x 2 mesh of ranks on the card), with the launch
+     counts read around them, a falling loss, bitwise-equal replicas and
+     shards, and the first step against train_step over the whole batch;
+ 15. times of B5a and B5b at the fused MLP's shapes against their bound,
+     plain versions and library yardsticks, of the fused MLP and of the
+     dp x tp step.
 The line before the last is the JSON list of kernels; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or gloo_tpu.
 """
@@ -39,6 +59,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
+import os
 import subprocess
 import time
 
@@ -97,6 +119,41 @@ RING_CASES = [
     ("P4_bf16", 4, 32, 128, torch.bfloat16),
     ("P4_f32_cols100", 4, 32, 100, torch.float32),
 ]
+
+# (name, mesh axes, ring axis, rows of a B5a chunk per rank, k, cols, dtype,
+# shared w): the collective matmuls against their plain versions. B5a takes
+# x (P, n rows, k), B5b x (P, rows, k); w (P, k, cols), or one (k, cols)
+# expanded to every rank (stride 0). "mlp_*" are the fused MLP's shapes
+# (phase 13): B5b x (4, 256, 256) @ w_up shards (4, 256, 256), B5a hidden
+# (4, 1024, 256) @ w_down shards (4, 256, 256).
+OVERLAP_CASES = [
+    ("P2_f32", {"x": 2}, "x", 8, 16, 128, torch.float32, False),
+    ("P3_f32", {"x": 3}, "x", 8, 16, 128, torch.float32, False),
+    ("P4_f32", {"x": 4}, "x", 8, 16, 128, torch.float32, False),
+    ("P8_f32", {"x": 8}, "x", 8, 16, 128, torch.float32, False),
+    ("P2_bf16", {"x": 2}, "x", 8, 16, 128, torch.bfloat16, False),
+    ("P3_bf16", {"x": 3}, "x", 8, 16, 128, torch.bfloat16, False),
+    ("P4_bf16", {"x": 4}, "x", 8, 16, 128, torch.bfloat16, False),
+    ("P8_bf16", {"x": 8}, "x", 8, 16, 128, torch.bfloat16, False),
+    ("P4_shared_w", {"x": 4}, "x", 8, 16, 128, torch.float32, True),
+    ("2x2_model", {"data": 2, "model": 2}, "model", 8, 16, 128,
+     torch.float32, False),
+    ("P3_ragged_bf16", {"x": 3}, "x", 20, 40, 100, torch.bfloat16, False),
+    ("P3_ragged_f32", {"x": 3}, "x", 20, 36, 100, torch.float32, False),
+    ("mlp_bf16", {"x": 4}, "x", 256, 256, 256, torch.bfloat16, False),
+    ("mlp_shared_bf16", {"x": 4}, "x", 256, 256, 256, torch.bfloat16, True),
+]
+# The fused MLP (phase 13) and the 2 x 2 pair against the same MLP run
+# densely on the card, as the relative norm |a - b| / |b| of the output and
+# of each gradient. bf16: the kernels round each ring partial to bf16
+# before its add (n roundings where the dense product has one), and the
+# backward carries that through GELU and a second pair; the norm moves by a
+# few 1e-3.
+MLP_TOL = 2e-2
+# The *_auto arms against the fused result (dryrun_multichip's rtol, on its
+# constant-filled inputs, f32).
+AUTO_RTOL = 1e-5
+DP_TP_STEPS = 5
 
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -168,25 +225,30 @@ def event_ms(fn, iters=50):
     return start.elapsed_time(end) / iters
 
 
-def device_profile(fn, iters=20):
+def device_profile(fn, iters=20, want=None, sessions=3):
     """Per-call device time of fn from torch.profiler (CUPTI): (total ms or
     None where the trace shows no device time, [(ms, calls, name)] per
-    kernel name, longest first)."""
+    kernel name, longest first). A session whose trace holds no device
+    time, or no kernel whose name contains `want`, is taken again, up to
+    `sessions` times: now and then a session records nothing."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    rows = []
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0.0))
-        if us > 0:
-            rows.append((us / 1e3 / iters, ev.count / iters, ev.key))
-    rows.sort(reverse=True)
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = []
+        for ev in prof.key_averages():
+            us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+            if us > 0:
+                rows.append((us / 1e3 / iters, ev.count / iters, ev.key))
+        rows.sort(reverse=True)
+        if rows and (want is None or any(want in r[2] for r in rows)):
+            break
     total = sum(r[0] for r in rows)
     return (total if total > 0 else None), rows
 
@@ -235,7 +297,7 @@ def timed_kernel(label, fn, name):
     `name` (those of one CUDA source, each launched once per call), or None
     where the trace shows none. Each kernel counts its mean time per
     launch, so a record the trace drops does not lower the time."""
-    rows = device_profile(fn)[1]
+    rows = device_profile(fn, want=name)[1]
     mine = [r for r in rows if name in r[2]]
     dev = sum(r[0] / r[1] for r in mine) if mine else None
     shown = "not measured" if dev is None else f"{dev:.6f} ms"
@@ -319,17 +381,246 @@ def ring_check(label, fn, plain, x, axis, mesh, want=None):
     return out, diff, failed
 
 
+def overlap_close(a, b):
+    """(max |a - b|, whether a is within the collective matmuls' tolerance
+    of b): f32 (rtol, atol) (1e-5, 1e-5), the partial products summed in
+    another order; bf16 two bf16 ulps of the largest |b|, a flipped last
+    bit of a rounded partial and then of the add after it."""
+    err = float((a.float() - b.float()).abs().max())
+    if a.dtype == torch.float32:
+        return err, max_err(a, b, 1e-5, 1e-5)[1]
+    peak = float(b.float().abs().max())
+    return err, err <= 2 * 2.0 ** (math.floor(math.log2(peak)) - 7)
+
+
+def rel_norm(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def dense_dot(a, b):
+    """a @ b accumulated in f32 and rounded once to a's dtype."""
+    return torch.matmul(a.float(), b.float()).to(a.dtype)
+
+
+def overlap_cases(ov, make_mesh, gen):
+    """Phase 12: B5a and B5b against their plain versions at
+    OVERLAP_CASES. Returns {case: (B5a max abs err, B5b max abs err)}."""
+    errs, failed = {}, []
+    for name, axes, axis, rows, k, cols, dtype, shared in OVERLAP_CASES:
+        ranks, n = math.prod(axes.values()), axes[axis]
+        mesh = make_mesh(axes, devices=[torch.device("cuda")] * ranks)
+        x = torch.randn((ranks, n * rows, k), generator=gen,
+                        device="cuda").to(dtype)
+        w = torch.randn((1 if shared else ranks, k, cols), generator=gen,
+                        device="cuda") / math.sqrt(k)
+        w = w.to(dtype).expand(ranks, -1, -1)
+        out = ov.matmul_reduce_scatter(x, w, axis, mesh)
+        torch.cuda.synchronize()
+        a_err, a_ok = overlap_close(
+            out, ov.matmul_reduce_scatter_plain(x, w, axis, mesh))
+        xs = x[:, :rows].contiguous()
+        y, gx = ov.allgather_matmul_fwd(xs, w, axis, mesh)
+        torch.cuda.synchronize()
+        ry, _ = ov.allgather_matmul_plain(xs, w, axis, mesh)
+        b_err, b_ok = overlap_close(y, ry)
+        members = mesh.ring_members(axis)
+        first = [m[0] for m in members]
+        gathered = torch.stack([xs[m].reshape(n * rows, k) for m in members])
+        bad = [] if a_ok and b_ok else ["differs from its plain version"]
+        if not torch.equal(gx, gathered):
+            bad.append("gx differs from the gathered input")
+        if shared and not torch.equal(y, y[first]):
+            bad.append("ranks of a ring differ")
+        print(f"overlap {name}: {ranks} ranks, ring {axis!r} of {n}, "
+              f"{str(dtype)[6:]}, B5a x {tuple(x.shape[1:])} -> "
+              f"{tuple(out.shape[1:])}, B5b x {tuple(xs.shape[1:])} -> "
+              f"{tuple(y.shape[1:])}{', shared w' if shared else ''}: max "
+              f"|kernel - plain| B5a {a_err:.3e}, B5b {b_err:.3e}; gx "
+              f"bitwise {torch.equal(gx, gathered)}"
+              f"{'; FAILED: ' + ', '.join(bad) if bad else ''}")
+        failed += [f"{name}: {b}" for b in bad]
+        errs[name] = (a_err, b_err)
+    if failed:
+        raise AssertionError(f"the collective matmul kernels disagree: "
+                             f"{failed}")
+    return errs
+
+
+def mlp_pair(tp, x, w_up, w_down, axis, mesh, act=True):
+    """The Megatron-SP MLP: allgather_matmul up, tanh GELU, matmul_
+    reduce_scatter down (dryrun_multichip's pair without the GELU when
+    act is False)."""
+    h = tp.allgather_matmul_dense(x, w_up, axis, mesh=mesh)
+    if act:
+        h = F.gelu(h, approximate="tanh")
+    return tp.row_parallel_dense_scattered(h, w_down, axis, mesh=mesh)
+
+
+def fused_mlp_path(ov, tp, counters, make_mesh, gen, cfg):
+    """Phase 13, at the widths of `cfg` (the flagship's d_model and d_ff)
+    and its batch 8 x seq 128 token rows over a ring of 4. Returns
+    (launches (B5b, B5a, B4b, B4a, B3), what phase 15 times)."""
+    n, d, f = 4, cfg.d_model, cfg.d_ff
+    rows = 8 * cfg.max_seq_len // n
+    dev = torch.device("cuda")
+    mesh = make_mesh({"x": n}, devices=[dev] * n)
+    big_x = torch.randn((n * rows, d), generator=gen, device=dev).bfloat16()
+    big_up = (torch.randn((d, f), generator=gen, device=dev)
+              / math.sqrt(d)).bfloat16()
+    big_down = (torch.randn((f, d), generator=gen, device=dev)
+                / math.sqrt(f)).bfloat16()
+    dy = torch.randn((n * rows, d), generator=gen, device=dev).bfloat16()
+    x = big_x.view(n, rows, d).clone().requires_grad_()
+    w_up = big_up.view(d, n, f // n).permute(1, 0, 2).contiguous() \
+        .requires_grad_()
+    w_down = big_down.view(n, f // n, d).clone().requires_grad_()
+    for c in counters:
+        c.launches = 0
+    y = mlp_pair(tp, x, w_up, w_down, "x", mesh)
+    y.backward(dy.view(n, rows, d))
+    torch.cuda.synchronize()
+    launches = tuple(c.launches for c in counters)
+    leaves = [t.detach().clone().requires_grad_()
+              for t in (big_x, big_up, big_down)]
+    ref = dense_dot(F.gelu(dense_dot(leaves[0], leaves[1]),
+                           approximate="tanh"), leaves[2])
+    ref.backward(dy)
+    rels = {"y": rel_norm(y.detach().reshape(n * rows, d), ref.detach()),
+            "dx": rel_norm(x.grad.reshape(n * rows, d), leaves[0].grad),
+            "dw_up": rel_norm(w_up.grad.permute(1, 0, 2).reshape(d, f),
+                              leaves[1].grad),
+            "dw_down": rel_norm(w_down.grad.reshape(f, d), leaves[2].grad)}
+    print(f"fused MLP path: {n} ranks x {rows} rows, d_model {d}, d_ff {f} "
+          f"({f // n} per rank), bf16, forward + backward; launches "
+          f"allgather_matmul, matmul_reduce_scatter, ring_allgather, "
+          f"ring_reduce_scatter, ring_allreduce {launches}; against the "
+          f"dense MLP on the card |a - b| / |b|: "
+          f"{', '.join(f'{k} {v:.3e}' for k, v in rels.items())} (tol "
+          f"{MLP_TOL})")
+    if launches != (1, 2, 1, 0, 0):
+        raise AssertionError(f"the fused MLP launched {launches}, expected "
+                             f"(1, 2, 1, 0, 0)")
+    if max(rels.values()) > MLP_TOL \
+            or not bool(torch.isfinite(y.detach().float()).all()):
+        raise AssertionError("the fused MLP disagrees with the dense MLP")
+
+    # The pair along "model" of a 2 x 2 mesh: each data group its own
+    # tokens, the weights split over "model" and the same on both groups.
+    mesh22 = make_mesh({"data": 2, "model": 2}, devices=[dev] * 4)
+    f2 = 2 * (f // n)
+    xs = torch.randn((2, 2 * rows, d), generator=gen, device=dev).bfloat16()
+    up2 = (torch.randn((d, f2), generator=gen, device=dev)
+           / math.sqrt(d)).bfloat16()
+    down2 = (torch.randn((f2, d), generator=gen, device=dev)
+             / math.sqrt(f2)).bfloat16()
+    data, model = mesh22.ring_index("data"), mesh22.ring_index("model")
+    h2 = f2 // 2
+    x22 = torch.stack([xs[data[r], model[r] * rows:(model[r] + 1) * rows]
+                       for r in range(4)])
+    up22 = torch.stack([up2[:, i * h2:(i + 1) * h2] for i in model])
+    down22 = torch.stack([down2[i * h2:(i + 1) * h2] for i in model])
+    with torch.no_grad():
+        y22 = mlp_pair(tp, x22, up22, down22, "model", mesh22)
+    dense = [dense_dot(F.gelu(dense_dot(xs[g], up2), approximate="tanh"),
+                       down2) for g in range(2)]
+    want = torch.stack([dense[data[r]][model[r] * rows:(model[r] + 1) * rows]
+                        for r in range(4)])
+    rel22 = rel_norm(y22, want)
+    print(f"fused MLP pair along 'model' of a 2 x 2 mesh: 4 ranks x {rows} "
+          f"rows, d_ff {f2} per data group: |a - b| / |b| {rel22:.3e} "
+          f"against the dense MLP of each data group (tol {MLP_TOL})")
+    if rel22 > MLP_TOL:
+        raise AssertionError("the 2 x 2 pair disagrees with the dense MLP")
+
+    # Both *_auto arms, forced, against the fused pair: dryrun_multichip's
+    # constant-filled f32 inputs (rtol AUTO_RTOL), then the random bf16
+    # inputs above (MLP_TOL in relative norm).
+    const = (torch.full((n, rows, d), 0.01, device=dev),
+             torch.full((n, d, f // n), 0.02, device=dev),
+             torch.full((n, f // n, d), 0.03, device=dev))
+    rand = tuple(t.detach() for t in (x, w_up, w_down))
+    saved = os.environ.get("TPUCOLL_TP_OVERLAP")
+    failed = []
+    try:
+        with torch.no_grad():
+            for label, args in (("f32 constants", const),
+                                ("bf16 random", rand)):
+                os.environ.pop("TPUCOLL_TP_OVERLAP", None)
+                fused = mlp_pair(tp, *args, "x", mesh, act=False)
+                for arm in ("fused", "unfused"):
+                    os.environ["TPUCOLL_TP_OVERLAP"] = arm
+                    for c in counters:
+                        c.launches = 0
+                    out = tp.row_parallel_dense_scattered_auto(
+                        tp.allgather_matmul_dense_auto(
+                            args[0], args[1], "x", mesh=mesh),
+                        args[2], "x", mesh=mesh)
+                    torch.cuda.synchronize()
+                    got = tuple(c.launches for c in counters)
+                    if label == "f32 constants":
+                        diff = (out - fused).abs()
+                        shown = f"max |a - b| / |b| " \
+                            f"{float((diff / fused.abs()).max()):.3e}"
+                        ok = bool((diff <= AUTO_RTOL * fused.abs()).all())
+                    else:
+                        rel = rel_norm(out, fused)
+                        shown, ok = f"|a - b| / |b| {rel:.3e}", rel <= MLP_TOL
+                    want = (1, 1, 0, 0, 0) if arm == "fused" \
+                        else (0, 0, 1, 1, 0)
+                    print(f"  *_auto arm {arm}, {label}: {shown} against "
+                          f"the fused pair; launches {got}")
+                    if not ok or got != want:
+                        failed.append(f"{arm} {label}")
+        # The probe: B5a over a world of n ranks against torch.matmul of the
+        # same FLOPs at the down projection's (m, k), cached for the
+        # process; with it cached, auto dispatch can take the fused arm.
+        os.environ.pop("TPUCOLL_TP_OVERLAP", None)
+        tp._PROBE_CACHE.clear()
+        m_down, k_down = n * rows, f // n
+        ratio = tp.measure_fused_ratio(m_down, k_down, n, torch.bfloat16)
+        cached = tp._PROBE_CACHE.get((m_down, k_down, n, str(torch.bfloat16)))
+        with torch.no_grad():
+            hidden = F.gelu(tp.allgather_matmul_dense(rand[0], rand[1], "x",
+                                                      mesh=mesh),
+                            approximate="tanh")
+            for c in counters:
+                c.launches = 0
+            tp.row_parallel_dense_scattered_auto(hidden, rand[2], "x",
+                                                 comm_share=1.0, mesh=mesh)
+        torch.cuda.synchronize()
+        probe_launches = tuple(c.launches for c in counters)
+        print(f"  measure_fused_ratio(m {m_down}, k {k_down}, {n} ranks, "
+              f"bf16): B5a at {ratio:.4f} of torch.matmul's throughput, "
+              f"cached {cached == ratio}; auto with that probe and share 1 "
+              f"launches {probe_launches}")
+        if not (math.isfinite(ratio) and ratio > 0 and cached == ratio) \
+                or probe_launches != (0, 1, 0, 0, 0):
+            failed.append("measure_fused_ratio")
+        tp._PROBE_CACHE.clear()
+    finally:
+        if saved is None:
+            os.environ.pop("TPUCOLL_TP_OVERLAP", None)
+        else:
+            os.environ["TPUCOLL_TP_OVERLAP"] = saved
+    if failed:
+        raise AssertionError(f"the *_auto arms disagree: {failed}")
+    return launches, (mesh, rand, hidden, (x, w_up, w_down), dy)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
 
     from gloo_tpu_torch import _build
     from gloo_tpu_torch.entry import (DDP_WORLD, ENTRY_CONFIG,
-                                      ddp_train_entry, entry, train_entry)
+                                      ddp_train_entry, dp_tp_train_entry,
+                                      entry, train_entry)
     from gloo_tpu_torch.entry import forward as entry_forward
     from gloo_tpu_torch.models import Transformer
     from gloo_tpu_torch.ops import attention as attn
+    from gloo_tpu_torch.ops import overlap as ov
     from gloo_tpu_torch.ops import ring
+    from gloo_tpu_torch.parallel import dp_tp, tp
     from gloo_tpu_torch.parallel.ddp import buffer_width
     from gloo_tpu_torch.tpu import CudaProcessGroup, make_mesh
 
@@ -769,8 +1060,160 @@ def main():
     for dev_ms, calls, kname in ddp_rows[:8]:
         print(f"  {dev_ms:.6f} ms in {calls:g} calls: {kname[:90]}")
 
+    # Phase 12: the collective matmuls against their plain versions.
+    overlap_errs = overlap_cases(ov, make_mesh, gen)
+
+    # Phase 13: the fused Megatron-SP MLP (path B).
+    slice4 = (ov.allgather_matmul, ov.matmul_reduce_scatter,
+              ring.ring_allgather, ring.ring_reduce_scatter,
+              ring.ring_allreduce)
+    mlp_launches, (mlp_mesh, mlp_args, mlp_hidden, mlp_leaves, mlp_dy) = \
+        fused_mlp_path(ov, tp, slice4, make_mesh, gen, cfg)
+
+    # Phase 14: the dp x tp path (path A), with the launch counts read
+    # around it, against train_step over the whole batch on the same card.
+    tp_step, (tp_model, tp_opt, tp_tokens, tp_targets) = dp_tp_train_entry()
+    _, (smodel, sopt, stokens, stargets) = train_entry()
+    if not (torch.equal(tp_tokens, stokens)
+            and torch.equal(tp_targets, stargets)):
+        raise AssertionError("dp_tp_train_entry's batch is not "
+                             "train_entry's")
+    single_loss = float(step(smodel, sopt, stokens, stargets))
+    single_grads = {n: p.grad.clone() for n, p in smodel.named_parameters()}
+    path_a = (attn.flash_attention_fwd, attn.flash_attention_bwd) + slice4
+    for counter in path_a:
+        counter.launches = 0
+    tp_losses = [tp_step(tp_model, tp_opt, tp_tokens, tp_targets)]
+    tp_grads = dp_tp.unshard_state(
+        {n: p.grad for n, p in tp_model.named_parameters()}, cfg,
+        tp_model.mesh)
+    tp_losses += [tp_step(tp_model, tp_opt, tp_tokens, tp_targets)
+                  for _ in range(DP_TP_STEPS - 1)]
+    torch.cuda.synchronize()
+    tp_launches = tuple(c.launches for c in path_a)
+    tp_losses = [float(x) for x in tp_losses]
+    print(f"dp x tp path: {DP_TP_STEPS} steps on a {tp_model.mesh.shape} "
+          f"mesh of ranks on the card, losses "
+          f"{', '.join(f'{x:.6f}' for x in tp_losses)}; launches flash_fwd, "
+          f"flash_bwd, allgather_matmul, matmul_reduce_scatter, "
+          f"ring_allgather, ring_reduce_scatter, ring_allreduce "
+          f"{tp_launches}")
+    # Per step: one B1 and one B2 per layer over the world; B3 twice per
+    # layer in the forward (attention and MLP row-parallel sums), twice in
+    # the backward (their VJPs), and twice for the gradients (the whole
+    # buffer along "data", the replicated part along "model").
+    per_layer = cfg.n_layers
+    want = (DP_TP_STEPS * per_layer, DP_TP_STEPS * per_layer, 0, 0, 0, 0,
+            DP_TP_STEPS * (4 * cfg.n_layers + 2))
+    if tp_launches != want:
+        raise AssertionError(f"the dp x tp path launched {tp_launches}, "
+                             f"expected {want}")
+    if not all(np.isfinite(tp_losses)) or not tp_losses[-1] < tp_losses[0]:
+        raise AssertionError(f"dp x tp loss is not finite and falling: "
+                             f"{tp_losses}")
+    model_index = tp_model.mesh.ring_index("model")
+    unequal = []
+    for name, p in tp_model.named_parameters():
+        sharded = name.split(".")[-1] in dp_tp.SHARDED
+        for r in range(1, tp_model.mesh.size):
+            twin = model_index.index(model_index[r]) if sharded else 0
+            if not torch.equal(p[r], p[twin]):
+                unequal.append(f"{name}[{r}]")
+    print(f"after {DP_TP_STEPS} dp x tp steps: replicated copies on all 4 "
+          f"ranks and shards across data ranks "
+          f"{'bitwise equal' if not unequal else 'DIFFER at ' + str(unequal)}")
+    if unequal:
+        raise AssertionError(f"the dp x tp copies differ: {unequal}")
+    loss_rel = abs(tp_losses[0] - single_loss) / abs(single_loss)
+    grad_rel = {n: rel_norm(tp_grads[n], g) for n, g in single_grads.items()}
+    worst = max(grad_rel, key=grad_rel.get)
+    print(f"first dp x tp step vs train_step over the whole batch on the "
+          f"card: loss {tp_losses[0]:.6f} vs {single_loss:.6f} (rel "
+          f"{loss_rel:.3e}, tol {TRAIN_TOL['loss']}); reassembled grads "
+          f"|g - g_1| / |g_1| max {grad_rel[worst]:.3e} at {worst}, median "
+          f"{sorted(grad_rel.values())[len(grad_rel) // 2]:.3e} (tol "
+          f"{TRAIN_TOL['grad']})")
+    if loss_rel > TRAIN_TOL["loss"] or grad_rel[worst] > TRAIN_TOL["grad"]:
+        raise AssertionError("the first dp x tp step disagrees with "
+                             "train_step over the whole batch")
+
+    # Phase 15: times of B5a and B5b at the fused MLP's shapes. Bounds:
+    # each input read once and each output written once at the HBM rate,
+    # against the products at the bf16 peak. The yardsticks are PyTorch
+    # calls the port never makes: for B5a the world product summed over the
+    # ring (each rank's rows a view of the sum), for B5b the world product
+    # of the expanded gathered x.
+    n_mlp = mlp_mesh.shape["x"]
+    x_b, up_b, down_b = mlp_args
+    elt = x_b.element_size()
+    print(f"collective matmul times at the fused MLP's shapes on {card}:")
+    gathered = x_b.reshape(1, -1, x_b.shape[2]).expand(n_mlp, -1, -1)
+    overlap_rows = {}
+    for name, label, fn, plain, lib_label, lib_fn, nbytes, flops in (
+            ("allgather_matmul", "ag_matmul_kernel",
+             lambda: ov.allgather_matmul_fwd(x_b, up_b, "x", mlp_mesh),
+             lambda: ov.allgather_matmul_plain(x_b, up_b, "x", mlp_mesh),
+             "torch.matmul(expanded gathered x, w)",
+             lambda: torch.matmul(gathered, up_b),
+             elt * (x_b.numel() + up_b.numel() + n_mlp * x_b.numel()
+                    + n_mlp * x_b.shape[0] * x_b.shape[1] * up_b.shape[2]),
+             2 * n_mlp * n_mlp * x_b.shape[1] * x_b.shape[2]
+             * up_b.shape[2]),
+            ("matmul_reduce_scatter", "matmul_rs_kernel",
+             lambda: ov.matmul_reduce_scatter(mlp_hidden, down_b, "x",
+                                              mlp_mesh),
+             lambda: ov.matmul_reduce_scatter_plain(mlp_hidden, down_b, "x",
+                                                    mlp_mesh),
+             "torch.matmul(h, w).sum(0), two calls",
+             lambda: torch.matmul(mlp_hidden, down_b).sum(0),
+             elt * (mlp_hidden.numel() + down_b.numel()
+                    + mlp_hidden.numel() // n_mlp * down_b.shape[2]
+                    // mlp_hidden.shape[2]),
+             2 * mlp_hidden.numel() * down_b.shape[2])):
+        with torch.no_grad():
+            ms = timed_kernel(f"{name} kernel", fn, label)
+            timed(f"{name} whole call (flags, buffers, kernel)", fn)
+            plain_ms = timed(f"{name} plain", plain, iters=5)
+            lib_ms = timed(f"{name} yardstick {lib_label}", lib_fn)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+        bound, bound_by = _bound(nbytes, flops, torch.bfloat16)
+        print(f"  {name} bound {bound:.6f} ms ({bound_by}: {nbytes} bytes "
+              f"{t_bytes:.6f} ms, {flops} operations {t_ops:.6f} ms)")
+        overlap_rows[name] = (ms, plain_ms, lib_ms, bound, bound_by)
+
+    x_l, up_l, down_l = mlp_leaves
+
+    def mlp_once():
+        for t in (x_l, up_l, down_l):
+            t.grad = None
+        mlp_pair(tp, x_l, up_l, down_l, "x", mlp_mesh).backward(
+            mlp_dy.view(x_l.shape))
+
+    mlp_ms = event_ms(mlp_once, iters=20)
+    mlp_dev, mlp_rows = device_profile(mlp_once, iters=10)
+    busy = "not measured" if mlp_dev is None else f"{mlp_dev / mlp_ms:.3f}"
+    print(f"fused MLP forward + backward ({n_mlp} ranks x "
+          f"{x_l.shape[1]} rows): {mlp_ms:.6f} ms per call, device time "
+          f"{mlp_dev} ms, device busy share {busy}")
+    for dev_ms, calls, kname in mlp_rows[:8]:
+        print(f"  {dev_ms:.6f} ms in {calls:g} calls: {kname[:90]}")
+
+    def tp_once():
+        tp_step(tp_model, tp_opt, tp_tokens, tp_targets)
+
+    tp_ms = event_ms(tp_once, iters=10)
+    tp_dev, tp_rows = device_profile(tp_once, iters=5)
+    busy = "not measured" if tp_dev is None else f"{tp_dev / tp_ms:.3f}"
+    print(f"dp x tp step ({tp_model.mesh.shape}, batch 8, seq 128, Adam): "
+          f"{tp_ms:.6f} ms per step, device time {tp_dev} ms, device busy "
+          f"share {busy}")
+    for dev_ms, calls, kname in tp_rows[:8]:
+        print(f"  {dev_ms:.6f} ms in {calls:g} calls: {kname[:90]}")
+
     # Launches on the main paths: B1 on the serving path, B2 on the
-    # training path, B3 on the DDP path, B4a and B4b on the group path.
+    # training path, B3 on the DDP path, B4a and B4b on the group path,
+    # B5a and B5b on the fused MLP path.
     kernels = []
     for kname, source, replaces, n, err, (ms, plain, lib, bound,
                                           bound_by) in (
@@ -786,7 +1229,13 @@ def main():
              ring_rows["ring_reduce_scatter"]),
             ("ring_allgather", "ring.cu", "pallas_ring.py:995",
              group_launches[2], ring_err["ring_allgather"],
-             ring_rows["ring_allgather"])):
+             ring_rows["ring_allgather"]),
+            ("matmul_reduce_scatter", "overlap.cu", "overlap.py:38",
+             mlp_launches[1], overlap_errs["mlp_bf16"][0],
+             overlap_rows["matmul_reduce_scatter"]),
+            ("allgather_matmul", "overlap.cu", "overlap.py:205",
+             mlp_launches[0], overlap_errs["mlp_bf16"][1],
+             overlap_rows["allgather_matmul"])):
         if None in (ms, plain, lib):
             raise AssertionError(
                 f"the profiler showed no device time for {kname}'s kernel, "

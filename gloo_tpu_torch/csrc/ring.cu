@@ -41,7 +41,8 @@
 // reports. Every spin is bounded: after ~2 s of clock64() the block traps,
 // so a protocol fault surfaces as a CUDA error, not a hung card.
 //
-// Memory order: a sender's threads store into the peer's buffer, then
+// Memory order (the flag helpers are in ring_common.cuh, shared with
+// overlap.cu): a sender's threads store into the peer's buffer, then
 // __syncthreads(), then one thread fences and publishes with a release
 // (red.release.gpu / st.release.gpu). A receiver's thread 0 spins on an
 // acquire load, then __syncthreads(). Data another block wrote (comm slots,
@@ -69,20 +70,15 @@
 
 #include <cstring>
 
+#include "ring_common.cuh"
+
 namespace {
 
+using namespace gtt;
+
 constexpr int kThreads = 256;
-constexpr int kMaxRanks = 32;
-// ~2 s at the H100's clocks (1.98 GHz boost; longer when it runs slower).
-constexpr long long kSpinCycles = 4000000000LL;
 
 enum Mode { kAllreduce = 0, kReduceScatter = 1, kAllgather = 2 };
-
-// Flags of one (rank, slice): counters that only grow, zeroed per call.
-constexpr int kBarrier = 0;  // + 1 from each neighbour
-constexpr int kFull = 1;     // [2]: + 1 each time the left fills slot k
-constexpr int kAck = 3;      // [2]: + 1 each time the right empties slot k
-constexpr int kGather = 5;   // [n - 1]: 1 when allgather step s landed
 
 struct Params {
   // The peer table: rank r's buffers. in: n chunks (B3, B4a) or one (B4b);
@@ -100,68 +96,6 @@ struct Params {
   int flag_stride;
   long long chunk;  // units (16-byte vectors or single elements) per chunk
 };
-
-__device__ __forceinline__ int ld_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];"
-               : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void add_release(int* p, int v) {
-  asm volatile("red.release.gpu.global.add.s32 [%0], %1;"
-               :: "l"(p), "r"(v) : "memory");
-}
-
-__device__ __forceinline__ void store_release(int* p, int v) {
-  asm volatile("st.release.gpu.global.b32 [%0], %1;"
-               :: "l"(p), "r"(v) : "memory");
-}
-
-// Thread 0 waits until *flag >= target, then the block goes on together.
-__device__ void wait_flag(const int* flag, int target) {
-  if (threadIdx.x == 0) {
-    const long long start = clock64();
-    while (ld_acquire(flag) < target) {
-      if (clock64() - start > kSpinCycles) __trap();
-    }
-  }
-  __syncthreads();
-}
-
-// The block's stores so far become visible, then thread 0 adds v to *flag.
-__device__ void signal_add(int* flag, int v) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    add_release(flag, v);
-  }
-}
-
-__device__ __forceinline__ float add1(float a, float b) {
-  return __fadd_rn(a, b);
-}
-
-__device__ __forceinline__ __nv_bfloat16 add1(__nv_bfloat16 a,
-                                              __nv_bfloat16 b) {
-  return __float2bfloat16_rn(
-      __fadd_rn(__bfloat162float(a), __bfloat162float(b)));
-}
-
-// Element-wise a + b over the lanes of one unit.
-template <typename T, typename U>
-__device__ __forceinline__ U add_units(U a, U b) {
-  constexpr int kLanes = sizeof(U) / sizeof(T);
-  T la[kLanes], lb[kLanes];
-  memcpy(la, &a, sizeof(U));
-  memcpy(lb, &b, sizeof(U));
-#pragma unroll
-  for (int k = 0; k < kLanes; ++k) la[k] = add1(la[k], lb[k]);
-  memcpy(&a, la, sizeof(U));
-  return a;
-}
-
-__device__ __forceinline__ int wrap(int i, int n) { return ((i % n) + n) % n; }
 
 // T: element type; U: the unit of access (uint4, or the element's bits).
 template <typename T, typename U, int kMode>
@@ -195,10 +129,7 @@ ring_kernel(const Params p) {
     }
   }
 
-  // Entry barrier with both neighbours (with n = 2 both are one rank).
-  signal_add(fl_left + kBarrier, 1);
-  if (threadIdx.x == 0) add_release(fl_right + kBarrier, 1);
-  wait_flag(fl_me + kBarrier, 2);
+  ring_barrier(fl_me, fl_left, fl_right);
 
   if (kMode != kAllgather) {
     const int shift = kMode == kReduceScatter ? 1 : 0;
@@ -242,11 +173,7 @@ ring_kernel(const Params p) {
     for (long long u = t0; u < hi; u += kThreads) {
       __stcg(peer_out + off + u, __ldcg(out + off + u));
     }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      __threadfence();
-      store_release(fl_right + kGather + s, 1);
-    }
+    signal_set(fl_right + kGather + s, 1);
     wait_flag(fl_me + kGather + s, 1);
   }
 }

@@ -1,5 +1,6 @@
 """Entry points: the flagship transformer's forward and training step on
-one GPU, and its data-parallel training step over a world of ranks.
+one GPU, and its data-parallel and data x tensor parallel training steps
+over a world of ranks.
 
 ``entry()`` is the counterpart of ``__graft_entry__.entry()``: the same
 configuration (vocab 512, d_model 256, 4 heads, 2 layers, d_ff 1024, seq
@@ -11,7 +12,10 @@ tokens, next-token targets, and Adam at optax.adam(1e-3)'s settings.
 ``ddp_train_entry()`` is the data-parallel counterpart of that training
 step: DDP_WORLD ranks on one card, each with a replica of the same model,
 train_entry()'s tokens and targets as the global batch, and the gradient
-mean on the ring allreduce kernel.
+mean on the ring allreduce kernel. ``dp_tp_train_entry()`` is the dp x tp
+training step of dryrun_multichip: a mesh DP_TP_MESH of ranks on one card,
+the weights split over "model" as its layer_spec splits them, the same
+global batch split over "data".
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ import torch
 from gloo_tpu_torch.device import resolve_device
 from gloo_tpu_torch.models.transformer import Transformer, TransformerConfig
 from gloo_tpu_torch.parallel.ddp import make_ddp_train_step
+from gloo_tpu_torch.parallel.dp_tp import (make_dp_tp_train_step,
+                                           shard_transformer)
 from gloo_tpu_torch.tpu.mesh import make_mesh
 
 ENTRY_CONFIG = TransformerConfig(vocab_size=512, d_model=256, n_heads=4,
@@ -33,6 +39,9 @@ ADAM_SETTINGS = dict(lr=1e-3, betas=(0.9, 0.999), eps=1e-8)
 # Ranks of ddp_train_entry's world, all on one card: ENTRY_BATCH / DDP_WORLD
 # sequences each.
 DDP_WORLD = 4
+# dp_tp_train_entry's mesh, all on one card: ENTRY_BATCH / 2 sequences per
+# data rank, two heads and d_ff / 2 per model rank.
+DP_TP_MESH = {"data": 2, "model": 2}
 
 
 def forward(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
@@ -108,3 +117,20 @@ def ddp_train_entry(device="cuda"):
                   for m in replicas]
     step = make_ddp_train_step(_lm_loss, mesh, "data")
     return step, (replicas, optimizers, (tokens, _entry_targets(tokens)))
+
+
+def dp_tp_train_entry(device="cuda"):
+    """Returns (step, (tp_model, optimizer, tokens, targets)) on `device`:
+    a mesh DP_TP_MESH of ranks on that one device, train_entry()'s weights
+    sharded along "model" (shard_transformer), one Adam at ADAM_SETTINGS
+    over the world parameters, and train_entry()'s tokens and targets as
+    the global batch. step(tp_model, optimizer, tokens, targets) is
+    make_dp_tp_train_step's: it returns the global mean loss."""
+    _, (model, tokens) = entry(device)
+    dev = tokens.device
+    ranks = DP_TP_MESH["data"] * DP_TP_MESH["model"]
+    mesh = make_mesh(DP_TP_MESH, devices=[dev] * ranks)
+    tp_model = shard_transformer(model, mesh, "model")
+    optimizer = torch.optim.Adam(tp_model.parameters(), **ADAM_SETTINGS)
+    step = make_dp_tp_train_step(mesh, "data", "model")
+    return step, (tp_model, optimizer, tokens, _entry_targets(tokens))

@@ -1,5 +1,5 @@
 """Tensor ops of the port: the flash-attention kernels, the ring
-collective kernels and RoPE."""
+collective kernels, the collective matmul kernels and RoPE."""
 
 from gloo_tpu_torch.ops.attention import (
     flash_attention,
@@ -10,6 +10,13 @@ from gloo_tpu_torch.ops.attention import (
     reference_attention,
 )
 from gloo_tpu_torch.ops.kernel_table import KERNELS
+from gloo_tpu_torch.ops.overlap import (
+    allgather_matmul,
+    allgather_matmul_fwd,
+    allgather_matmul_plain,
+    matmul_reduce_scatter,
+    matmul_reduce_scatter_plain,
+)
 from gloo_tpu_torch.ops.ring import (
     ring_allgather,
     ring_allgather_plain,
@@ -23,12 +30,17 @@ from gloo_tpu_torch.ops.rope import apply_rope, rope_angles, rope_positions
 
 __all__ = [
     "KERNELS",
+    "allgather_matmul",
+    "allgather_matmul_fwd",
+    "allgather_matmul_plain",
     "apply_rope",
     "flash_attention",
     "flash_attention_bwd",
     "flash_attention_bwd_plain",
     "flash_attention_fwd",
     "flash_attention_plain",
+    "matmul_reduce_scatter",
+    "matmul_reduce_scatter_plain",
     "reference_attention",
     "ring_allgather",
     "ring_allgather_plain",

@@ -43,9 +43,9 @@ KERNELS = (
     Kernel("B7b", _A, "_flash_bwd_dkv_step_kernel", 635, 765,
            "flash_attention_bwd_step", "to port: slice 5"),
     Kernel("B5a", _O, "_matmul_rs_kernel", 38, 185, "matmul_reduce_scatter",
-           "to port: slice 4"),
+           "ported: gloo_tpu_torch/csrc/overlap.cu"),
     Kernel("B5b", _O, "_ag_matmul_kernel", 205, 294, "allgather_matmul",
-           "to port: slice 4"),
+           "ported: gloo_tpu_torch/csrc/overlap.cu"),
     Kernel("B3", _R, "_ring_allreduce_kernel", 63, 183, "ring_allreduce",
            "ported: gloo_tpu_torch/csrc/ring.cu"),
     Kernel("B9", _R, "_ring_allreduce_hbm_kernel", 246, 440,

@@ -116,28 +116,42 @@ def _kernel_layout(x: torch.Tensor, chunk_elems: int, *more: torch.Tensor):
             chunk_elems // per_vec if vec else chunk_elems)
 
 
-def _launch_setup(x: torch.Tensor, mesh: Mesh, axis_name: str, units: int):
-    """(lib, slices, zeroed flags, flag stride, ctypes ring tables)."""
-    lib = _ring_lib()
+def cooperative_grid(x: torch.Tensor, mesh: Mesh, axis_name: str,
+                     lib: ctypes.CDLL, max_blocks, cache: dict[int, int],
+                     want: int, stride: int):
+    """(slices, zeroed flags, ctypes ring tables) for a cooperative launch
+    of one block per (rank, slice): at most `want` slices, and no more than
+    can be resident beside the other ranks' blocks, as the library's
+    occupancy query `max_blocks` reports (cached per device index in
+    `cache`). Raises when not even one block per rank fits."""
     ranks = x.shape[0]
     index = x.device.index if x.device.index is not None \
         else torch.cuda.current_device()
-    if index not in _max_blocks:
+    if index not in cache:
         blocks = ctypes.c_int(0)
         with torch.cuda.device(index):
-            _raise_on(lib.gtt_ring_max_blocks(ctypes.byref(blocks)),
-                      "ring occupancy query", lib)
-        _max_blocks[index] = blocks.value
-    per_rank = _max_blocks[index] // ranks
+            _raise_on(max_blocks(ctypes.byref(blocks)), "occupancy query",
+                      lib)
+        cache[index] = blocks.value
+    per_rank = cache[index] // ranks
     if per_rank < 1:
         raise RuntimeError(f"{ranks} ranks need {ranks} co-resident blocks; "
-                           f"the card holds {_max_blocks[index]}")
-    slices = max(1, min(per_rank, -(-units // KERNEL_THREADS)))
-    stride = lib.gtt_ring_flag_stride(mesh.shape[axis_name])
+                           f"the card holds {cache[index]}")
+    slices = max(1, min(per_rank, want))
     flags = torch.zeros(ranks * slices * stride, dtype=torch.int32,
                         device=x.device)
     tables = [(ctypes.c_int * ranks)(*t)
               for t in mesh.ring_neighbors(axis_name)]
+    return slices, flags, tables
+
+
+def _launch_setup(x: torch.Tensor, mesh: Mesh, axis_name: str, units: int):
+    """(lib, slices, zeroed flags, flag stride, ctypes ring tables)."""
+    lib = _ring_lib()
+    stride = lib.gtt_ring_flag_stride(mesh.shape[axis_name])
+    slices, flags, tables = cooperative_grid(
+        x, mesh, axis_name, lib, lib.gtt_ring_max_blocks, _max_blocks,
+        -(-units // KERNEL_THREADS), stride)
     return lib, slices, flags, stride, tables
 
 
@@ -231,11 +245,8 @@ def ring_allreduce_plain(x: torch.Tensor, axis_name: str,
 
 # ---- B4a: ring reduce-scatter ----
 
-def ring_reduce_scatter(x: torch.Tensor, axis_name: str,
-                        mesh: Mesh) -> torch.Tensor:
-    """Ring reduce-scatter of the world tensor x (P, rows, cols) along
-    `axis_name`: (P, rows / n, cols), rank r holding chunk (ring index of
-    r) of its ring's sum."""
+def _reduce_scatter(x: torch.Tensor, axis_name: str,
+                    mesh: Mesh) -> torch.Tensor:
     n = _ring_size(x, axis_name, mesh)
     ranks, rows, cols = x.shape
     if n == 1:
@@ -265,6 +276,30 @@ def ring_reduce_scatter(x: torch.Tensor, axis_name: str,
     return out
 
 
+class _RingReduceScatter(torch.autograd.Function):
+    """The VJP of a reduce-scatter is the allgather of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, axis_name, mesh):
+        ctx.axis_name, ctx.mesh = axis_name, mesh
+        return _reduce_scatter(x, axis_name, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _allgather(g.contiguous(), ctx.axis_name, ctx.mesh), None, None
+
+
+def ring_reduce_scatter(x: torch.Tensor, axis_name: str,
+                        mesh: Mesh) -> torch.Tensor:
+    """Ring reduce-scatter of the world tensor x (P, rows, cols) along
+    `axis_name`: (P, rows / n, cols), rank r holding chunk (ring index of
+    r) of its ring's sum. Differentiable (the VJP is B4b)."""
+    if torch.is_grad_enabled() and x.requires_grad \
+            and _ring_size(x, axis_name, mesh) > 1:
+        return _RingReduceScatter.apply(x, axis_name, mesh)
+    return _reduce_scatter(x, axis_name, mesh)
+
+
 ring_reduce_scatter.launches = 0
 
 
@@ -289,11 +324,7 @@ def ring_reduce_scatter_plain(x: torch.Tensor, axis_name: str,
 
 # ---- B4b: ring allgather ----
 
-def ring_allgather(x: torch.Tensor, axis_name: str,
-                   mesh: Mesh) -> torch.Tensor:
-    """Ring allgather of the world tensor x (P, rows, cols) along
-    `axis_name`: (P, n rows, cols), every rank of a ring holding the ring's
-    x rows stacked in ring order."""
+def _allgather(x: torch.Tensor, axis_name: str, mesh: Mesh) -> torch.Tensor:
     n = _ring_size(x, axis_name, mesh)
     ranks, rows, cols = x.shape
     if n == 1:
@@ -316,6 +347,31 @@ def ring_allgather(x: torch.Tensor, axis_name: str,
     _raise_on(err, "ring_allgather", lib)
     ring_allgather.launches += 1
     return out
+
+
+class _RingAllgather(torch.autograd.Function):
+    """The VJP of an allgather is the reduce-scatter of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, axis_name, mesh):
+        ctx.axis_name, ctx.mesh = axis_name, mesh
+        return _allgather(x, axis_name, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_reduce_scatter(g.contiguous(), ctx.axis_name, ctx.mesh),
+                None, None)
+
+
+def ring_allgather(x: torch.Tensor, axis_name: str,
+                   mesh: Mesh) -> torch.Tensor:
+    """Ring allgather of the world tensor x (P, rows, cols) along
+    `axis_name`: (P, n rows, cols), every rank of a ring holding the ring's
+    x rows stacked in ring order. Differentiable (the VJP is B4a)."""
+    if torch.is_grad_enabled() and x.requires_grad \
+            and _ring_size(x, axis_name, mesh) > 1:
+        return _RingAllgather.apply(x, axis_name, mesh)
+    return _allgather(x, axis_name, mesh)
 
 
 ring_allgather.launches = 0

@@ -1,7 +1,39 @@
 """Parallelism strategies on the port's device plane: data parallelism with
 the gradient mean on the ring allreduce kernel (counterpart of
-gloo_tpu/parallel/ddp.py's make_ddp_train_step)."""
+gloo_tpu/parallel/ddp.py's make_ddp_train_step), tensor parallelism on
+world tensors with the collective matmul kernels (gloo_tpu/parallel/tp.py),
+and the dp x tp training step of the flagship transformer (the GSPMD step
+of __graft_entry__.dryrun_multichip)."""
 
 from gloo_tpu_torch.parallel.ddp import make_ddp_train_step
+from gloo_tpu_torch.parallel.dp_tp import (TPTransformer,
+                                           make_dp_tp_train_step,
+                                           shard_transformer,
+                                           unshard_transformer)
+from gloo_tpu_torch.parallel.tp import (allgather_matmul_dense,
+                                        allgather_matmul_dense_auto,
+                                        column_parallel_dense,
+                                        estimate_comm_share,
+                                        measure_fused_ratio,
+                                        row_parallel_dense,
+                                        row_parallel_dense_scattered,
+                                        row_parallel_dense_scattered_auto,
+                                        tp_mlp_block, use_fused_overlap)
 
-__all__ = ["make_ddp_train_step"]
+__all__ = [
+    "TPTransformer",
+    "allgather_matmul_dense",
+    "allgather_matmul_dense_auto",
+    "column_parallel_dense",
+    "estimate_comm_share",
+    "make_ddp_train_step",
+    "make_dp_tp_train_step",
+    "measure_fused_ratio",
+    "row_parallel_dense",
+    "row_parallel_dense_scattered",
+    "row_parallel_dense_scattered_auto",
+    "shard_transformer",
+    "tp_mlp_block",
+    "unshard_transformer",
+    "use_fused_overlap",
+]

@@ -5,7 +5,9 @@ The JAX model's parameters are a pytree of nested dicts and lists:
 and ``layers[i].{ln1.scale, ln2.scale, wqkv, wo, w_up, w_down}``, dense
 weights as (fan_in, fan_out). The port keeps the same names and layouts in
 its state dict (``layers.<i>.wqkv`` ...), so conversion copies arrays and
-checks shapes; nothing is transposed.
+checks shapes; nothing is transposed. ``tp_transformer_from_numpy`` goes
+on to the world parameters of the tensor-parallel transformer
+(gloo_tpu_torch.parallel.dp_tp).
 """
 
 from __future__ import annotations
@@ -14,7 +16,9 @@ import numpy as np
 import torch
 
 from gloo_tpu_torch.device import resolve_device
-from gloo_tpu_torch.models.transformer import TransformerConfig
+from gloo_tpu_torch.models.transformer import Transformer, TransformerConfig
+from gloo_tpu_torch.parallel.dp_tp import TPTransformer, shard_transformer
+from gloo_tpu_torch.tpu.mesh import Mesh
 
 _DENSE = ("wqkv", "wo", "w_up", "w_down")
 
@@ -91,3 +95,14 @@ def transformer_params_to_numpy(state_dict, cfg: TransformerConfig) -> dict:
         layer.update({name: arr(f"layers.{i}.{name}") for name in _DENSE})
         tree["layers"].append(layer)
     return tree
+
+
+def tp_transformer_from_numpy(tree, cfg: TransformerConfig, mesh: Mesh,
+                              axis: str = "model") -> TPTransformer:
+    """JAX parameter tree (numpy leaves) -> the TPTransformer on `mesh`,
+    tensor parallel along `axis`: transformer_params_from_numpy, then
+    shard_transformer."""
+    model = Transformer(cfg, device=mesh.device)
+    model.load_state_dict(
+        transformer_params_from_numpy(tree, cfg, mesh.device))
+    return shard_transformer(model, mesh, axis)
