@@ -50,7 +50,24 @@ Phases, each of which raises on failure:
      shards, and the first step against train_step over the whole batch;
  15. times of B5a and B5b at the fused MLP's shapes against their bound,
      plain versions and library yardsticks, of the fused MLP and of the
-     dp x tp step.
+     dp x tp step;
+ 16. the ring-attention step kernels (B6 flash_attention_step, B7a and B7b
+     flash_attention_bwd_step) against their plain versions on the card at
+     STEP_CASES, every ring step of each (so whole, diagonal and hidden
+     blocks, and a carried state), and the all-to-all (B8) bitwise at
+     A2A_CASES;
+ 17. the long-context path (sp_entry, a global sequence of 4096 over 4
+     ranks on the card): ring-flash forward + backward (B6, B7a, B7b 4
+     launches each) and Ulysses forward + backward (B8 8, B1 1, B2 1), with
+     the launch counts read around each, and both and ring_attention
+     against flash_attention (B1/B2) over the whole sequence;
+ 18. the MoE path (ep_entry): dispatch_combine forward + backward (B8 4)
+     with the flagship's MLP as each rank's expert; kept tokens against
+     their expert's MLP applied directly, dropped tokens exactly zero, the
+     gradients against a dense reference;
+ 19. times of B6, B7a and B7b at the long-context path's ring steps and of
+     B8 at its Ulysses exchange, against their bound, plain versions and
+     yardsticks, and of each of the three paths.
 The line before the last is the JSON list of kernels; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or gloo_tpu.
 """
@@ -154,6 +171,55 @@ MLP_TOL = 2e-2
 # constant-filled inputs, f32).
 AUTO_RTOL = 1e-5
 DP_TP_STEPS = 5
+
+# (name, ranks, b, h, h_kv, t_local, d, dtype, causal): B6, B7a and B7b
+# against their plain versions over a world of ranks, at every step of its
+# ring (each rank's own block, then the blocks before it, so whole,
+# diagonal and hidden blocks, with the state carried from step to step).
+# "pathS" is the long-context path's shape.
+STEP_CASES = [
+    ("pathS", 4, 2, 4, 4, 1024, 64, torch.bfloat16, True),
+    ("pathS_full", 4, 2, 4, 4, 1024, 64, torch.bfloat16, False),
+    ("gqa_h8_kv2", 4, 1, 8, 2, 256, 64, torch.bfloat16, True),
+    ("d128_ragged_t200", 2, 1, 4, 4, 200, 128, torch.bfloat16, True),
+    ("f32_d64", 4, 1, 2, 2, 128, 64, torch.float32, True),
+    ("f32_d128_gqa_full", 2, 1, 4, 2, 100, 128, torch.float32, False),
+]
+# The step kernels against their plain versions, (rtol, atol) with atol
+# relative to the largest |plain| of each tensor. bf16: p (B6) and ds (B7)
+# are rounded to bf16 inside the sums, so a last-bit difference of an f32
+# score flips one bf16 ulp of a term (2**-8 relative), as for B1/B2
+# (BWD_TOL). f32: products summed in another order. m and l are f32 in
+# both dtypes.
+STEP_TOL = {torch.bfloat16: (1.6e-2, 8e-3), torch.float32: (1e-4, 1e-5)}
+STATE_TOL = (1e-5, 1e-5)
+# (name, mesh axes, ring axis, rows per rank, cols, dtype): B8 against its
+# plain version, bitwise. "ulysses" is one exchange of the long-context
+# path (each rank's (heads, batch * t_local * d) with heads split), "ep"
+# one of the MoE path (each rank's (experts, capacity * d_model)).
+A2A_CASES = [
+    ("P2_f32", {"x": 2}, "x", 16, 128, torch.float32),
+    ("P3_bf16", {"x": 3}, "x", 24, 100, torch.bfloat16),
+    ("P4_int32", {"x": 4}, "x", 32, 7, torch.int32),
+    ("P8_f32", {"x": 8}, "x", 64, 128, torch.float32),
+    ("2x2_model", {"data": 2, "model": 2}, "model", 16, 128, torch.float32),
+    ("2x2_data_bf16", {"data": 2, "model": 2}, "data", 16, 128,
+     torch.bfloat16),
+    ("ulysses", {"seq": 4}, "seq", 4, 2 * 1024 * 64, torch.bfloat16),
+    ("ep", {"expert": 4}, "expert", 4, 64 * 256, torch.bfloat16),
+]
+# The long-context path against flash_attention (B1/B2) over the whole
+# 4096-token sequence on the card, as the relative norm |a - b| / |b| of
+# the output and of each gradient: bf16, and the ring folds the blocks in
+# another order (its own block first), so p rounds to bf16 against other
+# running maxima; ring_attention (f32 softmax, one rounding at the end)
+# differs by the bf16 rounding of p in the kernels.
+SP_TOL = 2e-2
+# The MoE path: kept tokens against their expert's MLP applied directly on
+# the card (cuBLAS may pick other kernels, and so other f32 sum orders, for
+# other row counts before the bf16 rounding), and the gradients against a
+# dense f32 reference from the same bf16 inputs, as |a - b| / |b|.
+EP_TOL = 2e-2
 
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -277,6 +343,16 @@ def flash_bwd_bound(b, h, h_kv, t, d, dtype, causal):
 
 def _bound(nbytes, flops, dtype):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _bound_mixed(nbytes, bf16_flops, f32_flops):
+    """_bound for work with products of two types: the bf16 ones at the
+    tensor cores' rate, the f32 ones at the FMA units'."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = (bf16_flops / PEAK_FLOPS[torch.bfloat16]
+             + f32_flops / PEAK_FLOPS[torch.float32])
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -607,6 +683,376 @@ def fused_mlp_path(ov, tp, counters, make_mesh, gen, cfg):
     return launches, (mesh, rand, hidden, (x, w_up, w_down), dy)
 
 
+def rotate(spmd, x, axis, mesh, steps):
+    """x shifted `steps` ranks along the ring (spmd.shift, as the ring
+    loops rotate k and v)."""
+    for _ in range(steps):
+        x = spmd.shift(x, axis, 1, mesh=mesh)
+    return x
+
+
+def ring_steps(sp, spmd, q, k, v, axis, mesh, causal):
+    """The launch arguments of each ring step of ring_flash_attention over
+    the world tensors q, k, v: [(k_i, v_i, k_off_i)] with q flattened to
+    (P b h, t, d), the q offsets, the GQA group."""
+    ranks, b, h, t, d = q.shape
+    q_off, k_offs = sp._offset_tables(mesh, axis, b * h, t, q.device)
+    steps = [(rotate(spmd, k, axis, mesh, i).reshape(-1, t, d),
+              rotate(spmd, v, axis, mesh, i).reshape(-1, t, d), k_offs[i])
+             for i in range(mesh.shape[axis])]
+    return q.reshape(ranks * b * h, t, d), steps, q_off, h // k.shape[2]
+
+
+def visible_pairs(q_off, k_off, t, causal):
+    """(q, k) pairs the mask keeps over every row of one step launch."""
+    if not causal:
+        return q_off.numel() * t * t
+    delta = (q_off - k_off).long().cpu()[:, None] + torch.arange(t)
+    return int((delta + 1).clamp(0, t).sum())
+
+
+def step_close(a, b, dtype, state=False):
+    """(max |a - b|, within STEP_TOL (STATE_TOL for m and l), atol relative
+    to the largest finite |b|); inf must match inf."""
+    fin = torch.isfinite(b)
+    if not torch.equal(torch.isfinite(a), fin):
+        return float("inf"), False
+    rtol, atol = STATE_TOL if state else STEP_TOL[dtype]
+    a, b = a[fin].float(), b[fin].float()
+    if not b.numel():
+        return 0.0, True
+    peak = float(b.abs().max())
+    err = float((a - b).abs().max())
+    return err, bool(((a - b).abs() <= atol * peak + rtol * b.abs()).all())
+
+
+def step_cases(attn, sp, spmd, make_mesh, gen):
+    """Phase 16, the step kernels: every ring step of each STEP_CASES
+    world, B6 from the state its previous step left, B7a and B7b from the
+    completed forward's lse and an f32 cotangent. Returns {case: (B6 acc
+    err, B7a err, B7b err)}."""
+    errs, failed = {}, []
+    dev = torch.device("cuda")
+    for name, ranks, b, h, h_kv, t, d, dtype, causal in STEP_CASES:
+        mesh = make_mesh({"seq": ranks}, devices=[dev] * ranks)
+        q = torch.randn((ranks, b, h, t, d), generator=gen, device=dev)
+        k, v = (torch.randn((ranks, b, h_kv, t, d), generator=gen,
+                            device=dev) for _ in range(2))
+        q, k, v = (x.to(dtype) for x in (q, k, v))
+        qf, steps, q_off, group = ring_steps(sp, spmd, q, k, v, "seq", mesh,
+                                             causal)
+        bh = qf.shape[0]
+        state = (torch.zeros((bh, t, d), device=dev),
+                 torch.full((bh, t, 1), -math.inf, device=dev),
+                 torch.zeros((bh, t, 1), device=dev))
+        worst = [0.0, 0.0, 0.0]
+        bad = []
+        for i, (ks, vs, k_off) in enumerate(steps):
+            got = attn.flash_attention_step(qf, ks, vs, *state, q_off, k_off,
+                                            causal, group)
+            ref = attn.flash_attention_step_plain(qf, ks, vs, *state, q_off,
+                                                  k_off, causal, group)
+            torch.cuda.synchronize()
+            for j, (a, r) in enumerate(zip(got, ref)):
+                err, ok = step_close(a, r, dtype, state=j > 0)
+                if j == 0:
+                    worst[0] = max(worst[0], err)
+                if not ok:
+                    bad.append(f"B6 step {i} {('acc', 'm', 'l')[j]}")
+            state = got
+        l_safe = state[2].clamp_min(1e-30)
+        lse = state[1] + torch.log(l_safe)
+        out = (state[0] / l_safe).to(dtype).float()
+        do = torch.randn((bh, t, d), generator=gen, device=dev)
+        delta = (do * out).sum(-1, keepdim=True)
+        for i, (ks, vs, k_off) in enumerate(steps):
+            args = (qf, ks, vs, do, delta, lse, q_off, k_off, causal, group)
+            got = attn.flash_attention_bwd_step(*args)
+            ref = (attn.flash_attention_bwd_dq_step_plain(*args),
+                   *attn.flash_attention_bwd_dkv_step_plain(*args))
+            torch.cuda.synchronize()
+            for j, (a, r) in enumerate(zip(got, ref)):
+                err, ok = step_close(a, r, dtype)
+                worst[min(j, 1) + 1] = max(worst[min(j, 1) + 1], err)
+                if not ok:
+                    bad.append(f"B7 step {i} {('dq', 'dk', 'dv')[j]}")
+        print(f"step kernels {name}: {ranks} ranks x (b {b}, h {h}, h_kv "
+              f"{h_kv}, t {t}, d {d}) {str(dtype)[6:]} "
+              f"{'causal' if causal else 'full'}, {len(steps)} ring steps: "
+              f"max |kernel - plain| B6 acc {worst[0]:.3e}, B7a dq "
+              f"{worst[1]:.3e}, B7b dk/dv {worst[2]:.3e} (rtol, atol "
+              f"{STEP_TOL[dtype]} x |plain| max; m, l {STATE_TOL})"
+              f"{'; FAILED: ' + ', '.join(bad) if bad else ''}")
+        failed += [f"{name}: {x}" for x in bad]
+        errs[name] = tuple(worst)
+    if failed:
+        raise AssertionError(f"the step kernels disagree: {failed}")
+    return errs
+
+
+def alltoall_cases(ring, make_mesh, gen):
+    """Phase 16, B8 bitwise against its twin at A2A_CASES. Returns the
+    worst max |kernel - plain| (0 when all agree)."""
+    failed = []
+    dev = torch.device("cuda")
+    for name, axes, axis, rows, cols, dtype in A2A_CASES:
+        ranks = math.prod(axes.values())
+        mesh = make_mesh(axes, devices=[dev] * ranks)
+        x = torch.randint(-2 ** 20, 2 ** 20, (ranks, rows, cols),
+                          generator=gen, device=dev).to(dtype)
+        out = ring.alltoall(x, axis, mesh)
+        torch.cuda.synchronize()
+        ref = ring.alltoall_plain(x, axis, mesh)
+        n = axes[axis]
+        members = mesh.ring_members(axis)
+        my = mesh.ring_index(axis)
+        blocks = x.view(ranks, n, -1)
+        want = torch.stack([torch.cat([blocks[m][my[r]] for m in members[r]])
+                            for r in range(ranks)]).view(x.shape)
+        ok = torch.equal(out, ref) and torch.equal(out, want)
+        print(f"alltoall {name}: {ranks} ranks, ring {axis!r} of {n}, "
+              f"{tuple(x.shape[1:])} {str(dtype)[6:]}: bitwise equal to its "
+              f"plain version and the block transpose {ok}")
+        if not ok:
+            failed.append(name)
+    if failed:
+        raise AssertionError(f"the all-to-all kernel disagrees: {failed}")
+    return 0.0
+
+
+def world_to_global(x):
+    """(P, b, h, t_local, d) -> (b, h, P t_local, d)."""
+    ranks, b, h, t, d = x.shape
+    return x.permute(1, 2, 0, 3, 4).reshape(b, h, ranks * t, d)
+
+
+def sp_path(attn, ring, sp_entry):
+    """Phase 17: the long-context path with its launch counts, against
+    flash_attention over the whole sequence. Returns (launches per path,
+    the entry's paths)."""
+    paths = sp_entry()
+    counters = (attn.flash_attention_step, attn.flash_attention_bwd_dq_step,
+                attn.flash_attention_bwd_dkv_step, ring.alltoall,
+                attn.flash_attention_fwd, attn.flash_attention_bwd)
+    results, launches = {}, {}
+    for name in ("ring_flash", "ulysses", "ring_attention"):
+        fn, args = paths[name]
+        for c in counters:
+            c.launches = 0
+        results[name] = fn(*args)
+        torch.cuda.synchronize()
+        launches[name] = tuple(c.launches for c in counters)
+    _, q, k, v, mesh = paths["ring_flash"][1]
+    leaves = [world_to_global(x).detach().requires_grad_() for x in (q, k, v)]
+    with torch.enable_grad():
+        ref = attn.flash_attention(*leaves, causal=True)
+        ref_grads = torch.autograd.grad(torch.sin(ref).sum(), leaves)
+    ref = ref.detach()
+    rels = {}
+    for name in ("ring_flash", "ulysses"):
+        out, grads = results[name]
+        rels[name] = [rel_norm(world_to_global(out), ref)] + [
+            rel_norm(world_to_global(g), r) for g, r in zip(grads, ref_grads)]
+    rels["ring_attention"] = [rel_norm(world_to_global(
+        results["ring_attention"]), ref)]
+    print(f"long-context path: {tuple(q.shape)} world q/k/v (global seq "
+          f"{q.shape[0] * q.shape[3]}), bf16, causal; launches (B6, B7a, "
+          f"B7b, B8, B1, B2): ring_flash {launches['ring_flash']}, ulysses "
+          f"{launches['ulysses']}, ring_attention "
+          f"{launches['ring_attention']}; against flash_attention over the "
+          f"whole sequence |a - b| / |b| (out, dq, dk, dv): "
+          + "; ".join(f"{n} {', '.join(f'{x:.3e}' for x in r)}"
+                      for n, r in rels.items()) + f" (tol {SP_TOL})")
+    want = {"ring_flash": (4, 4, 4, 0, 0, 0), "ulysses": (0, 0, 0, 8, 1, 1),
+            "ring_attention": (0, 0, 0, 0, 0, 0)}
+    if launches != want:
+        raise AssertionError(f"the long-context path launched {launches}, "
+                             f"expected {want}")
+    finite = all(bool(torch.isfinite(t.float()).all())
+                 for name in ("ring_flash", "ulysses")
+                 for t in (results[name][0], *results[name][1]))
+    if not finite or max(max(r) for r in rels.values()) > SP_TOL:
+        raise AssertionError("the long-context path disagrees with "
+                             "flash_attention over the whole sequence")
+    return launches, paths
+
+
+def ep_path(ring, ep_entry, expert_mlp):
+    """Phase 18: the MoE path with its launch count, against each expert's
+    MLP applied directly and a dense reference. Returns (B8 launches, the
+    entry's (fn, args))."""
+    fn, args = ep_entry()
+    tokens, idx, w_up, w_down, mesh = args
+    ring.alltoall.launches = 0
+    out, grads = fn(*args)
+    torch.cuda.synchronize()
+    launches = ring.alltoall.launches
+    n = mesh.shape["expert"]
+    capacity = 64
+    one_hot = idx[..., None] == torch.arange(n, device=idx.device)
+    pos = ((torch.cumsum(one_hot.long(), 1) - 1) * one_hot).sum(-1)
+    keep = pos < capacity
+    leaves = [x.detach().float().requires_grad_()
+              for x in (tokens, w_up, w_down)]
+    direct, dense = torch.zeros_like(out), torch.zeros(out.shape,
+                                                        device=out.device)
+    with torch.enable_grad():
+        for e in range(n):
+            sel = torch.nonzero(keep & (idx == e), as_tuple=True)
+            direct[sel] = expert_mlp(tokens[sel][None], w_up[e:e + 1],
+                                     w_down[e:e + 1])[0]
+            dense = dense.index_put(sel, expert_mlp(
+                leaves[0][sel][None], leaves[1][e:e + 1],
+                leaves[2][e:e + 1])[0])
+        ref_grads = torch.autograd.grad(torch.sin(dense).sum(), leaves)
+    kept_rel = rel_norm(out[keep], direct[keep])
+    dropped = int((~keep).sum())
+    zero = not bool(out[~keep].any())
+    grad_rels = [rel_norm(g, r) for g, r in zip(grads, ref_grads)]
+    print(f"MoE path: {tuple(tokens.shape)} tokens bf16 over {n} experts "
+          f"(d_ff {w_up.shape[2]}), capacity {capacity}: {dropped} of "
+          f"{keep.numel()} tokens dropped, all exactly zero {zero}; kept "
+          f"tokens against their expert's MLP applied directly |a - b| / |b| "
+          f"{kept_rel:.3e}; grads (tokens, w_up, w_down) against the dense "
+          f"f32 reference {', '.join(f'{x:.3e}' for x in grad_rels)} (tol "
+          f"{EP_TOL}); B8 launches {launches}")
+    if launches != 4:
+        raise AssertionError(f"the MoE path launched B8 {launches} times, "
+                             f"expected 4")
+    if not zero or not dropped or kept_rel > EP_TOL \
+            or max(grad_rels) > EP_TOL:
+        raise AssertionError("the MoE path disagrees with its references")
+    return launches, (fn, args)
+
+
+def path_time(label, fn):
+    """(ms per call by CUDA events, device ms, busy share) of one path."""
+    ms = event_ms(fn, iters=10)
+    dev, rows = device_profile(fn, iters=5)
+    busy = "not measured" if dev is None else f"{dev / ms:.3f}"
+    print(f"{label}: {ms:.6f} ms per call, device time {dev} ms, device "
+          f"busy share {busy}")
+    for dev_ms, calls, kname in rows[:8]:
+        print(f"  {dev_ms:.6f} ms in {calls:g} calls: {kname[:90]}")
+    return ms, dev
+
+
+def slice5_times(attn, sp, spmd, ring, paths, ep, card):
+    """Phase 19: B6, B7a and B7b over the long-context path's four ring
+    steps (ms per launch, averaged), B8 at its Ulysses exchange, against
+    their bounds, plain versions and yardsticks; the three paths. Returns
+    {kernel: (ms, plain ms, library ms or None, bound ms, bound by)}."""
+    _, q, k, v, mesh = paths["ring_flash"][1]
+    qf, steps, q_off, group = ring_steps(sp, spmd, q, k, v, "seq", mesh,
+                                         True)
+    bh, t, d = qf.shape
+    n = len(steps)
+    with torch.no_grad():
+        out, lse = sp._ring_flash_forward(q, k, v, "seq", True, mesh)
+    g = torch.randn(qf.shape, device=qf.device)
+    delta = (g * out.float().reshape(qf.shape)).sum(-1, keepdim=True)
+    states, state = [], (torch.zeros((bh, t, d), device=qf.device),
+                         torch.full((bh, t, 1), -math.inf, device=qf.device),
+                         torch.zeros((bh, t, 1), device=qf.device))
+    for ks, vs, k_off in steps:
+        states.append(state)
+        state = attn.flash_attention_step(qf, ks, vs, *state, q_off, k_off)
+    pairs = sum(visible_pairs(q_off, k_off, t, True) for _, _, k_off in steps)
+    elt, kv_rows = qf.element_size(), steps[0][0].shape[0]
+    print(f"ring-attention step times at the long-context path's {n} ring "
+          f"steps ({bh} rows x t {t}, d {d}, bf16, causal; {pairs} visible "
+          f"(q, k) pairs over the {n} launches) on {card}:")
+
+    def b6(fn):
+        return lambda: [fn(qf, ks, vs, *st, q_off, k_off)
+                        for (ks, vs, k_off), st in zip(steps, states)]
+
+    def b7(fn):
+        return lambda: [fn(qf, ks, vs, g, delta, lse, q_off, k_off)
+                        for ks, vs, k_off in steps]
+
+    state_bytes = 4 * bh * t * (d + 2)
+    rows = {}
+    for kname, label, fn, plain, nbytes, bf16_ops, f32_ops in (
+            ("flash_step", "flash_step_kernel", b6(attn.flash_attention_step),
+             b6(attn.flash_attention_step_plain),
+             elt * d * t * (bh + 2 * kv_rows) + 2 * state_bytes,
+             4 * d * pairs, 0),
+            ("flash_bwd_dq_step", "dq_step_kernel",
+             b7(attn.flash_attention_bwd_dq_step),
+             b7(attn.flash_attention_bwd_dq_step_plain),
+             elt * d * t * (bh + 2 * kv_rows) + 4 * bh * t * (2 * d + 2),
+             4 * d * pairs, 2 * d * pairs),
+            ("flash_bwd_dkv_step", "dkv_step_kernel",
+             b7(attn.flash_attention_bwd_dkv_step),
+             b7(attn.flash_attention_bwd_dkv_step_plain),
+             elt * d * t * (bh + 2 * kv_rows) + 4 * bh * t * (3 * d + 2),
+             4 * d * pairs, 4 * d * pairs)):
+        with torch.no_grad():
+            ms = timed_kernel(f"{kname} kernel", fn, label)
+            whole = timed(f"{kname} {n} whole calls (wrapper, kernel)", fn)
+            plain_ms = timed(f"{kname} plain, {n} steps", plain, iters=3)
+        bound, bound_by = _bound_mixed(n * nbytes, bf16_ops, f32_ops)
+        bound /= n
+        plain_ms = None if plain_ms is None else plain_ms / n
+        print(f"  {kname}: {ms} ms per launch (whole calls {whole} ms per "
+              f"{n}), plain {plain_ms} ms per step; bound {bound:.6f} ms per "
+              f"launch ({bound_by}: {nbytes} bytes, {bf16_ops // n} bf16 and "
+              f"{f32_ops // n} f32 operations per launch on average); "
+              f"library: none (no PyTorch call folds one block into carried "
+              f"state)")
+        rows[kname] = (ms, plain_ms, None, bound, bound_by)
+
+    # Path-level yardsticks over the whole sequence: SDPA and B1 + B2, each
+    # forward and backward of sum(sin(out)).
+    leaves = [world_to_global(x).detach().requires_grad_() for x in (q, k, v)]
+
+    def fwd_bwd(f):
+        def run():
+            with torch.enable_grad():
+                o = f(*leaves)
+                torch.autograd.grad(torch.sin(o).sum(), leaves)
+        return run
+
+    timed("path yardstick: SDPA forward + backward over the whole sequence",
+          fwd_bwd(lambda a, b_, c: F.scaled_dot_product_attention(
+              a, b_, c, is_causal=True)))
+    timed("path yardstick: B1 + B2 (flash_attention) over the whole sequence",
+          fwd_bwd(lambda a, b_, c: attn.flash_attention(a, b_, c)))
+
+    # B8 at the Ulysses exchange: q's heads split, (4, 4, 2 t_local d).
+    x = q.movedim(2, 1).reshape(q.shape[0], q.shape[2], -1).contiguous()
+    n_seq = mesh.shape["seq"]
+    with torch.no_grad():
+        ms = timed_kernel("alltoall kernel",
+                          lambda: ring.alltoall(x, "seq", mesh),
+                          "alltoall_kernel")
+        timed("alltoall whole call (flags, buffers, kernel)",
+              lambda: ring.alltoall(x, "seq", mesh))
+        plain_ms = timed("alltoall plain",
+                         lambda: ring.alltoall_plain(x, "seq", mesh))
+        lib = timed("alltoall yardstick x.view(n, n, c, cols).transpose(0, "
+                    "1).contiguous()",
+                    lambda: x.view(n_seq, n_seq, -1).transpose(0, 1)
+                    .contiguous())
+    nbytes = 2 * x.numel() * x.element_size()
+    bound, bound_by = _bound(nbytes, 0, torch.bfloat16)
+    print(f"  alltoall bound {bound:.6f} ms ({bound_by}: {nbytes} bytes)")
+    rows["alltoall"] = (ms, plain_ms, lib, bound, bound_by)
+
+    for name in ("ring_flash", "ulysses"):
+        fn, args = paths[name]
+        path_time(f"long-context path {name} forward + backward",
+                  lambda: fn(*args))
+    fn, args = paths["ring_attention"]
+    path_time("long-context path ring_attention forward (plain torch)",
+              lambda: fn(*args))
+    fn, args = ep
+    path_time("MoE path dispatch_combine forward + backward",
+              lambda: fn(*args))
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
@@ -614,15 +1060,16 @@ def main():
     from gloo_tpu_torch import _build
     from gloo_tpu_torch.entry import (DDP_WORLD, ENTRY_CONFIG,
                                       ddp_train_entry, dp_tp_train_entry,
-                                      entry, train_entry)
+                                      entry, ep_entry, expert_mlp, sp_entry,
+                                      train_entry)
     from gloo_tpu_torch.entry import forward as entry_forward
     from gloo_tpu_torch.models import Transformer
     from gloo_tpu_torch.ops import attention as attn
     from gloo_tpu_torch.ops import overlap as ov
     from gloo_tpu_torch.ops import ring
-    from gloo_tpu_torch.parallel import dp_tp, tp
+    from gloo_tpu_torch.parallel import dp_tp, sp, tp
     from gloo_tpu_torch.parallel.ddp import buffer_width
-    from gloo_tpu_torch.tpu import CudaProcessGroup, make_mesh
+    from gloo_tpu_torch.tpu import CudaProcessGroup, make_mesh, spmd
 
     # Phase 1: the card.
     card = card_line()
@@ -916,7 +1363,7 @@ def main():
         np.float32)[..., None] * np.ones((p, p, 8), np.float32)
     xs = xr[:, :1] * np.ones((p, p * 4), np.float32)
     for fn in (ring.ring_allreduce, ring.ring_reduce_scatter,
-               ring.ring_allgather):
+               ring.ring_allgather, ring.alltoall):
         fn.launches = 0
     got = {
         "allreduce": pg.unshard(pg.allreduce(pg.shard(xr))),
@@ -931,7 +1378,7 @@ def main():
     pg.barrier()
     group_launches = (ring.ring_allreduce.launches,
                       ring.ring_reduce_scatter.launches,
-                      ring.ring_allgather.launches)
+                      ring.ring_allgather.launches, ring.alltoall.launches)
     total = xr.sum(0)
     closed = {
         "allreduce": np.broadcast_to(total, (p, 16)),
@@ -949,11 +1396,11 @@ def main():
     print(f"group path (CudaProcessGroup, {p} ranks on the card): "
           f"{', '.join(got)} and barrier against their closed forms: "
           f"{'all agree' if not wrong else 'FAILED ' + str(wrong)}; "
-          f"launches ring_allreduce, ring_reduce_scatter, ring_allgather "
-          f"{group_launches}")
-    if wrong or group_launches != (2, 1, 1):
+          f"launches ring_allreduce, ring_reduce_scatter, ring_allgather, "
+          f"alltoall {group_launches}")
+    if wrong or group_launches != (2, 1, 1, 1):
         raise AssertionError(f"the group path failed: {wrong}, launches "
-                             f"{group_launches}, expected (2, 1, 1)")
+                             f"{group_launches}, expected (2, 1, 1, 1)")
 
     # Phase 10: the data-parallel path, with the launch counts read around
     # it, against train_step over the whole batch on the same card.
@@ -1211,9 +1658,28 @@ def main():
     for dev_ms, calls, kname in tp_rows[:8]:
         print(f"  {dev_ms:.6f} ms in {calls:g} calls: {kname[:90]}")
 
+    # Phase 16: the ring-attention step kernels and the all-to-all against
+    # their plain versions.
+    step_errs = step_cases(attn, sp, spmd, make_mesh, gen)
+    a2a_err = alltoall_cases(ring, make_mesh, gen)
+
+    # Phase 17: the long-context path (path S).
+    sp_launches, sp_paths = sp_path(attn, ring, sp_entry)
+
+    # Phase 18: the MoE path (path E).
+    ep_launches, ep = ep_path(ring, ep_entry, expert_mlp)
+
+    # Phase 19: times of B6, B7a, B7b and B8 at the paths' shapes, and of
+    # the three paths.
+    slice5_rows = slice5_times(attn, sp, spmd, ring, sp_paths, ep, card)
+    print(f"B8 launches: {sp_launches['ulysses'][3]} on the Ulysses path "
+          f"(the kernels line), {ep_launches} on the MoE path")
+
     # Launches on the main paths: B1 on the serving path, B2 on the
     # training path, B3 on the DDP path, B4a and B4b on the group path,
-    # B5a and B5b on the fused MLP path.
+    # B5a and B5b on the fused MLP path, B6, B7a and B7b on the ring-flash
+    # path, B8 on the Ulysses path. B6 and B7 have no library call.
+    ring_flash = sp_launches["ring_flash"]
     kernels = []
     for kname, source, replaces, n, err, (ms, plain, lib, bound,
                                           bound_by) in (
@@ -1235,8 +1701,19 @@ def main():
              overlap_rows["matmul_reduce_scatter"]),
             ("allgather_matmul", "overlap.cu", "overlap.py:205",
              mlp_launches[0], overlap_errs["mlp_bf16"][1],
-             overlap_rows["allgather_matmul"])):
-        if None in (ms, plain, lib):
+             overlap_rows["allgather_matmul"]),
+            ("flash_step", "flash_step.cu", "attention.py:477", ring_flash[0],
+             step_errs["pathS"][0], slice5_rows["flash_step"]),
+            ("flash_bwd_dq_step", "flash_bwd_step.cu", "attention.py:588",
+             ring_flash[1], step_errs["pathS"][1],
+             slice5_rows["flash_bwd_dq_step"]),
+            ("flash_bwd_dkv_step", "flash_bwd_step.cu", "attention.py:635",
+             ring_flash[2], step_errs["pathS"][2],
+             slice5_rows["flash_bwd_dkv_step"]),
+            ("alltoall", "alltoall.cu", "pallas_ring.py:1109",
+             sp_launches["ulysses"][3], a2a_err, slice5_rows["alltoall"])):
+        step_kernel = kname.startswith("flash_") and kname.endswith("_step")
+        if None in (ms, plain) or (lib is None and not step_kernel):
             raise AssertionError(
                 f"the profiler showed no device time for {kname}'s kernel, "
                 f"plain or library call at the main path's shape")

@@ -88,59 +88,6 @@ struct Params {
   long long o_sb, o_sh, o_st;  // dO
 };
 
-// Two bf16 of a row (kStride == 1) or of a column (their row stride) as
-// one mma operand register, the lower index in the low half.
-template <int kStride>
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  if constexpr (kStride == 1) {
-    return ld_u32(p);
-  } else {
-    return pack_bf16(p[0], p[kStride]);
-  }
-}
-
-// acc[j] += A B for the warp's 16 rows of A and the NT 8-column slices of
-// B, in the C fragment layout (flash_common.cuh), summed over K. Both
-// operands lie in shared memory with compile-time strides:
-// A(r, k) = a[r * kAR + k * kAK], B(k, n) = b[k * kBK + n * kBN]. bf16 runs
-// on mma.sync, f32 on the FMA units.
-template <typename T, int K, int NT, int kAR, int kAK, int kBK, int kBN>
-__device__ __forceinline__ void warp_product(float (*acc)[4], const T* a,
-                                             const T* b) {
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int c2 = 2 * (lane % 4);
-  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-#pragma unroll
-    for (int kk = 0; kk < K; kk += 16) {
-      const T* ap = a + g * kAR + (kk + c2) * kAK;
-      const uint32_t af[4] = {
-          ld_pair<kAK>(ap), ld_pair<kAK>(ap + 8 * kAR),
-          ld_pair<kAK>(ap + 8 * kAK), ld_pair<kAK>(ap + 8 * kAR + 8 * kAK)};
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const T* bp = b + (kk + c2) * kBK + (j * 8 + g) * kBN;
-        mma_bf16(acc[j], af, ld_pair<kBK>(bp), ld_pair<kBK>(bp + 8 * kBK));
-      }
-    }
-  } else {
-#pragma unroll 4
-    for (int k = 0; k < K; ++k) {
-      const float x0 = a[g * kAR + k * kAK];
-      const float x1 = a[(g + 8) * kAR + k * kAK];
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const float y0 = b[k * kBK + (j * 8 + c2) * kBN];
-        const float y1 = b[k * kBK + (j * 8 + c2 + 1) * kBN];
-        acc[j][0] = fmaf(x0, y0, acc[j][0]);
-        acc[j][1] = fmaf(x0, y1, acc[j][1]);
-        acc[j][2] = fmaf(x1, y0, acc[j][2]);
-        acc[j][3] = fmaf(x1, y1, acc[j][3]);
-      }
-    }
-  }
-}
-
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_kernel(const Params p) {

@@ -1,7 +1,8 @@
-// Helpers shared by the flash-attention kernels (flash_fwd.cu and
-// flash_bwd.cu): element conversions, bf16 packing, the m16n8k16 mma.sync
-// product, 16-byte tile loads into shared memory, and the one-time
-// dynamic shared-memory attribute.
+// Helpers shared by the flash-attention kernels (flash_fwd.cu,
+// flash_bwd.cu, flash_step.cu and flash_bwd_step.cu): element conversions,
+// bf16 packing, the m16n8k16 mma.sync product, a warp's product of two
+// shared-memory tiles, 16-byte tile loads into shared memory, and the
+// one-time dynamic shared-memory attribute.
 //
 // Fragment layout of mma.sync m16n8k16 (bf16 in, f32 accumulate), which
 // the f32 FMA paths copy so that both types share their index arithmetic:
@@ -18,6 +19,7 @@
 
 #include <atomic>
 #include <cstdint>
+#include <type_traits>
 
 namespace gtt {
 
@@ -61,6 +63,72 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
       "{%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two bf16 of a row (kStride == 1) or of a column (their row stride) as
+// one mma operand register, the lower index in the low half.
+template <int kStride>
+__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
+  if constexpr (kStride == 1) {
+    return ld_u32(p);
+  } else {
+    return pack_bf16(p[0], p[kStride]);
+  }
+}
+
+// acc[j] += A B on the FMA units in f32, for the warp's 16 rows of A and
+// the NT 8-column slices of B, in the C fragment layout, summed over K in
+// order. A(r, k) = a[r * kAR + k * kAK], B(k, n) = b[k * kBK + n * kBN] in
+// shared memory; either operand may be bf16 (widened exactly) or f32.
+template <int K, int NT, int kAR, int kAK, int kBK, int kBN, typename TA,
+          typename TB>
+__device__ __forceinline__ void warp_fma(float (*acc)[4], const TA* a,
+                                         const TB* b) {
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int c2 = 2 * (lane % 4);
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) {
+    const float x0 = to_f32(a[g * kAR + k * kAK]);
+    const float x1 = to_f32(a[(g + 8) * kAR + k * kAK]);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float y0 = to_f32(b[k * kBK + (j * 8 + c2) * kBN]);
+      const float y1 = to_f32(b[k * kBK + (j * 8 + c2 + 1) * kBN]);
+      acc[j][0] = fmaf(x0, y0, acc[j][0]);
+      acc[j][1] = fmaf(x0, y1, acc[j][1]);
+      acc[j][2] = fmaf(x1, y0, acc[j][2]);
+      acc[j][3] = fmaf(x1, y1, acc[j][3]);
+    }
+  }
+}
+
+// acc[j] += A B for the warp's 16 rows of A and the NT 8-column slices of
+// B, in the C fragment layout, summed over K. Both operands lie in shared
+// memory with compile-time strides, as for warp_fma. bf16 runs on
+// mma.sync, f32 on the FMA units.
+template <typename T, int K, int NT, int kAR, int kAK, int kBK, int kBN>
+__device__ __forceinline__ void warp_product(float (*acc)[4], const T* a,
+                                             const T* b) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    const int lane = threadIdx.x % 32;
+    const int g = lane / 4;
+    const int c2 = 2 * (lane % 4);
+#pragma unroll
+    for (int kk = 0; kk < K; kk += 16) {
+      const T* ap = a + g * kAR + (kk + c2) * kAK;
+      const uint32_t af[4] = {
+          ld_pair<kAK>(ap), ld_pair<kAK>(ap + 8 * kAR),
+          ld_pair<kAK>(ap + 8 * kAK), ld_pair<kAK>(ap + 8 * kAR + 8 * kAK)};
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const T* bp = b + (kk + c2) * kBK + (j * 8 + g) * kBN;
+        mma_bf16(acc[j], af, ld_pair<kBK>(bp), ld_pair<kBK>(bp + 8 * kBK));
+      }
+    }
+  } else {
+    warp_fma<K, NT, kAR, kAK, kBK, kBN>(acc, a, b);
+  }
 }
 
 __device__ __forceinline__ void store2(float* p, float a, float b) {

@@ -1,6 +1,7 @@
 """Entry points: the flagship transformer's forward and training step on
-one GPU, and its data-parallel and data x tensor parallel training steps
-over a world of ranks.
+one GPU, its data-parallel and data x tensor parallel training steps over
+a world of ranks, and the long-context (sequence-parallel) and MoE
+(expert-parallel) paths at the flagship's width.
 
 ``entry()`` is the counterpart of ``__graft_entry__.entry()``: the same
 configuration (vocab 512, d_model 256, 4 heads, 2 layers, d_ff 1024, seq
@@ -15,19 +16,31 @@ train_entry()'s tokens and targets as the global batch, and the gradient
 mean on the ring allreduce kernel. ``dp_tp_train_entry()`` is the dp x tp
 training step of dryrun_multichip: a mesh DP_TP_MESH of ranks on one card,
 the weights split over "model" as its layer_spec splits them, the same
-global batch split over "data".
+global batch split over "data". ``sp_entry()`` is the counterpart of the
+dry run's sequence-parallel sections (ring_attention, ulysses_attention,
+__graft_entry__.py:182-248) at the flagship's attention width: its 4 heads
+of head_dim 64, bf16, causal, over a global sequence of SP_SEQ split over
+SP_MESH ranks on one card. ``ep_entry()`` is its dispatch_combine section
+(:227-233): EP_TOKENS tokens per rank of width d_model routed over a mesh
+EP_MESH of experts on one card, each the flagship's MLP at full width.
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from gloo_tpu_torch.device import resolve_device
 from gloo_tpu_torch.models.transformer import Transformer, TransformerConfig
 from gloo_tpu_torch.parallel.ddp import make_ddp_train_step
 from gloo_tpu_torch.parallel.dp_tp import (make_dp_tp_train_step,
                                            shard_transformer)
+from gloo_tpu_torch.parallel.ep import dispatch_combine
+from gloo_tpu_torch.parallel.sp import (ring_attention, ring_flash_attention,
+                                        ulysses_attention)
 from gloo_tpu_torch.tpu.mesh import make_mesh
 
 ENTRY_CONFIG = TransformerConfig(vocab_size=512, d_model=256, n_heads=4,
@@ -42,6 +55,18 @@ DDP_WORLD = 4
 # dp_tp_train_entry's mesh, all on one card: ENTRY_BATCH / 2 sequences per
 # data rank, two heads and d_ff / 2 per model rank.
 DP_TP_MESH = {"data": 2, "model": 2}
+# sp_entry's mesh, all on one card, and its global sequence and batch:
+# t_local = SP_SEQ / 4 = 1024 rows per rank, 16 of the kernels' 64-row
+# tiles (the flagship's seq of 128 would leave 32 rows per rank).
+SP_MESH = {"seq": 4}
+SP_SEQ = 4096
+SP_BATCH = 2
+# ep_entry's mesh of experts, all on one card, its tokens per rank, and the
+# slots each rank reserves per expert: EP_TOKENS / 4, the uniform mean, so
+# some tokens overflow and are dropped.
+EP_MESH = {"expert": 4}
+EP_TOKENS = 256
+EP_CAPACITY = 64
 
 
 def forward(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
@@ -134,3 +159,84 @@ def dp_tp_train_entry(device="cuda"):
     optimizer = torch.optim.Adam(tp_model.parameters(), **ADAM_SETTINGS)
     step = make_dp_tp_train_step(mesh, "data", "model")
     return step, (tp_model, optimizer, tokens, _entry_targets(tokens))
+
+
+def sp_step(attn, q, k, v, mesh):
+    """Forward and backward of one sequence-parallel attention `attn`
+    (ring_flash_attention or ulysses_attention) over the world tensors q,
+    k, v along "seq": (out, (dq, dk, dv)), the gradients those of
+    sum(sin(out)), the loss of the JAX package's sequence-parallel tests."""
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    with torch.enable_grad():
+        out = attn(*leaves, "seq", mesh=mesh)
+        grads = torch.autograd.grad(torch.sin(out).sum(), leaves)
+    return out.detach(), grads
+
+
+def sp_forward(attn, q, k, v, mesh):
+    """The forward of `attn` alone (ring_attention has no kernel)."""
+    with torch.no_grad():
+        return attn(q, k, v, "seq", mesh=mesh)
+
+
+def sp_entry(device="cuda", seq: int = SP_SEQ):
+    """The long-context path: {"ring_flash": (sp_step, args), "ulysses":
+    (sp_step, args), "ring_attention": (sp_forward, args)}, each fn(*args).
+    args = (the attention, q, k, v, mesh): a mesh SP_MESH of ranks on
+    `device`, and q, k, v world tensors (4, SP_BATCH, 4 heads, seq / 4,
+    64) in bf16 drawn in that order from np.random.RandomState(0)."""
+    dev = resolve_device(device)
+    n = SP_MESH["seq"]
+    mesh = make_mesh(SP_MESH, devices=[dev] * n)
+    cfg = ENTRY_CONFIG
+    shape = (n, SP_BATCH, cfg.n_heads, seq // n, cfg.d_model // cfg.n_heads)
+    rng = np.random.RandomState(0)
+    q, k, v = (torch.as_tensor(rng.randn(*shape).astype(np.float32))
+               .to(dev, torch.bfloat16) for _ in range(3))
+    return {"ring_flash": (sp_step, (ring_flash_attention, q, k, v, mesh)),
+            "ulysses": (sp_step, (ulysses_attention, q, k, v, mesh)),
+            "ring_attention": (sp_forward, (ring_attention, q, k, v, mesh))}
+
+
+def expert_mlp(x: torch.Tensor, w_up: torch.Tensor,
+               w_down: torch.Tensor) -> torch.Tensor:
+    """Each rank's expert, the flagship's MLP: gelu(x @ w_up) @ w_down with
+    the tanh GELU, over world tensors x (P, rows, d), w_up (P, d, d_ff),
+    w_down (P, d_ff, d) (cuBLAS products, as XLA's outside any kernel)."""
+    return torch.bmm(F.gelu(torch.bmm(x, w_up), approximate="tanh"), w_down)
+
+
+def ep_step(tokens, expert_idx, w_up, w_down, mesh):
+    """Forward and backward of dispatch_combine with expert_mlp along
+    "expert": (out, (d tokens, d w_up, d w_down)), the gradients those of
+    sum(sin(out))."""
+    leaves = [x.detach().requires_grad_() for x in (tokens, w_up, w_down)]
+    with torch.enable_grad():
+        out = dispatch_combine(
+            lambda x: expert_mlp(x, leaves[1], leaves[2]), leaves[0],
+            expert_idx, EP_CAPACITY, "expert", mesh=mesh)
+        grads = torch.autograd.grad(torch.sin(out).sum(), leaves)
+    return out.detach(), grads
+
+
+def ep_entry(device="cuda"):
+    """The MoE path: (ep_step, (tokens, expert_idx, w_up, w_down, mesh)) on
+    `device`: a mesh EP_MESH of ranks on that device; tokens (4, EP_TOKENS,
+    d_model) bf16, expert_idx (4, EP_TOKENS) from randint(0, 4), w_up (4,
+    d_model, d_ff) / sqrt(d_model) and w_down (4, d_ff, d_model) /
+    sqrt(d_ff) bf16, drawn in that order from np.random.RandomState(0)."""
+    dev = resolve_device(device)
+    n = EP_MESH["expert"]
+    mesh = make_mesh(EP_MESH, devices=[dev] * n)
+    d, f = ENTRY_CONFIG.d_model, ENTRY_CONFIG.d_ff
+    rng = np.random.RandomState(0)
+    tokens = rng.randn(n, EP_TOKENS, d)
+    expert_idx = rng.randint(0, n, (n, EP_TOKENS))
+    w_up = rng.randn(n, d, f) / math.sqrt(d)
+    w_down = rng.randn(n, f, d) / math.sqrt(f)
+
+    def bf16(x):
+        return torch.as_tensor(x.astype(np.float32)).to(dev, torch.bfloat16)
+
+    return ep_step, (bf16(tokens), torch.as_tensor(expert_idx, device=dev),
+                     bf16(w_up), bf16(w_down), mesh)

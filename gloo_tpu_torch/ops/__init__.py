@@ -1,12 +1,21 @@
-"""Tensor ops of the port: the flash-attention kernels, the ring
-collective kernels, the collective matmul kernels and RoPE."""
+"""Tensor ops of the port: the flash-attention kernels and the
+ring-attention step kernels, the ring collective kernels and the
+all-to-all, the collective matmul kernels and RoPE."""
 
 from gloo_tpu_torch.ops.attention import (
     flash_attention,
     flash_attention_bwd,
+    flash_attention_bwd_dkv_step,
+    flash_attention_bwd_dkv_step_plain,
+    flash_attention_bwd_dq_step,
+    flash_attention_bwd_dq_step_plain,
     flash_attention_bwd_plain,
+    flash_attention_bwd_step,
     flash_attention_fwd,
     flash_attention_plain,
+    flash_attention_step,
+    flash_attention_step_plain,
+    group_sum_kv,
     reference_attention,
 )
 from gloo_tpu_torch.ops.kernel_table import KERNELS
@@ -18,6 +27,8 @@ from gloo_tpu_torch.ops.overlap import (
     matmul_reduce_scatter_plain,
 )
 from gloo_tpu_torch.ops.ring import (
+    alltoall,
+    alltoall_plain,
     ring_allgather,
     ring_allgather_plain,
     ring_allreduce,
@@ -33,12 +44,22 @@ __all__ = [
     "allgather_matmul",
     "allgather_matmul_fwd",
     "allgather_matmul_plain",
+    "alltoall",
+    "alltoall_plain",
     "apply_rope",
     "flash_attention",
     "flash_attention_bwd",
+    "flash_attention_bwd_dkv_step",
+    "flash_attention_bwd_dkv_step_plain",
+    "flash_attention_bwd_dq_step",
+    "flash_attention_bwd_dq_step_plain",
     "flash_attention_bwd_plain",
+    "flash_attention_bwd_step",
     "flash_attention_fwd",
     "flash_attention_plain",
+    "flash_attention_step",
+    "flash_attention_step_plain",
+    "group_sum_kv",
     "matmul_reduce_scatter",
     "matmul_reduce_scatter_plain",
     "reference_attention",

@@ -1,4 +1,5 @@
-"""Flash attention on hand-written Hopper kernels, forward and backward.
+"""Flash attention on hand-written Hopper kernels, forward and backward,
+and the carried-state step kernels of ring attention.
 
 Counterpart of gloo_tpu/ops/attention.py::flash_attention: attention over
 (b, h, t, d) without materializing the (t, t) scores, with grouped-query
@@ -9,11 +10,20 @@ fused backward ``_flash_bwd_fused_kernel`` is ``csrc/flash_bwd.cu``
 (``flash_attention_bwd``), and ``flash_attention`` ties the two together
 as a ``torch.autograd.Function``, as the custom VJP does in JAX.
 
+The ring-attention steps keep JAX's (bh, t, d) layout:
+``flash_attention_step`` (``_flash_step_kernel``, ``csrc/flash_step.cu``)
+folds one k/v block into carried f32 (acc, m, l) state, and
+``flash_attention_bwd_step`` runs ``flash_attention_bwd_dq_step``
+(``_flash_bwd_dq_step_kernel``) and ``flash_attention_bwd_dkv_step``
+(``_flash_bwd_dkv_step_kernel``), the two entry points of
+``csrc/flash_bwd_step.cu``. Their offsets place the tiles in the global
+sequence; they may differ per query-head row, so one launch serves every
+rank of a world.
+
 On CUDA tensors each wrapper launches its kernel or raises; on CPU tensors
-it runs its plain twin (``flash_attention_plain``,
-``flash_attention_bwd_plain``), which repeats the kernel's arithmetic step
-by step (same tiles, same rounding points) and is the version the kernel
-is held against.
+it runs its plain twin (``*_plain``), which repeats the kernel's arithmetic
+step by step (same tiles, same rounding points) and is the version the
+kernel is held against.
 """
 
 from __future__ import annotations
@@ -35,22 +45,28 @@ KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 KERNEL_HEAD_DIMS = (64, 128)
 
 _libs: dict[str, ctypes.CDLL] = {}
-# ctypes signature of each source's entry point: (pointers, ints, floats,
+# ctypes signature of each source's entry points: (pointers, ints, floats,
 # strides); the stream comes last.
-_SIGNATURES = {"flash_fwd": (5, 7, 1, 9), "flash_bwd": (10, 7, 2, 12)}
+_SIGNATURES = {
+    "flash_fwd": {"gtt_flash_fwd": (5, 7, 1, 9)},
+    "flash_bwd": {"gtt_flash_bwd": (10, 7, 2, 12)},
+    "flash_step": {"gtt_flash_step": (11, 7, 1, 6)},
+    "flash_bwd_step": {"gtt_flash_bwd_dq_step": (9, 7, 2, 8),
+                       "gtt_flash_bwd_dkv_step": (10, 7, 1, 8)},
+}
 
 
 def _kernel_lib(name: str) -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is None:
         lib = _build.load(name)
-        ptrs, ints, floats, strides = _SIGNATURES[name]
-        fn = getattr(lib, f"gtt_{name}")
-        fn.argtypes = (
-            [ctypes.c_void_p] * ptrs + [ctypes.c_int] * ints
-            + [ctypes.c_float] * floats + [ctypes.c_longlong] * strides
-            + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+        for fname, (ptrs, ints, floats, strides) in _SIGNATURES[name].items():
+            fn = getattr(lib, fname)
+            fn.argtypes = (
+                [ctypes.c_void_p] * ptrs + [ctypes.c_int] * ints
+                + [ctypes.c_float] * floats + [ctypes.c_longlong] * strides
+                + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
         lib.gtt_error_string.argtypes = [ctypes.c_int]
         lib.gtt_error_string.restype = ctypes.c_char_p
         _libs[name] = lib
@@ -345,3 +361,303 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         s = s.masked_fill(~mask, -1e30)
     p = torch.softmax(s, dim=-1).to(q.dtype)
     return (p.float() @ v.float()).to(q.dtype)
+
+
+# ---- the ring-attention steps (B6, B7a, B7b) ----
+
+def _check_step(q, k, v, kv_group: int):
+    """The layout checks of the JAX step wrappers, for every device:
+    q (bh, t_q, d); k, v (bh / kv_group, t_kv, d)."""
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+        raise ValueError("q, k and v must be (rows, seq, head_dim)")
+    bh, _, d = q.shape
+    if bh % kv_group != 0 or k.shape[0] != bh // kv_group:
+        raise ValueError(
+            f"k head count {k.shape[0]} != bh {bh} / kv_group {kv_group}")
+    if v.shape != k.shape or k.shape[2] != d:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} must be "
+                         f"(bh / kv_group, t_kv, head_dim={d})")
+
+
+def _check_rows(name: str, x: torch.Tensor, shape) -> None:
+    if tuple(x.shape) != tuple(shape) or x.dtype != torch.float32:
+        raise ValueError(f"{name} must be f32 of shape {tuple(shape)}; got "
+                         f"{x.dtype} {tuple(x.shape)}")
+
+
+def _offsets(off, bh: int, device: torch.device) -> torch.Tensor:
+    """A global offset per query-head row: (bh,) int32 on `device`, from an
+    int or a (bh,) tensor."""
+    if isinstance(off, torch.Tensor):
+        if tuple(off.shape) != (bh,):
+            raise ValueError(f"an offset tensor must be ({bh},); got "
+                             f"{tuple(off.shape)}")
+        if off.device != device:
+            raise ValueError(f"offsets lie on {off.device}, q on {device}")
+        return off.to(torch.int32).contiguous()
+    return torch.full((bh,), int(off), dtype=torch.int32, device=device)
+
+
+def _check_step_kernel(q, k, v, **more):
+    """What the step kernels take: _check_kernel_inputs on (1, bh, t, d)
+    views, and f32 operands `more` contiguous on q's device."""
+    _check_kernel_inputs(q[None], k[None], v[None])
+    for name, x in more.items():
+        if x.device != q.device or not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {q.device}")
+
+
+def flash_attention_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                         q_offset, k_offset, causal: bool = True,
+                         kv_group: int = 1):
+    """Fold one key/value block into carried flash state: the new (acc, m,
+    l), as new tensors.
+
+    q (bh, t_q, d); k, v (bh / kv_group, t_kv, d), query-head row i reading
+    kv row i // kv_group; acc (bh, t_q, d) f32; m, l (bh, t_q, 1) f32.
+    q_offset / k_offset are the global positions of the first query and
+    key: ints, or int32 tensors of shape (bh,), one per row. The JAX
+    version's block_q / block_k / interpret / vma_axes have no
+    counterpart: the tiles are the kernel's (BLOCK_Q, BLOCK_K).
+
+    CUDA tensors go through the Hopper kernel (csrc/flash_step.cu), CPU
+    tensors through flash_attention_step_plain; there is no fallback."""
+    _check_step(q, k, v, kv_group)
+    bh, tq, d = q.shape
+    for name, x, shape in (("acc", acc, (bh, tq, d)), ("m", m, (bh, tq, 1)),
+                           ("l", l, (bh, tq, 1))):
+        _check_rows(name, x, shape)
+    qo, ko = (_offsets(o, bh, q.device) for o in (q_offset, k_offset))
+    if q.device.type == "cpu":
+        return flash_attention_step_plain(q, k, v, acc, m, l, qo, ko, causal,
+                                          kv_group)
+    _check_step_kernel(q, k, v, acc=acc, m=m, l=l)
+    lib = _kernel_lib("flash_step")
+    acc_out, m_out, l_out = (torch.empty_like(x) for x in (acc, m, l))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.gtt_flash_step(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(),
+            m.data_ptr(), l.data_ptr(), acc_out.data_ptr(), m_out.data_ptr(),
+            l_out.data_ptr(), qo.data_ptr(), ko.data_ptr(),
+            KERNEL_DTYPES[q.dtype], bh, kv_group, tq, k.shape[1], d,
+            int(causal), _folded_scale(d, q.dtype), *q.stride()[:2],
+            *k.stride()[:2], *v.stride()[:2], stream)
+    _raise_on(err, "flash_step", lib)
+    flash_attention_step.launches += 1
+    return acc_out, m_out, l_out
+
+
+# Launches of the CUDA kernel in this process; counts nothing on the CPU.
+flash_attention_step.launches = 0
+
+
+def _positions(off: torch.Tensor, start: int, n: int) -> torch.Tensor:
+    """(rows, n) global positions off[i] + start .. off[i] + start + n - 1."""
+    return off.long()[:, None] + torch.arange(start, start + n,
+                                              device=off.device)
+
+
+def flash_attention_step_plain(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, acc: torch.Tensor,
+                               m: torch.Tensor, l: torch.Tensor, q_offset,
+                               k_offset, causal: bool = True,
+                               kv_group: int = 1):
+    """B6's arithmetic in plain PyTorch: the online softmax over the same
+    BLOCK_K key tiles, scores s = (q * scale in q's dtype) k^T in f32,
+    masked to -inf where the global key position passes the query's, the
+    m_safe / corr guards, and p rounded to v's dtype before p v."""
+    _check_step(q, k, v, kv_group)
+    bh, tq, d = q.shape
+    tkv = k.shape[1]
+    qo, ko = (_offsets(o, bh, q.device) for o in (q_offset, k_offset))
+    kv_row = torch.arange(bh, device=q.device) // kv_group
+    k, v = k[kv_row], v[kv_row]
+    qs = (q * torch.tensor(_folded_scale(d, q.dtype), dtype=q.dtype)).float()
+    rows = _positions(qo, 0, tq)
+    for k0 in range(0, tkv, BLOCK_K):
+        kt = k[:, k0:k0 + BLOCK_K].float()
+        vt = v[:, k0:k0 + BLOCK_K]
+        s = qs @ kt.transpose(-1, -2)
+        if causal:
+            cols = _positions(ko, k0, kt.shape[1])
+            s = s.masked_fill(cols[:, None, :] > rows[:, :, None], -math.inf)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        p = torch.exp(s - m_safe)
+        corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + p.to(v.dtype).float() @ vt.float()
+        m = m_new
+    return acc, m, l
+
+
+def _check_bwd_step(q, do, delta, lse):
+    bh, tq, d = q.shape
+    if tuple(do.shape) != (bh, tq, d) or do.dtype != torch.float32:
+        raise ValueError(
+            f"do must be f32 of q's shape {(bh, tq, d)} (the ring backward's "
+            f"f32 cotangent); got {do.dtype} {tuple(do.shape)}")
+    _check_rows("delta", delta, (bh, tq, 1))
+    _check_rows("lse", lse, (bh, tq, 1))
+
+
+def _bwd_step_launch(fname, q, k, v, do, delta, lse, qo, ko, outs, causal,
+                     kv_group, floats):
+    _check_step_kernel(q, k, v, delta=delta, lse=lse)
+    if do.device != q.device or do.stride(-1) != 1 or do.data_ptr() % 16 \
+            or any(st % 4 for st in do.stride()[:2]):
+        raise ValueError(f"do must lie on {q.device} with a contiguous last "
+                         f"dim, 16-byte aligned rows; got strides "
+                         f"{do.stride()}")
+    bh, tq, d = q.shape
+    lib = _kernel_lib("flash_bwd_step")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, fname)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), qo.data_ptr(), ko.data_ptr(),
+            *(x.data_ptr() for x in outs), KERNEL_DTYPES[q.dtype], bh,
+            kv_group, tq, k.shape[1], d, int(causal), *floats,
+            *q.stride()[:2], *k.stride()[:2], *v.stride()[:2],
+            *do.stride()[:2], stream)
+    _raise_on(err, fname, lib)
+
+
+def flash_attention_bwd_dq_step(q, k, v, do, delta, lse, q_offset, k_offset,
+                                causal: bool = True, kv_group: int = 1):
+    """B7a: the dQ piece (bh, t_q, d) f32 of one key/value block at a
+    global position, from the completed forward's lse and delta =
+    rowsum(dO * O) (both (bh, t_q, 1) f32) and the f32 cotangent do.
+    CUDA tensors go through csrc/flash_bwd_step.cu, CPU tensors through
+    flash_attention_bwd_dq_step_plain."""
+    _check_step(q, k, v, kv_group)
+    _check_bwd_step(q, do, delta, lse)
+    bh = q.shape[0]
+    qo, ko = (_offsets(o, bh, q.device) for o in (q_offset, k_offset))
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dq_step_plain(q, k, v, do, delta, lse, qo,
+                                                 ko, causal, kv_group)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    d = q.shape[2]
+    _bwd_step_launch("gtt_flash_bwd_dq_step", q, k, v, do, delta, lse, qo,
+                     ko, (dq,), causal, kv_group,
+                     (_folded_scale(d, q.dtype), _dq_scale(d)))
+    flash_attention_bwd_dq_step.launches += 1
+    return dq
+
+
+flash_attention_bwd_dq_step.launches = 0
+
+
+def flash_attention_bwd_dkv_step(q, k, v, do, delta, lse, q_offset,
+                                 k_offset, causal: bool = True,
+                                 kv_group: int = 1):
+    """B7b: (dk, dv) of the key/value block against the local queries
+    only, per QUERY head: (bh, t_kv, d) f32 each, as the JAX kernel writes
+    them (group_sum_kv folds them to kv heads). CUDA tensors go through
+    csrc/flash_bwd_step.cu, CPU tensors through
+    flash_attention_bwd_dkv_step_plain."""
+    _check_step(q, k, v, kv_group)
+    _check_bwd_step(q, do, delta, lse)
+    bh = q.shape[0]
+    qo, ko = (_offsets(o, bh, q.device) for o in (q_offset, k_offset))
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dkv_step_plain(q, k, v, do, delta, lse, qo,
+                                                  ko, causal, kv_group)
+    shape = (bh, k.shape[1], q.shape[2])
+    dk, dv = (torch.empty(shape, dtype=torch.float32, device=q.device)
+              for _ in range(2))
+    _bwd_step_launch("gtt_flash_bwd_dkv_step", q, k, v, do, delta, lse, qo,
+                     ko, (dk, dv), causal, kv_group,
+                     (_folded_scale(q.shape[2], q.dtype),))
+    flash_attention_bwd_dkv_step.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkv_step.launches = 0
+
+
+def flash_attention_bwd_step(q, k, v, do, delta, lse, q_offset, k_offset,
+                             causal: bool = True, kv_group: int = 1):
+    """Backward mirror of flash_attention_step: (dq_partial, dk, dv) of one
+    key/value block at a global position, all f32; dq_partial sums across
+    blocks to the full dQ, dk/dv are per-query-head partials against the
+    local queries (sum them with group_sum_kv). q (bh, t_q, d); k, v
+    (bh / kv_group, t_kv, d); do (bh, t_q, d) f32; delta, lse (bh, t_q, 1)
+    f32. Two launches on the card: B7a, then B7b."""
+    dq = flash_attention_bwd_dq_step(q, k, v, do, delta, lse, q_offset,
+                                     k_offset, causal, kv_group)
+    dk, dv = flash_attention_bwd_dkv_step(q, k, v, do, delta, lse, q_offset,
+                                          k_offset, causal, kv_group)
+    return dq, dk, dv
+
+
+def group_sum_kv(partials: torch.Tensor, kv_group: int) -> torch.Tensor:
+    """Fold per-query-head f32 dK/dV partials (bh, t, d) down to kv heads:
+    consecutive runs of kv_group rows share one kv head."""
+    if kv_group == 1:
+        return partials
+    bh, tkv, d = partials.shape
+    return partials.reshape(bh // kv_group, kv_group, tkv, d).sum(1)
+
+
+def _step_scores(qs, kt, qo, ko, q0, k0, causal):
+    """f32 scores of a (query tile, key tile) pair, masked to -inf where
+    the global key position passes the query's."""
+    s = qs.float() @ kt.float().transpose(-1, -2)
+    if causal:
+        rows = _positions(qo, q0, qs.shape[1])
+        cols = _positions(ko, k0, kt.shape[1])
+        s = s.masked_fill(cols[:, None, :] > rows[:, :, None], -math.inf)
+    return s
+
+
+def flash_attention_bwd_dq_step_plain(q, k, v, do, delta, lse, q_offset,
+                                      k_offset, causal: bool = True,
+                                      kv_group: int = 1):
+    """B7a's arithmetic in plain PyTorch: for each BLOCK_K key tile, s =
+    (q * scale in q's dtype) k^T and dp = do v^T in f32 (do is f32, so dp
+    is an f32 product), p = exp(s - lse), ds = p (dp - delta), dq += ds (in
+    k's dtype) k in f32; then dq times the unrounded f32 1/sqrt(d)."""
+    _check_step(q, k, v, kv_group)
+    bh, tq, d = q.shape
+    qo, ko = (_offsets(o, bh, q.device) for o in (q_offset, k_offset))
+    kv_row = torch.arange(bh, device=q.device) // kv_group
+    k, v = k[kv_row], v[kv_row]
+    qs = q * torch.tensor(_folded_scale(d, q.dtype), dtype=q.dtype)
+    dq = torch.zeros((bh, tq, d), device=q.device)
+    for k0 in range(0, k.shape[1], BLOCK_K):
+        kt, vt = k[:, k0:k0 + BLOCK_K], v[:, k0:k0 + BLOCK_K]
+        p = torch.exp(_step_scores(qs, kt, qo, ko, 0, k0, causal) - lse)
+        dp = do @ vt.float().transpose(-1, -2)
+        ds = p * (dp - delta)
+        dq += ds.to(k.dtype).float() @ kt.float()
+    return dq * _dq_scale(d)
+
+
+def flash_attention_bwd_dkv_step_plain(q, k, v, do, delta, lse, q_offset,
+                                       k_offset, causal: bool = True,
+                                       kv_group: int = 1):
+    """B7b's arithmetic in plain PyTorch, per query head: for each BLOCK_Q
+    query tile, p = exp(s - lse), dv += p^T do (p unrounded: do is f32),
+    dp = do v^T, ds = p (dp - delta), dk += ds (in q's dtype)^T (q * scale
+    in q's dtype), all in f32."""
+    _check_step(q, k, v, kv_group)
+    bh, tq, d = q.shape
+    qo, ko = (_offsets(o, bh, q.device) for o in (q_offset, k_offset))
+    kv_row = torch.arange(bh, device=q.device) // kv_group
+    k, v = k[kv_row], v[kv_row]
+    qs = q * torch.tensor(_folded_scale(d, q.dtype), dtype=q.dtype)
+    dk = torch.zeros((bh, k.shape[1], d), device=q.device)
+    dv = torch.zeros_like(dk)
+    for q0 in range(0, tq, BLOCK_Q):
+        sl = slice(q0, q0 + BLOCK_Q)
+        qt, dot = qs[:, sl], do[:, sl]
+        p = torch.exp(_step_scores(qt, k, qo, ko, q0, 0, causal) - lse[:, sl])
+        dv += p.transpose(-1, -2) @ dot
+        dp = dot @ v.float().transpose(-1, -2)
+        ds = p * (dp - delta[:, sl])
+        dk += ds.to(q.dtype).float().transpose(-1, -2) @ qt.float()
+    return dk, dv

@@ -37,11 +37,13 @@ KERNELS = (
            "flash_attention_bwd_fused",
            "ported: gloo_tpu_torch/csrc/flash_bwd.cu"),
     Kernel("B6", _A, "_flash_step_kernel", 477, 534, "flash_attention_step",
-           "to port: slice 5"),
+           "ported: gloo_tpu_torch/csrc/flash_step.cu"),
     Kernel("B7a", _A, "_flash_bwd_dq_step_kernel", 588, 730,
-           "flash_attention_bwd_step", "to port: slice 5"),
+           "flash_attention_bwd_step",
+           "ported: gloo_tpu_torch/csrc/flash_bwd_step.cu"),
     Kernel("B7b", _A, "_flash_bwd_dkv_step_kernel", 635, 765,
-           "flash_attention_bwd_step", "to port: slice 5"),
+           "flash_attention_bwd_step",
+           "ported: gloo_tpu_torch/csrc/flash_bwd_step.cu"),
     Kernel("B5a", _O, "_matmul_rs_kernel", 38, 185, "matmul_reduce_scatter",
            "ported: gloo_tpu_torch/csrc/overlap.cu"),
     Kernel("B5b", _O, "_ag_matmul_kernel", 205, 294, "allgather_matmul",
@@ -59,5 +61,5 @@ KERNELS = (
     Kernel("B4b", _R, "_ring_allgather_kernel", 995, 1050, "ring_allgather",
            "ported: gloo_tpu_torch/csrc/ring.cu"),
     Kernel("B8", _R, "_alltoall_kernel", 1109, 1178, "pallas_alltoall",
-           "to port: slice 5"),
+           "ported: gloo_tpu_torch/csrc/alltoall.cu"),
 )

@@ -1,9 +1,11 @@
-"""Ring allreduce, reduce-scatter and allgather on hand-written Hopper kernels.
+"""Ring allreduce, reduce-scatter, allgather and the all-to-all on
+hand-written Hopper kernels.
 
 Counterpart of gloo_tpu/ops/pallas_ring.py's ``ring_allreduce`` (B3),
-``ring_reduce_scatter`` (B4a), ``ring_allgather`` (B4b) and their
-composition ``ring_allreduce_torus``. The Pallas kernels become
-``csrc/ring.cu``, one source with three entry points.
+``ring_reduce_scatter`` (B4a), ``ring_allgather`` (B4b), their
+composition ``ring_allreduce_torus``, and ``pallas_alltoall`` (B8, here
+``alltoall``). The ring kernels become ``csrc/ring.cu``, one source with
+three entry points; the all-to-all becomes ``csrc/alltoall.cu``.
 
 Every function takes a world tensor ``x`` of shape (P, rows, cols): the
 leading axis is the flat rank of ``mesh`` (the TpuProcessGroup
@@ -12,7 +14,9 @@ axis, every ring of that axis in the same launch; ``rows`` must divide by
 the ring size n. Results, as in JAX:
   - ring_allreduce: (P, rows, cols), each rank the sum over its ring;
   - ring_reduce_scatter: (P, rows / n, cols), rank r chunk r of the sum;
-  - ring_allgather: (P, n rows, cols), the ring's rows in ring order.
+  - ring_allgather: (P, n rows, cols), the ring's rows in ring order;
+  - alltoall: (P, rows, cols), block j of rank r (rows / n rows each) is
+    block (ring index of r) of ring member j.
 
 On CUDA tensors each wrapper launches its kernel or raises; on CPU tensors
 it runs its plain twin (``*_plain``), which walks the ring step by step
@@ -20,6 +24,8 @@ with the kernel's send and receive chunk indices and adds in the same
 order, one add per step in the input dtype (bf16 rounds after every step,
 as the TPU kernel's ``o_ref[...] + comm_ref[slot]`` does). A chunk's B3
 sum is thus x[c + n - 1] + (... + (x[c + 1] + x[c])), ring indices mod n.
+The all-to-all moves bytes only, in any dtype, and its twin's copies are
+the kernel's, step by step.
 """
 
 from __future__ import annotations
@@ -408,3 +414,122 @@ def ring_allreduce_torus(x: torch.Tensor, axis_names, mesh: Mesh):
     for ax in reversed(axes):
         x = ring_allgather(x, ax, mesh)
     return x
+
+
+# ---- B8: the all-to-all ----
+
+_a2a_lib: ctypes.CDLL | None = None
+_a2a_max_blocks: dict[int, int] = {}
+# Threads per block of csrc/alltoall.cu (kThreads).
+ALLTOALL_THREADS = 256
+
+
+def _alltoall_lib() -> ctypes.CDLL:
+    global _a2a_lib
+    if _a2a_lib is None:
+        lib = _build.load("alltoall")
+        lib.gtt_alltoall.argtypes = [_P, _L, _P, _L, _P, _I, _IP, _IP, _I,
+                                     _I, _I, _L, _I, _P]
+        lib.gtt_alltoall.restype = ctypes.c_int
+        lib.gtt_alltoall_max_blocks.argtypes = [_IP]
+        lib.gtt_alltoall_max_blocks.restype = ctypes.c_int
+        lib.gtt_alltoall_flag_stride.argtypes = []
+        lib.gtt_alltoall_flag_stride.restype = ctypes.c_int
+        lib.gtt_error_string.argtypes = [_I]
+        lib.gtt_error_string.restype = ctypes.c_char_p
+        _a2a_lib = lib
+    return _a2a_lib
+
+
+def _unit_bytes(chunk_bytes: int, *buffers: torch.Tensor) -> int:
+    """The widest access (16, 8, 4, 2 or 1 bytes) that divides a block and
+    every buffer's start."""
+    for unit in (16, 8, 4, 2, 1):
+        if chunk_bytes % unit == 0 and all(t.data_ptr() % unit == 0
+                                           for t in buffers):
+            return unit
+    return 1
+
+
+def _alltoall(x: torch.Tensor, axis_name: str, mesh: Mesh) -> torch.Tensor:
+    n = _ring_size(x, axis_name, mesh)
+    ranks, rows, cols = x.shape
+    _check_rows(rows, n)
+    if n == 1:
+        return x
+    if x.device.type == "cpu":
+        return alltoall_plain(x, axis_name, mesh)
+    if ranks > KERNEL_MAX_RANKS:
+        raise ValueError(f"the all-to-all kernel takes at most "
+                         f"{KERNEL_MAX_RANKS} ranks, got {ranks}")
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    chunk_bytes = rows // n * cols * x.element_size()
+    unit = _unit_bytes(chunk_bytes, x, out)
+    lib = _alltoall_lib()
+    stride = lib.gtt_alltoall_flag_stride()
+    slices, flags, _ = cooperative_grid(
+        x, mesh, axis_name, lib, lib.gtt_alltoall_max_blocks,
+        _a2a_max_blocks, -(-chunk_bytes // unit // ALLTOALL_THREADS), stride)
+    my = mesh.ring_index(axis_name)
+    members = (ctypes.c_int * (ranks * n))(
+        *(m for row in mesh.ring_members(axis_name) for m in row))
+    with torch.cuda.device(x.device):
+        err = lib.gtt_alltoall(
+            x.data_ptr(), rows * cols * x.element_size(), out.data_ptr(),
+            rows * cols * x.element_size(), flags.data_ptr(), stride,
+            (ctypes.c_int * ranks)(*my), members, ranks, n, slices,
+            chunk_bytes, unit, _stream(x))
+    _raise_on(err, "alltoall", lib)
+    alltoall.launches += 1
+    return out
+
+
+class _Alltoall(torch.autograd.Function):
+    """The block swap (i, j) -> (j, i) along a ring is an involution: the
+    VJP is the same all-to-all of the cotangent (pallas_ring.py's
+    custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, x, axis_name, mesh):
+        ctx.axis_name, ctx.mesh = axis_name, mesh
+        return _alltoall(x, axis_name, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _alltoall(g.contiguous(), ctx.axis_name, ctx.mesh), None, None
+
+
+def alltoall(x: torch.Tensor, axis_name: str, mesh: Mesh) -> torch.Tensor:
+    """All-to-all of the world tensor x (P, rows, cols) along `axis_name`:
+    each rank's rows are n blocks of rows / n; block j of rank r's result
+    is block (ring index of r) of its ring member j. Any dtype (a byte
+    copy). Differentiable (the VJP is the same all-to-all)."""
+    if torch.is_grad_enabled() and x.requires_grad \
+            and _ring_size(x, axis_name, mesh) > 1:
+        return _Alltoall.apply(x, axis_name, mesh)
+    return _alltoall(x, axis_name, mesh)
+
+
+# Launches of the CUDA kernel in this process; counts nothing on the CPU.
+alltoall.launches = 0
+
+
+def alltoall_plain(x: torch.Tensor, axis_name: str,
+                   mesh: Mesh) -> torch.Tensor:
+    """B8's copies in plain PyTorch, in the kernel's order: each rank's own
+    block into place, then at step s = 1 .. n - 1 block (my + s) of every
+    rank into slot my of its ring member (my + s)."""
+    n = _ring_size(x, axis_name, mesh)
+    ranks, rows, cols = x.shape
+    _check_rows(rows, n)
+    my = torch.tensor(mesh.ring_index(axis_name), device=x.device)
+    members = torch.tensor(mesh.ring_members(axis_name), device=x.device)
+    ar = torch.arange(ranks, device=x.device)
+    blocks = x.reshape(ranks, n, rows // n * cols)
+    o = torch.empty_like(blocks)
+    o[ar, my] = blocks[ar, my]
+    for s in range(1, n):
+        dst = (my + s) % n
+        o[members[ar, dst], my] = blocks[ar, dst]
+    return o.reshape(ranks, rows, cols)

@@ -2,14 +2,19 @@
 the gradient mean on the ring allreduce kernel (counterpart of
 gloo_tpu/parallel/ddp.py's make_ddp_train_step), tensor parallelism on
 world tensors with the collective matmul kernels (gloo_tpu/parallel/tp.py),
-and the dp x tp training step of the flagship transformer (the GSPMD step
-of __graft_entry__.dryrun_multichip)."""
+the dp x tp training step of the flagship transformer (the GSPMD step of
+__graft_entry__.dryrun_multichip), sequence parallelism on the ring-attention
+step kernels and the all-to-all (gloo_tpu/parallel/sp.py), and expert
+parallelism on the all-to-all (gloo_tpu/parallel/ep.py)."""
 
 from gloo_tpu_torch.parallel.ddp import make_ddp_train_step
+from gloo_tpu_torch.parallel.ep import dispatch_combine
 from gloo_tpu_torch.parallel.dp_tp import (TPTransformer,
                                            make_dp_tp_train_step,
                                            shard_transformer,
                                            unshard_transformer)
+from gloo_tpu_torch.parallel.sp import (ring_attention, ring_flash_attention,
+                                        ulysses_attention)
 from gloo_tpu_torch.parallel.tp import (allgather_matmul_dense,
                                         allgather_matmul_dense_auto,
                                         column_parallel_dense,
@@ -25,15 +30,19 @@ __all__ = [
     "allgather_matmul_dense",
     "allgather_matmul_dense_auto",
     "column_parallel_dense",
+    "dispatch_combine",
     "estimate_comm_share",
     "make_ddp_train_step",
     "make_dp_tp_train_step",
     "measure_fused_ratio",
+    "ring_attention",
+    "ring_flash_attention",
     "row_parallel_dense",
     "row_parallel_dense_scattered",
     "row_parallel_dense_scattered_auto",
     "shard_transformer",
     "tp_mlp_block",
+    "ulysses_attention",
     "unshard_transformer",
     "use_fused_overlap",
 ]

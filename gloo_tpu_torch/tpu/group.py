@@ -5,8 +5,8 @@ position along one mesh axis, the host Context's collective names and
 semantics, on world tensors in place of sharded jax arrays. The leading
 axis of every operand is the rank axis: a tensor (P, ...) whose row i is
 rank i's value. ``shard``/``unshard`` convert between host numpy and this
-layout. The sum collectives run on the ring kernels (B3, B4a, B4b); PyTorch
-runs eagerly, so the JAX version's cache of compiled programs has no
+layout. The sum collectives run on the ring kernels (B3, B4a, B4b) and
+``alltoall`` on the all-to-all kernel (B8); PyTorch runs eagerly, so the JAX version's cache of compiled programs has no
 counterpart.
 
 On a multi-axis mesh the group's P = mesh.shape[axis] rows are replicated
@@ -87,7 +87,8 @@ class CudaProcessGroup:
                                           mesh=self.mesh), x)
 
     def alltoall(self, x):
-        """Row i holds P blocks along axis 1; block j goes to rank j."""
+        """Row i holds P blocks along axis 1; block j goes to rank j (one
+        B8 launch)."""
         return self._run(
             lambda s: spmd.alltoall(s, self.axis, split_axis=0,
                                     concat_axis=0, mesh=self.mesh), x)

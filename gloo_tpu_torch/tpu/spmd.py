@@ -7,11 +7,11 @@ of `mesh` (given by keyword), every ring of that axis at once. The result
 is again a world tensor.
 
 The sum collectives ride the ring kernels of gloo_tpu_torch.ops.ring:
-``allreduce`` and ``mean`` B3, ``reduce_scatter`` B4a, ``allgather`` B4b
-(one launch each on the card). ``max``/``min``/``product``, ``alltoall``,
-``broadcast``, ``scatter``, ``ppermute``, ``shift`` and ``barrier`` are
-plain torch across the rank axis: the JAX package has no Pallas kernel for
-them (they are XLA collectives there).
+``allreduce`` and ``mean`` B3, ``reduce_scatter`` B4a, ``allgather`` B4b;
+``alltoall`` rides the all-to-all kernel B8 (one launch each on the card).
+``max``/``min``/``product``, ``broadcast``, ``scatter``, ``ppermute``,
+``shift`` and ``barrier`` are plain torch across the rank axis: the JAX
+package has no Pallas kernel for them (they are XLA collectives there).
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ from typing import Sequence
 
 import torch
 
+from gloo_tpu_torch.ops import ring
 from gloo_tpu_torch.ops.ring import (ring_allgather, ring_allreduce,
                                      ring_reduce_scatter)
 from gloo_tpu_torch.tpu.mesh import Mesh
@@ -117,17 +118,28 @@ def alltoall(x: torch.Tensor, axis: str, split_axis: int = 0,
              concat_axis: int = 0, *, mesh: Mesh) -> torch.Tensor:
     """Scatter `split_axis` across the ring and gather along `concat_axis`
     (tiled): block k of rank r's value goes to ring member k, and rank r
-    concatenates the blocks it receives in ring order."""
+    concatenates the blocks it receives in ring order. One B8 launch: the
+    split axis moves to the front of each rank's value (a copy unless it
+    is there already), then the received blocks are concatenated along
+    `concat_axis`. Raises ValueError when the split axis does not divide
+    by the ring size, as lax.all_to_all does."""
     _per_rank(x, mesh)
     n = mesh.shape[axis]
-    split = 1 + split_axis % (x.dim() - 1)
-    concat = 1 + concat_axis % (x.dim() - 1)
-    blocks = x.tensor_split(n, dim=split)
-    members = mesh.ring_members(axis)
-    my = mesh.ring_index(axis)
-    rows = [torch.cat([blocks[my[r]][src] for src in members[r]],
-                      dim=concat - 1) for r in range(mesh.size)]
-    return torch.stack(rows)
+    local = x.shape[1:]
+    split = split_axis % len(local)
+    concat = concat_axis % len(local)
+    if local[split] % n != 0:
+        raise ValueError(f"split axis {split_axis} of size {local[split]} is "
+                         f"not divisible by the axis size {n}")
+    moved = x.movedim(1 + split, 1)
+    rest = moved.shape[2:]
+    out = ring.alltoall(moved.reshape(mesh.size, local[split], -1), axis,
+                        mesh)
+    # (P, n blocks, chunk, rest) with each block back in the local layout,
+    # then the n blocks concatenated along concat_axis.
+    out = out.reshape(mesh.size, n, local[split] // n, *rest)
+    out = out.movedim(2, 2 + split).movedim(1, 1 + concat)
+    return out.flatten(1 + concat, 2 + concat)
 
 
 def broadcast(x: torch.Tensor, axis: str, root: int = 0, *,

@@ -1,0 +1,293 @@
+"""The ring-attention step twins (B6, B7a, B7b) against gloo_tpu's
+flash_attention_step / flash_attention_bwd_step.
+
+On the CPU the port runs flash_attention_step_plain and the two backward
+step twins; they are held against the JAX step kernels in Pallas interpret
+mode, with JAX's block sizes set to the twins' tiles over the same keys
+and queries (the whole block below 64 rows, else 64), so that the online
+softmax rescales at the same places. Inputs are made with numpy from a
+seed; bf16 values are rounded once by JAX and carried over exactly.
+
+Cases: f32 and bf16; MHA and GQA (kv_group 2); causal and full; offsets
+that make the block wholly visible, straddle the diagonal, or hide it
+wholly; a state that starts at (0, -inf, 0) and one left by a previous
+step; dO in f32, as the ring backward passes it (with bf16 q/k/v).
+
+Tolerances, as (rtol, atol): f32 (1e-5, 1e-5): the same arithmetic, with
+the dot products summed in another order (under 7e-7 of the largest value
+seen). bf16 (1.6e-2, 8e-3 x the largest |JAX value| of the tensor): p
+(forward) and ds (backward) are rounded to bf16 inside the sums, so an f32
+score that differs in its last bit can flip one bf16 ulp (2**-8 relative)
+of one term (2.2e-3 of the largest dk seen); m and l stay f32 and keep
+(1e-5, 1e-5) relative to their largest value.
+
+Tests marked `cuda` hold the kernels against the twins on the card.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+
+import jax.numpy as jnp  # noqa: E402
+
+from gloo_tpu.ops import attention as jattn  # noqa: E402
+from gloo_tpu_torch.ops import attention as attn  # noqa: E402
+
+# (q_offset, k_offset) at t_q = t_kv = T: block wholly visible, straddling
+# the diagonal, wholly above it.
+T, D = 32, 32
+OFFSETS = {"full": (T, 0), "diagonal": (T, T), "masked": (0, T)}
+TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1.6e-2, 8e-3)}
+
+
+def _to_torch(x):
+    return torch.from_numpy(np.array(jnp.asarray(x, jnp.float32))).to(
+        {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}[
+            jnp.dtype(x.dtype).type])
+
+
+def _inputs(bh, group, tq, tkv, dtype, seed):
+    rng = np.random.RandomState(seed)
+    jd = jnp.dtype(dtype)
+    q = jnp.asarray(rng.randn(bh, tq, D).astype(np.float32), jd)
+    k = jnp.asarray(rng.randn(bh // group, tkv, D).astype(np.float32), jd)
+    v = jnp.asarray(rng.randn(bh // group, tkv, D).astype(np.float32), jd)
+    return (q, k, v), tuple(_to_torch(x) for x in (q, k, v))
+
+
+def _blocks(tq, tkv):
+    return dict(block_q=min(tq, attn.BLOCK_Q), block_k=min(tkv, attn.BLOCK_K))
+
+
+def _jax_step(q, k, v, state, qo, ko, causal, group, blocks=None):
+    return jattn.flash_attention_step(
+        q, k, v, *state, jnp.int32(qo), jnp.int32(ko), causal=causal,
+        interpret=True, kv_group=group,
+        **(blocks or _blocks(q.shape[1], k.shape[1])))
+
+
+def _fresh(bh, tq):
+    return (jnp.zeros((bh, tq, D), jnp.float32),
+            jnp.full((bh, tq, 1), -jnp.inf, jnp.float32),
+            jnp.zeros((bh, tq, 1), jnp.float32))
+
+
+def _close(ours, ref, dtype, state=False):
+    """ours within TOL[dtype] of ref (atol x the largest finite |ref| in
+    bf16), or within the f32 TOL x that peak for the f32 state m and l;
+    -inf where ref is -inf."""
+    ref = np.asarray(ref, np.float32)
+    rtol, atol = TOL["float32" if state else dtype]
+    finite = np.isfinite(ref)
+    peak = float(np.abs(ref[finite]).max()) if finite.any() else 1.0
+    if state or dtype == "bfloat16":
+        atol *= max(peak, 1.0)
+    got = ours.float().numpy()
+    np.testing.assert_array_equal(np.isfinite(got), finite)
+    np.testing.assert_allclose(got[finite], ref[finite], rtol=rtol,
+                               atol=atol)
+
+
+def _state(qj, group, causal, carried):
+    """(0, -inf, 0), or the state that one JAX step over another block of
+    keys at positions 0 .. T - 1, wholly visible to the queries (offset
+    2T), leaves."""
+    bh, tq = qj.shape[:2]
+    state = _fresh(bh, tq)
+    if carried:
+        _, kj, vj = _inputs(bh, group, tq, T, str(qj.dtype), 99)[0]
+        state = _jax_step(qj, kj, vj, state, 2 * T, 0, causal, group)
+    return state
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("group", [1, 2])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("where", list(OFFSETS))
+@pytest.mark.parametrize("carried", [False, True], ids=["fresh", "carried"])
+def test_step_matches_jax(dtype, group, causal, where, carried):
+    bh = 4
+    (qj, kj, vj), (q, k, v) = _inputs(bh, group, T, T, dtype, 1)
+    # A carried state moves the step two blocks later in the sequence.
+    qo, ko = (o + (2 * T if carried else 0) for o in OFFSETS[where])
+    state = _state(qj, group, causal, carried)
+    ref = _jax_step(qj, kj, vj, state, qo, ko, causal, group)
+    ours = attn.flash_attention_step(
+        q, k, v, *(_to_torch(x) for x in state), qo, ko, causal=causal,
+        kv_group=group)
+    for name, a, r in zip(("acc", "m", "l"), ours, ref):
+        assert a.dtype == torch.float32 and tuple(a.shape) == r.shape
+        _close(a, r, dtype, state=name != "acc")
+    if causal and where == "masked":
+        # A block wholly above the diagonal leaves the state as it was.
+        for a, s in zip(ours, state):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(s))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_step_two_key_tiles_matches_jax(dtype):
+    """t_kv = 128: two of the twin's 64-key tiles, with the online softmax
+    rescaling between them (JAX at block_k 64), t_q 96 ragged to the
+    64-row query tile (query rows are independent in the forward, so JAX's
+    block_q 32 changes nothing)."""
+    bh, group = 4, 2
+    (qj, kj, vj), (q, k, v) = _inputs(bh, group, 96, 128, dtype, 3)
+    ref = _jax_step(qj, kj, vj, _fresh(bh, 96), 100, 40, True, group,
+                    dict(block_q=32, block_k=64))
+    ours = attn.flash_attention_step(
+        q, k, v, *(_to_torch(x) for x in _fresh(bh, 96)), 100, 40,
+        kv_group=group)
+    for name, a, r in zip(("acc", "m", "l"), ours, ref):
+        _close(a, r, dtype, state=name != "acc")
+
+
+def test_step_per_row_offsets_are_per_rank_calls():
+    """Per-row int32 offsets (two ranks of 4 rows, each its own q and k
+    offset) equal one JAX call per rank with scalar offsets."""
+    (qj, kj, vj), (q, k, v) = _inputs(8, 2, T, T, "bfloat16", 5)
+    qo = torch.tensor([T] * 4 + [0] * 4, dtype=torch.int32)
+    ko = torch.tensor([0] * 4 + [0] * 4, dtype=torch.int32)
+    fresh = _fresh(8, T)
+    ours = attn.flash_attention_step(q, k, v, *(_to_torch(x) for x in fresh),
+                                     qo, ko, kv_group=2)
+    for r, (rows, kvr) in enumerate(((slice(0, 4), slice(0, 2)),
+                                     (slice(4, 8), slice(2, 4)))):
+        ref = _jax_step(qj[rows], kj[kvr], vj[kvr],
+                        tuple(x[rows] for x in fresh), int(qo[4 * r]),
+                        int(ko[4 * r]), True, 2)
+        for name, a, b in zip(("acc", "m", "l"), ours, ref):
+            _close(a[rows], b, "bfloat16", state=name != "acc")
+
+
+def _bwd_inputs(bh, group, dtype, causal, qo, seed):
+    """q, k, v, an f32 cotangent, and the lse and delta of a completed
+    forward over the block at offsets (qo, 0), in the layouts the ring
+    backward hands over."""
+    (qj, kj, vj), (q, k, v) = _inputs(bh, group, T, T, dtype, seed)
+    rng = np.random.RandomState(seed + 1)
+    do = jnp.asarray(rng.randn(bh, T, D).astype(np.float32))
+    acc, m, l = _jax_step(qj, kj, vj, _fresh(bh, T), qo, 0, causal, group)
+    l_safe = jnp.maximum(l, 1e-30)
+    out = acc / l_safe
+    lse = m + jnp.log(l_safe)
+    delta = jnp.sum(do * out, axis=-1, keepdims=True)
+    return (qj, kj, vj, do, delta, lse), (q, k, v, *(_to_torch(x) for x in
+                                                   (do, delta, lse)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("group", [1, 2])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("where", list(OFFSETS))
+def test_bwd_step_matches_jax(dtype, group, causal, where):
+    """dq_partial, and dk / dv group-summed, against the interpreted JAX
+    kernels + group_sum_kv; the twin's own dk / dv are per query head."""
+    bh = 4
+    qo, ko = OFFSETS[where]
+    jargs, targs = _bwd_inputs(bh, group, dtype, causal, T, 11)
+    dq_r, dk_r, dv_r = jattn.flash_attention_bwd_step(
+        *jargs, jnp.int32(qo), jnp.int32(ko), causal=causal, interpret=True,
+        kv_group=group, **_blocks(T, T))
+    dq, dk, dv = attn.flash_attention_bwd_step(*targs, qo, ko, causal=causal,
+                                               kv_group=group)
+    assert dk.shape == dv.shape == (bh, T, D) and dq.dtype == torch.float32
+    _close(dq, dq_r, dtype)
+    for ours, ref in ((dk, dk_r), (dv, dv_r)):
+        _close(attn.group_sum_kv(ours, group),
+               jattn.group_sum_kv(ref, group), dtype)
+    if causal and where == "masked":
+        for x in (dq, dk, dv):
+            assert not bool(x.any())
+
+
+def test_bwd_step_ragged_tiles_match_jax():
+    """t_q = 96 (a 64-row query tile and a ragged one) against JAX at
+    block_q 32, t_kv = 96 at block_k 32: the f32 sums over the query and
+    key tiles fall at other places, within the f32 tolerance."""
+    bh, group = 4, 2
+    (qj, kj, vj), (q, k, v) = _inputs(bh, group, 96, 96, "float32", 21)
+    do = np.random.RandomState(22).randn(bh, 96, D).astype(np.float32)
+    lse = np.random.RandomState(23).rand(bh, 96, 1).astype(np.float32) + 3.0
+    delta = np.random.RandomState(24).randn(bh, 96, 1).astype(np.float32)
+    ref = jattn.flash_attention_bwd_step(
+        qj, kj, vj, jnp.asarray(do), jnp.asarray(delta), jnp.asarray(lse),
+        jnp.int32(96), jnp.int32(50), causal=True, interpret=True,
+        kv_group=group, block_q=32, block_k=32)
+    ours = attn.flash_attention_bwd_step(
+        q, k, v, *(torch.from_numpy(x) for x in (do, delta, lse)), 96, 50,
+        kv_group=group)
+    for a, r in zip(ours, ref):
+        _close(a, r, "float32")
+
+
+def test_step_rejects_what_it_does_not_take():
+    q = torch.zeros((4, 8, 16))
+    state = (torch.zeros((4, 8, 16)), torch.zeros((4, 8, 1)),
+             torch.zeros((4, 8, 1)))
+    with pytest.raises(ValueError, match="kv_group"):
+        attn.flash_attention_step(q, q[:3], q[:3], *state, 0, 0, kv_group=2)
+    with pytest.raises(ValueError, match="acc"):
+        attn.flash_attention_step(q, q, q, state[0][:, :4], *state[1:], 0, 0)
+    with pytest.raises(ValueError, match="offset"):
+        attn.flash_attention_step(q, q, q, *state, torch.zeros(3), 0)
+    with pytest.raises(ValueError, match="f32"):
+        attn.flash_attention_bwd_step(q, q, q, q.bfloat16(), *state[1:],
+                                      0, 0)
+    # The twins launch nothing.
+    before = (attn.flash_attention_step.launches,
+              attn.flash_attention_bwd_dq_step.launches,
+              attn.flash_attention_bwd_dkv_step.launches)
+    attn.flash_attention_step(q, q, q, *state, 8, 0)
+    attn.flash_attention_bwd_step(q, q, q, q, *state[1:], 8, 0)
+    assert (attn.flash_attention_step.launches,
+            attn.flash_attention_bwd_dq_step.launches,
+            attn.flash_attention_bwd_dkv_step.launches) == before
+
+
+# ---- on the card ----
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the step kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("group", [1, 2])
+def test_step_kernels_match_twins_on_card(cuda_device, dtype, group):
+    gen = torch.Generator(cuda_device).manual_seed(group)
+    bh, t, d = 8, 200, 64
+    q = torch.randn((bh, t, d), generator=gen, device=cuda_device).to(dtype)
+    k, v = (torch.randn((bh // group, t, d), generator=gen,
+                        device=cuda_device).to(dtype) for _ in range(2))
+    state = (torch.zeros((bh, t, d), device=cuda_device),
+             torch.full((bh, t, 1), -float("inf"), device=cuda_device),
+             torch.zeros((bh, t, 1), device=cuda_device))
+    qo = torch.tensor([t, t, 0, 0, t, t, 2 * t, 2 * t], dtype=torch.int32,
+                      device=cuda_device)
+    ko = torch.tensor([0, t, t, 0, t, t, 0, 0], dtype=torch.int32,
+                      device=cuda_device)
+    before = attn.flash_attention_step.launches
+    ours = attn.flash_attention_step(q, k, v, *state, qo, ko, kv_group=group)
+    assert attn.flash_attention_step.launches == before + 1
+    plain = attn.flash_attention_step_plain(q, k, v, *state, qo, ko,
+                                            kv_group=group)
+    for a, b in zip(ours, plain):
+        torch.testing.assert_close(a, b, rtol=2e-2, atol=5e-2,
+                                   equal_nan=True)
+    lse = (ours[1] + torch.log(ours[2].clamp_min(1e-30))).clamp_min(-1e4)
+    do = torch.randn((bh, t, d), generator=gen, device=cuda_device)
+    delta = torch.randn((bh, t, 1), generator=gen, device=cuda_device)
+    got = attn.flash_attention_bwd_step(q, k, v, do, delta, lse, qo, ko,
+                                        kv_group=group)
+    plain = (attn.flash_attention_bwd_dq_step_plain(
+        q, k, v, do, delta, lse, qo, ko, kv_group=group),
+        *attn.flash_attention_bwd_dkv_step_plain(q, k, v, do, delta, lse, qo,
+                                                 ko, kv_group=group))
+    for a, b in zip(got, plain):
+        peak = float(b.abs().max())
+        torch.testing.assert_close(a, b, rtol=2e-2, atol=1e-2 * peak)

@@ -52,7 +52,8 @@ def test_no_jax_or_gloo_tpu_import_in_source(path):
 def test_entry_points_raise_without_a_gpu(monkeypatch):
     from gloo_tpu_torch import weights
     from gloo_tpu_torch.entry import (ENTRY_CONFIG, ddp_train_entry,
-                                      dp_tp_train_entry, entry, train_entry)
+                                      dp_tp_train_entry, entry, ep_entry,
+                                      sp_entry, train_entry)
     from gloo_tpu_torch.models import MLP, Transformer
     from gloo_tpu_torch.tpu import make_mesh
 
@@ -60,7 +61,7 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="devices=\\['cpu'\\]"):
         make_mesh()
     for call in (entry, train_entry, ddp_train_entry, dp_tp_train_entry,
-                 lambda: Transformer(ENTRY_CONFIG),
+                 sp_entry, ep_entry, lambda: Transformer(ENTRY_CONFIG),
                  lambda: MLP((4, 4)),
                  lambda: weights.transformer_params_from_numpy({}, None)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
