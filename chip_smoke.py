@@ -67,7 +67,23 @@ Phases, each of which raises on failure:
      gradients against a dense reference;
  19. times of B6, B7a and B7b at the long-context path's ring steps and of
      B8 at its Ulysses exchange, against their bound, plain versions and
-     yardsticks, and of each of the three paths.
+     yardsticks, and of each of the three paths;
+ 20. the ring allreduce variants (B9 ring_allreduce_hbm, B10
+     ring_allreduce_q8, B11 ring_allreduce_bidir) against their plain
+     versions on the card, bitwise, at VARIANT_CASES (2 to 8 ranks, the
+     dry run's shapes, B9's partial tiles, bf16, a 2 x 2 mesh, the path's
+     shape); B9 bitwise B3, B11's left half bitwise B3 on those columns,
+     B10 within Q8_REL of the f64 sum and bitwise equal on every rank; and
+     the sum collectives at int32, f16, f64 and int64 on B3, B4a and B4b
+     against the same calls on the CPU;
+ 21. the ring-variant path (ring_variants_entry: the flagship's gradient
+     buffer over 4 ranks on the card), each variant forward and backward
+     with the launch counts read around it (2 each), y and the gradient
+     against their closed forms (sum and 2 n sum); B10's error on the real
+     gradient buffer of a DDP step, printed;
+ 22. times of B9, B10 and B11 at the path's shape against their bound,
+     plain versions, B3 at the same shape and the library yardstick, and
+     of B9 and B3 at 64 MiB per rank.
 The line before the last is the JSON list of kernels; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or gloo_tpu.
 """
@@ -220,6 +236,34 @@ SP_TOL = 2e-2
 # other row counts before the bf16 rounding), and the gradients against a
 # dense f32 reference from the same bf16 inputs, as |a - b| / |b|.
 EP_TOL = 2e-2
+
+# (name, variant, mesh axes, ring axis, rows per rank, cols, dtype): the
+# ring allreduce variants against their plain versions, bitwise. At n = 8
+# the dry run's shapes (__graft_entry__.py:371-373); B9's partial tiles at
+# tests/test_pallas_ring.py:76's shapes; "path" the ring-variant path's
+# gradient buffer.
+VARIANT_CASES = (
+    [(f"P{n}_f32", variant, {"x": n}, "x", per, cols, torch.float32)
+     for n in (2, 3, 4, 8)
+     for variant, per, cols in (("hbm", n * 8, 128), ("q8", n * 32, 128),
+                                ("bidir", n * 8, 256))]
+    + [(f"P{n}_rows{per}", "hbm", {"x": n}, "x", per, 128, torch.float32)
+       for n, per in ((2, 528), (3, 792), (2, 1040))]
+    + [("P4_bf16", "hbm", {"x": 4}, "x", 64, 128, torch.bfloat16),
+       ("P4_bf16", "bidir", {"x": 4}, "x", 64, 256, torch.bfloat16)]
+    + [(f"2x2_{axis}", variant, {"data": 2, "model": 2}, axis, 64, 256,
+        torch.float32)
+       for axis in ("data", "model") for variant in ("hbm", "q8", "bidir")]
+    + [("path", variant, {"data": 4}, "data", 6912, 256, torch.float32)
+       for variant in ("hbm", "q8", "bidir")])
+# B10 against the f64 sum, max |q8 - sum| / max |sum|: the JAX package's
+# criterion (tests/test_pallas_ring.py:119, __graft_entry__.py:362).
+Q8_REL = 0.05
+# B9 and B11 (and their gradients) against the f64 closed form, max |y -
+# exact| / max |exact|: f32 adds of n values in ring order.
+VARIANT_RTOL = 1e-5
+# B9's large-shard case: rows of 256 f32 per rank, 64 MiB.
+BIG_ROWS = 65536
 
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -1053,6 +1097,207 @@ def slice5_times(attn, sp, spmd, ring, paths, ep, card):
     return rows
 
 
+def variant_cases(ring, make_mesh, gen):
+    """Phase 20: B9, B10 and B11 against their plain versions at
+    VARIANT_CASES, bitwise, every rank of a ring bitwise equal; B9 against
+    B3 and B11's left half against B3, bitwise; B10 within Q8_REL of the
+    f64 sum. Returns {variant: max |kernel - plain|} at the path's shape."""
+    dev = torch.device("cuda")
+    failed, errs = [], {}
+    for name, variant, axes, axis, rows, cols, dtype in VARIANT_CASES:
+        ranks = math.prod(axes.values())
+        mesh = make_mesh(axes, devices=[dev] * ranks)
+        x = torch.randn((ranks, rows, cols), generator=gen,
+                        device="cuda").to(dtype)
+        out = getattr(ring, f"ring_allreduce_{variant}")(x, axis, mesh)
+        torch.cuda.synchronize()
+        ref = getattr(ring, f"ring_allreduce_{variant}_plain")(x, axis, mesh)
+        bad = [] if torch.equal(out, ref) else ["differs from its plain "
+                                                "version"]
+        if not torch.equal(out, out[[m[0] for m in
+                                     mesh.ring_members(axis)]]):
+            bad.append("ranks of a ring differ")
+        exact = x.double()[torch.tensor(mesh.ring_members(axis))].sum(1)
+        rel = float((out.double() - exact).abs().max() / exact.abs().max())
+        if variant == "q8" and not rel < Q8_REL:
+            bad.append(f"rel {rel:.3e} to the sum")
+        h = cols // 2
+        if variant == "hbm" and not torch.equal(
+                out, ring.ring_allreduce(x, axis, mesh)):
+            bad.append("differs from B3")
+        if variant == "bidir" and not torch.equal(
+                out[..., :h],
+                ring.ring_allreduce(x[..., :h].contiguous(), axis, mesh)):
+            bad.append("its left half differs from B3")
+        diff = float((out.double() - ref.double()).abs().max())
+        print(f"ring_allreduce_{variant} {name}: {ranks} ranks, ring "
+              f"{axis!r} of {axes[axis]}, {(rows, cols)} {str(dtype)[6:]}: "
+              f"max |kernel - plain| {diff:.3e}, max |out - sum| / max |sum|"
+              f" {rel:.3e}{'; FAILED: ' + ', '.join(bad) if bad else ''}")
+        failed += [f"{variant} {name}: {b}" for b in bad]
+        if name == "path":
+            errs[variant] = diff
+    if failed:
+        raise AssertionError(f"the ring variant kernels disagree: {failed}")
+    return errs
+
+
+def sum_dtype_cases(ring, spmd, make_mesh, gen):
+    """Phase 20: the sum collectives at int32, f16, f64 and int64 on the
+    card (allreduce and reduce_scatter on B3 and B4a, allgather and the
+    product allreduce on B4b) against the same calls on the CPU's twins,
+    bitwise. Values in [-4, 4], so every sum and product is exact in each
+    type."""
+    dev = torch.device("cuda")
+    mesh = make_mesh({"data": 4}, devices=[dev] * 4)
+    cpu = make_mesh({"data": 4}, devices=["cpu"] * 4)
+    counters = (ring.ring_allreduce, ring.ring_reduce_scatter,
+                ring.ring_allgather)
+    failed = []
+    for dtype in (torch.int32, torch.float16, torch.float64, torch.int64):
+        x = torch.randint(-4, 5, (4, 16, 24), generator=gen,
+                          device=dev).to(dtype)
+        calls = {
+            "allreduce": lambda t, m: spmd.allreduce(t, "data", mesh=m),
+            "reduce_scatter": lambda t, m: spmd.reduce_scatter(
+                t, "data", mesh=m),
+            "allgather": lambda t, m: spmd.allgather(t, "data", mesh=m),
+            "product": lambda t, m: spmd.allreduce(t, "data", "product",
+                                                   mesh=m)}
+        for c in counters:
+            c.launches = 0
+        got = {k: f(x, mesh) for k, f in calls.items()}
+        torch.cuda.synchronize()
+        launches = tuple(c.launches for c in counters)
+        wrong = [k for k, f in calls.items()
+                 if got[k].dtype != dtype
+                 or not torch.equal(got[k].cpu(), f(x.cpu(), cpu))]
+        print(f"sum collectives at {str(dtype)[6:]} on the card: "
+              f"{', '.join(calls)} against the CPU's twins "
+              f"{'all equal' if not wrong else 'FAILED ' + str(wrong)}; "
+              f"launches B3, B4a, B4b {launches}")
+        if wrong or launches != (1, 1, 2):
+            failed.append(f"{dtype}: {wrong}, launches {launches}")
+    if failed:
+        raise AssertionError(f"the sum collectives failed: {failed}")
+
+
+def variants_path(ring, ring_variants_entry):
+    """Phase 21: each variant forward and backward on the flagship's
+    gradient buffer, with the launch counts read around it. Returns
+    ({variant: launches}, the entry's paths)."""
+    paths = ring_variants_entry()
+    counters = {"hbm": ring.ring_allreduce_hbm, "q8": ring.ring_allreduce_q8,
+                "bidir": ring.ring_allreduce_bidir,
+                "b3": ring.ring_allreduce}
+    launches, failed = {}, []
+    for name, (fn, args) in paths.items():
+        for c in counters.values():
+            c.launches = 0
+        y, g = fn(*args)
+        torch.cuda.synchronize()
+        got = {k: c.launches for k, c in counters.items()}
+        launches[name] = got[name]
+        _, x, _ = args
+        n = x.shape[0]
+        exact = x.double().sum(0)
+        rels = [float((t.double() - w).abs().max() / w.abs().max())
+                for t, w in ((y, exact), (g, 2 * n * exact))]
+        same = all(torch.equal(t[r], t[0]) for t in (y, g)
+                   for r in range(n))
+        tol = Q8_REL if name == "q8" else VARIANT_RTOL
+        print(f"ring-variant path {name}: {n} ranks x {tuple(x.shape[1:])} "
+              f"f32, forward + backward of sum(y ** 2): launches {got}; "
+              f"max |y - sum| / max |sum| {rels[0]:.3e}, max |dx - 2 n sum| "
+              f"/ max |2 n sum| {rels[1]:.3e} (tol {tol}); every rank "
+              f"bitwise equal {same}")
+        if got != {k: 2 if k == name else 0 for k in counters} \
+                or max(rels) >= tol or not same:
+            failed.append(name)
+    if failed:
+        raise AssertionError(f"the ring-variant path failed: {failed}")
+    return launches, paths
+
+
+def q8_on_ddp_grads(ring, ddp_train_entry, x_like, mesh):
+    """Phase 21: B10 on the gradient buffer of ddp_train_entry's first
+    step (each rank's gradients and loss on its micro-batch, laid out as
+    the ring-variant path lays out its buffer), printed beside B3."""
+    _, (replicas, _, (tokens, targets)) = ddp_train_entry()
+    n = len(replicas)
+    buf = torch.zeros(x_like.shape, device=x_like.device).view(n, -1)
+    for r, model in enumerate(replicas):
+        loss = model.loss(tokens.chunk(n)[r], targets.chunk(n)[r])
+        loss.backward()
+        flat = [p.grad.reshape(-1) for p in model.parameters()]
+        flat.append(loss.detach().reshape(1))
+        buf[r, :sum(f.numel() for f in flat)] = torch.cat(flat)
+    x = buf.view(x_like.shape)
+    exact = x.double().sum(0)
+    with torch.no_grad():
+        q8 = ring.ring_allreduce_q8(x, "data", mesh)
+        b3 = ring.ring_allreduce(x, "data", mesh)
+    torch.cuda.synchronize()
+    for label, y in (("ring_allreduce_q8", q8), ("ring_allreduce (B3)", b3)):
+        err = (y[0].double() - exact).abs()
+        print(f"{label} on the first DDP step's gradient buffer: max |y - "
+              f"sum| / max |sum| {float(err.max() / exact.abs().max()):.3e},"
+              f" |y - sum| / |sum| {float(err.norm() / exact.norm()):.3e}")
+
+
+def variant_times(ring, paths, card):
+    """Phase 22: B9, B10 and B11 at the path's shape against their bound
+    (bytes: each rank's input read once and output written once, 2 P S),
+    plain versions, B3 at the same shape and the yardstick (for B9 and B11
+    B3's: x.sum(0) then expand(P).contiguous(); none for B10: no PyTorch
+    call computes an int8-wire sum); B9 and B3 at 64 MiB per rank. Returns
+    {variant: (ms, plain ms, library ms or None, bound ms, bound by)}."""
+    _, x, mesh = paths["hbm"][1]
+    ranks = x.shape[0]
+    per_rank = x[0].numel() * x.element_size()
+    bound, bound_by = _bound(2 * ranks * per_rank,
+                             (ranks - 1) * x[0].numel(), torch.float32)
+    print(f"ring variant times at the path's shape ({ranks} ranks x "
+          f"{tuple(x.shape[1:])} f32, {per_rank} bytes per rank) on {card}; "
+          f"bound {bound:.6f} ms ({bound_by}: {2 * ranks * per_rank} "
+          f"bytes):")
+    rows = {}
+    with torch.no_grad():
+        timed_kernel("ring_allreduce (B3) kernel at the same shape",
+                     lambda: ring.ring_allreduce(x, "data", mesh),
+                     "ring_kernel")
+        lib = timed("yardstick x.sum(0) then expand(P).contiguous(), two "
+                    "calls",
+                    lambda: x.sum(0).expand(ranks, -1, -1).contiguous())
+        for name, label in (("hbm", "hbm_kernel"), ("q8", "q8_kernel"),
+                            ("bidir", "bidir_kernel")):
+            fn = getattr(ring, f"ring_allreduce_{name}")
+            plain = getattr(ring, f"ring_allreduce_{name}_plain")
+            ms = timed_kernel(f"ring_allreduce_{name} kernel",
+                              lambda fn=fn: fn(x, "data", mesh), label)
+            timed(f"ring_allreduce_{name} whole call (flags, buffers, "
+                  f"kernel)", lambda fn=fn: fn(x, "data", mesh))
+            plain_ms = timed(f"ring_allreduce_{name} plain",
+                             lambda plain=plain: plain(x, "data", mesh),
+                             iters=3)
+            rows[name] = (ms, plain_ms, None if name == "q8" else lib, bound,
+                          bound_by)
+        big = torch.randn((ranks, BIG_ROWS, x.shape[2]), device="cuda")
+        big_bytes = 2 * ranks * big[0].numel() * big.element_size()
+        big_bound, by = _bound(big_bytes, 0, torch.float32)
+        print(f"B9 at 64 MiB per rank ({ranks} x {tuple(big.shape[1:])} "
+              f"f32), bound {big_bound:.6f} ms ({by}: {big_bytes} bytes):")
+        timed_kernel("ring_allreduce_hbm kernel, 64 MiB per rank",
+                     lambda: ring.ring_allreduce_hbm(big, "data", mesh),
+                     "hbm_kernel")
+        timed_kernel("ring_allreduce (B3) kernel, 64 MiB per rank",
+                     lambda: ring.ring_allreduce(big, "data", mesh),
+                     "ring_kernel")
+        timed("yardstick x.sum(0) then expand(P).contiguous(), 64 MiB per "
+              "rank", lambda: big.sum(0).expand(ranks, -1, -1).contiguous())
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
@@ -1060,7 +1305,8 @@ def main():
     from gloo_tpu_torch import _build
     from gloo_tpu_torch.entry import (DDP_WORLD, ENTRY_CONFIG,
                                       ddp_train_entry, dp_tp_train_entry,
-                                      entry, ep_entry, expert_mlp, sp_entry,
+                                      entry, ep_entry, expert_mlp,
+                                      ring_variants_entry, sp_entry,
                                       train_entry)
     from gloo_tpu_torch.entry import forward as entry_forward
     from gloo_tpu_torch.models import Transformer
@@ -1675,10 +1921,25 @@ def main():
     print(f"B8 launches: {sp_launches['ulysses'][3]} on the Ulysses path "
           f"(the kernels line), {ep_launches} on the MoE path")
 
+    # Phase 20: the ring variants against their plain versions, and the
+    # sum collectives at more dtypes.
+    variant_errs = variant_cases(ring, make_mesh, gen)
+    sum_dtype_cases(ring, spmd, make_mesh, gen)
+
+    # Phase 21: the ring-variant path, and B10 on a DDP step's gradients.
+    variant_launches, variant_paths = variants_path(ring,
+                                                    ring_variants_entry)
+    _, vx, vmesh = variant_paths["q8"][1]
+    q8_on_ddp_grads(ring, ddp_train_entry, vx, vmesh)
+
+    # Phase 22: times of B9, B10 and B11 at the path's shape.
+    variant_rows = variant_times(ring, variant_paths, card)
+
     # Launches on the main paths: B1 on the serving path, B2 on the
     # training path, B3 on the DDP path, B4a and B4b on the group path,
     # B5a and B5b on the fused MLP path, B6, B7a and B7b on the ring-flash
-    # path, B8 on the Ulysses path. B6 and B7 have no library call.
+    # path, B8 on the Ulysses path, B9, B10 and B11 on the ring-variant
+    # path. B6, B7 and B10 have no library call.
     ring_flash = sp_launches["ring_flash"]
     kernels = []
     for kname, source, replaces, n, err, (ms, plain, lib, bound,
@@ -1711,9 +1972,18 @@ def main():
              ring_flash[2], step_errs["pathS"][2],
              slice5_rows["flash_bwd_dkv_step"]),
             ("alltoall", "alltoall.cu", "pallas_ring.py:1109",
-             sp_launches["ulysses"][3], a2a_err, slice5_rows["alltoall"])):
-        step_kernel = kname.startswith("flash_") and kname.endswith("_step")
-        if None in (ms, plain) or (lib is None and not step_kernel):
+             sp_launches["ulysses"][3], a2a_err, slice5_rows["alltoall"]),
+            ("ring_allreduce_hbm", "ring_variants.cu", "pallas_ring.py:246",
+             variant_launches["hbm"], variant_errs["hbm"],
+             variant_rows["hbm"]),
+            ("ring_allreduce_q8", "ring_variants.cu", "pallas_ring.py:485",
+             variant_launches["q8"], variant_errs["q8"], variant_rows["q8"]),
+            ("ring_allreduce_bidir", "ring_variants.cu",
+             "pallas_ring.py:691", variant_launches["bidir"],
+             variant_errs["bidir"], variant_rows["bidir"])):
+        no_library = (kname.startswith("flash_") and kname.endswith("_step")
+                      or kname == "ring_allreduce_q8")
+        if None in (ms, plain) or (lib is None and not no_library):
             raise AssertionError(
                 f"the profiler showed no device time for {kname}'s kernel, "
                 f"plain or library call at the main path's shape")

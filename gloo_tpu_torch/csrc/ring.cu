@@ -60,12 +60,16 @@
 // through a comm slot (one store and one load more than the bound counts),
 // and every step costs a flag round trip between blocks.
 //
-// Numerics: one add per step, in f32 and rounded once to the input type
-// (__fadd_rn, no contraction), as the TPU kernel's o_ref + comm_ref and the
+// Numerics: one add per step in the input type (add1 in ring_common.cuh:
+// bf16 and f16 in f32 rounded once, f32 and f64 IEEE without contraction,
+// int32 and int64 wrapping), as the TPU kernel's o_ref + comm_ref and the
 // plain twin in gloo_tpu_torch/ops/ring.py do, so kernel and twin agree
-// bitwise.
+// bitwise. B3 and B4a take bf16, f16, f32, f64, int32 and int64. B4b only
+// moves bytes, so it takes any type: its instances are by unit width (16,
+// 8, 4, 2 or 1 bytes), not by element type.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstring>
@@ -98,6 +102,7 @@ struct Params {
 };
 
 // T: element type; U: the unit of access (uint4, or the element's bits).
+// The allgather only copies units, and its instances take T = U.
 template <typename T, typename U, int kMode>
 __global__ void __launch_bounds__(kThreads)
 ring_kernel(const Params p) {
@@ -131,7 +136,7 @@ ring_kernel(const Params p) {
 
   ring_barrier(fl_me, fl_left, fl_right);
 
-  if (kMode != kAllgather) {
+  if constexpr (kMode != kAllgather) {
     const int shift = kMode == kReduceScatter ? 1 : 0;
     U* const slots = static_cast<U*>(p.comm[r]);
     U* const peer_slots = static_cast<U*>(p.comm[right]);
@@ -178,16 +183,49 @@ ring_kernel(const Params p) {
   }
 }
 
+// The element types of B3 and B4a by dtype code, each with its 16-byte
+// vector unit and its single-element unit (the element's bits).
+#define GTT_SUM_TYPES(X)           \
+  X(0, __nv_bfloat16, unsigned short) \
+  X(1, float, float)               \
+  X(2, __half, unsigned short)     \
+  X(3, double, double)             \
+  X(4, int, int)                   \
+  X(5, long long, long long)
+
+// B4b's units by width in bytes.
+#define GTT_COPY_UNITS(X) \
+  X(16, uint4)            \
+  X(8, uint2)             \
+  X(4, unsigned)          \
+  X(2, unsigned short)    \
+  X(1, unsigned char)
+
+// The kernel of one mode: for B3 and B4a by dtype code and vec, for B4b
+// by unit width (`dtype` then holds the unit's bytes, `vec` is unused).
+template <int kMode>
+void* kernel_for(int dtype, int vec) {
+  if constexpr (kMode == kAllgather) {
+#define GTT_COPY_CASE(BYTES, U) \
+    if (dtype == BYTES) return (void*)ring_kernel<U, U, kMode>;
+    GTT_COPY_UNITS(GTT_COPY_CASE)
+#undef GTT_COPY_CASE
+  } else {
+#define GTT_SUM_CASE(CODE, T, SCALAR)                                  \
+    if (dtype == CODE) {                                               \
+      return vec ? (void*)ring_kernel<T, uint4, kMode>                 \
+                 : (void*)ring_kernel<T, SCALAR, kMode>;               \
+    }
+    GTT_SUM_TYPES(GTT_SUM_CASE)
+#undef GTT_SUM_CASE
+  }
+  return nullptr;
+}
+
 template <int kMode>
 cudaError_t launch_mode(const Params& p, int dtype, int vec, dim3 grid,
                         cudaStream_t stream) {
-  void* fn = nullptr;
-  if (dtype == 0 && vec) fn = (void*)ring_kernel<__nv_bfloat16, uint4, kMode>;
-  if (dtype == 0 && !vec) {
-    fn = (void*)ring_kernel<__nv_bfloat16, unsigned short, kMode>;
-  }
-  if (dtype == 1 && vec) fn = (void*)ring_kernel<float, uint4, kMode>;
-  if (dtype == 1 && !vec) fn = (void*)ring_kernel<float, float, kMode>;
+  void* fn = kernel_for<kMode>(dtype, vec);
   if (fn == nullptr) return cudaErrorInvalidValue;
   void* args[] = {const_cast<Params*>(&p)};
   const cudaError_t err = cudaLaunchCooperativeKernel(
@@ -236,11 +274,10 @@ int run(int mode, const void* in, long long in_stride, void* out,
   return static_cast<int>(err);
 }
 
-template <typename T, typename U, int kMode>
-cudaError_t min_blocks(int* blocks) {
+cudaError_t min_blocks(const void* fn, int* blocks) {
   int per_sm = 0;
   const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, ring_kernel<T, U, kMode>, kThreads, 0);
+      &per_sm, fn, kThreads, 0);
   if (err == cudaSuccess && per_sm < *blocks) *blocks = per_sm;
   return err;
 }
@@ -257,15 +294,21 @@ int gtt_ring_flag_stride(int n) { return kGather + (n > 1 ? n - 1 : 1); }
 int gtt_ring_max_blocks(int* blocks) {
   int per_sm = 1 << 30;
   cudaError_t err = cudaSuccess;
-#define GTT_MIN_BLOCKS(T, U)                                           \
-  if (err == cudaSuccess) err = min_blocks<T, U, kAllreduce>(&per_sm); \
-  if (err == cudaSuccess) err = min_blocks<T, U, kReduceScatter>(&per_sm); \
-  if (err == cudaSuccess) err = min_blocks<T, U, kAllgather>(&per_sm);
-  GTT_MIN_BLOCKS(__nv_bfloat16, uint4)
-  GTT_MIN_BLOCKS(__nv_bfloat16, unsigned short)
-  GTT_MIN_BLOCKS(float, uint4)
-  GTT_MIN_BLOCKS(float, float)
-#undef GTT_MIN_BLOCKS
+  for (int code = 0; code < 6; ++code) {
+    for (int vec = 0; vec < 2; ++vec) {
+      if (err == cudaSuccess) {
+        err = min_blocks(kernel_for<kAllreduce>(code, vec), &per_sm);
+      }
+      if (err == cudaSuccess) {
+        err = min_blocks(kernel_for<kReduceScatter>(code, vec), &per_sm);
+      }
+    }
+  }
+  for (int bytes = 1; bytes <= 16; bytes *= 2) {
+    if (err == cudaSuccess) {
+      err = min_blocks(kernel_for<kAllgather>(bytes, 0), &per_sm);
+    }
+  }
   int device = 0, sms = 0, coop = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&device);
   if (err == cudaSuccess) {
@@ -279,10 +322,13 @@ int gtt_ring_max_blocks(int* blocks) {
   return static_cast<int>(err);
 }
 
-// Each returns a cudaError_t; 0 is success. dtype: 0 = bf16, 1 = f32. vec:
-// units are 16-byte vectors (every chunk a whole number of them, every
-// buffer 16-byte aligned), else single elements. chunk counts units.
-// Strides are in bytes. my/right/left: host arrays of `ranks` ints.
+// Each returns a cudaError_t; 0 is success. dtype (B3, B4a): 0 = bf16,
+// 1 = f32, 2 = f16, 3 = f64, 4 = int32, 5 = int64. vec: units are 16-byte
+// vectors (every chunk a whole number of them, every buffer 16-byte
+// aligned), else single elements. B4b takes unit_bytes (16, 8, 4, 2 or 1,
+// dividing the chunk and every buffer's start) in their place. chunk
+// counts units. Strides are in bytes. my/right/left: host arrays of
+// `ranks` ints.
 
 int gtt_ring_allreduce(const void* x, void* out, long long rank_stride,
                        void* comm, long long comm_stride, int* flags,
@@ -310,10 +356,10 @@ int gtt_ring_allgather(const void* x, long long in_stride, void* out,
                        long long out_stride, int* flags, int flag_stride,
                        const int* my, const int* right, const int* left,
                        int ranks, int n, int slices, long long chunk,
-                       int dtype, int vec, void* stream) {
+                       int unit_bytes, void* stream) {
   return run(kAllgather, x, in_stride, out, out_stride, nullptr, 0, nullptr,
              0, flags, flag_stride, my, right, left, ranks, n, slices, chunk,
-             dtype, vec, stream);
+             unit_bytes, 0, stream);
 }
 
 const char* gtt_error_string(int err) {

@@ -1,6 +1,6 @@
 // Helpers shared by the kernels that walk a ring of ranks on one card
-// (ring.cu and overlap.cu): the flag protocol between blocks and the
-// element-wise add of the ring's reduce steps.
+// (ring.cu, ring_variants.cu, overlap.cu, alltoall.cu): the flag protocol
+// between blocks and the element-wise add of the ring's reduce steps.
 //
 // Flags are counters in device memory that only grow and are zeroed per
 // call. A sender's threads store into the peer's buffer, then
@@ -13,6 +13,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstring>
@@ -84,7 +85,9 @@ __device__ inline void ring_barrier(int* fl_me, int* fl_left, int* fl_right) {
   wait_flag(fl_me + kBarrier, 2);
 }
 
-// One add in f32, rounded once to the element type (no contraction).
+// One add per element in the element type, as PyTorch adds on the CPU:
+// floats in f32 (f64 for double) rounded once to the element type, no
+// contraction; integers wrap.
 __device__ __forceinline__ float add1(float a, float b) {
   return __fadd_rn(a, b);
 }
@@ -93,6 +96,24 @@ __device__ __forceinline__ __nv_bfloat16 add1(__nv_bfloat16 a,
                                               __nv_bfloat16 b) {
   return __float2bfloat16_rn(
       __fadd_rn(__bfloat162float(a), __bfloat162float(b)));
+}
+
+__device__ __forceinline__ __half add1(__half a, __half b) {
+  return __float2half_rn(__fadd_rn(__half2float(a), __half2float(b)));
+}
+
+__device__ __forceinline__ double add1(double a, double b) {
+  return __dadd_rn(a, b);
+}
+
+__device__ __forceinline__ int add1(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) +
+                          static_cast<unsigned>(b));
+}
+
+__device__ __forceinline__ long long add1(long long a, long long b) {
+  return static_cast<long long>(static_cast<unsigned long long>(a) +
+                                static_cast<unsigned long long>(b));
 }
 
 // Element-wise a + b over the lanes of one unit (a 16-byte vector, or the

@@ -1,7 +1,8 @@
 """Entry points: the flagship transformer's forward and training step on
 one GPU, its data-parallel and data x tensor parallel training steps over
-a world of ranks, and the long-context (sequence-parallel) and MoE
-(expert-parallel) paths at the flagship's width.
+a world of ranks, the long-context (sequence-parallel) and MoE
+(expert-parallel) paths at the flagship's width, and the ring allreduce
+variants at the flagship's gradient size.
 
 ``entry()`` is the counterpart of ``__graft_entry__.entry()``: the same
 configuration (vocab 512, d_model 256, 4 heads, 2 layers, d_ff 1024, seq
@@ -23,6 +24,9 @@ of head_dim 64, bf16, causal, over a global sequence of SP_SEQ split over
 SP_MESH ranks on one card. ``ep_entry()`` is its dispatch_combine section
 (:227-233): EP_TOKENS tokens per rank of width d_model routed over a mesh
 EP_MESH of experts on one card, each the flagship's MLP at full width.
+``ring_variants_entry()`` is the dry run's last section (the HBM-streaming,
+int8-wire and bidirectional ring allreduces, __graft_entry__.py:340-373)
+over DDP_WORLD ranks on one card, on the flagship's gradient buffer.
 """
 
 from __future__ import annotations
@@ -35,7 +39,9 @@ import torch.nn.functional as F
 
 from gloo_tpu_torch.device import resolve_device
 from gloo_tpu_torch.models.transformer import Transformer, TransformerConfig
-from gloo_tpu_torch.parallel.ddp import make_ddp_train_step
+from gloo_tpu_torch.ops.ring import (ring_allreduce_bidir,
+                                     ring_allreduce_hbm, ring_allreduce_q8)
+from gloo_tpu_torch.parallel.ddp import buffer_width, make_ddp_train_step
 from gloo_tpu_torch.parallel.dp_tp import (make_dp_tp_train_step,
                                            shard_transformer)
 from gloo_tpu_torch.parallel.ep import dispatch_combine
@@ -67,6 +73,11 @@ SP_BATCH = 2
 EP_MESH = {"expert": 4}
 EP_TOKENS = 256
 EP_CAPACITY = 64
+# ring_variants_entry lays each rank's gradient buffer out as rows of
+# RING_VARIANT_COLS f32, rows a multiple of 32 DDP_WORLD: the smallest
+# layout that all three variants take (the bidirectional split needs
+# cols % 256 == 0, the int8 ring chunks of a multiple of 32 rows).
+RING_VARIANT_COLS = 256
 
 
 def forward(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
@@ -240,3 +251,41 @@ def ep_entry(device="cuda"):
 
     return ep_step, (bf16(tokens), torch.as_tensor(expert_idx, device=dev),
                      bf16(w_up), bf16(w_down), mesh)
+
+
+def ring_variant_step(variant, x, mesh):
+    """Forward and backward of one allreduce variant (ring_allreduce_hbm,
+    _q8 or _bidir) of the world tensor x along "data": (y, dL/dx) for
+    L = sum(y ** 2), the loss of the JAX package's ring gradient test
+    (tests/test_pallas_ring.py:124). Two launches: the forward and its
+    VJP."""
+    leaf = x.detach().requires_grad_()
+    with torch.enable_grad():
+        y = variant(leaf, "data", mesh)
+        (grad,) = torch.autograd.grad((y ** 2).sum(), leaf)
+    return y.detach(), grad
+
+
+def ring_variants_entry(device="cuda"):
+    """The ring-variant path: {"hbm": (ring_variant_step, args), "q8": ...,
+    "bidir": ...}, each fn(*args), args = (the variant, x, mesh): a mesh
+    {"data": DDP_WORLD} of ranks on `device` and x the flagship's gradient
+    buffer on each rank (buffer_width f32: every parameter's gradient and
+    the loss, here np.random.RandomState(7).randn, the dry run's ring_rng),
+    zero-padded to (DDP_WORLD, rows, RING_VARIANT_COLS): (4, 6912, 256)
+    f32, 7.08 MB per rank."""
+    dev = resolve_device(device)
+    mesh = make_mesh({"data": DDP_WORLD}, devices=[dev] * DDP_WORLD)
+    numel = sum(p.numel() for p in
+                Transformer(ENTRY_CONFIG, device="meta").parameters())
+    width = buffer_width(numel, DDP_WORLD)
+    quantum = 32 * DDP_WORLD
+    rows = -(-width // (quantum * RING_VARIANT_COLS)) * quantum
+    buf = np.zeros((DDP_WORLD, rows * RING_VARIANT_COLS), np.float32)
+    buf[:, :width] = np.random.RandomState(7).randn(DDP_WORLD, width)
+    x = torch.as_tensor(buf.reshape(DDP_WORLD, rows, RING_VARIANT_COLS))
+    x = x.to(dev)
+    return {name: (ring_variant_step, (variant, x, mesh))
+            for name, variant in (("hbm", ring_allreduce_hbm),
+                                  ("q8", ring_allreduce_q8),
+                                  ("bidir", ring_allreduce_bidir))}

@@ -2,12 +2,12 @@
 
 One row per ``pl.pallas_call`` site in gloo_tpu/ops: the kernel function
 (file, ``def`` line, call line), the wrapper that reaches it, and its port
-status: ``ported: <source>`` or ``to port: slice <n>``. The slices are the
-order of the port: 1 serving (flash forward), 2 training on one card
-(flash backward), 3 the device plane (ring allreduce, reduce-scatter,
-allgather) over a world of ranks on one card, 4 tensor parallelism
-(collective matmuls), 5 sequence and expert parallelism (ring-attention
-steps, all-to-all), 6 the remaining ring variants.
+status: ``ported: <source>``. The slices were the order of the port: 1
+serving (flash forward), 2 training on one card (flash backward), 3 the
+device plane (ring allreduce, reduce-scatter, allgather) over a world of
+ranks on one card, 4 tensor parallelism (collective matmuls), 5 sequence
+and expert parallelism (ring-attention steps, all-to-all), 6 the ring
+allreduce variants (HBM-streaming, int8-wire, bidirectional).
 tests/test_torch_isolation.py holds this table against the JAX sources.
 """
 
@@ -51,11 +51,14 @@ KERNELS = (
     Kernel("B3", _R, "_ring_allreduce_kernel", 63, 183, "ring_allreduce",
            "ported: gloo_tpu_torch/csrc/ring.cu"),
     Kernel("B9", _R, "_ring_allreduce_hbm_kernel", 246, 440,
-           "ring_allreduce_hbm", "to port: slice 6"),
+           "ring_allreduce_hbm",
+           "ported: gloo_tpu_torch/csrc/ring_variants.cu"),
     Kernel("B10", _R, "_ring_allreduce_q8_kernel", 485, 654,
-           "ring_allreduce_q8", "to port: slice 6"),
+           "ring_allreduce_q8",
+           "ported: gloo_tpu_torch/csrc/ring_variants.cu"),
     Kernel("B11", _R, "_ring_allreduce_bidir_kernel", 691, 842,
-           "ring_allreduce_bidir", "to port: slice 6"),
+           "ring_allreduce_bidir",
+           "ported: gloo_tpu_torch/csrc/ring_variants.cu"),
     Kernel("B4a", _R, "_ring_reduce_scatter_kernel", 876, 963,
            "ring_reduce_scatter", "ported: gloo_tpu_torch/csrc/ring.cu"),
     Kernel("B4b", _R, "_ring_allgather_kernel", 995, 1050, "ring_allgather",

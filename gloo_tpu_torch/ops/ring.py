@@ -1,11 +1,14 @@
-"""Ring allreduce, reduce-scatter, allgather and the all-to-all on
-hand-written Hopper kernels.
+"""Ring allreduce, reduce-scatter, allgather, the allreduce variants and
+the all-to-all on hand-written Hopper kernels.
 
 Counterpart of gloo_tpu/ops/pallas_ring.py's ``ring_allreduce`` (B3),
 ``ring_reduce_scatter`` (B4a), ``ring_allgather`` (B4b), their
-composition ``ring_allreduce_torus``, and ``pallas_alltoall`` (B8, here
+composition ``ring_allreduce_torus``, the allreduce variants
+``ring_allreduce_hbm`` (B9), ``ring_allreduce_q8`` (B10) and
+``ring_allreduce_bidir`` (B11), and ``pallas_alltoall`` (B8, here
 ``alltoall``). The ring kernels become ``csrc/ring.cu``, one source with
-three entry points; the all-to-all becomes ``csrc/alltoall.cu``.
+three entry points; the variants ``csrc/ring_variants.cu``; the
+all-to-all ``csrc/alltoall.cu``.
 
 Every function takes a world tensor ``x`` of shape (P, rows, cols): the
 leading axis is the flat rank of ``mesh`` (the TpuProcessGroup
@@ -15,6 +18,8 @@ the ring size n. Results, as in JAX:
   - ring_allreduce: (P, rows, cols), each rank the sum over its ring;
   - ring_reduce_scatter: (P, rows / n, cols), rank r chunk r of the sum;
   - ring_allgather: (P, n rows, cols), the ring's rows in ring order;
+  - ring_allreduce_hbm, ring_allreduce_q8, ring_allreduce_bidir: as
+    ring_allreduce (q8 an int8-wire approximation of the sum);
   - alltoall: (P, rows, cols), block j of rank r (rows / n rows each) is
     block (ring index of r) of ring member j.
 
@@ -24,8 +29,10 @@ with the kernel's send and receive chunk indices and adds in the same
 order, one add per step in the input dtype (bf16 rounds after every step,
 as the TPU kernel's ``o_ref[...] + comm_ref[slot]`` does). A chunk's B3
 sum is thus x[c + n - 1] + (... + (x[c + 1] + x[c])), ring indices mod n.
-The all-to-all moves bytes only, in any dtype, and its twin's copies are
-the kernel's, step by step.
+The sum kernels B3 and B4a take SUM_DTYPES on the card and on the CPU
+alike; B9 and B11 bf16 and f32, B10 f32. The allgather and the all-to-all
+move bytes only, in any dtype, and their twins' copies are the kernels',
+step by step.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from __future__ import annotations
 import ctypes
 from typing import TYPE_CHECKING
 
+import numpy as np
 import torch
 
 from gloo_tpu_torch import _build
@@ -41,7 +49,14 @@ if TYPE_CHECKING:
     # gloo_tpu_torch.tpu imports this module; the mesh is only read here.
     from gloo_tpu_torch.tpu.mesh import Mesh
 
+# Element types of the bf16/f32 kernels (B5a/B5b in overlap.py, B9, B11)
+# by csrc dtype code.
 KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+# Element types of the sum kernels B3 and B4a by csrc/ring.cu dtype code:
+# one add per step in the type, as PyTorch adds on the CPU (bf16 and f16 in
+# f32 rounded once, integers wrapping). The twins refuse the rest too.
+SUM_DTYPES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2,
+              torch.float64: 3, torch.int32: 4, torch.int64: 5}
 # Threads per block of csrc/ring.cu (kThreads) and the most ranks its peer
 # table holds (kMaxRanks).
 KERNEL_THREADS = 256
@@ -53,11 +68,13 @@ _max_blocks: dict[int, int] = {}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _IP = ctypes.POINTER(ctypes.c_int)
-_TAIL = [_IP, _IP, _IP, _I, _I, _I, _L, _I, _I, _P]
+_TABLES = [_IP, _IP, _IP, _I, _I, _I]  # my, right, left, ranks, n, slices
+_TAIL = _TABLES + [_L, _I, _I, _P]     # chunk, dtype, vec, stream
 _SIGNATURES = {
     "gtt_ring_allreduce": [_P, _P, _L, _P, _L, _P, _I] + _TAIL,
     "gtt_ring_reduce_scatter": [_P, _L, _P, _L, _P, _P, _L, _P, _I] + _TAIL,
-    "gtt_ring_allgather": [_P, _L, _P, _L, _P, _I] + _TAIL,
+    "gtt_ring_allgather": [_P, _L, _P, _L, _P, _I] + _TABLES + [_L, _I,
+                                                                 _P],
 }
 
 
@@ -107,52 +124,66 @@ def _check_rows(rows: int, n: int) -> None:
         raise ValueError(f"rows {rows} not divisible by ring size {n}")
 
 
+def _check_dtype(x: torch.Tensor, dtypes, what: str) -> None:
+    """The same TypeError on the CPU and on the card, before any work."""
+    if x.dtype not in dtypes:
+        names = ", ".join(str(d).replace("torch.", "") for d in dtypes)
+        raise TypeError(f"{what} takes {names}; got {x.dtype}")
+
+
 def _kernel_layout(x: torch.Tensor, chunk_elems: int, *more: torch.Tensor):
-    """(dtype code, vec, units per chunk): 16-byte units where every chunk
-    is a whole number of them and every buffer is 16-byte aligned."""
-    if x.dtype not in KERNEL_DTYPES:
-        raise TypeError(f"the ring kernels take bf16 or f32, got {x.dtype}")
-    if x.shape[0] > KERNEL_MAX_RANKS:
-        raise ValueError(f"the ring kernels take at most {KERNEL_MAX_RANKS} "
-                         f"ranks, got {x.shape[0]}")
+    """(dtype code, vec, units per chunk) of B3 and B4a: 16-byte units
+    where every chunk is a whole number of them and every buffer is
+    16-byte aligned."""
     per_vec = 16 // x.element_size()
     vec = chunk_elems % per_vec == 0 and all(
         t.data_ptr() % 16 == 0 for t in (x, *more))
-    return (KERNEL_DTYPES[x.dtype], int(vec),
+    return (SUM_DTYPES[x.dtype], int(vec),
             chunk_elems // per_vec if vec else chunk_elems)
 
 
 def cooperative_grid(x: torch.Tensor, mesh: Mesh, axis_name: str,
                      lib: ctypes.CDLL, max_blocks, cache: dict[int, int],
-                     want: int, stride: int):
+                     want: int, stride: int, blocks_per_slice: int = 1,
+                     extra: int = 0):
     """(slices, zeroed flags, ctypes ring tables) for a cooperative launch
-    of one block per (rank, slice): at most `want` slices, and no more than
-    can be resident beside the other ranks' blocks, as the library's
-    occupancy query `max_blocks` reports (cached per device index in
-    `cache`). Raises when not even one block per rank fits."""
+    of `blocks_per_slice` blocks per (rank, slice), each with its own
+    `stride` flags: at most `want` slices, and no more than can be resident
+    beside the other ranks' blocks, as the library's occupancy query
+    `max_blocks` reports (cached per device index in `cache`). `extra`
+    zeroed ints follow the flags. Raises when not even one slice per rank
+    fits."""
     ranks = x.shape[0]
+    blocks = ranks * blocks_per_slice  # per slice of the world
     index = x.device.index if x.device.index is not None \
         else torch.cuda.current_device()
     if index not in cache:
-        blocks = ctypes.c_int(0)
+        resident = ctypes.c_int(0)
         with torch.cuda.device(index):
-            _raise_on(max_blocks(ctypes.byref(blocks)), "occupancy query",
+            _raise_on(max_blocks(ctypes.byref(resident)), "occupancy query",
                       lib)
-        cache[index] = blocks.value
-    per_rank = cache[index] // ranks
+        cache[index] = resident.value
+    per_rank = cache[index] // blocks
     if per_rank < 1:
-        raise RuntimeError(f"{ranks} ranks need {ranks} co-resident blocks; "
-                           f"the card holds {cache[index]}")
+        raise RuntimeError(f"{ranks} ranks need {blocks} co-resident "
+                           f"blocks; the card holds {cache[index]}")
     slices = max(1, min(per_rank, want))
-    flags = torch.zeros(ranks * slices * stride, dtype=torch.int32,
+    flags = torch.zeros(blocks * slices * stride + extra, dtype=torch.int32,
                         device=x.device)
     tables = [(ctypes.c_int * ranks)(*t)
               for t in mesh.ring_neighbors(axis_name)]
     return slices, flags, tables
 
 
+def _check_ranks(x: torch.Tensor, what: str) -> None:
+    if x.shape[0] > KERNEL_MAX_RANKS:
+        raise ValueError(f"{what} takes at most {KERNEL_MAX_RANKS} ranks, "
+                         f"got {x.shape[0]}")
+
+
 def _launch_setup(x: torch.Tensor, mesh: Mesh, axis_name: str, units: int):
     """(lib, slices, zeroed flags, flag stride, ctypes ring tables)."""
+    _check_ranks(x, "the ring kernels")
     lib = _ring_lib()
     stride = lib.gtt_ring_flag_stride(mesh.shape[axis_name])
     slices, flags, tables = cooperative_grid(
@@ -171,6 +202,7 @@ def _allreduce(x: torch.Tensor, axis_name: str, mesh: Mesh) -> torch.Tensor:
     n = _ring_size(x, axis_name, mesh)
     ranks, rows, cols = x.shape
     _check_rows(rows, n)
+    _check_dtype(x, SUM_DTYPES, "ring_allreduce")
     if n == 1:
         return x
     if x.device.type == "cpu":
@@ -194,18 +226,28 @@ def _allreduce(x: torch.Tensor, axis_name: str, mesh: Mesh) -> torch.Tensor:
     return out
 
 
-class _RingAllreduce(torch.autograd.Function):
-    """Sum-allreduce is linear: the VJP is the same allreduce of the
-    cotangent, on the same kernel (pallas_ring.py's _differentiable)."""
+class _SumAllreduce(torch.autograd.Function):
+    """A sum-allreduce is linear: the VJP is the same allreduce of the
+    cotangent, on the same kernel (pallas_ring.py's _differentiable); for
+    the int8 ring that is the straight-through estimator."""
 
     @staticmethod
-    def forward(ctx, x, axis_name, mesh):
-        ctx.axis_name, ctx.mesh = axis_name, mesh
-        return _allreduce(x, axis_name, mesh)
+    def forward(ctx, x, impl, axis_name, mesh):
+        ctx.impl, ctx.axis_name, ctx.mesh = impl, axis_name, mesh
+        return impl(x, axis_name, mesh)
 
     @staticmethod
     def backward(ctx, g):
-        return _allreduce(g, ctx.axis_name, ctx.mesh), None, None
+        return ctx.impl(g.contiguous(), ctx.axis_name, ctx.mesh), None, \
+            None, None
+
+
+def _differentiable(impl, x: torch.Tensor, axis_name: str,
+                    mesh: Mesh) -> torch.Tensor:
+    if torch.is_grad_enabled() and x.requires_grad \
+            and _ring_size(x, axis_name, mesh) > 1:
+        return _SumAllreduce.apply(x, impl, axis_name, mesh)
+    return impl(x, axis_name, mesh)
 
 
 def ring_allreduce(x: torch.Tensor, axis_name: str,
@@ -213,27 +255,26 @@ def ring_allreduce(x: torch.Tensor, axis_name: str,
     """Sum-allreduce of the world tensor x (P, rows, cols) along
     `axis_name`: every rank gets the sum over its ring, bitwise the same on
     every rank of a ring. Differentiable."""
-    if torch.is_grad_enabled() and x.requires_grad \
-            and _ring_size(x, axis_name, mesh) > 1:
-        return _RingAllreduce.apply(x, axis_name, mesh)
-    return _allreduce(x, axis_name, mesh)
+    return _differentiable(_allreduce, x, axis_name, mesh)
 
 
 # Launches of the CUDA kernel in this process; counts nothing on the CPU.
 ring_allreduce.launches = 0
 
 
-def ring_allreduce_plain(x: torch.Tensor, axis_name: str,
-                         mesh: Mesh) -> torch.Tensor:
-    """B3's arithmetic in plain PyTorch: reduce-scatter then allgather,
-    step by step, with the kernel's chunk indices and add order."""
-    n = _ring_size(x, axis_name, mesh)
-    ranks, rows, cols = x.shape
-    _check_rows(rows, n)
-    my, _, left = (torch.tensor(t, device=x.device)
-                   for t in mesh.ring_neighbors(axis_name))
-    ar = torch.arange(ranks, device=x.device)
-    o = x.reshape(ranks, n, rows // n * cols).clone()
+def _ring_tables(mesh: Mesh, axis_name: str, device):
+    """(ring index, right, left) of every flat rank as tensors."""
+    return tuple(torch.tensor(t, device=device)
+                 for t in mesh.ring_neighbors(axis_name))
+
+
+def _b3_walk(o: torch.Tensor, my: torch.Tensor, left: torch.Tensor,
+             n: int) -> torch.Tensor:
+    """B3's schedule on the chunks o (P, n, C), in place: reduce-scatter
+    then allgather, with the kernel's chunk indices and add order. `my`
+    and `left` are each flat rank's ring index and the flat rank it
+    receives from."""
+    ar = torch.arange(o.shape[0], device=o.device)
     for s in range(n - 1):
         # Every rank sends chunk (my - s) to its right neighbour, whose
         # receive chunk (my_right - s - 1) is that same chunk; rank q gets
@@ -246,7 +287,19 @@ def ring_allreduce_plain(x: torch.Tensor, axis_name: str,
         # q's output at the same offset, verbatim.
         idx = (my[left] + 1 - s) % n
         o[ar, idx] = o[left, idx]
-    return o.reshape(ranks, rows, cols)
+    return o
+
+
+def ring_allreduce_plain(x: torch.Tensor, axis_name: str,
+                         mesh: Mesh) -> torch.Tensor:
+    """B3's arithmetic in plain PyTorch: reduce-scatter then allgather,
+    step by step, with the kernel's chunk indices and add order."""
+    n = _ring_size(x, axis_name, mesh)
+    ranks, rows, cols = x.shape
+    _check_rows(rows, n)
+    my, _, left = _ring_tables(mesh, axis_name, x.device)
+    o = x.reshape(ranks, n, rows // n * cols).clone()
+    return _b3_walk(o, my, left, n).reshape(ranks, rows, cols)
 
 
 # ---- B4a: ring reduce-scatter ----
@@ -255,6 +308,7 @@ def _reduce_scatter(x: torch.Tensor, axis_name: str,
                     mesh: Mesh) -> torch.Tensor:
     n = _ring_size(x, axis_name, mesh)
     ranks, rows, cols = x.shape
+    _check_dtype(x, SUM_DTYPES, "ring_reduce_scatter")
     if n == 1:
         return x
     _check_rows(rows, n)
@@ -317,8 +371,7 @@ def ring_reduce_scatter_plain(x: torch.Tensor, axis_name: str,
     n = _ring_size(x, axis_name, mesh)
     ranks, rows, cols = x.shape
     _check_rows(rows, n)
-    my, _, left = (torch.tensor(t, device=x.device)
-                   for t in mesh.ring_neighbors(axis_name))
+    my, _, left = _ring_tables(mesh, axis_name, x.device)
     ar = torch.arange(ranks, device=x.device)
     work = x.reshape(ranks, n, rows // n * cols).clone()
     for s in range(n - 1):
@@ -338,18 +391,18 @@ def _allgather(x: torch.Tensor, axis_name: str, mesh: Mesh) -> torch.Tensor:
     if x.device.type == "cpu":
         return ring_allgather_plain(x, axis_name, mesh)
     x = x.contiguous()
-    chunk_elems = rows * cols
+    chunk_bytes = rows * cols * x.element_size()
     out = torch.empty((ranks, n * rows, cols), dtype=x.dtype,
                       device=x.device)
-    dtype, vec, units = _kernel_layout(x, chunk_elems, out)
+    # A copy: any dtype, moved in the widest unit that fits.
+    unit = _unit_bytes(chunk_bytes, x, out)
     lib, slices, flags, stride, (my, right, left) = _launch_setup(
-        x, mesh, axis_name, units)
-    elt = x.element_size()
+        x, mesh, axis_name, chunk_bytes // unit)
     with torch.cuda.device(x.device):
         err = lib.gtt_ring_allgather(
-            x.data_ptr(), chunk_elems * elt, out.data_ptr(),
-            n * chunk_elems * elt, flags.data_ptr(), stride, my, right, left,
-            ranks, n, slices, units, dtype, vec, _stream(x))
+            x.data_ptr(), chunk_bytes, out.data_ptr(), n * chunk_bytes,
+            flags.data_ptr(), stride, my, right, left, ranks, n, slices,
+            chunk_bytes // unit, unit, _stream(x))
     _raise_on(err, "ring_allgather", lib)
     ring_allgather.launches += 1
     return out
@@ -389,8 +442,7 @@ def ring_allgather_plain(x: torch.Tensor, axis_name: str,
     n - 1 steps that forward chunk (my - s) to the right neighbour."""
     n = _ring_size(x, axis_name, mesh)
     ranks, rows, cols = x.shape
-    my, _, left = (torch.tensor(t, device=x.device)
-                   for t in mesh.ring_neighbors(axis_name))
+    my, _, left = _ring_tables(mesh, axis_name, x.device)
     ar = torch.arange(ranks, device=x.device)
     o = torch.zeros((ranks, n, rows * cols), dtype=x.dtype, device=x.device)
     o[ar, my] = x.reshape(ranks, rows * cols)
@@ -414,6 +466,280 @@ def ring_allreduce_torus(x: torch.Tensor, axis_names, mesh: Mesh):
     for ax in reversed(axes):
         x = ring_allgather(x, ax, mesh)
     return x
+
+
+# ---- B9, B10, B11: the allreduce variants ----
+
+_var_lib: ctypes.CDLL | None = None
+_var_max_blocks: dict[int, int] = {}
+# 16-byte units per tile and operand of B9's stream (csrc kTileUnits), and
+# the tiles each slice of a chunk streams at most: a slice long enough for
+# the double-buffered loads to overlap the adds.
+HBM_TILE_UNITS = 512
+HBM_TILES_PER_SLICE = 4
+
+
+def _variants_lib() -> ctypes.CDLL:
+    global _var_lib
+    if _var_lib is None:
+        lib = _build.load("ring_variants")
+        head = [_P, _P, _L, _P, _L]  # x, out, rank stride, comm, its stride
+        for name, argtypes in (
+                ("gtt_ring_allreduce_hbm",
+                 head + [_P, _I] + _TABLES + [_L, _I, _P]),
+                ("gtt_ring_allreduce_q8",
+                 head + [_P, _L, _P, _I] + _TABLES + [_L, _P]),
+                ("gtt_ring_allreduce_bidir",
+                 head + [_P, _I] + _TABLES + [_L, _L, _I, _P])):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.gtt_ring_variants_max_blocks.argtypes = [_IP]
+        lib.gtt_ring_variants_max_blocks.restype = ctypes.c_int
+        lib.gtt_ring_variants_flag_stride.argtypes = [_I]
+        lib.gtt_ring_variants_flag_stride.restype = ctypes.c_int
+        lib.gtt_error_string.argtypes = [_I]
+        lib.gtt_error_string.restype = ctypes.c_char_p
+        _var_lib = lib
+    return _var_lib
+
+
+def _vector_input(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x as the variant kernels take it: contiguous, 16-byte aligned, each
+    chunk of rows / n rows a whole number of 16-byte units. Otherwise a
+    zero-padded copy with cols widened to whole units (padding adds zeros
+    to zeros and is cut off again: no value changes)."""
+    x = x.contiguous()
+    ranks, rows, cols = x.shape
+    per_vec = 16 // x.element_size()
+    if rows // n * cols % per_vec == 0 and x.data_ptr() % 16 == 0:
+        return x
+    wide = cols if rows // n * cols % per_vec == 0 \
+        else -(-cols // per_vec) * per_vec
+    padded = x.new_zeros((ranks, rows, wide))
+    padded[..., :cols] = x
+    return padded
+
+
+def _variant_setup(x: torch.Tensor, mesh: Mesh, axis_name: str,
+                   want: int, blocks_per_slice: int = 1, extra: int = 0):
+    """(lib, slices, zeroed flags, flag stride, ctypes ring tables)."""
+    _check_ranks(x, "the ring variant kernels")
+    lib = _variants_lib()
+    stride = lib.gtt_ring_variants_flag_stride(mesh.shape[axis_name])
+    slices, flags, tables = cooperative_grid(
+        x, mesh, axis_name, lib, lib.gtt_ring_variants_max_blocks,
+        _var_max_blocks, want, stride, blocks_per_slice, extra)
+    return lib, slices, flags, stride, tables
+
+
+def _allreduce_hbm(x: torch.Tensor, axis_name: str,
+                   mesh: Mesh) -> torch.Tensor:
+    n = _ring_size(x, axis_name, mesh)
+    ranks, rows, cols = x.shape
+    _check_rows(rows, n)
+    _check_dtype(x, KERNEL_DTYPES, "ring_allreduce_hbm")
+    if n == 1:
+        return x
+    if x.device.type == "cpu":
+        return ring_allreduce_hbm_plain(x, axis_name, mesh)
+    xv = _vector_input(x, n)
+    per_rank = xv[0].numel() * xv.element_size()
+    units = per_rank // n // 16
+    out = torch.empty_like(xv)
+    comm = torch.empty((ranks, 2 * per_rank // n), dtype=torch.uint8,
+                       device=x.device)
+    lib, slices, flags, stride, (my, right, left) = _variant_setup(
+        xv, mesh, axis_name,
+        -(-units // (HBM_TILE_UNITS * HBM_TILES_PER_SLICE)))
+    with torch.cuda.device(x.device):
+        err = lib.gtt_ring_allreduce_hbm(
+            xv.data_ptr(), out.data_ptr(), per_rank, comm.data_ptr(),
+            comm.stride(0), flags.data_ptr(), stride, my, right, left, ranks,
+            n, slices, units, KERNEL_DTYPES[x.dtype], _stream(x))
+    _raise_on(err, "ring_allreduce_hbm", lib)
+    ring_allreduce_hbm.launches += 1
+    return out if xv.shape == x.shape else out[..., :cols]
+
+
+def ring_allreduce_hbm(x: torch.Tensor, axis_name: str,
+                       mesh: Mesh) -> torch.Tensor:
+    """B9: the sum-allreduce of ring_allreduce, with the received chunk of
+    every reduce-scatter step streamed through shared memory in tiles
+    (double-buffered cp.async loads). B3's chunk order and add order, so
+    its result is bitwise B3's. bf16 or f32; rows % n == 0.
+    Differentiable."""
+    return _differentiable(_allreduce_hbm, x, axis_name, mesh)
+
+
+ring_allreduce_hbm.launches = 0
+
+
+def ring_allreduce_hbm_plain(x: torch.Tensor, axis_name: str,
+                             mesh: Mesh) -> torch.Tensor:
+    """B9's arithmetic in plain PyTorch: B3's walk (the tiles of the stream
+    change no value, the add being elementwise)."""
+    return ring_allreduce_plain(x, axis_name, mesh)
+
+
+def _allreduce_q8(x: torch.Tensor, axis_name: str,
+                  mesh: Mesh) -> torch.Tensor:
+    n = _ring_size(x, axis_name, mesh)
+    ranks, rows, cols = x.shape
+    if x.dtype != torch.float32:
+        raise TypeError(f"ring_allreduce_q8 quantizes f32 payloads; got "
+                        f"{x.dtype}")
+    if n == 1:
+        return x  # nothing moves, nothing is quantized
+    _check_rows(rows, n)
+    if rows // n % 32:
+        raise ValueError(f"chunk rows {rows // n} not divisible by 32 (the "
+                         f"int8 tiling of the TPU kernel)")
+    if x.device.type == "cpu":
+        return ring_allreduce_q8_plain(x, axis_name, mesh)
+    xv = _vector_input(x, n)
+    chunk = rows // n * cols  # f32 per chunk, int8 codes per wire slot
+    out = torch.empty_like(xv)
+    wire = torch.empty((ranks, (n + 1) * chunk), dtype=torch.int8,
+                       device=x.device)
+    lib, slices, flags, stride, (my, right, left) = _variant_setup(
+        xv, mesh, axis_name, -(-chunk // 4 // KERNEL_THREADS),
+        extra=2 * n * ranks)
+    scales = torch.empty((ranks, (n + 1) * slices), dtype=torch.float32,
+                         device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.gtt_ring_allreduce_q8(
+            xv.data_ptr(), out.data_ptr(), n * chunk * 4, wire.data_ptr(),
+            wire.stride(0), scales.data_ptr(), scales.stride(0) * 4,
+            flags.data_ptr(), stride, my, right, left, ranks, n, slices,
+            chunk // 4, _stream(x))
+    _raise_on(err, "ring_allreduce_q8", lib)
+    ring_allreduce_q8.launches += 1
+    return out
+
+
+def ring_allreduce_q8(x: torch.Tensor, axis_name: str,
+                      mesh: Mesh) -> torch.Tensor:
+    """B10: sum-allreduce over an int8 wire with one f32 scale per chunk
+    hop (EQuARX-style), accumulating in f32; every rank of a ring decodes
+    bitwise the same result. f32; rows % n == 0 and (rows / n) % 32 == 0;
+    a ring of one returns x. Differentiable (straight-through: the VJP is
+    the same quantized allreduce of the cotangent)."""
+    return _differentiable(_allreduce_q8, x, axis_name, mesh)
+
+
+ring_allreduce_q8.launches = 0
+
+
+# f32(1 / 127): the JAX reference's max|chunk| / 127 is a product with it
+# once XLA has compiled it (bitwise against the interpreted kernel; a true
+# division differs in the last bit now and then).
+_INV_127 = float(np.float32(1 / 127))
+
+
+def _quantize(c: torch.Tensor):
+    """(codes as f32, scale) of each row of c (P, C): scale = max|c| *
+    f32(1 / 127), codes = clip(round-half-even(c / max(scale, 1e-30)),
+    +-127), a true division."""
+    scale = c.abs().amax(1) * _INV_127
+    safe = scale.clamp_min(1e-30)
+    return torch.round(c / safe[:, None]).clamp(-127, 127), scale
+
+
+def ring_allreduce_q8_plain(x: torch.Tensor, axis_name: str,
+                            mesh: Mesh) -> torch.Tensor:
+    """B10's arithmetic in plain PyTorch: B3's chunk order, each hop's
+    chunk quantized whole; the receiver adds q * scale into its f32 chunk
+    rounded once (the product and sum in f64, exact in practice, cast once
+    to f32: the kernel's fma). Allgather: the owner of chunk my + 1
+    quantizes it once and adopts q * scale; the codes and scale travel
+    verbatim and every rank decodes q * scale (f32)."""
+    n = _ring_size(x, axis_name, mesh)
+    ranks, rows, cols = x.shape
+    _check_rows(rows, n)
+    my, _, left = _ring_tables(mesh, axis_name, x.device)
+    ar = torch.arange(ranks, device=x.device)
+    o = x.reshape(ranks, n, rows // n * cols).clone()
+    for s in range(n - 1):
+        q, scale = _quantize(o[ar, (my - s) % n])
+        recv = (my - s - 1) % n
+        o[ar, recv] = (o[ar, recv].double() + q[left].double()
+                       * scale[left].double()[:, None]).float()
+    own = (my + 1) % n
+    q, scale = _quantize(o[ar, own])
+    o[ar, own] = q * scale[:, None]
+    for s in range(n - 1):
+        # Step s: each rank gets from its left neighbour the codes it holds
+        # (its own chunk's at s = 0, then what it got at step s - 1), those
+        # of chunk my - s.
+        q, scale = q[left], scale[left]
+        o[ar, (my - s) % n] = q * scale[:, None]
+    return o.reshape(ranks, rows, cols)
+
+
+def _allreduce_bidir(x: torch.Tensor, axis_name: str,
+                     mesh: Mesh) -> torch.Tensor:
+    n = _ring_size(x, axis_name, mesh)
+    ranks, rows, cols = x.shape
+    if n == 1:
+        return x
+    _check_rows(rows, n)
+    if cols % 256:
+        raise ValueError(f"the bidirectional split needs cols % 256 == 0; "
+                         f"got {cols}")
+    _check_dtype(x, KERNEL_DTYPES, "ring_allreduce_bidir")
+    if x.device.type == "cpu":
+        return ring_allreduce_bidir_plain(x, axis_name, mesh)
+    xv = _vector_input(x, n)
+    elt = x.element_size()
+    half_units = cols // 2 * elt // 16
+    chunk_rows = rows // n
+    out = torch.empty_like(xv)
+    comm = torch.empty((ranks, 2, 2, chunk_rows * cols // 2), dtype=x.dtype,
+                       device=x.device)
+    lib, slices, flags, stride, (my, right, left) = _variant_setup(
+        xv, mesh, axis_name, -(-chunk_rows * half_units // KERNEL_THREADS),
+        blocks_per_slice=2)
+    with torch.cuda.device(x.device):
+        err = lib.gtt_ring_allreduce_bidir(
+            xv.data_ptr(), out.data_ptr(), rows * cols * elt,
+            comm.data_ptr(), comm.stride(0) * elt, flags.data_ptr(), stride,
+            my, right, left, ranks, n, slices, chunk_rows, half_units,
+            KERNEL_DTYPES[x.dtype], _stream(x))
+    _raise_on(err, "ring_allreduce_bidir", lib)
+    ring_allreduce_bidir.launches += 1
+    return out
+
+
+def ring_allreduce_bidir(x: torch.Tensor, axis_name: str,
+                         mesh: Mesh) -> torch.Tensor:
+    """B11: sum-allreduce on two counter-rotating rings: columns
+    [0, cols/2) run B3's schedule to the right, columns [cols/2, cols) the
+    mirrored schedule to the left. bf16 or f32; rows % n == 0 and
+    cols % 256 == 0; a ring of one returns x. Differentiable."""
+    return _differentiable(_allreduce_bidir, x, axis_name, mesh)
+
+
+ring_allreduce_bidir.launches = 0
+
+
+def ring_allreduce_bidir_plain(x: torch.Tensor, axis_name: str,
+                               mesh: Mesh) -> torch.Tensor:
+    """B11's arithmetic in plain PyTorch: B3's walk on the left half, and
+    on the right half B3's walk on the reversed ring (ring index -my,
+    receiving from the right) with chunk c' standing for chunk -c'."""
+    n = _ring_size(x, axis_name, mesh)
+    ranks, rows, cols = x.shape
+    _check_rows(rows, n)
+    my, right, left = _ring_tables(mesh, axis_name, x.device)
+    h = cols // 2
+    mirror = (-torch.arange(n, device=x.device)) % n
+    o0 = x[..., :h].reshape(ranks, n, -1).clone()
+    o1 = x[..., h:].reshape(ranks, n, -1)[:, mirror].clone()
+    _b3_walk(o0, my, left, n)
+    _b3_walk(o1, (-my) % n, right, n)
+    return torch.cat([o0.view(ranks, rows, h),
+                      o1[:, mirror].reshape(ranks, rows, h)], -1)
 
 
 # ---- B8: the all-to-all ----
@@ -459,9 +785,7 @@ def _alltoall(x: torch.Tensor, axis_name: str, mesh: Mesh) -> torch.Tensor:
         return x
     if x.device.type == "cpu":
         return alltoall_plain(x, axis_name, mesh)
-    if ranks > KERNEL_MAX_RANKS:
-        raise ValueError(f"the all-to-all kernel takes at most "
-                         f"{KERNEL_MAX_RANKS} ranks, got {ranks}")
+    _check_ranks(x, "the all-to-all kernel")
     x = x.contiguous()
     out = torch.empty_like(x)
     chunk_bytes = rows // n * cols * x.element_size()

@@ -26,7 +26,7 @@ import torch
 
 # Where a mesh over more than one card is taken up (peer-mapped memory,
 # one cooperative launch per card).
-MULTI_CARD_ITEM = "ROADMAP.md queue A, item 5 (the multi-card launch)"
+MULTI_CARD_ITEM = "ROADMAP.md queue A, item 7 (the multi-card launch)"
 
 
 class Mesh:

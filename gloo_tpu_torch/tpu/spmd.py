@@ -7,7 +7,9 @@ of `mesh` (given by keyword), every ring of that axis at once. The result
 is again a world tensor.
 
 The sum collectives ride the ring kernels of gloo_tpu_torch.ops.ring:
-``allreduce`` and ``mean`` B3, ``reduce_scatter`` B4a, ``allgather`` B4b;
+``allreduce`` and ``mean`` B3, ``reduce_scatter`` B4a (both in
+ring.SUM_DTYPES, on the card and on the CPU alike), ``allgather`` B4b (any
+dtype);
 ``alltoall`` rides the all-to-all kernel B8 (one launch each on the card).
 ``max``/``min``/``product``, ``broadcast``, ``scatter``, ``ppermute``,
 ``shift`` and ``barrier`` are plain torch across the rank axis: the JAX
@@ -63,7 +65,8 @@ def allreduce(x: torch.Tensor, axis: str, op: str = "sum", *,
         return x[_members(axis, mesh)].amin(1)
     if op in ("product", "prod"):
         # No product collective: gather and reduce locally, as in JAX.
-        return allgather(x, axis, tiled=False, mesh=mesh).prod(1)
+        return allgather(x, axis, tiled=False, mesh=mesh).prod(
+            1, dtype=x.dtype)
     raise ValueError(f"unknown op: {op}")
 
 

@@ -53,7 +53,8 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
     from gloo_tpu_torch import weights
     from gloo_tpu_torch.entry import (ENTRY_CONFIG, ddp_train_entry,
                                       dp_tp_train_entry, entry, ep_entry,
-                                      sp_entry, train_entry)
+                                      ring_variants_entry, sp_entry,
+                                      train_entry)
     from gloo_tpu_torch.models import MLP, Transformer
     from gloo_tpu_torch.tpu import make_mesh
 
@@ -61,7 +62,8 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="devices=\\['cpu'\\]"):
         make_mesh()
     for call in (entry, train_entry, ddp_train_entry, dp_tp_train_entry,
-                 sp_entry, ep_entry, lambda: Transformer(ENTRY_CONFIG),
+                 sp_entry, ep_entry, ring_variants_entry,
+                 lambda: Transformer(ENTRY_CONFIG),
                  lambda: MLP((4, 4)),
                  lambda: weights.transformer_params_from_numpy({}, None)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -121,6 +123,9 @@ def test_kernel_table_covers_every_pallas_call():
     assert table == found
     assert len({k.id for k in KERNELS}) == len(KERNELS)
     for k in KERNELS:
-        assert k.status.startswith(("ported: ", "to port: slice "))
-        if k.status.startswith("ported: "):
-            assert (REPO / k.status.split(": ", 1)[1]).is_file()
+        assert k.status.startswith("ported: ")
+        assert (REPO / k.status.split(": ", 1)[1]).is_file()
+    variants = {k.id: k.status for k in KERNELS if k.id in
+                ("B9", "B10", "B11")}
+    assert variants == dict.fromkeys(
+        ("B9", "B10", "B11"), "ported: gloo_tpu_torch/csrc/ring_variants.cu")

@@ -252,6 +252,77 @@ def test_wrappers_reject_what_they_do_not_take():
         ring.ring_allreduce(torch.zeros((4, 8, 8), device="meta"), "x", mesh)
 
 
+ALL_DTYPES = [torch.bool, torch.uint8, torch.int8, torch.int16, torch.int32,
+              torch.int64, torch.float16, torch.bfloat16, torch.float32,
+              torch.float64, torch.complex64]
+
+
+@pytest.mark.parametrize("dtype", ALL_DTYPES, ids=str)
+def test_sum_kernels_take_the_same_dtypes_on_every_device(dtype):
+    """B3 and B4a take SUM_DTYPES and refuse the rest with the same
+    TypeError on the CPU and on the card's path (a meta tensor goes the
+    card's way and, past the dtype check, stops at the missing nvcc). The
+    allgather moves bytes and takes every dtype on both."""
+    cpu = _cpu_mesh({"x": 4})
+    meta = make_mesh({"x": 4}, devices=["meta"] * 4)
+    x = torch.ones((4, 8, 16), dtype=dtype)
+    takes = dtype in ring.SUM_DTYPES
+    for fn, plain in ((ring.ring_allreduce, ring.ring_allreduce_plain),
+                      (ring.ring_reduce_scatter,
+                       ring.ring_reduce_scatter_plain)):
+        if takes:
+            assert torch.equal(fn(x, "x", cpu), plain(x, "x", cpu))
+            with pytest.raises(RuntimeError, match="nvcc"):
+                fn(x.to("meta"), "x", meta)
+        else:
+            for mesh, t in ((cpu, x), (meta, x.to("meta"))):
+                with pytest.raises(TypeError, match="ring_"):
+                    fn(t, "x", mesh)
+    if takes:
+        code, vec, units = ring._kernel_layout(x, 32)
+        assert (code, vec, units) == (ring.SUM_DTYPES[dtype], 1,
+                                      32 * x.element_size() // 16)
+    assert torch.equal(ring.ring_allgather(x[:, :2], "x", cpu),
+                       ring.ring_allgather_plain(x[:, :2], "x", cpu))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        ring.ring_allgather(x[:, :2].to("meta"), "x", meta)
+
+
+def test_cooperative_grid_sizes_the_launch(monkeypatch):
+    """Slices: as many as `want`, no more than fit beside the other ranks'
+    blocks (blocks_per_slice per rank and slice); zeroed flags for every
+    block plus `extra`; the ring tables of every rank. The occupancy query
+    is asked once per device."""
+    import contextlib
+
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda index: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    asked = []
+
+    def max_blocks(ref):
+        asked.append(1)
+        ref._obj.value = 100
+        return 0
+
+    mesh = make_mesh({"x": 4}, devices=["meta"] * 4)
+    x = torch.zeros((4, 8, 8), device="meta")
+    cache = {}
+    for want, per_slice, extra, slices in ((7, 1, 0, 7), (99, 1, 0, 25),
+                                           (99, 2, 5, 12), (0, 1, 0, 1)):
+        got, flags, tables = ring.cooperative_grid(
+            x, mesh, "x", None, max_blocks, cache, want, 6, per_slice, extra)
+        assert got == slices
+        assert flags.shape == (4 * per_slice * slices * 6 + extra,)
+        assert [list(t) for t in tables] == [list(t) for t in
+                                             mesh.ring_neighbors("x")]
+    assert asked == [1] and cache == {0: 100}
+    with pytest.raises(RuntimeError, match="co-resident"):
+        ring.cooperative_grid(torch.zeros((2, 8, 8), device="meta"),
+                              make_mesh({"x": 2}, devices=["meta"] * 2),
+                              "x", None, max_blocks, {0: 3}, 1, 6, 2)
+
+
 # ---- on the card ----
 
 @pytest.fixture
@@ -298,3 +369,39 @@ def test_torus_and_autograd_on_card(cuda_device):
     ring.ring_allreduce(leaf, "x", flat).sum().backward()
     assert ring.ring_allreduce.launches == before + 2
     torch.testing.assert_close(leaf.grad, torch.full_like(z, 4.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64, torch.int32,
+                                   torch.int64], ids=str)
+@pytest.mark.parametrize("cols", [128, 7])
+def test_sum_kernels_at_more_dtypes_on_card(cuda_device, dtype, cols):
+    mesh = make_mesh({"x": 4}, devices=[cuda_device] * 4)
+    gen = torch.Generator(cuda_device).manual_seed(cols)
+    if dtype.is_floating_point:
+        x = torch.randn((4, 32, cols), generator=gen,
+                        device=cuda_device).to(dtype)
+    else:
+        x = torch.randint(-2 ** 30, 2 ** 30, (4, 32, cols), generator=gen,
+                          device=cuda_device).to(dtype)
+    for fn, plain in ((ring.ring_allreduce, ring.ring_allreduce_plain),
+                      (ring.ring_reduce_scatter,
+                       ring.ring_reduce_scatter_plain)):
+        before = fn.launches
+        out = fn(x, "x", mesh)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        assert torch.equal(out, plain(x, "x", mesh))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bool, torch.int8, torch.float16,
+                                   torch.int64, torch.complex64], ids=str)
+@pytest.mark.parametrize("cols", [128, 3])
+def test_allgather_moves_any_dtype_on_card(cuda_device, dtype, cols):
+    mesh = make_mesh({"x": 4}, devices=[cuda_device] * 4)
+    x = torch.arange(4 * 8 * cols, device=cuda_device).reshape(
+        4, 8, cols).to(dtype)
+    out = ring.ring_allgather(x, "x", mesh)
+    assert torch.equal(out, ring.ring_allgather_plain(x, "x", mesh))
+    assert torch.equal(out[2], x.reshape(32, cols))

@@ -95,6 +95,22 @@ def test_reduce_scatter(groups, op):
     np.testing.assert_allclose(got, want, rtol=SUM_RTOL)
 
 
+@pytest.mark.parametrize("dtype", [np.int32, np.float16])
+@pytest.mark.parametrize("method,kw", [
+    ("allreduce", {}), ("allreduce", {"op": "product"}),
+    ("reduce", {"root": 1}), ("reduce_scatter", {}), ("allgather", {})])
+def test_group_at_int32_and_f16(groups, dtype, method, kw):
+    """The sum kernels take int32 and f16 as psum does (B3, B4a), the
+    allgather moves them (B4b). Small integers make every sum and product
+    exact in both types, so the results are equal whatever the order of
+    the adds; int32 column 0 wraps past 2**31 in both."""
+    x = (rows(4) % 5 + 1).astype(dtype)
+    if dtype == np.int32 and kw.get("op") != "product":
+        x[:, 0] = 2 ** 30 + np.arange(4)
+    got, want = _both(groups, method, x, **kw)
+    np.testing.assert_array_equal(got, want)
+
+
 def test_alltoall_and_scatter(groups):
     x = (np.arange(4)[:, None] * 100 + np.arange(4)[None, :]).astype(
         np.float32)[..., None] * np.ones((4, 4, 8), np.float32)
