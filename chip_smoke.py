@@ -33,10 +33,12 @@ Phases, each of which raises on failure:
      bound, plain versions and library yardsticks, and of the DDP step;
  12. the collective matmul kernels (B5a matmul_reduce_scatter, B5b
      allgather_matmul) against their plain versions on the card over
-     worlds of 2 to 8 ranks (OVERLAP_CASES), at the fused MLP's full
-     width, with a shared (stride-0) weight and along "model" of a 2 x 2
-     mesh; gx bitwise the gathered input, replicated results bitwise equal
-     on every rank of a ring;
+     worlds of 2 to 8 ranks (OVERLAP_CASES, each three times), at the
+     fused MLP's full width (w as it lies and transposed), with a shared
+     (stride-0) weight, chunk rows that are not multiples of 64, strides
+     the wrapper pads, a W deeper than shared memory holds, and along
+     "model" of a 2 x 2 mesh; gx bitwise the gathered input, replicated
+     results bitwise equal on every rank of a ring;
  13. the fused Megatron-SP MLP (tensor-parallel path B): allgather_matmul
      up, tanh GELU, matmul_reduce_scatter down, forward and backward at
      full width over a ring of 4 ranks on the card, with the launch counts
@@ -49,8 +51,9 @@ Phases, each of which raises on failure:
      counts read around them, a falling loss, bitwise-equal replicas and
      shards, and the first step against train_step over the whole batch;
  15. times of B5a and B5b at the fused MLP's shapes against their bound,
-     plain versions and library yardsticks, of the fused MLP and of the
-     dp x tp step;
+     plain versions and library yardsticks (kernel and whole call; B5a
+     also with the backward's transposed w), of the fused MLP (per call
+     and device time) and of the dp x tp step;
  16. the ring-attention step kernels (B6 flash_attention_step, B7a and B7b
      flash_attention_bwd_step) against their plain versions on the card at
      STEP_CASES, every ring step of each (so whole, diagonal and hidden
@@ -154,27 +157,44 @@ RING_CASES = [
 ]
 
 # (name, mesh axes, ring axis, rows of a B5a chunk per rank, k, cols, dtype,
-# shared w): the collective matmuls against their plain versions. B5a takes
-# x (P, n rows, k), B5b x (P, rows, k); w (P, k, cols), or one (k, cols)
-# expanded to every rank (stride 0). "mlp_*" are the fused MLP's shapes
-# (phase 13): B5b x (4, 256, 256) @ w_up shards (4, 256, 256), B5a hidden
-# (4, 1024, 256) @ w_down shards (4, 256, 256).
+# w): the collective matmuls against their plain versions, each case three
+# times in a row (an ordering fault between TMA stores, flags and loads
+# shows as a result that differs now and then). B5a takes x (P, n rows,
+# k), B5b x (P, rows, k); w (P, k, cols) as it lies ("own"), one (k, cols)
+# expanded to every rank (stride 0, "shared"), or the transposed view of a
+# (P, cols, k) weight ("transposed", as B5b's VJP hands it to B5a). "mlp_*"
+# are the fused MLP's shapes (phase 13): B5b x (4, 256, 256) @ w_up shards
+# (4, 256, 256), B5a hidden (4, 1024, 256) @ w_down shards (4, 256, 256),
+# and in the backward B5a dy (4, 1024, 256) @ w_up^T. Chunk rows of 8, 20
+# and 100 are not multiples of the kernels' 64-row tiles; k 36 and cols
+# 100 in bf16 are strides TMA cannot describe (padded by the wrapper); k
+# 1024 streams W through the slab ring.
 OVERLAP_CASES = [
-    ("P2_f32", {"x": 2}, "x", 8, 16, 128, torch.float32, False),
-    ("P3_f32", {"x": 3}, "x", 8, 16, 128, torch.float32, False),
-    ("P4_f32", {"x": 4}, "x", 8, 16, 128, torch.float32, False),
-    ("P8_f32", {"x": 8}, "x", 8, 16, 128, torch.float32, False),
-    ("P2_bf16", {"x": 2}, "x", 8, 16, 128, torch.bfloat16, False),
-    ("P3_bf16", {"x": 3}, "x", 8, 16, 128, torch.bfloat16, False),
-    ("P4_bf16", {"x": 4}, "x", 8, 16, 128, torch.bfloat16, False),
-    ("P8_bf16", {"x": 8}, "x", 8, 16, 128, torch.bfloat16, False),
-    ("P4_shared_w", {"x": 4}, "x", 8, 16, 128, torch.float32, True),
+    ("P2_f32", {"x": 2}, "x", 8, 16, 128, torch.float32, "own"),
+    ("P3_f32", {"x": 3}, "x", 8, 16, 128, torch.float32, "own"),
+    ("P4_f32", {"x": 4}, "x", 8, 16, 128, torch.float32, "own"),
+    ("P8_f32", {"x": 8}, "x", 8, 16, 128, torch.float32, "own"),
+    ("P2_bf16", {"x": 2}, "x", 8, 16, 128, torch.bfloat16, "own"),
+    ("P3_bf16", {"x": 3}, "x", 8, 16, 128, torch.bfloat16, "own"),
+    ("P4_bf16", {"x": 4}, "x", 8, 16, 128, torch.bfloat16, "own"),
+    ("P8_bf16", {"x": 8}, "x", 8, 16, 128, torch.bfloat16, "own"),
+    ("P4_shared_w", {"x": 4}, "x", 8, 16, 128, torch.float32, "shared"),
     ("2x2_model", {"data": 2, "model": 2}, "model", 8, 16, 128,
-     torch.float32, False),
-    ("P3_ragged_bf16", {"x": 3}, "x", 20, 40, 100, torch.bfloat16, False),
-    ("P3_ragged_f32", {"x": 3}, "x", 20, 36, 100, torch.float32, False),
-    ("mlp_bf16", {"x": 4}, "x", 256, 256, 256, torch.bfloat16, False),
-    ("mlp_shared_bf16", {"x": 4}, "x", 256, 256, 256, torch.bfloat16, True),
+     torch.float32, "own"),
+    ("P3_ragged_bf16", {"x": 3}, "x", 20, 40, 100, torch.bfloat16, "own"),
+    ("P3_ragged_f32", {"x": 3}, "x", 20, 36, 100, torch.float32, "own"),
+    ("mlp_bf16", {"x": 4}, "x", 256, 256, 256, torch.bfloat16, "own"),
+    ("mlp_shared_bf16", {"x": 4}, "x", 256, 256, 256, torch.bfloat16,
+     "shared"),
+    ("mlp_bf16_wT", {"x": 4}, "x", 256, 256, 256, torch.bfloat16,
+     "transposed"),
+    ("P2_rows100_bf16", {"x": 2}, "x", 100, 64, 160, torch.bfloat16, "own"),
+    ("P3_k36_bf16", {"x": 3}, "x", 20, 36, 64, torch.bfloat16, "own"),
+    ("P8_k128_bf16", {"x": 8}, "x", 64, 128, 128, torch.bfloat16, "own"),
+    ("P8_wT_bf16", {"x": 8}, "x", 8, 64, 64, torch.bfloat16,
+     "transposed"),
+    ("P4_deep_bf16", {"x": 4}, "x", 64, 1024, 128, torch.bfloat16, "own"),
+    ("P2_deep_f32", {"x": 2}, "x", 32, 384, 96, torch.float32, "own"),
 ]
 # The fused MLP (phase 13) and the 2 x 2 pair against the same MLP run
 # densely on the card, as the relative norm |a - b| / |b| of the output and
@@ -335,7 +355,7 @@ def event_ms(fn, iters=50):
     return start.elapsed_time(end) / iters
 
 
-def device_profile(fn, iters=20, want=None, sessions=3):
+def device_profile(fn, iters=20, want=None, sessions=6):
     """Per-call device time of fn from torch.profiler (CUPTI): (total ms or
     None where the trace shows no device time, [(ms, calls, name)] per
     kernel name, longest first). A session whose trace holds no device
@@ -526,37 +546,49 @@ def overlap_cases(ov, make_mesh, gen):
     """Phase 12: B5a and B5b against their plain versions at
     OVERLAP_CASES. Returns {case: (B5a max abs err, B5b max abs err)}."""
     errs, failed = {}, []
-    for name, axes, axis, rows, k, cols, dtype, shared in OVERLAP_CASES:
+    for name, axes, axis, rows, k, cols, dtype, w_kind in OVERLAP_CASES:
         ranks, n = math.prod(axes.values()), axes[axis]
+        shared = w_kind == "shared"
         mesh = make_mesh(axes, devices=[torch.device("cuda")] * ranks)
         x = torch.randn((ranks, n * rows, k), generator=gen,
                         device="cuda").to(dtype)
-        w = torch.randn((1 if shared else ranks, k, cols), generator=gen,
-                        device="cuda") / math.sqrt(k)
-        w = w.to(dtype).expand(ranks, -1, -1)
-        out = ov.matmul_reduce_scatter(x, w, axis, mesh)
-        torch.cuda.synchronize()
-        a_err, a_ok = overlap_close(
-            out, ov.matmul_reduce_scatter_plain(x, w, axis, mesh))
+        if w_kind == "transposed":
+            w = (torch.randn((ranks, cols, k), generator=gen, device="cuda")
+                 / math.sqrt(k)).to(dtype).transpose(1, 2)
+        else:
+            w = torch.randn((1 if shared else ranks, k, cols),
+                            generator=gen, device="cuda") / math.sqrt(k)
+            w = w.to(dtype).expand(ranks, -1, -1)
         xs = x[:, :rows].contiguous()
-        y, gx = ov.allgather_matmul_fwd(xs, w, axis, mesh)
-        torch.cuda.synchronize()
-        ry, _ = ov.allgather_matmul_plain(xs, w, axis, mesh)
-        b_err, b_ok = overlap_close(y, ry)
-        members = mesh.ring_members(axis)
+        a_err = b_err = 0.0
+        a_ok = b_ok = gx_ok = True
+        for _ in range(3):
+            out = ov.matmul_reduce_scatter(x, w, axis, mesh)
+            torch.cuda.synchronize()
+            err, ok = overlap_close(
+                out, ov.matmul_reduce_scatter_plain(x, w, axis, mesh))
+            a_err, a_ok = max(a_err, err), a_ok and ok
+            y, gx = ov.allgather_matmul_fwd(xs, w, axis, mesh)
+            torch.cuda.synchronize()
+            ry, _ = ov.allgather_matmul_plain(xs, w, axis, mesh)
+            err, ok = overlap_close(y, ry)
+            b_err, b_ok = max(b_err, err), b_ok and ok
+            members = mesh.ring_members(axis)
+            gathered = torch.stack([xs[m].reshape(n * rows, k)
+                                    for m in members])
+            gx_ok = gx_ok and torch.equal(gx, gathered)
         first = [m[0] for m in members]
-        gathered = torch.stack([xs[m].reshape(n * rows, k) for m in members])
         bad = [] if a_ok and b_ok else ["differs from its plain version"]
-        if not torch.equal(gx, gathered):
+        if not gx_ok:
             bad.append("gx differs from the gathered input")
         if shared and not torch.equal(y, y[first]):
             bad.append("ranks of a ring differ")
         print(f"overlap {name}: {ranks} ranks, ring {axis!r} of {n}, "
               f"{str(dtype)[6:]}, B5a x {tuple(x.shape[1:])} -> "
               f"{tuple(out.shape[1:])}, B5b x {tuple(xs.shape[1:])} -> "
-              f"{tuple(y.shape[1:])}{', shared w' if shared else ''}: max "
+              f"{tuple(y.shape[1:])}, {w_kind} w, 3 runs: max "
               f"|kernel - plain| B5a {a_err:.3e}, B5b {b_err:.3e}; gx "
-              f"bitwise {torch.equal(gx, gathered)}"
+              f"bitwise {gx_ok}"
               f"{'; FAILED: ' + ', '.join(bad) if bad else ''}")
         failed += [f"{name}: {b}" for b in bad]
         errs[name] = (a_err, b_err)
@@ -725,6 +757,50 @@ def fused_mlp_path(ov, tp, counters, make_mesh, gen, cfg):
     if failed:
         raise AssertionError(f"the *_auto arms disagree: {failed}")
     return launches, (mesh, rand, hidden, (x, w_up, w_down), dy)
+
+
+def overlap_probes(ov, make_mesh, gen, x_b, up_b):
+    """What bounds B5a and B5b: the ring's chain of steps. The fused MLP's
+    per-rank shapes over rings of 2 and 8 ranks give the time of one ring
+    step (a hand-off between neighbours behind a tile's product) and the
+    rest. Then both in f32 (FMA, no TF32) at the fused MLP's shapes, off
+    the main path."""
+    print("collective matmul kernels against the ring's length (per rank "
+          "the fused MLP's shapes):")
+    for name, label, run in (
+            ("allgather_matmul", "ag_matmul_kernel",
+             lambda x, w, mesh: ov.allgather_matmul_fwd(x, w, "x", mesh)),
+            ("matmul_reduce_scatter", "matmul_rs_kernel",
+             lambda x, w, mesh: ov.matmul_reduce_scatter(x, w, "x", mesh))):
+        times = {}
+        for n in (2, 8):
+            mesh = make_mesh({"x": n}, devices=[torch.device("cuda")] * n)
+            rows = x_b.shape[1] * (n if name == "matmul_reduce_scatter"
+                                   else 1)
+            x = torch.randn((n, rows, x_b.shape[2]), generator=gen,
+                            device="cuda").bfloat16()
+            w = (torch.randn((n,) + tuple(up_b.shape[1:]), generator=gen,
+                             device="cuda") / math.sqrt(up_b.shape[1])) \
+                .bfloat16()
+            with torch.no_grad():
+                times[n] = timed_kernel(
+                    f"{name} kernel, ring of {n}",
+                    lambda: run(x, w, mesh), label)  # noqa: B023
+        if None not in times.values():
+            step = (times[8] - times[2]) / 6
+            print(f"  {name}: {step:.6f} ms per ring step, "
+                  f"{times[2] - step:.6f} ms besides")
+    n = x_b.shape[0]
+    mesh = make_mesh({"x": n}, devices=[torch.device("cuda")] * n)
+    x, w = x_b.float(), up_b.float()
+    h = x.repeat(1, n, 1)
+    with torch.no_grad():
+        timed_kernel("allgather_matmul kernel, f32",
+                     lambda: ov.allgather_matmul_fwd(x, w, "x", mesh),
+                     "ag_matmul_kernel")
+        timed_kernel("matmul_reduce_scatter kernel, f32",
+                     lambda: ov.matmul_reduce_scatter(h, w, "x", mesh),
+                     "matmul_rs_kernel")
 
 
 def rotate(spmd, x, axis, mesh, steps):
@@ -1841,6 +1917,7 @@ def main():
     elt = x_b.element_size()
     print(f"collective matmul times at the fused MLP's shapes on {card}:")
     gathered = x_b.reshape(1, -1, x_b.shape[2]).expand(n_mlp, -1, -1)
+    up_t = up_b.transpose(1, 2)
     overlap_rows = {}
     for name, label, fn, plain, lib_label, lib_fn, nbytes, flops in (
             ("allgather_matmul", "ag_matmul_kernel",
@@ -1862,7 +1939,20 @@ def main():
              elt * (mlp_hidden.numel() + down_b.numel()
                     + mlp_hidden.numel() // n_mlp * down_b.shape[2]
                     // mlp_hidden.shape[2]),
-             2 * mlp_hidden.numel() * down_b.shape[2])):
+             2 * mlp_hidden.numel() * down_b.shape[2]),
+            # The backward's B5a: the cotangent's shape (that of the
+            # hidden) against w_up^T as it lies (K-major, no copy).
+            ("matmul_reduce_scatter (w^T)", "matmul_rs_kernel",
+             lambda: ov.matmul_reduce_scatter(mlp_hidden, up_t, "x",
+                                              mlp_mesh),
+             lambda: ov.matmul_reduce_scatter_plain(mlp_hidden, up_t, "x",
+                                                    mlp_mesh),
+             "torch.matmul(h, w^T).sum(0), two calls",
+             lambda: torch.matmul(mlp_hidden, up_t).sum(0),
+             elt * (mlp_hidden.numel() + up_t.numel()
+                    + mlp_hidden.numel() // n_mlp * up_t.shape[2]
+                    // mlp_hidden.shape[2]),
+             2 * mlp_hidden.numel() * up_t.shape[2])):
         with torch.no_grad():
             ms = timed_kernel(f"{name} kernel", fn, label)
             timed(f"{name} whole call (flags, buffers, kernel)", fn)
@@ -1874,6 +1964,8 @@ def main():
         print(f"  {name} bound {bound:.6f} ms ({bound_by}: {nbytes} bytes "
               f"{t_bytes:.6f} ms, {flops} operations {t_ops:.6f} ms)")
         overlap_rows[name] = (ms, plain_ms, lib_ms, bound, bound_by)
+
+    overlap_probes(ov, make_mesh, gen, x_b, up_b)
 
     x_l, up_l, down_l = mlp_leaves
 

@@ -6,67 +6,89 @@
 //
 // As in ring.cu, the ranks are a world on one card: rank r's operands,
 // outputs, comm slots and flags are its own buffers in device memory, its
-// part of the ring runs as its own thread blocks, and the kernel sees them
-// through a table of per-rank pointers and the ring tables (ring index,
-// right and left flat rank of every rank). A "send to the right neighbour"
-// is a store into that rank's buffer, published with a flag
-// (ring_common.cuh).
+// part of the ring runs as its own thread blocks, and a "send to the right
+// neighbour" is a store into that rank's buffer.
 //
 // B5a, rows [my m/n, (my + 1) m/n) of sum_d X_d @ W_d, step for step as the
-// TPU kernel: rank `my` stages partial(my - 1); at step s = 0 .. n - 2 it
-// pushes its staged running sum into the right neighbour's comm slot
-// s mod 2, computes partial(my - 2 - s) (before it waits: the overlap the
-// TPU kernel is for), waits for the left neighbour's running sum in its
-// own slot, adds tot = comm + partial and stages tot for the next step, or
-// writes it as the output at s = n - 2; then it acks the slot to the left.
-// A slot is reused (s >= 2) only after the right neighbour's ack; the last
-// acks are drained. partial(b) = X[b chunk : (b + 1) chunk] @ W accumulated
-// in f32 and rounded to the element type before the add, and the add is
-// one f32 add rounded once, as the TPU kernel's comm[slot] + p.
+// TPU kernel: rank `my` sends partial(my - 1) to its right neighbour (write
+// 0); at step s = 0 .. n - 2 it computes partial(my - 2 - s) (before it
+// waits: the overlap the TPU kernel is for), takes the left neighbour's
+// running sum (its write s) from its comm slot s mod 2, and stores tot =
+// comm + partial into the right neighbour's slot (s + 1) mod 2 (write
+// s + 1), or as the output at s = n - 2. partial(b) = X[b chunk] @ W
+// accumulated in f32 and rounded to the element type; the add is one f32
+// add rounded once, as the TPU kernel's comm[slot] + p. The add is the
+// epilogue: the slot is read straight into the accumulator layout and tot
+// stored straight into the neighbour's slot, with no staging buffer and no
+// copy or add pass. A slot word carries its data beside the tag of the
+// write that stored it (8 bytes, seen whole or not at all), so the taker
+// polls the words themselves and the writer needs no fence or flag; a slot
+// is written again only after the right neighbour's ack (a release/acquire
+// counter, ring_common.cuh) of its previous contents, asked for before the
+// step's product, off the hand-off's path; the last acks are drained.
 //
-// B5b, gather_rows(X) @ W and the gathered X: rank `my` copies its own x
-// into gx[my]; at step s it forwards chunk my - s into the right
-// neighbour's gx at the same offset (one flag per step) and computes
-// y[my - s] = chunk @ W; after the walk it computes the last chunk,
-// my - (n - 1). y is rounded to the element type per chunk; gx is an exact
-// copy.
+// B5b, gather_rows(X) @ W and the gathered X: at step t = 0 .. n - 1 rank
+// `my` computes y[my - t] = chunk(my - t) @ W, chunk my its own x and every
+// other the one its left neighbour forwarded into its gx at step t - 1; at
+// t < n - 1 it forwards the chunk into the right neighbour's gx (and at
+// t = 0 into its own). y is rounded to the element type; gx is an exact
+// copy. B5b forwards what it staged: each x slab that TMA brought into
+// shared memory for the product is TMA-stored from there into the right
+// neighbour's gx, so each x byte is read once per hop. Once the last slab's
+// stores are complete (cp.async.bulk.wait_group 0, then fence.proxy.async
+// into the generic proxy) the chunk's flag is released, before the last
+// slab's product; a reader fences (fence.proxy.async.global) after its
+// acquire, before its TMA loads.
 //
-// Work division: grid (P, S). Block (r, j) plays rank r on the row strips
-// t = j, j + S, ... of every chunk (strips of 16 rows); each slice is an
-// independent ring with its own flags, and a strip belongs to the same
-// slice on every rank, so a block waits only on the matching block of its
-// left neighbour. Every block spins on flags other blocks set, so all must
-// be resident at once: the launch is cooperative and the wrapper takes S
-// from the occupancy that gtt_overlap_max_blocks reports for these very
-// kernels (their shared memory and registers included); a grid that cannot
-// be resident is refused and the wrapper raises.
+// Work division: one block of one warpgroup per (rank, 64 x 64 output
+// tile): grid (ranks, slices), block (r, j) walks tiles j, j + slices, ...
+// (row tile major), each through the whole ring; slices = tiles where they
+// can all be resident (64 blocks at the fused MLP's shape), fewer where
+// not. Every block spins on what other blocks store, so all must be
+// resident at once: the launch is cooperative, the wrapper takes the grid
+// from gtt_overlap_max_blocks (an occupancy query with the kernels' real
+// dynamic shared memory), and a grid that cannot be resident is refused.
+// B5a's slots and acks are per (rank, tile); B5b's flags per (rank, row
+// tile): the block of column tile 0 forwards the row tile's x, and every
+// column tile of the right neighbour waits only for that flag.
 //
-// The products are computed here, in the block: a strip of 16 rows times
-// 128 columns per pass, each of the 4 warps one 16 x 32 tile, the depth
-// staged through shared memory 256 bytes of a row at a time (bf16 128, f32
-// 64). Both operands are staged as they lie, W row-major, in 16-byte units
-// where strides and alignment allow (element by element otherwise), all of
-// a pass's loads issued before its first store; the mma fragments pack W's
-// depth pairs from shared memory. bf16 runs mma.sync m16n8k16 with f32
-// accumulation; f32 runs FMA in the same fragment layout (no TF32). Rows,
-// columns and depth past the operands' ends are zero-filled and never
-// stored, so chunks of 8 rows, a depth of 16 and any column count are
-// taken.
+// The product: operands are staged in shared memory by TMA
+// (cp.async.bulk.tensor, completing on an mbarrier) in 128-byte "slabs" of
+// depth (bf16 64, f32 32) with the 128-byte swizzle, in a ring of `ring`
+// slab buffers kept up to `ring` slabs ahead of the product, across the
+// chunks of the walk (B5a's x chunks are all local; B5b's next chunk is
+// loaded once its flag is seen). bf16 runs wgmma m64n64k16 with f32
+// accumulators in registers, a slab's 4 k-steps one group, retired one
+// slab behind; W is read as it lies, row-major (MN-major B) or transposed
+// (K-major B: B5b's VJP hands B5a w^T without a copy). f32 keeps full-f32
+// FMA (no TF32) on the same staged slabs, in wgmma's accumulator layout.
+// W's 64-column tile stays in shared memory for the whole walk (loaded
+// once per block and column tile) where its depth is at most 8 slabs
+// (bf16 k <= 512, f32 k <= 256); deeper W streams through the ring beside
+// x. Rows and depth past the operands' ends come in as zeros (TMA's
+// out-of-bounds fill) and are never stored.
+//
+// The wrapper (ops/overlap.py) hands TMA only what it can describe: rows
+// of x, gx and W 16-byte aligned. Other strides (bf16 k or cols not a
+// multiple of 8, f32 not a multiple of 4) are zero-padded in the wrapper.
 //
 // What bounds it on an H100: at the fused MLP's shape (4 ranks, 256 rows
-// per rank, d_model 256, 256 columns per rank, bf16) bytes: B5b reads x and
-// W (1 MB) and writes y and gx (4.2 MB), 1.6 us at 3.35 TB/s, against 0.54
-// GFLOP (0.5 us at 989 TFLOP/s); B5a reads 2.6 MB and writes 0.5 MB, 0.9
-// us. Both are latency-bound: a block's products and ring steps run in
-// sequence (n - 1 flag round trips, each step's product behind the left
-// neighbour's), one block per strip and rank (64 blocks at that shape on
-// 132 SMs), every pass a load-barrier-compute-barrier round with no
-// cp.async/TMA double buffering and no wgmma, and W re-read from L2 for
-// every strip.
+// per rank, d_model 256, 256 columns per rank, bf16) the bytes would take
+// 1.6 us (B5b reads x and W, 1 MB, and writes y and gx, 4.2 MB, at 3.35
+// TB/s; its 0.54 GFLOP take 0.5 us at 989 TFLOP/s) and 0.9 us (B5a reads
+// 2.6 MB and writes 0.5 MB). Neither is near that: both are bound by the
+// ring's chain of n - 1 hand-offs between blocks on different SMs, each a
+// store on one SM seen by a poll on another (microseconds each), behind a
+// tile's product; chip_smoke.py times the kernels over rings of 2 and 8 to
+// split the time into ring steps and the rest. The design keeps each
+// hand-off to one tile's epilogue (B5a) or one tile's loads and stores
+// (B5b), and spreads the products over 64 blocks.
 
+#include <cuda.h>  // CUtensorMap and its enums (types only; no libcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 #include <cstring>
 
@@ -77,45 +99,42 @@ namespace {
 
 using namespace gtt;
 
-constexpr int kThreads = 128;    // 4 warps
-constexpr int kStripRows = 16;   // one mma row tile
-constexpr int kPassCols = 128;   // 4 warps x 32 columns
-// Depth staged in shared memory per pass: 256 bytes of a row (bf16 128,
-// f32 64), so that a pass keeps many loads in flight before its barrier.
-template <typename T>
-constexpr int kDepth = 256 / sizeof(T);
-// Shared row strides (elements) of the staged x strip (kStripRows x depth)
-// and w tile (depth x kPassCols): rows stay 16-byte aligned, and the
-// padding spreads a fragment's loads over the banks.
-template <typename T>
-constexpr int kLdA = kDepth<T> + 8;
-constexpr int kLdB = kPassCols + 8;
+constexpr int kThreads = 128;  // one warpgroup
+constexpr int kTileM = 64;     // wgmma's M
+constexpr int kTileN = 64;     // wgmma's N: one W column tile
+constexpr int kSlabBytes = 128;  // depth bytes per row of a slab
+constexpr int kBufBytes = kTileM * kSlabBytes;  // an x or W slab, 8 KB
+constexpr int kMaxRing = 16;
 
 struct Params {
-  // The peer table: rank r's buffers. x: B5a (n rows, k), B5b (rows, k),
-  // contiguous; w: (k, cols) at element strides w_sk, w_sn; out: B5a
-  // (rows, cols), B5b y (n rows, cols); gx: B5b (n rows, k); stage, comm:
-  // B5a 2 x (rows, cols) each; flags: slices x flag_stride ints.
-  const void* x[kMaxRanks];
-  const void* w[kMaxRanks];
+  // x: B5a (ranks, n, rows, k), B5b (ranks, 1, rows, k); gx: B5b
+  // (ranks, n, rows, k); w: MN-major {cols, k, w ranks} or K-major
+  // {k, cols, w ranks}. All with the 128-byte swizzle.
+  CUtensorMap x;
+  CUtensorMap gx;
+  CUtensorMap w;
+  // The peer table: out B5a (rows, cols), B5b y (n rows, cols); comm B5a
+  // 2 slots of tiles x kTileWords 8-byte words, zeroed; flags tiles x
+  // flag_stride ints, zeroed.
   void* out[kMaxRanks];
-  void* gx[kMaxRanks];
-  void* stage[kMaxRanks];
   void* comm[kMaxRanks];
   int* flags[kMaxRanks];
   int my[kMaxRanks];
   int right[kMaxRanks];
   int left[kMaxRanks];
   int n;
+  int tiles;
+  int col_tiles;
   int flag_stride;
   int rows;  // rows of one chunk
-  int k;
   int cols;
-  long long w_sk;
-  long long w_sn;
+  int slabs;
+  int ring;
+  int w_resident;
+  int w_shared;
 };
 
-// The bits of one element, for cache-global loads and stores.
+// The bits of one element, for stores through L2.
 template <typename T>
 struct Bits;
 template <>
@@ -127,17 +146,6 @@ struct Bits<__nv_bfloat16> {
   using type = unsigned short;
 };
 
-// An element another block may have written during this launch: read
-// through L2 (an SM's L1 is not coherent with stores from other SMs).
-template <typename T>
-__device__ __forceinline__ T load_cg(const T* p) {
-  using B = typename Bits<T>::type;
-  const B b = __ldcg(reinterpret_cast<const B*>(p));
-  T v;
-  memcpy(&v, &b, sizeof(T));
-  return v;
-}
-
 template <typename T>
 __device__ __forceinline__ void store_cg(T* p, T v) {
   using B = typename Bits<T>::type;
@@ -146,366 +154,842 @@ __device__ __forceinline__ void store_cg(T* p, T v) {
   __stcg(reinterpret_cast<B*>(p), b);
 }
 
-__device__ __forceinline__ bool aligned16(const void* a, const void* b) {
-  return ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) &
-          15) == 0;
+// ---- shared memory, mbarriers, TMA ----
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// dst[0, count) = src[0, count), through L2 both ways: 16-byte units where
-// both ends are aligned, then the tail element by element.
-template <typename T>
-__device__ void copy_range(T* dst, const T* src, long long count) {
-  long long done = 0;
-  if (aligned16(dst, src)) {
-    constexpr int kVec = 16 / sizeof(T);
-    const long long units = count / kVec;
-    const uint4* s = reinterpret_cast<const uint4*>(src);
-    uint4* d = reinterpret_cast<uint4*>(dst);
-    for (long long u = threadIdx.x; u < units; u += kThreads) {
-      __stcg(d + u, __ldcg(s + u));
-    }
-    done = units * kVec;
-  }
-  for (long long i = done + threadIdx.x; i < count; i += kThreads) {
-    store_cg(dst + i, load_cg(src + i));
-  }
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
 }
 
-// dst[i] = got[i] + dst[i] over [0, count): one add per element (add1).
-// got is another block's comm slot; dst this block's own staging.
-template <typename T>
-__device__ void add_range(T* dst, const T* got, long long count) {
-  long long done = 0;
-  if (aligned16(dst, got)) {
-    constexpr int kVec = 16 / sizeof(T);
-    const long long units = count / kVec;
-    const uint4* g = reinterpret_cast<const uint4*>(got);
-    uint4* d = reinterpret_cast<uint4*>(dst);
-    for (long long u = threadIdx.x; u < units; u += kThreads) {
-      d[u] = add_units<T>(__ldcg(g + u), d[u]);
-    }
-    done = units * kVec;
-  }
-  for (long long i = done + threadIdx.x; i < count; i += kThreads) {
-    dst[i] = add1(load_cg(got + i), dst[i]);
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Every thread waits for the phase of parity `parity` to complete; traps
+// after ~2 s like the flag spins.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  const long long start = clock64();
+  while (true) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - start > kSpinCycles) __trap();
   }
 }
 
-// dst[0:valid, 0:cols] = a[0:valid, 0:k] @ w, accumulated in f32 and
-// rounded to T. a: contiguous rows of k (read through L2); w: element
-// (kk, c) at w[kk * sk + c * sn]; dst: contiguous rows of cols. Both
-// operands are staged in shared memory as they lie (w row-major), in
-// 16-byte units where the strides and the start allow it, element by
-// element otherwise; the mma fragments of w pack their pairs from there.
-template <typename T>
-__device__ void strip_product(const T* a, int valid, const T* w, long long sk,
-                              long long sn, int k, int cols, T* dst, T* as,
-                              T* bs) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int depth = kDepth<T>, lda = kLdA<T>;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, c = lane % 4;
-  const T zero = from_f32<T>(0.f);
-  const uint4 zeros = make_uint4(0u, 0u, 0u, 0u);
-  const bool vec_a = k % kVec == 0 && aligned16(a, a);
-  const bool vec_w = sn == 1 && sk % kVec == 0 && cols % kVec == 0 &&
-                     aligned16(w, w);
-  for (int n0 = 0; n0 < cols; n0 += kPassCols) {
-    float acc[4][4];
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_addr(dst)),
+      "l"(map), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_addr(dst)),
+      "l"(map), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];" ::"l"(map),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// The bulk stores so far have read their shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+// The bulk stores so far are complete in global memory.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// Orders this thread's async-proxy (TMA) accesses of global memory with
+// its generic ones: after a TMA store before the release flag, after an
+// acquire before a TMA load.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.global;" ::: "memory");
+}
+
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];" ::"l"(map) : "memory");
+}
+
+// ---- flags (ring_common.cuh's counters) ----
+
+__device__ __forceinline__ int ld_relaxed(const int* p) {
+  int v;
+  asm volatile("ld.relaxed.gpu.global.b32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// Thread 0 waits until *a >= ta and, where b is given, *b >= tb: both
+// polled by relaxed loads in flight together, then one acquire fence; the
+// block goes on together. Bounded like ring_common.cuh's wait_flag.
+__device__ __forceinline__ void wait_flags(const int* a, int ta,
+                                           const int* b, int tb) {
+  if (threadIdx.x == 0) {
+    const long long start = clock64();
+    while (true) {
+      const int va = ld_relaxed(a);
+      const int vb = b ? ld_relaxed(b) : tb;
+      if (va >= ta && vb >= tb) break;
+      if (clock64() - start > kSpinCycles) __trap();
     }
-    for (int k0 = 0; k0 < k; k0 += depth) {
-      __syncthreads();  // the previous pass is done with as and bs
-      // All of a pass's loads are issued before the first store to shared
-      // memory, so that they are in flight together.
-      if (vec_a) {
-        constexpr int kPerRow = depth / kVec;
-        constexpr int kLoads = kStripRows * kPerRow / kThreads;
-        uint4 v[kLoads];
+    asm volatile("fence.acq_rel.gpu;" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// The block's stores so far become visible (the barrier, then the
+// release of thread 0's add), then one is added to *a and, where given,
+// to *b.
+__device__ __forceinline__ void publish(int* a, int* b) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    add_release(a, 1);
+    if (b) add_release(b, 1);
+  }
+}
+
+// ---- the product of one slab ----
+
+// A wgmma descriptor of a 128-byte-swizzled tile at shared address `addr`:
+// 8-row groups 1024 bytes apart (SBO; LBO is the same, and unused by these
+// 64-wide tiles).
+__device__ __forceinline__ uint64_t desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1024 >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma.
+__device__ __forceinline__ void fence_acc(float* d) {
 #pragma unroll
-        for (int j = 0; j < kLoads; ++j) {
-          const int i = threadIdx.x + j * kThreads;
-          const int row = i / kPerRow, kk = i % kPerRow * kVec;
-          v[j] = row < valid && k0 + kk < k
-                     ? __ldcg(reinterpret_cast<const uint4*>(
-                           a + static_cast<long long>(row) * k + k0 + kk))
-                     : zeros;
-        }
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d += A (64 x 16, K-major) B (16 x 64), bf16 in, f32 accumulate; B
+// K-major (kTransB 0) or MN-major (1).
+template <int kTransB>
+__device__ __forceinline__ void wgmma_bf16(float* d, uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1), "n"(kTransB));
+}
+
+// Byte offset of byte `b` of line `line` in a 128-byte-swizzled tile.
+__device__ __forceinline__ int swz(int line, int b) {
+  return line * 128 + ((((b >> 4) ^ line) & 7) << 4) + (b & 15);
+}
+
+// The accumulator layout of wgmma m64n64 (and of the f32 path): thread
+// (warp w, lane l) holds rows 16 w + l / 4 + 8 i and columns
+// 8 j + 2 (l % 4) + e at d[4 j + 2 i + e].
+__device__ __forceinline__ int acc_row(int i) {
+  return threadIdx.x / 32 * 16 + threadIdx.x % 32 / 4 + 8 * i;
+}
+__device__ __forceinline__ int acc_col(int j) {
+  return 8 * j + 2 * (threadIdx.x % 4);
+}
+
+// d += a (64 rows x one slab of depth) @ w (that depth x 64 columns).
+// bf16: issues the slab's 4 wgmma k-steps as one group and returns with
+// them in flight (wgmma_wait retires them); f32: FMA, done on return.
+template <typename T, bool kKMajor>
+__device__ __forceinline__ void slab_product(float* d, const uint8_t* a,
+                                             const uint8_t* w) {
+  if constexpr (sizeof(T) == 2) {
+    const uint32_t sa = smem_addr(a), sw = smem_addr(w);
+    __syncwarp();  // wgmma is issued by the converged warpgroup
+    fence_acc(d);
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 #pragma unroll
-        for (int j = 0; j < kLoads; ++j) {
-          const int i = threadIdx.x + j * kThreads;
-          *reinterpret_cast<uint4*>(as + i / kPerRow * lda +
-                                    i % kPerRow * kVec) = v[j];
-        }
-      } else {
-        for (int i = threadIdx.x; i < kStripRows * depth; i += kThreads) {
-          const int row = i / depth, kk = i % depth;
-          as[row * lda + kk] =
-              row < valid && k0 + kk < k
-                  ? load_cg(a + static_cast<long long>(row) * k + k0 + kk)
-                  : zero;
-        }
-      }
-      if (vec_w) {
-        constexpr int kPerRow = kPassCols / kVec;
-        constexpr int kLoads = depth * kPerRow / kThreads;
-        uint4 v[kLoads];
-#pragma unroll
-        for (int j = 0; j < kLoads; ++j) {
-          const int i = threadIdx.x + j * kThreads;
-          const int kk = i / kPerRow, col = i % kPerRow * kVec;
-          v[j] = n0 + col < cols && k0 + kk < k
-                     ? *reinterpret_cast<const uint4*>(w + (k0 + kk) * sk +
-                                                       n0 + col)
-                     : zeros;
-        }
-#pragma unroll
-        for (int j = 0; j < kLoads; ++j) {
-          const int i = threadIdx.x + j * kThreads;
-          *reinterpret_cast<uint4*>(bs + i / kPerRow * kLdB +
-                                    i % kPerRow * kVec) = v[j];
-        }
-      } else {
-        for (int i = threadIdx.x; i < depth * kPassCols; i += kThreads) {
-          const int kk = i / kPassCols, col = i % kPassCols;
-          bs[kk * kLdB + col] =
-              n0 + col < cols && k0 + kk < k
-                  ? w[(k0 + kk) * sk + static_cast<long long>(n0 + col) * sn]
-                  : zero;
-        }
-      }
-      __syncthreads();
-#pragma unroll
-      for (int ks = 0; ks < depth; ks += 16) {
-        if constexpr (sizeof(T) == 2) {
-          const uint32_t af[4] = {ld_u32(as + g * lda + ks + 2 * c),
-                                  ld_u32(as + (g + 8) * lda + ks + 2 * c),
-                                  ld_u32(as + g * lda + ks + 2 * c + 8),
-                                  ld_u32(as + (g + 8) * lda + ks + 2 * c + 8)};
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
-            // Column warp * 32 + nt * 8 + g, depth pairs (2c, 2c + 1) and
-            // (2c + 8, 2c + 9), the lower depth in the low half.
-            const T* b = bs + (ks + 2 * c) * kLdB + warp * 32 + nt * 8 + g;
-            mma_bf16(acc[nt], af, pack_bf16(b[0], b[kLdB]),
-                     pack_bf16(b[8 * kLdB], b[9 * kLdB]));
-          }
-        } else {
+    for (int kk = 0; kk < 4; ++kk) {
+      // 16 of the slab's 64 depths: 32 bytes along a K-major line, 16
+      // lines (2048 bytes) of an MN-major tile.
+      wgmma_bf16<kKMajor ? 0 : 1>(
+          d, desc(sa + kk * 32), desc(sw + (kKMajor ? kk * 32 : kk * 2048)));
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+  } else {
+    static_assert(!kKMajor, "f32 takes W row-major only");
+    // W's slab: two 32-column halves of 32 lines (depths) each.
+    const int r0 = acc_row(0), r1 = acc_row(1);
 #pragma unroll 4
-          for (int kk = ks; kk < ks + 16; ++kk) {
-            const float a0 = to_f32(as[g * lda + kk]);
-            const float a1 = to_f32(as[(g + 8) * lda + kk]);
+    for (int kk = 0; kk < 32; ++kk) {
+      const float a0 = *reinterpret_cast<const float*>(a + swz(r0, kk * 4));
+      const float a1 = *reinterpret_cast<const float*>(a + swz(r1, kk * 4));
 #pragma unroll
-            for (int nt = 0; nt < 4; ++nt) {
-              const T* b = bs + kk * kLdB + warp * 32 + nt * 8 + 2 * c;
-              const float b0 = to_f32(b[0]), b1 = to_f32(b[1]);
-              acc[nt][0] = __fmaf_rn(a0, b0, acc[nt][0]);
-              acc[nt][1] = __fmaf_rn(a0, b1, acc[nt][1]);
-              acc[nt][2] = __fmaf_rn(a1, b0, acc[nt][2]);
-              acc[nt][3] = __fmaf_rn(a1, b1, acc[nt][3]);
-            }
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int col = n0 + warp * 32 + nt * 8 + 2 * c;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = g + 8 * h;
-        if (row >= valid) continue;
-        T* o = dst + static_cast<long long>(row) * cols + col;
-        if (col < cols) o[0] = from_f32<T>(acc[nt][2 * h]);
-        if (col + 1 < cols) o[1] = from_f32<T>(acc[nt][2 * h + 1]);
+      for (int j = 0; j < 8; ++j) {
+        const int col = acc_col(j);
+        const float2 b = *reinterpret_cast<const float2*>(
+            w + (col / 32) * 4096 + swz(kk, (col % 32) * 4));
+        d[4 * j + 0] = __fmaf_rn(a0, b.x, d[4 * j + 0]);
+        d[4 * j + 1] = __fmaf_rn(a0, b.y, d[4 * j + 1]);
+        d[4 * j + 2] = __fmaf_rn(a1, b.x, d[4 * j + 2]);
+        d[4 * j + 3] = __fmaf_rn(a1, b.y, d[4 * j + 3]);
       }
     }
   }
+}
+
+// Waits until at most kPending wgmma groups of the warpgroup are in
+// flight.
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait(float* d) {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(kPending)
+               : "memory");
+  fence_acc(d);
+}
+
+// ---- one block's staging: the slab ring and the resident W ----
+
+template <typename T, bool kRS, bool kKMajor>
+struct Block {
+  static constexpr int kE = kSlabBytes / sizeof(T);  // depths per slab
+  const Params& p;
+  const int r, n, my;
+  uint8_t* w_sm;   // W: `slabs` resident slabs, or `ring` streamed ones
+  uint8_t* a_sm;   // the x ring
+  uint64_t* full;  // [ring]: slab g landed (phase g / ring)
+  uint64_t* w_bar;
+  // The ring, as every thread consumes it: the next buffer and the
+  // parity of its current phase.
+  int cbuf = 0;
+  uint32_t cphase = 0;
+  // Thread 0's loads: the next buffer, step and slab of the tile, slabs
+  // issued in the tile, slabs loadable in the tile, slabs in flight.
+  int ibuf = 0, it = 0, is = 0, issued = 0, ready = 0, pending = 0;
+  int w_loads = 0, w_col = -1;
+  bool w_pending = false, stores_pending = false;
+  int row0 = 0, col0 = 0;
+
+  __device__ Block(const Params& params, uint8_t* smem)
+      : p(params), r(blockIdx.x), n(params.n), my(params.my[blockIdx.x]) {
+    w_sm = smem;
+    a_sm = smem + (p.w_resident ? p.slabs : p.ring) * kBufBytes;
+    full = reinterpret_cast<uint64_t*>(a_sm + p.ring * kBufBytes);
+    w_bar = full + p.ring;
+    if (threadIdx.x == 0) {
+      for (int i = 0; i <= p.ring; ++i) mbar_init(full + i, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+      prefetch_map(&p.x);
+      if (!kRS) prefetch_map(&p.gx);
+      prefetch_map(&p.w);
+    }
+    __syncthreads();
+  }
+
+  // The chunk of step t: B5a partial(my - 1 - t), B5b y[my - t].
+  __device__ int chunk(int t) const {
+    return kRS ? wrap(my - 1 - t, n) : wrap(my - t, n);
+  }
+
+  // Thread 0: W's slab s of the current column tile into dst.
+  __device__ void load_w(uint8_t* dst, int s, uint64_t* bar) const {
+    const int wr = p.w_shared ? 0 : r;
+    if constexpr (kKMajor) {
+      tma_load_3d(dst, &p.w, bar, s * kE, col0, wr);
+    } else {
+#pragma unroll
+      for (int h = 0; h < kTileN / kE; ++h) {
+        tma_load_3d(dst + h * (kBufBytes * kE / kTileN), &p.w, bar,
+                    col0 + h * kE, s * kE, wr);
+      }
+    }
+  }
+
+  // Thread 0: loads slabs until `ring` are in flight or the next one is
+  // not loadable yet.
+  __device__ void pump() {
+    if (threadIdx.x != 0) return;
+    if (issued < ready && pending < p.ring && stores_pending) {
+      bulk_wait_read();  // the ring buffer to refill may still be stored
+      stores_pending = false;
+    }
+    while (issued < ready && pending < p.ring) {
+      uint64_t* bar = full + ibuf;
+      mbar_expect(bar, p.w_resident ? kBufBytes : 2 * kBufBytes);
+      uint8_t* dst = a_sm + ibuf * kBufBytes;
+      if (kRS) {
+        tma_load_4d(dst, &p.x, bar, is * kE, row0, chunk(it), r);
+      } else if (it == 0) {
+        tma_load_4d(dst, &p.x, bar, is * kE, row0, 0, r);
+      } else {
+        tma_load_4d(dst, &p.gx, bar, is * kE, row0, chunk(it), r);
+      }
+      if (!p.w_resident) load_w(w_sm + ibuf * kBufBytes, is, bar);
+      if (++ibuf == p.ring) ibuf = 0;
+      if (++is == p.slabs) {
+        is = 0;
+        ++it;
+      }
+      ++issued;
+      ++pending;
+    }
+  }
+
+  // Starts tile `tile` with its first `steps` steps loadable; loads its W
+  // column tile unless it is resident already.
+  __device__ void begin_tile(int tile, int steps) {
+    row0 = tile / p.col_tiles * kTileM;
+    col0 = tile % p.col_tiles * kTileN;
+    it = is = issued = 0;
+    ready = steps * p.slabs;
+    if (p.w_resident && w_col != col0) {
+      if (threadIdx.x == 0) {
+        mbar_expect(w_bar, p.slabs * kBufBytes);
+        for (int s = 0; s < p.slabs; ++s) {
+          load_w(w_sm + s * kBufBytes, s, w_bar);
+        }
+      }
+      w_col = col0;
+      w_pending = true;
+    }
+    pump();
+  }
+
+  // One more step is loadable (B5b, once its chunk's flag is seen).
+  __device__ void add_step() {
+    ready += p.slabs;
+    pump();
+  }
+
+  // acc = the next step's x tile @ W tile, consuming its slabs; thread 0
+  // calls fwd(slab, s) as each x slab lands.
+  template <typename Fwd>
+  __device__ void product(float* acc, Fwd&& fwd) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    if (w_pending) {
+      mbar_wait(w_bar, w_loads & 1);
+      ++w_loads;
+      w_pending = false;
+    }
+    for (int s = 0; s < p.slabs; ++s) {
+      mbar_wait(full + cbuf, cphase);
+      uint8_t* a = a_sm + cbuf * kBufBytes;
+      if (threadIdx.x == 0) fwd(a, s);
+      slab_product<T, kKMajor>(
+          acc, a, w_sm + (p.w_resident ? s : cbuf) * kBufBytes);
+      if (++cbuf == p.ring) {
+        cbuf = 0;
+        cphase ^= 1;
+      }
+      if constexpr (sizeof(T) == 2) {
+        // The previous slab's wgmma group is done: its buffer is free
+        // while this slab's group runs.
+        if (s > 0) {
+          wgmma_wait<1>(acc);
+          release();
+        }
+      } else {
+        release();
+      }
+    }
+    if constexpr (sizeof(T) == 2) {
+      wgmma_wait<0>(acc);
+      release();
+    }
+  }
+
+  // The oldest buffer in use is free once every thread is done with it;
+  // refill the ring.
+  __device__ void release() {
+    __syncthreads();
+    --pending;
+    pump();
+  }
+};
+
+// Two neighbouring elements (an even column and the next) through L2, as
+// one 4-byte (bf16) or 8-byte (f32) store.
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a,
+                                           float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  unsigned bits;
+  memcpy(&bits, &v, sizeof(bits));
+  __stcg(reinterpret_cast<unsigned*>(p), bits);
+}
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  __stcg(reinterpret_cast<float2*>(p), make_float2(a, b));
+}
+
+// dst's part of the tile = acc rounded to T, dst a (rows, cols) block.
+// Each pair is one store where cols is even (every pair then starts
+// 2-element aligned).
+template <typename T>
+__device__ __forceinline__ void store_tile(T* dst, int row0, int col0,
+                                           int rows, int cols,
+                                           const float* acc) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + acc_row(i);
+    if (row >= rows) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = col0 + acc_col(j), e = 4 * j + 2 * i;
+      if (col >= cols) continue;
+      T* const q = dst + static_cast<long long>(row) * cols + col;
+      if ((cols & 1) == 0) {
+        store_pair(q, acc[e], acc[e + 1]);
+      } else {
+        store_cg(q, from_f32<T>(acc[e]));
+        if (col + 1 < cols) store_cg(q + 1, from_f32<T>(acc[e + 1]));
+      }
+    }
+  }
+}
+
+// ---- B5a's comm slots: data and its write number in one 8-byte word ----
+//
+// A word holds 4 bytes of data in its low half (a bf16 accumulator pair,
+// or one f32 accumulator) and, in its high half, the tag of the write that
+// stored it (the write's number + 1; a slot starts zeroed). An aligned
+// 8-byte store is seen whole or not at all, so a reader that sees the tag
+// sees the data: the write needs no fence and no flag of its own. A slot
+// holds a tile's words in the accumulator layout itself: thread t of the
+// writer stores what thread t of the reader adds, as 16-byte pieces that
+// lie side by side across the warp (kWords / 2 pieces per thread, 128
+// threads apart). Accumulators past the operands' ends hold zeros and go
+// through the slot like the rest; only the output is masked.
+
+template <typename T>
+constexpr int kWords = sizeof(T) == 2 ? 16 : 32;  // words per thread
+
+// Words of one tile in a slot.
+template <typename T>
+constexpr int kTileWords = kWords<T> * kThreads;
+
+template <typename T>
+__device__ __forceinline__ uint64_t word(const float* acc, int k,
+                                         uint32_t tag) {
+  uint32_t data;
+  if constexpr (sizeof(T) == 2) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(acc[2 * k], acc[2 * k + 1]);
+    memcpy(&data, &v, sizeof(data));
+  } else {
+    data = __float_as_uint(acc[k]);
+  }
+  return static_cast<uint64_t>(tag) << 32 | data;
+}
+
+// Stores acc, rounded to T, into the tile's words at dst with tag `tag`.
+template <typename T>
+__device__ __forceinline__ void put_tile(uint64_t* dst, const float* acc,
+                                         uint32_t tag) {
+#pragma unroll
+  for (int k = 0; k < kWords<T>; k += 2) {
+    uint64_t* const q = dst + (k / 2 * kThreads + threadIdx.x) * 2;
+    asm volatile("st.volatile.global.v2.u64 [%0], {%1, %2};" ::"l"(q),
+                 "l"(word<T>(acc, k, tag)), "l"(word<T>(acc, k + 1, tag))
+                 : "memory");
+  }
+}
+
+// Waits until every one of the thread's words of the tile at src carries
+// `tag` (all of them polled by loads in flight together; bounded like the
+// flag spins), then acc = slot + round(acc) in T, one add per element
+// (add1).
+template <typename T>
+__device__ __forceinline__ void take_tile(float* acc, const uint64_t* src,
+                                          uint32_t tag) {
+  uint64_t v[kWords<T>];
+  const long long start = clock64();
+  while (true) {
+    bool ready = true;
+#pragma unroll
+    for (int k = 0; k < kWords<T>; k += 2) {
+      const uint64_t* const q = src + (k / 2 * kThreads + threadIdx.x) * 2;
+      asm volatile("ld.volatile.global.v2.u64 {%0, %1}, [%2];"
+                   : "=l"(v[k]), "=l"(v[k + 1])
+                   : "l"(q)
+                   : "memory");
+    }
+#pragma unroll
+    for (int k = 0; k < kWords<T>; ++k) {
+      ready = ready && static_cast<uint32_t>(v[k] >> 32) == tag;
+    }
+    if (ready) break;
+    if (clock64() - start > kSpinCycles) __trap();
+  }
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    T got;
+    if constexpr (sizeof(T) == 2) {
+      const uint16_t half = static_cast<uint16_t>(v[e / 2] >> (16 * (e & 1)));
+      memcpy(&got, &half, sizeof(got));
+    } else {
+      got = __uint_as_float(static_cast<uint32_t>(v[e]));
+    }
+    acc[e] = to_f32(add1(got, from_f32<T>(acc[e])));
+  }
+}
+
+__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
+  const uint32_t a = smem_addr(raw);
+  return raw + ((1024 - (a & 1023)) & 1023);
 }
 
 // B5a.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) matmul_rs_kernel(const Params p) {
-  __shared__ __align__(16) T as[kStripRows * kLdA<T>];
-  __shared__ __align__(16) T bs[kDepth<T> * kLdB];
-  const int r = blockIdx.x;
-  const int n = p.n, my = p.my[r], right = p.right[r], left = p.left[r];
-  const int rows = p.rows, k = p.k, cols = p.cols;
-  const long long chunk = static_cast<long long>(rows) * cols;
-  const int strips = (rows + kStripRows - 1) / kStripRows;
-  int* const fl_me = p.flags[r] + blockIdx.y * p.flag_stride;
-  int* const fl_right = p.flags[right] + blockIdx.y * p.flag_stride;
-  int* const fl_left = p.flags[left] + blockIdx.y * p.flag_stride;
-  const T* const x = static_cast<const T*>(p.x[r]);
-  const T* const w = static_cast<const T*>(p.w[r]);
+template <typename T, bool kKMajor>
+__global__ void __launch_bounds__(kThreads)
+    matmul_rs_kernel(const __grid_constant__ Params p) {
+  extern __shared__ uint8_t smem_raw[];
+  Block<T, true, kKMajor> b(p, aligned_smem(smem_raw));
+  const int r = blockIdx.x, n = p.n, right = p.right[r], left = p.left[r];
+  const int rows = p.rows, cols = p.cols;
+  const long long slot = static_cast<long long>(p.tiles) * kTileWords<T>;
   T* const out = static_cast<T*>(p.out[r]);
-  T* const stage = static_cast<T*>(p.stage[r]);
-  const T* const comm = static_cast<const T*>(p.comm[r]);
-  T* const peer_comm = static_cast<T*>(p.comm[right]);
-
-  // This block's strips of partial(b) into dst (a (rows, cols) chunk).
-  auto partial = [&](int b, T* dst) {
-    for (int t = blockIdx.y; t < strips; t += gridDim.y) {
-      const int row0 = t * kStripRows;
-      strip_product(x + (static_cast<long long>(b) * rows + row0) * k,
-                    min(kStripRows, rows - row0), w, p.w_sk, p.w_sn, k, cols,
-                    dst + static_cast<long long>(row0) * cols, as, bs);
+  const uint64_t* const comm = static_cast<const uint64_t*>(p.comm[r]);
+  uint64_t* const peer = static_cast<uint64_t*>(p.comm[right]);
+  auto none = [](uint8_t*, int) {};
+  float acc[32];
+  for (int tile = blockIdx.y; tile < p.tiles; tile += gridDim.y) {
+    const long long fo = static_cast<long long>(tile) * p.flag_stride;
+    int* const fl_me = p.flags[r] + fo;
+    int* const fl_right = p.flags[right] + fo;
+    int* const fl_left = p.flags[left] + fo;
+    const long long to = static_cast<long long>(tile) * kTileWords<T>;
+    b.begin_tile(tile, n);
+    // partial(my - 1), rounded, into the right neighbour's slot 0:
+    // write 0.
+    b.product(acc, none);
+    put_tile<T>(peer + to, acc, 1);
+    for (int s = 0; s < n - 1; ++s) {
+      const int j = s + 1;  // this step's write to the right neighbour
+      const bool last = s == n - 2;
+      // The right neighbour's slot j mod 2 is written again only after it
+      // read write j - 2 there: known long before the write, so asked
+      // here, off the hand-off's path.
+      if (!last && j >= 2) {
+        wait_flags(fl_me + kAck + (j & 1), j / 2, nullptr, 0);
+      }
+      b.product(acc, none);  // partial(my - 2 - s), before the wait
+      // The left neighbour's write s, in slot s mod 2.
+      take_tile<T>(acc, comm + (s & 1) * slot + to, s + 1);
+      // The ack's release orders the slot's reads, not this step's write,
+      // which follows it and needs no fence.
+      publish(fl_left + kAck + (s & 1), nullptr);
+      if (last) {
+        store_tile(out, b.row0, b.col0, rows, cols, acc);
+      } else {
+        put_tile<T>(peer + (j & 1) * slot + to, acc, j + 1);
+      }
     }
-  };
-
-  partial(wrap(my - 1, n), stage);
-  ring_barrier(fl_me, fl_left, fl_right);
-
-  for (int s = 0; s < n - 1; ++s) {
-    const int slot = s & 1;
-    // Slot reuse: the right neighbour has emptied it s / 2 times.
-    if (s >= 2) wait_flag(fl_me + kAck + slot, s / 2);
-    for (int t = blockIdx.y; t < strips; t += gridDim.y) {
-      const long long off = static_cast<long long>(t) * kStripRows * cols;
-      copy_range(peer_comm + slot * chunk + off, stage + slot * chunk + off,
-                 min(kStripRows, rows - t * kStripRows) *
-                     static_cast<long long>(cols));
-    }
-    signal_add(fl_right + kFull + slot, 1);
-    // The overlap: this block's partial for the block whose running sum is
-    // on its way from the left neighbour.
-    T* const dst = s == n - 2 ? out : stage + ((s + 1) & 1) * chunk;
-    partial(wrap(my - 2 - s, n), dst);
-    wait_flag(fl_me + kFull + slot, s / 2 + 1);
-    for (int t = blockIdx.y; t < strips; t += gridDim.y) {
-      const long long off = static_cast<long long>(t) * kStripRows * cols;
-      add_range(dst + off, comm + slot * chunk + off,
-                min(kStripRows, rows - t * kStripRows) *
-                    static_cast<long long>(cols));
-    }
-    signal_add(fl_left + kAck + slot, 1);
+    // Drain the acks of the last two writes.
+    wait_flags(fl_me + kAck + ((n - 2) & 1), (n - 2) / 2 + 1,
+               n >= 3 ? fl_me + kAck + ((n - 3) & 1) : nullptr,
+               (n - 3) / 2 + 1);
   }
-  // Drain the acks of the last two steps.
-  if (n >= 3) wait_flag(fl_me + kAck + ((n - 3) & 1), (n - 3) / 2 + 1);
-  wait_flag(fl_me + kAck + ((n - 2) & 1), (n - 2) / 2 + 1);
 }
 
 // B5b.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) ag_matmul_kernel(const Params p) {
-  __shared__ __align__(16) T as[kStripRows * kLdA<T>];
-  __shared__ __align__(16) T bs[kDepth<T> * kLdB];
-  const int r = blockIdx.x;
-  const int n = p.n, my = p.my[r], right = p.right[r], left = p.left[r];
-  const int rows = p.rows, k = p.k, cols = p.cols;
-  const long long xchunk = static_cast<long long>(rows) * k;
-  const int strips = (rows + kStripRows - 1) / kStripRows;
-  int* const fl_me = p.flags[r] + blockIdx.y * p.flag_stride;
-  int* const fl_right = p.flags[right] + blockIdx.y * p.flag_stride;
-  int* const fl_left = p.flags[left] + blockIdx.y * p.flag_stride;
-  const T* const x = static_cast<const T*>(p.x[r]);
-  const T* const w = static_cast<const T*>(p.w[r]);
+template <typename T, bool kKMajor>
+__global__ void __launch_bounds__(kThreads)
+    ag_matmul_kernel(const __grid_constant__ Params p) {
+  extern __shared__ uint8_t smem_raw[];
+  using B = Block<T, false, kKMajor>;
+  B b(p, aligned_smem(smem_raw));
+  const int r = blockIdx.x, n = p.n, my = b.my, right = p.right[r];
+  const int rows = p.rows, cols = p.cols;
   T* const y = static_cast<T*>(p.out[r]);
-  T* const gx = static_cast<T*>(p.gx[r]);
-  T* const peer_gx = static_cast<T*>(p.gx[right]);
-
-  // This block's strips of y[c] = src @ W, src the (rows, k) chunk c.
-  auto dot_chunk = [&](int c, const T* src) {
-    for (int t = blockIdx.y; t < strips; t += gridDim.y) {
-      const int row0 = t * kStripRows;
-      strip_product(src + static_cast<long long>(row0) * k,
-                    min(kStripRows, rows - row0), w, p.w_sk, p.w_sn, k, cols,
-                    y + (static_cast<long long>(c) * rows + row0) * cols, as,
-                    bs);
+  float acc[32];
+  for (int tile = blockIdx.y; tile < p.tiles; tile += gridDim.y) {
+    const int rt = tile / p.col_tiles;
+    const bool forwards = tile % p.col_tiles == 0;
+    const long long fo = static_cast<long long>(rt) * p.col_tiles *
+                         p.flag_stride;
+    int* const fl_me = p.flags[r] + fo;
+    int* const fl_right = p.flags[right] + fo;
+    b.begin_tile(tile, 1);
+    for (int t = 0; t < n; ++t) {
+      if (t > 0) {
+        // Chunk my - t landed in gx (the left neighbour's step t - 1).
+        wait_flags(fl_me + kGather + t - 1, 1, nullptr, 0);
+        if (threadIdx.x == 0) fence_proxy_async();
+        b.add_step();
+      }
+      const int c = wrap(my - t, n);
+      const bool send = forwards && t < n - 1;
+      b.product(acc, [&](uint8_t* slab, int s) {
+        if (!send) return;
+        tma_store_4d(&p.gx, slab, s * B::kE, b.row0, c, right);
+        if (t == 0) tma_store_4d(&p.gx, slab, s * B::kE, b.row0, my, r);
+        bulk_commit();
+        b.stores_pending = true;
+        if (s == p.slabs - 1) {
+          // The chunk is released once its stores are complete, before
+          // the last slab's product. Only thread 0's TMA stores are
+          // published: no block barrier.
+          bulk_wait();
+          fence_proxy_async();
+          b.stores_pending = false;
+          store_release(fl_right + kGather + t, 1);
+        }
+      });
+      store_tile(y + static_cast<long long>(c) * rows * cols, b.row0,
+                 b.col0, rows, cols, acc);
     }
-  };
-  // This block's strips of chunk c of `src` into `dst` at the same offset.
-  auto copy_chunk = [&](T* dst, const T* src) {
-    for (int t = blockIdx.y; t < strips; t += gridDim.y) {
-      const long long off = static_cast<long long>(t) * kStripRows * k;
-      copy_range(dst + off, src + off,
-                 min(kStripRows, rows - t * kStripRows) *
-                     static_cast<long long>(k));
-    }
-  };
-
-  copy_chunk(gx + my * xchunk, x);
-  ring_barrier(fl_me, fl_left, fl_right);
-
-  for (int s = 0; s < n - 1; ++s) {
-    // Chunk my - s is here (own at s = 0, received at step s - 1): forward
-    // it, then its product overlaps the left neighbour's forward.
-    const int c = wrap(my - s, n);
-    const T* const src = s == 0 ? x : gx + c * xchunk;
-    copy_chunk(peer_gx + c * xchunk, src);
-    signal_set(fl_right + kGather + s, 1);
-    dot_chunk(c, src);
-    wait_flag(fl_me + kGather + s, 1);
   }
-  // The last chunk received was never forwarded; compute its product.
-  const int last = wrap(my - (n - 1), n);
-  dot_chunk(last, gx + last * xchunk);
 }
 
-template <typename T>
-cudaError_t launch(bool rs, const Params& p, dim3 grid, cudaStream_t stream) {
-  void* fn = rs ? reinterpret_cast<void*>(matmul_rs_kernel<T>)
-                : reinterpret_cast<void*>(ag_matmul_kernel<T>);
+// ---- host side ----
+
+using EncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                              void*, const cuuint64_t*, const cuuint64_t*,
+                              const cuuint32_t*, const cuuint32_t*,
+                              CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion,
+                              CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (nothing to
+// link).
+cudaError_t encoder(EncodeFn* fn) {
+  static std::atomic<EncodeFn> cached{nullptr};
+  EncodeFn f = cached.load();
+  if (f == nullptr) {
+    void* sym = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &sym, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &sym, cudaEnableDefault, &q);
+#endif
+    if (err != cudaSuccess) return err;
+    if (q != cudaDriverEntryPointSuccess || sym == nullptr) {
+      return cudaErrorNotSupported;
+    }
+    f = reinterpret_cast<EncodeFn>(sym);
+    cached.store(f);
+  }
+  *fn = f;
+  return cudaSuccess;
+}
+
+// A tiled map of `rank` dims (innermost first; strides in bytes of dims
+// 1 ..), 128-byte swizzle, zeros outside the tensor.
+cudaError_t encode(CUtensorMap* map, int dtype, int rank, const void* base,
+                   const cuuint64_t* dims, const cuuint64_t* strides,
+                   const cuuint32_t* box) {
+  EncodeFn fn = nullptr;
+  const cudaError_t err = encoder(&fn);
+  if (err != cudaSuccess) return err;
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  const CUresult res = fn(
+      map,
+      dtype == 0 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+      static_cast<cuuint32_t>(rank), const_cast<void*>(base), dims, strides,
+      box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+int smem_limit() {
+  int dev = 0, bytes = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess) {
+    return 0;
+  }
+  return bytes;
+}
+
+// Each kernel instance is allowed the card's whole opt-in shared memory
+// once per device; the launch then asks for what its plan needs.
+template <typename T, bool kRS, bool kKMajor>
+void* kernel_fn(cudaError_t* err) {
+  static std::atomic<bool> done[kMaxDevices];
+  void* fn = kRS ? reinterpret_cast<void*>(matmul_rs_kernel<T, kKMajor>)
+                 : reinterpret_cast<void*>(ag_matmul_kernel<T, kKMajor>);
+  *err = allow_dynamic_smem(fn, smem_limit(), done);
+  return fn;
+}
+
+template <typename T, bool kKMajor>
+cudaError_t launch(bool rs, const Params& p, dim3 grid, int smem,
+                   cudaStream_t stream) {
+  cudaError_t err = cudaSuccess;
+  void* fn = rs ? kernel_fn<T, true, kKMajor>(&err)
+                : kernel_fn<T, false, kKMajor>(&err);
+  if (err != cudaSuccess) return err;
   void* args[] = {const_cast<Params*>(&p)};
-  const cudaError_t err = cudaLaunchCooperativeKernel(
-      fn, grid, dim3(kThreads), args, 0, stream);
+  err = cudaLaunchCooperativeKernel(fn, grid, dim3(kThreads), args, smem,
+                                    stream);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-// Fills the peer table from per-rank strides (bytes) off base pointers:
-// rank r's buffer is base + r * stride, the layout of one world tensor
-// (stride 0: one buffer shared by every rank).
-int run(bool rs, const void* x, long long x_stride, const void* w,
+// Shared memory of a plan: the W slabs, the x ring, its barriers and the
+// 1024-byte alignment of the swizzled tiles.
+int smem_bytes(int slabs, int ring, int w_resident) {
+  return ((w_resident ? slabs : ring) + ring) * kBufBytes +
+         8 * (ring + 1) + 1024;
+}
+
+// x (ranks, chunks, rows, k) rows x_ld apart, gx (ranks, n, rows, k),
+// w: rank stride (bytes; 0 = shared), element strides w_sk, w_sn.
+int run(bool rs, const void* x, long long x_ld, const void* w,
         long long w_stride, long long w_sk, long long w_sn, void* out,
-        long long out_stride, void* gx, long long gx_stride, void* stage,
-        void* comm, long long slot_stride, int* flags, int flag_stride,
-        const int* my, const int* right, const int* left, int ranks, int n,
-        int slices, int rows, int k, int cols, int dtype, void* stream) {
-  if (ranks < 2 || ranks > kMaxRanks || n < 2 || n > ranks || slices < 1 ||
-      slices > 65535 || rows < 1 || k < 1 || cols < 1 ||
-      flag_stride < kGather + n - 1) {
+        void* gx, void* comm, int* flags, int flag_stride, const int* my,
+        const int* right, const int* left, int ranks, int n, int slices,
+        int rows, int k, int cols, int slabs, int ring, int w_resident,
+        int smem, int dtype, void* stream) {
+  const int elt = dtype == 0 ? 2 : dtype == 1 ? 4 : 0;
+  const int depth = elt ? kSlabBytes / elt : 1;
+  const bool k_major = w_sn != 1 && w_sk == 1;
+  const long long tiles = static_cast<long long>((rows + kTileM - 1) /
+                                                 kTileM) *
+                          ((cols + kTileN - 1) / kTileN);
+  const auto aligned = [](const void* a) {
+    return (reinterpret_cast<uintptr_t>(a) & 15) == 0;
+  };
+  if (elt == 0 || ranks < 2 || ranks > kMaxRanks || n < 2 || n > ranks ||
+      rows < 1 || k < 1 || cols < 1 || x_ld < k || (x_ld * elt) % 16 ||
+      slabs != (k + depth - 1) / depth || ring < 1 || ring > kMaxRing ||
+      slices < 1 || slices > tiles || slices > 65535 ||
+      flag_stride < kGather + n - 1 || smem < smem_bytes(slabs, ring,
+                                                         w_resident) ||
+      (w_sn != 1 && !k_major) || (k_major && elt != 2) ||
+      ((k_major ? w_sn : w_sk) * elt) % 16 || w_stride % 16 ||
+      !aligned(x) || !aligned(w) ||
+      (!rs && (gx == nullptr || !aligned(gx))) || (rs && comm == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;
   memset(&p, 0, sizeof(p));
+  const cuuint64_t e = static_cast<cuuint64_t>(elt);
+  const cuuint64_t line = static_cast<cuuint64_t>(x_ld) * e;
+  const int chunks = rs ? n : 1;
+  const cuuint32_t xbox[4] = {static_cast<cuuint32_t>(depth), kTileM, 1, 1};
+  {
+    const cuuint64_t dims[4] = {static_cast<cuuint64_t>(k),
+                                static_cast<cuuint64_t>(rows),
+                                static_cast<cuuint64_t>(chunks),
+                                static_cast<cuuint64_t>(ranks)};
+    const cuuint64_t strides[3] = {line, line * rows, line * rows * chunks};
+    const cudaError_t err = encode(&p.x, dtype, 4, x, dims, strides, xbox);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (!rs) {
+    const cuuint64_t dims[4] = {static_cast<cuuint64_t>(k),
+                                static_cast<cuuint64_t>(rows),
+                                static_cast<cuuint64_t>(n),
+                                static_cast<cuuint64_t>(ranks)};
+    const cuuint64_t strides[3] = {line, line * rows, line * rows * n};
+    const cudaError_t err = encode(&p.gx, dtype, 4, gx, dims, strides, xbox);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  {
+    const cuuint64_t lead =
+        static_cast<cuuint64_t>(k_major ? w_sn : w_sk) * e;
+    const cuuint64_t outer = static_cast<cuuint64_t>(k_major ? cols : k);
+    const cuuint64_t dims[3] = {static_cast<cuuint64_t>(k_major ? k : cols),
+                                outer,
+                                static_cast<cuuint64_t>(w_stride ? ranks : 1)};
+    const cuuint64_t strides[2] = {
+        lead, w_stride ? static_cast<cuuint64_t>(w_stride) : lead * outer};
+    const cuuint32_t box[3] = {static_cast<cuuint32_t>(depth),
+                               static_cast<cuuint32_t>(k_major ? kTileN
+                                                               : depth),
+                               1};
+    const cudaError_t err = encode(&p.w, dtype, 3, w, dims, strides, box);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   for (int i = 0; i < ranks; ++i) {
     if (my[i] < 0 || my[i] >= n || right[i] < 0 || right[i] >= ranks ||
         left[i] < 0 || left[i] >= ranks) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    p.x[i] = static_cast<const char*>(x) + i * x_stride;
-    p.w[i] = static_cast<const char*>(w) + i * w_stride;
-    p.out[i] = static_cast<char*>(out) + i * out_stride;
-    p.gx[i] = gx ? static_cast<char*>(gx) + i * gx_stride : nullptr;
-    p.stage[i] = stage ? static_cast<char*>(stage) + i * slot_stride : nullptr;
-    p.comm[i] = comm ? static_cast<char*>(comm) + i * slot_stride : nullptr;
-    p.flags[i] = flags + static_cast<long long>(i) * slices * flag_stride;
+    const long long out_rows = rs ? rows : static_cast<long long>(n) * rows;
+    p.out[i] = static_cast<char*>(out) + i * out_rows * cols * elt;
+    const long long words = tiles * kThreads * (elt == 2 ? 16 : 32);
+    p.comm[i] = comm ? static_cast<char*>(comm) + i * 2 * words * 8
+                     : nullptr;
+    p.flags[i] = flags + i * tiles * flag_stride;
     p.my[i] = my[i];
     p.right[i] = right[i];
     p.left[i] = left[i];
   }
   p.n = n;
+  p.tiles = static_cast<int>(tiles);
+  p.col_tiles = (cols + kTileN - 1) / kTileN;
   p.flag_stride = flag_stride;
   p.rows = rows;
-  p.k = k;
   p.cols = cols;
-  p.w_sk = w_sk;
-  p.w_sn = w_sn;
+  p.slabs = slabs;
+  p.ring = ring;
+  p.w_resident = w_resident;
+  p.w_shared = w_stride == 0;
   const dim3 grid(ranks, slices);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return static_cast<int>(launch<__nv_bfloat16>(rs, p, grid, s));
-  if (dtype == 1) return static_cast<int>(launch<float>(rs, p, grid, s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 1) {
+    return static_cast<int>(launch<float, false>(rs, p, grid, smem, s));
+  }
+  return static_cast<int>(
+      k_major ? launch<__nv_bfloat16, true>(rs, p, grid, smem, s)
+              : launch<__nv_bfloat16, false>(rs, p, grid, smem, s));
 }
 
-template <typename Kernel>
-cudaError_t min_blocks(Kernel kernel, int* blocks) {
+template <typename T, bool kRS, bool kKMajor>
+cudaError_t min_blocks(int smem, int* blocks) {
+  cudaError_t err = cudaSuccess;
+  void* fn = kernel_fn<T, kRS, kKMajor>(&err);
   int per_sm = 0;
-  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel, kThreads, 0);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads,
+                                                        smem);
+  }
   if (err == cudaSuccess && per_sm < *blocks) *blocks = per_sm;
   return err;
 }
@@ -514,23 +998,21 @@ cudaError_t min_blocks(Kernel kernel, int* blocks) {
 
 extern "C" {
 
-// Ints of flags each (rank, slice) needs for a ring of n.
+// Ints of flags each (rank, tile) needs for a ring of n.
 int gtt_overlap_flag_stride(int n) { return kGather + (n > 1 ? n - 1 : 1); }
 
-// Rows of one strip: a chunk's strips are spread over the slices.
-int gtt_overlap_strip_rows() { return kStripRows; }
-
-// The most blocks of either kernel, in either type, that can be resident
-// at once on the current device (the cooperative launch's limit), in
-// *blocks. The query sees each kernel's own shared memory and registers.
-int gtt_overlap_max_blocks(int* blocks) {
+// The most blocks of either kernel, in either type and W layout, that can
+// be resident at once on the current device with `smem` bytes of dynamic
+// shared memory each (the cooperative launch's limit), in *blocks.
+int gtt_overlap_max_blocks(int smem, int* blocks) {
+  using bf16 = __nv_bfloat16;
   int per_sm = 1 << 30;
-  cudaError_t err = min_blocks(matmul_rs_kernel<__nv_bfloat16>, &per_sm);
-  if (err == cudaSuccess) err = min_blocks(matmul_rs_kernel<float>, &per_sm);
-  if (err == cudaSuccess) {
-    err = min_blocks(ag_matmul_kernel<__nv_bfloat16>, &per_sm);
-  }
-  if (err == cudaSuccess) err = min_blocks(ag_matmul_kernel<float>, &per_sm);
+  cudaError_t err = min_blocks<bf16, true, false>(smem, &per_sm);
+  if (err == cudaSuccess) err = min_blocks<bf16, true, true>(smem, &per_sm);
+  if (err == cudaSuccess) err = min_blocks<bf16, false, false>(smem, &per_sm);
+  if (err == cudaSuccess) err = min_blocks<bf16, false, true>(smem, &per_sm);
+  if (err == cudaSuccess) err = min_blocks<float, true, false>(smem, &per_sm);
+  if (err == cudaSuccess) err = min_blocks<float, false, false>(smem, &per_sm);
   int device = 0, sms = 0, coop = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&device);
   if (err == cudaSuccess) {
@@ -545,38 +1027,41 @@ int gtt_overlap_max_blocks(int* blocks) {
 }
 
 // Each returns a cudaError_t; 0 is success. dtype: 0 = bf16, 1 = f32.
-// Strides between ranks are in bytes, w_sk and w_sn in elements; rows is
-// the rows of one chunk. my/right/left: host arrays of `ranks` ints.
+// x rows are x_ld elements apart; w_stride is w's rank stride in bytes (0:
+// one w shared by every rank), w_sk and w_sn its element strides (one of
+// them 1); rows is the rows of one chunk; slabs = ceil(k / (128 bytes of
+// depth)), ring the slab buffers, w_resident whether W's column tile stays
+// in shared memory, smem the bytes of dynamic shared memory per block
+// (at least what the plan needs; LaunchPlan.smem in ops/overlap.py).
+// my/right/left: host arrays of `ranks` ints. flags: (ranks, tiles,
+// flag_stride) zeroed ints.
 
-// B5a: x (n rows, k) per rank -> out (rows, cols) per rank; stage and comm
-// hold 2 (rows, cols) slots per rank, slot_stride bytes apart by rank.
-int gtt_matmul_rs(const void* x, long long x_stride, const void* w,
+// B5a: x (n rows, k) per rank -> out (rows, cols) per rank; comm holds 2
+// zeroed slots per rank of tiles x 128 x 16 (bf16) or x 32 (f32) 8-byte
+// words.
+int gtt_matmul_rs(const void* x, long long x_ld, const void* w,
                   long long w_stride, long long w_sk, long long w_sn,
-                  void* out, long long out_stride, void* stage, void* comm,
-                  long long slot_stride, int* flags, int flag_stride,
+                  void* out, void* comm, int* flags, int flag_stride,
                   const int* my, const int* right, const int* left, int ranks,
-                  int n, int slices, int rows, int k, int cols, int dtype,
+                  int n, int slices, int rows, int k, int cols, int slabs,
+                  int ring, int w_resident, int smem, int dtype,
                   void* stream) {
-  if (stage == nullptr || comm == nullptr) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return run(true, x, x_stride, w, w_stride, w_sk, w_sn, out, out_stride,
-             nullptr, 0, stage, comm, slot_stride, flags, flag_stride, my,
-             right, left, ranks, n, slices, rows, k, cols, dtype, stream);
+  return run(true, x, x_ld, w, w_stride, w_sk, w_sn, out, nullptr, comm,
+             flags, flag_stride, my, right, left, ranks, n, slices, rows, k,
+             cols, slabs, ring, w_resident, smem, dtype, stream);
 }
 
-// B5b: x (rows, k) per rank -> y (n rows, cols) and gx (n rows, k) per rank.
-int gtt_ag_matmul(const void* x, long long x_stride, const void* w,
+// B5b: x (rows, k) per rank -> y (n rows, cols) and gx (n rows, k; rows
+// x_ld apart) per rank.
+int gtt_ag_matmul(const void* x, long long x_ld, const void* w,
                   long long w_stride, long long w_sk, long long w_sn, void* y,
-                  long long y_stride, void* gx, long long gx_stride,
-                  int* flags, int flag_stride, const int* my,
+                  void* gx, int* flags, int flag_stride, const int* my,
                   const int* right, const int* left, int ranks, int n,
-                  int slices, int rows, int k, int cols, int dtype,
-                  void* stream) {
-  if (gx == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return run(false, x, x_stride, w, w_stride, w_sk, w_sn, y, y_stride, gx,
-             gx_stride, nullptr, nullptr, 0, flags, flag_stride, my, right,
-             left, ranks, n, slices, rows, k, cols, dtype, stream);
+                  int slices, int rows, int k, int cols, int slabs, int ring,
+                  int w_resident, int smem, int dtype, void* stream) {
+  return run(false, x, x_ld, w, w_stride, w_sk, w_sn, y, gx, nullptr, flags,
+             flag_stride, my, right, left, ranks, n, slices, rows, k, cols,
+             slabs, ring, w_resident, smem, dtype, stream);
 }
 
 const char* gtt_error_string(int err) {

@@ -33,31 +33,98 @@ step in the element type, as the TPU kernel rounds it.
 from __future__ import annotations
 
 import ctypes
-from typing import TYPE_CHECKING
+from typing import TYPE_CHECKING, NamedTuple
 
 import torch
 
 from gloo_tpu_torch import _build
 from gloo_tpu_torch.ops.ring import (KERNEL_DTYPES, KERNEL_MAX_RANKS,
                                      _check_rows, _raise_on, _ring_size,
-                                     _stream, cooperative_grid,
-                                     ring_allgather, ring_allgather_plain)
+                                     _stream, ring_allgather,
+                                     ring_allgather_plain)
 
 if TYPE_CHECKING:
     from gloo_tpu_torch.tpu.mesh import Mesh
 
 _lib: ctypes.CDLL | None = None
-# Most co-resident blocks of the overlap kernels per device index.
-_max_blocks: dict[int, int] = {}
+# Most co-resident blocks of the overlap kernels per (device index, bytes
+# of shared memory per block).
+_max_blocks: dict[tuple[int, int], int] = {}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _IP = ctypes.POINTER(ctypes.c_int)
-_W = [_P, _L, _P, _L, _L, _L]  # x, its rank stride, w, its three strides
-_TAIL = [_IP, _IP, _IP, _I, _I, _I, _I, _I, _I, _I, _P]
+_W = [_P, _L, _P, _L, _L, _L]  # x, its row stride, w, its three strides
+_TAIL = [_IP, _IP, _IP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 _SIGNATURES = {
-    "gtt_matmul_rs": _W + [_P, _L, _P, _P, _L, _P, _I] + _TAIL,
-    "gtt_ag_matmul": _W + [_P, _L, _P, _L, _P, _I] + _TAIL,
+    "gtt_matmul_rs": _W + [_P, _P, _P, _I] + _TAIL,
+    "gtt_ag_matmul": _W + [_P, _P, _P, _I] + _TAIL,
 }
+
+# The kernels' launch plan (csrc/overlap.cu): one block of 128 threads per
+# (rank, TILE_M x TILE_N output tile); operands staged by TMA in slabs of
+# SLAB_BYTES of depth per row; W's column tile resident in shared memory up
+# to MAX_RESIDENT_SLABS slabs deep; a ring of at most MAX_RING x slabs.
+TILE_M = TILE_N = 64
+SLAB_BYTES = 128
+MAX_RESIDENT_SLABS = 8
+MAX_RING = 8
+
+
+class LaunchPlan(NamedTuple):
+    """How one call of B5a or B5b is launched. `w_layout`: "rows" (w as it
+    lies, unit column stride: MN-major), "cols" (a transposed bf16 view as
+    it lies, unit row stride: K-major) or "copy" (copied to rows of w_ld
+    elements, for strides TMA cannot describe). x_ld: x's (and gx's) row
+    stride in the kernel, k or k padded to 16 bytes."""
+    row_tiles: int
+    col_tiles: int
+    slabs: int
+    ring: int
+    w_resident: bool
+    w_layout: str
+    x_ld: int
+    w_ld: int
+
+    @property
+    def tiles(self) -> int:
+        return self.row_tiles * self.col_tiles
+
+    @property
+    def smem(self) -> int:
+        """Bytes of dynamic shared memory per block (smem_bytes in
+        csrc/overlap.cu, which refuses less): the W slabs, the x ring,
+        their mbarriers, 1024-byte alignment."""
+        w_bufs = self.slabs if self.w_resident else self.ring
+        return (w_bufs + self.ring) * TILE_M * SLAB_BYTES \
+            + 8 * (self.ring + 1) + 1024
+
+
+def _round_up(a: int, b: int) -> int:
+    return -(-a // b) * b
+
+
+def launch_plan(dtype: torch.dtype, rows: int, k: int, cols: int,
+                w_strides: tuple[int, int, int],
+                aligned: bool = True) -> LaunchPlan:
+    """The launch plan for chunks of `rows` rows, depth k, `cols` columns,
+    and w's element strides (rank, row, column; rank 0 for a shared w).
+    `aligned`: x's and w's first elements lie on 16-byte boundaries."""
+    elt = torch.tensor([], dtype=dtype).element_size()
+    vec = 16 // elt  # elements per 16 bytes: TMA's stride unit
+    slabs = -(-k // (SLAB_BYTES // elt))
+    w_resident = slabs <= MAX_RESIDENT_SLABS
+    ring = min(2 * slabs, MAX_RING) if w_resident else MAX_RING
+    rank, sk, sn = w_strides
+    w_ok = aligned and rank % vec == 0
+    if w_ok and dtype == torch.bfloat16 and sk == 1 and sn != 1 \
+            and sn % vec == 0:
+        layout, w_ld = "cols", sn
+    elif w_ok and sn == 1 and sk % vec == 0:
+        layout, w_ld = "rows", sk
+    else:
+        layout, w_ld = "copy", _round_up(cols, vec)
+    return LaunchPlan(-(-rows // TILE_M), -(-cols // TILE_N), slabs, ring,
+                      w_resident, layout, _round_up(k, vec), w_ld)
 
 
 def _overlap_lib() -> ctypes.CDLL:
@@ -68,12 +135,10 @@ def _overlap_lib() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        lib.gtt_overlap_max_blocks.argtypes = [_IP]
+        lib.gtt_overlap_max_blocks.argtypes = [_I, _IP]
         lib.gtt_overlap_max_blocks.restype = ctypes.c_int
         lib.gtt_overlap_flag_stride.argtypes = [_I]
         lib.gtt_overlap_flag_stride.restype = ctypes.c_int
-        lib.gtt_overlap_strip_rows.argtypes = []
-        lib.gtt_overlap_strip_rows.restype = ctypes.c_int
         lib.gtt_error_string.argtypes = [_I]
         lib.gtt_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -100,34 +165,79 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.float(), b.float()).to(a.dtype)
 
 
-def _launch_setup(x: torch.Tensor, mesh: Mesh, axis_name: str, rows: int):
-    """(lib, slices, zeroed flags, flag stride, ctypes ring tables). The
-    slices take a chunk's 16-row strips in turn."""
-    if x.dtype not in KERNEL_DTYPES:
-        raise TypeError(f"the overlap kernels take bf16 or f32, got "
-                        f"{x.dtype}")
-    if x.shape[0] > KERNEL_MAX_RANKS:
-        raise ValueError(f"the overlap kernels take at most "
-                         f"{KERNEL_MAX_RANKS} ranks, got {x.shape[0]}")
-    lib = _overlap_lib()
-    stride = lib.gtt_overlap_flag_stride(mesh.shape[axis_name])
-    slices, flags, tables = cooperative_grid(
-        x, mesh, axis_name, lib, lib.gtt_overlap_max_blocks, _max_blocks,
-        -(-rows // lib.gtt_overlap_strip_rows()), stride)
-    return lib, slices, flags, stride, tables
-
-
 def _kernel_w(w: torch.Tensor) -> torch.Tensor:
-    """w as the kernels stage it fastest: unit column stride (a transposed
-    view, such as B5b's VJP hands B5a, is copied once). A shared weight
-    expanded with rank stride 0 stays one buffer."""
-    return w if w.stride(2) == 1 else w.contiguous()
+    """w as the kernels take it: bf16 as it lies (wgmma reads a transposed
+    view, such as B5b's VJP hands B5a, as K-major); f32 with unit column
+    stride (a transposed view is copied once). A shared weight expanded
+    with rank stride 0 stays one buffer."""
+    return w if w.stride(2) == 1 or w.dtype == torch.bfloat16 \
+        else w.contiguous()
 
 
 def _w_strides(w: torch.Tensor) -> tuple[int, int, int]:
     """w's rank stride in bytes (0 for a shared weight) and its row and
     column strides in elements."""
     return w.stride(0) * w.element_size(), w.stride(1), w.stride(2)
+
+
+def _plan(x: torch.Tensor, w: torch.Tensor, rows: int):
+    """(x, w, plan): the kernels' operands as the plan stages them. x is
+    contiguous, its rows padded to x_ld where k * element size is not a
+    multiple of 16 bytes; w is copied to rows of w_ld elements where TMA
+    cannot describe it as it lies (one copy for a shared w)."""
+    x, w = x.contiguous(), _kernel_w(w)
+    k, cols = w.shape[1], w.shape[2]
+    aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    plan = launch_plan(x.dtype, rows, k, cols,
+                       (w.stride(0), w.stride(1), w.stride(2)), aligned)
+    if plan.x_ld != k or x.data_ptr() % 16:
+        padded = x.new_zeros((*x.shape[:2], plan.x_ld))
+        padded[..., :k] = x
+        x = padded
+    if plan.w_layout == "copy":
+        src = w[:1] if w.stride(0) == 0 else w
+        padded = w.new_zeros((src.shape[0], k, plan.w_ld))
+        padded[..., :cols] = src
+        w = padded[..., :cols].expand(x.shape[0], -1, -1)
+    return x, w, plan
+
+
+def _launch_setup(x: torch.Tensor, mesh: Mesh, axis_name: str,
+                  plan: LaunchPlan):
+    """(lib, slices, flag stride, ctypes ring tables): each rank's tiles
+    spread over as many slices as can be resident beside the other ranks'
+    (all of them at the fused MLP's shape)."""
+    if x.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"the overlap kernels take bf16 or f32, got "
+                        f"{x.dtype}")
+    ranks = x.shape[0]
+    if ranks > KERNEL_MAX_RANKS:
+        raise ValueError(f"the overlap kernels take at most "
+                         f"{KERNEL_MAX_RANKS} ranks, got {ranks}")
+    lib = _overlap_lib()
+    stride = lib.gtt_overlap_flag_stride(mesh.shape[axis_name])
+    index = x.device.index if x.device.index is not None \
+        else torch.cuda.current_device()
+    key = (index, plan.smem)
+    if key not in _max_blocks:
+        resident = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            _raise_on(lib.gtt_overlap_max_blocks(plan.smem,
+                                                 ctypes.byref(resident)),
+                      "occupancy query", lib)
+        _max_blocks[key] = resident.value
+    per_rank = _max_blocks[key] // ranks
+    if per_rank < 1:
+        raise RuntimeError(f"{ranks} ranks need {ranks} co-resident blocks "
+                           f"of {plan.smem} bytes of shared memory; the "
+                           f"card holds {_max_blocks[key]}")
+    tables = [(ctypes.c_int * ranks)(*t)
+              for t in mesh.ring_neighbors(axis_name)]
+    return lib, min(per_rank, plan.tiles), stride, tables
+
+
+def _plan_args(plan: LaunchPlan) -> tuple[int, int, int, int]:
+    return plan.slabs, plan.ring, int(plan.w_resident), plan.smem
 
 
 # ---- B5a: matmul fused with the ring reduce-scatter ----
@@ -142,25 +252,38 @@ def _matmul_rs(x: torch.Tensor, w: torch.Tensor, axis_name: str,
         return _dot(x, w)
     if x.device.type == "cpu":
         return matmul_reduce_scatter_plain(x, w, axis_name, mesh)
-    x, w = x.contiguous(), _kernel_w(w)
     rows = m // n
-    out = torch.empty((ranks, rows, cols), dtype=x.dtype, device=x.device)
-    stage = torch.empty((ranks, 2, rows, cols), dtype=x.dtype,
-                        device=x.device)
-    comm = torch.empty_like(stage)
-    lib, slices, flags, stride, (my, right, left) = _launch_setup(
-        x, mesh, axis_name, rows)
-    elt = x.element_size()
+    x, w, plan = _plan(x, w, rows)
+    lib, slices, stride, (my, right, left) = _launch_setup(
+        x, mesh, axis_name, plan)
+    out, comm, flags = _rs_buffers(x, rows, cols, plan.tiles,
+                                   plan.tiles * stride)
     with torch.cuda.device(x.device):
         err = lib.gtt_matmul_rs(
-            x.data_ptr(), m * k * elt, w.data_ptr(), *_w_strides(w),
-            out.data_ptr(), rows * cols * elt, stage.data_ptr(),
-            comm.data_ptr(), 2 * rows * cols * elt, flags.data_ptr(), stride,
+            x.data_ptr(), plan.x_ld, w.data_ptr(), *_w_strides(w),
+            out.data_ptr(), comm.data_ptr(), flags.data_ptr(), stride,
             my, right, left, ranks, n, slices, rows, k, cols,
-            KERNEL_DTYPES[x.dtype], _stream(x))
+            *_plan_args(plan), KERNEL_DTYPES[x.dtype], _stream(x))
     _raise_on(err, "matmul_reduce_scatter", lib)
     matmul_reduce_scatter.launches += 1
     return out
+
+
+def _rs_buffers(x: torch.Tensor, rows: int, cols: int, tiles: int,
+                flag_ints: int):
+    """B5a's buffers: the output (P, rows, cols); per rank two comm slots
+    (P, 2, tiles * 128 threads * words): a tile's accumulators as 8-byte
+    words (16 per thread in bf16, a pair in each; 32 in f32), each beside
+    the tag of the write that stored it; and `flag_ints` int32 flags per
+    rank. Slots and flags are zeroed by one fill of one buffer."""
+    ranks = x.shape[0]
+    words = tiles * 128 * (16 if x.element_size() == 2 else 32)
+    flags = ranks * flag_ints
+    buf = torch.zeros(ranks * 2 * words + -(-flags // 2), dtype=torch.int64,
+                      device=x.device)
+    out = torch.empty((ranks, rows, cols), dtype=x.dtype, device=x.device)
+    return (out, buf[:ranks * 2 * words].view(ranks, 2, words),
+            buf[ranks * 2 * words:].view(torch.int32)[:flags])
 
 
 class _MatmulReduceScatter(torch.autograd.Function):
@@ -237,22 +360,23 @@ def allgather_matmul_fwd(x: torch.Tensor, w: torch.Tensor, axis_name: str,
         return _dot(x, w), x
     if x.device.type == "cpu":
         return allgather_matmul_plain(x, w, axis_name, mesh)
-    x, w = x.contiguous(), _kernel_w(w)
+    x, w, plan = _plan(x, w, rows)
     y = torch.empty((ranks, n * rows, cols), dtype=x.dtype, device=x.device)
-    gx = torch.empty((ranks, n * rows, k), dtype=x.dtype, device=x.device)
-    lib, slices, flags, stride, (my, right, left) = _launch_setup(
-        x, mesh, axis_name, rows)
-    elt = x.element_size()
+    gx = torch.empty((ranks, n * rows, plan.x_ld), dtype=x.dtype,
+                     device=x.device)
+    lib, slices, stride, (my, right, left) = _launch_setup(
+        x, mesh, axis_name, plan)
+    flags = torch.zeros(ranks * plan.tiles * stride, dtype=torch.int32,
+                        device=x.device)
     with torch.cuda.device(x.device):
         err = lib.gtt_ag_matmul(
-            x.data_ptr(), rows * k * elt, w.data_ptr(), *_w_strides(w),
-            y.data_ptr(), n * rows * cols * elt, gx.data_ptr(),
-            n * rows * k * elt, flags.data_ptr(), stride, my, right, left,
-            ranks, n, slices, rows, k, cols, KERNEL_DTYPES[x.dtype],
-            _stream(x))
+            x.data_ptr(), plan.x_ld, w.data_ptr(), *_w_strides(w),
+            y.data_ptr(), gx.data_ptr(), flags.data_ptr(), stride, my,
+            right, left, ranks, n, slices, rows, k, cols, *_plan_args(plan),
+            KERNEL_DTYPES[x.dtype], _stream(x))
     _raise_on(err, "allgather_matmul", lib)
     allgather_matmul.launches += 1
-    return y, gx
+    return y, (gx if plan.x_ld == k else gx[..., :k].contiguous())
 
 
 class _AllgatherMatmul(torch.autograd.Function):

@@ -314,6 +314,113 @@ def test_wrappers_reject_what_they_do_not_take():
                                       "x", mesh)
 
 
+# ---- the launch plan (what Python decides for the kernels) ----
+
+@pytest.mark.parametrize("case", ["mlp", "mlp_wT", "rows8", "cols100",
+                                  "f32_k36", "deep"])
+def test_launch_plan(case):
+    """The plan at the fused MLP's shapes (B5b and B5a, and B5a with the
+    transposed w of B5b's VJP), at 8-row chunks and at cols 100: 64 x 64
+    tiles (4 x 4 at the MLP), W resident up to 8 slabs, a transposed bf16
+    w taken as it lies, strides TMA cannot describe padded."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    dtype, rows, k, cols, strides, want = {
+        "mlp": (bf16, 256, 256, 256, (65536, 256, 1),
+                (4, 4, 4, 8, True, "rows", 256, 256)),
+        "mlp_wT": (bf16, 256, 256, 256, (65536, 1, 256),
+                   (4, 4, 4, 8, True, "cols", 256, 256)),
+        "rows8": (bf16, 8, 16, 128, (2048, 128, 1),
+                  (1, 2, 1, 2, True, "rows", 16, 128)),
+        "cols100": (bf16, 20, 40, 100, (4000, 100, 1),
+                    (1, 2, 1, 2, True, "copy", 40, 104)),
+        "f32_k36": (f32, 20, 36, 100, (3600, 100, 1),
+                    (1, 2, 2, 4, True, "rows", 36, 100)),
+        "deep": (bf16, 64, 1024, 128, (0, 128, 1),
+                 (1, 2, 16, 8, False, "rows", 1024, 128)),
+    }[case]
+    plan = overlap.launch_plan(dtype, rows, k, cols, strides)
+    assert tuple(plan) == want
+    assert plan.tiles == want[0] * want[1]
+    w_bufs = plan.slabs if plan.w_resident else plan.ring
+    assert plan.smem == (w_bufs + plan.ring) * 8192 + 8 * (plan.ring + 1) \
+        + 1024
+    if case == "mlp":
+        assert 4 * plan.tiles == 64  # blocks at the MLP's shape, 4 ranks
+
+
+def test_launch_plan_pads_what_tma_cannot_describe():
+    """bf16 k 36 (72-byte rows) pads x to 40; a transposed bf16 w with a
+    ragged stride, or an f32 one, is copied to padded rows; a shared w
+    (rank stride 0) stays shared; an unaligned start is copied."""
+    plan = overlap.launch_plan(torch.bfloat16, 8, 36, 64, (0, 64, 1))
+    assert (plan.x_ld, plan.w_layout) == (40, "rows")
+    plan = overlap.launch_plan(torch.bfloat16, 8, 36, 64, (2304, 1, 36))
+    assert (plan.w_layout, plan.w_ld) == ("copy", 64)
+    plan = overlap.launch_plan(torch.float32, 8, 32, 64, (2048, 1, 32))
+    assert plan.w_layout == "copy"
+    plan = overlap.launch_plan(torch.bfloat16, 8, 32, 64, (2048, 64, 1),
+                               aligned=False)
+    assert plan.w_layout == "copy"
+
+
+def test_plan_stages_operands_as_the_kernels_take_them():
+    """_plan's padded copies hold the operands' values, zeros beside them;
+    a shared w stays one buffer (rank stride 0)."""
+    x = torch.from_numpy(_rand((3, 60, 36), 60)).bfloat16()
+    w = torch.from_numpy(_rand((1, 36, 100), 61)).bfloat16() \
+        .expand(3, -1, -1)
+    xs, ws, plan = overlap._plan(x, w, 20)
+    assert xs.shape == (3, 60, 40) and torch.equal(xs[..., :36], x)
+    assert not xs[..., 36:].any()
+    assert ws.shape == w.shape and ws.stride() == (0, 104, 1)
+    assert torch.equal(ws, w) and plan.w_layout == "copy"
+    x32 = torch.from_numpy(_rand((3, 60, 36), 62))
+    w32 = torch.from_numpy(_rand((3, 36, 100), 63))
+    xs, ws, plan = overlap._plan(x32, w32, 20)
+    assert xs is x32 and ws is w32 and plan.w_layout == "rows"
+
+
+def test_kernel_w_takes_a_transposed_bf16_w_as_a_view():
+    """B5b's VJP hands B5a w^T: bf16 goes through as the view (wgmma reads
+    it K-major); f32 is still copied to unit column stride."""
+    w = torch.from_numpy(_rand((4, 32, 48), 64))
+    for dtype in (torch.bfloat16, torch.float32):
+        wt = w.to(dtype).transpose(1, 2)
+        got = overlap._kernel_w(wt)
+        if dtype == torch.bfloat16:
+            assert got is wt
+        else:
+            assert got.is_contiguous() and got.data_ptr() != wt.data_ptr()
+            assert torch.equal(got, wt)
+    shared = w[:1].expand(4, -1, -1)
+    assert overlap._kernel_w(shared) is shared
+
+
+def test_matmul_reduce_scatter_allocates_no_stage():
+    """B5a's buffers are the output, the two comm slots per rank that the
+    left neighbour's epilogue fills (8-byte words: a tile's accumulators
+    beside their write's tag, 16 per thread in bf16, 32 in f32) and the
+    flags, slots and flags zeroed by one fill: no staging buffer. The
+    kernel's C signature takes no stage pointer either."""
+    x = torch.zeros((4, 1024, 256), dtype=torch.bfloat16)
+    bufs = overlap._rs_buffers(x, 256, 256, 16, 100)
+    assert len(bufs) == 3
+    out, comm, flags = bufs
+    assert out.shape == (4, 256, 256) and out.dtype == torch.bfloat16
+    assert comm.shape == (4, 2, 16 * 128 * 16) and comm.dtype == torch.int64
+    assert flags.shape == (400,) and flags.dtype == torch.int32
+    assert not comm.any() and not flags.any()
+    assert comm.untyped_storage().data_ptr() == \
+        flags.untyped_storage().data_ptr()
+    f32 = overlap._rs_buffers(x.float(), 20, 99, 2, 7)
+    assert f32[1].shape == (4, 2, 2 * 128 * 32) and f32[2].shape == (28,)
+    # x, x_ld, w and its strides, out, comm, flags, stride, the ring
+    # tables, ranks, n, slices, rows, k, cols, the plan's four, dtype,
+    # stream.
+    assert len(overlap._SIGNATURES["gtt_matmul_rs"]) == 25
+    assert len(overlap._SIGNATURES["gtt_ag_matmul"]) == 25
+
+
 # ---- on the card ----
 
 @pytest.fixture
@@ -331,33 +438,63 @@ def _ulps_close(a, b):
     return float((a.float() - b.float()).abs().max()) <= 2 * ulp
 
 
+# (n, rows of a B5a chunk, k, cols, dtype, shared w, transposed w): the
+# first six are the small rings of 8-row chunks, then chunk rows that are
+# not multiples of 64, the fused MLP's full bf16 shape, its B5a with the
+# transposed w of B5b's VJP, a shared (rank stride 0) w, and n = 8 at a
+# deeper k.
+CARD_CASES = [
+    (2, 8, 16, 128, torch.float32, False, False),
+    (3, 8, 16, 128, torch.float32, False, False),
+    (4, 8, 16, 128, torch.float32, False, False),
+    (8, 8, 16, 128, torch.float32, False, False),
+    (4, 8, 16, 128, torch.bfloat16, False, False),
+    (8, 8, 16, 128, torch.bfloat16, False, False),
+    (3, 8, 40, 100, torch.bfloat16, False, False),
+    (3, 20, 36, 100, torch.float32, False, False),
+    (2, 100, 64, 160, torch.bfloat16, False, False),
+    (4, 256, 256, 256, torch.bfloat16, False, False),
+    (4, 256, 256, 256, torch.bfloat16, False, True),
+    (4, 64, 256, 256, torch.bfloat16, True, False),
+    (8, 64, 128, 128, torch.bfloat16, False, False),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,dtype", [(2, torch.float32), (3, torch.float32),
-                                     (4, torch.float32), (8, torch.float32),
-                                     (4, torch.bfloat16), (8, torch.bfloat16)])
-def test_kernels_match_twins_on_card(cuda_device, n, dtype):
+@pytest.mark.parametrize("n,rows,k,cols,dtype,shared,transposed", CARD_CASES)
+def test_kernels_match_twins_on_card(cuda_device, n, rows, k, cols, dtype,
+                                     shared, transposed):
+    """Each case three times in a row: an ordering fault between the TMA
+    stores, the flags and the loads shows as a result that differs now and
+    then."""
     mesh = make_mesh({"x": n}, devices=[cuda_device] * n)
-    gen = torch.Generator(cuda_device).manual_seed(n)
-    x = torch.randn((n, 8 * n, 16), generator=gen, device=cuda_device)
-    w = torch.randn((n, 16, 128), generator=gen, device=cuda_device)
-    x, w = x.to(dtype), w.to(dtype)
-    before = overlap.matmul_reduce_scatter.launches
-    out = overlap.matmul_reduce_scatter(x, w, "x", mesh)
-    ref = overlap.matmul_reduce_scatter_plain(x, w, "x", mesh)
-    torch.cuda.synchronize()
-    assert overlap.matmul_reduce_scatter.launches == before + 1
-    if dtype == torch.float32:
-        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    gen = torch.Generator(cuda_device).manual_seed(n * rows + k)
+    x = torch.randn((n, n * rows, k), generator=gen, device=cuda_device)
+    if transposed:
+        w = torch.randn((n, cols, k), generator=gen, device=cuda_device) \
+            .transpose(1, 2)
     else:
-        assert _ulps_close(out, ref)
-    xs = x[:, :8]
-    before = overlap.allgather_matmul.launches
-    y, gx = overlap.allgather_matmul_fwd(xs, w, "x", mesh)
-    ry, rgx = overlap.allgather_matmul_plain(xs, w, "x", mesh)
-    torch.cuda.synchronize()
-    assert overlap.allgather_matmul.launches == before + 1
-    assert torch.equal(gx, rgx)
-    if dtype == torch.float32:
-        torch.testing.assert_close(y, ry, rtol=1e-5, atol=1e-5)
-    else:
-        assert _ulps_close(y, ry)
+        w = torch.randn((1 if shared else n, k, cols), generator=gen,
+                        device=cuda_device).expand(n, -1, -1)
+    x, w = x.to(dtype), (w / k ** 0.5).to(dtype)
+    xs = x[:, :rows].contiguous()
+    for _ in range(3):
+        before = overlap.matmul_reduce_scatter.launches
+        out = overlap.matmul_reduce_scatter(x, w, "x", mesh)
+        ref = overlap.matmul_reduce_scatter_plain(x, w, "x", mesh)
+        torch.cuda.synchronize()
+        assert overlap.matmul_reduce_scatter.launches == before + 1
+        if dtype == torch.float32:
+            torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+        else:
+            assert _ulps_close(out, ref)
+        before = overlap.allgather_matmul.launches
+        y, gx = overlap.allgather_matmul_fwd(xs, w, "x", mesh)
+        ry, rgx = overlap.allgather_matmul_plain(xs, w, "x", mesh)
+        torch.cuda.synchronize()
+        assert overlap.allgather_matmul.launches == before + 1
+        assert torch.equal(gx, rgx)
+        if dtype == torch.float32:
+            torch.testing.assert_close(y, ry, rtol=1e-5, atol=1e-5)
+        else:
+            assert _ulps_close(y, ry)
