@@ -20,7 +20,10 @@ Phases, each of which raises on failure:
      and of the forward and the training step;
   8. the ring kernels (allreduce, reduce-scatter, allgather) against their
      plain versions on the card, bitwise, over worlds of 2 to 8 ranks on
-     the card (RING_CASES), the torus composition on a 2 x 2 mesh;
+     the card (RING_CASES), the DDP buffer and the torus composition on a
+     2 x 2 mesh; the allreduce and the reduce-scatter (one-pass member-order
+     sums) three times in a row at each case and along each axis of the
+     2 x 2 mesh;
   9. the group path: CudaProcessGroup over a world of 4 ranks on the card,
      every collective against its closed form, with the ring kernels'
      launch counts read around it;
@@ -85,8 +88,11 @@ Phases, each of which raises on failure:
      against their closed forms (sum and 2 n sum); B10's error on the real
      gradient buffer of a DDP step, printed;
  22. times of B9, B10 and B11 at the path's shape against their bound,
-     plain versions, B3 at the same shape and the library yardstick, and
-     of B9 and B3 at 64 MiB per rank.
+     plain versions, B3 at the same shape and the library yardstick; of
+     B9, B3 and B4a at 64 MiB per rank (B3 and B4a also whole calls,
+     plain versions and yardsticks); and of B3 and B4a at the DDP shape
+     and at 64 MiB per rank with SUM_PROBE_UNITS units per thread (the
+     slice count of their launch).
 The line before the last is the JSON list of kernels; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or gloo_tpu.
 """
@@ -282,8 +288,14 @@ Q8_REL = 0.05
 # B9 and B11 (and their gradients) against the f64 closed form, max |y -
 # exact| / max |exact|: f32 adds of n values in ring order.
 VARIANT_RTOL = 1e-5
-# B9's large-shard case: rows of 256 f32 per rank, 64 MiB.
+# B9's, B3's and B4a's large-shard case: rows of 256 f32 per rank, 64 MiB.
 BIG_ROWS = 65536
+# Units per thread that phase 22 tries for B3 and B4a (the wrapper's
+# ring.SUM_UNITS_PER_THREAD sets the slices of their launch from it).
+SUM_PROBE_UNITS = (1, 2, 4, 8, 16)
+# Calls of each ring kernel in a row against its plain version (an
+# ordering fault between flags and data shows now and then).
+RING_RUNS = 3
 
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -487,18 +499,20 @@ def check_bwd(attn, name, b, h, h_kv, t, d, dtype, causal, gen):
     return worst, ok
 
 
-def ring_check(label, fn, plain, x, axis, mesh, want=None):
-    """One ring kernel against its plain version on the card: (output,
-    max |kernel - plain|, list of what failed). Every rank of a ring must
-    also end bitwise equal to the first rank of its ring where the
-    function says so (all but the reduce-scatter); `want` is the exact
-    result where there is one (the allgather's), else the f64 sum is shown
-    beside for information."""
-    out = fn(x, axis, mesh)
+def ring_check(label, fn, plain, x, axis, mesh, want=None, runs=1):
+    """One ring kernel against its plain version on the card, `runs`
+    calls in a row, each held against it: (output, max |kernel - plain|,
+    list of what failed). Every rank of a ring must also end bitwise equal
+    to the first rank of its ring where the function says so (all but the
+    reduce-scatter); `want` is the exact result where there is one (the
+    allgather's), else the f64 sum is shown beside for information."""
+    outs = [fn(x, axis, mesh) for _ in range(runs)]
     torch.cuda.synchronize()
+    out = outs[0]
     ref = plain(x, axis, mesh)
-    diff = float((out.float() - ref.float()).abs().max())
-    failed = [] if torch.equal(out, ref) else ["differs from its plain version"]
+    diff = max(float((o.float() - ref.float()).abs().max()) for o in outs)
+    failed = [] if all(torch.equal(o, ref) for o in outs) \
+        else ["differs from its plain version"]
     if fn.__name__ != "ring_reduce_scatter":
         first = [m[0] for m in mesh.ring_members(axis)]
         if not torch.equal(out, out[first]):
@@ -516,7 +530,8 @@ def ring_check(label, fn, plain, x, axis, mesh, want=None):
                 torch.arange(x.shape[0]), idx]
         shown = f", vs the f64 sum {float((out.double() - exact).abs().max()):.3e}"
     print(f"{fn.__name__} {label}: {x.shape[0]} ranks of "
-          f"{tuple(x.shape[1:])} {str(x.dtype)[6:]}: max |kernel - plain| "
+          f"{tuple(x.shape[1:])} {str(x.dtype)[6:]}, ring {axis!r} of "
+          f"{mesh.shape[axis]}, {runs} run(s): max |kernel - plain| "
           f"{diff:.3e}{shown}{'; FAILED: ' + ', '.join(failed) if failed else ''}")
     return out, diff, failed
 
@@ -1359,19 +1374,62 @@ def variant_times(ring, paths, card):
             rows[name] = (ms, plain_ms, None if name == "q8" else lib, bound,
                           bound_by)
         big = torch.randn((ranks, BIG_ROWS, x.shape[2]), device="cuda")
-        big_bytes = 2 * ranks * big[0].numel() * big.element_size()
+        per_big = big[0].numel() * big.element_size()
+        big_bytes = 2 * ranks * per_big
         big_bound, by = _bound(big_bytes, 0, torch.float32)
-        print(f"B9 at 64 MiB per rank ({ranks} x {tuple(big.shape[1:])} "
-              f"f32), bound {big_bound:.6f} ms ({by}: {big_bytes} bytes):")
+        print(f"B9 and B3 at 64 MiB per rank ({ranks} x "
+              f"{tuple(big.shape[1:])} f32), bound {big_bound:.6f} ms ({by}: "
+              f"{big_bytes} bytes):")
         timed_kernel("ring_allreduce_hbm kernel, 64 MiB per rank",
                      lambda: ring.ring_allreduce_hbm(big, "data", mesh),
                      "hbm_kernel")
-        timed_kernel("ring_allreduce (B3) kernel, 64 MiB per rank",
-                     lambda: ring.ring_allreduce(big, "data", mesh),
-                     "ring_kernel")
-        timed("yardstick x.sum(0) then expand(P).contiguous(), 64 MiB per "
-              "rank", lambda: big.sum(0).expand(ranks, -1, -1).contiguous())
+        for fn, plain, lib_label, lib_fn, nbytes in (
+                (ring.ring_allreduce, ring.ring_allreduce_plain,
+                 "x.sum(0) then expand(P).contiguous(), two calls",
+                 lambda: big.sum(0).expand(ranks, -1, -1).contiguous(),
+                 big_bytes),
+                (ring.ring_reduce_scatter, ring.ring_reduce_scatter_plain,
+                 "x.sum(0)", lambda: big.sum(0), ranks * per_big + per_big)):
+            name = fn.__name__
+            timed_kernel(f"{name} kernel, 64 MiB per rank",
+                         lambda fn=fn: fn(big, "data", mesh), "ring_kernel")
+            timed(f"{name} whole call (output, flags, kernel), 64 MiB per "
+                  f"rank", lambda fn=fn: fn(big, "data", mesh))
+            timed(f"{name} plain, 64 MiB per rank",
+                  lambda plain=plain: plain(big, "data", mesh), iters=3)
+            timed(f"{name} yardstick {lib_label}, 64 MiB per rank", lib_fn)
+            bound, by = _bound(nbytes, 0, torch.float32)
+            print(f"  {name} bound at 64 MiB per rank {bound:.6f} ms ({by}: "
+                  f"{nbytes} bytes)")
+        # What the card's memory gives B3's mix of bytes (P S read, P S
+        # written) in one PyTorch call: the ceiling under the bound.
+        timed("a copy of the same bytes, x.clone(), 64 MiB per rank",
+              lambda: big.clone())
+        sum_probes(ring, big, mesh)
     return rows
+
+
+def sum_probes(ring, big, mesh):
+    """Phase 22: B3 and B4a at the DDP shape (4 x 1,738,000 f32) and at 64
+    MiB per rank with each of SUM_PROBE_UNITS units per thread, the slice
+    count of their launch (ring.SUM_UNITS_PER_THREAD, restored after)."""
+    ranks = big.shape[0]
+    ddp = torch.randn((ranks, ranks, 434500), device="cuda")
+    chosen = ring.SUM_UNITS_PER_THREAD
+    print(f"B3 and B4a by units per thread (the wrapper's choice "
+          f"{chosen}); slices per rank at most "
+          f"{next(iter(ring._max_blocks.values())) // ranks}:")
+    try:
+        for units in SUM_PROBE_UNITS:
+            ring.SUM_UNITS_PER_THREAD = units
+            for label, x in (("DDP shape", ddp), ("64 MiB per rank", big)):
+                for fn in (ring.ring_allreduce, ring.ring_reduce_scatter):
+                    timed_kernel(f"{fn.__name__} kernel, {label}, {units} "
+                                 f"units per thread",
+                                 lambda fn=fn, x=x: fn(x, "data", mesh),
+                                 "ring_kernel")
+    finally:
+        ring.SUM_UNITS_PER_THREAD = chosen
 
 
 def main():
@@ -1628,7 +1686,7 @@ def main():
                           (ring.ring_reduce_scatter,
                            ring.ring_reduce_scatter_plain)):
             failed += [f"{fn.__name__} {name}: {f}" for f in ring_check(
-                name, fn, plain, x, "x", mesh)[2]]
+                name, fn, plain, x, "x", mesh, runs=RING_RUNS)[2]]
         xs = x[:, :n_rows // n]
         failed += [f"ring_allgather {name}: {f}" for f in ring_check(
             name, ring.ring_allgather, ring.ring_allgather_plain, xs, "x",
@@ -1643,19 +1701,26 @@ def main():
     grads = torch.randn((DDP_WORLD, DDP_WORLD, width // DDP_WORLD),
                         generator=gen, device="cuda")
     ring_err = {}
-    for fn, plain, x, want in (
-            (ring.ring_allreduce, ring.ring_allreduce_plain, grads, None),
+    for fn, plain, x, want, runs in (
+            (ring.ring_allreduce, ring.ring_allreduce_plain, grads, None,
+             RING_RUNS),
             (ring.ring_reduce_scatter, ring.ring_reduce_scatter_plain, grads,
-             None),
+             None, RING_RUNS),
             (ring.ring_allgather, ring.ring_allgather_plain, grads[:, :1],
              grads[:, 0].reshape(1, DDP_WORLD, -1).expand(DDP_WORLD, -1,
-                                                           -1))):
+                                                           -1), 1)):
         _, diff, bad = ring_check("ddp", fn, plain, x, "data", ddp_mesh,
-                                  want)
+                                  want, runs)
         ring_err[fn.__name__] = diff
         failed += [f"{fn.__name__} ddp: {f}" for f in bad]
     torus_mesh = make_mesh({"y": 2, "x": 2}, devices=[dev] * 4)
     z = torch.randn((4, 8, 128), generator=gen, device="cuda")
+    for axis in ("y", "x"):
+        for fn, plain in ((ring.ring_allreduce, ring.ring_allreduce_plain),
+                          (ring.ring_reduce_scatter,
+                           ring.ring_reduce_scatter_plain)):
+            failed += [f"{fn.__name__} 2x2 {axis}: {f}" for f in ring_check(
+                "2x2", fn, plain, z, axis, torus_mesh, runs=RING_RUNS)[2]]
     before = (ring.ring_reduce_scatter.launches, ring.ring_allgather.launches)
     out = ring.ring_allreduce_torus(z, ("x", "y"), torus_mesh)
     torch.cuda.synchronize()
@@ -1808,7 +1873,7 @@ def main():
         name = fn.__name__
         ms = timed_kernel(f"{name} kernel",
                           lambda: fn(x, "data", ddp_mesh), "ring_kernel")
-        timed(f"{name} whole call (flags, buffers, kernel)",
+        timed(f"{name} whole call (output, flags, kernel)",
               lambda: fn(x, "data", ddp_mesh))
         plain_ms = timed(f"{name} plain",
                          lambda: plain(x, "data", ddp_mesh), iters=5)

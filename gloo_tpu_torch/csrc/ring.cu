@@ -6,65 +6,84 @@
 //   B4a _ring_reduce_scatter_kernel  (ring_reduce_scatter)  gtt_ring_reduce_scatter
 //   B4b _ring_allgather_kernel       (ring_allgather)       gtt_ring_allgather
 //
-// The ranks are a world on one card: rank r's input, output, two comm
-// slots and flags are its own buffers in device memory, and its part of
-// the ring runs as its own thread blocks. The kernel sees them only
-// through a table of per-rank pointers and the ring tables (ring index,
-// right and left flat rank of every rank), so a launch over more than one
-// card needs only a table built from peer-mapped memory, flags at system
-// scope (.sys in place of .gpu below) and one cooperative launch per card.
+// The ranks are a world on one card: rank r's input, output and flags are
+// its own buffers in device memory, and its part of the collective runs as
+// its own thread blocks. The kernel sees them only through a table of
+// per-rank pointers and the ring tables, so a launch over more than one card
+// needs a table built from peer-mapped memory (and more: see the end of
+// this note).
 //
-// What the TPU kernels do, and this one does the same, step for step:
-//   - an entry barrier with both neighbours;
-//   - reduce-scatter, n - 1 steps: push chunk (my - shift - s) mod n into
-//     the right neighbour's comm slot s mod 2, wait for the own slot to
-//     fill, add it into chunk (my - shift - s - 1) mod n (own + received,
-//     one add per step in the input type), ack the left neighbour. A slot
-//     is reused (s >= 2) only after the right neighbour's ack; the acks are
-//     drained at the end, which also shows that the right neighbour has
-//     finished its reduce-scatter before anyone writes into its output;
-//   - allgather, n - 1 steps: forward chunk (first - s) mod n verbatim into
-//     the right neighbour's output at the same offset, one flag per step
-//     (a shared flag would let a neighbour a step ahead release the wait
-//     before the matching chunk landed).
-// B3 runs both phases (shift 0, first = my + 1); B4a the first with start
-// shift 1 so that chunk r ends on rank r; B4b the second (first = my) on an
-// output laid out by rank. Since the allgather forwards finished chunks
-// verbatim, every rank of a B3 ring ends bitwise equal.
+// B3 and B4a: one pass in member order. The TPU kernels are shaped for a
+// torus of chips, where a chip reaches only its neighbours: they copy the
+// input into VMEM, then at each of n - 1 steps DMA a chunk into the right
+// neighbour's comm slot, wait for the left one's and add. On Hopper every
+// rank's input already lies in device memory that every SM reads, and the
+// cards of a host are joined all to all through NVSwitch, not in a ring. So
+// the rank that finishes chunk c reads chunk c of every member of its ring
+// itself, adds them up and writes the result: each input byte is read once
+// and each output byte written once, with one barrier in place of the
+// ring's 2 (n - 1) + 1 hand-offs, and no comm slot and no working copy.
 //
-// Work division: grid (P, S). Block (r, j) plays rank r on slice j of every
-// chunk; each slice is an independent ring with its own flags, so no block
-// waits for another block of its own rank. Every block spins on flags that
+// The sums stay the ring's. The ring fixes the order in which chunk c is
+// added up, and one rank walks the members in that same order. With ring
+// indices mod n and in_k the input of the member with ring index k:
+//   B3 (chunk c starts raw on c and is finished on c - 1):
+//     sum_c = in_{c-1}[c] + (in_{c-2}[c] + ( ... + (in_{c+1}[c] + in_c[c])))
+//     and every member's output chunk c is sum_c;
+//   B4a (start shift 1: chunk c starts on c + 1 and is finished on c):
+//     sum_c = in_c[c] + (in_{c-1}[c] + ( ... + (in_{c+2}[c] + in_{c+1}[c])))
+//     and rank c's output is sum_c.
+// In both, the rank with ring index `my` walks members my + 1, my + 2, ...,
+// my + n = my, its own input last, and finishes chunk my + 1 (B3) or my
+// (B4a). Each + is add1 of ring_common.cuh, one add in the element type
+// (bf16 and f16 in f32 rounded back after every add, f32 and f64 IEEE
+// without contraction, int32 and int64 wrapping), as the TPU kernel's
+// o_ref + comm_ref and the plain twins in gloo_tpu_torch/ops/ring.py do.
+// IEEE addition is commutative, so only the nesting matters: results are
+// bitwise the twins', and B3's outputs bitwise equal on every rank.
+//
+// B4b keeps the ring's schedule: its own input into place, an entry barrier
+// with both neighbours, then n - 1 steps that forward chunk (my - s) mod n
+// verbatim into the right neighbour's output at the same offset, one flag
+// per step (a shared flag would let a neighbour a step ahead release the
+// wait before the matching chunk landed). Data another block wrote there is
+// read with ld.global.cg: an SM's L1 is not coherent with stores from other
+// SMs.
+//
+// Work division: grid (P, S). Block (r, j) plays rank r on slice j of its
+// chunk (B3, B4a) or of every chunk (B4b); each slice has its own flags, so
+// no block waits for another block of its own rank. In B3 and B4a each
+// thread folds kUnroll units per pass and starts the loads of kGroup
+// members (kGroup x kUnroll 16-byte loads) before it adds any of them: at
+// n >= 4, 32 KB in flight per block and four blocks per SM (kUnroll 4
+// takes 116 registers and leaves room for two). Blocks spin on flags that
 // other blocks set, so all must be resident at once: the launch is
 // cooperative (cudaLaunchCooperativeKernel refuses a grid that cannot be),
-// and the wrapper takes S from the occupancy that gtt_ring_max_blocks
-// reports. Every spin is bounded: after ~2 s of clock64() the block traps,
-// so a protocol fault surfaces as a CUDA error, not a hung card.
+// the wrapper takes S from the occupancy that gtt_ring_max_blocks reports,
+// and every spin is bounded (~2 s of clock64(), then __trap), so a protocol
+// fault surfaces as a CUDA error, not a hung card. The flag helpers are in
+// ring_common.cuh.
 //
-// Memory order (the flag helpers are in ring_common.cuh, shared with
-// overlap.cu): a sender's threads store into the peer's buffer, then
-// __syncthreads(), then one thread fences and publishes with a release
-// (red.release.gpu / st.release.gpu). A receiver's thread 0 spins on an
-// acquire load, then __syncthreads(). Data another block wrote (comm slots,
-// and in the allgather the chunks a neighbour wrote into this rank's
-// output) is read with ld.global.cg: an SM's L1 is not coherent with
-// stores from other SMs, and B3 reads comm slot 0 at step 0 and again at
-// step 2.
+// What bounds them on an H100: bytes, and B3 and B4a now move exactly the
+// bound's count. B3 reads n chunks of every rank's input and writes n
+// copies of every finished chunk: 2 P S at 3.35 TB/s for S bytes per rank
+// (0.0166 ms at the DDP gradient shape, P = 4, 6.95 MB per rank); B4a
+// reads P S and writes S (P S + S). There is no arithmetic to speak of
+// (n - 1 adds per element). B3 and B4a read the inputs through the
+// non-coherent path (ld.global.nc): nothing writes them during the launch,
+// and each output unit is written by exactly one block. B4b still carries
+// each chunk through n - 1 hand-offs.
 //
-// What bounds it on an H100: bytes. Each rank's input must be read once
-// and its output written once (B3 at the DDP gradient shape, P = 4 and
-// 6.95 MB per rank: 2 P S = 55.6 MB at 3.35 TB/s = 0.0166 ms); there is no
-// arithmetic to speak of (P - 1 adds per element). The design makes one
-// pass of loads and stores per ring step with 16-byte accesses where the
-// chunk allows them; each reduce-scatter step also carries the chunk
-// through a comm slot (one store and one load more than the bound counts),
-// and every step costs a flag round trip between blocks.
+// On one card the entry barrier of B3 and B4a is not needed for the result:
+// stream order completes every rank's input before the launch. Across
+// cards (ROADMAP A.7) a peer's input is complete only once that peer has
+// entered, and the launch must add: loads through peer-mapped pointers,
+// flags at system scope (.sys in place of .gpu), one cooperative launch
+// per card, and an exit barrier among the members before a rank may reuse
+// its input (a peer may still be reading it) or read B3's output (peers
+// write into it).
 //
-// Numerics: one add per step in the input type (add1 in ring_common.cuh:
-// bf16 and f16 in f32 rounded once, f32 and f64 IEEE without contraction,
-// int32 and int64 wrapping), as the TPU kernel's o_ref + comm_ref and the
-// plain twin in gloo_tpu_torch/ops/ring.py do, so kernel and twin agree
-// bitwise. B3 and B4a take bf16, f16, f32, f64, int32 and int64. B4b only
+// Types: B3 and B4a take bf16, f16, f32, f64, int32 and int64. B4b only
 // moves bytes, so it takes any type: its instances are by unit width (16,
 // 8, 4, 2 or 1 bytes), not by element type.
 
@@ -81,31 +100,93 @@ namespace {
 using namespace gtt;
 
 constexpr int kThreads = 256;
+// B3 and B4a: units each thread folds per pass, and members whose loads
+// start together.
+constexpr int kUnroll = 2;
+constexpr int kGroup = 4;
 
 enum Mode { kAllreduce = 0, kReduceScatter = 1, kAllgather = 2 };
 
 struct Params {
   // The peer table: rank r's buffers. in: n chunks (B3, B4a) or one (B4b);
-  // out: n chunks (B3, B4b) or one (B4a); work: B4a's working copy;
-  // comm: two slots of one chunk; flags: slices x flag_stride ints.
+  // out: n chunks (B3, B4b) or one (B4a); flags: slices x flag_stride ints.
   const void* in[kMaxRanks];
   void* out[kMaxRanks];
-  void* work[kMaxRanks];
-  void* comm[kMaxRanks];
   int* flags[kMaxRanks];
   int my[kMaxRanks];
-  int right[kMaxRanks];
-  int left[kMaxRanks];
+  int right[kMaxRanks];                         // B4b
+  int left[kMaxRanks];                          // B4b
+  unsigned char members[kMaxRanks][kMaxRanks];  // B3, B4a: ring index -> rank
   int n;
   int flag_stride;
   long long chunk;  // units (16-byte vectors or single elements) per chunk
 };
 
-// T: element type; U: the unit of access (uint4, or the element's bits).
-// The allgather only copies units, and its instances take T = U.
+// B3 and B4a: block (r, j) sums slice j of the chunk rank r finishes over
+// the members of r's ring, in the ring's order, and stores it into rank r's
+// output (B4a) or into that chunk of every member's output (B3).
 template <typename T, typename U, int kMode>
-__global__ void __launch_bounds__(kThreads)
-ring_kernel(const Params p) {
+__device__ __forceinline__ void member_sum(const Params& p) {
+  const int r = blockIdx.x;
+  const int n = p.n, my = p.my[r];
+  const unsigned char* const ring = p.members[r];
+  const long long chunk = p.chunk;
+  const long long lo = chunk * blockIdx.y / gridDim.y;
+  const long long hi = chunk * (blockIdx.y + 1) / gridDim.y;
+  const long long off =
+      (kMode == kAllreduce ? wrap(my + 1, n) : my) * chunk;
+  const long long flag = blockIdx.y * p.flag_stride + kBarrier;
+
+  members_barrier(p.flags[r] + flag, n, [&](int k) {
+    return p.flags[ring[wrap(my + k, n)]] + flag;
+  });
+
+  for (long long base = lo + threadIdx.x; base < hi;
+       base += kThreads * kUnroll) {
+    U acc[kUnroll];
+    for (int k0 = 0; k0 < n; k0 += kGroup) {
+      U v[kGroup][kUnroll];
+#pragma unroll
+      for (int g = 0; g < kGroup; ++g) {
+        if (k0 + g < n) {
+          const U* const src =
+              static_cast<const U*>(p.in[ring[wrap(my + 1 + k0 + g, n)]]) +
+              off + base;
+#pragma unroll
+          for (int i = 0; i < kUnroll; ++i) {
+            if (base + i * kThreads < hi) v[g][i] = __ldg(src + i * kThreads);
+          }
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < kGroup; ++g) {
+#pragma unroll
+        for (int i = 0; i < kUnroll; ++i) {
+          if (k0 + g < n && base + i * kThreads < hi) {
+            acc[i] = k0 + g == 0 ? v[g][i] : add_units<T>(v[g][i], acc[i]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kUnroll; ++i) {
+      const long long u = base + i * kThreads;
+      if (u >= hi) continue;
+      if (kMode == kReduceScatter) {
+        static_cast<U*>(p.out[r])[u] = acc[i];
+      } else {
+        for (int k = 0; k < n; ++k) {
+          static_cast<U*>(p.out[ring[k]])[off + u] = acc[i];
+        }
+      }
+    }
+  }
+}
+
+// B4b: rank r's own chunk into place, then n - 1 ring steps forwarding
+// chunk (my - s) mod n to the right neighbour.
+template <typename U>
+__device__ __forceinline__ void ring_gather(const Params& p) {
   const int r = blockIdx.x;
   const int n = p.n, my = p.my[r], right = p.right[r], left = p.left[r];
   const long long chunk = p.chunk;
@@ -117,69 +198,33 @@ ring_kernel(const Params p) {
   int* const fl_left = p.flags[left] + blockIdx.y * p.flag_stride;
   const U* const in = static_cast<const U*>(p.in[r]);
   U* const out = static_cast<U*>(p.out[r]);
-  // The buffer the reduce-scatter accumulates in.
-  U* const acc = static_cast<U*>(kMode == kReduceScatter ? p.work[r]
-                                                         : p.out[r]);
 
-  // Own input into place: every chunk (B3, B4a), or chunk `my` (B4b).
-  if (kMode == kAllgather) {
-    for (long long u = t0; u < hi; u += kThreads) {
-      out[my * chunk + u] = in[u];
-    }
-  } else {
-    for (int c = 0; c < n; ++c) {
-      for (long long u = t0; u < hi; u += kThreads) {
-        acc[c * chunk + u] = in[c * chunk + u];
-      }
-    }
-  }
+  for (long long u = t0; u < hi; u += kThreads) out[my * chunk + u] = in[u];
 
   ring_barrier(fl_me, fl_left, fl_right);
 
-  if constexpr (kMode != kAllgather) {
-    const int shift = kMode == kReduceScatter ? 1 : 0;
-    U* const slots = static_cast<U*>(p.comm[r]);
-    U* const peer_slots = static_cast<U*>(p.comm[right]);
-    for (int s = 0; s < n - 1; ++s) {
-      const int slot = s & 1;
-      // Slot reuse: the right neighbour has emptied it s / 2 times.
-      if (s >= 2) wait_flag(fl_me + kAck + slot, s / 2);
-      const U* src = acc + wrap(my - shift - s, n) * chunk;
-      U* dst = peer_slots + slot * chunk;
-      for (long long u = t0; u < hi; u += kThreads) {
-        __stcg(dst + u, __ldcg(src + u));
-      }
-      signal_add(fl_right + kFull + slot, 1);
-      wait_flag(fl_me + kFull + slot, s / 2 + 1);
-      U* mine = acc + wrap(my - shift - s - 1, n) * chunk;
-      const U* got = slots + slot * chunk;
-      for (long long u = t0; u < hi; u += kThreads) {
-        __stcg(mine + u, add_units<T>(__ldcg(mine + u), __ldcg(got + u)));
-      }
-      signal_add(fl_left + kAck + slot, 1);
-    }
-    // Drain the acks of the last two steps.
-    if (n >= 3) wait_flag(fl_me + kAck + ((n - 3) & 1), (n - 3) / 2 + 1);
-    wait_flag(fl_me + kAck + ((n - 2) & 1), (n - 2) / 2 + 1);
-  }
-
-  if (kMode == kReduceScatter) {
-    for (long long u = t0; u < hi; u += kThreads) {
-      out[u] = __ldcg(acc + my * chunk + u);
-    }
-    return;
-  }
-
-  // Allgather: rank r holds the finished chunk `first` and forwards.
-  const int first = kMode == kAllreduce ? my + 1 : my;
   U* const peer_out = static_cast<U*>(p.out[right]);
   for (int s = 0; s < n - 1; ++s) {
-    const long long off = wrap(first - s, n) * chunk;
+    const long long off = wrap(my - s, n) * chunk;
     for (long long u = t0; u < hi; u += kThreads) {
       __stcg(peer_out + off + u, __ldcg(out + off + u));
     }
     signal_set(fl_right + kGather + s, 1);
     wait_flag(fl_me + kGather + s, 1);
+  }
+}
+
+// T: element type; U: the unit of access (uint4, or the element's bits).
+// The allgather only copies units, and its instances take T = U. The peer
+// table stays in parameter space (__grid_constant__: indexing it takes no
+// copy into local memory).
+template <typename T, typename U, int kMode>
+__global__ void __launch_bounds__(kThreads)
+ring_kernel(const __grid_constant__ Params p) {
+  if constexpr (kMode == kAllgather) {
+    ring_gather<U>(p);
+  } else {
+    member_sum<T, U, kMode>(p);
   }
 }
 
@@ -222,56 +267,62 @@ void* kernel_for(int dtype, int vec) {
   return nullptr;
 }
 
-template <int kMode>
-cudaError_t launch_mode(const Params& p, int dtype, int vec, dim3 grid,
-                        cudaStream_t stream) {
-  void* fn = kernel_for<kMode>(dtype, vec);
-  if (fn == nullptr) return cudaErrorInvalidValue;
-  void* args[] = {const_cast<Params*>(&p)};
-  const cudaError_t err = cudaLaunchCooperativeKernel(
-      fn, grid, dim3(kThreads), args, 0, stream);
-  return err != cudaSuccess ? err : cudaGetLastError();
-}
-
-// Fills the peer table from per-rank strides (bytes) off base pointers:
-// rank r's buffer is base + r * stride, the layout of one world tensor.
-int run(int mode, const void* in, long long in_stride, void* out,
-        long long out_stride, void* work, long long work_stride, void* comm,
-        long long comm_stride, int* flags, int flag_stride, const int* my,
-        const int* right, const int* left, int ranks, int n, int slices,
-        long long chunk, int dtype, int vec, void* stream) {
+// Checks the sizes and fills the per-rank part of the peer table: rank r's
+// buffers are base + r * stride (bytes), the layout of one world tensor.
+bool fill(Params& p, const void* in, long long in_stride, void* out,
+          long long out_stride, int* flags, int flag_stride, const int* my,
+          int ranks, int n, int slices, long long chunk) {
   if (ranks < 2 || ranks > kMaxRanks || n < 2 || n > ranks || slices < 1 ||
-      chunk < 1 || flag_stride < kGather + n - 1 || slices > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
+      slices > 65535 || chunk < 1 || flag_stride < 1) {
+    return false;
   }
-  Params p;
   memset(&p, 0, sizeof(p));
   for (int r = 0; r < ranks; ++r) {
-    if (my[r] < 0 || my[r] >= n || right[r] < 0 || right[r] >= ranks ||
-        left[r] < 0 || left[r] >= ranks) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
+    if (my[r] < 0 || my[r] >= n) return false;
     p.in[r] = static_cast<const char*>(in) + r * in_stride;
     p.out[r] = static_cast<char*>(out) + r * out_stride;
-    p.work[r] = work ? static_cast<char*>(work) + r * work_stride : nullptr;
-    p.comm[r] = comm ? static_cast<char*>(comm) + r * comm_stride : nullptr;
     p.flags[r] = flags + static_cast<long long>(r) * slices * flag_stride;
     p.my[r] = my[r];
-    p.right[r] = right[r];
-    p.left[r] = left[r];
   }
   p.n = n;
   p.flag_stride = flag_stride;
   p.chunk = chunk;
-  const dim3 grid(ranks, slices);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (mode == kAllreduce) err = launch_mode<kAllreduce>(p, dtype, vec, grid, s);
-  if (mode == kReduceScatter) {
-    err = launch_mode<kReduceScatter>(p, dtype, vec, grid, s);
-  }
-  if (mode == kAllgather) err = launch_mode<kAllgather>(p, dtype, vec, grid, s);
+  return true;
+}
+
+int launch(void* fn, const Params& p, int ranks, int slices, void* stream) {
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  void* args[] = {const_cast<Params*>(&p)};
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      fn, dim3(ranks, slices), dim3(kThreads), args, 0,
+      static_cast<cudaStream_t>(stream));
+  if (err == cudaSuccess) err = cudaGetLastError();
   return static_cast<int>(err);
+}
+
+// B3 and B4a: members is ranks x n flat ranks, row r the ring of rank r in
+// ring order; rank r must be entry my[r] of its own row.
+int run_sum(int mode, const void* in, long long in_stride, void* out,
+            long long out_stride, int* flags, int flag_stride, const int* my,
+            const int* members, int ranks, int n, int slices,
+            long long chunk, int dtype, int vec, void* stream) {
+  Params p;
+  if (!fill(p, in, in_stride, out, out_stride, flags, flag_stride, my,
+            ranks, n, slices, chunk)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  for (int r = 0; r < ranks; ++r) {
+    for (int k = 0; k < n; ++k) {
+      const int m = members[r * n + k];
+      if (m < 0 || m >= ranks || (k == my[r]) != (m == r)) {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
+      p.members[r][k] = static_cast<unsigned char>(m);
+    }
+  }
+  void* fn = mode == kAllreduce ? kernel_for<kAllreduce>(dtype, vec)
+                                : kernel_for<kReduceScatter>(dtype, vec);
+  return launch(fn, p, ranks, slices, stream);
 }
 
 cudaError_t min_blocks(const void* fn, int* blocks) {
@@ -286,7 +337,9 @@ cudaError_t min_blocks(const void* fn, int* blocks) {
 
 extern "C" {
 
-// Ints of flags each (rank, slice) needs for a ring of n.
+// Ints of flags each (rank, slice) needs for a ring of n: B4b's layout
+// (ring_common.cuh's kBarrier, then kGather's n - 1 step flags); B3 and B4a
+// use its first int, the members barrier.
 int gtt_ring_flag_stride(int n) { return kGather + (n > 1 ? n - 1 : 1); }
 
 // The most blocks of any ring kernel that can be resident at once on the
@@ -327,29 +380,29 @@ int gtt_ring_max_blocks(int* blocks) {
 // vectors (every chunk a whole number of them, every buffer 16-byte
 // aligned), else single elements. B4b takes unit_bytes (16, 8, 4, 2 or 1,
 // dividing the chunk and every buffer's start) in their place. chunk
-// counts units. Strides are in bytes. my/right/left: host arrays of
-// `ranks` ints.
+// counts units. Strides are in bytes. flags: ranks x slices x flag_stride
+// zeroed ints. my: each rank's ring index; members (B3, B4a): ranks x n
+// flat ranks, row r the ring of rank r in ring order; right/left (B4b):
+// each rank's neighbours as flat ranks. All tables are host arrays.
 
 int gtt_ring_allreduce(const void* x, void* out, long long rank_stride,
-                       void* comm, long long comm_stride, int* flags,
-                       int flag_stride, const int* my, const int* right,
-                       const int* left, int ranks, int n, int slices,
+                       int* flags, int flag_stride, const int* my,
+                       const int* members, int ranks, int n, int slices,
                        long long chunk, int dtype, int vec, void* stream) {
-  return run(kAllreduce, x, rank_stride, out, rank_stride, nullptr, 0, comm,
-             comm_stride, flags, flag_stride, my, right, left, ranks, n,
-             slices, chunk, dtype, vec, stream);
+  return run_sum(kAllreduce, x, rank_stride, out, rank_stride, flags,
+                 flag_stride, my, members, ranks, n, slices, chunk, dtype,
+                 vec, stream);
 }
 
 int gtt_ring_reduce_scatter(const void* x, long long in_stride, void* out,
-                            long long out_stride, void* work, void* comm,
-                            long long comm_stride, int* flags,
-                            int flag_stride, const int* my, const int* right,
-                            const int* left, int ranks, int n, int slices,
-                            long long chunk, int dtype, int vec,
+                            long long out_stride, int* flags,
+                            int flag_stride, const int* my,
+                            const int* members, int ranks, int n,
+                            int slices, long long chunk, int dtype, int vec,
                             void* stream) {
-  return run(kReduceScatter, x, in_stride, out, out_stride, work, in_stride,
-             comm, comm_stride, flags, flag_stride, my, right, left, ranks,
-             n, slices, chunk, dtype, vec, stream);
+  return run_sum(kReduceScatter, x, in_stride, out, out_stride, flags,
+                 flag_stride, my, members, ranks, n, slices, chunk, dtype,
+                 vec, stream);
 }
 
 int gtt_ring_allgather(const void* x, long long in_stride, void* out,
@@ -357,9 +410,22 @@ int gtt_ring_allgather(const void* x, long long in_stride, void* out,
                        const int* my, const int* right, const int* left,
                        int ranks, int n, int slices, long long chunk,
                        int unit_bytes, void* stream) {
-  return run(kAllgather, x, in_stride, out, out_stride, nullptr, 0, nullptr,
-             0, flags, flag_stride, my, right, left, ranks, n, slices, chunk,
-             unit_bytes, 0, stream);
+  Params p;
+  if (!fill(p, x, in_stride, out, out_stride, flags, flag_stride, my, ranks,
+            n, slices, chunk) ||
+      flag_stride < kGather + n - 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  for (int r = 0; r < ranks; ++r) {
+    if (right[r] < 0 || right[r] >= ranks || left[r] < 0 ||
+        left[r] >= ranks) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    p.right[r] = right[r];
+    p.left[r] = left[r];
+  }
+  return launch(kernel_for<kAllgather>(unit_bytes, 0), p, ranks, slices,
+                stream);
 }
 
 const char* gtt_error_string(int err) {

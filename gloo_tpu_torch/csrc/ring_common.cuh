@@ -85,6 +85,19 @@ __device__ inline void ring_barrier(int* fl_me, int* fl_left, int* fl_right) {
   wait_flag(fl_me + kBarrier, 2);
 }
 
+// The entry barrier among the n members of a ring (ring.cu's B3 and B4a),
+// one flag per (rank, slice): thread 0 adds one to the flag `peer(k)` of
+// each other member, k = 1 .. n - 1, and the block waits until its own
+// reaches n - 1. The block has stored nothing before it, so nothing needs
+// to be published with the adds.
+template <typename Peer>
+__device__ inline void members_barrier(int* fl_me, int n, Peer peer) {
+  if (threadIdx.x == 0) {
+    for (int k = 1; k < n; ++k) add_release(peer(k), 1);
+  }
+  wait_flag(fl_me, n - 1);
+}
+
 // One add per element in the element type, as PyTorch adds on the CPU:
 // floats in f32 (f64 for double) rounded once to the element type, no
 // contraction; integers wrap.

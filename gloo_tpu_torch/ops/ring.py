@@ -25,14 +25,17 @@ the ring size n. Results, as in JAX:
 
 On CUDA tensors each wrapper launches its kernel or raises; on CPU tensors
 it runs its plain twin (``*_plain``), which walks the ring step by step
-with the kernel's send and receive chunk indices and adds in the same
+with the TPU kernel's send and receive chunk indices and adds in the same
 order, one add per step in the input dtype (bf16 rounds after every step,
 as the TPU kernel's ``o_ref[...] + comm_ref[slot]`` does). A chunk's B3
 sum is thus x[c + n - 1] + (... + (x[c + 1] + x[c])), ring indices mod n.
-The sum kernels B3 and B4a take SUM_DTYPES on the card and on the CPU
-alike; B9 and B11 bf16 and f32, B10 f32. The allgather and the all-to-all
-move bytes only, in any dtype, and their twins' copies are the kernels',
-step by step.
+B3 and B4a do not walk the ring on the card: the rank that finishes a
+chunk reads it from every member of its ring in that same order and adds
+it up in one pass (csrc/ring.cu), so their sums are the twins' bit for
+bit. The sum kernels B3 and B4a take SUM_DTYPES on the card and on the
+CPU alike; B9 and B11 bf16 and f32, B10 f32. The allgather and the
+all-to-all move bytes only, in any dtype, and their twins' copies are the
+kernels', step by step.
 """
 
 from __future__ import annotations
@@ -61,6 +64,11 @@ SUM_DTYPES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2,
 # table holds (kMaxRanks).
 KERNEL_THREADS = 256
 KERNEL_MAX_RANKS = 32
+# Units (16-byte vectors or elements) of its chunk that each thread of B3
+# and B4a sums: the wrapper asks for as many slices as give every thread
+# this many (two passes of csrc/ring.cu's kUnroll), as far as the card
+# holds them.
+SUM_UNITS_PER_THREAD = 4
 
 _lib: ctypes.CDLL | None = None
 # Most co-resident ring blocks per device index (gtt_ring_max_blocks).
@@ -69,10 +77,11 @@ _max_blocks: dict[int, int] = {}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _IP = ctypes.POINTER(ctypes.c_int)
 _TABLES = [_IP, _IP, _IP, _I, _I, _I]  # my, right, left, ranks, n, slices
-_TAIL = _TABLES + [_L, _I, _I, _P]     # chunk, dtype, vec, stream
+# my, members, ranks, n, slices, chunk, dtype, vec, stream
+_SUM_TAIL = [_IP, _IP, _I, _I, _I, _L, _I, _I, _P]
 _SIGNATURES = {
-    "gtt_ring_allreduce": [_P, _P, _L, _P, _L, _P, _I] + _TAIL,
-    "gtt_ring_reduce_scatter": [_P, _L, _P, _L, _P, _P, _L, _P, _I] + _TAIL,
+    "gtt_ring_allreduce": [_P, _P, _L, _P, _I] + _SUM_TAIL,
+    "gtt_ring_reduce_scatter": [_P, _L, _P, _L, _P, _I] + _SUM_TAIL,
     "gtt_ring_allgather": [_P, _L, _P, _L, _P, _I] + _TABLES + [_L, _I,
                                                                  _P],
 }
@@ -181,15 +190,50 @@ def _check_ranks(x: torch.Tensor, what: str) -> None:
                          f"got {x.shape[0]}")
 
 
-def _launch_setup(x: torch.Tensor, mesh: Mesh, axis_name: str, units: int):
-    """(lib, slices, zeroed flags, flag stride, ctypes ring tables)."""
+def _launch_setup(x: torch.Tensor, mesh: Mesh, axis_name: str, units: int,
+                  per_thread: int = 1):
+    """(lib, slices, zeroed flags, flag stride, ctypes ring tables) for
+    `units` per chunk, `per_thread` of them to each thread."""
     _check_ranks(x, "the ring kernels")
     lib = _ring_lib()
     stride = lib.gtt_ring_flag_stride(mesh.shape[axis_name])
     slices, flags, tables = cooperative_grid(
         x, mesh, axis_name, lib, lib.gtt_ring_max_blocks, _max_blocks,
-        -(-units // KERNEL_THREADS), stride)
+        -(-units // (KERNEL_THREADS * per_thread)), stride)
     return lib, slices, flags, stride, tables
+
+
+def _members_table(mesh: Mesh, axis_name: str):
+    """Each flat rank's ring along `axis_name` in ring order, as the ctypes
+    int array (ranks x n) the kernels index."""
+    rows = mesh.ring_members(axis_name)
+    return (ctypes.c_int * (len(rows) * len(rows[0])))(
+        *(m for row in rows for m in row))
+
+
+def _sum_launch(x: torch.Tensor, out: torch.Tensor, axis_name: str,
+                mesh: Mesh, reduce_scatter: bool) -> None:
+    """Launches B4a (`reduce_scatter`) or B3 from the contiguous world
+    tensor x into out: no buffers but the zeroed flags of one members
+    barrier."""
+    n = mesh.shape[axis_name]
+    ranks, rows, cols = x.shape
+    dtype, vec, units = _kernel_layout(x, rows // n * cols, out)
+    lib, slices, flags, stride, (my, _, _) = _launch_setup(
+        x, mesh, axis_name, units, SUM_UNITS_PER_THREAD)
+    tail = (flags.data_ptr(), stride, my, _members_table(mesh, axis_name),
+            ranks, n, slices, units, dtype, vec, _stream(x))
+    in_stride = x[0].numel() * x.element_size()
+    with torch.cuda.device(x.device):
+        if reduce_scatter:
+            err = lib.gtt_ring_reduce_scatter(
+                x.data_ptr(), in_stride, out.data_ptr(),
+                out[0].numel() * out.element_size(), *tail)
+        else:
+            err = lib.gtt_ring_allreduce(x.data_ptr(), out.data_ptr(),
+                                         in_stride, *tail)
+    _raise_on(err, "ring_reduce_scatter" if reduce_scatter
+              else "ring_allreduce", lib)
 
 
 def _stream(x: torch.Tensor) -> int:
@@ -200,28 +244,15 @@ def _stream(x: torch.Tensor) -> int:
 
 def _allreduce(x: torch.Tensor, axis_name: str, mesh: Mesh) -> torch.Tensor:
     n = _ring_size(x, axis_name, mesh)
-    ranks, rows, cols = x.shape
-    _check_rows(rows, n)
+    _check_rows(x.shape[1], n)
     _check_dtype(x, SUM_DTYPES, "ring_allreduce")
     if n == 1:
         return x
     if x.device.type == "cpu":
         return ring_allreduce_plain(x, axis_name, mesh)
     x = x.contiguous()
-    chunk_elems = rows // n * cols
     out = torch.empty_like(x)
-    dtype, vec, units = _kernel_layout(x, chunk_elems, out)
-    comm = torch.empty((ranks, 2, chunk_elems), dtype=x.dtype,
-                       device=x.device)
-    lib, slices, flags, stride, (my, right, left) = _launch_setup(
-        x, mesh, axis_name, units)
-    elt = x.element_size()
-    with torch.cuda.device(x.device):
-        err = lib.gtt_ring_allreduce(
-            x.data_ptr(), out.data_ptr(), rows * cols * elt, comm.data_ptr(),
-            2 * chunk_elems * elt, flags.data_ptr(), stride, my, right, left,
-            ranks, n, slices, units, dtype, vec, _stream(x))
-    _raise_on(err, "ring_allreduce", lib)
+    _sum_launch(x, out, axis_name, mesh, reduce_scatter=False)
     ring_allreduce.launches += 1
     return out
 
@@ -315,23 +346,9 @@ def _reduce_scatter(x: torch.Tensor, axis_name: str,
     if x.device.type == "cpu":
         return ring_reduce_scatter_plain(x, axis_name, mesh)
     x = x.contiguous()
-    chunk_elems = rows // n * cols
     out = torch.empty((ranks, rows // n, cols), dtype=x.dtype,
                       device=x.device)
-    work = torch.empty_like(x)
-    dtype, vec, units = _kernel_layout(x, chunk_elems, out, work)
-    comm = torch.empty((ranks, 2, chunk_elems), dtype=x.dtype,
-                       device=x.device)
-    lib, slices, flags, stride, (my, right, left) = _launch_setup(
-        x, mesh, axis_name, units)
-    elt = x.element_size()
-    with torch.cuda.device(x.device):
-        err = lib.gtt_ring_reduce_scatter(
-            x.data_ptr(), rows * cols * elt, out.data_ptr(),
-            chunk_elems * elt, work.data_ptr(), comm.data_ptr(),
-            2 * chunk_elems * elt, flags.data_ptr(), stride, my, right, left,
-            ranks, n, slices, units, dtype, vec, _stream(x))
-    _raise_on(err, "ring_reduce_scatter", lib)
+    _sum_launch(x, out, axis_name, mesh, reduce_scatter=True)
     ring_reduce_scatter.launches += 1
     return out
 
@@ -796,14 +813,12 @@ def _alltoall(x: torch.Tensor, axis_name: str, mesh: Mesh) -> torch.Tensor:
         x, mesh, axis_name, lib, lib.gtt_alltoall_max_blocks,
         _a2a_max_blocks, -(-chunk_bytes // unit // ALLTOALL_THREADS), stride)
     my = mesh.ring_index(axis_name)
-    members = (ctypes.c_int * (ranks * n))(
-        *(m for row in mesh.ring_members(axis_name) for m in row))
     with torch.cuda.device(x.device):
         err = lib.gtt_alltoall(
             x.data_ptr(), rows * cols * x.element_size(), out.data_ptr(),
             rows * cols * x.element_size(), flags.data_ptr(), stride,
-            (ctypes.c_int * ranks)(*my), members, ranks, n, slices,
-            chunk_bytes, unit, _stream(x))
+            (ctypes.c_int * ranks)(*my), _members_table(mesh, axis_name),
+            ranks, n, slices, chunk_bytes, unit, _stream(x))
     _raise_on(err, "alltoall", lib)
     alltoall.launches += 1
     return out

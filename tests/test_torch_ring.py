@@ -333,25 +333,35 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,dtype,cols", [
-    (2, torch.float32, 128), (3, torch.float32, 128),
-    (4, torch.float32, 128), (8, torch.float32, 128),
-    (4, torch.bfloat16, 128), (4, torch.float32, 100),
-    (4, torch.bfloat16, 33)])
-def test_kernels_match_twins_on_card(cuda_device, n, dtype, cols):
-    mesh = make_mesh({"x": n}, devices=[cuda_device] * n)
+@pytest.mark.parametrize("axes,axis,dtype,cols", [
+    ({"x": 2}, "x", torch.float32, 128), ({"x": 3}, "x", torch.float32, 128),
+    ({"x": 4}, "x", torch.float32, 128), ({"x": 8}, "x", torch.float32, 128),
+    ({"x": 4}, "x", torch.bfloat16, 128), ({"x": 4}, "x", torch.float32, 100),
+    ({"x": 4}, "x", torch.bfloat16, 33),
+    ({"y": 2, "x": 2}, "y", torch.float32, 128),
+    ({"y": 2, "x": 2}, "x", torch.bfloat16, 100)])
+def test_kernels_match_twins_on_card(cuda_device, axes, axis, dtype, cols):
+    """Each kernel bitwise against its twin, three times in a row (an
+    ordering fault between flags and data shows now and then), over rings
+    of 2 to 8 and along each axis of a 2 x 2 torus, where flat rank and
+    ring index differ."""
+    size = int(np.prod(list(axes.values())))
+    n = axes[axis]
+    mesh = make_mesh(axes, devices=[cuda_device] * size)
     gen = torch.Generator(cuda_device).manual_seed(n)
-    x = torch.randn((n, n * 8, cols), generator=gen,
+    x = torch.randn((size, n * 8, cols), generator=gen,
                     device=cuda_device).to(dtype)
     for fn, plain in ((ring.ring_allreduce, ring.ring_allreduce_plain),
                       (ring.ring_reduce_scatter,
                        ring.ring_reduce_scatter_plain),
                       (ring.ring_allgather, ring.ring_allgather_plain)):
-        before = fn.launches
-        out = fn(x, "x", mesh)
-        torch.cuda.synchronize()
-        assert fn.launches == before + 1
-        assert torch.equal(out, plain(x, "x", mesh))
+        want = plain(x, axis, mesh)
+        for _ in range(3):
+            before = fn.launches
+            out = fn(x, axis, mesh)
+            torch.cuda.synchronize()
+            assert fn.launches == before + 1
+            assert torch.equal(out, want)
 
 
 @pytest.mark.cuda
