@@ -78,7 +78,8 @@ Phases, each of which raises on failure:
      ring_allreduce_q8, B11 ring_allreduce_bidir) against their plain
      versions on the card, bitwise, at VARIANT_CASES (2 to 8 ranks, the
      dry run's shapes, B9's partial tiles, bf16, a 2 x 2 mesh, the path's
-     shape); B9 bitwise B3, B11's left half bitwise B3 on those columns,
+     shape), three calls in a row each; B9 bitwise B3, B11's left half
+     bitwise B3 on those columns,
      B10 within Q8_REL of the f64 sum and bitwise equal on every rank; and
      the sum collectives at int32, f16, f64 and int64 on B3, B4a and B4b
      against the same calls on the CPU;
@@ -89,10 +90,12 @@ Phases, each of which raises on failure:
      gradient buffer of a DDP step, printed;
  22. times of B9, B10 and B11 at the path's shape against their bound,
      plain versions, B3 at the same shape and the library yardstick; of
-     B9, B3 and B4a at 64 MiB per rank (B3 and B4a also whole calls,
-     plain versions and yardsticks); and of B3 and B4a at the DDP shape
-     and at 64 MiB per rank with SUM_PROBE_UNITS units per thread (the
-     slice count of their launch).
+     B9, B11, B3 and B4a at 64 MiB per rank (kernels and whole calls
+     against their bounds; B3 and B4a also plain versions and
+     yardsticks); of B9 at the path's shape and at 64 MiB per rank with
+     each (tile, stages) of HBM_PROBES, bitwise B3 at each; and of B3 and
+     B4a at the DDP shape and at 64 MiB per rank with SUM_PROBE_UNITS
+     units per thread (the slice count of their launch).
 The line before the last is the JSON list of kernels; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or gloo_tpu.
 """
@@ -288,8 +291,12 @@ Q8_REL = 0.05
 # B9 and B11 (and their gradients) against the f64 closed form, max |y -
 # exact| / max |exact|: f32 adds of n values in ring order.
 VARIANT_RTOL = 1e-5
-# B9's, B3's and B4a's large-shard case: rows of 256 f32 per rank, 64 MiB.
+# B9's, B11's, B3's and B4a's large-shard case: rows of 256 f32 per rank,
+# 64 MiB.
 BIG_ROWS = 65536
+# (tile bytes, stages) that phase 22 tries for B9 (the wrapper's
+# ring.HBM_TILE_BYTES and ring.HBM_STAGES set its launch).
+HBM_PROBES = ((8192, 4), (16384, 4), (32768, 3))
 # Units per thread that phase 22 tries for B3 and B4a (the wrapper's
 # ring.SUM_UNITS_PER_THREAD sets the slices of their launch from it).
 SUM_PROBE_UNITS = (1, 2, 4, 8, 16)
@@ -1190,9 +1197,10 @@ def slice5_times(attn, sp, spmd, ring, paths, ep, card):
 
 def variant_cases(ring, make_mesh, gen):
     """Phase 20: B9, B10 and B11 against their plain versions at
-    VARIANT_CASES, bitwise, every rank of a ring bitwise equal; B9 against
-    B3 and B11's left half against B3, bitwise; B10 within Q8_REL of the
-    f64 sum. Returns {variant: max |kernel - plain|} at the path's shape."""
+    VARIANT_CASES, RING_RUNS calls in a row, each bitwise, every rank of a
+    ring bitwise equal; B9 against B3 and B11's left half against B3,
+    bitwise; B10 within Q8_REL of the f64 sum. Returns {variant: max
+    |kernel - plain|} at the path's shape."""
     dev = torch.device("cuda")
     failed, errs = [], {}
     for name, variant, axes, axis, rows, cols, dtype in VARIANT_CASES:
@@ -1200,11 +1208,13 @@ def variant_cases(ring, make_mesh, gen):
         mesh = make_mesh(axes, devices=[dev] * ranks)
         x = torch.randn((ranks, rows, cols), generator=gen,
                         device="cuda").to(dtype)
-        out = getattr(ring, f"ring_allreduce_{variant}")(x, axis, mesh)
+        fn = getattr(ring, f"ring_allreduce_{variant}")
+        outs = [fn(x, axis, mesh) for _ in range(RING_RUNS)]
         torch.cuda.synchronize()
+        out = outs[0]
         ref = getattr(ring, f"ring_allreduce_{variant}_plain")(x, axis, mesh)
-        bad = [] if torch.equal(out, ref) else ["differs from its plain "
-                                                "version"]
+        bad = [] if all(torch.equal(o, ref) for o in outs) \
+            else ["differs from its plain version"]
         if not torch.equal(out, out[[m[0] for m in
                                      mesh.ring_members(axis)]]):
             bad.append("ranks of a ring differ")
@@ -1220,10 +1230,12 @@ def variant_cases(ring, make_mesh, gen):
                 out[..., :h],
                 ring.ring_allreduce(x[..., :h].contiguous(), axis, mesh)):
             bad.append("its left half differs from B3")
-        diff = float((out.double() - ref.double()).abs().max())
+        diff = max(float((o.double() - ref.double()).abs().max())
+                   for o in outs)
         print(f"ring_allreduce_{variant} {name}: {ranks} ranks, ring "
-              f"{axis!r} of {axes[axis]}, {(rows, cols)} {str(dtype)[6:]}: "
-              f"max |kernel - plain| {diff:.3e}, max |out - sum| / max |sum|"
+              f"{axis!r} of {axes[axis]}, {(rows, cols)} {str(dtype)[6:]}, "
+              f"{RING_RUNS} runs: max |kernel - plain| {diff:.3e}, max "
+              f"|out - sum| / max |sum|"
               f" {rel:.3e}{'; FAILED: ' + ', '.join(bad) if bad else ''}")
         failed += [f"{variant} {name}: {b}" for b in bad]
         if name == "path":
@@ -1341,8 +1353,9 @@ def variant_times(ring, paths, card):
     (bytes: each rank's input read once and output written once, 2 P S),
     plain versions, B3 at the same shape and the yardstick (for B9 and B11
     B3's: x.sum(0) then expand(P).contiguous(); none for B10: no PyTorch
-    call computes an int8-wire sum); B9 and B3 at 64 MiB per rank. Returns
-    {variant: (ms, plain ms, library ms or None, bound ms, bound by)}."""
+    call computes an int8-wire sum); B9, B11, B3 and B4a at 64 MiB per
+    rank; B9 by HBM_PROBES. Returns {variant: (ms, plain ms, library ms or
+    None, bound ms, bound by)}."""
     _, x, mesh = paths["hbm"][1]
     ranks = x.shape[0]
     per_rank = x[0].numel() * x.element_size()
@@ -1377,12 +1390,18 @@ def variant_times(ring, paths, card):
         per_big = big[0].numel() * big.element_size()
         big_bytes = 2 * ranks * per_big
         big_bound, by = _bound(big_bytes, 0, torch.float32)
-        print(f"B9 and B3 at 64 MiB per rank ({ranks} x "
+        print(f"B9, B11 and B3 at 64 MiB per rank ({ranks} x "
               f"{tuple(big.shape[1:])} f32), bound {big_bound:.6f} ms ({by}: "
               f"{big_bytes} bytes):")
-        timed_kernel("ring_allreduce_hbm kernel, 64 MiB per rank",
-                     lambda: ring.ring_allreduce_hbm(big, "data", mesh),
-                     "hbm_kernel")
+        for name, label in (("hbm", "hbm_kernel"), ("bidir", "bidir_kernel")):
+            fn = getattr(ring, f"ring_allreduce_{name}")
+            timed_kernel(f"ring_allreduce_{name} kernel, 64 MiB per rank",
+                         lambda fn=fn: fn(big, "data", mesh), label)
+            timed(f"ring_allreduce_{name} whole call (output, flags, "
+                  f"kernel), 64 MiB per rank",
+                  lambda fn=fn: fn(big, "data", mesh))
+            print(f"  ring_allreduce_{name} bound at 64 MiB per rank "
+                  f"{big_bound:.6f} ms ({by}: {big_bytes} bytes)")
         for fn, plain, lib_label, lib_fn, nbytes in (
                 (ring.ring_allreduce, ring.ring_allreduce_plain,
                  "x.sum(0) then expand(P).contiguous(), two calls",
@@ -1405,8 +1424,41 @@ def variant_times(ring, paths, card):
         # written) in one PyTorch call: the ceiling under the bound.
         timed("a copy of the same bytes, x.clone(), 64 MiB per rank",
               lambda: big.clone())
+        hbm_probes(ring, x, big, mesh)
         sum_probes(ring, big, mesh)
     return rows
+
+
+def hbm_probes(ring, x, big, mesh):
+    """Phase 22: B9 at the path's shape and at 64 MiB per rank with each
+    (tile bytes, stages) of HBM_PROBES (ring.HBM_TILE_BYTES and
+    ring.HBM_STAGES, restored after), bitwise B3 at each; fails if any
+    differs."""
+    chosen = ring.HBM_TILE_BYTES, ring.HBM_STAGES
+    print(f"B9 by (tile bytes, stages) (the wrapper's choice {chosen}):")
+    wrong = []
+    try:
+        for tile, stages in HBM_PROBES:
+            ring.HBM_TILE_BYTES, ring.HBM_STAGES = tile, stages
+            for label, t in (("path shape", x), ("64 MiB per rank", big)):
+                same = torch.equal(ring.ring_allreduce_hbm(t, "data", mesh),
+                                   ring.ring_allreduce(t, "data", mesh))
+                blocks = next(iter(ring._var_max_blocks[
+                    (0, tile, stages)].values()))
+                timed_kernel(f"ring_allreduce_hbm kernel, {label}, tile "
+                             f"{tile} bytes, {stages} stages, "
+                             f"{(stages + 2) * tile} bytes of shared memory "
+                             f"and {blocks} resident blocks; bitwise B3 "
+                             f"{same}",
+                             lambda t=t: ring.ring_allreduce_hbm(t, "data",
+                                                                 mesh),
+                             "hbm_kernel")
+                if not same:
+                    wrong.append((label, tile, stages))
+    finally:
+        ring.HBM_TILE_BYTES, ring.HBM_STAGES = chosen
+    if wrong:
+        raise AssertionError(f"B9 differs from B3 at {wrong}")
 
 
 def sum_probes(ring, big, mesh):

@@ -54,7 +54,8 @@
 // chunk (B3, B4a) or of every chunk (B4b); each slice has its own flags, so
 // no block waits for another block of its own rank. In B3 and B4a each
 // thread folds kUnroll units per pass and starts the loads of kGroup
-// members (kGroup x kUnroll 16-byte loads) before it adds any of them: at
+// members (kGroup x kUnroll 16-byte loads) before it adds any of them
+// (fold_members of ring_common.cuh, which B11 shares): at
 // n >= 4, 32 KB in flight per block and four blocks per SM (kUnroll 4
 // takes 116 registers and leaves room for two). Blocks spin on flags that
 // other blocks set, so all must be resident at once: the launch is
@@ -144,30 +145,14 @@ __device__ __forceinline__ void member_sum(const Params& p) {
   for (long long base = lo + threadIdx.x; base < hi;
        base += kThreads * kUnroll) {
     U acc[kUnroll];
-    for (int k0 = 0; k0 < n; k0 += kGroup) {
-      U v[kGroup][kUnroll];
-#pragma unroll
-      for (int g = 0; g < kGroup; ++g) {
-        if (k0 + g < n) {
-          const U* const src =
-              static_cast<const U*>(p.in[ring[wrap(my + 1 + k0 + g, n)]]) +
-              off + base;
-#pragma unroll
-          for (int i = 0; i < kUnroll; ++i) {
-            if (base + i * kThreads < hi) v[g][i] = __ldg(src + i * kThreads);
-          }
-        }
-      }
-#pragma unroll
-      for (int g = 0; g < kGroup; ++g) {
-#pragma unroll
-        for (int i = 0; i < kUnroll; ++i) {
-          if (k0 + g < n && base + i * kThreads < hi) {
-            acc[i] = k0 + g == 0 ? v[g][i] : add_units<T>(v[g][i], acc[i]);
-          }
-        }
-      }
-    }
+    fold_members<T, kUnroll, kGroup>(
+        acc, n,
+        [&](int k) {
+          return static_cast<const U*>(p.in[ring[wrap(my + 1 + k, n)]]) +
+                 off + base;
+        },
+        [](int i) { return i * kThreads; },
+        [&](int i) { return base + i * kThreads < hi; });
 #pragma unroll
     for (int i = 0; i < kUnroll; ++i) {
       const long long u = base + i * kThreads;

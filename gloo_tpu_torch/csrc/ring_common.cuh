@@ -1,6 +1,7 @@
 // Helpers shared by the kernels that walk a ring of ranks on one card
 // (ring.cu, ring_variants.cu, overlap.cu, alltoall.cu): the flag protocol
-// between blocks and the element-wise add of the ring's reduce steps.
+// between blocks, the element-wise add of the ring's reduce steps and the
+// fold of a member-order sum.
 //
 // Flags are counters in device memory that only grow and are zeroed per
 // call. A sender's threads store into the peer's buffer, then
@@ -85,7 +86,8 @@ __device__ inline void ring_barrier(int* fl_me, int* fl_left, int* fl_right) {
   wait_flag(fl_me + kBarrier, 2);
 }
 
-// The entry barrier among the n members of a ring (ring.cu's B3 and B4a),
+// The entry barrier among the n members of a ring (ring.cu's B3 and B4a,
+// ring_variants.cu's B9 and B11),
 // one flag per (rank, slice): thread 0 adds one to the flag `peer(k)` of
 // each other member, k = 1 .. n - 1, and the block waits until its own
 // reaches n - 1. The block has stored nothing before it, so nothing needs
@@ -141,6 +143,42 @@ __device__ __forceinline__ U add_units(U a, U b) {
   for (int k = 0; k < kLanes; ++k) la[k] = add1(la[k], lb[k]);
   memcpy(&a, la, sizeof(U));
   return a;
+}
+
+// The fold of a member-order sum (ring.cu's B3 and B4a, ring_variants.cu's
+// B11): acc[i] = in_{n-1}[i] + ( ... + (in_1[i] + in_0[i])) over the n
+// members of a walk, for each of this thread's kUnroll units i that
+// live(i) admits; unit i of the k-th member of the walk lies at
+// member(k) + at(i). The loads of kGroup members x kUnroll units are
+// issued before any of them is added. Inputs are read through the
+// non-coherent path (__ldg): nothing may write them during the launch.
+template <typename T, int kUnroll, int kGroup, typename U, typename Member,
+          typename At, typename Live>
+__device__ __forceinline__ void fold_members(U (&acc)[kUnroll], int n,
+                                             Member member, At at,
+                                             Live live) {
+  for (int k0 = 0; k0 < n; k0 += kGroup) {
+    U v[kGroup][kUnroll];
+#pragma unroll
+    for (int g = 0; g < kGroup; ++g) {
+      if (k0 + g < n) {
+        const U* const src = member(k0 + g);
+#pragma unroll
+        for (int i = 0; i < kUnroll; ++i) {
+          if (live(i)) v[g][i] = __ldg(src + at(i));
+        }
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < kGroup; ++g) {
+#pragma unroll
+      for (int i = 0; i < kUnroll; ++i) {
+        if (k0 + g < n && live(i)) {
+          acc[i] = k0 + g == 0 ? v[g][i] : add_units<T>(v[g][i], acc[i]);
+        }
+      }
+    }
+  }
 }
 
 __device__ __forceinline__ int wrap(int i, int n) { return ((i % n) + n) % n; }

@@ -9,39 +9,78 @@
 //   B11 _ring_allreduce_bidir_kernel  (ring_allreduce_bidir)
 //       gtt_ring_allreduce_bidir
 //
-// The model is ring.cu's (B3): the ranks are a world on one card, each
-// rank's buffers its own, seen through a table of per-rank pointers and
-// the ring tables, so a launch over cards needs only a table of
-// peer-mapped pointers and flags at system scope. Grid (P, S): block
-// (r, j) plays rank r on slice j of every chunk, each slice an
-// independent ring with its own flags; B11's grid is (P, 2, S), one set
-// of blocks per direction. Every block spins on flags other blocks set,
-// so the launch is cooperative and the wrapper takes S from the occupancy
-// that gtt_ring_variants_max_blocks reports. Every spin is bounded
-// (ring_common.cuh: ~2 s, then __trap). Data another block wrote is read
-// with ld.global.cg or cp.async.cg (L2), never through L1.
+// The model is ring.cu's: the ranks are a world on one card, each rank's
+// buffers its own, seen through a table of per-rank pointers (passed as a
+// __grid_constant__ parameter) and the ring tables. Every block spins on
+// flags other blocks set, so the launches are cooperative and the wrapper
+// takes the slice count S from the occupancy that
+// gtt_ring_variants_max_blocks reports for each kernel. Every spin, the
+// mbarrier waits included, is bounded (~2 s, then __trap).
 //
-// B9, HBM streaming. On the TPU the ring buffers stay in HBM and the
-// received chunk streams through VMEM in tiles, the next tile's DMA in
-// flight while the current one is added. On Hopper every buffer is in HBM
-// already; what carries over is the stream: each reduce-scatter step
-// pulls the received chunk and the own chunk it adds into through shared
-// memory in tiles of kTileUnits 16-byte units per operand, with cp.async
-// into two buffers, tile t + 1's loads issued before tile t's add and
-// store (pallas_ring.py:319-369). The outgoing chunk's stores into the
-// right neighbour's slot are issued before the wait for the incoming one
-// and drain while it lasts. The tile is chosen for the SM (32 KB of
-// shared memory per block), not by the TPU's 256-row rule; tiling changes
-// no value, since the add is elementwise. Chunk order and add order are
-// B3's, so B9's output is bitwise B3's.
+// B9 and B11: one pass in member order, as ring.cu's B3. The TPU kernels
+// are shaped for a torus of chips, where a chip reaches only its
+// neighbours: a copy of the input, then n - 1 steps that DMA a chunk into
+// the neighbour's comm slot and add, then n - 1 allgather steps. On Hopper
+// every rank's input already lies in device memory that every SM reads,
+// and the cards of a host are joined all to all through NVSwitch, not in
+// a ring. So the block that finishes a chunk reads it from every member of
+// its ring, in the order in which the ring would have added it up, and
+// stores the sum into that chunk of every member's output: each input
+// unit is read once and each output unit written once, behind one members
+// barrier, with no comm slot, no working copy and no per-step hand-off.
+// With ring indices mod n and in_k the input of the member with ring
+// index k, each + one add1 of ring_common.cuh (bf16 in f32 rounded back
+// after every add, f32 IEEE without contraction):
+//   B3's order, chunk c (starts raw on c, finished on c - 1):
+//     in_{c-1}[c] + (in_{c-2}[c] + ( ... + (in_{c+1}[c] + in_c[c])));
+//   the mirrored ring's order, chunk c (starts on c, goes to c - 1, then
+//   c - 2, and is finished on c + 1; pallas_ring.py:725-731):
+//     in_{c+1}[c] + (in_{c+2}[c] + ( ... + (in_{c-1}[c] + in_c[c]))).
+// The rank with ring index my walks members my + 1, my + 2, ..., my + n
+// for chunk my + 1 in B3's order, and my - 1, my - 2, ..., my - n for
+// chunk my - 1 in the mirrored order: its own input last in both.
 //
-// B10, int8 wire. f32 only. Each reduce-scatter hop sends its outgoing
-// chunk as int8 codes plus one f32 scale for the whole chunk
-// (pallas_ring.py:515-519): scale = max|chunk| * f32(1 / 127), which is
-// what XLA makes of the reference's max / 127, and q = clip(rint(x /
-// max(scale, 1e-30)), +-127), a true division (rint: half to even). The
-// scale is over the whole chunk while a block holds one slice of it, so
-// every block reduces its slice's max|x|, folds it into its rank's cell
+// B9, HBM streaming: B3's function (its output is bitwise B3's), and what
+// makes it itself is the stream. The TPU kernel streams each received
+// chunk through VMEM in tiles, the next tile's DMA in flight while the
+// current one is added (pallas_ring.py:253-258, 319-369). Here the card's
+// own copy engine streams: grid (P, S), block (r, j) owns a run of whole
+// tiles of chunk my + 1 (the last tile of a chunk may be short). One
+// producer thread in a warp of its own issues, tile by tile and member by
+// member in B3's order, a TMA bulk copy (cp.async.bulk) of that member's
+// tile into the next of K shared-memory stages, completing on the stage's
+// full mbarrier; it refills a stage only once its empty mbarrier shows
+// that every consumer warp has read it. Load i = tile * n + member goes to
+// stage i mod K in phase i / K. The 256 consumer threads each own fixed
+// 16-byte units of the tile, fold the members into registers in issue
+// order, then write the sum into one of two output buffers in shared
+// memory; after fence.proxy.async and a barrier of the consumers, one
+// thread issues n bulk stores of the buffer, one into each member's
+// output, as one bulk group. A buffer is written again only after
+// cp.async.bulk.wait_group.read 1 shows that its stores of two tiles ago
+// have read it, so tile t's stores drain while tile t + 1 loads. Bytes in
+// flight live in shared memory, not in registers. Tiles (kPer units per
+// consumer thread: 8, 16 or 32 KB) and stages are the wrapper's choice.
+//
+// B11, bidirectional: grid (P, 2, S). Block (r, d, j) owns slice j of
+// column half d of one chunk: d = 0 chunk my + 1 in B3's order, d = 1
+// chunk my - 1 in the mirrored order. The TPU's two directions on the
+// wire survive as the two add orders; on NVSwitch there is no direction,
+// and across cards each rank pulls from every member. A half-chunk is
+// strided: chunk_rows rows of half_units 16-byte units at a row pitch of
+// 2 half_units, walked by (row, unit in the row) without a divide. Each
+// thread starts the loads of kGroup members x kUnroll units before it
+// adds any (ring.cu's scheme); inputs are read with __ldg (nothing writes
+// them during the launch) and outputs stored plainly (only this block
+// writes its units). With n = 2 the two orders coincide.
+//
+// B10, int8 wire, keeps the ring's schedule. f32 only. Each reduce-scatter
+// hop sends its outgoing chunk as int8 codes plus one f32 scale for the
+// whole chunk (pallas_ring.py:515-519): scale = max|chunk| * f32(1 / 127),
+// which is what XLA makes of the reference's max / 127, and q = clip(rint(
+// x / max(scale, 1e-30)), +-127), a true division (rint: half to even).
+// The scale is over the whole chunk while a block holds one slice of it,
+// so every block reduces its slice's max|x|, folds it into its rank's cell
 // for that step (atomicMax on the float's bits as an int, which orders
 // like the float for x >= 0) and adds one to the cell's arrival count
 // (release); thread 0 waits until every slice block of its rank has
@@ -54,34 +93,29 @@
 // chunk my + 1 quantizes it once and adopts q0 * scale0 itself; the codes
 // and scale then travel verbatim through per-step slots that are never
 // reused (pallas_ring.py:584-595), and every rank decodes q * scale, so
-// every rank ends bitwise equal.
-//
-// B11, bidirectional. Columns [0, cols/2) run B3's schedule to the right;
-// columns [cols/2, cols) run the mirrored schedule to the left: its
-// reduce-scatter sends chunk my + s and receives my + s + 1, its
-// allgather forwards chunk my - 1 + s (pallas_ring.py:725-731, 791-793).
-// That is B3 on the reversed ring (ring index -my, neighbours swapped)
-// with chunk c' standing for chunk -c'. Each direction has its own comm
-// slots and flags. A half-chunk is strided: chunk_rows rows of cols/2
-// elements at a row pitch of cols, indexed by (row, unit in the row). On
-// one card the two directions are two sets of blocks, so both directions'
-// stores are in flight at once; the TPU's 2x link claim waits for the
-// multi-card launch.
-//
-// With n = 2 the left and right neighbour are one rank; the flags stay
-// per (rank, direction, slice) and per slot, so the two roles never share
-// a counter.
+// every rank ends bitwise equal. Data another block wrote is read with
+// ld.global.cg (L2), never through L1. A pull pass would have to quantize
+// each partial sum as its hop does, to keep these bits.
 //
 // What bounds them on an H100: bytes. Each rank's input read once and its
 // output written once, 2 P S at 3.35 TB/s (S bytes per rank); there is no
-// arithmetic to speak of. The designs move more than that (the input copy,
-// a comm-slot trip per reduce-scatter step, B10's two passes over each
-// outgoing chunk) and pay a flag round trip per step, and B10 a rank-wide
-// max per step.
+// arithmetic to speak of. B9 and B11 now move exactly that; B10 still
+// moves its input copy, a wire trip per step and two passes over each
+// outgoing chunk, and pays a flag round trip and a rank-wide max per step.
+//
+// Across cards (ROADMAP A.7) the launch must add: loads through
+// peer-mapped pointers (for B9, whether cp.async.bulk reads a peer-mapped
+// global address is to be checked there; else its loads become __ldg as
+// in B11), flags at system scope (.sys in place of .gpu), one cooperative
+// launch per card, and an exit barrier among the members before a rank
+// reuses its input (peers may still read it) or reads its output (peers
+// write into it). On one card stream order completes every input before
+// the launch, so the entry barrier is not needed for the result.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
 #include <cstring>
 
 #include "ring_common.cuh"
@@ -91,19 +125,22 @@ namespace {
 using namespace gtt;
 
 constexpr int kThreads = 256;
-// B9's stream tile: 16-byte units per thread and operand, and per tile.
-constexpr int kTilePerThread = 2;
-constexpr int kTileUnits = kThreads * kTilePerThread;
+// B9: the consumer threads and one producer warp.
+constexpr int kHbmThreads = kThreads + 32;
+// B11: units each thread folds per pass, and members whose loads start
+// together (ring.cu's B3).
+constexpr int kUnroll = 2;
+constexpr int kGroup = 4;
 
 enum Variant { kHbm = 0, kQ8 = 1, kBidir = 2 };
 
 struct Params {
-  // The peer table: rank r's buffers. in/out: n chunks; comm: B9 two
-  // slots of one chunk, B10 the int8 wire (two reduce-scatter slots, then
-  // n - 1 allgather slots, each one chunk of codes), B11 two directions of
-  // two slots of one half-chunk; scales: B10's (n + 1) slots x S floats;
-  // flags: B9/B10 S, B11 2 S sets of flag_stride ints; cells: B10's n
-  // maxima then n arrival counts.
+  // The peer table: rank r's buffers. in/out: n chunks; B10 only: comm,
+  // the int8 wire (two reduce-scatter slots, then n - 1 allgather slots,
+  // each one chunk of codes), scales (n + 1) slots x S floats, cells n
+  // maxima then n arrival counts, right/left its neighbours. flags: S
+  // sets (B11 2 S) of flag_stride ints; B9 and B11 use each set's first,
+  // the members barrier.
   const void* in[kMaxRanks];
   void* out[kMaxRanks];
   void* comm[kMaxRanks];
@@ -113,27 +150,200 @@ struct Params {
   int my[kMaxRanks];
   int right[kMaxRanks];
   int left[kMaxRanks];
+  unsigned char members[kMaxRanks][kMaxRanks];  // B9, B11: ring index -> rank
   int n;
   int flag_stride;
+  int stages;            // B9: shared-memory stages of one tile each
   long long chunk;       // B9/B10: 16-byte units per chunk
   long long chunk_rows;  // B11: rows per chunk
   long long half_units;  // B11: 16-byte units per row of one half
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
-               :: "r"(s), "l"(gmem) : "memory");
+// The members barrier of flag set `set` of block rank r (B9, B11).
+__device__ __forceinline__ void enter(const Params& p, int r, int set) {
+  const int n = p.n, my = p.my[r];
+  const long long flag = static_cast<long long>(set) * p.flag_stride +
+                         kBarrier;
+  members_barrier(p.flags[r] + flag, n, [&](int k) {
+    return p.flags[p.members[r][wrap(my + k, n)]] + flag;
+  });
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
+// ---- B9: shared memory, mbarriers, bulk copies ----
+
+__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
 }
 
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" :: "n"(kPending) : "memory");
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                   smem_addr(bar)), "r"(count) : "memory");
 }
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// Waits for the phase of parity `parity` to complete; traps after ~2 s
+// like the flag spins.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  const long long start = clock64();
+  while (true) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+    if (done) return;
+    if (clock64() - start > kSpinCycles) __trap();
+  }
+}
+
+// `bytes` from global memory into shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)), "l"(src), "r"(bytes),
+      "r"(smem_addr(bar)) : "memory");
+}
+
+// `bytes` from shared memory into global memory, in this thread's open
+// bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+               ::"l"(dst), "r"(smem_addr(src)), "r"(bytes) : "memory");
+}
+
+// The barrier of B9's consumer warps (named barrier 1; the producer warp
+// keeps out of it).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(kThreads) : "memory");
+}
+
+// ---- B9 ----
+
+// T: element type; kPer: 16-byte units of a tile per consumer thread.
+// Dynamic shared memory: p.stages tiles, two output tiles, then the
+// stages' full and empty mbarriers.
+template <typename T, int kPer>
+__global__ void __launch_bounds__(kHbmThreads)
+hbm_kernel(const __grid_constant__ Params p) {
+  constexpr int kTileUnits = kThreads * kPer;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int stages = p.stages;
+  uint4* const stage = reinterpret_cast<uint4*>(smem);
+  uint4* const outbuf = stage + stages * kTileUnits;
+  uint64_t* const full = reinterpret_cast<uint64_t*>(outbuf + 2 * kTileUnits);
+  uint64_t* const empty = full + stages;
+
+  const int r = blockIdx.x, n = p.n, my = p.my[r];
+  const unsigned char* const ring = p.members[r];
+  const long long chunk = p.chunk;
+  const long long tiles = (chunk + kTileUnits - 1) / kTileUnits;
+  const long long t_lo = tiles * blockIdx.y / gridDim.y;
+  const long long t_hi = tiles * (blockIdx.y + 1) / gridDim.y;
+  const long long off = wrap(my + 1, n) * chunk;  // chunk my + 1
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kThreads / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  enter(p, r, blockIdx.y);  // ends in __syncthreads: the mbarriers are set
+
+  if (threadIdx.x >= kThreads) {
+    if (threadIdx.x != kThreads) return;
+    // The producer: load i = (tile, member) into stage i mod K, phase
+    // i / K, once the stage's previous phase has been read.
+    int s = 0;
+    uint32_t phase = 0;
+    bool refill = false;
+    for (long long t = t_lo; t < t_hi; ++t) {
+      const long long u0 = t * kTileUnits;
+      const uint32_t bytes = static_cast<uint32_t>(
+          (chunk - u0 < kTileUnits ? chunk - u0 : kTileUnits) * 16);
+      for (int m = 0; m < n; ++m) {
+        if (refill) mbar_wait(empty + s, phase ^ 1);
+        mbar_expect(full + s, bytes);
+        bulk_load(stage + s * kTileUnits,
+                  static_cast<const uint4*>(p.in[ring[wrap(my + 1 + m, n)]]) +
+                      off + u0,
+                  bytes, full + s);
+        if (++s == stages) {
+          s = 0;
+          phase ^= 1;
+          refill = true;
+        }
+      }
+    }
+    return;
+  }
+
+  // The consumers: thread x owns units x, x + 256, ... of every tile.
+  int s = 0;
+  uint32_t phase = 0;
+  for (long long t = t_lo; t < t_hi; ++t) {
+    const long long u0 = t * kTileUnits;
+    const int len = static_cast<int>(
+        chunk - u0 < kTileUnits ? chunk - u0 : kTileUnits);
+    uint4 acc[kPer];
+    for (int m = 0; m < n; ++m) {
+      mbar_wait(full + s, phase);
+      const uint4* const src = stage + s * kTileUnits;
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        const int e = k * kThreads + threadIdx.x;
+        if (e < len) {
+          acc[k] = m == 0 ? src[e] : add_units<T>(src[e], acc[k]);
+        }
+      }
+      __syncwarp();
+      if ((threadIdx.x & 31) == 0) mbar_arrive(empty + s);
+      if (++s == stages) {
+        s = 0;
+        phase ^= 1;
+      }
+    }
+    // The output buffer of two tiles ago is free once its stores have
+    // read it.
+    uint4* const buf = outbuf + ((t - t_lo) & 1) * kTileUnits;
+    if (threadIdx.x == 0) {
+      asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
+    }
+    consumers_sync();
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int e = k * kThreads + threadIdx.x;
+      if (e < len) buf[e] = acc[k];
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    consumers_sync();
+    if (threadIdx.x == 0) {
+      for (int k = 0; k < n; ++k) {
+        bulk_store(static_cast<uint4*>(p.out[ring[k]]) + off + u0, buf,
+                   static_cast<uint32_t>(len) * 16);
+      }
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    }
+  }
+  if (threadIdx.x == 0) {
+    asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+  }
+}
+
+// ---- B10 ----
 
 // The slice [lo, hi) of this block (16-byte units of a chunk of `chunk`).
 __device__ __forceinline__ void slice_of(long long chunk, long long* lo,
@@ -142,104 +352,6 @@ __device__ __forceinline__ void slice_of(long long chunk, long long* lo,
   *lo = chunk * slice / slices;
   *hi = chunk * (slice + 1) / slices;
 }
-
-// ---- B9 ----
-
-// acc[u] = acc[u] + got[u] over this block's units [lo, hi), both operands
-// streamed through shared memory in tiles, tile t + 1's cp.async loads
-// issued before tile t's add and store. Each thread reads back only the
-// shared units it loaded itself, so cp.async.wait_group is the only
-// synchronisation a tile needs.
-template <typename T>
-__device__ void stream_add(uint4* acc, const uint4* got, long long lo,
-                           long long hi,
-                           uint4 (&tiles)[2][2][kTileUnits]) {
-  const long long n_tiles = (hi - lo + kTileUnits - 1) / kTileUnits;
-  auto load = [&](long long t, int buf) {
-#pragma unroll
-    for (int k = 0; k < kTilePerThread; ++k) {
-      const int i = k * kThreads + threadIdx.x;
-      const long long u = lo + t * kTileUnits + i;
-      if (u < hi) {
-        cp_async16(&tiles[buf][0][i], acc + u);
-        cp_async16(&tiles[buf][1][i], got + u);
-      }
-    }
-    cp_async_commit();
-  };
-  if (n_tiles > 0) load(0, 0);
-  for (long long t = 0; t < n_tiles; ++t) {
-    const int cur = static_cast<int>(t & 1);
-    if (t + 1 < n_tiles) {
-      load(t + 1, cur ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-#pragma unroll
-    for (int k = 0; k < kTilePerThread; ++k) {
-      const int i = k * kThreads + threadIdx.x;
-      const long long u = lo + t * kTileUnits + i;
-      if (u < hi) {
-        __stcg(acc + u, add_units<T>(tiles[cur][0][i], tiles[cur][1][i]));
-      }
-    }
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) hbm_kernel(const Params p) {
-  __shared__ uint4 tiles[2][2][kTileUnits];  // [buffer][acc, received]
-  const int r = blockIdx.x;
-  const int n = p.n, my = p.my[r], right = p.right[r], left = p.left[r];
-  const long long chunk = p.chunk;
-  long long lo, hi;
-  slice_of(chunk, &lo, &hi);
-  const long long t0 = lo + threadIdx.x;
-  int* const fl_me = p.flags[r] + blockIdx.y * p.flag_stride;
-  int* const fl_right = p.flags[right] + blockIdx.y * p.flag_stride;
-  int* const fl_left = p.flags[left] + blockIdx.y * p.flag_stride;
-  const uint4* const in = static_cast<const uint4*>(p.in[r]);
-  uint4* const out = static_cast<uint4*>(p.out[r]);
-
-  for (int c = 0; c < n; ++c) {
-    for (long long u = t0; u < hi; u += kThreads) {
-      out[c * chunk + u] = in[c * chunk + u];
-    }
-  }
-  ring_barrier(fl_me, fl_left, fl_right);
-
-  uint4* const slots = static_cast<uint4*>(p.comm[r]);
-  uint4* const peer_slots = static_cast<uint4*>(p.comm[right]);
-  for (int s = 0; s < n - 1; ++s) {
-    const int slot = s & 1;
-    if (s >= 2) wait_flag(fl_me + kAck + slot, s / 2);
-    const uint4* src = out + wrap(my - s, n) * chunk;
-    uint4* dst = peer_slots + slot * chunk;
-    for (long long u = t0; u < hi; u += kThreads) {
-      __stcg(dst + u, __ldcg(src + u));
-    }
-    signal_add(fl_right + kFull + slot, 1);
-    wait_flag(fl_me + kFull + slot, s / 2 + 1);
-    stream_add<T>(out + wrap(my - s - 1, n) * chunk, slots + slot * chunk,
-                  lo, hi, tiles);
-    signal_add(fl_left + kAck + slot, 1);
-  }
-  if (n >= 3) wait_flag(fl_me + kAck + ((n - 3) & 1), (n - 3) / 2 + 1);
-  wait_flag(fl_me + kAck + ((n - 2) & 1), (n - 2) / 2 + 1);
-
-  uint4* const peer_out = static_cast<uint4*>(p.out[right]);
-  for (int s = 0; s < n - 1; ++s) {
-    const long long off = wrap(my + 1 - s, n) * chunk;
-    for (long long u = t0; u < hi; u += kThreads) {
-      __stcg(peer_out + off + u, __ldcg(out + off + u));
-    }
-    signal_set(fl_right + kGather + s, 1);
-    wait_flag(fl_me + kGather + s, 1);
-  }
-}
-
-// ---- B10 ----
 
 // max|x| over the whole chunk `src` of this block's rank: this block's
 // slice [lo, hi) folded into *cell, then a wait for every slice block of
@@ -321,7 +433,8 @@ __device__ __forceinline__ float scale_of(float absmax) {
   return __fmul_rn(absmax, 0x1.020408p-7f);
 }
 
-__global__ void __launch_bounds__(kThreads) q8_kernel(const Params p) {
+__global__ void __launch_bounds__(kThreads)
+q8_kernel(const __grid_constant__ Params p) {
   const int r = blockIdx.x, j = blockIdx.y, slices = gridDim.y;
   const int n = p.n, my = p.my[r], right = p.right[r], left = p.left[r];
   const long long chunk = p.chunk;
@@ -410,35 +523,34 @@ __global__ void __launch_bounds__(kThreads) q8_kernel(const Params p) {
 // ---- B11 ----
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads) bidir_kernel(const Params p) {
+__global__ void __launch_bounds__(kThreads)
+bidir_kernel(const __grid_constant__ Params p) {
   const int r = blockIdx.x, d = blockIdx.y;
-  const int j = blockIdx.z, slices = gridDim.z;
-  const int n = p.n;
-  // Direction 1 is B3 on the reversed ring: ring index -my, sending to
-  // the left, chunk c' standing for chunk -c'.
-  const int my = d ? wrap(-p.my[r], n) : p.my[r];
-  const int to = d ? p.left[r] : p.right[r];
-  const int from = d ? p.right[r] : p.left[r];
-  const long long hu = p.half_units, rows = p.chunk_rows;
-  const long long half = rows * hu;
-  const long long lo = half * j / slices, hi = half * (j + 1) / slices;
+  const int n = p.n, my = p.my[r];
+  const unsigned char* const ring = p.members[r];
+  // d = 0: chunk my + 1, members my + 1, ..., my + n (B3's order);
+  // d = 1: chunk my - 1, members my - 1, ..., my - n (the mirrored ring's).
+  const int dir = d ? -1 : 1;
+  const long long hu = p.half_units, pitch = 2 * hu;
+  const long long half = p.chunk_rows * hu;
+  const long long lo = half * blockIdx.z / gridDim.z;
+  const long long hi = half * (blockIdx.z + 1) / gridDim.z;
+  // Unit u of the half lies at (row, unit in the row) = (u / hu, u % hu)
+  // from the half's first unit.
+  const long long first = wrap(my + dir, n) * p.chunk_rows * pitch + d * hu;
+
+  enter(p, r, d * gridDim.z + blockIdx.z);
+
+  // This thread's next unit as (row, unit in the row), stepped by kThreads
+  // units without a divide.
   const long long t0 = lo + threadIdx.x;
-  const int set = d * slices + j;
-  int* const fl_me = p.flags[r] + set * p.flag_stride;
-  int* const fl_to = p.flags[to] + set * p.flag_stride;
-  int* const fl_from = p.flags[from] + set * p.flag_stride;
-  const uint4* const in = static_cast<const uint4*>(p.in[r]);
-  uint4* const out = static_cast<uint4*>(p.out[r]);
-  // Chunk c' of this direction starts at `base(c')` units; unit u of its
-  // half lies at (row, unit in the row) = (u / hu, u % hu) from there.
-  auto base = [&](int c) { return wrap(d ? -c : c, n) * rows * 2 * hu; };
-  // Runs body(u, offset of unit u in a chunk) over this thread's units u =
-  // t0, t0 + kThreads, ... < hi, stepping (row, unit) without a divide.
+  long long row = t0 / hu, cu = t0 % hu;
   const long long step_rows = kThreads / hu, step_units = kThreads % hu;
-  auto walk = [&](auto&& body) {
-    long long row = t0 / hu, cu = t0 % hu;
-    for (long long u = t0; u < hi; u += kThreads) {
-      body(u, row * 2 * hu + d * hu + cu);
+  for (long long base = t0; base < hi; base += kThreads * kUnroll) {
+    long long at[kUnroll];
+#pragma unroll
+    for (int i = 0; i < kUnroll; ++i) {
+      at[i] = first + row * pitch + cu;
       row += step_rows;
       cu += step_units;
       if (cu >= hu) {
@@ -446,50 +558,38 @@ __global__ void __launch_bounds__(kThreads) bidir_kernel(const Params p) {
         ++row;
       }
     }
-  };
-
-  for (int c = 0; c < n; ++c) {
-    const long long b = base(c);
-    walk([&](long long, long long off) { out[b + off] = in[b + off]; });
-  }
-  ring_barrier(fl_me, fl_from, fl_to);
-
-  uint4* const slots = static_cast<uint4*>(p.comm[r]) + d * 2 * half;
-  uint4* const peer_slots = static_cast<uint4*>(p.comm[to]) + d * 2 * half;
-  for (int s = 0; s < n - 1; ++s) {
-    const int slot = s & 1;
-    if (s >= 2) wait_flag(fl_me + kAck + slot, s / 2);
-    uint4* dst = peer_slots + slot * half;
-    const uint4* src = out + base(my - s);
-    walk([&](long long u, long long off) {
-      __stcg(dst + u, __ldcg(src + off));
-    });
-    signal_add(fl_to + kFull + slot, 1);
-    wait_flag(fl_me + kFull + slot, s / 2 + 1);
-    const uint4* got = slots + slot * half;
-    uint4* mine = out + base(my - s - 1);
-    walk([&](long long u, long long off) {
-      __stcg(mine + off, add_units<T>(__ldcg(mine + off), __ldcg(got + u)));
-    });
-    signal_add(fl_from + kAck + slot, 1);
-  }
-  if (n >= 3) wait_flag(fl_me + kAck + ((n - 3) & 1), (n - 3) / 2 + 1);
-  wait_flag(fl_me + kAck + ((n - 2) & 1), (n - 2) / 2 + 1);
-
-  uint4* const peer_out = static_cast<uint4*>(p.out[to]);
-  for (int s = 0; s < n - 1; ++s) {
-    const long long b = base(my + 1 - s);
-    walk([&](long long, long long off) {
-      __stcg(peer_out + b + off, __ldcg(out + b + off));
-    });
-    signal_set(fl_to + kGather + s, 1);
-    wait_flag(fl_me + kGather + s, 1);
+    uint4 acc[kUnroll];
+    fold_members<T, kUnroll, kGroup>(
+        acc, n,
+        [&](int k) {
+          return static_cast<const uint4*>(
+              p.in[ring[wrap(my + dir * (1 + k), n)]]);
+        },
+        [&](int i) { return at[i]; },
+        [&](int i) { return base + i * kThreads < hi; });
+#pragma unroll
+    for (int i = 0; i < kUnroll; ++i) {
+      if (base + i * kThreads >= hi) continue;
+      for (int k = 0; k < n; ++k) {
+        static_cast<uint4*>(p.out[ring[k]])[at[i]] = acc[i];
+      }
+    }
   }
 }
 
-void* kernel_for(int variant, int dtype) {
-  if (variant == kHbm && dtype == 0) return (void*)hbm_kernel<__nv_bfloat16>;
-  if (variant == kHbm && dtype == 1) return (void*)hbm_kernel<float>;
+// The instances: B9 by dtype and tile (8, 16 or 32 KB), B10 f32, B11 by
+// dtype (0 = bf16, 1 = f32).
+template <typename T>
+void* hbm_for(int tile_bytes) {
+  if (tile_bytes == kThreads * 2 * 16) return (void*)hbm_kernel<T, 2>;
+  if (tile_bytes == kThreads * 4 * 16) return (void*)hbm_kernel<T, 4>;
+  if (tile_bytes == kThreads * 8 * 16) return (void*)hbm_kernel<T, 8>;
+  return nullptr;
+}
+
+void* kernel_for(int variant, int dtype, int tile_bytes) {
+  if (variant == kHbm && dtype == 0) return hbm_for<__nv_bfloat16>(tile_bytes);
+  if (variant == kHbm && dtype == 1) return hbm_for<float>(tile_bytes);
   if (variant == kQ8 && dtype == 1) return (void*)q8_kernel;
   if (variant == kBidir && dtype == 0) {
     return (void*)bidir_kernel<__nv_bfloat16>;
@@ -498,83 +598,104 @@ void* kernel_for(int variant, int dtype) {
   return nullptr;
 }
 
-// Fills the peer table from per-rank strides (bytes) off base pointers and
-// launches. sets: flag sets per rank (S, or 2 S for B11).
-int run(int variant, const void* in, void* out, long long rank_stride,
-        void* comm, long long comm_stride, float* scales,
-        long long scales_stride, int* flags, int flag_stride, const int* my,
-        const int* right, const int* left, int ranks, int n, int slices,
-        long long chunk, long long chunk_rows, long long half_units,
-        int dtype, void* stream) {
-  const int sets = variant == kBidir ? 2 * slices : slices;
-  void* fn = kernel_for(variant, dtype);
-  if (fn == nullptr || ranks < 2 || ranks > kMaxRanks || n < 2 || n > ranks ||
-      slices < 1 || slices > 65535 || flag_stride < kGather + n - 1 ||
-      (variant != kBidir && chunk < 1) ||
-      (variant == kBidir && (chunk_rows < 1 || half_units < 1))) {
-    return static_cast<int>(cudaErrorInvalidValue);
+// B9's dynamic shared memory: the stages, two output tiles, the mbarriers.
+int hbm_smem(int tile_bytes, int stages) {
+  return (stages + 2) * tile_bytes + 2 * stages * 8;
+}
+
+// Threads and dynamic shared memory of a launch; lets the kernel take
+// more than 48 KB of it.
+cudaError_t shape_of(int variant, void* fn, int tile_bytes, int stages,
+                     int* threads, int* smem) {
+  *threads = variant == kHbm ? kHbmThreads : kThreads;
+  *smem = variant == kHbm ? hbm_smem(tile_bytes, stages) : 0;
+  if (*smem == 0) return cudaSuccess;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              *smem);
+}
+
+// Checks the sizes and fills the per-rank part of the peer table: rank r's
+// input and output are base + r * rank_stride (bytes), its flags `sets`
+// sets of flag_stride ints.
+bool fill(Params& p, const void* in, void* out, long long rank_stride,
+          int* flags, int flag_stride, int sets, const int* my, int ranks,
+          int n, int slices) {
+  if (ranks < 2 || ranks > kMaxRanks || n < 2 || n > ranks || slices < 1 ||
+      slices > 65535 || flag_stride < kGather + n - 1) {
+    return false;
   }
-  Params p;
   memset(&p, 0, sizeof(p));
-  // B10's cells follow every rank's flag sets.
-  int* const cells = flags + static_cast<long long>(ranks) * sets * flag_stride;
   for (int r = 0; r < ranks; ++r) {
-    if (my[r] < 0 || my[r] >= n || right[r] < 0 || right[r] >= ranks ||
-        left[r] < 0 || left[r] >= ranks) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
+    if (my[r] < 0 || my[r] >= n) return false;
     p.in[r] = static_cast<const char*>(in) + r * rank_stride;
     p.out[r] = static_cast<char*>(out) + r * rank_stride;
-    p.comm[r] = static_cast<char*>(comm) + r * comm_stride;
-    p.scales[r] = scales ? reinterpret_cast<float*>(
-                               reinterpret_cast<char*>(scales) +
-                               r * scales_stride)
-                         : nullptr;
     p.flags[r] = flags + static_cast<long long>(r) * sets * flag_stride;
-    p.cells[r] = cells + 2 * n * r;
     p.my[r] = my[r];
-    p.right[r] = right[r];
-    p.left[r] = left[r];
   }
   p.n = n;
   p.flag_stride = flag_stride;
-  p.chunk = chunk;
-  p.chunk_rows = chunk_rows;
-  p.half_units = half_units;
-  const dim3 grid = variant == kBidir ? dim3(ranks, 2, slices)
-                                      : dim3(ranks, slices);
-  void* args[] = {&p};
-  const cudaError_t err = cudaLaunchCooperativeKernel(
-      fn, grid, dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream));
-  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+  return true;
+}
+
+// B9 and B11: members is ranks x n flat ranks, row r the ring of rank r in
+// ring order; rank r must be entry my[r] of its own row.
+bool fill_members(Params& p, const int* members, int ranks, int n) {
+  for (int r = 0; r < ranks; ++r) {
+    for (int k = 0; k < n; ++k) {
+      const int m = members[r * n + k];
+      if (m < 0 || m >= ranks || (k == p.my[r]) != (m == r)) return false;
+      p.members[r][k] = static_cast<unsigned char>(m);
+    }
+  }
+  return true;
+}
+
+int launch(int variant, void* fn, const Params& p, dim3 grid, int tile_bytes,
+           void* stream) {
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  int threads = 0, smem = 0;
+  cudaError_t err = shape_of(variant, fn, tile_bytes, p.stages, &threads,
+                             &smem);
+  void* args[] = {const_cast<Params*>(&p)};
+  if (err == cudaSuccess) {
+    err = cudaLaunchCooperativeKernel(fn, grid, dim3(threads), args, smem,
+                                      static_cast<cudaStream_t>(stream));
+  }
+  if (err == cudaSuccess) err = cudaGetLastError();
+  return static_cast<int>(err);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Ints of flags each (rank, slice), or (rank, direction, slice) for B11,
-// needs for a ring of n.
+// Ints of flags each (rank, slice), or (rank, half, slice) for B11, needs
+// for a ring of n (B10's layout; B9 and B11 use the first).
 int gtt_ring_variants_flag_stride(int n) {
   return kGather + (n > 1 ? n - 1 : 1);
 }
 
-// The most blocks of any of the three kernels that can be resident at
-// once on the current device (the cooperative launch's limit), in
-// *blocks.
-int gtt_ring_variants_max_blocks(int* blocks) {
+// The most blocks of one variant's kernels (both dtypes; for B9 those of
+// tile_bytes with `stages` stages) that can be resident at once on the
+// current device (the cooperative launch's limit), in *blocks.
+int gtt_ring_variants_max_blocks(int variant, int tile_bytes, int stages,
+                                 int* blocks) {
   int per_sm = 1 << 30;
   cudaError_t err = cudaSuccess;
-  for (int variant = 0; variant < 3; ++variant) {
-    for (int dtype = 0; dtype < 2; ++dtype) {
-      const void* fn = kernel_for(variant, dtype);
-      if (fn == nullptr || err != cudaSuccess) continue;
-      int n = 0;
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, kThreads,
-                                                          0);
-      if (err == cudaSuccess && n < per_sm) per_sm = n;
+  bool any = false;
+  for (int dtype = 0; dtype < 2 && err == cudaSuccess; ++dtype) {
+    void* fn = kernel_for(variant, dtype, tile_bytes);
+    if (fn == nullptr) continue;
+    any = true;
+    int threads = 0, smem = 0, n = 0;
+    err = shape_of(variant, fn, tile_bytes, stages, &threads, &smem);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, threads,
+                                                          smem);
     }
+    if (err == cudaSuccess && n < per_sm) per_sm = n;
   }
+  if (!any || (variant == kHbm && stages < 1)) err = cudaErrorInvalidValue;
   int device = 0, sms = 0, coop = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&device);
   if (err == cudaSuccess) {
@@ -590,19 +711,29 @@ int gtt_ring_variants_max_blocks(int* blocks) {
 
 // Each returns a cudaError_t; 0 is success. x and out: P ranks of n
 // chunks at rank_stride bytes, every buffer 16-byte aligned. dtype: 0 =
-// bf16, 1 = f32. my/right/left: host arrays of `ranks` ints. flags:
-// zeroed, P x S x flag_stride ints (B11: P x 2 x S x flag_stride), and
-// for B10 then 2 n P more.
+// bf16, 1 = f32. flags: zeroed, P x S x flag_stride ints (B11: P x 2 x S
+// x flag_stride), and for B10 then 2 n P more. my: each rank's ring index;
+// members (B9, B11): ranks x n flat ranks, row r the ring of rank r in
+// ring order; right/left (B10): each rank's neighbours as flat ranks. All
+// tables are host arrays.
 
-// B9: chunk = 16-byte units per chunk; comm: P x 2 chunks.
+// B9: chunk = 16-byte units per chunk; tile_bytes 8192, 16384 or 32768;
+// stages >= 1 (the launch takes (stages + 2) tiles of shared memory).
 int gtt_ring_allreduce_hbm(const void* x, void* out, long long rank_stride,
-                           void* comm, long long comm_stride, int* flags,
-                           int flag_stride, const int* my, const int* right,
-                           const int* left, int ranks, int n, int slices,
-                           long long chunk, int dtype, void* stream) {
-  return run(kHbm, x, out, rank_stride, comm, comm_stride, nullptr, 0, flags,
-             flag_stride, my, right, left, ranks, n, slices, chunk, 0, 0,
-             dtype, stream);
+                           int* flags, int flag_stride, const int* my,
+                           const int* members, int ranks, int n, int slices,
+                           long long chunk, int tile_bytes, int stages,
+                           int dtype, void* stream) {
+  Params p;
+  if (!fill(p, x, out, rank_stride, flags, flag_stride, slices, my, ranks,
+            n, slices) ||
+      !fill_members(p, members, ranks, n) || chunk < 1 || stages < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  p.chunk = chunk;
+  p.stages = stages;
+  return launch(kHbm, kernel_for(kHbm, dtype, tile_bytes), p,
+                dim3(ranks, slices), tile_bytes, stream);
 }
 
 // B10 (f32): chunk = 16-byte units (4 floats) per chunk; wire: P x (n + 1)
@@ -614,23 +745,50 @@ int gtt_ring_allreduce_q8(const void* x, void* out, long long rank_stride,
                           int flag_stride, const int* my, const int* right,
                           const int* left, int ranks, int n, int slices,
                           long long chunk, void* stream) {
-  return run(kQ8, x, out, rank_stride, wire, wire_stride, scales,
-             scales_stride, flags, flag_stride, my, right, left, ranks, n,
-             slices, chunk, 0, 0, 1, stream);
+  Params p;
+  if (!fill(p, x, out, rank_stride, flags, flag_stride, slices, my, ranks,
+            n, slices) ||
+      chunk < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // The cells follow every rank's flag sets.
+  int* const cells =
+      flags + static_cast<long long>(ranks) * slices * flag_stride;
+  for (int r = 0; r < ranks; ++r) {
+    if (right[r] < 0 || right[r] >= ranks || left[r] < 0 ||
+        left[r] >= ranks) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    p.comm[r] = static_cast<char*>(wire) + r * wire_stride;
+    p.scales[r] = reinterpret_cast<float*>(reinterpret_cast<char*>(scales) +
+                                           r * scales_stride);
+    p.cells[r] = cells + 2 * n * r;
+    p.right[r] = right[r];
+    p.left[r] = left[r];
+  }
+  p.chunk = chunk;
+  return launch(kQ8, kernel_for(kQ8, 1, 0), p, dim3(ranks, slices), 0,
+                stream);
 }
 
 // B11: chunk_rows rows per chunk, half_units 16-byte units per row of one
-// column half (a row is 2 half_units); comm: P x 2 directions x 2 slots of
-// chunk_rows x half_units units.
+// column half (a row is 2 half_units).
 int gtt_ring_allreduce_bidir(const void* x, void* out, long long rank_stride,
-                             void* comm, long long comm_stride, int* flags,
-                             int flag_stride, const int* my,
-                             const int* right, const int* left, int ranks,
-                             int n, int slices, long long chunk_rows,
+                             int* flags, int flag_stride, const int* my,
+                             const int* members, int ranks, int n,
+                             int slices, long long chunk_rows,
                              long long half_units, int dtype, void* stream) {
-  return run(kBidir, x, out, rank_stride, comm, comm_stride, nullptr, 0,
-             flags, flag_stride, my, right, left, ranks, n, slices, 0,
-             chunk_rows, half_units, dtype, stream);
+  Params p;
+  if (!fill(p, x, out, rank_stride, flags, flag_stride, 2 * slices, my,
+            ranks, n, slices) ||
+      !fill_members(p, members, ranks, n) || chunk_rows < 1 ||
+      half_units < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  p.chunk_rows = chunk_rows;
+  p.half_units = half_units;
+  return launch(kBidir, kernel_for(kBidir, dtype, 0), p,
+                dim3(ranks, 2, slices), 0, stream);
 }
 
 const char* gtt_error_string(int err) {

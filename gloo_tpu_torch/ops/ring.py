@@ -29,13 +29,14 @@ with the TPU kernel's send and receive chunk indices and adds in the same
 order, one add per step in the input dtype (bf16 rounds after every step,
 as the TPU kernel's ``o_ref[...] + comm_ref[slot]`` does). A chunk's B3
 sum is thus x[c + n - 1] + (... + (x[c + 1] + x[c])), ring indices mod n.
-B3 and B4a do not walk the ring on the card: the rank that finishes a
-chunk reads it from every member of its ring in that same order and adds
-it up in one pass (csrc/ring.cu), so their sums are the twins' bit for
-bit. The sum kernels B3 and B4a take SUM_DTYPES on the card and on the
-CPU alike; B9 and B11 bf16 and f32, B10 f32. The allgather and the
-all-to-all move bytes only, in any dtype, and their twins' copies are the
-kernels', step by step.
+B3, B4a, B9 and B11 do not walk the ring on the card: the rank that
+finishes a chunk reads it from every member of its ring in that same order
+and adds it up in one pass (csrc/ring.cu, csrc/ring_variants.cu; B11's
+right half in the mirrored ring's order, B9 through TMA bulk copies), so
+their sums are the twins' bit for bit. The sum kernels B3 and B4a take
+SUM_DTYPES on the card and on the CPU alike; B9 and B11 bf16 and f32, B10
+f32. The allgather and the all-to-all move bytes only, in any dtype, and
+their twins' copies are the kernels', step by step.
 """
 
 from __future__ import annotations
@@ -488,30 +489,35 @@ def ring_allreduce_torus(x: torch.Tensor, axis_names, mesh: Mesh):
 # ---- B9, B10, B11: the allreduce variants ----
 
 _var_lib: ctypes.CDLL | None = None
-_var_max_blocks: dict[int, int] = {}
-# 16-byte units per tile and operand of B9's stream (csrc kTileUnits), and
-# the tiles each slice of a chunk streams at most: a slice long enough for
-# the double-buffered loads to overlap the adds.
-HBM_TILE_UNITS = 512
-HBM_TILES_PER_SLICE = 4
+# Most co-resident blocks per (variant, tile bytes, stages), then per
+# device index (gtt_ring_variants_max_blocks; each kernel its own query).
+_var_max_blocks: dict[tuple[int, int, int], dict[int, int]] = {}
+# csrc/ring_variants.cu's variant codes.
+_HBM, _Q8, _BIDIR = 0, 1, 2
+# B9's stream: bytes per tile (8192, 16384 or 32768: 2, 4 or 8 16-byte
+# units per consumer thread) and the shared-memory stages of one tile each
+# that the bulk copies fill ahead of the adds. The launch takes (stages +
+# 2) tiles of shared memory per block.
+HBM_TILE_BYTES = 16384
+HBM_STAGES = 4
 
 
 def _variants_lib() -> ctypes.CDLL:
     global _var_lib
     if _var_lib is None:
         lib = _build.load("ring_variants")
-        head = [_P, _P, _L, _P, _L]  # x, out, rank stride, comm, its stride
+        # x, out, rank stride, flags, flag stride, my, members, ranks, n,
+        # slices
+        head = [_P, _P, _L, _P, _I, _IP, _IP, _I, _I, _I]
         for name, argtypes in (
-                ("gtt_ring_allreduce_hbm",
-                 head + [_P, _I] + _TABLES + [_L, _I, _P]),
+                ("gtt_ring_allreduce_hbm", head + [_L, _I, _I, _I, _P]),
                 ("gtt_ring_allreduce_q8",
-                 head + [_P, _L, _P, _I] + _TABLES + [_L, _P]),
-                ("gtt_ring_allreduce_bidir",
-                 head + [_P, _I] + _TABLES + [_L, _L, _I, _P])):
+                 [_P, _P, _L, _P, _L, _P, _L, _P, _I] + _TABLES + [_L, _P]),
+                ("gtt_ring_allreduce_bidir", head + [_L, _L, _I, _P])):
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        lib.gtt_ring_variants_max_blocks.argtypes = [_IP]
+        lib.gtt_ring_variants_max_blocks.argtypes = [_I, _I, _I, _IP]
         lib.gtt_ring_variants_max_blocks.restype = ctypes.c_int
         lib.gtt_ring_variants_flag_stride.argtypes = [_I]
         lib.gtt_ring_variants_flag_stride.restype = ctypes.c_int
@@ -539,14 +545,22 @@ def _vector_input(x: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def _variant_setup(x: torch.Tensor, mesh: Mesh, axis_name: str,
-                   want: int, blocks_per_slice: int = 1, extra: int = 0):
-    """(lib, slices, zeroed flags, flag stride, ctypes ring tables)."""
+                   variant: int, want: int, blocks_per_slice: int = 1,
+                   extra: int = 0):
+    """(lib, slices, zeroed flags, flag stride, ctypes ring tables) for a
+    launch of `variant`, its slices bounded by that kernel's own
+    occupancy (B9's at HBM_TILE_BYTES and HBM_STAGES)."""
     _check_ranks(x, "the ring variant kernels")
     lib = _variants_lib()
     stride = lib.gtt_ring_variants_flag_stride(mesh.shape[axis_name])
+    tile, stages = (HBM_TILE_BYTES, HBM_STAGES) if variant == _HBM \
+        else (0, 0)
     slices, flags, tables = cooperative_grid(
-        x, mesh, axis_name, lib, lib.gtt_ring_variants_max_blocks,
-        _var_max_blocks, want, stride, blocks_per_slice, extra)
+        x, mesh, axis_name, lib,
+        lambda ref: lib.gtt_ring_variants_max_blocks(variant, tile, stages,
+                                                     ref),
+        _var_max_blocks.setdefault((variant, tile, stages), {}), want,
+        stride, blocks_per_slice, extra)
     return lib, slices, flags, stride, tables
 
 
@@ -564,16 +578,15 @@ def _allreduce_hbm(x: torch.Tensor, axis_name: str,
     per_rank = xv[0].numel() * xv.element_size()
     units = per_rank // n // 16
     out = torch.empty_like(xv)
-    comm = torch.empty((ranks, 2 * per_rank // n), dtype=torch.uint8,
-                       device=x.device)
-    lib, slices, flags, stride, (my, right, left) = _variant_setup(
-        xv, mesh, axis_name,
-        -(-units // (HBM_TILE_UNITS * HBM_TILES_PER_SLICE)))
+    # At most one slice per tile; each block streams a run of whole tiles.
+    lib, slices, flags, stride, (my, _, _) = _variant_setup(
+        xv, mesh, axis_name, _HBM, -(-units * 16 // HBM_TILE_BYTES))
     with torch.cuda.device(x.device):
         err = lib.gtt_ring_allreduce_hbm(
-            xv.data_ptr(), out.data_ptr(), per_rank, comm.data_ptr(),
-            comm.stride(0), flags.data_ptr(), stride, my, right, left, ranks,
-            n, slices, units, KERNEL_DTYPES[x.dtype], _stream(x))
+            xv.data_ptr(), out.data_ptr(), per_rank, flags.data_ptr(),
+            stride, my, _members_table(mesh, axis_name), ranks, n, slices,
+            units, HBM_TILE_BYTES, HBM_STAGES, KERNEL_DTYPES[x.dtype],
+            _stream(x))
     _raise_on(err, "ring_allreduce_hbm", lib)
     ring_allreduce_hbm.launches += 1
     return out if xv.shape == x.shape else out[..., :cols]
@@ -581,11 +594,10 @@ def _allreduce_hbm(x: torch.Tensor, axis_name: str,
 
 def ring_allreduce_hbm(x: torch.Tensor, axis_name: str,
                        mesh: Mesh) -> torch.Tensor:
-    """B9: the sum-allreduce of ring_allreduce, with the received chunk of
-    every reduce-scatter step streamed through shared memory in tiles
-    (double-buffered cp.async loads). B3's chunk order and add order, so
-    its result is bitwise B3's. bf16 or f32; rows % n == 0.
-    Differentiable."""
+    """B9: the sum-allreduce of ring_allreduce, each member's tile of the
+    chunk streamed through shared-memory stages by TMA bulk copies and the
+    sums stored back by bulk copies. B3's add order, so its result is
+    bitwise B3's. bf16 or f32; rows % n == 0. Differentiable."""
     return _differentiable(_allreduce_hbm, x, axis_name, mesh)
 
 
@@ -620,7 +632,7 @@ def _allreduce_q8(x: torch.Tensor, axis_name: str,
     wire = torch.empty((ranks, (n + 1) * chunk), dtype=torch.int8,
                        device=x.device)
     lib, slices, flags, stride, (my, right, left) = _variant_setup(
-        xv, mesh, axis_name, -(-chunk // 4 // KERNEL_THREADS),
+        xv, mesh, axis_name, _Q8, -(-chunk // 4 // KERNEL_THREADS),
         extra=2 * n * ranks)
     scales = torch.empty((ranks, (n + 1) * slices), dtype=torch.float32,
                          device=x.device)
@@ -712,16 +724,16 @@ def _allreduce_bidir(x: torch.Tensor, axis_name: str,
     half_units = cols // 2 * elt // 16
     chunk_rows = rows // n
     out = torch.empty_like(xv)
-    comm = torch.empty((ranks, 2, 2, chunk_rows * cols // 2), dtype=x.dtype,
-                       device=x.device)
-    lib, slices, flags, stride, (my, right, left) = _variant_setup(
-        xv, mesh, axis_name, -(-chunk_rows * half_units // KERNEL_THREADS),
+    lib, slices, flags, stride, (my, _, _) = _variant_setup(
+        xv, mesh, axis_name, _BIDIR,
+        -(-chunk_rows * half_units // (KERNEL_THREADS
+                                       * SUM_UNITS_PER_THREAD)),
         blocks_per_slice=2)
     with torch.cuda.device(x.device):
         err = lib.gtt_ring_allreduce_bidir(
             xv.data_ptr(), out.data_ptr(), rows * cols * elt,
-            comm.data_ptr(), comm.stride(0) * elt, flags.data_ptr(), stride,
-            my, right, left, ranks, n, slices, chunk_rows, half_units,
+            flags.data_ptr(), stride, my, _members_table(mesh, axis_name),
+            ranks, n, slices, chunk_rows, half_units,
             KERNEL_DTYPES[x.dtype], _stream(x))
     _raise_on(err, "ring_allreduce_bidir", lib)
     ring_allreduce_bidir.launches += 1
@@ -731,9 +743,9 @@ def _allreduce_bidir(x: torch.Tensor, axis_name: str,
 def ring_allreduce_bidir(x: torch.Tensor, axis_name: str,
                          mesh: Mesh) -> torch.Tensor:
     """B11: sum-allreduce on two counter-rotating rings: columns
-    [0, cols/2) run B3's schedule to the right, columns [cols/2, cols) the
-    mirrored schedule to the left. bf16 or f32; rows % n == 0 and
-    cols % 256 == 0; a ring of one returns x. Differentiable."""
+    [0, cols/2) summed in B3's order, columns [cols/2, cols) in the
+    mirrored ring's. bf16 or f32; rows % n == 0 and cols % 256 == 0; a
+    ring of one returns x. Differentiable."""
     return _differentiable(_allreduce_bidir, x, axis_name, mesh)
 
 

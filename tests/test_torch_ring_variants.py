@@ -296,30 +296,46 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# (variant, mesh axes, ring axis, rows per rank, cols, dtype).
+CARD_CASES = [
+    (name, {"x": n}, "x", per, cols, dtype)
+    for name, n, per, cols, dtype in (
+        ("hbm", 2, 16, 128, torch.float32), ("hbm", 3, 792, 128,
+                                             torch.float32),
+        ("hbm", 8, 64, 128, torch.float32), ("hbm", 4, 64, 128,
+                                             torch.bfloat16),
+        ("hbm", 4, 32, 33, torch.bfloat16),
+        ("q8", 2, 64, 128, torch.float32), ("q8", 3, 96, 128, torch.float32),
+        ("q8", 8, 256, 128, torch.float32),
+        ("bidir", 2, 16, 256, torch.float32), ("bidir", 3, 24, 512,
+                                               torch.float32),
+        ("bidir", 8, 64, 256, torch.float32), ("bidir", 4, 64, 256,
+                                               torch.bfloat16))] + [
+    (name, {"data": 2, "model": 2}, axis, 64, 256, torch.float32)
+    for axis in ("data", "model") for name in ("hbm", "q8", "bidir")]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name,n,per,cols,dtype", [
-    ("hbm", 2, 16, 128, torch.float32), ("hbm", 3, 792, 128, torch.float32),
-    ("hbm", 8, 64, 128, torch.float32), ("hbm", 4, 64, 128, torch.bfloat16),
-    ("hbm", 4, 32, 33, torch.bfloat16),
-    ("q8", 2, 64, 128, torch.float32), ("q8", 3, 96, 128, torch.float32),
-    ("q8", 8, 256, 128, torch.float32),
-    ("bidir", 2, 16, 256, torch.float32), ("bidir", 3, 24, 512,
-                                           torch.float32),
-    ("bidir", 8, 64, 256, torch.float32), ("bidir", 4, 64, 256,
-                                           torch.bfloat16)])
-def test_kernels_match_twins_on_card(cuda_device, name, n, per, cols, dtype):
-    mesh = make_mesh({"x": n}, devices=[cuda_device] * n)
-    gen = torch.Generator(cuda_device).manual_seed(n)
-    x = torch.randn((n, per, cols), generator=gen,
+@pytest.mark.parametrize("name,axes,axis,per,cols,dtype", CARD_CASES)
+def test_kernels_match_twins_on_card(cuda_device, name, axes, axis, per,
+                                     cols, dtype):
+    """Each case three times in a row (an ordering fault between bulk
+    copies, barriers and flags shows now and then), bitwise the twin."""
+    ranks = int(np.prod(list(axes.values())))
+    mesh = make_mesh(axes, devices=[cuda_device] * ranks)
+    gen = torch.Generator(cuda_device).manual_seed(ranks)
+    x = torch.randn((ranks, per, cols), generator=gen,
                     device=cuda_device).to(dtype)
     fn = VARIANTS[name]
-    before = fn.launches
-    out = fn(x, "x", mesh)
-    torch.cuda.synchronize()
-    assert fn.launches == before + 1
-    assert torch.equal(out, PLAIN[name](x, "x", mesh))
+    want = PLAIN[name](x, axis, mesh)
+    for _ in range(3):
+        before = fn.launches
+        out = fn(x, axis, mesh)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        assert torch.equal(out, want)
     if name == "hbm":
-        assert torch.equal(out, ring.ring_allreduce(x, "x", mesh))
+        assert torch.equal(out, ring.ring_allreduce(x, axis, mesh))
 
 
 @pytest.mark.cuda
