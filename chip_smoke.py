@@ -16,8 +16,9 @@ Phases, each of which raises on failure:
   6. the training path: 5 steps of gloo_tpu_torch.entry.train_step at full
      width, with the launch counts read around them, a falling loss, and
      the first step's loss and gradients against the same model on the CPU;
-  7. times of each kernel, its plain version and the library yardstick,
-     and of the forward and the training step;
+  7. times of each kernel, its plain version and the library yardstick
+     at FLASH_CASES (the entry shape, larger ones and the Ulysses path's
+     whole-sequence shape), and of the forward and the training step;
   8. the ring kernels (allreduce, reduce-scatter, allgather) against their
      plain versions on the card, bitwise, over worlds of 2 to 8 ranks on
      the card (RING_CASES), the DDP buffer and the torus composition on a
@@ -61,7 +62,9 @@ Phases, each of which raises on failure:
      flash_attention_bwd_step) against their plain versions on the card at
      STEP_CASES, every ring step of each (so whole, diagonal and hidden
      blocks, and a carried state), and the all-to-all (B8) bitwise at
-     A2A_CASES;
+     A2A_CASES, three calls each: blocks of rows (the leading axis) and
+     strided blocks (both Ulysses exchanges, a non-leading split along
+     each axis of a 2 x 2 mesh, int32 of odd width);
  17. the long-context path (sp_entry, a global sequence of 4096 over 4
      ranks on the card): ring-flash forward + backward (B6, B7a, B7b 4
      launches each) and Ulysses forward + backward (B8 8, B1 1, B2 1), with
@@ -72,8 +75,10 @@ Phases, each of which raises on failure:
      their expert's MLP applied directly, dropped tokens exactly zero, the
      gradients against a dense reference;
  19. times of B6, B7a and B7b at the long-context path's ring steps and of
-     B8 at its Ulysses exchange, against their bound, plain versions and
-     yardsticks, and of each of the three paths;
+     B8 at a Ulysses exchange (as rows, the layout of the MoE path and the
+     process group, and strided as the Ulysses path launches it), against
+     their bound, plain versions and yardsticks, and of each of the three
+     paths (every device item of the Ulysses path);
  20. the ring allreduce variants (B9 ring_allreduce_hbm, B10
      ring_allreduce_q8, B11 ring_allreduce_bidir) against their plain
      versions on the card, bitwise, at VARIANT_CASES (2 to 8 ranks, the
@@ -238,20 +243,36 @@ STEP_CASES = [
 # both dtypes.
 STEP_TOL = {torch.bfloat16: (1.6e-2, 8e-3), torch.float32: (1e-4, 1e-5)}
 STATE_TOL = (1e-5, 1e-5)
-# (name, mesh axes, ring axis, rows per rank, cols, dtype): B8 against its
-# plain version, bitwise. "ulysses" is one exchange of the long-context
-# path (each rank's (heads, batch * t_local * d) with heads split), "ep"
-# one of the MoE path (each rank's (experts, capacity * d_model)).
+# (name, mesh axes, ring axis, local shape, dtype, split axis, concat
+# axis): B8 against its plain version and lax.all_to_all's definition,
+# bitwise, RING_RUNS calls each. "ulysses" is one exchange of the
+# long-context path as rows (each rank's (heads, batch * t_local * d) with
+# heads split), "ep" one of the MoE path (each rank's (experts, capacity *
+# d_model)); "ulysses_in" and "ulysses_out" are its two strided exchanges
+# as spmd.alltoall launches them ((b, h, t_local, d) split on heads,
+# concatenated on the sequence, and back), then a non-leading split along
+# each axis of a 2 x 2 mesh and int32 blocks of odd width.
 A2A_CASES = [
-    ("P2_f32", {"x": 2}, "x", 16, 128, torch.float32),
-    ("P3_bf16", {"x": 3}, "x", 24, 100, torch.bfloat16),
-    ("P4_int32", {"x": 4}, "x", 32, 7, torch.int32),
-    ("P8_f32", {"x": 8}, "x", 64, 128, torch.float32),
-    ("2x2_model", {"data": 2, "model": 2}, "model", 16, 128, torch.float32),
-    ("2x2_data_bf16", {"data": 2, "model": 2}, "data", 16, 128,
-     torch.bfloat16),
-    ("ulysses", {"seq": 4}, "seq", 4, 2 * 1024 * 64, torch.bfloat16),
-    ("ep", {"expert": 4}, "expert", 4, 64 * 256, torch.bfloat16),
+    ("P2_f32", {"x": 2}, "x", (16, 128), torch.float32, 0, 0),
+    ("P3_bf16", {"x": 3}, "x", (24, 100), torch.bfloat16, 0, 0),
+    ("P4_int32", {"x": 4}, "x", (32, 7), torch.int32, 0, 0),
+    ("P8_f32", {"x": 8}, "x", (64, 128), torch.float32, 0, 0),
+    ("2x2_model", {"data": 2, "model": 2}, "model", (16, 128), torch.float32,
+     0, 0),
+    ("2x2_data_bf16", {"data": 2, "model": 2}, "data", (16, 128),
+     torch.bfloat16, 0, 0),
+    ("ulysses", {"seq": 4}, "seq", (4, 2 * 1024 * 64), torch.bfloat16, 0,
+     0),
+    ("ep", {"expert": 4}, "expert", (4, 64 * 256), torch.bfloat16, 0, 0),
+    ("ulysses_in", {"seq": 4}, "seq", (2, 4, 1024, 64), torch.bfloat16, 1,
+     2),
+    ("ulysses_out", {"seq": 4}, "seq", (2, 1, 4096, 64), torch.bfloat16, 2,
+     1),
+    ("2x2_model_split1", {"data": 2, "model": 2}, "model", (6, 8, 4),
+     torch.float32, 1, 0),
+    ("2x2_data_split2", {"data": 2, "model": 2}, "data", (6, 8, 4),
+     torch.float32, 2, 1),
+    ("P3_int32_odd", {"x": 3}, "x", (4, 9, 5), torch.int32, 1, 2),
 ]
 # The long-context path against flash_attention (B1/B2) over the whole
 # 4096-token sequence on the card, as the relative norm |a - b| / |b| of
@@ -308,7 +329,9 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 # (name, b, h, h_kv, t, d, dtype, causal). The first is the shape the
-# entry forward and the training step give the kernels.
+# entry forward and the training step give the kernels, the last the one
+# the Ulysses path gives them (the world flattened into the batch, h / n
+# heads over the whole sequence).
 FLASH_CASES = [
     ("entry", 8, 4, 4, 128, 64, torch.bfloat16, True),
     ("t1024_d128_causal", 4, 8, 8, 1024, 128, torch.bfloat16, True),
@@ -317,6 +340,7 @@ FLASH_CASES = [
     ("ragged_t200", 2, 4, 4, 200, 128, torch.bfloat16, True),
     ("f32_t256", 2, 4, 4, 256, 64, torch.float32, True),
     ("f32_d128_gqa_t100_full", 2, 4, 2, 100, 128, torch.float32, False),
+    ("ulysses", 8, 1, 1, 4096, 64, torch.bfloat16, True),
 ]
 
 
@@ -933,28 +957,35 @@ def step_cases(attn, sp, spmd, make_mesh, gen):
 
 
 def alltoall_cases(ring, make_mesh, gen):
-    """Phase 16, B8 bitwise against its twin at A2A_CASES. Returns the
-    worst max |kernel - plain| (0 when all agree)."""
+    """Phase 16, B8 bitwise against its twin and lax.all_to_all's
+    definition (rank r's result: block my[r] along the split axis of each
+    ring member, concatenated along the concat axis in ring order) at
+    A2A_CASES, RING_RUNS calls each. Returns the worst max |kernel - plain|
+    (0 when all agree)."""
     failed = []
     dev = torch.device("cuda")
-    for name, axes, axis, rows, cols, dtype in A2A_CASES:
+    for name, axes, axis, local, dtype, split, concat in A2A_CASES:
         ranks = math.prod(axes.values())
         mesh = make_mesh(axes, devices=[dev] * ranks)
-        x = torch.randint(-2 ** 20, 2 ** 20, (ranks, rows, cols),
-                          generator=gen, device=dev).to(dtype)
-        out = ring.alltoall(x, axis, mesh)
-        torch.cuda.synchronize()
-        ref = ring.alltoall_plain(x, axis, mesh)
+        x = torch.randint(-2 ** 20, 2 ** 20, (ranks, *local), generator=gen,
+                          device=dev).to(dtype)
+        ref = ring.alltoall_plain(x, axis, mesh, split, concat)
         n = axes[axis]
+        c = local[split] // n
         members = mesh.ring_members(axis)
         my = mesh.ring_index(axis)
-        blocks = x.view(ranks, n, -1)
-        want = torch.stack([torch.cat([blocks[m][my[r]] for m in members[r]])
-                            for r in range(ranks)]).view(x.shape)
-        ok = torch.equal(out, ref) and torch.equal(out, want)
+        want = torch.stack([torch.cat(
+            [x[m].narrow(split, my[r] * c, c) for m in members[r]], concat)
+            for r in range(ranks)])
+        ok = torch.equal(ref, want)
+        for _ in range(RING_RUNS):
+            out = ring.alltoall(x, axis, mesh, split, concat)
+            torch.cuda.synchronize()
+            ok = ok and torch.equal(out, ref)
         print(f"alltoall {name}: {ranks} ranks, ring {axis!r} of {n}, "
-              f"{tuple(x.shape[1:])} {str(dtype)[6:]}: bitwise equal to its "
-              f"plain version and the block transpose {ok}")
+              f"{tuple(local)} {str(dtype)[6:]}, split {split}, concat "
+              f"{concat}: {RING_RUNS} calls bitwise equal to its plain "
+              f"version and the block exchange {ok}")
         if not ok:
             failed.append(name)
     if failed:
@@ -1067,14 +1098,15 @@ def ep_path(ring, ep_entry, expert_mlp):
     return launches, (fn, args)
 
 
-def path_time(label, fn):
-    """(ms per call by CUDA events, device ms, busy share) of one path."""
+def path_time(label, fn, items=8):
+    """(ms per call by CUDA events, device ms, busy share) of one path;
+    prints its `items` longest device items."""
     ms = event_ms(fn, iters=10)
     dev, rows = device_profile(fn, iters=5)
     busy = "not measured" if dev is None else f"{dev / ms:.3f}"
     print(f"{label}: {ms:.6f} ms per call, device time {dev} ms, device "
           f"busy share {busy}")
-    for dev_ms, calls, kname in rows[:8]:
+    for dev_ms, calls, kname in rows[:items]:
         print(f"  {dev_ms:.6f} ms in {calls:g} calls: {kname[:90]}")
     return ms, dev
 
@@ -1162,30 +1194,47 @@ def slice5_times(attn, sp, spmd, ring, paths, ep, card):
     timed("path yardstick: B1 + B2 (flash_attention) over the whole sequence",
           fwd_bwd(lambda a, b_, c: attn.flash_attention(a, b_, c)))
 
-    # B8 at the Ulysses exchange: q's heads split, (4, 4, 2 t_local d).
-    x = q.movedim(2, 1).reshape(q.shape[0], q.shape[2], -1).contiguous()
+    # B8 at a Ulysses exchange, as rows (q's heads split, (4, 4, 2 t_local
+    # d): the leading-axis layout of the MoE path and the process group)
+    # and as the path launches it (spmd.alltoall over q's (b, h, t_local,
+    # d) with split 1 and concat 2: strided blocks, no copy around it).
     n_seq = mesh.shape["seq"]
-    with torch.no_grad():
-        ms = timed_kernel("alltoall kernel",
-                          lambda: ring.alltoall(x, "seq", mesh),
-                          "alltoall_kernel")
-        timed("alltoall whole call (flags, buffers, kernel)",
-              lambda: ring.alltoall(x, "seq", mesh))
-        plain_ms = timed("alltoall plain",
-                         lambda: ring.alltoall_plain(x, "seq", mesh))
-        lib = timed("alltoall yardstick x.view(n, n, c, cols).transpose(0, "
-                    "1).contiguous()",
-                    lambda: x.view(n_seq, n_seq, -1).transpose(0, 1)
-                    .contiguous())
-    nbytes = 2 * x.numel() * x.element_size()
+    ranks, b, h, t_local, d = q.shape
+    x = q.movedim(2, 1).reshape(ranks, h, -1).contiguous()
+    leading = (lambda: ring.alltoall(x, "seq", mesh),
+               lambda: ring.alltoall_plain(x, "seq", mesh),
+               "x.view(n, n, c, cols).transpose(0, 1).contiguous()",
+               lambda: x.view(n_seq, n_seq, -1).transpose(0, 1).contiguous())
+    strided = (lambda: spmd.alltoall(q, "seq", split_axis=1, concat_axis=2,
+                                     mesh=mesh),
+               lambda: ring.alltoall_plain(q, "seq", mesh, 1, 2),
+               "q.view(n, b, n, h / n, t, d).permute(2, 1, 3, 0, 4, "
+               "5).contiguous()",
+               lambda: q.view(n_seq, b, n_seq, h // n_seq, t_local, d)
+               .permute(2, 1, 3, 0, 4, 5).contiguous())
+    nbytes = 2 * q.numel() * q.element_size()
     bound, bound_by = _bound(nbytes, 0, torch.bfloat16)
-    print(f"  alltoall bound {bound:.6f} ms ({bound_by}: {nbytes} bytes)")
-    rows["alltoall"] = (ms, plain_ms, lib, bound, bound_by)
+    timings = {}
+    for label, (call, plain, lib_label, lib_call) in (
+            ("alltoall rows", leading), ("alltoall strided", strided)):
+        with torch.no_grad():
+            ms = timed_kernel(f"{label} kernel", call, "alltoall_kernel")
+            timed(f"{label} whole call (output, flags' fill, kernel)", call)
+            plain_ms = timed(f"{label} plain", plain)
+            lib = timed(f"{label} yardstick {lib_label}", lib_call)
+        print(f"  {label}: {ms} ms, plain {plain_ms} ms, yardstick {lib} "
+              f"ms; bound {bound:.6f} ms ({bound_by}: {nbytes} bytes)")
+        timings[label] = (ms, plain_ms, lib, bound, bound_by)
+    # The kernels line carries the rows, as in every earlier run; the
+    # strided exchange is printed beside it.
+    rows["alltoall"] = timings["alltoall rows"]
 
-    for name in ("ring_flash", "ulysses"):
+    # Every device item of the Ulysses path, so that what is left around
+    # B8 shows.
+    for name, items in (("ring_flash", 8), ("ulysses", 64)):
         fn, args = paths[name]
         path_time(f"long-context path {name} forward + backward",
-                  lambda: fn(*args))
+                  lambda: fn(*args), items)
     fn, args = paths["ring_attention"]
     path_time("long-context path ring_attention forward (plain torch)",
               lambda: fn(*args))

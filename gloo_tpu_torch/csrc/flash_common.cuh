@@ -2,7 +2,10 @@
 // flash_bwd.cu, flash_step.cu and flash_bwd_step.cu): element conversions,
 // bf16 packing, the m16n8k16 mma.sync product, a warp's product of two
 // shared-memory tiles, 16-byte tile loads into shared memory, and the
-// one-time dynamic shared-memory attribute.
+// one-time dynamic shared-memory attribute. flash_fwd.cu's bf16 kernel
+// runs its products on wgmma over TMA-staged tiles (hopper.cuh) and takes
+// from here the packing of p, the stores and the attribute; its f32 kernel
+// the tile loads.
 //
 // Fragment layout of mma.sync m16n8k16 (bf16 in, f32 accumulate), which
 // the f32 FMA paths copy so that both types share their index arithmetic:

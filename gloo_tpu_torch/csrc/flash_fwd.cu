@@ -8,33 +8,55 @@
 // t = 128, d = 64, causal, bf16) q, k, v and out are 2.1 MB and the two
 // products over the (q, k) pairs the mask keeps are 68 MFLOP, so the bytes
 // bound it (~0.63 us at 3.35 TB/s against ~0.07 us of tensor-core time),
-// and above both lies the launch itself. The design therefore reads every q, k and v element once
-// from device memory per query tile (16-byte loads into shared memory),
-// keeps the (64 x 64) score tile and the softmax state in registers, never
-// writes scores back, and skips kv tiles above the causal diagonal, so a
-// causal forward reads half the keys. Matrix products run on the tensor
-// cores through mma.sync (bf16) or on the FMA units (f32); wgmma and TMA
-// are left for when a larger shape makes the products the bound.
+// and above both lies the launch itself; at long sequences (the Ulysses
+// path's b*h = 8, t = 4096, d = 64, causal: 17 GFLOP against 17 MB) the
+// tensor cores do (~0.017 ms). The design keeps every load in flight ahead
+// of the products and runs the products on wgmma:
 //
-// Work division: one block of 4 warps per (flat query head, 64-row query
-// tile); each warp owns 16 query rows. A loop over 64-key tiles inside the
-// block replaces the TPU grid's sequential ("arbitrary") kv axis. Score and
-// output tiles live in registers in the m16n8 accumulator layout of
-// mma.sync: lane (g = lane / 4, c = lane % 4) holds rows g and g + 8 and
-// columns 2c, 2c + 1 of every 8-column slice.
+// bf16 (the model's type): one block per (flat query head, 64-row query
+// tile), highest query tiles first (under the causal mask they are the
+// longest), of one consumer warpgroup (128 threads, 16 query rows per
+// warp) and one producer warp. The producer's lane 0 issues TMA loads of
+// 128-byte-swizzled 64 x 64 slabs (hopper.cuh): the q tile once, then the
+// k and v tiles of 64 keys into a ring of kStages<D> stages, each with a
+// full mbarrier for k, one for v and an empty one the consumers arrive on; a
+// stage is refilled only once its empty barrier shows the consumers are
+// done with it. At the flagship's t = 128 every load of a block is in
+// flight before the first product. The consumers scale q once in shared
+// memory (q * scale rounded to bf16, then fence.proxy.async and a named
+// barrier so that wgmma reads the scaled values), then per key tile:
+//   - s = q k^T: wgmma m64n64k16 with both operands in shared memory, k
+//     K-major (d / 16 k-steps, a slab per 64 of d), f32 accumulators;
+//   - the mask, only on tiles that cross the diagonal or the ragged end
+//     (TMA fills rows past t with zeros; they still need -inf), and the
+//     online softmax in the accumulator layout (a row's 64 scores lie in
+//     the 4 lanes of a quad: two xor shuffles finish its max and sum);
+//   - o += p v: wgmma with A = p from registers (the accumulator of two
+//     8-key slices is the A fragment of one 16-key step) and B = v
+//     MN-major from shared memory, one n64 product per 64 columns of d.
+// Key tiles above the causal diagonal are never loaded. k and v are read
+// through the kv head hq / group (GQA): never replicated.
+//
+// f32 (off the model's path) keeps the FMA design: one block of 4 warps
+// per (flat query head, 64-row query tile), 16-byte loads of the tiles
+// into padded shared memory, the products on the FMA units in the
+// m16n8 accumulator layout of mma.sync (flash_common.cuh).
 //
 // Numerics follow the TPU kernel step by step: q * scale rounded to the
 // input type before QK^T (the wrapper passes scale already rounded to that
-// type), scores accumulated in f32, masked scores -inf with the m_safe /
-// corr guards, p rounded to v's type before PV, out = acc / max(l, 1e-30)
-// in the input type, lse = m + log(max(l, 1e-30)) in f32. GQA: query head
-// hq reads kv head hq / group; k and v are never replicated.
+// type), scores accumulated in f32 over key tiles of 64 (BLOCK_K, so the
+// running maxima, and p's rounding with them, are the plain twin's and
+// JAX's), masked scores -inf with the m_safe / corr guards, p rounded to
+// v's type before PV, out = acc / max(l, 1e-30) in the input type, lse =
+// m + log(max(l, 1e-30)) in f32. The bf16 kernel takes e^x from the SFU's
+// 2^x (fast_exp), the f32 kernel from expf.
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 #include <atomic>
 #include <cmath>
-#include <type_traits>
+#include <cstring>
 
 namespace {
 
@@ -42,69 +64,321 @@ using namespace gtt;
 
 constexpr int kBlockQ = 64;  // query rows per block
 constexpr int kBlockK = 64;  // keys per kv tile
-constexpr int kWarps = kBlockQ / 16;
-constexpr int kThreads = kWarps * 32;
+constexpr int kThreads = 128;  // f32: 4 warps; bf16: the consumer warpgroup
+constexpr int kTmaThreads = kThreads + 32;  // bf16: + the producer warp
+constexpr int kSlab = 64 * 128;    // one swizzled slab: 64 lines x 128 bytes
 constexpr int kPLd = kBlockK + 4;  // row stride of the f32 path's p tile
 
-struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* out;    // (b, h, t, d) contiguous, input type
-  float* lse;   // (b, h, t) contiguous
+// ---- bf16: wgmma on TMA-staged tiles ----
+
+// k/v stages of the ring by head_dim: every load of a block at the
+// flagship's t = 128 (two key tiles) in flight before the first product.
+// Three at d = 64 (58 KB, three blocks per SM), two at d = 128 (83 KB, two
+// per SM; three, at 116 KB, would leave one block per SM).
+template <int D>
+constexpr int kStages = D == 64 ? 3 : 2;
+
+// Shared memory of a bf16 launch: the q tile and kStages<D> k and v tiles,
+// their mbarriers and the swizzle's 1024-byte alignment.
+template <int D>
+constexpr int kTmaSmem =
+    D / 64 * kSlab * (1 + 2 * kStages<D>) + 8 * (1 + 3 * kStages<D>) + 1024;
+
+struct TmaParams {
+  // q (b, h, t, d), k and v (b, h_kv, t, d) as {d, t, heads, b} maps, box
+  // {64, 64, 1, 1}, 128-byte swizzle.
+  CUtensorMap q;
+  CUtensorMap k;
+  CUtensorMap v;
+  __nv_bfloat16* out;  // (b, h, t, d) contiguous
+  float* lse;          // (b, h, t) contiguous
   int h, group, t;
   int causal;
-  float scale;  // 1 / sqrt(d), already rounded to the input type
-  long long q_sb, q_sh, q_st;  // strides in elements; d is contiguous
-  long long k_sb, k_sh, k_st;
-  long long v_sb, v_sh, v_st;
+  float scale;  // 1 / sqrt(d), already rounded to bf16
 };
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const Params p) {
-  constexpr bool kBf16 = std::is_same_v<T, __nv_bfloat16>;
-  constexpr int kLd = D + 16 / sizeof(T);  // 16 bytes of row padding
-  constexpr int kNT = kBlockK / 8;         // 8-key slices of a score tile
-  constexpr int kDT = D / 8;               // 8-column slices of the output
+// e^x as one multiply and the SFU's 2^x (ex2.approx: ~2 ulps in f32, and
+// 0 for x = -inf). The precise expf takes several more instructions per
+// score, which the softmax of every key tile pays: in the chain of one
+// block, that bounded the kernel at long sequences. p is rounded to bf16
+// right after, and the tolerances against the plain twin's torch.exp hold
+// unchanged (tests/test_torch_attention.py's TOL, chip_smoke.py's
+// KERNEL_TOL).
+__device__ __forceinline__ float fast_exp(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * 1.4426950408889634f));
+  return y;
+}
 
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* qs = reinterpret_cast<T*>(smem);
-  T* ks = qs + kBlockQ * kLd;
-  T* vs = ks + kBlockK * kLd;
-  float* ps = reinterpret_cast<float*>(vs + kBlockK * kLd);  // f32 path
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(kThreads) : "memory");
+}
 
-  // Highest query tiles first: under the causal mask they are the longest.
+template <int D>
+__global__ void __launch_bounds__(kTmaThreads)
+    flash_fwd_wgmma_kernel(const __grid_constant__ TmaParams p) {
+  constexpr int kSlabs = D / 64;         // slabs per tile
+  constexpr int kTile = kSlabs * kSlab;  // bytes of a q, k or v tile
+  constexpr int kSt = kStages<D>;
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const qs = aligned_smem(smem_raw);
+  uint8_t* const ks = qs + kTile;
+  uint8_t* const vs = ks + kSt * kTile;
+  uint64_t* const q_full = reinterpret_cast<uint64_t*>(vs + kSt * kTile);
+  uint64_t* const k_full = q_full + 1;
+  uint64_t* const v_full = k_full + kSt;
+  uint64_t* const empty = v_full + kSt;
+
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockQ;
   const int head = blockIdx.y;  // flat query head b * h + hq
   const int b = head / p.h;
   const int hq = head % p.h;
   const int hk = hq / p.group;
-  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + hq * p.q_sh;
-  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  const int n_kv = (p.t + kBlockK - 1) / kBlockK;
+  // Causal: kv tiles entirely above the diagonal are never loaded.
+  const int kv_end =
+      p.causal ? min(n_kv, (q0 + kBlockQ - 1) / kBlockK + 1) : n_kv;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kSt; ++s) {
+      mbar_init(k_full + s, 1);
+      mbar_init(v_full + s, 1);
+      mbar_init(empty + s, kThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kThreads) {
+    // The producer warp: its lane 0 issues every load.
+    if (threadIdx.x == kThreads) {
+      prefetch_map(&p.q);
+      prefetch_map(&p.k);
+      prefetch_map(&p.v);
+      mbar_expect(q_full, kTile);
+#pragma unroll
+      for (int c = 0; c < kSlabs; ++c) {
+        tma_load_4d(qs + c * kSlab, &p.q, q_full, c * 64, q0, hq, b);
+      }
+      for (int kb = 0; kb < kv_end; ++kb) {
+        const int s = kb % kSt;
+        if (kb >= kSt) mbar_wait(empty + s, (kb / kSt - 1) & 1);
+        mbar_expect(k_full + s, kTile);
+#pragma unroll
+        for (int c = 0; c < kSlabs; ++c) {
+          tma_load_4d(ks + s * kTile + c * kSlab, &p.k, k_full + s, c * 64,
+                      kb * kBlockK, hk, b);
+        }
+        mbar_expect(v_full + s, kTile);
+#pragma unroll
+        for (int c = 0; c < kSlabs; ++c) {
+          tma_load_4d(vs + s * kTile + c * kSlab, &p.v, v_full + s, c * 64,
+                      kb * kBlockK, hk, b);
+        }
+      }
+    }
+    return;
+  }
+
+  const int lane = threadIdx.x % 32;
+  const int c2 = 2 * (lane % 4);
+  const int r0 = acc_row(0);  // this thread's tile rows: r0 and r0 + 8
+
+  // q * scale rounded to bf16, in place; then visible to wgmma's reads.
+  mbar_wait(q_full, 0);
+  for (int i = threadIdx.x; i < kTile / 16; i += kThreads) {
+    uint4* const at = reinterpret_cast<uint4*>(qs) + i;
+    uint4 val = *at;
+    __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&val);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      e[j] = __float2bfloat16_rn(__bfloat162float(e[j]) * p.scale);
+    }
+    *at = val;
+  }
+  fence_proxy_async_shared();
+  consumers_sync();
+
+  const uint32_t q_addr = smem_addr(qs);
+  float o[kSlabs][32];
+#pragma unroll
+  for (int c = 0; c < kSlabs; ++c) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
+  }
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+
+  for (int kb = 0; kb < kv_end; ++kb) {
+    const int s = kb % kSt;
+    const uint32_t parity = (kb / kSt) & 1;
+    const int k0 = kb * kBlockK;
+    const uint32_t k_addr = smem_addr(ks + s * kTile);
+    const uint32_t v_addr = smem_addr(vs + s * kTile);
+
+    // s = (q * scale) k^T in f32.
+    float sc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    mbar_wait(k_full + s, parity);
+    fence_acc(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = kk / 4 * kSlab + kk % 4 * 32;
+      wgmma_bf16<0>(sc, desc(q_addr + off), desc(k_addr + off));
+    }
+    wgmma_commit();
+    wgmma_wait<0>(sc);
+
+    // Only tiles that cross the diagonal or the ragged end pay the mask.
+    const bool crosses_diag = p.causal && k0 + kBlockK - 1 > q0;
+    if (crosses_diag || k0 + kBlockK > p.t) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = q0 + r0 + (e >= 2 ? 8 : 0);
+          const int col = k0 + j * 8 + c2 + (e & 1);
+          if (col >= p.t || (p.causal && col > row)) sc[4 * j + e] = -INFINITY;
+        }
+      }
+    }
+
+    // Online softmax; a row's 64 scores are spread over the 4 lanes of a
+    // quad, so row max and row sum finish with two xor shuffles.
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * i], sc[4 * j + 2 * i + 1]));
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[i], mx);
+      const float m_safe = isfinite(m_new) ? m_new : 0.f;
+      const float corr = isfinite(m[i]) ? fast_exp(m[i] - m_safe) : 0.f;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 2 * i; e < 2 * i + 2; ++e) {
+          sc[4 * j + e] = fast_exp(sc[4 * j + e] - m_safe);
+          sum += sc[4 * j + e];
+        }
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      l[i] = l[i] * corr + sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < kSlabs; ++c) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          o[c][4 * j + 2 * i] *= corr;
+          o[c][4 * j + 2 * i + 1] *= corr;
+        }
+      }
+    }
+
+    // p in bf16 as the A fragments of the four 16-key steps.
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        pa[kk][f] = pack_bf16(sc[8 * kk + 2 * f], sc[8 * kk + 2 * f + 1]);
+      }
+    }
+
+    // o += p v.
+    mbar_wait(v_full + s, parity);
+#pragma unroll
+    for (int c = 0; c < kSlabs; ++c) fence_acc(o[c]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int c = 0; c < kSlabs; ++c) {
+        wgmma_bf16_rs<1>(o[c], pa[kk], desc(v_addr + c * kSlab + kk * 2048));
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>(o[0]);
+#pragma unroll
+    for (int c = 1; c < kSlabs; ++c) fence_acc(o[c]);
+    mbar_arrive(empty + s);  // this thread is done with stage s
+  }
+
+  __nv_bfloat16* og = p.out + static_cast<long long>(head) * p.t * D;
+  float* lg = p.lse + static_cast<long long>(head) * p.t;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r0 + 8 * i;
+    if (row >= p.t) continue;
+    const float den = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int c = 0; c < kSlabs; ++c) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        store2(og + static_cast<long long>(row) * D + c * 64 + j * 8 + c2,
+               o[c][4 * j + 2 * i] / den, o[c][4 * j + 2 * i + 1] / den);
+      }
+    }
+    if (c2 == 0) lg[row] = m[i] + logf(den);
+  }
+}
+
+// ---- f32: the FMA design ----
+
+struct Params {
+  const float* q;
+  const float* k;
+  const float* v;
+  float* out;   // (b, h, t, d) contiguous
+  float* lse;   // (b, h, t) contiguous
+  int h, group, t;
+  int causal;
+  float scale;  // 1 / sqrt(d)
+  long long q_sb, q_sh, q_st;  // strides in elements; d is contiguous
+  long long k_sb, k_sh, k_st;
+  long long v_sb, v_sh, v_st;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_f32_kernel(const Params p) {
+  constexpr int kLd = D + 4;  // 16 bytes of row padding
+  constexpr int kNT = kBlockK / 8;  // 8-key slices of a score tile
+  constexpr int kDT = D / 8;        // 8-column slices of the output
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);
+  float* ks = qs + kBlockQ * kLd;
+  float* vs = ks + kBlockK * kLd;
+  float* ps = vs + kBlockK * kLd;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockQ;
+  const int head = blockIdx.y;
+  const int b = head / p.h;
+  const int hq = head % p.h;
+  const int hk = hq / p.group;
+  const float* qg = p.q + b * p.q_sb + hq * p.q_sh;
+  const float* kg = p.k + b * p.k_sb + hk * p.k_sh;
+  const float* vg = p.v + b * p.v_sb + hk * p.v_sh;
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;
   const int c2 = 2 * (lane % 4);
-  const int r0 = warp * 16 + g;  // this lane's tile rows: r0 and r0 + 8
+  const int r0 = warp * 16 + g;
 
-  load_tile<T, D, kLd, kBlockQ, kThreads, true>(qs, qg, p.q_st, q0, p.t, p.scale);
+  load_tile<float, D, kLd, kBlockQ, kThreads, true>(qs, qg, p.q_st, q0, p.t,
+                                                    p.scale);
   __syncthreads();
-
-  // bf16: the warp's 16 query rows as mma A fragments, for the whole loop.
-  uint32_t qf[kBf16 ? D / 16 : 1][4];
-  if constexpr (kBf16) {
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const T* a = qs + r0 * kLd + kk * 16 + c2;
-      qf[kk][0] = ld_u32(a);
-      qf[kk][1] = ld_u32(a + 8 * kLd);
-      qf[kk][2] = ld_u32(a + 8);
-      qf[kk][3] = ld_u32(a + 8 * kLd + 8);
-    }
-  }
 
   float o[kDT][4];
 #pragma unroll
@@ -113,48 +387,36 @@ __global__ void __launch_bounds__(kThreads)
   float l[2] = {0.f, 0.f};
 
   const int n_kv = (p.t + kBlockK - 1) / kBlockK;
-  // Causal: kv tiles entirely above the diagonal are never visited.
   const int kv_end =
       p.causal ? min(n_kv, (q0 + kBlockQ - 1) / kBlockK + 1) : n_kv;
 
   for (int kb = 0; kb < kv_end; ++kb) {
     const int k0 = kb * kBlockK;
     __syncthreads();  // every warp is done with the previous k/v tile
-    load_tile<T, D, kLd, kBlockK, kThreads, false>(ks, kg, p.k_st, k0, p.t, 1.f);
-    load_tile<T, D, kLd, kBlockK, kThreads, false>(vs, vg, p.v_st, k0, p.t, 1.f);
+    load_tile<float, D, kLd, kBlockK, kThreads, false>(ks, kg, p.k_st, k0,
+                                                       p.t, 1.f);
+    load_tile<float, D, kLd, kBlockK, kThreads, false>(vs, vg, p.v_st, k0,
+                                                       p.t, 1.f);
     __syncthreads();
 
-    // s = (q * scale) k^T in f32.
     float s[kNT][4];
 #pragma unroll
     for (int j = 0; j < kNT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    if constexpr (kBf16) {
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      const float qa = qs[r0 * kLd + d];
+      const float qb = qs[(r0 + 8) * kLd + d];
 #pragma unroll
       for (int j = 0; j < kNT; ++j) {
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          const T* bp = ks + (j * 8 + g) * kLd + kk * 16 + c2;
-          mma_bf16(s[j], qf[kk], ld_u32(bp), ld_u32(bp + 8));
-        }
-      }
-    } else {
-#pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        const float qa = to_f32(qs[r0 * kLd + d]);
-        const float qb = to_f32(qs[(r0 + 8) * kLd + d]);
-#pragma unroll
-        for (int j = 0; j < kNT; ++j) {
-          const float ka = to_f32(ks[(j * 8 + c2) * kLd + d]);
-          const float kb2 = to_f32(ks[(j * 8 + c2 + 1) * kLd + d]);
-          s[j][0] = fmaf(qa, ka, s[j][0]);
-          s[j][1] = fmaf(qa, kb2, s[j][1]);
-          s[j][2] = fmaf(qb, ka, s[j][2]);
-          s[j][3] = fmaf(qb, kb2, s[j][3]);
-        }
+        const float ka = ks[(j * 8 + c2) * kLd + d];
+        const float kb2 = ks[(j * 8 + c2 + 1) * kLd + d];
+        s[j][0] = fmaf(qa, ka, s[j][0]);
+        s[j][1] = fmaf(qa, kb2, s[j][1]);
+        s[j][2] = fmaf(qb, ka, s[j][2]);
+        s[j][3] = fmaf(qb, kb2, s[j][3]);
       }
     }
 
-    // Only tiles that cross the diagonal or the ragged end pay the mask.
     const bool crosses_diag = p.causal && k0 + kBlockK - 1 > q0;
     if (crosses_diag || k0 + kBlockK > p.t) {
 #pragma unroll
@@ -168,8 +430,6 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
 
-    // Online softmax; a row's 64 scores are spread over the 4 lanes of a
-    // quad, so row max and row sum finish with two xor shuffles.
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       float mx = -INFINITY;
@@ -202,55 +462,35 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
 
-    // o += p v, with p in v's type.
-    if constexpr (kBf16) {
-      // The accumulator layout of two adjacent 8-key slices is the A
-      // fragment layout of one 16-key step, so p never leaves registers.
+    // o += p v: the warp's 16 rows of p go through its own slice of shared
+    // memory, since each lane holds only part of a row.
+    float* pw = ps + warp * 16 * kPLd;
 #pragma unroll
-      for (int kk = 0; kk < kBlockK / 16; ++kk) {
-        const uint32_t a[4] = {
-            pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-            pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-            pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-            pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-        for (int j = 0; j < kDT; ++j) {
-          const T* bp = vs + (kk * 16 + c2) * kLd + j * 8 + g;
-          mma_bf16(o[j], a, pack_bf16(bp[0], bp[kLd]),
-                   pack_bf16(bp[8 * kLd], bp[9 * kLd]));
-        }
-      }
-    } else {
-      // f32: the warp's 16 rows of p go through its own slice of shared
-      // memory, since each lane holds only part of a row.
-      float* pw = ps + warp * 16 * kPLd;
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        pw[g * kPLd + j * 8 + c2] = s[j][0];
-        pw[g * kPLd + j * 8 + c2 + 1] = s[j][1];
-        pw[(g + 8) * kPLd + j * 8 + c2] = s[j][2];
-        pw[(g + 8) * kPLd + j * 8 + c2 + 1] = s[j][3];
-      }
-      __syncwarp();
-#pragma unroll 4
-      for (int key = 0; key < kBlockK; ++key) {
-        const float pa = pw[g * kPLd + key];
-        const float pb = pw[(g + 8) * kPLd + key];
-#pragma unroll
-        for (int j = 0; j < kDT; ++j) {
-          const float va = to_f32(vs[key * kLd + j * 8 + c2]);
-          const float vb = to_f32(vs[key * kLd + j * 8 + c2 + 1]);
-          o[j][0] = fmaf(pa, va, o[j][0]);
-          o[j][1] = fmaf(pa, vb, o[j][1]);
-          o[j][2] = fmaf(pb, va, o[j][2]);
-          o[j][3] = fmaf(pb, vb, o[j][3]);
-        }
-      }
-      __syncwarp();  // the next tile rewrites pw
+    for (int j = 0; j < kNT; ++j) {
+      pw[g * kPLd + j * 8 + c2] = s[j][0];
+      pw[g * kPLd + j * 8 + c2 + 1] = s[j][1];
+      pw[(g + 8) * kPLd + j * 8 + c2] = s[j][2];
+      pw[(g + 8) * kPLd + j * 8 + c2 + 1] = s[j][3];
     }
+    __syncwarp();
+#pragma unroll 4
+    for (int key = 0; key < kBlockK; ++key) {
+      const float pa = pw[g * kPLd + key];
+      const float pb = pw[(g + 8) * kPLd + key];
+#pragma unroll
+      for (int j = 0; j < kDT; ++j) {
+        const float va = vs[key * kLd + j * 8 + c2];
+        const float vb = vs[key * kLd + j * 8 + c2 + 1];
+        o[j][0] = fmaf(pa, va, o[j][0]);
+        o[j][1] = fmaf(pa, vb, o[j][1]);
+        o[j][2] = fmaf(pb, va, o[j][2]);
+        o[j][3] = fmaf(pb, vb, o[j][3]);
+      }
+    }
+    __syncwarp();  // the next tile rewrites pw
   }
 
-  T* og = static_cast<T*>(p.out) + static_cast<long long>(head) * p.t * D;
+  float* og = p.out + static_cast<long long>(head) * p.t * D;
   float* lg = p.lse + static_cast<long long>(head) * p.t;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -266,18 +506,57 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const Params& p, int bh, cudaStream_t stream) {
-  constexpr int kLd = D + 16 / sizeof(T);
-  constexpr size_t kSmem =
-      (kBlockQ + 2 * kBlockK) * kLd * sizeof(T) +
-      (std::is_same_v<T, float> ? kBlockQ * kPLd * sizeof(float) : 0);
+// ---- launches ----
+
+template <int D>
+cudaError_t launch_f32(const Params& p, int bh, cudaStream_t stream) {
+  constexpr size_t kSmem = (kBlockQ + 2 * kBlockK) * (D + 4) * sizeof(float) +
+                           kBlockQ * kPLd * sizeof(float);
   static std::atomic<bool> smem_set[kMaxDevices];
   const cudaError_t attr =
-      allow_dynamic_smem(flash_fwd_kernel<T, D>, kSmem, smem_set);
+      allow_dynamic_smem(flash_fwd_f32_kernel<D>, kSmem, smem_set);
   if (attr != cudaSuccess) return attr;
   const dim3 grid((p.t + kBlockQ - 1) / kBlockQ, bh);
-  flash_fwd_kernel<T, D><<<grid, kThreads, kSmem, stream>>>(p);
+  flash_fwd_f32_kernel<D><<<grid, kThreads, kSmem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// A {d, t, heads, b} map of one operand; strides in elements (d
+// contiguous), box 64 x 64.
+cudaError_t encode_operand(CUtensorMap* map, const void* base, int d, int t,
+                           int heads, int b, long long st, long long sh,
+                           long long sb) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(t),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st) * 2,
+                                 static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {64, kBlockK, 1, 1};
+  return encode(map, 0, 4, base, dims, strides, box);
+}
+
+template <int D>
+cudaError_t launch_bf16(TmaParams& p, const void* q, const void* k,
+                        const void* v, int b, int h_kv, long long q_sb,
+                        long long q_sh, long long q_st, long long k_sb,
+                        long long k_sh, long long k_st, long long v_sb,
+                        long long v_sh, long long v_st, cudaStream_t stream) {
+  cudaError_t err =
+      encode_operand(&p.q, q, D, p.t, p.h, b, q_st, q_sh, q_sb);
+  if (err == cudaSuccess) {
+    err = encode_operand(&p.k, k, D, p.t, h_kv, b, k_st, k_sh, k_sb);
+  }
+  if (err == cudaSuccess) {
+    err = encode_operand(&p.v, v, D, p.t, h_kv, b, v_st, v_sh, v_sb);
+  }
+  if (err != cudaSuccess) return err;
+  static std::atomic<bool> smem_set[kMaxDevices];
+  err = allow_dynamic_smem(flash_fwd_wgmma_kernel<D>, kTmaSmem<D>, smem_set);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.t + kBlockQ - 1) / kBlockQ, b * p.h);
+  flash_fwd_wgmma_kernel<D><<<grid, kTmaThreads, kTmaSmem<D>, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -285,28 +564,50 @@ cudaError_t launch(const Params& p, int bh, cudaStream_t stream) {
 
 extern "C" {
 
-// Returns a cudaError_t; 0 is success. dtype: 0 = bf16, 1 = f32.
+// Returns a cudaError_t; 0 is success. dtype: 0 = bf16, 1 = f32. Strides
+// in elements, d contiguous; bf16 takes 16-byte aligned q, k, v and
+// strides that are multiples of 8 elements (TMA).
 int gtt_flash_fwd(const void* q, const void* k, const void* v, void* out,
                   void* lse, int dtype, int b, int h, int h_kv, int t, int d,
-                  int causal, float scale, long long q_sb, long long q_sh,
-                  long long q_st, long long k_sb, long long k_sh,
-                  long long k_st, long long v_sb, long long v_sh,
-                  long long v_st, void* stream) {
+                  int causal, float scale, long long q_sb,
+                  long long q_sh, long long q_st, long long k_sb,
+                  long long k_sh, long long k_st, long long v_sb,
+                  long long v_sh, long long v_st, void* stream) {
   if (b < 1 || h < 1 || h_kv < 1 || h % h_kv != 0 || t < 1 ||
-      static_cast<long long>(b) * h > 65535) {
+      static_cast<long long>(b) * h > 65535 || (d != 64 && d != 128)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Params p{q,    k,    v,    out,  static_cast<float*>(lse),
-           h,    h / h_kv,   t,    causal, scale,
-           q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int bh = b * h;
-  cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0 && d == 64) err = launch<__nv_bfloat16, 64>(p, bh, s);
-  if (dtype == 0 && d == 128) err = launch<__nv_bfloat16, 128>(p, bh, s);
-  if (dtype == 1 && d == 64) err = launch<float, 64>(p, bh, s);
-  if (dtype == 1 && d == 128) err = launch<float, 128>(p, bh, s);
-  return static_cast<int>(err);
+  if (dtype == 1) {
+    Params p{static_cast<const float*>(q), static_cast<const float*>(k),
+             static_cast<const float*>(v), static_cast<float*>(out),
+             static_cast<float*>(lse), h, h / h_kv, t, causal, scale,
+             q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st};
+    return static_cast<int>(d == 64 ? launch_f32<64>(p, b * h, s)
+                                    : launch_f32<128>(p, b * h, s));
+  }
+  const auto aligned = [](const void* a) {
+    return (reinterpret_cast<uintptr_t>(a) & 15) == 0;
+  };
+  const long long strides[] = {q_sb, q_sh, q_st, k_sb, k_sh,
+                               k_st, v_sb, v_sh, v_st};
+  bool ok = dtype == 0 && aligned(q) && aligned(k) && aligned(v);
+  for (long long st : strides) ok = ok && st > 0 && st % 8 == 0;
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  TmaParams p;
+  memset(&p, 0, sizeof(p));
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.lse = static_cast<float*>(lse);
+  p.h = h;
+  p.group = h / h_kv;
+  p.t = t;
+  p.causal = causal;
+  p.scale = scale;
+  return static_cast<int>(
+      d == 64 ? launch_bf16<64>(p, q, k, v, b, h_kv, q_sb, q_sh, q_st, k_sb,
+                                k_sh, k_st, v_sb, v_sh, v_st, s)
+              : launch_bf16<128>(p, q, k, v, b, h_kv, q_sb, q_sh, q_st, k_sb,
+                                 k_sh, k_st, v_sb, v_sh, v_st, s));
 }
 
 const char* gtt_error_string(int err) {

@@ -5,7 +5,8 @@ Counterpart of gloo_tpu/ops/attention.py::flash_attention: attention over
 (b, h, t, d) without materializing the (t, t) scores, with grouped-query
 k/v of shape (b, h_kv, t, d) read through the head index, never
 replicated. Its Pallas kernels become CUDA C++: the forward
-``_flash_kernel`` is ``csrc/flash_fwd.cu`` (``flash_attention_fwd``), the
+``_flash_kernel`` is ``csrc/flash_fwd.cu`` (``flash_attention_fwd``;
+bf16 on wgmma over TMA-staged tiles, launched as ``flash_fwd_plan`` says), the
 fused backward ``_flash_bwd_fused_kernel`` is ``csrc/flash_bwd.cu``
 (``flash_attention_bwd``), and ``flash_attention`` ties the two together
 as a ``torch.autograd.Function``, as the custom VJP does in JAX.
@@ -29,7 +30,9 @@ kernel is held against.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -97,9 +100,10 @@ def _check_heads(q, k, v):
             f"(batch={b}, kv_heads, seq={t}, head_dim={d})")
 
 
-def _check_kernel_inputs(q, k, v, **more):
+def _check_kernel_inputs(q, k, v, layout=True, **more):
     """What the CUDA kernels take: one CUDA device, bf16 or f32 throughout,
-    head_dim 64 or 128, contiguous head_dim rows on 16-byte boundaries.
+    head_dim 64 or 128 and, with `layout`, contiguous head_dim rows on
+    16-byte boundaries (the forward checks its own: flash_fwd_plan).
     `more` names further (b, h, t, d) operands held to the same rules (the
     backward's dO)."""
     named = {"q": q, "k": k, "v": v, **more}
@@ -120,6 +124,8 @@ def _check_kernel_inputs(q, k, v, **more):
     b, h = q.shape[:2]
     if b * h > 65535:
         raise ValueError(f"batch * heads {b * h} exceeds the grid's 65535")
+    if not layout:
+        return
     vec = 16 // q.element_size()
     for name, x in named.items():
         if x.stride(-1) != 1 or any(s % vec for s in x.stride()[:3]) \
@@ -128,6 +134,52 @@ def _check_kernel_inputs(q, k, v, **more):
                 f"{name} must have a contiguous last dim, strides that are "
                 f"multiples of {vec} elements and a 16-byte aligned start; "
                 f"got strides {x.stride()}")
+
+
+def _layout(x: torch.Tensor):
+    """(x's (b, h, t) strides in elements, whether the kernels can read x
+    (b, h, t, d) as it lies). A dimension of size 1 gets the stride it
+    would have if x were contiguous from there on: any stride reads it the
+    same, and TMA takes only positive multiples of 16 bytes. x can be read
+    as it lies where d is contiguous, the three strides are positive
+    multiples of 16 bytes and the start is 16-byte aligned: what a TMA
+    tensor map describes, and what the f32 path's 16-byte row loads
+    need."""
+    b, h, t, d = x.shape
+    sb, sh, st, sd = x.stride()
+    if t == 1:
+        st = d
+    if h == 1:
+        sh = st * t
+    if b == 1:
+        sb = sh * h
+    vec = 16 // x.element_size()
+    ready = (sd == 1 and sb > 0 and sh > 0 and st > 0 and sb % vec == 0
+             and sh % vec == 0 and st % vec == 0 and x.data_ptr() % 16 == 0)
+    return (sb, sh, st), ready
+
+
+class FlashFwdPlan(NamedTuple):
+    """What the wrapper decides for one launch of csrc/flash_fwd.cu; the
+    grid, the k/v stages and the shared memory are the kernel's own."""
+    copies: tuple    # operands made contiguous first
+    strides: tuple   # (b, h, t) strides of q, k and v as passed (_layout)
+
+
+def flash_fwd_plan(q, k, v) -> FlashFwdPlan:
+    """The launch of flash_attention_fwd for these operands. An operand the
+    kernel cannot read as it lies (_layout: e.g. a fused-qkv view whose
+    strides are not 16-byte multiples) is made contiguous first, and its
+    strides are then those of the copy."""
+    copies, strides = (), ()
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        st, ready = _layout(x)
+        if not ready:
+            copies += (name,)
+            st = (x.shape[1] * x.shape[2] * x.shape[3],
+                  x.shape[2] * x.shape[3], x.shape[3])
+        strides += st
+    return FlashFwdPlan(copies, strides)
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -139,7 +191,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_heads(q, k, v)
     if q.device.type == k.device.type == v.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal)
-    _check_kernel_inputs(q, k, v)
+    _check_kernel_inputs(q, k, v, layout=False)
+    plan = flash_fwd_plan(q, k, v)
+    if plan.copies:
+        q, k, v = (x.contiguous() if name in plan.copies else x
+                   for name, x in (("q", q), ("k", k), ("v", v)))
     b, h, t, d = q.shape
     lib = _kernel_lib("flash_fwd")
     out = torch.empty((b, h, t, d), dtype=q.dtype, device=q.device)
@@ -149,8 +205,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = lib.gtt_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), KERNEL_DTYPES[q.dtype], b, h, k.shape[1], t, d,
-            int(causal), _folded_scale(d, q.dtype), *q.stride()[:3],
-            *k.stride()[:3], *v.stride()[:3], stream)
+            int(causal), _folded_scale(d, q.dtype),
+            *plan.strides, stream)
     _raise_on(err, "flash_fwd", lib)
     flash_attention_fwd.launches += 1
     return out, lse
@@ -253,6 +309,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return flash_attention_fwd(q, k, v, causal)[0]
 
 
+@functools.lru_cache(maxsize=None)
 def _folded_scale(d: int, dtype: torch.dtype) -> float:
     # JAX multiplies q (dtype) by the weakly typed 1/sqrt(d), which first
     # rounds the scale to q's dtype; the kernel gets that rounded value.

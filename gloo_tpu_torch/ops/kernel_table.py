@@ -2,12 +2,15 @@
 
 One row per ``pl.pallas_call`` site in gloo_tpu/ops: the kernel function
 (file, ``def`` line, call line), the wrapper that reaches it, and its port
-status: ``ported: <source>``. The slices were the order of the port: 1
-serving (flash forward), 2 training on one card (flash backward), 3 the
-device plane (ring allreduce, reduce-scatter, allgather) over a world of
-ranks on one card, 4 tensor parallelism (collective matmuls), 5 sequence
-and expert parallelism (ring-attention steps, all-to-all), 6 the ring
-allreduce variants (HBM-streaming, int8-wire, bidirectional).
+status: ``ported: <source>``, followed by ``; redesigned, PR <n>`` where
+a later PR redesigned the port's first design for Hopper. The slices were
+the order of the port: 1 serving (flash forward), 2 training on one card
+(flash backward), 3 the device plane (ring allreduce, reduce-scatter,
+allgather) over a world of ranks on one card, 4 tensor parallelism
+(collective matmuls), 5 sequence and expert parallelism (ring-attention
+steps, all-to-all), 6 the ring allreduce variants (HBM-streaming,
+int8-wire, bidirectional). PRs 7-10 redesigned the kernels that lost most
+to one PyTorch call (PERF.md §6).
 tests/test_torch_isolation.py holds this table against the JAX sources.
 """
 
@@ -32,7 +35,7 @@ _R = "gloo_tpu/ops/pallas_ring.py"
 
 KERNELS = (
     Kernel("B1", _A, "_flash_kernel", 92, 237, "flash_attention",
-           "ported: gloo_tpu_torch/csrc/flash_fwd.cu"),
+           "ported: gloo_tpu_torch/csrc/flash_fwd.cu; redesigned, PR 10"),
     Kernel("B2", _A, "_flash_bwd_fused_kernel", 313, 430,
            "flash_attention_bwd_fused",
            "ported: gloo_tpu_torch/csrc/flash_bwd.cu"),
@@ -45,24 +48,25 @@ KERNELS = (
            "flash_attention_bwd_step",
            "ported: gloo_tpu_torch/csrc/flash_bwd_step.cu"),
     Kernel("B5a", _O, "_matmul_rs_kernel", 38, 185, "matmul_reduce_scatter",
-           "ported: gloo_tpu_torch/csrc/overlap.cu"),
+           "ported: gloo_tpu_torch/csrc/overlap.cu; redesigned, PR 7"),
     Kernel("B5b", _O, "_ag_matmul_kernel", 205, 294, "allgather_matmul",
-           "ported: gloo_tpu_torch/csrc/overlap.cu"),
+           "ported: gloo_tpu_torch/csrc/overlap.cu; redesigned, PR 7"),
     Kernel("B3", _R, "_ring_allreduce_kernel", 63, 183, "ring_allreduce",
-           "ported: gloo_tpu_torch/csrc/ring.cu"),
+           "ported: gloo_tpu_torch/csrc/ring.cu; redesigned, PR 8"),
     Kernel("B9", _R, "_ring_allreduce_hbm_kernel", 246, 440,
            "ring_allreduce_hbm",
-           "ported: gloo_tpu_torch/csrc/ring_variants.cu"),
+           "ported: gloo_tpu_torch/csrc/ring_variants.cu; redesigned, PR 9"),
     Kernel("B10", _R, "_ring_allreduce_q8_kernel", 485, 654,
            "ring_allreduce_q8",
            "ported: gloo_tpu_torch/csrc/ring_variants.cu"),
     Kernel("B11", _R, "_ring_allreduce_bidir_kernel", 691, 842,
            "ring_allreduce_bidir",
-           "ported: gloo_tpu_torch/csrc/ring_variants.cu"),
+           "ported: gloo_tpu_torch/csrc/ring_variants.cu; redesigned, PR 9"),
     Kernel("B4a", _R, "_ring_reduce_scatter_kernel", 876, 963,
-           "ring_reduce_scatter", "ported: gloo_tpu_torch/csrc/ring.cu"),
+           "ring_reduce_scatter",
+           "ported: gloo_tpu_torch/csrc/ring.cu; redesigned, PR 8"),
     Kernel("B4b", _R, "_ring_allgather_kernel", 995, 1050, "ring_allgather",
            "ported: gloo_tpu_torch/csrc/ring.cu"),
     Kernel("B8", _R, "_alltoall_kernel", 1109, 1178, "pallas_alltoall",
-           "ported: gloo_tpu_torch/csrc/alltoall.cu"),
+           "ported: gloo_tpu_torch/csrc/alltoall.cu; redesigned, PR 10"),
 )

@@ -21,7 +21,8 @@ the ring size n. Results, as in JAX:
   - ring_allreduce_hbm, ring_allreduce_q8, ring_allreduce_bidir: as
     ring_allreduce (q8 an int8-wire approximation of the sum);
   - alltoall: (P, rows, cols), block j of rank r (rows / n rows each) is
-    block (ring index of r) of ring member j.
+    block (ring index of r) of ring member j; any world (P, *local) with a
+    split and a concat axis, as lax.all_to_all (tiled).
 
 On CUDA tensors each wrapper launches its kernel or raises; on CPU tensors
 it runs its plain twin (``*_plain``), which walks the ring step by step
@@ -35,14 +36,19 @@ and adds it up in one pass (csrc/ring.cu, csrc/ring_variants.cu; B11's
 right half in the mirrored ring's order, B9 through TMA bulk copies), so
 their sums are the twins' bit for bit. The sum kernels B3 and B4a take
 SUM_DTYPES on the card and on the CPU alike; B9 and B11 bf16 and f32, B10
-f32. The allgather and the all-to-all move bytes only, in any dtype, and
-their twins' copies are the kernels', step by step.
+f32. The allgather and the all-to-all move bytes only, in any dtype. The
+allgather's twin copies what its kernel copies, step by step; the
+all-to-all's twin moves the split axis to the front, makes the TPU
+kernel's block copies and concatenates, while its kernel pulls each
+rank's blocks from every member in one pass over strided blocks
+(csrc/alltoall.cu), the same bytes to the same places.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import TYPE_CHECKING
+import math
+from typing import TYPE_CHECKING, NamedTuple
 
 import numpy as np
 import torch
@@ -113,14 +119,20 @@ def _raise_on(err: int, name: str, lib: ctypes.CDLL) -> None:
             f"{lib.gtt_error_string(err).decode()} (cudaError {err})")
 
 
-def _ring_size(x: torch.Tensor, axis_name: str, mesh: Mesh) -> int:
-    """Checks that hold on every device; returns the ring size n."""
+def _ring_size(x: torch.Tensor, axis_name: str, mesh: Mesh,
+               local_dims: int | None = 2) -> int:
+    """Checks that hold on every device; returns the ring size n. x is a
+    world tensor (P, *local) with `local_dims` local axes (None: any
+    number, at least one)."""
     if axis_name not in mesh.shape:
         raise ValueError(f"axis {axis_name!r} is not one of "
                          f"{mesh.axis_names}")
-    if x.dim() != 3 or x.shape[0] != mesh.size:
+    dims_ok = x.dim() >= 2 if local_dims is None \
+        else x.dim() == 1 + local_dims
+    if not dims_ok or x.shape[0] != mesh.size:
+        want = "..." if local_dims is None else "rows, cols"
         raise ValueError(f"x must be a world tensor (ranks={mesh.size}, "
-                         f"rows, cols); got {tuple(x.shape)}")
+                         f"{want}); got {tuple(x.shape)}")
     dev = mesh.device
     if x.device.type != dev.type or (
             dev.type == "cuda" and dev.index is not None
@@ -150,6 +162,14 @@ def _kernel_layout(x: torch.Tensor, chunk_elems: int, *more: torch.Tensor):
         t.data_ptr() % 16 == 0 for t in (x, *more))
     return (SUM_DTYPES[x.dtype], int(vec),
             chunk_elems // per_vec if vec else chunk_elems)
+
+
+def _unit_bytes(nbytes: int, *addresses: int) -> int:
+    """The widest access (16, 8, 4, 2 or 1 bytes) that divides a piece of
+    nbytes and every buffer's start address."""
+    return next(unit for unit in (16, 8, 4, 2, 1)
+                if nbytes % unit == 0 and all(a % unit == 0
+                                              for a in addresses))
 
 
 def cooperative_grid(x: torch.Tensor, mesh: Mesh, axis_name: str,
@@ -413,7 +433,7 @@ def _allgather(x: torch.Tensor, axis_name: str, mesh: Mesh) -> torch.Tensor:
     out = torch.empty((ranks, n * rows, cols), dtype=x.dtype,
                       device=x.device)
     # A copy: any dtype, moved in the widest unit that fits.
-    unit = _unit_bytes(chunk_bytes, x, out)
+    unit = _unit_bytes(chunk_bytes, x.data_ptr(), out.data_ptr())
     lib, slices, flags, stride, (my, right, left) = _launch_setup(
         x, mesh, axis_name, chunk_bytes // unit)
     with torch.cuda.device(x.device):
@@ -775,8 +795,12 @@ def ring_allreduce_bidir_plain(x: torch.Tensor, axis_name: str,
 
 _a2a_lib: ctypes.CDLL | None = None
 _a2a_max_blocks: dict[int, int] = {}
-# Threads per block of csrc/alltoall.cu (kThreads).
+# Threads per block of csrc/alltoall.cu (kThreads), and units each thread
+# moves per member where runs are long: the wrapper asks for as many slices
+# as give every thread this many (one pass of the kernel's kUnroll), as far
+# as the card holds them.
 ALLTOALL_THREADS = 256
+ALLTOALL_UNITS_PER_THREAD = 2
 
 
 def _alltoall_lib() -> ctypes.CDLL:
@@ -784,7 +808,8 @@ def _alltoall_lib() -> ctypes.CDLL:
     if _a2a_lib is None:
         lib = _build.load("alltoall")
         lib.gtt_alltoall.argtypes = [_P, _L, _P, _L, _P, _I, _IP, _IP, _I,
-                                     _I, _I, _L, _I, _P]
+                                     _I, _I, _L, _L, _L, _L, _L, _L, _I, _I,
+                                     _P]
         lib.gtt_alltoall.restype = ctypes.c_int
         lib.gtt_alltoall_max_blocks.argtypes = [_IP]
         lib.gtt_alltoall_max_blocks.restype = ctypes.c_int
@@ -796,84 +821,139 @@ def _alltoall_lib() -> ctypes.CDLL:
     return _a2a_lib
 
 
-def _unit_bytes(chunk_bytes: int, *buffers: torch.Tensor) -> int:
-    """The widest access (16, 8, 4, 2 or 1 bytes) that divides a block and
-    every buffer's start."""
-    for unit in (16, 8, 4, 2, 1):
-        if chunk_bytes % unit == 0 and all(t.data_ptr() % unit == 0
-                                           for t in buffers):
-            return unit
-    return 1
+class AlltoallPlan(NamedTuple):
+    """One launch of csrc/alltoall.cu, in bytes: a block is `block` bytes,
+    rows of `in_run` bytes `in_pitch` apart on the input and of `out_run`
+    bytes `out_pitch` apart on the output; `run` = gcd(in_run, out_run) is
+    copied as one piece, in accesses of `unit` bytes, by `group` threads;
+    `want` slices give each thread ALLTOALL_UNITS_PER_THREAD units per
+    member (long runs) or one run (short runs)."""
+    out_local: tuple
+    block: int
+    in_run: int
+    in_pitch: int
+    out_run: int
+    out_pitch: int
+    run: int
+    unit: int
+    group: int
+    want: int
 
 
-def _alltoall(x: torch.Tensor, axis_name: str, mesh: Mesh) -> torch.Tensor:
-    n = _ring_size(x, axis_name, mesh)
-    ranks, rows, cols = x.shape
-    _check_rows(rows, n)
+def alltoall_plan(local, elt: int, n: int, split: int, concat: int,
+                  *addresses: int) -> AlltoallPlan:
+    """The plan for each rank's contiguous local value of shape `local`
+    (elements of `elt` bytes) split along `split` and concatenated along
+    `concat` over a ring of n, with the buffers at `addresses` (each rank's
+    input and output start at one of them plus a multiple of a rank's
+    bytes)."""
+    local = tuple(local)
+    c = local[split] // n
+    out_local = list(local)
+    out_local[split] = c
+    out_local[concat] *= n
+    in_run = c * math.prod(local[split + 1:]) * elt
+    out_run = (out_local[concat] // n * math.prod(out_local[concat + 1:])
+               * elt)
+    block = math.prod(local) * elt // n
+    run = math.gcd(in_run, out_run) or 1  # 1 for an empty block
+    unit = _unit_bytes(run, *addresses)
+    units = run // unit
+    group = ALLTOALL_THREADS if units >= ALLTOALL_THREADS \
+        else 1 << (units.bit_length() - 1)
+    if group == ALLTOALL_THREADS:
+        want = -(-block // unit
+                 // (ALLTOALL_THREADS * ALLTOALL_UNITS_PER_THREAD))
+    else:
+        want = -(-(block // run) // (ALLTOALL_THREADS // group))
+    return AlltoallPlan(tuple(out_local), block, in_run, n * in_run,
+                        out_run, n * out_run, run, unit, group, want)
+
+
+def _alltoall(x: torch.Tensor, axis_name: str, mesh: Mesh, split: int,
+              concat: int) -> torch.Tensor:
+    n = _ring_size(x, axis_name, mesh, local_dims=None)
+    _check_rows(x.shape[1 + split], n)
     if n == 1:
         return x
     if x.device.type == "cpu":
-        return alltoall_plain(x, axis_name, mesh)
+        return alltoall_plain(x, axis_name, mesh, split, concat)
     _check_ranks(x, "the all-to-all kernel")
     x = x.contiguous()
-    out = torch.empty_like(x)
-    chunk_bytes = rows // n * cols * x.element_size()
-    unit = _unit_bytes(chunk_bytes, x, out)
+    ranks = x.shape[0]
+    # A new output starts on the allocator's 512-byte boundary: only x's
+    # start limits the unit (the kernel checks both).
+    plan = alltoall_plan(x.shape[1:], x.element_size(), n, split, concat,
+                         x.data_ptr())
+    out = torch.empty((ranks, *plan.out_local), dtype=x.dtype,
+                      device=x.device)
+    if out.numel() == 0:
+        return out
     lib = _alltoall_lib()
     stride = lib.gtt_alltoall_flag_stride()
     slices, flags, _ = cooperative_grid(
         x, mesh, axis_name, lib, lib.gtt_alltoall_max_blocks,
-        _a2a_max_blocks, -(-chunk_bytes // unit // ALLTOALL_THREADS), stride)
-    my = mesh.ring_index(axis_name)
+        _a2a_max_blocks, plan.want, stride)
+    rank_bytes = n * plan.block
     with torch.cuda.device(x.device):
         err = lib.gtt_alltoall(
-            x.data_ptr(), rows * cols * x.element_size(), out.data_ptr(),
-            rows * cols * x.element_size(), flags.data_ptr(), stride,
-            (ctypes.c_int * ranks)(*my), _members_table(mesh, axis_name),
-            ranks, n, slices, chunk_bytes, unit, _stream(x))
+            x.data_ptr(), rank_bytes, out.data_ptr(), rank_bytes,
+            flags.data_ptr(), stride,
+            (ctypes.c_int * ranks)(*mesh.ring_index(axis_name)),
+            _members_table(mesh, axis_name), ranks, n, slices, plan.block,
+            plan.in_run, plan.in_pitch, plan.out_run, plan.out_pitch,
+            plan.run, plan.unit, plan.group, _stream(x))
     _raise_on(err, "alltoall", lib)
     alltoall.launches += 1
     return out
 
 
 class _Alltoall(torch.autograd.Function):
-    """The block swap (i, j) -> (j, i) along a ring is an involution: the
-    VJP is the same all-to-all of the cotangent (pallas_ring.py's
-    custom VJP)."""
+    """lax.all_to_all's transpose: the VJP is the same all-to-all of the
+    cotangent with the split and concat axes swapped (for the block swap
+    along the leading axis, the same all-to-all: pallas_ring.py's custom
+    VJP)."""
 
     @staticmethod
-    def forward(ctx, x, axis_name, mesh):
-        ctx.axis_name, ctx.mesh = axis_name, mesh
-        return _alltoall(x, axis_name, mesh)
+    def forward(ctx, x, axis_name, mesh, split, concat):
+        ctx.args = (axis_name, mesh, concat, split)
+        return _alltoall(x, axis_name, mesh, split, concat)
 
     @staticmethod
     def backward(ctx, g):
-        return _alltoall(g.contiguous(), ctx.axis_name, ctx.mesh), None, None
+        return _alltoall(g.contiguous(), *ctx.args), None, None, None, None
 
 
-def alltoall(x: torch.Tensor, axis_name: str, mesh: Mesh) -> torch.Tensor:
-    """All-to-all of the world tensor x (P, rows, cols) along `axis_name`:
-    each rank's rows are n blocks of rows / n; block j of rank r's result
-    is block (ring index of r) of its ring member j. Any dtype (a byte
-    copy). Differentiable (the VJP is the same all-to-all)."""
-    if torch.is_grad_enabled() and x.requires_grad \
-            and _ring_size(x, axis_name, mesh) > 1:
-        return _Alltoall.apply(x, axis_name, mesh)
-    return _alltoall(x, axis_name, mesh)
+def alltoall(x: torch.Tensor, axis_name: str, mesh: Mesh,
+             split_axis: int = 0, concat_axis: int = 0) -> torch.Tensor:
+    """All-to-all of the world tensor x (P, *local) along `axis_name`, as
+    lax.all_to_all (tiled): each rank's local value is split into n blocks
+    along `split_axis`, block k goes to ring member k, and each rank
+    concatenates the blocks it receives along `concat_axis` in ring order.
+    For x (P, rows, cols) and the default axes, block j of rank r's rows is
+    block (ring index of r) of its ring member j. Any dtype (a byte copy).
+    One launch on the card, reading x as it lies (made contiguous first if
+    it is not) into a new output. Differentiable (the VJP swaps the
+    axes)."""
+    n = _ring_size(x, axis_name, mesh, local_dims=None)
+    split = split_axis % (x.dim() - 1)
+    concat = concat_axis % (x.dim() - 1)
+    if torch.is_grad_enabled() and x.requires_grad and n > 1:
+        return _Alltoall.apply(x, axis_name, mesh, split, concat)
+    return _alltoall(x, axis_name, mesh, split, concat)
 
 
 # Launches of the CUDA kernel in this process; counts nothing on the CPU.
 alltoall.launches = 0
 
 
-def alltoall_plain(x: torch.Tensor, axis_name: str,
-                   mesh: Mesh) -> torch.Tensor:
-    """B8's copies in plain PyTorch, in the kernel's order: each rank's own
-    block into place, then at step s = 1 .. n - 1 block (my + s) of every
-    rank into slot my of its ring member (my + s)."""
-    n = _ring_size(x, axis_name, mesh)
+def _alltoall_leading(x: torch.Tensor, axis_name: str,
+                      mesh: Mesh) -> torch.Tensor:
+    """The TPU kernel's copies over (P, rows, cols), in its order: each
+    rank's own block into place, then at step s = 1 .. n - 1 block (my + s)
+    of every rank into slot my of its ring member (my + s)."""
+    n = mesh.shape[axis_name]
     ranks, rows, cols = x.shape
-    _check_rows(rows, n)
     my = torch.tensor(mesh.ring_index(axis_name), device=x.device)
     members = torch.tensor(mesh.ring_members(axis_name), device=x.device)
     ar = torch.arange(ranks, device=x.device)
@@ -884,3 +964,23 @@ def alltoall_plain(x: torch.Tensor, axis_name: str,
         dst = (my + s) % n
         o[members[ar, dst], my] = blocks[ar, dst]
     return o.reshape(ranks, rows, cols)
+
+
+def alltoall_plain(x: torch.Tensor, axis_name: str, mesh: Mesh,
+                   split_axis: int = 0, concat_axis: int = 0) -> torch.Tensor:
+    """B8 in plain PyTorch: the split axis moved to the front of each
+    rank's value, the TPU kernel's block copies in its order, and the
+    received blocks concatenated along the concat axis."""
+    n = _ring_size(x, axis_name, mesh, local_dims=None)
+    local = x.shape[1:]
+    split = split_axis % len(local)
+    concat = concat_axis % len(local)
+    _check_rows(local[split], n)
+    moved = x.movedim(1 + split, 1)
+    rest = moved.shape[2:]
+    out = _alltoall_leading(
+        moved.reshape(mesh.size, local[split], math.prod(rest)), axis_name,
+        mesh)
+    out = out.reshape(mesh.size, n, local[split] // n, *rest)
+    out = out.movedim(2, 2 + split).movedim(1, 1 + concat)
+    return out.flatten(1 + concat, 2 + concat)

@@ -10,7 +10,8 @@ The sum collectives ride the ring kernels of gloo_tpu_torch.ops.ring:
 ``allreduce`` and ``mean`` B3, ``reduce_scatter`` B4a (both in
 ring.SUM_DTYPES, on the card and on the CPU alike), ``allgather`` B4b (any
 dtype);
-``alltoall`` rides the all-to-all kernel B8 (one launch each on the card).
+``alltoall`` rides the all-to-all kernel B8 (one launch each on the card,
+over strided blocks: no copy around it).
 ``max``/``min``/``product``, ``broadcast``, ``scatter``, ``ppermute``,
 ``shift`` and ``barrier`` are plain torch across the rank axis: the JAX
 package has no Pallas kernel for them (they are XLA collectives there).
@@ -121,28 +122,19 @@ def alltoall(x: torch.Tensor, axis: str, split_axis: int = 0,
              concat_axis: int = 0, *, mesh: Mesh) -> torch.Tensor:
     """Scatter `split_axis` across the ring and gather along `concat_axis`
     (tiled): block k of rank r's value goes to ring member k, and rank r
-    concatenates the blocks it receives in ring order. One B8 launch: the
-    split axis moves to the front of each rank's value (a copy unless it
-    is there already), then the received blocks are concatenated along
-    `concat_axis`. Raises ValueError when the split axis does not divide
-    by the ring size, as lax.all_to_all does."""
+    concatenates the blocks it receives in ring order. One B8 launch that
+    reads x's blocks as strided slabs where they lie and writes the result
+    in its final layout: no copy before or after it. Raises ValueError
+    when the split axis does not divide by the ring size, as
+    lax.all_to_all does."""
     _per_rank(x, mesh)
     n = mesh.shape[axis]
     local = x.shape[1:]
     split = split_axis % len(local)
-    concat = concat_axis % len(local)
     if local[split] % n != 0:
         raise ValueError(f"split axis {split_axis} of size {local[split]} is "
                          f"not divisible by the axis size {n}")
-    moved = x.movedim(1 + split, 1)
-    rest = moved.shape[2:]
-    out = ring.alltoall(moved.reshape(mesh.size, local[split], -1), axis,
-                        mesh)
-    # (P, n blocks, chunk, rest) with each block back in the local layout,
-    # then the n blocks concatenated along concat_axis.
-    out = out.reshape(mesh.size, n, local[split] // n, *rest)
-    out = out.movedim(2, 2 + split).movedim(1, 1 + concat)
-    return out.flatten(1 + concat, 2 + concat)
+    return ring.alltoall(x, axis, mesh, split, concat_axis % len(local))
 
 
 def broadcast(x: torch.Tensor, axis: str, root: int = 0, *,

@@ -1,0 +1,104 @@
+#!/usr/bin/env python3
+"""Host-side times of the PyTorch/CUDA port (gloo_tpu_torch) on one GPU.
+
+    python3 host_times.py
+
+Prints, for the gloo_tpu_torch found beside this script:
+  - the host's cost per call of two wrappers, by the CPU clock over many
+    back-to-back calls with no synchronization (the device keeps up, so the
+    clock reads what the host spends to launch): flash_attention_fwd (B1)
+    at the entry forward's shape, on the fused-qkv views the transformer
+    hands it, and spmd.alltoall (B8) at one exchange of the Ulysses path;
+  - the time per call between CUDA events (chip_smoke.event_ms) of the
+    entry forward, a training step, a DDP step, a dp x tp step and the
+    Ulysses and MoE paths' forward + backward.
+
+It uses only the entry points, wrappers and chip_smoke helpers whose
+signatures earlier versions of the port share, so that the same script
+can time two trees: copy it into the other tree's root and run it there,
+alternating trees within one session on one card. The last line is one
+JSON object of every number printed.
+"""
+
+import json
+import os
+import sys
+import time
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+from chip_smoke import card_line, event_ms  # noqa: E402
+
+
+def host_us(fn, calls=500):
+    """Microseconds of the host's clock per call over `calls` calls."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    spent = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return spent / calls * 1e6
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("host_times: no CUDA device is available")
+    from gloo_tpu_torch import _build
+    from gloo_tpu_torch.entry import (ddp_train_entry, dp_tp_train_entry,
+                                      entry, ep_entry, sp_entry, train_entry)
+    from gloo_tpu_torch.ops import attention as attn
+    from gloo_tpu_torch.tpu import make_mesh, spmd
+
+    card = card_line()
+    print(f"card: {card}")
+    _build.build()
+    result = {"card": card}
+
+    # B1's wrapper at the entry forward's shape: (b, h, t, d) = (8, 4, 128,
+    # 64) bf16, causal, as views of one (b, t, 3 h d) projection.
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    b, h, t, d = 8, 4, 128, 64
+    qkv = torch.randn((b, t, 3 * h * d), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].view(b, t, h, d)
+               .transpose(1, 2) for i in range(3))
+    with torch.inference_mode():
+        result["flash_attention_fwd_host_us"] = host_us(
+            lambda: attn.flash_attention_fwd(q, k, v, True))
+
+    # B8 through spmd.alltoall at the Ulysses path's first exchange: each
+    # of 4 ranks' (b, h, t_local, d) = (2, 4, 1024, 64) bf16, heads split,
+    # sequence gathered.
+    dev = torch.device("cuda")
+    mesh = make_mesh({"seq": 4}, devices=[dev] * 4)
+    x = torch.randn((4, 2, 4, 1024, 64), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    with torch.no_grad():
+        result["spmd_alltoall_host_us"] = host_us(
+            lambda: spmd.alltoall(x, "seq", 1, 2, mesh=mesh))
+
+    fn, args = entry()
+    result["entry_forward_ms"] = event_ms(lambda: fn(*args), 20)
+    fn, args = train_entry()
+    result["training_step_ms"] = event_ms(lambda: fn(*args), 20)
+    fn, args = ddp_train_entry()
+    result["ddp_step_ms"] = event_ms(lambda: fn(*args), 10)
+    fn, args = dp_tp_train_entry()
+    result["dp_tp_step_ms"] = event_ms(lambda: fn(*args), 10)
+    fn, args = sp_entry()["ulysses"]
+    result["ulysses_path_ms"] = event_ms(lambda: fn(*args), 10)
+    fn, args = ep_entry()
+    result["moe_path_ms"] = event_ms(lambda: fn(*args), 10)
+
+    for key, val in result.items():
+        print(f"{key}: {val}")
+    print(json.dumps(result))
+
+
+if __name__ == "__main__":
+    main()

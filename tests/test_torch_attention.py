@@ -218,6 +218,59 @@ def test_non_cpu_tensor_never_takes_the_plain_path():
         attn.flash_attention(q, q, q)
 
 
+# (name, b, h, h_kv, t, d, dtype).
+PLAN_CASES = [
+    ("entry", 8, 4, 4, 128, 64, torch.bfloat16),
+    ("t1024_d128", 4, 8, 8, 1024, 128, torch.bfloat16),
+    ("ulysses", 8, 1, 1, 4096, 64, torch.bfloat16),
+    ("ragged_gqa", 2, 8, 2, 200, 128, torch.bfloat16),
+    ("f32", 2, 4, 2, 100, 128, torch.float32),
+]
+
+
+@pytest.mark.parametrize("case", PLAN_CASES, ids=[c[0] for c in PLAN_CASES])
+def test_forward_launch_plan(case):
+    """Contiguous q, k and v (GQA's k/v with their own head count) go to
+    the kernel as they lie, with their (b, h, t) strides in elements."""
+    _, b, h, h_kv, t, d, dtype = case
+    q = torch.empty((b, h, t, d), dtype=dtype, device="meta")
+    k = torch.empty((b, h_kv, t, d), dtype=dtype, device="meta")
+    plan = attn.flash_fwd_plan(q, k, k)
+    strides = (h * t * d, t * d, d) + (h_kv * t * d, t * d, d) * 2
+    assert plan == ((), strides)
+
+
+def test_forward_plan_copies_only_what_tma_cannot_read():
+    """The transformer's fused-qkv views go as they lie; a view whose row
+    stride is not a multiple of 16 bytes, whose start is not 16-byte
+    aligned, or whose head_dim is not contiguous is made contiguous first.
+    A dimension of size 1 has no stride that matters."""
+    b, h, t, d = 2, 4, 72, 64
+    qkv = torch.empty((b, t, 3 * h * d), dtype=torch.bfloat16, device="meta")
+    q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].view(b, t, h, d)
+               .transpose(1, 2) for i in range(3))
+    plan = attn.flash_fwd_plan(q, k, v)
+    assert plan.copies == ()
+    assert plan.strides == (t * 3 * h * d, d, 3 * h * d) * 3
+    odd = torch.empty((b, t, h * d + 4), dtype=torch.bfloat16,
+                      device="meta")[..., :h * d].view(b, t, h, d) \
+        .transpose(1, 2)
+    plan = attn.flash_fwd_plan(odd, k, v)
+    assert plan.copies == ("q",)
+    # The copy's strides, q's (contiguous) layout, go to the kernel.
+    assert plan.strides[:3] == (h * t * d, t * d, d)
+    shifted = torch.empty((b, h, t, d + 8), dtype=torch.bfloat16,
+                          device="meta")[..., 1:d + 1]
+    assert attn.flash_fwd_plan(q, shifted, v).copies == ("k",)
+    cols = torch.empty((b, h, d, t), dtype=torch.bfloat16,
+                       device="meta").transpose(2, 3)
+    assert attn.flash_fwd_plan(q, k, cols).copies == ("v",)
+    one = torch.empty((1, 1, t, d), dtype=torch.bfloat16, device="meta")
+    one = one.as_strided(one.shape, (3, 5, d, 1))
+    plan = attn.flash_fwd_plan(one, one, one)
+    assert plan.copies == () and plan.strides == (t * d, t * d, d) * 3
+
+
 # ---- on the card ----
 
 @pytest.fixture
@@ -263,6 +316,50 @@ def test_bwd_kernel_matches_plain_on_card(cuda_device, dtype, causal):
         r = r.float().cpu()
         scale = float(r.abs().max()) if dtype == "bfloat16" else 1.0
         _assert_close(a.cpu(), r.numpy(), rtol, atol * scale)
+
+
+# (b, h, h_kv, t, d, dtype, causal, layout): the bf16 kernel's tiles,
+# k/v stages (3 at d 64, 2 at d 128) and masks; "fused" q/k/v views of one
+# projection, "odd" a q whose row stride is not a multiple of 16 bytes
+# (copied first).
+CARD_CASES = [
+    (8, 4, 4, 128, 64, "bfloat16", True, "fused"),
+    (2, 8, 2, 200, 128, "bfloat16", True, "fused"),
+    (2, 4, 4, 320, 64, "bfloat16", False, "contiguous"),
+    (1, 2, 1, 1000, 128, "bfloat16", True, "odd"),
+    (2, 4, 4, 64, 64, "bfloat16", True, "odd"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,h_kv,t,d,dtype,causal,layout", CARD_CASES)
+def test_kernel_matches_plain_at_its_tiles_on_card(cuda_device, b, h, h_kv,
+                                                   t, d, dtype, causal,
+                                                   layout):
+    _, (q, k, v) = _inputs(b, h, h_kv, t, d, dtype, seed=t + d)
+    q, k, v = (x.to(cuda_device) for x in (q, k, v))
+    if layout == "fused":
+        qkv = torch.cat([x.transpose(1, 2).reshape(b, t, -1)
+                         for x in (q, k, v)], -1)
+        q, k, v = (qkv[..., a:a + n * d].view(b, t, n, d).transpose(1, 2)
+                   for a, n in ((0, h), (h * d, h_kv),
+                                ((h + h_kv) * d, h_kv)))
+    elif layout == "odd":
+        wide = torch.zeros((b, h, t, d + 4), dtype=q.dtype,
+                           device=cuda_device)
+        wide[..., :d] = q
+        q = wide[..., :d]
+    plan = attn.flash_fwd_plan(q, k, v)
+    assert plan.copies == (("q",) if layout == "odd" else ())
+    for _ in range(3):
+        before = attn.flash_attention_fwd.launches
+        out, lse = attn.flash_attention_fwd(q, k, v, causal)
+        torch.cuda.synchronize()
+        assert attn.flash_attention_fwd.launches == before + 1
+    ref_out, ref_lse = attn.flash_attention_plain(q, k, v, causal)
+    tol = TOL[dtype]
+    _assert_close(out.cpu(), ref_out.float().cpu().numpy(), *tol["out"])
+    _assert_close(lse.cpu(), ref_lse.cpu().numpy(), *tol["lse"])
 
 
 @pytest.mark.cuda

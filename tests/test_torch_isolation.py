@@ -5,6 +5,7 @@ names every Pallas kernel of the JAX package."""
 import ast
 import json
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -15,7 +16,7 @@ from gloo_tpu_torch.ops.kernel_table import KERNELS
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "gloo_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
+    REPO / "chip_smoke.py", REPO / "host_times.py"]
 
 
 def test_import_pulls_in_no_jax_and_no_gloo_tpu():
@@ -123,9 +124,12 @@ def test_kernel_table_covers_every_pallas_call():
     assert table == found
     assert len({k.id for k in KERNELS}) == len(KERNELS)
     for k in KERNELS:
-        assert k.status.startswith("ported: ")
-        assert (REPO / k.status.split(": ", 1)[1]).is_file()
-    variants = {k.id: k.status for k in KERNELS if k.id in
+        ported, *design = k.status.split("; ")
+        assert ported.startswith("ported: ")
+        assert (REPO / ported.split(": ", 1)[1]).is_file()
+        assert design == [] or re.fullmatch(r"redesigned, PR \d+",
+                                            design[0]), k
+    variants = {k.id: k.status.split("; ")[0] for k in KERNELS if k.id in
                 ("B9", "B10", "B11")}
     assert variants == dict.fromkeys(
         ("B9", "B10", "B11"), "ported: gloo_tpu_torch/csrc/ring_variants.cu")
