@@ -8,7 +8,8 @@ Phases, each of which raises on failure:
   2. build the CUDA kernels from gloo_tpu_torch/csrc (set-up time);
   3. hold each kernel against its plain PyTorch version on the card: the
      flash forward, and the flash backward (in f32 also against autograd
-     through the materialized-scores reference);
+     through the materialized-scores reference), at FLASH_CASES, head dims
+     8, 32 and 96 (zero-padded to the kernels' 64 and 128) among them;
   4. the serving path: the flagship forward of gloo_tpu_torch.entry at full
      width plus greedy serving, with the kernels' launch counts read around
      it, and its logits against the same model on the CPU (plain attention);
@@ -17,8 +18,10 @@ Phases, each of which raises on failure:
      width, with the launch counts read around them, a falling loss, and
      the first step's loss and gradients against the same model on the CPU;
   7. times of each kernel, its plain version and the library yardstick
-     at FLASH_CASES (the entry shape, larger ones and the Ulysses path's
-     whole-sequence shape), and of the forward and the training step;
+     at FLASH_CASES (the entry shape, larger ones, the other head dims and
+     the Ulysses path's whole-sequence shape; the backward's three launches
+     each, beside SDPA's backward), and of the forward and the training
+     step;
   8. the ring kernels (allreduce, reduce-scatter, allgather) against their
      plain versions on the card, bitwise, over worlds of 2 to 8 ranks on
      the card (RING_CASES), the DDP buffer and the torus composition on a
@@ -86,8 +89,9 @@ Phases, each of which raises on failure:
      shape), three calls in a row each; B9 bitwise B3, B11's left half
      bitwise B3 on those columns,
      B10 within Q8_REL of the f64 sum and bitwise equal on every rank; and
-     the sum collectives at int32, f16, f64 and int64 on B3, B4a and B4b
-     against the same calls on the CPU;
+     the sum collectives at int32, f16, f64, int64, int8, uint8, int16 and
+     bool on B3, B4a and B4b against the same calls on the CPU, and over
+     the tuple axis ("x", "y") of a 2 x 2 mesh;
  21. the ring-variant path (ring_variants_entry: the flagship's gradient
      buffer over 4 ranks on the card), each variant forward and backward
      with the launch counts read around it (2 each), y and the gradient
@@ -100,7 +104,8 @@ Phases, each of which raises on failure:
      yardsticks); of B9 at the path's shape and at 64 MiB per rank with
      each (tile, stages) of HBM_PROBES, bitwise B3 at each; and of B3 and
      B4a at the DDP shape and at 64 MiB per rank with SUM_PROBE_UNITS
-     units per thread (the slice count of their launch).
+     units per thread (the slice count of their launch); and of B4b at 64
+     MiB per rank against its bound and yardstick.
 The line before the last is the JSON list of kernels; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or gloo_tpu.
 """
@@ -226,7 +231,9 @@ DP_TP_STEPS = 5
 # against their plain versions over a world of ranks, at every step of its
 # ring (each rank's own block, then the blocks before it, so whole,
 # diagonal and hidden blocks, with the state carried from step to step).
-# "pathS" is the long-context path's shape.
+# "pathS" is the long-context path's shape; "d32_gqa" and
+# "d96_ragged_t200_full" run on the zero-padded d 64 and d 128 instances,
+# each step taking the d-wide acc view the step before returned.
 STEP_CASES = [
     ("pathS", 4, 2, 4, 4, 1024, 64, torch.bfloat16, True),
     ("pathS_full", 4, 2, 4, 4, 1024, 64, torch.bfloat16, False),
@@ -234,6 +241,8 @@ STEP_CASES = [
     ("d128_ragged_t200", 2, 1, 4, 4, 200, 128, torch.bfloat16, True),
     ("f32_d64", 4, 1, 2, 2, 128, 64, torch.float32, True),
     ("f32_d128_gqa_full", 2, 1, 4, 2, 100, 128, torch.float32, False),
+    ("d32_gqa", 4, 1, 8, 2, 256, 32, torch.bfloat16, True),
+    ("d96_ragged_t200_full", 2, 1, 4, 4, 200, 96, torch.bfloat16, False),
 ]
 # The step kernels against their plain versions, (rtol, atol) with atol
 # relative to the largest |plain| of each tensor. bf16: p (B6) and ds (B7)
@@ -331,7 +340,11 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # (name, b, h, h_kv, t, d, dtype, causal). The first is the shape the
 # entry forward and the training step give the kernels, the last the one
 # the Ulysses path gives them (the world flattened into the batch, h / n
-# heads over the whole sequence).
+# heads over the whole sequence). Head dims other than 64 and 128 run on
+# the next instance, zero-padded: "dryrun_dp_tp_d8" is the dry run's dp x
+# tp attention (__graft_entry__.py:125-135: batch 2 x dp 2, 4 heads of
+# d_model 32, seq 16), "d32_gqa" the reference tests' GQA head_dim
+# (tests/test_flash_attention.py:131) at a longer sequence.
 FLASH_CASES = [
     ("entry", 8, 4, 4, 128, 64, torch.bfloat16, True),
     ("t1024_d128_causal", 4, 8, 8, 1024, 128, torch.bfloat16, True),
@@ -340,6 +353,9 @@ FLASH_CASES = [
     ("ragged_t200", 2, 4, 4, 200, 128, torch.bfloat16, True),
     ("f32_t256", 2, 4, 4, 256, 64, torch.float32, True),
     ("f32_d128_gqa_t100_full", 2, 4, 2, 100, 128, torch.float32, False),
+    ("dryrun_dp_tp_d8", 4, 4, 4, 16, 8, torch.bfloat16, True),
+    ("d32_gqa", 2, 8, 2, 256, 32, torch.bfloat16, True),
+    ("d96_ragged_t200_full", 2, 4, 4, 200, 96, torch.bfloat16, False),
     ("ulysses", 8, 1, 1, 4096, 64, torch.bfloat16, True),
 ]
 
@@ -398,12 +414,13 @@ def event_ms(fn, iters=50):
     return start.elapsed_time(end) / iters
 
 
-def device_profile(fn, iters=20, want=None, sessions=6):
+def device_profile(fn, iters=20, want=(), sessions=6):
     """Per-call device time of fn from torch.profiler (CUPTI): (total ms or
     None where the trace shows no device time, [(ms, calls, name)] per
     kernel name, longest first). A session whose trace holds no device
-    time, or no kernel whose name contains `want`, is taken again, up to
-    `sessions` times: now and then a session records nothing."""
+    time, or for one of the names in `want` no kernel whose name contains
+    it, is taken again, up to `sessions` times: now and then a session
+    records nothing, or only part of the launches."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -420,7 +437,7 @@ def device_profile(fn, iters=20, want=None, sessions=6):
             if us > 0:
                 rows.append((us / 1e3 / iters, ev.count / iters, ev.key))
         rows.sort(reverse=True)
-        if rows and (want is None or any(want in r[2] for r in rows)):
+        if rows and all(any(w in r[2] for r in rows) for w in want):
             break
     total = sum(r[0] for r in rows)
     return (total if total > 0 else None), rows
@@ -475,17 +492,25 @@ def timed(label, fn, iters=20):
     return dev
 
 
-def timed_kernel(label, fn, name):
+def timed_kernel(label, fn, name, each=()):
     """Device ms of one call of fn in the kernels whose names contain
     `name` (those of one CUDA source, each launched once per call), or None
     where the trace shows none. Each kernel counts its mean time per
-    launch, so a record the trace drops does not lower the time."""
-    rows = device_profile(fn, want=name)[1]
+    launch, so a record the trace drops does not lower the time. The
+    kernels named in `each` are printed one by one, and each must be
+    seen."""
+    rows = device_profile(fn, want=(name, *each))[1]
     mine = [r for r in rows if name in r[2]]
     dev = sum(r[0] / r[1] for r in mine) if mine else None
     shown = "not measured" if dev is None else f"{dev:.6f} ms"
     seen = "+".join(f"{r[1]:g}" for r in mine)
     print(f"  {label}: device {shown} ({seen or 0} launches seen per call)")
+    for kernel in each:
+        found = [r for r in mine if f"{kernel}<" in r[2] or
+                 f"{kernel}(" in r[2]]
+        if not found:
+            raise AssertionError(f"{label}: the trace shows no {kernel}")
+        print(f"    {kernel}: {sum(r[0] / r[1] for r in found):.6f} ms")
     return dev
 
 
@@ -1295,20 +1320,30 @@ def variant_cases(ring, make_mesh, gen):
 
 
 def sum_dtype_cases(ring, spmd, make_mesh, gen):
-    """Phase 20: the sum collectives at int32, f16, f64 and int64 on the
-    card (allreduce and reduce_scatter on B3 and B4a, allgather and the
-    product allreduce on B4b) against the same calls on the CPU's twins,
-    bitwise. Values in [-4, 4], so every sum and product is exact in each
-    type."""
+    """Phase 20: the sum collectives at int32, f16, f64, int64, int8,
+    uint8, int16 and bool on the card (allreduce and reduce_scatter on B3
+    and B4a, allgather and the product allreduce on B4b; bool: the
+    allreduce as int32 counts and the allgather, its reduce-scatter
+    refused) against the same calls on the CPU's twins, bitwise. f16 and
+    f64 take values in [-4, 4], so every sum and product is exact; the
+    integers take values over 16 bits, so their sums wrap in the type.
+    Then every sum collective over the tuple axis ("x", "y") of a 2 x 2
+    mesh, against the CPU."""
     dev = torch.device("cuda")
     mesh = make_mesh({"data": 4}, devices=[dev] * 4)
     cpu = make_mesh({"data": 4}, devices=["cpu"] * 4)
     counters = (ring.ring_allreduce, ring.ring_reduce_scatter,
                 ring.ring_allgather)
     failed = []
-    for dtype in (torch.int32, torch.float16, torch.float64, torch.int64):
-        x = torch.randint(-4, 5, (4, 16, 24), generator=gen,
-                          device=dev).to(dtype)
+    for dtype in (torch.int32, torch.float16, torch.float64, torch.int64,
+                  torch.int8, torch.uint8, torch.int16, torch.bool):
+        if dtype.is_floating_point:
+            x = torch.randint(-4, 5, (4, 16, 24), generator=gen,
+                              device=dev).to(dtype)
+        else:
+            x = torch.randint(-2 ** 15, 2 ** 15, (4, 16, 24), generator=gen,
+                              device=dev)
+            x = x % 3 == 0 if dtype == torch.bool else x.to(dtype)
         calls = {
             "allreduce": lambda t, m: spmd.allreduce(t, "data", mesh=m),
             "reduce_scatter": lambda t, m: spmd.reduce_scatter(
@@ -1316,20 +1351,49 @@ def sum_dtype_cases(ring, spmd, make_mesh, gen):
             "allgather": lambda t, m: spmd.allgather(t, "data", mesh=m),
             "product": lambda t, m: spmd.allreduce(t, "data", "product",
                                                    mesh=m)}
+        want_launches = (1, 1, 2)
+        if dtype == torch.bool:
+            try:
+                spmd.reduce_scatter(x, "data", mesh=mesh)
+                failed.append("a bool reduce-scatter was not refused")
+            except TypeError:
+                pass
+            del calls["reduce_scatter"], calls["product"]
+            want_launches = (1, 0, 1)
         for c in counters:
             c.launches = 0
         got = {k: f(x, mesh) for k, f in calls.items()}
         torch.cuda.synchronize()
         launches = tuple(c.launches for c in counters)
+        out_dtype = {"allreduce": torch.int32} if dtype == torch.bool else {}
         wrong = [k for k, f in calls.items()
-                 if got[k].dtype != dtype
+                 if got[k].dtype != out_dtype.get(k, dtype)
                  or not torch.equal(got[k].cpu(), f(x.cpu(), cpu))]
         print(f"sum collectives at {str(dtype)[6:]} on the card: "
               f"{', '.join(calls)} against the CPU's twins "
               f"{'all equal' if not wrong else 'FAILED ' + str(wrong)}; "
               f"launches B3, B4a, B4b {launches}")
-        if wrong or launches != (1, 1, 2):
+        if wrong or launches != want_launches:
             failed.append(f"{dtype}: {wrong}, launches {launches}")
+    axes, axis = {"y": 2, "x": 2}, ("x", "y")
+    torus = make_mesh(axes, devices=[dev] * 4)
+    torus_cpu = make_mesh(axes, devices=["cpu"] * 4)
+    x = torch.randn((4, 16, 24), generator=gen, device=dev)
+    for c in counters:
+        c.launches = 0
+    got = {name: getattr(spmd, name)(x, axis, mesh=torus)
+           for name in ("allreduce", "reduce_scatter", "allgather")}
+    torch.cuda.synchronize()
+    launches = tuple(c.launches for c in counters)
+    wrong = [name for name, out in got.items()
+             if not torch.equal(out.cpu(), getattr(spmd, name)(
+                 x.cpu(), axis, mesh=torus_cpu))]
+    print(f"sum collectives over the tuple axis {axis} of a 2 x 2 mesh on "
+          f"the card against the CPU's twins: "
+          f"{'all equal' if not wrong else 'FAILED ' + str(wrong)}; "
+          f"launches B3, B4a, B4b {launches}")
+    if wrong or launches != (1, 1, 1):
+        failed.append(f"tuple axis {axis}: {wrong}, launches {launches}")
     if failed:
         raise AssertionError(f"the sum collectives failed: {failed}")
 
@@ -1475,6 +1539,7 @@ def variant_times(ring, paths, card):
               lambda: big.clone())
         hbm_probes(ring, x, big, mesh)
         sum_probes(ring, big, mesh)
+        gather_probe(ring, big, mesh)
     return rows
 
 
@@ -1531,6 +1596,28 @@ def sum_probes(ring, big, mesh):
                                  "ring_kernel")
     finally:
         ring.SUM_UNITS_PER_THREAD = chosen
+
+
+def gather_probe(ring, big, mesh):
+    """Phase 22: B4b at 64 MiB per rank (each rank's (BIG_ROWS, cols) f32
+    gathered over the ring of 4) against its bound (each input byte read
+    once, each output byte written once: S + n S per rank) and one PyTorch
+    call that writes the same bytes (expand(P).contiguous())."""
+    ranks = big.shape[0]
+    per_rank = big[0].numel() * big.element_size()
+    nbytes = ranks * per_rank + ranks * ranks * per_rank
+    bound, by = _bound(nbytes, 0, torch.float32)
+    ms = timed_kernel("ring_allgather kernel, 64 MiB per rank",
+                      lambda: ring.ring_allgather(big, "data", mesh),
+                      "ring_kernel")
+    timed("ring_allgather whole call (output, flags, kernel), 64 MiB per "
+          "rank", lambda: ring.ring_allgather(big, "data", mesh))
+    lib = timed("ring_allgather yardstick expand(P).contiguous(), 64 MiB "
+                "per rank", lambda: big.reshape(1, ranks, -1).expand(
+                    ranks, -1, -1).contiguous())
+    shown = "not measured" if ms is None else f"{ms / bound:.3f}"
+    print(f"  ring_allgather bound at 64 MiB per rank {bound:.6f} ms ({by}: "
+          f"{nbytes} bytes); kernel / bound {shown}, yardstick {lib} ms")
 
 
 def main():
@@ -1737,10 +1824,12 @@ def main():
             sdpa_out = F.scaled_dot_product_attention(
                 *leaves, is_causal=causal, enable_gqa=h != h_kv)
             ms = timed_kernel(
-                f"{name} bwd kernel",
+                f"{name} bwd kernels (the three launches of one call)",
                 lambda: attn.flash_attention_bwd(q, k, v, out, lse, do,
-                                                 causal), "flash_bwd")
-            timed(f"{name} bwd op (autograd: delta, kernel, dq pass)",
+                                                 causal), "flash_bwd",
+                attn.FLASH_BWD_KERNELS[dtype])
+            timed(f"{name} bwd op (autograd: the three launches, and at "
+                  f"a padded head_dim the pads and the slices' copies)",
                   lambda: torch.autograd.grad(op_out, leaves, do,
                                               retain_graph=True))
             plain = timed(

@@ -2,42 +2,65 @@
 //
 // Replaces gloo_tpu/ops/attention.py::_flash_bwd_fused_kernel, the Pallas
 // TPU kernel behind flash_attention's custom VJP: dQ, dK and dV from q, k,
-// v, the output's cotangent dO, the forward's logsumexp rows (lse) and
-// delta = rowsum(dO * O), recomputing every softmax tile from lse rather
-// than reading a (t, t) matrix.
+// v, the output's cotangent dO, the forward's out and logsumexp rows (lse),
+// recomputing every softmax tile from lse rather than reading a (t, t)
+// matrix.
 //
 // What bounds it on an H100: at the flagship training shape (b*h = 32,
 // t = 128, d = 64, causal, bf16) q, k, v, dO, dQ, dK and dV are 3.67 MB and
 // lse and delta 32 KB, 1.1 us at 3.35 TB/s; the five products over the
 // 8256 (q, k) pairs per head that the mask keeps are 169 MFLOP, 0.17 us at
-// 989 TFLOP/s. Bytes bound it, and the two launches lie above both. The
-// design therefore reads each k and v tile from device memory once per
-// block and keeps it in shared memory while the block walks every query
-// tile that sees it, never writes s, p, dp or ds to device memory, and
-// skips query tiles wholly above the causal diagonal. Products run on the
-// tensor cores through mma.sync (bf16) or on the FMA units (f32); wgmma,
-// TMA and pipelined loads are left for a shape where products bound it.
+// 989 TFLOP/s. Bytes bound it there, and the launches lie above both. At
+// long sequences (the Ulysses path's b*h = 8, t = 4096, d = 64, causal:
+// 43 GFLOP against 25 MB) the tensor cores do (~0.043 ms).
 //
-// Work division: one block of 4 warps per (batch, kv head, 64-key tile);
-// 64 blocks at the training shape, where one program per flat query head
-// walking every tile pair in order (the TPU grid) would give 32. The block
-// loops over the query heads of its GQA group and over their 64-row query
-// tiles, starting at the first tile that reaches the diagonal. For each
-// query tile warp w owns keys 16w .. 16w + 15 and computes, in registers,
-//   s^T = k (q * scale)^T, p^T = exp(s^T - lse), dp^T = v dO^T,
-//   ds^T = p^T (dp^T - delta),
-// writes p^T and ds^T (rounded to the input type) to shared memory and
-// accumulates dV += p^T dO and dK += ds^T (q * scale) in f32 registers.
-// The accumulators run over every query head of the group, which is the
-// TPU contract "dK/dV group-summed in f32 before the single downcast"
-// without a per-query-head buffer or a second pass. Then warp w takes
-// query rows 16w .. 16w + 15 of the tile and adds dQ += ds k into an f32
-// (b*h, t, d) buffer with atomicAdd: the key tiles of one query row live
-// in different blocks. A second kernel scales that buffer and casts it to
-// the input type, as the TPU kernel does in its last grid step. The atomics
-// make dQ's f32 summation order change from run to run, so dQ agrees with
-// the plain version within a tolerance and not bit for bit; dK and dV are
-// deterministic.
+// Three launches per backward, all named flash_bwd_*:
+//   1. flash_bwd_prep_kernel: delta = rowsum(dO * out) in f32 and the lse
+//      rows, side by side per 64-row query tile (rows past t get lse =
+//      +inf, so their p is exp(-inf) = 0 with no mask), and dq_acc = 0;
+//   2. the main kernel (below);
+//   3. flash_bwd_dq_kernel: dq = dq_acc * (1 / sqrt(d)) in the input type.
+//
+// bf16 (the model's type), flash_bwd_wgmma_kernel: one block per (flat kv
+// head, 64-key tile), longest blocks first under the causal mask (grid x
+// runs over heads, y over key tiles), of one consumer warpgroup (128
+// threads) and one producer warp. The producer's lane 0 loads k and v once
+// by TMA (128-byte-swizzled 64 x 64 slabs, hopper.cuh), where they stay,
+// then streams the q and dO tiles of every query tile that sees this key
+// tile, with their lse and delta rows (one 512-byte bulk copy), through
+// kStages<D> stages on full/empty mbarriers; query tiles wholly above the
+// causal diagonal are never loaded. The block walks the query heads of its
+// GQA group and their query tiles; per tile the consumers
+//   - scale q in shared memory (q * scale rounded to bf16, then
+//     fence.proxy.async so that wgmma reads the scaled values);
+//   - S^T = k (q * scale)^T and dP^T = v dO^T on SS wgmma (k, v as A and
+//     q, dO as B, all K-major), f32 accumulators with rows = keys;
+//   - p^T = exp(s^T - lse) (the SFU's 2^x, fast_exp) masked only on tiles
+//     that cross the diagonal or the ragged end, ds^T = p^T (dp^T - delta),
+//     both packed to bf16 as the A fragments of two 8-column slices
+//     (the accumulator layout: B1's PV trick);
+//   - dV += p^T dO and dK += ds^T (q * scale) on RS wgmma (A from
+//     registers, dO and q MN-major from the stage): no round trip of p^T or
+//     ds^T through shared memory for these two;
+//   - ds^T (bf16) to shared memory once, and dQ = dS k on SS wgmma with
+//     ds^T read transposed (MN-major A) and k MN-major, one 64-column half
+//     of d at a time (a d = 128 tile of dQ would not fit in registers beside
+//     dK and dV);
+//   - each half's f32 dQ staged in shared memory (128-byte swizzled) and
+//     added into the f32 dq_acc by TMA reduce-adds of 32 x 64 boxes
+//     (cp.reduce.async.bulk.tensor): one per box and tile, in place of two
+//     f32 atomicAdds per element and key tile.
+// The accumulators of dK and dV run over every query head of the group in
+// f32 ("dK/dV group-summed in f32 before the single downcast") and are
+// stored once. Reduce-adds from the blocks of one query row land in no
+// fixed order, so dQ agrees with the plain version within a tolerance and
+// not bit for bit; dK and dV are deterministic.
+//
+// f32 (off the model's path) keeps the FMA design, flash_bwd_f32_kernel:
+// one block of 4 warps per (64-key tile, flat kv head); warp w owns keys
+// 16w .. 16w + 15 and forms s^T, p^T, dp^T, ds^T in registers, writes p^T
+// and ds^T to shared memory for dV, dK and dQ, and adds dQ into dq_acc
+// with atomicAdd.
 //
 // Numerics follow the TPU kernel step by step: q * scale rounded to the
 // input type (the wrapper passes scale already rounded to that type), s
@@ -47,14 +70,15 @@
 // rounded scale; dQ contracts ds with the unscaled k and takes the
 // unrounded f32 1/sqrt(d) at the end (dq_scale): at d = 128 the two differ
 // by ~0.1 % in bf16. Rows past t in a ragged last tile are zero in q, dO,
-// k and v, and their p is forced to 0 (lse is undefined there, and
-// exp(0 - lse) is not 0), so padded rows and keys add nothing anywhere.
+// k and v (TMA fills them), keys past t get p = 0, and queries past t
+// exp(-inf) = 0, so padded rows and keys add nothing anywhere.
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 #include <atomic>
 #include <cmath>
-#include <type_traits>
+#include <cstring>
 
 namespace {
 
@@ -62,37 +86,434 @@ using namespace gtt;
 
 constexpr int kBlockQ = 64;  // query rows per tile
 constexpr int kBlockK = 64;  // keys per block
-constexpr int kWarps = kBlockK / 16;
-constexpr int kThreads = kWarps * 32;
-// Query columns of s^T and dp^T a warp holds in registers at once; the
-// 64-column tile goes in two halves so that d = 128 fits beside the dK and
-// dV accumulators.
+constexpr int kThreads = 128;  // f32: 4 warps; bf16: the consumer warpgroup
+constexpr int kTmaThreads = kThreads + 32;  // bf16: + the producer warp
+constexpr int kSlab = 64 * 128;  // one swizzled slab: 64 lines x 128 bytes
+// Per 64-row query tile: its lse rows, then its delta rows (f32).
+constexpr int kRowsPerTile = 2 * kBlockQ;
+constexpr int kPrepThreads = 256;  // 4 per row of a query tile
+// f32: query columns of s^T and dp^T a warp holds in registers at once;
+// the 64-column tile goes in two halves so that d = 128 fits beside the dK
+// and dV accumulators.
 constexpr int kChunk = 32;
 
-struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
+// ---- launch 1: delta, the lse rows and dq_acc = 0 ----
+
+struct PrepParams {
   const void* dout;
-  const float* lse;    // (b*h, t) contiguous
-  const float* delta;  // (b*h, t) contiguous
-  float* dq_acc;       // (b*h, t, d) contiguous f32, zero on entry
-  void* dk;            // (b*h_kv, t, d) contiguous, input type
-  void* dv;
-  int h, h_kv, group, t;
+  const void* out;
+  const float* lse;  // (b*h, t) contiguous
+  float* rows;       // (b*h, n_q, kRowsPerTile)
+  float* dq_acc;     // (b*h, t, d) contiguous
+  int h, t, d, n_q;
+  long long o_sb, o_sh, o_st;  // dO, in elements; d is contiguous
+  long long y_sb, y_sh, y_st;  // out
+};
+
+// Block (query tile, flat head); 4 threads per row, each summing every
+// fourth 16-byte vector of dO * out.
+template <typename T>
+__global__ void __launch_bounds__(kPrepThreads)
+    flash_bwd_prep_kernel(const PrepParams p) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int qi = blockIdx.x;
+  const long long head = blockIdx.y;
+  const int b = static_cast<int>(head / p.h);
+  const int hq = static_cast<int>(head % p.h);
+  const int r = threadIdx.x / 4;
+  const int row = qi * kBlockQ + r;
+  float sum = 0.f;
+  if (row < p.t) {
+    const T* dg = static_cast<const T*>(p.dout) + b * p.o_sb + hq * p.o_sh +
+                  row * p.o_st;
+    const T* yg = static_cast<const T*>(p.out) + b * p.y_sb + hq * p.y_sh +
+                  row * p.y_st;
+    for (int c = threadIdx.x % 4 * kVec; c < p.d; c += 4 * kVec) {
+      const uint4 a = *reinterpret_cast<const uint4*>(dg + c);
+      const uint4 y = *reinterpret_cast<const uint4*>(yg + c);
+      const T* ea = reinterpret_cast<const T*>(&a);
+      const T* ey = reinterpret_cast<const T*>(&y);
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) {
+        sum = __fadd_rn(sum, __fmul_rn(to_f32(ea[j]), to_f32(ey[j])));
+      }
+    }
+  }
+  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+  sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+  if (threadIdx.x % 4 == 0) {
+    float* tile = p.rows + (head * p.n_q + qi) * kRowsPerTile;
+    tile[r] = row < p.t ? p.lse[head * p.t + row] : INFINITY;
+    tile[kBlockQ + r] = sum;
+  }
+  const int rows = min(kBlockQ, p.t - qi * kBlockQ);
+  float4* const zero = reinterpret_cast<float4*>(
+      p.dq_acc + (head * p.t + qi * kBlockQ) * p.d);
+  for (int i = threadIdx.x; i < rows * p.d / 4; i += kPrepThreads) {
+    zero[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// ---- launch 2, bf16: wgmma on TMA-staged tiles ----
+
+// Stages of the q/dO ring by head_dim: both query tiles of a block at the
+// flagship's t = 128 in flight before the first product.
+template <int D>
+constexpr int kStages = 2;
+// Blocks per SM the registers are held to: two at d = 64 (dK, dV, S^T,
+// dP^T and a dQ half, ~200 registers); one at d = 128, where dK and dV
+// alone take 128.
+template <int D>
+constexpr int kMinBlocks = D == 64 ? 2 : 1;
+template <int D>
+constexpr int kTile = D / 64 * kSlab;  // bytes of a 64-row bf16 tile
+// One stage: the q tile, the dO tile, and their lse and delta rows (512
+// bytes, padded to keep the next tile 1024-byte aligned).
+template <int D>
+constexpr int kStageBytes = 2 * kTile<D> + 1024;
+// Shared memory of a bf16 launch: k, v, the stages, ds^T (64 x 64 bf16),
+// the dQ staging (64 x D f32 as D / 32 boxes of 32 columns), the
+// mbarriers and the swizzle's 1024-byte alignment (d = 64: 76,840 bytes,
+// d = 128: 142,376).
+template <int D>
+constexpr int kSmem = 2 * kTile<D> + kStages<D> * kStageBytes<D> + kSlab +
+                      D / 32 * kSlab + 8 * (1 + 2 * kStages<D>) + 1024;
+
+struct TmaParams {
+  // q, dO (b, h, t, d) and k, v (b, h_kv, t, d) as {d, t, heads, b} maps,
+  // box {64, 64, 1, 1}; dq_acc (b*h, t, d) f32 as {d, t, b*h}, box
+  // {32, 64, 1}; all 128-byte swizzled.
+  CUtensorMap q;
+  CUtensorMap k;
+  CUtensorMap v;
+  CUtensorMap dout;
+  CUtensorMap dq;
+  const float* rows;   // (b*h, n_q, kRowsPerTile): lse, delta
+  __nv_bfloat16* dk;   // (b*h_kv, t, d) contiguous
+  __nv_bfloat16* dv;
+  int h, h_kv, group, t, n_q;
   int causal;
-  float scale;  // 1 / sqrt(d), already rounded to the input type
+  float scale;  // 1 / sqrt(d), already rounded to bf16
+};
+
+__device__ __forceinline__ void consumers_sync() { named_sync<kThreads>(1); }
+
+// Byte offset of (row, 16-byte chunk) in a 128-byte-swizzled tile of
+// 128-byte rows.
+__device__ __forceinline__ int swizzled(int row, int chunk) {
+  return row * 128 + ((chunk ^ (row % 8)) << 4);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTmaThreads, kMinBlocks<D>)
+    flash_bwd_wgmma_kernel(const __grid_constant__ TmaParams p) {
+  constexpr int kSlabs = D / 64;  // slabs per tile, dQ halves
+  constexpr int kT = kTile<D>;
+  constexpr int kSt = kStages<D>;
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const ks = aligned_smem(smem_raw);
+  uint8_t* const vs = ks + kT;
+  uint8_t* const stages = vs + kT;  // q, dO, rows of stage s
+  uint8_t* const dst_s = stages + kSt * kStageBytes<D>;  // ds^T, bf16
+  uint8_t* const dq_s = dst_s + kSlab;                   // dQ, f32
+  uint64_t* const kv_full = reinterpret_cast<uint64_t*>(dq_s + D / 32 * kSlab);
+  uint64_t* const full = kv_full + 1;
+  uint64_t* const empty = full + kSt;
+
+  const int bk = blockIdx.x;  // flat kv head b * h_kv + hk
+  const int kb = blockIdx.y;
+  const int k0 = kb * kBlockK;
+  const int b = bk / p.h_kv;
+  const int hk = bk % p.h_kv;
+  // Causal: query tiles wholly above this key tile's diagonal are skipped
+  // (kBlockQ == kBlockK).
+  const int qi_first = p.causal ? kb : 0;
+  const int per_head = p.n_q - qi_first;
+  const int tiles = p.group * per_head;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kSt; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kThreads) {
+    // The producer warp: its lane 0 issues every load.
+    if (threadIdx.x == kThreads) {
+      prefetch_map(&p.q);
+      prefetch_map(&p.k);
+      prefetch_map(&p.v);
+      prefetch_map(&p.dout);
+      mbar_expect(kv_full, 2 * kT);
+#pragma unroll
+      for (int c = 0; c < kSlabs; ++c) {
+        tma_load_4d(ks + c * kSlab, &p.k, kv_full, c * 64, k0, hk, b);
+        tma_load_4d(vs + c * kSlab, &p.v, kv_full, c * 64, k0, hk, b);
+      }
+      for (int it = 0; it < tiles; ++it) {
+        const int s = it % kSt;
+        const int hq = hk * p.group + it / per_head;
+        const int q0 = (qi_first + it % per_head) * kBlockQ;
+        uint8_t* const st = stages + s * kStageBytes<D>;
+        if (it >= kSt) mbar_wait(empty + s, (it / kSt - 1) & 1);
+        mbar_expect(full + s, 2 * kT + kRowsPerTile * 4);
+#pragma unroll
+        for (int c = 0; c < kSlabs; ++c) {
+          tma_load_4d(st + c * kSlab, &p.q, full + s, c * 64, q0, hq, b);
+          tma_load_4d(st + kT + c * kSlab, &p.dout, full + s, c * 64, q0, hq,
+                      b);
+        }
+        bulk_load(st + 2 * kT,
+                  p.rows + (static_cast<long long>(b * p.h + hq) * p.n_q +
+                            q0 / kBlockQ) * kRowsPerTile,
+                  kRowsPerTile * 4, full + s);
+      }
+    }
+    return;
+  }
+
+  const int lane = threadIdx.x % 32;
+  const int c2 = 2 * (lane % 4);
+  const int r0 = acc_row(0);  // this thread's tile rows: r0 and r0 + 8
+  const uint32_t k_addr = smem_addr(ks);
+  const uint32_t v_addr = smem_addr(vs);
+  const uint32_t ds_addr = smem_addr(dst_s);
+
+  float dk[kSlabs][32];
+  float dv[kSlabs][32];
+#pragma unroll
+  for (int c = 0; c < kSlabs; ++c) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk[c][i] = dv[c][i] = 0.f;
+  }
+
+  mbar_wait(kv_full, 0);
+  for (int it = 0; it < tiles; ++it) {
+    const int s = it % kSt;
+    const int hq = hk * p.group + it / per_head;
+    const int qi = qi_first + it % per_head;
+    const int q0 = qi * kBlockQ;
+    uint8_t* const qs = stages + s * kStageBytes<D>;
+    const float* const rows = reinterpret_cast<const float*>(qs + 2 * kT);
+    const uint32_t q_addr = smem_addr(qs);
+    const uint32_t o_addr = q_addr + kT;
+
+    // q * scale rounded to bf16, in place; then visible to wgmma's reads.
+    mbar_wait(full + s, (it / kSt) & 1);
+    for (int i = threadIdx.x; i < kT / 16; i += kThreads) {
+      uint4* const at = reinterpret_cast<uint4*>(qs) + i;
+      uint4 val = *at;
+      __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&val);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        e[j] = __float2bfloat16_rn(__bfloat162float(e[j]) * p.scale);
+      }
+      *at = val;
+    }
+    fence_proxy_async_shared();
+    consumers_sync();
+
+    // S^T = k (q * scale)^T and dP^T = v dO^T in f32: rows are keys,
+    // columns queries of the tile.
+    float sc[32];
+    float dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+    fence_acc(sc);
+    fence_acc(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = kk / 4 * kSlab + kk % 4 * 32;
+      wgmma_bf16<0>(sc, desc(k_addr + off), desc(q_addr + off));
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = kk / 4 * kSlab + kk % 4 * 32;
+      wgmma_bf16<0>(dp, desc(v_addr + off), desc(o_addr + off));
+    }
+    wgmma_commit();
+    wgmma_wait<0>(sc);
+    fence_acc(dp);
+
+    // p^T = exp(s^T - lse), ds^T = p^T (dp^T - delta). Only tiles that
+    // cross the diagonal or the ragged end of the keys pay the mask.
+    const bool masked = (p.causal && qi == kb) || k0 + kBlockK > p.t;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = j * 8 + c2 + e;
+        const float lse = rows[col];
+        const float delta = rows[kBlockQ + col];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int x = 4 * j + 2 * i + e;
+          const int key = k0 + r0 + 8 * i;
+          float pe = fast_exp(sc[x] - lse);
+          if (masked && (key >= p.t || (p.causal && key > q0 + col))) {
+            pe = 0.f;
+          }
+          sc[x] = pe;
+          dp[x] = pe * (dp[x] - delta);
+        }
+      }
+    }
+    // p^T and ds^T in bf16 as the A fragments of the four 16-query steps.
+    uint32_t pa[4][4];
+    uint32_t da[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        pa[kk][f] = pack_bf16(sc[8 * kk + 2 * f], sc[8 * kk + 2 * f + 1]);
+        da[kk][f] = pack_bf16(dp[8 * kk + 2 * f], dp[8 * kk + 2 * f + 1]);
+      }
+    }
+
+    // dV += p^T dO and dK += ds^T (q * scale), dO and q MN-major.
+#pragma unroll
+    for (int c = 0; c < kSlabs; ++c) {
+      fence_acc(dv[c]);
+      fence_acc(dk[c]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int c = 0; c < kSlabs; ++c) {
+        wgmma_bf16_rs<1>(dv[c], pa[kk], desc(o_addr + c * kSlab + kk * 2048));
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int c = 0; c < kSlabs; ++c) {
+        wgmma_bf16_rs<1>(dk[c], da[kk], desc(q_addr + c * kSlab + kk * 2048));
+      }
+    }
+    wgmma_commit();
+
+    // Meanwhile ds^T to shared memory: rows of 64 queries, swizzled, the
+    // A fragments' pairs as they lie (fragment f of step kk holds row
+    // r0 + 8 (f % 2), columns 16 kk + 8 (f / 2) + c2, + 1). The previous
+    // tile's dQ products, which read it, are complete.
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        const int row = r0 + 8 * (f % 2);
+        *reinterpret_cast<uint32_t*>(dst_s + swizzled(row, 2 * kk + f / 2) +
+                                     2 * c2) = da[kk][f];
+      }
+    }
+    wgmma_wait<0>(dv[0]);
+#pragma unroll
+    for (int c = 0; c < kSlabs; ++c) {
+      fence_acc(dv[c]);
+      fence_acc(dk[c]);
+    }
+    fence_regs<16>(&pa[0][0]);
+    fence_regs<16>(&da[0][0]);
+    mbar_arrive(empty + s);  // this thread is done with stage s
+    fence_proxy_async_shared();
+    // The previous tile's reduce-adds have read the dQ staging.
+    if (threadIdx.x == 0) bulk_wait_read();
+    consumers_sync();
+
+    // dQ = dS k, one 64-column half of d at a time: A = ds^T read
+    // transposed, B = k MN-major. Staged in f32 as 32-column boxes.
+#pragma unroll
+    for (int c = 0; c < kSlabs; ++c) {
+      float dq[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+      fence_acc(dq);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_bf16<1, 1>(dq, desc(ds_addr + kk * 2048),
+                         desc(k_addr + c * kSlab + kk * 2048));
+      }
+      wgmma_commit();
+      wgmma_wait<0>(dq);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        uint8_t* const box = dq_s + (2 * c + j / 4) * kSlab;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          // Column 8 j + c2 of the half: chunk 2 (j % 4) + c2 / 4 of its
+          // box's 128-byte row, at byte (c2 % 4) * 4 of that chunk.
+          const int row = r0 + 8 * i;
+          *reinterpret_cast<float2*>(
+              box + swizzled(row, 2 * (j % 4) + c2 / 4) + c2 % 4 * 4) =
+              make_float2(dq[4 * j + 2 * i], dq[4 * j + 2 * i + 1]);
+        }
+      }
+    }
+    fence_proxy_async_shared();
+    consumers_sync();
+    if (threadIdx.x == 0) {
+      const int head = b * p.h + hq;
+#pragma unroll
+      for (int x = 0; x < D / 32; ++x) {
+        tma_reduce_add_3d(&p.dq, dq_s + x * kSlab, x * 32, q0, head);
+      }
+      bulk_commit();
+    }
+  }
+  if (threadIdx.x == 0) bulk_wait();  // the last reduce-adds have landed
+
+  __nv_bfloat16* const dkg = p.dk + static_cast<long long>(bk) * p.t * D;
+  __nv_bfloat16* const dvg = p.dv + static_cast<long long>(bk) * p.t * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = k0 + r0 + 8 * i;
+    if (key >= p.t) continue;
+#pragma unroll
+    for (int c = 0; c < kSlabs; ++c) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const long long off =
+            static_cast<long long>(key) * D + c * 64 + j * 8 + c2;
+        store2(dkg + off, dk[c][4 * j + 2 * i], dk[c][4 * j + 2 * i + 1]);
+        store2(dvg + off, dv[c][4 * j + 2 * i], dv[c][4 * j + 2 * i + 1]);
+      }
+    }
+  }
+}
+
+// ---- launch 2, f32: the FMA design ----
+
+struct Params {
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* dout;
+  const float* rows;  // (b*h, n_q, kRowsPerTile): lse, delta
+  float* dq_acc;      // (b*h, t, d) contiguous f32, zero on entry
+  float* dk;          // (b*h_kv, t, d) contiguous
+  float* dv;
+  int h, h_kv, group, t, n_q;
+  int causal;
+  float scale;  // 1 / sqrt(d)
   long long q_sb, q_sh, q_st;  // strides in elements; d is contiguous
   long long k_sb, k_sh, k_st;
   long long v_sb, v_sh, v_st;
   long long o_sb, o_sh, o_st;  // dO
 };
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_kernel(const Params p) {
-  constexpr int kLd = D + 16 / sizeof(T);        // k, v, q, dO rows
-  constexpr int kLdS = kBlockQ + 16 / sizeof(T);  // p^T, ds^T: [key][query]
+    flash_bwd_f32_kernel(const Params p) {
+  using T = float;
+  constexpr int kLd = D + 4;        // k, v, q, dO rows
+  constexpr int kLdS = kBlockQ + 4;  // p^T, ds^T: [key][query]
   constexpr int kDT = D / 8;
   constexpr int kCT = kChunk / 8;
 
@@ -118,11 +539,9 @@ __global__ void __launch_bounds__(kThreads)
   const int kr = warp * 16 + g;  // this lane's key rows: kr and kr + 8
 
   load_tile<T, D, kLd, kBlockK, kThreads, false>(
-      ks, static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh, p.k_st, k0,
-      p.t, 1.f);
+      ks, p.k + b * p.k_sb + hk * p.k_sh, p.k_st, k0, p.t, 1.f);
   load_tile<T, D, kLd, kBlockK, kThreads, false>(
-      vs, static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh, p.v_st, k0,
-      p.t, 1.f);
+      vs, p.v + b * p.v_sb + hk * p.v_sh, p.v_st, k0, p.t, 1.f);
 
   float dk[kDT][4];
   float dv[kDT][4];
@@ -132,18 +551,15 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
   }
 
-  const int n_q = (p.t + kBlockQ - 1) / kBlockQ;
   // Causal: query tiles wholly above this key tile's diagonal are skipped.
   const int qi_first = p.causal ? k0 / kBlockQ : 0;
   for (int hq = hk * p.group; hq < (hk + 1) * p.group; ++hq) {
     const long long head = static_cast<long long>(b) * p.h + hq;
-    const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + hq * p.q_sh;
-    const T* og = static_cast<const T*>(p.dout) + b * p.o_sb + hq * p.o_sh;
-    const float* lg = p.lse + head * p.t;
-    const float* dg = p.delta + head * p.t;
+    const T* qg = p.q + b * p.q_sb + hq * p.q_sh;
+    const T* og = p.dout + b * p.o_sb + hq * p.o_sh;
     float* dqg = p.dq_acc + head * p.t * D;
 
-    for (int qi = qi_first; qi < n_q; ++qi) {
+    for (int qi = qi_first; qi < p.n_q; ++qi) {
       const int q0 = qi * kBlockQ;
       __syncthreads();  // every warp is done with the previous query tile
       load_tile<T, D, kLd, kBlockQ, kThreads, true>(qs, qg, p.q_st, q0, p.t,
@@ -151,9 +567,9 @@ __global__ void __launch_bounds__(kThreads)
       load_tile<T, D, kLd, kBlockQ, kThreads, false>(os, og, p.o_st, q0, p.t,
                                                      1.f);
       if (threadIdx.x < kBlockQ) {
-        const int row = q0 + threadIdx.x;
-        lse_s[threadIdx.x] = row < p.t ? lg[row] : 0.f;
-        delta_s[threadIdx.x] = row < p.t ? dg[row] : 0.f;
+        const float* tile = p.rows + (head * p.n_q + qi) * kRowsPerTile;
+        lse_s[threadIdx.x] = tile[threadIdx.x];
+        delta_s[threadIdx.x] = tile[kBlockQ + threadIdx.x];
       }
       __syncthreads();
 
@@ -230,8 +646,8 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  T* dkg = static_cast<T*>(p.dk) + static_cast<long long>(bk) * p.t * D;
-  T* dvg = static_cast<T*>(p.dv) + static_cast<long long>(bk) * p.t * D;
+  T* dkg = p.dk + static_cast<long long>(bk) * p.t * D;
+  T* dvg = p.dv + static_cast<long long>(bk) * p.t * D;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int key = k0 + kr + 8 * i;
@@ -257,27 +673,63 @@ __global__ void flash_bwd_dq_kernel(const float* acc, T* dq,
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const Params& p, int b, void* dq, float dq_scale,
-                   cudaStream_t stream) {
-  constexpr int kLd = D + 16 / sizeof(T);
-  constexpr int kLdS = kBlockQ + 16 / sizeof(T);
-  constexpr size_t kSmem = 2 * (kBlockK + kBlockQ) * kLd * sizeof(T) +
-                           2 * kBlockK * kLdS * sizeof(T) +
-                           2 * kBlockQ * sizeof(float);
-  static std::atomic<bool> smem_set[kMaxDevices];
-  cudaError_t err =
-      allow_dynamic_smem(flash_bwd_kernel<T, D>, kSmem, smem_set);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.t + kBlockK - 1) / kBlockK, b * p.h_kv);
-  flash_bwd_kernel<T, D><<<grid, kThreads, kSmem, stream>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const long long pairs = static_cast<long long>(b) * p.h * p.t * D / 2;
+template <typename T>
+cudaError_t launch_dq(const float* acc, void* dq, long long elems,
+                      float scale, cudaStream_t stream) {
+  const long long pairs = elems / 2;
   const int blocks = static_cast<int>(
       pairs / 256 + 1 < 4096 ? pairs / 256 + 1 : 4096);
   flash_bwd_dq_kernel<T><<<blocks, 256, 0, stream>>>(
-      p.dq_acc, static_cast<T*>(dq), pairs, dq_scale);
+      acc, static_cast<T*>(dq), pairs, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_f32(const Params& p, int b, cudaStream_t stream) {
+  constexpr int kLd = D + 4;
+  constexpr int kLdS = kBlockQ + 4;
+  constexpr size_t kSmem = 2 * (kBlockK + kBlockQ) * kLd * sizeof(float) +
+                           2 * kBlockK * kLdS * sizeof(float) +
+                           2 * kBlockQ * sizeof(float);
+  static std::atomic<bool> smem_set[kMaxDevices];
+  const cudaError_t err =
+      allow_dynamic_smem(flash_bwd_f32_kernel<D>, kSmem, smem_set);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.t + kBlockK - 1) / kBlockK, b * p.h_kv);
+  flash_bwd_f32_kernel<D><<<grid, kThreads, kSmem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_bf16(TmaParams& p, const void* q, const void* k,
+                        const void* v, const void* dout, float* dq_acc,
+                        int b, const long long* st, cudaStream_t stream) {
+  cudaError_t err = encode_heads(&p.q, q, D, p.t, p.h, b, st[2], st[1], st[0]);
+  if (err == cudaSuccess) {
+    err = encode_heads(&p.k, k, D, p.t, p.h_kv, b, st[5], st[4], st[3]);
+  }
+  if (err == cudaSuccess) {
+    err = encode_heads(&p.v, v, D, p.t, p.h_kv, b, st[8], st[7], st[6]);
+  }
+  if (err == cudaSuccess) {
+    err = encode_heads(&p.dout, dout, D, p.t, p.h, b, st[11], st[10],
+                       st[9]);
+  }
+  if (err == cudaSuccess) {
+    const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
+                                static_cast<cuuint64_t>(p.t),
+                                static_cast<cuuint64_t>(b) * p.h};
+    const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 4,
+                                   static_cast<cuuint64_t>(p.t) * D * 4};
+    const cuuint32_t box[3] = {32, kBlockQ, 1};
+    err = encode(&p.dq, 1, 3, dq_acc, dims, strides, box);
+  }
+  if (err != cudaSuccess) return err;
+  static std::atomic<bool> smem_set[kMaxDevices];
+  err = allow_dynamic_smem(flash_bwd_wgmma_kernel<D>, kSmem<D>, smem_set);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(b * p.h_kv, (p.t + kBlockK - 1) / kBlockK);
+  flash_bwd_wgmma_kernel<D><<<grid, kTmaThreads, kSmem<D>, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -285,57 +737,83 @@ cudaError_t launch(const Params& p, int b, void* dq, float dq_scale,
 
 extern "C" {
 
-// Returns a cudaError_t; 0 is success. dtype: 0 = bf16, 1 = f32. scale is
-// 1/sqrt(d) rounded to the input type (for q * scale), dq_scale the same in
-// f32 (for dQ). dq_acc must be zero; dq, dk and dv are written whole.
+// Returns a cudaError_t; 0 is success. dtype: 0 = bf16, 1 = f32; d: 64 or
+// 128. scale is 1/sqrt(d) rounded to the input type (for q * scale),
+// dq_scale the same in f32 (for dQ). Strides in elements, d contiguous, in
+// the order q, k, v, dO, out, each (b, heads, t); every operand 16-byte
+// aligned with strides that are multiples of 16 bytes (TMA, and the f32
+// kernel's row loads). rows (b*h, ceil(t / 64), 128) f32 and dq_acc (b*h,
+// t, d) f32 are work buffers, written here before they are read; dq, dk
+// and dv are written whole. Three launches on `stream`.
 int gtt_flash_bwd(const void* q, const void* k, const void* v,
-                  const void* dout, const void* lse, const void* delta,
-                  void* dq_acc, void* dq, void* dk, void* dv, int dtype,
-                  int b, int h, int h_kv, int t, int d, int causal,
+                  const void* dout, const void* out, const void* lse,
+                  void* rows, void* dq_acc, void* dq, void* dk, void* dv,
+                  int dtype, int b, int h, int h_kv, int t, int d, int causal,
                   float scale, float dq_scale, long long q_sb, long long q_sh,
                   long long q_st, long long k_sb, long long k_sh,
                   long long k_st, long long v_sb, long long v_sh,
                   long long v_st, long long o_sb, long long o_sh,
-                  long long o_st, void* stream) {
-  if (b < 1 || h < 1 || h_kv < 1 || h % h_kv != 0 || t < 1 ||
-      static_cast<long long>(b) * h > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  Params p{};
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.dout = dout;
-  p.lse = static_cast<const float*>(lse);
-  p.delta = static_cast<const float*>(delta);
-  p.dq_acc = static_cast<float*>(dq_acc);
-  p.dk = dk;
-  p.dv = dv;
-  p.h = h;
-  p.h_kv = h_kv;
-  p.group = h / h_kv;
-  p.t = t;
-  p.causal = causal;
-  p.scale = scale;
-  p.q_sb = q_sb;
-  p.q_sh = q_sh;
-  p.q_st = q_st;
-  p.k_sb = k_sb;
-  p.k_sh = k_sh;
-  p.k_st = k_st;
-  p.v_sb = v_sb;
-  p.v_sh = v_sh;
-  p.v_st = v_st;
-  p.o_sb = o_sb;
-  p.o_sh = o_sh;
-  p.o_st = o_st;
+                  long long o_st, long long y_sb, long long y_sh,
+                  long long y_st, void* stream) {
+  const long long st[15] = {q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh,
+                            v_st, o_sb, o_sh, o_st, y_sb, y_sh, y_st};
+  const int vec = dtype == 0 ? 8 : 4;
+  const auto aligned = [](const void* a) {
+    return (reinterpret_cast<uintptr_t>(a) & 15) == 0;
+  };
+  bool ok = (dtype == 0 || dtype == 1) && (d == 64 || d == 128) && b >= 1 &&
+            h >= 1 && h_kv >= 1 && h % h_kv == 0 && t >= 1 &&
+            static_cast<long long>(b) * h <= 65535 && aligned(q) &&
+            aligned(k) && aligned(v) && aligned(dout) && aligned(out);
+  for (long long x : st) ok = ok && x > 0 && x % vec == 0;
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-  using bf16 = __nv_bfloat16;
-  if (dtype == 0 && d == 64) err = launch<bf16, 64>(p, b, dq, dq_scale, s);
-  if (dtype == 0 && d == 128) err = launch<bf16, 128>(p, b, dq, dq_scale, s);
-  if (dtype == 1 && d == 64) err = launch<float, 64>(p, b, dq, dq_scale, s);
-  if (dtype == 1 && d == 128) err = launch<float, 128>(p, b, dq, dq_scale, s);
+  const int n_q = (t + kBlockQ - 1) / kBlockQ;
+
+  PrepParams pp{dout, out, static_cast<const float*>(lse),
+                static_cast<float*>(rows), static_cast<float*>(dq_acc),
+                h, t, d, n_q, o_sb, o_sh, o_st, y_sb, y_sh, y_st};
+  const dim3 prep_grid(n_q, b * h);
+  if (dtype == 0) {
+    flash_bwd_prep_kernel<__nv_bfloat16>
+        <<<prep_grid, kPrepThreads, 0, s>>>(pp);
+  } else {
+    flash_bwd_prep_kernel<float><<<prep_grid, kPrepThreads, 0, s>>>(pp);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  if (dtype == 0) {
+    TmaParams p;
+    memset(&p, 0, sizeof(p));
+    p.rows = static_cast<const float*>(rows);
+    p.dk = static_cast<__nv_bfloat16*>(dk);
+    p.dv = static_cast<__nv_bfloat16*>(dv);
+    p.h = h;
+    p.h_kv = h_kv;
+    p.group = h / h_kv;
+    p.t = t;
+    p.n_q = n_q;
+    p.causal = causal;
+    p.scale = scale;
+    float* acc = static_cast<float*>(dq_acc);
+    err = d == 64 ? launch_bf16<64>(p, q, k, v, dout, acc, b, st, s)
+                  : launch_bf16<128>(p, q, k, v, dout, acc, b, st, s);
+  } else {
+    Params p{static_cast<const float*>(q), static_cast<const float*>(k),
+             static_cast<const float*>(v), static_cast<const float*>(dout),
+             static_cast<const float*>(rows), static_cast<float*>(dq_acc),
+             static_cast<float*>(dk), static_cast<float*>(dv), h, h_kv,
+             h / h_kv, t, n_q, causal, scale, q_sb, q_sh, q_st, k_sb, k_sh,
+             k_st, v_sb, v_sh, v_st, o_sb, o_sh, o_st};
+    err = d == 64 ? launch_f32<64>(p, b, s) : launch_f32<128>(p, b, s);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const long long elems = static_cast<long long>(b) * h * t * d;
+  const float* acc = static_cast<const float*>(dq_acc);
+  err = dtype == 0 ? launch_dq<__nv_bfloat16>(acc, dq, elems, dq_scale, s)
+                   : launch_dq<float>(acc, dq, elems, dq_scale, s);
   return static_cast<int>(err);
 }
 

@@ -42,6 +42,19 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
+// e^x as one multiply and the SFU's 2^x (ex2.approx: ~2 ulps in f32, and
+// 0 for x = -inf), for the bf16 kernels (B1, B2). The precise expf takes
+// several more instructions per score, which the softmax of every key tile
+// pays: in the chain of one block, that bounded B1 at long sequences. p is
+// rounded to bf16 right after, and the tolerances against the plain twins'
+// torch.exp hold unchanged (tests/test_torch_attention.py's TOL,
+// chip_smoke.py's KERNEL_TOL and BWD_TOL).
+__device__ __forceinline__ float fast_exp(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * 1.4426950408889634f));
+  return y;
+}
+
 __device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }

@@ -97,22 +97,7 @@ struct TmaParams {
   float scale;  // 1 / sqrt(d), already rounded to bf16
 };
 
-// e^x as one multiply and the SFU's 2^x (ex2.approx: ~2 ulps in f32, and
-// 0 for x = -inf). The precise expf takes several more instructions per
-// score, which the softmax of every key tile pays: in the chain of one
-// block, that bounded the kernel at long sequences. p is rounded to bf16
-// right after, and the tolerances against the plain twin's torch.exp hold
-// unchanged (tests/test_torch_attention.py's TOL, chip_smoke.py's
-// KERNEL_TOL).
-__device__ __forceinline__ float fast_exp(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * 1.4426950408889634f));
-  return y;
-}
-
-__device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, %0;" ::"n"(kThreads) : "memory");
-}
+__device__ __forceinline__ void consumers_sync() { named_sync<kThreads>(1); }
 
 template <int D>
 __global__ void __launch_bounds__(kTmaThreads)
@@ -521,22 +506,6 @@ cudaError_t launch_f32(const Params& p, int bh, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// A {d, t, heads, b} map of one operand; strides in elements (d
-// contiguous), box 64 x 64.
-cudaError_t encode_operand(CUtensorMap* map, const void* base, int d, int t,
-                           int heads, int b, long long st, long long sh,
-                           long long sb) {
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
-                              static_cast<cuuint64_t>(t),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(b)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st) * 2,
-                                 static_cast<cuuint64_t>(sh) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {64, kBlockK, 1, 1};
-  return encode(map, 0, 4, base, dims, strides, box);
-}
-
 template <int D>
 cudaError_t launch_bf16(TmaParams& p, const void* q, const void* k,
                         const void* v, int b, int h_kv, long long q_sb,
@@ -544,12 +513,12 @@ cudaError_t launch_bf16(TmaParams& p, const void* q, const void* k,
                         long long k_sh, long long k_st, long long v_sb,
                         long long v_sh, long long v_st, cudaStream_t stream) {
   cudaError_t err =
-      encode_operand(&p.q, q, D, p.t, p.h, b, q_st, q_sh, q_sb);
+      encode_heads(&p.q, q, D, p.t, p.h, b, q_st, q_sh, q_sb);
   if (err == cudaSuccess) {
-    err = encode_operand(&p.k, k, D, p.t, h_kv, b, k_st, k_sh, k_sb);
+    err = encode_heads(&p.k, k, D, p.t, h_kv, b, k_st, k_sh, k_sb);
   }
   if (err == cudaSuccess) {
-    err = encode_operand(&p.v, v, D, p.t, h_kv, b, v_st, v_sh, v_sb);
+    err = encode_heads(&p.v, v, D, p.t, h_kv, b, v_st, v_sh, v_sb);
   }
   if (err != cudaSuccess) return err;
   static std::atomic<bool> smem_set[kMaxDevices];

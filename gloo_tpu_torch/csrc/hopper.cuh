@@ -1,18 +1,19 @@
 // Hopper's asynchronous machinery, shared by the kernels that stage tiles
 // with TMA and multiply them with wgmma (overlap.cu's B5a/B5b,
-// flash_fwd.cu's B1): shared-memory addresses, mbarriers, TMA tensor loads
-// and stores, bulk-group waits, proxy fences, wgmma descriptors of
+// flash_fwd.cu's B1, flash_bwd.cu's B2): shared-memory addresses,
+// mbarriers, TMA tensor loads, stores and reduce-adds, bulk copies and
+// bulk-group waits, proxy fences, named barriers, wgmma descriptors of
 // 128-byte-swizzled tiles, the m64n64k16 bf16 products (A from shared
-// memory or from registers) and their accumulator layout, and on the host
-// the tensor-map encoder (cuTensorMapEncodeTiled through the runtime's
-// driver entry point: nothing new to link).
+// memory, K-major or MN-major, or from registers) and their accumulator
+// layout, and on the host the tensor-map encoder (cuTensorMapEncodeTiled,
+// looked up through the CUDA runtime: nothing new to link).
 //
 // Every tile is 64 lines of 128 bytes, 128-byte swizzled (TMA's
 // CU_TENSOR_MAP_SWIZZLE_128B, wgmma's layout type 1) and 1024-byte
 // aligned. A K-major operand's lines are its rows (A) or columns (B), each
 // 64 bf16 of depth: k-step kk of 16 starts 32 kk bytes into the line. An
-// MN-major B's lines are depths, each 64 columns: k-step kk starts 16 kk
-// lines (2048 kk bytes) in.
+// MN-major operand's lines are depths, each 64 rows (A) or columns (B):
+// k-step kk starts 16 kk lines (2048 kk bytes) in.
 
 #pragma once
 
@@ -91,6 +92,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global
+// into shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)), "l"(src), "r"(bytes),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
                                              const void* src, int c0, int c1,
                                              int c2, int c3) {
@@ -98,6 +110,20 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
       "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
       " [%0, {%2, %3, %4, %5}], [%1];" ::"l"(map),
       "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// The box of `map` at {c0, c1, c2} += the f32 tile at `src` (the map's
+// layout, 128-byte swizzled), in this thread's open bulk group; elements
+// outside the tensor are left alone. Adds from different blocks to one
+// element land in no fixed order, as atomics do.
+__device__ __forceinline__ void tma_reduce_add_3d(const CUtensorMap* map,
+                                                  const void* src, int c0,
+                                                  int c1, int c2) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.tile.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];" ::"l"(map),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -128,6 +154,13 @@ __device__ __forceinline__ void fence_proxy_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
+// Named barrier `id` among kCount threads (a multiple of 32): the
+// consumer warpgroups of a block sync without the producer warp.
+template <int kCount>
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "n"(kCount) : "memory");
+}
+
 __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];" ::"l"(map) : "memory");
 }
@@ -156,9 +189,10 @@ __device__ __forceinline__ void fence_acc(float* d) {
   for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d += A (64 x 16, K-major) B (16 x 64), bf16 in, f32 accumulate; B
-// K-major (kTransB 0) or MN-major (1).
-template <int kTransB>
+// d += A (64 x 16) B (16 x 64), bf16 in, f32 accumulate, both from shared
+// memory; B K-major (kTransB 0) or MN-major (1), A K-major (kTransA 0) or
+// MN-major (1).
+template <int kTransB, int kTransA = 0>
 __device__ __forceinline__ void wgmma_bf16(float* d, uint64_t da,
                                            uint64_t db) {
   asm volatile(
@@ -166,7 +200,7 @@ __device__ __forceinline__ void wgmma_bf16(float* d, uint64_t da,
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
       "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      "%29, %30, %31}, %32, %33, p, 1, 1, %36, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -174,7 +208,7 @@ __device__ __forceinline__ void wgmma_bf16(float* d, uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1), "n"(kTransB));
+      : "l"(da), "l"(db), "r"(1), "n"(kTransB), "n"(kTransA));
 }
 
 // d += A (64 x 16, from registers) B (16 x 64), bf16 in, f32 accumulate;
@@ -203,6 +237,14 @@ __device__ __forceinline__ void wgmma_bf16_rs(float* d, const uint32_t* a,
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(kTransB),
         "r"(1));
+}
+
+// Keeps the compiler from reusing A-fragment registers that an RS-form
+// wgmma still reads: place it after the wgmma_wait that retires it.
+template <int kN>
+__device__ __forceinline__ void fence_regs(uint32_t* a) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
 // Orders the warpgroup's register and shared-memory accesses so far before
@@ -287,6 +329,23 @@ inline cudaError_t encode(CUtensorMap* map, int dtype, int rank,
       box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A {d, t, heads, b} map of one bf16 (b, heads, t, d) operand with d
+// contiguous and (b, heads, t) strides in elements: box 64 x 64 (one
+// swizzled slab of 64 rows).
+inline cudaError_t encode_heads(CUtensorMap* map, const void* base, int d,
+                                int t, int heads, int b, long long st,
+                                long long sh, long long sb) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(t),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st) * 2,
+                                 static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {64, 64, 1, 1};
+  return encode(map, 0, 4, base, dims, strides, box);
 }
 
 // The card's opt-in shared memory per block, 0 on an error.

@@ -9,9 +9,9 @@
 // The ranks are a world on one card: rank r's input, output and flags are
 // its own buffers in device memory, and its part of the collective runs as
 // its own thread blocks. The kernel sees them only through a table of
-// per-rank pointers and the ring tables, so a launch over more than one card
-// needs a table built from peer-mapped memory (and more: see the end of
-// this note).
+// per-rank pointers and the members table, so a launch over more than one
+// card needs a table built from peer-mapped memory (and more: see the end
+// of this note).
 //
 // B3 and B4a: one pass in member order. The TPU kernels are shaped for a
 // torus of chips, where a chip reaches only its neighbours: they copy the
@@ -37,22 +37,28 @@
 // my + n = my, its own input last, and finishes chunk my + 1 (B3) or my
 // (B4a). Each + is add1 of ring_common.cuh, one add in the element type
 // (bf16 and f16 in f32 rounded back after every add, f32 and f64 IEEE
-// without contraction, int32 and int64 wrapping), as the TPU kernel's
-// o_ref + comm_ref and the plain twins in gloo_tpu_torch/ops/ring.py do.
+// without contraction, the integers wrapping in their own width), as the
+// TPU kernel's o_ref + comm_ref and the plain twins in
+// gloo_tpu_torch/ops/ring.py do.
 // IEEE addition is commutative, so only the nesting matters: results are
 // bitwise the twins', and B3's outputs bitwise equal on every rank.
 //
-// B4b keeps the ring's schedule: its own input into place, an entry barrier
-// with both neighbours, then n - 1 steps that forward chunk (my - s) mod n
-// verbatim into the right neighbour's output at the same offset, one flag
-// per step (a shared flag would let a neighbour a step ahead release the
-// wait before the matching chunk landed). Data another block wrote there is
-// read with ld.global.cg: an SM's L1 is not coherent with stores from other
-// SMs.
+// B4b: one pass that pushes. The TPU kernel forwards chunk (my - s) to the
+// right neighbour at each of n - 1 steps, so every chunk is read back from
+// device memory n - 1 times and every step waits on the one before. Here
+// the rank that owns a chunk reads it once and stores it at offset
+// my * chunk into the output of every member of its ring, itself
+// included: B3's store loop without the fold. Each input byte is read once
+// and each output byte written once (S + P S for S bytes per rank, the
+// bound's count), behind the same one members barrier as B3 and B4a, with
+// no step flags, no read-back of another block's stores and no neighbour
+// tables. The pull form (each rank reads every member's chunk) would read
+// each input n times. The result is the TPU kernel's bit for bit: every
+// byte lands where the ring's forwarding puts it.
 //
 // Work division: grid (P, S). Block (r, j) plays rank r on slice j of its
-// chunk (B3, B4a) or of every chunk (B4b); each slice has its own flags, so
-// no block waits for another block of its own rank. In B3 and B4a each
+// chunk; each slice has its own barrier flag, so no block waits for another
+// block of its own rank. In B3 and B4a each
 // thread folds kUnroll units per pass and starts the loads of kGroup
 // members (kGroup x kUnroll 16-byte loads) before it adds any of them
 // (fold_members of ring_common.cuh, which B11 shares): at
@@ -70,23 +76,25 @@
 // copies of every finished chunk: 2 P S at 3.35 TB/s for S bytes per rank
 // (0.0166 ms at the DDP gradient shape, P = 4, 6.95 MB per rank); B4a
 // reads P S and writes S (P S + S). There is no arithmetic to speak of
-// (n - 1 adds per element). B3 and B4a read the inputs through the
-// non-coherent path (ld.global.nc): nothing writes them during the launch,
-// and each output unit is written by exactly one block. B4b still carries
-// each chunk through n - 1 hand-offs.
+// (n - 1 adds per element). B4b reads S P and writes P S n bytes for a
+// world of P ranks in rings of n (0.0104 ms at the DDP shape, P = n = 4,
+// 1.74 MB per rank). All three read the inputs through the non-coherent
+// path (ld.global.nc): nothing writes them during the launch, and each
+// output unit is written by exactly one block.
 //
-// On one card the entry barrier of B3 and B4a is not needed for the result:
-// stream order completes every rank's input before the launch. Across
-// cards (ROADMAP A.7) a peer's input is complete only once that peer has
-// entered, and the launch must add: loads through peer-mapped pointers,
-// flags at system scope (.sys in place of .gpu), one cooperative launch
-// per card, and an exit barrier among the members before a rank may reuse
-// its input (a peer may still be reading it) or read B3's output (peers
-// write into it).
+// On one card the entry barrier is not needed for the result: stream order
+// completes every rank's input before the launch. Across cards (ROADMAP
+// A.7) a peer's input is complete only once that peer has entered, and the
+// launch must add: loads (B3, B4a) and stores (B3, B4b) through
+// peer-mapped pointers, flags at system scope (.sys in place of .gpu), one
+// cooperative launch per card, and an exit barrier among the members
+// before a rank may reuse its input (a peer may still be reading it) or
+// read B3's or B4b's output (peers write into it).
 //
-// Types: B3 and B4a take bf16, f16, f32, f64, int32 and int64. B4b only
-// moves bytes, so it takes any type: its instances are by unit width (16,
-// 8, 4, 2 or 1 bytes), not by element type.
+// Types: B3 and B4a take bf16, f16, f32, f64, int8, uint8, int16, int32 and
+// int64; a 16-byte unit is unpacked into its lanes and each lane added in
+// its own type. B4b only moves bytes, so it takes any type: its instances
+// are by unit width (16, 8, 4, 2 or 1 bytes), not by element type.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -105,6 +113,8 @@ constexpr int kThreads = 256;
 // start together.
 constexpr int kUnroll = 2;
 constexpr int kGroup = 4;
+// B4b: units each thread loads before it stores any.
+constexpr int kGatherUnroll = 4;
 
 enum Mode { kAllreduce = 0, kReduceScatter = 1, kAllgather = 2 };
 
@@ -115,9 +125,7 @@ struct Params {
   void* out[kMaxRanks];
   int* flags[kMaxRanks];
   int my[kMaxRanks];
-  int right[kMaxRanks];                         // B4b
-  int left[kMaxRanks];                          // B4b
-  unsigned char members[kMaxRanks][kMaxRanks];  // B3, B4a: ring index -> rank
+  unsigned char members[kMaxRanks][kMaxRanks];  // ring index -> flat rank
   int n;
   int flag_stride;
   long long chunk;  // units (16-byte vectors or single elements) per chunk
@@ -168,34 +176,38 @@ __device__ __forceinline__ void member_sum(const Params& p) {
   }
 }
 
-// B4b: rank r's own chunk into place, then n - 1 ring steps forwarding
-// chunk (my - s) mod n to the right neighbour.
+// B4b: block (r, j) reads slice j of rank r's chunk once and stores it at
+// offset my * chunk into the output of every member of r's ring.
 template <typename U>
-__device__ __forceinline__ void ring_gather(const Params& p) {
+__device__ __forceinline__ void member_gather(const Params& p) {
   const int r = blockIdx.x;
-  const int n = p.n, my = p.my[r], right = p.right[r], left = p.left[r];
+  const int n = p.n, my = p.my[r];
+  const unsigned char* const ring = p.members[r];
   const long long chunk = p.chunk;
   const long long lo = chunk * blockIdx.y / gridDim.y;
   const long long hi = chunk * (blockIdx.y + 1) / gridDim.y;
-  const long long t0 = lo + threadIdx.x;
-  int* const fl_me = p.flags[r] + blockIdx.y * p.flag_stride;
-  int* const fl_right = p.flags[right] + blockIdx.y * p.flag_stride;
-  int* const fl_left = p.flags[left] + blockIdx.y * p.flag_stride;
+  const long long off = my * chunk;
+  const long long flag = blockIdx.y * p.flag_stride + kBarrier;
+
+  members_barrier(p.flags[r] + flag, n, [&](int k) {
+    return p.flags[ring[wrap(my + k, n)]] + flag;
+  });
+
   const U* const in = static_cast<const U*>(p.in[r]);
-  U* const out = static_cast<U*>(p.out[r]);
-
-  for (long long u = t0; u < hi; u += kThreads) out[my * chunk + u] = in[u];
-
-  ring_barrier(fl_me, fl_left, fl_right);
-
-  U* const peer_out = static_cast<U*>(p.out[right]);
-  for (int s = 0; s < n - 1; ++s) {
-    const long long off = wrap(my - s, n) * chunk;
-    for (long long u = t0; u < hi; u += kThreads) {
-      __stcg(peer_out + off + u, __ldcg(out + off + u));
+  for (long long base = lo + threadIdx.x; base < hi;
+       base += kThreads * kGatherUnroll) {
+    U v[kGatherUnroll];
+#pragma unroll
+    for (int i = 0; i < kGatherUnroll; ++i) {
+      if (base + i * kThreads < hi) v[i] = __ldg(in + base + i * kThreads);
     }
-    signal_set(fl_right + kGather + s, 1);
-    wait_flag(fl_me + kGather + s, 1);
+    for (int k = 0; k < n; ++k) {
+      U* const out = static_cast<U*>(p.out[ring[k]]) + off + base;
+#pragma unroll
+      for (int i = 0; i < kGatherUnroll; ++i) {
+        if (base + i * kThreads < hi) out[i * kThreads] = v[i];
+      }
+    }
   }
 }
 
@@ -207,7 +219,7 @@ template <typename T, typename U, int kMode>
 __global__ void __launch_bounds__(kThreads)
 ring_kernel(const __grid_constant__ Params p) {
   if constexpr (kMode == kAllgather) {
-    ring_gather<U>(p);
+    member_gather<U>(p);
   } else {
     member_sum<T, U, kMode>(p);
   }
@@ -215,13 +227,17 @@ ring_kernel(const __grid_constant__ Params p) {
 
 // The element types of B3 and B4a by dtype code, each with its 16-byte
 // vector unit and its single-element unit (the element's bits).
-#define GTT_SUM_TYPES(X)           \
+#define GTT_SUM_TYPES(X)              \
   X(0, __nv_bfloat16, unsigned short) \
-  X(1, float, float)               \
-  X(2, __half, unsigned short)     \
-  X(3, double, double)             \
-  X(4, int, int)                   \
-  X(5, long long, long long)
+  X(1, float, float)                  \
+  X(2, __half, unsigned short)        \
+  X(3, double, double)                \
+  X(4, int, int)                      \
+  X(5, long long, long long)          \
+  X(6, signed char, signed char)      \
+  X(7, unsigned char, unsigned char)  \
+  X(8, short, short)
+constexpr int kSumTypes = 9;
 
 // B4b's units by width in bytes.
 #define GTT_COPY_UNITS(X) \
@@ -285,12 +301,12 @@ int launch(void* fn, const Params& p, int ranks, int slices, void* stream) {
   return static_cast<int>(err);
 }
 
-// B3 and B4a: members is ranks x n flat ranks, row r the ring of rank r in
-// ring order; rank r must be entry my[r] of its own row.
-int run_sum(int mode, const void* in, long long in_stride, void* out,
-            long long out_stride, int* flags, int flag_stride, const int* my,
-            const int* members, int ranks, int n, int slices,
-            long long chunk, int dtype, int vec, void* stream) {
+// members is ranks x n flat ranks, row r the ring of rank r in ring order;
+// rank r must be entry my[r] of its own row.
+int run(int mode, const void* in, long long in_stride, void* out,
+        long long out_stride, int* flags, int flag_stride, const int* my,
+        const int* members, int ranks, int n, int slices, long long chunk,
+        int dtype, int vec, void* stream) {
   Params p;
   if (!fill(p, in, in_stride, out, out_stride, flags, flag_stride, my,
             ranks, n, slices, chunk)) {
@@ -305,8 +321,9 @@ int run_sum(int mode, const void* in, long long in_stride, void* out,
       p.members[r][k] = static_cast<unsigned char>(m);
     }
   }
-  void* fn = mode == kAllreduce ? kernel_for<kAllreduce>(dtype, vec)
-                                : kernel_for<kReduceScatter>(dtype, vec);
+  void* fn = mode == kAllreduce       ? kernel_for<kAllreduce>(dtype, vec)
+             : mode == kReduceScatter ? kernel_for<kReduceScatter>(dtype, vec)
+                                      : kernel_for<kAllgather>(dtype, vec);
   return launch(fn, p, ranks, slices, stream);
 }
 
@@ -322,17 +339,16 @@ cudaError_t min_blocks(const void* fn, int* blocks) {
 
 extern "C" {
 
-// Ints of flags each (rank, slice) needs for a ring of n: B4b's layout
-// (ring_common.cuh's kBarrier, then kGather's n - 1 step flags); B3 and B4a
-// use its first int, the members barrier.
-int gtt_ring_flag_stride(int n) { return kGather + (n > 1 ? n - 1 : 1); }
+// Ints of flags each (rank, slice) needs for a ring of n: the members
+// barrier's one (ring_common.cuh's kBarrier), whatever n.
+int gtt_ring_flag_stride(int) { return kBarrier + 1; }
 
 // The most blocks of any ring kernel that can be resident at once on the
 // current device (the cooperative launch's limit), in *blocks.
 int gtt_ring_max_blocks(int* blocks) {
   int per_sm = 1 << 30;
   cudaError_t err = cudaSuccess;
-  for (int code = 0; code < 6; ++code) {
+  for (int code = 0; code < kSumTypes; ++code) {
     for (int vec = 0; vec < 2; ++vec) {
       if (err == cudaSuccess) {
         err = min_blocks(kernel_for<kAllreduce>(code, vec), &per_sm);
@@ -361,22 +377,22 @@ int gtt_ring_max_blocks(int* blocks) {
 }
 
 // Each returns a cudaError_t; 0 is success. dtype (B3, B4a): 0 = bf16,
-// 1 = f32, 2 = f16, 3 = f64, 4 = int32, 5 = int64. vec: units are 16-byte
-// vectors (every chunk a whole number of them, every buffer 16-byte
-// aligned), else single elements. B4b takes unit_bytes (16, 8, 4, 2 or 1,
-// dividing the chunk and every buffer's start) in their place. chunk
-// counts units. Strides are in bytes. flags: ranks x slices x flag_stride
-// zeroed ints. my: each rank's ring index; members (B3, B4a): ranks x n
-// flat ranks, row r the ring of rank r in ring order; right/left (B4b):
-// each rank's neighbours as flat ranks. All tables are host arrays.
+// 1 = f32, 2 = f16, 3 = f64, 4 = int32, 5 = int64, 6 = int8, 7 = uint8,
+// 8 = int16. vec: units are 16-byte vectors (every chunk a whole number of
+// them, every buffer 16-byte aligned), else single elements. B4b takes
+// unit_bytes (16, 8, 4, 2 or 1, dividing the chunk and every buffer's
+// start) in their place. chunk counts units. Strides are in bytes. flags:
+// ranks x slices x flag_stride zeroed ints. my: each rank's ring index;
+// members: ranks x n flat ranks, row r the ring of rank r in ring order.
+// All tables are host arrays.
 
 int gtt_ring_allreduce(const void* x, void* out, long long rank_stride,
                        int* flags, int flag_stride, const int* my,
                        const int* members, int ranks, int n, int slices,
                        long long chunk, int dtype, int vec, void* stream) {
-  return run_sum(kAllreduce, x, rank_stride, out, rank_stride, flags,
-                 flag_stride, my, members, ranks, n, slices, chunk, dtype,
-                 vec, stream);
+  return run(kAllreduce, x, rank_stride, out, rank_stride, flags,
+             flag_stride, my, members, ranks, n, slices, chunk, dtype, vec,
+             stream);
 }
 
 int gtt_ring_reduce_scatter(const void* x, long long in_stride, void* out,
@@ -385,32 +401,18 @@ int gtt_ring_reduce_scatter(const void* x, long long in_stride, void* out,
                             const int* members, int ranks, int n,
                             int slices, long long chunk, int dtype, int vec,
                             void* stream) {
-  return run_sum(kReduceScatter, x, in_stride, out, out_stride, flags,
-                 flag_stride, my, members, ranks, n, slices, chunk, dtype,
-                 vec, stream);
+  return run(kReduceScatter, x, in_stride, out, out_stride, flags,
+             flag_stride, my, members, ranks, n, slices, chunk, dtype, vec,
+             stream);
 }
 
 int gtt_ring_allgather(const void* x, long long in_stride, void* out,
                        long long out_stride, int* flags, int flag_stride,
-                       const int* my, const int* right, const int* left,
-                       int ranks, int n, int slices, long long chunk,
-                       int unit_bytes, void* stream) {
-  Params p;
-  if (!fill(p, x, in_stride, out, out_stride, flags, flag_stride, my, ranks,
-            n, slices, chunk) ||
-      flag_stride < kGather + n - 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  for (int r = 0; r < ranks; ++r) {
-    if (right[r] < 0 || right[r] >= ranks || left[r] < 0 ||
-        left[r] >= ranks) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    p.right[r] = right[r];
-    p.left[r] = left[r];
-  }
-  return launch(kernel_for<kAllgather>(unit_bytes, 0), p, ranks, slices,
-                stream);
+                       const int* my, const int* members, int ranks, int n,
+                       int slices, long long chunk, int unit_bytes,
+                       void* stream) {
+  return run(kAllgather, x, in_stride, out, out_stride, flags, flag_stride,
+             my, members, ranks, n, slices, chunk, unit_bytes, 0, stream);
 }
 
 const char* gtt_error_string(int err) {

@@ -86,8 +86,8 @@ __device__ inline void ring_barrier(int* fl_me, int* fl_left, int* fl_right) {
   wait_flag(fl_me + kBarrier, 2);
 }
 
-// The entry barrier among the n members of a ring (ring.cu's B3 and B4a,
-// ring_variants.cu's B9 and B11),
+// The entry barrier among the n members of a ring (ring.cu's B3, B4a and
+// B4b, ring_variants.cu's B9 and B11),
 // one flag per (rank, slice): thread 0 adds one to the flag `peer(k)` of
 // each other member, k = 1 .. n - 1, and the block waits until its own
 // reaches n - 1. The block has stored nothing before it, so nothing needs
@@ -131,8 +131,27 @@ __device__ __forceinline__ long long add1(long long a, long long b) {
                                 static_cast<unsigned long long>(b));
 }
 
+// The sub-word integers add in their own width: the sum is cut back to the
+// type's bits (two's complement), as PyTorch's int8, uint8 and int16 adds
+// wrap.
+__device__ __forceinline__ signed char add1(signed char a, signed char b) {
+  return static_cast<signed char>(static_cast<unsigned char>(
+      static_cast<unsigned char>(a) + static_cast<unsigned char>(b)));
+}
+
+__device__ __forceinline__ unsigned char add1(unsigned char a,
+                                              unsigned char b) {
+  return static_cast<unsigned char>(a + b);
+}
+
+__device__ __forceinline__ short add1(short a, short b) {
+  return static_cast<short>(static_cast<unsigned short>(
+      static_cast<unsigned short>(a) + static_cast<unsigned short>(b)));
+}
+
 // Element-wise a + b over the lanes of one unit (a 16-byte vector, or the
-// bits of one element).
+// bits of one element): the unit is unpacked into its lanes of T (16 int8,
+// 8 int16 or bf16, ...), each lane added in T.
 template <typename T, typename U>
 __device__ __forceinline__ U add_units(U a, U b) {
   constexpr int kLanes = sizeof(U) / sizeof(T);

@@ -6,10 +6,12 @@ Counterpart of gloo_tpu/ops/attention.py::flash_attention: attention over
 k/v of shape (b, h_kv, t, d) read through the head index, never
 replicated. Its Pallas kernels become CUDA C++: the forward
 ``_flash_kernel`` is ``csrc/flash_fwd.cu`` (``flash_attention_fwd``;
-bf16 on wgmma over TMA-staged tiles, launched as ``flash_fwd_plan`` says), the
-fused backward ``_flash_bwd_fused_kernel`` is ``csrc/flash_bwd.cu``
-(``flash_attention_bwd``), and ``flash_attention`` ties the two together
-as a ``torch.autograd.Function``, as the custom VJP does in JAX.
+bf16 on wgmma over TMA-staged tiles, launched as ``flash_fwd_plan`` says),
+the fused backward ``_flash_bwd_fused_kernel`` is ``csrc/flash_bwd.cu``
+(``flash_attention_bwd``; bf16 on wgmma over TMA-staged tiles, three
+launches named in ``FLASH_BWD_KERNELS``, as ``flash_bwd_plan`` says), and
+``flash_attention`` ties the two together as a ``torch.autograd.Function``,
+as the custom VJP does in JAX.
 
 The ring-attention steps keep JAX's (bh, t, d) layout:
 ``flash_attention_step`` (``_flash_step_kernel``, ``csrc/flash_step.cu``)
@@ -25,6 +27,14 @@ On CUDA tensors each wrapper launches its kernel or raises; on CPU tensors
 it runs its plain twin (``*_plain``), which repeats the kernel's arithmetic
 step by step (same tiles, same rounding points) and is the version the
 kernel is held against.
+
+Head dims: the kernels have instances for KERNEL_HEAD_DIMS (64 and 128).
+Any other head_dim that is a multiple of 8 and at most 128 runs on the
+next instance up: the wrapper zero-pads q, k and v (and dO, out and the
+carried acc) along d and slices the results back, with the scale of the
+unpadded d. That is exact: padded q and k columns add 0 to every score,
+padded v and dO columns fill only output columns that are cut off, and
+delta gains only 0 * 0 terms. The twins on the CPU run unpadded.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ import math
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from gloo_tpu_torch import _build
 
@@ -45,14 +56,25 @@ from gloo_tpu_torch import _build
 BLOCK_K = 64
 BLOCK_Q = 64
 KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+# The kernels' head_dim instances; a smaller multiple of 8 is zero-padded
+# up to the next one.
 KERNEL_HEAD_DIMS = (64, 128)
+# The three launches of one flash_attention_bwd call on the card, by dtype:
+# delta and the lse rows with dq_acc = 0, the main kernel, dQ's scale and
+# cast. Every name contains "flash_bwd".
+FLASH_BWD_KERNELS = {
+    torch.bfloat16: ("flash_bwd_prep_kernel", "flash_bwd_wgmma_kernel",
+                     "flash_bwd_dq_kernel"),
+    torch.float32: ("flash_bwd_prep_kernel", "flash_bwd_f32_kernel",
+                    "flash_bwd_dq_kernel"),
+}
 
 _libs: dict[str, ctypes.CDLL] = {}
 # ctypes signature of each source's entry points: (pointers, ints, floats,
 # strides); the stream comes last.
 _SIGNATURES = {
     "flash_fwd": {"gtt_flash_fwd": (5, 7, 1, 9)},
-    "flash_bwd": {"gtt_flash_bwd": (10, 7, 2, 12)},
+    "flash_bwd": {"gtt_flash_bwd": (11, 7, 2, 15)},
     "flash_step": {"gtt_flash_step": (11, 7, 1, 6)},
     "flash_bwd_step": {"gtt_flash_bwd_dq_step": (9, 7, 2, 8),
                        "gtt_flash_bwd_dkv_step": (10, 7, 1, 8)},
@@ -100,32 +122,56 @@ def _check_heads(q, k, v):
             f"(batch={b}, kv_heads, seq={t}, head_dim={d})")
 
 
-def _check_kernel_inputs(q, k, v, layout=True, **more):
-    """What the CUDA kernels take: one CUDA device, bf16 or f32 throughout,
-    head_dim 64 or 128 and, with `layout`, contiguous head_dim rows on
-    16-byte boundaries (the forward checks its own: flash_fwd_plan).
-    `more` names further (b, h, t, d) operands held to the same rules (the
-    backward's dO)."""
-    named = {"q": q, "k": k, "v": v, **more}
+def kernel_head_dim(d: int) -> int:
+    """The kernel instance that head_dim d runs on: d itself or, zero-padded,
+    the next of KERNEL_HEAD_DIMS. Raises for what no instance takes."""
+    if d % 8 or not 0 < d <= KERNEL_HEAD_DIMS[-1]:
+        raise ValueError(
+            f"the kernels take a head_dim that is a multiple of 8 and at most "
+            f"{KERNEL_HEAD_DIMS[-1]} (instances {KERNEL_HEAD_DIMS}, smaller "
+            f"ones zero-padded); got {d}")
+    return next(D for D in KERNEL_HEAD_DIMS if d <= D)
+
+
+def _pad_head_dim(dim: int, *xs: torch.Tensor):
+    """Each x zero-padded along its last axis to `dim`: new contiguous
+    tensors."""
+    return tuple(F.pad(x, (0, dim - x.shape[-1])) for x in xs)
+
+
+def _cut(dim: int, d: int, *xs: torch.Tensor):
+    """Each x cut back to head_dim d from the kernel's `dim`."""
+    return xs if dim == d else tuple(x[..., :d] for x in xs)
+
+
+def _check_device(named: dict) -> None:
     devices = {x.device for x in named.values()}
-    if len(devices) != 1 or q.device.type != "cuda":
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
         raise ValueError(
             f"{', '.join(named)} must lie on one CUDA device (or all on the "
             f"CPU); got {', '.join(str(x.device) for x in named.values())}")
+
+
+def _check_kernel_inputs(q, k, v, layout=True, **more) -> int:
+    """What the CUDA kernels take: one CUDA device, bf16 or f32 throughout,
+    a head_dim that kernel_head_dim takes and, with `layout`, contiguous
+    head_dim rows on 16-byte boundaries (the flash forward and backward
+    check their own: flash_fwd_plan, flash_bwd_plan). `more` names further
+    operands held to the same rules (the backward's dO and out). Returns
+    the kernel's head_dim, kernel_head_dim(q's)."""
+    named = {"q": q, "k": k, "v": v, **more}
+    _check_device(named)
     if q.dtype not in KERNEL_DTYPES or any(x.dtype != q.dtype
                                            for x in named.values()):
         raise TypeError(
             f"the kernel takes bf16 or f32 {', '.join(named)} of one dtype; "
             f"got {', '.join(str(x.dtype) for x in named.values())}")
-    d = q.shape[-1]
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(
-            f"the kernel takes head_dim in {KERNEL_HEAD_DIMS}, got {d}")
+    dim = kernel_head_dim(q.shape[-1])
     b, h = q.shape[:2]
     if b * h > 65535:
         raise ValueError(f"batch * heads {b * h} exceeds the grid's 65535")
     if not layout:
-        return
+        return dim
     vec = 16 // q.element_size()
     for name, x in named.items():
         if x.stride(-1) != 1 or any(s % vec for s in x.stride()[:3]) \
@@ -134,6 +180,7 @@ def _check_kernel_inputs(q, k, v, layout=True, **more):
                 f"{name} must have a contiguous last dim, strides that are "
                 f"multiples of {vec} elements and a 16-byte aligned start; "
                 f"got strides {x.stride()}")
+    return dim
 
 
 def _layout(x: torch.Tensor):
@@ -159,27 +206,47 @@ def _layout(x: torch.Tensor):
     return (sb, sh, st), ready
 
 
-class FlashFwdPlan(NamedTuple):
-    """What the wrapper decides for one launch of csrc/flash_fwd.cu; the
-    grid, the k/v stages and the shared memory are the kernel's own."""
+class FlashPlan(NamedTuple):
+    """What the wrapper decides for one call of csrc/flash_fwd.cu or
+    csrc/flash_bwd.cu, on operands already padded to the kernel's head_dim;
+    the grid, the stages and the shared memory are the kernels' own."""
     copies: tuple    # operands made contiguous first
-    strides: tuple   # (b, h, t) strides of q, k and v as passed (_layout)
+    strides: tuple   # (b, h, t) strides of each operand as passed (_layout)
 
 
-def flash_fwd_plan(q, k, v) -> FlashFwdPlan:
-    """The launch of flash_attention_fwd for these operands. An operand the
-    kernel cannot read as it lies (_layout: e.g. a fused-qkv view whose
-    strides are not 16-byte multiples) is made contiguous first, and its
-    strides are then those of the copy."""
+def _plan(**named: torch.Tensor) -> FlashPlan:
+    """An operand the kernels cannot read as it lies (_layout: e.g. a
+    fused-qkv view whose strides are not 16-byte multiples) is made
+    contiguous first, and its strides are then those of the copy."""
     copies, strides = (), ()
-    for name, x in (("q", q), ("k", k), ("v", v)):
+    for name, x in named.items():
         st, ready = _layout(x)
         if not ready:
             copies += (name,)
             st = (x.shape[1] * x.shape[2] * x.shape[3],
                   x.shape[2] * x.shape[3], x.shape[3])
         strides += st
-    return FlashFwdPlan(copies, strides)
+    return FlashPlan(copies, strides)
+
+
+def flash_fwd_plan(q, k, v) -> FlashPlan:
+    """The launch of flash_attention_fwd for these operands."""
+    return _plan(q=q, k=k, v=v)
+
+
+def flash_bwd_plan(q, k, v, do, out) -> FlashPlan:
+    """The three launches of flash_attention_bwd for these operands (the
+    strides in the kernel's order: q, k, v, dO, out)."""
+    return _plan(q=q, k=k, v=v, do=do, out=out)
+
+
+def _contiguous(plan: FlashPlan, **named: torch.Tensor):
+    return tuple(x.contiguous() if name in plan.copies else x
+                 for name, x in named.items())
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -191,25 +258,24 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_heads(q, k, v)
     if q.device.type == k.device.type == v.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal)
-    _check_kernel_inputs(q, k, v, layout=False)
+    dim = _check_kernel_inputs(q, k, v, layout=False)
+    b, h, t, d = q.shape
+    if dim != d:
+        q, k, v = _pad_head_dim(dim, q, k, v)
     plan = flash_fwd_plan(q, k, v)
     if plan.copies:
-        q, k, v = (x.contiguous() if name in plan.copies else x
-                   for name, x in (("q", q), ("k", k), ("v", v)))
-    b, h, t, d = q.shape
+        q, k, v = _contiguous(plan, q=q, k=k, v=v)
     lib = _kernel_lib("flash_fwd")
-    out = torch.empty((b, h, t, d), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, h, t, dim), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
         err = lib.gtt_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), KERNEL_DTYPES[q.dtype], b, h, k.shape[1], t, d,
-            int(causal), _folded_scale(d, q.dtype),
-            *plan.strides, stream)
+            lse.data_ptr(), KERNEL_DTYPES[q.dtype], b, h, k.shape[1], t, dim,
+            int(causal), _folded_scale(d, q.dtype), *plan.strides, _stream())
     _raise_on(err, "flash_fwd", lib)
     flash_attention_fwd.launches += 1
-    return out, lse
+    return *_cut(dim, d, out), lse
 
 
 # Launches of the CUDA kernel in this process; counts nothing on the CPU.
@@ -236,37 +302,46 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     VJP does). dk and dv have k's (b, h_kv, t, d): GQA partials are summed
     over each group in f32 before the one cast.
 
-    CUDA tensors go through the Hopper kernel, CPU tensors through
-    flash_attention_bwd_plain; there is no fallback from one to the
-    other."""
+    CUDA tensors go through the Hopper kernels (FLASH_BWD_KERNELS: delta
+    and dq_acc's zeros are made by the first of the three launches), CPU
+    tensors through flash_attention_bwd_plain; there is no fallback from
+    one to the other."""
     _check_heads(q, k, v)
     _check_grad_inputs(q, out, lse, do)
     do = do.to(q.dtype)
     if all(x.device.type == "cpu" for x in (q, k, v, out, lse, do)):
         return flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
-    _check_kernel_inputs(q, k, v, do=do)
+    dim = _check_kernel_inputs(q, k, v, layout=False, do=do, out=out)
     if not (lse.device == q.device and lse.is_contiguous()):
         raise ValueError("lse must be contiguous on q's device")
     b, h, t, d = q.shape
     h_kv = k.shape[1]
+    if dim != d:
+        q, k, v, do, out = _pad_head_dim(dim, q, k, v, do, out)
+    plan = flash_bwd_plan(q, k, v, do, out)
+    if plan.copies:
+        q, k, v, do, out = _contiguous(plan, q=q, k=k, v=v, do=do, out=out)
     lib = _kernel_lib("flash_bwd")
-    delta = (do.float() * out.float()).sum(-1)
-    dq_acc = torch.zeros((b, h, t, d), dtype=torch.float32, device=q.device)
-    dq = torch.empty((b, h, t, d), dtype=q.dtype, device=q.device)
-    dk = torch.empty((b, h_kv, t, d), dtype=k.dtype, device=q.device)
-    dv = torch.empty((b, h_kv, t, d), dtype=v.dtype, device=q.device)
+    # Work buffers the first launch writes before anything reads them:
+    # per query tile, its lse and delta rows; dq_acc, the f32 dQ sums.
+    rows = torch.empty((b * h, -(-t // BLOCK_Q), 2 * BLOCK_Q),
+                       dtype=torch.float32, device=q.device)
+    dq_acc = torch.empty((b, h, t, dim), dtype=torch.float32,
+                         device=q.device)
+    dq = torch.empty((b, h, t, dim), dtype=q.dtype, device=q.device)
+    dk, dv = (torch.empty((b, h_kv, t, dim), dtype=q.dtype, device=q.device)
+              for _ in range(2))
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
         err = lib.gtt_flash_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            KERNEL_DTYPES[q.dtype], b, h, h_kv, t, d, int(causal),
-            _folded_scale(d, q.dtype), _dq_scale(d), *q.stride()[:3],
-            *k.stride()[:3], *v.stride()[:3], *do.stride()[:3], stream)
+            out.data_ptr(), lse.data_ptr(), rows.data_ptr(),
+            dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            KERNEL_DTYPES[q.dtype], b, h, h_kv, t, dim, int(causal),
+            _folded_scale(d, q.dtype), _dq_scale(d), *plan.strides,
+            _stream())
     _raise_on(err, "flash_bwd", lib)
     flash_attention_bwd.launches += 1
-    return dq, dk, dv
+    return _cut(dim, d, dq, dk, dv)
 
 
 # Launches of the CUDA kernel in this process; counts nothing on the CPU.
@@ -287,11 +362,6 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        if do.stride(-1) != 1:
-            # E.g. the expanded gradient of out.sum(): the kernel reads dO
-            # rows as 16-byte vectors, so such a dO is copied once. The
-            # transformer's dO (a transposed view) goes as it is.
-            do = do.contiguous()
         return (*flash_attention_bwd(q, k, v, out, lse, do, ctx.causal),
                 None)
 
@@ -456,8 +526,9 @@ def _offsets(off, bh: int, device: torch.device) -> torch.Tensor:
 
 
 def _check_step_kernel(q, k, v, **more):
-    """What the step kernels take: _check_kernel_inputs on (1, bh, t, d)
-    views, and f32 operands `more` contiguous on q's device."""
+    """What the step kernels take, on operands already padded to the
+    kernel's head_dim: _check_kernel_inputs on (1, bh, t, d) views, and f32
+    operands `more` contiguous on q's device."""
     _check_kernel_inputs(q[None], k[None], v[None])
     for name, x in more.items():
         if x.device != q.device or not x.is_contiguous():
@@ -489,21 +560,25 @@ def flash_attention_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_step_plain(q, k, v, acc, m, l, qo, ko, causal,
                                           kv_group)
+    # Padded first: the acc that a padded step returned is a view of its
+    # padded acc, which the padding copies into a contiguous tensor.
+    dim = kernel_head_dim(d)
+    if dim != d:
+        q, k, v, acc = _pad_head_dim(dim, q, k, v, acc)
     _check_step_kernel(q, k, v, acc=acc, m=m, l=l)
     lib = _kernel_lib("flash_step")
     acc_out, m_out, l_out = (torch.empty_like(x) for x in (acc, m, l))
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
         err = lib.gtt_flash_step(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(),
             m.data_ptr(), l.data_ptr(), acc_out.data_ptr(), m_out.data_ptr(),
             l_out.data_ptr(), qo.data_ptr(), ko.data_ptr(),
-            KERNEL_DTYPES[q.dtype], bh, kv_group, tq, k.shape[1], d,
+            KERNEL_DTYPES[q.dtype], bh, kv_group, tq, k.shape[1], dim,
             int(causal), _folded_scale(d, q.dtype), *q.stride()[:2],
-            *k.stride()[:2], *v.stride()[:2], stream)
+            *k.stride()[:2], *v.stride()[:2], _stream())
     _raise_on(err, "flash_step", lib)
     flash_attention_step.launches += 1
-    return acc_out, m_out, l_out
+    return *_cut(dim, d, acc_out), m_out, l_out
 
 
 # Launches of the CUDA kernel in this process; counts nothing on the CPU.
@@ -562,24 +637,30 @@ def _check_bwd_step(q, do, delta, lse):
 
 def _bwd_step_launch(fname, q, k, v, do, delta, lse, qo, ko, outs, causal,
                      kv_group, floats):
+    """One launch of csrc/flash_bwd_step.cu into `outs`, made by
+    `outs(dim)` at the kernel's head_dim; returns them sliced back to q's."""
+    bh, tq, d = q.shape
+    dim = kernel_head_dim(d)
+    if dim != d:
+        q, k, v, do = _pad_head_dim(dim, q, k, v, do)
     _check_step_kernel(q, k, v, delta=delta, lse=lse)
     if do.device != q.device or do.stride(-1) != 1 or do.data_ptr() % 16 \
             or any(st % 4 for st in do.stride()[:2]):
         raise ValueError(f"do must lie on {q.device} with a contiguous last "
                          f"dim, 16-byte aligned rows; got strides "
                          f"{do.stride()}")
-    bh, tq, d = q.shape
+    outs = outs(dim)
     lib = _kernel_lib("flash_bwd_step")
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, fname)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), qo.data_ptr(), ko.data_ptr(),
             *(x.data_ptr() for x in outs), KERNEL_DTYPES[q.dtype], bh,
-            kv_group, tq, k.shape[1], d, int(causal), *floats,
+            kv_group, tq, k.shape[1], dim, int(causal), *floats,
             *q.stride()[:2], *k.stride()[:2], *v.stride()[:2],
-            *do.stride()[:2], stream)
+            *do.stride()[:2], _stream())
     _raise_on(err, fname, lib)
+    return _cut(dim, d, *outs)
 
 
 def flash_attention_bwd_dq_step(q, k, v, do, delta, lse, q_offset, k_offset,
@@ -596,11 +677,12 @@ def flash_attention_bwd_dq_step(q, k, v, do, delta, lse, q_offset, k_offset,
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_step_plain(q, k, v, do, delta, lse, qo,
                                                  ko, causal, kv_group)
-    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    d = q.shape[2]
-    _bwd_step_launch("gtt_flash_bwd_dq_step", q, k, v, do, delta, lse, qo,
-                     ko, (dq,), causal, kv_group,
-                     (_folded_scale(d, q.dtype), _dq_scale(d)))
+    bh, tq, d = q.shape
+    dq, = _bwd_step_launch(
+        "gtt_flash_bwd_dq_step", q, k, v, do, delta, lse, qo, ko,
+        lambda dim: (torch.empty((bh, tq, dim), dtype=torch.float32,
+                                 device=q.device),),
+        causal, kv_group, (_folded_scale(d, q.dtype), _dq_scale(d)))
     flash_attention_bwd_dq_step.launches += 1
     return dq
 
@@ -623,12 +705,12 @@ def flash_attention_bwd_dkv_step(q, k, v, do, delta, lse, q_offset,
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_step_plain(q, k, v, do, delta, lse, qo,
                                                   ko, causal, kv_group)
-    shape = (bh, k.shape[1], q.shape[2])
-    dk, dv = (torch.empty(shape, dtype=torch.float32, device=q.device)
-              for _ in range(2))
-    _bwd_step_launch("gtt_flash_bwd_dkv_step", q, k, v, do, delta, lse, qo,
-                     ko, (dk, dv), causal, kv_group,
-                     (_folded_scale(q.shape[2], q.dtype),))
+    dk, dv = _bwd_step_launch(
+        "gtt_flash_bwd_dkv_step", q, k, v, do, delta, lse, qo, ko,
+        lambda dim: tuple(torch.empty((bh, k.shape[1], dim),
+                                      dtype=torch.float32, device=q.device)
+                          for _ in range(2)),
+        causal, kv_group, (_folded_scale(q.shape[2], q.dtype),))
     flash_attention_bwd_dkv_step.launches += 1
     return dk, dv
 

@@ -9,7 +9,7 @@ the order of the port: 1 serving (flash forward), 2 training on one card
 allgather) over a world of ranks on one card, 4 tensor parallelism
 (collective matmuls), 5 sequence and expert parallelism (ring-attention
 steps, all-to-all), 6 the ring allreduce variants (HBM-streaming,
-int8-wire, bidirectional). PRs 7-10 redesigned the kernels that lost most
+int8-wire, bidirectional). PRs 7-11 redesigned the kernels that lost most
 to one PyTorch call (PERF.md §6).
 tests/test_torch_isolation.py holds this table against the JAX sources.
 """
@@ -38,7 +38,7 @@ KERNELS = (
            "ported: gloo_tpu_torch/csrc/flash_fwd.cu; redesigned, PR 10"),
     Kernel("B2", _A, "_flash_bwd_fused_kernel", 313, 430,
            "flash_attention_bwd_fused",
-           "ported: gloo_tpu_torch/csrc/flash_bwd.cu"),
+           "ported: gloo_tpu_torch/csrc/flash_bwd.cu; redesigned, PR 11"),
     Kernel("B6", _A, "_flash_step_kernel", 477, 534, "flash_attention_step",
            "ported: gloo_tpu_torch/csrc/flash_step.cu"),
     Kernel("B7a", _A, "_flash_bwd_dq_step_kernel", 588, 730,
@@ -66,7 +66,7 @@ KERNELS = (
            "ring_reduce_scatter",
            "ported: gloo_tpu_torch/csrc/ring.cu; redesigned, PR 8"),
     Kernel("B4b", _R, "_ring_allgather_kernel", 995, 1050, "ring_allgather",
-           "ported: gloo_tpu_torch/csrc/ring.cu"),
+           "ported: gloo_tpu_torch/csrc/ring.cu; redesigned, PR 11"),
     Kernel("B8", _R, "_alltoall_kernel", 1109, 1178, "pallas_alltoall",
            "ported: gloo_tpu_torch/csrc/alltoall.cu; redesigned, PR 10"),
 )

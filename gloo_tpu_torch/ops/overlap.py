@@ -215,7 +215,7 @@ def _launch_setup(x: torch.Tensor, mesh: Mesh, axis_name: str,
         raise ValueError(f"the overlap kernels take at most "
                          f"{KERNEL_MAX_RANKS} ranks, got {ranks}")
     lib = _overlap_lib()
-    stride = lib.gtt_overlap_flag_stride(mesh.shape[axis_name])
+    stride = lib.gtt_overlap_flag_stride(mesh.axis_size(axis_name))
     index = x.device.index if x.device.index is not None \
         else torch.cuda.current_device()
     key = (index, plan.smem)

@@ -13,8 +13,9 @@ all-to-all ``csrc/alltoall.cu``.
 Every function takes a world tensor ``x`` of shape (P, rows, cols): the
 leading axis is the flat rank of ``mesh`` (the TpuProcessGroup
 convention), and row r is what rank r holds. The rings run along one mesh
-axis, every ring of that axis in the same launch; ``rows`` must divide by
-the ring size n. Results, as in JAX:
+axis, or one ring over a tuple of axes (tpu/mesh.py), every ring of it in
+the same launch; ``rows`` must divide by the ring size n. Results, as in
+JAX:
   - ring_allreduce: (P, rows, cols), each rank the sum over its ring;
   - ring_reduce_scatter: (P, rows / n, cols), rank r chunk r of the sum;
   - ring_allgather: (P, n rows, cols), the ring's rows in ring order;
@@ -37,16 +38,17 @@ right half in the mirrored ring's order, B9 through TMA bulk copies), so
 their sums are the twins' bit for bit. The sum kernels B3 and B4a take
 SUM_DTYPES on the card and on the CPU alike; B9 and B11 bf16 and f32, B10
 f32. The allgather and the all-to-all move bytes only, in any dtype. The
-allgather's twin copies what its kernel copies, step by step; the
-all-to-all's twin moves the split axis to the front, makes the TPU
-kernel's block copies and concatenates, while its kernel pulls each
-rank's blocks from every member in one pass over strided blocks
-(csrc/alltoall.cu), the same bytes to the same places.
+allgather's kernel and twin push each rank's chunk once into the output
+of every member of its ring; the all-to-all's twin moves the split axis
+to the front, makes the TPU kernel's block copies and concatenates, while
+its kernel pulls each rank's blocks from every member in one pass over
+strided blocks (csrc/alltoall.cu), the same bytes to the same places.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import TYPE_CHECKING, NamedTuple
 
@@ -57,16 +59,22 @@ from gloo_tpu_torch import _build
 
 if TYPE_CHECKING:
     # gloo_tpu_torch.tpu imports this module; the mesh is only read here.
-    from gloo_tpu_torch.tpu.mesh import Mesh
+    from gloo_tpu_torch.tpu.mesh import Axis, Mesh
 
 # Element types of the bf16/f32 kernels (B5a/B5b in overlap.py, B9, B11)
 # by csrc dtype code.
 KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 # Element types of the sum kernels B3 and B4a by csrc/ring.cu dtype code:
 # one add per step in the type, as PyTorch adds on the CPU (bf16 and f16 in
-# f32 rounded once, integers wrapping). The twins refuse the rest too.
+# f32 rounded once, integers wrapping in their own width). The twins refuse
+# the rest too.
 SUM_DTYPES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2,
-              torch.float64: 3, torch.int32: 4, torch.int64: 5}
+              torch.float64: 3, torch.int32: 4, torch.int64: 5,
+              torch.int8: 6, torch.uint8: 7, torch.int16: 8}
+# Types the reference sums that the port cannot: this PyTorch has no add
+# for them ("add_stub" not implemented for 'UInt16' / 'UInt32'), so neither
+# the twins nor the CPU path can hold a kernel's sum against anything.
+NO_TORCH_ADD = (torch.uint16, torch.uint32)
 # Threads per block of csrc/ring.cu (kThreads) and the most ranks its peer
 # table holds (kMaxRanks).
 KERNEL_THREADS = 256
@@ -84,13 +92,15 @@ _max_blocks: dict[int, int] = {}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _IP = ctypes.POINTER(ctypes.c_int)
 _TABLES = [_IP, _IP, _IP, _I, _I, _I]  # my, right, left, ranks, n, slices
-# my, members, ranks, n, slices, chunk, dtype, vec, stream
-_SUM_TAIL = [_IP, _IP, _I, _I, _I, _L, _I, _I, _P]
+# my, members, ranks, n, slices, chunk
+_MEMBERS = [_IP, _IP, _I, _I, _I, _L]
 _SIGNATURES = {
-    "gtt_ring_allreduce": [_P, _P, _L, _P, _I] + _SUM_TAIL,
-    "gtt_ring_reduce_scatter": [_P, _L, _P, _L, _P, _I] + _SUM_TAIL,
-    "gtt_ring_allgather": [_P, _L, _P, _L, _P, _I] + _TABLES + [_L, _I,
-                                                                 _P],
+    # ... dtype, vec, stream
+    "gtt_ring_allreduce": [_P, _P, _L, _P, _I] + _MEMBERS + [_I, _I, _P],
+    "gtt_ring_reduce_scatter": [_P, _L, _P, _L, _P, _I] + _MEMBERS
+    + [_I, _I, _P],
+    # ... unit bytes, stream
+    "gtt_ring_allgather": [_P, _L, _P, _L, _P, _I] + _MEMBERS + [_I, _P],
 }
 
 
@@ -119,14 +129,12 @@ def _raise_on(err: int, name: str, lib: ctypes.CDLL) -> None:
             f"{lib.gtt_error_string(err).decode()} (cudaError {err})")
 
 
-def _ring_size(x: torch.Tensor, axis_name: str, mesh: Mesh,
+def _ring_size(x: torch.Tensor, axis_name: Axis, mesh: Mesh,
                local_dims: int | None = 2) -> int:
     """Checks that hold on every device; returns the ring size n. x is a
     world tensor (P, *local) with `local_dims` local axes (None: any
     number, at least one)."""
-    if axis_name not in mesh.shape:
-        raise ValueError(f"axis {axis_name!r} is not one of "
-                         f"{mesh.axis_names}")
+    n = mesh.axis_size(axis_name)
     dims_ok = x.dim() >= 2 if local_dims is None \
         else x.dim() == 1 + local_dims
     if not dims_ok or x.shape[0] != mesh.size:
@@ -138,7 +146,7 @@ def _ring_size(x: torch.Tensor, axis_name: str, mesh: Mesh,
             dev.type == "cuda" and dev.index is not None
             and x.device.index != dev.index):
         raise ValueError(f"x lies on {x.device}, the mesh on {dev}")
-    return mesh.shape[axis_name]
+    return n
 
 
 def _check_rows(rows: int, n: int) -> None:
@@ -150,7 +158,9 @@ def _check_dtype(x: torch.Tensor, dtypes, what: str) -> None:
     """The same TypeError on the CPU and on the card, before any work."""
     if x.dtype not in dtypes:
         names = ", ".join(str(d).replace("torch.", "") for d in dtypes)
-        raise TypeError(f"{what} takes {names}; got {x.dtype}")
+        why = (f" (this PyTorch has no add for {x.dtype}, so no twin can "
+               f"hold a sum of it)" if x.dtype in NO_TORCH_ADD else "")
+        raise TypeError(f"{what} takes {names}; got {x.dtype}{why}")
 
 
 def _kernel_layout(x: torch.Tensor, chunk_elems: int, *more: torch.Tensor):
@@ -172,7 +182,7 @@ def _unit_bytes(nbytes: int, *addresses: int) -> int:
                                               for a in addresses))
 
 
-def cooperative_grid(x: torch.Tensor, mesh: Mesh, axis_name: str,
+def cooperative_grid(x: torch.Tensor, mesh: Mesh, axis_name: Axis,
                      lib: ctypes.CDLL, max_blocks, cache: dict[int, int],
                      want: int, stride: int, blocks_per_slice: int = 1,
                      extra: int = 0):
@@ -200,9 +210,7 @@ def cooperative_grid(x: torch.Tensor, mesh: Mesh, axis_name: str,
     slices = max(1, min(per_rank, want))
     flags = torch.zeros(blocks * slices * stride + extra, dtype=torch.int32,
                         device=x.device)
-    tables = [(ctypes.c_int * ranks)(*t)
-              for t in mesh.ring_neighbors(axis_name)]
-    return slices, flags, tables
+    return slices, flags, _ctypes_tables(mesh, _axis_key(axis_name))[:3]
 
 
 def _check_ranks(x: torch.Tensor, what: str) -> None:
@@ -211,33 +219,49 @@ def _check_ranks(x: torch.Tensor, what: str) -> None:
                          f"got {x.shape[0]}")
 
 
-def _launch_setup(x: torch.Tensor, mesh: Mesh, axis_name: str, units: int,
-                  per_thread: int = 1):
+def _launch_setup(x: torch.Tensor, mesh: Mesh, axis_name: Axis,
+                  units: int, per_thread: int = 1):
     """(lib, slices, zeroed flags, flag stride, ctypes ring tables) for
     `units` per chunk, `per_thread` of them to each thread."""
     _check_ranks(x, "the ring kernels")
     lib = _ring_lib()
-    stride = lib.gtt_ring_flag_stride(mesh.shape[axis_name])
+    stride = lib.gtt_ring_flag_stride(mesh.axis_size(axis_name))
     slices, flags, tables = cooperative_grid(
         x, mesh, axis_name, lib, lib.gtt_ring_max_blocks, _max_blocks,
         -(-units // (KERNEL_THREADS * per_thread)), stride)
     return lib, slices, flags, stride, tables
 
 
-def _members_table(mesh: Mesh, axis_name: str):
+def _axis_key(axis_name: Axis) -> tuple[str, ...]:
+    return (axis_name,) if isinstance(axis_name, str) else tuple(axis_name)
+
+
+@functools.lru_cache(maxsize=64)
+def _ctypes_tables(mesh: Mesh, names: tuple[str, ...]):
+    """The ring tables along `names` as the ctypes int arrays the kernels
+    take: each flat rank's ring index, right and left neighbours, and the
+    members table (ranks x n, each rank's ring in ring order). A launch
+    copies them into its parameters, so one set serves every call on the
+    mesh."""
+    ranks = mesh.size
+    rows = mesh.ring_members(names)
+    return (*((ctypes.c_int * ranks)(*t) for t in mesh.ring_neighbors(names)),
+            (ctypes.c_int * (ranks * len(rows[0])))(
+                *(m for row in rows for m in row)))
+
+
+def _members_table(mesh: Mesh, axis_name: Axis):
     """Each flat rank's ring along `axis_name` in ring order, as the ctypes
     int array (ranks x n) the kernels index."""
-    rows = mesh.ring_members(axis_name)
-    return (ctypes.c_int * (len(rows) * len(rows[0])))(
-        *(m for row in rows for m in row))
+    return _ctypes_tables(mesh, _axis_key(axis_name))[3]
 
 
-def _sum_launch(x: torch.Tensor, out: torch.Tensor, axis_name: str,
+def _sum_launch(x: torch.Tensor, out: torch.Tensor, axis_name: Axis,
                 mesh: Mesh, reduce_scatter: bool) -> None:
     """Launches B4a (`reduce_scatter`) or B3 from the contiguous world
     tensor x into out: no buffers but the zeroed flags of one members
     barrier."""
-    n = mesh.shape[axis_name]
+    n = mesh.axis_size(axis_name)
     ranks, rows, cols = x.shape
     dtype, vec, units = _kernel_layout(x, rows // n * cols, out)
     lib, slices, flags, stride, (my, _, _) = _launch_setup(
@@ -263,7 +287,7 @@ def _stream(x: torch.Tensor) -> int:
 
 # ---- B3: ring allreduce ----
 
-def _allreduce(x: torch.Tensor, axis_name: str, mesh: Mesh) -> torch.Tensor:
+def _allreduce(x: torch.Tensor, axis_name: Axis, mesh: Mesh) -> torch.Tensor:
     n = _ring_size(x, axis_name, mesh)
     _check_rows(x.shape[1], n)
     _check_dtype(x, SUM_DTYPES, "ring_allreduce")
@@ -294,7 +318,7 @@ class _SumAllreduce(torch.autograd.Function):
             None, None
 
 
-def _differentiable(impl, x: torch.Tensor, axis_name: str,
+def _differentiable(impl, x: torch.Tensor, axis_name: Axis,
                     mesh: Mesh) -> torch.Tensor:
     if torch.is_grad_enabled() and x.requires_grad \
             and _ring_size(x, axis_name, mesh) > 1:
@@ -302,7 +326,7 @@ def _differentiable(impl, x: torch.Tensor, axis_name: str,
     return impl(x, axis_name, mesh)
 
 
-def ring_allreduce(x: torch.Tensor, axis_name: str,
+def ring_allreduce(x: torch.Tensor, axis_name: Axis,
                    mesh: Mesh) -> torch.Tensor:
     """Sum-allreduce of the world tensor x (P, rows, cols) along
     `axis_name`: every rank gets the sum over its ring, bitwise the same on
@@ -314,7 +338,7 @@ def ring_allreduce(x: torch.Tensor, axis_name: str,
 ring_allreduce.launches = 0
 
 
-def _ring_tables(mesh: Mesh, axis_name: str, device):
+def _ring_tables(mesh: Mesh, axis_name: Axis, device):
     """(ring index, right, left) of every flat rank as tensors."""
     return tuple(torch.tensor(t, device=device)
                  for t in mesh.ring_neighbors(axis_name))
@@ -342,7 +366,7 @@ def _b3_walk(o: torch.Tensor, my: torch.Tensor, left: torch.Tensor,
     return o
 
 
-def ring_allreduce_plain(x: torch.Tensor, axis_name: str,
+def ring_allreduce_plain(x: torch.Tensor, axis_name: Axis,
                          mesh: Mesh) -> torch.Tensor:
     """B3's arithmetic in plain PyTorch: reduce-scatter then allgather,
     step by step, with the kernel's chunk indices and add order."""
@@ -356,7 +380,7 @@ def ring_allreduce_plain(x: torch.Tensor, axis_name: str,
 
 # ---- B4a: ring reduce-scatter ----
 
-def _reduce_scatter(x: torch.Tensor, axis_name: str,
+def _reduce_scatter(x: torch.Tensor, axis_name: Axis,
                     mesh: Mesh) -> torch.Tensor:
     n = _ring_size(x, axis_name, mesh)
     ranks, rows, cols = x.shape
@@ -387,7 +411,7 @@ class _RingReduceScatter(torch.autograd.Function):
         return _allgather(g.contiguous(), ctx.axis_name, ctx.mesh), None, None
 
 
-def ring_reduce_scatter(x: torch.Tensor, axis_name: str,
+def ring_reduce_scatter(x: torch.Tensor, axis_name: Axis,
                         mesh: Mesh) -> torch.Tensor:
     """Ring reduce-scatter of the world tensor x (P, rows, cols) along
     `axis_name`: (P, rows / n, cols), rank r holding chunk (ring index of
@@ -401,7 +425,7 @@ def ring_reduce_scatter(x: torch.Tensor, axis_name: str,
 ring_reduce_scatter.launches = 0
 
 
-def ring_reduce_scatter_plain(x: torch.Tensor, axis_name: str,
+def ring_reduce_scatter_plain(x: torch.Tensor, axis_name: Axis,
                               mesh: Mesh) -> torch.Tensor:
     """B4a's arithmetic in plain PyTorch: the reduce-scatter phase with
     start shift -1 (send chunk my - 1 - s, receive my - 2 - s), then each
@@ -421,7 +445,7 @@ def ring_reduce_scatter_plain(x: torch.Tensor, axis_name: str,
 
 # ---- B4b: ring allgather ----
 
-def _allgather(x: torch.Tensor, axis_name: str, mesh: Mesh) -> torch.Tensor:
+def _allgather(x: torch.Tensor, axis_name: Axis, mesh: Mesh) -> torch.Tensor:
     n = _ring_size(x, axis_name, mesh)
     ranks, rows, cols = x.shape
     if n == 1:
@@ -434,13 +458,13 @@ def _allgather(x: torch.Tensor, axis_name: str, mesh: Mesh) -> torch.Tensor:
                       device=x.device)
     # A copy: any dtype, moved in the widest unit that fits.
     unit = _unit_bytes(chunk_bytes, x.data_ptr(), out.data_ptr())
-    lib, slices, flags, stride, (my, right, left) = _launch_setup(
-        x, mesh, axis_name, chunk_bytes // unit)
+    lib, slices, flags, stride, (my, _, _) = _launch_setup(
+        x, mesh, axis_name, chunk_bytes // unit, SUM_UNITS_PER_THREAD)
     with torch.cuda.device(x.device):
         err = lib.gtt_ring_allgather(
             x.data_ptr(), chunk_bytes, out.data_ptr(), n * chunk_bytes,
-            flags.data_ptr(), stride, my, right, left, ranks, n, slices,
-            chunk_bytes // unit, unit, _stream(x))
+            flags.data_ptr(), stride, my, _members_table(mesh, axis_name),
+            ranks, n, slices, chunk_bytes // unit, unit, _stream(x))
     _raise_on(err, "ring_allgather", lib)
     ring_allgather.launches += 1
     return out
@@ -460,7 +484,7 @@ class _RingAllgather(torch.autograd.Function):
                 None, None)
 
 
-def ring_allgather(x: torch.Tensor, axis_name: str,
+def ring_allgather(x: torch.Tensor, axis_name: Axis,
                    mesh: Mesh) -> torch.Tensor:
     """Ring allgather of the world tensor x (P, rows, cols) along
     `axis_name`: (P, n rows, cols), every rank of a ring holding the ring's
@@ -474,20 +498,23 @@ def ring_allgather(x: torch.Tensor, axis_name: str,
 ring_allgather.launches = 0
 
 
-def ring_allgather_plain(x: torch.Tensor, axis_name: str,
+def ring_allgather_plain(x: torch.Tensor, axis_name: Axis,
                          mesh: Mesh) -> torch.Tensor:
-    """B4b's data movement in plain PyTorch: own rows into chunk my, then
-    n - 1 steps that forward chunk (my - s) to the right neighbour."""
+    """B4b's data movement in plain PyTorch: each rank's rows, read once,
+    stored as chunk (its ring index) of the output of every member of its
+    ring, itself included (the TPU kernel's n - 1 forwarding steps put the
+    same bytes in the same places). A byte move, as the kernel's, so it
+    takes every dtype."""
     n = _ring_size(x, axis_name, mesh)
     ranks, rows, cols = x.shape
-    my, _, left = _ring_tables(mesh, axis_name, x.device)
-    ar = torch.arange(ranks, device=x.device)
-    o = torch.zeros((ranks, n, rows * cols), dtype=x.dtype, device=x.device)
-    o[ar, my] = x.reshape(ranks, rows * cols)
-    for s in range(n - 1):
-        idx = (my[left] - s) % n
-        o[ar, idx] = o[left, idx]
-    return o.reshape(ranks, n * rows, cols)
+    my = torch.tensor(mesh.ring_index(axis_name), device=x.device)
+    members = torch.tensor(mesh.ring_members(axis_name), device=x.device)
+    flat = x.reshape(ranks, rows * cols).contiguous().view(torch.uint8)
+    o = torch.empty((ranks, n, flat.shape[1]), dtype=torch.uint8,
+                    device=x.device)
+    for k in range(n):
+        o[members[:, k], my] = flat
+    return o.view(x.dtype).reshape(ranks, n * rows, cols)
 
 
 # ---- the torus composition (no kernel of its own) ----
@@ -564,7 +591,7 @@ def _vector_input(x: torch.Tensor, n: int) -> torch.Tensor:
     return padded
 
 
-def _variant_setup(x: torch.Tensor, mesh: Mesh, axis_name: str,
+def _variant_setup(x: torch.Tensor, mesh: Mesh, axis_name: Axis,
                    variant: int, want: int, blocks_per_slice: int = 1,
                    extra: int = 0):
     """(lib, slices, zeroed flags, flag stride, ctypes ring tables) for a
@@ -572,7 +599,7 @@ def _variant_setup(x: torch.Tensor, mesh: Mesh, axis_name: str,
     occupancy (B9's at HBM_TILE_BYTES and HBM_STAGES)."""
     _check_ranks(x, "the ring variant kernels")
     lib = _variants_lib()
-    stride = lib.gtt_ring_variants_flag_stride(mesh.shape[axis_name])
+    stride = lib.gtt_ring_variants_flag_stride(mesh.axis_size(axis_name))
     tile, stages = (HBM_TILE_BYTES, HBM_STAGES) if variant == _HBM \
         else (0, 0)
     slices, flags, tables = cooperative_grid(
@@ -584,7 +611,7 @@ def _variant_setup(x: torch.Tensor, mesh: Mesh, axis_name: str,
     return lib, slices, flags, stride, tables
 
 
-def _allreduce_hbm(x: torch.Tensor, axis_name: str,
+def _allreduce_hbm(x: torch.Tensor, axis_name: Axis,
                    mesh: Mesh) -> torch.Tensor:
     n = _ring_size(x, axis_name, mesh)
     ranks, rows, cols = x.shape
@@ -612,7 +639,7 @@ def _allreduce_hbm(x: torch.Tensor, axis_name: str,
     return out if xv.shape == x.shape else out[..., :cols]
 
 
-def ring_allreduce_hbm(x: torch.Tensor, axis_name: str,
+def ring_allreduce_hbm(x: torch.Tensor, axis_name: Axis,
                        mesh: Mesh) -> torch.Tensor:
     """B9: the sum-allreduce of ring_allreduce, each member's tile of the
     chunk streamed through shared-memory stages by TMA bulk copies and the
@@ -624,14 +651,14 @@ def ring_allreduce_hbm(x: torch.Tensor, axis_name: str,
 ring_allreduce_hbm.launches = 0
 
 
-def ring_allreduce_hbm_plain(x: torch.Tensor, axis_name: str,
+def ring_allreduce_hbm_plain(x: torch.Tensor, axis_name: Axis,
                              mesh: Mesh) -> torch.Tensor:
     """B9's arithmetic in plain PyTorch: B3's walk (the tiles of the stream
     change no value, the add being elementwise)."""
     return ring_allreduce_plain(x, axis_name, mesh)
 
 
-def _allreduce_q8(x: torch.Tensor, axis_name: str,
+def _allreduce_q8(x: torch.Tensor, axis_name: Axis,
                   mesh: Mesh) -> torch.Tensor:
     n = _ring_size(x, axis_name, mesh)
     ranks, rows, cols = x.shape
@@ -667,7 +694,7 @@ def _allreduce_q8(x: torch.Tensor, axis_name: str,
     return out
 
 
-def ring_allreduce_q8(x: torch.Tensor, axis_name: str,
+def ring_allreduce_q8(x: torch.Tensor, axis_name: Axis,
                       mesh: Mesh) -> torch.Tensor:
     """B10: sum-allreduce over an int8 wire with one f32 scale per chunk
     hop (EQuARX-style), accumulating in f32; every rank of a ring decodes
@@ -695,7 +722,7 @@ def _quantize(c: torch.Tensor):
     return torch.round(c / safe[:, None]).clamp(-127, 127), scale
 
 
-def ring_allreduce_q8_plain(x: torch.Tensor, axis_name: str,
+def ring_allreduce_q8_plain(x: torch.Tensor, axis_name: Axis,
                             mesh: Mesh) -> torch.Tensor:
     """B10's arithmetic in plain PyTorch: B3's chunk order, each hop's
     chunk quantized whole; the receiver adds q * scale into its f32 chunk
@@ -726,7 +753,7 @@ def ring_allreduce_q8_plain(x: torch.Tensor, axis_name: str,
     return o.reshape(ranks, rows, cols)
 
 
-def _allreduce_bidir(x: torch.Tensor, axis_name: str,
+def _allreduce_bidir(x: torch.Tensor, axis_name: Axis,
                      mesh: Mesh) -> torch.Tensor:
     n = _ring_size(x, axis_name, mesh)
     ranks, rows, cols = x.shape
@@ -760,7 +787,7 @@ def _allreduce_bidir(x: torch.Tensor, axis_name: str,
     return out
 
 
-def ring_allreduce_bidir(x: torch.Tensor, axis_name: str,
+def ring_allreduce_bidir(x: torch.Tensor, axis_name: Axis,
                          mesh: Mesh) -> torch.Tensor:
     """B11: sum-allreduce on two counter-rotating rings: columns
     [0, cols/2) summed in B3's order, columns [cols/2, cols) in the
@@ -772,7 +799,7 @@ def ring_allreduce_bidir(x: torch.Tensor, axis_name: str,
 ring_allreduce_bidir.launches = 0
 
 
-def ring_allreduce_bidir_plain(x: torch.Tensor, axis_name: str,
+def ring_allreduce_bidir_plain(x: torch.Tensor, axis_name: Axis,
                                mesh: Mesh) -> torch.Tensor:
     """B11's arithmetic in plain PyTorch: B3's walk on the left half, and
     on the right half B3's walk on the reversed ring (ring index -my,
@@ -870,7 +897,7 @@ def alltoall_plan(local, elt: int, n: int, split: int, concat: int,
                         out_run, n * out_run, run, unit, group, want)
 
 
-def _alltoall(x: torch.Tensor, axis_name: str, mesh: Mesh, split: int,
+def _alltoall(x: torch.Tensor, axis_name: Axis, mesh: Mesh, split: int,
               concat: int) -> torch.Tensor:
     n = _ring_size(x, axis_name, mesh, local_dims=None)
     _check_rows(x.shape[1 + split], n)
@@ -891,7 +918,7 @@ def _alltoall(x: torch.Tensor, axis_name: str, mesh: Mesh, split: int,
         return out
     lib = _alltoall_lib()
     stride = lib.gtt_alltoall_flag_stride()
-    slices, flags, _ = cooperative_grid(
+    slices, flags, (my, _, _) = cooperative_grid(
         x, mesh, axis_name, lib, lib.gtt_alltoall_max_blocks,
         _a2a_max_blocks, plan.want, stride)
     rank_bytes = n * plan.block
@@ -899,8 +926,8 @@ def _alltoall(x: torch.Tensor, axis_name: str, mesh: Mesh, split: int,
         err = lib.gtt_alltoall(
             x.data_ptr(), rank_bytes, out.data_ptr(), rank_bytes,
             flags.data_ptr(), stride,
-            (ctypes.c_int * ranks)(*mesh.ring_index(axis_name)),
-            _members_table(mesh, axis_name), ranks, n, slices, plan.block,
+            my, _members_table(mesh, axis_name), ranks, n, slices,
+            plan.block,
             plan.in_run, plan.in_pitch, plan.out_run, plan.out_pitch,
             plan.run, plan.unit, plan.group, _stream(x))
     _raise_on(err, "alltoall", lib)
@@ -924,7 +951,7 @@ class _Alltoall(torch.autograd.Function):
         return _alltoall(g.contiguous(), *ctx.args), None, None, None, None
 
 
-def alltoall(x: torch.Tensor, axis_name: str, mesh: Mesh,
+def alltoall(x: torch.Tensor, axis_name: Axis, mesh: Mesh,
              split_axis: int = 0, concat_axis: int = 0) -> torch.Tensor:
     """All-to-all of the world tensor x (P, *local) along `axis_name`, as
     lax.all_to_all (tiled): each rank's local value is split into n blocks
@@ -947,12 +974,12 @@ def alltoall(x: torch.Tensor, axis_name: str, mesh: Mesh,
 alltoall.launches = 0
 
 
-def _alltoall_leading(x: torch.Tensor, axis_name: str,
+def _alltoall_leading(x: torch.Tensor, axis_name: Axis,
                       mesh: Mesh) -> torch.Tensor:
     """The TPU kernel's copies over (P, rows, cols), in its order: each
     rank's own block into place, then at step s = 1 .. n - 1 block (my + s)
     of every rank into slot my of its ring member (my + s)."""
-    n = mesh.shape[axis_name]
+    n = mesh.axis_size(axis_name)
     ranks, rows, cols = x.shape
     my = torch.tensor(mesh.ring_index(axis_name), device=x.device)
     members = torch.tensor(mesh.ring_members(axis_name), device=x.device)
@@ -966,7 +993,7 @@ def _alltoall_leading(x: torch.Tensor, axis_name: str,
     return o.reshape(ranks, rows, cols)
 
 
-def alltoall_plain(x: torch.Tensor, axis_name: str, mesh: Mesh,
+def alltoall_plain(x: torch.Tensor, axis_name: Axis, mesh: Mesh,
                    split_axis: int = 0, concat_axis: int = 0) -> torch.Tensor:
     """B8 in plain PyTorch: the split axis moved to the front of each
     rank's value, the TPU kernel's block copies in its order, and the

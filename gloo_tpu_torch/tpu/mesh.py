@@ -11,22 +11,28 @@ virtual CPU devices; ``["cpu"] * 4`` is the world the CPU tests use.
 A world tensor has the flat rank as its leading axis: row r belongs to the
 device at row-major position r of the grid.
 
-The ring tables (``ring_index``, ``ring_neighbors``) are the host-side port
-of gloo_tpu/ops/pallas_ring.py's ``_peer_logical_id`` and
-``_ring_neighbors``: the kernels take them as tables, one entry per flat
-rank.
+The ring tables (``ring_members``, ``ring_index``, ``ring_neighbors``) are
+the host-side port of gloo_tpu/ops/pallas_ring.py's ``_peer_logical_id``
+and ``_ring_neighbors``: the kernels take them as tables, one entry per
+flat rank. An axis is a name or a sequence of names (the reference's
+``Axis``); a sequence is one ring over the product of those axes,
+row-major over the names as given, which is what ``lax.axis_index`` of
+the same tuple numbers.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Mapping, Optional, Sequence
+from typing import Mapping, Optional, Sequence, Union
 
 import torch
 
 # Where a mesh over more than one card is taken up (peer-mapped memory,
 # one cooperative launch per card).
 MULTI_CARD_ITEM = "ROADMAP.md queue A, item 7 (the multi-card launch)"
+
+# A mesh axis name, or a sequence of them for one ring over their product.
+Axis = Union[str, Sequence[str]]
 
 
 class Mesh:
@@ -47,6 +53,8 @@ class Mesh:
             raise ValueError(f"mesh {self.shape} needs "
                              f"{math.prod(self.shape.values())} devices, "
                              f"have {len(self.devices)}")
+        # Per tuple of axis names: (members, ring index, right, left).
+        self._rings: dict[tuple[str, ...], tuple] = {}
 
     @property
     def size(self) -> int:
@@ -66,36 +74,62 @@ class Mesh:
                 f"{MULTI_CARD_ITEM}")
         return self.devices[0]
 
-    def _stride(self, axis: str) -> int:
-        names = self.axis_names
-        if axis not in self.shape:
-            raise ValueError(f"axis {axis!r} is not one of {names}")
-        return math.prod(self.shape[a] for a in names[names.index(axis) + 1:])
+    def _names(self, axis: Axis) -> tuple[str, ...]:
+        names = (axis,) if isinstance(axis, str) else tuple(axis)
+        unknown = [a for a in names if a not in self.shape]
+        if unknown or not names or len(set(names)) != len(names):
+            raise ValueError(f"axis {axis!r} is not one of, or a tuple of "
+                             f"distinct names among, {self.axis_names}")
+        return names
 
-    def ring_index(self, axis: str) -> list[int]:
-        """Each flat rank's position along `axis` (lax.axis_index)."""
-        stride, n = self._stride(axis), self.shape[axis]
-        return [(r // stride) % n for r in range(self.size)]
+    def axis_size(self, axis: Axis) -> int:
+        """Ranks in one ring along `axis` (lax.axis_size): the product of
+        the sizes of its names."""
+        return math.prod(self.shape[a] for a in self._names(axis))
 
-    def ring_neighbors(self, axis: str) -> tuple[list[int], list[int],
-                                                 list[int]]:
-        """(ring index, right, left) of every flat rank along `axis`: the
-        right neighbour is ring index + 1 mod n, the left one - 1 mod n,
-        both as flat ranks; a peer along one axis differs by that axis's
-        stride (_peer_logical_id)."""
-        stride, n = self._stride(axis), self.shape[axis]
-        my = self.ring_index(axis)
-        right = [r + ((m + 1) % n - m) * stride for r, m in enumerate(my)]
-        left = [r + ((m - 1) % n - m) * stride for r, m in enumerate(my)]
-        return my, right, left
+    def _ring(self, axis: Axis) -> tuple:
+        """(members, ring index, right, left) along `axis`, made once per
+        tuple of names."""
+        names = self._names(axis)
+        if names not in self._rings:
+            strides = {a: math.prod(self.shape[b] for b in
+                                    self.axis_names[i + 1:])
+                       for i, a in enumerate(self.axis_names)}
+            # Offsets of ring index k from the ring's origin: the last name
+            # runs fastest.
+            offsets = [0]
+            for a in names:
+                offsets = [o + i * strides[a] for o in offsets
+                           for i in range(self.shape[a])]
+            origin = [r - sum((r // strides[a]) % self.shape[a] * strides[a]
+                              for a in names) for r in range(self.size)]
+            members = [[o + off for off in offsets] for o in origin]
+            my = [row.index(r) for r, row in enumerate(members)]
+            n = len(offsets)
+            self._rings[names] = (
+                members, my,
+                [row[(m + 1) % n] for row, m in zip(members, my)],
+                [row[(m - 1) % n] for row, m in zip(members, my)])
+        return self._rings[names]
 
-    def ring_members(self, axis: str) -> list[list[int]]:
+    def ring_members(self, axis: Axis) -> list[list[int]]:
         """For each flat rank, the flat ranks of its ring along `axis` in
-        ring order (entry k has ring index k)."""
-        stride = self._stride(axis)
-        my = self.ring_index(axis)
-        return [[r + (k - m) * stride for k in range(self.shape[axis])]
-                for r, m in enumerate(my)]
+        ring order (entry k has ring index k): the ranks that share its
+        position on every other axis, numbered row-major over the names of
+        `axis` as given."""
+        return [list(row) for row in self._ring(axis)[0]]
+
+    def ring_index(self, axis: Axis) -> list[int]:
+        """Each flat rank's position along `axis` (lax.axis_index)."""
+        return list(self._ring(axis)[1])
+
+    def ring_neighbors(self, axis: Axis) -> tuple[list[int], list[int],
+                                                  list[int]]:
+        """(ring index, right, left) of every flat rank along `axis`: the
+        members at ring index + 1 and - 1 mod n, as flat ranks
+        (_ring_neighbors)."""
+        _, my, right, left = self._ring(axis)
+        return list(my), list(right), list(left)
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, devices={[str(d) for d in self.devices]})"

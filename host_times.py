@@ -4,11 +4,13 @@
     python3 host_times.py
 
 Prints, for the gloo_tpu_torch found beside this script:
-  - the host's cost per call of two wrappers, by the CPU clock over many
+  - the host's cost per call of four wrappers, by the CPU clock over many
     back-to-back calls with no synchronization (the device keeps up, so the
     clock reads what the host spends to launch): flash_attention_fwd (B1)
     at the entry forward's shape, on the fused-qkv views the transformer
-    hands it, and spmd.alltoall (B8) at one exchange of the Ulysses path;
+    hands it, flash_attention_bwd (B2) at the same shape with the strided
+    dO of the transformer's backward, spmd.alltoall (B8) at one exchange of
+    the Ulysses path and spmd.allgather (B4b) at the DDP buffer's shape;
   - the time per call between CUDA events (chip_smoke.event_ms) of the
     entry forward, a training step, a DDP step, a dp x tp step and the
     Ulysses and MoE paths' forward + backward.
@@ -67,9 +69,14 @@ def main():
                       device="cuda").to(torch.bfloat16)
     q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].view(b, t, h, d)
                .transpose(1, 2) for i in range(3))
+    do = torch.randn((b, t, h, d), generator=gen,
+                     device="cuda").to(torch.bfloat16).transpose(1, 2)
     with torch.inference_mode():
         result["flash_attention_fwd_host_us"] = host_us(
             lambda: attn.flash_attention_fwd(q, k, v, True))
+        out, lse = attn.flash_attention_fwd(q, k, v, True)
+        result["flash_attention_bwd_host_us"] = host_us(
+            lambda: attn.flash_attention_bwd(q, k, v, out, lse, do, True))
 
     # B8 through spmd.alltoall at the Ulysses path's first exchange: each
     # of 4 ranks' (b, h, t_local, d) = (2, 4, 1024, 64) bf16, heads split,
@@ -81,6 +88,14 @@ def main():
     with torch.no_grad():
         result["spmd_alltoall_host_us"] = host_us(
             lambda: spmd.alltoall(x, "seq", 1, 2, mesh=mesh))
+
+    # B4b through spmd.allgather at the DDP buffer's shape: 4 ranks of
+    # 434,500 f32.
+    data = make_mesh({"data": 4}, devices=[dev] * 4)
+    grads = torch.randn((4, 434500), generator=gen, device="cuda")
+    with torch.no_grad():
+        result["spmd_allgather_host_us"] = host_us(
+            lambda: spmd.allgather(grads, "data", mesh=data))
 
     fn, args = entry()
     result["entry_forward_ms"] = event_ms(lambda: fn(*args), 20)

@@ -369,7 +369,8 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
     with pytest.raises(TypeError):
         attn.flash_attention(ok.half(), ok.half(), ok.half())
     with pytest.raises(ValueError, match="head_dim"):
-        bad = ok[..., :32].contiguous()
+        bad = torch.zeros((1, 2, 64, 136), device=cuda_device,
+                          dtype=torch.bfloat16)
         attn.flash_attention(bad, bad, bad)
     with pytest.raises(ValueError, match="CUDA"):
         attn.flash_attention(ok, ok.cpu(), ok)

@@ -383,7 +383,8 @@ def test_torus_and_autograd_on_card(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float64, torch.int32,
-                                   torch.int64], ids=str)
+                                   torch.int64, torch.int8, torch.uint8,
+                                   torch.int16], ids=str)
 @pytest.mark.parametrize("cols", [128, 7])
 def test_sum_kernels_at_more_dtypes_on_card(cuda_device, dtype, cols):
     mesh = make_mesh({"x": 4}, devices=[cuda_device] * 4)
