@@ -61,27 +61,35 @@ Phases, each of which raises on failure:
      plain versions and library yardsticks (kernel and whole call; B5a
      also with the backward's transposed w), of the fused MLP (per call
      and device time) and of the dp x tp step;
- 16. the ring-attention step kernels (B6 flash_attention_step, B7a and B7b
-     flash_attention_bwd_step) against their plain versions on the card at
+ 16. the ring-attention step kernels (B6 flash_attention_step, and B7a +
+     B7b as one fused launch: flash_attention_bwd_step with an f32
+     cotangent, and the ring backward's accumulating entry
+     flash_attention_bwd_step_into over the whole ring with the cotangent
+     in q's dtype) against their plain versions on the card at
      STEP_CASES, every ring step of each (so whole, diagonal and hidden
-     blocks, and a carried state), and the all-to-all (B8) bitwise at
+     blocks, and a carried state); the guard that B7 keeps an f32
+     cotangent's bits (GUARD_SHARE); and the all-to-all (B8) bitwise at
      A2A_CASES, three calls each: blocks of rows (the leading axis) and
      strided blocks (both Ulysses exchanges, a non-leading split along
      each axis of a 2 x 2 mesh, int32 of odd width);
  17. the long-context path (sp_entry, a global sequence of 4096 over 4
-     ranks on the card): ring-flash forward + backward (B6, B7a, B7b 4
-     launches each) and Ulysses forward + backward (B8 8, B1 1, B2 1), with
+     ranks on the card): ring-flash forward + backward (B6 4, B7 4, B7's
+     prep 1 and dQ finish 1) and Ulysses forward + backward (B8 8, B1 1,
+     B2 1), with
      the launch counts read around each, and both and ring_attention
      against flash_attention (B1/B2) over the whole sequence;
  18. the MoE path (ep_entry): dispatch_combine forward + backward (B8 4)
      with the flagship's MLP as each rank's expert; kept tokens against
      their expert's MLP applied directly, dropped tokens exactly zero, the
      gradients against a dense reference;
- 19. times of B6, B7a and B7b at the long-context path's ring steps and of
-     B8 at a Ulysses exchange (as rows, the layout of the MoE path and the
-     process group, and strided as the Ulysses path launches it), against
-     their bound, plain versions and yardsticks, and of each of the three
-     paths (every device item of the Ulysses path);
+ 19. times of B6 and the fused B7 at the long-context path's ring steps
+     (B7 with the path's bf16 cotangent and with an f32 one; its library
+     yardstick, one call of aten._scaled_dot_product_flash_attention_
+     backward per step, checked against the step's gradients first) and
+     of B8 at a Ulysses exchange (as rows, the layout of the MoE path and
+     the process group, and strided as the Ulysses path launches it),
+     against their bound, plain versions and yardsticks, and of each of
+     the three paths (every device item of the Ulysses path);
  20. the ring allreduce variants (B9 ring_allreduce_hbm, B10
      ring_allreduce_q8, B11 ring_allreduce_bidir) against their plain
      versions on the card, bitwise, at VARIANT_CASES (2 to 8 ranks, the
@@ -89,8 +97,9 @@ Phases, each of which raises on failure:
      shape), three calls in a row each; B9 bitwise B3, B11's left half
      bitwise B3 on those columns,
      B10 within Q8_REL of the f64 sum and bitwise equal on every rank; and
-     the sum collectives at int32, f16, f64, int64, int8, uint8, int16 and
-     bool on B3, B4a and B4b against the same calls on the CPU, and over
+     the sum collectives at int32, f16, f64, int64, int8, uint8, int16,
+     uint16, uint32 and bool on B3, B4a and B4b against the same calls on
+     the CPU, and over
      the tuple axis ("x", "y") of a 2 x 2 mesh;
  21. the ring-variant path (ring_variants_entry: the flagship's gradient
      buffer over 4 ranks on the card), each variant forward and backward
@@ -227,8 +236,8 @@ MLP_TOL = 2e-2
 AUTO_RTOL = 1e-5
 DP_TP_STEPS = 5
 
-# (name, ranks, b, h, h_kv, t_local, d, dtype, causal): B6, B7a and B7b
-# against their plain versions over a world of ranks, at every step of its
+# (name, ranks, b, h, h_kv, t_local, d, dtype, causal): B6 and the fused
+# B7 against their plain versions over a world of ranks, at every step of its
 # ring (each rank's own block, then the blocks before it, so whole,
 # diagonal and hidden blocks, with the state carried from step to step).
 # "pathS" is the long-context path's shape; "d32_gqa" and
@@ -252,6 +261,11 @@ STEP_CASES = [
 # both dtypes.
 STEP_TOL = {torch.bfloat16: (1.6e-2, 8e-3), torch.float32: (1e-4, 1e-5)}
 STATE_TOL = (1e-5, 1e-5)
+# The unrounded-cotangent guard: the fused B7's max |dV - plain| with an
+# f32 dO, as a share of what rounding that dO to bf16 moves the plain dV.
+# The split products keep ~16 bits of dO and p (a share near 2**-8); a
+# kernel that rounded dO to bf16 would show a share near 1.
+GUARD_SHARE = 0.25
 # (name, mesh axes, ring axis, local shape, dtype, split axis, concat
 # axis): B8 against its plain version and lax.all_to_all's definition,
 # bitwise, RING_RUNS calls each. "ulysses" is one exchange of the
@@ -919,9 +933,12 @@ def step_close(a, b, dtype, state=False):
 
 def step_cases(attn, sp, spmd, make_mesh, gen):
     """Phase 16, the step kernels: every ring step of each STEP_CASES
-    world, B6 from the state its previous step left, B7a and B7b from the
-    completed forward's lse and an f32 cotangent. Returns {case: (B6 acc
-    err, B7a err, B7b err)}."""
+    world, B6 from the state its previous step left; the fused B7a + B7b
+    from the completed forward's lse, fresh (flash_attention_bwd_step)
+    with an f32 cotangent, and accumulating (flash_attention_bwd_step_into,
+    the ring backward's entry) with the cotangent in q's dtype, as sp_step
+    hands it over, into one dQ buffer and one dK/dV carrier per kv block.
+    Returns {case: (B6 acc err, B7 dq err, B7 dk/dv err)}."""
     errs, failed = {}, []
     dev = torch.device("cuda")
     for name, ranks, b, h, h_kv, t, d, dtype, causal in STEP_CASES:
@@ -959,26 +976,96 @@ def step_cases(attn, sp, spmd, make_mesh, gen):
         for i, (ks, vs, k_off) in enumerate(steps):
             args = (qf, ks, vs, do, delta, lse, q_off, k_off, causal, group)
             got = attn.flash_attention_bwd_step(*args)
-            ref = (attn.flash_attention_bwd_dq_step_plain(*args),
-                   *attn.flash_attention_bwd_dkv_step_plain(*args))
+            ref = attn.flash_attention_bwd_step_plain(*args)
             torch.cuda.synchronize()
             for j, (a, r) in enumerate(zip(got, ref)):
                 err, ok = step_close(a, r, dtype)
                 worst[min(j, 1) + 1] = max(worst[min(j, 1) + 1], err)
                 if not ok:
                     bad.append(f"B7 step {i} {('dq', 'dk', 'dv')[j]}")
+        # The accumulating entry over the whole ring, as the ring backward
+        # runs it: the carrier of kv block src rides with the block.
+        do_in = do.to(dtype)
+        delta = (do_in.float() * out).sum(-1, keepdim=True)
+        cot = attn.prepare_bwd_step(qf, do_in, delta, lse)
+        width = attn.kernel_head_dim(d)
+        kv_rows = steps[0][0].shape[0] // ranks
+        bufs = [torch.zeros((bh, t, width), device=dev),
+                torch.zeros((2, ranks, kv_rows, t, width), device=dev)]
+        plain = [x.clone() for x in bufs]
+        my = torch.tensor(mesh.ring_index("seq"), device=dev)
+        for i, (ks, vs, k_off) in enumerate(steps):
+            src = (my - i) % ranks
+            for (dq, car), into in (
+                    (bufs, attn.flash_attention_bwd_step_into),
+                    (plain, None)):
+                kv = car[:, src].reshape(2, -1, t, width)
+                if into is None:
+                    attn.flash_attention_bwd_step_into_plain(
+                        qf, ks, vs, do_in, delta, lse, q_off, k_off, dq,
+                        kv[0], kv[1], causal, group)
+                else:
+                    into(qf, ks, vs, cot, q_off, k_off, dq, kv[0], kv[1],
+                         causal, group)
+                car[:, src] = kv.view(2, ranks, kv_rows, t, width)
+        torch.cuda.synchronize()
+        for label, a, r in (("dq", bufs[0], plain[0]),
+                            ("dk", bufs[1][0], plain[1][0]),
+                            ("dv", bufs[1][1], plain[1][1])):
+            err, ok = step_close(a, r, dtype)
+            worst[1 + (label != "dq")] = max(worst[1 + (label != "dq")], err)
+            if not ok:
+                bad.append(f"B7 into {label}")
         print(f"step kernels {name}: {ranks} ranks x (b {b}, h {h}, h_kv "
               f"{h_kv}, t {t}, d {d}) {str(dtype)[6:]} "
               f"{'causal' if causal else 'full'}, {len(steps)} ring steps: "
-              f"max |kernel - plain| B6 acc {worst[0]:.3e}, B7a dq "
-              f"{worst[1]:.3e}, B7b dk/dv {worst[2]:.3e} (rtol, atol "
-              f"{STEP_TOL[dtype]} x |plain| max; m, l {STATE_TOL})"
+              f"max |kernel - plain| B6 acc {worst[0]:.3e}, B7 dq "
+              f"{worst[1]:.3e}, B7 dk/dv {worst[2]:.3e} (fresh with an f32 "
+              f"cotangent, accumulating over the ring with one in "
+              f"{str(dtype)[6:]}; rtol, atol {STEP_TOL[dtype]} x |plain| "
+              f"max; m, l {STATE_TOL})"
               f"{'; FAILED: ' + ', '.join(bad) if bad else ''}")
         failed += [f"{name}: {x}" for x in bad]
         errs[name] = tuple(worst)
     if failed:
         raise AssertionError(f"the step kernels disagree: {failed}")
     return errs
+
+
+def unrounded_guard(attn, sp, spmd, make_mesh, gen):
+    """Phase 16: that the fused B7 keeps the f32 cotangent's bits. At
+    pathS's first ring step with an f32 torch.randn dO, the kernel's max
+    |dV - plain| must be at most GUARD_SHARE of what the plain version
+    itself moves when it is fed dO rounded to bf16."""
+    name, ranks, b, h, h_kv, t, d, dtype, causal = STEP_CASES[0]
+    dev = torch.device("cuda")
+    mesh = make_mesh({"seq": ranks}, devices=[dev] * ranks)
+    q = torch.randn((ranks, b, h, t, d), generator=gen, device=dev)
+    k, v = (torch.randn((ranks, b, h_kv, t, d), generator=gen,
+                        device=dev) for _ in range(2))
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    with torch.no_grad():
+        out, lse = sp._ring_flash_forward(q, k, v, "seq", causal, mesh)
+    qf, steps, q_off, group = ring_steps(sp, spmd, q, k, v, "seq", mesh,
+                                         causal)
+    ks, vs, k_off = steps[0]
+    do = torch.randn(qf.shape, generator=gen, device=dev)
+    delta = (do * out.float().reshape(qf.shape)).sum(-1, keepdim=True)
+    args = (qf, ks, vs, do, delta, lse, q_off, k_off, causal, group)
+    dv = attn.flash_attention_bwd_step(*args)[2]
+    dv_plain = attn.flash_attention_bwd_dkv_step_plain(*args)[1]
+    rounded = attn.flash_attention_bwd_dkv_step_plain(
+        qf, ks, vs, do.bfloat16().float(), *args[4:])[1]
+    torch.cuda.synchronize()
+    err = float((dv - dv_plain).abs().max())
+    moved = float((rounded - dv_plain).abs().max())
+    print(f"unrounded-dO guard at {name} ring step 0 (f32 randn dO): "
+          f"kernel max |dV - plain| {err:.3e}; plain fed dO rounded to "
+          f"bf16 moves dV by {moved:.3e}; ratio {err / moved:.4f} (limit "
+          f"{GUARD_SHARE})")
+    if not err <= GUARD_SHARE * moved:
+        raise AssertionError("the fused B7 rounds the f32 cotangent away")
+    return err, moved
 
 
 def alltoall_cases(ring, make_mesh, gen):
@@ -1029,9 +1116,10 @@ def sp_path(attn, ring, sp_entry):
     flash_attention over the whole sequence. Returns (launches per path,
     the entry's paths)."""
     paths = sp_entry()
-    counters = (attn.flash_attention_step, attn.flash_attention_bwd_dq_step,
-                attn.flash_attention_bwd_dkv_step, ring.alltoall,
-                attn.flash_attention_fwd, attn.flash_attention_bwd)
+    counters = (attn.flash_attention_step, attn.flash_attention_bwd_step,
+                attn.prepare_bwd_step, attn.flash_bwd_step_finish,
+                ring.alltoall, attn.flash_attention_fwd,
+                attn.flash_attention_bwd)
     results, launches = {}, {}
     for name in ("ring_flash", "ulysses", "ring_attention"):
         fn, args = paths[name]
@@ -1054,15 +1142,17 @@ def sp_path(attn, ring, sp_entry):
     rels["ring_attention"] = [rel_norm(world_to_global(
         results["ring_attention"]), ref)]
     print(f"long-context path: {tuple(q.shape)} world q/k/v (global seq "
-          f"{q.shape[0] * q.shape[3]}), bf16, causal; launches (B6, B7a, "
-          f"B7b, B8, B1, B2): ring_flash {launches['ring_flash']}, ulysses "
+          f"{q.shape[0] * q.shape[3]}), bf16, causal; launches (B6, B7, "
+          f"B7's prep, B7's dQ finish, B8, B1, B2): ring_flash "
+          f"{launches['ring_flash']}, ulysses "
           f"{launches['ulysses']}, ring_attention "
           f"{launches['ring_attention']}; against flash_attention over the "
           f"whole sequence |a - b| / |b| (out, dq, dk, dv): "
           + "; ".join(f"{n} {', '.join(f'{x:.3e}' for x in r)}"
                       for n, r in rels.items()) + f" (tol {SP_TOL})")
-    want = {"ring_flash": (4, 4, 4, 0, 0, 0), "ulysses": (0, 0, 0, 8, 1, 1),
-            "ring_attention": (0, 0, 0, 0, 0, 0)}
+    want = {"ring_flash": (4, 4, 1, 1, 0, 0, 0),
+            "ulysses": (0, 0, 0, 0, 8, 1, 1),
+            "ring_attention": (0, 0, 0, 0, 0, 0, 0)}
     if launches != want:
         raise AssertionError(f"the long-context path launched {launches}, "
                              f"expected {want}")
@@ -1136,11 +1226,134 @@ def path_time(label, fn, items=8):
     return ms, dev
 
 
+def b7_bound(qf, steps, q_off, pairs, cot_bytes, passes):
+    """The fused B7's least time per launch over the ring steps: the bytes
+    of the rows whose block some query sees (q, the cotangent, the lse and
+    delta rows, k and v once; dQ, dK and dV read and written as f32
+    carriers: the accumulating form), against `passes` bf16 wgmma passes
+    of 2 d operations per visible (q, k) pair at 989 TFLOP/s (an f32 x f32
+    product counts as its three passes). (ms, bound by, bytes), per
+    launch."""
+    bh, t, d = qf.shape
+    group = bh // steps[0][0].shape[0]
+    n_q = -(-t // 64)
+    nbytes = 0
+    for _, _, k_off in steps:
+        seen = int(((q_off.long() + t - 1) >= k_off.long()).sum())
+        nbytes += seen * (t * d * (2 + cot_bytes + 8) + n_q * 512)
+        nbytes += seen // group * t * d * (2 * 2 + 4 * 4)
+    bound, bound_by = _bound(nbytes, 2 * d * pairs * passes, torch.bfloat16)
+    return bound / len(steps), bound_by, nbytes // len(steps)
+
+
+def b7_library(qf, steps, q_off, out, lse, g, rows_per_rank):
+    """B7's library yardstick: per ring step one call of
+    aten._scaled_dot_product_flash_attention_backward on the global out and
+    lse and the bf16 cotangent g (step 0 causal over every row, step i > 0
+    full over the contiguous rows of the ranks whose block is visible; the
+    other rows' blocks are hidden), its philox seed and offset from one
+    _scaled_dot_product_flash_attention forward on the same shapes.
+    Returns (fn over the n steps, [(rows, dq, dk, dv) of each step])."""
+    bh, t, d = qf.shape
+    calls = []
+    for i, (ks, vs, _) in enumerate(steps):
+        r0 = i * rows_per_rank
+        q4, k4, v4, o4, g4 = (x.reshape(1, bh, t, d)[:, r0:] for x in
+                              (qf, ks, vs, out, g))
+        l4 = lse.reshape(1, bh, t)[:, r0:].contiguous()
+        fwd = torch.ops.aten._scaled_dot_product_flash_attention(
+            q4, k4, v4, 0.0, i == 0)
+        calls.append((r0, (g4, q4, k4, v4, o4, l4, fwd[2], fwd[3], t, t,
+                           0.0, i == 0, fwd[6], fwd[7])))
+
+    def run():
+        return [torch.ops.aten._scaled_dot_product_flash_attention_backward(
+            *args) for _, args in calls]
+
+    return run, [(r0, *grads) for (r0, _), grads in zip(calls, run())]
+
+
+def b7_times(attn, qf, steps, q_off, out, lse, pairs, n):
+    """Phase 19's B7: the fused launch over the path's ring steps as the
+    ring backward makes it (prepare_bwd_step once, then
+    flash_attention_bwd_step_into into f32 carriers), with the path's own
+    cotangent (cos(out) in bf16, as sp_step's loss hands it over) and with
+    an f32 torch.randn one; the plain version; the library yardstick,
+    checked against the fresh step of the plain version. Returns the
+    kernels line's (ms, plain ms, library ms, bound, bound by) of the
+    path's cotangent."""
+    bh, t, d = qf.shape
+    kv_rows = steps[0][0].shape[0]
+    outf = out.reshape(qf.shape)
+    cotangents = {"bf16 (the path's)": torch.cos(outf),
+                  "f32": torch.randn(qf.shape, device=qf.device)}
+    results = {}
+    for label, g in cotangents.items():
+        delta = (g.float() * outf.float()).sum(-1, keepdim=True)
+        cot = attn.prepare_bwd_step(qf, g, delta, lse)
+        bufs = [torch.zeros((bh, t, d), device=qf.device)] + [
+            torch.zeros((kv_rows, t, d), device=qf.device)
+            for _ in range(2)]
+
+        def fused(cot=cot, bufs=bufs):
+            for ks, vs, k_off in steps:
+                attn.flash_attention_bwd_step_into(qf, ks, vs, cot, q_off,
+                                                   k_off, *bufs)
+
+        def plain(g=g, delta=delta, bufs=bufs):
+            for ks, vs, k_off in steps:
+                attn.flash_attention_bwd_step_into_plain(
+                    qf, ks, vs, g, delta, lse, q_off, k_off, *bufs)
+
+        with torch.no_grad():
+            ms = timed_kernel(f"flash_bwd_step kernel, {label} cotangent",
+                              fused, "bwd_step_wgmma_kernel")
+            whole = timed(f"flash_bwd_step {n} whole calls, {label} "
+                          f"cotangent", fused)
+            plain_ms = timed(f"flash_bwd_step plain, {n} steps, {label} "
+                             f"cotangent", plain, iters=3)
+        plain_ms = None if plain_ms is None else plain_ms / n
+        passes = 6 if g.dtype == torch.bfloat16 else 8
+        bound, bound_by, nbytes = b7_bound(qf, steps, q_off, pairs,
+                                           g.element_size(), passes)
+        print(f"  flash_bwd_step ({label} cotangent): {ms} ms per launch "
+              f"(whole calls {whole} ms per {n}), plain {plain_ms} ms per "
+              f"step; bound {bound:.6f} ms per launch ({bound_by}: "
+              f"{nbytes} bytes and {2 * d * pairs * passes // n} operations, "
+              f"{passes} bf16 passes per pair, per launch on average)")
+        results[label] = (ms, plain_ms, bound, bound_by, g, delta)
+    ms, plain_ms, bound, bound_by, g, delta = results["bf16 (the path's)"]
+    rows_per_rank = bh // len(steps)
+    lib_fn, lib_out = b7_library(qf, steps, q_off, out, lse, g,
+                                 rows_per_rank)
+    worst, ok = 0.0, True
+    for (r0, *grads), (ks, vs, k_off) in zip(lib_out, steps):
+        ref = attn.flash_attention_bwd_step_plain(qf, ks, vs, g, delta, lse,
+                                                  q_off, k_off)
+        for a, r in zip(grads, ref):
+            err, close = step_close(a[0].float(), r[r0:], torch.bfloat16)
+            worst, ok = max(worst, err), ok and close
+    with torch.no_grad():
+        lib = timed(f"flash_bwd_step yardstick: {n} calls of "
+                    f"aten._scaled_dot_product_flash_attention_backward",
+                    lib_fn)
+    lib = None if lib is None else lib / n
+    print(f"  flash_bwd_step library: {lib} ms per step; its (dq, dk, dv) "
+          f"against the plain step's on the visible rows: max err "
+          f"{worst:.3e}, within STEP_TOL {ok}")
+    if not ok:
+        raise AssertionError("the library yardstick does not reproduce the "
+                             "ring step's gradients")
+    return ms, plain_ms, lib, bound, bound_by
+
+
 def slice5_times(attn, sp, spmd, ring, paths, ep, card):
-    """Phase 19: B6, B7a and B7b over the long-context path's four ring
-    steps (ms per launch, averaged), B8 at its Ulysses exchange, against
-    their bounds, plain versions and yardsticks; the three paths. Returns
-    {kernel: (ms, plain ms, library ms or None, bound ms, bound by)}."""
+    """Phase 19: B6 and the fused B7 over the long-context path's four
+    ring steps (ms per launch, averaged; B7 as the ring backward launches
+    it, with the path's bf16 cotangent and with an f32 one), B8 at its
+    Ulysses exchange, against their bounds, plain versions and
+    yardsticks; the three paths. Returns {kernel: (ms, plain ms, library
+    ms or None, bound ms, bound by)}."""
     _, q, k, v, mesh = paths["ring_flash"][1]
     qf, steps, q_off, group = ring_steps(sp, spmd, q, k, v, "seq", mesh,
                                          True)
@@ -1148,8 +1361,6 @@ def slice5_times(attn, sp, spmd, ring, paths, ep, card):
     n = len(steps)
     with torch.no_grad():
         out, lse = sp._ring_flash_forward(q, k, v, "seq", True, mesh)
-    g = torch.randn(qf.shape, device=qf.device)
-    delta = (g * out.float().reshape(qf.shape)).sum(-1, keepdim=True)
     states, state = [], (torch.zeros((bh, t, d), device=qf.device),
                          torch.full((bh, t, 1), -math.inf, device=qf.device),
                          torch.zeros((bh, t, 1), device=qf.device))
@@ -1166,41 +1377,27 @@ def slice5_times(attn, sp, spmd, ring, paths, ep, card):
         return lambda: [fn(qf, ks, vs, *st, q_off, k_off)
                         for (ks, vs, k_off), st in zip(steps, states)]
 
-    def b7(fn):
-        return lambda: [fn(qf, ks, vs, g, delta, lse, q_off, k_off)
-                        for ks, vs, k_off in steps]
-
     state_bytes = 4 * bh * t * (d + 2)
     rows = {}
-    for kname, label, fn, plain, nbytes, bf16_ops, f32_ops in (
-            ("flash_step", "flash_step_kernel", b6(attn.flash_attention_step),
-             b6(attn.flash_attention_step_plain),
-             elt * d * t * (bh + 2 * kv_rows) + 2 * state_bytes,
-             4 * d * pairs, 0),
-            ("flash_bwd_dq_step", "dq_step_kernel",
-             b7(attn.flash_attention_bwd_dq_step),
-             b7(attn.flash_attention_bwd_dq_step_plain),
-             elt * d * t * (bh + 2 * kv_rows) + 4 * bh * t * (2 * d + 2),
-             4 * d * pairs, 2 * d * pairs),
-            ("flash_bwd_dkv_step", "dkv_step_kernel",
-             b7(attn.flash_attention_bwd_dkv_step),
-             b7(attn.flash_attention_bwd_dkv_step_plain),
-             elt * d * t * (bh + 2 * kv_rows) + 4 * bh * t * (3 * d + 2),
-             4 * d * pairs, 4 * d * pairs)):
-        with torch.no_grad():
-            ms = timed_kernel(f"{kname} kernel", fn, label)
-            whole = timed(f"{kname} {n} whole calls (wrapper, kernel)", fn)
-            plain_ms = timed(f"{kname} plain, {n} steps", plain, iters=3)
-        bound, bound_by = _bound_mixed(n * nbytes, bf16_ops, f32_ops)
-        bound /= n
-        plain_ms = None if plain_ms is None else plain_ms / n
-        print(f"  {kname}: {ms} ms per launch (whole calls {whole} ms per "
-              f"{n}), plain {plain_ms} ms per step; bound {bound:.6f} ms per "
-              f"launch ({bound_by}: {nbytes} bytes, {bf16_ops // n} bf16 and "
-              f"{f32_ops // n} f32 operations per launch on average); "
-              f"library: none (no PyTorch call folds one block into carried "
-              f"state)")
-        rows[kname] = (ms, plain_ms, None, bound, bound_by)
+    with torch.no_grad():
+        ms = timed_kernel("flash_step kernel",
+                          b6(attn.flash_attention_step), "flash_step_kernel")
+        whole = timed(f"flash_step {n} whole calls (wrapper, kernel)",
+                      b6(attn.flash_attention_step))
+        plain_ms = timed(f"flash_step plain, {n} steps",
+                         b6(attn.flash_attention_step_plain), iters=3)
+    nbytes = elt * d * t * (bh + 2 * kv_rows) + 2 * state_bytes
+    bound, bound_by = _bound(n * nbytes, 4 * d * pairs, torch.bfloat16)
+    bound /= n
+    plain_ms = None if plain_ms is None else plain_ms / n
+    print(f"  flash_step: {ms} ms per launch (whole calls {whole} ms per "
+          f"{n}), plain {plain_ms} ms per step; bound {bound:.6f} ms per "
+          f"launch ({bound_by}: {nbytes} bytes, {4 * d * pairs // n} bf16 "
+          f"operations per launch on average); library: none (no PyTorch "
+          f"call folds one block into carried state)")
+    rows["flash_step"] = (ms, plain_ms, None, bound, bound_by)
+    rows["flash_bwd_step"] = b7_times(attn, qf, steps, q_off, out, lse,
+                                      pairs, n)
 
     # Path-level yardsticks over the whole sequence: SDPA and B1 + B2, each
     # forward and backward of sum(sin(out)).
@@ -1321,12 +1518,14 @@ def variant_cases(ring, make_mesh, gen):
 
 def sum_dtype_cases(ring, spmd, make_mesh, gen):
     """Phase 20: the sum collectives at int32, f16, f64, int64, int8,
-    uint8, int16 and bool on the card (allreduce and reduce_scatter on B3
-    and B4a, allgather and the product allreduce on B4b; bool: the
-    allreduce as int32 counts and the allgather, its reduce-scatter
+    uint8, int16, uint16, uint32 and bool on the card (allreduce and
+    reduce_scatter on B3 and B4a, allgather and the product allreduce on
+    B4b, uint16 and uint32 the max allreduce in the product's place; bool:
+    the allreduce as int32 counts and the allgather, its reduce-scatter
     refused) against the same calls on the CPU's twins, bitwise. f16 and
     f64 take values in [-4, 4], so every sum and product is exact; the
-    integers take values over 16 bits, so their sums wrap in the type.
+    integers take values over 16 bits (uint32 32), so their sums wrap in
+    the type.
     Then every sum collective over the tuple axis ("x", "y") of a 2 x 2
     mesh, against the CPU."""
     dev = torch.device("cuda")
@@ -1336,13 +1535,15 @@ def sum_dtype_cases(ring, spmd, make_mesh, gen):
                 ring.ring_allgather)
     failed = []
     for dtype in (torch.int32, torch.float16, torch.float64, torch.int64,
-                  torch.int8, torch.uint8, torch.int16, torch.bool):
+                  torch.int8, torch.uint8, torch.int16, torch.uint16,
+                  torch.uint32, torch.bool):
         if dtype.is_floating_point:
             x = torch.randint(-4, 5, (4, 16, 24), generator=gen,
                               device=dev).to(dtype)
         else:
-            x = torch.randint(-2 ** 15, 2 ** 15, (4, 16, 24), generator=gen,
-                              device=dev)
+            bits = 31 if dtype == torch.uint32 else 15
+            x = torch.randint(-2 ** bits, 2 ** bits, (4, 16, 24),
+                              generator=gen, device=dev)
             x = x % 3 == 0 if dtype == torch.bool else x.to(dtype)
         calls = {
             "allreduce": lambda t, m: spmd.allreduce(t, "data", mesh=m),
@@ -1352,6 +1553,12 @@ def sum_dtype_cases(ring, spmd, make_mesh, gen):
             "product": lambda t, m: spmd.allreduce(t, "data", "product",
                                                    mesh=m)}
         want_launches = (1, 1, 2)
+        if dtype in ring.WIDENED:
+            # The reference's group takes max for them, not the product.
+            del calls["product"]
+            calls["max"] = lambda t, m: spmd.allreduce(t, "data", "max",
+                                                       mesh=m)
+            want_launches = (1, 1, 1)
         if dtype == torch.bool:
             try:
                 spmd.reduce_scatter(x, "data", mesh=mesh)
@@ -2254,6 +2461,7 @@ def main():
     # Phase 16: the ring-attention step kernels and the all-to-all against
     # their plain versions.
     step_errs = step_cases(attn, sp, spmd, make_mesh, gen)
+    unrounded_guard(attn, sp, spmd, make_mesh, gen)
     a2a_err = alltoall_cases(ring, make_mesh, gen)
 
     # Phase 17: the long-context path (path S).
@@ -2265,7 +2473,7 @@ def main():
     # Phase 19: times of B6, B7a, B7b and B8 at the paths' shapes, and of
     # the three paths.
     slice5_rows = slice5_times(attn, sp, spmd, ring, sp_paths, ep, card)
-    print(f"B8 launches: {sp_launches['ulysses'][3]} on the Ulysses path "
+    print(f"B8 launches: {sp_launches['ulysses'][4]} on the Ulysses path "
           f"(the kernels line), {ep_launches} on the MoE path")
 
     # Phase 20: the ring variants against their plain versions, and the
@@ -2284,9 +2492,10 @@ def main():
 
     # Launches on the main paths: B1 on the serving path, B2 on the
     # training path, B3 on the DDP path, B4a and B4b on the group path,
-    # B5a and B5b on the fused MLP path, B6, B7a and B7b on the ring-flash
-    # path, B8 on the Ulysses path, B9, B10 and B11 on the ring-variant
-    # path. B6, B7 and B10 have no library call.
+    # B5a and B5b on the fused MLP path, B6 and B7 on the ring-flash path
+    # (B7a and B7b are one fused launch: both rows carry its launches and
+    # time), B8 on the Ulysses path, B9, B10 and B11 on the ring-variant
+    # path. B6 and B10 have no library call.
     ring_flash = sp_launches["ring_flash"]
     kernels = []
     for kname, source, replaces, n, err, (ms, plain, lib, bound,
@@ -2314,12 +2523,12 @@ def main():
              step_errs["pathS"][0], slice5_rows["flash_step"]),
             ("flash_bwd_dq_step", "flash_bwd_step.cu", "attention.py:588",
              ring_flash[1], step_errs["pathS"][1],
-             slice5_rows["flash_bwd_dq_step"]),
+             slice5_rows["flash_bwd_step"]),
             ("flash_bwd_dkv_step", "flash_bwd_step.cu", "attention.py:635",
-             ring_flash[2], step_errs["pathS"][2],
-             slice5_rows["flash_bwd_dkv_step"]),
+             ring_flash[1], step_errs["pathS"][2],
+             slice5_rows["flash_bwd_step"]),
             ("alltoall", "alltoall.cu", "pallas_ring.py:1109",
-             sp_launches["ulysses"][3], a2a_err, slice5_rows["alltoall"]),
+             sp_launches["ulysses"][4], a2a_err, slice5_rows["alltoall"]),
             ("ring_allreduce_hbm", "ring_variants.cu", "pallas_ring.py:246",
              variant_launches["hbm"], variant_errs["hbm"],
              variant_rows["hbm"]),
@@ -2328,8 +2537,7 @@ def main():
             ("ring_allreduce_bidir", "ring_variants.cu",
              "pallas_ring.py:691", variant_launches["bidir"],
              variant_errs["bidir"], variant_rows["bidir"])):
-        no_library = (kname.startswith("flash_") and kname.endswith("_step")
-                      or kname == "ring_allreduce_q8")
+        no_library = kname in ("flash_step", "ring_allreduce_q8")
         if None in (ms, plain) or (lib is None and not no_library):
             raise AssertionError(
                 f"the profiler showed no device time for {kname}'s kernel, "

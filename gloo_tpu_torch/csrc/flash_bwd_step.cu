@@ -1,60 +1,106 @@
 // The backward of one ring-attention step for Hopper (sm_90a), with a plain
-// C interface: two kernels, two entry points.
+// C interface: one fused launch per ring step.
 //
 // Replaces two Pallas TPU kernels of gloo_tpu/ops/attention.py behind
 // flash_attention_bwd_step:
-//   B7a _flash_bwd_dq_step_kernel   gtt_flash_bwd_dq_step
-//       the dQ piece of one key/value block at a global position;
-//   B7b _flash_bwd_dkv_step_kernel  gtt_flash_bwd_dkv_step
-//       dK and dV of that block against the local queries, per query head.
+//   B7a _flash_bwd_dq_step_kernel   the dQ piece of one key/value block at a
+//       global position;
+//   B7b _flash_bwd_dkv_step_kernel  dK and dV of that block against the
+//       local queries, per query head.
 // Both recompute every softmax tile from the completed forward's
 // logsumexp rows (lse) and delta = rowsum(dO * O), so each block's pieces
 // are correct on their own and the ring backward
-// (gloo_tpu_torch/parallel/sp.py) only sums them.
+// (gloo_tpu_torch/parallel/sp.py) only sums them. The TPU runs them as two
+// kernels that each read q, k, v, dO, lse and delta and recompute s and dp;
+// here one block computes every product of a (key tile, query tile) pair
+// once and feeds all three gradients from it.
 //
-// The cotangent dO is f32 (the ring backward's g.astype(f32)). As in the
-// TPU kernels, dp = dO V^T and dV += p^T dO are then f32 products and p is
-// never rounded; only ds is rounded to the input type, for dQ += ds K and
-// dK += ds^T (q * scale). This version runs the two f32 products on the FMA
-// units (not TF32, not bf16) and the two input-type products on mma.sync
-// (bf16) or the FMA units (f32).
+// What bounds it on an H100: at the long-context path's shape (32 rows,
+// t_q = t_kv = 1024, d = 64, bf16, causal; 16.8 M visible (q, k) pairs per
+// step on average) the fused work is S, dP, dV, dK and dQ: six bf16
+// wgmma passes per pair with the path's bf16-valued cotangent (dV takes
+// two: p unrounded, below), eight with an f32 one (13 and 17 us at 989
+// TFLOP/s), against ~64 MiB of bytes in the accumulating form (q, k, v,
+// dO, the lse/delta rows, and dQ, dK, dV read and written as f32 carriers;
+// ~20 us at 3.35 TB/s). Bytes bound it there; in the fresh form (no
+// carriers read) the tensor cores do.
 //
-// What bounds them on an H100: operations. At the long-context path's
-// shape (32 query-head rows, t_q = t_kv = 1024, d = 64, bf16 q/k/v) a step
-// whose block is wholly visible to 3 of 4 ranks has 25.2 M (q, k) pairs;
-// the f32 products alone are 128 flop per pair each (3.2 GFLOP per
-// kernel, ~48 us at 67 TFLOP/s without the tensor cores), far above the
-// ~28 MiB of bytes (~9 us). The design keeps every accumulator (dQ in B7a,
-// dK and dV in B7b) in registers for the whole block, reads each operand
-// tile once per block from device memory (16-byte loads into shared
-// memory), never writes s, p, dp or ds to device memory, and skips the
-// tiles that the TPU kernels' `active` tests skip (wholly above the global
-// diagonal: their p is 0). wgmma, TMA, TF32 and one fused launch over
-// shared tiles are left for a later version.
+// Launches (all in this file):
+//   1. bwd_step_prep_kernel, once per backward (the lse, delta and dO of a
+//      ring backward are the same at every step): lse and delta side by
+//      side per 64-row query tile (rows past t_q get lse = +inf, so their
+//      p = exp(-inf) = 0 with no mask), and an f32 dO split into
+//      dO_hi = bf16(dO) and dO_lo = bf16(dO - dO_hi);
+//   2. bwd_step_wgmma_kernel<D, kLo>, once per ring step (below);
+//   3. bwd_step_dq_kernel, once per backward in the accumulating form:
+//      dq = dq_acc * (1 / sqrt(d)) in the input type.
 //
-// Work division, 4 warps per block:
-//   B7a: one block per (query-head row, 64-row query tile); warp w owns
-//     query rows 16w .. 16w + 15 and walks the 64-key tiles, so dQ needs no
-//     atomics. It writes dQ once, as acc * dq_scale in f32 (the TPU
-//     kernel's last grid step: the unrounded f32 1/sqrt(d)).
-//   B7b: one block per (query-head row, 64-key tile); warp w owns keys
-//     16w .. 16w + 15 and walks the 64-row query tiles, 32 queries of s^T
-//     and dp^T at a time; p^T (f32) and ds^T (input type) go through the
-//     warp's rows of shared memory into dV and dK. It writes dK and dV in
-//     f32 per query head (the caller folds GQA groups).
-// Row i reads kv row i / group. Each row carries its own q_offset and
-// k_offset, so one launch serves every rank of a world.
+// bwd_step_wgmma_kernel (bf16 q, k, v): B2's design (flash_bwd.cu) at
+// global offsets. One block per (output row, 64-key tile), longest blocks
+// first under the causal mask (grid x runs over rows, y over key tiles),
+// of one consumer warpgroup (128 threads) and one producer warp. The
+// producer's lane 0 loads k and v once by TMA, where they stay, then
+// streams the q and dO tiles of every query tile that sees this key tile,
+// with their lse and delta rows, through kStages stages on full/empty
+// mbarriers. Query tiles wholly above the global diagonal are never
+// loaded: the TPU kernels' `active` test, from each row's own q_off and
+// k_off, so one launch serves every rank of a world. A block walks `hpb`
+// query heads: the kv_group heads of its kv head in the accumulating form
+// (dK and dV accumulate over the group in f32 registers: no separate
+// group-sum pass), one query head in the fresh form (per-query-head dK and
+// dV, row i reading kv row i / kv_group, as the JAX kernels write them).
+// Per tile the consumers
+//   - scale q in shared memory (q * scale rounded to bf16, then
+//     fence.proxy.async so that wgmma reads the scaled values);
+//   - S^T = k (q * scale)^T and dP^T = v dO^T on SS wgmma, once each;
+//   - p^T = exp(s^T - lse) (fast_exp), masked only on tiles that cross the
+//     global diagonal or the ragged end of the keys, ds^T = p^T (dp^T -
+//     delta), packed as RS A fragments (B1's PV trick);
+//   - dV += p^T dO and dK += ds^T (q * scale) on RS wgmma;
+//   - ds^T (bf16) to shared memory, and dQ = ds k on SS wgmma per 64-column
+//     half of d, staged in f32 and added into the f32 dQ buffer by TMA
+//     reduce-adds (cp.reduce.async.bulk.tensor), as B2 does.
+//
+// The f32 products without rounding them away. The ring backward's
+// cotangent is f32 in the TPU kernels, so dP = dO V^T and dV += p^T dO are
+// f32 products and p is never rounded. Each f32 operand x runs as
+// x_hi = bf16(x) and x_lo = bf16(x - x_hi), and each f32 product as the
+// bf16 passes hi*hi + hi*lo + lo*hi into one f32 accumulator: ~16 bits of
+// each operand kept, far closer to f32 than TF32's 10. dP^T = v dO^T is
+// v dO_hi + v dO_lo (v is bf16); dV += p^T dO is p_hi dO_hi + p_lo dO_hi
+// + p_hi dO_lo, p_hi and p_lo from registers. The model's cotangent is
+// bf16-valued (sp_step's loss is sum(sin(out)), whose cotangent reaches
+// the ring backward as cos(out) in bf16): the caller passes it as bf16,
+// kLo is false and the dO_lo passes drop out at compile time. The products
+// are then exact (a bf16 x bf16 product fits in f32), and equal the JAX
+// kernels' f32 products of the same values up to summation order.
+//
+// Outputs. The fresh form writes dK and dV (f32) and adds dQ * dq_scale
+// into a zeroed f32 buffer. The accumulating form adds unscaled dQ into
+// the caller's f32 buffer (launch 3 scales it once at the end) and adds dK
+// and dV into the caller's f32 carriers: each block owns its tile, so it
+// reads, adds and stores with no atomics, deterministically. Reduce-adds
+// from the blocks of one query row land in no fixed order, so dQ agrees
+// with the plain version within a tolerance and not bit for bit.
+//
+// f32 q, k, v (off the model's path) keep the FMA design: dq_step_kernel,
+// one block per (query row, 64-row query tile) walking the key tiles, and
+// dkv_step_kernel, one block per (output row, 64-key tile) walking the
+// query tiles of its hpb heads; two launches per step.
 //
 // Numerics follow the TPU kernels: q * scale rounded to the input type
 // (the wrapper passes scale already rounded), s and dp in f32,
 // p = exp(s - lse) with no guard (lse is finite for every row), masked
-// entries and rows or keys past the ragged ends forced to p = 0.
+// entries and rows or keys past the ragged ends forced to p = 0, ds
+// rounded to the input type for dQ += ds K and dK += ds^T (q * scale), dQ
+// times the unrounded f32 1/sqrt(d).
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 #include <atomic>
 #include <cmath>
-#include <type_traits>
+#include <cstring>
 
 namespace {
 
@@ -62,25 +108,481 @@ using namespace gtt;
 
 constexpr int kBlockQ = 64;  // query rows per tile
 constexpr int kBlockK = 64;  // keys per tile
-constexpr int kThreads = 128;
-// Query columns of s^T and dp^T a B7b warp holds in registers at once.
+constexpr int kThreads = 128;  // f32: 4 warps; bf16: the consumer warpgroup
+constexpr int kTmaThreads = kThreads + 32;  // bf16: + the producer warp
+constexpr int kSlab = 64 * 128;  // one swizzled slab: 64 lines x 128 bytes
+// Per 64-row query tile: its lse rows, then its delta rows (f32).
+constexpr int kRowsPerTile = 2 * kBlockQ;
+constexpr int kPrepThreads = 256;
+// f32: query columns of s^T and dp^T a dkv warp holds in registers at once.
 constexpr int kChunk = 32;
 
+// Whether row `row`'s query tile qi sees key tile k0 under the causal mask
+// at the row's global offsets: the TPU kernels' `active` test. The first
+// query tile that does, for the block's key tile (later ones all do).
+__device__ __forceinline__ int first_tile(const int* q_off, const int* k_off,
+                                          int row, int k0, int n_q,
+                                          int causal) {
+  if (!causal) return 0;
+  const int gap = k_off[row] + k0 - q_off[row] - (kBlockQ - 1);
+  return gap <= 0 ? 0 : min(n_q, (gap + kBlockQ - 1) / kBlockQ);
+}
+
+// ---- launch 1: the lse and delta rows, dO split ----
+
+struct PrepParams {
+  const float* lse;    // (bh, t_q) contiguous
+  const float* delta;  // (bh, t_q) contiguous
+  float* rows;         // (bh, n_q, kRowsPerTile)
+  const float* dout;   // (bh, t_q, d) f32 with d contiguous, or null
+  __nv_bfloat16* hi;   // (bh, t_q, d) contiguous, when dout is given
+  __nv_bfloat16* lo;
+  long long o_sr, o_st;
+  int tq, d, n_q;
+};
+
+// Block (query tile, row).
+__global__ void __launch_bounds__(kPrepThreads)
+    bwd_step_prep_kernel(const PrepParams p) {
+  const int qi = blockIdx.x;
+  const long long row = blockIdx.y;
+  const int q0 = qi * kBlockQ;
+  if (threadIdx.x < kBlockQ) {
+    const int r = q0 + threadIdx.x;
+    float* const tile = p.rows + (row * p.n_q + qi) * kRowsPerTile;
+    tile[threadIdx.x] = r < p.tq ? p.lse[row * p.tq + r] : INFINITY;
+    tile[kBlockQ + threadIdx.x] = r < p.tq ? p.delta[row * p.tq + r] : 0.f;
+  }
+  if (p.dout == nullptr) return;
+  const int rows = min(kBlockQ, p.tq - q0);
+  const float* const src = p.dout + row * p.o_sr + q0 * p.o_st;
+  const long long dst = (row * p.tq + q0) * p.d;
+  for (int i = threadIdx.x; i < rows * p.d / 2; i += kPrepThreads) {
+    const int r = 2 * i / p.d;
+    const int c = 2 * i % p.d;
+    const float2 x = *reinterpret_cast<const float2*>(src + r * p.o_st + c);
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x.x, x.y);
+    const float2 hf = __bfloat1622float2(h);
+    *reinterpret_cast<__nv_bfloat162*>(p.hi + dst + 2 * i) = h;
+    *reinterpret_cast<__nv_bfloat162*>(p.lo + dst + 2 * i) =
+        __floats2bfloat162_rn(x.x - hf.x, x.y - hf.y);
+  }
+}
+
+// ---- launch 2, bf16: wgmma on TMA-staged tiles ----
+
+// Stages of the q/dO ring: two query tiles in flight.
+constexpr int kStages = 2;
+// Blocks per SM the registers are held to: two at d = 64, one at d = 128
+// (dK and dV alone take 128 registers there).
+template <int D>
+constexpr int kMinBlocks = D == 64 ? 2 : 1;
+template <int D>
+constexpr int kTile = D / 64 * kSlab;  // bytes of a 64-row bf16 tile
+// One stage: the q tile, the dO tile (and dO_lo's), and their lse and
+// delta rows (512 bytes, padded to keep the next tile 1024-byte aligned).
+template <int D, bool kLo>
+constexpr int kStageBytes = (kLo ? 3 : 2) * kTile<D> + 1024;
+// Shared memory of a launch: k, v, the stages, ds^T (64 x 64 bf16), the
+// dQ staging (64 x D f32 as D / 32 boxes of 32 columns), the mbarriers and
+// the swizzle's 1024-byte alignment.
+template <int D, bool kLo>
+constexpr int kSmem = 2 * kTile<D> + kStages * kStageBytes<D, kLo> + kSlab +
+                      D / 32 * kSlab + 8 * (1 + 2 * kStages) + 1024;
+
+struct TmaParams {
+  // q, dO_hi, dO_lo (bh, t_q, d) and k, v (bh / group, t_kv, d) as
+  // {d, t, rows} maps, box {64, 64, 1}; dq (bh, t_q, d) f32 as
+  // {d, t_q, bh}, box {32, 64, 1}; all 128-byte swizzled.
+  CUtensorMap q;
+  CUtensorMap k;
+  CUtensorMap v;
+  CUtensorMap dout;
+  CUtensorMap dout_lo;
+  CUtensorMap dq;
+  const float* rows;  // (bh, n_q, kRowsPerTile): lse, delta
+  const int* q_off;   // (bh,)
+  const int* k_off;
+  float* dk;  // (bh / hpb, t_kv, d) contiguous f32
+  float* dv;
+  int hpb, group, tq, tkv, n_q;
+  int causal, accumulate;
+  float scale;   // 1 / sqrt(d), rounded to bf16
+  float dq_mul;  // what dQ is multiplied by before it is added: 1 or dq_scale
+};
+
+__device__ __forceinline__ void consumers_sync() { named_sync<kThreads>(1); }
+
+// Byte offset of (row, 16-byte chunk) in a 128-byte-swizzled tile of
+// 128-byte rows.
+__device__ __forceinline__ int swizzled(int row, int chunk) {
+  return row * 128 + ((chunk ^ (row % 8)) << 4);
+}
+
+// The block's dK or dV tile (f32 accumulators) into its output rows:
+// stored, or added to what the carrier holds.
+template <int D>
+__device__ __forceinline__ void store_tile(float* out, const float (*acc)[32],
+                                           int k0, int tkv, bool add) {
+  const int c2 = 2 * (threadIdx.x % 4);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = k0 + acc_row(i);
+    if (key >= tkv) continue;
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float2* const at = reinterpret_cast<float2*>(
+            out + static_cast<long long>(key) * D + c * 64 + j * 8 + c2);
+        float2 x =
+            make_float2(acc[c][4 * j + 2 * i], acc[c][4 * j + 2 * i + 1]);
+        if (add) {
+          const float2 o = *at;
+          x = make_float2(o.x + x.x, o.y + x.y);
+        }
+        *at = x;
+      }
+    }
+  }
+}
+
+template <int D, bool kLo>
+__global__ void __launch_bounds__(kTmaThreads, kMinBlocks<D>)
+    bwd_step_wgmma_kernel(const __grid_constant__ TmaParams p) {
+  constexpr int kSlabs = D / 64;  // slabs per tile, dQ halves
+  constexpr int kT = kTile<D>;
+  constexpr int kOps = kLo ? 3 : 2;  // tiles per stage: q, dO (, dO_lo)
+  constexpr int kSB = kStageBytes<D, kLo>;
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const ks = aligned_smem(smem_raw);
+  uint8_t* const vs = ks + kT;
+  uint8_t* const stages = vs + kT;  // q, dO (, dO_lo), rows of stage s
+  uint8_t* const dst_s = stages + kStages * kSB;  // ds^T, bf16
+  uint8_t* const dq_s = dst_s + kSlab;            // dQ, f32
+  uint64_t* const kv_full = reinterpret_cast<uint64_t*>(dq_s + D / 32 * kSlab);
+  uint64_t* const full = kv_full + 1;
+  uint64_t* const empty = full + kStages;
+
+  const int r = blockIdx.x;  // output row: query heads r * hpb + j
+  const int kb = blockIdx.y;
+  const int k0 = kb * kBlockK;
+  const int kv_row = r * p.hpb / p.group;
+  int tiles = 0;
+  for (int j = 0; j < p.hpb; ++j) {
+    tiles += p.n_q - first_tile(p.q_off, p.k_off, r * p.hpb + j, k0, p.n_q,
+                                p.causal);
+  }
+  float* const dkg = p.dk + static_cast<long long>(r) * p.tkv * D;
+  float* const dvg = p.dv + static_cast<long long>(r) * p.tkv * D;
+
+  if (tiles == 0) {
+    // A key tile that no local query sees: nothing to add; the fresh form
+    // writes its zeros.
+    if (!p.accumulate && threadIdx.x < kThreads) {
+      float zero[kSlabs][32] = {};
+      store_tile<D>(dkg, zero, k0, p.tkv, false);
+      store_tile<D>(dvg, zero, k0, p.tkv, false);
+    }
+    return;
+  }
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, kThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kThreads) {
+    // The producer warp: its lane 0 issues every load.
+    if (threadIdx.x == kThreads) {
+      prefetch_map(&p.q);
+      prefetch_map(&p.k);
+      prefetch_map(&p.v);
+      prefetch_map(&p.dout);
+      if constexpr (kLo) prefetch_map(&p.dout_lo);
+      mbar_expect(kv_full, 2 * kT);
+#pragma unroll
+      for (int c = 0; c < kSlabs; ++c) {
+        tma_load_3d(ks + c * kSlab, &p.k, kv_full, c * 64, k0, kv_row);
+        tma_load_3d(vs + c * kSlab, &p.v, kv_full, c * 64, k0, kv_row);
+      }
+      int it = 0;
+      for (int j = 0; j < p.hpb; ++j) {
+        const int row = r * p.hpb + j;
+        for (int qi = first_tile(p.q_off, p.k_off, row, k0, p.n_q, p.causal);
+             qi < p.n_q; ++qi, ++it) {
+          const int s = it % kStages;
+          const int q0 = qi * kBlockQ;
+          uint8_t* const st = stages + s * kSB;
+          if (it >= kStages) mbar_wait(empty + s, (it / kStages - 1) & 1);
+          mbar_expect(full + s, kOps * kT + kRowsPerTile * 4);
+#pragma unroll
+          for (int c = 0; c < kSlabs; ++c) {
+            tma_load_3d(st + c * kSlab, &p.q, full + s, c * 64, q0, row);
+            tma_load_3d(st + kT + c * kSlab, &p.dout, full + s, c * 64, q0,
+                        row);
+            if constexpr (kLo) {
+              tma_load_3d(st + 2 * kT + c * kSlab, &p.dout_lo, full + s,
+                          c * 64, q0, row);
+            }
+          }
+          bulk_load(st + kOps * kT,
+                    p.rows + (static_cast<long long>(row) * p.n_q + qi) *
+                                 kRowsPerTile,
+                    kRowsPerTile * 4, full + s);
+        }
+      }
+    }
+    return;
+  }
+
+  const int lane = threadIdx.x % 32;
+  const int c2 = 2 * (lane % 4);
+  const int r0 = acc_row(0);  // this thread's tile rows (keys): r0, r0 + 8
+  const uint32_t k_addr = smem_addr(ks);
+  const uint32_t v_addr = smem_addr(vs);
+  const uint32_t ds_addr = smem_addr(dst_s);
+
+  float dk[kSlabs][32];
+  float dv[kSlabs][32];
+#pragma unroll
+  for (int c = 0; c < kSlabs; ++c) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk[c][i] = dv[c][i] = 0.f;
+  }
+
+  mbar_wait(kv_full, 0);
+  int it = 0;
+  for (int j = 0; j < p.hpb; ++j) {
+    const int row = r * p.hpb + j;
+    const int qo = p.q_off[row];
+    const int ko = p.k_off[row];
+    for (int qi = first_tile(p.q_off, p.k_off, row, k0, p.n_q, p.causal);
+         qi < p.n_q; ++qi, ++it) {
+      const int s = it % kStages;
+      const int q0 = qi * kBlockQ;
+      uint8_t* const qs = stages + s * kSB;
+      const float* const rows =
+          reinterpret_cast<const float*>(qs + kOps * kT);
+      const uint32_t q_addr = smem_addr(qs);
+      const uint32_t o_addr = q_addr + kT;
+      const uint32_t lo_addr = o_addr + kT;  // dO_lo, with kLo
+
+      // q * scale rounded to bf16, in place; then visible to wgmma's reads.
+      mbar_wait(full + s, (it / kStages) & 1);
+      for (int i = threadIdx.x; i < kT / 16; i += kThreads) {
+        uint4* const at = reinterpret_cast<uint4*>(qs) + i;
+        uint4 val = *at;
+        __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&val);
+#pragma unroll
+        for (int x = 0; x < 8; ++x) {
+          e[x] = __float2bfloat16_rn(__bfloat162float(e[x]) * p.scale);
+        }
+        *at = val;
+      }
+      fence_proxy_async_shared();
+      consumers_sync();
+
+      // S^T = k (q * scale)^T and dP^T = v dO^T in f32: rows are keys,
+      // columns queries of the tile.
+      float sc[32];
+      float dp[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+      fence_acc(sc);
+      fence_acc(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = kk / 4 * kSlab + kk % 4 * 32;
+        wgmma_bf16<0>(sc, desc(k_addr + off), desc(q_addr + off));
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = kk / 4 * kSlab + kk % 4 * 32;
+        wgmma_bf16<0>(dp, desc(v_addr + off), desc(o_addr + off));
+        if constexpr (kLo) {
+          wgmma_bf16<0>(dp, desc(v_addr + off), desc(lo_addr + off));
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>(sc);
+      fence_acc(dp);
+
+      // p^T = exp(s^T - lse), ds^T = p^T (dp^T - delta). Only tiles that
+      // cross the global diagonal or the ragged end of the keys pay the
+      // mask; queries past t_q have lse = +inf.
+      const bool masked = (p.causal && ko + k0 + kBlockK - 1 > qo + q0) ||
+                          k0 + kBlockK > p.tkv;
+#pragma unroll
+      for (int x8 = 0; x8 < 8; ++x8) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = x8 * 8 + c2 + e;
+          const float lse = rows[col];
+          const float delta = rows[kBlockQ + col];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int x = 4 * x8 + 2 * i + e;
+            const int key = k0 + r0 + 8 * i;
+            float pe = fast_exp(sc[x] - lse);
+            if (masked &&
+                (key >= p.tkv || (p.causal && ko + key > qo + q0 + col))) {
+              pe = 0.f;
+            }
+            sc[x] = pe;
+            dp[x] = pe * (dp[x] - delta);
+          }
+        }
+      }
+      // p^T as bf16 hi and lo halves and ds^T in bf16, as the A fragments
+      // of the four 16-query steps.
+      uint32_t ph[4][4];
+      uint32_t pl[4][4];
+      uint32_t da[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          const float a = sc[8 * kk + 2 * f];
+          const float b = sc[8 * kk + 2 * f + 1];
+          const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+          const float2 hf = __bfloat1622float2(h);
+          ph[kk][f] = *reinterpret_cast<const uint32_t*>(&h);
+          pl[kk][f] = pack_bf16(a - hf.x, b - hf.y);
+          da[kk][f] = pack_bf16(dp[8 * kk + 2 * f], dp[8 * kk + 2 * f + 1]);
+        }
+      }
+
+      // dV += p^T dO as p_hi dO_hi + p_lo dO_hi (+ p_hi dO_lo), and
+      // dK += ds^T (q * scale); dO and q MN-major.
+#pragma unroll
+      for (int c = 0; c < kSlabs; ++c) {
+        fence_acc(dv[c]);
+        fence_acc(dk[c]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int c = 0; c < kSlabs; ++c) {
+          const uint32_t off = c * kSlab + kk * 2048;
+          wgmma_bf16_rs<1>(dv[c], ph[kk], desc(o_addr + off));
+          wgmma_bf16_rs<1>(dv[c], pl[kk], desc(o_addr + off));
+          if constexpr (kLo) {
+            wgmma_bf16_rs<1>(dv[c], ph[kk], desc(lo_addr + off));
+          }
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int c = 0; c < kSlabs; ++c) {
+          wgmma_bf16_rs<1>(dk[c], da[kk],
+                           desc(q_addr + c * kSlab + kk * 2048));
+        }
+      }
+      wgmma_commit();
+
+      // Meanwhile ds^T to shared memory: rows of 64 queries, swizzled, the
+      // A fragments' pairs as they lie (fragment f of step kk holds row
+      // r0 + 8 (f % 2), columns 16 kk + 8 (f / 2) + c2, + 1). The previous
+      // tile's dQ products, which read it, are complete.
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          const int line = r0 + 8 * (f % 2);
+          *reinterpret_cast<uint32_t*>(
+              dst_s + swizzled(line, 2 * kk + f / 2) + 2 * c2) = da[kk][f];
+        }
+      }
+      wgmma_wait<0>(dv[0]);
+#pragma unroll
+      for (int c = 0; c < kSlabs; ++c) {
+        fence_acc(dv[c]);
+        fence_acc(dk[c]);
+      }
+      fence_regs<16>(&ph[0][0]);
+      fence_regs<16>(&pl[0][0]);
+      fence_regs<16>(&da[0][0]);
+      mbar_arrive(empty + s);  // this thread is done with stage s
+      fence_proxy_async_shared();
+      // The previous tile's reduce-adds have read the dQ staging.
+      if (threadIdx.x == 0) bulk_wait_read();
+      consumers_sync();
+
+      // dQ = dS k, one 64-column half of d at a time: A = ds^T read
+      // transposed, B = k MN-major. Staged in f32 as 32-column boxes.
+#pragma unroll
+      for (int c = 0; c < kSlabs; ++c) {
+        float dq[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+        fence_acc(dq);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          wgmma_bf16<1, 1>(dq, desc(ds_addr + kk * 2048),
+                           desc(k_addr + c * kSlab + kk * 2048));
+        }
+        wgmma_commit();
+        wgmma_wait<0>(dq);
+#pragma unroll
+        for (int x8 = 0; x8 < 8; ++x8) {
+          uint8_t* const box = dq_s + (2 * c + x8 / 4) * kSlab;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            // Column 8 x8 + c2 of the half: chunk 2 (x8 % 4) + c2 / 4 of
+            // its box's 128-byte row, at byte (c2 % 4) * 4 of that chunk.
+            const int line = r0 + 8 * i;
+            *reinterpret_cast<float2*>(
+                box + swizzled(line, 2 * (x8 % 4) + c2 / 4) + c2 % 4 * 4) =
+                make_float2(dq[4 * x8 + 2 * i] * p.dq_mul,
+                            dq[4 * x8 + 2 * i + 1] * p.dq_mul);
+          }
+        }
+      }
+      fence_proxy_async_shared();
+      consumers_sync();
+      if (threadIdx.x == 0) {
+#pragma unroll
+        for (int x = 0; x < D / 32; ++x) {
+          tma_reduce_add_3d(&p.dq, dq_s + x * kSlab, x * 32, q0, row);
+        }
+        bulk_commit();
+      }
+    }
+  }
+  if (threadIdx.x == 0) bulk_wait();  // the last reduce-adds have landed
+
+  store_tile<D>(dkg, dk, k0, p.tkv, p.accumulate);
+  store_tile<D>(dvg, dv, k0, p.tkv, p.accumulate);
+}
+
+// ---- launch 2, f32: the FMA design ----
+
 struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
+  const float* q;
+  const float* k;
+  const float* v;
   const float* dout;   // (bh, t_q, d) f32
   const float* lse;    // (bh, t_q) contiguous
   const float* delta;  // (bh, t_q) contiguous
   const int* q_off;    // (bh,)
   const int* k_off;    // (bh,)
-  float* dq;           // B7a: (bh, t_q, d) contiguous
-  float* dk;           // B7b: (bh, t_kv, d) contiguous
+  float* dq;           // (bh, t_q, d) contiguous
+  float* dk;           // (bh / hpb, t_kv, d) contiguous
   float* dv;
-  int group, tq, tkv;
-  int causal;
-  float scale;     // 1 / sqrt(d), rounded to the input type
+  int hpb, group, tq, tkv;
+  int causal, accumulate;
+  float scale;     // 1 / sqrt(d)
   float dq_scale;  // 1 / sqrt(d) in f32
   long long q_sr, q_st;  // strides in elements; d is contiguous
   long long k_sr, k_st;
@@ -107,11 +609,11 @@ __device__ __forceinline__ void load_rows(const Params& p, int row, int q0,
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) dq_step_kernel(const Params p) {
-  constexpr int kLd = D + 16 / sizeof(T);         // q, k, v rows
-  constexpr int kLdF = D + 4;                     // f32 dO rows
-  constexpr int kLdS = kBlockK + 16 / sizeof(T);  // ds rows [query][key]
+  using T = float;
+  constexpr int kLd = D + 4;             // q, k, v, dO rows
+  constexpr int kLdS = kBlockK + 4;      // ds rows [query][key]
   constexpr int kNT = kBlockK / 8;
   constexpr int kDT = D / 8;
 
@@ -120,16 +622,16 @@ __global__ void __launch_bounds__(kThreads) dq_step_kernel(const Params p) {
   T* ks = qs + kBlockQ * kLd;
   T* vs = ks + kBlockK * kLd;
   T* dss = vs + kBlockK * kLd;
-  float* dos = reinterpret_cast<float*>(dss + kBlockQ * kLdS);
-  float* lse_s = dos + kBlockQ * kLdF;
+  float* dos = dss + kBlockQ * kLdS;
+  float* lse_s = dos + kBlockQ * kLd;
   float* delta_s = lse_s + kBlockQ;
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockQ;
   const int row = blockIdx.y;
   const int qo = p.q_off[row];
   const int ko = p.k_off[row];
-  const T* kg = static_cast<const T*>(p.k) + (row / p.group) * p.k_sr;
-  const T* vg = static_cast<const T*>(p.v) + (row / p.group) * p.v_sr;
+  const T* kg = p.k + (row / p.group) * p.k_sr;
+  const T* vg = p.v + (row / p.group) * p.v_sr;
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -146,13 +648,14 @@ __global__ void __launch_bounds__(kThreads) dq_step_kernel(const Params p) {
 
   float dq[kDT][4];
 #pragma unroll
-  for (int j = 0; j < kDT; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+  for (int j = 0; j < kDT; ++j) {
+    dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+  }
 
   if (kv_end > 0) {
     load_tile<T, D, kLd, kBlockQ, kThreads, true>(
-        qs, static_cast<const T*>(p.q) + row * p.q_sr, p.q_st, q0, p.tq,
-        p.scale);
-    load_tile<float, D, kLdF, kBlockQ, kThreads, false>(
+        qs, p.q + row * p.q_sr, p.q_st, q0, p.tq, p.scale);
+    load_tile<float, D, kLd, kBlockQ, kThreads, false>(
         dos, p.dout + row * p.o_sr, p.o_st, q0, p.tq, 1.f);
     load_rows(p, row, q0, lse_s, delta_s);
   }
@@ -174,8 +677,8 @@ __global__ void __launch_bounds__(kThreads) dq_step_kernel(const Params p) {
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
     }
     // s = (q * scale) k^T; dp = dO v^T in f32.
-    warp_product<T, D, kNT, kLd, 1, 1, kLd>(s, qs + warp * 16 * kLd, ks);
-    warp_fma<D, kNT, kLdF, 1, 1, kLd>(dp, dos + warp * 16 * kLdF, vs);
+    warp_fma<D, kNT, kLd, 1, 1, kLd>(s, qs + warp * 16 * kLd, ks);
+    warp_fma<D, kNT, kLd, 1, 1, kLd>(dp, dos + warp * 16 * kLd, vs);
 
     const bool masked = (p.causal && ko + k0 + kBlockK - 1 > qo + q0) ||
                         k0 + kBlockK > p.tkv || q0 + kBlockQ > p.tq;
@@ -197,10 +700,12 @@ __global__ void __launch_bounds__(kThreads) dq_step_kernel(const Params p) {
       store2(dsw + (g + 8) * kLdS + j * 8 + c2, ds[2], ds[3]);
     }
     __syncwarp();  // the warp's ds rows are written
-    // dq += ds (in the input type) k.
-    warp_product<T, kBlockK, kDT, kLdS, 1, kLd, 1>(dq, dsw, ks);
+    // dq += ds k.
+    warp_fma<kBlockK, kDT, kLdS, 1, kLd, 1>(dq, dsw, ks);
   }
 
+  // Fresh: dq = acc * dq_scale. Accumulating: the caller's unscaled f32
+  // dQ += acc (this block owns its rows).
   float* dqg = p.dq + static_cast<long long>(row) * p.tq * D;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -208,18 +713,21 @@ __global__ void __launch_bounds__(kThreads) dq_step_kernel(const Params p) {
     if (r >= p.tq) continue;
 #pragma unroll
     for (int j = 0; j < kDT; ++j) {
-      store2(dqg + static_cast<long long>(r) * D + j * 8 + c2,
-             dq[j][2 * i] * p.dq_scale, dq[j][2 * i + 1] * p.dq_scale);
+      float* const at = dqg + static_cast<long long>(r) * D + j * 8 + c2;
+      if (p.accumulate) {
+        store2(at, at[0] + dq[j][2 * i], at[1] + dq[j][2 * i + 1]);
+      } else {
+        store2(at, dq[j][2 * i] * p.dq_scale, dq[j][2 * i + 1] * p.dq_scale);
+      }
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) dkv_step_kernel(const Params p) {
-  constexpr int kLd = D + 16 / sizeof(T);         // k, v, q rows
-  constexpr int kLdF = D + 4;                     // f32 dO rows
-  constexpr int kLdP = kBlockQ + 4;               // f32 p^T [key][query]
-  constexpr int kLdS = kBlockQ + 16 / sizeof(T);  // ds^T [key][query]
+  using T = float;
+  constexpr int kLd = D + 4;         // k, v, q, dO rows
+  constexpr int kLdP = kBlockQ + 4;  // p^T and ds^T [key][query]
   constexpr int kDT = D / 8;
   constexpr int kCT = kChunk / 8;
 
@@ -228,17 +736,14 @@ __global__ void __launch_bounds__(kThreads) dkv_step_kernel(const Params p) {
   T* vs = ks + kBlockK * kLd;
   T* qs = vs + kBlockK * kLd;  // q * scale
   T* dsts = qs + kBlockQ * kLd;
-  float* dos = reinterpret_cast<float*>(dsts + kBlockK * kLdS);
-  float* pts = dos + kBlockQ * kLdF;
+  float* dos = dsts + kBlockK * kLdP;
+  float* pts = dos + kBlockQ * kLd;
   float* lse_s = pts + kBlockK * kLdP;
   float* delta_s = lse_s + kBlockQ;
 
   const int k0 = blockIdx.x * kBlockK;
-  const int row = blockIdx.y;
-  const int qo = p.q_off[row];
-  const int ko = p.k_off[row];
-  const T* qg = static_cast<const T*>(p.q) + row * p.q_sr;
-  const float* og = p.dout + row * p.o_sr;
+  const int r = blockIdx.y;  // output row: query heads r * hpb + j
+  const int kv_row = r * p.hpb / p.group;
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -247,11 +752,9 @@ __global__ void __launch_bounds__(kThreads) dkv_step_kernel(const Params p) {
   const int kr = warp * 16 + g;  // this lane's key rows: kr and kr + 8
 
   load_tile<T, D, kLd, kBlockK, kThreads, false>(
-      ks, static_cast<const T*>(p.k) + (row / p.group) * p.k_sr, p.k_st, k0,
-      p.tkv, 1.f);
+      ks, p.k + kv_row * p.k_sr, p.k_st, k0, p.tkv, 1.f);
   load_tile<T, D, kLd, kBlockK, kThreads, false>(
-      vs, static_cast<const T*>(p.v) + (row / p.group) * p.v_sr, p.v_st, k0,
-      p.tkv, 1.f);
+      vs, p.v + kv_row * p.v_sr, p.v_st, k0, p.tkv, 1.f);
 
   float dk[kDT][4];
   float dv[kDT][4];
@@ -262,69 +765,70 @@ __global__ void __launch_bounds__(kThreads) dkv_step_kernel(const Params p) {
   }
 
   const int n_q = (p.tq + kBlockQ - 1) / kBlockQ;
-  // Causal: query tiles whose last global position lies before the key
-  // tile's first are skipped.
-  int qi_first = 0;
-  if (p.causal) {
-    const int gap = ko + k0 - qo - (kBlockQ - 1);
-    qi_first = gap <= 0 ? 0 : (gap + kBlockQ - 1) / kBlockQ;
-  }
   float* ptw = pts + warp * 16 * kLdP;
-  T* dstw = dsts + warp * 16 * kLdS;
-  for (int qi = qi_first; qi < n_q; ++qi) {
-    const int q0 = qi * kBlockQ;
-    __syncthreads();  // every warp is done with the previous query tile
-    load_tile<T, D, kLd, kBlockQ, kThreads, true>(qs, qg, p.q_st, q0, p.tq,
-                                                  p.scale);
-    load_tile<float, D, kLdF, kBlockQ, kThreads, false>(dos, og, p.o_st, q0,
-                                                        p.tq, 1.f);
-    load_rows(p, row, q0, lse_s, delta_s);
-    __syncthreads();
+  T* dstw = dsts + warp * 16 * kLdP;
+  for (int h = 0; h < p.hpb; ++h) {
+    const int row = r * p.hpb + h;
+    const int qo = p.q_off[row];
+    const int ko = p.k_off[row];
+    const T* qg = p.q + row * p.q_sr;
+    const float* og = p.dout + row * p.o_sr;
+    for (int qi = first_tile(p.q_off, p.k_off, row, k0, n_q, p.causal);
+         qi < n_q; ++qi) {
+      const int q0 = qi * kBlockQ;
+      __syncthreads();  // every warp is done with the previous query tile
+      load_tile<T, D, kLd, kBlockQ, kThreads, true>(qs, qg, p.q_st, q0, p.tq,
+                                                    p.scale);
+      load_tile<float, D, kLd, kBlockQ, kThreads, false>(dos, og, p.o_st, q0,
+                                                         p.tq, 1.f);
+      load_rows(p, row, q0, lse_s, delta_s);
+      __syncthreads();
 
-    const bool masked = (p.causal && ko + k0 + kBlockK - 1 > qo + q0) ||
-                        k0 + kBlockK > p.tkv || q0 + kBlockQ > p.tq;
+      const bool masked = (p.causal && ko + k0 + kBlockK - 1 > qo + q0) ||
+                          k0 + kBlockK > p.tkv || q0 + kBlockQ > p.tq;
 #pragma unroll
-    for (int n0 = 0; n0 < kBlockQ; n0 += kChunk) {
-      float s[kCT][4];
-      float dp[kCT][4];
+      for (int n0 = 0; n0 < kBlockQ; n0 += kChunk) {
+        float s[kCT][4];
+        float dp[kCT][4];
 #pragma unroll
-      for (int j = 0; j < kCT; ++j) {
+        for (int j = 0; j < kCT; ++j) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-      }
-      // s^T = k (q * scale)^T; dp^T = v dO^T in f32.
-      warp_product<T, D, kCT, kLd, 1, 1, kLd>(s, ks + warp * 16 * kLd,
-                                              qs + n0 * kLd);
-      warp_fma<D, kCT, kLd, 1, 1, kLdF>(dp, vs + warp * 16 * kLd,
-                                        dos + n0 * kLdF);
-#pragma unroll
-      for (int j = 0; j < kCT; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = n0 + j * 8 + c2 + (e & 1);  // query in the tile
-          float pe = expf(s[j][e] - lse_s[col]);
-          if (masked && masked_pair(p, k0 + kr + (e >= 2 ? 8 : 0), q0 + col,
-                                    ko, qo)) {
-            pe = 0.f;
-          }
-          s[j][e] = pe;
-          dp[j][e] = pe * (dp[j][e] - delta_s[col]);
+          for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
         }
-        const int col = n0 + j * 8 + c2;
-        store2(ptw + g * kLdP + col, s[j][0], s[j][1]);
-        store2(ptw + (g + 8) * kLdP + col, s[j][2], s[j][3]);
-        store2(dstw + g * kLdS + col, dp[j][0], dp[j][1]);
-        store2(dstw + (g + 8) * kLdS + col, dp[j][2], dp[j][3]);
+        // s^T = k (q * scale)^T; dp^T = v dO^T in f32.
+        warp_fma<D, kCT, kLd, 1, 1, kLd>(s, ks + warp * 16 * kLd,
+                                         qs + n0 * kLd);
+        warp_fma<D, kCT, kLd, 1, 1, kLd>(dp, vs + warp * 16 * kLd,
+                                         dos + n0 * kLd);
+#pragma unroll
+        for (int j = 0; j < kCT; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = n0 + j * 8 + c2 + (e & 1);  // query in the tile
+            float pe = expf(s[j][e] - lse_s[col]);
+            if (masked && masked_pair(p, k0 + kr + (e >= 2 ? 8 : 0),
+                                      q0 + col, ko, qo)) {
+              pe = 0.f;
+            }
+            s[j][e] = pe;
+            dp[j][e] = pe * (dp[j][e] - delta_s[col]);
+          }
+          const int col = n0 + j * 8 + c2;
+          store2(ptw + g * kLdP + col, s[j][0], s[j][1]);
+          store2(ptw + (g + 8) * kLdP + col, s[j][2], s[j][3]);
+          store2(dstw + g * kLdP + col, dp[j][0], dp[j][1]);
+          store2(dstw + (g + 8) * kLdP + col, dp[j][2], dp[j][3]);
+        }
       }
-    }
-    __syncwarp();  // the warp's own p^T and ds^T rows are written
+      __syncwarp();  // the warp's own p^T and ds^T rows are written
 
-    // dV += p^T dO (f32, p unrounded); dK += ds^T (q * scale).
-    warp_fma<kBlockQ, kDT, kLdP, 1, kLdF, 1>(dv, ptw, dos);
-    warp_product<T, kBlockQ, kDT, kLdS, 1, kLd, 1>(dk, dstw, qs);
+      // dV += p^T dO; dK += ds^T (q * scale).
+      warp_fma<kBlockQ, kDT, kLdP, 1, kLd, 1>(dv, ptw, dos);
+      warp_fma<kBlockQ, kDT, kLdP, 1, kLd, 1>(dk, dstw, qs);
+    }
   }
 
-  const long long base = static_cast<long long>(row) * p.tkv * D;
+  const long long base = static_cast<long long>(r) * p.tkv * D;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int key = k0 + kr + 8 * i;
@@ -333,142 +837,261 @@ __global__ void __launch_bounds__(kThreads) dkv_step_kernel(const Params p) {
     for (int j = 0; j < kDT; ++j) {
       const long long off = base + static_cast<long long>(key) * D + j * 8 +
                             c2;
-      store2(p.dk + off, dk[j][2 * i], dk[j][2 * i + 1]);
-      store2(p.dv + off, dv[j][2 * i], dv[j][2 * i + 1]);
+      if (p.accumulate) {
+        store2(p.dk + off, p.dk[off] + dk[j][2 * i],
+               p.dk[off + 1] + dk[j][2 * i + 1]);
+        store2(p.dv + off, p.dv[off] + dv[j][2 * i],
+               p.dv[off + 1] + dv[j][2 * i + 1]);
+      } else {
+        store2(p.dk + off, dk[j][2 * i], dk[j][2 * i + 1]);
+        store2(p.dv + off, dv[j][2 * i], dv[j][2 * i + 1]);
+      }
     }
   }
 }
 
-template <typename T, int D>
-cudaError_t launch_dq(const Params& p, int bh, cudaStream_t stream) {
-  constexpr int kLd = D + 16 / sizeof(T);
-  constexpr size_t kSmem =
-      (kBlockQ + 2 * kBlockK) * kLd * sizeof(T) +
-      kBlockQ * (kBlockK + 16 / sizeof(T)) * sizeof(T) +
-      (kBlockQ * (D + 4) + 2 * kBlockQ) * sizeof(float);
-  static std::atomic<bool> smem_set[kMaxDevices];
-  const cudaError_t attr =
-      allow_dynamic_smem(dq_step_kernel<T, D>, kSmem, smem_set);
-  if (attr != cudaSuccess) return attr;
-  const dim3 grid((p.tq + kBlockQ - 1) / kBlockQ, bh);
-  dq_step_kernel<T, D><<<grid, kThreads, kSmem, stream>>>(p);
+// ---- launch 3: dq = dq_acc * scale in the input type ----
+
+template <typename T>
+__global__ void bwd_step_dq_kernel(const float* acc, T* dq, long long pairs,
+                                   float scale) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < pairs; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const float2 x = reinterpret_cast<const float2*>(acc)[i];
+    store2(dq + 2 * i, x.x * scale, x.y * scale);
+  }
+}
+
+// ---- launchers ----
+
+template <int D>
+cudaError_t launch_f32(const Params& p, int rows_out, cudaStream_t stream) {
+  constexpr int kLd = D + 4;
+  constexpr size_t kDqSmem =
+      ((kBlockQ + 2 * kBlockK) * kLd + kBlockQ * (kBlockK + 4) +
+       kBlockQ * kLd + 2 * kBlockQ) * sizeof(float);
+  constexpr size_t kDkvSmem =
+      ((2 * kBlockK + kBlockQ) * kLd + 2 * kBlockK * (kBlockQ + 4) +
+       kBlockQ * kLd + 2 * kBlockQ) * sizeof(float);
+  static std::atomic<bool> dq_set[kMaxDevices];
+  static std::atomic<bool> dkv_set[kMaxDevices];
+  cudaError_t err = allow_dynamic_smem(dq_step_kernel<D>, kDqSmem, dq_set);
+  if (err != cudaSuccess) return err;
+  err = allow_dynamic_smem(dkv_step_kernel<D>, kDkvSmem, dkv_set);
+  if (err != cudaSuccess) return err;
+  const int bh = rows_out * p.hpb;
+  dq_step_kernel<D><<<dim3((p.tq + kBlockQ - 1) / kBlockQ, bh), kThreads,
+                      kDqSmem, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dkv_step_kernel<D><<<dim3((p.tkv + kBlockK - 1) / kBlockK, rows_out),
+                       kThreads, kDkvSmem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_dkv(const Params& p, int bh, cudaStream_t stream) {
-  constexpr int kLd = D + 16 / sizeof(T);
-  constexpr size_t kSmem =
-      (2 * kBlockK + kBlockQ) * kLd * sizeof(T) +
-      kBlockK * (kBlockQ + 16 / sizeof(T)) * sizeof(T) +
-      (kBlockQ * (D + 4) + kBlockK * (kBlockQ + 4) + 2 * kBlockQ) *
-          sizeof(float);
+// A {d, t, rows} map of a (rows, t, d) operand with d contiguous and row
+// and t strides in elements; box {64 or 32, 64, 1}.
+cudaError_t encode_rows(CUtensorMap* map, int dtype, const void* base, int d,
+                        int t, int rows, long long st, long long sr,
+                        int box_d) {
+  const int elt = dtype == 0 ? 2 : 4;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(t),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(st) * elt,
+                                 static_cast<cuuint64_t>(sr) * elt};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_d), kBlockQ, 1};
+  return encode(map, dtype, 3, base, dims, strides, box);
+}
+
+template <int D, bool kLo>
+cudaError_t launch_bf16(TmaParams& p, const void* q, const void* k,
+                        const void* v, const void* dout, const void* dout_lo,
+                        float* dq, int rows_out, const long long* st,
+                        cudaStream_t stream) {
+  const int bh = rows_out * p.hpb;
+  const int bh_kv = bh / p.group;
+  cudaError_t err = encode_rows(&p.q, 0, q, D, p.tq, bh, st[1], st[0], 64);
+  if (err == cudaSuccess) {
+    err = encode_rows(&p.k, 0, k, D, p.tkv, bh_kv, st[3], st[2], 64);
+  }
+  if (err == cudaSuccess) {
+    err = encode_rows(&p.v, 0, v, D, p.tkv, bh_kv, st[5], st[4], 64);
+  }
+  if (err == cudaSuccess) {
+    err = encode_rows(&p.dout, 0, dout, D, p.tq, bh, D,
+                      static_cast<long long>(p.tq) * D, 64);
+  }
+  if (err == cudaSuccess && kLo) {
+    err = encode_rows(&p.dout_lo, 0, dout_lo, D, p.tq, bh, D,
+                      static_cast<long long>(p.tq) * D, 64);
+  }
+  if (err == cudaSuccess) {
+    err = encode_rows(&p.dq, 1, dq, D, p.tq, bh, D,
+                      static_cast<long long>(p.tq) * D, 32);
+  }
+  if (err != cudaSuccess) return err;
   static std::atomic<bool> smem_set[kMaxDevices];
-  const cudaError_t attr =
-      allow_dynamic_smem(dkv_step_kernel<T, D>, kSmem, smem_set);
-  if (attr != cudaSuccess) return attr;
-  const dim3 grid((p.tkv + kBlockK - 1) / kBlockK, bh);
-  dkv_step_kernel<T, D><<<grid, kThreads, kSmem, stream>>>(p);
+  err = allow_dynamic_smem(bwd_step_wgmma_kernel<D, kLo>, kSmem<D, kLo>,
+                           smem_set);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(rows_out, (p.tkv + kBlockK - 1) / kBlockK);
+  bwd_step_wgmma_kernel<D, kLo>
+      <<<grid, kTmaThreads, kSmem<D, kLo>, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <bool kDq>
-int run(const Params& p, int dtype, int bh, int d, void* stream) {
-  if (bh < 1 || bh > 65535 || p.group < 1 || bh % p.group != 0 || p.tq < 1 ||
-      p.tkv < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  using bf16 = __nv_bfloat16;
-  cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0 && d == 64) {
-    err = kDq ? launch_dq<bf16, 64>(p, bh, s) : launch_dkv<bf16, 64>(p, bh, s);
-  }
-  if (dtype == 0 && d == 128) {
-    err = kDq ? launch_dq<bf16, 128>(p, bh, s)
-              : launch_dkv<bf16, 128>(p, bh, s);
-  }
-  if (dtype == 1 && d == 64) {
-    err = kDq ? launch_dq<float, 64>(p, bh, s)
-              : launch_dkv<float, 64>(p, bh, s);
-  }
-  if (dtype == 1 && d == 128) {
-    err = kDq ? launch_dq<float, 128>(p, bh, s)
-              : launch_dkv<float, 128>(p, bh, s);
-  }
-  return static_cast<int>(err);
-}
-
-Params make_params(const void* q, const void* k, const void* v,
-                   const void* dout, const void* lse, const void* delta,
-                   const void* q_off, const void* k_off, int group, int tq,
-                   int tkv, int causal, float scale, long long q_sr,
-                   long long q_st, long long k_sr, long long k_st,
-                   long long v_sr, long long v_st, long long o_sr,
-                   long long o_st) {
-  Params p{};
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.dout = static_cast<const float*>(dout);
-  p.lse = static_cast<const float*>(lse);
-  p.delta = static_cast<const float*>(delta);
-  p.q_off = static_cast<const int*>(q_off);
-  p.k_off = static_cast<const int*>(k_off);
-  p.group = group;
-  p.tq = tq;
-  p.tkv = tkv;
-  p.causal = causal;
-  p.scale = scale;
-  p.q_sr = q_sr;
-  p.q_st = q_st;
-  p.k_sr = k_sr;
-  p.k_st = k_st;
-  p.v_sr = v_sr;
-  p.v_st = v_st;
-  p.o_sr = o_sr;
-  p.o_st = o_st;
-  return p;
+// The instance of head_dim D: kLo where dO_lo is given.
+template <int D>
+cudaError_t launch_wgmma(TmaParams& p, const void* q, const void* k,
+                         const void* v, const void* dout, const void* dout_lo,
+                         float* dq, int rows_out, const long long* st,
+                         cudaStream_t stream) {
+  return dout_lo == nullptr
+             ? launch_bf16<D, false>(p, q, k, v, dout, dout_lo, dq, rows_out,
+                                     st, stream)
+             : launch_bf16<D, true>(p, q, k, v, dout, dout_lo, dq, rows_out,
+                                    st, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Each returns a cudaError_t; 0 is success. dtype (of q, k, v): 0 = bf16,
-// 1 = f32; dO, lse, delta and the outputs are f32. Strides in elements.
-int gtt_flash_bwd_dq_step(const void* q, const void* k, const void* v,
-                          const void* dout, const void* lse,
-                          const void* delta, const void* q_off,
-                          const void* k_off, void* dq, int dtype, int bh,
-                          int group, int tq, int tkv, int d, int causal,
-                          float scale, float dq_scale, long long q_sr,
-                          long long q_st, long long k_sr, long long k_st,
-                          long long v_sr, long long v_st, long long o_sr,
-                          long long o_st, void* stream) {
-  Params p = make_params(q, k, v, dout, lse, delta, q_off, k_off, group, tq,
-                         tkv, causal, scale, q_sr, q_st, k_sr, k_st, v_sr,
-                         v_st, o_sr, o_st);
-  p.dq = static_cast<float*>(dq);
-  p.dq_scale = dq_scale;
-  return run<true>(p, dtype, bh, d, stream);
+// Each returns a cudaError_t; 0 is success. Strides in elements, d
+// contiguous.
+
+// Launch 1: rows (bh, ceil(t_q / 64), 128) f32 from lse and delta (bh, t_q)
+// f32; with dout (bh, t_q, d) f32 (16-byte aligned rows), also do_hi and
+// do_lo (bh, t_q, d) bf16 contiguous. d even.
+int gtt_flash_bwd_step_prep(const void* lse, const void* delta, void* rows,
+                            const void* dout, void* do_hi, void* do_lo,
+                            int bh, int tq, int d, long long o_sr,
+                            long long o_st, void* stream) {
+  if (bh < 1 || bh > 65535 || tq < 1 || d < 2 || d % 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int n_q = (tq + kBlockQ - 1) / kBlockQ;
+  const PrepParams p{static_cast<const float*>(lse),
+                     static_cast<const float*>(delta),
+                     static_cast<float*>(rows),
+                     static_cast<const float*>(dout),
+                     static_cast<__nv_bfloat16*>(do_hi),
+                     static_cast<__nv_bfloat16*>(do_lo),
+                     o_sr, o_st, tq, d, n_q};
+  bwd_step_prep_kernel<<<dim3(n_q, bh), kPrepThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
-int gtt_flash_bwd_dkv_step(const void* q, const void* k, const void* v,
-                           const void* dout, const void* lse,
-                           const void* delta, const void* q_off,
-                           const void* k_off, void* dk, void* dv, int dtype,
-                           int bh, int group, int tq, int tkv, int d,
-                           int causal, float scale, long long q_sr,
-                           long long q_st, long long k_sr, long long k_st,
-                           long long v_sr, long long v_st, long long o_sr,
-                           long long o_st, void* stream) {
-  Params p = make_params(q, k, v, dout, lse, delta, q_off, k_off, group, tq,
-                         tkv, causal, scale, q_sr, q_st, k_sr, k_st, v_sr,
-                         v_st, o_sr, o_st);
-  p.dk = static_cast<float*>(dk);
-  p.dv = static_cast<float*>(dv);
-  return run<false>(p, dtype, bh, d, stream);
+// Launch 2, one ring step. dtype (of q, k, v): 0 = bf16, 1 = f32; d: 64 or
+// 128. A block serves hpb query heads (1, or group: then its output row is
+// their kv head). bf16: dout is dO_hi and dout_lo dO_lo or null, both
+// (bh, t_q, d) bf16 contiguous; rows from launch 1; lse and delta unused.
+// f32: dout (bh, t_q, d) f32 at o_sr / o_st; lse and delta (bh, t_q) f32;
+// rows and dout_lo unused. dq (bh, t_q, d) f32 contiguous: fresh
+// (accumulate 0) it gets dQ * dq_scale (bf16: added into zeros), else
+// unscaled dQ is added to it. dk, dv (bh / hpb, t_kv, d) f32 contiguous:
+// written, or added to. q_off, k_off (bh,) int32: each row's global
+// offsets. Every operand 16-byte aligned with strides that are multiples
+// of 16 bytes.
+int gtt_flash_bwd_step(const void* q, const void* k, const void* v,
+                       const void* dout, const void* dout_lo,
+                       const void* rows, const void* lse, const void* delta,
+                       const void* q_off, const void* k_off, void* dq,
+                       void* dk, void* dv, int dtype, int bh, int hpb,
+                       int group, int tq, int tkv, int d, int causal,
+                       int accumulate, float scale, float dq_scale,
+                       long long q_sr, long long q_st, long long k_sr,
+                       long long k_st, long long v_sr, long long v_st,
+                       long long o_sr, long long o_st, void* stream) {
+  if (bh < 1 || group < 1 || bh % group != 0 || (hpb != 1 && hpb != group) ||
+      tq < 1 || tkv < 1 || (d != 64 && d != 128) || (dtype != 0 && dtype != 1)
+      || bh / hpb > (1 << 30) || bh > 65535 || tkv > 65535 * kBlockK) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int rows_out = bh / hpb;
+  cudaError_t err;
+  if (dtype == 0) {
+    TmaParams p;
+    memset(&p, 0, sizeof(p));
+    p.rows = static_cast<const float*>(rows);
+    p.q_off = static_cast<const int*>(q_off);
+    p.k_off = static_cast<const int*>(k_off);
+    p.dk = static_cast<float*>(dk);
+    p.dv = static_cast<float*>(dv);
+    p.hpb = hpb;
+    p.group = group;
+    p.tq = tq;
+    p.tkv = tkv;
+    p.n_q = (tq + kBlockQ - 1) / kBlockQ;
+    p.causal = causal;
+    p.accumulate = accumulate;
+    p.scale = scale;
+    p.dq_mul = accumulate ? 1.f : dq_scale;
+    const long long st[6] = {q_sr, q_st, k_sr, k_st, v_sr, v_st};
+    float* acc = static_cast<float*>(dq);
+    err = d == 64 ? launch_wgmma<64>(p, q, k, v, dout, dout_lo, acc,
+                                     rows_out, st, s)
+                  : launch_wgmma<128>(p, q, k, v, dout, dout_lo, acc,
+                                      rows_out, st, s);
+  } else {
+    Params p{};
+    p.q = static_cast<const float*>(q);
+    p.k = static_cast<const float*>(k);
+    p.v = static_cast<const float*>(v);
+    p.dout = static_cast<const float*>(dout);
+    p.lse = static_cast<const float*>(lse);
+    p.delta = static_cast<const float*>(delta);
+    p.q_off = static_cast<const int*>(q_off);
+    p.k_off = static_cast<const int*>(k_off);
+    p.dq = static_cast<float*>(dq);
+    p.dk = static_cast<float*>(dk);
+    p.dv = static_cast<float*>(dv);
+    p.hpb = hpb;
+    p.group = group;
+    p.tq = tq;
+    p.tkv = tkv;
+    p.causal = causal;
+    p.accumulate = accumulate;
+    p.scale = scale;
+    p.dq_scale = dq_scale;
+    p.q_sr = q_sr;
+    p.q_st = q_st;
+    p.k_sr = k_sr;
+    p.k_st = k_st;
+    p.v_sr = v_sr;
+    p.v_st = v_st;
+    p.o_sr = o_sr;
+    p.o_st = o_st;
+    err = d == 64 ? launch_f32<64>(p, rows_out, s)
+                  : launch_f32<128>(p, rows_out, s);
+  }
+  return static_cast<int>(err);
+}
+
+// Launch 3: dq (elems, in the input type: 0 = bf16, 1 = f32) = acc * scale;
+// elems even.
+int gtt_flash_bwd_step_dq(const void* acc, void* dq, int dtype, float scale,
+                          long long elems, void* stream) {
+  if (elems < 2 || elems % 2 || (dtype != 0 && dtype != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long pairs = elems / 2;
+  const int blocks = static_cast<int>(
+      pairs / 256 + 1 < 4096 ? pairs / 256 + 1 : 4096);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* a = static_cast<const float*>(acc);
+  if (dtype == 0) {
+    bwd_step_dq_kernel<__nv_bfloat16><<<blocks, 256, 0, s>>>(
+        a, static_cast<__nv_bfloat16*>(dq), pairs, scale);
+  } else {
+    bwd_step_dq_kernel<float><<<blocks, 256, 0, s>>>(
+        a, static_cast<float*>(dq), pairs, scale);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* gtt_error_string(int err) {

@@ -236,8 +236,10 @@ ring_kernel(const __grid_constant__ Params p) {
   X(5, long long, long long)          \
   X(6, signed char, signed char)      \
   X(7, unsigned char, unsigned char)  \
-  X(8, short, short)
-constexpr int kSumTypes = 9;
+  X(8, short, short)                  \
+  X(9, unsigned short, unsigned short) \
+  X(10, unsigned, unsigned)
+constexpr int kSumTypes = 11;
 
 // B4b's units by width in bytes.
 #define GTT_COPY_UNITS(X) \
@@ -378,13 +380,13 @@ int gtt_ring_max_blocks(int* blocks) {
 
 // Each returns a cudaError_t; 0 is success. dtype (B3, B4a): 0 = bf16,
 // 1 = f32, 2 = f16, 3 = f64, 4 = int32, 5 = int64, 6 = int8, 7 = uint8,
-// 8 = int16. vec: units are 16-byte vectors (every chunk a whole number of
-// them, every buffer 16-byte aligned), else single elements. B4b takes
-// unit_bytes (16, 8, 4, 2 or 1, dividing the chunk and every buffer's
-// start) in their place. chunk counts units. Strides are in bytes. flags:
-// ranks x slices x flag_stride zeroed ints. my: each rank's ring index;
-// members: ranks x n flat ranks, row r the ring of rank r in ring order.
-// All tables are host arrays.
+// 8 = int16, 9 = uint16, 10 = uint32. vec: units are 16-byte vectors
+// (every chunk a whole number of them, every buffer 16-byte aligned), else
+// single elements. B4b takes unit_bytes (16, 8, 4, 2 or 1, dividing the
+// chunk and every buffer's start) in their place. chunk counts units.
+// Strides are in bytes. flags: ranks x slices x flag_stride zeroed ints.
+// my: each rank's ring index; members: ranks x n flat ranks, row r the
+// ring of rank r in ring order. All tables are host arrays.
 
 int gtt_ring_allreduce(const void* x, void* out, long long rank_stride,
                        int* flags, int flag_stride, const int* my,

@@ -131,9 +131,9 @@ __device__ __forceinline__ long long add1(long long a, long long b) {
                                 static_cast<unsigned long long>(b));
 }
 
-// The sub-word integers add in their own width: the sum is cut back to the
-// type's bits (two's complement), as PyTorch's int8, uint8 and int16 adds
-// wrap.
+// The sub-word and unsigned integers add in their own width: the sum is
+// cut back to the type's bits (two's complement), as PyTorch's int8, uint8
+// and int16 adds wrap, and as the reference's uint16 and uint32 sums do.
 __device__ __forceinline__ signed char add1(signed char a, signed char b) {
   return static_cast<signed char>(static_cast<unsigned char>(
       static_cast<unsigned char>(a) + static_cast<unsigned char>(b)));
@@ -147,6 +147,15 @@ __device__ __forceinline__ unsigned char add1(unsigned char a,
 __device__ __forceinline__ short add1(short a, short b) {
   return static_cast<short>(static_cast<unsigned short>(
       static_cast<unsigned short>(a) + static_cast<unsigned short>(b)));
+}
+
+__device__ __forceinline__ unsigned short add1(unsigned short a,
+                                               unsigned short b) {
+  return static_cast<unsigned short>(a + b);
+}
+
+__device__ __forceinline__ unsigned add1(unsigned a, unsigned b) {
+  return a + b;
 }
 
 // Element-wise a + b over the lanes of one unit (a 16-byte vector, or the

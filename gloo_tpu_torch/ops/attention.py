@@ -16,12 +16,14 @@ as the custom VJP does in JAX.
 The ring-attention steps keep JAX's (bh, t, d) layout:
 ``flash_attention_step`` (``_flash_step_kernel``, ``csrc/flash_step.cu``)
 folds one k/v block into carried f32 (acc, m, l) state, and
-``flash_attention_bwd_step`` runs ``flash_attention_bwd_dq_step``
-(``_flash_bwd_dq_step_kernel``) and ``flash_attention_bwd_dkv_step``
-(``_flash_bwd_dkv_step_kernel``), the two entry points of
-``csrc/flash_bwd_step.cu``. Their offsets place the tiles in the global
-sequence; they may differ per query-head row, so one launch serves every
-rank of a world.
+``flash_attention_bwd_step`` computes what ``_flash_bwd_dq_step_kernel``
+and ``_flash_bwd_dkv_step_kernel`` do, in one fused launch of
+``csrc/flash_bwd_step.cu`` (bf16). The ring backward takes that launch
+through ``flash_attention_bwd_step_into``, which adds into the caller's
+f32 carriers, with ``prepare_bwd_step`` before the ring and
+``flash_bwd_step_finish`` after it. Their offsets place the tiles in the
+global sequence; they may differ per query-head row, so one launch serves
+every rank of a world.
 
 On CUDA tensors each wrapper launches its kernel or raises; on CPU tensors
 it runs its plain twin (``*_plain``), which repeats the kernel's arithmetic
@@ -76,8 +78,9 @@ _SIGNATURES = {
     "flash_fwd": {"gtt_flash_fwd": (5, 7, 1, 9)},
     "flash_bwd": {"gtt_flash_bwd": (11, 7, 2, 15)},
     "flash_step": {"gtt_flash_step": (11, 7, 1, 6)},
-    "flash_bwd_step": {"gtt_flash_bwd_dq_step": (9, 7, 2, 8),
-                       "gtt_flash_bwd_dkv_step": (10, 7, 1, 8)},
+    "flash_bwd_step": {"gtt_flash_bwd_step_prep": (6, 3, 0, 2),
+                       "gtt_flash_bwd_step": (13, 9, 2, 8),
+                       "gtt_flash_bwd_step_dq": (2, 1, 1, 1)},
 }
 
 
@@ -490,7 +493,7 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (p.float() @ v.float()).to(q.dtype)
 
 
-# ---- the ring-attention steps (B6, B7a, B7b) ----
+# ---- the ring-attention steps (B6, B7a + B7b) ----
 
 def _check_step(q, k, v, kv_group: int):
     """The layout checks of the JAX step wrappers, for every device:
@@ -627,95 +630,115 @@ def flash_attention_step_plain(q: torch.Tensor, k: torch.Tensor,
 
 def _check_bwd_step(q, do, delta, lse):
     bh, tq, d = q.shape
-    if tuple(do.shape) != (bh, tq, d) or do.dtype != torch.float32:
+    if tuple(do.shape) != (bh, tq, d) or do.dtype not in (torch.float32,
+                                                          q.dtype):
         raise ValueError(
-            f"do must be f32 of q's shape {(bh, tq, d)} (the ring backward's "
-            f"f32 cotangent); got {do.dtype} {tuple(do.shape)}")
+            f"do must be f32 (the ring backward's cotangent) or q's dtype, of "
+            f"q's shape {(bh, tq, d)}; got {do.dtype} {tuple(do.shape)}")
     _check_rows("delta", delta, (bh, tq, 1))
     _check_rows("lse", lse, (bh, tq, 1))
 
 
-def _bwd_step_launch(fname, q, k, v, do, delta, lse, qo, ko, outs, causal,
-                     kv_group, floats):
-    """One launch of csrc/flash_bwd_step.cu into `outs`, made by
-    `outs(dim)` at the kernel's head_dim; returns them sliced back to q's."""
+class StepCotangent(NamedTuple):
+    """The cotangent side of one ring backward, the same at every step:
+    made once by prepare_bwd_step and handed to each step. On the CPU the
+    inputs as given; on the card what csrc/flash_bwd_step.cu reads."""
+    do: torch.Tensor
+    """(bh, t_q, d) as given on the CPU; on the card at the kernel's
+    head_dim, contiguous: dO_hi in bf16 (bf16 q), or f32 (f32 q)."""
+    do_lo: torch.Tensor | None
+    """bf16 dO_lo = bf16(dO - dO_hi) of an f32 dO (card, bf16 q), else
+    None: a dO in q's dtype has none."""
+    delta: torch.Tensor  # (bh, t_q, 1) f32
+    lse: torch.Tensor    # (bh, t_q, 1) f32
+    rows: torch.Tensor | None
+    """Card, bf16 q: (bh, ceil(t_q / 64), 2 BLOCK_Q) f32, lse (+inf past
+    t_q) and delta per query tile."""
+    head_dim: int        # q's d
+
+
+def prepare_bwd_step(q: torch.Tensor, do: torch.Tensor, delta: torch.Tensor,
+                     lse: torch.Tensor) -> StepCotangent:
+    """The StepCotangent of q (bh, t_q, d) with the cotangent do (f32, or
+    q's dtype), delta = rowsum(dO * O) and lse (both (bh, t_q, 1) f32).
+
+    On the card with bf16 q, one launch of csrc/flash_bwd_step.cu's
+    bwd_step_prep_kernel packs lse and delta per query tile and splits an
+    f32 do into bf16 hi and lo halves; a bf16 do is taken as it is (hi,
+    and no lo). f32 q launches nothing. CPU tensors launch nothing."""
+    _check_bwd_step(q, do, delta, lse)
+    bh, tq, d = q.shape
+    if q.device.type == "cpu":
+        return StepCotangent(do, None, delta, lse, None, d)
+    dim = kernel_head_dim(d)
+    if do.device != q.device:
+        raise ValueError(f"do lies on {do.device}, q on {q.device}")
+    do = _pad_head_dim(dim, do)[0] if dim != d else do.contiguous()
+    if q.dtype == torch.float32:
+        return StepCotangent(do, None, delta, lse, None, d)
+    for name, x in (("delta", delta), ("lse", lse)):
+        if x.device != q.device or not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {q.device}")
+    rows = torch.empty((bh, -(-tq // BLOCK_Q), 2 * BLOCK_Q),
+                       dtype=torch.float32, device=q.device)
+    split = do.dtype == torch.float32
+    hi, lo = ((torch.empty((bh, tq, dim), dtype=torch.bfloat16,
+                           device=q.device) for _ in range(2))
+              if split else (do, None))
+    lib = _kernel_lib("flash_bwd_step")
+    with torch.cuda.device(q.device):
+        err = lib.gtt_flash_bwd_step_prep(
+            lse.data_ptr(), delta.data_ptr(), rows.data_ptr(),
+            do.data_ptr() if split else None, hi.data_ptr() if split
+            else None, lo.data_ptr() if split else None, bh, tq, dim,
+            *do.stride()[:2], _stream())
+    _raise_on(err, "flash_bwd_step_prep", lib)
+    prepare_bwd_step.launches += 1
+    return StepCotangent(hi, lo, delta, lse, rows, d)
+
+
+# Launches of the CUDA kernel in this process; counts nothing on the CPU.
+prepare_bwd_step.launches = 0
+
+
+def _row_strides(x: torch.Tensor):
+    """(row, t) strides of x (rows, t, d), as _layout gives them."""
+    return _layout(x[None])[0][1:]
+
+
+def _bwd_step_launch(q, k, v, cot: StepCotangent, qo, ko, dq, dk, dv,
+                     causal, kv_group, accumulate):
+    """One ring step on csrc/flash_bwd_step.cu into the f32 buffers dq, dk
+    and dv at the kernel's head_dim: the fused launch (bf16), or the two
+    FMA launches (f32). A block serves kv_group query heads when
+    accumulating (dk and dv per kv head), one otherwise (per query head)."""
     bh, tq, d = q.shape
     dim = kernel_head_dim(d)
     if dim != d:
-        q, k, v, do = _pad_head_dim(dim, q, k, v, do)
-    _check_step_kernel(q, k, v, delta=delta, lse=lse)
-    if do.device != q.device or do.stride(-1) != 1 or do.data_ptr() % 16 \
-            or any(st % 4 for st in do.stride()[:2]):
-        raise ValueError(f"do must lie on {q.device} with a contiguous last "
-                         f"dim, 16-byte aligned rows; got strides "
-                         f"{do.stride()}")
-    outs = outs(dim)
+        q, k, v = _pad_head_dim(dim, q, k, v)
+    _check_step_kernel(q, k, v, delta=cot.delta, lse=cot.lse)
+    # bf16 reads dO_hi (and dO_lo) and the packed rows; f32 the f32 dO.
+    bf16 = q.dtype == torch.bfloat16
+    if cot.do.dtype != q.dtype or (cot.rows is not None) != bf16 \
+            or (cot.do_lo is not None and not bf16) \
+            or cot.do.shape != (bh, tq, dim) or cot.do.device != q.device:
+        raise ValueError("the cotangent was prepared for another q "
+                         "(prepare_bwd_step)")
     lib = _kernel_lib("flash_bwd_step")
     with torch.cuda.device(q.device):
-        err = getattr(lib, fname)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), qo.data_ptr(), ko.data_ptr(),
-            *(x.data_ptr() for x in outs), KERNEL_DTYPES[q.dtype], bh,
-            kv_group, tq, k.shape[1], dim, int(causal), *floats,
-            *q.stride()[:2], *k.stride()[:2], *v.stride()[:2],
-            *do.stride()[:2], _stream())
-    _raise_on(err, fname, lib)
-    return _cut(dim, d, *outs)
-
-
-def flash_attention_bwd_dq_step(q, k, v, do, delta, lse, q_offset, k_offset,
-                                causal: bool = True, kv_group: int = 1):
-    """B7a: the dQ piece (bh, t_q, d) f32 of one key/value block at a
-    global position, from the completed forward's lse and delta =
-    rowsum(dO * O) (both (bh, t_q, 1) f32) and the f32 cotangent do.
-    CUDA tensors go through csrc/flash_bwd_step.cu, CPU tensors through
-    flash_attention_bwd_dq_step_plain."""
-    _check_step(q, k, v, kv_group)
-    _check_bwd_step(q, do, delta, lse)
-    bh = q.shape[0]
-    qo, ko = (_offsets(o, bh, q.device) for o in (q_offset, k_offset))
-    if q.device.type == "cpu":
-        return flash_attention_bwd_dq_step_plain(q, k, v, do, delta, lse, qo,
-                                                 ko, causal, kv_group)
-    bh, tq, d = q.shape
-    dq, = _bwd_step_launch(
-        "gtt_flash_bwd_dq_step", q, k, v, do, delta, lse, qo, ko,
-        lambda dim: (torch.empty((bh, tq, dim), dtype=torch.float32,
-                                 device=q.device),),
-        causal, kv_group, (_folded_scale(d, q.dtype), _dq_scale(d)))
-    flash_attention_bwd_dq_step.launches += 1
-    return dq
-
-
-flash_attention_bwd_dq_step.launches = 0
-
-
-def flash_attention_bwd_dkv_step(q, k, v, do, delta, lse, q_offset,
-                                 k_offset, causal: bool = True,
-                                 kv_group: int = 1):
-    """B7b: (dk, dv) of the key/value block against the local queries
-    only, per QUERY head: (bh, t_kv, d) f32 each, as the JAX kernel writes
-    them (group_sum_kv folds them to kv heads). CUDA tensors go through
-    csrc/flash_bwd_step.cu, CPU tensors through
-    flash_attention_bwd_dkv_step_plain."""
-    _check_step(q, k, v, kv_group)
-    _check_bwd_step(q, do, delta, lse)
-    bh = q.shape[0]
-    qo, ko = (_offsets(o, bh, q.device) for o in (q_offset, k_offset))
-    if q.device.type == "cpu":
-        return flash_attention_bwd_dkv_step_plain(q, k, v, do, delta, lse, qo,
-                                                  ko, causal, kv_group)
-    dk, dv = _bwd_step_launch(
-        "gtt_flash_bwd_dkv_step", q, k, v, do, delta, lse, qo, ko,
-        lambda dim: tuple(torch.empty((bh, k.shape[1], dim),
-                                      dtype=torch.float32, device=q.device)
-                          for _ in range(2)),
-        causal, kv_group, (_folded_scale(q.shape[2], q.dtype),))
-    flash_attention_bwd_dkv_step.launches += 1
-    return dk, dv
-
-
-flash_attention_bwd_dkv_step.launches = 0
+        err = lib.gtt_flash_bwd_step(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), cot.do.data_ptr(),
+            None if cot.do_lo is None else cot.do_lo.data_ptr(),
+            None if cot.rows is None else cot.rows.data_ptr(),
+            cot.lse.data_ptr(), cot.delta.data_ptr(), qo.data_ptr(),
+            ko.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            KERNEL_DTYPES[q.dtype], bh, kv_group if accumulate else 1,
+            kv_group, tq, k.shape[1], dim, int(causal), int(accumulate),
+            _folded_scale(d, q.dtype), _dq_scale(d), *_row_strides(q),
+            *_row_strides(k), *_row_strides(v), *cot.do.stride()[:2],
+            _stream())
+    _raise_on(err, "flash_bwd_step", lib)
+    flash_attention_bwd_step.launches += 1
 
 
 def flash_attention_bwd_step(q, k, v, do, delta, lse, q_offset, k_offset,
@@ -724,13 +747,101 @@ def flash_attention_bwd_step(q, k, v, do, delta, lse, q_offset, k_offset,
     key/value block at a global position, all f32; dq_partial sums across
     blocks to the full dQ, dk/dv are per-query-head partials against the
     local queries (sum them with group_sum_kv). q (bh, t_q, d); k, v
-    (bh / kv_group, t_kv, d); do (bh, t_q, d) f32; delta, lse (bh, t_q, 1)
-    f32. Two launches on the card: B7a, then B7b."""
-    dq = flash_attention_bwd_dq_step(q, k, v, do, delta, lse, q_offset,
-                                     k_offset, causal, kv_group)
-    dk, dv = flash_attention_bwd_dkv_step(q, k, v, do, delta, lse, q_offset,
-                                          k_offset, causal, kv_group)
-    return dq, dk, dv
+    (bh / kv_group, t_kv, d); do (bh, t_q, d) f32 (or in q's dtype);
+    delta, lse (bh, t_q, 1) f32.
+
+    CUDA tensors go through csrc/flash_bwd_step.cu (bf16: one fused launch
+    for B7a and B7b, after prepare_bwd_step's), CPU tensors through
+    flash_attention_bwd_step_plain; there is no fallback."""
+    _check_step(q, k, v, kv_group)
+    _check_bwd_step(q, do, delta, lse)
+    bh, tq, d = q.shape
+    qo, ko = (_offsets(o, bh, q.device) for o in (q_offset, k_offset))
+    if q.device.type == "cpu":
+        return flash_attention_bwd_step_plain(q, k, v, do, delta, lse, qo, ko,
+                                              causal, kv_group)
+    cot = prepare_bwd_step(q, do, delta, lse)
+    dim = kernel_head_dim(d)
+    # The fused kernel adds dQ into zeros; dk and dv are written whole.
+    dq = torch.zeros((bh, tq, dim), dtype=torch.float32, device=q.device)
+    dk, dv = (torch.empty((bh, k.shape[1], dim), dtype=torch.float32,
+                          device=q.device) for _ in range(2))
+    _bwd_step_launch(q, k, v, cot, qo, ko, dq, dk, dv, causal, kv_group,
+                     accumulate=False)
+    return _cut(dim, d, dq, dk, dv)
+
+
+# Launches of the step (fused bf16, or f32's two FMA kernels as one) in
+# this process, by both entries; counts nothing on the CPU.
+flash_attention_bwd_step.launches = 0
+
+
+def _check_into(q, k, dq, dk, dv, kv_group):
+    bh, tq, d = q.shape
+    width = kernel_head_dim(d)
+    for name, x, shape in (("dq", dq, (bh, tq, width)),
+                           ("dk", dk, (bh // kv_group, k.shape[1], width)),
+                           ("dv", dv, (bh // kv_group, k.shape[1], width))):
+        if tuple(x.shape) != shape or x.dtype != torch.float32 \
+                or not x.is_contiguous() or x.device != q.device:
+            raise ValueError(
+                f"{name} must be a contiguous f32 buffer {shape} on "
+                f"{q.device} (the kernel's head_dim); got {x.dtype} "
+                f"{tuple(x.shape)} on {x.device}")
+
+
+def flash_attention_bwd_step_into(q, k, v, cot: StepCotangent, q_offset,
+                                  k_offset, dq, dk, dv, causal: bool = True,
+                                  kv_group: int = 1) -> None:
+    """The ring backward's step, accumulating: adds this block's unscaled
+    dQ piece into dq (bh, t_q, w) and its dK and dV, summed over each GQA
+    group, into dk and dv (bh / kv_group, t_kv, w), all f32 buffers the
+    caller owns, w = kernel_head_dim(d) (columns past d stay 0).
+    flash_bwd_step_finish scales dq once at the end. cot is
+    prepare_bwd_step's, made once per backward.
+
+    CUDA tensors go through csrc/flash_bwd_step.cu (bf16: one fused launch
+    that adds into the buffers, dk and dv with no atomics), CPU tensors
+    through flash_attention_bwd_step_into_plain; there is no fallback."""
+    _check_step(q, k, v, kv_group)
+    _check_into(q, k, dq, dk, dv, kv_group)
+    bh = q.shape[0]
+    qo, ko = (_offsets(o, bh, q.device) for o in (q_offset, k_offset))
+    if q.device.type == "cpu":
+        flash_attention_bwd_step_into_plain(
+            q, k, v, cot.do, cot.delta, cot.lse, qo, ko, dq, dk, dv, causal,
+            kv_group)
+        return
+    _bwd_step_launch(q, k, v, cot, qo, ko, dq, dk, dv, causal, kv_group,
+                     accumulate=True)
+
+
+def flash_bwd_step_finish(dq: torch.Tensor, head_dim: int,
+                          dtype: torch.dtype) -> torch.Tensor:
+    """dQ from the unscaled f32 sums flash_attention_bwd_step_into left in
+    dq (bh, t_q, w): dq * (unrounded f32 1/sqrt(head_dim)) in `dtype`, cut
+    to head_dim. One launch of csrc/flash_bwd_step.cu's bwd_step_dq_kernel
+    on the card; plain PyTorch on the CPU."""
+    if dtype not in KERNEL_DTYPES or dq.dtype != torch.float32:
+        raise TypeError(f"dq must be f32 and dtype one of the kernels'; got "
+                        f"{dq.dtype}, {dtype}")
+    if dq.device.type == "cpu":
+        return (dq[..., :head_dim] * _dq_scale(head_dim)).to(dtype)
+    if not dq.is_contiguous():
+        raise ValueError("dq must be contiguous")
+    out = torch.empty(dq.shape, dtype=dtype, device=dq.device)
+    lib = _kernel_lib("flash_bwd_step")
+    with torch.cuda.device(dq.device):
+        err = lib.gtt_flash_bwd_step_dq(dq.data_ptr(), out.data_ptr(),
+                                        KERNEL_DTYPES[dtype],
+                                        _dq_scale(head_dim), dq.numel(),
+                                        _stream())
+    _raise_on(err, "flash_bwd_step_dq", lib)
+    flash_bwd_step_finish.launches += 1
+    return out[..., :head_dim]
+
+
+flash_bwd_step_finish.launches = 0
 
 
 def group_sum_kv(partials: torch.Tensor, kv_group: int) -> torch.Tensor:
@@ -753,19 +864,19 @@ def _step_scores(qs, kt, qo, ko, q0, k0, causal):
     return s
 
 
-def flash_attention_bwd_dq_step_plain(q, k, v, do, delta, lse, q_offset,
-                                      k_offset, causal: bool = True,
-                                      kv_group: int = 1):
-    """B7a's arithmetic in plain PyTorch: for each BLOCK_K key tile, s =
-    (q * scale in q's dtype) k^T and dp = do v^T in f32 (do is f32, so dp
-    is an f32 product), p = exp(s - lse), ds = p (dp - delta), dq += ds (in
-    k's dtype) k in f32; then dq times the unrounded f32 1/sqrt(d)."""
+def _dq_piece(q, k, v, do, delta, lse, q_offset, k_offset, causal,
+              kv_group):
+    """B7a's sums before the scale: for each BLOCK_K key tile, s = (q *
+    scale in q's dtype) k^T and dp = do v^T in f32 (do in f32, so dp is an
+    f32 product), p = exp(s - lse), ds = p (dp - delta), dq += ds (in k's
+    dtype) k in f32."""
     _check_step(q, k, v, kv_group)
     bh, tq, d = q.shape
     qo, ko = (_offsets(o, bh, q.device) for o in (q_offset, k_offset))
     kv_row = torch.arange(bh, device=q.device) // kv_group
     k, v = k[kv_row], v[kv_row]
     qs = q * torch.tensor(_folded_scale(d, q.dtype), dtype=q.dtype)
+    do = do.float()
     dq = torch.zeros((bh, tq, d), device=q.device)
     for k0 in range(0, k.shape[1], BLOCK_K):
         kt, vt = k[:, k0:k0 + BLOCK_K], v[:, k0:k0 + BLOCK_K]
@@ -773,14 +884,23 @@ def flash_attention_bwd_dq_step_plain(q, k, v, do, delta, lse, q_offset,
         dp = do @ vt.float().transpose(-1, -2)
         ds = p * (dp - delta)
         dq += ds.to(k.dtype).float() @ kt.float()
-    return dq * _dq_scale(d)
+    return dq
+
+
+def flash_attention_bwd_dq_step_plain(q, k, v, do, delta, lse, q_offset,
+                                      k_offset, causal: bool = True,
+                                      kv_group: int = 1):
+    """B7a's arithmetic in plain PyTorch: _dq_piece, then dq times the
+    unrounded f32 1/sqrt(d) (the TPU kernel's last grid step)."""
+    return _dq_piece(q, k, v, do, delta, lse, q_offset, k_offset, causal,
+                     kv_group) * _dq_scale(q.shape[2])
 
 
 def flash_attention_bwd_dkv_step_plain(q, k, v, do, delta, lse, q_offset,
                                        k_offset, causal: bool = True,
                                        kv_group: int = 1):
     """B7b's arithmetic in plain PyTorch, per query head: for each BLOCK_Q
-    query tile, p = exp(s - lse), dv += p^T do (p unrounded: do is f32),
+    query tile, p = exp(s - lse), dv += p^T do (p unrounded: do in f32),
     dp = do v^T, ds = p (dp - delta), dk += ds (in q's dtype)^T (q * scale
     in q's dtype), all in f32."""
     _check_step(q, k, v, kv_group)
@@ -789,6 +909,7 @@ def flash_attention_bwd_dkv_step_plain(q, k, v, do, delta, lse, q_offset,
     kv_row = torch.arange(bh, device=q.device) // kv_group
     k, v = k[kv_row], v[kv_row]
     qs = q * torch.tensor(_folded_scale(d, q.dtype), dtype=q.dtype)
+    do = do.float()
     dk = torch.zeros((bh, k.shape[1], d), device=q.device)
     dv = torch.zeros_like(dk)
     for q0 in range(0, tq, BLOCK_Q):
@@ -800,3 +921,40 @@ def flash_attention_bwd_dkv_step_plain(q, k, v, do, delta, lse, q_offset,
         ds = p * (dp - delta[:, sl])
         dk += ds.to(q.dtype).float().transpose(-1, -2) @ qt.float()
     return dk, dv
+
+
+def flash_attention_bwd_step_plain(q, k, v, do, delta, lse, q_offset,
+                                   k_offset, causal: bool = True,
+                                   kv_group: int = 1):
+    """flash_attention_bwd_step's arithmetic in plain PyTorch, the JAX
+    kernels' (B7a, then B7b): (dq_partial, dk, dv), dk/dv per query
+    head."""
+    dq = flash_attention_bwd_dq_step_plain(q, k, v, do, delta, lse, q_offset,
+                                           k_offset, causal, kv_group)
+    dk, dv = flash_attention_bwd_dkv_step_plain(q, k, v, do, delta, lse,
+                                                q_offset, k_offset, causal,
+                                                kv_group)
+    return dq, dk, dv
+
+
+def flash_attention_bwd_step_into_plain(q, k, v, do, delta, lse, q_offset,
+                                        k_offset, dq, dk, dv,
+                                        causal: bool = True,
+                                        kv_group: int = 1) -> None:
+    """flash_attention_bwd_step_into's arithmetic in plain PyTorch, in
+    place: dq[..., :d] += the unscaled dQ piece (_dq_piece; the scale comes
+    once, in flash_bwd_step_finish), and dk[..., :d], dv[..., :d] += B7b's
+    per-query-head partials summed over each GQA group in head order, as
+    the kernel's blocks walk their group's heads."""
+    d = q.shape[2]
+    dq[..., :d] += _dq_piece(q, k, v, do, delta, lse, q_offset, k_offset,
+                             causal, kv_group)
+    parts = flash_attention_bwd_dkv_step_plain(q, k, v, do, delta, lse,
+                                               q_offset, k_offset, causal,
+                                               kv_group)
+    for buf, part in zip((dk, dv), parts):
+        part = part.view(-1, kv_group, *part.shape[1:])
+        total = part[:, 0]
+        for j in range(1, kv_group):
+            total = total + part[:, j]
+        buf[..., :d] += total

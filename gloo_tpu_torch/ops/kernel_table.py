@@ -10,7 +10,7 @@ allgather) over a world of ranks on one card, 4 tensor parallelism
 (collective matmuls), 5 sequence and expert parallelism (ring-attention
 steps, all-to-all), 6 the ring allreduce variants (HBM-streaming,
 int8-wire, bidirectional). PRs 7-11 redesigned the kernels that lost most
-to one PyTorch call (PERF.md §6).
+to one PyTorch call (PERF.md §6). B7a and B7b are one fused launch.
 tests/test_torch_isolation.py holds this table against the JAX sources.
 """
 
@@ -43,10 +43,12 @@ KERNELS = (
            "ported: gloo_tpu_torch/csrc/flash_step.cu"),
     Kernel("B7a", _A, "_flash_bwd_dq_step_kernel", 588, 730,
            "flash_attention_bwd_step",
-           "ported: gloo_tpu_torch/csrc/flash_bwd_step.cu"),
+           "ported: gloo_tpu_torch/csrc/flash_bwd_step.cu; "
+           "redesigned, PR 12"),
     Kernel("B7b", _A, "_flash_bwd_dkv_step_kernel", 635, 765,
            "flash_attention_bwd_step",
-           "ported: gloo_tpu_torch/csrc/flash_bwd_step.cu"),
+           "ported: gloo_tpu_torch/csrc/flash_bwd_step.cu; "
+           "redesigned, PR 12"),
     Kernel("B5a", _O, "_matmul_rs_kernel", 38, 185, "matmul_reduce_scatter",
            "ported: gloo_tpu_torch/csrc/overlap.cu; redesigned, PR 7"),
     Kernel("B5b", _O, "_ag_matmul_kernel", 205, 294, "allgather_matmul",

@@ -36,8 +36,9 @@ finishes a chunk reads it from every member of its ring in that same order
 and adds it up in one pass (csrc/ring.cu, csrc/ring_variants.cu; B11's
 right half in the mirrored ring's order, B9 through TMA bulk copies), so
 their sums are the twins' bit for bit. The sum kernels B3 and B4a take
-SUM_DTYPES on the card and on the CPU alike; B9 and B11 bf16 and f32, B10
-f32. The allgather and the all-to-all move bytes only, in any dtype. The
+SUM_DTYPES on the card and on the CPU alike (the twins add uint16 and
+uint32 in a WIDENED type); B9 and B11 bf16 and f32, B10 f32. The
+allgather and the all-to-all move bytes only, in any dtype. The
 allgather's kernel and twin push each rank's chunk once into the output
 of every member of its ring; the all-to-all's twin moves the split axis
 to the front, makes the TPU kernel's block copies and concatenates, while
@@ -70,11 +71,14 @@ KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 # the rest too.
 SUM_DTYPES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2,
               torch.float64: 3, torch.int32: 4, torch.int64: 5,
-              torch.int8: 6, torch.uint8: 7, torch.int16: 8}
-# Types the reference sums that the port cannot: this PyTorch has no add
-# for them ("add_stub" not implemented for 'UInt16' / 'UInt32'), so neither
-# the twins nor the CPU path can hold a kernel's sum against anything.
-NO_TORCH_ADD = (torch.uint16, torch.uint32)
+              torch.int8: 6, torch.uint8: 7, torch.int16: 8,
+              torch.uint16: 9, torch.uint32: 10}
+# The unsigned types this PyTorch has no add, max or index_put for on the
+# CPU, by the signed type that holds any sum of KERNEL_MAX_RANKS of them.
+# The twins add in that type and cast back once: a sum mod 2**bits has the
+# same bits in any order, so that is the kernels' one wrapping add per
+# member in the type, bit for bit.
+WIDENED = {torch.uint16: torch.int32, torch.uint32: torch.int64}
 # Threads per block of csrc/ring.cu (kThreads) and the most ranks its peer
 # table holds (kMaxRanks).
 KERNEL_THREADS = 256
@@ -158,9 +162,12 @@ def _check_dtype(x: torch.Tensor, dtypes, what: str) -> None:
     """The same TypeError on the CPU and on the card, before any work."""
     if x.dtype not in dtypes:
         names = ", ".join(str(d).replace("torch.", "") for d in dtypes)
-        why = (f" (this PyTorch has no add for {x.dtype}, so no twin can "
-               f"hold a sum of it)" if x.dtype in NO_TORCH_ADD else "")
-        raise TypeError(f"{what} takes {names}; got {x.dtype}{why}")
+        raise TypeError(f"{what} takes {names}; got {x.dtype}")
+
+
+def widened(x: torch.Tensor) -> torch.Tensor:
+    """x in the type of WIDENED that holds its sums, else x itself."""
+    return x.to(WIDENED.get(x.dtype, x.dtype))
 
 
 def _kernel_layout(x: torch.Tensor, chunk_elems: int, *more: torch.Tensor):
@@ -374,8 +381,8 @@ def ring_allreduce_plain(x: torch.Tensor, axis_name: Axis,
     ranks, rows, cols = x.shape
     _check_rows(rows, n)
     my, _, left = _ring_tables(mesh, axis_name, x.device)
-    o = x.reshape(ranks, n, rows // n * cols).clone()
-    return _b3_walk(o, my, left, n).reshape(ranks, rows, cols)
+    o = widened(x).reshape(ranks, n, rows // n * cols).clone()
+    return _b3_walk(o, my, left, n).reshape(ranks, rows, cols).to(x.dtype)
 
 
 # ---- B4a: ring reduce-scatter ----
@@ -435,12 +442,12 @@ def ring_reduce_scatter_plain(x: torch.Tensor, axis_name: Axis,
     _check_rows(rows, n)
     my, _, left = _ring_tables(mesh, axis_name, x.device)
     ar = torch.arange(ranks, device=x.device)
-    work = x.reshape(ranks, n, rows // n * cols).clone()
+    work = widened(x).reshape(ranks, n, rows // n * cols).clone()
     for s in range(n - 1):
         sent = work[ar, (my - 1 - s) % n]
         recv = (my - 2 - s) % n
         work[ar, recv] = work[ar, recv] + sent[left]
-    return work[ar, my].reshape(ranks, rows // n, cols)
+    return work[ar, my].reshape(ranks, rows // n, cols).to(x.dtype)
 
 
 # ---- B4b: ring allgather ----

@@ -13,9 +13,9 @@ my * t_local .. (my + 1) * t_local - 1, my its index along `axis`.
   ``torch.autograd.Function``. The forward launches B6
   (``flash_attention_step``) once per ring step over every rank of the
   world at once (per-row offsets); the backward is the second ring pass of
-  JAX's custom VJP, one B7a and one B7b launch per step
-  (``flash_attention_bwd_step``), with the dK/dV carriers riding the
-  rotation home with their blocks.
+  JAX's custom VJP, one fused B7a + B7b launch per step
+  (``flash_attention_bwd_step_into``) that adds into the dQ buffer and the
+  dK/dV carriers, which ride the rotation home with their blocks.
 - ``ulysses_attention``: two all-to-alls (B8, through ``spmd.alltoall``)
   turn sequence shards into head shards, full-sequence attention runs over
   the world at once (B1 forward, B2 backward by default), and one more
@@ -29,8 +29,10 @@ import math
 import torch
 
 from gloo_tpu_torch.ops.attention import (flash_attention,
-                                          flash_attention_bwd_step,
-                                          flash_attention_step, group_sum_kv)
+                                          flash_attention_bwd_step_into,
+                                          flash_attention_step,
+                                          flash_bwd_step_finish,
+                                          kernel_head_dim, prepare_bwd_step)
 from gloo_tpu_torch.tpu import spmd
 from gloo_tpu_torch.tpu.mesh import Mesh
 
@@ -152,35 +154,40 @@ class _RingFlash(torch.autograd.Function):
         group = h // h_kv
         bh = ranks * b * h
         qf = q.reshape(bh, t_local, d)
-        # The step kernels read dO rows as 16-byte vectors; an expanded
-        # cotangent (of out.sum()) is copied once.
-        gf = g.float().reshape(bh, t_local, d).contiguous()
-        delta = (gf * out.float().reshape(bh, t_local, d)).sum(-1,
-                                                               keepdim=True)
+        # JAX takes the cotangent as f32. One in q's dtype (the model's: the
+        # cotangent of a bf16 out) holds the same values and goes as it is,
+        # so the kernel skips the f32 split's low-half passes.
+        gf = (g if g.dtype == q.dtype else g.float()).reshape(bh, t_local, d)
+        delta = (gf.float() * out.float().reshape(bh, t_local, d)).sum(
+            -1, keepdim=True)
+        cot = prepare_bwd_step(qf, gf, delta, lse)
         q_off, k_offs = _offset_tables(mesh, axis, b * h, t_local, q.device)
-        kv_shape = (ranks, b * h_kv, t_local, d)
+        # f32 carriers at the kernel's head_dim (padded columns stay 0).
+        width = kernel_head_dim(d)
+        kv_shape = (ranks, b * h_kv, t_local, width)
         dk_c = torch.zeros(kv_shape, device=q.device)
         dv_c = torch.zeros(kv_shape, device=q.device)
-        dq = torch.zeros((bh, t_local, d), device=q.device)
+        dq = torch.zeros((bh, t_local, width), device=q.device)
         k_blk, v_blk = k, v
         for i in range(n):
-            dq_p, dk_p, dv_p = flash_attention_bwd_step(
+            # One launch adds the step's dQ piece and its block's dK/dV,
+            # summed over each GQA group, into the carriers; then they shift
+            # with their block: after n shifts each block's gradient is
+            # home.
+            flash_attention_bwd_step_into(
                 qf, k_blk.reshape(-1, t_local, d),
-                v_blk.reshape(-1, t_local, d), gf, delta, lse, q_off,
-                k_offs[i], causal=ctx.causal, kv_group=group)
-            # The carriers take the step's partial, then shift: after n
-            # shifts each block's gradient is home.
-            dk_c = spmd.shift(dk_c + group_sum_kv(dk_p, group).view(kv_shape),
-                              axis, 1, mesh=mesh)
-            dv_c = spmd.shift(dv_c + group_sum_kv(dv_p, group).view(kv_shape),
-                              axis, 1, mesh=mesh)
-            dq = dq + dq_p
+                v_blk.reshape(-1, t_local, d), cot, q_off, k_offs[i], dq,
+                dk_c.view(-1, t_local, width), dv_c.view(-1, t_local, width),
+                causal=ctx.causal, kv_group=group)
+            dk_c = spmd.shift(dk_c, axis, 1, mesh=mesh)
+            dv_c = spmd.shift(dv_c, axis, 1, mesh=mesh)
             if i < n - 1:
                 k_blk = spmd.shift(k_blk, axis, 1, mesh=mesh)
                 v_blk = spmd.shift(v_blk, axis, 1, mesh=mesh)
-        return (dq.reshape(q.shape).to(q.dtype),
-                dk_c.reshape(k.shape).to(k.dtype),
-                dv_c.reshape(v.shape).to(v.dtype), None, None, None)
+        dq = flash_bwd_step_finish(dq, d, q.dtype)
+        return (dq.reshape(q.shape),
+                dk_c[..., :d].reshape(k.shape).to(k.dtype),
+                dv_c[..., :d].reshape(v.shape).to(v.dtype), None, None, None)
 
 
 def ring_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -191,8 +198,9 @@ def ring_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     online-softmax state, one B6 launch per ring step for the whole world.
     k/v may carry fewer heads (GQA: read through the head index, never
     replicated). Differentiable: the backward runs a second ring pass, one
-    B7a and one B7b launch per step, dQ summed locally and the per-block
-    dK/dV partials group-summed in f32 and carried home with their block.
+    fused B7a + B7b launch per step that adds dQ locally and the block's
+    dK/dV, group-summed in f32, into carriers that travel home with their
+    block.
 
     The JAX version's block_q / block_k / interpret have no counterpart:
     the tiles are the kernels' own (64 x 64), and the kernels are compiled,

@@ -10,9 +10,9 @@ row-major over the names as given (lax.axis_index of the tuple).
 
 The sum collectives ride the ring kernels of gloo_tpu_torch.ops.ring:
 ``allreduce`` and ``mean`` B3, ``reduce_scatter`` B4a (both in
-ring.SUM_DTYPES, on the card and on the CPU alike; a bool allreduce sums
-as int32 and returns int32 counts, as lax.psum does), ``allgather`` B4b
-(any dtype);
+ring.SUM_DTYPES, on the card and on the CPU alike, uint16 and uint32
+included; a bool allreduce sums as int32 and returns int32 counts, as
+lax.psum does), ``allgather`` B4b (any dtype);
 ``alltoall`` rides the all-to-all kernel B8 (one launch each on the card,
 over strided blocks: no copy around it).
 ``max``/``min``/``product``, ``broadcast``, ``scatter``, ``ppermute``,
@@ -65,10 +65,12 @@ def allreduce(x: torch.Tensor, axis: Axis, op: str = "sum", *,
             flat = torch.cat([flat, flat.new_zeros(mesh.size, pad)], 1)
         out = ring_allreduce(flat.view(mesh.size, n, -1), axis, mesh)
         return out.reshape(mesh.size, -1)[:, :x[0].numel()].reshape(x.shape)
-    if op == "max":
-        return x[_members(axis, mesh)].amax(1)
-    if op == "min":
-        return x[_members(axis, mesh)].amin(1)
+    if op in ("max", "min"):
+        # uint16 and uint32 have no amax/amin in this PyTorch: compared in
+        # ring.WIDENED's type, which holds every value exactly.
+        gathered = ring.widened(x)[_members(axis, mesh)]
+        return (gathered.amax(1) if op == "max"
+                else gathered.amin(1)).to(x.dtype)
     if op in ("product", "prod"):
         # No product collective: gather and reduce locally, as in JAX.
         return allgather(x, axis, tiled=False, mesh=mesh).prod(

@@ -13,7 +13,12 @@ Prints, for the gloo_tpu_torch found beside this script:
     the Ulysses path and spmd.allgather (B4b) at the DDP buffer's shape;
   - the time per call between CUDA events (chip_smoke.event_ms) of the
     entry forward, a training step, a DDP step, a dp x tp step and the
-    Ulysses and MoE paths' forward + backward.
+    Ulysses, ring-flash and MoE paths' forward + backward, and the host's
+    cost per ring-flash forward + backward by the CPU clock (as above);
+  - the device time (chip_smoke.device_profile) of the ring-flash path's
+    forward + backward, and of flash_attention_bwd_step per ring step at
+    that path's shape (every launch of the call: B7a and B7b, or the
+    fused kernel with its prep launch).
 
 It uses only the entry points, wrappers and chip_smoke helpers whose
 signatures earlier versions of the port share, so that the same script
@@ -31,7 +36,8 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from chip_smoke import card_line, event_ms  # noqa: E402
+from chip_smoke import (card_line, device_profile, event_ms,  # noqa: E402
+                        ring_steps)
 
 
 def host_us(fn, calls=500):
@@ -45,6 +51,27 @@ def host_us(fn, calls=500):
     spent = time.perf_counter() - t0
     torch.cuda.synchronize()
     return spent / calls * 1e6
+
+
+def bwd_step_device_ms(attn, args):
+    """Device ms per ring step of flash_attention_bwd_step (every launch
+    of the call, whatever the tree's kernels are) over the ring-flash
+    path's four steps, with an f32 torch.randn cotangent and the lse and
+    delta of the path's forward."""
+    from gloo_tpu_torch.parallel import sp
+    from gloo_tpu_torch.tpu import spmd
+
+    _, q, k, v, mesh = args
+    qf, steps, q_off, _ = ring_steps(sp, spmd, q, k, v, "seq", mesh, True)
+    with torch.no_grad():
+        out, lse = sp._ring_flash_forward(q, k, v, "seq", True, mesh)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        g = torch.randn(qf.shape, generator=gen, device="cuda")
+        delta = (g * out.float().reshape(qf.shape)).sum(-1, keepdim=True)
+        dev = device_profile(lambda: [attn.flash_attention_bwd_step(
+            qf, ks, vs, g, delta, lse, q_off, k_off)
+            for ks, vs, k_off in steps], 10)[0]
+    return None if dev is None else dev / len(steps)
 
 
 def main():
@@ -107,6 +134,11 @@ def main():
     result["dp_tp_step_ms"] = event_ms(lambda: fn(*args), 10)
     fn, args = sp_entry()["ulysses"]
     result["ulysses_path_ms"] = event_ms(lambda: fn(*args), 10)
+    fn, args = sp_entry()["ring_flash"]
+    result["ring_flash_path_ms"] = event_ms(lambda: fn(*args), 10)
+    result["ring_flash_host_us"] = host_us(lambda: fn(*args), calls=30)
+    result["ring_flash_device_ms"] = device_profile(lambda: fn(*args), 5)[0]
+    result["bwd_step_device_ms"] = bwd_step_device_ms(attn, args)
     fn, args = ep_entry()
     result["moe_path_ms"] = event_ms(lambda: fn(*args), 10)
 

@@ -1,5 +1,6 @@
-"""The ring-attention step twins (B6, B7a, B7b) against gloo_tpu's
-flash_attention_step / flash_attention_bwd_step.
+"""The ring-attention step twins (B6, and B7a + B7b) against gloo_tpu's
+flash_attention_step / flash_attention_bwd_step, and the ring backward's
+accumulating step (flash_attention_bwd_step_into) over a whole ring.
 
 On the CPU the port runs flash_attention_step_plain and the two backward
 step twins; they are held against the JAX step kernels in Pallas interpret
@@ -20,6 +21,12 @@ seen). bf16 (1.6e-2, 8e-3 x the largest |JAX value| of the tensor): p
 score that differs in its last bit can flip one bf16 ulp (2**-8 relative)
 of one term (2.2e-3 of the largest dk seen); m and l stay f32 and keep
 (1e-5, 1e-5) relative to their largest value.
+
+The accumulating step's twin adds the unscaled dQ piece and the
+group-summed dK/dV partials into f32 buffers; over a ring of 3 ranks its
+sums are held to the same TOL against the JAX step's pieces summed per
+rank and per block. A bf16 cotangent and its f32 cast give bitwise the
+same twin outputs.
 
 Tests marked `cuda` hold the kernels against the twins on the card.
 """
@@ -222,6 +229,120 @@ def test_bwd_step_ragged_tiles_match_jax():
         _close(a, r, "float32")
 
 
+def _ring_inputs(n, bh, group, t, dtype, causal, seed):
+    """A world of n ranks, each with bh query rows of t positions (rank r
+    at r t .. (r + 1) t - 1) and bh / group kv rows, as numpy-seeded JAX
+    arrays and their torch copies: q, k, v (n, rows, t, D), an f32
+    cotangent, and the lse and delta of the attention over the whole
+    sequence (materialized in f32 from the same values)."""
+    rng = np.random.RandomState(seed)
+    jd = jnp.dtype(dtype)
+    js = [jnp.asarray(rng.randn(n, rows, t, D).astype(np.float32), jd)
+          for rows in (bh, bh // group, bh // group)]
+    do = jnp.asarray(rng.randn(n, bh, t, D).astype(np.float32))
+    q, k, v = (_to_torch(x) for x in js)
+    glob = [x.transpose(0, 1).reshape(x.shape[1], n * t, D) for x in (q, k, v)]
+    rows = torch.arange(bh) // group
+    qs = (glob[0] * torch.tensor(attn._folded_scale(D, q.dtype),
+                                 dtype=q.dtype)).float()
+    s = qs @ glob[1][rows].float().transpose(-1, -2)
+    if causal:
+        pos = torch.arange(n * t)
+        s = s.masked_fill(pos[None, :] > pos[:, None], -float("inf"))
+    lse = torch.logsumexp(s, -1, keepdim=True)
+    out = torch.softmax(s, -1) @ glob[2][rows].float()
+    local = [x.view(bh, n, t, -1).transpose(0, 1) for x in (out, lse)]
+    dot = torch.from_numpy(np.array(do))
+    delta = (dot * local[0]).sum(-1, keepdim=True)
+    return js, (q, k, v), dot, local[1].contiguous(), delta
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("group", [1, 2])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t", [T, 96], ids=["t32", "t96"])
+def test_accumulating_twin_over_a_ring_matches_jax(dtype, group, causal, t):
+    """The ring backward's accumulating step: n = 3 steps of
+    flash_attention_bwd_step_into over the whole world at once (per-row
+    offsets, each rank's block src = r - i), adding into a dQ buffer and
+    into one dK/dV carrier per kv block, then flash_bwd_step_finish,
+    against the n x n calls of gloo_tpu's flash_attention_bwd_step
+    (interpret mode) whose dQ pieces each rank sums and whose dK/dV
+    partials (group_sum_kv) each block gathers. t 96 is ragged to the
+    twin's 64-row tiles (JAX at block 32). Tolerance: TOL (the f32 sums
+    of the n pieces in another order; bf16: ds rounds to bf16 inside
+    them)."""
+    n, bh = 3, 4
+    js, (q, k, v), do, lse, delta = _ring_inputs(n, bh, group, t, dtype,
+                                                 causal, 31)
+    jq, jk, jv = js
+    blocks = dict(block_q=min(t, 32 if t % 64 else 64),
+                  block_k=min(t, 32 if t % 64 else 64))
+    ref_dq = [0.0] * n
+    ref_dkv = [[0.0, 0.0] for _ in range(n)]
+    for r in range(n):
+        for i in range(n):
+            src = (r - i) % n
+            dq_p, dk_p, dv_p = jattn.flash_attention_bwd_step(
+                jq[r], jk[src], jv[src], jnp.asarray(do[r].numpy()),
+                jnp.asarray(delta[r].numpy()), jnp.asarray(lse[r].numpy()),
+                jnp.int32(r * t), jnp.int32(src * t), causal=causal,
+                interpret=True, kv_group=group, **blocks)
+            ref_dq[r] = ref_dq[r] + dq_p
+            ref_dkv[src][0] = ref_dkv[src][0] + jattn.group_sum_kv(dk_p, group)
+            ref_dkv[src][1] = ref_dkv[src][1] + jattn.group_sum_kv(dv_p, group)
+
+    width = attn.kernel_head_dim(D)
+    qf = q.reshape(n * bh, t, D)
+    cot = attn.prepare_bwd_step(qf, do.reshape(n * bh, t, D),
+                                delta.reshape(n * bh, t, 1),
+                                lse.reshape(n * bh, t, 1))
+    dq = torch.zeros((n * bh, t, width))
+    carriers = torch.zeros((2, n, bh // group, t, width))
+    q_off = torch.arange(n).repeat_interleave(bh) * t
+    for i in range(n):
+        src = (torch.arange(n) - i) % n
+        bufs = carriers[:, src].reshape(2, -1, t, width)
+        attn.flash_attention_bwd_step_into(
+            qf, k[src].reshape(-1, t, D), v[src].reshape(-1, t, D), cot,
+            q_off, src.repeat_interleave(bh) * t, dq, bufs[0], bufs[1],
+            causal=causal, kv_group=group)
+        carriers[:, src] = bufs.view(2, n, bh // group, t, width)
+    got_dq = attn.flash_bwd_step_finish(dq, D, torch.float32)
+    for r in range(n):
+        _close(got_dq.view(n, bh, t, D)[r], ref_dq[r], dtype)
+        for x in range(2):
+            assert not carriers[x, r, ..., D:].any()
+            _close(carriers[x, r, ..., :D], ref_dkv[r][x], dtype)
+
+
+@pytest.mark.parametrize("group", [1, 2])
+def test_bf16_cotangent_and_its_f32_cast_agree_bitwise(group):
+    """The ring backward passes a bf16 cotangent as it is: the twins take
+    it to f32 exactly, so both entries give bitwise what its f32 cast
+    gives."""
+    _, targs = _bwd_inputs(4, group, "bfloat16", True, T, 41)
+    q, k, v, do, delta, lse = targs
+    do16 = do.bfloat16()
+    fresh = [attn.flash_attention_bwd_step(q, k, v, x, delta, lse, T, T,
+                                           kv_group=group)
+             for x in (do16, do16.float())]
+    for a, b in zip(*fresh):
+        assert torch.equal(a, b)
+    sums = []
+    for x in (do16, do16.float()):
+        bufs = [torch.zeros((4, T, 64)), torch.zeros((4 // group, T, 64)),
+                torch.zeros((4 // group, T, 64))]
+        cot = attn.prepare_bwd_step(q, x, delta, lse)
+        attn.flash_attention_bwd_step_into(q, k, v, cot, T, 0, *bufs,
+                                           kv_group=group)
+        attn.flash_attention_bwd_step_into(q, k, v, cot, T, T, *bufs,
+                                           kv_group=group)
+        sums.append(bufs)
+    for a, b in zip(*sums):
+        assert a.any() and torch.equal(a, b)
+
+
 def test_step_rejects_what_it_does_not_take():
     q = torch.zeros((4, 8, 16))
     state = (torch.zeros((4, 8, 16)), torch.zeros((4, 8, 1)),
@@ -236,14 +357,16 @@ def test_step_rejects_what_it_does_not_take():
         attn.flash_attention_bwd_step(q, q, q, q.bfloat16(), *state[1:],
                                       0, 0)
     # The twins launch nothing.
-    before = (attn.flash_attention_step.launches,
-              attn.flash_attention_bwd_dq_step.launches,
-              attn.flash_attention_bwd_dkv_step.launches)
+    counters = (attn.flash_attention_step, attn.flash_attention_bwd_step,
+                attn.prepare_bwd_step, attn.flash_bwd_step_finish)
+    before = tuple(c.launches for c in counters)
     attn.flash_attention_step(q, q, q, *state, 8, 0)
     attn.flash_attention_bwd_step(q, q, q, q, *state[1:], 8, 0)
-    assert (attn.flash_attention_step.launches,
-            attn.flash_attention_bwd_dq_step.launches,
-            attn.flash_attention_bwd_dkv_step.launches) == before
+    cot = attn.prepare_bwd_step(q, q, *state[1:])
+    bufs = [torch.zeros((4, 8, 64)) for _ in range(3)]
+    attn.flash_attention_bwd_step_into(q, q, q, cot, 8, 0, *bufs)
+    attn.flash_bwd_step_finish(bufs[0], 16, torch.float32)
+    assert tuple(c.launches for c in counters) == before
 
 
 # ---- on the card ----
@@ -282,12 +405,56 @@ def test_step_kernels_match_twins_on_card(cuda_device, dtype, group):
     lse = (ours[1] + torch.log(ours[2].clamp_min(1e-30))).clamp_min(-1e4)
     do = torch.randn((bh, t, d), generator=gen, device=cuda_device)
     delta = torch.randn((bh, t, 1), generator=gen, device=cuda_device)
+    before = attn.flash_attention_bwd_step.launches
     got = attn.flash_attention_bwd_step(q, k, v, do, delta, lse, qo, ko,
                                         kv_group=group)
-    plain = (attn.flash_attention_bwd_dq_step_plain(
-        q, k, v, do, delta, lse, qo, ko, kv_group=group),
-        *attn.flash_attention_bwd_dkv_step_plain(q, k, v, do, delta, lse, qo,
-                                                 ko, kv_group=group))
+    assert attn.flash_attention_bwd_step.launches == before + 1
+    plain = attn.flash_attention_bwd_step_plain(q, k, v, do, delta, lse, qo,
+                                                ko, kv_group=group)
     for a, b in zip(got, plain):
         peak = float(b.abs().max())
         torch.testing.assert_close(a, b, rtol=2e-2, atol=1e-2 * peak)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("group", [1, 2])
+@pytest.mark.parametrize("cotangent", ["f32", "input"])
+def test_accumulating_step_matches_its_twin_on_card(cuda_device, dtype,
+                                                    group, cotangent):
+    """flash_attention_bwd_step_into on the card (bf16: the fused launch,
+    with an f32 cotangent's three-pass products or a cotangent in q's
+    dtype's) against its twin on the same carriers, two steps in a row,
+    then flash_bwd_step_finish. Tolerance: STEP_TOL's (2e-2, 1e-2 x the
+    largest |twin|)."""
+    gen = torch.Generator(cuda_device).manual_seed(7 + group)
+    bh, t, d = 8, 200, 64
+    q = torch.randn((bh, t, d), generator=gen, device=cuda_device).to(dtype)
+    k, v = (torch.randn((bh // group, t, d), generator=gen,
+                        device=cuda_device).to(dtype) for _ in range(2))
+    do = torch.randn((bh, t, d), generator=gen, device=cuda_device)
+    if cotangent == "input":
+        do = do.to(dtype)
+    lse = torch.rand((bh, t, 1), generator=gen, device=cuda_device) + 3.0
+    delta = torch.randn((bh, t, 1), generator=gen, device=cuda_device)
+    bufs = [torch.randn((bh, t, d), generator=gen, device=cuda_device)] + [
+        torch.randn((bh // group, t, d), generator=gen, device=cuda_device)
+        for _ in range(2)]
+    plain = [b.clone() for b in bufs]
+    cot = attn.prepare_bwd_step(q, do, delta, lse)
+    before = attn.flash_attention_bwd_step.launches
+    for q_off, k_off in ((t, 0), (t, t)):
+        attn.flash_attention_bwd_step_into(q, k, v, cot, q_off, k_off, *bufs,
+                                           kv_group=group)
+        attn.flash_attention_bwd_step_into_plain(q, k, v, do, delta, lse,
+                                                 q_off, k_off, *plain,
+                                                 kv_group=group)
+    torch.cuda.synchronize()
+    assert attn.flash_attention_bwd_step.launches == before + 2
+    for a, b in zip(bufs, plain):
+        torch.testing.assert_close(a, b, rtol=2e-2,
+                                   atol=1e-2 * float(b.abs().max()))
+    torch.testing.assert_close(
+        attn.flash_bwd_step_finish(bufs[0], d, dtype).float(),
+        (plain[0] * attn._dq_scale(d)).to(dtype).float(), rtol=2e-2,
+        atol=1e-2 * float(plain[0].abs().max()) * attn._dq_scale(d))

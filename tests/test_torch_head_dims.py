@@ -212,8 +212,9 @@ def test_backward_launch_plan_and_names():
 
 
 def test_step_kernels_pad_to_the_instance(fake_card):
-    """B6, B7a and B7b: d 40 runs on the d 64 instance with the scale of
-    40, and the f32 state and gradients come back at 40."""
+    """B6 and the fused B7a + B7b: d 40 runs on the d 64 instance with the
+    scale of 40 (after the prep launch that splits the padded f32 dO), and
+    the f32 state and gradients come back at 40."""
     bh, tq, d = 4, 64, 40
     q, k, v = _meta(bh, tq, d), _meta(bh, tq, d), _meta(bh, tq, d)
     f32 = torch.float32
@@ -229,10 +230,34 @@ def test_step_kernels_pad_to_the_instance(fake_card):
     dq, dk, dv = attn.flash_attention_bwd_step(q, k, v, do, m, l, 0, 0)
     assert dq.shape == dk.shape == dv.shape == (bh, tq, d)
     (n1, a1), (n2, a2) = fake_card.calls[-2:]
-    assert (n1, a1[14], a1[16:18]) == (
-        "gtt_flash_bwd_dq_step", 64,
+    assert (n1, a1[8]) == ("gtt_flash_bwd_step_prep", 64)
+    assert (n2, a2[19], a2[22:24]) == (
+        "gtt_flash_bwd_step", 64,
         (attn._folded_scale(d, torch.bfloat16), attn._dq_scale(d)))
-    assert (n2, a2[15]) == ("gtt_flash_bwd_dkv_step", 64)
+
+
+def test_step_cotangent_is_held_to_its_q(fake_card):
+    """The accumulating step launches with a cotangent prepared for its q
+    (bf16: dO_hi, dO_lo and the packed rows; f32: the f32 dO) and refuses
+    one prepared for a q of the other dtype before any launch."""
+    bh, t, d = 4, 64, 40
+    f32 = torch.float32
+    q = _meta(bh, t, d)
+    do, lse = _meta(bh, t, d, dtype=f32), _meta(bh, t, 1, dtype=f32)
+    bufs = [_meta(bh, t, 64, dtype=f32) for _ in range(3)]
+    cots = {torch.bfloat16: attn.prepare_bwd_step(q, do, lse, lse),
+            f32: attn.prepare_bwd_step(q.float(), do, lse, lse)}
+    assert [n for n, _ in fake_card.calls] == ["gtt_flash_bwd_step_prep"]
+    assert cots[f32].rows is None and cots[f32].do.shape == (bh, t, 64)
+    for dtype, cot in cots.items():
+        x = q.to(dtype)
+        attn.flash_attention_bwd_step_into(x, x, x, cot, 0, 0, *bufs)
+        other = q.to(f32 if dtype == torch.bfloat16 else torch.bfloat16)
+        with pytest.raises(ValueError, match="prepared for another q"):
+            attn.flash_attention_bwd_step_into(other, other, other, cot, 0,
+                                               0, *bufs)
+    launches = [(n, a[13]) for n, a in fake_card.calls[1:]]
+    assert launches == [("gtt_flash_bwd_step", 0), ("gtt_flash_bwd_step", 1)]
 
 
 @pytest.mark.parametrize("d,dim", [(32, 64), (96, 128)])

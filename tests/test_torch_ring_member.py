@@ -50,9 +50,11 @@ def member_order(x, axis, mesh, reduce_scatter):
     once."""
     n = mesh.shape[axis]
     ranks, rows, cols = x.shape
-    chunks = x.reshape(ranks, n, rows // n, cols)
+    # uint16 and uint32 add in ring.WIDENED's type and wrap once at the
+    # end: the same bits as one wrapping add per member.
+    chunks = ring.widened(x).reshape(ranks, n, rows // n, cols)
     out = torch.empty((ranks, 1 if reduce_scatter else n, rows // n, cols),
-                      dtype=x.dtype)
+                      dtype=chunks.dtype)
     written = torch.zeros(out.shape[:2], dtype=torch.int64)
     for r, (my, members) in enumerate(zip(mesh.ring_index(axis),
                                           mesh.ring_members(axis))):
@@ -65,7 +67,7 @@ def member_order(x, axis, mesh, reduce_scatter):
             out[rank, slot] = acc
             written[rank, slot] += 1
     assert bool((written == 1).all()), written
-    return out.reshape(ranks, -1, cols)
+    return out.reshape(ranks, -1, cols).to(x.dtype)
 
 
 def member_gather(x, axis, mesh):

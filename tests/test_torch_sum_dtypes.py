@@ -4,12 +4,12 @@ TpuProcessGroup.
 The reference's TpuProcessGroup (lax.psum, lax.psum_scatter) sums int8,
 uint8, int16, uint16 and uint32 in their own type, wrapping on overflow;
 a bool allreduce returns int32 counts and a bool reduce-scatter raises
-TypeError. The port sums int8, uint8 and int16 the same way on the ring
-kernels B3 and B4a (one wrapping add per member in the type, on the card
-and in the twins alike), and returns int32 counts for a bool allreduce.
-uint16 and uint32 raise TypeError: this PyTorch has no add for them
-("add_stub" not implemented for 'UInt16' / 'UInt32'), so no twin could hold
-a kernel's sum of them.
+TypeError. The port sums all five the same way on the ring kernels B3 and
+B4a (one wrapping add per member in the type on the card), and returns
+int32 counts for a bool allreduce. This PyTorch has no add, max or
+index_put for uint16 and uint32 on the CPU, so their twins (and the max)
+compute in int32 / int64 and cast back once: a sum mod 2**bits has the
+same bits in any order.
 
 Inputs are made with numpy from a seed and handed to both groups (4 ranks,
 a 4-device CPU mesh on the reference's side). Tolerance: none; integer
@@ -25,7 +25,7 @@ import torch
 from gloo_tpu_torch.ops import ring
 from gloo_tpu_torch.tpu import CudaProcessGroup, make_mesh, spmd
 
-SMALL = [np.int8, np.uint8, np.int16]
+SMALL = [np.int8, np.uint8, np.int16, np.uint16, np.uint32]
 
 
 @pytest.fixture(scope="module")
@@ -121,31 +121,32 @@ def test_bool_reduce_scatter_raises_in_both(groups):
 
 
 @pytest.mark.parametrize("dtype", [torch.uint16, torch.uint32], ids=str)
-def test_unsigned_wide_types_raise_and_say_why(dtype):
-    """The reference sums them; the port cannot add them at all, on any
-    device, and says so (the allgather, a byte move, takes them)."""
+def test_unsigned_wide_types_gather_as_they_lie(dtype):
+    """The allgather, a byte move, takes the wide unsigned types as it
+    takes every dtype: its twin's output is the plain gather, bit for
+    bit."""
     mesh = make_mesh({"x": 4}, devices=["cpu"] * 4)
-    meta = make_mesh({"x": 4}, devices=["meta"] * 4)
-    x = torch.ones((4, 8, 2), dtype=dtype)
-    with pytest.raises(NotImplementedError):
-        x + x
-    for m, t in ((mesh, x), (meta, x.to("meta"))):
-        for fn in (ring.ring_allreduce, ring.ring_reduce_scatter):
-            with pytest.raises(TypeError, match="no add for"):
-                fn(t, "x", m)
-    assert torch.equal(ring.ring_allgather(x, "x", mesh),
-                       ring.ring_allgather_plain(x, "x", mesh))
+    x = torch.from_numpy(_wrapping({torch.uint16: np.uint16,
+                                    torch.uint32: np.uint32}[dtype],
+                                   seed=5, cols=4).reshape(4, 8, 2))
+    out = ring.ring_allgather(x, "x", mesh)
+    assert out.dtype == dtype
+    assert torch.equal(out, ring.ring_allgather_plain(x, "x", mesh))
+    assert torch.equal(out, x.reshape(1, 32, 2).expand(4, -1, -1))
 
 
-@pytest.mark.parametrize("dtype", [torch.int8, torch.uint8, torch.int16],
-                         ids=str)
+TWIN_TYPES = {torch.int8: np.int8, torch.uint8: np.uint8,
+              torch.int16: np.int16, torch.uint16: np.uint16,
+              torch.uint32: np.uint32}
+
+
+@pytest.mark.parametrize("dtype", list(TWIN_TYPES), ids=str)
 def test_twins_add_once_per_step_in_the_type(dtype):
     """The twins' sums equal the wrapped exact sum: one add per member in
     the type, never in a wider one that would saturate or differ."""
     mesh = make_mesh({"x": 4}, devices=["cpu"] * 4)
-    np_dtype = {torch.int8: np.int8, torch.uint8: np.uint8,
-                torch.int16: np.int16}[dtype]
-    x = torch.from_numpy(_wrapping(np_dtype, seed=3).reshape(4, 8, 6))
+    x = torch.from_numpy(_wrapping(TWIN_TYPES[dtype], seed=3).reshape(
+        4, 8, 6))
     exact = x.long().sum(0).to(dtype)  # wraps once, mod 2**bits
     out = ring.ring_allreduce(x, "x", mesh)
     assert out.dtype == dtype
@@ -165,7 +166,8 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.int8, torch.uint8, torch.int16,
-                                   torch.bool], ids=str)
+                                   torch.uint16, torch.uint32, torch.bool],
+                         ids=str)
 @pytest.mark.parametrize("cols", [128, 7])
 def test_small_types_on_card_match_the_cpu(cuda_device, dtype, cols):
     """allreduce and reduce_scatter on B3/B4a (bool: allreduce as int32)
@@ -173,7 +175,8 @@ def test_small_types_on_card_match_the_cpu(cuda_device, dtype, cols):
     mesh = make_mesh({"x": 4}, devices=[cuda_device] * 4)
     cpu = make_mesh({"x": 4}, devices=["cpu"] * 4)
     gen = torch.Generator().manual_seed(cols)
-    x = torch.randint(-2 ** 15, 2 ** 15, (4, 16, cols), generator=gen)
+    bits = 31 if dtype == torch.uint32 else 15  # sums that wrap the type
+    x = torch.randint(-2 ** bits, 2 ** bits, (4, 16, cols), generator=gen)
     x = x.to(dtype) if dtype != torch.bool else x % 3 == 0
     calls = [("allreduce", lambda t, m: spmd.allreduce(t, "x", mesh=m)),
              ("allgather", lambda t, m: spmd.allgather(t, "x", mesh=m))]
