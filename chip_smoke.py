@@ -61,13 +61,16 @@ Phases, each of which raises on failure:
      plain versions and library yardsticks (kernel and whole call; B5a
      also with the backward's transposed w), of the fused MLP (per call
      and device time) and of the dp x tp step;
- 16. the ring-attention step kernels (B6 flash_attention_step, and B7a +
-     B7b as one fused launch: flash_attention_bwd_step with an f32
-     cotangent, and the ring backward's accumulating entry
-     flash_attention_bwd_step_into over the whole ring with the cotangent
-     in q's dtype) against their plain versions on the card at
-     STEP_CASES, every ring step of each (so whole, diagonal and hidden
-     blocks, and a carried state); the guard that B7 keeps an f32
+ 16. the ring-attention step kernels (B6 out of place,
+     flash_attention_step, and in place, flash_attention_step_into, the
+     two bitwise equal; B7a + B7b as one fused launch:
+     flash_attention_bwd_step with an f32 cotangent, and the ring
+     backward's accumulating entry flash_attention_bwd_step_into over the
+     whole ring with the cotangent in q's dtype) against their plain
+     versions on the card at STEP_CASES, every ring step of each (so
+     whole, diagonal and hidden blocks, and a carried state); that
+     in-place B6 leaves the query tiles that see no key untouched; the
+     guard that B7 keeps an f32
      cotangent's bits (GUARD_SHARE); and the all-to-all (B8) bitwise at
      A2A_CASES, three calls each: blocks of rows (the leading axis) and
      strided blocks (both Ulysses exchanges, a non-leading split along
@@ -82,7 +85,10 @@ Phases, each of which raises on failure:
      with the flagship's MLP as each rank's expert; kept tokens against
      their expert's MLP applied directly, dropped tokens exactly zero, the
      gradients against a dense reference;
- 19. times of B6 and the fused B7 at the long-context path's ring steps
+ 19. times of B6 (in place, as the path launches it, beside its byte
+     bounds with only the rows that see a key and with every row's
+     state, its operation bound and the out-of-place calls) and the fused
+     B7 at the long-context path's ring steps
      (B7 with the path's bf16 cotangent and with an f32 one; its library
      yardstick, one call of aten._scaled_dot_product_flash_attention_
      backward per step, checked against the step's gradients first) and
@@ -94,8 +100,8 @@ Phases, each of which raises on failure:
      ring_allreduce_q8, B11 ring_allreduce_bidir) against their plain
      versions on the card, bitwise, at VARIANT_CASES (2 to 8 ranks, the
      dry run's shapes, B9's partial tiles, bf16, a 2 x 2 mesh, the path's
-     shape), three calls in a row each; B9 bitwise B3, B11's left half
-     bitwise B3 on those columns,
+     shape, B10 past its register form's cap), three calls in a row each;
+     B9 bitwise B3, B11's left half bitwise B3 on those columns,
      B10 within Q8_REL of the f64 sum and bitwise equal on every rank; and
      the sum collectives at int32, f16, f64, int64, int8, uint8, int16,
      uint16, uint32 and bool on B3, B4a and B4b against the same calls on
@@ -108,7 +114,7 @@ Phases, each of which raises on failure:
      gradient buffer of a DDP step, printed;
  22. times of B9, B10 and B11 at the path's shape against their bound,
      plain versions, B3 at the same shape and the library yardstick; of
-     B9, B11, B3 and B4a at 64 MiB per rank (kernels and whole calls
+     B9, B10, B11, B3 and B4a at 64 MiB per rank (kernels and whole calls
      against their bounds; B3 and B4a also plain versions and
      yardsticks); of B9 at the path's shape and at 64 MiB per rank with
      each (tile, stages) of HBM_PROBES, bitwise B3 at each; and of B3 and
@@ -310,11 +316,16 @@ SP_TOL = 2e-2
 # dense f32 reference from the same bf16 inputs, as |a - b| / |b|.
 EP_TOL = 2e-2
 
+# B10's case past the register form's cap: 16 MiB per rank over a ring of
+# 4, chunks of 1,048,576 f32 (262,144 16-byte units) where the resident
+# grid holds at most Q8_REGISTER_UNITS units a thread in registers (the
+# launch runs the out-of-register form; phase 20 checks that it does).
+Q8_PAST_CAP_ROWS = 16384
 # (name, variant, mesh axes, ring axis, rows per rank, cols, dtype): the
 # ring allreduce variants against their plain versions, bitwise. At n = 8
 # the dry run's shapes (__graft_entry__.py:371-373); B9's partial tiles at
 # tests/test_pallas_ring.py:76's shapes; "path" the ring-variant path's
-# gradient buffer.
+# gradient buffer; "past_cap" B10's out-of-register form.
 VARIANT_CASES = (
     [(f"P{n}_f32", variant, {"x": n}, "x", per, cols, torch.float32)
      for n in (2, 3, 4, 8)
@@ -328,7 +339,9 @@ VARIANT_CASES = (
         torch.float32)
        for axis in ("data", "model") for variant in ("hbm", "q8", "bidir")]
     + [("path", variant, {"data": 4}, "data", 6912, 256, torch.float32)
-       for variant in ("hbm", "q8", "bidir")])
+       for variant in ("hbm", "q8", "bidir")]
+    + [("past_cap", "q8", {"data": 4}, "data", Q8_PAST_CAP_ROWS, 256,
+        torch.float32)])
 # B10 against the f64 sum, max |q8 - sum| / max |sum|: the JAX package's
 # criterion (tests/test_pallas_ring.py:119, __graft_entry__.py:362).
 Q8_REL = 0.05
@@ -933,7 +946,10 @@ def step_close(a, b, dtype, state=False):
 
 def step_cases(attn, sp, spmd, make_mesh, gen):
     """Phase 16, the step kernels: every ring step of each STEP_CASES
-    world, B6 from the state its previous step left; the fused B7a + B7b
+    world, B6 from the state its previous step left, out of place
+    (flash_attention_step) and in place (flash_attention_step_into, on a
+    copy of that state), each against the twin and the two bitwise equal;
+    the fused B7a + B7b
     from the completed forward's lse, fresh (flash_attention_bwd_step)
     with an f32 cotangent, and accumulating (flash_attention_bwd_step_into,
     the ring backward's entry) with the cotangent in q's dtype, as sp_step
@@ -958,15 +974,23 @@ def step_cases(attn, sp, spmd, make_mesh, gen):
         for i, (ks, vs, k_off) in enumerate(steps):
             got = attn.flash_attention_step(qf, ks, vs, *state, q_off, k_off,
                                             causal, group)
+            into = [x.clone() for x in state]
+            attn.flash_attention_step_into(qf, ks, vs, *into, q_off, k_off,
+                                           causal, group)
             ref = attn.flash_attention_step_plain(qf, ks, vs, *state, q_off,
                                                   k_off, causal, group)
             torch.cuda.synchronize()
-            for j, (a, r) in enumerate(zip(got, ref)):
-                err, ok = step_close(a, r, dtype, state=j > 0)
-                if j == 0:
-                    worst[0] = max(worst[0], err)
-                if not ok:
-                    bad.append(f"B6 step {i} {('acc', 'm', 'l')[j]}")
+            for j, (a, b_, r) in enumerate(zip(got, into, ref)):
+                for form, x in (("", a), (" in place", b_)):
+                    err, ok = step_close(x, r, dtype, state=j > 0)
+                    if j == 0:
+                        worst[0] = max(worst[0], err)
+                    if not ok:
+                        bad.append(f"B6{form} step {i} "
+                                   f"{('acc', 'm', 'l')[j]}")
+                if not torch.equal(a, b_):
+                    bad.append(f"B6 step {i} {('acc', 'm', 'l')[j]}: in "
+                               f"place and out of place differ")
             state = got
         l_safe = state[2].clamp_min(1e-30)
         lse = state[1] + torch.log(l_safe)
@@ -1066,6 +1090,49 @@ def unrounded_guard(attn, sp, spmd, make_mesh, gen):
     if not err <= GUARD_SHARE * moved:
         raise AssertionError("the fused B7 rounds the f32 cotangent away")
     return err, moved
+
+
+def hidden_tiles_untouched(attn, sp, spmd, make_mesh, gen):
+    """Phase 16: that in-place B6 leaves the query tiles that see no key
+    of the block as they were. At pathS's last ring step (three of its
+    four ranks see none of the arriving keys) the state holds a sentinel
+    that a step would rewrite (acc 5, m -inf, l 7); the hidden tiles must
+    keep it bit for bit, and every other tile must take the twin's
+    values."""
+    name, ranks, b, h, h_kv, t, d, dtype, causal = STEP_CASES[0]
+    dev = torch.device("cuda")
+    mesh = make_mesh({"seq": ranks}, devices=[dev] * ranks)
+    q = torch.randn((ranks, b, h, t, d), generator=gen, device=dev)
+    k, v = (torch.randn((ranks, b, h_kv, t, d), generator=gen,
+                        device=dev) for _ in range(2))
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    qf, steps, q_off, group = ring_steps(sp, spmd, q, k, v, "seq", mesh,
+                                         causal)
+    ks, vs, k_off = steps[-1]
+    bh = qf.shape[0]
+    bufs = [torch.full((bh, t, d), 5.0, device=dev),
+            torch.full((bh, t, 1), -math.inf, device=dev),
+            torch.full((bh, t, 1), 7.0, device=dev)]
+    ref = attn.flash_attention_step_plain(qf, ks, vs, *bufs, q_off, k_off,
+                                          causal, group)
+    keep = [x.clone() for x in bufs]
+    attn.flash_attention_step_into(qf, ks, vs, *bufs, q_off, k_off, causal,
+                                   group)
+    torch.cuda.synchronize()
+    seen = attn.visible_tiles(q_off, k_off, t, causal)
+    hidden_ok = all(torch.equal(a[~seen.expand_as(a)],
+                                kp[~seen.expand_as(a)])
+                    for a, kp in zip(bufs, keep))
+    seen_ok = all(step_close(a[seen.expand_as(a)], r[seen.expand_as(a)],
+                             dtype, state=j > 0)[1]
+                  for j, (a, r) in enumerate(zip(bufs, ref)))
+    hidden = int((~seen).sum())
+    print(f"B6 in place at {name}'s last ring step: {hidden} of {bh * t} "
+          f"query rows in tiles that see no key, left untouched "
+          f"{hidden_ok}; the others within STEP_TOL of the twin {seen_ok}")
+    if not (hidden and hidden_ok and seen_ok):
+        raise AssertionError("in-place B6 touched a hidden tile, or missed "
+                             "a visible one")
 
 
 def alltoall_cases(ring, make_mesh, gen):
@@ -1226,6 +1293,26 @@ def path_time(label, fn, items=8):
     return ms, dev
 
 
+def b6_bytes(qf, steps, q_off, only_seen):
+    """B6's bytes per launch over the causal ring steps, on average: q
+    (bf16), the f32 state (acc, m, l) read and written, and k and v. With
+    `only_seen`, those of the queries that see a key of the step's block
+    and of the keys some query sees (the in-place launch leaves the rest
+    alone); else every row's and every key's."""
+    bh, t, d = qf.shape
+    elt = qf.element_size()
+    group = bh // steps[0][0].shape[0]
+    total = 0
+    for _, _, k_off in steps:
+        seen = (q_off.long() + t - k_off.long()).clamp(0, t).cpu()
+        if not only_seen:
+            seen = torch.full_like(seen, t)
+        keys = seen.view(-1, group).amax(1)  # per kv row
+        total += int(seen.sum()) * (elt * d + 2 * 4 * (d + 2))
+        total += int(keys.sum()) * 2 * elt * d
+    return total // len(steps)
+
+
 def b7_bound(qf, steps, q_off, pairs, cot_bytes, passes):
     """The fused B7's least time per launch over the ring steps: the bytes
     of the rows whose block some query sees (q, the cotangent, the lse and
@@ -1368,7 +1455,6 @@ def slice5_times(attn, sp, spmd, ring, paths, ep, card):
         states.append(state)
         state = attn.flash_attention_step(qf, ks, vs, *state, q_off, k_off)
     pairs = sum(visible_pairs(q_off, k_off, t, True) for _, _, k_off in steps)
-    elt, kv_rows = qf.element_size(), steps[0][0].shape[0]
     print(f"ring-attention step times at the long-context path's {n} ring "
           f"steps ({bh} rows x t {t}, d {d}, bf16, causal; {pairs} visible "
           f"(q, k) pairs over the {n} launches) on {card}:")
@@ -1377,23 +1463,38 @@ def slice5_times(attn, sp, spmd, ring, paths, ep, card):
         return lambda: [fn(qf, ks, vs, *st, q_off, k_off)
                         for (ks, vs, k_off), st in zip(steps, states)]
 
-    state_bytes = 4 * bh * t * (d + 2)
+    def b6_into(fn):
+        # Each step's state in buffers of its own, folded into in place.
+        bufs = [[x.clone() for x in st] for st in states]
+        return lambda: [fn(qf, ks, vs, *st, q_off, k_off)
+                        for (ks, vs, k_off), st in zip(steps, bufs)]
+
     rows = {}
     with torch.no_grad():
-        ms = timed_kernel("flash_step kernel",
-                          b6(attn.flash_attention_step), "flash_step_kernel")
-        whole = timed(f"flash_step {n} whole calls (wrapper, kernel)",
-                      b6(attn.flash_attention_step))
-        plain_ms = timed(f"flash_step plain, {n} steps",
-                         b6(attn.flash_attention_step_plain), iters=3)
-    nbytes = elt * d * t * (bh + 2 * kv_rows) + 2 * state_bytes
-    bound, bound_by = _bound(n * nbytes, 4 * d * pairs, torch.bfloat16)
-    bound /= n
+        ms = timed_kernel("flash_step kernel, in place (the path's form)",
+                          b6_into(attn.flash_attention_step_into),
+                          "flash_step_wgmma_kernel")
+        whole = timed(f"flash_step_into {n} whole calls (wrapper, kernel)",
+                      b6_into(attn.flash_attention_step_into))
+        timed(f"flash_step {n} whole calls, out of place (state copies, "
+              f"kernel)", b6(attn.flash_attention_step))
+        plain_ms = timed(f"flash_step_into plain, {n} steps",
+                         b6_into(attn.flash_attention_step_into_plain),
+                         iters=3)
+    every, seen = (b6_bytes(qf, steps, q_off, only_seen) for only_seen
+                   in (False, True))
+    flops = 4 * d * pairs // n
+    old_bound = _bound(every, flops, torch.bfloat16)
+    bound, bound_by = _bound(seen, flops, torch.bfloat16)
     plain_ms = None if plain_ms is None else plain_ms / n
     print(f"  flash_step: {ms} ms per launch (whole calls {whole} ms per "
-          f"{n}), plain {plain_ms} ms per step; bound {bound:.6f} ms per "
-          f"launch ({bound_by}: {nbytes} bytes, {4 * d * pairs // n} bf16 "
-          f"operations per launch on average); library: none (no PyTorch "
+          f"{n}), plain {plain_ms} ms per step; bound in place "
+          f"{bound:.6f} ms per launch ({bound_by}: {seen} bytes of the "
+          f"rows that see a key, {flops} bf16 operations per launch on "
+          f"average, "
+          f"{flops / PEAK_FLOPS[torch.bfloat16] * 1e3:.6f} ms of them); "
+          f"with every row's state read and written {old_bound[0]:.6f} ms "
+          f"({old_bound[1]}: {every} bytes); library: none (no PyTorch "
           f"call folds one block into carried state)")
     rows["flash_step"] = (ms, plain_ms, None, bound, bound_by)
     rows["flash_bwd_step"] = b7_times(attn, qf, steps, q_off, out, lse,
@@ -1470,7 +1571,9 @@ def variant_cases(ring, make_mesh, gen):
     """Phase 20: B9, B10 and B11 against their plain versions at
     VARIANT_CASES, RING_RUNS calls in a row, each bitwise, every rank of a
     ring bitwise equal; B9 against B3 and B11's left half against B3,
-    bitwise; B10 within Q8_REL of the f64 sum. Returns {variant: max
+    bitwise; B10 within Q8_REL of the f64 sum, in the form its chunk
+    calls for (the out-of-register one at "past_cap" only). Returns
+    {variant: max
     |kernel - plain|} at the path's shape."""
     dev = torch.device("cuda")
     failed, errs = [], {}
@@ -1491,8 +1594,17 @@ def variant_cases(ring, make_mesh, gen):
             bad.append("ranks of a ring differ")
         exact = x.double()[torch.tensor(mesh.ring_members(axis))].sum(1)
         rel = float((out.double() - exact).abs().max() / exact.abs().max())
-        if variant == "q8" and not rel < Q8_REL:
-            bad.append(f"rel {rel:.3e} to the sum")
+        form = ""
+        if variant == "q8":
+            if not rel < Q8_REL:
+                bad.append(f"rel {rel:.3e} to the sum")
+            resident = next(iter(ring._var_max_blocks[
+                (ring._Q8, 0, 0)].values()))
+            regs = ring.q8_in_registers(rows // axes[axis] * cols // 4,
+                                        ranks, resident)
+            form = f", {'register' if regs else 'out-of-register'} form"
+            if regs == (name == "past_cap"):
+                bad.append("the other form ran")
         h = cols // 2
         if variant == "hbm" and not torch.equal(
                 out, ring.ring_allreduce(x, axis, mesh)):
@@ -1504,9 +1616,9 @@ def variant_cases(ring, make_mesh, gen):
         diff = max(float((o.double() - ref.double()).abs().max())
                    for o in outs)
         print(f"ring_allreduce_{variant} {name}: {ranks} ranks, ring "
-              f"{axis!r} of {axes[axis]}, {(rows, cols)} {str(dtype)[6:]}, "
-              f"{RING_RUNS} runs: max |kernel - plain| {diff:.3e}, max "
-              f"|out - sum| / max |sum|"
+              f"{axis!r} of {axes[axis]}, {(rows, cols)} {str(dtype)[6:]}"
+              f"{form}, {RING_RUNS} runs: max |kernel - plain| {diff:.3e}, "
+              f"max |out - sum| / max |sum|"
               f" {rel:.3e}{'; FAILED: ' + ', '.join(bad) if bad else ''}")
         failed += [f"{variant} {name}: {b}" for b in bad]
         if name == "path":
@@ -1673,9 +1785,10 @@ def variant_times(ring, paths, card):
     (bytes: each rank's input read once and output written once, 2 P S),
     plain versions, B3 at the same shape and the yardstick (for B9 and B11
     B3's: x.sum(0) then expand(P).contiguous(); none for B10: no PyTorch
-    call computes an int8-wire sum); B9, B11, B3 and B4a at 64 MiB per
-    rank; B9 by HBM_PROBES. Returns {variant: (ms, plain ms, library ms or
-    None, bound ms, bound by)}."""
+    call computes an int8-wire sum); B9, B10, B11, B3 and B4a at 64 MiB
+    per rank (B10 in its out-of-register form); B9 by HBM_PROBES.
+    Returns {variant: (ms, plain ms, library ms or None, bound ms, bound
+    by)}."""
     _, x, mesh = paths["hbm"][1]
     ranks = x.shape[0]
     per_rank = x[0].numel() * x.element_size()
@@ -1710,10 +1823,11 @@ def variant_times(ring, paths, card):
         per_big = big[0].numel() * big.element_size()
         big_bytes = 2 * ranks * per_big
         big_bound, by = _bound(big_bytes, 0, torch.float32)
-        print(f"B9, B11 and B3 at 64 MiB per rank ({ranks} x "
+        print(f"B9, B10, B11 and B3 at 64 MiB per rank ({ranks} x "
               f"{tuple(big.shape[1:])} f32), bound {big_bound:.6f} ms ({by}: "
               f"{big_bytes} bytes):")
-        for name, label in (("hbm", "hbm_kernel"), ("bidir", "bidir_kernel")):
+        for name, label in (("hbm", "hbm_kernel"), ("q8", "q8_kernel"),
+                            ("bidir", "bidir_kernel")):
             fn = getattr(ring, f"ring_allreduce_{name}")
             timed_kernel(f"ring_allreduce_{name} kernel, 64 MiB per rank",
                          lambda fn=fn: fn(big, "data", mesh), label)
@@ -2461,6 +2575,7 @@ def main():
     # Phase 16: the ring-attention step kernels and the all-to-all against
     # their plain versions.
     step_errs = step_cases(attn, sp, spmd, make_mesh, gen)
+    hidden_tiles_untouched(attn, sp, spmd, make_mesh, gen)
     unrounded_guard(attn, sp, spmd, make_mesh, gen)
     a2a_err = alltoall_cases(ring, make_mesh, gen)
 

@@ -585,9 +585,9 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
           for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
         }
-        warp_product<T, D, kCT, kLd, 1, 1, kLd>(s, ks + warp * 16 * kLd,
+        warp_fma<D, kCT, kLd, 1, 1, kLd>(s, ks + warp * 16 * kLd,
                                                 qs + n0 * kLd);
-        warp_product<T, D, kCT, kLd, 1, 1, kLd>(dp, vs + warp * 16 * kLd,
+        warp_fma<D, kCT, kLd, 1, 1, kLd>(dp, vs + warp * 16 * kLd,
                                                 os + n0 * kLd);
 #pragma unroll
         for (int j = 0; j < kCT; ++j) {
@@ -614,9 +614,9 @@ __global__ void __launch_bounds__(kThreads)
       __syncwarp();  // the warp's own p^T and ds^T rows are written
 
       // dV += p^T dO and dK += ds^T (q * scale) over the tile's queries.
-      warp_product<T, kBlockQ, kDT, kLdS, 1, kLd, 1>(
+      warp_fma<kBlockQ, kDT, kLdS, 1, kLd, 1>(
           dv, pts + warp * 16 * kLdS, os);
-      warp_product<T, kBlockQ, kDT, kLdS, 1, kLd, 1>(
+      warp_fma<kBlockQ, kDT, kLdS, 1, kLd, 1>(
           dk, dsts + warp * 16 * kLdS, qs);
       __syncthreads();  // every warp's ds^T rows are written
 
@@ -629,7 +629,7 @@ __global__ void __launch_bounds__(kThreads)
         for (int j = 0; j < 4; ++j) {
           dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
         }
-        warp_product<T, kBlockK, 4, 1, kLdS, kLd, 1>(dq, dsts + warp * 16,
+        warp_fma<kBlockK, 4, 1, kLdS, kLd, 1>(dq, dsts + warp * 16,
                                                      ks + c0);
 #pragma unroll
         for (int i = 0; i < 2; ++i) {

@@ -890,21 +890,6 @@ cudaError_t launch_f32(const Params& p, int rows_out, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// A {d, t, rows} map of a (rows, t, d) operand with d contiguous and row
-// and t strides in elements; box {64 or 32, 64, 1}.
-cudaError_t encode_rows(CUtensorMap* map, int dtype, const void* base, int d,
-                        int t, int rows, long long st, long long sr,
-                        int box_d) {
-  const int elt = dtype == 0 ? 2 : 4;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
-                              static_cast<cuuint64_t>(t),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(st) * elt,
-                                 static_cast<cuuint64_t>(sr) * elt};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_d), kBlockQ, 1};
-  return encode(map, dtype, 3, base, dims, strides, box);
-}
-
 template <int D, bool kLo>
 cudaError_t launch_bf16(TmaParams& p, const void* q, const void* k,
                         const void* v, const void* dout, const void* dout_lo,

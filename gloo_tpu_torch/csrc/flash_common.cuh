@@ -1,15 +1,15 @@
 // Helpers shared by the flash-attention kernels (flash_fwd.cu,
 // flash_bwd.cu, flash_step.cu and flash_bwd_step.cu): element conversions,
-// bf16 packing, the m16n8k16 mma.sync product, a warp's product of two
-// shared-memory tiles, 16-byte tile loads into shared memory, and the
-// one-time dynamic shared-memory attribute. flash_fwd.cu's bf16 kernel
-// runs its products on wgmma over TMA-staged tiles (hopper.cuh) and takes
-// from here the packing of p, the stores and the attribute; its f32 kernel
-// the tile loads.
+// e^x for the bf16 kernels, bf16 packing, a warp's f32 product of two
+// shared-memory tiles on the FMA units, 16-byte tile loads into shared
+// memory, and the one-time dynamic shared-memory attribute. The bf16
+// kernels run their products on wgmma over TMA-staged tiles (hopper.cuh)
+// and take from here fast_exp, the packing of p, the stores and the
+// attribute; the f32 kernels the tile loads and warp_fma.
 //
-// Fragment layout of mma.sync m16n8k16 (bf16 in, f32 accumulate), which
-// the f32 FMA paths copy so that both types share their index arithmetic:
-// lane (g = lane / 4, c = lane % 4) holds
+// The f32 products use the fragment layout of mma.sync m16n8k16 (and of
+// wgmma's accumulator per warp), so that both types share their index
+// arithmetic: lane (g = lane / 4, c = lane % 4) holds
 //   A (16 x 16, row major): rows g and g + 8, columns 2c, 2c + 1, 2c + 8,
 //     2c + 9;
 //   B (16 x 8, column major): rows 2c, 2c + 1, 2c + 8, 2c + 9 of column g;
@@ -22,7 +22,6 @@
 
 #include <atomic>
 #include <cstdint>
-#include <type_traits>
 
 namespace gtt {
 
@@ -43,53 +42,22 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 }
 
 // e^x as one multiply and the SFU's 2^x (ex2.approx: ~2 ulps in f32, and
-// 0 for x = -inf), for the bf16 kernels (B1, B2). The precise expf takes
-// several more instructions per score, which the softmax of every key tile
-// pays: in the chain of one block, that bounded B1 at long sequences. p is
-// rounded to bf16 right after, and the tolerances against the plain twins'
-// torch.exp hold unchanged (tests/test_torch_attention.py's TOL,
-// chip_smoke.py's KERNEL_TOL and BWD_TOL).
+// 0 for x = -inf), for the bf16 kernels (B1, B2, B6, B7). The precise
+// expf takes several more instructions per score, which the softmax of
+// every key tile pays: in the chain of one block, that bounded B1 at long
+// sequences. p is rounded to bf16 right after, and the tolerances against
+// the plain twins' torch.exp hold unchanged (tests/test_torch_attention.py's
+// TOL, chip_smoke.py's KERNEL_TOL, BWD_TOL and STEP_TOL).
 __device__ __forceinline__ float fast_exp(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * 1.4426950408889634f));
   return y;
 }
 
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 // Two bf16 in one register, lo in the low half (the lower k or n index).
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  __nv_bfloat162 v = __halves2bfloat162(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d[0..3] += A (16x16, row) * B (16x8, col), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two bf16 of a row (kStride == 1) or of a column (their row stride) as
-// one mma operand register, the lower index in the low half.
-template <int kStride>
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  if constexpr (kStride == 1) {
-    return ld_u32(p);
-  } else {
-    return pack_bf16(p[0], p[kStride]);
-  }
 }
 
 // acc[j] += A B on the FMA units in f32, for the warp's 16 rows of A and
@@ -116,34 +84,6 @@ __device__ __forceinline__ void warp_fma(float (*acc)[4], const TA* a,
       acc[j][2] = fmaf(x1, y0, acc[j][2]);
       acc[j][3] = fmaf(x1, y1, acc[j][3]);
     }
-  }
-}
-
-// acc[j] += A B for the warp's 16 rows of A and the NT 8-column slices of
-// B, in the C fragment layout, summed over K. Both operands lie in shared
-// memory with compile-time strides, as for warp_fma. bf16 runs on
-// mma.sync, f32 on the FMA units.
-template <typename T, int K, int NT, int kAR, int kAK, int kBK, int kBN>
-__device__ __forceinline__ void warp_product(float (*acc)[4], const T* a,
-                                             const T* b) {
-  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    const int lane = threadIdx.x % 32;
-    const int g = lane / 4;
-    const int c2 = 2 * (lane % 4);
-#pragma unroll
-    for (int kk = 0; kk < K; kk += 16) {
-      const T* ap = a + g * kAR + (kk + c2) * kAK;
-      const uint32_t af[4] = {
-          ld_pair<kAK>(ap), ld_pair<kAK>(ap + 8 * kAR),
-          ld_pair<kAK>(ap + 8 * kAK), ld_pair<kAK>(ap + 8 * kAR + 8 * kAK)};
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const T* bp = b + (kk + c2) * kBK + (j * 8 + g) * kBN;
-        mma_bf16(acc[j], af, ld_pair<kBK>(bp), ld_pair<kBK>(bp + 8 * kBK));
-      }
-    }
-  } else {
-    warp_fma<K, NT, kAR, kAK, kBK, kBN>(acc, a, b);
   }
 }
 

@@ -1,6 +1,7 @@
 // Hopper's asynchronous machinery, shared by the kernels that stage tiles
 // with TMA and multiply them with wgmma (overlap.cu's B5a/B5b,
-// flash_fwd.cu's B1, flash_bwd.cu's B2): shared-memory addresses,
+// flash_fwd.cu's B1, flash_bwd.cu's B2, flash_step.cu's B6,
+// flash_bwd_step.cu's B7): shared-memory addresses,
 // mbarriers, TMA tensor loads, stores and reduce-adds, bulk copies and
 // bulk-group waits, proxy fences, named barriers, wgmma descriptors of
 // 128-byte-swizzled tiles, the m64n64k16 bf16 products (A from shared
@@ -346,6 +347,22 @@ inline cudaError_t encode_heads(CUtensorMap* map, const void* base, int d,
                                  static_cast<cuuint64_t>(sb) * 2};
   const cuuint32_t box[4] = {64, 64, 1, 1};
   return encode(map, 0, 4, base, dims, strides, box);
+}
+
+// A {d, t, rows} map of a (rows, t, d) operand (dtype 0 bf16, 1 f32) with
+// d contiguous and row and t strides in elements; box {box_d, 64, 1} (64
+// or, for f32, 32 columns: one 128-byte line).
+inline cudaError_t encode_rows(CUtensorMap* map, int dtype, const void* base,
+                               int d, int t, int rows, long long st,
+                               long long sr, int box_d) {
+  const int elt = dtype == 0 ? 2 : 4;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(t),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(st) * elt,
+                                 static_cast<cuuint64_t>(sr) * elt};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_d), 64, 1};
+  return encode(map, dtype, 3, base, dims, strides, box);
 }
 
 // The card's opt-in shared memory per block, 0 on an error.

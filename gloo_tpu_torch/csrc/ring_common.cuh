@@ -6,10 +6,10 @@
 // Flags are counters in device memory that only grow and are zeroed per
 // call. A sender's threads store into the peer's buffer, then
 // __syncthreads(), then one thread fences and publishes with a release
-// (red.release.gpu / st.release.gpu). A receiver's thread 0 spins on an
-// acquire load, then __syncthreads(). Every spin is bounded: after ~2 s of
-// clock64() the block traps, so a protocol fault surfaces as a CUDA error,
-// not a hung card.
+// (red.release.gpu / st.release.gpu; overlap.cu's hand-offs). A
+// receiver's thread 0 spins on an acquire load, then __syncthreads().
+// Every spin is bounded: after ~2 s of clock64() the block traps, so a
+// protocol fault surfaces as a CUDA error, not a hung card.
 
 #pragma once
 
@@ -27,7 +27,9 @@ constexpr int kMaxRanks = 32;
 constexpr long long kSpinCycles = 4000000000LL;
 
 // Flags of one (rank, slice): counters that only grow, zeroed per call.
-constexpr int kBarrier = 0;  // + 1 from each neighbour
+// The members barrier takes the first; overlap.cu's ring hand-offs the
+// rest.
+constexpr int kBarrier = 0;  // + 1 from each other member
 constexpr int kFull = 1;     // [2]: + 1 each time the left fills slot k
 constexpr int kAck = 3;      // [2]: + 1 each time the right empties slot k
 constexpr int kGather = 5;   // [n - 1]: 1 when allgather step s landed
@@ -60,34 +62,8 @@ __device__ inline void wait_flag(const int* flag, int target) {
   __syncthreads();
 }
 
-// The block's stores so far become visible, then thread 0 adds v to *flag.
-__device__ inline void signal_add(int* flag, int v) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    add_release(flag, v);
-  }
-}
-
-// The block's stores so far become visible, then thread 0 sets *flag = v.
-__device__ inline void signal_set(int* flag, int v) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    store_release(flag, v);
-  }
-}
-
-// The entry barrier with both ring neighbours (with n = 2 both are one
-// rank): each adds one to the other's barrier flag.
-__device__ inline void ring_barrier(int* fl_me, int* fl_left, int* fl_right) {
-  signal_add(fl_left + kBarrier, 1);
-  if (threadIdx.x == 0) add_release(fl_right + kBarrier, 1);
-  wait_flag(fl_me + kBarrier, 2);
-}
-
 // The entry barrier among the n members of a ring (ring.cu's B3, B4a and
-// B4b, ring_variants.cu's B9 and B11),
+// B4b, ring_variants.cu's B9, B10 and B11, alltoall.cu's B8),
 // one flag per (rank, slice): thread 0 adds one to the flag `peer(k)` of
 // each other member, k = 1 .. n - 1, and the block waits until its own
 // reaches n - 1. The block has stored nothing before it, so nothing needs

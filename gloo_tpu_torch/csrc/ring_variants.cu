@@ -74,43 +74,59 @@
 // them during the launch) and outputs stored plainly (only this block
 // writes its units). With n = 2 the two orders coincide.
 //
-// B10, int8 wire, keeps the ring's schedule. f32 only. Each reduce-scatter
-// hop sends its outgoing chunk as int8 codes plus one f32 scale for the
-// whole chunk (pallas_ring.py:515-519): scale = max|chunk| * f32(1 / 127),
-// which is what XLA makes of the reference's max / 127, and q = clip(rint(
-// x / max(scale, 1e-30)), +-127), a true division (rint: half to even).
-// The scale is over the whole chunk while a block holds one slice of it,
-// so every block reduces its slice's max|x|, folds it into its rank's cell
-// for that step (atomicMax on the float's bits as an int, which orders
-// like the float for x >= 0) and adds one to the cell's arrival count
-// (release); thread 0 waits until every slice block of its rank has
-// arrived (acquire) and reads the cell. That works because the launch is
-// cooperative: every block is resident. The receiver accumulates
-// acc = fma(q, scale, acc), one rounding, as the JAX reference computes
-// it. The sender stores codes and scale straight into the right
-// neighbour's wire slot (the TPU kernel's staging slots 2/3 exist only
-// because a remote DMA needs a source buffer). Allgather: the owner of
-// chunk my + 1 quantizes it once and adopts q0 * scale0 itself; the codes
-// and scale then travel verbatim through per-step slots that are never
-// reused (pallas_ring.py:584-595), and every rank decodes q * scale, so
-// every rank ends bitwise equal. Data another block wrote is read with
-// ld.global.cg (L2), never through L1. A pull pass would have to quantize
-// each partial sum as its hop does, to keep these bits.
+// B10, int8 wire, f32 only: one pass per chunk chain, in member order.
+// Each reduce-scatter hop of the TPU kernel sends its outgoing chunk as
+// int8 codes plus one f32 scale for the whole chunk
+// (pallas_ring.py:515-519): scale = max|chunk| * f32(1 / 127), which is
+// what XLA makes of the reference's max / 127, and q = clip(rint(x /
+// max(scale, 1e-30)), +-127), a true division (rint: half to even); the
+// receiver accumulates fma(q, scale, acc), one rounding; the owner of the
+// finished chunk quantizes it once more, and every rank decodes those
+// codes, q * scale. Chunk c's value depends on the partial sums alone, not
+// on where they live. With x_k the input of the member with ring index k:
+//   p_0 = x_c[c]; s_k = max|p_k| * f32(1 / 127);
+//   p_{k+1} = fma(q(p_k, s_k), s_k, x_{c+k+1}[c]), k = 0 .. n - 2;
+//   out[c] = q(p_{n-1}, s_{n-1}) * s_{n-1} on every member.
+// Block (r, j) owns slice j of chunk my of the chain it starts (its own
+// input first), so the S blocks of each rank walk one chain and all n
+// chains of a ring run at once. Each thread owns fixed 16-byte units of
+// the slice and folds each member's units into its partial, computing the
+// max of the new partial in the same pass. The max over the whole chunk
+// is one cross-block reduction per hop among the chain's blocks: each
+// folds its slice's max into the chain's cell for the hop (atomicMax on
+// the float's bits as an int, which orders like the float for x >= 0) and
+// adds one to the hop's arrival count (release); thread 0 waits until
+// every slice block of the chain has arrived (acquire) and reads the
+// cell. That works because the launch is cooperative: every block is
+// resident. The next member's loads are in flight across that wait. The
+// decoded chunk is stored into chunk c of every member's output. A max is
+// exact in any order, so the slicing changes no bit: the result is the
+// twin's, which walks the ring. Two forms: the register form keeps each
+// thread's partial in registers (at most kQ8Units units a thread, so each
+// input unit is read once and each output unit written once); past what
+// the resident grid holds that way, the out-of-register form keeps p_k in
+// the chain owner's own output chunk between hops, read and written by
+// the thread that owns the unit (the same bits, 2 - 1 / (2 n) times the
+// bytes). No input copy, no wire, no per-step neighbour flags: one
+// members barrier on entry, as B3, and the n cells per chain.
 //
 // What bounds them on an H100: bytes. Each rank's input read once and its
 // output written once, 2 P S at 3.35 TB/s (S bytes per rank); there is no
-// arithmetic to speak of. B9 and B11 now move exactly that; B10 still
-// moves its input copy, a wire trip per step and two passes over each
-// outgoing chunk, and pays a flag round trip and a rank-wide max per step.
+// arithmetic to speak of. B9, B11 and B10's register form move exactly
+// that; B10 adds n cross-block reductions per chain.
 //
 // Across cards (ROADMAP A.7) the launch must add: loads through
 // peer-mapped pointers (for B9, whether cp.async.bulk reads a peer-mapped
 // global address is to be checked there; else its loads become __ldg as
-// in B11), flags at system scope (.sys in place of .gpu), one cooperative
-// launch per card, and an exit barrier among the members before a rank
-// reuses its input (peers may still read it) or reads its output (peers
-// write into it). On one card stream order completes every input before
-// the launch, so the entry barrier is not needed for the result.
+// in B11; for B10 the int8 wire is the point across cards: the blocks
+// that read member c + k - 1 hand q_{k-1} and s_{k-1}, int8 codes and one
+// f32, to those that read member c + k, in place of reading f32 partials
+// over the link, with the same bits), flags at system scope (.sys in
+// place of .gpu), one cooperative launch per card, and an exit barrier
+// among the members before a rank reuses its input (peers may still read
+// it) or reads its output (peers write into it). On one card stream
+// order completes every input before the launch, so the entry barrier is
+// not needed for the result.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -132,25 +148,20 @@ constexpr int kHbmThreads = kThreads + 32;
 constexpr int kUnroll = 2;
 constexpr int kGroup = 4;
 
-enum Variant { kHbm = 0, kQ8 = 1, kBidir = 2 };
+// B10 has two kernels: kQ8 holds the chain's partial in registers, kQ8Mem
+// in memory.
+enum Variant { kHbm = 0, kQ8 = 1, kBidir = 2, kQ8Mem = 3 };
 
 struct Params {
-  // The peer table: rank r's buffers. in/out: n chunks; B10 only: comm,
-  // the int8 wire (two reduce-scatter slots, then n - 1 allgather slots,
-  // each one chunk of codes), scales (n + 1) slots x S floats, cells n
-  // maxima then n arrival counts, right/left its neighbours. flags: S
-  // sets (B11 2 S) of flag_stride ints; B9 and B11 use each set's first,
-  // the members barrier.
+  // The peer table: rank r's buffers. in/out: n chunks; flags: S sets (B11
+  // 2 S) of flag_stride ints, each set's first the members barrier; cells
+  // (B10): n maxima then n arrival counts of rank r's chain.
   const void* in[kMaxRanks];
   void* out[kMaxRanks];
-  void* comm[kMaxRanks];
-  float* scales[kMaxRanks];
   int* flags[kMaxRanks];
   int* cells[kMaxRanks];
   int my[kMaxRanks];
-  int right[kMaxRanks];
-  int left[kMaxRanks];
-  unsigned char members[kMaxRanks][kMaxRanks];  // B9, B11: ring index -> rank
+  unsigned char members[kMaxRanks][kMaxRanks];  // ring index -> rank
   int n;
   int flag_stride;
   int stages;            // B9: shared-memory stages of one tile each
@@ -159,7 +170,7 @@ struct Params {
   long long half_units;  // B11: 16-byte units per row of one half
 };
 
-// The members barrier of flag set `set` of block rank r (B9, B11).
+// The members barrier of flag set `set` of block rank r.
 __device__ __forceinline__ void enter(const Params& p, int r, int set) {
   const int n = p.n, my = p.my[r];
   const long long flag = static_cast<long long>(set) * p.flag_stride +
@@ -353,22 +364,29 @@ __device__ __forceinline__ void slice_of(long long chunk, long long* lo,
   *hi = chunk * (slice + 1) / slices;
 }
 
-// max|x| over the whole chunk `src` of this block's rank: this block's
-// slice [lo, hi) folded into *cell, then a wait for every slice block of
-// the rank (*count reaching `slices`). Returns the rank-wide max to every
-// thread.
-__device__ float chunk_absmax(const uint4* src, long long lo, long long hi,
-                              int* cell, int* count, int slices) {
+// Units of its slice that each thread of the register form holds: the
+// chain's partial stays in registers from its first member to the last.
+constexpr int kQ8Units = 8;
+// Units a thread of the out-of-register form loads per pass.
+constexpr int kQ8Unroll = 4;
+
+// max |x| over the four lanes of a unit.
+__device__ __forceinline__ float absmax4(uint4 v) {
+  return fmaxf(
+      fmaxf(fabsf(__uint_as_float(v.x)), fabsf(__uint_as_float(v.y))),
+      fmaxf(fabsf(__uint_as_float(v.z)), fabsf(__uint_as_float(v.w))));
+}
+
+// The max over the whole chunk at one hop of this block's chain, in two
+// halves, so that the next member's loads go out between them.
+// chain_arrive folds the block's max `m` into the hop's cell (atomicMax on
+// the float's bits) and adds one to the hop's arrival count (release):
+// thread 0 does so before any load of the next hop is in flight, so the
+// release waits for none of them. chain_wait waits until every slice
+// block of the chain has arrived (acquire) and returns the chunk's max to
+// every thread.
+__device__ void chain_arrive(float m, int* cell, int* count) {
   __shared__ float warp_max[kThreads / 32];
-  __shared__ float result;
-  float m = 0.0f;
-  for (long long u = lo + threadIdx.x; u < hi; u += kThreads) {
-    const uint4 v = __ldcg(src + u);
-    m = fmaxf(m, fmaxf(fmaxf(fabsf(__uint_as_float(v.x)),
-                             fabsf(__uint_as_float(v.y))),
-                       fmaxf(fabsf(__uint_as_float(v.z)),
-                             fabsf(__uint_as_float(v.w)))));
-  }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
@@ -379,6 +397,12 @@ __device__ float chunk_absmax(const uint4* src, long long lo, long long hi,
     for (int w = 1; w < kThreads / 32; ++w) m = fmaxf(m, warp_max[w]);
     atomicMax(cell, __float_as_int(m));
     add_release(count, 1);
+  }
+}
+
+__device__ float chain_wait(const int* cell, const int* count, int slices) {
+  __shared__ float result;
+  if (threadIdx.x == 0) {
     const long long start = clock64();
     while (ld_acquire(count) < slices) {
       if (clock64() - start > kSpinCycles) __trap();
@@ -389,13 +413,16 @@ __device__ float chunk_absmax(const uint4* src, long long lo, long long hi,
   return result;
 }
 
-// Four f32 lanes to four int8 codes, lane k in byte k.
+// Four f32 lanes to four int8 codes, lane k in byte k. A zero lane's code
+// is 0 without the division: a zero dividend sends the IEEE division to
+// its slow path, and gradient buffers hold many zeros.
 __device__ __forceinline__ unsigned quantize4(uint4 v, float safe) {
   const unsigned bits[4] = {v.x, v.y, v.z, v.w};
   unsigned packed = 0;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    float q = rintf(__fdiv_rn(__uint_as_float(bits[k]), safe));
+    const float x = __uint_as_float(bits[k]);
+    float q = x == 0.f ? 0.f : rintf(__fdiv_rn(x == 0.f ? 1.f : x, safe));
     q = fminf(fmaxf(q, -127.0f), 127.0f);
     packed |= (static_cast<unsigned>(static_cast<int>(q)) & 0xffu) << (8 * k);
   }
@@ -433,89 +460,127 @@ __device__ __forceinline__ float scale_of(float absmax) {
   return __fmul_rn(absmax, 0x1.020408p-7f);
 }
 
+// kRegs: the register form (every thread's units of its slice, at most
+// kQ8Units, held in registers across the chain); else the partial is kept
+// in this rank's own output chunk between hops, read and written by the
+// thread that owns the unit, kQ8Unroll units a pass with every load of
+// the pass issued before its first store.
+template <bool kRegs>
 __global__ void __launch_bounds__(kThreads)
 q8_kernel(const __grid_constant__ Params p) {
-  const int r = blockIdx.x, j = blockIdx.y, slices = gridDim.y;
-  const int n = p.n, my = p.my[r], right = p.right[r], left = p.left[r];
-  const long long chunk = p.chunk;
+  const int r = blockIdx.x, slices = gridDim.y;
+  const int n = p.n, my = p.my[r];
+  const unsigned char* const ring = p.members[r];
+  // The chain of chunk my: members my, my + 1, ..., my + n - 1.
+  const long long off = my * p.chunk;
   long long lo, hi;
-  slice_of(chunk, &lo, &hi);
+  slice_of(p.chunk, &lo, &hi);
   const long long t0 = lo + threadIdx.x;
-  int* const fl_me = p.flags[r] + j * p.flag_stride;
-  int* const fl_right = p.flags[right] + j * p.flag_stride;
-  int* const fl_left = p.flags[left] + j * p.flag_stride;
-  int* const cells = p.cells[r];
-  const uint4* const in = static_cast<const uint4*>(p.in[r]);
-  uint4* const out = static_cast<uint4*>(p.out[r]);
-  // Wire slots: 0/1 reduce-scatter, 2 + s allgather step s.
-  const unsigned* const wire = static_cast<const unsigned*>(p.comm[r]);
-  unsigned* const peer_wire = static_cast<unsigned*>(p.comm[right]);
-  const float* const scales = p.scales[r];
-  float* const peer_scales = p.scales[right];
+  int* const cells = p.cells[r];  // n maxima, then n arrival counts
+  const auto member = [&](int k) {
+    return static_cast<const uint4*>(p.in[ring[wrap(my + k, n)]]) + off;
+  };
+  const auto arrive = [&](float m, int hop) {
+    chain_arrive(m, cells + hop, cells + n + hop);
+  };
+  const auto scale_at = [&](int hop) {
+    return scale_of(chain_wait(cells + hop, cells + n + hop, slices));
+  };
+  const auto store_all = [&](long long u, uint4 y) {
+    for (int k = 0; k < n; ++k) {
+      static_cast<uint4*>(p.out[ring[k]])[off + u] = y;
+    }
+  };
+  enter(p, r, blockIdx.y);
 
-  for (int c = 0; c < n; ++c) {
-    for (long long u = t0; u < hi; u += kThreads) {
-      out[c * chunk + u] = in[c * chunk + u];
-    }
-  }
-  ring_barrier(fl_me, fl_left, fl_right);
-
-  for (int s = 0; s < n - 1; ++s) {
-    const int slot = s & 1;
-    if (s >= 2) wait_flag(fl_me + kAck + slot, s / 2);
-    const uint4* src = out + wrap(my - s, n) * chunk;
-    const float scale = scale_of(
-        chunk_absmax(src, lo, hi, cells + s, cells + n + s, slices));
-    const float safe = fmaxf(scale, 1e-30f);
-    unsigned* dst = peer_wire + slot * chunk;
-    for (long long u = t0; u < hi; u += kThreads) {
-      __stcg(dst + u, quantize4(__ldcg(src + u), safe));
-    }
-    if (threadIdx.x == 0) __stcg(peer_scales + slot * slices + j, scale);
-    signal_add(fl_right + kFull + slot, 1);
-    wait_flag(fl_me + kFull + slot, s / 2 + 1);
-    uint4* mine = out + wrap(my - s - 1, n) * chunk;
-    const unsigned* got = wire + slot * chunk;
-    const float got_scale = __ldcg(scales + slot * slices + j);
-    for (long long u = t0; u < hi; u += kThreads) {
-      __stcg(mine + u, accumulate4(__ldcg(mine + u), __ldcg(got + u),
-                                   got_scale));
-    }
-    signal_add(fl_left + kAck + slot, 1);
-  }
-  if (n >= 3) wait_flag(fl_me + kAck + ((n - 3) & 1), (n - 3) / 2 + 1);
-  wait_flag(fl_me + kAck + ((n - 2) & 1), (n - 2) / 2 + 1);
-
-  // Allgather: quantize the owned chunk once, adopt its decoded values,
-  // send the codes; then decode and forward what arrives.
-  uint4* own = out + wrap(my + 1, n) * chunk;
-  const float scale0 = scale_of(
-      chunk_absmax(own, lo, hi, cells + n - 1, cells + 2 * n - 1, slices));
-  const float safe0 = fmaxf(scale0, 1e-30f);
-  for (long long u = t0; u < hi; u += kThreads) {
-    const unsigned q = quantize4(__ldcg(own + u), safe0);
-    __stcg(peer_wire + 2 * chunk + u, q);
-    __stcg(own + u, decode4(q, scale0));
-  }
-  if (threadIdx.x == 0) __stcg(peer_scales + 2 * slices + j, scale0);
-  signal_set(fl_right + kGather, 1);
-  for (int s = 0; s < n - 1; ++s) {
-    wait_flag(fl_me + kGather + s, 1);
-    const bool forward = s < n - 2;
-    const unsigned* got = wire + (2 + s) * chunk;
-    const float got_scale = __ldcg(scales + (2 + s) * slices + j);
-    uint4* dec = out + wrap(my - s, n) * chunk;
-    unsigned* fwd = peer_wire + (3 + s) * chunk;
-    for (long long u = t0; u < hi; u += kThreads) {
-      const unsigned q = __ldcg(got + u);
-      __stcg(dec + u, decode4(q, got_scale));
-      if (forward) __stcg(fwd + u, q);
-    }
-    if (forward) {
-      if (threadIdx.x == 0) {
-        __stcg(peer_scales + (3 + s) * slices + j, got_scale);
+  float m = 0.f;
+  if constexpr (kRegs) {
+    uint4 part[kQ8Units];
+#pragma unroll
+    for (int i = 0; i < kQ8Units; ++i) {
+      const long long u = t0 + i * kThreads;
+      if (u < hi) {
+        part[i] = __ldg(member(0) + u);
+        m = fmaxf(m, absmax4(part[i]));
       }
-      signal_set(fl_right + kGather + s + 1, 1);
+    }
+    arrive(m, 0);
+    for (int k = 1; k < n; ++k) {
+      // Member k's units are in flight while the chain agrees on the max.
+      uint4 next[kQ8Units];
+      const uint4* const src = member(k);
+#pragma unroll
+      for (int i = 0; i < kQ8Units; ++i) {
+        const long long u = t0 + i * kThreads;
+        if (u < hi) next[i] = __ldg(src + u);
+      }
+      const float scale = scale_at(k - 1);
+      const float safe = fmaxf(scale, 1e-30f);
+      m = 0.f;
+#pragma unroll
+      for (int i = 0; i < kQ8Units; ++i) {
+        if (t0 + i * kThreads < hi) {
+          part[i] = accumulate4(next[i], quantize4(part[i], safe), scale);
+          m = fmaxf(m, absmax4(part[i]));
+        }
+      }
+      arrive(m, k);
+    }
+    const float scale = scale_at(n - 1);
+    const float safe = fmaxf(scale, 1e-30f);
+#pragma unroll
+    for (int i = 0; i < kQ8Units; ++i) {
+      const long long u = t0 + i * kThreads;
+      if (u < hi) store_all(u, decode4(quantize4(part[i], safe), scale));
+    }
+  } else {
+    uint4* const stash = static_cast<uint4*>(p.out[r]) + off;
+    for (long long u = t0; u < hi; u += kThreads) {
+      m = fmaxf(m, absmax4(__ldg(member(0) + u)));
+    }
+    arrive(m, 0);
+    for (int k = 1; k < n; ++k) {
+      const float scale = scale_at(k - 1);
+      const float safe = fmaxf(scale, 1e-30f);
+      const uint4* const prev = k == 1 ? member(0) : stash;
+      const uint4* const src = member(k);
+      m = 0.f;
+      for (long long base = t0; base < hi; base += kThreads * kQ8Unroll) {
+        uint4 a[kQ8Unroll], b[kQ8Unroll];
+#pragma unroll
+        for (int i = 0; i < kQ8Unroll; ++i) {
+          const long long u = base + i * kThreads;
+          if (u < hi) {
+            a[i] = prev[u];
+            b[i] = __ldg(src + u);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < kQ8Unroll; ++i) {
+          const long long u = base + i * kThreads;
+          if (u < hi) {
+            const uint4 part = accumulate4(b[i], quantize4(a[i], safe), scale);
+            stash[u] = part;
+            m = fmaxf(m, absmax4(part));
+          }
+        }
+      }
+      arrive(m, k);
+    }
+    const float scale = scale_at(n - 1);
+    const float safe = fmaxf(scale, 1e-30f);
+    for (long long base = t0; base < hi; base += kThreads * kQ8Unroll) {
+      uint4 a[kQ8Unroll];
+#pragma unroll
+      for (int i = 0; i < kQ8Unroll; ++i) {
+        const long long u = base + i * kThreads;
+        if (u < hi) a[i] = stash[u];
+      }
+#pragma unroll
+      for (int i = 0; i < kQ8Unroll; ++i) {
+        const long long u = base + i * kThreads;
+        if (u < hi) store_all(u, decode4(quantize4(a[i], safe), scale));
+      }
     }
   }
 }
@@ -577,8 +642,8 @@ bidir_kernel(const __grid_constant__ Params p) {
   }
 }
 
-// The instances: B9 by dtype and tile (8, 16 or 32 KB), B10 f32, B11 by
-// dtype (0 = bf16, 1 = f32).
+// The instances: B9 by dtype and tile (8, 16 or 32 KB), B10 f32 in its
+// two forms, B11 by dtype (0 = bf16, 1 = f32).
 template <typename T>
 void* hbm_for(int tile_bytes) {
   if (tile_bytes == kThreads * 2 * 16) return (void*)hbm_kernel<T, 2>;
@@ -590,7 +655,8 @@ void* hbm_for(int tile_bytes) {
 void* kernel_for(int variant, int dtype, int tile_bytes) {
   if (variant == kHbm && dtype == 0) return hbm_for<__nv_bfloat16>(tile_bytes);
   if (variant == kHbm && dtype == 1) return hbm_for<float>(tile_bytes);
-  if (variant == kQ8 && dtype == 1) return (void*)q8_kernel;
+  if (variant == kQ8 && dtype == 1) return (void*)q8_kernel<true>;
+  if (variant == kQ8Mem && dtype == 1) return (void*)q8_kernel<false>;
   if (variant == kBidir && dtype == 0) {
     return (void*)bidir_kernel<__nv_bfloat16>;
   }
@@ -621,7 +687,7 @@ bool fill(Params& p, const void* in, void* out, long long rank_stride,
           int* flags, int flag_stride, int sets, const int* my, int ranks,
           int n, int slices) {
   if (ranks < 2 || ranks > kMaxRanks || n < 2 || n > ranks || slices < 1 ||
-      slices > 65535 || flag_stride < kGather + n - 1) {
+      slices > 65535 || flag_stride < 1) {
     return false;
   }
   memset(&p, 0, sizeof(p));
@@ -637,8 +703,8 @@ bool fill(Params& p, const void* in, void* out, long long rank_stride,
   return true;
 }
 
-// B9 and B11: members is ranks x n flat ranks, row r the ring of rank r in
-// ring order; rank r must be entry my[r] of its own row.
+// members is ranks x n flat ranks, row r the ring of rank r in ring order;
+// rank r must be entry my[r] of its own row.
 bool fill_members(Params& p, const int* members, int ranks, int n) {
   for (int r = 0; r < ranks; ++r) {
     for (int k = 0; k < n; ++k) {
@@ -669,11 +735,10 @@ int launch(int variant, void* fn, const Params& p, dim3 grid, int tile_bytes,
 
 extern "C" {
 
-// Ints of flags each (rank, slice), or (rank, half, slice) for B11, needs
-// for a ring of n (B10's layout; B9 and B11 use the first).
-int gtt_ring_variants_flag_stride(int n) {
-  return kGather + (n > 1 ? n - 1 : 1);
-}
+// Ints of flags each (rank, slice), or (rank, half, slice) for B11, takes:
+// the members barrier's one, padded to 32 bytes so that the spins of
+// neighbouring slices do not share an L2 sector.
+int gtt_ring_variants_flag_stride(int) { return 8; }
 
 // The most blocks of one variant's kernels (both dtypes; for B9 those of
 // tile_bytes with `stages` stages) that can be resident at once on the
@@ -713,9 +778,8 @@ int gtt_ring_variants_max_blocks(int variant, int tile_bytes, int stages,
 // chunks at rank_stride bytes, every buffer 16-byte aligned. dtype: 0 =
 // bf16, 1 = f32. flags: zeroed, P x S x flag_stride ints (B11: P x 2 x S
 // x flag_stride), and for B10 then 2 n P more. my: each rank's ring index;
-// members (B9, B11): ranks x n flat ranks, row r the ring of rank r in
-// ring order; right/left (B10): each rank's neighbours as flat ranks. All
-// tables are host arrays.
+// members: ranks x n flat ranks, row r the ring of rank r in ring order.
+// All tables are host arrays.
 
 // B9: chunk = 16-byte units per chunk; tile_bytes 8192, 16384 or 32768;
 // stages >= 1 (the launch takes (stages + 2) tiles of shared memory).
@@ -736,39 +800,29 @@ int gtt_ring_allreduce_hbm(const void* x, void* out, long long rank_stride,
                 dim3(ranks, slices), tile_bytes, stream);
 }
 
-// B10 (f32): chunk = 16-byte units (4 floats) per chunk; wire: P x (n + 1)
-// chunks of int8 codes (chunk * 4 bytes each); scales: P x (n + 1) x S
-// floats.
+// B10 (f32): chunk = 16-byte units (4 floats) per chunk. in_registers: 1
+// for the register form (a slice of at most kThreads x kQ8Units units: S
+// >= chunk / (kThreads kQ8Units)), 0 for the out-of-register form.
 int gtt_ring_allreduce_q8(const void* x, void* out, long long rank_stride,
-                          void* wire, long long wire_stride, float* scales,
-                          long long scales_stride, int* flags,
-                          int flag_stride, const int* my, const int* right,
-                          const int* left, int ranks, int n, int slices,
-                          long long chunk, void* stream) {
+                          int* flags, int flag_stride, const int* my,
+                          const int* members, int ranks, int n, int slices,
+                          long long chunk, int in_registers, void* stream) {
   Params p;
   if (!fill(p, x, out, rank_stride, flags, flag_stride, slices, my, ranks,
             n, slices) ||
-      chunk < 1) {
+      !fill_members(p, members, ranks, n) || chunk < 1 ||
+      (in_registers &&
+       (chunk + slices - 1) / slices > kThreads * kQ8Units)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // The cells follow every rank's flag sets.
   int* const cells =
       flags + static_cast<long long>(ranks) * slices * flag_stride;
-  for (int r = 0; r < ranks; ++r) {
-    if (right[r] < 0 || right[r] >= ranks || left[r] < 0 ||
-        left[r] >= ranks) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    p.comm[r] = static_cast<char*>(wire) + r * wire_stride;
-    p.scales[r] = reinterpret_cast<float*>(reinterpret_cast<char*>(scales) +
-                                           r * scales_stride);
-    p.cells[r] = cells + 2 * n * r;
-    p.right[r] = right[r];
-    p.left[r] = left[r];
-  }
+  for (int r = 0; r < ranks; ++r) p.cells[r] = cells + 2 * n * r;
   p.chunk = chunk;
-  return launch(kQ8, kernel_for(kQ8, 1, 0), p, dim3(ranks, slices), 0,
-                stream);
+  const int variant = in_registers ? kQ8 : kQ8Mem;
+  return launch(variant, kernel_for(variant, 1, 0), p, dim3(ranks, slices),
+                0, stream);
 }
 
 // B11: chunk_rows rows per chunk, half_units 16-byte units per row of one

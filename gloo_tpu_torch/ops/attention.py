@@ -15,7 +15,8 @@ as the custom VJP does in JAX.
 
 The ring-attention steps keep JAX's (bh, t, d) layout:
 ``flash_attention_step`` (``_flash_step_kernel``, ``csrc/flash_step.cu``)
-folds one k/v block into carried f32 (acc, m, l) state, and
+folds one k/v block into carried f32 (acc, m, l) state (the ring forward
+takes it in place, through ``flash_attention_step_into``), and
 ``flash_attention_bwd_step`` computes what ``_flash_bwd_dq_step_kernel``
 and ``_flash_bwd_dkv_step_kernel`` do, in one fused launch of
 ``csrc/flash_bwd_step.cu`` (bf16). The ring backward takes that launch
@@ -32,9 +33,10 @@ kernel is held against.
 
 Head dims: the kernels have instances for KERNEL_HEAD_DIMS (64 and 128).
 Any other head_dim that is a multiple of 8 and at most 128 runs on the
-next instance up: the wrapper zero-pads q, k and v (and dO, out and the
-carried acc) along d and slices the results back, with the scale of the
-unpadded d. That is exact: padded q and k columns add 0 to every score,
+next instance up: the wrapper zero-pads q, k and v (and dO and out)
+along d and slices the results back, with the scale of the unpadded d
+(the step kernel reads and writes the d columns of the carried acc as it
+lies). That is exact: padded q and k columns add 0 to every score,
 padded v and dO columns fill only output columns that are cut off, and
 delta gains only 0 * 0 terms. The twins on the CPU run unpadded.
 """
@@ -77,7 +79,7 @@ _libs: dict[str, ctypes.CDLL] = {}
 _SIGNATURES = {
     "flash_fwd": {"gtt_flash_fwd": (5, 7, 1, 9)},
     "flash_bwd": {"gtt_flash_bwd": (11, 7, 2, 15)},
-    "flash_step": {"gtt_flash_step": (11, 7, 1, 6)},
+    "flash_step": {"gtt_flash_step": (8, 8, 1, 6)},
     "flash_bwd_step": {"gtt_flash_bwd_step_prep": (6, 3, 0, 2),
                        "gtt_flash_bwd_step": (13, 9, 2, 8),
                        "gtt_flash_bwd_step_dq": (2, 1, 1, 1)},
@@ -538,6 +540,35 @@ def _check_step_kernel(q, k, v, **more):
             raise ValueError(f"{name} must be contiguous on {q.device}")
 
 
+def _check_state(q, acc, m, l) -> None:
+    bh, tq, d = q.shape
+    for name, x, shape in (("acc", acc, (bh, tq, d)), ("m", m, (bh, tq, 1)),
+                           ("l", l, (bh, tq, 1))):
+        _check_rows(name, x, shape)
+
+
+def _step_launch(q, k, v, acc, m, l, qo, ko, causal, kv_group) -> None:
+    """One launch of csrc/flash_step.cu: k, v folded into the contiguous f32
+    state acc (bh, t_q, d), m and l (bh, t_q, 1) in place. q, k and v run on
+    the kernel's head_dim (zero-padded); acc stays d wide (the kernel reads
+    and writes its first d columns)."""
+    bh, tq, d = q.shape
+    dim = kernel_head_dim(d)
+    if dim != d:
+        q, k, v = _pad_head_dim(dim, q, k, v)
+    _check_step_kernel(q, k, v, acc=acc, m=m, l=l)
+    lib = _kernel_lib("flash_step")
+    with torch.cuda.device(q.device):
+        err = lib.gtt_flash_step(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(),
+            m.data_ptr(), l.data_ptr(), qo.data_ptr(), ko.data_ptr(),
+            KERNEL_DTYPES[q.dtype], bh, kv_group, tq, k.shape[1], dim, d,
+            int(causal), _folded_scale(d, q.dtype), *_row_strides(q),
+            *_row_strides(k), *_row_strides(v), _stream())
+    _raise_on(err, "flash_step", lib)
+    flash_attention_step.launches += 1
+
+
 def flash_attention_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
                          q_offset, k_offset, causal: bool = True,
@@ -552,40 +583,54 @@ def flash_attention_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     version's block_q / block_k / interpret / vma_axes have no
     counterpart: the tiles are the kernel's (BLOCK_Q, BLOCK_K).
 
-    CUDA tensors go through the Hopper kernel (csrc/flash_step.cu), CPU
+    CUDA tensors go through the Hopper kernel (csrc/flash_step.cu, on a
+    copy of the state: flash_attention_step_into updates it in place), CPU
     tensors through flash_attention_step_plain; there is no fallback."""
     _check_step(q, k, v, kv_group)
-    bh, tq, d = q.shape
-    for name, x, shape in (("acc", acc, (bh, tq, d)), ("m", m, (bh, tq, 1)),
-                           ("l", l, (bh, tq, 1))):
-        _check_rows(name, x, shape)
+    _check_state(q, acc, m, l)
+    bh = q.shape[0]
     qo, ko = (_offsets(o, bh, q.device) for o in (q_offset, k_offset))
     if q.device.type == "cpu":
         return flash_attention_step_plain(q, k, v, acc, m, l, qo, ko, causal,
                                           kv_group)
-    # Padded first: the acc that a padded step returned is a view of its
-    # padded acc, which the padding copies into a contiguous tensor.
-    dim = kernel_head_dim(d)
-    if dim != d:
-        q, k, v, acc = _pad_head_dim(dim, q, k, v, acc)
-    _check_step_kernel(q, k, v, acc=acc, m=m, l=l)
-    lib = _kernel_lib("flash_step")
-    acc_out, m_out, l_out = (torch.empty_like(x) for x in (acc, m, l))
-    with torch.cuda.device(q.device):
-        err = lib.gtt_flash_step(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(),
-            m.data_ptr(), l.data_ptr(), acc_out.data_ptr(), m_out.data_ptr(),
-            l_out.data_ptr(), qo.data_ptr(), ko.data_ptr(),
-            KERNEL_DTYPES[q.dtype], bh, kv_group, tq, k.shape[1], dim,
-            int(causal), _folded_scale(d, q.dtype), *q.stride()[:2],
-            *k.stride()[:2], *v.stride()[:2], _stream())
-    _raise_on(err, "flash_step", lib)
-    flash_attention_step.launches += 1
-    return *_cut(dim, d, acc_out), m_out, l_out
+    acc, m, l = (x.clone(memory_format=torch.contiguous_format)
+                 for x in (acc, m, l))
+    _step_launch(q, k, v, acc, m, l, qo, ko, causal, kv_group)
+    return acc, m, l
 
 
-# Launches of the CUDA kernel in this process; counts nothing on the CPU.
+# Launches of the CUDA kernel in this process, by both entries; counts
+# nothing on the CPU.
 flash_attention_step.launches = 0
+
+
+def flash_attention_step_into(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, acc: torch.Tensor,
+                              m: torch.Tensor, l: torch.Tensor, q_offset,
+                              k_offset, causal: bool = True,
+                              kv_group: int = 1) -> None:
+    """flash_attention_step in place: folds the block into the caller's
+    contiguous f32 state acc (bh, t_q, d), m and l (bh, t_q, 1), all on q's
+    device, at any head_dim the kernels take (acc stays d wide). A query
+    tile that sees no key of the block (each BLOCK_Q rows of a query-head
+    row) is left untouched: on the card its block exits before any load
+    or store.
+
+    CUDA tensors go through csrc/flash_step.cu, CPU tensors through
+    flash_attention_step_into_plain; there is no fallback."""
+    _check_step(q, k, v, kv_group)
+    _check_state(q, acc, m, l)
+    for name, x in (("acc", acc), ("m", m), ("l", l)):
+        if not x.is_contiguous() or x.device != q.device:
+            raise ValueError(f"{name} must be contiguous on {q.device}; got "
+                             f"strides {x.stride()} on {x.device}")
+    bh = q.shape[0]
+    qo, ko = (_offsets(o, bh, q.device) for o in (q_offset, k_offset))
+    if q.device.type == "cpu":
+        flash_attention_step_into_plain(q, k, v, acc, m, l, qo, ko, causal,
+                                        kv_group)
+        return
+    _step_launch(q, k, v, acc, m, l, qo, ko, causal, kv_group)
 
 
 def _positions(off: torch.Tensor, start: int, n: int) -> torch.Tensor:
@@ -626,6 +671,35 @@ def flash_attention_step_plain(q: torch.Tensor, k: torch.Tensor,
         acc = acc * corr + p.to(v.dtype).float() @ vt.float()
         m = m_new
     return acc, m, l
+
+
+def visible_tiles(q_offset: torch.Tensor, k_offset: torch.Tensor, tq: int,
+                  causal: bool) -> torch.Tensor:
+    """(bh, t_q, 1) bool: whether the BLOCK_Q query tile of each row's
+    query sees a key of the block, under the causal mask: the key block's
+    first global position is at most that of the tile's last query before
+    t_q. These are csrc/flash_step.cu's blocks that run; the others exit
+    before any load or store."""
+    last = ((torch.arange(tq, device=q_offset.device) // BLOCK_Q + 1)
+            * BLOCK_Q).clamp_max(tq) - 1
+    seen = k_offset.long()[:, None] <= q_offset.long()[:, None] + last
+    return (seen | (not causal))[..., None]
+
+
+def flash_attention_step_into_plain(q, k, v, acc, m, l, q_offset, k_offset,
+                                    causal: bool = True,
+                                    kv_group: int = 1) -> None:
+    """flash_attention_step_into's arithmetic in plain PyTorch, in place:
+    flash_attention_step_plain's new state written into acc, m and l for
+    the query tiles that see a key (visible_tiles), the others untouched as
+    the kernel leaves them."""
+    bh, tq, _ = q.shape
+    qo, ko = (_offsets(o, bh, q.device) for o in (q_offset, k_offset))
+    new = flash_attention_step_plain(q, k, v, acc, m, l, qo, ko, causal,
+                                     kv_group)
+    seen = visible_tiles(qo, ko, tq, causal)
+    for buf, x in zip((acc, m, l), new):
+        buf.copy_(torch.where(seen, x, buf))
 
 
 def _check_bwd_step(q, do, delta, lse):

@@ -9,8 +9,8 @@ the order of the port: 1 serving (flash forward), 2 training on one card
 allgather) over a world of ranks on one card, 4 tensor parallelism
 (collective matmuls), 5 sequence and expert parallelism (ring-attention
 steps, all-to-all), 6 the ring allreduce variants (HBM-streaming,
-int8-wire, bidirectional). PRs 7-11 redesigned the kernels that lost most
-to one PyTorch call (PERF.md §6). B7a and B7b are one fused launch.
+int8-wire, bidirectional). PRs 7-13 redesigned every first design for
+Hopper (PERF.md §6). B7a and B7b are one fused launch.
 tests/test_torch_isolation.py holds this table against the JAX sources.
 """
 
@@ -40,7 +40,7 @@ KERNELS = (
            "flash_attention_bwd_fused",
            "ported: gloo_tpu_torch/csrc/flash_bwd.cu; redesigned, PR 11"),
     Kernel("B6", _A, "_flash_step_kernel", 477, 534, "flash_attention_step",
-           "ported: gloo_tpu_torch/csrc/flash_step.cu"),
+           "ported: gloo_tpu_torch/csrc/flash_step.cu; redesigned, PR 13"),
     Kernel("B7a", _A, "_flash_bwd_dq_step_kernel", 588, 730,
            "flash_attention_bwd_step",
            "ported: gloo_tpu_torch/csrc/flash_bwd_step.cu; "
@@ -60,7 +60,7 @@ KERNELS = (
            "ported: gloo_tpu_torch/csrc/ring_variants.cu; redesigned, PR 9"),
     Kernel("B10", _R, "_ring_allreduce_q8_kernel", 485, 654,
            "ring_allreduce_q8",
-           "ported: gloo_tpu_torch/csrc/ring_variants.cu"),
+           "ported: gloo_tpu_torch/csrc/ring_variants.cu; redesigned, PR 13"),
     Kernel("B11", _R, "_ring_allreduce_bidir_kernel", 691, 842,
            "ring_allreduce_bidir",
            "ported: gloo_tpu_torch/csrc/ring_variants.cu; redesigned, PR 9"),

@@ -95,7 +95,6 @@ _max_blocks: dict[int, int] = {}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _IP = ctypes.POINTER(ctypes.c_int)
-_TABLES = [_IP, _IP, _IP, _I, _I, _I]  # my, right, left, ranks, n, slices
 # my, members, ranks, n, slices, chunk
 _MEMBERS = [_IP, _IP, _I, _I, _I, _L]
 _SIGNATURES = {
@@ -189,19 +188,11 @@ def _unit_bytes(nbytes: int, *addresses: int) -> int:
                                               for a in addresses))
 
 
-def cooperative_grid(x: torch.Tensor, mesh: Mesh, axis_name: Axis,
-                     lib: ctypes.CDLL, max_blocks, cache: dict[int, int],
-                     want: int, stride: int, blocks_per_slice: int = 1,
-                     extra: int = 0):
-    """(slices, zeroed flags, ctypes ring tables) for a cooperative launch
-    of `blocks_per_slice` blocks per (rank, slice), each with its own
-    `stride` flags: at most `want` slices, and no more than can be resident
-    beside the other ranks' blocks, as the library's occupancy query
-    `max_blocks` reports (cached per device index in `cache`). `extra`
-    zeroed ints follow the flags. Raises when not even one slice per rank
-    fits."""
-    ranks = x.shape[0]
-    blocks = ranks * blocks_per_slice  # per slice of the world
+def resident_blocks(x: torch.Tensor, lib: ctypes.CDLL, max_blocks,
+                    cache: dict[int, int]) -> int:
+    """The most blocks of one kernel that can be resident at once on x's
+    card, as the library's occupancy query `max_blocks` reports it (cached
+    per device index in `cache`)."""
     index = x.device.index if x.device.index is not None \
         else torch.cuda.current_device()
     if index not in cache:
@@ -210,10 +201,25 @@ def cooperative_grid(x: torch.Tensor, mesh: Mesh, axis_name: Axis,
             _raise_on(max_blocks(ctypes.byref(resident)), "occupancy query",
                       lib)
         cache[index] = resident.value
-    per_rank = cache[index] // blocks
+    return cache[index]
+
+
+def cooperative_grid(x: torch.Tensor, mesh: Mesh, axis_name: Axis,
+                     lib: ctypes.CDLL, max_blocks, cache: dict[int, int],
+                     want: int, stride: int, blocks_per_slice: int = 1,
+                     extra: int = 0):
+    """(slices, zeroed flags, ctypes ring tables) for a cooperative launch
+    of `blocks_per_slice` blocks per (rank, slice), each with its own
+    `stride` flags: at most `want` slices, and no more than can be resident
+    beside the other ranks' blocks (resident_blocks). `extra` zeroed ints
+    follow the flags. Raises when not even one slice per rank fits."""
+    ranks = x.shape[0]
+    blocks = ranks * blocks_per_slice  # per slice of the world
+    resident = resident_blocks(x, lib, max_blocks, cache)
+    per_rank = resident // blocks
     if per_rank < 1:
         raise RuntimeError(f"{ranks} ranks need {blocks} co-resident "
-                           f"blocks; the card holds {cache[index]}")
+                           f"blocks; the card holds {resident}")
     slices = max(1, min(per_rank, want))
     flags = torch.zeros(blocks * slices * stride + extra, dtype=torch.int32,
                         device=x.device)
@@ -546,7 +552,7 @@ _var_lib: ctypes.CDLL | None = None
 # Most co-resident blocks per (variant, tile bytes, stages), then per
 # device index (gtt_ring_variants_max_blocks; each kernel its own query).
 _var_max_blocks: dict[tuple[int, int, int], dict[int, int]] = {}
-# csrc/ring_variants.cu's variant codes.
+# csrc/ring_variants.cu's variant codes (B10's register form is _Q8).
 _HBM, _Q8, _BIDIR = 0, 1, 2
 # B9's stream: bytes per tile (8192, 16384 or 32768: 2, 4 or 8 16-byte
 # units per consumer thread) and the shared-memory stages of one tile each
@@ -554,6 +560,12 @@ _HBM, _Q8, _BIDIR = 0, 1, 2
 # 2) tiles of shared memory per block.
 HBM_TILE_BYTES = 16384
 HBM_STAGES = 4
+# B10's register form: the 16-byte units of its chunk that each thread
+# holds in registers across the chain (csrc/ring_variants.cu's kQ8Units).
+# A chunk past what the resident grid holds that way runs the
+# out-of-register form, which keeps the partial in memory between hops.
+Q8_REGISTER_UNITS = 8
+_Q8_MEM = 3
 
 
 def _variants_lib() -> ctypes.CDLL:
@@ -565,8 +577,7 @@ def _variants_lib() -> ctypes.CDLL:
         head = [_P, _P, _L, _P, _I, _IP, _IP, _I, _I, _I]
         for name, argtypes in (
                 ("gtt_ring_allreduce_hbm", head + [_L, _I, _I, _I, _P]),
-                ("gtt_ring_allreduce_q8",
-                 [_P, _P, _L, _P, _L, _P, _L, _P, _I] + _TABLES + [_L, _P]),
+                ("gtt_ring_allreduce_q8", head + [_L, _I, _P]),
                 ("gtt_ring_allreduce_bidir", head + [_L, _L, _I, _P])):
             fn = getattr(lib, name)
             fn.argtypes = argtypes
@@ -598,22 +609,27 @@ def _vector_input(x: torch.Tensor, n: int) -> torch.Tensor:
     return padded
 
 
+def _variant_blocks(variant: int, lib: ctypes.CDLL):
+    """(the occupancy query of `variant`'s kernel, its per-device cache):
+    B9's at HBM_TILE_BYTES and HBM_STAGES, each other kernel its own."""
+    tile, stages = (HBM_TILE_BYTES, HBM_STAGES) if variant == _HBM \
+        else (0, 0)
+    return (lambda ref: lib.gtt_ring_variants_max_blocks(variant, tile,
+                                                         stages, ref),
+            _var_max_blocks.setdefault((variant, tile, stages), {}))
+
+
 def _variant_setup(x: torch.Tensor, mesh: Mesh, axis_name: Axis,
                    variant: int, want: int, blocks_per_slice: int = 1,
                    extra: int = 0):
     """(lib, slices, zeroed flags, flag stride, ctypes ring tables) for a
     launch of `variant`, its slices bounded by that kernel's own
-    occupancy (B9's at HBM_TILE_BYTES and HBM_STAGES)."""
+    occupancy."""
     _check_ranks(x, "the ring variant kernels")
     lib = _variants_lib()
     stride = lib.gtt_ring_variants_flag_stride(mesh.axis_size(axis_name))
-    tile, stages = (HBM_TILE_BYTES, HBM_STAGES) if variant == _HBM \
-        else (0, 0)
     slices, flags, tables = cooperative_grid(
-        x, mesh, axis_name, lib,
-        lambda ref: lib.gtt_ring_variants_max_blocks(variant, tile, stages,
-                                                     ref),
-        _var_max_blocks.setdefault((variant, tile, stages), {}), want,
+        x, mesh, axis_name, lib, *_variant_blocks(variant, lib), want,
         stride, blocks_per_slice, extra)
     return lib, slices, flags, stride, tables
 
@@ -681,24 +697,31 @@ def _allreduce_q8(x: torch.Tensor, axis_name: Axis,
     if x.device.type == "cpu":
         return ring_allreduce_q8_plain(x, axis_name, mesh)
     xv = _vector_input(x, n)
-    chunk = rows // n * cols  # f32 per chunk, int8 codes per wire slot
+    units = xv[0].numel() // n // 4  # 16-byte units per chunk
     out = torch.empty_like(xv)
-    wire = torch.empty((ranks, (n + 1) * chunk), dtype=torch.int8,
-                       device=x.device)
-    lib, slices, flags, stride, (my, right, left) = _variant_setup(
-        xv, mesh, axis_name, _Q8, -(-chunk // 4 // KERNEL_THREADS),
-        extra=2 * n * ranks)
-    scales = torch.empty((ranks, (n + 1) * slices), dtype=torch.float32,
-                         device=x.device)
+    lib = _variants_lib()
+    in_registers = q8_in_registers(
+        units, ranks, resident_blocks(xv, lib, *_variant_blocks(_Q8, lib)))
+    # As many slices as give each thread one unit, as far as the card holds
+    # them; the cells of each chain's maxima follow the flags.
+    _, slices, flags, stride, (my, _, _) = _variant_setup(
+        xv, mesh, axis_name, _Q8 if in_registers else _Q8_MEM,
+        -(-units // KERNEL_THREADS), extra=2 * n * ranks)
     with torch.cuda.device(x.device):
         err = lib.gtt_ring_allreduce_q8(
-            xv.data_ptr(), out.data_ptr(), n * chunk * 4, wire.data_ptr(),
-            wire.stride(0), scales.data_ptr(), scales.stride(0) * 4,
-            flags.data_ptr(), stride, my, right, left, ranks, n, slices,
-            chunk // 4, _stream(x))
+            xv.data_ptr(), out.data_ptr(), n * units * 16, flags.data_ptr(),
+            stride, my, _members_table(mesh, axis_name), ranks, n, slices,
+            units, int(in_registers), _stream(x))
     _raise_on(err, "ring_allreduce_q8", lib)
     ring_allreduce_q8.launches += 1
     return out
+
+
+def q8_in_registers(units: int, ranks: int, resident: int) -> bool:
+    """Whether B10's register form holds a chunk of `units` 16-byte units:
+    every rank's chain gets resident // ranks co-resident blocks of
+    KERNEL_THREADS threads, each holding Q8_REGISTER_UNITS units."""
+    return resident // ranks * KERNEL_THREADS * Q8_REGISTER_UNITS >= units
 
 
 def ring_allreduce_q8(x: torch.Tensor, axis_name: Axis,

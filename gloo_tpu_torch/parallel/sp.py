@@ -11,8 +11,9 @@ my * t_local .. (my + 1) * t_local - 1, my its index along `axis`.
   online-softmax state (no kernel in JAX either).
 - ``ring_flash_attention``: the same ring with the step kernels, a
   ``torch.autograd.Function``. The forward launches B6
-  (``flash_attention_step``) once per ring step over every rank of the
-  world at once (per-row offsets); the backward is the second ring pass of
+  (``flash_attention_step_into``) once per ring step over every rank of
+  the world at once (per-row offsets), into one f32 state updated in
+  place; the backward is the second ring pass of
   JAX's custom VJP, one fused B7a + B7b launch per step
   (``flash_attention_bwd_step_into``) that adds into the dQ buffer and the
   dK/dV carriers, which ride the rotation home with their blocks.
@@ -30,7 +31,7 @@ import torch
 
 from gloo_tpu_torch.ops.attention import (flash_attention,
                                           flash_attention_bwd_step_into,
-                                          flash_attention_step,
+                                          flash_attention_step_into,
                                           flash_bwd_step_finish,
                                           kernel_head_dim, prepare_bwd_step)
 from gloo_tpu_torch.tpu import spmd
@@ -104,7 +105,9 @@ def _offset_tables(mesh: Mesh, axis: str, rows: int, t_local: int,
 
 
 def _ring_flash_forward(q, k, v, axis, causal, mesh):
-    """The forward ring loop on B6: (out in q's dtype, lse (P b h, t, 1))."""
+    """The forward ring loop on B6: (out in q's dtype, lse (P b h, t, 1)).
+    One f32 state, allocated once, takes every step in place, so a rank
+    whose queries see none of the arriving block's keys costs nothing."""
     n = mesh.shape[axis]
     ranks, b, h, t_local, d = q.shape
     h_kv = k.shape[2]
@@ -120,7 +123,7 @@ def _ring_flash_forward(q, k, v, axis, causal, mesh):
     l = torch.zeros((bh, t_local, 1), device=q.device)
     k_blk, v_blk = k, v
     for i in range(n):
-        acc, m, l = flash_attention_step(
+        flash_attention_step_into(
             qf, k_blk.reshape(-1, t_local, d), v_blk.reshape(-1, t_local, d),
             acc, m, l, q_off, k_offs[i], causal=causal, kv_group=group)
         # JAX shifts after every step; the n-th shift's result is unused.

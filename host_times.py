@@ -4,21 +4,32 @@
     python3 host_times.py
 
 Prints, for the gloo_tpu_torch found beside this script:
-  - the host's cost per call of four wrappers, by the CPU clock over many
+  - the host's cost per call of the wrappers, by the CPU clock over many
     back-to-back calls with no synchronization (the device keeps up, so the
     clock reads what the host spends to launch): flash_attention_fwd (B1)
     at the entry forward's shape, on the fused-qkv views the transformer
     hands it, flash_attention_bwd (B2) at the same shape with the strided
     dO of the transformer's backward, spmd.alltoall (B8) at one exchange of
-    the Ulysses path and spmd.allgather (B4b) at the DDP buffer's shape;
+    the Ulysses path, spmd.allgather (B4b) at the DDP buffer's shape, and
+    B6 at the ring-flash path's first ring step: flash_attention_step (out
+    of place) and, where the tree has it, flash_attention_step_into;
   - the time per call between CUDA events (chip_smoke.event_ms) of the
-    entry forward, a training step, a DDP step, a dp x tp step and the
-    Ulysses, ring-flash and MoE paths' forward + backward, and the host's
-    cost per ring-flash forward + backward by the CPU clock (as above);
+    entry forward, a training step, a DDP step, a dp x tp step, the
+    Ulysses, ring-flash and MoE paths' forward + backward and the
+    ring-flash forward alone, and the host's cost per ring-flash forward +
+    backward and per ring-flash forward by the CPU clock (as above);
   - the device time (chip_smoke.device_profile) of the ring-flash path's
-    forward + backward, and of flash_attention_bwd_step per ring step at
-    that path's shape (every launch of the call: B7a and B7b, or the
-    fused kernel with its prep launch).
+    forward + backward and of its forward alone, and of
+    flash_attention_bwd_step per ring step at that path's shape (every
+    launch of the call: B7a and B7b, or the fused kernel with its prep
+    launch);
+  - the device time of each path's call (the entry forward, a training,
+    DDP and dp x tp step, Ulysses and MoE forward + backward, the q8
+    variant's forward + backward), and per launch (chip_smoke.timed_kernel)
+    of B6 at the ring-flash path's four ring steps as that path launches
+    it (in place where the tree has flash_attention_step_into), of B3, B9,
+    B10 and B11 at the ring-variant path's shape and of B10 at 64 MiB per
+    rank.
 
 It uses only the entry points, wrappers and chip_smoke helpers whose
 signatures earlier versions of the port share, so that the same script
@@ -36,8 +47,8 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from chip_smoke import (card_line, device_profile, event_ms,  # noqa: E402
-                        ring_steps)
+from chip_smoke import (BIG_ROWS, card_line, device_profile,  # noqa: E402
+                        event_ms, ring_steps, timed_kernel)
 
 
 def host_us(fn, calls=500):
@@ -74,13 +85,94 @@ def bwd_step_device_ms(attn, args):
     return None if dev is None else dev / len(steps)
 
 
+def forward_times(attn, args):
+    """The ring-flash forward alone (sp._ring_flash_forward, no autograd):
+    event ms, host us and device ms per call; and B6's wrappers' host us
+    per call at its first ring step (each rank's own block, every row
+    visible), out of place and, where the tree has it, in place."""
+    from gloo_tpu_torch.parallel import sp
+    from gloo_tpu_torch.tpu import spmd
+
+    _, q, k, v, mesh = args
+    qf, steps, q_off, _ = ring_steps(sp, spmd, q, k, v, "seq", mesh, True)
+    bh, t, d = qf.shape
+    ks, vs, k_off = steps[0]
+    state = [torch.zeros((bh, t, d), device="cuda"),
+             torch.full((bh, t, 1), -float("inf"), device="cuda"),
+             torch.zeros((bh, t, 1), device="cuda")]
+    out = {}
+    with torch.no_grad():
+        def fwd():
+            sp._ring_flash_forward(q, k, v, "seq", True, mesh)
+
+        out["ring_flash_forward_ms"] = event_ms(fwd, 20)
+        out["ring_flash_forward_host_us"] = host_us(fwd, calls=50)
+        out["ring_flash_forward_device_ms"] = device_profile(fwd, 10)[0]
+        out["flash_attention_step_host_us"] = host_us(
+            lambda: attn.flash_attention_step(qf, ks, vs, *state, q_off,
+                                              k_off))
+        if hasattr(attn, "flash_attention_step_into"):
+            out["flash_attention_step_into_host_us"] = host_us(
+                lambda: attn.flash_attention_step_into(qf, ks, vs, *state,
+                                                       q_off, k_off))
+    return out
+
+
+def device_times(attn, ring, paths, variants):
+    """Device ms of the paths' calls and of B6, B3, B9, B10 and B11 per
+    launch, as listed in the module's docstring."""
+    from gloo_tpu_torch.parallel import sp
+    from gloo_tpu_torch.tpu import spmd
+
+    out = {}
+    for key, (fn, args) in paths.items():
+        out[f"{key}_device_ms"] = device_profile(lambda: fn(*args), 5)[0]
+    _, q, k, v, mesh = paths["ring_flash_path"][1]
+    qf, steps, q_off, _ = ring_steps(sp, spmd, q, k, v, "seq", mesh, True)
+    bh, t, d = qf.shape
+    state = (torch.zeros((bh, t, d), device="cuda"),
+             torch.full((bh, t, 1), -float("inf"), device="cuda"),
+             torch.zeros((bh, t, 1), device="cuda"))
+    states = []
+    for ks, vs, k_off in steps:
+        states.append([x.clone() for x in state])
+        state = attn.flash_attention_step(qf, ks, vs, *state, q_off, k_off)
+    step = getattr(attn, "flash_attention_step_into",
+                   attn.flash_attention_step)
+    _, x, vmesh = variants["hbm"][1]
+    big = torch.randn((x.shape[0], BIG_ROWS, x.shape[2]), device="cuda")
+    with torch.no_grad():
+        out["b6_ms"] = timed_kernel(
+            "B6 per launch at the ring-flash path's ring steps",
+            lambda: [step(qf, ks, vs, *st, q_off, k_off)
+                     for (ks, vs, k_off), st in zip(steps, states)],
+            "flash_step_")
+        for name, label in (("allreduce", "ring_kernel"),
+                            ("allreduce_hbm", "hbm_kernel"),
+                            ("allreduce_q8", "q8_kernel"),
+                            ("allreduce_bidir", "bidir_kernel")):
+            fn = getattr(ring, f"ring_{name}")
+            out[f"ring_{name}_ms"] = timed_kernel(
+                f"ring_{name} at the ring-variant path's shape",
+                lambda fn=fn: fn(x, "data", vmesh), label)
+        out["ring_allreduce_q8_64mib_ms"] = timed_kernel(
+            "ring_allreduce_q8 at 64 MiB per rank",
+            lambda: ring.ring_allreduce_q8(big, "data", vmesh), "q8_kernel")
+    fn, args = variants["q8"]
+    out["q8_variant_path_device_ms"] = device_profile(lambda: fn(*args),
+                                                      10)[0]
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("host_times: no CUDA device is available")
     from gloo_tpu_torch import _build
     from gloo_tpu_torch.entry import (ddp_train_entry, dp_tp_train_entry,
-                                      entry, ep_entry, sp_entry, train_entry)
+                                      entry, ep_entry, ring_variants_entry,
+                                      sp_entry, train_entry)
     from gloo_tpu_torch.ops import attention as attn
+    from gloo_tpu_torch.ops import ring
     from gloo_tpu_torch.tpu import make_mesh, spmd
 
     card = card_line()
@@ -124,23 +216,20 @@ def main():
         result["spmd_allgather_host_us"] = host_us(
             lambda: spmd.allgather(grads, "data", mesh=data))
 
-    fn, args = entry()
-    result["entry_forward_ms"] = event_ms(lambda: fn(*args), 20)
-    fn, args = train_entry()
-    result["training_step_ms"] = event_ms(lambda: fn(*args), 20)
-    fn, args = ddp_train_entry()
-    result["ddp_step_ms"] = event_ms(lambda: fn(*args), 10)
-    fn, args = dp_tp_train_entry()
-    result["dp_tp_step_ms"] = event_ms(lambda: fn(*args), 10)
-    fn, args = sp_entry()["ulysses"]
-    result["ulysses_path_ms"] = event_ms(lambda: fn(*args), 10)
-    fn, args = sp_entry()["ring_flash"]
-    result["ring_flash_path_ms"] = event_ms(lambda: fn(*args), 10)
+    sp_paths = sp_entry()
+    paths = {"entry_forward": entry(), "training_step": train_entry(),
+             "ddp_step": ddp_train_entry(), "dp_tp_step": dp_tp_train_entry(),
+             "ulysses_path": sp_paths["ulysses"],
+             "ring_flash_path": sp_paths["ring_flash"], "moe_path": ep_entry()}
+    for key, (fn, args) in paths.items():
+        result[f"{key}_ms"] = event_ms(lambda: fn(*args),
+                                       20 if key in ("entry_forward",
+                                                     "training_step") else 10)
+    fn, args = paths["ring_flash_path"]
     result["ring_flash_host_us"] = host_us(lambda: fn(*args), calls=30)
-    result["ring_flash_device_ms"] = device_profile(lambda: fn(*args), 5)[0]
     result["bwd_step_device_ms"] = bwd_step_device_ms(attn, args)
-    fn, args = ep_entry()
-    result["moe_path_ms"] = event_ms(lambda: fn(*args), 10)
+    result.update(forward_times(attn, args))
+    result.update(device_times(attn, ring, paths, ring_variants_entry()))
 
     for key, val in result.items():
         print(f"{key}: {val}")

@@ -22,6 +22,12 @@ score that differs in its last bit can flip one bf16 ulp (2**-8 relative)
 of one term (2.2e-3 of the largest dk seen); m and l stay f32 and keep
 (1e-5, 1e-5) relative to their largest value.
 
+The in-place step's twin (flash_attention_step_into_plain) writes the
+step twin's new state into the caller's buffers for the 64-row query tiles
+that see a key of the block and leaves the others untouched, as the
+kernel's blocks do: bitwise the out-of-place twin on every state a step
+can carry, and held to TOL against JAX.
+
 The accumulating step's twin adds the unscaled dQ piece and the
 group-summed dK/dV partials into f32 buffers; over a ring of 3 ranks its
 sums are held to the same TOL against the JAX step's pieces summed per
@@ -39,8 +45,11 @@ jax = pytest.importorskip("jax")
 
 import jax.numpy as jnp  # noqa: E402
 
+import chip_smoke as cs  # noqa: E402
 from gloo_tpu.ops import attention as jattn  # noqa: E402
 from gloo_tpu_torch.ops import attention as attn  # noqa: E402
+from gloo_tpu_torch.parallel import sp  # noqa: E402
+from gloo_tpu_torch.tpu import make_mesh, spmd  # noqa: E402
 
 # (q_offset, k_offset) at t_q = t_kv = T: block wholly visible, straddling
 # the diagonal, wholly above it.
@@ -166,6 +175,89 @@ def test_step_per_row_offsets_are_per_rank_calls():
                         int(ko[4 * r]), True, 2)
         for name, a, b in zip(("acc", "m", "l"), ours, ref):
             _close(a[rows], b, "bfloat16", state=name != "acc")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("group", [1, 2])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("carried", [False, True], ids=["fresh", "carried"])
+def test_step_into_is_the_step_in_place(dtype, group, causal, carried):
+    """flash_attention_step_into (on the CPU its twin) leaves in the
+    caller's buffers bitwise what flash_attention_step_plain returns, and
+    that state is JAX's within TOL, at every placement of the block."""
+    bh = 4
+    (qj, kj, vj), (q, k, v) = _inputs(bh, group, T, T, dtype, 11)
+    state = _state(qj, group, causal, carried)
+    for where, (qo, ko) in OFFSETS.items():
+        if carried:
+            qo, ko = qo + 2 * T, ko + 2 * T
+        bufs = [_to_torch(x).clone() for x in state]
+        plain = attn.flash_attention_step_plain(q, k, v, *bufs, qo, ko,
+                                                causal, group)
+        ptrs = [b.data_ptr() for b in bufs]
+        assert attn.flash_attention_step_into(
+            q, k, v, *bufs, qo, ko, causal=causal, kv_group=group) is None
+        assert [b.data_ptr() for b in bufs] == ptrs
+        ref = _jax_step(qj, kj, vj, state, qo, ko, causal, group)
+        for name, a, p, r in zip(("acc", "m", "l"), bufs, plain, ref):
+            assert torch.equal(a, p), (where, name)
+            _close(a, r, dtype, state=name != "acc")
+
+
+def test_hidden_tiles_keep_their_state():
+    """Rows that see no key of the block keep their state bitwise in the
+    step twin, and the in-place form leaves the query tiles that see none
+    untouched: with t_q 96 (tiles of rows 0-63 and 64-95) and keys from
+    global position 80, row 0's first tile is hidden and its second sees
+    keys from row 80 on; row 1 (keys after all its queries) is hidden
+    whole, row 2 (keys before them) sees every key. A sentinel state in
+    the hidden tiles (l 7 where m is -inf), which a step would rewrite,
+    stays as it was."""
+    bh, tq = 3, 96
+    (_, _, _), (q, k, v) = _inputs(bh, 1, tq, T, "bfloat16", 12)
+    qo = torch.tensor([0, 0, 200], dtype=torch.int32)
+    ko = torch.tensor([80, 100, 0], dtype=torch.int32)
+    rng = np.random.RandomState(13)
+    acc = torch.from_numpy(rng.randn(bh, tq, D).astype(np.float32))
+    m = torch.from_numpy(rng.randn(bh, tq, 1).astype(np.float32))
+    l = torch.from_numpy(rng.rand(bh, tq, 1).astype(np.float32)) + 1.0
+    new = attn.flash_attention_step_plain(q, k, v, acc, m, l, qo, ko)
+    hidden = torch.zeros((bh, tq), dtype=torch.bool)
+    hidden[0, :80] = hidden[1] = True
+    for a, b in zip(new, (acc, m, l)):
+        assert torch.equal(a[hidden], b[hidden])
+        assert not torch.equal(a[~hidden], b[~hidden])
+    seen = attn.visible_tiles(qo, ko, tq, True)[..., 0]
+    assert seen[0].tolist() == [False] * 64 + [True] * 32
+    assert not seen[1].any() and seen[2].all()
+    bufs = [acc.clone(), m.clone(), l.clone()]
+    sentinel = ~seen
+    bufs[1][sentinel] = -float("inf")
+    bufs[2][sentinel] = 7.0
+    keep = [b.clone() for b in bufs]
+    attn.flash_attention_step_into(q, k, v, *bufs, qo, ko)
+    for a, b, x in zip(bufs, keep, new):
+        assert torch.equal(a[sentinel], b[sentinel])
+        assert torch.equal(a[seen], x[seen])
+
+
+@pytest.mark.parametrize("d", [32, 96])
+def test_chained_step_into_updates_the_d_wide_state(d):
+    """Three in-place steps at a head_dim the kernels zero-pad (d 32 on
+    the 64 instance, d 96 on the 128) update the caller's d-wide state:
+    bitwise three chained out-of-place steps."""
+    bh, t = 4, 64
+    rng = np.random.RandomState(d)
+    q, k, v = (torch.from_numpy(rng.randn(bh, t, d).astype(np.float32))
+               .to(torch.bfloat16) for _ in range(3))
+    state = (torch.zeros((bh, t, d)), torch.full((bh, t, 1), -np.inf),
+             torch.zeros((bh, t, 1)))
+    bufs = [x.clone() for x in state]
+    for i, (qo, ko) in enumerate(((2 * t, 0), (2 * t, t), (2 * t, 2 * t))):
+        state = attn.flash_attention_step(q, k, v, *state, qo, ko)
+        attn.flash_attention_step_into(q, k, v, *bufs, qo, ko)
+        for a, b in zip(bufs, state):
+            assert a.shape == b.shape and torch.equal(a, b), i
 
 
 def _bwd_inputs(bh, group, dtype, causal, qo, seed):
@@ -356,11 +448,16 @@ def test_step_rejects_what_it_does_not_take():
     with pytest.raises(ValueError, match="f32"):
         attn.flash_attention_bwd_step(q, q, q, q.bfloat16(), *state[1:],
                                       0, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        attn.flash_attention_step_into(q, q, q, state[0].transpose(0, 1)
+                                       .contiguous().transpose(0, 1),
+                                       *state[1:], 0, 0)
     # The twins launch nothing.
     counters = (attn.flash_attention_step, attn.flash_attention_bwd_step,
                 attn.prepare_bwd_step, attn.flash_bwd_step_finish)
     before = tuple(c.launches for c in counters)
     attn.flash_attention_step(q, q, q, *state, 8, 0)
+    attn.flash_attention_step_into(q, q, q, *state, 8, 0)
     attn.flash_attention_bwd_step(q, q, q, q, *state[1:], 8, 0)
     cot = attn.prepare_bwd_step(q, q, *state[1:])
     bufs = [torch.zeros((4, 8, 64)) for _ in range(3)]
@@ -458,3 +555,41 @@ def test_accumulating_step_matches_its_twin_on_card(cuda_device, dtype,
         attn.flash_bwd_step_finish(bufs[0], d, dtype).float(),
         (plain[0] * attn._dq_scale(d)).to(dtype).float(), rtol=2e-2,
         atol=1e-2 * float(plain[0].abs().max()) * attn._dq_scale(d))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", cs.STEP_CASES,
+                         ids=[c[0] for c in cs.STEP_CASES])
+def test_step_into_matches_its_twin_on_card(cuda_device, case):
+    """B6 in place (flash_attention_step_into) over every ring step of a
+    STEP_CASES world, each step against the twin from the same state
+    within chip_smoke's STEP_TOL (STATE_TOL for m and l), and bitwise the
+    out-of-place flash_attention_step from that state."""
+    name, ranks, b, h, h_kv, t, d, dtype, causal = case
+    gen = torch.Generator(cuda_device).manual_seed(ranks * t + d)
+    mesh = make_mesh({"seq": ranks}, devices=[cuda_device] * ranks)
+    q = torch.randn((ranks, b, h, t, d), generator=gen, device=cuda_device)
+    k, v = (torch.randn((ranks, b, h_kv, t, d), generator=gen,
+                        device=cuda_device) for _ in range(2))
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    qf, steps, q_off, group = cs.ring_steps(sp, spmd, q, k, v, "seq", mesh,
+                                            causal)
+    bh = qf.shape[0]
+    bufs = [torch.zeros((bh, t, d), device=cuda_device),
+            torch.full((bh, t, 1), -float("inf"), device=cuda_device),
+            torch.zeros((bh, t, 1), device=cuda_device)]
+    for i, (ks, vs, k_off) in enumerate(steps):
+        before = [x.clone() for x in bufs]
+        launches = attn.flash_attention_step.launches
+        attn.flash_attention_step_into(qf, ks, vs, *bufs, q_off, k_off,
+                                       causal, group)
+        assert attn.flash_attention_step.launches == launches + 1
+        out = attn.flash_attention_step(qf, ks, vs, *before, q_off, k_off,
+                                        causal, group)
+        ref = attn.flash_attention_step_plain(qf, ks, vs, *before, q_off,
+                                              k_off, causal, group)
+        torch.cuda.synchronize()
+        for j, (a, o, r) in enumerate(zip(bufs, out, ref)):
+            err, ok = cs.step_close(a, r, dtype, state=j > 0)
+            assert ok, (i, j, err)
+            assert torch.equal(a, o), (i, j)

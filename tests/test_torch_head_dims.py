@@ -224,8 +224,9 @@ def test_step_kernels_pad_to_the_instance(fake_card):
     assert [x.shape for x in state] == [(bh, tq, d), (bh, tq, 1),
                                        (bh, tq, 1)]
     name, args = fake_card.calls[-1]
-    assert name == "gtt_flash_step" and args[16] == 64
-    assert args[18] == attn._folded_scale(d, torch.bfloat16)
+    # The kernel's head_dim, the state's width as it lies, the scale of d.
+    assert name == "gtt_flash_step" and args[13:15] == (64, d)
+    assert args[16] == attn._folded_scale(d, torch.bfloat16)
     do = _meta(bh, tq, d, dtype=f32)
     dq, dk, dv = attn.flash_attention_bwd_step(q, k, v, do, m, l, 0, 0)
     assert dq.shape == dk.shape == dv.shape == (bh, tq, d)
@@ -263,8 +264,9 @@ def test_step_cotangent_is_held_to_its_q(fake_card):
 @pytest.mark.parametrize("d,dim", [(32, 64), (96, 128)])
 def test_step_kernel_takes_the_state_it_returns(fake_card, d, dim):
     """A ring loop hands each B6 step the (acc, m, l) of the step before:
-    at a padded head_dim that acc is a d-wide view of the kernel's padded
-    output, which the next step pads again into a contiguous operand."""
+    at a padded head_dim q, k and v run on the next instance while the
+    kernel reads and writes the d-wide acc as it lies (its width passed
+    beside the instance's)."""
     bh, tq = 4, 64
     q, k, v = _meta(bh, tq, d), _meta(bh, tq, d), _meta(bh, tq, d)
     f32 = torch.float32
@@ -274,8 +276,8 @@ def test_step_kernel_takes_the_state_it_returns(fake_card, d, dim):
         state = attn.flash_attention_step(q, k, v, *state, 0, 0)
         assert [x.shape for x in state] == [(bh, tq, d), (bh, tq, 1),
                                            (bh, tq, 1)]
-    assert [(n, a[16]) for n, a in fake_card.calls] == \
-        [("gtt_flash_step", dim)] * 3
+    assert [(n, a[13], a[14]) for n, a in fake_card.calls] == \
+        [("gtt_flash_step", dim, d)] * 3
 
 
 @pytest.mark.parametrize("d", [136, 12, 256])

@@ -1,5 +1,5 @@
-"""The member-order passes of csrc/ring_variants.cu's B11 and B9, proved on
-the CPU.
+"""The member-order passes of csrc/ring_variants.cu's B11, B9 and B10,
+proved on the CPU.
 
 On the card, B11 (ring_allreduce_bidir) and B9 (ring_allreduce_hbm) do not
 walk the ring: the block that finishes a chunk reads it from every member
@@ -12,7 +12,14 @@ add per member in the element type (bf16 rounds after every add):
     my - 1 of the right half over members my - 1, my - 2, ..., my - n (the
     mirrored ring's order);
   - B9: the rank with ring index my sums chunk my + 1 in B3's order, tile
-    by tile, member by member, as its bulk-copy pipeline feeds the adds.
+    by tile, member by member, as its bulk-copy pipeline feeds the adds;
+  - B10: the rank with ring index my walks the chain of chunk my, members
+    my, my + 1, ..., my + n - 1, its S slice blocks each folding their
+    units' max into the chunk's max at every hop, quantizing the partial
+    with it and adding the next member's input (fma); the last partial is
+    quantized once more and its decoded values stored into chunk my of
+    every member's output. The partial rides in registers, or (the
+    out-of-register form) in the rank's own output chunk between hops.
 
 Tolerance: none. The models are held bitwise against the plain twins that
 walk the ring step by step and against the interpreted JAX kernels; an
@@ -272,6 +279,97 @@ def test_hbm_stage_ring_feeds_every_load_in_order(n, tiles, stages):
         assert all(s == loads for s in seen)
 
 
+# ---- B10 ----
+
+def q8_chain(x, axis, mesh, slices, stash=False):
+    """B10's pass in plain PyTorch, block by block as the kernel runs it:
+    for each rank, the chain of chunk my over members my, my + 1, ...,
+    my + n - 1, its 16-byte units cut into `slices` slices as the kernel's
+    blocks cut them (unevenly where S does not divide them). At each hop
+    every slice's max |partial| is folded into the chunk's max, the scale
+    is max * f32(1 / 127), and each slice's partial is quantized with it
+    and the next member's input added (the twin's f64 sum of one rounding,
+    the kernel's fma). The partial stays with its slice, or with `stash`
+    is written into the rank's own output chunk after each hop and read
+    back at the next (the out-of-register form). The last partial is
+    quantized once more and its decoded values are stored into chunk my of
+    every member's output. Checks that every output unit is written
+    exactly once."""
+    n = mesh.axis_size(axis)
+    ranks = x.shape[0]
+    chunks = x.reshape(ranks, n, -1)
+    units = chunks.shape[2] // 4
+    out = torch.full_like(chunks, float("nan"))
+    written = torch.zeros((ranks, n, units), dtype=torch.int64)
+    inv127 = torch.tensor(ring._INV_127, dtype=torch.float32)
+    bounds = [(4 * (units * j // slices), 4 * (units * (j + 1) // slices))
+              for j in range(slices)]
+    for my, members in zip(mesh.ring_index(axis), mesh.ring_members(axis)):
+        r = members[my]
+        parts = [chunks[r, my, lo:hi].clone() for lo, hi in bounds]
+        for k in range(1, n + 1):
+            # The cross-block max of this hop, from every slice's own max.
+            peak = max(float(p.abs().max()) if p.numel() else 0.0
+                       for p in parts)
+            scale = torch.tensor(peak, dtype=torch.float32) * inv127
+            safe = scale.clamp_min(1e-30)
+            codes = [torch.round(p / safe).clamp(-127, 127) for p in parts]
+            if k == n:
+                break
+            nxt = chunks[members[(my + k) % n], my]
+            parts = [(nxt[lo:hi].double() + q.double() * scale.double())
+                     .float() for q, (lo, hi) in zip(codes, bounds)]
+            if stash:
+                for p, (lo, hi) in zip(parts, bounds):
+                    out[r, my, lo:hi] = p
+                parts = [out[r, my, lo:hi].clone() for lo, hi in bounds]
+        for q, (lo, hi) in zip(codes, bounds):
+            for m in members:
+                out[m, my, lo:hi] = q * scale
+                written[m, my, lo // 4:hi // 4] += 1
+    assert bool((written == 1).all()), written
+    return out.reshape(x.shape)
+
+
+Q8_MESHES = MESHES + [("2x2_yx", {"y": 2, "x": 2}, ("y", "x")),
+                      ("2x4_ba", {"a": 2, "b": 4}, ("b", "a"))]
+
+
+@pytest.mark.parametrize("stash", [False, True], ids=["registers", "memory"])
+@pytest.mark.parametrize("name,axes,axis", Q8_MESHES,
+                         ids=[m[0] for m in Q8_MESHES])
+def test_q8_chain_is_bitwise_the_twin(name, axes, axis, stash):
+    mesh = _mesh(axes)
+    n = mesh.axis_size(axis)
+    x = _input(torch.float32, (mesh.size, n * 32, 128), seed=mesh.size + n)
+    want = ring.ring_allreduce_q8_plain(x, axis, mesh)
+    for slices in (1, 3, 7):  # 7 cuts the 1024 units of a chunk unevenly
+        got = q8_chain(x, axis, mesh, slices, stash)
+        assert torch.equal(got, want), slices
+
+
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_q8_chain_is_bitwise_the_jax_kernel(n):
+    x32 = np.random.RandomState(n).randn(n, n * 32, 128).astype(np.float32)
+    ref = _jax_ring("q8", x32)
+    got = q8_chain(torch.from_numpy(x32), "x", _mesh({"x": n}), 5)
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def test_q8_chain_quantizes_every_hop():
+    """The chain quantizes each partial with the max of the whole chunk: a
+    model that skipped the hops' quantization (an f32 sum, quantized once
+    at the end) gives other values."""
+    mesh = _mesh({"x": 4})
+    x = _input(torch.float32, (4, 128, 128), seed=9)
+    want = ring.ring_allreduce_q8_plain(x, "x", mesh)
+    chunks = x.reshape(4, 4, -1)
+    total = chunks.sum(0)  # each chunk's sum, ring order aside
+    q, scale = ring._quantize(total)
+    assert not torch.equal((q * scale[:, None]).reshape(1, 128, 128)
+                           .expand(4, -1, -1), want)
+
+
 # ---- the wrappers' launches, on meta tensors ----
 
 class _FakeLib:
@@ -282,7 +380,7 @@ class _FakeLib:
         self.calls, self.queries = [], []
 
     def gtt_ring_variants_flag_stride(self, n):
-        return 5 + n - 1
+        return 8
 
     def gtt_ring_variants_max_blocks(self, variant, tile, stages, ref):
         self.queries.append((variant, tile, stages))
@@ -295,6 +393,10 @@ class _FakeLib:
 
     def gtt_ring_allreduce_bidir(self, *args):
         self.calls.append(("bidir", args))
+        return 0
+
+    def gtt_ring_allreduce_q8(self, *args):
+        self.calls.append(("q8", args))
         return 0
 
 
@@ -367,6 +469,62 @@ def test_hbm_and_bidir_launch_with_members_and_no_buffers(monkeypatch, axes,
                            (2, 0, 0)]
 
 
+@pytest.mark.parametrize("axes,axis", [({"x": 4}, "x"),
+                                       ({"y": 2, "x": 2}, "x"),
+                                       ({"y": 2, "x": 2}, ("y", "x"))])
+def test_q8_launches_with_members_and_no_wire(monkeypatch, axes, axis):
+    """B10's path on the card, up to the launch: the only allocations are
+    the output and the zeroed flags with the chains' cells after them (no
+    wire, no scales); the kernel gets each rank's ring index and its
+    ring's members; the register form while the resident grid holds the
+    chunk at Q8_REGISTER_UNITS units a thread (the fake card: 96 blocks,
+    24 per rank of 4, 49152 units), past it the out-of-register form on
+    its own occupancy query."""
+    lib = _FakeLib()
+    monkeypatch.setattr(ring, "_variants_lib", lambda: lib)
+    monkeypatch.setattr(ring, "_var_max_blocks", {})
+    monkeypatch.setattr(ring, "_stream", lambda x: 0)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda index: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    allocated = []
+    for alloc in ("empty", "empty_like", "zeros", "zeros_like"):
+        real = getattr(torch, alloc)
+
+        def record(*args, real=real, alloc=alloc, **kwargs):
+            t = real(*args, **kwargs)
+            allocated.append((alloc, tuple(t.shape), t.dtype))
+            return t
+
+        monkeypatch.setattr(torch, alloc, record)
+    mesh = make_mesh(axes, devices=["meta"] * 4)
+    n = mesh.axis_size(axis)
+    members = [m for row in mesh.ring_members(axis) for m in row]
+    capacity = 96 // 4 * ring.KERNEL_THREADS * ring.Q8_REGISTER_UNITS
+    for chunk_rows, form in ((512, 1), (1024, 0)):
+        rows, cols = n * chunk_rows, 256
+        units = chunk_rows * cols // 4
+        assert (units <= capacity) == bool(form)
+        x = torch.ones((4, rows, cols), device="meta")
+        allocated.clear()
+        out = ring.ring_allreduce_q8(x, axis, mesh)
+        assert out.shape == x.shape
+        slices = min(96 // 4, -(-units // ring.KERNEL_THREADS))
+        # The meta device may build zeros from empty: the outer calls.
+        assert ("empty_like", tuple(x.shape), torch.float32) in allocated
+        assert ("zeros", (4 * slices * 8 + 2 * n * 4,), torch.int32) \
+            in allocated
+        assert not [a for a in allocated if a[2] == torch.int8]
+        name, args = lib.calls[-1]
+        assert name == "q8"
+        assert args[2] == rows * cols * 4  # each rank's stride in bytes
+        assert args[4] == 8
+        assert list(args[5]) == mesh.ring_index(axis)
+        assert list(args[6]) == members
+        assert args[7:12] == (4, n, slices, units, form)
+    assert lib.queries == [(1, 0, 0), (3, 0, 0)]
+
+
 # ---- on the card ----
 
 @pytest.fixture
@@ -408,5 +566,25 @@ def test_hbm_stages_and_tiles_on_card(cuda_device, monkeypatch, n, rows,
     want = ring.ring_allreduce_plain(x, "x", _mesh({"x": n}))
     for _ in range(3):
         out = ring.ring_allreduce_hbm(x.to(cuda_device), "x", mesh)
+        torch.cuda.synchronize()
+        assert torch.equal(out.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["registers", "memory"])
+@pytest.mark.parametrize("name,axes,axis", Q8_MESHES,
+                         ids=[m[0] for m in Q8_MESHES])
+def test_q8_is_bitwise_the_twin_on_card(cuda_device, monkeypatch, name, axes,
+                                        axis, form):
+    """B10 in each form (the out-of-register one forced) bitwise its twin,
+    three calls in a row, at chunks of 96 rows of 256 f32."""
+    if form == "memory":
+        monkeypatch.setattr(ring, "q8_in_registers", lambda *args: False)
+    mesh = _mesh(axes, cuda_device)
+    n = mesh.axis_size(axis)
+    x = _input(torch.float32, (mesh.size, n * 96, 256), seed=mesh.size + 3)
+    want = ring.ring_allreduce_q8_plain(x, axis, _mesh(axes))
+    for _ in range(3):
+        out = ring.ring_allreduce_q8(x.to(cuda_device), axis, mesh)
         torch.cuda.synchronize()
         assert torch.equal(out.cpu(), want)

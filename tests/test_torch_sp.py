@@ -143,6 +143,31 @@ def test_ring_flash_attention_two_tiles_per_rank():
     _close(_global(out), ref, "float32", "out")
 
 
+def test_ring_flash_forward_folds_into_one_state(monkeypatch):
+    """The forward ring loop takes every step in place
+    (flash_attention_step_into) on one f32 state allocated once, and the
+    output is still JAX's (bf16, GQA, causal)."""
+    calls = []
+    real = sp.flash_attention_step_into
+
+    def spy(q, k, v, acc, m, l, *args, **kwargs):
+        calls.append(tuple(x.data_ptr() for x in (acc, m, l)))
+        return real(q, k, v, acc, m, l, *args, **kwargs)
+
+    monkeypatch.setattr(sp, "flash_attention_step_into", spy)
+    js = _inputs(1, 4, 2, 16 * N, 32, "bfloat16", 8)
+    t_local = js[0].shape[2] // N
+
+    def f(q, k, v):
+        return jsp.ring_flash_attention(q, k, v, "seq", block_q=t_local,
+                                        block_k=t_local, interpret=True)
+
+    ref = jax.jit(_shard(f))(*js)
+    out = sp.ring_flash_attention(*map(_world, js), "seq", mesh=_mesh())
+    assert len(calls) == N and len(set(calls)) == 1
+    _close(_global(out), ref, "bfloat16", "out")
+
+
 def _ulysses_jax(js, causal):
     return _jax_out_and_grads(
         lambda q, k, v: jsp.ulysses_attention(q, k, v, "seq", causal=causal),
