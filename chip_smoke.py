@@ -120,7 +120,22 @@ Phases, each of which raises on failure:
      each (tile, stages) of HBM_PROBES, bitwise B3 at each; and of B3 and
      B4a at the DDP shape and at 64 MiB per rank with SUM_PROBE_UNITS
      units per thread (the slice count of their launch); and of B4b at 64
-     MiB per rank against its bound and yardstick.
+     MiB per rank against its bound and yardstick;
+ 23. the FSDP path: FSDP_STEPS steps of fsdp_train_entry() (the flagship
+     at full width sharded over 4 ranks on the card, SGD), with the launch
+     counts read around them (per step 15 B4b and 15 B4a, one per leaf, 1
+     B3, 8 B1 and 8 B2), a falling loss equal on every rank, and the first
+     step against one model's full-batch SGD on the card and against the
+     same step of the port on the CPU from the same weights;
+ 24. the pipeline path: pp_entry()'s GPipe forward (B1 once per tick, 11)
+     and 1F1B step (B1 twice and B2 once per tick, 44 and 22) over 4
+     stages of the flagship's block and 8 microbatches, the GPipe output
+     and the 1F1B loss_sum and gradients against the sequential
+     composition of the stages on the card (PP_TOL);
+ 25. times of the FSDP step, the 1F1B step and the GPipe forward (per
+     call, device time and busy share), and the device time under
+     gloo_tpu.fsdp.unshard, gloo_tpu.pp.fwd_shift, gloo_tpu.pp.bwd_shift
+     and gloo_tpu.pp.stage_shift from one device_trace of each.
 The line before the last is the JSON list of kernels; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or gloo_tpu.
 """
@@ -360,6 +375,22 @@ SUM_PROBE_UNITS = (1, 2, 4, 8, 16)
 # Calls of each ring kernel in a row against its plain version (an
 # ordering fault between flags and data shows now and then).
 RING_RUNS = 3
+# Steps of the FSDP path (phase 23). Its first step is held against one
+# model's full-batch SGD on the card and against the port's CPU run with
+# TRAIN_TOL: both are bf16 activations over f32 parameters, and the
+# world's per-rank products, the kernels and the CPU twins round in other
+# orders. The parameters are compared as the step's implied gradient
+# (old - new) / lr, whose f32 rounding of the parameters adds up to
+# ulp(p) / lr.
+FSDP_STEPS = 5
+# The pipeline path (phase 24) against the sequential composition of its
+# stages on the card, as |a - b| / |b|: the GPipe output (bf16; the
+# world's batched products may round differently from one stage's), the
+# 1F1B loss_sum and each stage gradient summed over the microbatches.
+PP_TOL = {"out": 2e-2, "loss": 1e-3, "grad": 5e-2}
+# Calls of each path inside the one device_trace that phase 25 reads the
+# scopes' device time from.
+TRACE_CALLS = 3
 
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -1941,11 +1972,210 @@ def gather_probe(ring, big, mesh):
           f"{nbytes} bytes); kernel / bound {shown}, yardstick {lib} ms")
 
 
+def implied_grads(old, new, lr):
+    """{name: (old - new) / lr} of rank 0's rows of unsharded FSDP
+    parameters: the gradient an SGD step took."""
+    return {n: (old[n][0] - new[n][0]) / lr for n in old}
+
+
+def fsdp_path(attn, ring, entry_mod, unshard_params, make_mesh, cfg):
+    """Phase 23: FSDP_STEPS steps of fsdp_train_entry() with the launch
+    counts read around them; the first step against one model's SGD over
+    the whole batch on the card and against the same step of the port on
+    the CPU. Returns (launches, the entry's (step, args))."""
+    step, (sharded, batch) = entry_mod.fsdp_train_entry()
+    ranks, lr = entry_mod.FSDP_MESH["data"], entry_mod.FSDP_LR
+    counters = (ring.ring_allgather, ring.ring_reduce_scatter,
+                ring.ring_allreduce, attn.flash_attention_fwd,
+                attn.flash_attention_bwd)
+    for c in counters:
+        c.launches = 0
+    state, losses = sharded, []
+    for i in range(FSDP_STEPS):
+        state, loss = step(state, batch)
+        losses.append(loss)
+        if i == 0:
+            first = state
+    torch.cuda.synchronize()
+    launches = tuple(c.launches for c in counters)
+    leaves = len(sharded)
+    per_step = (leaves, leaves, 1, ranks * cfg.n_layers,
+                ranks * cfg.n_layers)
+    want = tuple(FSDP_STEPS * x for x in per_step)
+    same = all(torch.equal(x, x[:1].expand_as(x)) for x in losses)
+    losses = [float(x[0]) for x in losses]
+    print(f"FSDP path: {FSDP_STEPS} steps of {ranks} ranks on the card, "
+          f"{leaves} leaves sharded 1/{ranks}, SGD lr {lr}; losses "
+          f"{', '.join(f'{x:.6f}' for x in losses)} (every rank's the same: "
+          f"{same}); launches (B4b, B4a, B3, B1, B2) {launches}, per step "
+          f"{per_step}")
+    if leaves != 15 or launches != want:
+        raise AssertionError(f"the FSDP path launched {launches} over "
+                             f"{leaves} leaves, expected {want} over 15")
+    if not same or not all(np.isfinite(losses)) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"FSDP loss is not finite, equal on every "
+                             f"rank and falling: {losses}")
+
+    from gloo_tpu_torch.models import Transformer
+
+    template = Transformer(cfg, device="meta").state_dict()
+    mesh = make_mesh(entry_mod.FSDP_MESH,
+                     devices=[batch[0].device] * ranks)
+    old = unshard_params(sharded, template, "data", mesh=mesh)
+    implied = implied_grads(old, unshard_params(first, template, "data",
+                                                mesh=mesh), lr)
+    _, (model, _, tokens, targets) = entry_mod.train_entry()
+    single = model.loss(tokens, targets)
+    single.backward()
+    checks = {"one model on the card": (float(single.detach()), {
+        n: p.grad for n, p in model.named_parameters()})}
+    cstep, (csharded, cbatch) = entry_mod.fsdp_train_entry("cpu")
+    if any(not torch.equal(csharded[n], sharded[n].cpu()) for n in sharded):
+        raise AssertionError("the CPU run does not start from the card's "
+                             "weights")
+    cnew, closs = cstep(csharded, cbatch)
+    cmesh = make_mesh(entry_mod.FSDP_MESH, devices=["cpu"] * ranks)
+    checks["the port on the CPU"] = (float(closs[0]), implied_grads(
+        unshard_params(csharded, template, "data", mesh=cmesh),
+        unshard_params(cnew, template, "data", mesh=cmesh), lr))
+    for label, (ref_loss, ref_grads) in checks.items():
+        loss_rel = abs(losses[0] - ref_loss) / abs(ref_loss)
+        grad_rel = {n: float((implied[n].cpu() - g.cpu()).norm()
+                             / g.cpu().norm()) for n, g in ref_grads.items()}
+        worst = max(grad_rel, key=grad_rel.get)
+        print(f"first FSDP step vs {label}: loss {losses[0]:.6f} vs "
+              f"{ref_loss:.6f} (rel {loss_rel:.3e}, tol "
+              f"{TRAIN_TOL['loss']}); implied grads (old - new) / lr "
+              f"|g - g_ref| / |g_ref| max {grad_rel[worst]:.3e} at {worst}, "
+              f"median {sorted(grad_rel.values())[len(grad_rel) // 2]:.3e} "
+              f"(tol {TRAIN_TOL['grad']})")
+        if loss_rel > TRAIN_TOL["loss"] \
+                or grad_rel[worst] > TRAIN_TOL["grad"]:
+            raise AssertionError(f"the first FSDP step disagrees with "
+                                 f"{label}")
+    return launches, (step, (sharded, batch))
+
+
+def sequential(stage_fn, stages, x, n_stages):
+    """x (1, ...) through stages 0 .. n_stages - 1 in turn, each with its
+    own row of the world parameters."""
+    for s in range(n_stages):
+        x = stage_fn({k: v[s:s + 1] for k, v in stages.items()}, x)
+    return x
+
+
+def pp_path(attn, pp, entry_mod):
+    """Phase 24: pp_entry()'s GPipe forward and 1F1B step with the flash
+    launch counts read around each, against the sequential composition of
+    the stages on the card. Returns ((B1, B2) per path, the paths)."""
+    paths = entry_mod.pp_entry()
+    s, m = entry_mod.PP_STAGES, entry_mod.PP_MICROBATCHES
+    ticks_1f1b = pp._build_1f1b_tables(s, m)[0].shape[0]
+    counters = (attn.flash_attention_fwd, attn.flash_attention_bwd)
+    results, launches = {}, {}
+    for name in ("gpipe", "1f1b"):
+        fn, args = paths[name]
+        for c in counters:
+            c.launches = 0
+        results[name] = fn(*args)
+        torch.cuda.synchronize()
+        launches[name] = tuple(c.launches for c in counters)
+    stage_fn, loss_fn, stages, xs, ys, _ = paths["1f1b"][1]
+    with torch.no_grad():
+        ref = torch.cat([sequential(stage_fn, stages, xs[:1, i], s)
+                         for i in range(m)])
+    out = results["gpipe"]
+    out_rel = rel_norm(out[-1], ref)
+    leaves = {k: v.clone().requires_grad_() for k, v in stages.items()}
+    with torch.enable_grad():
+        total = sum(loss_fn(sequential(stage_fn, leaves, xs[:1, i], s),
+                            ys[:1, i]).sum() for i in range(m))
+        total.backward()
+    grads, loss_sum = results["1f1b"]
+    total = float(total.detach())
+    loss_rel = abs(float(loss_sum[-1]) - total) / abs(total)
+    grad_rel = {k: rel_norm(grads[k], leaves[k].grad) for k in leaves}
+    want = {"gpipe": (s + m - 1, 0), "1f1b": (2 * ticks_1f1b, ticks_1f1b)}
+    print(f"pipeline path: {s} stages of the flagship's block (width "
+          f"{xs.shape[-1]}) on the card, {m} microbatches of "
+          f"{tuple(xs.shape[2:])} bf16; launches (B1, B2) GPipe "
+          f"{launches['gpipe']} over {s + m - 1} ticks, 1F1B "
+          f"{launches['1f1b']} over {ticks_1f1b} ticks; against the "
+          f"sequential composition |a - b| / |b|: GPipe output "
+          f"{out_rel:.3e} (tol {PP_TOL['out']}), 1F1B loss_sum "
+          f"{float(loss_sum[-1]):.6f} vs {total:.6f} (rel "
+          f"{loss_rel:.3e}, tol {PP_TOL['loss']}), grads "
+          + ", ".join(f"{k} {v:.3e}" for k, v in grad_rel.items())
+          + f" (tol {PP_TOL['grad']})")
+    if launches != want:
+        raise AssertionError(f"the pipeline path launched {launches}, "
+                             f"expected {want}")
+    finite = all(bool(torch.isfinite(t.float()).all())
+                 for t in (out, loss_sum, *grads.values()))
+    if not finite or out[:-1].any() or loss_sum[:-1].any() \
+            or out_rel > PP_TOL["out"] or loss_rel > PP_TOL["loss"] \
+            or max(grad_rel.values()) > PP_TOL["grad"]:
+        raise AssertionError("the pipeline path disagrees with the "
+                             "sequential composition of its stages")
+    return launches, paths
+
+
+def scope_times(tracing, label, fn, scopes):
+    """Device ms per call under each scope in `scopes`, read from one
+    device_trace of TRACE_CALLS calls of fn: {scope: (ms, device events)},
+    each per call. Every scope must show device work."""
+    import glob
+    import tempfile
+
+    fn()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as logdir:
+        with tracing.device_trace(logdir):
+            for _ in range(TRACE_CALLS):
+                fn()
+            torch.cuda.synchronize()
+        (trace,) = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+        found = {name: tracing.scope_device_ms(trace, name)
+                 for name in scopes}
+    out = {}
+    for name, (ms, events) in found.items():
+        out[name] = (ms / TRACE_CALLS, events / TRACE_CALLS)
+        print(f"  {label}: under {name} {ms / TRACE_CALLS:.6f} ms of "
+              f"device time in {events / TRACE_CALLS:g} device events per "
+              f"call")
+        if not events:
+            raise AssertionError(f"the trace of {label} shows no device "
+                                 f"work under {name}")
+    return out
+
+
+def parallel_times(tracing, fsdp, pp_paths, card):
+    """Phase 25: ms per FSDP step, 1F1B step and GPipe forward (CUDA
+    events), their device time and busy share, and the device time under
+    the FSDP and pipeline scopes."""
+    print(f"FSDP and pipeline times on {card}:")
+    step, (sharded, batch) = fsdp
+    rows = {}
+    for label, fn, scopes in (
+            ("FSDP step", lambda: step(sharded, batch),
+             ("gloo_tpu.fsdp.unshard",)),
+            ("1F1B step", lambda: pp_paths["1f1b"][0](*pp_paths["1f1b"][1]),
+             ("gloo_tpu.pp.fwd_shift", "gloo_tpu.pp.bwd_shift")),
+            ("GPipe forward",
+             lambda: pp_paths["gpipe"][0](*pp_paths["gpipe"][1]),
+             ("gloo_tpu.pp.stage_shift",))):
+        rows[label] = path_time(label, fn) + (
+            scope_times(tracing, label, fn, scopes),)
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
 
     from gloo_tpu_torch import _build
+    from gloo_tpu_torch import entry as entry_mod
     from gloo_tpu_torch.entry import (DDP_WORLD, ENTRY_CONFIG,
                                       ddp_train_entry, dp_tp_train_entry,
                                       entry, ep_entry, expert_mlp,
@@ -1956,9 +2186,11 @@ def main():
     from gloo_tpu_torch.ops import attention as attn
     from gloo_tpu_torch.ops import overlap as ov
     from gloo_tpu_torch.ops import ring
-    from gloo_tpu_torch.parallel import dp_tp, sp, tp
+    from gloo_tpu_torch.parallel import dp_tp, pp, sp, tp
     from gloo_tpu_torch.parallel.ddp import buffer_width
+    from gloo_tpu_torch.parallel.fsdp import unshard_params
     from gloo_tpu_torch.tpu import CudaProcessGroup, make_mesh, spmd
+    from gloo_tpu_torch.utils import tracing
 
     # Phase 1: the card.
     card = card_line()
@@ -2604,6 +2836,17 @@ def main():
 
     # Phase 22: times of B9, B10 and B11 at the path's shape.
     variant_rows = variant_times(ring, variant_paths, card)
+
+    # Phase 23: the FSDP path (B4b, B4a and B3 around each rank's B1/B2).
+    _, fsdp = fsdp_path(attn, ring, entry_mod, unshard_params, make_mesh,
+                        cfg)
+
+    # Phase 24: the pipeline path (B1 and B2 in every tick).
+    _, pp_paths = pp_path(attn, pp, entry_mod)
+
+    # Phase 25: times of the FSDP and pipeline paths, and the device time
+    # under their scopes.
+    parallel_times(tracing, fsdp, pp_paths, card)
 
     # Launches on the main paths: B1 on the serving path, B2 on the
     # training path, B3 on the DDP path, B4a and B4b on the group path,

@@ -27,10 +27,18 @@ EP_MESH of experts on one card, each the flagship's MLP at full width.
 ``ring_variants_entry()`` is the dry run's last section (the HBM-streaming,
 int8-wire and bidirectional ring allreduces, __graft_entry__.py:340-373)
 over DDP_WORLD ranks on one card, on the flagship's gradient buffer.
+``fsdp_train_entry()`` is its FSDP section (:250-271) at the flagship's
+full width: train_entry()'s weights sharded over FSDP_MESH ranks on one
+card, SGD on the shards (the reference's FSDP step). ``pp_entry()`` is its
+pipeline section (:202-225): the flagship's width at a depth of PP_STAGES
+layers, one block per stage over PP_MESH ranks on one card, GPipe forward
+and the 1F1B training step over PP_MICROBATCHES microbatches.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -38,16 +46,22 @@ import torch
 import torch.nn.functional as F
 
 from gloo_tpu_torch.device import resolve_device
-from gloo_tpu_torch.models.transformer import Transformer, TransformerConfig
+from gloo_tpu_torch.models.transformer import (Transformer,
+                                               TransformerConfig, _rmsnorm,
+                                               world_block)
 from gloo_tpu_torch.ops.ring import (ring_allreduce_bidir,
                                      ring_allreduce_hbm, ring_allreduce_q8)
 from gloo_tpu_torch.parallel.ddp import buffer_width, make_ddp_train_step
 from gloo_tpu_torch.parallel.dp_tp import (make_dp_tp_train_step,
-                                           shard_transformer)
+                                           shard_transformer, world_batch)
 from gloo_tpu_torch.parallel.ep import dispatch_combine
+from gloo_tpu_torch.parallel.fsdp import make_fsdp_train_step, shard_params
+from gloo_tpu_torch.parallel.pp import pipeline_apply, pipeline_train_1f1b
 from gloo_tpu_torch.parallel.sp import (ring_attention, ring_flash_attention,
                                         ulysses_attention)
 from gloo_tpu_torch.tpu.mesh import make_mesh
+from gloo_tpu_torch.weights import (pipeline_stages_from_numpy,
+                                    transformer_params_to_numpy)
 
 ENTRY_CONFIG = TransformerConfig(vocab_size=512, d_model=256, n_heads=4,
                                  n_layers=2, d_ff=1024, max_seq_len=128,
@@ -78,6 +92,17 @@ EP_CAPACITY = 64
 # layout that all three variants take (the bidirectional split needs
 # cols % 256 == 0, the int8 ring chunks of a multiple of 32 rows).
 RING_VARIANT_COLS = 256
+# fsdp_train_entry's mesh, all on one card: ENTRY_BATCH / 4 sequences per
+# rank, 1/4 of every parameter.
+FSDP_MESH = {"data": 4}
+# make_fsdp_train_step's SGD rate, the reference's default.
+FSDP_LR = 1e-2
+# pp_entry's mesh of stages, all on one card, its depth (one block per
+# stage) and its microbatches: one sequence of the entry batch each, so
+# M = 2 S (11 GPipe ticks, 22 1F1B ticks).
+PP_MESH = {"pipe": 4}
+PP_STAGES = PP_MESH["pipe"]
+PP_MICROBATCHES = ENTRY_BATCH
 
 
 def forward(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
@@ -289,3 +314,90 @@ def ring_variants_entry(device="cuda"):
             for name, variant in (("hbm", ring_allreduce_hbm),
                                   ("q8", ring_allreduce_q8),
                                   ("bidir", ring_allreduce_bidir))}
+
+
+def fsdp_train_entry(device="cuda"):
+    """Returns (step, (sharded, (tokens, targets))) on `device`: a mesh
+    FSDP_MESH of ranks on that one device, train_entry()'s weights sharded
+    over "data" (shard_params: 15 leaves, (4, chunk) world tensors), and
+    train_entry()'s tokens and targets as world tensors (4, 2, seq), 2
+    sequences per rank. step(sharded, batch) is make_fsdp_train_step's at
+    FSDP_LR (SGD, as the reference's FSDP step): it returns the new
+    shards and the (4,) global mean loss. Each step launches B4b and B4a
+    once per leaf, B3 once, and B1/B2 once per layer and rank."""
+    _, (model, tokens) = entry(device)
+    dev = tokens.device
+    n = FSDP_MESH["data"]
+    mesh = make_mesh(FSDP_MESH, devices=[dev] * n)
+    params = {name: p.detach() for name, p in model.named_parameters()}
+    shell = Transformer(ENTRY_CONFIG, device="meta")
+
+    def loss_fn(rank_params, batch):
+        rank_tokens, rank_targets = batch
+        logits = torch.func.functional_call(shell, rank_params,
+                                            (rank_tokens,))
+        return F.cross_entropy(logits.flatten(0, 1),
+                               rank_targets.flatten().long())
+
+    step = make_fsdp_train_step(loss_fn, params, "data", lr=FSDP_LR,
+                                mesh=mesh)
+    batch = (world_batch(tokens, mesh), world_batch(_entry_targets(tokens),
+                                                    mesh))
+    return step, (shard_params(params, "data", mesh=mesh), batch)
+
+
+def pp_forward(stage_fn, stages, xs, mesh):
+    """The GPipe forward (pipeline_apply along "pipe"): (P, M, ...) outputs,
+    the last stage's rows meaningful."""
+    with torch.no_grad():
+        return pipeline_apply(stage_fn, stages, xs, "pipe", mesh=mesh)
+
+
+def pp_train(stage_fn, loss_fn, stages, xs, ys, mesh):
+    """The 1F1B training step (pipeline_train_1f1b along "pipe"): (grads,
+    loss_sum), grads summed over the microbatches."""
+    return pipeline_train_1f1b(stage_fn, loss_fn, stages, xs, ys, "pipe",
+                               mesh=mesh)
+
+
+def pp_entry(device="cuda"):
+    """The pipeline path: {"gpipe": (pp_forward, (stage_fn, stages, xs,
+    mesh)), "1f1b": (pp_train, (stage_fn, loss_fn, stages, xs, ys, mesh))},
+    each fn(*args), on `device`.
+
+    The model is the flagship at full width (ENTRY_CONFIG) at a depth of
+    PP_STAGES layers in place of 2, its weights from Transformer.init with
+    a generator seeded with 0; only the depth differs. A mesh PP_MESH of
+    ranks on that one device; stage s is layer s (pipeline_stages_from_
+    numpy), stage_fn models.transformer.world_block, one pre-norm block.
+    xs (P, M, 1, seq, d_model) bf16: stage 0's input, embed[tokens] + pos
+    of train_entry()'s tokens, one sequence per microbatch; ys (P, M, 1,
+    seq) its next-token targets (both views of one copy, every rank's row
+    the same). loss_fn(y, target) -> (P,) is next-token cross-entropy
+    through the fixed ln_f and the tied embedding, closed over (the
+    reference's loss takes no parameters)."""
+    dev = resolve_device(device)
+    cfg = dataclasses.replace(ENTRY_CONFIG, n_layers=PP_STAGES)
+    n = PP_MESH["pipe"]
+    mesh = make_mesh(PP_MESH, devices=[dev] * n)
+    model = Transformer(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    tree = transformer_params_to_numpy(model.state_dict(), cfg)
+    stages = pipeline_stages_from_numpy(tree, cfg, mesh)
+    embed = torch.as_tensor(tree["embed"], device=dev)
+    ln_f = torch.as_tensor(tree["ln_f"]["scale"], device=dev)
+    tokens = torch.as_tensor(_entry_tokens(), device=dev)
+    x = embed[tokens] + torch.as_tensor(tree["pos"], device=dev)
+    xs = x.to(cfg.dtype)[:, None].expand(n, *x.shape[:1], 1, *x.shape[1:])
+    ys = torch.as_tensor(np.roll(_entry_tokens(), -1, axis=1), device=dev)
+    ys = ys[:, None].expand(n, *ys.shape[:1], 1, *ys.shape[1:])
+
+    def loss_fn(y, target):
+        logits = _rmsnorm(y, ln_f).float() @ embed.T
+        nll = F.cross_entropy(logits.flatten(0, -2), target.flatten(),
+                              reduction="none")
+        return nll.view(y.shape[0], -1).mean(1)
+
+    stage_fn = functools.partial(world_block, cfg)
+    return {"gpipe": (pp_forward, (stage_fn, stages, xs, mesh)),
+            "1f1b": (pp_train, (stage_fn, loss_fn, stages, xs, ys, mesh))}

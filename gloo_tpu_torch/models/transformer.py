@@ -298,3 +298,39 @@ class Transformer(nn.Module):
             logits, cache = self.decode_step(cache, toks[-1])
             toks.append(pick(logits))
         return torch.cat([prompt, torch.stack(toks, 1).to(prompt.dtype)], 1)
+
+
+def world_block(cfg: TransformerConfig, params: dict,
+                x: torch.Tensor) -> torch.Tensor:
+    """One pre-norm block of Transformer.forward (attention, then MLP, each
+    on the RMS-normed residual) over world tensors: rank r applies its own
+    weights to its own activations. params {"ln1.scale" (P, d),
+    "ln2.scale" (P, d), "wqkv" (P, d, d + 2 kv_dim), "wo" (P, d, d),
+    "w_up" (P, d, d_ff), "w_down" (P, d_ff, d)}, x (P, b, t, d) -> (P, b,
+    t, d) in x's dtype. The attention runs once over the world's P b
+    sequences (one flash launch)."""
+    ranks, b, t, d = x.shape
+    h, h_kv, hd = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    kv_dim = hd * h_kv
+
+    def dense(y, name):
+        return torch.matmul(y, params[name].to(x.dtype))
+
+    y = _rmsnorm(x, params["ln1.scale"][:, None, None]).view(ranks, b * t, d)
+    qkv = dense(y, "wqkv").view(ranks * b, t, -1)
+    q = qkv[..., :d].view(ranks * b, t, h, hd).transpose(1, 2)
+    k = qkv[..., d:d + kv_dim].view(ranks * b, t, h_kv, hd).transpose(1, 2)
+    v = qkv[..., d + kv_dim:].view(ranks * b, t, h_kv, hd).transpose(1, 2)
+    if cfg.use_rope:
+        positions = rope_positions(t, device=x.device)
+        q, k = apply_rope(q, positions), apply_rope(k, positions)
+    if cfg.use_flash_attention and t % 8 == 0:
+        out = flash_attention(q, k, v, causal=True)
+    else:
+        valid = torch.ones((t, t), dtype=torch.bool, device=x.device).tril()
+        out = _softmax_attention(q, k, v, valid, x.dtype)
+    out = out.transpose(1, 2).reshape(ranks, b * t, d).to(x.dtype)
+    x = x + dense(out, "wo").view(x.shape)
+    y = _rmsnorm(x, params["ln2.scale"][:, None, None]).view(ranks, b * t, d)
+    up = F.gelu(dense(y, "w_up"), approximate="tanh")
+    return x + dense(up, "w_down").view(x.shape)

@@ -10,7 +10,13 @@ allgather) over a world of ranks on one card, 4 tensor parallelism
 (collective matmuls), 5 sequence and expert parallelism (ring-attention
 steps, all-to-all), 6 the ring allreduce variants (HBM-streaming,
 int8-wire, bidirectional). PRs 7-13 redesigned every first design for
-Hopper (PERF.md §6). B7a and B7b are one fused launch.
+Hopper (PERF.md §6). B7a and B7b are one fused launch. The FSDP and
+pipeline slice ports no kernel and adds launches of five: an
+FSDP step (parallel/fsdp.py) launches B4b and B4a once per leaf (the
+allgather and its VJP), B3 once (the loss mean) and B1 and B2 once per
+rank and layer; a 1F1B step (parallel/pp.py) B1 twice per tick (the
+forward and the recompute) and B2 once; a GPipe forward B1 once per
+tick.
 tests/test_torch_isolation.py holds this table against the JAX sources.
 """
 

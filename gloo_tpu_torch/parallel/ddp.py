@@ -21,6 +21,7 @@ import torch
 
 from gloo_tpu_torch.ops.ring import ring_allreduce
 from gloo_tpu_torch.tpu.mesh import Mesh
+from gloo_tpu_torch.utils.tracing import annotate
 
 # Each rank's row is padded to a multiple of n * _ALIGN f32, so that every
 # ring chunk is a whole number of the kernel's 16-byte vectors.
@@ -74,8 +75,9 @@ def make_ddp_train_step(loss_fn: Callable, mesh: Mesh, axis: str = "data"):
                      for p in params[r]]
             torch.cat([g.reshape(-1) for g in grads]
                       + [loss.detach().reshape(1)], out=buf[r, :numel + 1])
-        mean = ring_allreduce(buf.view(ranks, n, -1), axis, mesh)
-        mean = mean.view(ranks, width).div_(n)
+        with annotate("gloo_tpu.ddp.grad_sync"):
+            mean = ring_allreduce(buf.view(ranks, n, -1), axis, mesh)
+            mean = mean.view(ranks, width).div_(n)
         for r, opt in enumerate(optimizers):
             offset = 0
             for p in params[r]:

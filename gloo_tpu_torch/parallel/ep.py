@@ -20,6 +20,7 @@ import torch
 
 from gloo_tpu_torch.tpu import spmd
 from gloo_tpu_torch.tpu.mesh import Mesh
+from gloo_tpu_torch.utils.tracing import annotate
 
 
 def dispatch_combine(expert_fn: Callable, tokens: torch.Tensor,
@@ -56,13 +57,15 @@ def dispatch_combine(expert_fn: Callable, tokens: torch.Tensor,
     send = send[:, :n]
 
     # Dispatch: slot (e, c) goes to expert e.
-    arrived = spmd.alltoall(send, axis, split_axis=0, concat_axis=0,
-                            mesh=mesh)
+    with annotate("gloo_tpu.ep.dispatch"):
+        arrived = spmd.alltoall(send, axis, split_axis=0, concat_axis=0,
+                                mesh=mesh)
     processed = expert_fn(arrived.reshape(ranks, n * capacity, d))
     processed = processed.reshape(ranks, n, capacity, d)
     # Combine: the results go back to their source ranks.
-    returned = spmd.alltoall(processed, axis, split_axis=0, concat_axis=0,
-                             mesh=mesh)
+    with annotate("gloo_tpu.ep.combine"):
+        returned = spmd.alltoall(processed, axis, split_axis=0,
+                                 concat_axis=0, mesh=mesh)
     # Un-scatter to token order. JAX clips out-of-range gather indices and
     # zeroes the row; torch would raise (on the card, a device-side assert
     # that poisons the context), so the expert index is clamped first.

@@ -36,6 +36,7 @@ from gloo_tpu_torch.ops.attention import (flash_attention,
                                           kernel_head_dim, prepare_bwd_step)
 from gloo_tpu_torch.tpu import spmd
 from gloo_tpu_torch.tpu.mesh import Mesh
+from gloo_tpu_torch.utils.tracing import annotate
 
 
 def _check_world(q, k, v, mesh: Mesh):
@@ -85,8 +86,9 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                               v_blk.float())
         m = m_new
         if i < n - 1:
-            k_blk = spmd.shift(k_blk, axis, 1, mesh=mesh)
-            v_blk = spmd.shift(v_blk, axis, 1, mesh=mesh)
+            with annotate("gloo_tpu.sp.ring_shift"):
+                k_blk = spmd.shift(k_blk, axis, 1, mesh=mesh)
+                v_blk = spmd.shift(v_blk, axis, 1, mesh=mesh)
     return (out / l.clamp_min(1e-30)).to(q.dtype)
 
 
@@ -128,8 +130,9 @@ def _ring_flash_forward(q, k, v, axis, causal, mesh):
             acc, m, l, q_off, k_offs[i], causal=causal, kv_group=group)
         # JAX shifts after every step; the n-th shift's result is unused.
         if i < n - 1:
-            k_blk = spmd.shift(k_blk, axis, 1, mesh=mesh)
-            v_blk = spmd.shift(v_blk, axis, 1, mesh=mesh)
+            with annotate("gloo_tpu.sp.ring_shift"):
+                k_blk = spmd.shift(k_blk, axis, 1, mesh=mesh)
+                v_blk = spmd.shift(v_blk, axis, 1, mesh=mesh)
     l_safe = l.clamp_min(1e-30)
     out = (acc / l_safe).reshape(q.shape).to(q.dtype)
     return out, m + torch.log(l_safe)
@@ -240,10 +243,13 @@ def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         attn_fn = flash_attention
     # (b, h, t_local, d) -> (b, h / n, t, d) on every rank: scatter heads,
     # gather sequence.
-    qh, kh, vh = (spmd.alltoall(x, axis, split_axis=1, concat_axis=2,
-                                mesh=mesh) for x in (q, k, v))
+    with annotate("gloo_tpu.sp.ulysses_exchange"):
+        qh, kh, vh = (spmd.alltoall(x, axis, split_axis=1, concat_axis=2,
+                                    mesh=mesh) for x in (q, k, v))
     out = attn_fn(*(x.reshape(ranks * b, *x.shape[2:])
                     for x in (qh, kh, vh)), causal)
     out = out.reshape(ranks, b, *out.shape[1:])
     # (b, h / n, t, d) -> (b, h, t_local, d): the inverse exchange.
-    return spmd.alltoall(out, axis, split_axis=2, concat_axis=1, mesh=mesh)
+    with annotate("gloo_tpu.sp.ulysses_exchange"):
+        return spmd.alltoall(out, axis, split_axis=2, concat_axis=1,
+                             mesh=mesh)

@@ -32,6 +32,7 @@ from gloo_tpu_torch.ops.overlap import (_dot, allgather_matmul,
                                         matmul_reduce_scatter)
 from gloo_tpu_torch.tpu import spmd
 from gloo_tpu_torch.tpu.mesh import Mesh, make_mesh
+from gloo_tpu_torch.utils.tracing import annotate
 
 
 def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -51,7 +52,9 @@ def row_parallel_dense(x_shard: torch.Tensor, w_shard: torch.Tensor,
     """y = sum over the ring of x_shard @ w_shard: w split along its input
     dim, x arriving split (from a column-parallel layer). The sum is the
     ring allreduce (B3), whose VJP is B3 of the cotangent."""
-    return spmd.allreduce(torch.matmul(x_shard, w_shard), axis, mesh=mesh)
+    partial = torch.matmul(x_shard, w_shard)
+    with annotate("gloo_tpu.tp.row_sync"):
+        return spmd.allreduce(partial, axis, mesh=mesh)
 
 
 def tp_mlp_block(x: torch.Tensor, w_up_shard: torch.Tensor,
@@ -215,8 +218,9 @@ def row_parallel_dense_scattered_auto(x_shard: torch.Tensor,
                          ratio=ratio):
         return row_parallel_dense_scattered(x_shard, w_shard, axis,
                                             mesh=mesh)
-    return spmd.reduce_scatter(_dot(x_shard, w_shard), axis, scatter_axis=0,
-                               mesh=mesh)
+    partial = _dot(x_shard, w_shard)
+    with annotate("gloo_tpu.tp.row_scatter"):
+        return spmd.reduce_scatter(partial, axis, scatter_axis=0, mesh=mesh)
 
 
 def allgather_matmul_dense_auto(x_rows_shard: torch.Tensor, w: torch.Tensor,
@@ -234,5 +238,7 @@ def allgather_matmul_dense_auto(x_rows_shard: torch.Tensor, w: torch.Tensor,
     if use_fused_overlap(rows * p, k, w.shape[2], p, comm_share=comm_share,
                          ratio=ratio):
         return allgather_matmul_dense(x_rows_shard, w, axis, mesh=mesh)
-    gathered = spmd.allgather(x_rows_shard, axis, gather_axis=0, mesh=mesh)
+    with annotate("gloo_tpu.tp.allgather_x"):
+        gathered = spmd.allgather(x_rows_shard, axis, gather_axis=0,
+                                  mesh=mesh)
     return _dot(gathered, w)

@@ -7,7 +7,8 @@ weights as (fan_in, fan_out). The port keeps the same names and layouts in
 its state dict (``layers.<i>.wqkv`` ...), so conversion copies arrays and
 checks shapes; nothing is transposed. ``tp_transformer_from_numpy`` goes
 on to the world parameters of the tensor-parallel transformer
-(gloo_tpu_torch.parallel.dp_tp).
+(gloo_tpu_torch.parallel.dp_tp), ``pipeline_stages_from_numpy`` to the
+stages of a pipeline (gloo_tpu_torch.parallel.pp), one layer per rank.
 """
 
 from __future__ import annotations
@@ -106,3 +107,22 @@ def tp_transformer_from_numpy(tree, cfg: TransformerConfig, mesh: Mesh,
     model.load_state_dict(
         transformer_params_from_numpy(tree, cfg, mesh.device))
     return shard_transformer(model, mesh, axis)
+
+
+def pipeline_stages_from_numpy(tree, cfg: TransformerConfig,
+                               mesh: Mesh) -> dict[str, torch.Tensor]:
+    """JAX parameter tree (numpy leaves) -> the world parameters of a
+    pipeline of its layers over `mesh`: layer i of the tree is the stage of
+    flat rank i, so {"ln1.scale" (P, d), "ln2.scale", "wqkv", "wo", "w_up",
+    "w_down"} f32 on the mesh's device, the parameters models.transformer.
+    world_block takes. The tree needs one layer per rank; embed, pos and
+    ln_f stay in the tree."""
+    flat = _flatten(tree)
+    _check(flat, cfg)
+    if cfg.n_layers != mesh.size:
+        raise ValueError(f"{cfg.n_layers} layers for a pipeline of "
+                         f"{mesh.size} ranks; need one layer per rank")
+    names = ("ln1.scale", "ln2.scale") + _DENSE
+    return {name: torch.tensor(np.stack(
+        [np.asarray(flat[f"layers.{i}.{name}"], dtype=np.float32)
+         for i in range(mesh.size)]), device=mesh.device) for name in names}

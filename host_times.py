@@ -17,7 +17,12 @@ Prints, for the gloo_tpu_torch found beside this script:
     entry forward, a training step, a DDP step, a dp x tp step, the
     Ulysses, ring-flash and MoE paths' forward + backward and the
     ring-flash forward alone, and the host's cost per ring-flash forward +
-    backward and per ring-flash forward by the CPU clock (as above);
+    backward, per ring-flash forward, per DDP step and per dp x tp step by
+    the CPU clock (as above);
+  - where the tree has them: the host's cost of one ``annotate`` scope
+    with no profiler running (gloo_tpu_torch.utils.tracing), and the
+    event ms and device time of an FSDP step, a 1F1B step and a GPipe
+    forward (fsdp_train_entry, pp_entry);
   - the device time (chip_smoke.device_profile) of the ring-flash path's
     forward + backward and of its forward alone, and of
     flash_attention_bwd_step per ring step at that path's shape (every
@@ -164,6 +169,34 @@ def device_times(attn, ring, paths, variants):
     return out
 
 
+def parallel_times():
+    """annotate's host us with no profiler running, and the FSDP and
+    pipeline paths' event ms and device ms, where the tree has them."""
+    from gloo_tpu_torch import entry as entry_mod
+
+    out = {}
+    try:
+        from gloo_tpu_torch.utils.tracing import annotate
+    except ImportError:
+        return out
+
+    def scope():
+        with annotate("gloo_tpu.allreduce"):
+            pass
+
+    out["annotate_host_us"] = host_us(scope, calls=20000)
+    step, (sharded, batch) = entry_mod.fsdp_train_entry()
+    pp_paths = entry_mod.pp_entry()
+    for key, fn in (("fsdp_step", lambda: step(sharded, batch)),
+                    ("1f1b_step", lambda: pp_paths["1f1b"][0](
+                        *pp_paths["1f1b"][1])),
+                    ("gpipe_forward", lambda: pp_paths["gpipe"][0](
+                        *pp_paths["gpipe"][1]))):
+        out[f"{key}_ms"] = event_ms(fn, 10)
+        out[f"{key}_device_ms"] = device_profile(fn, 5)[0]
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("host_times: no CUDA device is available")
@@ -225,8 +258,11 @@ def main():
         result[f"{key}_ms"] = event_ms(lambda: fn(*args),
                                        20 if key in ("entry_forward",
                                                      "training_step") else 10)
-    fn, args = paths["ring_flash_path"]
-    result["ring_flash_host_us"] = host_us(lambda: fn(*args), calls=30)
+    for key in ("ddp_step", "dp_tp_step", "ring_flash_path"):
+        fn, args = paths[key]
+        result[f"{key}_host_us"] = host_us(lambda: fn(*args), calls=30)
+    result["ring_flash_host_us"] = result.pop("ring_flash_path_host_us")
+    result.update(parallel_times())
     result["bwd_step_device_ms"] = bwd_step_device_ms(attn, args)
     result.update(forward_times(attn, args))
     result.update(device_times(attn, ring, paths, ring_variants_entry()))

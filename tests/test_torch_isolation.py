@@ -15,7 +15,8 @@ import torch
 from gloo_tpu_torch.ops.kernel_table import KERNELS
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((REPO / "gloo_tpu_torch").rglob("*.py")) + [
+PORT_FILES = sorted((REPO / "gloo_tpu_torch").rglob("*.py")) + sorted(
+    (REPO / "examples").glob("torch_*.py")) + [
     REPO / "chip_smoke.py", REPO / "host_times.py"]
 
 
@@ -54,6 +55,7 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
     from gloo_tpu_torch import weights
     from gloo_tpu_torch.entry import (ENTRY_CONFIG, ddp_train_entry,
                                       dp_tp_train_entry, entry, ep_entry,
+                                      fsdp_train_entry, pp_entry,
                                       ring_variants_entry, sp_entry,
                                       train_entry)
     from gloo_tpu_torch.models import MLP, Transformer
@@ -63,7 +65,8 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="devices=\\['cpu'\\]"):
         make_mesh()
     for call in (entry, train_entry, ddp_train_entry, dp_tp_train_entry,
-                 sp_entry, ep_entry, ring_variants_entry,
+                 sp_entry, ep_entry, ring_variants_entry, fsdp_train_entry,
+                 pp_entry,
                  lambda: Transformer(ENTRY_CONFIG),
                  lambda: MLP((4, 4)),
                  lambda: weights.transformer_params_from_numpy({}, None)):
