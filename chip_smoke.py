@@ -135,7 +135,25 @@ Phases, each of which raises on failure:
  25. times of the FSDP step, the 1F1B step and the GPipe forward (per
      call, device time and busy share), and the device time under
      gloo_tpu.fsdp.unshard, gloo_tpu.pp.fwd_shift, gloo_tpu.pp.bwd_shift
-     and gloo_tpu.pp.stage_shift from one device_trace of each.
+     and gloo_tpu.pp.stage_shift from one device_trace of each;
+ 26. the host plane (gloo_tpu_torch.Context, the C++ core built from
+     csrc/ in phase 2) on CUDA tensors, in two worker processes of this
+     script on the card over a FileStore: allreduce (sum, max), broadcast,
+     allgather and reduce_scatter of f32, bf16 and int32 tensors of 1 KiB
+     and 16 MiB, staged through pinned memory, each bitwise equal to the
+     same call on CPU copies, three rounds;
+ 27. HostGradSync on the flagship's CUDA gradients in two processes: the
+     sequential and bucketed arms and the sequential arm over the q8 wire,
+     each bitwise equal to the same arm on CPU copies, three rounds; then
+     5 steps of host_ddp_entry: the first step's loss (the processes'
+     mean) and gradients against one model's full-batch step on the card
+     (TRAIN_TOL), parameters bitwise equal across the processes;
+ 28. the two-level DDP: 5 steps of hier_ddp_entry in two processes of 2
+     local ranks each, with (B1, B2, B3) = (4, 4, 1) launches per step per
+     process, the first step against ddp_train_entry()'s on the card
+     (TRAIN_TOL), parameters bitwise equal across the processes, a falling
+     loss; the step's time (CUDA events), device time and busy share, and
+     the host hop's D2H, host allreduce and H2D apart.
 The line before the last is the JSON list of kernels; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or gloo_tpu.
 """
@@ -2170,6 +2188,383 @@ def parallel_times(tracing, fsdp, pp_paths, card):
     return rows
 
 
+# ---- phases 26-28: the host plane, two processes on the card ----
+# Each phase re-invokes this script with --worker in HOST_RANKS processes,
+# which rendezvous over a FileStore in a new temporary directory and share
+# the card. A worker prints its lines and, last, one JSON object.
+HOST_RANKS = 2
+# Element sizes of phase 26's tensors: 1 KiB and 16 MiB of each dtype.
+STAGE_BYTES = (1 << 10, 16 << 20)
+STAGE_DTYPES = (torch.float32, torch.bfloat16, torch.int32)
+# Rounds of phases 26 and 27's comparisons: a stale copy (a non-blocking
+# copy read before its stream was synchronized, a pinned buffer reused
+# before its copy to the card completed) shows only some of the time.
+HOST_ROUNDS = 3
+HOST_STEPS = 5
+WORKER_TIMEOUT = 600
+
+
+def same_bits(a, b):
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(-1).view(torch.uint8),
+        b.contiguous().view(-1).view(torch.uint8))
+
+
+def digest(tensors):
+    """sha256 of the tensors' bytes, in order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu()
+                 .numpy().tobytes())
+    return h.hexdigest()
+
+
+def run_workers(phase, timeout=WORKER_TIMEOUT):
+    """Runs phase `phase`'s worker in HOST_RANKS processes of this script;
+    prints their output and returns their JSON results. Raises if a worker
+    exits non-zero, prints no result, or outlives `timeout`; no worker is
+    left running."""
+    import sys
+    import tempfile
+
+    store = tempfile.mkdtemp(prefix=f"chip_smoke-{phase}-")
+    os.makedirs(os.path.join(store, "rdv"))
+    procs, logs = [], []
+    for rank in range(HOST_RANKS):
+        out = open(os.path.join(store, f"out{rank}.txt"), "w+")
+        err = open(os.path.join(store, f"err{rank}.txt"), "w+")
+        logs.append((out, err))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--worker", phase,
+             str(rank), str(HOST_RANKS), os.path.join(store, "rdv")],
+            stdout=out, stderr=err))
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for rank, (p, (out, err)) in enumerate(zip(procs, logs)):
+        out.seek(0)
+        err.seek(0)
+        lines, errors = out.read().splitlines(), err.read()
+        for line in lines[:-1]:
+            print(f"  [worker {rank}] {line}")
+        if p.returncode != 0 or not lines:
+            raise AssertionError(f"phase {phase}: worker {rank} exited "
+                                 f"{p.returncode}:\n{errors[-6000:]}")
+        results.append(json.loads(lines[-1]))
+    return results
+
+
+def host_context(rank, size, store):
+    from gloo_tpu_torch import Context, Device, FileStore
+
+    ctx = Context(rank, size, timeout=120.0)
+    ctx.connect_full_mesh(FileStore(store), Device())
+    return ctx
+
+
+def stage_input(dtype, nbytes, gen):
+    n = nbytes // torch.tensor([], dtype=dtype).element_size()
+    if dtype.is_floating_point:
+        return torch.randn(n, generator=gen).to(dtype)
+    return torch.randint(-1000, 1000, (n,), generator=gen, dtype=dtype)
+
+
+def worker_staging(rank, size, store, device="cuda"):
+    """Phase 26 on one rank: allreduce (sum, max), broadcast, allgather and
+    reduce_scatter of f32, bf16 and int32 tensors of 1 KiB and 16 MiB on
+    the card, each bitwise against the same call on a CPU copy, for
+    HOST_ROUNDS rounds."""
+    ctx = host_context(rank, size, store)
+    gen = torch.Generator().manual_seed(1000 + rank)
+    calls = (("allreduce sum", lambda t: ctx.allreduce(t, tag=1)),
+             ("allreduce max", lambda t: ctx.allreduce(t, op="max", tag=2)),
+             ("broadcast", lambda t: ctx.broadcast(t, root=1, tag=3)),
+             ("allgather", lambda t: ctx.allgather(t, tag=4)),
+             ("reduce_scatter", lambda t: ctx.reduce_scatter(t, tag=5)))
+    wrong, cases = [], 0
+    for round_ in range(HOST_ROUNDS):
+        for dtype in STAGE_DTYPES:
+            for nbytes in STAGE_BYTES:
+                x = stage_input(dtype, nbytes, gen)
+                on_card = x.to(device)
+                for label, call in calls:
+                    got = call(on_card.clone())
+                    want = call(x.clone())
+                    cases += 1
+                    if got.device.type != torch.device(device).type \
+                            or not same_bits(got.cpu(), want):
+                        wrong.append(f"round {round_} {dtype} {nbytes} B "
+                                     f"{label}")
+    ctx.barrier()
+    ctx.close()
+    return {"cases": cases, "wrong": wrong}
+
+
+def full_batch_grads(entry_mod):
+    """Loss and gradients of train_entry()'s model over the whole entry
+    batch on the card: the reference of phases 27 and 28's first steps."""
+    _, (model, _, tokens, targets) = entry_mod.train_entry()
+    loss = model.loss(tokens, targets)
+    loss.backward()
+    return float(loss.detach()), {n: p.grad for n, p in
+                                  model.named_parameters()}
+
+
+def grad_rel(grads, ref):
+    """max over parameters of |g - g_ref| / |g_ref|, and where."""
+    rel = {n: float((grads[n].float() - g.float()).norm() / g.float().norm())
+           for n, g in ref.items()}
+    worst = max(rel, key=rel.get)
+    return rel[worst], worst
+
+
+def worker_host_sync(rank, size, store, device="cuda"):
+    """Phase 27 on one rank: HostGradSync's sequential and bucketed arms,
+    and the sequential arm over the q8 wire, on one replica's CUDA
+    gradients of the flagship, each bitwise against the same arm on CPU
+    copies; then HOST_STEPS steps of host_ddp_entry."""
+    from gloo_tpu_torch import entry as entry_mod
+    from gloo_tpu_torch.parallel import HostGradSync
+
+    step, (model, optimizer, batch) = entry_mod.host_ddp_entry(
+        rank, size, store, device)
+    sync = step.sync
+    ctx = sync.context
+    model.loss(*batch).backward()
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    wrong = []
+    for arm, arm_sync in (("sequential", HostGradSync(ctx)),
+                          ("bucketed", sync),
+                          ("sequential q8", HostGradSync(ctx, wire="q8"))):
+        for round_ in range(HOST_ROUNDS):
+            results = []
+            for leaves in (grads, {n: g.cpu() for n, g in grads.items()}):
+                if arm.endswith("q8"):
+                    # A reused q8 plan gives other bits than a fresh one
+                    # (ROADMAP.md C.7): both calls start with none.
+                    ctx.plan_cache_clear()
+                    ctx.barrier()
+                results.append(arm_sync.average(leaves))
+            got, want = results
+            bad = [n for n in grads if got[n].device != grads[n].device
+                   or not same_bits(got[n].cpu(), want[n])]
+            if bad:
+                wrong.append(f"{arm} round {round_}: {bad[:3]}")
+    losses = [float(step(model, optimizer, batch))]
+    first = {n: p.grad.clone() for n, p in model.named_parameters()}
+    losses += [float(step(model, optimizer, batch))
+               for _ in range(HOST_STEPS - 1)]
+    torch.cuda.synchronize()
+    out = {"wrong": wrong, "losses": losses,
+           "params": digest(model.parameters()),
+           "first_grads": digest(first.values()),
+           "bytes": sum(g.numel() * g.element_size()
+                        for g in grads.values())}
+    if rank == 0:
+        out["ref_loss"], ref = full_batch_grads(entry_mod)
+        out["grad_rel"], out["grad_worst"] = grad_rel(first, ref)
+    ctx.barrier()
+    ctx.close()
+    return out
+
+
+def host_hop_times(ctx, numel, device, iters=10):
+    """The host hop of one two-level step apart, on an f32 buffer of
+    `numel` on the card: D2H into pinned memory and H2D back (CUDA events,
+    ms and GB/s), the host allreduce of the pinned buffer (host clock),
+    and the whole staged ctx.allreduce (host clock). Collective: every
+    rank calls it together."""
+    x = torch.randn(numel, device=device)
+    host = torch.empty(numel, pin_memory=True)
+
+    def copy_ms(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        fn()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+
+    d2h = copy_ms(lambda: host.copy_(x, non_blocking=True))
+    h2d = copy_ms(lambda: x.copy_(host, non_blocking=True))
+
+    def host_ms(fn):
+        fn()
+        ctx.barrier()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / iters
+
+    native = host_ms(lambda: ctx.allreduce(host, tag=0x71))
+    staged = host_ms(lambda: ctx.allreduce(x, tag=0x72))
+    nbytes = numel * 4
+    return {"bytes": nbytes, "d2h_ms": d2h, "h2d_ms": h2d,
+            "d2h_GBps": nbytes / d2h / 1e6, "h2d_GBps": nbytes / h2d / 1e6,
+            "allreduce_host_ms": native, "staged_allreduce_ms": staged}
+
+
+def worker_hier(rank, size, store, device="cuda"):
+    """Phase 28 on one rank: HOST_STEPS steps of hier_ddp_entry with the
+    launch counts read around them, then its times."""
+    from gloo_tpu_torch import entry as entry_mod
+    from gloo_tpu_torch.ops import attention as attn
+    from gloo_tpu_torch.ops import ring
+
+    step, (replicas, optimizers, batch) = entry_mod.hier_ddp_entry(
+        rank, size, store, device)
+    ctx = step.group.ctx
+    counters = (attn.flash_attention_fwd, attn.flash_attention_bwd,
+                ring.ring_allreduce)
+    for c in counters:
+        c.launches = 0
+    losses = [step(replicas, optimizers, batch)]
+    first = {n: p.grad.clone() for n, p in replicas[0].named_parameters()}
+    losses += [step(replicas, optimizers, batch)
+               for _ in range(HOST_STEPS - 1)]
+    torch.cuda.synchronize()
+    launches = [c.launches for c in counters]
+    losses = [float(x) for x in losses]
+    params = [digest(m.parameters()) for m in replicas]
+    numel = sum(p.numel() for p in replicas[0].parameters())
+    out = {"launches": launches, "losses": losses, "params": params,
+           "first_grads": digest(first.values()), "numel": numel}
+    if rank == 0:
+        dstep, (dreps, dopts, dbatch) = entry_mod.ddp_train_entry(device)
+        out["ref_loss"] = float(dstep(dreps, dopts, dbatch))
+        out["grad_rel"], out["grad_worst"] = grad_rel(first, {
+            n: p.grad for n, p in dreps[0].named_parameters()})
+        out["ref_launches"] = [c.launches for c in counters]
+
+    def once():
+        step(replicas, optimizers, batch)
+
+    ctx.barrier()
+    out["step_ms"] = event_ms(once, iters=10)
+    ctx.barrier()
+    out["device_ms"], rows = device_profile(once, iters=5, sessions=1)
+    out["device_rows"] = rows[:8]
+    ctx.barrier()
+    out["hop"] = host_hop_times(ctx, numel, device)
+    ctx.barrier()
+    ctx.close()
+    return out
+
+
+WORKERS = {"26": worker_staging, "27": worker_host_sync, "28": worker_hier}
+
+
+def host_phases(card):
+    """Phases 26-28, each in HOST_RANKS worker processes on the card."""
+    # Phase 26: Context collectives on CUDA tensors, bitwise.
+    res = run_workers("26")
+    cases = sum(r["cases"] for r in res)
+    wrong = [w for r in res for w in r["wrong"]]
+    print(f"host plane on CUDA tensors ({HOST_RANKS} processes on the card, "
+          f"{HOST_ROUNDS} rounds): {cases} calls of allreduce sum/max, "
+          f"broadcast, allgather, reduce_scatter at f32/bf16/int32 x "
+          f"{STAGE_BYTES} bytes against the same calls on CPU copies: "
+          f"{'all bitwise equal' if not wrong else 'DIFFER ' + str(wrong)}")
+    if wrong:
+        raise AssertionError(f"staged collectives differ from the CPU "
+                             f"calls: {wrong}")
+
+    # Phase 27: HostGradSync on the flagship's CUDA gradients.
+    res = run_workers("27")
+    wrong = [w for r in res for w in r["wrong"]]
+    print(f"HostGradSync on the flagship's CUDA gradients "
+          f"({res[0]['bytes']} bytes per rank): sequential, bucketed and "
+          f"q8-wire arms vs the same arms on CPU copies, {HOST_ROUNDS} "
+          f"rounds: {'bitwise equal' if not wrong else 'DIFFER ' + str(wrong)}")
+    if wrong:
+        raise AssertionError(f"HostGradSync on the card differs from the "
+                             f"CPU call: {wrong}")
+    check_host_steps("host_ddp_entry", res, "one model's full-batch step "
+                     "on the card")
+
+    # Phase 28: the two-level DDP.
+    from gloo_tpu_torch.entry import ENTRY_CONFIG, HIER_LOCAL
+
+    res = run_workers("28")
+    launches = [r["launches"] for r in res]
+    per_layer = HIER_LOCAL * ENTRY_CONFIG.n_layers
+    per_step = [per_layer, per_layer, 1]
+    print(f"hier_ddp_entry: {HOST_STEPS} steps, {HOST_RANKS} processes x "
+          f"{HIER_LOCAL} local ranks on the card; launches (B1, B2, B3) per "
+          f"process "
+          f"{launches}, per step {[[x / HOST_STEPS for x in l] for l in launches]}")
+    if any(l != [HOST_STEPS * x for x in per_step] for l in launches):
+        raise AssertionError(f"hier_ddp_entry launched {launches}, expected "
+                             f"{per_step} per step per process")
+    if any(len(set(r["params"])) != 1 for r in res):
+        raise AssertionError("the local replicas of a process differ")
+    check_host_steps("hier_ddp_entry", [dict(r, params=r["params"][0])
+                                        for r in res],
+                     "ddp_train_entry()'s first step on the card")
+    print(f"hier_ddp_entry times on {card}:")
+    for rank, r in enumerate(res):
+        hop = r["hop"]
+        busy = ("not measured" if r["device_ms"] is None
+                else f"{r['device_ms'] / r['step_ms']:.3f}")
+        print(f"  process {rank}: step {r['step_ms']:.6f} ms (CUDA events), "
+              f"device {r['device_ms']} ms, busy share {busy} [{card}]")
+        for dev_ms, calls, kname in r["device_rows"]:
+            print(f"    {dev_ms:.6f} ms in {calls:g} calls: {kname[:90]}")
+        print(f"    host hop of {hop['bytes']} bytes: D2H {hop['d2h_ms']:.6f}"
+              f" ms ({hop['d2h_GBps']:.3f} GB/s pinned), host allreduce "
+              f"{hop['allreduce_host_ms']:.6f} ms, H2D {hop['h2d_ms']:.6f} "
+              f"ms ({hop['h2d_GBps']:.3f} GB/s pinned), the whole staged "
+              f"ctx.allreduce {hop['staged_allreduce_ms']:.6f} ms [{card}]")
+    return res
+
+
+def check_host_steps(label, res, ref_label):
+    """The checks of a two-process training path: its first step's loss
+    (the processes' mean) and rank 0's first-step gradients against the
+    reference within TRAIN_TOL, the gradients and the parameters after
+    HOST_STEPS steps bitwise equal across the processes, the loss finite
+    and falling on each."""
+    first = sum(r["losses"][0] for r in res) / len(res)
+    ref = res[0]["ref_loss"]
+    loss_rel = abs(first - ref) / abs(ref)
+    for rank, r in enumerate(res):
+        print(f"{label} process {rank}: losses "
+              f"{', '.join(f'{x:.6f}' for x in r['losses'])}")
+    print(f"first {label} step vs {ref_label}: loss {first:.6f} vs "
+          f"{ref:.6f} (rel {loss_rel:.3e}, tol {TRAIN_TOL['loss']}); grads "
+          f"|g - g_ref| / |g_ref| max {res[0]['grad_rel']:.3e} at "
+          f"{res[0]['grad_worst']} (tol {TRAIN_TOL['grad']}); first-step "
+          f"grads {'bitwise equal' if len({r['first_grads'] for r in res}) == 1 else 'DIFFER'}"
+          f" across processes; parameters after {HOST_STEPS} steps "
+          f"{'bitwise equal' if len({r['params'] for r in res}) == 1 else 'DIFFER'}")
+    if loss_rel > TRAIN_TOL["loss"] or res[0]["grad_rel"] > TRAIN_TOL["grad"]:
+        raise AssertionError(f"the first {label} step disagrees with "
+                             f"{ref_label}")
+    if len({r["first_grads"] for r in res}) != 1 \
+            or len({r["params"] for r in res}) != 1:
+        raise AssertionError(f"{label}: the processes' gradients or "
+                             f"parameters differ")
+    for r in res:
+        if not all(np.isfinite(r["losses"])) \
+                or not r["losses"][-1] < r["losses"][0]:
+            raise AssertionError(f"{label}: the loss is not finite and "
+                                 f"falling: {r['losses']}")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
@@ -2200,10 +2595,18 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # Phase 2: build every kernel (set-up time, not part of any metric).
+    # Phase 2: build every kernel and the host library, all at once
+    # (set-up time, not part of any metric).
+    import concurrent.futures
+
     t0 = time.perf_counter()
-    libs = _build.build()
-    print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        host_build = pool.submit(lambda: (_build.build_host_library(),
+                                          time.perf_counter() - t0))
+        libs = _build.build()
+        print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
+        host_lib, host_s = host_build.result()
+    print(f"host library: {host_lib.name} in {host_s:.2f} s")
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
             if "Function properties for" in line:
@@ -2848,6 +3251,9 @@ def main():
     # under their scopes.
     parallel_times(tracing, fsdp, pp_paths, card)
 
+    # Phases 26-28: the host plane in two processes on the card.
+    host_phases(card)
+
     # Launches on the main paths: B1 on the serving path, B2 on the
     # training path, B3 on the DDP path, B4a and B4b on the group path,
     # B5a and B5b on the fused MLP path, B6 and B7 on the ring-flash path
@@ -2912,5 +3318,21 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
+def worker_main(argv):
+    """`chip_smoke.py --worker PHASE RANK SIZE STORE`: one process of a
+    host-plane phase; prints the phase's result as its last line."""
+    phase, rank, size, store = argv[0], int(argv[1]), int(argv[2]), argv[3]
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke worker: no CUDA device is available")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(json.dumps(WORKERS[phase](rank, size, store)))
+
+
 if __name__ == "__main__":
-    main()
+    import sys
+
+    if sys.argv[1:2] == ["--worker"]:
+        worker_main(sys.argv[2:])
+    else:
+        main()

@@ -3,12 +3,19 @@
 A port of the JAX package ``gloo_tpu`` to NVIDIA Hopper GPUs. It imports
 nothing of ``gloo_tpu`` or JAX. Entry points run on ``cuda`` unless given
 ``device="cpu"``; kernels are built with nvcc from ``csrc/`` at first use,
-and on CPU tensors their plain PyTorch versions run instead.
+and on CPU tensors their plain PyTorch versions run instead. The host
+plane (stores, devices, contexts: the C++ core of the repo's
+``csrc/tpucoll``) is built with g++ at first use, and stages CUDA tensors
+through pinned host memory.
 """
 
+from gloo_tpu_torch.core import (Context, Device, FileStore, HashStore,
+                                 PrefixStore, TcpStore, TcpStoreServer)
 from gloo_tpu_torch.models import MLP, Transformer, TransformerConfig
 from gloo_tpu_torch.ops import flash_attention
 
 __version__ = "0.1.0"
 
-__all__ = ["MLP", "Transformer", "TransformerConfig", "flash_attention"]
+__all__ = ["Context", "Device", "FileStore", "HashStore", "MLP",
+           "PrefixStore", "TcpStore", "TcpStoreServer", "Transformer",
+           "TransformerConfig", "flash_attention"]

@@ -1,0 +1,159 @@
+"""ctypes binding to the host library, the C core of csrc/tpucoll/capi.cc.
+
+Counterpart of gloo_tpu/_lib.py: the same error classes and codes, and the
+prototypes of the C functions that the port calls. The library is the
+port's own build (``_build.build_host_library``), made and loaded at first
+use; ``import gloo_tpu_torch`` neither builds nor loads it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+from gloo_tpu_torch import _build
+
+
+class Error(RuntimeError):
+    """Base error from the tpucoll native core."""
+
+
+class IoError(Error):
+    """Transport failure: peer died, connection reset, context poisoned."""
+
+
+class TimeoutError(IoError):  # noqa: A001 - mirrors the C++ hierarchy
+    """A blocking wait exceeded its deadline."""
+
+
+class Aborted(Exception):
+    """A wait was cancelled (an async engine shut down with the op queued
+    or in flight)."""
+
+
+TC_OK = 0
+TC_ERR = 1
+TC_ERR_TIMEOUT = 2
+TC_ERR_IO = 3
+TC_ERR_ABORTED = 4
+
+_c = ctypes.c_void_p
+_sz = ctypes.c_size_t
+_i64 = ctypes.c_int64
+_u64 = ctypes.c_uint64
+_u32 = ctypes.c_uint32
+_int = ctypes.c_int
+_bytes_out = (ctypes.POINTER(ctypes.POINTER(ctypes.c_uint8)),
+              ctypes.POINTER(_sz))
+
+_PROTOTYPES = {
+    "tc_last_error": (ctypes.c_char_p, []),
+    "tc_buf_free": (None, [ctypes.POINTER(ctypes.c_uint8)]),
+    # stores
+    "tc_hash_store_new": (_c, []),
+    "tc_file_store_new": (_c, [ctypes.c_char_p]),
+    "tc_prefix_store_new": (_c, [_c, ctypes.c_char_p]),
+    "tc_tcp_store_server_new": (_c, [ctypes.c_char_p, ctypes.c_uint16]),
+    "tc_tcp_store_server_port": (ctypes.c_uint16, [_c]),
+    "tc_tcp_store_server_free": (None, [_c]),
+    "tc_tcp_store_new": (_c, [ctypes.c_char_p, ctypes.c_uint16]),
+    "tc_store_free": (None, [_c]),
+    "tc_store_set": (_int, [_c, ctypes.c_char_p,
+                            ctypes.POINTER(ctypes.c_uint8), _sz]),
+    "tc_store_get": (_int, [_c, ctypes.c_char_p, _i64, *_bytes_out]),
+    "tc_store_add": (_int, [_c, ctypes.c_char_p, _i64,
+                            ctypes.POINTER(_i64)]),
+    "tc_device_new": (_c, [ctypes.c_char_p, ctypes.c_uint16,
+                           ctypes.c_char_p, _int, ctypes.c_char_p, _int,
+                           ctypes.c_char_p, ctypes.c_char_p]),
+    "tc_device_free": (None, [_c]),
+    "tc_context_new": (_c, [_int, _int]),
+    "tc_context_set_timeout": (None, [_c, _i64]),
+    "tc_context_connect": (_int, [_c, _c, _c]),
+    "tc_context_fork": (_int, [_c, _c, _u32]),
+    "tc_context_close": (_int, [_c]),
+    "tc_context_free": (None, [_c]),
+    "tc_context_rank": (_int, [_c]),
+    "tc_context_size": (_int, [_c]),
+    "tc_context_set_host_id": (_int, [_c, ctypes.c_char_p]),
+    "tc_topology_json": (_int, [_c, *_bytes_out]),
+    "tc_context_group_tag": (_int, [_c, *_bytes_out]),
+    "tc_split": (_int, [_c, _int, _int, _u32, ctypes.POINTER(_c)]),
+    "tc_split_by_host": (_int, [_c, _u32, ctypes.POINTER(_c)]),
+    "tc_context_shm_stats": (None, [_c, ctypes.POINTER(_u64),
+                                    ctypes.POINTER(_u64),
+                                    ctypes.POINTER(_int)]),
+    # collectives
+    "tc_barrier": (_int, [_c, _int, _u32, _i64]),
+    "tc_broadcast": (_int, [_c, _c, _sz, _int, _int, _int, _u32, _i64]),
+    "tc_allreduce_inplace": (_int, [_c, _c, _sz, _int, _int, _int, _u32,
+                                    _i64]),
+    "tc_allgather": (_int, [_c, _c, _c, _sz, _int, _int, _u32, _i64]),
+    "tc_reduce_scatter": (_int, [_c, _c, _c, ctypes.POINTER(_sz), _int,
+                                 _int, _int, _u32, _i64]),
+    "tc_plan_cache_clear": (None, [_c]),
+    # async engine and work handles
+    "tc_async_new": (_c, [_c, _int, _u32]),
+    "tc_async_shutdown": (_int, [_c]),
+    "tc_async_free": (None, [_c]),
+    "tc_async_allreduce_inplace": (_c, [_c, _c, _sz, _int, _int, _int,
+                                        _i64]),
+    "tc_work_wait": (_int, [_c, _i64]),
+    "tc_work_status": (_int, [_c]),
+    "tc_work_free": (None, [_c]),
+}
+
+_cdll = None
+_load_lock = threading.Lock()
+
+
+def lib() -> ctypes.CDLL:
+    """The host library with its prototypes set, built first if needed."""
+    global _cdll
+    if _cdll is None:
+        with _load_lock:
+            if _cdll is None:
+                cdll = ctypes.CDLL(str(_build.build_host_library()))
+                for name, (restype, argtypes) in _PROTOTYPES.items():
+                    fn = getattr(cdll, name)
+                    fn.restype = restype
+                    fn.argtypes = argtypes
+                _cdll = cdll
+    return _cdll
+
+
+def last_error() -> str:
+    msg = lib().tc_last_error()
+    return msg.decode("utf-8", "replace") if msg else ""
+
+
+def check(code: int) -> None:
+    """Raise the Python mapping of a TC_ERR_* code."""
+    if code == TC_OK:
+        return
+    msg = last_error()
+    if code == TC_ERR_TIMEOUT:
+        raise TimeoutError(msg)
+    if code == TC_ERR_IO:
+        raise IoError(msg)
+    if code == TC_ERR_ABORTED:
+        raise Aborted(msg)
+    raise Error(msg)
+
+
+def check_handle(handle: int | None) -> int:
+    if not handle:
+        raise Error(last_error())
+    return handle
+
+
+def copy_out(fn, *args) -> bytes:
+    """Call a C function whose trailing parameters are (uint8_t** out,
+    size_t* out_len), copy the buffer, and free it via tc_buf_free."""
+    out = ctypes.POINTER(ctypes.c_uint8)()
+    out_len = ctypes.c_size_t()
+    check(fn(*args, ctypes.byref(out), ctypes.byref(out_len)))
+    try:
+        return bytes(bytearray(out[: out_len.value]))
+    finally:
+        lib().tc_buf_free(out)

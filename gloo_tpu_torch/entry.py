@@ -33,6 +33,11 @@ card, SGD on the shards (the reference's FSDP step). ``pp_entry()`` is its
 pipeline section (:202-225): the flagship's width at a depth of PP_STAGES
 layers, one block per stage over PP_MESH ranks on one card, GPipe forward
 and the 1F1B training step over PP_MICROBATCHES microbatches.
+``hier_ddp_entry()`` and ``host_ddp_entry()`` are the host plane's
+counterparts of ddp_train_entry(), one OS process per "host" over a
+FileStore: the two-level DDP of gloo_tpu/tpu/hierarchical.py
+(make_hierarchical_ddp, HIER_LOCAL ranks of the card in each process) and
+HostGradSync over one replica's CUDA gradients (gloo_tpu/parallel/ddp.py).
 """
 
 from __future__ import annotations
@@ -45,13 +50,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from gloo_tpu_torch.core import Context, Device, FileStore
 from gloo_tpu_torch.device import resolve_device
 from gloo_tpu_torch.models.transformer import (Transformer,
                                                TransformerConfig, _rmsnorm,
                                                world_block)
 from gloo_tpu_torch.ops.ring import (ring_allreduce_bidir,
                                      ring_allreduce_hbm, ring_allreduce_q8)
-from gloo_tpu_torch.parallel.ddp import buffer_width, make_ddp_train_step
+from gloo_tpu_torch.parallel.ddp import (HostGradSync, buffer_width,
+                                         make_ddp_train_step)
 from gloo_tpu_torch.parallel.dp_tp import (make_dp_tp_train_step,
                                            shard_transformer, world_batch)
 from gloo_tpu_torch.parallel.ep import dispatch_combine
@@ -59,6 +66,8 @@ from gloo_tpu_torch.parallel.fsdp import make_fsdp_train_step, shard_params
 from gloo_tpu_torch.parallel.pp import pipeline_apply, pipeline_train_1f1b
 from gloo_tpu_torch.parallel.sp import (ring_attention, ring_flash_attention,
                                         ulysses_attention)
+from gloo_tpu_torch.tpu.hierarchical import (HierarchicalGroup,
+                                             make_hierarchical_ddp)
 from gloo_tpu_torch.tpu.mesh import make_mesh
 from gloo_tpu_torch.weights import (pipeline_stages_from_numpy,
                                     transformer_params_to_numpy)
@@ -103,6 +112,14 @@ FSDP_LR = 1e-2
 PP_MESH = {"pipe": 4}
 PP_STAGES = PP_MESH["pipe"]
 PP_MICROBATCHES = ENTRY_BATCH
+# hier_ddp_entry's local ranks per process, all on its card, and the
+# sequences each process of hier_ddp_entry and host_ddp_entry takes from the
+# entry batch: process r takes [HOST_SEQS r, HOST_SEQS (r + 1)), so two
+# processes split the batch 4 + 4, and two local ranks each take 2.
+HIER_LOCAL = 2
+HOST_SEQS = 4
+# Seconds the host plane's rendezvous and collectives wait for a peer.
+HOST_TIMEOUT = 120.0
 
 
 def forward(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
@@ -401,3 +418,87 @@ def pp_entry(device="cuda"):
     stage_fn = functools.partial(world_block, cfg)
     return {"gpipe": (pp_forward, (stage_fn, stages, xs, mesh)),
             "1f1b": (pp_train, (stage_fn, loss_fn, stages, xs, ys, mesh))}
+
+
+def _host_part(rank: int, size: int, tokens: torch.Tensor):
+    if not 0 <= rank < size or size * HOST_SEQS > ENTRY_BATCH:
+        raise ValueError(f"rank {rank} of {size}: the entry batch of "
+                         f"{ENTRY_BATCH} sequences holds {HOST_SEQS} per "
+                         f"process for at most "
+                         f"{ENTRY_BATCH // HOST_SEQS} processes")
+    lo = HOST_SEQS * rank
+    targets = _entry_targets(tokens)
+    return tokens[lo:lo + HOST_SEQS], targets[lo:lo + HOST_SEQS]
+
+
+def _host_context(rank: int, size: int, store_dir: str) -> Context:
+    ctx = Context(rank, size, timeout=HOST_TIMEOUT)
+    ctx.connect_full_mesh(FileStore(store_dir), Device())
+    return ctx
+
+
+def hier_ddp_entry(rank: int, size: int, store_dir: str, device="cuda"):
+    """The two-level DDP path of one process ("host") `rank` of `size`:
+    returns (step, (replicas, optimizers, (tokens, targets))) on `device`.
+
+    The process's host-plane Context rendezvouses with the others over a
+    FileStore in `store_dir` (a directory every process sees). It holds a
+    mesh {"local": HIER_LOCAL} of ranks on `device`, each with a replica
+    of train_entry()'s model and an Adam at ADAM_SETTINGS, and takes
+    sequences [HOST_SEQS rank, HOST_SEQS (rank + 1)) of the entry batch,
+    HOST_SEQS / HIER_LOCAL per local rank. step is make_hierarchical_ddp's
+    (its group, and the group's ctx to close, are step.group and
+    step.group.ctx); it returns the local mean loss. Each step launches
+    B1 and B2 once per layer and local rank, and B3 once. With size 2 this
+    is ddp_train_entry()'s split of the batch, 4 ranks of 2 sequences,
+    done as 2 hosts x 2 local ranks."""
+    dev = resolve_device(device)
+    _, (model, tokens) = entry(dev)
+    batch = _host_part(rank, size, tokens)
+    replicas = [model]
+    for _ in range(HIER_LOCAL - 1):
+        replica = Transformer(ENTRY_CONFIG, device=dev)
+        replica.load_state_dict(model.state_dict())
+        replicas.append(replica)
+    optimizers = [torch.optim.Adam(m.parameters(), **ADAM_SETTINGS)
+                  for m in replicas]
+    group = HierarchicalGroup(_host_context(rank, size, store_dir),
+                              devices=[dev] * HIER_LOCAL)
+    step = make_hierarchical_ddp(_lm_loss, group)
+    return step, (replicas, optimizers, batch)
+
+
+def host_ddp_entry(rank: int, size: int, store_dir: str, device="cuda",
+                   bucketed: bool = True):
+    """The host-plane DDP path of one process `rank` of `size`: returns
+    (step, (model, optimizer, (tokens, targets))) on `device`.
+
+    One replica of train_entry()'s model per process, an Adam at
+    ADAM_SETTINGS, and sequences [HOST_SEQS rank, HOST_SEQS (rank + 1))
+    of the entry batch; the Context rendezvouses over a FileStore in
+    `store_dir`. step(model, optimizer, batch) runs the forward and
+    backward, averages the gradients over the processes with HostGradSync
+    (bucketed or sequential; a CUDA gradient is staged through pinned
+    memory), makes them the parameters' .grad, steps the optimizer, and
+    returns the local loss. step.sync is the HostGradSync (step.sync.
+    context to close). Its construction is a collective when bucketed."""
+    dev = resolve_device(device)
+    _, (model, tokens) = entry(dev)
+    batch = _host_part(rank, size, tokens)
+    optimizer = torch.optim.Adam(model.parameters(), **ADAM_SETTINGS)
+    sync = HostGradSync(_host_context(rank, size, store_dir),
+                        bucketed=bucketed)
+
+    def step(model, optimizer, batch):
+        optimizer.zero_grad(set_to_none=True)
+        loss = _lm_loss(model, batch)
+        loss.backward()
+        params = dict(model.named_parameters())
+        mean = sync.average({name: p.grad for name, p in params.items()})
+        for name, p in params.items():
+            p.grad = mean[name]
+        optimizer.step()
+        return loss.detach()
+
+    step.sync = sync
+    return step, (model, optimizer, batch)

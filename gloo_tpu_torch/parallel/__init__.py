@@ -1,6 +1,7 @@
 """Parallelism strategies on the port's device plane: data parallelism with
 the gradient mean on the ring allreduce kernel (counterpart of
-gloo_tpu/parallel/ddp.py's make_ddp_train_step), tensor parallelism on
+gloo_tpu/parallel/ddp.py's make_ddp_train_step) and across processes on
+the host plane (its HostGradSync), tensor parallelism on
 world tensors with the collective matmul kernels (gloo_tpu/parallel/tp.py),
 the dp x tp training step of the flagship transformer (the GSPMD step of
 __graft_entry__.dryrun_multichip), sequence parallelism on the ring-attention
@@ -10,7 +11,7 @@ data parallelism on the ring allgather and its reduce-scatter VJP
 (gloo_tpu/parallel/fsdp.py), and GPipe and 1F1B pipeline parallelism
 (gloo_tpu/parallel/pp.py)."""
 
-from gloo_tpu_torch.parallel.ddp import make_ddp_train_step
+from gloo_tpu_torch.parallel.ddp import HostGradSync, make_ddp_train_step
 from gloo_tpu_torch.parallel.ep import dispatch_combine
 from gloo_tpu_torch.parallel.fsdp import (make_fsdp_train_step, shard_params,
                                           unshard_params)
@@ -32,6 +33,7 @@ from gloo_tpu_torch.parallel.tp import (allgather_matmul_dense,
                                         tp_mlp_block, use_fused_overlap)
 
 __all__ = [
+    "HostGradSync",
     "TPTransformer",
     "allgather_matmul_dense",
     "allgather_matmul_dense_auto",

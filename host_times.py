@@ -23,6 +23,13 @@ Prints, for the gloo_tpu_torch found beside this script:
     with no profiler running (gloo_tpu_torch.utils.tracing), and the
     event ms and device time of an FSDP step, a 1F1B step and a GPipe
     forward (fsdp_train_entry, pp_entry);
+  - where the tree has the host plane (gloo_tpu_torch.core), from two
+    processes of this script on the card over a FileStore: the host's
+    cost of one Context.allreduce of a CUDA f32 tensor of the flagship's
+    gradient row (6.95 MB), whole and split into its staging copies
+    (device to pinned host, synchronize, back, the event) and the native
+    call on the pinned buffer, and the event ms and device ms of a
+    hier_ddp_entry step (2 processes x 2 local ranks);
   - the device time (chip_smoke.device_profile) of the ring-flash path's
     forward + backward and of its forward alone, and of
     flash_attention_bwd_step per ring step at that path's shape (every
@@ -197,6 +204,85 @@ def parallel_times():
     return out
 
 
+def host_plane_worker(rank, store):
+    """One of the two processes of host_plane_times: its numbers."""
+    from gloo_tpu_torch import core
+    from gloo_tpu_torch.entry import hier_ddp_entry
+
+    step, (replicas, optimizers, batch) = hier_ddp_entry(rank, 2, store)
+    ctx = step.group.ctx
+    numel = sum(p.numel() for p in replicas[0].parameters())
+    out = {}
+
+    def collective_us(fn, calls=20):
+        fn()
+        ctx.barrier()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / calls * 1e6
+
+    row = torch.randn(numel, device="cuda")
+    host = torch.empty(numel, pin_memory=True)
+    dev = row.device
+
+    def copies():
+        core._to_host(host, row)
+        core._sync(dev)
+        core._to_device(row, host)
+        core._record(dev)
+
+    out["ctx_allreduce_cuda_host_us"] = collective_us(
+        lambda: ctx.allreduce(row, tag=0x71))
+    out["ctx_allreduce_staging_host_us"] = host_us(copies, calls=20)
+    out["ctx_allreduce_native_host_us"] = collective_us(
+        lambda: ctx.allreduce(host, tag=0x72))
+    out["row_bytes"] = numel * 4
+
+    def once():
+        step(replicas, optimizers, batch)
+
+    ctx.barrier()
+    out["hier_step_ms"] = event_ms(once, 10)
+    ctx.barrier()
+    out["hier_step_device_ms"] = device_profile(once, 5, sessions=1)[0]
+    ctx.barrier()
+    ctx.close()
+    return out
+
+
+def host_plane_times():
+    """host_plane_worker in two processes of this script; rank 0's numbers
+    and rank 1's step times. {} when the tree has no host plane."""
+    import subprocess
+    import tempfile
+
+    try:
+        import gloo_tpu_torch.core  # noqa: F401
+    except ImportError:
+        return {}
+    store = tempfile.mkdtemp(prefix="host_times-")
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--worker", str(r), store],
+                              stdout=subprocess.PIPE, text=True)
+             for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    if any(p.returncode for p in procs):
+        raise SystemExit(f"host_times: a host-plane worker failed "
+                         f"{[p.returncode for p in procs]}")
+    res = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+    out = dict(res[0])
+    out["hier_step_ms_rank1"] = res[1]["hier_step_ms"]
+    out["hier_step_device_ms_rank1"] = res[1]["hier_step_device_ms"]
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("host_times: no CUDA device is available")
@@ -266,6 +352,7 @@ def main():
     result["bwd_step_device_ms"] = bwd_step_device_ms(attn, args)
     result.update(forward_times(attn, args))
     result.update(device_times(attn, ring, paths, ring_variants_entry()))
+    result.update(host_plane_times())
 
     for key, val in result.items():
         print(f"{key}: {val}")
@@ -273,4 +360,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--worker"]:
+        print(json.dumps(host_plane_worker(int(sys.argv[2]), sys.argv[3])))
+    else:
+        main()

@@ -51,11 +51,12 @@ def test_no_jax_or_gloo_tpu_import_in_source(path):
                 f"{path.relative_to(REPO)}:{node.lineno} imports {name}")
 
 
-def test_entry_points_raise_without_a_gpu(monkeypatch):
+def test_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
     from gloo_tpu_torch import weights
     from gloo_tpu_torch.entry import (ENTRY_CONFIG, ddp_train_entry,
                                       dp_tp_train_entry, entry, ep_entry,
-                                      fsdp_train_entry, pp_entry,
+                                      fsdp_train_entry, hier_ddp_entry,
+                                      host_ddp_entry, pp_entry,
                                       ring_variants_entry, sp_entry,
                                       train_entry)
     from gloo_tpu_torch.models import MLP, Transformer
@@ -67,6 +68,8 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
     for call in (entry, train_entry, ddp_train_entry, dp_tp_train_entry,
                  sp_entry, ep_entry, ring_variants_entry, fsdp_train_entry,
                  pp_entry,
+                 lambda: hier_ddp_entry(0, 1, str(tmp_path)),
+                 lambda: host_ddp_entry(0, 1, str(tmp_path)),
                  lambda: Transformer(ENTRY_CONFIG),
                  lambda: MLP((4, 4)),
                  lambda: weights.transformer_params_from_numpy({}, None)):
@@ -75,6 +78,53 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
     fn, (model, tokens) = entry("cpu")
     assert tokens.device.type == "cpu"
     assert fn(model, tokens).shape == (8, 128, ENTRY_CONFIG.vocab_size)
+
+
+def test_port_maps_its_own_host_library_only():
+    """A process that ran a port allreduce has mapped the port's build of
+    the host library (build/gloo_tpu_torch/libtpucoll-*.so) and no build
+    of the JAX package (gloo_tpu/_native/)."""
+    code = (
+        "import gloo_tpu_torch, torch\n"
+        "ctx = gloo_tpu_torch.Context(0, 1, timeout=10)\n"
+        "ctx.connect_full_mesh(gloo_tpu_torch.HashStore(),\n"
+        "                      gloo_tpu_torch.Device())\n"
+        "assert float(ctx.allreduce(torch.ones(4))[0]) == 1.0\n"
+        "ctx.close()\n"
+        "print(open('/proc/self/maps').read())\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=600,
+                         check=True)
+    libs = {line.split()[-1] for line in out.stdout.splitlines()
+            if "libtpucoll" in line}
+    assert len(libs) == 1, libs
+    (lib,) = libs
+    assert re.fullmatch(re.escape(str(REPO / "build" / "gloo_tpu_torch"))
+                        + r"/libtpucoll-[0-9a-f]{16}\.so", lib), lib
+    assert "gloo_tpu/_native" not in out.stdout
+
+
+def test_host_library_build_is_the_makefiles():
+    """The port's build compiles the Makefile's sources (csrc/tpucoll/*.cc
+    and */*.cc, the AVX-512 unit only with its flag) with its flags, and
+    a second call finds the library it built."""
+    from gloo_tpu_torch import _build
+
+    makefile = (REPO / "Makefile").read_text()
+    assert "-std=c++17 -O3" in makefile and "-mavx2 -mfma -mf16c" in makefile
+    sources = _build.host_sources(avx512=True)
+    assert _build.HOST_AVX512_SOURCE in sources
+    assert _build.HOST_AVX512_SOURCE not in _build.host_sources(False)
+    assert sorted(sources) == sorted(
+        str(p.relative_to(REPO / "csrc")) for pattern in
+        ("tpucoll/*.cc", "tpucoll/*/*.cc")
+        for p in (REPO / "csrc").glob(pattern))
+    path = _build.build_host_library()
+    assert path.parent == _build.BUILD_DIR and path.exists()
+    assert _build.build_host_library() == path
+    flags, _ = _build.host_flags(_build._cxx())
+    assert path == _build.host_library_path(flags)
+    assert path != _build.host_library_path(flags + ("-DX",))
 
 
 def test_chip_smoke_fails_without_a_gpu(monkeypatch):

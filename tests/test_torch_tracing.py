@@ -7,8 +7,8 @@ port's profiling scopes.
   (gloo_tpu/tpu/spmd.py and gloo_tpu/parallel/*.py) shows up as a
   record_function event in a CPU torch.profiler run of the port's
   counterpart: each spmd collective, the FSDP step, the GPipe forward and
-  the 1F1B step, and the sp, tp, ep and ddp exchanges. The host plane's
-  scope (gloo_tpu.ddp.host_grad_sync, HostGradSync) is not ported yet.
+  the 1F1B step, the sp, tp, ep and ddp exchanges, and the host plane's
+  HostGradSync (gloo_tpu.ddp.host_grad_sync).
 - annotate enters no record_function with no profiler running.
 - device_trace writes a Chrome trace that holds the scopes, and
   scope_device_ms sums the device events launched under a scope.
@@ -24,10 +24,12 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from gloo_tpu.utils.tracing import merge_traces as jax_merge_traces
+from gloo_tpu_torch import core
 from gloo_tpu_torch.entry import (ddp_train_entry, dp_tp_train_entry,
                                   ep_entry, fsdp_train_entry,
                                   pp_entry, sp_forward, sp_step)
-from gloo_tpu_torch.parallel import (allgather_matmul_dense_auto,
+from gloo_tpu_torch.parallel import (HostGradSync,
+                                     allgather_matmul_dense_auto,
                                      ring_attention, ring_flash_attention,
                                      row_parallel_dense_scattered_auto,
                                      ulysses_attention)
@@ -35,9 +37,6 @@ from gloo_tpu_torch.tpu import make_mesh, spmd
 from gloo_tpu_torch.utils import tracing
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-# The reference's one scope that belongs to the host plane (HostGradSync),
-# which the port has not ported yet.
-HOST_SCOPES = {"gloo_tpu.ddp.host_grad_sync"}
 
 
 def _reference_scopes():
@@ -106,6 +105,17 @@ def _ep():
     fn(*args)
 
 
+def _host_grad_sync():
+    """HostGradSync over a context of one rank (the profiler records the
+    scope on this thread)."""
+    ctx = core.Context(0, 1, timeout=10)
+    ctx.connect_full_mesh(core.HashStore(), core.Device())
+    try:
+        HostGradSync(ctx).average({"w": _x(8), "b": torch.ones(3)})
+    finally:
+        ctx.close()
+
+
 RUNS = {
     "allreduce": _spmd(lambda m: spmd.allreduce(_x(8), "data", mesh=m)),
     "mean": _spmd(lambda m: spmd.mean(_x(8), "data", mesh=m)),
@@ -131,6 +141,7 @@ RUNS = {
                                   _x(16, 8)),
     "ep": _ep,
     "ddp_step": _ddp,
+    "host_grad_sync": _host_grad_sync,
 }
 
 # Each reference scope and the run of the port that must show it.
@@ -155,11 +166,12 @@ EXPECTED = {
     "gloo_tpu.ep.dispatch": ["ep"],
     "gloo_tpu.ep.combine": ["ep"],
     "gloo_tpu.ddp.grad_sync": ["ddp_step"],
+    "gloo_tpu.ddp.host_grad_sync": ["host_grad_sync"],
 }
 
 
 def test_every_reference_scope_is_covered():
-    assert set(EXPECTED) == _reference_scopes() - HOST_SCOPES
+    assert set(EXPECTED) == _reference_scopes()
     assert {run for runs in EXPECTED.values() for run in runs} == set(RUNS)
 
 
