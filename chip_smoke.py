@@ -111,7 +111,10 @@ Phases, each of which raises on failure:
      buffer over 4 ranks on the card), each variant forward and backward
      with the launch counts read around it (2 each), y and the gradient
      against their closed forms (sum and 2 n sum); B10's error on the real
-     gradient buffer of a DDP step, printed;
+     gradient buffer of a DDP step, printed; B9 and B11 at every code of
+     ring.SUM_DTYPES (the path's shape of elements, so a smaller type
+     moves fewer bytes) bitwise against their plain versions, three calls
+     each (variant_dtypes, run after phase 22's times);
  22. times of B9, B10 and B11 at the path's shape against their bound,
      plain versions, B3 at the same shape and the library yardstick; of
      B9, B10, B11, B3 and B4a at 64 MiB per rank (kernels and whole calls
@@ -120,7 +123,8 @@ Phases, each of which raises on failure:
      each (tile, stages) of HBM_PROBES, bitwise B3 at each; and of B3 and
      B4a at the DDP shape and at 64 MiB per rank with SUM_PROBE_UNITS
      units per thread (the slice count of their launch); and of B4b at 64
-     MiB per rank against its bound and yardstick;
+     MiB per rank against its bound and yardstick; and B9's and B11's
+     kernel ms at each sum dtype, one line per dtype;
  23. the FSDP path: FSDP_STEPS steps of fsdp_train_entry() (the flagship
      at full width sharded over 4 ranks on the card, SGD), with the launch
      counts read around them (per step 15 B4b and 15 B4a, one per leaf, 1
@@ -153,7 +157,21 @@ Phases, each of which raises on failure:
      process, the first step against ddp_train_entry()'s on the card
      (TRAIN_TOL), parameters bitwise equal across the processes, a falling
      loss; the step's time (CUDA events), device time and busy share, and
-     the host hop's D2H, host allreduce and H2D apart.
+     the host hop's D2H, host allreduce and H2D apart;
+ 29. elastic acceptance on the card: elastic_train_entry in ELASTIC_RANKS
+     worker processes (init_from_env, rank 0 serving the TcpStore; 2
+     local ranks each, make_hierarchical_ddp, Adam), rank 0 checkpointing
+     every 2 steps with its state's sha256 in the store; launch rank 2
+     SIGKILLs itself at step 3 (the one exit allowed other than 0); the
+     survivors rebuild with rebuild_after_failure, restore with
+     load_latest onto the card (sha256 equal to rank 0's) and train to
+     step 8 with (B1, B2, B3) = (4, 4, 1) launches per step, a loss at
+     step 8 below step 0's and bitwise-equal parameters (a host
+     allgather); then run_elastic over one flagship replica per process
+     (gradients through the epoch's bucketer, the port's
+     StepCheckpointer), the same kill: one rebuild, a final size of 2,
+     bitwise-equal parameters; the rebuild, save, load_latest and first
+     resumed step's ms are printed.
 The line before the last is the JSON list of kernels; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or gloo_tpu.
 """
@@ -1990,6 +2008,72 @@ def gather_probe(ring, big, mesh):
           f"{nbytes} bytes); kernel / bound {shown}, yardstick {lib} ms")
 
 
+def dtype_input(dtype, shape, gen):
+    """A world tensor of `dtype` whose sums round (floats, at the scale of
+    gradients and of activations) or wrap (integers over the whole range
+    of the type)."""
+    if dtype.is_floating_point:
+        return (torch.randn(shape, generator=gen, device="cuda") * 16) \
+            .to(dtype)
+    info = torch.iinfo(dtype)
+    lo, hi = (info.min, info.max) if info.bits < 64 else (-2 ** 62, 2 ** 62)
+    return torch.randint(lo, hi, shape, generator=gen, device="cuda",
+                         dtype=torch.int64).to(dtype)
+
+
+def variant_dtypes(ring, paths, card, gen):
+    """Phases 21 and 22 at every code of ring.SUM_DTYPES: B9 and B11 at the
+    ring-variant path's shape (4 x 6912 x 256 elements, so a smaller type
+    moves fewer bytes) against their plain versions on the same inputs,
+    bitwise, RING_RUNS calls each; one line per dtype with each kernel's
+    device ms beside the dtype's bound from this run's inputs (as
+    variant_times's: each rank's input read once and output written once,
+    and (P - 1) S adds; a type with no rate in PEAK_FLOPS takes the f32
+    units' rate for its adds, which lie two orders under the bytes).
+    Returns {dtype name: (B9 ms, B11 ms, bound ms)}."""
+    _, x32, mesh = paths["hbm"][1]
+    shape = tuple(x32.shape)
+    print(f"B9 and B11 at every sum dtype, {shape} elements on {card}:")
+    rows, wrong = {}, []
+    with torch.no_grad():
+        for dtype, code in sorted(ring.SUM_DTYPES.items(),
+                                  key=lambda kv: kv[1]):
+            x = dtype_input(dtype, shape, gen)
+            name = str(dtype).replace("torch.", "")
+            nbytes = 2 * x.numel() * x.element_size()
+            bound, bound_by = _bound(
+                nbytes, (x.shape[0] - 1) * x[0].numel(),
+                dtype if dtype in PEAK_FLOPS else torch.float32)
+            ms = []
+            for variant, label in (("hbm", "hbm_kernel"),
+                                   ("bidir", "bidir_kernel")):
+                fn = getattr(ring, f"ring_allreduce_{variant}")
+                plain = getattr(ring, f"ring_allreduce_{variant}_plain")
+                before = fn.launches
+                outs = [fn(x, "data", mesh) for _ in range(RING_RUNS)]
+                torch.cuda.synchronize()
+                want = plain(x, "data", mesh)
+                same = fn.launches == before + RING_RUNS and all(
+                    o.dtype == dtype and same_bits(o, want) for o in outs)
+                if not same:
+                    wrong.append((variant, name))
+                ms.append(timed_kernel(
+                    f"ring_allreduce_{variant} {name} (code {code}, "
+                    f"{x[0].numel() * x.element_size()} bytes per rank): "
+                    f"bitwise its plain version {same}",
+                    lambda fn=fn: fn(x, "data", mesh), label))
+            rows[name] = (*ms, bound)
+            ratios = ", ".join("not measured" if m is None
+                               else f"{m / bound:.3f}x" for m in ms)
+            print(f"  {name}: B9 {ms[0]} ms, B11 {ms[1]} ms; bound "
+                  f"{bound:.6f} ms ({bound_by}: {nbytes} bytes); B9, B11 "
+                  f"over the bound {ratios} [{card}]")
+    if wrong:
+        raise AssertionError(f"B9/B11 differ from their plain versions at "
+                             f"{wrong}")
+    return rows
+
+
 def implied_grads(old, new, lr):
     """{name: (old - new) / lr} of rank 0's rows of unsharded FSDP
     parameters: the gradient an SGD step took."""
@@ -2221,25 +2305,29 @@ def digest(tensors):
     return h.hexdigest()
 
 
-def run_workers(phase, timeout=WORKER_TIMEOUT):
-    """Runs phase `phase`'s worker in HOST_RANKS processes of this script;
-    prints their output and returns their JSON results. Raises if a worker
-    exits non-zero, prints no result, or outlives `timeout`; no worker is
-    left running."""
+def run_workers(phase, timeout=WORKER_TIMEOUT, size=HOST_RANKS, killed=(),
+                env=None):
+    """Runs phase `phase`'s worker in `size` processes of this script
+    (with `env` added to their environment); prints their output and
+    returns their JSON results, None for each rank of `killed`. Raises if
+    a rank of `killed` ends other than by SIGKILL, if any other worker
+    exits non-zero or prints no result, or if one outlives `timeout`; no
+    worker is left running."""
+    import signal
     import sys
     import tempfile
 
     store = tempfile.mkdtemp(prefix=f"chip_smoke-{phase}-")
     os.makedirs(os.path.join(store, "rdv"))
     procs, logs = [], []
-    for rank in range(HOST_RANKS):
+    for rank in range(size):
         out = open(os.path.join(store, f"out{rank}.txt"), "w+")
         err = open(os.path.join(store, f"err{rank}.txt"), "w+")
         logs.append((out, err))
         procs.append(subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--worker", phase,
-             str(rank), str(HOST_RANKS), os.path.join(store, "rdv")],
-            stdout=out, stderr=err))
+             str(rank), str(size), os.path.join(store, "rdv")],
+            stdout=out, stderr=err, env=dict(os.environ, **(env or {}))))
     deadline = time.monotonic() + timeout
     try:
         for p in procs:
@@ -2254,6 +2342,16 @@ def run_workers(phase, timeout=WORKER_TIMEOUT):
         out.seek(0)
         err.seek(0)
         lines, errors = out.read().splitlines(), err.read()
+        if rank in killed:
+            for line in lines:
+                print(f"  [worker {rank}] {line}")
+            if p.returncode != -signal.SIGKILL:
+                raise AssertionError(f"phase {phase}: worker {rank} exited "
+                                     f"{p.returncode}, not by its planned "
+                                     f"SIGKILL:\n{errors[-6000:]}")
+            print(f"  [worker {rank}] ended by its planned SIGKILL")
+            results.append(None)
+            continue
         for line in lines[:-1]:
             print(f"  [worker {rank}] {line}")
         if p.returncode != 0 or not lines:
@@ -2465,7 +2563,166 @@ def worker_hier(rank, size, store, device="cuda"):
     return out
 
 
-WORKERS = {"26": worker_staging, "27": worker_host_sync, "28": worker_hier}
+# Phase 29: ELASTIC_RANKS processes on the card; launch rank
+# ELASTIC_KILL[0] SIGKILLs itself at step ELASTIC_KILL[1], one trained
+# step after the newest checkpoint (every ELASTIC_CKPT_EVERY = 2 steps),
+# so that the restore has to roll the survivors back. The acceptance
+# run trains steps 0 to ELASTIC_STEPS - 1, run_elastic RUN_ELASTIC_STEPS
+# steps. The lease knobs make a lease expire after 1.2 s without renewal.
+ELASTIC_RANKS = 3
+ELASTIC_KILL = (2, 4)
+ELASTIC_STEPS = 9
+RUN_ELASTIC_STEPS = 6
+ELASTIC_SETTLE = 3.0
+LEASE_ENV = {"TPUCOLL_LEASE_MS": "200", "TPUCOLL_LEASE_GRACE": "1200"}
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _share_cores(size):
+    """Processes that share a host split its cores: torch's intra-op pool
+    per process otherwise oversubscribes them, and the host plane's
+    threads starve (a step many times its time alone)."""
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // size))
+
+
+def _kill_if_planned(rank, step):
+    if (rank, step) == ELASTIC_KILL:
+        import signal
+
+        os.kill(os.getpid(), signal.SIGKILL)
+
+
+def worker_elastic(rank, size, store, device="cuda"):
+    """Phase 29 on one process: elastic_train_entry's acceptance run. Rank
+    0 checkpoints every ELASTIC_CKPT_EVERY steps and writes each saved
+    state's sha256 into the launch's TcpStore; the planned victim dies;
+    the survivors catch the IoError, rebuild, restore (checking that the
+    live state differed from the checkpoint before, that the loaded state
+    and afterwards every local replica with its Adam have rank 0's
+    sha256, and that the tensors came back on the card) and train on to
+    the last step with the launch counts read over the resumed steps."""
+    from gloo_tpu_torch import entry as entry_mod
+    from gloo_tpu_torch.checkpoint import state_digest
+    from gloo_tpu_torch.core import IoError
+    from gloo_tpu_torch.ops import attention as attn
+    from gloo_tpu_torch.ops import ring
+
+    _share_cores(size)
+    trainer = entry_mod.elastic_train_entry(
+        rank, size, os.path.join(os.path.dirname(store), "ckpt"), device)
+    kv = trainer.store()
+    counters = (attn.flash_attention_fwd, attn.flash_attention_bwd,
+                ring.ring_allreduce)
+    out = {"losses": {}, "save_ms": [], "saved": []}
+    step, resumed_at = 0, None
+    while step < ELASTIC_STEPS:
+        _kill_if_planned(rank, step)
+        t0 = time.perf_counter()
+        try:
+            loss = float(trainer.step(step))
+        except IoError as exc:
+            if resumed_at is not None:
+                raise
+            print(f"step {step} failed ({str(exc)[:60]}); rebuilding",
+                  flush=True)
+            t0 = time.perf_counter()
+            if not trainer.rebuild(generation=1, min_size=2,
+                                   settle=ELASTIC_SETTLE):
+                raise AssertionError("too few survivors") from exc
+            out["rebuild_ms"] = (time.perf_counter() - t0) * 1e3
+            newest = max(trainer.checkpointer.steps())
+            before = state_digest(trainer.state(newest))
+            t0 = time.perf_counter()
+            at, state = trainer.restore()
+            torch.cuda.synchronize()
+            out["load_ms"] = (time.perf_counter() - t0) * 1e3
+            if at is None:
+                raise AssertionError("no committed checkpoint") from exc
+            want = kv.get(f"elastic/sha256/{at}").decode()
+            out["sha256"] = (state_digest(state), want)
+            out["rolled_back"] = at == newest and before != want
+            out["live_sha256"] = [state_digest(trainer.state(at, i))
+                                  for i in range(len(trainer.replicas))]
+            out["on_card"] = all(t.is_cuda for t in
+                                 state["model"].values())
+            out["restored"] = at
+            out["size"] = trainer.ctx.size
+            print(f"resumed from step {at} in a world of "
+                  f"{trainer.ctx.size}", flush=True)
+            step = resumed_at = at + 1
+            for c in counters:
+                c.launches = 0
+            continue
+        if step == resumed_at:
+            out["resumed_step_ms"] = (time.perf_counter() - t0) * 1e3
+        out["losses"][step] = loss
+        t0 = time.perf_counter()
+        if trainer.save(step):
+            out["save_ms"].append((time.perf_counter() - t0) * 1e3)
+            out["saved"].append(step)
+            kv.set(f"elastic/sha256/{step}",
+                   state_digest(trainer.state(step)).encode())
+        step += 1
+    torch.cuda.synchronize()
+    out["launches"] = [c.launches for c in counters]
+    out["resumed_steps"] = ELASTIC_STEPS - resumed_at
+    flat = torch.cat([p.detach().float().reshape(-1)
+                      for p in trainer.replicas[0].parameters()])
+    gathered = trainer.ctx.allgather(flat)
+    out["params_equal"] = all(torch.equal(row, flat) for row in gathered)
+    out["replicas_equal"] = len({digest(m.parameters())
+                                 for m in trainer.replicas}) == 1
+    out["state_bytes"] = sum(
+        t.numel() * t.element_size() for t in
+        [*trainer.state(0)["model"].values(),
+         *(v for st in trainer.optimizers[0].state.values()
+           for v in st.values() if torch.is_tensor(v))])
+    trainer.ctx.barrier()
+    trainer.ctx.close()
+    return out
+
+
+def worker_run_elastic(rank, size, store, device="cuda"):
+    """Phase 29's second part on one process: elastic.run_elastic over one
+    flagship replica on the card (elastic_step_fn: gradients averaged with
+    the epoch's bucketer), the port's StepCheckpointer as its
+    checkpointer, the planned victim dying at its step."""
+    from gloo_tpu_torch import Device, FileStore, elastic
+    from gloo_tpu_torch import entry as entry_mod
+    from gloo_tpu_torch.checkpoint import StepCheckpointer
+
+    _share_cores(size)
+    ckpt = StepCheckpointer(os.path.join(os.path.dirname(store), "ckpt"),
+                            keep=entry_mod.ELASTIC_KEEP)
+    step_fn, template = entry_mod.elastic_step_fn(rank, ckpt, device)
+
+    def killing(ectx, step, state):
+        _kill_if_planned(rank, step)
+        return step_fn(ectx, step, state)
+
+    t0 = time.perf_counter()
+    summary = elastic.run_elastic(
+        killing, store=FileStore(store), device=Device(), rank=rank,
+        world_size=size, steps=RUN_ELASTIC_STEPS, min_size=2,
+        checkpointer=ckpt, template=template, timeout=120.0)
+    torch.cuda.synchronize()
+    return {"rebuilds": summary["rebuilds"], "steps": summary["steps"],
+            "sizes": [e["size"] for e in summary["epochs"]],
+            "size": summary["elastic"]["size"],
+            "rebuild_ms": summary["rebuild_ms"],
+            "wall_ms": (time.perf_counter() - t0) * 1e3,
+            "params": digest(step_fn.model.parameters())}
+
+
+WORKERS = {"26": worker_staging, "27": worker_host_sync, "28": worker_hier,
+           "29": worker_elastic, "29b": worker_run_elastic}
 
 
 def host_phases(card):
@@ -2530,6 +2787,97 @@ def host_phases(card):
               f"ms ({hop['h2d_GBps']:.3f} GB/s pinned), the whole staged "
               f"ctx.allreduce {hop['staged_allreduce_ms']:.6f} ms [{card}]")
     return res
+
+
+def elastic_phase(card):
+    """Phase 29: the acceptance run and run_elastic, ELASTIC_RANKS
+    processes on the card, one planned SIGKILL each."""
+    from gloo_tpu_torch import entry as entry_mod
+    from gloo_tpu_torch.entry import ENTRY_CONFIG, HIER_LOCAL
+
+    victim, at = ELASTIC_KILL
+    t0 = time.perf_counter()
+    res = run_workers("29", size=ELASTIC_RANKS, killed=(victim,), env={
+        "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port())})
+    wall = time.perf_counter() - t0
+    live = [r for r in res if r is not None]
+    per_layer = HIER_LOCAL * ENTRY_CONFIG.n_layers
+    failed = []
+    for rank, r in enumerate(res):
+        if r is None:
+            continue
+        got, want = r["sha256"]
+        losses = {int(k): v for k, v in r["losses"].items()}
+        shown = ", ".join(f"{k}: {v:.4f}" for k, v in sorted(losses.items()))
+        per_step = [x / r["resumed_steps"] for x in r["launches"]]
+        print(f"elastic acceptance process {rank}: rebuilt to size "
+              f"{r['size']} in {r['rebuild_ms']:.3f} ms (host clock, "
+              f"settle {ELASTIC_SETTLE} s), resumed from step "
+              f"{r['restored']}; load_latest {r['load_ms']:.3f} ms "
+              f"(tensors on the card {r['on_card']}), checkpoint sha256 "
+              f"{got[:16]} vs rank 0's {want[:16]}: "
+              f"{'equal' if got == want else 'DIFFER'}; every local "
+              f"replica and Adam after the restore "
+              f"{'equal' if set(r['live_sha256']) == {want} else 'DIFFER'}"
+              f", rolled back past a trained step {r['rolled_back']}; "
+              f"first resumed "
+              f"step {r['resumed_step_ms']:.3f} ms; launches (B1, B2, B3) "
+              f"per resumed step {per_step}; losses {shown} [{card}]")
+        if r["save_ms"]:
+            print(f"  save of the flagship's state ({r['state_bytes']} bytes"
+                  f" of parameters and Adam moments) at steps {r['saved']}:"
+                  f" {', '.join(f'{x:.3f}' for x in r['save_ms'])} ms "
+                  f"[{card}]")
+        if got != want or not r["on_card"] \
+                or set(r["live_sha256"]) != {want} or not r["rolled_back"]:
+            failed.append(f"process {rank}: checkpoint not restored whole")
+        if r["size"] != ELASTIC_RANKS - 1:
+            failed.append(f"process {rank}: size {r['size']}")
+        if per_step != [per_layer, per_layer, 1]:
+            failed.append(f"process {rank}: launches {per_step}")
+        if not (r["params_equal"] and r["replicas_equal"]):
+            failed.append(f"process {rank}: parameters differ")
+        last = ELASTIC_STEPS - 1
+        if not all(np.isfinite(list(losses.values()))) \
+                or not losses[last] < losses[0]:
+            failed.append(f"process {rank}: loss at step {last} not below "
+                          f"step 0's")
+    if len(live) != ELASTIC_RANKS - 1:
+        failed.append(f"{len(live)} survivors")
+    print(f"elastic acceptance: {ELASTIC_RANKS} processes x {HIER_LOCAL} "
+          f"local ranks, process {victim} SIGKILLed at step {at}, "
+          f"{ELASTIC_STEPS} steps, {wall:.1f} s in all: "
+          f"{'passed' if not failed else 'FAILED ' + str(failed)}")
+    if failed:
+        raise AssertionError(f"phase 29 failed: {failed}")
+
+    t0 = time.perf_counter()
+    res = run_workers("29b", size=ELASTIC_RANKS, killed=(victim,),
+                      env=LEASE_ENV)
+    wall = time.perf_counter() - t0
+    live = [r for r in res if r is not None]
+    for rank, r in enumerate(res):
+        if r is not None:
+            print(f"run_elastic process {rank}: {r['steps']} steps, "
+                  f"rebuilds {r['rebuilds']}, sizes {r['sizes']}, rebuild "
+                  f"ms {r['rebuild_ms']} (the agent's), {r['wall_ms']:.1f} "
+                  f"ms in all [{card}]")
+    # The steps after the newest checkpoint before the kill run twice.
+    every = entry_mod.ELASTIC_CKPT_EVERY
+    replayed = at - 1 - (at - 1) // every * every
+    ok = (len(live) == ELASTIC_RANKS - 1
+          and all(r["rebuilds"] == 1 and r["size"] == ELASTIC_RANKS - 1
+                  and r["steps"] == RUN_ELASTIC_STEPS + replayed
+                  for r in live)
+          and len({r["params"] for r in live}) == 1)
+    print(f"run_elastic with the port's StepCheckpointer: process {victim} "
+          f"SIGKILLed at step {at}, {RUN_ELASTIC_STEPS} steps ({replayed} "
+          f"replayed from the checkpoint), {wall:.1f} s in all: one "
+          f"rebuild, final size "
+          f"{ELASTIC_RANKS - 1}, parameters bitwise equal: "
+          f"{'passed' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError("phase 29's run_elastic part failed")
 
 
 def check_host_steps(label, res, ref_label):
@@ -3237,8 +3585,10 @@ def main():
     _, vx, vmesh = variant_paths["q8"][1]
     q8_on_ddp_grads(ring, ddp_train_entry, vx, vmesh)
 
-    # Phase 22: times of B9, B10 and B11 at the path's shape.
+    # Phase 22: times of B9, B10 and B11 at the path's shape; and phases
+    # 21 and 22 at every sum dtype for B9 and B11.
     variant_rows = variant_times(ring, variant_paths, card)
+    variant_dtypes(ring, variant_paths, card, gen)
 
     # Phase 23: the FSDP path (B4b, B4a and B3 around each rank's B1/B2).
     _, fsdp = fsdp_path(attn, ring, entry_mod, unshard_params, make_mesh,
@@ -3253,6 +3603,9 @@ def main():
 
     # Phases 26-28: the host plane in two processes on the card.
     host_phases(card)
+
+    # Phase 29: elastic acceptance on the card.
+    elastic_phase(card)
 
     # Launches on the main paths: B1 on the serving path, B2 on the
     # training path, B3 on the DDP path, B4a and B4b on the group path,

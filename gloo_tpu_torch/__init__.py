@@ -6,9 +6,12 @@ nothing of ``gloo_tpu`` or JAX. Entry points run on ``cuda`` unless given
 and on CPU tensors their plain PyTorch versions run instead. The host
 plane (stores, devices, contexts: the C++ core of the repo's
 ``csrc/tpucoll``) is built with g++ at first use, and stages CUDA tensors
-through pinned host memory.
+through pinned host memory. ``init_from_env`` connects a Context from a
+launcher's environment; ``checkpoint``, ``resilience`` and ``elastic``
+carry training across the loss of a process.
 """
 
+from gloo_tpu_torch.bootstrap import detect_launch_env, init_from_env
 from gloo_tpu_torch.core import (Context, Device, FileStore, HashStore,
                                  PrefixStore, TcpStore, TcpStoreServer)
 from gloo_tpu_torch.models import MLP, Transformer, TransformerConfig
@@ -18,4 +21,5 @@ __version__ = "0.1.0"
 
 __all__ = ["Context", "Device", "FileStore", "HashStore", "MLP",
            "PrefixStore", "TcpStore", "TcpStoreServer", "Transformer",
-           "TransformerConfig", "flash_attention"]
+           "TransformerConfig", "detect_launch_env", "flash_attention",
+           "init_from_env"]

@@ -63,6 +63,8 @@ _PROTOTYPES = {
     "tc_store_get": (_int, [_c, ctypes.c_char_p, _i64, *_bytes_out]),
     "tc_store_add": (_int, [_c, ctypes.c_char_p, _i64,
                             ctypes.POINTER(_i64)]),
+    "tc_store_delete": (_int, [_c, ctypes.c_char_p, ctypes.POINTER(_int)]),
+    "tc_store_list": (_int, [_c, ctypes.c_char_p, *_bytes_out]),
     "tc_device_new": (_c, [ctypes.c_char_p, ctypes.c_uint16,
                            ctypes.c_char_p, _int, ctypes.c_char_p, _int,
                            ctypes.c_char_p, ctypes.c_char_p]),
@@ -92,6 +94,10 @@ _PROTOTYPES = {
     "tc_reduce_scatter": (_int, [_c, _c, _c, ctypes.POINTER(_sz), _int,
                                  _int, _int, _u32, _i64]),
     "tc_plan_cache_clear": (None, [_c]),
+    # metrics and flight recorder
+    "tc_metrics_json": (_int, [_c, _int, *_bytes_out]),
+    "tc_flightrec_json": (_int, [_c, *_bytes_out]),
+    "tc_flightrec_seq": (_u64, [_c]),
     # async engine and work handles
     "tc_async_new": (_c, [_c, _int, _u32]),
     "tc_async_shutdown": (_int, [_c]),
@@ -101,6 +107,17 @@ _PROTOTYPES = {
     "tc_work_wait": (_int, [_c, _i64]),
     "tc_work_status": (_int, [_c]),
     "tc_work_free": (None, [_c]),
+    # elastic membership plane (lease liveness, epoch transitions)
+    "tc_elastic_new": (_c, [_c, _c, _int, _int, _int, _int,
+                            ctypes.c_char_p, _i64]),
+    "tc_elastic_rebuild": (_int, [_c, _i64, ctypes.POINTER(_c)]),
+    "tc_elastic_note_failure": (_int, [_c, ctypes.c_char_p]),
+    "tc_elastic_stop": (_int, [_c]),
+    "tc_elastic_free": (None, [_c]),
+    "tc_elastic_epoch": (_u64, [_c]),
+    "tc_elastic_head_epoch": (_u64, [_c]),
+    "tc_elastic_poll": (_int, [_c]),
+    "tc_elastic_status_json": (_int, [_c, *_bytes_out]),
 }
 
 _cdll = None

@@ -208,6 +208,21 @@ class Store:
                                       ctypes.byref(result)))
         return result.value
 
+    def delete(self, key: str) -> bool:
+        """Remove `key`; True when it existed. A waiter blocked on a deleted
+        key keeps waiting: deletion is namespace hygiene (lease reaping,
+        retired rebuild namespaces), not signalling."""
+        deleted = ctypes.c_int(0)
+        check(_lib.lib().tc_store_delete(self._handle, key.encode(),
+                                         ctypes.byref(deleted)))
+        return bool(deleted.value)
+
+    def list(self, prefix: str = "") -> "list[str]":
+        """Keys present under `prefix` (relative to this store's namespace),
+        in no set order; a snapshot: keys created or deleted meanwhile may
+        or may not appear."""
+        return json.loads(_lib.copy_out(_lib.lib().tc_store_list,
+                                        self._handle, prefix.encode()))
 
 
 class HashStore(Store):
@@ -467,19 +482,23 @@ class Context:
 
     @classmethod
     def _from_handle(cls, handle: int, timeout: float,
-                     parent: "Context") -> "Context":
-        """Wrap a native context handle produced by a split (ownership
-        transfers to the wrapper)."""
+                     parent: Optional["Context"] = None,
+                     store: Optional[Store] = None,
+                     device: Optional[Device] = None) -> "Context":
+        """Wrap a native context handle produced by a split (`parent` is
+        pinned and its device shared) or by an elastic rebuild (`store`
+        and `device` are kept alive); ownership transfers to the
+        wrapper."""
         obj = cls.__new__(cls)
         obj.rank = int(_lib.lib().tc_context_rank(handle))
         obj.size = int(_lib.lib().tc_context_size(handle))
         obj._timeout = timeout
         obj._handle = handle
-        obj._store = None
-        obj._device = parent._device
+        obj._store = store
+        obj._device = parent._device if parent is not None else device
         obj._engines = []
         obj._pool = _PinnedPool()
-        obj._parent = parent  # pin the parent (shared device, store)
+        obj._parent = parent
         obj._free = _lib.lib().tc_context_free
         return obj
 
@@ -532,6 +551,29 @@ class Context:
                                         ctypes.byref(rx), ctypes.byref(pairs))
         return {"tx_bytes": tx.value, "rx_bytes": rx.value,
                 "active_pairs": pairs.value}
+
+    def metrics(self) -> dict:
+        """The context's metrics registry as a dict (gloo_tpu/core.py's
+        Context.metrics: "rank", "size", "ops", "transport" keyed by peer
+        rank, "watchdog": {"stalls", "last"}, "transport_failure", ...).
+        The reference's "async" gauges of live engines are not ported."""
+        snap = json.loads(_lib.copy_out(_lib.lib().tc_metrics_json,
+                                        self._handle, 0))
+        snap["transport"] = {int(k): v
+                             for k, v in snap["transport"].items()}
+        return snap
+
+    def flightrec(self) -> dict:
+        """The always-on flight recorder as a dict: {"rank", "size",
+        "next_seq", "events": [{"seq", "cseq", "op", "fp", "state", ...}],
+        ...}; cseq is the cross-rank collective sequence number (None for
+        point-to-point ops) and fp the desync fingerprint."""
+        return json.loads(_lib.copy_out(_lib.lib().tc_flightrec_json,
+                                        self._handle))
+
+    def flightrec_seq(self) -> int:
+        """Ops recorded so far (the next op's sequence number)."""
+        return int(_lib.lib().tc_flightrec_seq(self._handle))
 
     def close(self) -> None:
         """Close the context, shutting down its async engines first."""

@@ -225,22 +225,6 @@ ring_kernel(const __grid_constant__ Params p) {
   }
 }
 
-// The element types of B3 and B4a by dtype code, each with its 16-byte
-// vector unit and its single-element unit (the element's bits).
-#define GTT_SUM_TYPES(X)              \
-  X(0, __nv_bfloat16, unsigned short) \
-  X(1, float, float)                  \
-  X(2, __half, unsigned short)        \
-  X(3, double, double)                \
-  X(4, int, int)                      \
-  X(5, long long, long long)          \
-  X(6, signed char, signed char)      \
-  X(7, unsigned char, unsigned char)  \
-  X(8, short, short)                  \
-  X(9, unsigned short, unsigned short) \
-  X(10, unsigned, unsigned)
-constexpr int kSumTypes = 11;
-
 // B4b's units by width in bytes.
 #define GTT_COPY_UNITS(X) \
   X(16, uint4)            \

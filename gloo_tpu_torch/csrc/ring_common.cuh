@@ -134,6 +134,24 @@ __device__ __forceinline__ unsigned add1(unsigned a, unsigned b) {
   return a + b;
 }
 
+// The element types of the sum kernels (ring.cu's B3 and B4a,
+// ring_variants.cu's B9 and B11) by dtype code, ring.SUM_DTYPES, each with
+// its single-element unit (the element's bits); their 16-byte unit is a
+// uint4.
+#define GTT_SUM_TYPES(X)              \
+  X(0, __nv_bfloat16, unsigned short) \
+  X(1, float, float)                  \
+  X(2, __half, unsigned short)        \
+  X(3, double, double)                \
+  X(4, int, int)                      \
+  X(5, long long, long long)          \
+  X(6, signed char, signed char)      \
+  X(7, unsigned char, unsigned char)  \
+  X(8, short, short)                  \
+  X(9, unsigned short, unsigned short) \
+  X(10, unsigned, unsigned)
+constexpr int kSumTypes = 11;
+
 // Element-wise a + b over the lanes of one unit (a 16-byte vector, or the
 // bits of one element): the unit is unpacked into its lanes of T (16 int8,
 // 8 int16 or bf16, ...), each lane added in T.

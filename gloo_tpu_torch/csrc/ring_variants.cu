@@ -29,8 +29,10 @@
 // unit is read once and each output unit written once, behind one members
 // barrier, with no comm slot, no working copy and no per-step hand-off.
 // With ring indices mod n and in_k the input of the member with ring
-// index k, each + one add1 of ring_common.cuh (bf16 in f32 rounded back
-// after every add, f32 IEEE without contraction):
+// index k, each + one add1 of ring_common.cuh in the element type, at
+// every type of GTT_SUM_TYPES (bf16 and f16 in f32 rounded back after
+// every add, f32 and f64 IEEE without contraction, integers wrapping in
+// their own width):
 //   B3's order, chunk c (starts raw on c, finished on c - 1):
 //     in_{c-1}[c] + (in_{c-2}[c] + ( ... + (in_{c+1}[c] + in_c[c])));
 //   the mirrored ring's order, chunk c (starts on c, goes to c - 1, then
@@ -642,8 +644,9 @@ bidir_kernel(const __grid_constant__ Params p) {
   }
 }
 
-// The instances: B9 by dtype and tile (8, 16 or 32 KB), B10 f32 in its
-// two forms, B11 by dtype (0 = bf16, 1 = f32).
+// The instances: B9 by dtype and tile (8, 16 or 32 KB) and B11 by dtype,
+// at every code of GTT_SUM_TYPES (ring.SUM_DTYPES); B10 f32 (code 1) in
+// its two forms.
 template <typename T>
 void* hbm_for(int tile_bytes) {
   if (tile_bytes == kThreads * 2 * 16) return (void*)hbm_kernel<T, 2>;
@@ -653,14 +656,18 @@ void* hbm_for(int tile_bytes) {
 }
 
 void* kernel_for(int variant, int dtype, int tile_bytes) {
-  if (variant == kHbm && dtype == 0) return hbm_for<__nv_bfloat16>(tile_bytes);
-  if (variant == kHbm && dtype == 1) return hbm_for<float>(tile_bytes);
-  if (variant == kQ8 && dtype == 1) return (void*)q8_kernel<true>;
-  if (variant == kQ8Mem && dtype == 1) return (void*)q8_kernel<false>;
-  if (variant == kBidir && dtype == 0) {
-    return (void*)bidir_kernel<__nv_bfloat16>;
+  if (variant == kQ8 || variant == kQ8Mem) {
+    if (dtype != 1) return nullptr;
+    return variant == kQ8 ? (void*)q8_kernel<true> : (void*)q8_kernel<false>;
   }
-  if (variant == kBidir && dtype == 1) return (void*)bidir_kernel<float>;
+#define GTT_VARIANT_CASE(CODE, T, SCALAR)                  \
+  if (dtype == CODE) {                                     \
+    return variant == kHbm     ? hbm_for<T>(tile_bytes)    \
+           : variant == kBidir ? (void*)bidir_kernel<T>    \
+                               : nullptr;                  \
+  }
+  GTT_SUM_TYPES(GTT_VARIANT_CASE)
+#undef GTT_VARIANT_CASE
   return nullptr;
 }
 
@@ -740,15 +747,15 @@ extern "C" {
 // neighbouring slices do not share an L2 sector.
 int gtt_ring_variants_flag_stride(int) { return 8; }
 
-// The most blocks of one variant's kernels (both dtypes; for B9 those of
-// tile_bytes with `stages` stages) that can be resident at once on the
-// current device (the cooperative launch's limit), in *blocks.
+// The most blocks of one variant's kernels (every dtype it has; for B9
+// those of tile_bytes with `stages` stages) that can be resident at once
+// on the current device (the cooperative launch's limit), in *blocks.
 int gtt_ring_variants_max_blocks(int variant, int tile_bytes, int stages,
                                  int* blocks) {
   int per_sm = 1 << 30;
   cudaError_t err = cudaSuccess;
   bool any = false;
-  for (int dtype = 0; dtype < 2 && err == cudaSuccess; ++dtype) {
+  for (int dtype = 0; dtype < kSumTypes && err == cudaSuccess; ++dtype) {
     void* fn = kernel_for(variant, dtype, tile_bytes);
     if (fn == nullptr) continue;
     any = true;
@@ -775,11 +782,11 @@ int gtt_ring_variants_max_blocks(int variant, int tile_bytes, int stages,
 }
 
 // Each returns a cudaError_t; 0 is success. x and out: P ranks of n
-// chunks at rank_stride bytes, every buffer 16-byte aligned. dtype: 0 =
-// bf16, 1 = f32. flags: zeroed, P x S x flag_stride ints (B11: P x 2 x S
-// x flag_stride), and for B10 then 2 n P more. my: each rank's ring index;
-// members: ranks x n flat ranks, row r the ring of rank r in ring order.
-// All tables are host arrays.
+// chunks at rank_stride bytes, every buffer 16-byte aligned. dtype: a code
+// of GTT_SUM_TYPES (B10: 1, f32 only). flags: zeroed, P x S x flag_stride
+// ints (B11: P x 2 x S x flag_stride), and for B10 then 2 n P more. my:
+// each rank's ring index; members: ranks x n flat ranks, row r the ring of
+// rank r in ring order. All tables are host arrays.
 
 // B9: chunk = 16-byte units per chunk; tile_bytes 8192, 16384 or 32768;
 // stages >= 1 (the launch takes (stages + 2) tiles of shared memory).

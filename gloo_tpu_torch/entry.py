@@ -38,19 +38,31 @@ counterparts of ddp_train_entry(), one OS process per "host" over a
 FileStore: the two-level DDP of gloo_tpu/tpu/hierarchical.py
 (make_hierarchical_ddp, HIER_LOCAL ranks of the card in each process) and
 HostGradSync over one replica's CUDA gradients (gloo_tpu/parallel/ddp.py).
+``elastic_train_entry()`` is the acceptance run's process
+(tests/test_e2e_acceptance.py at the flagship's width): it joins through
+init_from_env, trains hier_ddp_entry()'s two-level step on batches drawn
+per process and step, checkpoints, and rebuilds and resumes after a peer
+dies. ``elastic_step_fn()`` is one flagship replica's step for
+elastic.run_elastic, its gradients averaged with the epoch's bucketer.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import functools
 import math
+import os
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from gloo_tpu_torch.core import Context, Device, FileStore
+from gloo_tpu_torch.bootstrap import init_from_env
+from gloo_tpu_torch.checkpoint import StepCheckpointer
+from gloo_tpu_torch.core import (Aborted, Context, Device, FileStore,
+                                 IoError, TcpStore, TcpStoreServer)
 from gloo_tpu_torch.device import resolve_device
 from gloo_tpu_torch.models.transformer import (Transformer,
                                                TransformerConfig, _rmsnorm,
@@ -120,6 +132,12 @@ HIER_LOCAL = 2
 HOST_SEQS = 4
 # Seconds the host plane's rendezvous and collectives wait for a peer.
 HOST_TIMEOUT = 120.0
+# elastic_train_entry's checkpoints: one every ELASTIC_CKPT_EVERY steps,
+# the newest ELASTIC_KEEP kept; and the seed of its batches, 1234 + the
+# process's launch rank as in the reference's acceptance run.
+ELASTIC_CKPT_EVERY = 2
+ELASTIC_KEEP = 2
+ELASTIC_SEED = 1234
 
 
 def forward(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
@@ -176,6 +194,23 @@ def _lm_loss(model: Transformer, batch) -> torch.Tensor:
     return model.loss(tokens, targets)
 
 
+def _replicas(model: Transformer, count: int) -> List[Transformer]:
+    """model and count - 1 copies of it on its device."""
+    dev = next(model.parameters()).device
+    replicas = [model]
+    for _ in range(count - 1):
+        replica = Transformer(ENTRY_CONFIG, device=dev)
+        replica.load_state_dict(model.state_dict())
+        replicas.append(replica)
+    return replicas
+
+
+def _adam(models) -> list:
+    """An Adam at ADAM_SETTINGS for each model."""
+    return [torch.optim.Adam(m.parameters(), **ADAM_SETTINGS)
+            for m in models]
+
+
 def ddp_train_entry(device="cuda"):
     """Returns (step, (replicas, optimizers, (tokens, targets))) on
     `device`: a mesh {"data": DDP_WORLD} of ranks on that one device, one
@@ -186,13 +221,8 @@ def ddp_train_entry(device="cuda"):
     _, (model, tokens) = entry(device)
     dev = tokens.device
     mesh = make_mesh({"data": DDP_WORLD}, devices=[dev] * DDP_WORLD)
-    replicas = [model]
-    for _ in range(DDP_WORLD - 1):
-        replica = Transformer(ENTRY_CONFIG, device=dev)
-        replica.load_state_dict(model.state_dict())
-        replicas.append(replica)
-    optimizers = [torch.optim.Adam(m.parameters(), **ADAM_SETTINGS)
-                  for m in replicas]
+    replicas = _replicas(model, DDP_WORLD)
+    optimizers = _adam(replicas)
     step = make_ddp_train_step(_lm_loss, mesh, "data")
     return step, (replicas, optimizers, (tokens, _entry_targets(tokens)))
 
@@ -455,13 +485,8 @@ def hier_ddp_entry(rank: int, size: int, store_dir: str, device="cuda"):
     dev = resolve_device(device)
     _, (model, tokens) = entry(dev)
     batch = _host_part(rank, size, tokens)
-    replicas = [model]
-    for _ in range(HIER_LOCAL - 1):
-        replica = Transformer(ENTRY_CONFIG, device=dev)
-        replica.load_state_dict(model.state_dict())
-        replicas.append(replica)
-    optimizers = [torch.optim.Adam(m.parameters(), **ADAM_SETTINGS)
-                  for m in replicas]
+    replicas = _replicas(model, HIER_LOCAL)
+    optimizers = _adam(replicas)
     group = HierarchicalGroup(_host_context(rank, size, store_dir),
                               devices=[dev] * HIER_LOCAL)
     step = make_hierarchical_ddp(_lm_loss, group)
@@ -502,3 +527,173 @@ def host_ddp_entry(rank: int, size: int, store_dir: str, device="cuda",
 
     step.sync = sync
     return step, (model, optimizer, batch)
+
+
+def elastic_batch(launch_rank: int, step: int, device="cuda"):
+    """(tokens, targets) of one process at one step: HOST_SEQS sequences
+    of ENTRY_CONFIG.max_seq_len tokens (targets the next tokens), drawn on
+    the CPU from a torch.Generator seeded by (ELASTIC_SEED + launch_rank,
+    step), so that a step replayed after a resume sees the same batch.
+    Token k comes with probability proportional to 1 / (k + 1), a Zipf
+    law as in text, so that a few steps visibly lower the loss on batches
+    that are new at every step."""
+    cfg = ENTRY_CONFIG
+    # The CPU generator keeps 32 bits of its seed.
+    gen = torch.Generator().manual_seed(
+        (ELASTIC_SEED + launch_rank) * 1_000_003 + step)
+    zipf = 1.0 / torch.arange(1, cfg.vocab_size + 1, dtype=torch.float64)
+    seq = torch.multinomial(zipf, HOST_SEQS * (cfg.max_seq_len + 1),
+                            replacement=True, generator=gen)
+    seq = seq.view(HOST_SEQS, -1).to(torch.int32)
+    return (seq[:, :-1].contiguous().to(device),
+            seq[:, 1:].contiguous().to(device))
+
+
+@dataclasses.dataclass
+class ElasticTrainer:
+    """One process of the acceptance run (elastic_train_entry's result).
+
+    ctx: the host-plane Context (rank 0's process also holds the TcpStore
+    server, `server`); replicas and optimizers: HIER_LOCAL flagship
+    replicas on the card with an Adam each; step_fn: make_hierarchical_ddp
+    over ctx; checkpointer: the StepCheckpointer that rank 0 writes."""
+
+    ctx: Context
+    server: Optional[TcpStoreServer]
+    launch_rank: int
+    device: torch.device
+    replicas: List[Transformer]
+    optimizers: list
+    checkpointer: StepCheckpointer
+    step_fn: Callable
+
+    def batch(self, step: int):
+        return elastic_batch(self.launch_rank, step, self.device)
+
+    def step(self, step: int) -> torch.Tensor:
+        """The two-level step on this process's batch at `step`: the local
+        mean loss. An IoError means a peer died (rebuild, then restore)."""
+        return self.step_fn(self.replicas, self.optimizers, self.batch(step))
+
+    def state(self, step: int, local: int = 0) -> dict:
+        """What a checkpoint holds: local replica `local`'s and its
+        Adam's state_dicts (the live tensors) and the step; rank 0 saves
+        replica 0's."""
+        return {"model": self.replicas[local].state_dict(),
+                "adam": self.optimizers[local].state_dict(), "step": step}
+
+    def save(self, step: int) -> bool:
+        """Rank 0 saves state(step) every ELASTIC_CKPT_EVERY steps (a
+        replayed step replaces its checkpoint); True where it saved."""
+        if self.ctx.rank != 0 or step % ELASTIC_CKPT_EVERY:
+            return False
+        self.checkpointer.save(step, self.state(step), force=True)
+        return True
+
+    def store(self) -> TcpStore:
+        """A client of the launch's TcpStore (rank 0's server)."""
+        return TcpStore(os.environ.get("MASTER_ADDR", "127.0.0.1"),
+                        int(os.environ["MASTER_PORT"]))
+
+    def rebuild(self, generation: int, min_size: int = 2,
+                settle: float = 3.0) -> bool:
+        """After a failed step: close the poisoned context and form the
+        survivors' group with resilience.rebuild_after_failure through the
+        same store; the step then runs over the new context. False when
+        fewer than min_size processes are left."""
+        from gloo_tpu_torch.resilience import rebuild_after_failure
+
+        failed = self.ctx
+        failed.close()
+        ctx, _, _ = rebuild_after_failure(
+            self.store(), Device(), old_rank=failed.rank,
+            old_size=failed.size, generation=generation, settle=settle,
+            timeout=HOST_TIMEOUT, min_size=min_size, failed_context=failed)
+        if ctx is None:
+            return False
+        self.ctx = ctx
+        group = HierarchicalGroup(ctx, devices=self.step_fn.group.devices)
+        self.step_fn = make_hierarchical_ddp(_lm_loss, group)
+        return True
+
+    def restore(self):
+        """load_latest with the live state as the template (so the tensors
+        come back on the card), loaded into every replica and optimizer.
+        Returns (checkpoint step, loaded state), or (None, None)."""
+        at, state = self.checkpointer.load_latest(self.state(0))
+        if at is not None:
+            for model, opt in zip(self.replicas, self.optimizers):
+                model.load_state_dict(state["model"])
+                # load_state_dict adopts the tensors that need no cast:
+                # each optimizer gets its own copy of the moments.
+                opt.load_state_dict(copy.deepcopy(state["adam"]))
+        return at, state
+
+
+def elastic_train_entry(rank: int, size: int, ckpt_dir: str,
+                        device="cuda") -> ElasticTrainer:
+    """One process of the acceptance run at the flagship's width: process
+    `rank` of `size` joins through init_from_env (RANK and WORLD_SIZE are
+    these; MASTER_ADDR and MASTER_PORT come from the environment, and
+    rank 0 serves the TcpStore), holds HIER_LOCAL replicas of
+    train_entry()'s seed-0 model on `device`, each with an Adam at
+    ADAM_SETTINGS, and trains them with make_hierarchical_ddp on
+    elastic_batch(rank, step). Rank 0 checkpoints into `ckpt_dir` (a
+    directory every process sees) with StepCheckpointer(keep=
+    ELASTIC_KEEP). Each step launches B1 and B2 once per layer and local
+    rank, and B3 once."""
+    dev = resolve_device(device)
+    env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(size))
+    ctx, server = init_from_env(timeout=HOST_TIMEOUT, env=env)
+    _, (model, _) = entry(dev)
+    replicas = _replicas(model, HIER_LOCAL)
+    group = HierarchicalGroup(ctx, devices=[dev] * HIER_LOCAL)
+    return ElasticTrainer(
+        ctx=ctx, server=server, launch_rank=rank, device=dev,
+        replicas=replicas, optimizers=_adam(replicas),
+        checkpointer=StepCheckpointer(ckpt_dir, keep=ELASTIC_KEEP),
+        step_fn=make_hierarchical_ddp(_lm_loss, group))
+
+
+def elastic_step_fn(launch_rank: int, checkpointer: StepCheckpointer,
+                    device="cuda"):
+    """(step_fn, template) for elastic.run_elastic over one flagship
+    replica per process on `device` (train_entry()'s seed-0 model, Adam at
+    ADAM_SETTINGS).
+
+    step_fn(ectx, step, state) runs the forward and backward on
+    elastic_batch(launch_rank, step), averages the gradients over the
+    epoch's processes with ectx.bucketer(), steps the optimizer, and has the
+    epoch's rank 0 save {"model", "adam"} every ELASTIC_CKPT_EVERY steps;
+    it returns None. A state that run_elastic hands back after a rebuild
+    (a loaded checkpoint) is loaded into the model and the optimizer
+    first. template keeps the model's tensors on the card (Adam's state
+    is loaded as saved, then placed by load_state_dict). step_fn.model is
+    the replica."""
+    dev = resolve_device(device)
+    _, (model, _) = entry(dev)
+    optimizer = torch.optim.Adam(model.parameters(), **ADAM_SETTINGS)
+    params = list(model.parameters())
+
+    def step_fn(ectx, step, state):
+        if state is not None:
+            model.load_state_dict(state["model"])
+            optimizer.load_state_dict(state["adam"])
+        optimizer.zero_grad(set_to_none=True)
+        _lm_loss(model, elastic_batch(launch_rank, step, dev)).backward()
+        bucketer = ectx.bucketer()
+        for p in params:
+            bucketer.add(p.grad)
+        try:
+            bucketer.finish()
+        except (IoError, Aborted) as exc:
+            ectx.translate_failure(exc)  # EpochChanged, or exc again
+        optimizer.step()
+        if ectx.rank == 0 and step % ELASTIC_CKPT_EVERY == 0:
+            checkpointer.save(step, {"model": model.state_dict(),
+                                     "adam": optimizer.state_dict()},
+                              force=True)
+        return None
+
+    step_fn.model = model
+    return step_fn, {"model": model.state_dict(), "adam": None}

@@ -10,7 +10,9 @@ allgather) over a world of ranks on one card, 4 tensor parallelism
 (collective matmuls), 5 sequence and expert parallelism (ring-attention
 steps, all-to-all), 6 the ring allreduce variants (HBM-streaming,
 int8-wire, bidirectional). PRs 7-13 redesigned every first design for
-Hopper (PERF.md §6). B7a and B7b are one fused launch. The FSDP and
+Hopper (PERF.md §6). B7a and B7b are one fused launch. B9 and B11 take
+every dtype of ring.SUM_DTYPES, as B3 and B4a do; their status says so
+after the redesign. The FSDP and
 pipeline slice ports no kernel and adds launches of five: an
 FSDP step (parallel/fsdp.py) launches B4b and B4a once per leaf (the
 allgather and its VJP), B3 once (the loss mean) and B1 and B2 once per
@@ -63,13 +65,15 @@ KERNELS = (
            "ported: gloo_tpu_torch/csrc/ring.cu; redesigned, PR 8"),
     Kernel("B9", _R, "_ring_allreduce_hbm_kernel", 246, 440,
            "ring_allreduce_hbm",
-           "ported: gloo_tpu_torch/csrc/ring_variants.cu; redesigned, PR 9"),
+           "ported: gloo_tpu_torch/csrc/ring_variants.cu; redesigned, PR 9; "
+           "every dtype of SUM_DTYPES"),
     Kernel("B10", _R, "_ring_allreduce_q8_kernel", 485, 654,
            "ring_allreduce_q8",
            "ported: gloo_tpu_torch/csrc/ring_variants.cu; redesigned, PR 13"),
     Kernel("B11", _R, "_ring_allreduce_bidir_kernel", 691, 842,
            "ring_allreduce_bidir",
-           "ported: gloo_tpu_torch/csrc/ring_variants.cu; redesigned, PR 9"),
+           "ported: gloo_tpu_torch/csrc/ring_variants.cu; redesigned, PR 9; "
+           "every dtype of SUM_DTYPES"),
     Kernel("B4a", _R, "_ring_reduce_scatter_kernel", 876, 963,
            "ring_reduce_scatter",
            "ported: gloo_tpu_torch/csrc/ring.cu; redesigned, PR 8"),

@@ -35,10 +35,9 @@ B3, B4a, B9 and B11 do not walk the ring on the card: the rank that
 finishes a chunk reads it from every member of its ring in that same order
 and adds it up in one pass (csrc/ring.cu, csrc/ring_variants.cu; B11's
 right half in the mirrored ring's order, B9 through TMA bulk copies), so
-their sums are the twins' bit for bit. The sum kernels B3 and B4a take
-SUM_DTYPES on the card and on the CPU alike (the twins add uint16 and
-uint32 in a WIDENED type); B9 and B11 bf16 and f32, B10 f32. The
-allgather and the all-to-all move bytes only, in any dtype. The
+their sums are the twins' bit for bit. The sum kernels B3, B4a, B9 and
+B11 take SUM_DTYPES on the card and on the CPU alike (the twins add uint16
+and uint32 in a WIDENED type); B10 takes f32. The allgather and the all-to-all move bytes only, in any dtype. The
 allgather's kernel and twin push each rank's chunk once into the output
 of every member of its ring; the all-to-all's twin moves the split axis
 to the front, makes the TPU kernel's block copies and concatenates, while
@@ -62,10 +61,11 @@ if TYPE_CHECKING:
     # gloo_tpu_torch.tpu imports this module; the mesh is only read here.
     from gloo_tpu_torch.tpu.mesh import Axis, Mesh
 
-# Element types of the bf16/f32 kernels (B5a/B5b in overlap.py, B9, B11)
-# by csrc dtype code.
+# Element types of the bf16/f32 kernels (B5a/B5b in overlap.py) by csrc
+# dtype code.
 KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
-# Element types of the sum kernels B3 and B4a by csrc/ring.cu dtype code:
+# Element types of the sum kernels B3, B4a, B9 and B11 by csrc dtype code
+# (GTT_SUM_TYPES of csrc/ring_common.cuh):
 # one add per step in the type, as PyTorch adds on the CPU (bf16 and f16 in
 # f32 rounded once, integers wrapping in their own width). The twins refuse
 # the rest too.
@@ -639,7 +639,7 @@ def _allreduce_hbm(x: torch.Tensor, axis_name: Axis,
     n = _ring_size(x, axis_name, mesh)
     ranks, rows, cols = x.shape
     _check_rows(rows, n)
-    _check_dtype(x, KERNEL_DTYPES, "ring_allreduce_hbm")
+    _check_dtype(x, SUM_DTYPES, "ring_allreduce_hbm")
     if n == 1:
         return x
     if x.device.type == "cpu":
@@ -655,7 +655,7 @@ def _allreduce_hbm(x: torch.Tensor, axis_name: Axis,
         err = lib.gtt_ring_allreduce_hbm(
             xv.data_ptr(), out.data_ptr(), per_rank, flags.data_ptr(),
             stride, my, _members_table(mesh, axis_name), ranks, n, slices,
-            units, HBM_TILE_BYTES, HBM_STAGES, KERNEL_DTYPES[x.dtype],
+            units, HBM_TILE_BYTES, HBM_STAGES, SUM_DTYPES[x.dtype],
             _stream(x))
     _raise_on(err, "ring_allreduce_hbm", lib)
     ring_allreduce_hbm.launches += 1
@@ -667,7 +667,7 @@ def ring_allreduce_hbm(x: torch.Tensor, axis_name: Axis,
     """B9: the sum-allreduce of ring_allreduce, each member's tile of the
     chunk streamed through shared-memory stages by TMA bulk copies and the
     sums stored back by bulk copies. B3's add order, so its result is
-    bitwise B3's. bf16 or f32; rows % n == 0. Differentiable."""
+    bitwise B3's. SUM_DTYPES; rows % n == 0. Differentiable."""
     return _differentiable(_allreduce_hbm, x, axis_name, mesh)
 
 
@@ -793,7 +793,7 @@ def _allreduce_bidir(x: torch.Tensor, axis_name: Axis,
     if cols % 256:
         raise ValueError(f"the bidirectional split needs cols % 256 == 0; "
                          f"got {cols}")
-    _check_dtype(x, KERNEL_DTYPES, "ring_allreduce_bidir")
+    _check_dtype(x, SUM_DTYPES, "ring_allreduce_bidir")
     if x.device.type == "cpu":
         return ring_allreduce_bidir_plain(x, axis_name, mesh)
     xv = _vector_input(x, n)
@@ -811,7 +811,7 @@ def _allreduce_bidir(x: torch.Tensor, axis_name: Axis,
             xv.data_ptr(), out.data_ptr(), rows * cols * elt,
             flags.data_ptr(), stride, my, _members_table(mesh, axis_name),
             ranks, n, slices, chunk_rows, half_units,
-            KERNEL_DTYPES[x.dtype], _stream(x))
+            SUM_DTYPES[x.dtype], _stream(x))
     _raise_on(err, "ring_allreduce_bidir", lib)
     ring_allreduce_bidir.launches += 1
     return out
@@ -821,7 +821,7 @@ def ring_allreduce_bidir(x: torch.Tensor, axis_name: Axis,
                          mesh: Mesh) -> torch.Tensor:
     """B11: sum-allreduce on two counter-rotating rings: columns
     [0, cols/2) summed in B3's order, columns [cols/2, cols) in the
-    mirrored ring's. bf16 or f32; rows % n == 0 and cols % 256 == 0; a
+    mirrored ring's. SUM_DTYPES; rows % n == 0 and cols % 256 == 0; a
     ring of one returns x. Differentiable."""
     return _differentiable(_allreduce_bidir, x, axis_name, mesh)
 
@@ -833,19 +833,22 @@ def ring_allreduce_bidir_plain(x: torch.Tensor, axis_name: Axis,
                                mesh: Mesh) -> torch.Tensor:
     """B11's arithmetic in plain PyTorch: B3's walk on the left half, and
     on the right half B3's walk on the reversed ring (ring index -my,
-    receiving from the right) with chunk c' standing for chunk -c'."""
+    receiving from the right) with chunk c' standing for chunk -c'. uint16
+    and uint32 add in WIDENED's type and are cast back once, as B3's twin
+    does."""
     n = _ring_size(x, axis_name, mesh)
     ranks, rows, cols = x.shape
     _check_rows(rows, n)
     my, right, left = _ring_tables(mesh, axis_name, x.device)
     h = cols // 2
     mirror = (-torch.arange(n, device=x.device)) % n
-    o0 = x[..., :h].reshape(ranks, n, -1).clone()
-    o1 = x[..., h:].reshape(ranks, n, -1)[:, mirror].clone()
+    w = widened(x)
+    o0 = w[..., :h].reshape(ranks, n, -1).clone()
+    o1 = w[..., h:].reshape(ranks, n, -1)[:, mirror].clone()
     _b3_walk(o0, my, left, n)
     _b3_walk(o1, (-my) % n, right, n)
     return torch.cat([o0.view(ranks, rows, h),
-                      o1[:, mirror].reshape(ranks, rows, h)], -1)
+                      o1[:, mirror].reshape(ranks, rows, h)], -1).to(x.dtype)
 
 
 # ---- B8: the all-to-all ----

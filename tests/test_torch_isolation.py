@@ -34,6 +34,19 @@ def test_import_pulls_in_no_jax_and_no_gloo_tpu():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
+def test_recovery_modules_pull_in_no_jax_orbax_or_gloo_tpu():
+    code = (
+        "import json, sys\n"
+        "import gloo_tpu_torch.checkpoint, gloo_tpu_torch.resilience\n"
+        "import gloo_tpu_torch.elastic, gloo_tpu_torch.bootstrap\n"
+        "print(json.dumps(sorted(m for m in sys.modules if "
+        "m.split('.')[0] in ('jax', 'jaxlib', 'orbax', 'gloo_tpu'))))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_gloo_tpu_import_in_source(path):
@@ -47,18 +60,19 @@ def test_no_jax_or_gloo_tpu_import_in_source(path):
             continue
         for name in names:
             root = name.split(".")[0]
-            assert root not in ("jax", "jaxlib", "gloo_tpu"), (
+            assert root not in ("jax", "jaxlib", "orbax", "gloo_tpu"), (
                 f"{path.relative_to(REPO)}:{node.lineno} imports {name}")
 
 
 def test_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
     from gloo_tpu_torch import weights
     from gloo_tpu_torch.entry import (ENTRY_CONFIG, ddp_train_entry,
-                                      dp_tp_train_entry, entry, ep_entry,
-                                      fsdp_train_entry, hier_ddp_entry,
-                                      host_ddp_entry, pp_entry,
-                                      ring_variants_entry, sp_entry,
-                                      train_entry)
+                                      dp_tp_train_entry,
+                                      elastic_step_fn, elastic_train_entry,
+                                      entry, ep_entry, fsdp_train_entry,
+                                      hier_ddp_entry, host_ddp_entry,
+                                      pp_entry, ring_variants_entry,
+                                      sp_entry, train_entry)
     from gloo_tpu_torch.models import MLP, Transformer
     from gloo_tpu_torch.tpu import make_mesh
 
@@ -70,6 +84,8 @@ def test_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
                  pp_entry,
                  lambda: hier_ddp_entry(0, 1, str(tmp_path)),
                  lambda: host_ddp_entry(0, 1, str(tmp_path)),
+                 lambda: elastic_train_entry(0, 1, str(tmp_path)),
+                 lambda: elastic_step_fn(0, None),
                  lambda: Transformer(ENTRY_CONFIG),
                  lambda: MLP((4, 4)),
                  lambda: weights.transformer_params_from_numpy({}, None)):

@@ -7,11 +7,13 @@ Pallas kernels run as tests/test_pallas_ring.py runs them (shard_map over
 the first n CPU devices, interpret=True) on numpy inputs from a seed.
 
 Tolerance: none. B9 and B11 add in B3's order (B11's right half on the
-mirrored ring), one add per step in the input dtype. B10 is bitwise too:
-the interpreted reference computes its scale as max|chunk| * f32(1/127)
-(XLA's form of max / 127), divides by the scale truly, and accumulates
-o + q * scale with one rounding (an fma); the twin does the same, the fma
-as an f64 product and sum cast once to f32.
+mirrored ring), one add per step in the input dtype, at every dtype of
+ring.SUM_DTYPES (f64 and int64, which the reference cannot take with jax's
+x64 off, against B3's twin and numpy's fold in member order). B10 is
+bitwise too: the interpreted reference computes its scale as max|chunk| *
+f32(1/127) (XLA's form of max / 127), divides by the scale truly, and
+accumulates o + q * scale with one rounding (an fma); the twin does the
+same, the fma as an f64 product and sum cast once to f32.
 
 The dry run's shapes at n = 8 are held to their closed forms on the twins
 alone (the interpreter at n = 8 is slow). Tests marked `cuda` hold each
@@ -231,20 +233,118 @@ def test_wrappers_reject_what_jax_rejects(name, shape, dtype, error):
         _jax_ring(_jax_kernel(name), x)
 
 
+# ---- B9 and B11 at every sum dtype ----
+
+# The dtypes of ring.SUM_DTYPES that the interpreted JAX kernels take here
+# (jax's x64 is off, so not f64 and int64), by their torch dtype.
+JAX_SUM_TYPES = {torch.bfloat16: "bfloat16", torch.float16: np.float16,
+                 torch.float32: np.float32, torch.int8: np.int8,
+                 torch.uint8: np.uint8, torch.int16: np.int16,
+                 torch.uint16: np.uint16, torch.int32: np.int32,
+                 torch.uint32: np.uint32}
+COLS = {"hbm": 128, "bidir": 256}
+
+
+def _sum_input(np_dtype, shape, seed):
+    """Values that round (floats, at many magnitudes) or wrap (integers,
+    over the whole range of the type) when summed."""
+    rng = np.random.RandomState(seed)
+    if np_dtype == "bfloat16":
+        import ml_dtypes
+
+        return (rng.randn(*shape) * 64).astype(ml_dtypes.bfloat16)
+    if np.issubdtype(np_dtype, np.floating):
+        return (rng.randn(*shape) * 10.0 ** rng.randint(-2, 3, shape)) \
+            .astype(np_dtype)
+    info = np.iinfo(np_dtype)
+    return rng.randint(info.min, info.max, shape, dtype=np.int64) \
+        .astype(np_dtype)
+
+
+def _member_order_sum(x, direction):
+    """numpy's model of the member-order fold, x (n, rows, cols): chunk c
+    is in_c[c], then + in_{c+1}[c], + in_{c+2}[c], ... in B3's order
+    (direction 1) or + in_{c-1}[c], + in_{c-2}[c], ... in the mirrored
+    ring's (direction -1); every rank holds the whole sum."""
+    n, rows, cols = x.shape
+    chunks = x.reshape(n, n, rows // n, cols)
+    out = np.empty_like(chunks[0])
+    for c in range(n):
+        acc = chunks[c, c].copy()
+        for k in range(1, n):
+            acc = chunks[(c + direction * k) % n, c] + acc
+        out[c] = acc
+    return np.broadcast_to(out.reshape(rows, cols), x.shape)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("dtype", list(JAX_SUM_TYPES), ids=str)
+@pytest.mark.parametrize("name", ["hbm", "bidir"])
+def test_hbm_and_bidir_match_jax_kernels_at_every_dtype(name, dtype, n):
+    """The twins of B9 and B11 bitwise against the interpreted JAX
+    kernels at each sum dtype the reference takes here."""
+    if dtype == torch.bfloat16:
+        pytest.importorskip("ml_dtypes")
+    x = _sum_input(JAX_SUM_TYPES[dtype], (n, n * 8, COLS[name]),
+                   n + 7 * list(JAX_SUM_TYPES).index(dtype))
+    ref = _jax_ring(_jax_kernel(name), x)
+    ours = torch.from_numpy(x.astype(np.float32)).bfloat16() \
+        if dtype == torch.bfloat16 else torch.from_numpy(x)
+    out = VARIANTS[name](ours, "x", _cpu_mesh(n))
+    assert out.dtype == dtype
+    if dtype == torch.bfloat16:
+        np.testing.assert_array_equal(out.float().numpy(),
+                                      ref.astype(np.float32))
+    else:
+        np.testing.assert_array_equal(out.numpy(), ref)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.int64], ids=str)
+@pytest.mark.parametrize("name", ["hbm", "bidir"])
+def test_hbm_and_bidir_at_f64_and_int64(name, dtype, n):
+    """f64 and int64, which the reference cannot take here: bitwise B3's
+    twin (B9; B11's left half) and numpy's member-order fold (B11's right
+    half in the mirrored ring's order)."""
+    np_dtype = np.float64 if dtype == torch.float64 else np.int64
+    cols = COLS[name]
+    x = _sum_input(np_dtype, (n, n * 8, cols), n)
+    mesh = _cpu_mesh(n)
+    out = VARIANTS[name](torch.from_numpy(x), "x", mesh)
+    assert out.dtype == dtype
+    b3 = ring.ring_allreduce_plain(torch.from_numpy(x), "x", mesh).numpy()
+    if name == "hbm":
+        np.testing.assert_array_equal(out.numpy(), b3)
+        np.testing.assert_array_equal(out.numpy(), _member_order_sum(x, 1))
+        return
+    h = cols // 2
+    np.testing.assert_array_equal(out[..., :h].numpy(), b3[..., :h])
+    np.testing.assert_array_equal(out[..., :h].numpy(),
+                                  _member_order_sum(x[..., :h], 1))
+    np.testing.assert_array_equal(out[..., h:].numpy(),
+                                  _member_order_sum(x[..., h:], -1))
+
+
 @pytest.mark.parametrize("name", ["hbm", "bidir"])
 @pytest.mark.parametrize("device", ["cpu", "meta"])
-def test_hbm_and_bidir_take_bf16_and_f32_on_every_device(name, device):
-    """The same TypeError on the CPU and on the card path (a meta tensor
-    goes the card's way and stops at the missing nvcc) before any work."""
+def test_hbm_and_bidir_take_sum_dtypes_on_every_device(name, device):
+    """B9 and B11 take every dtype of SUM_DTYPES on the CPU and on the
+    card's path (a meta tensor goes the card's way and, past the dtype
+    check, stops at the missing nvcc), and refuse the rest with the same
+    TypeError on both, before any work."""
     mesh = make_mesh({"x": 2}, devices=[device] * 2)
-    for dtype in (torch.float16, torch.float64, torch.int32):
-        with pytest.raises(TypeError, match="bfloat16, float32"):
+    for dtype in ring.SUM_DTYPES:
+        x = torch.ones((2, 4, 256), dtype=dtype, device=device)
+        if device == "meta":
+            with pytest.raises(RuntimeError, match="nvcc"):
+                VARIANTS[name](x, "x", mesh)
+        else:
+            assert torch.equal(VARIANTS[name](x, "x", mesh),
+                               torch.full_like(x, 2))
+    for dtype in (torch.bool, torch.uint64, torch.complex64):
+        with pytest.raises(TypeError, match="bfloat16, float32, float16"):
             VARIANTS[name](torch.zeros((2, 4, 256), dtype=dtype,
                                        device=device), "x", mesh)
-    if device == "meta":
-        with pytest.raises(RuntimeError, match="nvcc"):
-            VARIANTS[name](torch.zeros((2, 4, 256), device=device), "x",
-                           mesh)
 
 
 def test_twins_count_no_launches_and_walk_a_2x2_mesh():
@@ -336,6 +436,36 @@ def test_kernels_match_twins_on_card(cuda_device, name, axes, axis, per,
         assert torch.equal(out, want)
     if name == "hbm":
         assert torch.equal(out, ring.ring_allreduce(x, axis, mesh))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", list(ring.SUM_DTYPES), ids=str)
+@pytest.mark.parametrize("name", ["hbm", "bidir"])
+def test_kernels_match_twins_at_every_sum_dtype_on_card(cuda_device, name,
+                                                        dtype):
+    """Each code of SUM_DTYPES, bitwise the twin (on a CPU copy) and
+    bitwise B3 (B9; B11's left half), three calls in a row."""
+    mesh = make_mesh({"x": 4}, devices=[cuda_device] * 4)
+    cols = COLS[name]
+    if dtype.is_floating_point:
+        x = torch.randn((4, 64, cols), device=cuda_device).to(dtype)
+    else:
+        bits = 31 if dtype in (torch.int64, torch.uint32) else \
+            torch.iinfo(dtype).bits - 1
+        x = torch.randint(0, 2 ** bits, (4, 64, cols), dtype=torch.int64,
+                          device=cuda_device).to(dtype)
+    cpu = _cpu_mesh(4)
+    want = VARIANTS[name](x.cpu(), "x", cpu)
+    fn = VARIANTS[name]
+    for _ in range(3):
+        before = fn.launches
+        out = fn(x, "x", mesh)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        assert out.dtype == dtype and torch.equal(out.cpu(), want)
+    h = cols if name == "hbm" else cols // 2
+    assert torch.equal(out[..., :h], ring.ring_allreduce(
+        x[..., :h].contiguous(), "x", mesh))
 
 
 @pytest.mark.cuda
