@@ -162,7 +162,7 @@ Phases, each of which raises on failure:
      worker processes (init_from_env, rank 0 serving the TcpStore; 2
      local ranks each, make_hierarchical_ddp, Adam), rank 0 checkpointing
      every 2 steps with its state's sha256 in the store; launch rank 2
-     SIGKILLs itself at step 3 (the one exit allowed other than 0); the
+     SIGKILLs itself at step 4 (the one exit allowed other than 0); the
      survivors rebuild with rebuild_after_failure, restore with
      load_latest onto the card (sha256 equal to rank 0's) and train to
      step 8 with (B1, B2, B3) = (4, 4, 1) launches per step, a loss at
@@ -171,7 +171,18 @@ Phases, each of which raises on failure:
      (gradients through the epoch's bucketer, the port's
      StepCheckpointer), the same kill: one rebuild, a final size of 2,
      bitwise-equal parameters; the rebuild, save, load_latest and first
-     resumed step's ms are printed.
+     resumed step's ms are printed;
+ 30. the rest of the host plane's Context surface in SURFACE_RANKS (3)
+     worker processes: reduce (sum, max), gather, gatherv and scatter at
+     every root, allgatherv and alltoallv with uneven counts holding a 0,
+     alltoall, allreduce_multi of three tensors, reduce_scatter_inplace,
+     allgather and reduce_scatter into output=, the async reduce-scatter
+     and allgather, send/recv once around the ring, each plan replayed
+     PLAN_REPLAYS times, and on f32 a callable sum and q8 encode/decode,
+     on CUDA tensors of STAGE_DTYPES x STAGE_BYTES for HOST_ROUNDS rounds,
+     each on cuda and bitwise equal to the same call on a CPU copy; then
+     each call's host-clock ms at 16 MiB of f32 (a median of 10) and each
+     plan's replay against its per-call form, in turns.
 The line before the last is the JSON list of kernels; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or gloo_tpu.
 """
@@ -2721,8 +2732,235 @@ def worker_run_elastic(rank, size, store, device="cuda"):
             "params": digest(step_fn.model.parameters())}
 
 
+# ---- phase 30: the rest of the Context surface, three processes ----
+# SURFACE_RANKS processes (a group size that is not a power of two) run
+# every call of the rest of the host plane's Context surface on CUDA
+# tensors of STAGE_DTYPES x STAGE_BYTES, each bitwise against the same
+# call on a CPU copy, for HOST_ROUNDS rounds; then the host-clock ms per
+# call at SURFACE_TIME_BYTES of f32, a median of SURFACE_TIME_ITERS calls.
+SURFACE_RANKS = 3
+PLAN_REPLAYS = 5
+SURFACE_TIME_BYTES = 16 << 20
+SURFACE_TIME_ITERS = 10
+
+
+def split_counts(n, size, shift):
+    """n elements split over `size` ranks unevenly, one rank taking 0,
+    rotated by `shift`."""
+    parts = [0] + [n * k // (size - 1) - n * (k - 1) // (size - 1)
+                   for k in range(1, size)]
+    return parts[shift % size:] + parts[:shift % size]
+
+
+def surface_calls(ctx, engine, n, dtype):
+    """(label, call) of every call the phase checks, for tensors of n
+    elements: call(t) takes the rank's input (on the card or a CPU copy)
+    and returns a tensor, a list of tensors, or None off root."""
+    from gloo_tpu_torch import core
+
+    size, rank = ctx.size, ctx.rank
+    counts = split_counts(n, size, 0)
+    in_counts = split_counts(n, size, rank)
+    out_counts = [split_counts(n, size, r)[rank] for r in range(size)]
+    rows = n // size * size
+    calls = []
+    for root in range(size):
+        calls += [
+            (f"reduce sum root {root}",
+             lambda t, root=root: ctx.reduce(t, root=root, tag=1)),
+            (f"reduce max root {root}",
+             lambda t, root=root: ctx.reduce(t, root=root, op="max", tag=2)),
+            (f"gather root {root}",
+             lambda t, root=root: ctx.gather(t, root=root, tag=3)),
+            (f"gatherv root {root}", lambda t, root=root: ctx.gatherv(
+                t[:counts[rank]], counts, root=root, tag=4)),
+            (f"scatter root {root}", lambda t, root=root: ctx.scatter(
+                t[:rows].view(size, -1) if rank == root else None,
+                root=root, output=None if rank == root else torch.empty(
+                    rows // size, dtype=t.dtype, device=t.device), tag=5))]
+    calls += [
+        ("allgatherv", lambda t: ctx.allgatherv(t[:counts[rank]], counts,
+                                                tag=6)),
+        ("alltoall", lambda t: ctx.alltoall(t[:rows].view(size, -1), tag=7)),
+        ("alltoallv", lambda t: ctx.alltoallv(t, in_counts, out_counts,
+                                              tag=8)),
+        ("allreduce_multi", lambda t: ctx.allreduce_multi(
+            [t, t * 2, t.flip(0)], tag=9)),
+        ("reduce_scatter_inplace", lambda t: ctx.reduce_scatter_inplace(
+            t[:rows], tag=10).clone()),
+        ("allgather output=", lambda t: ctx.allgather(
+            t, output=torch.empty(size * n, dtype=t.dtype, device=t.device),
+            tag=11)),
+        ("reduce_scatter output=", lambda t: ctx.reduce_scatter(
+            t[:rows], output=torch.empty(rows // size, dtype=t.dtype,
+                                         device=t.device), tag=12)),
+        ("reduce_scatter async", lambda t: engine.reduce_scatter_async(
+            t[:rows]).wait()),
+        ("allgather async", lambda t: engine.allgather_async(t).wait()),
+        ("send/recv ring", lambda t: ring_pass(ctx, t))]
+    if dtype == torch.float32:
+        calls += [
+            ("callable sum", lambda t: ctx.allreduce(
+                t, op=lambda acc, inp: acc.add_(inp), tag=13)),
+            ("q8 encode", lambda t: q8_fresh(ctx, core.q8_encode, t)),
+            ("q8 decode", lambda t: q8_fresh(
+                ctx, lambda w: core.q8_decode(w, n), core.q8_encode(t)))]
+    return calls
+
+
+def ring_pass(ctx, t):
+    """`t` once around the ring: rank 0 sends to rank 1 first, each other
+    rank receives from its left, then sends on; returns what arrived."""
+    got = torch.empty_like(t)
+    right, left = (ctx.rank + 1) % ctx.size, (ctx.rank - 1) % ctx.size
+    if ctx.rank == 0:
+        ctx.send(t, right, slot=20)
+        ctx.recv(got, left, slot=20)
+    else:
+        ctx.recv(got, left, slot=20)
+        ctx.send(t, right, slot=20)
+    return got
+
+
+def q8_fresh(ctx, fn, t):
+    """A q8 call after the plan cache is cleared on every rank (ROADMAP.md
+    C.7: the q8 wire gives other bits on a reused native plan)."""
+    ctx.plan_cache_clear()
+    ctx.barrier()
+    return fn(t)
+
+
+def as_list(result):
+    return result if isinstance(result, list) else [result]
+
+
+def median_call_ms(ctx, *fns, iters=SURFACE_TIME_ITERS):
+    """Median host-clock ms of `iters` calls of each of `fns`, each call
+    entered after a barrier and ended by a synchronize of the card; the
+    functions take turns, in an order reversed every round."""
+    for fn in fns:
+        fn()
+    times = [[] for _ in fns]
+    for i in range(iters):
+        order = range(len(fns)) if i % 2 == 0 else reversed(range(len(fns)))
+        for k in order:
+            ctx.barrier()
+            t0 = time.perf_counter()
+            fns[k]()
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t0) * 1e3)
+    return [float(np.median(t)) for t in times]
+
+
+def worker_surface(rank, size, store, device="cuda"):
+    """Phase 30 on one rank: every call of surface_calls and each plan's
+    PLAN_REPLAYS replays on CUDA tensors, bitwise against the same call on
+    a CPU copy, for HOST_ROUNDS rounds; then their times."""
+    ctx = host_context(rank, size, store)
+    engine = ctx.async_engine(lanes=2)
+    gen = torch.Generator().manual_seed(3000 + rank)
+    wrong, cases = [], 0
+
+    def check(label, got, want):
+        nonlocal cases
+        cases += 1
+        got, want = as_list(got), as_list(want)
+        if len(got) != len(want) or any(
+                (g is None) != (w is None) or (g is not None and (
+                    g.device.type != torch.device(device).type
+                    or not same_bits(g.cpu(), w)))
+                for g, w in zip(got, want)):
+            wrong.append(label)
+
+    for round_ in range(HOST_ROUNDS):
+        for dtype in STAGE_DTYPES:
+            for nbytes in STAGE_BYTES:
+                x = stage_input(dtype, nbytes, gen)
+                n = x.numel()
+                tag = f"round {round_} {dtype} {nbytes} B"
+                for label, call in surface_calls(ctx, engine, n, dtype):
+                    check(f"{tag} {label}", call(x.to(device, copy=True)),
+                          call(x.clone()))
+                rows = n // size * size
+                on_card = x.to(device, copy=True)
+                plans = {
+                    "allreduce_plan": (ctx.allreduce_plan(on_card, tag=14),
+                                       lambda t: ctx.allreduce(t, tag=15)),
+                    "reduce_scatter_plan": (
+                        ctx.reduce_scatter_plan(on_card[:rows], tag=16),
+                        lambda t: ctx.reduce_scatter(t[:rows], tag=17)),
+                    "allgather_plan": (ctx.allgather_plan(on_card, tag=18),
+                                       lambda t: ctx.allgather(t, tag=19))}
+                for replay in range(PLAN_REPLAYS):
+                    fresh = stage_input(dtype, nbytes, gen)
+                    for label, (plan, per_call) in plans.items():
+                        on_card.copy_(fresh)
+                        check(f"{tag} {label} replay {replay}", plan(),
+                              per_call(fresh.clone()))
+    ctx.barrier()
+
+    # Times at SURFACE_TIME_BYTES of f32 on the card.
+    x = stage_input(torch.float32, SURFACE_TIME_BYTES, gen).to(device)
+    n = x.numel()
+    times = {label: median_call_ms(ctx, lambda call=call: call(x.clone()))[0]
+             for label, call in surface_calls(ctx, engine, n, torch.float32)
+             if "root" not in label or label.endswith("root 0")}
+    rows = n // size * size
+    plan_times = {}
+    for label, plan, per_call in (
+            ("allreduce", ctx.allreduce_plan(x, tag=14),
+             lambda: ctx.allreduce(x, tag=15)),
+            ("reduce_scatter", ctx.reduce_scatter_plan(x[:rows], tag=16),
+             lambda: ctx.reduce_scatter(x[:rows], tag=17)),
+            ("allgather", ctx.allgather_plan(x, tag=18),
+             lambda: ctx.allgather(x, tag=19))):
+        plan_times[label] = median_call_ms(ctx, plan, per_call)
+    ctx.barrier()
+    engine.shutdown()
+    ctx.close()
+    return {"cases": cases, "wrong": wrong, "times": times,
+            "plan_times": plan_times, "bytes": x.numel() * 4}
+
+
+def surface_phase(card):
+    """Phase 30: the rest of the Context surface in SURFACE_RANKS
+    processes on the card."""
+    t0 = time.perf_counter()
+    res = run_workers("30", size=SURFACE_RANKS)
+    wall = time.perf_counter() - t0
+    cases = sum(r["cases"] for r in res)
+    wrong = [w for r in res for w in r["wrong"]]
+    print(f"rest of the Context surface on CUDA tensors ({SURFACE_RANKS} "
+          f"processes on the card, {HOST_ROUNDS} rounds, {wall:.1f} s): "
+          f"{cases} calls of reduce sum/max, gather, gatherv, scatter at "
+          f"every root, allgatherv, alltoall, alltoallv (uneven counts "
+          f"with a 0), allreduce_multi, reduce_scatter_inplace, output=, "
+          f"the async reduce-scatter and allgather, send/recv around the "
+          f"ring, a callable sum and q8 encode/decode on f32, and "
+          f"{PLAN_REPLAYS} replays of each plan, at f32/bf16/int32 x "
+          f"{STAGE_BYTES} bytes, against the same calls on CPU copies: "
+          f"{'all bitwise equal and on cuda' if not wrong else 'DIFFER ' + str(wrong[:20])}")
+    if wrong:
+        raise AssertionError(f"phase 30: staged calls differ from the CPU "
+                             f"calls: {wrong[:20]}")
+    nbytes = res[0]["bytes"]
+    print(f"host-clock ms per call at {nbytes} bytes of f32 on the card, "
+          f"median of {SURFACE_TIME_ITERS}, processes 0/1/2 [{card}]:")
+    for label in res[0]["times"]:
+        print(f"  {label}: " + " / ".join(
+            f"{r['times'][label]:.3f}" for r in res))
+    print(f"plan replay vs per-call ms at {nbytes} bytes of f32, median of "
+          f"{SURFACE_TIME_ITERS} in turns, processes 0/1/2 [{card}]:")
+    for label in res[0]["plan_times"]:
+        print(f"  {label}: plan " + " / ".join(
+            f"{r['plan_times'][label][0]:.3f}" for r in res) + ", per call "
+            + " / ".join(f"{r['plan_times'][label][1]:.3f}" for r in res))
+    return res
+
+
 WORKERS = {"26": worker_staging, "27": worker_host_sync, "28": worker_hier,
-           "29": worker_elastic, "29b": worker_run_elastic}
+           "29": worker_elastic, "29b": worker_run_elastic,
+           "30": worker_surface}
 
 
 def host_phases(card):
@@ -3606,6 +3844,10 @@ def main():
 
     # Phase 29: elastic acceptance on the card.
     elastic_phase(card)
+
+    # Phase 30: the rest of the host plane's Context surface in three
+    # processes on the card.
+    surface_phase(card)
 
     # Launches on the main paths: B1 on the serving path, B2 on the
     # training path, B3 on the DDP path, B4a and B4b on the group path,

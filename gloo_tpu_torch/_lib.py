@@ -93,10 +93,53 @@ _PROTOTYPES = {
     "tc_allgather": (_int, [_c, _c, _c, _sz, _int, _int, _u32, _i64]),
     "tc_reduce_scatter": (_int, [_c, _c, _c, ctypes.POINTER(_sz), _int,
                                  _int, _int, _u32, _i64]),
+    "tc_reduce_scatter_inplace": (_int, [_c, _c, ctypes.POINTER(_sz),
+                                         _int, _int, _int, _u32, _i64]),
+    "tc_allreduce_multi": (_int, [_c, ctypes.POINTER(_c),
+                                  ctypes.POINTER(_c), _sz, _sz, _int,
+                                  _int, _int, _u32, _i64]),
+    "tc_reduce": (_int, [_c, _c, _c, _sz, _int, _int, _int, _int, _u32,
+                         _i64]),
+    "tc_gather": (_int, [_c, _c, _c, _sz, _int, _int, _u32, _i64]),
+    "tc_gatherv": (_int, [_c, _c, _c, ctypes.POINTER(_sz), _int, _int,
+                          _u32, _i64]),
+    "tc_scatter": (_int, [_c, _c, _c, _sz, _int, _int, _u32, _i64]),
+    "tc_allgatherv": (_int, [_c, _c, _c, ctypes.POINTER(_sz), _int, _u32,
+                             _i64]),
+    "tc_alltoall": (_int, [_c, _c, _c, _sz, _int, _u32, _i64]),
+    "tc_alltoallv": (_int, [_c, _c, ctypes.POINTER(_sz), _c,
+                            ctypes.POINTER(_sz), _int, _u32, _i64]),
+    # callable reductions: the _c before the algorithm is the C ReduceFn
+    "tc_allreduce_fn": (_int, [_c, _c, _c, _sz, _int, _c, _int, _u32,
+                               _i64]),
+    "tc_allreduce_multi_fn": (_int, [_c, ctypes.POINTER(_c),
+                                     ctypes.POINTER(_c), _sz, _sz, _int,
+                                     _c, _int, _u32, _i64]),
+    "tc_reduce_fn": (_int, [_c, _c, _c, _sz, _int, _c, _int, _int, _u32,
+                            _i64]),
+    "tc_reduce_scatter_fn": (_int, [_c, _c, _c, ctypes.POINTER(_sz), _int,
+                                    _c, _int, _u32, _i64]),
+    # persistent plans
+    "tc_plan_cache_size": (_sz, [_c]),
     "tc_plan_cache_clear": (None, [_c]),
-    # metrics and flight recorder
+    # int8 and int4 block-quantized wire codecs
+    "tc_q8_block": (_sz, []),
+    "tc_q8_wire_bytes": (_sz, [_sz]),
+    "tc_q8_encode": (_int, [_c, _sz, _c, _sz]),
+    "tc_q8_decode": (_int, [_c, _sz, _c, _sz]),
+    "tc_q4_block": (_sz, []),
+    "tc_q4_wire_bytes": (_sz, [_sz]),
+    "tc_q4_encode": (_int, [_c, _sz, _c, _sz]),
+    "tc_q4_decode": (_int, [_c, _sz, _c, _sz]),
+    "tc_codec_threads": (_int, []),
+    "tc_codec_pipeline": (_int, []),
+    # metrics, straggler watchdog and flight recorder
+    "tc_metrics_enable": (None, [_c, _int]),
+    "tc_metrics_enabled": (_int, [_c]),
+    "tc_metrics_set_watchdog": (None, [_c, _i64]),
     "tc_metrics_json": (_int, [_c, _int, *_bytes_out]),
     "tc_flightrec_json": (_int, [_c, *_bytes_out]),
+    "tc_flightrec_dump": (_int, [_c, ctypes.c_char_p]),
     "tc_flightrec_seq": (_u64, [_c]),
     # async engine and work handles
     "tc_async_new": (_c, [_c, _int, _u32]),
@@ -104,9 +147,32 @@ _PROTOTYPES = {
     "tc_async_free": (None, [_c]),
     "tc_async_allreduce_inplace": (_c, [_c, _c, _sz, _int, _int, _int,
                                         _i64]),
+    "tc_async_reduce_scatter": (_c, [_c, _c, _c, ctypes.POINTER(_sz),
+                                     _int, _int, _int, _int, _i64]),
+    "tc_async_allgather": (_c, [_c, _c, _c, _sz, _int, _int, _i64]),
     "tc_work_wait": (_int, [_c, _i64]),
     "tc_work_status": (_int, [_c]),
+    "tc_work_error_message": (_int, [_c, *_bytes_out]),
     "tc_work_free": (None, [_c]),
+    # point-to-point buffers and one-sided put/get
+    "tc_next_slot": (_u64, [_c, _u32]),
+    "tc_buffer_new": (_c, [_c, _c, _sz]),
+    "tc_buffer_free": (None, [_c]),
+    "tc_buffer_send": (_int, [_c, _int, _u64, _sz, _sz]),
+    "tc_buffer_recv": (_int, [_c, _int, _u64, _sz, _sz]),
+    "tc_buffer_recv_any": (_int, [_c, ctypes.POINTER(_int), _sz, _u64, _sz,
+                                  _sz]),
+    "tc_buffer_wait_send": (_int, [_c, _i64]),
+    "tc_buffer_wait_recv": (_int, [_c, _i64, ctypes.POINTER(_int)]),
+    "tc_buffer_wait_put": (_int, [_c, _i64, ctypes.POINTER(_int)]),
+    "tc_remote_key_size": (_sz, []),
+    "tc_buffer_remote_key": (_int, [_c, ctypes.c_char_p, _sz]),
+    "tc_buffer_put": (_int, [_c, ctypes.c_char_p, _sz, _sz, _sz, _sz,
+                             _int]),
+    "tc_buffer_get": (_int, [_c, ctypes.c_char_p, _sz, _u64, _sz, _sz,
+                             _sz]),
+    "tc_buffer_abort_wait_send": (None, [_c]),
+    "tc_buffer_abort_wait_recv": (None, [_c]),
     # elastic membership plane (lease liveness, epoch transitions)
     "tc_elastic_new": (_c, [_c, _c, _int, _int, _int, _int,
                             ctypes.c_char_p, _i64]),

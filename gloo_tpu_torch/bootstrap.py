@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import os
 import socket
+from typing import Optional
 
 from gloo_tpu_torch.core import (Context, Device, PrefixStore, TcpStore,
                                  TcpStoreServer)
@@ -70,13 +71,16 @@ def _mpi_endpoint(env_rank: int, host: str, port: int):
     return next((v for v in vals if v is not None), None)
 
 
-def init_from_env(timeout: float = 30.0, env=None):
-    """Connect a full-mesh Context from launcher environment variables.
+def init_from_env(device: Optional[Device] = None, timeout: float = 30.0,
+                  prefix: str = "tc-env", env=None):
+    """Connect a full-mesh Context from launcher environment variables,
+    over `device` (default: a new Device on this rank's bind address),
+    with its rendezvous keys under `prefix`.
 
     Returns (context, store_server): store_server is the rank-0-owned
     TcpStoreServer (None elsewhere) — keep it referenced for the life
     of the job; later contexts can rendezvous through the same server
-    under another key prefix than this one's "tc-env". Raises
+    (a TcpStore at MASTER_ADDR:MASTER_PORT) under another prefix. Raises
     RuntimeError outside a recognized launcher (no silent single-rank
     fallback: a rank that missed its launcher vars would otherwise split
     the job into broken islands).
@@ -110,9 +114,11 @@ def init_from_env(timeout: float = 30.0, env=None):
         if ep is not None:
             dial_host, port = ep
 
-    store = PrefixStore(TcpStore(dial_host, port), "tc-env")
+    store = PrefixStore(TcpStore(dial_host, port), prefix)
+    dev = device if device is not None else Device(
+        hostname=_bind_host(env, dial_host))
     ctx = Context(rank, size, timeout=timeout)
-    ctx.connect_full_mesh(store, Device(hostname=_bind_host(env, dial_host)))
+    ctx.connect_full_mesh(store, dev)
     return ctx, server
 
 

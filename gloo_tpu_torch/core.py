@@ -1,21 +1,24 @@
-"""Host data plane over torch tensors: stores, devices, contexts and the
-collectives of the C++ core.
+"""Host data plane over torch tensors: stores, devices, contexts, the
+collectives of the C++ core, point-to-point buffers, persistent plans and
+the wire codecs.
 
-Counterpart of gloo_tpu/core.py (the part the port needs), with torch
-tensors standing in for numpy arrays. A CPU tensor is reduced in place,
-with no copy: its ``data_ptr()`` goes to the native call. A CUDA tensor is
+Counterpart of gloo_tpu/core.py's tensor-taking surface, with torch
+tensors standing in for numpy arrays. A CPU tensor goes to the native call
+in place, with no copy: its ``data_ptr()`` is the pointer. A CUDA tensor is
 staged through pinned host memory, the role of the reference's host
-workspace (``CudaHostPointer``, gloo/cuda_collectives_host.h): a pinned
-buffer from the context's pool (keyed by dtype and length, so the native
-plan cache sees a stable pointer) takes a device-to-host copy, the tensor's
-stream is synchronized, the native collective runs on the buffer, and a
-host-to-device copy brings the result back on the input's device. The
-buffer goes back to the pool with an event recorded after that copy, and
-is not handed out again before the event has completed.
+workspace (``CudaHostPointer``, gloo/cuda_collectives_host.h): each CUDA
+tensor a call reads is copied into a pinned buffer from the context's pool
+(keyed by dtype and length, so the native plan cache sees a stable
+pointer), the tensors' streams are synchronized, the native call runs on
+the buffers, and a host-to-device copy brings each result back on the
+input's device. A buffer that took such a copy goes back to the pool with
+an event recorded after it, and is not handed out again before the event
+has completed. There is no fallback: a result is never left on the CPU
+for a CUDA input.
 
 Every collective must be entered by every rank with matching arguments,
 as in the reference; concurrent collectives on one context need distinct
-tags.
+tags. ``timeout=None`` takes the context's timeout.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from gloo_tpu_torch._lib import (Aborted, Error, IoError, TimeoutError,
 __all__ = [
     "Aborted",
     "AsyncEngine",
+    "CollectivePlan",
     "Context",
     "Device",
     "Error",
@@ -47,7 +51,18 @@ __all__ = [
     "TcpStore",
     "TcpStoreServer",
     "TimeoutError",
+    "UnboundBuffer",
     "Work",
+    "codec_pipeline",
+    "codec_threads",
+    "q4_block",
+    "q4_decode",
+    "q4_encode",
+    "q4_wire_bytes",
+    "q8_block",
+    "q8_decode",
+    "q8_encode",
+    "q8_wire_bytes",
 ]
 
 # The native dtype codes (gloo_tpu/core.py:55-66). bfloat16 is its own code,
@@ -82,27 +97,118 @@ class ReduceOp:
         return int(op)
 
 
+_REDUCE_CFUNC = ctypes.CFUNCTYPE(None, ctypes.c_void_p, ctypes.c_void_p,
+                                 ctypes.c_size_t)
+
+
+def _wrap_reduce_fn(fn, dtype: torch.dtype):
+    """Wrap a Python accumulate callable as the C ReduceFn ABI.
+
+    `fn(acc, inp)` receives two length-n CPU tensors of the collective's
+    dtype, viewing the native buffers, and must write the combined result
+    into `acc` in place. For a CUDA input these are views of the pinned
+    buffers the call is staged through; the callable may run on a native
+    thread and must not touch CUDA. The operation must be commutative and
+    associative: the schedules apply it in rank-dependent orders.
+
+    An exception raised inside `fn` cannot cross the C boundary
+    mid-collective (the segment is left unreduced, and peers may receive
+    it), so the first one is captured and re-raised to this caller after
+    the collective returns: treat it as poisoning the result on all ranks.
+    Returns (the CFUNCTYPE object, which the caller keeps alive for the
+    whole call; its address; raise_pending, to call after the C call).
+    """
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    pending = []
+
+    def view(ptr, n):
+        if n == 0:
+            return torch.empty(0, dtype=dtype)
+        return torch.frombuffer(
+            (ctypes.c_char * (n * itemsize)).from_address(ptr), dtype=dtype)
+
+    def thunk(acc_ptr, in_ptr, n):
+        try:
+            fn(view(acc_ptr, int(n)), view(in_ptr, int(n)))
+        except BaseException as e:  # noqa: BLE001 - must not cross C frame
+            if not pending:
+                pending.append(e)
+
+    def raise_pending():
+        if pending:
+            raise Error(
+                "custom reduction callable raised; the collective result "
+                "is invalid on all ranks") from pending[0]
+
+    cb = _REDUCE_CFUNC(thunk)
+    return cb, ctypes.cast(cb, ctypes.c_void_p), raise_pending
+
+
+def _reduced(op, dtype: torch.dtype, call) -> None:
+    """Run the native reduction `call(op_arg, custom)`: op_arg is the
+    ReduceOp code, or for a callable `op` the address of its C wrapper
+    (custom True: the caller picks the *_fn entry point)."""
+    if not callable(op):
+        check(call(ReduceOp.parse(op), False))
+        return
+    cb, fnp, raise_pending = _wrap_reduce_fn(op, dtype)
+    check(call(fnp, True))
+    del cb  # alive until the native call has returned
+    raise_pending()
+
+
 def _dtype_code(t: torch.Tensor) -> int:
     code = _DTYPE_CODES.get(t.dtype)
     if code is None:
-        raise Error(f"unsupported dtype: {str(t.dtype).removeprefix('torch.')}")
+        raise Error(f"unsupported dtype: {_dtype_name(t.dtype)}")
     return code
 
 
-def _check_tensor(t) -> torch.Tensor:
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def _check_tensor(t, name: str = "tensor") -> torch.Tensor:
     if not isinstance(t, torch.Tensor):
-        raise TypeError(f"tensor must be a torch tensor, got {type(t)}")
+        raise TypeError(f"{name} must be a torch tensor, got {type(t)}")
     if not t.is_contiguous():
-        raise Error("tensor must be C-contiguous")
+        raise Error(f"{name} must be C-contiguous")
     return t
 
 
-def _ptr(t: torch.Tensor):
-    return ctypes.c_void_p(t.data_ptr())
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def _counts_arg(counts: Sequence[int]):
     return (ctypes.c_size_t * len(counts))(*counts)
+
+
+def _timeout_ms(timeout: Optional[float]) -> int:
+    # 0 tells the native side to use the context default.
+    return 0 if timeout is None else max(1, int(timeout * 1000))
+
+
+def _resolve_output(output, like: torch.Tensor, count: int,
+                    op_name: str) -> torch.Tensor:
+    """A new 1-d result of `count` elements of `like`'s dtype on its
+    device, or the caller's preallocated `output` once checked. A stable
+    output is the plan-cache hot path: repeated calls replay a cached
+    native plan."""
+    if output is None:
+        return torch.empty(count, dtype=like.dtype, device=like.device)
+    out = _check_tensor(output, "output")
+    if out.dtype != like.dtype or out.numel() != count:
+        raise Error(f"{op_name} output must match dtype "
+                    f"{_dtype_name(like.dtype)} and hold {count} elements")
+    if out.device != like.device:
+        raise Error(f"{op_name} output must be on the input's device "
+                    f"({like.device}), not {out.device}")
+    return out
 
 
 def _resolve_recv_counts(recv_counts, numel: int, size: int):
@@ -120,9 +226,20 @@ def _resolve_recv_counts(recv_counts, numel: int, size: int):
     return recv_counts
 
 
+def _check_counts(op_name: str, counts, size: int) -> list:
+    """Per-rank counts as a list of one int per rank: typed errors where
+    the reference asserts (an assert vanishes under python -O, and a short
+    vector would be read past its end by the C layer)."""
+    counts = [int(c) for c in counts]
+    if len(counts) != size:
+        raise Error(f"{op_name}: counts needs one entry per rank ({size}), "
+                    f"got {len(counts)}")
+    return counts
+
+
 # ---- staging of CUDA tensors through pinned host memory ----
-# The four steps are module functions so that a test can stand them in on
-# a machine without a card and see their order.
+# The steps are module functions so that a test can stand them in on a
+# machine without a card and see their order.
 
 def _pinned_empty(numel: int, dtype: torch.dtype) -> torch.Tensor:
     return torch.empty(numel, dtype=dtype, pin_memory=True)
@@ -173,6 +290,61 @@ class _PinnedPool:
 
 def _staged(t: torch.Tensor) -> bool:
     return t.device.type != "cpu"
+
+
+# What the native call does with a tensor: reads it, writes it, or both.
+_IN, _OUT, _INOUT = 1, 2, 3
+
+
+def _stage_in(pool: Optional[_PinnedPool], entries):
+    """Host memory for each (tensor or None, mode) of `entries`: the
+    tensor itself on the CPU, else a pinned buffer (from `pool`, or a new
+    one when pool is None) that takes a copy of the tensor when the call
+    reads it. The streams of the staged tensors are synchronized before
+    this returns. Returns (hosts, staged): staged lists (tensor, host,
+    mode) for :func:`_stage_out`."""
+    hosts, staged = [], []
+    for t, mode in entries:
+        if t is None or not _staged(t):
+            hosts.append(t)
+            continue
+        host = (pool.take(t.dtype, t.numel()) if pool is not None
+                else _pinned_empty(t.numel(), t.dtype))
+        if mode & _IN:
+            _to_host(host, t)
+        hosts.append(host)
+        staged.append((t, host, mode))
+    for device in {t.device for t, _, _ in staged}:
+        _sync(device)
+    return hosts, staged
+
+
+def _stage_out(pool: Optional[_PinnedPool], staged) -> None:
+    """Copy each staged buffer the call wrote back into its tensor; with
+    a `pool`, record an event on each device after those copies and give
+    the buffers back (a buffer no copy reads goes back with no event).
+    Without one, the buffers are dropped: PyTorch's pinned allocator
+    keeps a block until the copies that read it have completed."""
+    devices = set()
+    for t, host, mode in staged:
+        if mode & _OUT:
+            _to_device(t, host)
+            devices.add(t.device)
+    if pool is None:
+        return
+    events = {device: _record(device) for device in devices}
+    for t, host, mode in staged:
+        pool.give(host, events[t.device] if mode & _OUT else None)
+
+
+def _on_host(pool: Optional[_PinnedPool], call, *entries):
+    """call(*hosts) on host memory standing for each (tensor or None,
+    mode) of `entries` (see :func:`_stage_in`); the tensors the call
+    writes get its results. Returns call's result."""
+    hosts, staged = _stage_in(pool, entries)
+    result = call(*hosts)
+    _stage_out(pool, staged)
+    return result
 
 
 class Store:
@@ -296,28 +468,255 @@ class Device:
             self._free(handle)
 
 
+def q8_block() -> int:
+    """Resolved TPUCOLL_Q8_BLOCK: elements per q8 wire block (default
+    256). Must match on every rank."""
+    block = int(_lib.lib().tc_q8_block())
+    if block == 0:
+        raise Error(_lib.last_error())
+    return block
+
+
+def q8_wire_bytes(count: int) -> int:
+    """Wire bytes a `count`-element float32 stream occupies in the q8
+    codec: one float32 scale per block plus one int8 code per element."""
+    nbytes = int(_lib.lib().tc_q8_wire_bytes(count))
+    if nbytes == 0 and count > 0:
+        # 0 is the C boundary's error sentinel (malformed TPUCOLL_Q8_BLOCK).
+        raise Error(_lib.last_error())
+    return nbytes
+
+
+def q4_block() -> int:
+    """Resolved TPUCOLL_Q4_BLOCK: elements per q4 wire block (default
+    256). Must match on every rank."""
+    block = int(_lib.lib().tc_q4_block())
+    if block == 0:
+        raise Error(_lib.last_error())
+    return block
+
+
+def q4_wire_bytes(count: int) -> int:
+    """Wire bytes a `count`-element float32 stream occupies in the q4
+    codec: one float32 scale per block plus one packed-nibble byte per
+    element pair."""
+    nbytes = int(_lib.lib().tc_q4_wire_bytes(count))
+    if nbytes == 0 and count > 0:
+        raise Error(_lib.last_error())
+    return nbytes
+
+
+def _encode(codec: str, wire_bytes, tensor: torch.Tensor) -> torch.Tensor:
+    _check_tensor(tensor)
+    if tensor.dtype != torch.float32:
+        raise Error(f"{codec}_encode requires a float32 array")
+    out = torch.empty(wire_bytes(tensor.numel()), dtype=torch.uint8,
+                      device=tensor.device)
+    native = getattr(_lib.lib(), f"tc_{codec}_encode")
+    _on_host(None, lambda src, dst: check(native(
+        _ptr(src), src.numel(), _ptr(dst), dst.numel())),
+        (tensor, _IN), (out, _OUT))
+    return out
+
+
+def _decode(codec: str, wire: torch.Tensor, count: int) -> torch.Tensor:
+    _check_tensor(wire, "wire")
+    if wire.dtype != torch.uint8:
+        raise Error(f"{codec}_decode requires a uint8 wire array")
+    out = torch.empty(count, dtype=torch.float32, device=wire.device)
+    native = getattr(_lib.lib(), f"tc_{codec}_decode")
+    _on_host(None, lambda src, dst: check(native(
+        _ptr(src), src.numel(), _ptr(dst), count)),
+        (wire, _IN), (out, _OUT))
+    return out
+
+
+def q8_encode(tensor: torch.Tensor) -> torch.Tensor:
+    """Encode a float32 tensor into its q8 wire stream (a uint8 tensor on
+    the input's device): the per-hop codec of ring_q8_wire."""
+    return _encode("q8", q8_wire_bytes, tensor)
+
+
+def q8_decode(wire: torch.Tensor, count: int) -> torch.Tensor:
+    """Decode a q8 wire stream (uint8, from q8_encode) back to `count`
+    float32 elements on the wire's device."""
+    return _decode("q8", wire, count)
+
+
+def q4_encode(tensor: torch.Tensor) -> torch.Tensor:
+    """Encode a float32 tensor into its q4 wire stream (a uint8 tensor on
+    the input's device): the per-hop codec of ring_q4_wire. Round-trip
+    error is bounded by max|block| / 14 per block."""
+    return _encode("q4", q4_wire_bytes, tensor)
+
+
+def q4_decode(wire: torch.Tensor, count: int) -> torch.Tensor:
+    """Decode a q4 wire stream (uint8, from q4_encode) back to `count`
+    float32 elements on the wire's device."""
+    return _decode("q4", wire, count)
+
+
+def codec_threads() -> int:
+    """Resolved TPUCOLL_CODEC_THREADS: the codec pool width the wire rings
+    shard encode and dequant-accumulate across. Sharding is byte-identical
+    to serial."""
+    n = int(_lib.lib().tc_codec_threads())
+    if n == 0:
+        raise Error(_lib.last_error())
+    return n
+
+
+def codec_pipeline() -> int:
+    """Resolved TPUCOLL_CODEC_PIPELINE: the sub-blocks each wire-ring hop
+    is split into. Must match on every rank."""
+    n = int(_lib.lib().tc_codec_pipeline())
+    if n == 0:
+        raise Error(_lib.last_error())
+    return n
+
+
+class UnboundBuffer:
+    """Registered region of a CPU tensor for tagged point-to-point send and
+    recv and one-sided put and get.
+
+    A registration holds the tensor's host pointer for its whole life, and
+    any peer may write it at any time (put, get, recv), so a CUDA tensor
+    has no single moment at which it could be copied back: it raises.
+    Peer-mapped registration of device memory is ROADMAP.md A.7.
+    :meth:`Context.send` and :meth:`Context.recv`, one call each, do stage
+    CUDA tensors."""
+
+    _handle = None
+    _free = staticmethod(lambda handle: None)
+
+    def __init__(self, context: "Context", tensor: torch.Tensor):
+        _check_tensor(tensor)
+        if _staged(tensor):
+            raise Error(
+                f"register: a tensor on {tensor.device} cannot be "
+                f"registered: peers write a registration at any time, so "
+                f"it must be host memory (pass a CPU tensor; peer-mapped "
+                f"device registration is ROADMAP.md A.7)")
+        self._tensor = tensor  # pin the memory
+        self._nbytes = _nbytes(tensor)
+        self._context = context
+        self._handle = check_handle(_lib.lib().tc_buffer_new(
+            context._handle, _ptr(tensor), self._nbytes))
+        self._free = _lib.lib().tc_buffer_free
+
+    def __del__(self):
+        handle, self._handle = self._handle, None
+        if handle:
+            self._free(handle)
+
+    def send(self, dst: int, slot: int, offset: int = 0,
+             nbytes: Optional[int] = None) -> None:
+        if nbytes is None:
+            nbytes = self._nbytes - offset
+        check(_lib.lib().tc_buffer_send(self._handle, dst, slot, offset,
+                                        nbytes))
+
+    def recv(self, src, slot: int, offset: int = 0,
+             nbytes: Optional[int] = None) -> None:
+        """Post a receive from rank `src`, or from any rank of the list
+        `src`."""
+        if nbytes is None:
+            nbytes = self._nbytes - offset
+        if isinstance(src, int):
+            check(_lib.lib().tc_buffer_recv(self._handle, src, slot, offset,
+                                            nbytes))
+        else:
+            srcs = (ctypes.c_int * len(src))(*src)
+            check(_lib.lib().tc_buffer_recv_any(self._handle, srcs, len(src),
+                                                slot, offset, nbytes))
+
+    def _wait(self, fn, timeout, with_src: bool):
+        src = ctypes.c_int(-1)
+        args = (ctypes.byref(src),) if with_src else ()
+        code = fn(self._handle, self._context._resolve_timeout_ms(timeout),
+                  *args)
+        if code == _lib.TC_ERR_ABORTED:
+            return None
+        check(code)
+        return src.value if with_src else True
+
+    def wait_send(self, timeout: Optional[float] = None) -> bool:
+        """True once the send (or put) completed; False if aborted."""
+        return bool(self._wait(_lib.lib().tc_buffer_wait_send, timeout,
+                               False))
+
+    def wait_recv(self, timeout: Optional[float] = None) -> Optional[int]:
+        """Returns the source rank, or None if the wait was aborted."""
+        return self._wait(_lib.lib().tc_buffer_wait_recv, timeout, True)
+
+    def wait_put(self, timeout: Optional[float] = None) -> Optional[int]:
+        """Wait for one notify-put arrival into this buffer's exported
+        region; returns the source rank, or None if aborted. A queue apart
+        from wait_recv's: one-sided arrivals never satisfy a posted recv."""
+        return self._wait(_lib.lib().tc_buffer_wait_put, timeout, True)
+
+    def abort_wait_send(self) -> None:
+        _lib.lib().tc_buffer_abort_wait_send(self._handle)
+
+    def abort_wait_recv(self) -> None:
+        _lib.lib().tc_buffer_abort_wait_recv(self._handle)
+
+    def get_remote_key(self) -> bytes:
+        """Export this buffer as a one-sided target: bytes to hand to peers
+        (typically allgathered), which put()/get() against them with no
+        posted operation on this side. Valid as long as this buffer."""
+        n = _lib.lib().tc_remote_key_size()
+        out = ctypes.create_string_buffer(n)
+        check(_lib.lib().tc_buffer_remote_key(self._handle, out, n))
+        return out.raw
+
+    def put(self, remote_key: bytes, offset: int = 0, roffset: int = 0,
+            nbytes: Optional[int] = None, notify: bool = False) -> None:
+        """One-sided write of local [offset, offset + nbytes) into the
+        remote region at roffset; completion via wait_send. notify=True
+        also completes a wait_put on the exporting buffer when the payload
+        lands. Bounds are checked against the key before anything moves."""
+        if nbytes is None:
+            nbytes = self._nbytes - offset
+        check(_lib.lib().tc_buffer_put(self._handle, remote_key,
+                                       len(remote_key), offset, roffset,
+                                       nbytes, 1 if notify else 0))
+
+    def get(self, remote_key: bytes, slot: int, offset: int = 0,
+            roffset: int = 0, nbytes: Optional[int] = None) -> None:
+        """One-sided read of the remote region [roffset, roffset + nbytes)
+        into local [offset, ...); completion via wait_recv. `slot` must not
+        carry other traffic with that peer."""
+        if nbytes is None:
+            nbytes = self._nbytes - offset
+        check(_lib.lib().tc_buffer_get(self._handle, remote_key,
+                                       len(remote_key), slot, offset,
+                                       roffset, nbytes))
+
+
 class Work:
     """Handle for one async collective issued on an :class:`AsyncEngine`.
 
     The handle pins the buffers until completion. Errors surface typed at
     :meth:`wait` (TimeoutError, IoError, or Aborted when the engine shut
-    down with the op queued or in flight). The collective runs in place,
-    so after an error the tensor's contents are undefined from the moment
-    the op was issued. For a CUDA tensor the op ran on a pinned buffer, and
-    a successful wait() copies the result back to the card."""
+    down with the op queued or in flight). After an error the buffers'
+    contents are undefined from the moment the op was issued. For a CUDA
+    tensor the op ran on pinned buffers, and a successful wait() copies
+    the result back to the card."""
 
     _handle = None
     _free = staticmethod(lambda handle: None)
 
     def __init__(self, engine: "AsyncEngine", handle: int, op: str,
-                 tensors, result, staged=None):
+                 tensors, result, staged=()):
         self._engine = engine
         self._handle = handle
         self.op = op
         self._tensors = tensors  # pin the buffers until completion
-        #: The reduced tensor (the input itself: the op is in place).
+        #: The result: the input itself for allreduce, the output tensor
+        #: for allgather and reduce_scatter.
         self.result = result
-        # (device tensor, pinned buffer) for a CUDA input, else None.
+        # (tensor, pinned buffer, mode) of each CUDA tensor of the op.
         self._staged = staged
         self._free = _lib.lib().tc_work_free
 
@@ -332,16 +731,16 @@ class Work:
             # the engine keeps them until its lanes are joined.
             self._engine._park(handle, self._tensors)
 
-    def wait(self):
-        """Block until the op completes (the op's collective timeout
-        bounds every blocking step); raises its typed error if it failed.
-        Returns :attr:`result`."""
-        check(_lib.lib().tc_work_wait(self._handle, 0))
-        if self._staged is not None:
-            tensor, host = self._staged
-            self._staged = None
-            _to_device(tensor, host)
-            self._engine._context._pool.give(host, _record(tensor.device))
+    def wait(self, timeout: Optional[float] = None):
+        """Block until the op completes; raises its typed error if it
+        failed. timeout=None sets no deadline of the wait's own (the op's
+        collective timeout still bounds every blocking step); a wait that
+        times out raises TimeoutError and does not cancel the op. Returns
+        :attr:`result`."""
+        ms = 0 if timeout is None else max(1, int(timeout * 1000))
+        check(_lib.lib().tc_work_wait(self._handle, ms))
+        staged, self._staged = self._staged, ()
+        _stage_out(self._engine._context._pool, staged)
         return self.result
 
     def test(self) -> bool:
@@ -352,23 +751,32 @@ class Work:
             raise Error(_lib.last_error())
         return status >= 2
 
+    def error(self) -> Optional[str]:
+        """Error message of a failed op, or None (pending or succeeded)."""
+        msg = _lib.copy_out(_lib.lib().tc_work_error_message,
+                            self._handle).decode()
+        return msg or None
+
 
 class AsyncEngine:
     """Async collective work queue over a pool of lanes.
 
     Each lane is a worker thread owning a privately tagged forked
-    sub-context of the parent; submission i runs on lane i % lanes.
-    Construction is a collective (it forks over the parent): every rank
-    constructs concurrently with the same lane count, and issues its ops
-    in the same order. Prefer :meth:`Context.async_engine`, which also
-    shuts the engine down in the context's close()."""
+    sub-context of the parent (tags from `tag_base`); submission i runs on
+    lane i % lanes. Construction is a collective (it forks over the
+    parent): every rank constructs concurrently with the same lane count,
+    and issues its ops in the same order. Prefer
+    :meth:`Context.async_engine`, which also shuts the engine down in the
+    context's close(). Callable reductions are refused: lane threads
+    cannot enter Python."""
 
     _handle = None
     _free = staticmethod(lambda handle: None)
     _parked = ()
     _work_free = staticmethod(lambda handle: None)
 
-    def __init__(self, context: "Context", lanes: Optional[int] = None):
+    def __init__(self, context: "Context", lanes: Optional[int] = None,
+                 tag_base: int = 0):
         if lanes is None:
             raw = os.environ.get("TPUCOLL_ASYNC_LANES", "2")
             try:
@@ -383,7 +791,7 @@ class AsyncEngine:
         self._parked = []
         self._work_free = _lib.lib().tc_work_free
         self._handle = check_handle(
-            _lib.lib().tc_async_new(context._handle, lanes, 0))
+            _lib.lib().tc_async_new(context._handle, lanes, tag_base))
         self._context = context
         self.lanes = lanes
         self._free = _lib.lib().tc_async_free
@@ -410,41 +818,144 @@ class AsyncEngine:
             check(_lib.lib().tc_async_shutdown(self._handle))
             self._release_parked()
 
+    def _issue(self, op: str, call, result, *entries) -> Work:
+        """Issue call(*hosts) (see :func:`_stage_in`): CUDA tensors are
+        copied to pinned buffers here, before the op is issued, and back
+        in Work.wait()."""
+        hosts, staged = _stage_in(self._context._pool, entries)
+        handle = check_handle(call(*hosts))
+        tensors = tuple(t for t, _ in entries) + tuple(hosts)
+        return Work(self, handle, op, tensors, result, staged)
+
+    @staticmethod
+    def _refuse_callable(op, name: str) -> None:
+        if callable(op):
+            raise Error(f"async {name} does not support callable "
+                        f"reductions (lane threads cannot enter Python)")
+
     def allreduce_async(self, tensor: torch.Tensor, op="sum",
                         algorithm: str = "auto",
+                        timeout: Optional[float] = None,
                         wire: Optional[str] = None) -> Work:
         """In-place async allreduce; returns a :class:`Work`. Same
         semantics as Context.allreduce. From issue until wait() returns,
-        `tensor` must not be read or written. A CUDA tensor is copied to a
-        pinned buffer here, before the op is issued, and back in wait()."""
+        `tensor` must not be read or written."""
         algorithm = Context._resolve_wire(wire, algorithm)
         _check_tensor(tensor)
-        if callable(op):
-            raise Error("async allreduce does not support callable "
-                        "reductions (lane threads cannot enter Python)")
+        self._refuse_callable(op, "allreduce")
+        code, op_code = _dtype_code(tensor), ReduceOp.parse(op)
+        return self._issue("allreduce", lambda t: _lib.lib()
+                           .tc_async_allreduce_inplace(
+                               self._handle, _ptr(t), t.numel(), code,
+                               op_code, Context._ALGORITHMS[algorithm],
+                               _timeout_ms(timeout)),
+                           tensor, (tensor, _INOUT))
+
+    def reduce_scatter_async(self, tensor: torch.Tensor,
+                             recv_counts: Optional[Sequence[int]] = None,
+                             op="sum", algorithm: str = "auto",
+                             timeout: Optional[float] = None,
+                             wire: Optional[str] = None,
+                             output: Optional[torch.Tensor] = None) -> Work:
+        """Async reduce_scatter; this rank's block is ``work.result`` (the
+        preallocated `output` when given, recv_counts[rank] elements)."""
+        algorithm = Context._resolve_rs_wire(wire, algorithm)
+        _check_tensor(tensor)
+        self._refuse_callable(op, "reduce_scatter")
+        size, rank = self._context.size, self._context.rank
+        recv_counts = _resolve_recv_counts(recv_counts, tensor.numel(), size)
+        out = _resolve_output(output, tensor, int(recv_counts[rank]),
+                              "reduce_scatter")
+        counts = _counts_arg(recv_counts)
+        code, op_code = _dtype_code(tensor), ReduceOp.parse(op)
+        work = self._issue("reduce_scatter", lambda t, o: _lib.lib()
+                           .tc_async_reduce_scatter(
+                               self._handle, _ptr(t), _ptr(o), counts, size,
+                               code, op_code,
+                               Context._RS_ALGORITHMS[algorithm],
+                               _timeout_ms(timeout)),
+                           out, (tensor, _IN), (out, _OUT))
+        work._tensors += (counts,)
+        return work
+
+    def allgather_async(self, tensor: torch.Tensor,
+                        timeout: Optional[float] = None,
+                        output: Optional[torch.Tensor] = None,
+                        algorithm: str = "auto") -> Work:
+        """Async allgather; the (size, *shape) result is ``work.result``
+        (the preallocated `output` when given, size * numel elements)."""
+        _check_tensor(tensor)
+        size = self._context.size
+        out = _resolve_output(output, tensor, size * tensor.numel(),
+                              "allgather")
+        if output is None:
+            out = out.view((size,) + tuple(tensor.shape))
         code = _dtype_code(tensor)
-        staged = None
-        buf = tensor
-        if _staged(tensor):
-            buf = self._context._pool.take(tensor.dtype, tensor.numel())
-            _to_host(buf, tensor)
-            _sync(tensor.device)
-            staged = (tensor, buf)
-        handle = check_handle(_lib.lib().tc_async_allreduce_inplace(
-            self._handle, _ptr(buf), buf.numel(), code, ReduceOp.parse(op),
-            Context._ALGORITHMS[algorithm], 0))
-        return Work(self, handle, "allreduce", (tensor, buf), tensor, staged)
+        return self._issue("allgather", lambda t, o: _lib.lib()
+                           .tc_async_allgather(
+                               self._handle, _ptr(t), _ptr(o), t.numel(),
+                               code, Context._HIER_ALGORITHMS[algorithm],
+                               _timeout_ms(timeout)),
+                           out, (tensor, _IN), (out, _OUT))
+
+
+class CollectivePlan:
+    """Persistent handle for one repeated collective: validation and the
+    ctypes arguments are made once, and each ``plan()`` is one foreign call
+    whose stable pointers hit the native plan cache.
+
+    Built by :meth:`Context.allreduce_plan`,
+    :meth:`Context.reduce_scatter_plan` and :meth:`Context.allgather_plan`.
+    The plan pins its tensors; the
+    collective runs on them every call (``result`` is the output). For a
+    CUDA tensor the plan owns a pinned mirror for its whole life, since the
+    marshalled pointers must stay: each replay copies the inputs to their
+    mirrors, synchronizes, calls, and copies the outputs back to the card.
+    Every rank must call matching plans in matching order, and on error the
+    buffers' contents are undefined."""
+
+    __slots__ = ("_context", "_fn", "_args", "_tensors", "_staged",
+                 "result")
+
+    def __init__(self, context, fn, make_args, result, *entries):
+        # Pin the owning Context: the marshalled args embed its native
+        # handle.
+        self._context = context
+        self._fn = fn
+        hosts, self._staged = [], []
+        for t, mode in entries:
+            host = t
+            if _staged(t):
+                host = _pinned_empty(t.numel(), t.dtype)
+                self._staged.append((t, host, mode))
+            hosts.append(host)
+        self._args = make_args(*hosts)
+        self._tensors = (tuple(t for t, _ in entries) + tuple(hosts)
+                         + self._args)
+        self.result = result
+
+    def __call__(self):
+        for t, host, mode in self._staged:
+            if mode & _IN:
+                _to_host(host, t)
+        for device in {t.device for t, _, _ in self._staged}:
+            _sync(device)
+        check(self._fn(*self._args))
+        for t, host, mode in self._staged:
+            if mode & _OUT:
+                _to_device(t, host)
+        return self.result
 
 
 class Context:
-    """A connected process group: the host plane's collectives over torch
-    tensors.
+    """A connected process group: the host plane's collectives and
+    point-to-point messaging over torch tensors.
 
     One Context per (process, group). All collective calls are blocking
     and must be entered by every rank with matching arguments; concurrent
-    collectives on one context need distinct tags. The collectives reduce
-    in place: if a call raises, the tensor's contents are undefined and
-    the context is poisoned (rebuild it)."""
+    collectives on one context need distinct tags. The collectives work in
+    place: if a call raises, the contents of the tensors it writes are
+    undefined and the context is poisoned (rebuild it)."""
 
     _handle = None
     _free = staticmethod(lambda handle: None)
@@ -465,6 +976,9 @@ class Context:
         handle, self._handle = self._handle, None
         if handle:
             self._free(handle)
+
+    def _resolve_timeout_ms(self, timeout: Optional[float]) -> int:
+        return _timeout_ms(self._timeout if timeout is None else timeout)
 
     def connect_full_mesh(self, store: Store, device: Device) -> None:
         check(_lib.lib().tc_context_connect(self._handle, store._handle,
@@ -543,6 +1057,11 @@ class Context:
         return Context._from_handle(check_handle(out.value), self._timeout,
                                     self)
 
+    def next_slot(self, num: int = 1) -> int:
+        """Reserve `num` consecutive point-to-point slots; returns the
+        first. Every rank draws the same sequence."""
+        return _lib.lib().tc_next_slot(self._handle, num)
+
     def shm_stats(self) -> dict:
         """Shared-memory payload-plane stats: bytes moved through the
         same-host rings and how many pairs negotiated the plane."""
@@ -552,16 +1071,33 @@ class Context:
         return {"tx_bytes": tx.value, "rx_bytes": rx.value,
                 "active_pairs": pairs.value}
 
-    def metrics(self) -> dict:
+    def metrics(self, drain: bool = False) -> dict:
         """The context's metrics registry as a dict (gloo_tpu/core.py's
-        Context.metrics: "rank", "size", "ops", "transport" keyed by peer
-        rank, "watchdog": {"stalls", "last"}, "transport_failure", ...).
-        The reference's "async" gauges of live engines are not ported."""
+        Context.metrics: "rank", "size", "ops", "plan_hits",
+        "plan_misses", "transport" keyed by peer rank, "watchdog":
+        {"stalls", "last"}, "transport_failure", ...). drain=True resets
+        the counters after the snapshot. The reference's "async" gauges of
+        live engines are not ported."""
         snap = json.loads(_lib.copy_out(_lib.lib().tc_metrics_json,
-                                        self._handle, 0))
+                                        self._handle, 1 if drain else 0))
         snap["transport"] = {int(k): v
                              for k, v in snap["transport"].items()}
         return snap
+
+    def metrics_enable(self, on: bool = True) -> None:
+        """Toggle counter collection (on by default)."""
+        _lib.lib().tc_metrics_enable(self._handle, 1 if on else 0)
+
+    def metrics_enabled(self) -> bool:
+        return bool(_lib.lib().tc_metrics_enabled(self._handle))
+
+    def set_watchdog(self, threshold: Optional[float]) -> None:
+        """Arm the straggler watchdog: a blocking wait that makes no
+        progress for `threshold` seconds is logged and recorded in
+        metrics()["watchdog"]. None or 0 disarms."""
+        disarm = threshold is None or threshold <= 0
+        _lib.lib().tc_metrics_set_watchdog(
+            self._handle, 0 if disarm else max(1, int(threshold * 1000)))
 
     def flightrec(self) -> dict:
         """The always-on flight recorder as a dict: {"rank", "size",
@@ -570,6 +1106,12 @@ class Context:
         point-to-point ops) and fp the desync fingerprint."""
         return json.loads(_lib.copy_out(_lib.lib().tc_flightrec_json,
                                         self._handle))
+
+    def flightrec_dump(self, path: str) -> str:
+        """Write the flight recorder to `path` as JSON; returns the
+        path."""
+        check(_lib.lib().tc_flightrec_dump(self._handle, path.encode()))
+        return path
 
     def flightrec_seq(self) -> int:
         """Ops recorded so far (the next op's sequence number)."""
@@ -583,23 +1125,102 @@ class Context:
                 engine.shutdown()
         check(_lib.lib().tc_context_close(self._handle))
 
-    def async_engine(self, lanes: Optional[int] = None) -> AsyncEngine:
+    def async_engine(self, lanes: Optional[int] = None,
+                     tag_base: int = 0) -> AsyncEngine:
         """An :class:`AsyncEngine` over this context; a collective call
         (default lanes: TPUCOLL_ASYNC_LANES, else 2). close() shuts it
         down."""
-        engine = AsyncEngine(self, lanes=lanes)
+        engine = AsyncEngine(self, lanes=lanes, tag_base=tag_base)
         self._engines = [r for r in self._engines if r() is not None]
         self._engines.append(weakref.ref(engine))
         return engine
 
+    def register(self, tensor: torch.Tensor) -> UnboundBuffer:
+        """An :class:`UnboundBuffer` over a CPU tensor."""
+        return UnboundBuffer(self, tensor)
+
+    # ---- persistent collective plans ----
+
+    def allreduce_plan(self, tensor: torch.Tensor, op="sum",
+                       algorithm: str = "auto", tag: int = 0,
+                       timeout: Optional[float] = None,
+                       wire: Optional[str] = None) -> CollectivePlan:
+        """A persistent in-place allreduce over `tensor` (the arguments of
+        :meth:`allreduce`, callable reductions excluded); ``plan()``
+        replays it."""
+        algorithm = self._resolve_wire(wire, algorithm)
+        _check_tensor(tensor)
+        if callable(op):
+            raise Error("allreduce_plan does not support callable "
+                        "reductions (build per-call instead)")
+        code, op_code = _dtype_code(tensor), ReduceOp.parse(op)
+        return CollectivePlan(
+            self, _lib.lib().tc_allreduce_inplace,
+            lambda t: (self._handle, _ptr(t), t.numel(), code, op_code,
+                       self._ALGORITHMS[algorithm], tag,
+                       _timeout_ms(timeout)),
+            tensor, (tensor, _INOUT))
+
+    def reduce_scatter_plan(self, tensor: torch.Tensor,
+                            recv_counts: Optional[Sequence[int]] = None,
+                            op="sum", algorithm: str = "auto",
+                            tag: int = 0,
+                            timeout: Optional[float] = None,
+                            wire: Optional[str] = None,
+                            output: Optional[torch.Tensor] = None
+                            ) -> CollectivePlan:
+        """A persistent reduce_scatter: ``plan()`` reduces `tensor` and
+        writes this rank's block into ``plan.result`` (the preallocated
+        `output` when given)."""
+        algorithm = self._resolve_rs_wire(wire, algorithm)
+        _check_tensor(tensor)
+        if callable(op):
+            raise Error("reduce_scatter_plan does not support callable "
+                        "reductions (build per-call instead)")
+        recv_counts = _resolve_recv_counts(recv_counts, tensor.numel(),
+                                           self.size)
+        out = _resolve_output(output, tensor, int(recv_counts[self.rank]),
+                              "reduce_scatter")
+        counts = _counts_arg(recv_counts)  # pinned by the plan's args
+        code, op_code = _dtype_code(tensor), ReduceOp.parse(op)
+        return CollectivePlan(
+            self, _lib.lib().tc_reduce_scatter,
+            lambda t, o: (self._handle, _ptr(t), _ptr(o), counts, code,
+                          op_code, self._RS_ALGORITHMS[algorithm], tag,
+                          _timeout_ms(timeout)),
+            out, (tensor, _IN), (out, _OUT))
+
+    def allgather_plan(self, tensor: torch.Tensor, tag: int = 0,
+                       timeout: Optional[float] = None,
+                       output: Optional[torch.Tensor] = None
+                       ) -> CollectivePlan:
+        """A persistent allgather: ``plan()`` gathers `tensor` from every
+        rank into ``plan.result`` ((size, *shape), or the preallocated
+        `output`)."""
+        _check_tensor(tensor)
+        out = _resolve_output(output, tensor, self.size * tensor.numel(),
+                              "allgather")
+        if output is None:
+            out = out.view((self.size,) + tuple(tensor.shape))
+        code = _dtype_code(tensor)
+        return CollectivePlan(
+            self, _lib.lib().tc_allgather,
+            lambda t, o: (self._handle, _ptr(t), _ptr(o), t.numel(), code,
+                          self._HIER_ALGORITHMS["auto"], tag,
+                          _timeout_ms(timeout)),
+            out, (tensor, _IN), (out, _OUT))
+
+    def plan_cache_size(self) -> int:
+        """Entries in this context's native plan LRU (one per repeated
+        collective: op, algorithm, dtype, tag, buffer pointers, bytes)."""
+        return int(_lib.lib().tc_plan_cache_size(self._handle))
+
     def plan_cache_clear(self) -> None:
-        """Drop every cached native plan (one per repeated collective:
-        op, algorithm, dtype, tag, buffer pointer, bytes); safe whenever no
-        collective is running on this context. The q8 wire's result on a
-        reused plan differs
-        from a fresh plan's (a fault of the C++ core, ROADMAP.md C.7), so
-        a bitwise comparison of two q8 calls clears the cache before each
-        on every rank."""
+        """Drop every cached native plan; safe whenever no collective is
+        running on this context. The q8 wire's result on a reused plan
+        differs from a fresh plan's (a fault of the C++ core, ROADMAP.md
+        C.7), so a bitwise comparison of two q8 calls clears the cache
+        before each on every rank."""
         _lib.lib().tc_plan_cache_clear(self._handle)
 
     # ---- collectives ----
@@ -613,6 +1234,7 @@ class Context:
                    "auto_lossy_wire": 9, "auto_lossy": 9,
                    "hier": 10,
                    "ring_q4_wire": 11, "q4": 11}
+    _REDUCE_ALGORITHMS = {"auto": 0, "binomial": 1, "ring": 2}
     _RS_ALGORITHMS = {"auto": 0, "ring": 1, "halving_doubling": 2,
                       "hd": 2, "direct": 3, "ring_q8_wire": 4, "q8": 4,
                       "hier": 5,
@@ -651,123 +1273,330 @@ class Context:
                         f"algorithm={algorithm!r}")
         return mapped
 
-    def _in_place(self, tensor: torch.Tensor, call) -> torch.Tensor:
-        """Run call(host tensor) on `tensor`'s memory: the tensor itself on
-        the CPU, a pinned copy of it for a CUDA tensor (copied back)."""
-        if not _staged(tensor):
-            call(tensor)
-            return tensor
-        host = self._pool.take(tensor.dtype, tensor.numel())
-        _to_host(host, tensor)
-        _sync(tensor.device)
-        call(host)
-        _to_device(tensor, host)
-        self._pool.give(host, _record(tensor.device))
-        return tensor
-
-    def barrier(self, tag: int = 0, algorithm: str = "auto") -> None:
+    def barrier(self, tag: int = 0, timeout: Optional[float] = None,
+                algorithm: str = "auto") -> None:
         check(_lib.lib().tc_barrier(self._handle,
                                     self._HIER_ALGORITHMS[algorithm], tag,
-                                    0))
+                                    _timeout_ms(timeout)))
 
     def broadcast(self, tensor: torch.Tensor, root: int = 0, tag: int = 0,
+                  timeout: Optional[float] = None,
                   algorithm: str = "auto") -> torch.Tensor:
         """In-place broadcast of root's `tensor`."""
         _check_tensor(tensor)
         code = _dtype_code(tensor)
-        return self._in_place(tensor, lambda t: check(
-            _lib.lib().tc_broadcast(self._handle, _ptr(t), t.numel(), code,
-                                    root, self._HIER_ALGORITHMS[algorithm],
-                                    tag, 0)))
+        _on_host(self._pool, lambda t: check(_lib.lib().tc_broadcast(
+            self._handle, _ptr(t), t.numel(), code, root,
+            self._HIER_ALGORITHMS[algorithm], tag, _timeout_ms(timeout))),
+            (tensor, _INOUT))
+        return tensor
 
     def allreduce(self, tensor: torch.Tensor, op="sum",
                   algorithm: str = "auto", tag: int = 0,
+                  timeout: Optional[float] = None,
                   wire: Optional[str] = None) -> torch.Tensor:
         """In-place allreduce of `tensor` across the group.
 
-        algorithm and wire are the reference's (gloo_tpu/core.py:1541):
+        algorithm and wire are the reference's (gloo_tpu/core.py:1529):
         "auto", "ring", "hd", "rd", "hd_fold", "hd_blocks", "bcube",
         "ring_bf16_wire", "ring_q8_wire", "ring_q4_wire", "hier"; wire=
         "q8" / "q4" / "bf16" / "lossy" (float32 sum only). op is "sum",
-        "prod", "min" or "max"; callable reductions are not ported."""
+        "prod", "min", "max", or a callable `fn(acc, inp)` that combines
+        two CPU tensors in place into acc (see :func:`_wrap_reduce_fn`)."""
         algorithm = self._resolve_wire(wire, algorithm)
         _check_tensor(tensor)
-        if callable(op):
-            raise Error("callable reductions are not supported by the "
-                        "port's Context")
+        code, algo = _dtype_code(tensor), self._ALGORITHMS[algorithm]
+        ms = _timeout_ms(timeout)
+
+        def native(t):
+            lib = _lib.lib()
+            _reduced(op, t.dtype, lambda o, custom: (
+                lib.tc_allreduce_fn(self._handle, _ptr(t), _ptr(t),
+                                    t.numel(), code, o, algo, tag, ms)
+                if custom else
+                lib.tc_allreduce_inplace(self._handle, _ptr(t), t.numel(),
+                                         code, o, algo, tag, ms)))
+
+        _on_host(self._pool, native, (tensor, _INOUT))
+        return tensor
+
+    def allreduce_multi(self, tensors, op="sum", algorithm: str = "auto",
+                        tag: int = 0, timeout: Optional[float] = None,
+                        wire: Optional[str] = None):
+        """Allreduce N local tensors together (a local reduction first, one
+        network pass, the result fanned out to every tensor), in place on
+        all of them; returns the list."""
+        algorithm = self._resolve_wire(wire, algorithm)
+        tensors = [_check_tensor(t) for t in tensors]
+        if not tensors:
+            raise Error("allreduce_multi needs at least one array")
+        first = tensors[0]
+        if any(t.dtype != first.dtype or t.numel() != first.numel()
+               for t in tensors):
+            raise Error("allreduce_multi arrays must match in dtype and "
+                        "size")
+        code, algo = _dtype_code(first), self._ALGORITHMS[algorithm]
+        ms = _timeout_ms(timeout)
+
+        def native(*hosts):
+            ptrs = (ctypes.c_void_p * len(hosts))(
+                *[t.data_ptr() for t in hosts])
+            lib = _lib.lib()
+            _reduced(op, first.dtype, lambda o, custom: (
+                lib.tc_allreduce_multi_fn if custom
+                else lib.tc_allreduce_multi)(
+                    self._handle, ptrs, ptrs, len(hosts), first.numel(),
+                    code, o, algo, tag, ms))
+
+        _on_host(self._pool, native, *[(t, _INOUT) for t in tensors])
+        return tensors
+
+    def reduce(self, tensor: torch.Tensor, root: int = 0, op="sum",
+               output: Optional[torch.Tensor] = None,
+               algorithm: str = "auto", tag: int = 0,
+               timeout: Optional[float] = None) -> Optional[torch.Tensor]:
+        """Reduce to `root`: the result (a new tensor of `tensor`'s shape
+        on its device, or `output`) on root, None elsewhere. algorithm:
+        "auto", "binomial" or "ring"."""
+        _check_tensor(tensor)
+        algo = self._REDUCE_ALGORITHMS[algorithm]
+        out = None
+        if self.rank == root:
+            out = torch.empty_like(tensor) if output is None else \
+                _resolve_output(output, tensor, tensor.numel(), "reduce")
+        code, ms = _dtype_code(tensor), _timeout_ms(timeout)
+
+        def native(t, o):
+            lib = _lib.lib()
+            _reduced(op, t.dtype, lambda op_arg, custom: (
+                lib.tc_reduce_fn if custom else lib.tc_reduce)(
+                    self._handle, _ptr(t), _ptr(o), t.numel(), code,
+                    op_arg, root, algo, tag, ms))
+
+        _on_host(self._pool, native, (tensor, _IN), (out, _OUT))
+        return out
+
+    def gather(self, tensor: torch.Tensor, root: int = 0, tag: int = 0,
+               timeout: Optional[float] = None) -> Optional[torch.Tensor]:
+        """Gather equal-size tensors to root; returns (size, *shape) on
+        root, None elsewhere."""
+        _check_tensor(tensor)
+        out = None
+        if self.rank == root:
+            out = torch.empty((self.size,) + tuple(tensor.shape),
+                              dtype=tensor.dtype, device=tensor.device)
         code = _dtype_code(tensor)
-        op_code = ReduceOp.parse(op)
-        return self._in_place(tensor, lambda t: check(
-            _lib.lib().tc_allreduce_inplace(
-                self._handle, _ptr(t), t.numel(), code, op_code,
-                self._ALGORITHMS[algorithm], tag, 0)))
+        _on_host(self._pool, lambda t, o: check(_lib.lib().tc_gather(
+            self._handle, _ptr(t), _ptr(o), t.numel(), code, root, tag,
+            _timeout_ms(timeout))), (tensor, _IN), (out, _OUT))
+        return out
+
+    def gatherv(self, tensor: torch.Tensor, counts: Sequence[int],
+                root: int = 0, tag: int = 0,
+                timeout: Optional[float] = None) -> Optional[torch.Tensor]:
+        """Gather counts[r] elements from each rank r to root; returns the
+        1-d concatenation on root, None elsewhere."""
+        _check_tensor(tensor)
+        counts = _check_counts("gatherv", counts, self.size)
+        if tensor.numel() != counts[self.rank]:
+            raise Error("gatherv: input size != counts[rank]")
+        out = None
+        if self.rank == root:
+            out = torch.empty(sum(counts), dtype=tensor.dtype,
+                              device=tensor.device)
+        code, counts_arg = _dtype_code(tensor), _counts_arg(counts)
+        _on_host(self._pool, lambda t, o: check(_lib.lib().tc_gatherv(
+            self._handle, _ptr(t), _ptr(o), counts_arg, code, root, tag,
+            _timeout_ms(timeout))), (tensor, _IN), (out, _OUT))
+        return out
+
+    def scatter(self, tensor: Optional[torch.Tensor], root: int = 0,
+                output: Optional[torch.Tensor] = None, tag: int = 0,
+                timeout: Optional[float] = None) -> torch.Tensor:
+        """Scatter the rows of root's `tensor` (shape (size, ...)): each
+        rank gets its row, in `output` or a new tensor on root's input
+        device. Off root `tensor` may be None and `output` is needed."""
+        if self.rank == root:
+            _check_tensor(tensor)
+            if tensor.shape[0] != self.size:
+                raise Error("scatter input rows != size")
+            chunk = output
+            if output is None:
+                chunk = torch.empty(tuple(tensor.shape[1:]),
+                                    dtype=tensor.dtype, device=tensor.device)
+        else:
+            if output is None:
+                raise Error("non-root scatter needs output array")
+            chunk = output
+            tensor = None
+        _check_tensor(chunk, "output")
+        code = _dtype_code(chunk)
+        _on_host(self._pool, lambda t, o: check(_lib.lib().tc_scatter(
+            self._handle, _ptr(t), _ptr(o), o.numel(), code, root, tag,
+            _timeout_ms(timeout))), (tensor, _IN), (chunk, _OUT))
+        return chunk
 
     def allgather(self, tensor: torch.Tensor, tag: int = 0,
+                  timeout: Optional[float] = None,
+                  output: Optional[torch.Tensor] = None,
                   algorithm: str = "auto") -> torch.Tensor:
         """Allgather into a new (size, *shape) tensor on the input's
-        device. algorithm="hier" composes intra-host allgather and a
-        leader-only exchange on a non-flat topology."""
+        device, or into `output` (size * numel elements of the input's
+        dtype on its device: a stable pointer for the plan cache).
+        algorithm="hier" composes intra-host allgather and a leader-only
+        exchange on a non-flat topology."""
         _check_tensor(tensor)
+        out = _resolve_output(output, tensor, self.size * tensor.numel(),
+                              "allgather")
+        if output is None:
+            out = out.view((self.size,) + tuple(tensor.shape))
         code = _dtype_code(tensor)
-        shape = (self.size,) + tuple(tensor.shape)
-        staged = _staged(tensor)
-        if staged:
-            src = self._pool.take(tensor.dtype, tensor.numel())
-            _to_host(src, tensor)
-            out = self._pool.take(tensor.dtype, self.size * tensor.numel())
-            _sync(tensor.device)
-        else:
-            src = tensor
-            out = torch.empty(shape, dtype=tensor.dtype)
-        check(_lib.lib().tc_allgather(self._handle, _ptr(src), _ptr(out),
-                                      tensor.numel(), code,
-                                      self._HIER_ALGORITHMS[algorithm], tag,
-                                      0))
-        if not staged:
-            return out
-        result = torch.empty(shape, dtype=tensor.dtype, device=tensor.device)
-        _to_device(result, out)
-        event = _record(tensor.device)
-        self._pool.give(src, None)
-        self._pool.give(out, event)
-        return result
+        _on_host(self._pool, lambda t, o: check(_lib.lib().tc_allgather(
+            self._handle, _ptr(t), _ptr(o), t.numel(), code,
+            self._HIER_ALGORITHMS[algorithm], tag, _timeout_ms(timeout))),
+            (tensor, _IN), (out, _OUT))
+        return out
+
+    def allgatherv(self, tensor: torch.Tensor, counts: Sequence[int],
+                   tag: int = 0,
+                   timeout: Optional[float] = None) -> torch.Tensor:
+        """Every rank gets the 1-d concatenation of counts[r] elements
+        from each rank r."""
+        _check_tensor(tensor)
+        counts = _check_counts("allgatherv", counts, self.size)
+        if tensor.numel() != counts[self.rank]:
+            raise Error("allgatherv: input size != counts[rank]")
+        out = torch.empty(sum(counts), dtype=tensor.dtype,
+                          device=tensor.device)
+        code, counts_arg = _dtype_code(tensor), _counts_arg(counts)
+        _on_host(self._pool, lambda t, o: check(_lib.lib().tc_allgatherv(
+            self._handle, _ptr(t), _ptr(o), counts_arg, code, tag,
+            _timeout_ms(timeout))), (tensor, _IN), (out, _OUT))
+        return out
+
+    def alltoall(self, tensor: torch.Tensor, tag: int = 0,
+                 timeout: Optional[float] = None) -> torch.Tensor:
+        """Row r of `tensor` (first axis: the group size) goes to rank r;
+        returns a tensor of the same shape whose row r came from rank r."""
+        _check_tensor(tensor)
+        if tensor.shape[0] != self.size:
+            raise Error("alltoall input rows != size")
+        out = torch.empty_like(tensor)
+        code = _dtype_code(tensor)
+        _on_host(self._pool, lambda t, o: check(_lib.lib().tc_alltoall(
+            self._handle, _ptr(t), _ptr(o), t.numel() // self.size, code,
+            tag, _timeout_ms(timeout))), (tensor, _IN), (out, _OUT))
+        return out
+
+    def alltoallv(self, tensor: torch.Tensor, in_counts: Sequence[int],
+                  out_counts: Sequence[int], tag: int = 0,
+                  timeout: Optional[float] = None) -> torch.Tensor:
+        """in_counts[r] elements of `tensor` go to rank r, in rank order;
+        returns the 1-d concatenation of out_counts[r] elements from each
+        rank r."""
+        _check_tensor(tensor)
+        in_counts = _check_counts("alltoallv", in_counts, self.size)
+        out_counts = _check_counts("alltoallv", out_counts, self.size)
+        if tensor.numel() != sum(in_counts):
+            raise Error("alltoallv: input size != sum(in_counts)")
+        out = torch.empty(sum(out_counts), dtype=tensor.dtype,
+                          device=tensor.device)
+        code = _dtype_code(tensor)
+        in_arg, out_arg = _counts_arg(in_counts), _counts_arg(out_counts)
+        _on_host(self._pool, lambda t, o: check(_lib.lib().tc_alltoallv(
+            self._handle, _ptr(t), in_arg, _ptr(o), out_arg, code, tag,
+            _timeout_ms(timeout))), (tensor, _IN), (out, _OUT))
+        return out
 
     def reduce_scatter(self, tensor: torch.Tensor,
                        recv_counts: Optional[Sequence[int]] = None,
                        op="sum", algorithm: str = "auto", tag: int = 0,
-                       wire: Optional[str] = None) -> torch.Tensor:
+                       timeout: Optional[float] = None,
+                       wire: Optional[str] = None,
+                       output: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
         """Reduce then scatter: this rank's block (recv_counts[rank]
-        elements of the flattened sum, even blocks by default) as a new 1-d
-        tensor on the input's device. algorithm: "auto", "ring", "hd",
-        "direct", "ring_q8_wire", "ring_q4_wire" or "hier"; wire="q8" /
-        "q4" (float32 sum only)."""
+        elements of the flattened reduction, even blocks by default) as a
+        new 1-d tensor on the input's device, or in `output`. algorithm:
+        "auto", "ring", "hd", "direct", "ring_q8_wire", "ring_q4_wire" or
+        "hier"; wire="q8" / "q4" (float32 sum only); op may be a callable
+        as for :meth:`allreduce`."""
+        algorithm = self._resolve_rs_wire(wire, algorithm)
+        _check_tensor(tensor)
+        algo = self._RS_ALGORITHMS[algorithm]
+        recv_counts = _resolve_recv_counts(recv_counts, tensor.numel(),
+                                           self.size)
+        out = _resolve_output(output, tensor, int(recv_counts[self.rank]),
+                              "reduce_scatter")
+        code, counts = _dtype_code(tensor), _counts_arg(recv_counts)
+        ms = _timeout_ms(timeout)
+
+        def native(t, o):
+            lib = _lib.lib()
+            _reduced(op, t.dtype, lambda op_arg, custom: (
+                lib.tc_reduce_scatter_fn if custom
+                else lib.tc_reduce_scatter)(
+                    self._handle, _ptr(t), _ptr(o), counts, code, op_arg,
+                    algo, tag, ms))
+
+        _on_host(self._pool, native, (tensor, _IN), (out, _OUT))
+        return out
+
+    def reduce_scatter_inplace(self, tensor: torch.Tensor,
+                               recv_counts: Optional[Sequence[int]] = None,
+                               op="sum", algorithm: str = "auto",
+                               tag: int = 0,
+                               timeout: Optional[float] = None,
+                               wire: Optional[str] = None) -> torch.Tensor:
+        """reduce_scatter with no output: this rank's reduced block
+        (recv_counts[rank] elements) lands at the front of `tensor`, and
+        the returned value is ``tensor[:recv_counts[rank]]``. The rest of
+        `tensor` is unspecified afterwards (for a CUDA tensor the whole
+        staged buffer is copied back, so its bytes equal the CPU call's)."""
         algorithm = self._resolve_rs_wire(wire, algorithm)
         _check_tensor(tensor)
         if callable(op):
-            raise Error("callable reductions are not supported by the "
-                        "port's Context")
-        code = _dtype_code(tensor)
+            raise Error("reduce_scatter_inplace does not support callable "
+                        "reductions (use reduce_scatter)")
         recv_counts = _resolve_recv_counts(recv_counts, tensor.numel(),
                                            self.size)
-        count = int(recv_counts[self.rank])
-        staged = _staged(tensor)
-        if staged:
-            src = self._pool.take(tensor.dtype, tensor.numel())
-            _to_host(src, tensor)
-            out = self._pool.take(tensor.dtype, count)
-            _sync(tensor.device)
-        else:
-            src = tensor
-            out = torch.empty(count, dtype=tensor.dtype)
-        check(_lib.lib().tc_reduce_scatter(
-            self._handle, _ptr(src), _ptr(out), _counts_arg(recv_counts),
-            code, ReduceOp.parse(op), self._RS_ALGORITHMS[algorithm], tag,
-            0))
-        if not staged:
-            return out
-        result = torch.empty(count, dtype=tensor.dtype, device=tensor.device)
-        _to_device(result, out)
-        event = _record(tensor.device)
-        self._pool.give(src, None)
-        self._pool.give(out, event)
-        return result
+        code, op_code = _dtype_code(tensor), ReduceOp.parse(op)
+        counts = _counts_arg(recv_counts)
+        _on_host(self._pool, lambda t: check(
+            _lib.lib().tc_reduce_scatter_inplace(
+                self._handle, _ptr(t), counts, code, op_code,
+                self._RS_ALGORITHMS[algorithm], tag, _timeout_ms(timeout))),
+            (tensor, _INOUT))
+        return tensor[:int(recv_counts[self.rank])]
+
+    # ---- blocking point-to-point ----
+
+    def send(self, tensor: torch.Tensor, dst: int, slot: int,
+             timeout: Optional[float] = None) -> None:
+        """Send `tensor` to rank `dst` on `slot` and wait until it went. A
+        CUDA tensor is copied to pinned memory (and synchronized) first."""
+        _check_tensor(tensor)
+
+        def native(t):
+            buf = self.register(t)
+            buf.send(dst, slot)
+            buf.wait_send(timeout)
+
+        _on_host(self._pool, native, (tensor, _IN))
+
+    def recv(self, tensor: torch.Tensor, src, slot: int,
+             timeout: Optional[float] = None) -> int:
+        """Receive into `tensor` on `slot` from rank `src` or from any rank
+        of the list `src`; returns the source rank. A CUDA tensor receives
+        into pinned memory and takes a copy after the wait returns."""
+        _check_tensor(tensor)
+
+        def native(t):
+            buf = self.register(t)
+            buf.recv(src, slot)
+            rank = buf.wait_recv(timeout)
+            if rank is None:
+                raise Aborted("recv: the wait was aborted")
+            return rank
+
+        return _on_host(self._pool, native, (tensor, _OUT))

@@ -33,8 +33,8 @@ Minimal usage (every worker runs the same code)::
                           rank=rank, world_size=4, steps=1000,
                           min_size=2, checkpointer=ckpt, template=tmpl)
 
-:class:`ElasticContext` wraps each collective of the reference's list
-that the port's Context has (``WRAPPED``).
+:class:`ElasticContext` wraps each of the reference's collectives
+(``WRAPPED``: all 16 of them, point-to-point send and recv included).
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ from __future__ import annotations
 import ctypes
 import json
 import time
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Dict, Optional
 
 from gloo_tpu_torch import _lib, core
 from gloo_tpu_torch._lib import Aborted, Error, IoError, check, check_handle
@@ -126,12 +126,18 @@ class ElasticAgent:
 
     def __init__(self, store: core.Store, device: core.Device, *,
                  rank: int = 0, world_size: int = 1, min_size: int = 1,
+                 join: bool = False, host_id: Optional[str] = None,
                  timeout: float = 60.0):
+        """join=True enqueues a fresh worker (a new wid; `rank` is
+        ignored) on the join queue, to be admitted at the next epoch
+        boundary up to `world_size`. host_id overrides the host
+        fingerprint of every epoch's context (Context.set_host_id)."""
         self._store = store    # keep the handles alive
         self._device = device
         self._handle = check_handle(_lib.lib().tc_elastic_new(
             store._handle, device._handle, rank, world_size, min_size,
-            0, None, int(timeout * 1000)))
+            1 if join else 0, host_id.encode() if host_id else None,
+            int(timeout * 1000)))
         self._free = _lib.lib().tc_elastic_free
         self.timeout = timeout
 
@@ -207,16 +213,17 @@ class ElasticContext:
 
     def __init__(self, store: core.Store, device: core.Device, *,
                  rank: int = 0, world_size: int = 1, min_size: int = 1,
+                 join: bool = False, host_id: Optional[str] = None,
                  timeout: float = 60.0):
         self._store = store
         self._device = device
         self._agent = ElasticAgent(
             store, device, rank=rank, world_size=world_size,
-            min_size=min_size, timeout=timeout)
+            min_size=min_size, join=join, host_id=host_id, timeout=timeout)
         self._grace_s = self._agent.status()["lease_grace_ms"] / 1000.0
         self._ctx: Optional[core.Context] = None
-        self._engine: Optional[core.AsyncEngine] = None
-        self._bucketer = None
+        self._engines: Dict[tuple, core.AsyncEngine] = {}
+        self._bucketers: Dict[tuple, Any] = {}
         self.rebuild()
 
     # ---- identity of the current epoch ----
@@ -318,33 +325,42 @@ class ElasticContext:
 
     # ---- per-epoch attachments (re-bound on rebuild) ----
 
-    def async_engine(self) -> core.AsyncEngine:
-        """The current epoch's async engine (created on first use per
-        epoch — a COLLECTIVE, so every member must reach it together,
-        exactly like Context.async_engine). After a rebuild the next call
-        creates a fresh engine on the new mesh."""
-        if self._engine is None or not self._engine._handle:
-            self._engine = self._ctx.async_engine()
-        return self._engine
+    def async_engine(self, lanes: Optional[int] = None,
+                     tag_base: int = 0) -> core.AsyncEngine:
+        """The current epoch's async engine for this (lanes, tag_base)
+        (created on first use per epoch — a COLLECTIVE, so every member
+        must reach it together, exactly like Context.async_engine). After
+        a rebuild the next call creates a fresh engine on the new mesh."""
+        key = (lanes, tag_base)
+        engine = self._engines.get(key)
+        if engine is None or not engine._handle:
+            engine = self._ctx.async_engine(lanes=lanes, tag_base=tag_base)
+            self._engines[key] = engine
+        return engine
 
-    def bucketer(self):
-        """The current epoch's averaging GradientBucketer over
-        :meth:`async_engine` (re-created per epoch; buffers re-bind to
-        the new lanes): finish() leaves each gradient summed over the
-        epoch's members and divided by their count. Failures from its
-        finish()/wait() should be routed through
+    def bucketer(self, bucket_bytes: Optional[int] = None,
+                 lanes: Optional[int] = None):
+        """The current epoch's averaging GradientBucketer for this
+        (bucket_bytes, lanes) over :meth:`async_engine` (re-created per
+        epoch; buffers re-bind to the new lanes): finish() leaves each
+        gradient summed over the epoch's members and divided by their
+        count. Failures from its finish()/wait() should be routed through
         :meth:`translate_failure`."""
         from gloo_tpu_torch.bucketer import GradientBucketer
 
-        if self._bucketer is None:
-            self._bucketer = GradientBucketer(self.async_engine(),
-                                              average=True)
-        return self._bucketer
+        key = (bucket_bytes, lanes)
+        bucketer = self._bucketers.get(key)
+        if bucketer is None:
+            bucketer = GradientBucketer(self.async_engine(lanes=lanes),
+                                        bucket_bytes=bucket_bytes,
+                                        average=True)
+            self._bucketers[key] = bucketer
+        return bucketer
 
     def _shutdown_attachments(self) -> None:
-        self._bucketer = None
-        engine, self._engine = self._engine, None
-        if engine is not None:
+        self._bucketers.clear()
+        engines, self._engines = self._engines, {}
+        for engine in engines.values():
             try:
                 engine.shutdown()
             except Exception:  # noqa: BLE001 - poisoned lanes
@@ -352,12 +368,12 @@ class ElasticContext:
 
     # ---- observability ----
 
-    def metrics(self) -> dict:
+    def metrics(self, drain: bool = False) -> dict:
         """Context.metrics() of the current epoch, with the agent's
         membership status attached under "elastic" (epoch gauge, member
         count, leases_renewed / rebuilds counters —
         docs/observability.md)."""
-        snap = self._ctx.metrics()
+        snap = self._ctx.metrics(drain)
         snap["elastic"] = self._agent.status()
         return snap
 
@@ -389,7 +405,7 @@ def _wrap_collective(name: str) -> Callable:
 
 
 # The reference's wrapped collectives (gloo_tpu/elastic.py); those the
-# port's Context has are wrapped, so a collective it gains is wrapped too.
+# port's Context has are wrapped (today all of them).
 REFERENCE_WRAPPED = ("allreduce", "allreduce_multi", "reduce",
                      "reduce_scatter", "reduce_scatter_inplace", "broadcast",
                      "barrier", "allgather", "allgatherv", "gather",
@@ -404,7 +420,9 @@ for _name in WRAPPED:
 def run_elastic(step_fn: Callable, *, store: core.Store,
                 device: core.Device, rank: int = 0, world_size: int = 1,
                 steps: Optional[int] = None, min_size: int = 1,
+                join: bool = False, host_id: Optional[str] = None,
                 state: Any = None, checkpointer=None, template=None,
+                max_rebuilds: int = 64,
                 timeout: float = 60.0) -> dict:
     """Run ``state = step_fn(ectx, step, state)`` for `steps` successful
     steps (None = until `step_fn` raises StopIteration or leaves),
@@ -419,14 +437,18 @@ def run_elastic(step_fn: Callable, *, store: core.Store,
     in-place buffers hold undefined contents (docs/errors.md).
 
     :class:`Evicted` / :class:`BelowMinSize` propagate: the caller (or
-    its supervisor) decides what to do.
+    its supervisor) decides whether to rejoin (join=True, a fresh worker
+    admitted at the next epoch boundary) or die. The :class:`EpochChanged`
+    past `max_rebuilds` rebuilds propagates too. host_id is the host
+    fingerprint of every epoch's context.
 
     Returns {"steps", "rebuilds", "epochs": [{"epoch", "size", "rank",
     "group"}...], "rebuild_ms": [...], "elastic": final agent status,
     "stopped": bool, "left": bool, "state": final state}.
     """
     ectx = ElasticContext(store, device, rank=rank, world_size=world_size,
-                          min_size=min_size, timeout=timeout)
+                          min_size=min_size, join=join, host_id=host_id,
+                          timeout=timeout)
     summary: dict = {"steps": 0, "rebuilds": 0, "epochs": [],
                      "rebuild_ms": [], "stopped": False, "left": False}
 
@@ -451,6 +473,8 @@ def run_elastic(step_fn: Callable, *, store: core.Store,
                 break
             except EpochChanged:
                 summary["rebuilds"] += 1
+                if summary["rebuilds"] > max_rebuilds:
+                    raise
                 ectx.rebuild()
                 summary["rebuild_ms"].append(
                     ectx.status().get("last_rebuild_ms", -1))

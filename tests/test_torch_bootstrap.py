@@ -113,3 +113,59 @@ def test_init_from_env_over_two_processes(style):
                 p.communicate()
     for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
         assert p.returncode == 0 and f"OK {rank} {size}" in out, (out, err)
+
+
+_PREFIX_WORKER = textwrap.dedent("""
+    import os, sys
+    sys.path.insert(0, {repo!r})
+    import torch
+    import gloo_tpu_torch
+    from gloo_tpu_torch import core
+
+    device = gloo_tpu_torch.Device()
+    ctx, server = gloo_tpu_torch.init_from_env(device=device,
+                                               prefix="job-a", timeout=60.0)
+    # A second context through the same store server, under another
+    # prefix, over the same device.
+    store = core.TcpStore("127.0.0.1", int(os.environ["MASTER_PORT"]))
+    second = core.Context(ctx.rank, ctx.size, timeout=60.0)
+    second.connect_full_mesh(core.PrefixStore(store, "job-b"), device)
+    a = ctx.allreduce(torch.full((64,), float(ctx.rank + 1)))
+    b = second.allgather(torch.tensor([ctx.rank * 10]))
+    assert float(a[0]) == 3.0 and b.view(-1).tolist() == [0, 10]
+    assert ctx._device is device and second._device is device
+    keys = store.list()
+    assert any(k.startswith("job-a") for k in keys), keys
+    assert any(k.startswith("job-b") for k in keys), keys
+    assert not any(k.startswith("tc-env") for k in keys), keys
+    second.barrier()
+    ctx.barrier()
+    second.close()
+    ctx.close()
+    del server
+    print("OK", ctx.rank, flush=True)
+""").format(repo=_REPO)
+
+
+def test_init_from_env_prefix_and_device():
+    """init_from_env(device=, prefix=): the context rendezvouses under the
+    given prefix over the caller's Device, so a second context can meet
+    on the same store server under another prefix."""
+    port = str(_free_port())
+    base = {k: v for k, v in os.environ.items()
+            if k not in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _PREFIX_WORKER],
+        env=dict(base, RANK=str(r), WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+                 MASTER_PORT=port),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=180) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0 and f"OK {rank}" in out, (out, err)

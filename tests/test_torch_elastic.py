@@ -271,19 +271,126 @@ def test_lease_knobs_are_strict():
 
 def test_elastic_context_wraps_the_collectives_the_port_has():
     """ElasticContext wraps each of the reference's collectives that the
-    port's Context has; the rest (the Context surface still to port)
-    join the list when Context gains them."""
-    assert elastic.WRAPPED == ("allreduce", "reduce_scatter", "broadcast",
-                               "barrier", "allgather")
+    port's Context has: since the rest of the Context surface was ported,
+    all 16 of them."""
+    assert elastic.WRAPPED == elastic.REFERENCE_WRAPPED
+    assert len(elastic.WRAPPED) == 16
     assert set(elastic.WRAPPED) == {
         name for name in elastic.REFERENCE_WRAPPED
         if hasattr(core.Context, name)}
     for name in elastic.REFERENCE_WRAPPED:
         method = getattr(elastic.ElasticContext, name, None)
-        if name in elastic.WRAPPED:
-            assert method.__qualname__ == f"ElasticContext.{name}"
-        else:
-            assert method is None, name
+        assert method.__qualname__ == f"ElasticContext.{name}"
+
+
+# Every step allreduces a consensus stop flag (set after two steps back
+# at the full size), then runs wrapped
+# collectives of the rest of the surface (reduce, alltoall) and averages a
+# gradient through ectx.bucketer(bucket_bytes, lanes), checked against the
+# current size. `leaver` leaves gracefully at step 3; every worker names
+# its host (host_id=), so the final epoch's topology has one host per
+# member.
+_JOIN_BODY = """
+leaver = {leaver}
+
+def step_fn(ectx, step, state):
+    if rank == leaver and step == 3:
+        ectx.leave()
+    state["hosts"] = [h["fingerprint"] for h in ectx.topology()["hosts"]]
+    # Rank 0 (wid 0) stops the run after 2 steps back at size 3.
+    flag = torch.zeros(1)
+    if ectx.rank == 0 and state["grown"] >= 2:
+        flag[0] = 1.0
+    ectx.allreduce(flag, tag=0)
+    if flag[0] > 0:
+        raise StopIteration
+    n = ectx.size
+    x = torch.full((256,), float(ectx.rank + 1))
+    total = ectx.reduce(x, root=0, tag=1)
+    assert (total is None) == (ectx.rank != 0)
+    assert total is None or float(total[0]) == n * (n + 1) / 2
+    rows = ectx.alltoall(torch.arange(n, dtype=torch.int32).view(n, 1) +
+                         100 * ectx.rank, tag=2)
+    assert rows.view(-1).tolist() == [100 * r + ectx.rank for r in range(n)]
+    grad = torch.full((64,), float(ectx.rank))
+    bucketer = ectx.bucketer(bucket_bytes=128, lanes=1)
+    bucketer.add(grad)
+    bucketer.finish()
+    assert float(grad[0]) == (n - 1) / 2, (float(grad[0]), n)
+    state["shrunk"] |= n == 2
+    state["grown"] += state["shrunk"] and n == 3
+    return state
+
+res = elastic.run_elastic(step_fn, store=store, device=device, rank=rank,
+                          world_size=size, min_size=2, join={join},
+                          host_id="elastic-host%d" % rank,
+                          state={{"shrunk": False, "grown": 0}},
+                          timeout=90.0)
+res["topology"] = res.pop("state")["hosts"]
+print("OK", json.dumps(res))
+"""
+
+
+def test_a_joiner_rejoins_after_a_member_leaves():
+    """Grow path: after rank 2 leaves, a fresh worker started with
+    join=True is admitted at the next epoch boundary, back to the world
+    size; all three then run the wrapped collectives. host_id= reaches
+    every epoch's topology."""
+    store = tempfile.mkdtemp()
+    procs = [_spawn(_JOIN_BODY.format(leaver=2, join=False), r, 3, store)
+             for r in range(3)]
+    try:
+        assert procs[2].wait(timeout=_RUN_TIMEOUT) == 0, \
+            procs[2].communicate()
+        joiner = _spawn(_JOIN_BODY.format(leaver=-1, join=True), 9, 3,
+                        store)
+        procs.append(joiner)
+        outs = [p.communicate(timeout=_RUN_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r in (0, 1, 3):
+        assert procs[r].returncode == 0, (r, outs[r])
+    for r in (0, 1):
+        res = _summary(outs[r])
+        assert [e["size"] for e in res["epochs"]] == [3, 2, 3], res
+        assert res["elastic"]["members"] == [0, 1, 3], res
+        hosts = res["topology"]
+        assert sorted(hosts) == ["elastic-host0", "elastic-host1",
+                                 "elastic-host9"], res
+    jres = _summary(outs[3])
+    st = jres["elastic"]
+    assert st["wid"] == 3 and st["rank"] == 2 and st["size"] == 3, st
+    assert jres["steps"] == 2 and jres["stopped"], jres
+    assert _summary(outs[2])["left"] is True
+
+
+def test_max_rebuilds_stops_run_elastic():
+    """With max_rebuilds=0 the first membership change is not recovered
+    from: run_elastic re-raises the EpochChanged on every survivor."""
+    body = """
+def step_fn(ectx, step, state):
+    if rank == 2 and step == 2:
+        ectx.leave()
+    ectx.allreduce(torch.ones(1024), tag=1)
+    return state
+
+try:
+    res = elastic.run_elastic(step_fn, store=store, device=device,
+                              rank=rank, world_size=size, min_size=2,
+                              steps=500, max_rebuilds=0, timeout=90.0)
+    print("OK", json.dumps({"left": res["left"]}))
+except elastic.EpochChanged as e:
+    print("OK", json.dumps({"epoch_changed": e.epoch}))
+"""
+    codes, outs = _run(body)
+    for r in range(3):
+        assert codes[r] == 0, (r, outs[r])
+    for r in (0, 1):
+        assert _summary(outs[r]) == {"epoch_changed": 2}, outs[r]
+    assert _summary(outs[2]) == {"left": True}
 
 
 def test_reference_wraps_the_same_names():

@@ -360,7 +360,10 @@ class _StagingLog:
     logs their order. Meta tensors take the card's path (their device is
     not the CPU); the pinned buffers are plain CPU tensors."""
 
-    def __init__(self, monkeypatch):
+    NATIVES = ("tc_allreduce", "tc_async_allreduce", "tc_allgather",
+               "tc_reduce_scatter", "tc_broadcast")
+
+    def __init__(self, monkeypatch, natives=NATIVES):
         self.order = []
         self.allocated = 0
         real = _lib.lib()
@@ -373,9 +376,7 @@ class _StagingLog:
         class Lib:
             def __getattr__(self, name):
                 fn = getattr(real, name)
-                if not name.startswith(("tc_allreduce", "tc_async_allreduce",
-                                        "tc_allgather", "tc_reduce_scatter",
-                                        "tc_broadcast")):
+                if not name.startswith(natives):
                     return fn
 
                 def native(*args):
@@ -455,7 +456,8 @@ def test_staging_of_an_async_allreduce(single, monkeypatch):
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: staging copies to and from a card")
-    return torch.device("cuda")
+    # With its index: a tensor's device is cuda:0, never the bare "cuda".
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 @pytest.mark.cuda
