@@ -182,7 +182,21 @@ Phases, each of which raises on failure:
      on CUDA tensors of STAGE_DTYPES x STAGE_BYTES for HOST_ROUNDS rounds,
      each on cuda and bitwise equal to the same call on a CPU copy; then
      each call's host-clock ms at 16 MiB of f32 (a median of 10) and each
-     plan's replay against its per-call form, in turns.
+     plan's replay against its per-call form, in turns;
+ 31. the flagship at one head of 256 in f16 (entry.D256_F16_CONFIG):
+     d256_f16_entry()'s forward and greedy generate (B1 once per layer)
+     and 5 steps of d256_f16_train_entry() (B1, B2 once per layer and
+     step), each against the same model on the CPU; ring-flash at one head
+     of 256 in f16 over 4 ranks of 4096 tokens ((B6, B7, prep, finish) =
+     (4, 4, 1, 1), against the same ring on the CPU); the fused MLP in f16
+     over a ring of 4 at 1024 rows ((B5b, B5a, B4b) = (1, 2, 1), against
+     the dense MLP); then each path's ms per call and busy share, and B6
+     and B7 per launch at that ring beside their bounds and yardsticks.
+     The new instances (f16, d 256 and its padded 136-248, b * h past
+     65535) are held against their twins in phases 3, 12 and 16
+     (FLASH_CASES, OVERLAP_CASES, STEP_CASES) and timed in phase 7; one
+     JSON line {"d256_f16_path": ...} gathers phase 31's paths and those
+     kernels' rows.
 The line before the last is the JSON list of kernels; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or gloo_tpu.
 """
@@ -203,10 +217,12 @@ import torch.nn.functional as F
 # Tolerances of a kernel against its plain version, as (rtol, atol) in
 # max|a - b| <= atol + rtol * |b|. bf16: p and out are rounded to bf16, so a
 # last-bit difference in the f32 sums before a rounding can flip one bf16
-# ulp (2**-8 relative) of p and then of out; two ulps are allowed. f32: sums
-# in another order. lse is f32 in both.
+# ulp (2**-8 relative) of p and then of out; two ulps are allowed. f16: the
+# same with f16's ulp (2**-11 relative), so the bf16 tolerances times 2**-3.
+# f32: sums in another order. lse is f32 in all three.
 KERNEL_TOL = {
     torch.bfloat16: {"out": (1.6e-2, 1e-2), "lse": (1e-5, 1e-4)},
+    torch.float16: {"out": (2e-3, 1.25e-3), "lse": (1e-5, 1e-4)},
     torch.float32: {"out": (1e-5, 1e-5), "lse": (1e-5, 1e-4)},
 }
 # The backward kernel against its plain version, (rtol, atol) as above but
@@ -215,8 +231,9 @@ KERNEL_TOL = {
 # flipped ulp of one term or of the result moves an element by up to about
 # one ulp of the largest terms (the same bound holds the plain version
 # against JAX on the CPU). f32: sums in another order, dq's atomics in an
-# order that changes from run to run.
-BWD_TOL = {torch.bfloat16: (1.6e-2, 8e-3), torch.float32: (1e-4, 1e-5)}
+# order that changes from run to run. f16: bf16's bound at f16's ulp.
+BWD_TOL = {torch.bfloat16: (1.6e-2, 8e-3), torch.float16: (2e-3, 1e-3),
+           torch.float32: (1e-4, 1e-5)}
 # f32 kernel gradients against autograd through reference_attention on the
 # card (materialized softmax, no lse): same arithmetic, other order.
 ORACLE_TOL = (1e-4, 1e-5)
@@ -291,6 +308,8 @@ OVERLAP_CASES = [
      "transposed"),
     ("P4_deep_bf16", {"x": 4}, "x", 64, 1024, 128, torch.bfloat16, "own"),
     ("P2_deep_f32", {"x": 2}, "x", 32, 384, 96, torch.float32, "own"),
+    ("P3_ragged_f16", {"x": 3}, "x", 20, 40, 100, torch.float16, "own"),
+    ("mlp_f16", {"x": 4}, "x", 256, 256, 256, torch.float16, "own"),
 ]
 # The fused MLP (phase 13) and the 2 x 2 pair against the same MLP run
 # densely on the card, as the relative norm |a - b| / |b| of the output and
@@ -320,14 +339,19 @@ STEP_CASES = [
     ("f32_d128_gqa_full", 2, 1, 4, 2, 100, 128, torch.float32, False),
     ("d32_gqa", 4, 1, 8, 2, 256, 32, torch.bfloat16, True),
     ("d96_ragged_t200_full", 2, 1, 4, 4, 200, 96, torch.bfloat16, False),
+    ("d256_f16_pathS", 4, 2, 1, 1, 1024, 256, torch.float16, True),
+    ("f16_gqa_h8_kv2", 4, 1, 8, 2, 256, 64, torch.float16, True),
+    ("d256_f32_full", 2, 1, 2, 2, 100, 256, torch.float32, False),
+    ("bh65540_step", 2, 16385, 4, 4, 64, 64, torch.bfloat16, True),
 ]
 # The step kernels against their plain versions, (rtol, atol) with atol
 # relative to the largest |plain| of each tensor. bf16: p (B6) and ds (B7)
 # are rounded to bf16 inside the sums, so a last-bit difference of an f32
 # score flips one bf16 ulp of a term (2**-8 relative), as for B1/B2
-# (BWD_TOL). f32: products summed in another order. m and l are f32 in
-# both dtypes.
-STEP_TOL = {torch.bfloat16: (1.6e-2, 8e-3), torch.float32: (1e-4, 1e-5)}
+# (BWD_TOL); f16 the same at f16's ulp (2**-11). f32: products summed in
+# another order. m and l are f32 in every dtype.
+STEP_TOL = {torch.bfloat16: (1.6e-2, 8e-3), torch.float16: (2e-3, 1e-3),
+            torch.float32: (1e-4, 1e-5)}
 STATE_TOL = (1e-5, 1e-5)
 # The unrounded-cotangent guard: the fused B7's max |dV - plain| with an
 # f32 dO, as a share of what rounding that dO to bf16 moves the plain dV.
@@ -440,7 +464,8 @@ PP_TOL = {"out": 2e-2, "loss": 1e-3, "grad": 5e-2}
 TRACE_CALLS = 3
 
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
+              torch.float32: 67e12}
 
 # (name, b, h, h_kv, t, d, dtype, causal). The first is the shape the
 # entry forward and the training step give the kernels, the last the one
@@ -461,6 +486,12 @@ FLASH_CASES = [
     ("dryrun_dp_tp_d8", 4, 4, 4, 16, 8, torch.bfloat16, True),
     ("d32_gqa", 2, 8, 2, 256, 32, torch.bfloat16, True),
     ("d96_ragged_t200_full", 2, 4, 4, 200, 96, torch.bfloat16, False),
+    ("f16_entry", 8, 4, 4, 128, 64, torch.float16, True),
+    ("d256_f16_path", 8, 1, 1, 128, 256, torch.float16, True),
+    ("d256_bf16_t1024_full", 2, 4, 4, 1024, 256, torch.bfloat16, False),
+    ("d200_gqa_f16", 2, 8, 2, 256, 200, torch.float16, True),
+    ("f32_d256_t100", 2, 2, 2, 100, 256, torch.float32, False),
+    ("bh65540", 16385, 4, 4, 64, 64, torch.bfloat16, True),
     ("ulysses", 8, 1, 1, 4096, 64, torch.bfloat16, True),
 ]
 
@@ -624,7 +655,7 @@ def check_bwd(attn, name, b, h, h_kv, t, d, dtype, causal, gen):
     own out and lse; in f32 also against autograd through the
     materialized reference. Returns (max abs error over dq, dk, dv,
     whether every check held)."""
-    fused = dtype == torch.bfloat16
+    fused = dtype != torch.float32
     q, k, v = make_qkv(b, h, h_kv, t, d, dtype, gen, fused)
     do = make_do(b, h, t, d, dtype, gen, fused)
     out, lse = attn.flash_attention_fwd(q, k, v, causal)
@@ -700,13 +731,15 @@ def ring_check(label, fn, plain, x, axis, mesh, want=None, runs=1):
 def overlap_close(a, b):
     """(max |a - b|, whether a is within the collective matmuls' tolerance
     of b): f32 (rtol, atol) (1e-5, 1e-5), the partial products summed in
-    another order; bf16 two bf16 ulps of the largest |b|, a flipped last
-    bit of a rounded partial and then of the add after it."""
+    another order; bf16 and f16 two ulps of the largest |b| in the type
+    (eps 2**-7 and 2**-10), a flipped last bit of a rounded partial and
+    then of the add after it."""
     err = float((a.float() - b.float()).abs().max())
     if a.dtype == torch.float32:
         return err, max_err(a, b, 1e-5, 1e-5)[1]
     peak = float(b.float().abs().max())
-    return err, err <= 2 * 2.0 ** (math.floor(math.log2(peak)) - 7)
+    eps = torch.finfo(a.dtype).eps
+    return err, err <= 2 * 2.0 ** math.floor(math.log2(peak)) * eps
 
 
 def rel_norm(a, b):
@@ -1442,15 +1475,16 @@ def b7_times(attn, qf, steps, q_off, out, lse, pairs, n):
     """Phase 19's B7: the fused launch over the path's ring steps as the
     ring backward makes it (prepare_bwd_step once, then
     flash_attention_bwd_step_into into f32 carriers), with the path's own
-    cotangent (cos(out) in bf16, as sp_step's loss hands it over) and with
-    an f32 torch.randn one; the plain version; the library yardstick,
+    cotangent (cos(out) in q's dtype, as sp_step's loss hands it over) and
+    with an f32 torch.randn one; the plain version; the library yardstick,
     checked against the fresh step of the plain version. Returns the
     kernels line's (ms, plain ms, library ms, bound, bound by) of the
     path's cotangent."""
     bh, t, d = qf.shape
     kv_rows = steps[0][0].shape[0]
     outf = out.reshape(qf.shape)
-    cotangents = {"bf16 (the path's)": torch.cos(outf),
+    path = f"{str(qf.dtype)[6:]} (the path's)"
+    cotangents = {path: torch.cos(outf),
                   "f32": torch.randn(qf.shape, device=qf.device)}
     results = {}
     for label, g in cotangents.items():
@@ -1478,7 +1512,7 @@ def b7_times(attn, qf, steps, q_off, out, lse, pairs, n):
             plain_ms = timed(f"flash_bwd_step plain, {n} steps, {label} "
                              f"cotangent", plain, iters=3)
         plain_ms = None if plain_ms is None else plain_ms / n
-        passes = 6 if g.dtype == torch.bfloat16 else 8
+        passes = 6 if g.dtype != torch.float32 else 8
         bound, bound_by, nbytes = b7_bound(qf, steps, q_off, pairs,
                                            g.element_size(), passes)
         print(f"  flash_bwd_step ({label} cotangent): {ms} ms per launch "
@@ -1487,7 +1521,7 @@ def b7_times(attn, qf, steps, q_off, out, lse, pairs, n):
               f"{nbytes} bytes and {2 * d * pairs * passes // n} operations, "
               f"{passes} bf16 passes per pair, per launch on average)")
         results[label] = (ms, plain_ms, bound, bound_by, g, delta)
-    ms, plain_ms, bound, bound_by, g, delta = results["bf16 (the path's)"]
+    ms, plain_ms, bound, bound_by, g, delta = results[path]
     rows_per_rank = bh // len(steps)
     lib_fn, lib_out = b7_library(qf, steps, q_off, out, lse, g,
                                  rows_per_rank)
@@ -1496,7 +1530,7 @@ def b7_times(attn, qf, steps, q_off, out, lse, pairs, n):
         ref = attn.flash_attention_bwd_step_plain(qf, ks, vs, g, delta, lse,
                                                   q_off, k_off)
         for a, r in zip(grads, ref):
-            err, close = step_close(a[0].float(), r[r0:], torch.bfloat16)
+            err, close = step_close(a[0].float(), r[r0:], qf.dtype)
             worst, ok = max(worst, err), ok and close
     with torch.no_grad():
         lib = timed(f"flash_bwd_step yardstick: {n} calls of "
@@ -1512,14 +1546,14 @@ def b7_times(attn, qf, steps, q_off, out, lse, pairs, n):
     return ms, plain_ms, lib, bound, bound_by
 
 
-def slice5_times(attn, sp, spmd, ring, paths, ep, card):
-    """Phase 19: B6 and the fused B7 over the long-context path's four
-    ring steps (ms per launch, averaged; B7 as the ring backward launches
-    it, with the path's bf16 cotangent and with an f32 one), B8 at its
-    Ulysses exchange, against their bounds, plain versions and
-    yardsticks; the three paths. Returns {kernel: (ms, plain ms, library
-    ms or None, bound ms, bound by)}."""
-    _, q, k, v, mesh = paths["ring_flash"][1]
+def step_kernel_times(attn, sp, spmd, q, k, v, mesh, card, label):
+    """B6 (in place, as the ring forward launches it) and the fused B7 (as
+    the ring backward launches it, with the path's cotangent in q's dtype
+    and with an f32 one) over the ring steps of ring_flash_attention on
+    the world tensors q, k, v along "seq", causal: ms per launch
+    (averaged), bounds, plain versions and yardsticks. Returns {"flash_
+    step": row, "flash_bwd_step": row}, rows as the kernels line's (ms,
+    plain ms, library ms or None, bound ms, bound by)."""
     qf, steps, q_off, group = ring_steps(sp, spmd, q, k, v, "seq", mesh,
                                          True)
     bh, t, d = qf.shape
@@ -1533,9 +1567,9 @@ def slice5_times(attn, sp, spmd, ring, paths, ep, card):
         states.append(state)
         state = attn.flash_attention_step(qf, ks, vs, *state, q_off, k_off)
     pairs = sum(visible_pairs(q_off, k_off, t, True) for _, _, k_off in steps)
-    print(f"ring-attention step times at the long-context path's {n} ring "
-          f"steps ({bh} rows x t {t}, d {d}, bf16, causal; {pairs} visible "
-          f"(q, k) pairs over the {n} launches) on {card}:")
+    print(f"ring-attention step times at {label} {n} ring steps ({bh} "
+          f"rows x t {t}, d {d}, {str(qf.dtype)[6:]}, causal; {pairs} "
+          f"visible (q, k) pairs over the {n} launches) on {card}:")
 
     def b6(fn):
         return lambda: [fn(qf, ks, vs, *st, q_off, k_off)
@@ -1577,6 +1611,19 @@ def slice5_times(attn, sp, spmd, ring, paths, ep, card):
     rows["flash_step"] = (ms, plain_ms, None, bound, bound_by)
     rows["flash_bwd_step"] = b7_times(attn, qf, steps, q_off, out, lse,
                                       pairs, n)
+    return rows
+
+
+def slice5_times(attn, sp, spmd, ring, paths, ep, card):
+    """Phase 19: B6 and the fused B7 over the long-context path's four
+    ring steps (ms per launch, averaged; B7 as the ring backward launches
+    it, with the path's bf16 cotangent and with an f32 one), B8 at its
+    Ulysses exchange, against their bounds, plain versions and
+    yardsticks; the three paths. Returns {kernel: (ms, plain ms, library
+    ms or None, bound ms, bound by)}."""
+    _, q, k, v, mesh = paths["ring_flash"][1]
+    rows = step_kernel_times(attn, sp, spmd, q, k, v, mesh, card,
+                             "the long-context path's")
 
     # Path-level yardsticks over the whole sequence: SDPA and B1 + B2, each
     # forward and backward of sum(sin(out)).
@@ -2281,6 +2328,265 @@ def parallel_times(tracing, fsdp, pp_paths, card):
         rows[label] = path_time(label, fn) + (
             scope_times(tracing, label, fn, scopes),)
     return rows
+
+
+# ---- phase 31: the flagship at one head of 256 in f16 ----
+# The d 256 f16 path against the same model on the CPU (the twins), at
+# f16's ulp (2**-11 relative) where the bf16 paths are held at bf16's
+# (2**-8): each bf16 tolerance of phases 4, 6, 13 and 17 times 2**-3.
+# Logits (LOGITS_TOL / 8): f16 roundings that fall differently through two
+# layers (the CPU twins against JAX: 7.9e-4 at a small size,
+# tests/test_torch_domains.py). The first training step: the loss
+# (TRAIN_TOL / 8) and the per-tensor relative norm of every gradient,
+# held to 2e-2: the largest norm is that of a small gradient summed over
+# the batch's 1024 rows (an RMSNorm scale; 5.2e-3 on the card, where
+# phase 6's bf16 shows 7.7e-3 at the position table), set by cancellation
+# in the reduction more than by the type's ulp, so TRAIN_TOL's 5e-2 is
+# not scaled by 1/8 but halved twice over. The ring-flash path against the
+# same ring on the CPU (SP_TOL / 8, as |a - b| / |b| of the output and
+# each gradient) and the fused MLP against the dense MLP on the card
+# (MLP_TOL / 8).
+D256_LOGITS_TOL = (2.5e-3, 2.5e-3)
+D256_TRAIN_TOL = {"loss": 1.25e-4, "grad": 2e-2}
+D256_SP_TOL = 2.5e-3
+D256_MLP_TOL = 2.5e-3
+# The long-context shape of phase 31's ring-flash: the sp_entry's world of
+# SP_MESH ranks over a global sequence of SP_SEQ, batch 2, one head of 256.
+D256_SP_BATCH = 2
+
+
+def d256_serving(attn, entry_mod, device="cuda"):
+    """Phase 31's serving path: d256_f16_entry()'s forward and greedy
+    generate, with B1/B2's launches read around them; logits against the
+    same model on the CPU. Returns (fn, model, tokens, prompts)."""
+    from gloo_tpu_torch.models import Transformer
+
+    cfg = entry_mod.D256_F16_CONFIG
+    attn.flash_attention_fwd.launches = 0
+    attn.flash_attention_bwd.launches = 0
+    fn, (model, tokens) = entry_mod.d256_f16_entry(device)
+    logits = fn(model, tokens)
+    prompts = tokens[:4, :16]
+    served = model.generate(prompts, max_new=8)
+    torch.cuda.synchronize()
+    launches = (attn.flash_attention_fwd.launches,
+                attn.flash_attention_bwd.launches)
+    cpu_model = Transformer(cfg, device="cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    ref = entry_mod.forward(cpu_model, tokens.cpu())
+    err, ok = max_err(logits.cpu(), ref, *D256_LOGITS_TOL)
+    print(f"d256 f16 serving path ({cfg.n_heads} head of "
+          f"{cfg.head_dim}, {str(cfg.dtype)[6:]}): forward logits "
+          f"{tuple(logits.shape)}, generate {tuple(served.shape)}; "
+          f"launches flash_fwd, flash_bwd {launches}; logits vs the CPU "
+          f"model max_abs_err {err:.3e} (rtol, atol {D256_LOGITS_TOL}), "
+          f"|logits| max {float(ref.abs().max()):.3f}")
+    if launches != (cfg.n_layers, 0):
+        raise AssertionError(f"the d256 f16 serving path launched (B1, B2) "
+                             f"{launches}, expected ({cfg.n_layers}, 0)")
+    if logits.shape != (8, cfg.max_seq_len, cfg.vocab_size) \
+            or not bool(torch.isfinite(logits).all()) or not ok:
+        raise AssertionError("the d256 f16 logits are malformed or disagree "
+                             "with the CPU model")
+    if not torch.equal(served[:, :16], prompts) \
+            or int(served.min()) < 0 or int(served.max()) >= cfg.vocab_size:
+        raise AssertionError("d256 f16 generate returned malformed tokens")
+    return fn, model, tokens, prompts
+
+
+def d256_training(attn, entry_mod, device="cuda"):
+    """Phase 31's training path: TRAIN_STEPS steps of
+    d256_f16_train_entry(), B1/B2's launches read around them, a falling
+    loss, the first step against the CPU model. Returns the step's
+    (step, (model, optimizer, tokens, targets))."""
+    from gloo_tpu_torch.models import Transformer
+
+    cfg = entry_mod.D256_F16_CONFIG
+    step, args = entry_mod.d256_f16_train_entry(device)
+    model, opt, tokens, targets = args
+    cpu_model = Transformer(cfg, device="cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    cpu_loss = cpu_model.loss(tokens.cpu(), targets.cpu())
+    cpu_loss.backward()
+    cpu_loss = float(cpu_loss.detach())
+    attn.flash_attention_fwd.launches = 0
+    attn.flash_attention_bwd.launches = 0
+    losses = [step(*args)]
+    first = {n: p.grad.clone() for n, p in model.named_parameters()}
+    losses += [step(*args) for _ in range(TRAIN_STEPS - 1)]
+    torch.cuda.synchronize()
+    launches = (attn.flash_attention_fwd.launches,
+                attn.flash_attention_bwd.launches)
+    losses = [float(x) for x in losses]
+    loss_rel = abs(losses[0] - cpu_loss) / abs(cpu_loss)
+    grad_rel = {n: rel_norm(first[n].cpu(), p.grad)
+                for n, p in cpu_model.named_parameters()}
+    worst = max(grad_rel, key=grad_rel.get)
+    print(f"d256 f16 training path: {TRAIN_STEPS} steps, losses "
+          f"{', '.join(f'{x:.6f}' for x in losses)}; launches flash_fwd, "
+          f"flash_bwd {launches}; first step vs the CPU model: loss rel "
+          f"{loss_rel:.3e} (tol {D256_TRAIN_TOL['loss']}), grads |g - "
+          f"g_cpu| / |g_cpu| max {grad_rel[worst]:.3e} at {worst} (tol "
+          f"{D256_TRAIN_TOL['grad']})")
+    want = TRAIN_STEPS * cfg.n_layers
+    if launches != (want, want):
+        raise AssertionError(f"d256 f16 training launched (B1, B2) "
+                             f"{launches}, expected ({want}, {want})")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < \
+            losses[0]:
+        raise AssertionError(f"d256 f16 training loss is not finite and "
+                             f"falling: {losses}")
+    if loss_rel > D256_TRAIN_TOL["loss"] \
+            or grad_rel[worst] > D256_TRAIN_TOL["grad"]:
+        raise AssertionError("the first d256 f16 training step disagrees "
+                             "with the CPU model")
+    return step, args
+
+
+def d256_ring_flash(attn, sp, make_mesh, entry_mod, device="cuda"):
+    """Phase 31's ring-flash: sp_step(ring_flash_attention) at one head of
+    256 in f16 over SP_MESH ranks of the global SP_SEQ, B6/B7's launches
+    (B6, B7, prep, finish) read around it, against the same ring on the
+    CPU. Returns (fn, args)."""
+    from gloo_tpu_torch.entry import SP_MESH, SP_SEQ
+
+    n = SP_MESH["seq"]
+    dev = torch.device(device)
+    shape = (n, D256_SP_BATCH, 1, SP_SEQ // n, 256)
+    rng = np.random.RandomState(0)
+    host = [torch.as_tensor(rng.randn(*shape).astype(np.float32)).half()
+            for _ in range(3)]
+    counters = (attn.flash_attention_step, attn.flash_attention_bwd_step,
+                attn.prepare_bwd_step, attn.flash_bwd_step_finish)
+    results = []
+    for i, where in enumerate((dev, torch.device("cpu"))):
+        mesh = make_mesh(SP_MESH, devices=[where] * n)
+        args = (sp.ring_flash_attention, *(x.to(where) for x in host), mesh)
+        for c in counters:
+            c.launches = 0
+        out, grads = entry_mod.sp_step(*args)
+        if i == 0:
+            torch.cuda.synchronize()
+            launches = tuple(c.launches for c in counters)
+            on_card = args
+        results.append([x.cpu() for x in (out, *grads)])
+    rels = {name: rel_norm(a, b) for name, a, b in
+            zip(("out", "dq", "dk", "dv"), *results)}
+    print(f"d256 f16 ring-flash path: {n} ranks x (b {D256_SP_BATCH}, h 1, "
+          f"t {SP_SEQ // n}, d 256) f16 causal, forward + backward of "
+          f"sum(sin(out)); launches flash_step, flash_bwd_step, prepare, "
+          f"finish {launches}; against the same ring on the CPU |a - b| / "
+          f"|b|: {', '.join(f'{k} {v:.3e}' for k, v in rels.items())} (tol "
+          f"{D256_SP_TOL})")
+    if launches != (n, n, 1, 1):
+        raise AssertionError(f"the d256 f16 ring-flash launched {launches}, "
+                             f"expected ({n}, {n}, 1, 1)")
+    if max(rels.values()) > D256_SP_TOL or not all(
+            bool(torch.isfinite(x.float()).all()) for x in results[0]):
+        raise AssertionError("the d256 f16 ring-flash disagrees with the "
+                             "CPU")
+    return entry_mod.sp_step, on_card
+
+
+def d256_fused_mlp(ov, tp, ring, make_mesh, gen, cfg):
+    """Phase 31's fused MLP in f16: phase 13's Megatron-SP pair at the
+    flagship's widths over a ring of 4 ranks of 256 rows (1024 rows in
+    all), forward and backward, the launches (B5b, B5a, B4b) read around
+    it, against the dense MLP on the card. Returns (fn, leaves)."""
+    n, d, f = 4, cfg.d_model, cfg.d_ff
+    rows = 8 * cfg.max_seq_len // n
+    dev = torch.device("cuda")
+    mesh = make_mesh({"x": n}, devices=[dev] * n)
+    big = [torch.randn(shape, generator=gen, device=dev) / scale
+           for shape, scale in (((n * rows, d), 1.0), ((d, f), math.sqrt(d)),
+                                ((f, d), math.sqrt(f)),
+                                ((n * rows, d), 1.0))]
+    big_x, big_up, big_down, dy = (x.half() for x in big)
+    leaves = [big_x.view(n, rows, d).clone().requires_grad_(),
+              big_up.view(d, n, f // n).permute(1, 0, 2).contiguous()
+              .requires_grad_(),
+              big_down.view(n, f // n, d).clone().requires_grad_()]
+    counters = (ov.allgather_matmul, ov.matmul_reduce_scatter,
+                ring.ring_allgather)
+    for c in counters:
+        c.launches = 0
+    y = mlp_pair(tp, *leaves, "x", mesh)
+    y.backward(dy.view(n, rows, d))
+    torch.cuda.synchronize()
+    launches = tuple(c.launches for c in counters)
+    refs = [t.detach().clone().requires_grad_()
+            for t in (big_x, big_up, big_down)]
+    ref = dense_dot(F.gelu(dense_dot(refs[0], refs[1]), approximate="tanh"),
+                    refs[2])
+    ref.backward(dy)
+    x, w_up, w_down = leaves
+    rels = {"y": rel_norm(y.detach().reshape(n * rows, d), ref.detach()),
+            "dx": rel_norm(x.grad.reshape(n * rows, d), refs[0].grad),
+            "dw_up": rel_norm(w_up.grad.permute(1, 0, 2).reshape(d, f),
+                              refs[1].grad),
+            "dw_down": rel_norm(w_down.grad.reshape(f, d), refs[2].grad)}
+    print(f"d256 f16 fused MLP: {n} ranks x {rows} rows, d_model {d}, d_ff "
+          f"{f}, f16, forward + backward; launches allgather_matmul, "
+          f"matmul_reduce_scatter, ring_allgather {launches}; against the "
+          f"dense MLP on the card |a - b| / |b|: "
+          f"{', '.join(f'{k} {v:.3e}' for k, v in rels.items())} (tol "
+          f"{D256_MLP_TOL})")
+    if launches != (1, 2, 1):
+        raise AssertionError(f"the f16 fused MLP launched {launches}, "
+                             f"expected (1, 2, 1)")
+    if max(rels.values()) > D256_MLP_TOL \
+            or not bool(torch.isfinite(y.detach().float()).all()):
+        raise AssertionError("the f16 fused MLP disagrees with the dense "
+                             "MLP")
+
+    def once():
+        for t in leaves:
+            t.grad = None
+        mlp_pair(tp, *leaves, "x", mesh).backward(dy.view(n, rows, d))
+
+    return once, leaves
+
+
+def d256_f16_phase(attn, ov, tp, ring, sp, spmd, make_mesh, entry_mod, gen,
+                   card, rows, bwd_rows):
+    """Phase 31: the flagship at one head of 256 in f16 (D256_F16_CONFIG):
+    serving, training, its ring-flash and its fused MLP, each checked with
+    its launch counts read around it, then timed (ms per call by CUDA
+    events, device ms, busy share); B6 and B7 per launch at the ring-flash
+    shape; B1/B2's phase 7 rows at d256_f16_path and bh65540 gathered.
+    Prints one JSON line {"d256_f16_path": ...}."""
+    fn, model, tokens, prompts = d256_serving(attn, entry_mod)
+    step, targs = d256_training(attn, entry_mod)
+    sp_fn, sp_args = d256_ring_flash(attn, sp, make_mesh, entry_mod)
+    mlp_fn, _ = d256_fused_mlp(ov, tp, ring, make_mesh, gen,
+                               entry_mod.D256_F16_CONFIG)
+    print(f"d256 f16 path times on {card}:")
+    paths = {}
+    for label, call in (
+            ("serving forward (batch 8, seq 128)",
+             lambda: fn(model, tokens)),
+            ("generate (4 prompts of 16 tokens, 8 new, greedy)",
+             lambda: model.generate(prompts, max_new=8)),
+            ("training step (batch 8, seq 128, Adam)",
+             lambda: step(*targs)),
+            ("ring-flash forward + backward", lambda: sp_fn(*sp_args)),
+            ("fused MLP forward + backward", mlp_fn)):
+        ms, dev = path_time(f"d256 f16 {label}", call)
+        paths[label] = {"ms": ms, "device_ms": dev,
+                        "busy": None if dev is None else dev / ms}
+    _, q, k, v, mesh = sp_args
+    steps = step_kernel_times(attn, sp, spmd, q, k, v, mesh, card,
+                              "the d256 f16 ring-flash's")
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    kernels = {f"{name} {case}": dict(zip(keys, table[case]))
+               for name, table in (("flash_fwd", rows),
+                                   ("flash_bwd", bwd_rows))
+               for case in ("d256_f16_path", "bh65540", "entry",
+                            "f16_entry")}
+    kernels.update({f"{name} d256_f16_pathS": dict(zip(keys, steps[name]))
+                    for name in ("flash_step", "flash_bwd_step")})
+    print(json.dumps({"d256_f16_path": {"paths": paths,
+                                        "kernels": kernels}}))
 
 
 # ---- phases 26-28: the host plane, two processes on the card ----
@@ -3180,6 +3486,8 @@ def main():
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # f16 products accumulate in f32, as on the CPU and in the kernels.
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
 
     # Phase 2: build every kernel and the host library, all at once
     # (set-up time, not part of any metric).
@@ -3208,7 +3516,7 @@ def main():
     entry_err = None
     for name, b, h, h_kv, t, d, dtype, causal in FLASH_CASES:
         q, k, v = make_qkv(b, h, h_kv, t, d, dtype, gen,
-                           fused=dtype == torch.bfloat16)
+                           fused=dtype != torch.float32)
         with torch.inference_mode():
             out, lse = attn.flash_attention_fwd(q, k, v, causal)
             ref_out, ref_lse = attn.flash_attention_plain(q, k, v, causal)
@@ -3341,7 +3649,7 @@ def main():
     print(f"times on {card}:")
     rows = {}
     for name, b, h, h_kv, t, d, dtype, causal in FLASH_CASES:
-        fused = dtype == torch.bfloat16
+        fused = dtype != torch.float32
         q, k, v = make_qkv(b, h, h_kv, t, d, dtype, gen, fused)
         with torch.inference_mode():
             ms = timed(f"{name} kernel",
@@ -3355,7 +3663,7 @@ def main():
         rows[name] = (ms, plain, lib, bound, bound_by)
     bwd_rows = {}
     for name, b, h, h_kv, t, d, dtype, causal in FLASH_CASES:
-        fused = dtype == torch.bfloat16
+        fused = dtype != torch.float32
         leaves = [x.requires_grad_(True)
                   for x in make_qkv(b, h, h_kv, t, d, dtype, gen, fused)]
         q, k, v = (x.detach() for x in leaves)
@@ -3848,6 +4156,10 @@ def main():
     # Phase 30: the rest of the host plane's Context surface in three
     # processes on the card.
     surface_phase(card)
+
+    # Phase 31: the flagship at one head of 256 in f16.
+    d256_f16_phase(attn, ov, tp, ring, sp, spmd, make_mesh, entry_mod, gen,
+                   card, rows, bwd_rows)
 
     # Launches on the main paths: B1 on the serving path, B2 on the
     # training path, B3 on the DDP path, B4a and B4b on the group path,

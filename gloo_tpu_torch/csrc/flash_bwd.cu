@@ -21,28 +21,29 @@
 //   2. the main kernel (below);
 //   3. flash_bwd_dq_kernel: dq = dq_acc * (1 / sqrt(d)) in the input type.
 //
-// bf16 (the model's type), flash_bwd_wgmma_kernel: one block per (flat kv
-// head, 64-key tile), longest blocks first under the causal mask (grid x
-// runs over heads, y over key tiles), of one consumer warpgroup (128
-// threads) and one producer warp. The producer's lane 0 loads k and v once
+// bf16 and f16 (the model's types; one template, T),
+// flash_bwd_wgmma_kernel: one block per (flat kv head, 64-key tile),
+// longest blocks first under the causal mask (grid x runs over heads, y
+// over key tiles), of one consumer warpgroup (128 threads) and one
+// producer warp. The producer's lane 0 loads k and v once
 // by TMA (128-byte-swizzled 64 x 64 slabs, hopper.cuh), where they stay,
 // then streams the q and dO tiles of every query tile that sees this key
 // tile, with their lse and delta rows (one 512-byte bulk copy), through
 // kStages<D> stages on full/empty mbarriers; query tiles wholly above the
 // causal diagonal are never loaded. The block walks the query heads of its
 // GQA group and their query tiles; per tile the consumers
-//   - scale q in shared memory (q * scale rounded to bf16, then
+//   - scale q in shared memory (q * scale rounded to T, then
 //     fence.proxy.async so that wgmma reads the scaled values);
 //   - S^T = k (q * scale)^T and dP^T = v dO^T on SS wgmma (k, v as A and
 //     q, dO as B, all K-major), f32 accumulators with rows = keys;
 //   - p^T = exp(s^T - lse) (the SFU's 2^x, fast_exp) masked only on tiles
 //     that cross the diagonal or the ragged end, ds^T = p^T (dp^T - delta),
-//     both packed to bf16 as the A fragments of two 8-column slices
+//     both packed to T as the A fragments of two 8-column slices
 //     (the accumulator layout: B1's PV trick);
 //   - dV += p^T dO and dK += ds^T (q * scale) on RS wgmma (A from
 //     registers, dO and q MN-major from the stage): no round trip of p^T or
 //     ds^T through shared memory for these two;
-//   - ds^T (bf16) to shared memory once, and dQ = dS k on SS wgmma with
+//   - ds^T (T) to shared memory once, and dQ = dS k on SS wgmma with
 //     ds^T read transposed (MN-major A) and k MN-major, one 64-column half
 //     of d at a time (a d = 128 tile of dQ would not fit in registers beside
 //     dK and dV);
@@ -56,11 +57,26 @@
 // fixed order, so dQ agrees with the plain version within a tolerance and
 // not bit for bit; dK and dV are deterministic.
 //
+// d = 256 (136-248 zero-padded to it): dK and dV over the whole width
+// would take 256 registers a thread for their accumulators alone (d = 128
+// already takes 244 in all). So a block owns one 128-column half of the
+// outputs: grid x runs over (kv head, half), each block recomputes S^T
+// and dP^T over the full d (k and v resident, q and dO streamed, 4 slabs
+// each) and accumulates dK, dV and dQ for its half only, in the d = 128
+// instance's registers. Seven products per tile where one block would do
+// five; one stage of q/dO (170 KB of shared memory).
+//
 // f32 (off the model's path) keeps the FMA design, flash_bwd_f32_kernel:
-// one block of 4 warps per (64-key tile, flat kv head); warp w owns keys
-// 16w .. 16w + 15 and forms s^T, p^T, dp^T, ds^T in registers, writes p^T
-// and ds^T to shared memory for dV, dK and dQ, and adds dQ into dq_acc
-// with atomicAdd.
+// one block of kWarps warps per (16 kWarps-key tile, flat kv head, column
+// part); warp w owns keys 16w .. 16w + 15 and forms s^T, p^T, dp^T, ds^T in
+// registers, writes p^T and ds^T to shared memory for dV, dK and dQ, and
+// adds dQ into dq_acc with atomicAdd. 4 warps and the whole width up to
+// d = 128; at d = 256, 2 warps (32 keys) and two 128-column halves, so
+// that k, v, q and dO fit in shared memory (213 KB) and dK, dV in
+// registers.
+//
+// Rows (b * h) past the grid's 65535 go on grid z where they lie on y
+// (rows_grid in flash_common.cuh); the main kernel has them on x.
 //
 // Numerics follow the TPU kernel step by step: q * scale rounded to the
 // input type (the wrapper passes scale already rounded to that type), s
@@ -86,8 +102,8 @@ using namespace gtt;
 
 constexpr int kBlockQ = 64;  // query rows per tile
 constexpr int kBlockK = 64;  // keys per block
-constexpr int kThreads = 128;  // f32: 4 warps; bf16: the consumer warpgroup
-constexpr int kTmaThreads = kThreads + 32;  // bf16: + the producer warp
+constexpr int kThreads = 128;  // 16-bit: the consumer warpgroup
+constexpr int kTmaThreads = kThreads + 32;  // 16-bit: + the producer warp
 constexpr int kSlab = 64 * 128;  // one swizzled slab: 64 lines x 128 bytes
 // Per 64-row query tile: its lse rows, then its delta rows (f32).
 constexpr int kRowsPerTile = 2 * kBlockQ;
@@ -97,6 +113,10 @@ constexpr int kPrepThreads = 256;  // 4 per row of a query tile
 // and dV accumulators.
 constexpr int kChunk = 32;
 
+// Output columns a block owns: the whole d up to 128; a half at d = 256.
+template <int D>
+constexpr int kCols = D > 128 ? 128 : D;
+
 // ---- launch 1: delta, the lse rows and dq_acc = 0 ----
 
 struct PrepParams {
@@ -105,6 +125,7 @@ struct PrepParams {
   const float* lse;  // (b*h, t) contiguous
   float* rows;       // (b*h, n_q, kRowsPerTile)
   float* dq_acc;     // (b*h, t, d) contiguous
+  int bh;            // b * h
   int h, t, d, n_q;
   long long o_sb, o_sh, o_st;  // dO, in elements; d is contiguous
   long long y_sb, y_sh, y_st;  // out
@@ -116,8 +137,9 @@ template <typename T>
 __global__ void __launch_bounds__(kPrepThreads)
     flash_bwd_prep_kernel(const PrepParams p) {
   constexpr int kVec = 16 / sizeof(T);
+  if (grid_row() >= p.bh) return;
   const int qi = blockIdx.x;
-  const long long head = blockIdx.y;
+  const long long head = grid_row();
   const int b = static_cast<int>(head / p.h);
   const int hq = static_cast<int>(head % p.h);
   const int r = threadIdx.x / 4;
@@ -154,30 +176,32 @@ __global__ void __launch_bounds__(kPrepThreads)
   }
 }
 
-// ---- launch 2, bf16: wgmma on TMA-staged tiles ----
+// ---- launch 2, bf16 and f16: wgmma on TMA-staged tiles ----
 
 // Stages of the q/dO ring by head_dim: both query tiles of a block at the
-// flagship's t = 128 in flight before the first product.
+// flagship's t = 128 in flight before the first product; one at d = 256,
+// where a stage is 65 KB.
 template <int D>
-constexpr int kStages = 2;
+constexpr int kStages = D > 128 ? 1 : 2;
 // Blocks per SM the registers are held to: two at d = 64 (dK, dV, S^T,
-// dP^T and a dQ half, ~200 registers); one at d = 128, where dK and dV
-// alone take 128.
+// dP^T and a dQ half, ~200 registers); one at d = 128 and 256, where dK
+// and dV alone take 128.
 template <int D>
 constexpr int kMinBlocks = D == 64 ? 2 : 1;
 template <int D>
-constexpr int kTile = D / 64 * kSlab;  // bytes of a 64-row bf16 tile
+constexpr int kTile = D / 64 * kSlab;  // bytes of a 64-row 16-bit tile
 // One stage: the q tile, the dO tile, and their lse and delta rows (512
 // bytes, padded to keep the next tile 1024-byte aligned).
 template <int D>
 constexpr int kStageBytes = 2 * kTile<D> + 1024;
-// Shared memory of a bf16 launch: k, v, the stages, ds^T (64 x 64 bf16),
-// the dQ staging (64 x D f32 as D / 32 boxes of 32 columns), the
+// Shared memory of a 16-bit launch: k, v, the stages, ds^T (64 x 64), the
+// dQ staging (64 x kCols f32 as kCols / 32 boxes of 32 columns), the
 // mbarriers and the swizzle's 1024-byte alignment (d = 64: 76,840 bytes,
-// d = 128: 142,376).
+// d = 128: 142,376, d = 256: 174,104).
 template <int D>
 constexpr int kSmem = 2 * kTile<D> + kStages<D> * kStageBytes<D> + kSlab +
-                      D / 32 * kSlab + 8 * (1 + 2 * kStages<D>) + 1024;
+                      kCols<D> / 32 * kSlab + 8 * (1 + 2 * kStages<D>) +
+                      1024;
 
 struct TmaParams {
   // q, dO (b, h, t, d) and k, v (b, h_kv, t, d) as {d, t, heads, b} maps,
@@ -188,12 +212,12 @@ struct TmaParams {
   CUtensorMap v;
   CUtensorMap dout;
   CUtensorMap dq;
-  const float* rows;   // (b*h, n_q, kRowsPerTile): lse, delta
-  __nv_bfloat16* dk;   // (b*h_kv, t, d) contiguous
-  __nv_bfloat16* dv;
+  const float* rows;  // (b*h, n_q, kRowsPerTile): lse, delta
+  void* dk;           // (b*h_kv, t, d) contiguous, T
+  void* dv;
   int h, h_kv, group, t, n_q;
   int causal;
-  float scale;  // 1 / sqrt(d), already rounded to bf16
+  float scale;  // 1 / sqrt(d), already rounded to T
 };
 
 __device__ __forceinline__ void consumers_sync() { named_sync<kThreads>(1); }
@@ -204,10 +228,12 @@ __device__ __forceinline__ int swizzled(int row, int chunk) {
   return row * 128 + ((chunk ^ (row % 8)) << 4);
 }
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kTmaThreads, kMinBlocks<D>)
     flash_bwd_wgmma_kernel(const __grid_constant__ TmaParams p) {
-  constexpr int kSlabs = D / 64;  // slabs per tile, dQ halves
+  constexpr int kSlabs = D / 64;         // slabs per q, k, v, dO tile
+  constexpr int kOut = kCols<D> / 64;    // slabs of the block's columns
+  constexpr int kHalves = D / kCols<D>;  // blocks per (kv head, key tile)
   constexpr int kT = kTile<D>;
   constexpr int kSt = kStages<D>;
 
@@ -215,13 +241,15 @@ __global__ void __launch_bounds__(kTmaThreads, kMinBlocks<D>)
   uint8_t* const ks = aligned_smem(smem_raw);
   uint8_t* const vs = ks + kT;
   uint8_t* const stages = vs + kT;  // q, dO, rows of stage s
-  uint8_t* const dst_s = stages + kSt * kStageBytes<D>;  // ds^T, bf16
+  uint8_t* const dst_s = stages + kSt * kStageBytes<D>;  // ds^T, T
   uint8_t* const dq_s = dst_s + kSlab;                   // dQ, f32
-  uint64_t* const kv_full = reinterpret_cast<uint64_t*>(dq_s + D / 32 * kSlab);
+  uint64_t* const kv_full =
+      reinterpret_cast<uint64_t*>(dq_s + kCols<D> / 32 * kSlab);
   uint64_t* const full = kv_full + 1;
   uint64_t* const empty = full + kSt;
 
-  const int bk = blockIdx.x;  // flat kv head b * h_kv + hk
+  const int bk = blockIdx.x / kHalves;  // flat kv head b * h_kv + hk
+  const int c0 = blockIdx.x % kHalves * kOut;  // the block's first slab
   const int kb = blockIdx.y;
   const int k0 = kb * kBlockK;
   const int b = bk / p.h_kv;
@@ -284,10 +312,10 @@ __global__ void __launch_bounds__(kTmaThreads, kMinBlocks<D>)
   const uint32_t v_addr = smem_addr(vs);
   const uint32_t ds_addr = smem_addr(dst_s);
 
-  float dk[kSlabs][32];
-  float dv[kSlabs][32];
+  float dk[kOut][32];
+  float dv[kOut][32];
 #pragma unroll
-  for (int c = 0; c < kSlabs; ++c) {
+  for (int c = 0; c < kOut; ++c) {
 #pragma unroll
     for (int i = 0; i < 32; ++i) dk[c][i] = dv[c][i] = 0.f;
   }
@@ -303,23 +331,14 @@ __global__ void __launch_bounds__(kTmaThreads, kMinBlocks<D>)
     const uint32_t q_addr = smem_addr(qs);
     const uint32_t o_addr = q_addr + kT;
 
-    // q * scale rounded to bf16, in place; then visible to wgmma's reads.
+    // q * scale rounded to T, in place; then visible to wgmma's reads.
     mbar_wait(full + s, (it / kSt) & 1);
-    for (int i = threadIdx.x; i < kT / 16; i += kThreads) {
-      uint4* const at = reinterpret_cast<uint4*>(qs) + i;
-      uint4 val = *at;
-      __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&val);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        e[j] = __float2bfloat16_rn(__bfloat162float(e[j]) * p.scale);
-      }
-      *at = val;
-    }
+    scale_in_place<T, kThreads>(qs, kT, p.scale);
     fence_proxy_async_shared();
     consumers_sync();
 
-    // S^T = k (q * scale)^T and dP^T = v dO^T in f32: rows are keys,
-    // columns queries of the tile.
+    // S^T = k (q * scale)^T and dP^T = v dO^T in f32 over the whole d:
+    // rows are keys, columns queries of the tile.
     float sc[32];
     float dp[32];
 #pragma unroll
@@ -330,12 +349,12 @@ __global__ void __launch_bounds__(kTmaThreads, kMinBlocks<D>)
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t off = kk / 4 * kSlab + kk % 4 * 32;
-      wgmma_bf16<0>(sc, desc(k_addr + off), desc(q_addr + off));
+      wgmma_bf16<0, 0, T>(sc, desc(k_addr + off), desc(q_addr + off));
     }
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t off = kk / 4 * kSlab + kk % 4 * 32;
-      wgmma_bf16<0>(dp, desc(v_addr + off), desc(o_addr + off));
+      wgmma_bf16<0, 0, T>(dp, desc(v_addr + off), desc(o_addr + off));
     }
     wgmma_commit();
     wgmma_wait<0>(sc);
@@ -364,21 +383,22 @@ __global__ void __launch_bounds__(kTmaThreads, kMinBlocks<D>)
         }
       }
     }
-    // p^T and ds^T in bf16 as the A fragments of the four 16-query steps.
+    // p^T and ds^T in T as the A fragments of the four 16-query steps.
     uint32_t pa[4][4];
     uint32_t da[4][4];
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
       for (int f = 0; f < 4; ++f) {
-        pa[kk][f] = pack_bf16(sc[8 * kk + 2 * f], sc[8 * kk + 2 * f + 1]);
-        da[kk][f] = pack_bf16(dp[8 * kk + 2 * f], dp[8 * kk + 2 * f + 1]);
+        pa[kk][f] = pack2<T>(sc[8 * kk + 2 * f], sc[8 * kk + 2 * f + 1]);
+        da[kk][f] = pack2<T>(dp[8 * kk + 2 * f], dp[8 * kk + 2 * f + 1]);
       }
     }
 
-    // dV += p^T dO and dK += ds^T (q * scale), dO and q MN-major.
+    // dV += p^T dO and dK += ds^T (q * scale) over the block's columns, dO
+    // and q MN-major.
 #pragma unroll
-    for (int c = 0; c < kSlabs; ++c) {
+    for (int c = 0; c < kOut; ++c) {
       fence_acc(dv[c]);
       fence_acc(dk[c]);
     }
@@ -386,15 +406,17 @@ __global__ void __launch_bounds__(kTmaThreads, kMinBlocks<D>)
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
-      for (int c = 0; c < kSlabs; ++c) {
-        wgmma_bf16_rs<1>(dv[c], pa[kk], desc(o_addr + c * kSlab + kk * 2048));
+      for (int c = 0; c < kOut; ++c) {
+        wgmma_bf16_rs<1, T>(dv[c], pa[kk],
+                            desc(o_addr + (c0 + c) * kSlab + kk * 2048));
       }
     }
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
-      for (int c = 0; c < kSlabs; ++c) {
-        wgmma_bf16_rs<1>(dk[c], da[kk], desc(q_addr + c * kSlab + kk * 2048));
+      for (int c = 0; c < kOut; ++c) {
+        wgmma_bf16_rs<1, T>(dk[c], da[kk],
+                            desc(q_addr + (c0 + c) * kSlab + kk * 2048));
       }
     }
     wgmma_commit();
@@ -414,7 +436,7 @@ __global__ void __launch_bounds__(kTmaThreads, kMinBlocks<D>)
     }
     wgmma_wait<0>(dv[0]);
 #pragma unroll
-    for (int c = 0; c < kSlabs; ++c) {
+    for (int c = 0; c < kOut; ++c) {
       fence_acc(dv[c]);
       fence_acc(dk[c]);
     }
@@ -426,10 +448,11 @@ __global__ void __launch_bounds__(kTmaThreads, kMinBlocks<D>)
     if (threadIdx.x == 0) bulk_wait_read();
     consumers_sync();
 
-    // dQ = dS k, one 64-column half of d at a time: A = ds^T read
-    // transposed, B = k MN-major. Staged in f32 as 32-column boxes.
+    // dQ = dS k over the block's columns, one 64-column slab at a time:
+    // A = ds^T read transposed, B = k MN-major. Staged in f32 as
+    // 32-column boxes.
 #pragma unroll
-    for (int c = 0; c < kSlabs; ++c) {
+    for (int c = 0; c < kOut; ++c) {
       float dq[32];
 #pragma unroll
       for (int i = 0; i < 32; ++i) dq[i] = 0.f;
@@ -437,8 +460,8 @@ __global__ void __launch_bounds__(kTmaThreads, kMinBlocks<D>)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        wgmma_bf16<1, 1>(dq, desc(ds_addr + kk * 2048),
-                         desc(k_addr + c * kSlab + kk * 2048));
+        wgmma_bf16<1, 1, T>(dq, desc(ds_addr + kk * 2048),
+                            desc(k_addr + (c0 + c) * kSlab + kk * 2048));
       }
       wgmma_commit();
       wgmma_wait<0>(dq);
@@ -447,7 +470,7 @@ __global__ void __launch_bounds__(kTmaThreads, kMinBlocks<D>)
         uint8_t* const box = dq_s + (2 * c + j / 4) * kSlab;
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
-          // Column 8 j + c2 of the half: chunk 2 (j % 4) + c2 / 4 of its
+          // Column 8 j + c2 of the slab: chunk 2 (j % 4) + c2 / 4 of its
           // box's 128-byte row, at byte (c2 % 4) * 4 of that chunk.
           const int row = r0 + 8 * i;
           *reinterpret_cast<float2*>(
@@ -461,26 +484,27 @@ __global__ void __launch_bounds__(kTmaThreads, kMinBlocks<D>)
     if (threadIdx.x == 0) {
       const int head = b * p.h + hq;
 #pragma unroll
-      for (int x = 0; x < D / 32; ++x) {
-        tma_reduce_add_3d(&p.dq, dq_s + x * kSlab, x * 32, q0, head);
+      for (int x = 0; x < kCols<D> / 32; ++x) {
+        tma_reduce_add_3d(&p.dq, dq_s + x * kSlab, c0 * 64 + x * 32, q0,
+                          head);
       }
       bulk_commit();
     }
   }
   if (threadIdx.x == 0) bulk_wait();  // the last reduce-adds have landed
 
-  __nv_bfloat16* const dkg = p.dk + static_cast<long long>(bk) * p.t * D;
-  __nv_bfloat16* const dvg = p.dv + static_cast<long long>(bk) * p.t * D;
+  T* const dkg = static_cast<T*>(p.dk) + static_cast<long long>(bk) * p.t * D;
+  T* const dvg = static_cast<T*>(p.dv) + static_cast<long long>(bk) * p.t * D;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int key = k0 + r0 + 8 * i;
     if (key >= p.t) continue;
 #pragma unroll
-    for (int c = 0; c < kSlabs; ++c) {
+    for (int c = 0; c < kOut; ++c) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const long long off =
-            static_cast<long long>(key) * D + c * 64 + j * 8 + c2;
+            static_cast<long long>(key) * D + (c0 + c) * 64 + j * 8 + c2;
         store2(dkg + off, dk[c][4 * j + 2 * i], dk[c][4 * j + 2 * i + 1]);
         store2(dvg + off, dv[c][4 * j + 2 * i], dv[c][4 * j + 2 * i + 1]);
       }
@@ -489,6 +513,11 @@ __global__ void __launch_bounds__(kTmaThreads, kMinBlocks<D>)
 }
 
 // ---- launch 2, f32: the FMA design ----
+
+// Warps of an f32 block, and so its keys (16 per warp): 4 up to d = 128,
+// 2 at d = 256.
+template <int D>
+constexpr int kF32Warps = D > 128 ? 2 : 4;
 
 struct Params {
   const float* q;
@@ -499,6 +528,7 @@ struct Params {
   float* dq_acc;      // (b*h, t, d) contiguous f32, zero on entry
   float* dk;          // (b*h_kv, t, d) contiguous
   float* dv;
+  int rows_kv;  // b * h_kv
   int h, h_kv, group, t, n_q;
   int causal;
   float scale;  // 1 / sqrt(d)
@@ -509,26 +539,33 @@ struct Params {
 };
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(32 * kF32Warps<D>)
     flash_bwd_f32_kernel(const Params p) {
   using T = float;
+  constexpr int kWarps = kF32Warps<D>;
+  constexpr int kNThreads = 32 * kWarps;
+  constexpr int kKeys = 16 * kWarps;  // keys per block
+  constexpr int kHalves = D / kCols<D>;
   constexpr int kLd = D + 4;        // k, v, q, dO rows
   constexpr int kLdS = kBlockQ + 4;  // p^T, ds^T: [key][query]
-  constexpr int kDT = D / 8;
+  constexpr int kDT = kCols<D> / 8;  // 8-column slices of dK, dV
   constexpr int kCT = kChunk / 8;
+
+  const int bk = grid_row();  // flat kv head b * h_kv + hk
+  if (bk >= p.rows_kv) return;
 
   extern __shared__ __align__(16) unsigned char smem[];
   T* ks = reinterpret_cast<T*>(smem);
-  T* vs = ks + kBlockK * kLd;
-  T* qs = vs + kBlockK * kLd;  // q * scale
+  T* vs = ks + kKeys * kLd;
+  T* qs = vs + kKeys * kLd;  // q * scale
   T* os = qs + kBlockQ * kLd;  // dO
   T* pts = os + kBlockQ * kLd;
-  T* dsts = pts + kBlockK * kLdS;
-  float* lse_s = reinterpret_cast<float*>(dsts + kBlockK * kLdS);
+  T* dsts = pts + kKeys * kLdS;
+  float* lse_s = reinterpret_cast<float*>(dsts + kKeys * kLdS);
   float* delta_s = lse_s + kBlockQ;
 
-  const int k0 = blockIdx.x * kBlockK;
-  const int bk = blockIdx.y;  // flat kv head b * h_kv + hk
+  const int k0 = blockIdx.x / kHalves * kKeys;
+  const int col0 = blockIdx.x % kHalves * kCols<D>;  // the block's columns
   const int b = bk / p.h_kv;
   const int hk = bk % p.h_kv;
 
@@ -538,9 +575,9 @@ __global__ void __launch_bounds__(kThreads)
   const int c2 = 2 * (lane % 4);
   const int kr = warp * 16 + g;  // this lane's key rows: kr and kr + 8
 
-  load_tile<T, D, kLd, kBlockK, kThreads, false>(
+  load_tile<T, D, kLd, kKeys, kNThreads, false>(
       ks, p.k + b * p.k_sb + hk * p.k_sh, p.k_st, k0, p.t, 1.f);
-  load_tile<T, D, kLd, kBlockK, kThreads, false>(
+  load_tile<T, D, kLd, kKeys, kNThreads, false>(
       vs, p.v + b * p.v_sb + hk * p.v_sh, p.v_st, k0, p.t, 1.f);
 
   float dk[kDT][4];
@@ -562,20 +599,20 @@ __global__ void __launch_bounds__(kThreads)
     for (int qi = qi_first; qi < p.n_q; ++qi) {
       const int q0 = qi * kBlockQ;
       __syncthreads();  // every warp is done with the previous query tile
-      load_tile<T, D, kLd, kBlockQ, kThreads, true>(qs, qg, p.q_st, q0, p.t,
-                                                    p.scale);
-      load_tile<T, D, kLd, kBlockQ, kThreads, false>(os, og, p.o_st, q0, p.t,
-                                                     1.f);
-      if (threadIdx.x < kBlockQ) {
-        const float* tile = p.rows + (head * p.n_q + qi) * kRowsPerTile;
-        lse_s[threadIdx.x] = tile[threadIdx.x];
-        delta_s[threadIdx.x] = tile[kBlockQ + threadIdx.x];
+      load_tile<T, D, kLd, kBlockQ, kNThreads, true>(qs, qg, p.q_st, q0, p.t,
+                                                     p.scale);
+      load_tile<T, D, kLd, kBlockQ, kNThreads, false>(os, og, p.o_st, q0,
+                                                      p.t, 1.f);
+      const float* tile = p.rows + (head * p.n_q + qi) * kRowsPerTile;
+      for (int i = threadIdx.x; i < kBlockQ; i += kNThreads) {
+        lse_s[i] = tile[i];
+        delta_s[i] = tile[kBlockQ + i];
       }
       __syncthreads();
 
       // Only tiles that cross the diagonal or a ragged end pay the mask.
-      const bool masked = (p.causal && k0 + kBlockK - 1 > q0) ||
-                          k0 + kBlockK > p.t || q0 + kBlockQ > p.t;
+      const bool masked = (p.causal && k0 + kKeys - 1 > q0) ||
+                          k0 + kKeys > p.t || q0 + kBlockQ > p.t;
 #pragma unroll
       for (int n0 = 0; n0 < kBlockQ; n0 += kChunk) {
         float s[kCT][4];
@@ -586,9 +623,9 @@ __global__ void __launch_bounds__(kThreads)
           for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
         }
         warp_fma<D, kCT, kLd, 1, 1, kLd>(s, ks + warp * 16 * kLd,
-                                                qs + n0 * kLd);
+                                         qs + n0 * kLd);
         warp_fma<D, kCT, kLd, 1, 1, kLd>(dp, vs + warp * 16 * kLd,
-                                                os + n0 * kLd);
+                                         os + n0 * kLd);
 #pragma unroll
         for (int j = 0; j < kCT; ++j) {
 #pragma unroll
@@ -613,33 +650,36 @@ __global__ void __launch_bounds__(kThreads)
       }
       __syncwarp();  // the warp's own p^T and ds^T rows are written
 
-      // dV += p^T dO and dK += ds^T (q * scale) over the tile's queries.
+      // dV += p^T dO and dK += ds^T (q * scale) over the tile's queries,
+      // in the block's columns.
       warp_fma<kBlockQ, kDT, kLdS, 1, kLd, 1>(
-          dv, pts + warp * 16 * kLdS, os);
+          dv, pts + warp * 16 * kLdS, os + col0);
       warp_fma<kBlockQ, kDT, kLdS, 1, kLd, 1>(
-          dk, dsts + warp * 16 * kLdS, qs);
+          dk, dsts + warp * 16 * kLdS, qs + col0);
       __syncthreads();  // every warp's ds^T rows are written
 
-      // dQ rows q0 + 16 warp + (g, g + 8) += ds k over the block's keys,
-      // 32 columns at a time.
+      // dQ rows q0 + 16 w + (g, g + 8) += ds k over the block's keys, for
+      // each 16-row group w of the tile a warp takes, 32 of the block's
+      // columns at a time.
+      for (int w = warp; w < kBlockQ / 16; w += kWarps) {
 #pragma unroll
-      for (int c0 = 0; c0 < D; c0 += 32) {
-        float dq[4][4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
-        }
-        warp_fma<kBlockK, 4, 1, kLdS, kLd, 1>(dq, dsts + warp * 16,
-                                                     ks + c0);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int row = q0 + warp * 16 + g + 8 * i;
-          if (row >= p.t) continue;
-          float* dst = dqg + static_cast<long long>(row) * D + c0 + c2;
+        for (int c0 = col0; c0 < col0 + kCols<D>; c0 += 32) {
+          float dq[4][4];
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            atomicAdd(dst + j * 8, dq[j][2 * i]);
-            atomicAdd(dst + j * 8 + 1, dq[j][2 * i + 1]);
+            dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+          }
+          warp_fma<kKeys, 4, 1, kLdS, kLd, 1>(dq, dsts + w * 16, ks + c0);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int row = q0 + w * 16 + g + 8 * i;
+            if (row >= p.t) continue;
+            float* dst = dqg + static_cast<long long>(row) * D + c0 + c2;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              atomicAdd(dst + j * 8, dq[j][2 * i]);
+              atomicAdd(dst + j * 8 + 1, dq[j][2 * i + 1]);
+            }
           }
         }
       }
@@ -654,7 +694,8 @@ __global__ void __launch_bounds__(kThreads)
     if (key >= p.t) continue;
 #pragma unroll
     for (int j = 0; j < kDT; ++j) {
-      const long long off = static_cast<long long>(key) * D + j * 8 + c2;
+      const long long off =
+          static_cast<long long>(key) * D + col0 + j * 8 + c2;
       store2(dkg + off, dk[j][2 * i], dk[j][2 * i + 1]);
       store2(dvg + off, dv[j][2 * i], dv[j][2 * i + 1]);
     }
@@ -685,34 +726,40 @@ cudaError_t launch_dq(const float* acc, void* dq, long long elems,
 }
 
 template <int D>
-cudaError_t launch_f32(const Params& p, int b, cudaStream_t stream) {
+cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
+  constexpr int kKeys = 16 * kF32Warps<D>;
   constexpr int kLd = D + 4;
   constexpr int kLdS = kBlockQ + 4;
-  constexpr size_t kSmem = 2 * (kBlockK + kBlockQ) * kLd * sizeof(float) +
-                           2 * kBlockK * kLdS * sizeof(float) +
+  constexpr size_t kSmem = 2 * (kKeys + kBlockQ) * kLd * sizeof(float) +
+                           2 * kKeys * kLdS * sizeof(float) +
                            2 * kBlockQ * sizeof(float);
   static std::atomic<bool> smem_set[kMaxDevices];
   const cudaError_t err =
       allow_dynamic_smem(flash_bwd_f32_kernel<D>, kSmem, smem_set);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.t + kBlockK - 1) / kBlockK, b * p.h_kv);
-  flash_bwd_f32_kernel<D><<<grid, kThreads, kSmem, stream>>>(p);
+  const dim3 grid =
+      rows_grid((p.t + kKeys - 1) / kKeys * (D / kCols<D>), p.rows_kv);
+  flash_bwd_f32_kernel<D><<<grid, 32 * kF32Warps<D>, kSmem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_bf16(TmaParams& p, const void* q, const void* k,
-                        const void* v, const void* dout, float* dq_acc,
-                        int b, const long long* st, cudaStream_t stream) {
-  cudaError_t err = encode_heads(&p.q, q, D, p.t, p.h, b, st[2], st[1], st[0]);
+// st: the (b, heads, t) strides of q, k, v and dO in turn.
+template <int D, typename T>
+cudaError_t launch_tma(TmaParams& p, int dtype, const void* q, const void* k,
+                       const void* v, const void* dout, float* dq_acc, int b,
+                       const long long* st, cudaStream_t stream) {
+  cudaError_t err =
+      encode_heads(&p.q, dtype, q, D, p.t, p.h, b, st[2], st[1], st[0]);
   if (err == cudaSuccess) {
-    err = encode_heads(&p.k, k, D, p.t, p.h_kv, b, st[5], st[4], st[3]);
+    err = encode_heads(&p.k, dtype, k, D, p.t, p.h_kv, b, st[5], st[4],
+                       st[3]);
   }
   if (err == cudaSuccess) {
-    err = encode_heads(&p.v, v, D, p.t, p.h_kv, b, st[8], st[7], st[6]);
+    err = encode_heads(&p.v, dtype, v, D, p.t, p.h_kv, b, st[8], st[7],
+                       st[6]);
   }
   if (err == cudaSuccess) {
-    err = encode_heads(&p.dout, dout, D, p.t, p.h, b, st[11], st[10],
+    err = encode_heads(&p.dout, dtype, dout, D, p.t, p.h, b, st[11], st[10],
                        st[9]);
   }
   if (err == cudaSuccess) {
@@ -726,25 +773,44 @@ cudaError_t launch_bf16(TmaParams& p, const void* q, const void* k,
   }
   if (err != cudaSuccess) return err;
   static std::atomic<bool> smem_set[kMaxDevices];
-  err = allow_dynamic_smem(flash_bwd_wgmma_kernel<D>, kSmem<D>, smem_set);
+  err = allow_dynamic_smem(flash_bwd_wgmma_kernel<D, T>, kSmem<D>, smem_set);
   if (err != cudaSuccess) return err;
-  const dim3 grid(b * p.h_kv, (p.t + kBlockK - 1) / kBlockK);
-  flash_bwd_wgmma_kernel<D><<<grid, kTmaThreads, kSmem<D>, stream>>>(p);
+  const dim3 grid(b * p.h_kv * (D / kCols<D>), (p.t + kBlockK - 1) / kBlockK);
+  flash_bwd_wgmma_kernel<D, T><<<grid, kTmaThreads, kSmem<D>, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_tma_d(TmaParams& p, int dtype, int d, const void* q,
+                         const void* k, const void* v, const void* dout,
+                         float* dq_acc, int b, const long long* st,
+                         cudaStream_t stream) {
+  switch (d) {
+    case 64:
+      return launch_tma<64, T>(p, dtype, q, k, v, dout, dq_acc, b, st,
+                               stream);
+    case 128:
+      return launch_tma<128, T>(p, dtype, q, k, v, dout, dq_acc, b, st,
+                                stream);
+    default:
+      return launch_tma<256, T>(p, dtype, q, k, v, dout, dq_acc, b, st,
+                                stream);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Returns a cudaError_t; 0 is success. dtype: 0 = bf16, 1 = f32; d: 64 or
-// 128. scale is 1/sqrt(d) rounded to the input type (for q * scale),
-// dq_scale the same in f32 (for dQ). Strides in elements, d contiguous, in
-// the order q, k, v, dO, out, each (b, heads, t); every operand 16-byte
-// aligned with strides that are multiples of 16 bytes (TMA, and the f32
-// kernel's row loads). rows (b*h, ceil(t / 64), 128) f32 and dq_acc (b*h,
-// t, d) f32 are work buffers, written here before they are read; dq, dk
-// and dv are written whole. Three launches on `stream`.
+// Returns a cudaError_t; 0 is success. dtype: 0 = bf16, 1 = f32, 2 = f16;
+// d: 64, 128 or 256. scale is 1/sqrt(d) rounded to the input type (for
+// q * scale), dq_scale the same in f32 (for dQ). Strides in elements, d
+// contiguous, in the order q, k, v, dO, out, each (b, heads, t); every
+// operand 16-byte aligned with strides that are multiples of 16 bytes
+// (TMA, and the f32 kernel's row loads). rows (b*h, ceil(t / 64), 128) f32
+// and dq_acc (b*h, t, d) f32 are work buffers, written here before they
+// are read; dq, dk and dv are written whole. Three launches on `stream`.
+// Any b * h below 2^31: past 65535 the grids spread them over y and z.
 int gtt_flash_bwd(const void* q, const void* k, const void* v,
                   const void* dout, const void* out, const void* lse,
                   void* rows, void* dq_acc, void* dq, void* dk, void* dv,
@@ -757,14 +823,15 @@ int gtt_flash_bwd(const void* q, const void* k, const void* v,
                   long long y_st, void* stream) {
   const long long st[15] = {q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh,
                             v_st, o_sb, o_sh, o_st, y_sb, y_sh, y_st};
-  const int vec = dtype == 0 ? 8 : 4;
+  const int vec = dtype == 1 ? 4 : 8;
   const auto aligned = [](const void* a) {
     return (reinterpret_cast<uintptr_t>(a) & 15) == 0;
   };
-  bool ok = (dtype == 0 || dtype == 1) && (d == 64 || d == 128) && b >= 1 &&
-            h >= 1 && h_kv >= 1 && h % h_kv == 0 && t >= 1 &&
-            static_cast<long long>(b) * h <= 65535 && aligned(q) &&
-            aligned(k) && aligned(v) && aligned(dout) && aligned(out);
+  bool ok = dtype >= 0 && dtype <= 2 && (d == 64 || d == 128 || d == 256) &&
+            b >= 1 && h >= 1 && h_kv >= 1 && h % h_kv == 0 &&
+            t >= 1 && static_cast<long long>(b) * h < (1LL << 31) &&
+            aligned(q) && aligned(k) && aligned(v) && aligned(dout) &&
+            aligned(out);
   for (long long x : st) ok = ok && x > 0 && x % vec == 0;
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -772,23 +839,26 @@ int gtt_flash_bwd(const void* q, const void* k, const void* v,
 
   PrepParams pp{dout, out, static_cast<const float*>(lse),
                 static_cast<float*>(rows), static_cast<float*>(dq_acc),
-                h, t, d, n_q, o_sb, o_sh, o_st, y_sb, y_sh, y_st};
-  const dim3 prep_grid(n_q, b * h);
+                b * h, h, t, d, n_q, o_sb, o_sh, o_st, y_sb, y_sh, y_st};
+  const dim3 prep_grid = rows_grid(n_q, static_cast<long long>(b) * h);
   if (dtype == 0) {
     flash_bwd_prep_kernel<__nv_bfloat16>
         <<<prep_grid, kPrepThreads, 0, s>>>(pp);
+  } else if (dtype == 2) {
+    flash_bwd_prep_kernel<__half><<<prep_grid, kPrepThreads, 0, s>>>(pp);
   } else {
     flash_bwd_prep_kernel<float><<<prep_grid, kPrepThreads, 0, s>>>(pp);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  if (dtype == 0) {
+  float* acc = static_cast<float*>(dq_acc);
+  if (dtype != 1) {
     TmaParams p;
     memset(&p, 0, sizeof(p));
     p.rows = static_cast<const float*>(rows);
-    p.dk = static_cast<__nv_bfloat16*>(dk);
-    p.dv = static_cast<__nv_bfloat16*>(dv);
+    p.dk = dk;
+    p.dv = dv;
     p.h = h;
     p.h_kv = h_kv;
     p.group = h / h_kv;
@@ -796,24 +866,27 @@ int gtt_flash_bwd(const void* q, const void* k, const void* v,
     p.n_q = n_q;
     p.causal = causal;
     p.scale = scale;
-    float* acc = static_cast<float*>(dq_acc);
-    err = d == 64 ? launch_bf16<64>(p, q, k, v, dout, acc, b, st, s)
-                  : launch_bf16<128>(p, q, k, v, dout, acc, b, st, s);
+    err = dtype == 0 ? launch_tma_d<__nv_bfloat16>(p, dtype, d, q, k, v, dout,
+                                                   acc, b, st, s)
+                     : launch_tma_d<__half>(p, dtype, d, q, k, v, dout, acc,
+                                            b, st, s);
   } else {
     Params p{static_cast<const float*>(q), static_cast<const float*>(k),
              static_cast<const float*>(v), static_cast<const float*>(dout),
-             static_cast<const float*>(rows), static_cast<float*>(dq_acc),
-             static_cast<float*>(dk), static_cast<float*>(dv), h, h_kv,
-             h / h_kv, t, n_q, causal, scale, q_sb, q_sh, q_st, k_sb, k_sh,
-             k_st, v_sb, v_sh, v_st, o_sb, o_sh, o_st};
-    err = d == 64 ? launch_f32<64>(p, b, s) : launch_f32<128>(p, b, s);
+             static_cast<const float*>(rows), acc,
+             static_cast<float*>(dk), static_cast<float*>(dv), b * h_kv, h,
+             h_kv, h / h_kv, t, n_q, causal, scale, q_sb, q_sh, q_st, k_sb,
+             k_sh, k_st, v_sb, v_sh, v_st, o_sb, o_sh, o_st};
+    err = d == 64    ? launch_f32<64>(p, s)
+          : d == 128 ? launch_f32<128>(p, s)
+                     : launch_f32<256>(p, s);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const long long elems = static_cast<long long>(b) * h * t * d;
-  const float* acc = static_cast<const float*>(dq_acc);
-  err = dtype == 0 ? launch_dq<__nv_bfloat16>(acc, dq, elems, dq_scale, s)
-                   : launch_dq<float>(acc, dq, elems, dq_scale, s);
+  err = dtype == 0   ? launch_dq<__nv_bfloat16>(acc, dq, elems, dq_scale, s)
+        : dtype == 2 ? launch_dq<__half>(acc, dq, elems, dq_scale, s)
+                     : launch_dq<float>(acc, dq, elems, dq_scale, s);
   return static_cast<int>(err);
 }
 

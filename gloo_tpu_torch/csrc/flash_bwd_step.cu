@@ -30,50 +30,57 @@
 //      ring backward are the same at every step): lse and delta side by
 //      side per 64-row query tile (rows past t_q get lse = +inf, so their
 //      p = exp(-inf) = 0 with no mask), and an f32 dO split into
-//      dO_hi = bf16(dO) and dO_lo = bf16(dO - dO_hi);
-//   2. bwd_step_wgmma_kernel<D, kLo>, once per ring step (below);
+//      dO_hi = T(dO) and dO_lo = T(dO - dO_hi), T the type of q;
+//   2. bwd_step_wgmma_kernel<D, kLo, T>, once per ring step (below);
 //   3. bwd_step_dq_kernel, once per backward in the accumulating form:
 //      dq = dq_acc * (1 / sqrt(d)) in the input type.
 //
-// bwd_step_wgmma_kernel (bf16 q, k, v): B2's design (flash_bwd.cu) at
-// global offsets. One block per (output row, 64-key tile), longest blocks
-// first under the causal mask (grid x runs over rows, y over key tiles),
-// of one consumer warpgroup (128 threads) and one producer warp. The
-// producer's lane 0 loads k and v once by TMA, where they stay, then
-// streams the q and dO tiles of every query tile that sees this key tile,
-// with their lse and delta rows, through kStages stages on full/empty
-// mbarriers. Query tiles wholly above the global diagonal are never
-// loaded: the TPU kernels' `active` test, from each row's own q_off and
-// k_off, so one launch serves every rank of a world. A block walks `hpb`
-// query heads: the kv_group heads of its kv head in the accumulating form
-// (dK and dV accumulate over the group in f32 registers: no separate
-// group-sum pass), one query head in the fresh form (per-query-head dK and
-// dV, row i reading kv row i / kv_group, as the JAX kernels write them).
+// bwd_step_wgmma_kernel (bf16 or f16 q, k, v; one template, T): B2's design
+// (flash_bwd.cu) at global offsets. One block per (output row, 64-key tile),
+// longest blocks first under the causal mask (grid x runs over rows, y over
+// key tiles), of one consumer warpgroup (128 threads) and one producer warp.
+// The producer's lane 0 loads k and v once by TMA, where they stay, then
+// streams the q and dO tiles of every query tile that sees this key tile, with
+// their lse and delta rows, through kStages stages on full/empty mbarriers.
+// Query tiles wholly above the global diagonal are never loaded: the TPU
+// kernels' `active` test, from each row's own q_off and k_off, so one launch
+// serves every rank of a world. A block walks `hpb` query heads: the kv_group
+// heads of its kv head in the accumulating form (dK and dV accumulate over the
+// group in f32 registers: no separate group-sum pass), one query head in the
+// fresh form (per-query-head dK and dV, row i reading kv row i / kv_group, as
+// the JAX kernels write them).
 // Per tile the consumers
-//   - scale q in shared memory (q * scale rounded to bf16, then
+//   - scale q in shared memory (q * scale rounded to T, then
 //     fence.proxy.async so that wgmma reads the scaled values);
 //   - S^T = k (q * scale)^T and dP^T = v dO^T on SS wgmma, once each;
 //   - p^T = exp(s^T - lse) (fast_exp), masked only on tiles that cross the
 //     global diagonal or the ragged end of the keys, ds^T = p^T (dp^T -
 //     delta), packed as RS A fragments (B1's PV trick);
 //   - dV += p^T dO and dK += ds^T (q * scale) on RS wgmma;
-//   - ds^T (bf16) to shared memory, and dQ = ds k on SS wgmma per 64-column
-//     half of d, staged in f32 and added into the f32 dQ buffer by TMA
+//   - ds^T (T) to shared memory, and dQ = ds k on SS wgmma per 64-column
+//     slab of d, staged in f32 and added into the f32 dQ buffer by TMA
 //     reduce-adds (cp.reduce.async.bulk.tensor), as B2 does.
+// At d = 256 (136-248 zero-padded to it) a block owns one 128-column half
+// of dQ, dK and dV, as B2's d = 256 instance does (grid x runs over
+// (output row, half)); S^T and dP^T are recomputed over the whole d by
+// each half. One stage of q/dO (dO_lo): 170 KB (202 KB) of shared memory.
 //
-// The f32 products without rounding them away. The ring backward's
-// cotangent is f32 in the TPU kernels, so dP = dO V^T and dV += p^T dO are
-// f32 products and p is never rounded. Each f32 operand x runs as
-// x_hi = bf16(x) and x_lo = bf16(x - x_hi), and each f32 product as the
-// bf16 passes hi*hi + hi*lo + lo*hi into one f32 accumulator: ~16 bits of
-// each operand kept, far closer to f32 than TF32's 10. dP^T = v dO^T is
-// v dO_hi + v dO_lo (v is bf16); dV += p^T dO is p_hi dO_hi + p_lo dO_hi
-// + p_hi dO_lo, p_hi and p_lo from registers. The model's cotangent is
-// bf16-valued (sp_step's loss is sum(sin(out)), whose cotangent reaches
-// the ring backward as cos(out) in bf16): the caller passes it as bf16,
-// kLo is false and the dO_lo passes drop out at compile time. The products
-// are then exact (a bf16 x bf16 product fits in f32), and equal the JAX
-// kernels' f32 products of the same values up to summation order.
+// The f32 products without rounding them away. The ring backward's cotangent
+// is f32 in the TPU kernels, so dP = dO V^T and dV += p^T dO are f32 products
+// and p is never rounded. Each f32 operand x runs as x_hi = bf16(x) and x_lo =
+// bf16(x - x_hi), and each f32 product as the bf16 passes hi*hi + hi*lo +
+// lo*hi into one f32 accumulator: ~16 bits of each operand kept, far closer to
+// f32 than TF32's 10. f16 q, k and v split the same way in f16 (split2 in
+// flash_common.cuh): ~22 bits where the remainder is a normal f16; below 2^-14
+// of its own scale the remainder turns subnormal and hi + lo keeps f16's
+// absolute 2^-24, which the ring path's cotangents (|dO| ~ 1, and p in [0, 1])
+// stay well above. dP^T = v dO^T is v dO_hi + v dO_lo (v is bf16); dV += p^T
+// dO is p_hi dO_hi + p_lo dO_hi + p_hi dO_lo, p_hi and p_lo from registers.
+// The model's cotangent is bf16-valued (sp_step's loss is sum(sin(out)), whose
+// cotangent reaches the ring backward as cos(out) in bf16): the caller passes
+// it as bf16, kLo is false and the dO_lo passes drop out at compile time. The
+// products are then exact (a bf16 x bf16 product fits in f32), and equal the
+// JAX kernels' f32 products of the same values up to summation order.
 //
 // Outputs. The fresh form writes dK and dV (f32) and adds dQ * dq_scale
 // into a zeroed f32 buffer. The accumulating form adds unscaled dQ into
@@ -84,9 +91,15 @@
 // with the plain version within a tolerance and not bit for bit.
 //
 // f32 q, k, v (off the model's path) keep the FMA design: dq_step_kernel,
-// one block per (query row, 64-row query tile) walking the key tiles, and
-// dkv_step_kernel, one block per (output row, 64-key tile) walking the
-// query tiles of its hpb heads; two launches per step.
+// one block per (query row, 16 kWarps-row query tile) walking the key
+// tiles, and dkv_step_kernel, one block per (output row, 16 kWarps-key
+// tile, column part) walking the query tiles of its hpb heads; two
+// launches per step. kWarps is 4 up to d = 128; at d = 256 it is 2 and
+// dkv_step_kernel owns one 128-column half, so that the tiles fit in
+// shared memory and dK, dV in registers.
+//
+// Rows past the grid's 65535 go on grid z where they lie on y (rows_grid
+// in flash_common.cuh); the fused kernel has them on x.
 //
 // Numerics follow the TPU kernels: q * scale rounded to the input type
 // (the wrapper passes scale already rounded), s and dp in f32,
@@ -108,14 +121,18 @@ using namespace gtt;
 
 constexpr int kBlockQ = 64;  // query rows per tile
 constexpr int kBlockK = 64;  // keys per tile
-constexpr int kThreads = 128;  // f32: 4 warps; bf16: the consumer warpgroup
-constexpr int kTmaThreads = kThreads + 32;  // bf16: + the producer warp
+constexpr int kThreads = 128;  // 16-bit: the consumer warpgroup
+constexpr int kTmaThreads = kThreads + 32;  // 16-bit: + the producer warp
 constexpr int kSlab = 64 * 128;  // one swizzled slab: 64 lines x 128 bytes
 // Per 64-row query tile: its lse rows, then its delta rows (f32).
 constexpr int kRowsPerTile = 2 * kBlockQ;
 constexpr int kPrepThreads = 256;
 // f32: query columns of s^T and dp^T a dkv warp holds in registers at once.
 constexpr int kChunk = 32;
+
+// Output columns a block owns: the whole d up to 128; a half at d = 256.
+template <int D>
+constexpr int kCols = D > 128 ? 128 : D;
 
 // Whether row `row`'s query tile qi sees key tile k0 under the causal mask
 // at the row's global offsets: the TPU kernels' `active` test. The first
@@ -135,17 +152,19 @@ struct PrepParams {
   const float* delta;  // (bh, t_q) contiguous
   float* rows;         // (bh, n_q, kRowsPerTile)
   const float* dout;   // (bh, t_q, d) f32 with d contiguous, or null
-  __nv_bfloat16* hi;   // (bh, t_q, d) contiguous, when dout is given
-  __nv_bfloat16* lo;
+  void* hi;            // (bh, t_q, d) contiguous T, when dout is given
+  void* lo;
   long long o_sr, o_st;
-  int tq, d, n_q;
+  int bh, tq, d, n_q;
 };
 
 // Block (query tile, row).
+template <typename T>
 __global__ void __launch_bounds__(kPrepThreads)
     bwd_step_prep_kernel(const PrepParams p) {
+  if (grid_row() >= p.bh) return;
   const int qi = blockIdx.x;
-  const long long row = blockIdx.y;
+  const long long row = grid_row();
   const int q0 = qi * kBlockQ;
   if (threadIdx.x < kBlockQ) {
     const int r = q0 + threadIdx.x;
@@ -161,34 +180,35 @@ __global__ void __launch_bounds__(kPrepThreads)
     const int r = 2 * i / p.d;
     const int c = 2 * i % p.d;
     const float2 x = *reinterpret_cast<const float2*>(src + r * p.o_st + c);
-    const __nv_bfloat162 h = __floats2bfloat162_rn(x.x, x.y);
-    const float2 hf = __bfloat1622float2(h);
-    *reinterpret_cast<__nv_bfloat162*>(p.hi + dst + 2 * i) = h;
-    *reinterpret_cast<__nv_bfloat162*>(p.lo + dst + 2 * i) =
-        __floats2bfloat162_rn(x.x - hf.x, x.y - hf.y);
+    uint32_t hi, lo;
+    split2<T>(x.x, x.y, &hi, &lo);
+    *reinterpret_cast<uint32_t*>(static_cast<T*>(p.hi) + dst + 2 * i) = hi;
+    *reinterpret_cast<uint32_t*>(static_cast<T*>(p.lo) + dst + 2 * i) = lo;
   }
 }
 
-// ---- launch 2, bf16: wgmma on TMA-staged tiles ----
+// ---- launch 2, bf16 and f16: wgmma on TMA-staged tiles ----
 
-// Stages of the q/dO ring: two query tiles in flight.
-constexpr int kStages = 2;
+// Stages of the q/dO ring: two query tiles in flight; one at d = 256.
+template <int D>
+constexpr int kStages = D > 128 ? 1 : 2;
 // Blocks per SM the registers are held to: two at d = 64, one at d = 128
-// (dK and dV alone take 128 registers there).
+// and 256 (dK and dV alone take 128 registers there).
 template <int D>
 constexpr int kMinBlocks = D == 64 ? 2 : 1;
 template <int D>
-constexpr int kTile = D / 64 * kSlab;  // bytes of a 64-row bf16 tile
+constexpr int kTile = D / 64 * kSlab;  // bytes of a 64-row 16-bit tile
 // One stage: the q tile, the dO tile (and dO_lo's), and their lse and
 // delta rows (512 bytes, padded to keep the next tile 1024-byte aligned).
 template <int D, bool kLo>
 constexpr int kStageBytes = (kLo ? 3 : 2) * kTile<D> + 1024;
-// Shared memory of a launch: k, v, the stages, ds^T (64 x 64 bf16), the
-// dQ staging (64 x D f32 as D / 32 boxes of 32 columns), the mbarriers and
-// the swizzle's 1024-byte alignment.
+// Shared memory of a launch: k, v, the stages, ds^T (64 x 64), the dQ
+// staging (64 x kCols f32 as kCols / 32 boxes of 32 columns), the
+// mbarriers and the swizzle's 1024-byte alignment.
 template <int D, bool kLo>
-constexpr int kSmem = 2 * kTile<D> + kStages * kStageBytes<D, kLo> + kSlab +
-                      D / 32 * kSlab + 8 * (1 + 2 * kStages) + 1024;
+constexpr int kSmem = 2 * kTile<D> + kStages<D> * kStageBytes<D, kLo> +
+                      kSlab + kCols<D> / 32 * kSlab +
+                      8 * (1 + 2 * kStages<D>) + 1024;
 
 struct TmaParams {
   // q, dO_hi, dO_lo (bh, t_q, d) and k, v (bh / group, t_kv, d) as
@@ -207,7 +227,7 @@ struct TmaParams {
   float* dv;
   int hpb, group, tq, tkv, n_q;
   int causal, accumulate;
-  float scale;   // 1 / sqrt(d), rounded to bf16
+  float scale;   // 1 / sqrt(d), rounded to T
   float dq_mul;  // what dQ is multiplied by before it is added: 1 or dq_scale
 };
 
@@ -219,22 +239,25 @@ __device__ __forceinline__ int swizzled(int row, int chunk) {
   return row * 128 + ((chunk ^ (row % 8)) << 4);
 }
 
-// The block's dK or dV tile (f32 accumulators) into its output rows:
-// stored, or added to what the carrier holds.
-template <int D>
+// The block's dK or dV columns [col0, col0 + 64 kOut) (f32 accumulators)
+// into its output rows of D columns: stored, or added to what the carrier
+// holds.
+template <int D, int kOut>
 __device__ __forceinline__ void store_tile(float* out, const float (*acc)[32],
-                                           int k0, int tkv, bool add) {
+                                           int k0, int tkv, bool add,
+                                           int col0) {
   const int c2 = 2 * (threadIdx.x % 4);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int key = k0 + acc_row(i);
     if (key >= tkv) continue;
 #pragma unroll
-    for (int c = 0; c < D / 64; ++c) {
+    for (int c = 0; c < kOut; ++c) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         float2* const at = reinterpret_cast<float2*>(
-            out + static_cast<long long>(key) * D + c * 64 + j * 8 + c2);
+            out + static_cast<long long>(key) * D + col0 + c * 64 + j * 8 +
+            c2);
         float2 x =
             make_float2(acc[c][4 * j + 2 * i], acc[c][4 * j + 2 * i + 1]);
         if (add) {
@@ -247,11 +270,14 @@ __device__ __forceinline__ void store_tile(float* out, const float (*acc)[32],
   }
 }
 
-template <int D, bool kLo>
+template <int D, bool kLo, typename T>
 __global__ void __launch_bounds__(kTmaThreads, kMinBlocks<D>)
     bwd_step_wgmma_kernel(const __grid_constant__ TmaParams p) {
-  constexpr int kSlabs = D / 64;  // slabs per tile, dQ halves
+  constexpr int kSlabs = D / 64;         // slabs per q, k, v, dO tile
+  constexpr int kOut = kCols<D> / 64;    // slabs of the block's columns
+  constexpr int kHalves = D / kCols<D>;  // blocks per (row, key tile)
   constexpr int kT = kTile<D>;
+  constexpr int kSt = kStages<D>;
   constexpr int kOps = kLo ? 3 : 2;  // tiles per stage: q, dO (, dO_lo)
   constexpr int kSB = kStageBytes<D, kLo>;
 
@@ -259,13 +285,15 @@ __global__ void __launch_bounds__(kTmaThreads, kMinBlocks<D>)
   uint8_t* const ks = aligned_smem(smem_raw);
   uint8_t* const vs = ks + kT;
   uint8_t* const stages = vs + kT;  // q, dO (, dO_lo), rows of stage s
-  uint8_t* const dst_s = stages + kStages * kSB;  // ds^T, bf16
-  uint8_t* const dq_s = dst_s + kSlab;            // dQ, f32
-  uint64_t* const kv_full = reinterpret_cast<uint64_t*>(dq_s + D / 32 * kSlab);
+  uint8_t* const dst_s = stages + kSt * kSB;  // ds^T, T
+  uint8_t* const dq_s = dst_s + kSlab;        // dQ, f32
+  uint64_t* const kv_full =
+      reinterpret_cast<uint64_t*>(dq_s + kCols<D> / 32 * kSlab);
   uint64_t* const full = kv_full + 1;
-  uint64_t* const empty = full + kStages;
+  uint64_t* const empty = full + kSt;
 
-  const int r = blockIdx.x;  // output row: query heads r * hpb + j
+  const int r = blockIdx.x / kHalves;  // output row: query heads r hpb + j
+  const int c0 = blockIdx.x % kHalves * kOut;  // the block's first slab
   const int kb = blockIdx.y;
   const int k0 = kb * kBlockK;
   const int kv_row = r * p.hpb / p.group;
@@ -281,16 +309,16 @@ __global__ void __launch_bounds__(kTmaThreads, kMinBlocks<D>)
     // A key tile that no local query sees: nothing to add; the fresh form
     // writes its zeros.
     if (!p.accumulate && threadIdx.x < kThreads) {
-      float zero[kSlabs][32] = {};
-      store_tile<D>(dkg, zero, k0, p.tkv, false);
-      store_tile<D>(dvg, zero, k0, p.tkv, false);
+      float zero[kOut][32] = {};
+      store_tile<D, kOut>(dkg, zero, k0, p.tkv, false, c0 * 64);
+      store_tile<D, kOut>(dvg, zero, k0, p.tkv, false, c0 * 64);
     }
     return;
   }
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < kSt; ++s) {
       mbar_init(full + s, 1);
       mbar_init(empty + s, kThreads);
     }
@@ -317,10 +345,10 @@ __global__ void __launch_bounds__(kTmaThreads, kMinBlocks<D>)
         const int row = r * p.hpb + j;
         for (int qi = first_tile(p.q_off, p.k_off, row, k0, p.n_q, p.causal);
              qi < p.n_q; ++qi, ++it) {
-          const int s = it % kStages;
+          const int s = it % kSt;
           const int q0 = qi * kBlockQ;
           uint8_t* const st = stages + s * kSB;
-          if (it >= kStages) mbar_wait(empty + s, (it / kStages - 1) & 1);
+          if (it >= kSt) mbar_wait(empty + s, (it / kSt - 1) & 1);
           mbar_expect(full + s, kOps * kT + kRowsPerTile * 4);
 #pragma unroll
           for (int c = 0; c < kSlabs; ++c) {
@@ -349,10 +377,10 @@ __global__ void __launch_bounds__(kTmaThreads, kMinBlocks<D>)
   const uint32_t v_addr = smem_addr(vs);
   const uint32_t ds_addr = smem_addr(dst_s);
 
-  float dk[kSlabs][32];
-  float dv[kSlabs][32];
+  float dk[kOut][32];
+  float dv[kOut][32];
 #pragma unroll
-  for (int c = 0; c < kSlabs; ++c) {
+  for (int c = 0; c < kOut; ++c) {
 #pragma unroll
     for (int i = 0; i < 32; ++i) dk[c][i] = dv[c][i] = 0.f;
   }
@@ -365,7 +393,7 @@ __global__ void __launch_bounds__(kTmaThreads, kMinBlocks<D>)
     const int ko = p.k_off[row];
     for (int qi = first_tile(p.q_off, p.k_off, row, k0, p.n_q, p.causal);
          qi < p.n_q; ++qi, ++it) {
-      const int s = it % kStages;
+      const int s = it % kSt;
       const int q0 = qi * kBlockQ;
       uint8_t* const qs = stages + s * kSB;
       const float* const rows =
@@ -374,23 +402,14 @@ __global__ void __launch_bounds__(kTmaThreads, kMinBlocks<D>)
       const uint32_t o_addr = q_addr + kT;
       const uint32_t lo_addr = o_addr + kT;  // dO_lo, with kLo
 
-      // q * scale rounded to bf16, in place; then visible to wgmma's reads.
-      mbar_wait(full + s, (it / kStages) & 1);
-      for (int i = threadIdx.x; i < kT / 16; i += kThreads) {
-        uint4* const at = reinterpret_cast<uint4*>(qs) + i;
-        uint4 val = *at;
-        __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&val);
-#pragma unroll
-        for (int x = 0; x < 8; ++x) {
-          e[x] = __float2bfloat16_rn(__bfloat162float(e[x]) * p.scale);
-        }
-        *at = val;
-      }
+      // q * scale rounded to T, in place; then visible to wgmma's reads.
+      mbar_wait(full + s, (it / kSt) & 1);
+      scale_in_place<T, kThreads>(qs, kT, p.scale);
       fence_proxy_async_shared();
       consumers_sync();
 
-      // S^T = k (q * scale)^T and dP^T = v dO^T in f32: rows are keys,
-      // columns queries of the tile.
+      // S^T = k (q * scale)^T and dP^T = v dO^T in f32 over the whole d:
+      // rows are keys, columns queries of the tile.
       float sc[32];
       float dp[32];
 #pragma unroll
@@ -401,14 +420,14 @@ __global__ void __launch_bounds__(kTmaThreads, kMinBlocks<D>)
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t off = kk / 4 * kSlab + kk % 4 * 32;
-        wgmma_bf16<0>(sc, desc(k_addr + off), desc(q_addr + off));
+        wgmma_bf16<0, 0, T>(sc, desc(k_addr + off), desc(q_addr + off));
       }
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t off = kk / 4 * kSlab + kk % 4 * 32;
-        wgmma_bf16<0>(dp, desc(v_addr + off), desc(o_addr + off));
+        wgmma_bf16<0, 0, T>(dp, desc(v_addr + off), desc(o_addr + off));
         if constexpr (kLo) {
-          wgmma_bf16<0>(dp, desc(v_addr + off), desc(lo_addr + off));
+          wgmma_bf16<0, 0, T>(dp, desc(v_addr + off), desc(lo_addr + off));
         }
       }
       wgmma_commit();
@@ -441,8 +460,8 @@ __global__ void __launch_bounds__(kTmaThreads, kMinBlocks<D>)
           }
         }
       }
-      // p^T as bf16 hi and lo halves and ds^T in bf16, as the A fragments
-      // of the four 16-query steps.
+      // p^T as T hi and lo halves and ds^T in T, as the A fragments of the
+      // four 16-query steps.
       uint32_t ph[4][4];
       uint32_t pl[4][4];
       uint32_t da[4][4];
@@ -450,20 +469,17 @@ __global__ void __launch_bounds__(kTmaThreads, kMinBlocks<D>)
       for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
         for (int f = 0; f < 4; ++f) {
-          const float a = sc[8 * kk + 2 * f];
-          const float b = sc[8 * kk + 2 * f + 1];
-          const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-          const float2 hf = __bfloat1622float2(h);
-          ph[kk][f] = *reinterpret_cast<const uint32_t*>(&h);
-          pl[kk][f] = pack_bf16(a - hf.x, b - hf.y);
-          da[kk][f] = pack_bf16(dp[8 * kk + 2 * f], dp[8 * kk + 2 * f + 1]);
+          split2<T>(sc[8 * kk + 2 * f], sc[8 * kk + 2 * f + 1], &ph[kk][f],
+                    &pl[kk][f]);
+          da[kk][f] = pack2<T>(dp[8 * kk + 2 * f], dp[8 * kk + 2 * f + 1]);
         }
       }
 
       // dV += p^T dO as p_hi dO_hi + p_lo dO_hi (+ p_hi dO_lo), and
-      // dK += ds^T (q * scale); dO and q MN-major.
+      // dK += ds^T (q * scale), over the block's columns; dO and q
+      // MN-major.
 #pragma unroll
-      for (int c = 0; c < kSlabs; ++c) {
+      for (int c = 0; c < kOut; ++c) {
         fence_acc(dv[c]);
         fence_acc(dk[c]);
       }
@@ -471,21 +487,21 @@ __global__ void __launch_bounds__(kTmaThreads, kMinBlocks<D>)
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
-        for (int c = 0; c < kSlabs; ++c) {
-          const uint32_t off = c * kSlab + kk * 2048;
-          wgmma_bf16_rs<1>(dv[c], ph[kk], desc(o_addr + off));
-          wgmma_bf16_rs<1>(dv[c], pl[kk], desc(o_addr + off));
+        for (int c = 0; c < kOut; ++c) {
+          const uint32_t off = (c0 + c) * kSlab + kk * 2048;
+          wgmma_bf16_rs<1, T>(dv[c], ph[kk], desc(o_addr + off));
+          wgmma_bf16_rs<1, T>(dv[c], pl[kk], desc(o_addr + off));
           if constexpr (kLo) {
-            wgmma_bf16_rs<1>(dv[c], ph[kk], desc(lo_addr + off));
+            wgmma_bf16_rs<1, T>(dv[c], ph[kk], desc(lo_addr + off));
           }
         }
       }
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
-        for (int c = 0; c < kSlabs; ++c) {
-          wgmma_bf16_rs<1>(dk[c], da[kk],
-                           desc(q_addr + c * kSlab + kk * 2048));
+        for (int c = 0; c < kOut; ++c) {
+          wgmma_bf16_rs<1, T>(dk[c], da[kk],
+                              desc(q_addr + (c0 + c) * kSlab + kk * 2048));
         }
       }
       wgmma_commit();
@@ -505,7 +521,7 @@ __global__ void __launch_bounds__(kTmaThreads, kMinBlocks<D>)
       }
       wgmma_wait<0>(dv[0]);
 #pragma unroll
-      for (int c = 0; c < kSlabs; ++c) {
+      for (int c = 0; c < kOut; ++c) {
         fence_acc(dv[c]);
         fence_acc(dk[c]);
       }
@@ -518,10 +534,11 @@ __global__ void __launch_bounds__(kTmaThreads, kMinBlocks<D>)
       if (threadIdx.x == 0) bulk_wait_read();
       consumers_sync();
 
-      // dQ = dS k, one 64-column half of d at a time: A = ds^T read
-      // transposed, B = k MN-major. Staged in f32 as 32-column boxes.
+      // dQ = dS k over the block's columns, one 64-column slab at a time:
+      // A = ds^T read transposed, B = k MN-major. Staged in f32 as
+      // 32-column boxes.
 #pragma unroll
-      for (int c = 0; c < kSlabs; ++c) {
+      for (int c = 0; c < kOut; ++c) {
         float dq[32];
 #pragma unroll
         for (int i = 0; i < 32; ++i) dq[i] = 0.f;
@@ -529,8 +546,8 @@ __global__ void __launch_bounds__(kTmaThreads, kMinBlocks<D>)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
-          wgmma_bf16<1, 1>(dq, desc(ds_addr + kk * 2048),
-                           desc(k_addr + c * kSlab + kk * 2048));
+          wgmma_bf16<1, 1, T>(dq, desc(ds_addr + kk * 2048),
+                              desc(k_addr + (c0 + c) * kSlab + kk * 2048));
         }
         wgmma_commit();
         wgmma_wait<0>(dq);
@@ -539,7 +556,7 @@ __global__ void __launch_bounds__(kTmaThreads, kMinBlocks<D>)
           uint8_t* const box = dq_s + (2 * c + x8 / 4) * kSlab;
 #pragma unroll
           for (int i = 0; i < 2; ++i) {
-            // Column 8 x8 + c2 of the half: chunk 2 (x8 % 4) + c2 / 4 of
+            // Column 8 x8 + c2 of the slab: chunk 2 (x8 % 4) + c2 / 4 of
             // its box's 128-byte row, at byte (c2 % 4) * 4 of that chunk.
             const int line = r0 + 8 * i;
             *reinterpret_cast<float2*>(
@@ -553,8 +570,9 @@ __global__ void __launch_bounds__(kTmaThreads, kMinBlocks<D>)
       consumers_sync();
       if (threadIdx.x == 0) {
 #pragma unroll
-        for (int x = 0; x < D / 32; ++x) {
-          tma_reduce_add_3d(&p.dq, dq_s + x * kSlab, x * 32, q0, row);
+        for (int x = 0; x < kCols<D> / 32; ++x) {
+          tma_reduce_add_3d(&p.dq, dq_s + x * kSlab, c0 * 64 + x * 32, q0,
+                            row);
         }
         bulk_commit();
       }
@@ -562,11 +580,16 @@ __global__ void __launch_bounds__(kTmaThreads, kMinBlocks<D>)
   }
   if (threadIdx.x == 0) bulk_wait();  // the last reduce-adds have landed
 
-  store_tile<D>(dkg, dk, k0, p.tkv, p.accumulate);
-  store_tile<D>(dvg, dv, k0, p.tkv, p.accumulate);
+  store_tile<D, kOut>(dkg, dk, k0, p.tkv, p.accumulate, c0 * 64);
+  store_tile<D, kOut>(dvg, dv, k0, p.tkv, p.accumulate, c0 * 64);
 }
 
 // ---- launch 2, f32: the FMA design ----
+
+// Warps of an f32 block, and so its query rows (dq_step_kernel) or keys
+// (dkv_step_kernel), 16 per warp: 4 up to d = 128, 2 at d = 256.
+template <int D>
+constexpr int kF32Warps = D > 128 ? 2 : 4;
 
 struct Params {
   const float* q;
@@ -580,6 +603,7 @@ struct Params {
   float* dq;           // (bh, t_q, d) contiguous
   float* dk;           // (bh / hpb, t_kv, d) contiguous
   float* dv;
+  int bh;  // query-head rows
   int hpb, group, tq, tkv;
   int causal, accumulate;
   float scale;     // 1 / sqrt(d)
@@ -598,36 +622,42 @@ __device__ __forceinline__ bool masked_pair(const Params& p, int key,
          (p.causal && ko + key > qo + query);
 }
 
-// Loads lse and delta of the tile's rows (0 past t_q).
+// Loads lse and delta of the tile's kRows rows (0 past t_q).
+template <int kRows, int kCount>
 __device__ __forceinline__ void load_rows(const Params& p, int row, int q0,
                                           float* lse_s, float* delta_s) {
-  if (threadIdx.x < kBlockQ) {
-    const int r = q0 + threadIdx.x;
+  for (int i = threadIdx.x; i < kRows; i += kCount) {
+    const int r = q0 + i;
     const long long at = static_cast<long long>(row) * p.tq + r;
-    lse_s[threadIdx.x] = r < p.tq ? p.lse[at] : 0.f;
-    delta_s[threadIdx.x] = r < p.tq ? p.delta[at] : 0.f;
+    lse_s[i] = r < p.tq ? p.lse[at] : 0.f;
+    delta_s[i] = r < p.tq ? p.delta[at] : 0.f;
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads) dq_step_kernel(const Params p) {
+__global__ void __launch_bounds__(32 * kF32Warps<D>)
+    dq_step_kernel(const Params p) {
   using T = float;
+  constexpr int kNThreads = 32 * kF32Warps<D>;
+  constexpr int kRowsQ = 16 * kF32Warps<D>;  // query rows per block
   constexpr int kLd = D + 4;             // q, k, v, dO rows
   constexpr int kLdS = kBlockK + 4;      // ds rows [query][key]
   constexpr int kNT = kBlockK / 8;
   constexpr int kDT = D / 8;
 
+  const int row = grid_row();
+  if (row >= p.bh) return;
+
   extern __shared__ __align__(16) unsigned char smem[];
   T* qs = reinterpret_cast<T*>(smem);  // q * scale
-  T* ks = qs + kBlockQ * kLd;
+  T* ks = qs + kRowsQ * kLd;
   T* vs = ks + kBlockK * kLd;
   T* dss = vs + kBlockK * kLd;
-  float* dos = dss + kBlockQ * kLdS;
-  float* lse_s = dos + kBlockQ * kLd;
-  float* delta_s = lse_s + kBlockQ;
+  float* dos = dss + kRowsQ * kLdS;
+  float* lse_s = dos + kRowsQ * kLd;
+  float* delta_s = lse_s + kRowsQ;
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockQ;
-  const int row = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRowsQ;
   const int qo = p.q_off[row];
   const int ko = p.k_off[row];
   const T* kg = p.k + (row / p.group) * p.k_sr;
@@ -642,7 +672,7 @@ __global__ void __launch_bounds__(kThreads) dq_step_kernel(const Params p) {
   const int n_kv = (p.tkv + kBlockK - 1) / kBlockK;
   int kv_end = n_kv;
   if (p.causal) {
-    const int reach = qo + q0 + kBlockQ - 1 - ko;
+    const int reach = qo + q0 + kRowsQ - 1 - ko;
     kv_end = reach < 0 ? 0 : min(n_kv, reach / kBlockK + 1);
   }
 
@@ -653,20 +683,20 @@ __global__ void __launch_bounds__(kThreads) dq_step_kernel(const Params p) {
   }
 
   if (kv_end > 0) {
-    load_tile<T, D, kLd, kBlockQ, kThreads, true>(
+    load_tile<T, D, kLd, kRowsQ, kNThreads, true>(
         qs, p.q + row * p.q_sr, p.q_st, q0, p.tq, p.scale);
-    load_tile<float, D, kLd, kBlockQ, kThreads, false>(
+    load_tile<float, D, kLd, kRowsQ, kNThreads, false>(
         dos, p.dout + row * p.o_sr, p.o_st, q0, p.tq, 1.f);
-    load_rows(p, row, q0, lse_s, delta_s);
+    load_rows<kRowsQ, kNThreads>(p, row, q0, lse_s, delta_s);
   }
 
   for (int kb = 0; kb < kv_end; ++kb) {
     const int k0 = kb * kBlockK;
     __syncthreads();  // every warp is done with the previous k/v tile
-    load_tile<T, D, kLd, kBlockK, kThreads, false>(ks, kg, p.k_st, k0, p.tkv,
-                                                   1.f);
-    load_tile<T, D, kLd, kBlockK, kThreads, false>(vs, vg, p.v_st, k0, p.tkv,
-                                                   1.f);
+    load_tile<T, D, kLd, kBlockK, kNThreads, false>(ks, kg, p.k_st, k0,
+                                                    p.tkv, 1.f);
+    load_tile<T, D, kLd, kBlockK, kNThreads, false>(vs, vg, p.v_st, k0,
+                                                    p.tkv, 1.f);
     __syncthreads();
 
     float s[kNT][4];
@@ -681,7 +711,7 @@ __global__ void __launch_bounds__(kThreads) dq_step_kernel(const Params p) {
     warp_fma<D, kNT, kLd, 1, 1, kLd>(dp, dos + warp * 16 * kLd, vs);
 
     const bool masked = (p.causal && ko + k0 + kBlockK - 1 > qo + q0) ||
-                        k0 + kBlockK > p.tkv || q0 + kBlockQ > p.tq;
+                        k0 + kBlockK > p.tkv || q0 + kRowsQ > p.tq;
     T* dsw = dss + warp * 16 * kLdS;
 #pragma unroll
     for (int j = 0; j < kNT; ++j) {
@@ -724,25 +754,33 @@ __global__ void __launch_bounds__(kThreads) dq_step_kernel(const Params p) {
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads) dkv_step_kernel(const Params p) {
+__global__ void __launch_bounds__(32 * kF32Warps<D>)
+    dkv_step_kernel(const Params p) {
   using T = float;
+  constexpr int kWarps = kF32Warps<D>;
+  constexpr int kNThreads = 32 * kWarps;
+  constexpr int kKeys = 16 * kWarps;  // keys per block
+  constexpr int kHalves = D / kCols<D>;
   constexpr int kLd = D + 4;         // k, v, q, dO rows
   constexpr int kLdP = kBlockQ + 4;  // p^T and ds^T [key][query]
-  constexpr int kDT = D / 8;
+  constexpr int kDT = kCols<D> / 8;  // 8-column slices of dK, dV
   constexpr int kCT = kChunk / 8;
+
+  const int r = grid_row();  // output row: query heads r * hpb + j
+  if (r >= p.bh / p.hpb) return;
 
   extern __shared__ __align__(16) unsigned char smem[];
   T* ks = reinterpret_cast<T*>(smem);
-  T* vs = ks + kBlockK * kLd;
-  T* qs = vs + kBlockK * kLd;  // q * scale
+  T* vs = ks + kKeys * kLd;
+  T* qs = vs + kKeys * kLd;  // q * scale
   T* dsts = qs + kBlockQ * kLd;
-  float* dos = dsts + kBlockK * kLdP;
+  float* dos = dsts + kKeys * kLdP;
   float* pts = dos + kBlockQ * kLd;
-  float* lse_s = pts + kBlockK * kLdP;
+  float* lse_s = pts + kKeys * kLdP;
   float* delta_s = lse_s + kBlockQ;
 
-  const int k0 = blockIdx.x * kBlockK;
-  const int r = blockIdx.y;  // output row: query heads r * hpb + j
+  const int k0 = blockIdx.x / kHalves * kKeys;
+  const int col0 = blockIdx.x % kHalves * kCols<D>;  // the block's columns
   const int kv_row = r * p.hpb / p.group;
 
   const int warp = threadIdx.x / 32;
@@ -751,9 +789,9 @@ __global__ void __launch_bounds__(kThreads) dkv_step_kernel(const Params p) {
   const int c2 = 2 * (lane % 4);
   const int kr = warp * 16 + g;  // this lane's key rows: kr and kr + 8
 
-  load_tile<T, D, kLd, kBlockK, kThreads, false>(
+  load_tile<T, D, kLd, kKeys, kNThreads, false>(
       ks, p.k + kv_row * p.k_sr, p.k_st, k0, p.tkv, 1.f);
-  load_tile<T, D, kLd, kBlockK, kThreads, false>(
+  load_tile<T, D, kLd, kKeys, kNThreads, false>(
       vs, p.v + kv_row * p.v_sr, p.v_st, k0, p.tkv, 1.f);
 
   float dk[kDT][4];
@@ -777,15 +815,15 @@ __global__ void __launch_bounds__(kThreads) dkv_step_kernel(const Params p) {
          qi < n_q; ++qi) {
       const int q0 = qi * kBlockQ;
       __syncthreads();  // every warp is done with the previous query tile
-      load_tile<T, D, kLd, kBlockQ, kThreads, true>(qs, qg, p.q_st, q0, p.tq,
-                                                    p.scale);
-      load_tile<float, D, kLd, kBlockQ, kThreads, false>(dos, og, p.o_st, q0,
-                                                         p.tq, 1.f);
-      load_rows(p, row, q0, lse_s, delta_s);
+      load_tile<T, D, kLd, kBlockQ, kNThreads, true>(qs, qg, p.q_st, q0,
+                                                     p.tq, p.scale);
+      load_tile<float, D, kLd, kBlockQ, kNThreads, false>(dos, og, p.o_st,
+                                                          q0, p.tq, 1.f);
+      load_rows<kBlockQ, kNThreads>(p, row, q0, lse_s, delta_s);
       __syncthreads();
 
-      const bool masked = (p.causal && ko + k0 + kBlockK - 1 > qo + q0) ||
-                          k0 + kBlockK > p.tkv || q0 + kBlockQ > p.tq;
+      const bool masked = (p.causal && ko + k0 + kKeys - 1 > qo + q0) ||
+                          k0 + kKeys > p.tkv || q0 + kBlockQ > p.tq;
 #pragma unroll
       for (int n0 = 0; n0 < kBlockQ; n0 += kChunk) {
         float s[kCT][4];
@@ -822,9 +860,9 @@ __global__ void __launch_bounds__(kThreads) dkv_step_kernel(const Params p) {
       }
       __syncwarp();  // the warp's own p^T and ds^T rows are written
 
-      // dV += p^T dO; dK += ds^T (q * scale).
-      warp_fma<kBlockQ, kDT, kLdP, 1, kLd, 1>(dv, ptw, dos);
-      warp_fma<kBlockQ, kDT, kLdP, 1, kLd, 1>(dk, dstw, qs);
+      // dV += p^T dO; dK += ds^T (q * scale), in the block's columns.
+      warp_fma<kBlockQ, kDT, kLdP, 1, kLd, 1>(dv, ptw, dos + col0);
+      warp_fma<kBlockQ, kDT, kLdP, 1, kLd, 1>(dk, dstw, qs + col0);
     }
   }
 
@@ -835,8 +873,8 @@ __global__ void __launch_bounds__(kThreads) dkv_step_kernel(const Params p) {
     if (key >= p.tkv) continue;
 #pragma unroll
     for (int j = 0; j < kDT; ++j) {
-      const long long off = base + static_cast<long long>(key) * D + j * 8 +
-                            c2;
+      const long long off = base + static_cast<long long>(key) * D + col0 +
+                            j * 8 + c2;
       if (p.accumulate) {
         store2(p.dk + off, p.dk[off] + dk[j][2 * i],
                p.dk[off + 1] + dk[j][2 * i + 1]);
@@ -866,13 +904,15 @@ __global__ void bwd_step_dq_kernel(const float* acc, T* dq, long long pairs,
 // ---- launchers ----
 
 template <int D>
-cudaError_t launch_f32(const Params& p, int rows_out, cudaStream_t stream) {
+cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
+  constexpr int kRows = 16 * kF32Warps<D>;  // query rows or keys per block
   constexpr int kLd = D + 4;
+  // d = 256: 204 KB and 213 KB.
   constexpr size_t kDqSmem =
-      ((kBlockQ + 2 * kBlockK) * kLd + kBlockQ * (kBlockK + 4) +
-       kBlockQ * kLd + 2 * kBlockQ) * sizeof(float);
+      ((kRows + 2 * kBlockK) * kLd + kRows * (kBlockK + 4) + kRows * kLd +
+       2 * kRows) * sizeof(float);
   constexpr size_t kDkvSmem =
-      ((2 * kBlockK + kBlockQ) * kLd + 2 * kBlockK * (kBlockQ + 4) +
+      ((2 * kRows + kBlockQ) * kLd + 2 * kRows * (kBlockQ + 4) +
        kBlockQ * kLd + 2 * kBlockQ) * sizeof(float);
   static std::atomic<bool> dq_set[kMaxDevices];
   static std::atomic<bool> dkv_set[kMaxDevices];
@@ -880,36 +920,39 @@ cudaError_t launch_f32(const Params& p, int rows_out, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   err = allow_dynamic_smem(dkv_step_kernel<D>, kDkvSmem, dkv_set);
   if (err != cudaSuccess) return err;
-  const int bh = rows_out * p.hpb;
-  dq_step_kernel<D><<<dim3((p.tq + kBlockQ - 1) / kBlockQ, bh), kThreads,
-                      kDqSmem, stream>>>(p);
+  constexpr int kThreadsF = 32 * kF32Warps<D>;
+  dq_step_kernel<D><<<rows_grid((p.tq + kRows - 1) / kRows, p.bh),
+                      kThreadsF, kDqSmem, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dkv_step_kernel<D><<<dim3((p.tkv + kBlockK - 1) / kBlockK, rows_out),
-                       kThreads, kDkvSmem, stream>>>(p);
+  dkv_step_kernel<D><<<rows_grid((p.tkv + kRows - 1) / kRows *
+                                     (D / kCols<D>),
+                                 p.bh / p.hpb),
+                       kThreadsF, kDkvSmem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int D, bool kLo>
-cudaError_t launch_bf16(TmaParams& p, const void* q, const void* k,
-                        const void* v, const void* dout, const void* dout_lo,
-                        float* dq, int rows_out, const long long* st,
-                        cudaStream_t stream) {
+template <int D, bool kLo, typename T>
+cudaError_t launch_tma(TmaParams& p, int dtype, const void* q, const void* k,
+                       const void* v, const void* dout, const void* dout_lo,
+                       float* dq, int rows_out, const long long* st,
+                       cudaStream_t stream) {
   const int bh = rows_out * p.hpb;
   const int bh_kv = bh / p.group;
-  cudaError_t err = encode_rows(&p.q, 0, q, D, p.tq, bh, st[1], st[0], 64);
+  cudaError_t err =
+      encode_rows(&p.q, dtype, q, D, p.tq, bh, st[1], st[0], 64);
   if (err == cudaSuccess) {
-    err = encode_rows(&p.k, 0, k, D, p.tkv, bh_kv, st[3], st[2], 64);
+    err = encode_rows(&p.k, dtype, k, D, p.tkv, bh_kv, st[3], st[2], 64);
   }
   if (err == cudaSuccess) {
-    err = encode_rows(&p.v, 0, v, D, p.tkv, bh_kv, st[5], st[4], 64);
+    err = encode_rows(&p.v, dtype, v, D, p.tkv, bh_kv, st[5], st[4], 64);
   }
   if (err == cudaSuccess) {
-    err = encode_rows(&p.dout, 0, dout, D, p.tq, bh, D,
+    err = encode_rows(&p.dout, dtype, dout, D, p.tq, bh, D,
                       static_cast<long long>(p.tq) * D, 64);
   }
   if (err == cudaSuccess && kLo) {
-    err = encode_rows(&p.dout_lo, 0, dout_lo, D, p.tq, bh, D,
+    err = encode_rows(&p.dout_lo, dtype, dout_lo, D, p.tq, bh, D,
                       static_cast<long long>(p.tq) * D, 64);
   }
   if (err == cudaSuccess) {
@@ -918,26 +961,44 @@ cudaError_t launch_bf16(TmaParams& p, const void* q, const void* k,
   }
   if (err != cudaSuccess) return err;
   static std::atomic<bool> smem_set[kMaxDevices];
-  err = allow_dynamic_smem(bwd_step_wgmma_kernel<D, kLo>, kSmem<D, kLo>,
+  err = allow_dynamic_smem(bwd_step_wgmma_kernel<D, kLo, T>, kSmem<D, kLo>,
                            smem_set);
   if (err != cudaSuccess) return err;
-  const dim3 grid(rows_out, (p.tkv + kBlockK - 1) / kBlockK);
-  bwd_step_wgmma_kernel<D, kLo>
+  const dim3 grid(rows_out * (D / kCols<D>), (p.tkv + kBlockK - 1) / kBlockK);
+  bwd_step_wgmma_kernel<D, kLo, T>
       <<<grid, kTmaThreads, kSmem<D, kLo>, stream>>>(p);
   return cudaGetLastError();
 }
 
-// The instance of head_dim D: kLo where dO_lo is given.
-template <int D>
-cudaError_t launch_wgmma(TmaParams& p, const void* q, const void* k,
-                         const void* v, const void* dout, const void* dout_lo,
-                         float* dq, int rows_out, const long long* st,
-                         cudaStream_t stream) {
+// The instance of head_dim D and type T: kLo where dO_lo is given.
+template <int D, typename T>
+cudaError_t launch_wgmma(TmaParams& p, int dtype, const void* q,
+                         const void* k, const void* v, const void* dout,
+                         const void* dout_lo, float* dq, int rows_out,
+                         const long long* st, cudaStream_t stream) {
   return dout_lo == nullptr
-             ? launch_bf16<D, false>(p, q, k, v, dout, dout_lo, dq, rows_out,
-                                     st, stream)
-             : launch_bf16<D, true>(p, q, k, v, dout, dout_lo, dq, rows_out,
-                                    st, stream);
+             ? launch_tma<D, false, T>(p, dtype, q, k, v, dout, dout_lo, dq,
+                                       rows_out, st, stream)
+             : launch_tma<D, true, T>(p, dtype, q, k, v, dout, dout_lo, dq,
+                                      rows_out, st, stream);
+}
+
+template <typename T>
+cudaError_t launch_wgmma_d(TmaParams& p, int dtype, int d, const void* q,
+                           const void* k, const void* v, const void* dout,
+                           const void* dout_lo, float* dq, int rows_out,
+                           const long long* st, cudaStream_t stream) {
+  switch (d) {
+    case 64:
+      return launch_wgmma<64, T>(p, dtype, q, k, v, dout, dout_lo, dq,
+                                 rows_out, st, stream);
+    case 128:
+      return launch_wgmma<128, T>(p, dtype, q, k, v, dout, dout_lo, dq,
+                                  rows_out, st, stream);
+    default:
+      return launch_wgmma<256, T>(p, dtype, q, k, v, dout, dout_lo, dq,
+                                  rows_out, st, stream);
+  }
 }
 
 }  // namespace
@@ -945,16 +1006,17 @@ cudaError_t launch_wgmma(TmaParams& p, const void* q, const void* k,
 extern "C" {
 
 // Each returns a cudaError_t; 0 is success. Strides in elements, d
-// contiguous.
+// contiguous. dtype: 0 = bf16, 1 = f32, 2 = f16. Any bh below 2^31: past
+// 65535 rows the grids spread them over y and z.
 
 // Launch 1: rows (bh, ceil(t_q / 64), 128) f32 from lse and delta (bh, t_q)
 // f32; with dout (bh, t_q, d) f32 (16-byte aligned rows), also do_hi and
-// do_lo (bh, t_q, d) bf16 contiguous. d even.
+// do_lo (bh, t_q, d) in dtype (0 or 2) contiguous. d even.
 int gtt_flash_bwd_step_prep(const void* lse, const void* delta, void* rows,
                             const void* dout, void* do_hi, void* do_lo,
-                            int bh, int tq, int d, long long o_sr,
+                            int bh, int tq, int d, int dtype, long long o_sr,
                             long long o_st, void* stream) {
-  if (bh < 1 || bh > 65535 || tq < 1 || d < 2 || d % 2) {
+  if (bh < 1 || tq < 1 || d < 2 || d % 2 || (dtype != 0 && dtype != 2)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int n_q = (tq + kBlockQ - 1) / kBlockQ;
@@ -962,25 +1024,36 @@ int gtt_flash_bwd_step_prep(const void* lse, const void* delta, void* rows,
                      static_cast<const float*>(delta),
                      static_cast<float*>(rows),
                      static_cast<const float*>(dout),
-                     static_cast<__nv_bfloat16*>(do_hi),
-                     static_cast<__nv_bfloat16*>(do_lo),
-                     o_sr, o_st, tq, d, n_q};
-  bwd_step_prep_kernel<<<dim3(n_q, bh), kPrepThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(p);
+                     do_hi,
+                     do_lo,
+                     o_sr,
+                     o_st,
+                     bh,
+                     tq,
+                     d,
+                     n_q};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    bwd_step_prep_kernel<__nv_bfloat16>
+        <<<rows_grid(n_q, bh), kPrepThreads, 0, s>>>(p);
+  } else {
+    bwd_step_prep_kernel<__half><<<rows_grid(n_q, bh), kPrepThreads, 0, s>>>(
+        p);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launch 2, one ring step. dtype (of q, k, v): 0 = bf16, 1 = f32; d: 64 or
-// 128. A block serves hpb query heads (1, or group: then its output row is
-// their kv head). bf16: dout is dO_hi and dout_lo dO_lo or null, both
-// (bh, t_q, d) bf16 contiguous; rows from launch 1; lse and delta unused.
-// f32: dout (bh, t_q, d) f32 at o_sr / o_st; lse and delta (bh, t_q) f32;
-// rows and dout_lo unused. dq (bh, t_q, d) f32 contiguous: fresh
-// (accumulate 0) it gets dQ * dq_scale (bf16: added into zeros), else
-// unscaled dQ is added to it. dk, dv (bh / hpb, t_kv, d) f32 contiguous:
-// written, or added to. q_off, k_off (bh,) int32: each row's global
-// offsets. Every operand 16-byte aligned with strides that are multiples
-// of 16 bytes.
+// Launch 2, one ring step. dtype (of q, k, v): 0 = bf16, 1 = f32, 2 = f16;
+// d: 64, 128 or 256. A block serves hpb query heads (1, or group: then its
+// output row is their kv head). 16-bit: dout is dO_hi and dout_lo dO_lo or
+// null, both (bh, t_q, d) in q's type contiguous; rows from launch 1; lse
+// and delta unused. f32: dout (bh, t_q, d) f32 at o_sr / o_st; lse and
+// delta (bh, t_q) f32; rows and dout_lo unused. dq (bh, t_q, d) f32
+// contiguous: fresh (accumulate 0) it gets dQ * dq_scale (16-bit: added
+// into zeros), else unscaled dQ is added to it. dk, dv (bh / hpb, t_kv, d)
+// f32 contiguous: written, or added to. q_off, k_off (bh,) int32: each
+// row's global offsets. Every operand 16-byte aligned with strides that
+// are multiples of 16 bytes.
 int gtt_flash_bwd_step(const void* q, const void* k, const void* v,
                        const void* dout, const void* dout_lo,
                        const void* rows, const void* lse, const void* delta,
@@ -992,14 +1065,14 @@ int gtt_flash_bwd_step(const void* q, const void* k, const void* v,
                        long long k_st, long long v_sr, long long v_st,
                        long long o_sr, long long o_st, void* stream) {
   if (bh < 1 || group < 1 || bh % group != 0 || (hpb != 1 && hpb != group) ||
-      tq < 1 || tkv < 1 || (d != 64 && d != 128) || (dtype != 0 && dtype != 1)
-      || bh / hpb > (1 << 30) || bh > 65535 || tkv > 65535 * kBlockK) {
+      tq < 1 || tkv < 1 || (d != 64 && d != 128 && d != 256) || dtype < 0 ||
+      dtype > 2 || bh / hpb >= (1 << 30) || tkv > 65535 * kBlockK) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rows_out = bh / hpb;
   cudaError_t err;
-  if (dtype == 0) {
+  if (dtype != 1) {
     TmaParams p;
     memset(&p, 0, sizeof(p));
     p.rows = static_cast<const float*>(rows);
@@ -1018,10 +1091,11 @@ int gtt_flash_bwd_step(const void* q, const void* k, const void* v,
     p.dq_mul = accumulate ? 1.f : dq_scale;
     const long long st[6] = {q_sr, q_st, k_sr, k_st, v_sr, v_st};
     float* acc = static_cast<float*>(dq);
-    err = d == 64 ? launch_wgmma<64>(p, q, k, v, dout, dout_lo, acc,
-                                     rows_out, st, s)
-                  : launch_wgmma<128>(p, q, k, v, dout, dout_lo, acc,
-                                      rows_out, st, s);
+    err = dtype == 0
+              ? launch_wgmma_d<__nv_bfloat16>(p, dtype, d, q, k, v, dout,
+                                              dout_lo, acc, rows_out, st, s)
+              : launch_wgmma_d<__half>(p, dtype, d, q, k, v, dout, dout_lo,
+                                       acc, rows_out, st, s);
   } else {
     Params p{};
     p.q = static_cast<const float*>(q);
@@ -1035,6 +1109,7 @@ int gtt_flash_bwd_step(const void* q, const void* k, const void* v,
     p.dq = static_cast<float*>(dq);
     p.dk = static_cast<float*>(dk);
     p.dv = static_cast<float*>(dv);
+    p.bh = bh;
     p.hpb = hpb;
     p.group = group;
     p.tq = tq;
@@ -1051,17 +1126,18 @@ int gtt_flash_bwd_step(const void* q, const void* k, const void* v,
     p.v_st = v_st;
     p.o_sr = o_sr;
     p.o_st = o_st;
-    err = d == 64 ? launch_f32<64>(p, rows_out, s)
-                  : launch_f32<128>(p, rows_out, s);
+    err = d == 64    ? launch_f32<64>(p, s)
+          : d == 128 ? launch_f32<128>(p, s)
+                     : launch_f32<256>(p, s);
   }
   return static_cast<int>(err);
 }
 
-// Launch 3: dq (elems, in the input type: 0 = bf16, 1 = f32) = acc * scale;
-// elems even.
+// Launch 3: dq (elems, in the input type: 0 = bf16, 1 = f32, 2 = f16) =
+// acc * scale; elems even.
 int gtt_flash_bwd_step_dq(const void* acc, void* dq, int dtype, float scale,
                           long long elems, void* stream) {
-  if (elems < 2 || elems % 2 || (dtype != 0 && dtype != 1)) {
+  if (elems < 2 || elems % 2 || dtype < 0 || dtype > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long pairs = elems / 2;
@@ -1072,6 +1148,9 @@ int gtt_flash_bwd_step_dq(const void* acc, void* dq, int dtype, float scale,
   if (dtype == 0) {
     bwd_step_dq_kernel<__nv_bfloat16><<<blocks, 256, 0, s>>>(
         a, static_cast<__nv_bfloat16*>(dq), pairs, scale);
+  } else if (dtype == 2) {
+    bwd_step_dq_kernel<__half><<<blocks, 256, 0, s>>>(
+        a, static_cast<__half*>(dq), pairs, scale);
   } else {
     bwd_step_dq_kernel<float><<<blocks, 256, 0, s>>>(
         a, static_cast<float*>(dq), pairs, scale);

@@ -1,11 +1,13 @@
-// Helpers shared by the flash-attention kernels (flash_fwd.cu,
-// flash_bwd.cu, flash_step.cu and flash_bwd_step.cu): element conversions,
-// e^x for the bf16 kernels, bf16 packing, a warp's f32 product of two
-// shared-memory tiles on the FMA units, 16-byte tile loads into shared
-// memory, and the one-time dynamic shared-memory attribute. The bf16
-// kernels run their products on wgmma over TMA-staged tiles (hopper.cuh)
-// and take from here fast_exp, the packing of p, the stores and the
-// attribute; the f32 kernels the tile loads and warp_fma.
+// Helpers shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu,
+// flash_step.cu and flash_bwd_step.cu): element conversions of bf16, f16 and
+// f32, e^x for the 16-bit kernels, the packing of two 16-bit values into one
+// register and an f32 pair's hi/lo split, a warp's f32 product of two
+// shared-memory tiles on the FMA units, 16-byte tile loads into shared memory,
+// q * scale in place in a staged tile, the grid's row axis past 65535, and the
+// one-time dynamic shared-memory attribute. The 16-bit kernels (bf16 and f16,
+// one template each) run their products on wgmma over TMA-staged tiles
+// (hopper.cuh) and take from here fast_exp, the packing of p, the stores and
+// the attribute; the f32 kernels the tile loads and warp_fma.
 //
 // The f32 products use the fragment layout of mma.sync m16n8k16 (and of
 // wgmma's accumulator per warp), so that both types share their index
@@ -18,6 +20,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
@@ -31,6 +34,7 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -40,24 +44,59 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
+}
 
 // e^x as one multiply and the SFU's 2^x (ex2.approx: ~2 ulps in f32, and
-// 0 for x = -inf), for the bf16 kernels (B1, B2, B6, B7). The precise
+// 0 for x = -inf), for the 16-bit kernels (B1, B2, B6, B7). The precise
 // expf takes several more instructions per score, which the softmax of
 // every key tile pays: in the chain of one block, that bounded B1 at long
-// sequences. p is rounded to bf16 right after, and the tolerances against
-// the plain twins' torch.exp hold unchanged (tests/test_torch_attention.py's
-// TOL, chip_smoke.py's KERNEL_TOL, BWD_TOL and STEP_TOL).
+// sequences. p is rounded to bf16 or f16 right after, and the tolerances
+// against the plain twins' torch.exp hold unchanged (tests/
+// test_torch_attention.py's TOL, chip_smoke.py's KERNEL_TOL, BWD_TOL and
+// STEP_TOL).
 __device__ __forceinline__ float fast_exp(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * 1.4426950408889634f));
   return y;
 }
 
-// Two bf16 in one register, lo in the low half (the lower k or n index).
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+// Two T (bf16 or f16) in one register, lo in the low half (the lower k or
+// n index); and back.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+template <typename T>
+__device__ __forceinline__ float2 unpack2(uint32_t bits);
+template <>
+__device__ __forceinline__ float2 unpack2<__nv_bfloat16>(uint32_t bits) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&bits));
+}
+template <>
+__device__ __forceinline__ float2 unpack2<__half>(uint32_t bits) {
+  return __half22float2(*reinterpret_cast<__half2*>(&bits));
+}
+
+// f32 a and b as T hi halves (*hi, packed) and the T rounding of what
+// they leave (*lo): hi + lo carries ~16 bits of each (bf16), or ~22 (f16)
+// where the remainder is a normal f16, down to f16's 2^-24 below that.
+template <typename T>
+__device__ __forceinline__ void split2(float a, float b, uint32_t* hi,
+                                       uint32_t* lo) {
+  *hi = pack2<T>(a, b);
+  const float2 h = unpack2<T>(*hi);
+  *lo = pack2<T>(a - h.x, b - h.y);
 }
 
 // acc[j] += A B on the FMA units in f32, for the warp's 16 rows of A and
@@ -92,6 +131,38 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 }
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(__half* p, float a, float b) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
+}
+
+// Every element of a staged 16-bit tile of `bytes` bytes times `scale`,
+// rounded back to T in place, by kCount threads (the consumers).
+template <typename T, int kCount>
+__device__ __forceinline__ void scale_in_place(uint8_t* tile, int bytes,
+                                               float scale) {
+  for (int i = threadIdx.x; i < bytes / 16; i += kCount) {
+    uint4* const at = reinterpret_cast<uint4*>(tile) + i;
+    uint4 val = *at;
+    T* e = reinterpret_cast<T*>(&val);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) e[j] = from_f32<T>(to_f32(e[j]) * scale);
+    *at = val;
+  }
+}
+
+// The grid's y axis holds at most 65535 blocks: a launch over `rows` rows
+// (b * h, query-head rows) puts them on y and z, (x, min(rows, 65535),
+// ceil(rows / 65535)). Up to 65535 rows that is (x, rows, 1), the launch
+// as it was; a block whose row (grid_row) is past the end returns first.
+constexpr int kMaxGridY = 65535;
+inline dim3 rows_grid(int x, long long rows) {
+  return dim3(x, static_cast<unsigned>(rows < kMaxGridY ? rows : kMaxGridY),
+              static_cast<unsigned>((rows + kMaxGridY - 1) / kMaxGridY));
+}
+__device__ __forceinline__ int grid_row() {
+  return static_cast<int>(blockIdx.z) * kMaxGridY +
+         static_cast<int>(blockIdx.y);
 }
 
 // Copies rows [row0, row0 + kRows) of a (t, D) slice with row stride

@@ -13,18 +13,18 @@
 // tensor cores do (~0.017 ms). The design keeps every load in flight ahead
 // of the products and runs the products on wgmma:
 //
-// bf16 (the model's type): one block per (flat query head, 64-row query
-// tile), highest query tiles first (under the causal mask they are the
-// longest), of one consumer warpgroup (128 threads, 16 query rows per
-// warp) and one producer warp. The producer's lane 0 issues TMA loads of
-// 128-byte-swizzled 64 x 64 slabs (hopper.cuh): the q tile once, then the
-// k and v tiles of 64 keys into a ring of kStages<D> stages, each with a
-// full mbarrier for k, one for v and an empty one the consumers arrive on; a
-// stage is refilled only once its empty barrier shows the consumers are
-// done with it. At the flagship's t = 128 every load of a block is in
-// flight before the first product. The consumers scale q once in shared
-// memory (q * scale rounded to bf16, then fence.proxy.async and a named
-// barrier so that wgmma reads the scaled values), then per key tile:
+// bf16 and f16 (the model's types; one template, T): one block per (flat query
+// head, 64-row query tile), highest query tiles first (under the causal mask
+// they are the longest), of one consumer warpgroup (128 threads, 16 query rows
+// per warp) and one producer warp. The producer's lane 0 issues TMA loads of
+// 128-byte-swizzled 64 x 64 slabs (hopper.cuh): the q tile once, then the k
+// and v tiles of 64 keys into a ring of kStages<D> stages, each with a full
+// mbarrier for k, one for v and an empty one the consumers arrive on; a stage
+// is refilled only once its empty barrier shows the consumers are done with
+// it. At the flagship's t = 128 every load of a block is in flight before the
+// first product. The consumers scale q once in shared memory (q * scale
+// rounded to T, then fence.proxy.async and a named barrier so that wgmma reads
+// the scaled values), then per key tile:
 //   - s = q k^T: wgmma m64n64k16 with both operands in shared memory, k
 //     K-major (d / 16 k-steps, a slab per 64 of d), f32 accumulators;
 //   - the mask, only on tiles that cross the diagonal or the ragged end
@@ -35,7 +35,14 @@
 //     8-key slices is the A fragment of one 16-key step) and B = v
 //     MN-major from shared memory, one n64 product per 64 columns of d.
 // Key tiles above the causal diagonal are never loaded. k and v are read
-// through the kv head hq / group (GQA): never replicated.
+// through the kv head hq / group (GQA): never replicated. At d = 256 (the
+// largest instance; 136-248 are zero-padded to it) a tile is 4 slabs of 32
+// KB and o takes 128 of a consumer's registers, beside 32 for s: one pass
+// over the columns still fits (PERF.md has ptxas's count), one block per
+// SM at 161 KB of shared memory.
+//
+// Rows (b * h) past the grid's 65535 go on grid z (rows_grid in
+// flash_common.cuh): a launch of at most 65535 rows is the launch it was.
 //
 // f32 (off the model's path) keeps the FMA design: one block of 4 warps
 // per (flat query head, 64-row query tile), 16-byte loads of the tiles
@@ -48,8 +55,8 @@
 // running maxima, and p's rounding with them, are the plain twin's and
 // JAX's), masked scores -inf with the m_safe / corr guards, p rounded to
 // v's type before PV, out = acc / max(l, 1e-30) in the input type, lse =
-// m + log(max(l, 1e-30)) in f32. The bf16 kernel takes e^x from the SFU's
-// 2^x (fast_exp), the f32 kernel from expf.
+// m + log(max(l, 1e-30)) in f32. The 16-bit kernel takes e^x from the
+// SFU's 2^x (fast_exp), the f32 kernel from expf.
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -64,21 +71,22 @@ using namespace gtt;
 
 constexpr int kBlockQ = 64;  // query rows per block
 constexpr int kBlockK = 64;  // keys per kv tile
-constexpr int kThreads = 128;  // f32: 4 warps; bf16: the consumer warpgroup
-constexpr int kTmaThreads = kThreads + 32;  // bf16: + the producer warp
+constexpr int kThreads = 128;  // f32: 4 warps; 16-bit: the consumers
+constexpr int kTmaThreads = kThreads + 32;  // 16-bit: + the producer warp
 constexpr int kSlab = 64 * 128;    // one swizzled slab: 64 lines x 128 bytes
 constexpr int kPLd = kBlockK + 4;  // row stride of the f32 path's p tile
 
-// ---- bf16: wgmma on TMA-staged tiles ----
+// ---- bf16 and f16: wgmma on TMA-staged tiles ----
 
 // k/v stages of the ring by head_dim: every load of a block at the
 // flagship's t = 128 (two key tiles) in flight before the first product.
 // Three at d = 64 (58 KB, three blocks per SM), two at d = 128 (83 KB, two
-// per SM; three, at 116 KB, would leave one block per SM).
+// per SM; three, at 116 KB, would leave one block per SM) and at d = 256
+// (161 KB, one per SM).
 template <int D>
 constexpr int kStages = D == 64 ? 3 : 2;
 
-// Shared memory of a bf16 launch: the q tile and kStages<D> k and v tiles,
+// Shared memory of a 16-bit launch: the q tile and kStages<D> k and v tiles,
 // their mbarriers and the swizzle's 1024-byte alignment.
 template <int D>
 constexpr int kTmaSmem =
@@ -90,21 +98,25 @@ struct TmaParams {
   CUtensorMap q;
   CUtensorMap k;
   CUtensorMap v;
-  __nv_bfloat16* out;  // (b, h, t, d) contiguous
-  float* lse;          // (b, h, t) contiguous
+  void* out;   // (b, h, t, d) contiguous, T
+  float* lse;  // (b, h, t) contiguous
+  int rows;    // b * h
   int h, group, t;
   int causal;
-  float scale;  // 1 / sqrt(d), already rounded to bf16
+  float scale;  // 1 / sqrt(d), already rounded to T
 };
 
 __device__ __forceinline__ void consumers_sync() { named_sync<kThreads>(1); }
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kTmaThreads)
     flash_fwd_wgmma_kernel(const __grid_constant__ TmaParams p) {
   constexpr int kSlabs = D / 64;         // slabs per tile
   constexpr int kTile = kSlabs * kSlab;  // bytes of a q, k or v tile
   constexpr int kSt = kStages<D>;
+
+  const int head = grid_row();  // flat query head b * h + hq
+  if (head >= p.rows) return;
 
   extern __shared__ uint8_t smem_raw[];
   uint8_t* const qs = aligned_smem(smem_raw);
@@ -116,7 +128,6 @@ __global__ void __launch_bounds__(kTmaThreads)
   uint64_t* const empty = v_full + kSt;
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockQ;
-  const int head = blockIdx.y;  // flat query head b * h + hq
   const int b = head / p.h;
   const int hq = head % p.h;
   const int hk = hq / p.group;
@@ -171,18 +182,9 @@ __global__ void __launch_bounds__(kTmaThreads)
   const int c2 = 2 * (lane % 4);
   const int r0 = acc_row(0);  // this thread's tile rows: r0 and r0 + 8
 
-  // q * scale rounded to bf16, in place; then visible to wgmma's reads.
+  // q * scale rounded to T, in place; then visible to wgmma's reads.
   mbar_wait(q_full, 0);
-  for (int i = threadIdx.x; i < kTile / 16; i += kThreads) {
-    uint4* const at = reinterpret_cast<uint4*>(qs) + i;
-    uint4 val = *at;
-    __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&val);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      e[j] = __float2bfloat16_rn(__bfloat162float(e[j]) * p.scale);
-    }
-    *at = val;
-  }
+  scale_in_place<T, kThreads>(qs, kTile, p.scale);
   fence_proxy_async_shared();
   consumers_sync();
 
@@ -213,7 +215,7 @@ __global__ void __launch_bounds__(kTmaThreads)
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t off = kk / 4 * kSlab + kk % 4 * 32;
-      wgmma_bf16<0>(sc, desc(q_addr + off), desc(k_addr + off));
+      wgmma_bf16<0, 0, T>(sc, desc(q_addr + off), desc(k_addr + off));
     }
     wgmma_commit();
     wgmma_wait<0>(sc);
@@ -269,13 +271,13 @@ __global__ void __launch_bounds__(kTmaThreads)
       }
     }
 
-    // p in bf16 as the A fragments of the four 16-key steps.
+    // p in T as the A fragments of the four 16-key steps.
     uint32_t pa[4][4];
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
       for (int f = 0; f < 4; ++f) {
-        pa[kk][f] = pack_bf16(sc[8 * kk + 2 * f], sc[8 * kk + 2 * f + 1]);
+        pa[kk][f] = pack2<T>(sc[8 * kk + 2 * f], sc[8 * kk + 2 * f + 1]);
       }
     }
 
@@ -288,7 +290,8 @@ __global__ void __launch_bounds__(kTmaThreads)
     for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
       for (int c = 0; c < kSlabs; ++c) {
-        wgmma_bf16_rs<1>(o[c], pa[kk], desc(v_addr + c * kSlab + kk * 2048));
+        wgmma_bf16_rs<1, T>(o[c], pa[kk],
+                            desc(v_addr + c * kSlab + kk * 2048));
       }
     }
     wgmma_commit();
@@ -298,7 +301,7 @@ __global__ void __launch_bounds__(kTmaThreads)
     mbar_arrive(empty + s);  // this thread is done with stage s
   }
 
-  __nv_bfloat16* og = p.out + static_cast<long long>(head) * p.t * D;
+  T* og = static_cast<T*>(p.out) + static_cast<long long>(head) * p.t * D;
   float* lg = p.lse + static_cast<long long>(head) * p.t;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -325,6 +328,7 @@ struct Params {
   const float* v;
   float* out;   // (b, h, t, d) contiguous
   float* lse;   // (b, h, t) contiguous
+  int rows;     // b * h
   int h, group, t;
   int causal;
   float scale;  // 1 / sqrt(d)
@@ -346,8 +350,9 @@ __global__ void __launch_bounds__(kThreads)
   float* vs = ks + kBlockK * kLd;
   float* ps = vs + kBlockK * kLd;
 
+  const int head = grid_row();
+  if (head >= p.rows) return;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockQ;
-  const int head = blockIdx.y;
   const int b = head / p.h;
   const int hq = head % p.h;
   const int hk = hq / p.group;
@@ -494,48 +499,66 @@ __global__ void __launch_bounds__(kThreads)
 // ---- launches ----
 
 template <int D>
-cudaError_t launch_f32(const Params& p, int bh, cudaStream_t stream) {
+cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
+  // d = 256: 212 KB, one block per SM.
   constexpr size_t kSmem = (kBlockQ + 2 * kBlockK) * (D + 4) * sizeof(float) +
                            kBlockQ * kPLd * sizeof(float);
   static std::atomic<bool> smem_set[kMaxDevices];
   const cudaError_t attr =
       allow_dynamic_smem(flash_fwd_f32_kernel<D>, kSmem, smem_set);
   if (attr != cudaSuccess) return attr;
-  const dim3 grid((p.t + kBlockQ - 1) / kBlockQ, bh);
+  const dim3 grid = rows_grid((p.t + kBlockQ - 1) / kBlockQ, p.rows);
   flash_fwd_f32_kernel<D><<<grid, kThreads, kSmem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_bf16(TmaParams& p, const void* q, const void* k,
-                        const void* v, int b, int h_kv, long long q_sb,
-                        long long q_sh, long long q_st, long long k_sb,
-                        long long k_sh, long long k_st, long long v_sb,
-                        long long v_sh, long long v_st, cudaStream_t stream) {
+// st: the (b, heads, t) strides of q, k and v in turn.
+template <int D, typename T>
+cudaError_t launch_tma(TmaParams& p, int dtype, const void* q, const void* k,
+                       const void* v, int b, int h_kv, const long long* st,
+                       cudaStream_t stream) {
   cudaError_t err =
-      encode_heads(&p.q, q, D, p.t, p.h, b, q_st, q_sh, q_sb);
+      encode_heads(&p.q, dtype, q, D, p.t, p.h, b, st[2], st[1], st[0]);
   if (err == cudaSuccess) {
-    err = encode_heads(&p.k, k, D, p.t, h_kv, b, k_st, k_sh, k_sb);
+    err = encode_heads(&p.k, dtype, k, D, p.t, h_kv, b, st[5], st[4], st[3]);
   }
   if (err == cudaSuccess) {
-    err = encode_heads(&p.v, v, D, p.t, h_kv, b, v_st, v_sh, v_sb);
+    err = encode_heads(&p.v, dtype, v, D, p.t, h_kv, b, st[8], st[7], st[6]);
   }
   if (err != cudaSuccess) return err;
   static std::atomic<bool> smem_set[kMaxDevices];
-  err = allow_dynamic_smem(flash_fwd_wgmma_kernel<D>, kTmaSmem<D>, smem_set);
+  err = allow_dynamic_smem(flash_fwd_wgmma_kernel<D, T>, kTmaSmem<D>,
+                           smem_set);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.t + kBlockQ - 1) / kBlockQ, b * p.h);
-  flash_fwd_wgmma_kernel<D><<<grid, kTmaThreads, kTmaSmem<D>, stream>>>(p);
+  const dim3 grid = rows_grid((p.t + kBlockQ - 1) / kBlockQ, p.rows);
+  flash_fwd_wgmma_kernel<D, T>
+      <<<grid, kTmaThreads, kTmaSmem<D>, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_tma_d(TmaParams& p, int dtype, int d, const void* q,
+                         const void* k, const void* v, int b, int h_kv,
+                         const long long* st, cudaStream_t stream) {
+  switch (d) {
+    case 64:
+      return launch_tma<64, T>(p, dtype, q, k, v, b, h_kv, st, stream);
+    case 128:
+      return launch_tma<128, T>(p, dtype, q, k, v, b, h_kv, st, stream);
+    default:
+      return launch_tma<256, T>(p, dtype, q, k, v, b, h_kv, st, stream);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Returns a cudaError_t; 0 is success. dtype: 0 = bf16, 1 = f32. Strides
-// in elements, d contiguous; bf16 takes 16-byte aligned q, k, v and
-// strides that are multiples of 8 elements (TMA).
+// Returns a cudaError_t; 0 is success. dtype: 0 = bf16, 1 = f32, 2 = f16;
+// d: 64, 128 or 256. Strides in elements, d contiguous; bf16 and f16 take
+// 16-byte aligned q, k, v and strides that are multiples of 8 elements
+// (TMA). Any b * h below 2^31: past 65535 the grid spreads them over y
+// and z.
 int gtt_flash_fwd(const void* q, const void* k, const void* v, void* out,
                   void* lse, int dtype, int b, int h, int h_kv, int t, int d,
                   int causal, float scale, long long q_sb,
@@ -543,40 +566,42 @@ int gtt_flash_fwd(const void* q, const void* k, const void* v, void* out,
                   long long k_sh, long long k_st, long long v_sb,
                   long long v_sh, long long v_st, void* stream) {
   if (b < 1 || h < 1 || h_kv < 1 || h % h_kv != 0 || t < 1 ||
-      static_cast<long long>(b) * h > 65535 || (d != 64 && d != 128)) {
+      static_cast<long long>(b) * h >= (1LL << 31) ||
+      (d != 64 && d != 128 && d != 256) || dtype < 0 || dtype > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     Params p{static_cast<const float*>(q), static_cast<const float*>(k),
              static_cast<const float*>(v), static_cast<float*>(out),
-             static_cast<float*>(lse), h, h / h_kv, t, causal, scale,
+             static_cast<float*>(lse), b * h, h, h / h_kv, t, causal, scale,
              q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st};
-    return static_cast<int>(d == 64 ? launch_f32<64>(p, b * h, s)
-                                    : launch_f32<128>(p, b * h, s));
+    return static_cast<int>(d == 64    ? launch_f32<64>(p, s)
+                            : d == 128 ? launch_f32<128>(p, s)
+                                       : launch_f32<256>(p, s));
   }
   const auto aligned = [](const void* a) {
     return (reinterpret_cast<uintptr_t>(a) & 15) == 0;
   };
-  const long long strides[] = {q_sb, q_sh, q_st, k_sb, k_sh,
-                               k_st, v_sb, v_sh, v_st};
-  bool ok = dtype == 0 && aligned(q) && aligned(k) && aligned(v);
-  for (long long st : strides) ok = ok && st > 0 && st % 8 == 0;
+  const long long st[] = {q_sb, q_sh, q_st, k_sb, k_sh,
+                          k_st, v_sb, v_sh, v_st};
+  bool ok = aligned(q) && aligned(k) && aligned(v);
+  for (long long x : st) ok = ok && x > 0 && x % 8 == 0;
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   TmaParams p;
   memset(&p, 0, sizeof(p));
-  p.out = static_cast<__nv_bfloat16*>(out);
+  p.out = out;
   p.lse = static_cast<float*>(lse);
+  p.rows = b * h;
   p.h = h;
   p.group = h / h_kv;
   p.t = t;
   p.causal = causal;
   p.scale = scale;
   return static_cast<int>(
-      d == 64 ? launch_bf16<64>(p, q, k, v, b, h_kv, q_sb, q_sh, q_st, k_sb,
-                                k_sh, k_st, v_sb, v_sh, v_st, s)
-              : launch_bf16<128>(p, q, k, v, b, h_kv, q_sb, q_sh, q_st, k_sb,
-                                 k_sh, k_st, v_sb, v_sh, v_st, s));
+      dtype == 0
+          ? launch_tma_d<__nv_bfloat16>(p, dtype, d, q, k, v, b, h_kv, st, s)
+          : launch_tma_d<__half>(p, dtype, d, q, k, v, b, h_kv, st, s));
 }
 
 const char* gtt_error_string(int err) {

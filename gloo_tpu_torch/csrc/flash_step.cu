@@ -27,7 +27,8 @@
 // the products on wgmma, with the state read once straight into the
 // accumulator registers and written once.
 //
-// bf16 (the model's type): B1's design (flash_fwd.cu) at per-row offsets.
+// bf16 and f16 (the model's types; one template, T): B1's design
+// (flash_fwd.cu) at per-row offsets.
 // One block per (query-head row, 64-row query tile), highest query tiles
 // first (under the causal mask they are the longest), of one consumer
 // warpgroup (128 threads, 16 query rows per warp) and one producer warp.
@@ -36,7 +37,7 @@
 // into a ring of kStages<D> stages, each with a full mbarrier for k, one
 // for v and an empty one the consumers arrive on. Meanwhile the consumers
 // load the carried acc, m and l of their rows into the wgmma accumulator
-// layout, scale q once in shared memory (q * scale rounded to bf16, then
+// layout, scale q once in shared memory (q * scale rounded to T, then
 // fence.proxy.async and a named barrier), then per key tile:
 //   - s = q k^T: wgmma m64n64k16 with both operands in shared memory;
 //   - the mask, only on tiles that cross the global diagonal or the
@@ -45,6 +46,11 @@
 //   - o += p v: wgmma with p from registers and v MN-major.
 // Key tiles above the global diagonal are never loaded. The maps run over
 // (rows, t, d), and row i reads kv row i / group (GQA): never replicated.
+// d = 256 (136-248 zero-padded to it): B1's d = 256 instance, one pass
+// over the columns (161 KB of shared memory, one block per SM).
+//
+// Rows past the grid's 65535 go on grid z (rows_grid in
+// flash_common.cuh): a launch of at most 65535 rows is the launch it was.
 //
 // f32 (off the model's path) keeps the FMA design: one block of 4 warps
 // per (query-head row, 64-row query tile), 16-byte loads of the tiles
@@ -56,7 +62,7 @@
 // input type before QK^T (the wrapper passes scale already rounded), f32
 // scores over 64-key tiles, -inf where the global key position passes the
 // query's, the m_safe / corr guards of _online_step, p rounded to v's type
-// before PV, f32 state. The bf16 kernel takes e^x from the SFU's 2^x
+// before PV, f32 state. The 16-bit kernel takes e^x from the SFU's 2^x
 // (fast_exp), the f32 kernel from expf.
 
 #include "flash_common.cuh"
@@ -72,17 +78,17 @@ using namespace gtt;
 
 constexpr int kBlockQ = 64;  // query rows per block
 constexpr int kBlockK = 64;  // keys per kv tile
-constexpr int kThreads = 128;  // f32: 4 warps; bf16: the consumer warpgroup
-constexpr int kTmaThreads = kThreads + 32;  // bf16: + the producer warp
+constexpr int kThreads = 128;  // f32: 4 warps; 16-bit: the consumers
+constexpr int kTmaThreads = kThreads + 32;  // 16-bit: + the producer warp
 constexpr int kSlab = 64 * 128;    // one swizzled slab: 64 lines x 128 bytes
 constexpr int kPLd = kBlockK + 4;  // row stride of the f32 path's p tile
 
 // k/v stages of the ring by head_dim, as B1's: three at d = 64 (58 KB),
-// two at d = 128 (83 KB).
+// two at d = 128 (83 KB) and d = 256 (161 KB).
 template <int D>
 constexpr int kStages = D == 64 ? 3 : 2;
 
-// Shared memory of a bf16 launch: the q tile and kStages<D> k and v tiles,
+// Shared memory of a 16-bit launch: the q tile and kStages<D> k and v tiles,
 // their mbarriers and the swizzle's 1024-byte alignment.
 template <int D>
 constexpr int kTmaSmem =
@@ -95,6 +101,7 @@ struct State {
   float* l;
   const int* q_off;  // (bh,) global position of each row's first query
   const int* k_off;  // (bh,) global position of each row's first key
+  int bh;
   int group, tq, tkv;
   int acc_ld;  // the caller's head_dim: columns past it are the padding's
   int causal;
@@ -166,7 +173,7 @@ __device__ __forceinline__ void store_state(const State& s, long long base,
   }
 }
 
-// ---- bf16: wgmma on TMA-staged tiles ----
+// ---- bf16 and f16: wgmma on TMA-staged tiles ----
 
 struct TmaParams {
   // q (bh, t_q, d), k and v (bh / group, t_kv, d) as {d, t, rows} maps,
@@ -179,7 +186,7 @@ struct TmaParams {
 
 __device__ __forceinline__ void consumers_sync() { named_sync<kThreads>(1); }
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(kTmaThreads)
     flash_step_wgmma_kernel(const __grid_constant__ TmaParams p) {
   constexpr int kSlabs = D / 64;         // slabs per tile
@@ -187,8 +194,9 @@ __global__ void __launch_bounds__(kTmaThreads)
   constexpr int kSt = kStages<D>;
 
   const State& st = p.s;
+  const int row = grid_row();  // query-head row
+  if (row >= st.bh) return;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockQ;
-  const int row = blockIdx.y;  // query-head row
   const int kv_end = kv_end_of(st, row, q0);
   if (kv_end == 0) return;  // nothing visible: the state stays as it is
 
@@ -256,18 +264,9 @@ __global__ void __launch_bounds__(kTmaThreads)
   load_state<D>(st, base, q0, r0, c2,
                 reinterpret_cast<float(*)[4]>(&o[0][0]), m, l);
 
-  // q * scale rounded to bf16, in place; then visible to wgmma's reads.
+  // q * scale rounded to T, in place; then visible to wgmma's reads.
   mbar_wait(q_full, 0);
-  for (int i = threadIdx.x; i < kTile / 16; i += kThreads) {
-    uint4* const at = reinterpret_cast<uint4*>(qs) + i;
-    uint4 val = *at;
-    __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&val);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      e[j] = __float2bfloat16_rn(__bfloat162float(e[j]) * st.scale);
-    }
-    *at = val;
-  }
+  scale_in_place<T, kThreads>(qs, kTile, st.scale);
   fence_proxy_async_shared();
   consumers_sync();
 
@@ -289,7 +288,7 @@ __global__ void __launch_bounds__(kTmaThreads)
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t off = kk / 4 * kSlab + kk % 4 * 32;
-      wgmma_bf16<0>(sc, desc(q_addr + off), desc(k_addr + off));
+      wgmma_bf16<0, 0, T>(sc, desc(q_addr + off), desc(k_addr + off));
     }
     wgmma_commit();
     wgmma_wait<0>(sc);
@@ -348,13 +347,13 @@ __global__ void __launch_bounds__(kTmaThreads)
       }
     }
 
-    // p in bf16 as the A fragments of the four 16-key steps.
+    // p in T as the A fragments of the four 16-key steps.
     uint32_t pa[4][4];
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
       for (int f = 0; f < 4; ++f) {
-        pa[kk][f] = pack_bf16(sc[8 * kk + 2 * f], sc[8 * kk + 2 * f + 1]);
+        pa[kk][f] = pack2<T>(sc[8 * kk + 2 * f], sc[8 * kk + 2 * f + 1]);
       }
     }
 
@@ -367,7 +366,8 @@ __global__ void __launch_bounds__(kTmaThreads)
     for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
       for (int c = 0; c < kSlabs; ++c) {
-        wgmma_bf16_rs<1>(o[c], pa[kk], desc(v_addr + c * kSlab + kk * 2048));
+        wgmma_bf16_rs<1, T>(o[c], pa[kk],
+                            desc(v_addr + c * kSlab + kk * 2048));
       }
     }
     wgmma_commit();
@@ -401,8 +401,9 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int kDT = D / 8;        // 8-column slices of the state
 
   const State& st = p.s;
+  const int row = grid_row();
+  if (row >= st.bh) return;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockQ;
-  const int row = blockIdx.y;
   const int kv_end = kv_end_of(st, row, q0);
   if (kv_end == 0) return;  // nothing visible: the state stays as it is
 
@@ -514,38 +515,58 @@ __global__ void __launch_bounds__(kThreads)
 // ---- launches ----
 
 template <int D>
-cudaError_t launch_f32(const Params& p, int bh, cudaStream_t stream) {
+cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
+  // d = 256: 212 KB, one block per SM.
   constexpr size_t kSmem = (kBlockQ + 2 * kBlockK) * (D + 4) * sizeof(float) +
                            kBlockQ * kPLd * sizeof(float);
   static std::atomic<bool> smem_set[kMaxDevices];
   const cudaError_t attr =
       allow_dynamic_smem(flash_step_f32_kernel<D>, kSmem, smem_set);
   if (attr != cudaSuccess) return attr;
-  const dim3 grid((p.s.tq + kBlockQ - 1) / kBlockQ, bh);
+  const dim3 grid = rows_grid((p.s.tq + kBlockQ - 1) / kBlockQ, p.s.bh);
   flash_step_f32_kernel<D><<<grid, kThreads, kSmem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_bf16(TmaParams& p, const void* q, const void* k,
-                        const void* v, int bh, const long long* st,
-                        cudaStream_t stream) {
-  cudaError_t err = encode_rows(&p.q, 0, q, D, p.s.tq, bh, st[1], st[0], 64);
+// st: the (row, t) strides of q, k and v in turn.
+template <int D, typename T>
+cudaError_t launch_tma(TmaParams& p, int dtype, const void* q, const void* k,
+                       const void* v, const long long* st,
+                       cudaStream_t stream) {
+  const int bh = p.s.bh;
+  cudaError_t err =
+      encode_rows(&p.q, dtype, q, D, p.s.tq, bh, st[1], st[0], 64);
   if (err == cudaSuccess) {
-    err = encode_rows(&p.k, 0, k, D, p.s.tkv, bh / p.s.group, st[3], st[2],
-                      64);
+    err = encode_rows(&p.k, dtype, k, D, p.s.tkv, bh / p.s.group, st[3],
+                      st[2], 64);
   }
   if (err == cudaSuccess) {
-    err = encode_rows(&p.v, 0, v, D, p.s.tkv, bh / p.s.group, st[5], st[4],
-                      64);
+    err = encode_rows(&p.v, dtype, v, D, p.s.tkv, bh / p.s.group, st[5],
+                      st[4], 64);
   }
   if (err != cudaSuccess) return err;
   static std::atomic<bool> smem_set[kMaxDevices];
-  err = allow_dynamic_smem(flash_step_wgmma_kernel<D>, kTmaSmem<D>, smem_set);
+  err = allow_dynamic_smem(flash_step_wgmma_kernel<D, T>, kTmaSmem<D>,
+                           smem_set);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.s.tq + kBlockQ - 1) / kBlockQ, bh);
-  flash_step_wgmma_kernel<D><<<grid, kTmaThreads, kTmaSmem<D>, stream>>>(p);
+  const dim3 grid = rows_grid((p.s.tq + kBlockQ - 1) / kBlockQ, bh);
+  flash_step_wgmma_kernel<D, T>
+      <<<grid, kTmaThreads, kTmaSmem<D>, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_tma_d(TmaParams& p, int dtype, int d, const void* q,
+                         const void* k, const void* v, const long long* st,
+                         cudaStream_t stream) {
+  switch (d) {
+    case 64:
+      return launch_tma<64, T>(p, dtype, q, k, v, st, stream);
+    case 128:
+      return launch_tma<128, T>(p, dtype, q, k, v, st, stream);
+    default:
+      return launch_tma<256, T>(p, dtype, q, k, v, st, stream);
+  }
 }
 
 }  // namespace
@@ -553,21 +574,22 @@ cudaError_t launch_bf16(TmaParams& p, const void* q, const void* k,
 extern "C" {
 
 // Returns a cudaError_t; 0 is success. Folds k, v into the state in
-// place. dtype: 0 = bf16, 1 = f32; d (the kernel's head_dim): 64 or 128.
-// q (bh, t_q, d), k and v (bh / group, t_kv, d) at row and t strides in
-// elements, d contiguous, 16-byte aligned with strides that are multiples
-// of 16 bytes. acc (bh, t_q, acc_ld) f32 contiguous, acc_ld <= d and a
-// multiple of 2 (columns past it are the zero padding of q, k and v);
-// m, l (bh, t_q) f32 contiguous. q_off, k_off (bh,) int32.
+// place. dtype: 0 = bf16, 1 = f32, 2 = f16; d (the kernel's head_dim): 64,
+// 128 or 256. q (bh, t_q, d), k and v (bh / group, t_kv, d) at row and t
+// strides in elements, d contiguous, 16-byte aligned with strides that are
+// multiples of 16 bytes. acc (bh, t_q, acc_ld) f32 contiguous, acc_ld <= d
+// and a multiple of 2 (columns past it are the zero padding of q, k and
+// v); m, l (bh, t_q) f32 contiguous. q_off, k_off (bh,) int32. Any bh: past
+// 65535 rows the grid spreads them over y and z.
 int gtt_flash_step(const void* q, const void* k, const void* v, void* acc,
                    void* m, void* l, const void* q_off, const void* k_off,
                    int dtype, int bh, int group, int tq, int tkv, int d,
                    int acc_ld, int causal, float scale, long long q_sr,
                    long long q_st, long long k_sr, long long k_st,
                    long long v_sr, long long v_st, void* stream) {
-  if (bh < 1 || bh > 65535 || group < 1 || bh % group != 0 || tq < 1 ||
-      tkv < 1 || (d != 64 && d != 128) || acc_ld < 2 || acc_ld > d ||
-      acc_ld % 2 || (dtype != 0 && dtype != 1)) {
+  if (bh < 1 || group < 1 || bh % group != 0 || tq < 1 || tkv < 1 ||
+      (d != 64 && d != 128 && d != 256) || acc_ld < 2 || acc_ld > d ||
+      acc_ld % 2 || dtype < 0 || dtype > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const State s{static_cast<float*>(acc),
@@ -575,6 +597,7 @@ int gtt_flash_step(const void* q, const void* k, const void* v, void* acc,
                 static_cast<float*>(l),
                 static_cast<const int*>(q_off),
                 static_cast<const int*>(k_off),
+                bh,
                 group,
                 tq,
                 tkv,
@@ -583,13 +606,14 @@ int gtt_flash_step(const void* q, const void* k, const void* v, void* acc,
                 scale};
   cudaStream_t stm = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == 0) {
+  if (dtype != 1) {
     TmaParams p;
     memset(&p, 0, sizeof(p));
     p.s = s;
     const long long st[6] = {q_sr, q_st, k_sr, k_st, v_sr, v_st};
-    err = d == 64 ? launch_bf16<64>(p, q, k, v, bh, st, stm)
-                  : launch_bf16<128>(p, q, k, v, bh, st, stm);
+    err = dtype == 0
+              ? launch_tma_d<__nv_bfloat16>(p, dtype, d, q, k, v, st, stm)
+              : launch_tma_d<__half>(p, dtype, d, q, k, v, st, stm);
   } else {
     const Params p{static_cast<const float*>(q),
                    static_cast<const float*>(k),
@@ -601,7 +625,9 @@ int gtt_flash_step(const void* q, const void* k, const void* v, void* acc,
                    k_st,
                    v_sr,
                    v_st};
-    err = d == 64 ? launch_f32<64>(p, bh, stm) : launch_f32<128>(p, bh, stm);
+    err = d == 64    ? launch_f32<64>(p, stm)
+          : d == 128 ? launch_f32<128>(p, stm)
+                     : launch_f32<256>(p, stm);
   }
   return static_cast<int>(err);
 }

@@ -4,25 +4,30 @@
 // flash_bwd_step.cu's B7): shared-memory addresses,
 // mbarriers, TMA tensor loads, stores and reduce-adds, bulk copies and
 // bulk-group waits, proxy fences, named barriers, wgmma descriptors of
-// 128-byte-swizzled tiles, the m64n64k16 bf16 products (A from shared
-// memory, K-major or MN-major, or from registers) and their accumulator
-// layout, and on the host the tensor-map encoder (cuTensorMapEncodeTiled,
-// looked up through the CUDA runtime: nothing new to link).
+// 128-byte-swizzled tiles, the m64n64k16 bf16 and f16 products (A from
+// shared memory, K-major or MN-major, or from registers) and their
+// accumulator layout, and on the host the tensor-map encoder
+// (cuTensorMapEncodeTiled, looked up through the CUDA runtime: nothing new
+// to link). Element types on the host side are dtype codes: 0 bf16, 1 f32,
+// 2 f16 (ring.SUM_DTYPES' codes).
 //
 // Every tile is 64 lines of 128 bytes, 128-byte swizzled (TMA's
 // CU_TENSOR_MAP_SWIZZLE_128B, wgmma's layout type 1) and 1024-byte
 // aligned. A K-major operand's lines are its rows (A) or columns (B), each
-// 64 bf16 of depth: k-step kk of 16 starts 32 kk bytes into the line. An
-// MN-major operand's lines are depths, each 64 rows (A) or columns (B):
-// k-step kk starts 16 kk lines (2048 kk bytes) in.
+// 64 16-bit values of depth: k-step kk of 16 starts 32 kk bytes into the
+// line. An MN-major operand's lines are depths, each 64 rows (A) or
+// columns (B): k-step kk starts 16 kk lines (2048 kk bytes) in.
 
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only; no libcuda)
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
 #include <cstdint>
+#include <type_traits>
 
 #include "ring_common.cuh"  // kSpinCycles
 
@@ -190,55 +195,74 @@ __device__ __forceinline__ void fence_acc(float* d) {
   for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d += A (64 x 16) B (16 x 64), bf16 in, f32 accumulate, both from shared
-// memory; B K-major (kTransB 0) or MN-major (1), A K-major (kTransA 0) or
-// MN-major (1).
-template <int kTransB, int kTransA = 0>
+// The two wgmma forms (A from shared memory, or from registers), spelled
+// once for both operand types (TY: bf16 or f16).
+#define GTT_WGMMA_ACC                                                      \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),        \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),    \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),    \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),    \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),    \
+      "+f"(d[31])
+#define GTT_WGMMA_REGS                                                    \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "    \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, " \
+  "%29, %30, %31}"
+#define GTT_WGMMA_SS(TY)                                                \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"            \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY  \
+               " " GTT_WGMMA_REGS ", %32, %33, p, 1, 1, %36, %35;\n}\n" \
+               : GTT_WGMMA_ACC                                          \
+               : "l"(da), "l"(db), "r"(1), "n"(kTransB), "n"(kTransA))
+#define GTT_WGMMA_RS(TY)                                                   \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"               \
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY     \
+               " " GTT_WGMMA_REGS                                          \
+               ", {%32, %33, %34, %35}, %36, p, 1, 1, %37;\n}\n"          \
+               : GTT_WGMMA_ACC                                             \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),      \
+                 "n"(kTransB), "r"(1))
+
+// d += A (64 x 16) B (16 x 64), T (bf16 or f16) in, f32 accumulate, both
+// from shared memory; B K-major (kTransB 0) or MN-major (1), A K-major
+// (kTransA 0) or MN-major (1).
+template <int kTransB, int kTransA = 0, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_bf16(float* d, uint64_t da,
                                            uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, %32, %33, p, 1, 1, %36, %35;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1), "n"(kTransB), "n"(kTransA));
+  static_assert(std::is_same<T, __nv_bfloat16>::value ||
+                std::is_same<T, __half>::value);
+  if constexpr (std::is_same<T, __half>::value) {
+    GTT_WGMMA_SS("f16");
+  } else {
+    GTT_WGMMA_SS("bf16");
+  }
 }
 
-// d += A (64 x 16, from registers) B (16 x 64), bf16 in, f32 accumulate;
+// d += A (64 x 16, from registers) B (16 x 64), T in, f32 accumulate;
 // B K-major (kTransB 0) or MN-major (1). Thread (warp w, lane l) holds A's
 // rows 16 w + l / 4 (+ 8) and columns 2 (l % 4) (+ 8), +1, as mma.sync's
 // m16n8k16 A fragment: a[0] row +0 cols +0, a[1] row +8 cols +0, a[2] row
-// +0 cols +8, a[3] row +8 cols +8, each two bf16 (the lower column in the
+// +0 cols +8, a[3] row +8 cols +8, each two T (the lower column in the
 // low half). That is the accumulator layout of two adjacent 8-column
 // slices (acc_row, acc_col), so a product's result feeds the next one
 // without leaving registers.
-template <int kTransB>
+template <int kTransB, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_bf16_rs(float* d, const uint32_t* a,
                                               uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %37;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(kTransB),
-        "r"(1));
+  static_assert(std::is_same<T, __nv_bfloat16>::value ||
+                std::is_same<T, __half>::value);
+  if constexpr (std::is_same<T, __half>::value) {
+    GTT_WGMMA_RS("f16");
+  } else {
+    GTT_WGMMA_RS("bf16");
+  }
 }
+
+#undef GTT_WGMMA_SS
+#undef GTT_WGMMA_RS
+#undef GTT_WGMMA_REGS
+#undef GTT_WGMMA_ACC
 
 // Keeps the compiler from reusing A-fragment registers that an RS-form
 // wgmma still reads: place it after the wgmma_wait that retires it.
@@ -313,8 +337,12 @@ inline cudaError_t encoder(EncodeFn* fn) {
   return cudaSuccess;
 }
 
+// Bytes of an element of dtype code `dtype` (0 bf16, 1 f32, 2 f16).
+inline int dtype_bytes(int dtype) { return dtype == 1 ? 4 : 2; }
+
 // A tiled map of `rank` dims (innermost first; strides in bytes of dims
-// 1 ..), 128-byte swizzle, zeros outside the tensor.
+// 1 ..), 128-byte swizzle, zeros outside the tensor; dtype 0 bf16, 1 f32,
+// 2 f16.
 inline cudaError_t encode(CUtensorMap* map, int dtype, int rank,
                           const void* base, const cuuint64_t* dims,
                           const cuuint64_t* strides, const cuuint32_t* box) {
@@ -324,19 +352,20 @@ inline cudaError_t encode(CUtensorMap* map, int dtype, int rank,
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
   const CUresult res = fn(
       map,
-      dtype == 0 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+      dtype == 1   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+      : dtype == 2 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                   : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
       static_cast<cuuint32_t>(rank), const_cast<void*>(base), dims, strides,
       box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// A {d, t, heads, b} map of one bf16 (b, heads, t, d) operand with d
-// contiguous and (b, heads, t) strides in elements: box 64 x 64 (one
-// swizzled slab of 64 rows).
-inline cudaError_t encode_heads(CUtensorMap* map, const void* base, int d,
-                                int t, int heads, int b, long long st,
+// A {d, t, heads, b} map of one 16-bit (b, heads, t, d) operand (dtype 0
+// bf16, 2 f16) with d contiguous and (b, heads, t) strides in elements:
+// box 64 x 64 (one swizzled slab of 64 rows).
+inline cudaError_t encode_heads(CUtensorMap* map, int dtype, const void* base,
+                                int d, int t, int heads, int b, long long st,
                                 long long sh, long long sb) {
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
                               static_cast<cuuint64_t>(t),
@@ -346,16 +375,16 @@ inline cudaError_t encode_heads(CUtensorMap* map, const void* base, int d,
                                  static_cast<cuuint64_t>(sh) * 2,
                                  static_cast<cuuint64_t>(sb) * 2};
   const cuuint32_t box[4] = {64, 64, 1, 1};
-  return encode(map, 0, 4, base, dims, strides, box);
+  return encode(map, dtype, 4, base, dims, strides, box);
 }
 
-// A {d, t, rows} map of a (rows, t, d) operand (dtype 0 bf16, 1 f32) with
-// d contiguous and row and t strides in elements; box {box_d, 64, 1} (64
-// or, for f32, 32 columns: one 128-byte line).
+// A {d, t, rows} map of a (rows, t, d) operand (dtype 0 bf16, 1 f32, 2
+// f16) with d contiguous and row and t strides in elements; box {box_d,
+// 64, 1} (64 or, for f32, 32 columns: one 128-byte line).
 inline cudaError_t encode_rows(CUtensorMap* map, int dtype, const void* base,
                                int d, int t, int rows, long long st,
                                long long sr, int box_d) {
-  const int elt = dtype == 0 ? 2 : 4;
+  const int elt = dtype_bytes(dtype);
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
                               static_cast<cuuint64_t>(t),
                               static_cast<cuuint64_t>(rows)};

@@ -54,17 +54,17 @@
 //
 // The product: operands are staged in shared memory by TMA
 // (cp.async.bulk.tensor, completing on an mbarrier) in 128-byte "slabs" of
-// depth (bf16 64, f32 32) with the 128-byte swizzle, in a ring of `ring`
+// depth (16-bit 64, f32 32) with the 128-byte swizzle, in a ring of `ring`
 // slab buffers kept up to `ring` slabs ahead of the product, across the
 // chunks of the walk (B5a's x chunks are all local; B5b's next chunk is
-// loaded once its flag is seen). bf16 runs wgmma m64n64k16 with f32
+// loaded once its flag is seen). bf16 and f16 run wgmma m64n64k16 with f32
 // accumulators in registers, a slab's 4 k-steps one group, retired one
 // slab behind; W is read as it lies, row-major (MN-major B) or transposed
 // (K-major B: B5b's VJP hands B5a w^T without a copy). f32 keeps full-f32
 // FMA (no TF32) on the same staged slabs, in wgmma's accumulator layout.
 // W's 64-column tile stays in shared memory for the whole walk (loaded
 // once per block and column tile) where its depth is at most 8 slabs
-// (bf16 k <= 512, f32 k <= 256); deeper W streams through the ring beside
+// (16-bit k <= 512, f32 k <= 256); deeper W streams through the ring beside
 // x. Rows and depth past the operands' ends come in as zeros (TMA's
 // out-of-bounds fill) and are never stored.
 //
@@ -72,7 +72,7 @@
 // hopper.cuh, shared with flash_fwd.cu's B1.
 //
 // The wrapper (ops/overlap.py) hands TMA only what it can describe: rows
-// of x, gx and W 16-byte aligned. Other strides (bf16 k or cols not a
+// of x, gx and W 16-byte aligned. Other strides (16-bit k or cols not a
 // multiple of 8, f32 not a multiple of 4) are zero-padded in the wrapper.
 //
 // What bounds it on an H100: at the fused MLP's shape (4 ranks, 256 rows
@@ -94,6 +94,7 @@
 #include <atomic>
 #include <cstdint>
 #include <cstring>
+#include <type_traits>
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -140,19 +141,11 @@ struct Params {
 
 // The bits of one element, for stores through L2.
 template <typename T>
-struct Bits;
-template <>
-struct Bits<float> {
-  using type = float;
-};
-template <>
-struct Bits<__nv_bfloat16> {
-  using type = unsigned short;
-};
+using Bits = std::conditional_t<sizeof(T) == 2, unsigned short, T>;
 
 template <typename T>
 __device__ __forceinline__ void store_cg(T* p, T v) {
-  using B = typename Bits<T>::type;
+  using B = Bits<T>;
   B b;
   memcpy(&b, &v, sizeof(T));
   __stcg(reinterpret_cast<B*>(p), b);
@@ -204,8 +197,8 @@ __device__ __forceinline__ int swz(int line, int b) {
 }
 
 // d += a (64 rows x one slab of depth) @ w (that depth x 64 columns).
-// bf16: issues the slab's 4 wgmma k-steps as one group and returns with
-// them in flight (wgmma_wait retires them); f32: FMA, done on return.
+// bf16 and f16: issues the slab's 4 wgmma k-steps as one group and returns
+// with them in flight (wgmma_wait retires them); f32: FMA, done on return.
 template <typename T, bool kKMajor>
 __device__ __forceinline__ void slab_product(float* d, const uint8_t* a,
                                              const uint8_t* w) {
@@ -218,7 +211,7 @@ __device__ __forceinline__ void slab_product(float* d, const uint8_t* a,
     for (int kk = 0; kk < 4; ++kk) {
       // 16 of the slab's 64 depths: 32 bytes along a K-major line, 16
       // lines (2048 bytes) of an MN-major tile.
-      wgmma_bf16<kKMajor ? 0 : 1>(
+      wgmma_bf16<kKMajor ? 0 : 1, 0, T>(
           d, desc(sa + kk * 32), desc(sw + (kKMajor ? kk * 32 : kk * 2048)));
     }
     asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
@@ -405,13 +398,10 @@ struct Block {
 };
 
 // Two neighbouring elements (an even column and the next) through L2, as
-// one 4-byte (bf16) or 8-byte (f32) store.
-__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a,
-                                           float b) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
-  unsigned bits;
-  memcpy(&bits, &v, sizeof(bits));
-  __stcg(reinterpret_cast<unsigned*>(p), bits);
+// one 4-byte (bf16, f16) or 8-byte (f32) store.
+template <typename T>
+__device__ __forceinline__ void store_pair(T* p, float a, float b) {
+  __stcg(reinterpret_cast<unsigned*>(p), pack2<T>(a, b));
 }
 __device__ __forceinline__ void store_pair(float* p, float a, float b) {
   __stcg(reinterpret_cast<float2*>(p), make_float2(a, b));
@@ -445,16 +435,16 @@ __device__ __forceinline__ void store_tile(T* dst, int row0, int col0,
 
 // ---- B5a's comm slots: data and its write number in one 8-byte word ----
 //
-// A word holds 4 bytes of data in its low half (a bf16 accumulator pair,
-// or one f32 accumulator) and, in its high half, the tag of the write that
-// stored it (the write's number + 1; a slot starts zeroed). An aligned
-// 8-byte store is seen whole or not at all, so a reader that sees the tag
-// sees the data: the write needs no fence and no flag of its own. A slot
-// holds a tile's words in the accumulator layout itself: thread t of the
-// writer stores what thread t of the reader adds, as 16-byte pieces that
-// lie side by side across the warp (kWords / 2 pieces per thread, 128
-// threads apart). Accumulators past the operands' ends hold zeros and go
-// through the slot like the rest; only the output is masked.
+// A word holds 4 bytes of data in its low half (a bf16 or f16 accumulator
+// pair, or one f32 accumulator) and, in its high half, the tag of the write
+// that stored it (the write's number + 1; a slot starts zeroed). An aligned
+// 8-byte store is seen whole or not at all, so a reader that sees the tag sees
+// the data: the write needs no fence and no flag of its own. A slot holds a
+// tile's words in the accumulator layout itself: thread t of the writer stores
+// what thread t of the reader adds, as 16-byte pieces that lie side by side
+// across the warp (kWords / 2 pieces per thread, 128 threads apart).
+// Accumulators past the operands' ends hold zeros and go through the slot like
+// the rest; only the output is masked.
 
 template <typename T>
 constexpr int kWords = sizeof(T) == 2 ? 16 : 32;  // words per thread
@@ -468,8 +458,7 @@ __device__ __forceinline__ uint64_t word(const float* acc, int k,
                                          uint32_t tag) {
   uint32_t data;
   if constexpr (sizeof(T) == 2) {
-    const __nv_bfloat162 v = __floats2bfloat162_rn(acc[2 * k], acc[2 * k + 1]);
-    memcpy(&data, &v, sizeof(data));
+    data = pack2<T>(acc[2 * k], acc[2 * k + 1]);
   } else {
     data = __float_as_uint(acc[k]);
   }
@@ -672,7 +661,7 @@ int run(bool rs, const void* x, long long x_ld, const void* w,
         const int* right, const int* left, int ranks, int n, int slices,
         int rows, int k, int cols, int slabs, int ring, int w_resident,
         int smem, int dtype, void* stream) {
-  const int elt = dtype == 0 ? 2 : dtype == 1 ? 4 : 0;
+  const int elt = dtype == 0 || dtype == 2 ? 2 : dtype == 1 ? 4 : 0;
   const int depth = elt ? kSlabBytes / elt : 1;
   const bool k_major = w_sn != 1 && w_sk == 1;
   const long long tiles = static_cast<long long>((rows + kTileM - 1) /
@@ -763,6 +752,11 @@ int run(bool rs, const void* x, long long x_ld, const void* w,
   if (dtype == 1) {
     return static_cast<int>(launch<float, false>(rs, p, grid, smem, s));
   }
+  if (dtype == 2) {
+    return static_cast<int>(
+        k_major ? launch<__half, true>(rs, p, grid, smem, s)
+                : launch<__half, false>(rs, p, grid, smem, s));
+  }
   return static_cast<int>(
       k_major ? launch<__nv_bfloat16, true>(rs, p, grid, smem, s)
               : launch<__nv_bfloat16, false>(rs, p, grid, smem, s));
@@ -788,7 +782,7 @@ extern "C" {
 // Ints of flags each (rank, tile) needs for a ring of n.
 int gtt_overlap_flag_stride(int n) { return kGather + (n > 1 ? n - 1 : 1); }
 
-// The most blocks of either kernel, in either type and W layout, that can
+// The most blocks of either kernel, in any type and W layout, that can
 // be resident at once on the current device with `smem` bytes of dynamic
 // shared memory each (the cooperative launch's limit), in *blocks.
 int gtt_overlap_max_blocks(int smem, int* blocks) {
@@ -798,6 +792,12 @@ int gtt_overlap_max_blocks(int smem, int* blocks) {
   if (err == cudaSuccess) err = min_blocks<bf16, true, true>(smem, &per_sm);
   if (err == cudaSuccess) err = min_blocks<bf16, false, false>(smem, &per_sm);
   if (err == cudaSuccess) err = min_blocks<bf16, false, true>(smem, &per_sm);
+  if (err == cudaSuccess) err = min_blocks<__half, true, false>(smem, &per_sm);
+  if (err == cudaSuccess) err = min_blocks<__half, true, true>(smem, &per_sm);
+  if (err == cudaSuccess) {
+    err = min_blocks<__half, false, false>(smem, &per_sm);
+  }
+  if (err == cudaSuccess) err = min_blocks<__half, false, true>(smem, &per_sm);
   if (err == cudaSuccess) err = min_blocks<float, true, false>(smem, &per_sm);
   if (err == cudaSuccess) err = min_blocks<float, false, false>(smem, &per_sm);
   int device = 0, sms = 0, coop = 0;
@@ -813,7 +813,8 @@ int gtt_overlap_max_blocks(int smem, int* blocks) {
   return static_cast<int>(err);
 }
 
-// Each returns a cudaError_t; 0 is success. dtype: 0 = bf16, 1 = f32.
+// Each returns a cudaError_t; 0 is success. dtype: 0 = bf16, 1 = f32, 2 =
+// f16.
 // x rows are x_ld elements apart; w_stride is w's rank stride in bytes (0:
 // one w shared by every rank), w_sk and w_sn its element strides (one of
 // them 1); rows is the rows of one chunk; slabs = ceil(k / (128 bytes of
@@ -824,8 +825,8 @@ int gtt_overlap_max_blocks(int smem, int* blocks) {
 // flag_stride) zeroed ints.
 
 // B5a: x (n rows, k) per rank -> out (rows, cols) per rank; comm holds 2
-// zeroed slots per rank of tiles x 128 x 16 (bf16) or x 32 (f32) 8-byte
-// words.
+// zeroed slots per rank of tiles x 128 x 16 (bf16, f16) or x 32 (f32)
+// 8-byte words.
 int gtt_matmul_rs(const void* x, long long x_ld, const void* w,
                   long long w_stride, long long w_sk, long long w_sn,
                   void* out, void* comm, int* flags, int flag_stride,

@@ -8,7 +8,10 @@ variants at the flagship's gradient size.
 configuration (vocab 512, d_model 256, 4 heads, 2 layers, d_ff 1024, seq
 128, batch 8, bf16 activations, flash attention) and the same tokens from
 ``np.random.RandomState(0)``; the weights come from a ``torch.Generator``
-seeded with 0. ``train_entry()`` is the one-device counterpart of the
+seeded with 0. ``d256_f16_entry()`` and ``d256_f16_train_entry()`` are
+``entry()`` and ``train_entry()`` at D256_F16_CONFIG: the same flagship with
+one head of 256 in f16, whose serving and training path runs the flash kernels'
+d 256 and f16 instances. ``train_entry()`` is the one-device counterpart of the
 training step of ``__graft_entry__.dryrun_multichip``: the same model and
 tokens, next-token targets, and Adam at optax.adam(1e-3)'s settings.
 ``ddp_train_entry()`` is the data-parallel counterpart of that training
@@ -88,6 +91,12 @@ ENTRY_CONFIG = TransformerConfig(vocab_size=512, d_model=256, n_heads=4,
                                  n_layers=2, d_ff=1024, max_seq_len=128,
                                  use_flash_attention=True)
 ENTRY_BATCH = 8
+# The flagship at its width with one head of 256 (the head width the Gemma
+# family publishes) in f16: the configuration whose serving and training
+# path runs the flash kernels' d 256 and f16 instances. Same vocab, widths,
+# depth, sequence, batch, tokens and weight seed as ENTRY_CONFIG.
+D256_F16_CONFIG = dataclasses.replace(ENTRY_CONFIG, n_heads=1,
+                                      dtype=torch.float16)
 # optax.adam(1e-3): its defaults, eps outside the square root, no decay.
 ADAM_SETTINGS = dict(lr=1e-3, betas=(0.9, 0.999), eps=1e-8)
 # Ranks of ddp_train_entry's world, all on one card: ENTRY_BATCH / DDP_WORLD
@@ -155,8 +164,17 @@ def _entry_tokens() -> np.ndarray:
 def entry(device="cuda"):
     """Returns (fn, (model, tokens)) with both on `device`; fn(model,
     tokens) is the transformer forward."""
+    return _config_entry(ENTRY_CONFIG, device)
+
+
+def d256_f16_entry(device="cuda"):
+    """entry() at D256_F16_CONFIG: one head of 256, f16."""
+    return _config_entry(D256_F16_CONFIG, device)
+
+
+def _config_entry(cfg: TransformerConfig, device):
     dev = resolve_device(device)
-    model = Transformer(ENTRY_CONFIG, device=dev).init(
+    model = Transformer(cfg, device=dev).init(
         torch.Generator().manual_seed(0))
     tokens = torch.as_tensor(_entry_tokens(), dtype=torch.int32, device=dev)
     return forward, (model, tokens)
@@ -179,7 +197,16 @@ def train_entry(device="cuda"):
     `device`: entry()'s model and tokens, targets the tokens shifted left
     by one (np.roll, as the JAX step), and torch.optim.Adam at
     ADAM_SETTINGS."""
-    _, (model, tokens) = entry(device)
+    return _config_train_entry(ENTRY_CONFIG, device)
+
+
+def d256_f16_train_entry(device="cuda"):
+    """train_entry() at D256_F16_CONFIG: one head of 256, f16."""
+    return _config_train_entry(D256_F16_CONFIG, device)
+
+
+def _config_train_entry(cfg: TransformerConfig, device):
+    _, (model, tokens) = _config_entry(cfg, device)
     optimizer = torch.optim.Adam(model.parameters(), **ADAM_SETTINGS)
     return train_step, (model, optimizer, tokens, _entry_targets(tokens))
 

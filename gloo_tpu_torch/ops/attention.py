@@ -6,9 +6,10 @@ Counterpart of gloo_tpu/ops/attention.py::flash_attention: attention over
 k/v of shape (b, h_kv, t, d) read through the head index, never
 replicated. Its Pallas kernels become CUDA C++: the forward
 ``_flash_kernel`` is ``csrc/flash_fwd.cu`` (``flash_attention_fwd``;
-bf16 on wgmma over TMA-staged tiles, launched as ``flash_fwd_plan`` says),
-the fused backward ``_flash_bwd_fused_kernel`` is ``csrc/flash_bwd.cu``
-(``flash_attention_bwd``; bf16 on wgmma over TMA-staged tiles, three
+bf16 and f16 on wgmma over TMA-staged tiles, launched as
+``flash_fwd_plan`` says), the fused backward ``_flash_bwd_fused_kernel``
+is ``csrc/flash_bwd.cu`` (``flash_attention_bwd``; bf16 and f16 on wgmma
+over TMA-staged tiles, three
 launches named in ``FLASH_BWD_KERNELS``, as ``flash_bwd_plan`` says), and
 ``flash_attention`` ties the two together as a ``torch.autograd.Function``,
 as the custom VJP does in JAX.
@@ -19,7 +20,7 @@ folds one k/v block into carried f32 (acc, m, l) state (the ring forward
 takes it in place, through ``flash_attention_step_into``), and
 ``flash_attention_bwd_step`` computes what ``_flash_bwd_dq_step_kernel``
 and ``_flash_bwd_dkv_step_kernel`` do, in one fused launch of
-``csrc/flash_bwd_step.cu`` (bf16). The ring backward takes that launch
+``csrc/flash_bwd_step.cu`` (bf16, f16). The ring backward takes that launch
 through ``flash_attention_bwd_step_into``, which adds into the caller's
 f32 carriers, with ``prepare_bwd_step`` before the ring and
 ``flash_bwd_step_finish`` after it. Their offsets place the tiles in the
@@ -31,14 +32,19 @@ it runs its plain twin (``*_plain``), which repeats the kernel's arithmetic
 step by step (same tiles, same rounding points) and is the version the
 kernel is held against.
 
-Head dims: the kernels have instances for KERNEL_HEAD_DIMS (64 and 128).
-Any other head_dim that is a multiple of 8 and at most 128 runs on the
-next instance up: the wrapper zero-pads q, k and v (and dO and out)
-along d and slices the results back, with the scale of the unpadded d
-(the step kernel reads and writes the d columns of the carried acc as it
-lies). That is exact: padded q and k columns add 0 to every score,
-padded v and dO columns fill only output columns that are cut off, and
-delta gains only 0 * 0 terms. The twins on the CPU run unpadded.
+Dtypes: KERNEL_DTYPES (bf16, f16 and f32: each kernel has an instance of
+each; bf16 and f16 share one template). Head dims: the kernels have
+instances for KERNEL_HEAD_DIMS (64, 128 and 256). Any other head_dim
+that is a multiple of 8 and at most 256 runs on the next instance up:
+the wrapper zero-pads q, k and v (and dO and out) along d and slices the
+results back, with the scale of the unpadded d (the step kernel reads
+and writes the d columns of the carried acc as it lies). That is exact:
+padded q and k columns add 0 to every score, padded v and dO columns
+fill only output columns that are cut off, and delta gains only 0 * 0
+terms. The twins on the CPU run unpadded. Any batch * heads (rows): past
+the grid's 65535 the kernels spread the rows over its y and z axes. The
+card refuses, with an error and no fallback, a head_dim above 256 and
+any other dtype.
 """
 
 from __future__ import annotations
@@ -59,16 +65,19 @@ from gloo_tpu_torch import _build
 # places.
 BLOCK_K = 64
 BLOCK_Q = 64
-KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+# The kernels' dtype codes (csrc/hopper.cuh's: ring.SUM_DTYPES' codes).
+KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
 # The kernels' head_dim instances; a smaller multiple of 8 is zero-padded
 # up to the next one.
-KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (64, 128, 256)
 # The three launches of one flash_attention_bwd call on the card, by dtype:
 # delta and the lse rows with dq_acc = 0, the main kernel, dQ's scale and
 # cast. Every name contains "flash_bwd".
 FLASH_BWD_KERNELS = {
     torch.bfloat16: ("flash_bwd_prep_kernel", "flash_bwd_wgmma_kernel",
                      "flash_bwd_dq_kernel"),
+    torch.float16: ("flash_bwd_prep_kernel", "flash_bwd_wgmma_kernel",
+                    "flash_bwd_dq_kernel"),
     torch.float32: ("flash_bwd_prep_kernel", "flash_bwd_f32_kernel",
                     "flash_bwd_dq_kernel"),
 }
@@ -80,7 +89,7 @@ _SIGNATURES = {
     "flash_fwd": {"gtt_flash_fwd": (5, 7, 1, 9)},
     "flash_bwd": {"gtt_flash_bwd": (11, 7, 2, 15)},
     "flash_step": {"gtt_flash_step": (8, 8, 1, 6)},
-    "flash_bwd_step": {"gtt_flash_bwd_step_prep": (6, 3, 0, 2),
+    "flash_bwd_step": {"gtt_flash_bwd_step_prep": (6, 4, 0, 2),
                        "gtt_flash_bwd_step": (13, 9, 2, 8),
                        "gtt_flash_bwd_step_dq": (2, 1, 1, 1)},
 }
@@ -158,8 +167,9 @@ def _check_device(named: dict) -> None:
 
 
 def _check_kernel_inputs(q, k, v, layout=True, **more) -> int:
-    """What the CUDA kernels take: one CUDA device, bf16 or f32 throughout,
-    a head_dim that kernel_head_dim takes and, with `layout`, contiguous
+    """What the CUDA kernels take: one CUDA device, one of KERNEL_DTYPES
+    (bf16, f16, f32) throughout, a head_dim that kernel_head_dim takes
+    (at most 256), any batch * heads and, with `layout`, contiguous
     head_dim rows on 16-byte boundaries (the flash forward and backward
     check their own: flash_fwd_plan, flash_bwd_plan). `more` names further
     operands held to the same rules (the backward's dO and out). Returns
@@ -169,12 +179,9 @@ def _check_kernel_inputs(q, k, v, layout=True, **more) -> int:
     if q.dtype not in KERNEL_DTYPES or any(x.dtype != q.dtype
                                            for x in named.values()):
         raise TypeError(
-            f"the kernel takes bf16 or f32 {', '.join(named)} of one dtype; "
-            f"got {', '.join(str(x.dtype) for x in named.values())}")
+            f"the kernel takes bf16, f16 or f32 {', '.join(named)} of one "
+            f"dtype; got {', '.join(str(x.dtype) for x in named.values())}")
     dim = kernel_head_dim(q.shape[-1])
-    b, h = q.shape[:2]
-    if b * h > 65535:
-        raise ValueError(f"batch * heads {b * h} exceeds the grid's 65535")
     if not layout:
         return dim
     vec = 16 // q.element_size()
@@ -719,15 +726,16 @@ class StepCotangent(NamedTuple):
     inputs as given; on the card what csrc/flash_bwd_step.cu reads."""
     do: torch.Tensor
     """(bh, t_q, d) as given on the CPU; on the card at the kernel's
-    head_dim, contiguous: dO_hi in bf16 (bf16 q), or f32 (f32 q)."""
+    head_dim, contiguous: dO_hi in q's dtype (bf16 or f16 q), or f32 (f32
+    q)."""
     do_lo: torch.Tensor | None
-    """bf16 dO_lo = bf16(dO - dO_hi) of an f32 dO (card, bf16 q), else
-    None: a dO in q's dtype has none."""
+    """dO_lo = dO - dO_hi in q's dtype, of an f32 dO (card, bf16 or f16 q),
+    else None: a dO in q's dtype has none."""
     delta: torch.Tensor  # (bh, t_q, 1) f32
     lse: torch.Tensor    # (bh, t_q, 1) f32
     rows: torch.Tensor | None
-    """Card, bf16 q: (bh, ceil(t_q / 64), 2 BLOCK_Q) f32, lse (+inf past
-    t_q) and delta per query tile."""
+    """Card, bf16 or f16 q: (bh, ceil(t_q / 64), 2 BLOCK_Q) f32, lse (+inf
+    past t_q) and delta per query tile."""
     head_dim: int        # q's d
 
 
@@ -736,10 +744,11 @@ def prepare_bwd_step(q: torch.Tensor, do: torch.Tensor, delta: torch.Tensor,
     """The StepCotangent of q (bh, t_q, d) with the cotangent do (f32, or
     q's dtype), delta = rowsum(dO * O) and lse (both (bh, t_q, 1) f32).
 
-    On the card with bf16 q, one launch of csrc/flash_bwd_step.cu's
+    On the card with bf16 or f16 q, one launch of csrc/flash_bwd_step.cu's
     bwd_step_prep_kernel packs lse and delta per query tile and splits an
-    f32 do into bf16 hi and lo halves; a bf16 do is taken as it is (hi,
-    and no lo). f32 q launches nothing. CPU tensors launch nothing."""
+    f32 do into hi and lo halves in q's dtype; a do in q's dtype is taken
+    as it is (hi, and no lo). f32 q launches nothing. CPU tensors launch
+    nothing."""
     _check_bwd_step(q, do, delta, lse)
     bh, tq, d = q.shape
     if q.device.type == "cpu":
@@ -756,8 +765,8 @@ def prepare_bwd_step(q: torch.Tensor, do: torch.Tensor, delta: torch.Tensor,
     rows = torch.empty((bh, -(-tq // BLOCK_Q), 2 * BLOCK_Q),
                        dtype=torch.float32, device=q.device)
     split = do.dtype == torch.float32
-    hi, lo = ((torch.empty((bh, tq, dim), dtype=torch.bfloat16,
-                           device=q.device) for _ in range(2))
+    hi, lo = ((torch.empty((bh, tq, dim), dtype=q.dtype, device=q.device)
+               for _ in range(2))
               if split else (do, None))
     lib = _kernel_lib("flash_bwd_step")
     with torch.cuda.device(q.device):
@@ -765,7 +774,7 @@ def prepare_bwd_step(q: torch.Tensor, do: torch.Tensor, delta: torch.Tensor,
             lse.data_ptr(), delta.data_ptr(), rows.data_ptr(),
             do.data_ptr() if split else None, hi.data_ptr() if split
             else None, lo.data_ptr() if split else None, bh, tq, dim,
-            *do.stride()[:2], _stream())
+            KERNEL_DTYPES[q.dtype], *do.stride()[:2], _stream())
     _raise_on(err, "flash_bwd_step_prep", lib)
     prepare_bwd_step.launches += 1
     return StepCotangent(hi, lo, delta, lse, rows, d)
@@ -783,18 +792,19 @@ def _row_strides(x: torch.Tensor):
 def _bwd_step_launch(q, k, v, cot: StepCotangent, qo, ko, dq, dk, dv,
                      causal, kv_group, accumulate):
     """One ring step on csrc/flash_bwd_step.cu into the f32 buffers dq, dk
-    and dv at the kernel's head_dim: the fused launch (bf16), or the two
-    FMA launches (f32). A block serves kv_group query heads when
+    and dv at the kernel's head_dim: the fused launch (bf16, f16), or the
+    two FMA launches (f32). A block serves kv_group query heads when
     accumulating (dk and dv per kv head), one otherwise (per query head)."""
     bh, tq, d = q.shape
     dim = kernel_head_dim(d)
     if dim != d:
         q, k, v = _pad_head_dim(dim, q, k, v)
     _check_step_kernel(q, k, v, delta=cot.delta, lse=cot.lse)
-    # bf16 reads dO_hi (and dO_lo) and the packed rows; f32 the f32 dO.
-    bf16 = q.dtype == torch.bfloat16
-    if cot.do.dtype != q.dtype or (cot.rows is not None) != bf16 \
-            or (cot.do_lo is not None and not bf16) \
+    # bf16 and f16 read dO_hi (and dO_lo) and the packed rows; f32 the f32
+    # dO.
+    half = q.dtype != torch.float32
+    if cot.do.dtype != q.dtype or (cot.rows is not None) != half \
+            or (cot.do_lo is not None and not half) \
             or cot.do.shape != (bh, tq, dim) or cot.do.device != q.device:
         raise ValueError("the cotangent was prepared for another q "
                          "(prepare_bwd_step)")
@@ -824,8 +834,8 @@ def flash_attention_bwd_step(q, k, v, do, delta, lse, q_offset, k_offset,
     (bh / kv_group, t_kv, d); do (bh, t_q, d) f32 (or in q's dtype);
     delta, lse (bh, t_q, 1) f32.
 
-    CUDA tensors go through csrc/flash_bwd_step.cu (bf16: one fused launch
-    for B7a and B7b, after prepare_bwd_step's), CPU tensors through
+    CUDA tensors go through csrc/flash_bwd_step.cu (bf16, f16: one fused
+    launch for B7a and B7b, after prepare_bwd_step's), CPU tensors through
     flash_attention_bwd_step_plain; there is no fallback."""
     _check_step(q, k, v, kv_group)
     _check_bwd_step(q, do, delta, lse)
@@ -845,8 +855,8 @@ def flash_attention_bwd_step(q, k, v, do, delta, lse, q_offset, k_offset,
     return _cut(dim, d, dq, dk, dv)
 
 
-# Launches of the step (fused bf16, or f32's two FMA kernels as one) in
-# this process, by both entries; counts nothing on the CPU.
+# Launches of the step (fused bf16 or f16, or f32's two FMA kernels as one)
+# in this process, by both entries; counts nothing on the CPU.
 flash_attention_bwd_step.launches = 0
 
 
@@ -874,8 +884,8 @@ def flash_attention_bwd_step_into(q, k, v, cot: StepCotangent, q_offset,
     flash_bwd_step_finish scales dq once at the end. cot is
     prepare_bwd_step's, made once per backward.
 
-    CUDA tensors go through csrc/flash_bwd_step.cu (bf16: one fused launch
-    that adds into the buffers, dk and dv with no atomics), CPU tensors
+    CUDA tensors go through csrc/flash_bwd_step.cu (bf16, f16: one fused
+    launch that adds into the buffers, dk and dv with no atomics), CPU tensors
     through flash_attention_bwd_step_into_plain; there is no fallback."""
     _check_step(q, k, v, kv_group)
     _check_into(q, k, dq, dk, dv, kv_group)

@@ -116,7 +116,7 @@ def launch_plan(dtype: torch.dtype, rows: int, k: int, cols: int,
     ring = min(2 * slabs, MAX_RING) if w_resident else MAX_RING
     rank, sk, sn = w_strides
     w_ok = aligned and rank % vec == 0
-    if w_ok and dtype == torch.bfloat16 and sk == 1 and sn != 1 \
+    if w_ok and elt == 2 and sk == 1 and sn != 1 \
             and sn % vec == 0:
         layout, w_ld = "cols", sn
     elif w_ok and sn == 1 and sk % vec == 0:
@@ -166,11 +166,11 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _kernel_w(w: torch.Tensor) -> torch.Tensor:
-    """w as the kernels take it: bf16 as it lies (wgmma reads a transposed
-    view, such as B5b's VJP hands B5a, as K-major); f32 with unit column
-    stride (a transposed view is copied once). A shared weight expanded
-    with rank stride 0 stays one buffer."""
-    return w if w.stride(2) == 1 or w.dtype == torch.bfloat16 \
+    """w as the kernels take it: bf16 and f16 as it lies (wgmma reads a
+    transposed view, such as B5b's VJP hands B5a, as K-major); f32 with
+    unit column stride (a transposed view is copied once). A shared weight
+    expanded with rank stride 0 stays one buffer."""
+    return w if w.stride(2) == 1 or w.element_size() == 2 \
         else w.contiguous()
 
 
@@ -208,7 +208,7 @@ def _launch_setup(x: torch.Tensor, mesh: Mesh, axis_name: str,
     spread over as many slices as can be resident beside the other ranks'
     (all of them at the fused MLP's shape)."""
     if x.dtype not in KERNEL_DTYPES:
-        raise TypeError(f"the overlap kernels take bf16 or f32, got "
+        raise TypeError(f"the overlap kernels take bf16, f16 or f32, got "
                         f"{x.dtype}")
     ranks = x.shape[0]
     if ranks > KERNEL_MAX_RANKS:

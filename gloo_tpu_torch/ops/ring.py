@@ -61,9 +61,9 @@ if TYPE_CHECKING:
     # gloo_tpu_torch.tpu imports this module; the mesh is only read here.
     from gloo_tpu_torch.tpu.mesh import Axis, Mesh
 
-# Element types of the bf16/f32 kernels (B5a/B5b in overlap.py) by csrc
-# dtype code.
-KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+# Element types of the collective matmul kernels (B5a/B5b in overlap.py)
+# by csrc dtype code: bf16 and f16 on wgmma, f32 on the FMA units.
+KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
 # Element types of the sum kernels B3, B4a, B9 and B11 by csrc dtype code
 # (GTT_SUM_TYPES of csrc/ring_common.cuh):
 # one add per step in the type, as PyTorch adds on the CPU (bf16 and f16 in

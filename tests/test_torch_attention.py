@@ -367,9 +367,9 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
     ok = torch.zeros((1, 2, 64, 64), device=cuda_device,
                      dtype=torch.bfloat16)
     with pytest.raises(TypeError):
-        attn.flash_attention(ok.half(), ok.half(), ok.half())
+        attn.flash_attention(ok.double(), ok.double(), ok.double())
     with pytest.raises(ValueError, match="head_dim"):
-        bad = torch.zeros((1, 2, 64, 136), device=cuda_device,
+        bad = torch.zeros((1, 2, 64, 264), device=cuda_device,
                           dtype=torch.bfloat16)
         attn.flash_attention(bad, bad, bad)
     with pytest.raises(ValueError, match="CUDA"):

@@ -280,7 +280,7 @@ def test_step_kernel_takes_the_state_it_returns(fake_card, d, dim):
         [("gtt_flash_step", dim, d)] * 3
 
 
-@pytest.mark.parametrize("d", [136, 12, 256])
+@pytest.mark.parametrize("d", [264, 12, 512])
 def test_head_dims_no_instance_takes_raise(fake_card, d):
     q = _meta(1, 2, 64, d)
     with pytest.raises(ValueError, match="head_dim"):
