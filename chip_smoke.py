@@ -194,9 +194,25 @@ Phases, each of which raises on failure:
      and B7 per launch at that ring beside their bounds and yardsticks.
      The new instances (f16, d 256 and its padded 136-248, b * h past
      65535) are held against their twins in phases 3, 12 and 16
-     (FLASH_CASES, OVERLAP_CASES, STEP_CASES) and timed in phase 7; one
-     JSON line {"d256_f16_path": ...} gathers phase 31's paths and those
-     kernels' rows.
+     (FLASH_CASES, OVERLAP_CASES, STEP_CASES) and timed in phase 7; B5b
+     and B5a in f16 at the fused MLP's shapes beside their plain
+     versions, library yardsticks and f16 bounds (overlap_times, as
+     phase 15 in bf16); one JSON line {"d256_f16_path": ...} gathers
+     phase 31's paths and those kernels' rows;
+ 32. phase 28's two-level DDP traced and encrypted (traced_phase): two
+     processes of 2 local ranks, each over Device(keyring=derive_keyring
+     (...), encrypt=True), with the native tracer, the phase profiler,
+     the span recorder and the fleet plane on and rank 0 serving
+     telemetry: 5 steps with phase 28's launches and losses (TRAIN_TOL)
+     and bitwise-equal parameters; /healthz 200 and /metrics parsed;
+     fleet coverage 2 of 2; the ranks' traces merged; a critical path for
+     every step's host allreduce; a 50 ms delay on rank 1's data sends in
+     one step blamed on rank 1; tune() and sweep() at 1 KiB-1 MiB
+     electing the same table on both ranks; the gradient buffer's host
+     hop under the elected table (and with its schedule forced at the
+     buffer's size) bitwise equal to the native dispatch and to the
+     CPU-tensor call; then ms per step with the planes off and on, the
+     busy share, and the encrypted hop beside a plaintext one.
 The line before the last is the JSON list of kernels; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or gloo_tpu.
 """
@@ -207,6 +223,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import time
 
@@ -966,6 +983,68 @@ def fused_mlp_path(ov, tp, counters, make_mesh, gen, cfg):
     if failed:
         raise AssertionError(f"the *_auto arms disagree: {failed}")
     return launches, (mesh, rand, hidden, (x, w_up, w_down), dy)
+
+
+def overlap_times(ov, mesh, x_b, up_b, down_b, hidden):
+    """Device ms of B5b (x_b against up_b) and B5a (hidden against down_b,
+    and against up_b transposed as the backward takes it) over the ring of
+    `mesh`'s axis "x", each beside its whole call, its plain version, its
+    library yardstick and its bound, in the tensors' dtype. Bounds: each
+    input read once and each output written once at the HBM rate, against
+    the products at the dtype's peak. The yardsticks are PyTorch calls the
+    port never makes: for B5a the world product summed over the ring (each
+    rank's rows a view of the sum), for B5b the world product of the
+    expanded gathered x. Returns {name: (ms, plain, library, bound,
+    bound_by)}."""
+    n = mesh.shape["x"]
+    dtype = x_b.dtype
+    elt = x_b.element_size()
+    gathered = x_b.reshape(1, -1, x_b.shape[2]).expand(n, -1, -1)
+    up_t = up_b.transpose(1, 2)
+    rows = {}
+    for name, label, fn, plain, lib_label, lib_fn, nbytes, flops in (
+            ("allgather_matmul", "ag_matmul_kernel",
+             lambda: ov.allgather_matmul_fwd(x_b, up_b, "x", mesh),
+             lambda: ov.allgather_matmul_plain(x_b, up_b, "x", mesh),
+             "torch.matmul(expanded gathered x, w)",
+             lambda: torch.matmul(gathered, up_b),
+             elt * (x_b.numel() + up_b.numel() + n * x_b.numel()
+                    + n * x_b.shape[0] * x_b.shape[1] * up_b.shape[2]),
+             2 * n * n * x_b.shape[1] * x_b.shape[2] * up_b.shape[2]),
+            ("matmul_reduce_scatter", "matmul_rs_kernel",
+             lambda: ov.matmul_reduce_scatter(hidden, down_b, "x", mesh),
+             lambda: ov.matmul_reduce_scatter_plain(hidden, down_b, "x",
+                                                    mesh),
+             "torch.matmul(h, w).sum(0), two calls",
+             lambda: torch.matmul(hidden, down_b).sum(0),
+             elt * (hidden.numel() + down_b.numel()
+                    + hidden.numel() // n * down_b.shape[2]
+                    // hidden.shape[2]),
+             2 * hidden.numel() * down_b.shape[2]),
+            # The backward's B5a: the cotangent's shape (that of the
+            # hidden) against w_up^T as it lies (K-major, no copy).
+            ("matmul_reduce_scatter (w^T)", "matmul_rs_kernel",
+             lambda: ov.matmul_reduce_scatter(hidden, up_t, "x", mesh),
+             lambda: ov.matmul_reduce_scatter_plain(hidden, up_t, "x",
+                                                    mesh),
+             "torch.matmul(h, w^T).sum(0), two calls",
+             lambda: torch.matmul(hidden, up_t).sum(0),
+             elt * (hidden.numel() + up_t.numel()
+                    + hidden.numel() // n * up_t.shape[2]
+                    // hidden.shape[2]),
+             2 * hidden.numel() * up_t.shape[2])):
+        with torch.no_grad():
+            ms = timed_kernel(f"{name} kernel", fn, label)
+            timed(f"{name} whole call (flags, buffers, kernel)", fn)
+            plain_ms = timed(f"{name} plain", plain, iters=5)
+            lib_ms = timed(f"{name} yardstick {lib_label}", lib_fn)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+        bound, bound_by = _bound(nbytes, flops, dtype)
+        print(f"  {name} bound {bound:.6f} ms ({bound_by}: {nbytes} bytes "
+              f"{t_bytes:.6f} ms, {flops} operations {t_ops:.6f} ms)")
+        rows[name] = (ms, plain_ms, lib_ms, bound, bound_by)
+    return rows
 
 
 def overlap_probes(ov, make_mesh, gen, x_b, up_b):
@@ -2492,7 +2571,7 @@ def d256_fused_mlp(ov, tp, ring, make_mesh, gen, cfg):
     """Phase 31's fused MLP in f16: phase 13's Megatron-SP pair at the
     flagship's widths over a ring of 4 ranks of 256 rows (1024 rows in
     all), forward and backward, the launches (B5b, B5a, B4b) read around
-    it, against the dense MLP on the card. Returns (fn, leaves)."""
+    it, against the dense MLP on the card. Returns (fn, leaves, mesh)."""
     n, d, f = 4, cfg.d_model, cfg.d_ff
     rows = 8 * cfg.max_seq_len // n
     dev = torch.device("cuda")
@@ -2544,7 +2623,7 @@ def d256_fused_mlp(ov, tp, ring, make_mesh, gen, cfg):
             t.grad = None
         mlp_pair(tp, *leaves, "x", mesh).backward(dy.view(n, rows, d))
 
-    return once, leaves
+    return once, leaves, mesh
 
 
 def d256_f16_phase(attn, ov, tp, ring, sp, spmd, make_mesh, entry_mod, gen,
@@ -2553,13 +2632,14 @@ def d256_f16_phase(attn, ov, tp, ring, sp, spmd, make_mesh, entry_mod, gen,
     serving, training, its ring-flash and its fused MLP, each checked with
     its launch counts read around it, then timed (ms per call by CUDA
     events, device ms, busy share); B6 and B7 per launch at the ring-flash
-    shape; B1/B2's phase 7 rows at d256_f16_path and bh65540 gathered.
-    Prints one JSON line {"d256_f16_path": ...}."""
+    shape; B5b and B5a in f16 at the fused MLP's shapes (overlap_times);
+    B1/B2's phase 7 rows at d256_f16_path and bh65540 gathered. Prints
+    one JSON line {"d256_f16_path": ...}."""
     fn, model, tokens, prompts = d256_serving(attn, entry_mod)
     step, targs = d256_training(attn, entry_mod)
     sp_fn, sp_args = d256_ring_flash(attn, sp, make_mesh, entry_mod)
-    mlp_fn, _ = d256_fused_mlp(ov, tp, ring, make_mesh, gen,
-                               entry_mod.D256_F16_CONFIG)
+    mlp_fn, mlp_leaves, mlp_mesh = d256_fused_mlp(
+        ov, tp, ring, make_mesh, gen, entry_mod.D256_F16_CONFIG)
     print(f"d256 f16 path times on {card}:")
     paths = {}
     for label, call in (
@@ -2585,6 +2665,17 @@ def d256_f16_phase(attn, ov, tp, ring, sp, spmd, make_mesh, entry_mod, gen,
                             "f16_entry")}
     kernels.update({f"{name} d256_f16_pathS": dict(zip(keys, steps[name]))
                     for name in ("flash_step", "flash_bwd_step")})
+    # B5b and B5a in f16 at the fused MLP's shapes: the kernels beside
+    # their plain versions, library yardsticks and f16 bounds.
+    print(f"collective matmul times in f16 at the fused MLP's shapes on "
+          f"{card}:")
+    x_h, up_h, down_h = (t.detach() for t in mlp_leaves)
+    with torch.no_grad():
+        hidden_h = F.gelu(torch.matmul(
+            x_h.reshape(1, -1, x_h.shape[2]), up_h), approximate="tanh")
+    f16_rows = overlap_times(ov, mlp_mesh, x_h, up_h, down_h, hidden_h)
+    kernels.update({f"{name} f16_mlp": dict(zip(keys, row))
+                    for name, row in f16_rows.items()})
     print(json.dumps({"d256_f16_path": {"paths": paths,
                                         "kernels": kernels}}))
 
@@ -3264,9 +3355,414 @@ def surface_phase(card):
     return res
 
 
+# Phase 32: phase 28's two-level step in HOST_RANKS processes over an
+# encrypted transport keyed per rank, with the native tracer, the phase
+# profiler, the span recorder and the fleet plane on, a telemetry endpoint
+# on rank 0, a scripted fault, and the elected schedule and tuning table.
+TRACED_ROOT = "chip-smoke-launcher-root"
+TRACED_DELAY_MS = 50
+TRACED_DELAYS = 4
+TRACED_SWEEP = (1 << 10, 1 << 20)
+TRACED_TIMING_ROUNDS = 3
+TRACED_PLANES = ("profile", "spans", "trace", "fleet")
+TRACED_ENV = {"TPUCOLL_FLEETOBS_INTERVAL_MS": "100",
+              "TPUCOLL_FLEETOBS_WINDOW": "5", "TPUCOLL_SPANS_RING": "65536"}
+# A sample line of a Prometheus text exposition: name{labels} value.
+PROMETHEUS_SAMPLE = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^{}]*\})? '
+                               r'([0-9eE.+-]+|NaN|[+-]Inf)$')
+
+
+def prometheus_samples(text):
+    """The sample lines of a Prometheus text exposition; raises on a line
+    that is neither a # HELP / # TYPE comment nor a sample."""
+    samples = []
+    for line in text.splitlines():
+        if line.startswith("# HELP ") or line.startswith("# TYPE "):
+            continue
+        if not PROMETHEUS_SAMPLE.match(line):
+            raise AssertionError(f"/metrics: unparseable line {line!r}")
+        samples.append(line)
+    return samples
+
+
+def last_algo(ctx, op="allreduce"):
+    """The algorithm of the context's newest `op` in its flight recorder."""
+    return [e["algo"] for e in ctx.flightrec()["events"]
+            if e["op"] == op][-1]
+
+
+def worker_traced(rank, size, store, device="cuda"):
+    """Phase 32 on one rank: see traced_phase."""
+    import urllib.error
+    import urllib.request
+
+    from gloo_tpu_torch import (Context, Device, FileStore, crypto_isa_tier,
+                                derive_keyring, fault, schedule, tuning,
+                                uring_available)
+    from gloo_tpu_torch import entry as entry_mod
+    from gloo_tpu_torch.ops import attention as attn
+    from gloo_tpu_torch.ops import ring
+    from gloo_tpu_torch.utils import fleet as fleet_util
+    from gloo_tpu_torch.utils import telemetry
+
+    ctx = Context(rank, size, timeout=120.0)
+    dev_obj = Device(keyring=derive_keyring(TRACED_ROOT, rank, size),
+                     encrypt=True)
+    ctx.connect_full_mesh(FileStore(store), dev_obj)
+    step, (replicas, optimizers, batch) = entry_mod.hier_ddp_entry(
+        rank, size, store, device, context=ctx)
+    group = step.group
+    out = {"uring": uring_available(), "isa_tier": crypto_isa_tier(),
+           "engine": dev_obj.engine_stats(), "algo": group._hier_algo}
+
+    def planes(on=TRACED_PLANES):
+        """Turn on the planes named in `on`, and the others off."""
+        ctx.profile_enable("profile" in on)
+        ctx.spans_enable("spans" in on)
+        if "trace" in on:
+            ctx.trace_start()
+        else:
+            ctx.trace_stop()
+        if "fleet" in on:
+            ctx.fleetobs_start()
+        else:
+            ctx.fleetobs_stop()
+
+    planes()
+    server = telemetry.serve_telemetry(ctx, port=0) if rank == 0 else None
+
+    # HOST_STEPS steps with every plane on, the launches read around them.
+    counters = (attn.flash_attention_fwd, attn.flash_attention_bwd,
+                ring.ring_allreduce)
+    for c in counters:
+        c.launches = 0
+    losses = [float(step(replicas, optimizers, batch))
+              for _ in range(HOST_STEPS)]
+    torch.cuda.synchronize()
+    out["launches"] = [c.launches for c in counters]
+    out["losses"] = losses
+    out["params"] = digest(p for m in replicas for p in m.parameters())
+    out["numel"] = sum(p.numel() for p in replicas[0].parameters())
+    out["trace"] = ctx.trace_json()
+    spans = ctx.spans()
+    out["spans"] = spans
+
+    # The fleet plane: rank 0 waits for both ranks' reports; every rank
+    # allreduces a flag each round, so that both stay up until it has.
+    doc, deadline = None, time.monotonic() + 30.0
+    while True:
+        flag = torch.zeros(1)
+        if rank == 0 and doc is None:
+            got = ctx.fleet()
+            if fleet_util.coverage(got)["complete"]:
+                doc = got
+        flag[0] = float(doc is not None)
+        ctx.allreduce(flag)
+        if flag[0] > 0 or time.monotonic() > deadline:
+            break
+        time.sleep(0.1)
+    if rank == 0:
+        doc = doc or ctx.fleet()
+        out["coverage"] = fleet_util.coverage(doc)
+
+        def get(route):
+            try:
+                with urllib.request.urlopen(server.url + route,
+                                            timeout=10) as resp:
+                    return resp.status, resp.read().decode()
+            except urllib.error.HTTPError as err:
+                return err.code, err.read().decode()
+
+        code, body = get("/healthz")
+        out["healthz"] = [code, json.loads(body)]
+        code, text = get("/metrics")
+        out["metrics"] = [code, len(prometheus_samples(text))]
+    ctx.barrier()
+    ctx.fleetobs_stop()
+
+    # A delay of TRACED_DELAY_MS on rank 1's data sends during one step.
+    before = max((o["cseq"] for o in ctx.profile()["ops"]), default=-1)
+    fault.install({"seed": 32, "faults": [
+        {"when": {"rank": 1, "opcode": "data", "min_bytes": 1024},
+         "action": "delay", "ms": TRACED_DELAY_MS,
+         "count": TRACED_DELAYS}]})
+    try:
+        ctx.barrier()
+        step(replicas, optimizers, batch)
+        torch.cuda.synchronize()
+        ctx.barrier()
+        out["fired"] = fault.report(rank=rank)
+    finally:
+        fault.clear()
+    out["fault_before"] = before
+    out["profile"] = ctx.profile()
+
+    # The tuner and the sweep from 1 KiB to 1 MiB.
+    t0 = time.perf_counter()
+    tuned = tuning.tune(ctx, min_bytes=TRACED_SWEEP[0],
+                        max_bytes=TRACED_SWEEP[1])
+    out["tune_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    elected = schedule.sweep(ctx, min_bytes=TRACED_SWEEP[0],
+                             max_bytes=TRACED_SWEEP[1])
+    out["sweep_s"] = time.perf_counter() - t0
+    out["tuned"] = json.dumps(tuned, sort_keys=True)
+    out["elected"] = json.dumps(elected, sort_keys=True)
+
+    # The host hop of the step's gradient buffer (every gradient as f32,
+    # flat, on the card) under the elected table against the native
+    # dispatch and against the same call on a CPU copy; then under the
+    # elected table with a schedule of the sweep also elected for the
+    # buffer's size (past the swept sizes), so that one really runs.
+    buf = torch.cat([p.grad.detach().float().reshape(-1)
+                     for p in replicas[0].parameters()])
+
+    def hop(x):
+        ctx.plan_cache_clear()
+        ctx.barrier()
+        ctx.allreduce(x, tag=group.tag, algorithm=group._hier_algo)
+        return x.cpu(), last_algo(ctx)
+
+    schedule.clear(ctx)
+    native, native_algo = hop(buf.clone())
+    schedule.install(ctx, elected)
+    staged, staged_algo = hop(buf.clone())
+    on_cpu, _ = hop(buf.cpu().clone())
+    forced = schedule_for_size(schedule, elected, size, buf.numel() * 4)
+    schedule.install(ctx, forced)
+    f_staged, forced_algo = hop(buf.clone())
+    f_cpu, _ = hop(buf.cpu().clone())
+    schedule.install(ctx, elected)
+    out["bits"] = {"elected_vs_native": same_bits(staged, native),
+                   "elected_vs_cpu": same_bits(staged, on_cpu),
+                   "forced_vs_native": same_bits(f_staged, native),
+                   "forced_vs_cpu": same_bits(f_staged, f_cpu)}
+    out["hop_algos"] = [native_algo, staged_algo, forced_algo]
+    out["forced_schedule"] = forced["elections"][-1]["schedule"]
+
+    # ms per step with the planes off and on, in turns; the busy share and
+    # the encrypted host hop with them on.
+    def once():
+        step(replicas, optimizers, batch)
+
+    modes = {"off": (), **{name: (name,) for name in TRACED_PLANES},
+             "on": TRACED_PLANES}
+    times = {mode: [] for mode in modes}
+    for _ in range(TRACED_TIMING_ROUNDS):
+        for mode, on in modes.items():
+            planes(on)
+            ctx.barrier()
+            times[mode].append(event_ms(once, iters=5))
+    out["times"] = times
+    ctx.barrier()
+    out["device_ms"], rows = device_profile(once, iters=5, sessions=1)
+    out["device_rows"] = rows[:6]
+    # The encrypted hop against a plaintext context of the same processes
+    # (Device() over its own store, the same tuning table and schedules
+    # installed), in turns.
+    plain_store = os.path.join(store, "plain")
+    os.makedirs(plain_store, exist_ok=True)
+    plain_ctx = Context(rank, size, timeout=120.0)
+    plain_ctx.connect_full_mesh(FileStore(plain_store), Device())
+    tuning.install_table(plain_ctx, tuned)
+    schedule.install(plain_ctx, elected)
+    out["hop"], out["plain_hop"] = [], []
+    for _ in range(TRACED_TIMING_ROUNDS):
+        ctx.barrier()
+        out["hop"].append(host_hop_times(ctx, out["numel"], device))
+        plain_ctx.barrier()
+        out["plain_hop"].append(host_hop_times(plain_ctx, out["numel"],
+                                               device))
+    plain_ctx.close()
+    planes(())
+    ctx.barrier()
+    if server is not None:
+        server.close()
+    ctx.close()
+    return out
+
+
+def schedule_for_size(schedule, table, world, nbytes):
+    """`table` with one more election: for allreduce at `nbytes`'s bucket,
+    the schedule it elected at its largest bucket, or a pipelined ring of
+    depth 2 where the native algorithms won every swept size."""
+    table = json.loads(json.dumps(table))
+    if table["elections"]:
+        name = max(table["elections"], key=lambda e: e["bucket"])["schedule"]
+    else:
+        one = schedule.generate("ring", world, {"depth": 2})
+        name = one["schedules"][0]["name"]
+        table["schedules"] += one["schedules"]
+    table["elections"].append({
+        "collective": "allreduce", "world_size": world, "dtype": "",
+        "bucket": nbytes.bit_length() - 1, "schedule": name})
+    return table
+
+
+def traced_phase(card, hier):
+    """Phase 32: phase 28's two-level step (hier_ddp_entry over a Context
+    the worker connects: Device(keyring=derive_keyring(...), encrypt=True))
+    in HOST_RANKS processes of HIER_LOCAL local ranks on the card, with the
+    tracer, the phase profiler, the span recorder and the fleet plane on
+    and rank 0 serving telemetry. Checks: the launches per step of phase
+    28; the losses against phase 28's (`hier`, its results) within
+    TRAIN_TOL; parameters bitwise equal across the processes; /healthz 200
+    and /metrics parsed; fleet coverage 2 of 2; the ranks' traces merged
+    by utils.tracing.merge_traces; a critical path for every step's host
+    allreduce (utils.critpath); a delay of TRACED_DELAY_MS on rank 1's
+    data sends in one step blamed on rank 1 (utils.profile); tune() and
+    sweep() at 1 KiB-1 MiB electing the same table on both ranks; the
+    step's gradient buffer, hopped under the elected table (and with a
+    schedule of it forced at the buffer's size), bitwise equal to the
+    native dispatch and to the CPU-tensor call. Prints ms per step with
+    the planes off, each alone and all on (in turns), the busy share, the
+    encrypted hop beside a plaintext one of the same processes and phase
+    28's, and the tuner's and the sweep's seconds."""
+    from gloo_tpu_torch.entry import ENTRY_CONFIG, HIER_LOCAL
+    from gloo_tpu_torch.utils import critpath, profile
+    from gloo_tpu_torch.utils.tracing import merge_traces
+
+    t0 = time.perf_counter()
+    res = run_workers("32", env=TRACED_ENV)
+    wall = time.perf_counter() - t0
+    failed = []
+    per_layer = HIER_LOCAL * ENTRY_CONFIG.n_layers
+    want = [HOST_STEPS * per_layer, HOST_STEPS * per_layer, HOST_STEPS]
+    launches = [r["launches"] for r in res]
+    print(f"traced encrypted two-level DDP ({HOST_RANKS} processes x "
+          f"{HIER_LOCAL} local ranks, {wall:.1f} s of workers; uring "
+          f"available {res[0]['uring']}, AEAD tier {res[0]['isa_tier']}, "
+          f"engine counters {res[0]['engine']}, host algorithm "
+          f"{res[0]['algo']}): launches (B1, B2, B3) {launches} in "
+          f"{HOST_STEPS} steps (want {want})")
+    if any(l != want for l in launches):
+        failed.append("launches")
+    rels = [abs(a - b) / abs(b) for r, h in zip(res, hier)
+            for a, b in zip(r["losses"], h["losses"])]
+    for rank, r in enumerate(res):
+        print(f"  process {rank} losses "
+              f"{', '.join(f'{x:.6f}' for x in r['losses'])} (phase 28: "
+              f"{', '.join(f'{x:.6f}' for x in hier[rank]['losses'])})")
+    print(f"  losses vs phase 28's: max rel {max(rels):.3e} (tol "
+          f"{TRAIN_TOL['loss']}); parameters after {HOST_STEPS} steps "
+          f"{'bitwise equal' if len({r['params'] for r in res}) == 1 else 'DIFFER'}"
+          f" across processes")
+    if max(rels) > TRAIN_TOL["loss"]:
+        failed.append("losses")
+    if len({r["params"] for r in res}) != 1:
+        failed.append("params")
+
+    code, verdict = res[0]["healthz"]
+    m_code, m_samples = res[0]["metrics"]
+    cov = res[0]["coverage"]
+    print(f"  telemetry on rank 0: /healthz {code} (ok {verdict['ok']}), "
+          f"/metrics {m_code} with {m_samples} samples; fleet coverage "
+          f"{cov['reported']} of {cov['expected']} (complete "
+          f"{cov['complete']})")
+    if code != 200 or not verdict["ok"] or m_code != 200 or m_samples == 0:
+        failed.append("telemetry")
+    if not (cov["complete"] and cov["reported"] == HOST_RANKS):
+        failed.append("fleet coverage")
+
+    merged_trace = json.loads(merge_traces(r["trace"] for r in res))
+    pids = {e["pid"] for e in merged_trace if e.get("ph") == "X"}
+    steps_traced = [sum(1 for e in json.loads(r["trace"])
+                        if e["name"] == "allreduce"
+                        and e["args"]["bytes"] == r["numel"] * 4)
+                    for r in res]
+    print(f"  traces merged: {len(merged_trace)} events from ranks "
+          f"{sorted(pids)}; host allreduces of {res[0]['numel'] * 4} bytes "
+          f"per rank {steps_traced}")
+    if pids != set(range(HOST_RANKS)) or steps_traced != [HOST_STEPS] * 2:
+        failed.append("trace")
+
+    analysis = critpath.analyze(critpath.merge(r["spans"] for r in res))
+    # The spans were read after the checked steps, whose only allreduce
+    # is each step's host hop.
+    hops = [o for o in analysis["ops"] if o["op"] == "allreduce"]
+    dropped = [r["spans"]["dropped"] for r in res]
+    print(f"  critical paths: {len(hops)} host allreduces of the steps, "
+          f"path rows {[len(o['path']) for o in hops]}, ms "
+          f"{[round(o['total_us'] / 1e3, 3) for o in hops]}; spans dropped "
+          f"{dropped}")
+    if len(hops) != HOST_STEPS or not all(o["path"] for o in hops):
+        failed.append("critical path")
+
+    merged = profile.merge(r["profile"] for r in res)
+    merged["ops"] = {c: v for c, v in merged["ops"].items()
+                     if c > res[0]["fault_before"]}
+    board = profile.leaderboard(profile.attribute(merged))
+    fired = [len(r["fired"]) for r in res]
+    print(f"  fault: {TRACED_DELAY_MS} ms delays fired per rank {fired}; "
+          f"leaderboard of that step "
+          f"{[(b['rank'], round(b['blamed_us'] / 1e3, 3)) for b in board]}"
+          f" (rank, blamed ms)")
+    if not board or board[0]["rank"] != 1 or fired[1] == 0:
+        failed.append("fault blame")
+
+    same_t = len({r["tuned"] for r in res}) == 1
+    same_s = len({r["elected"] for r in res}) == 1
+    elected = json.loads(res[0]["elected"])
+    tuned = json.loads(res[0]["tuned"])
+    tune_s = ", ".join(f"{r['tune_s']:.3f}" for r in res)
+    sweep_s = ", ".join(f"{r['sweep_s']:.3f}" for r in res)
+    print(f"  tune() {tune_s} s, "
+          f"{len(tuned['entries'])} entries, the same on both ranks "
+          f"{same_t}; sweep() {sweep_s} s, the same on "
+          f"both ranks {same_s}; elected (bucket: schedule) "
+          f"{[(e['bucket'], e['schedule']) for e in elected['elections']]}")
+    best = {}
+    for e in tuned["entries"]:
+        key = (e["collective"], e["bucket"])
+        if key not in best or e["cost_us"] < best[key][1]:
+            best[key] = (e["algorithm"], e["cost_us"])
+    print(f"  tuned: the cheapest algorithm per (collective, bucket) "
+          f"{sorted((k[0], k[1], v[0]) for k, v in best.items())}")
+    if not (same_t and same_s):
+        failed.append("elections")
+    bits = [r["bits"] for r in res]
+    print(f"  gradient buffer's host hop, algorithms (native, elected, "
+          f"forced {res[0]['forced_schedule']}) {res[0]['hop_algos']}: "
+          f"bitwise {bits}")
+    if not all(all(b.values()) for b in bits) \
+            or not res[0]["hop_algos"][2].startswith("sched:"):
+        failed.append("bits under the schedule")
+
+    print(f"traced encrypted two-level DDP times on {card}:")
+    for rank, r in enumerate(res):
+        on = r["times"]["on"]
+        busy = ("not measured" if r["device_ms"] is None
+                else f"{r['device_ms'] / min(on):.3f}")
+        print(f"  process {rank}: ms per step (CUDA events), "
+              f"{TRACED_TIMING_ROUNDS} rounds in turns; device "
+              f"{r['device_ms']} ms with every plane on, busy share {busy} "
+              f"[{card}]")
+        for mode, ms in r["times"].items():
+            label = {"off": "planes off", "on": "every plane on"}.get(
+                mode, f"{mode} alone")
+            print(f"    {label}: {', '.join(f'{x:.6f}' for x in ms)}")
+        for dev_ms, calls, kname in r["device_rows"]:
+            print(f"    {dev_ms:.6f} ms in {calls:g} calls: {kname[:90]}")
+        for label, hops in (("encrypted", r["hop"]),
+                            ("plaintext, same processes", r["plain_hop"]),
+                            ("phase 28's plaintext", [hier[rank]["hop"]])):
+            host = ", ".join(f"{h['allreduce_host_ms']:.6f}" for h in hops)
+            staged = ", ".join(f"{h['staged_allreduce_ms']:.6f}"
+                               for h in hops)
+            share = ", ".join(
+                f"{(h['d2h_ms'] + h['h2d_ms']) / h['staged_allreduce_ms']:.3f}"
+                for h in hops)
+            print(f"    {label} host hop of {hops[0]['bytes']} bytes: host "
+                  f"allreduce {host} ms, staged ctx.allreduce {staged} ms, "
+                  f"the pinned copies' share of it {share} [{card}]")
+    if failed:
+        raise AssertionError(f"phase 32 failed: {failed}")
+    return res
+
+
 WORKERS = {"26": worker_staging, "27": worker_host_sync, "28": worker_hier,
            "29": worker_elastic, "29b": worker_run_elastic,
-           "30": worker_surface}
+           "30": worker_surface, "32": worker_traced}
 
 
 def host_phases(card):
@@ -4011,64 +4507,10 @@ def main():
         raise AssertionError("the first dp x tp step disagrees with "
                              "train_step over the whole batch")
 
-    # Phase 15: times of B5a and B5b at the fused MLP's shapes. Bounds:
-    # each input read once and each output written once at the HBM rate,
-    # against the products at the bf16 peak. The yardsticks are PyTorch
-    # calls the port never makes: for B5a the world product summed over the
-    # ring (each rank's rows a view of the sum), for B5b the world product
-    # of the expanded gathered x.
-    n_mlp = mlp_mesh.shape["x"]
+    # Phase 15: times of B5a and B5b at the fused MLP's shapes.
     x_b, up_b, down_b = mlp_args
-    elt = x_b.element_size()
     print(f"collective matmul times at the fused MLP's shapes on {card}:")
-    gathered = x_b.reshape(1, -1, x_b.shape[2]).expand(n_mlp, -1, -1)
-    up_t = up_b.transpose(1, 2)
-    overlap_rows = {}
-    for name, label, fn, plain, lib_label, lib_fn, nbytes, flops in (
-            ("allgather_matmul", "ag_matmul_kernel",
-             lambda: ov.allgather_matmul_fwd(x_b, up_b, "x", mlp_mesh),
-             lambda: ov.allgather_matmul_plain(x_b, up_b, "x", mlp_mesh),
-             "torch.matmul(expanded gathered x, w)",
-             lambda: torch.matmul(gathered, up_b),
-             elt * (x_b.numel() + up_b.numel() + n_mlp * x_b.numel()
-                    + n_mlp * x_b.shape[0] * x_b.shape[1] * up_b.shape[2]),
-             2 * n_mlp * n_mlp * x_b.shape[1] * x_b.shape[2]
-             * up_b.shape[2]),
-            ("matmul_reduce_scatter", "matmul_rs_kernel",
-             lambda: ov.matmul_reduce_scatter(mlp_hidden, down_b, "x",
-                                              mlp_mesh),
-             lambda: ov.matmul_reduce_scatter_plain(mlp_hidden, down_b, "x",
-                                                    mlp_mesh),
-             "torch.matmul(h, w).sum(0), two calls",
-             lambda: torch.matmul(mlp_hidden, down_b).sum(0),
-             elt * (mlp_hidden.numel() + down_b.numel()
-                    + mlp_hidden.numel() // n_mlp * down_b.shape[2]
-                    // mlp_hidden.shape[2]),
-             2 * mlp_hidden.numel() * down_b.shape[2]),
-            # The backward's B5a: the cotangent's shape (that of the
-            # hidden) against w_up^T as it lies (K-major, no copy).
-            ("matmul_reduce_scatter (w^T)", "matmul_rs_kernel",
-             lambda: ov.matmul_reduce_scatter(mlp_hidden, up_t, "x",
-                                              mlp_mesh),
-             lambda: ov.matmul_reduce_scatter_plain(mlp_hidden, up_t, "x",
-                                                    mlp_mesh),
-             "torch.matmul(h, w^T).sum(0), two calls",
-             lambda: torch.matmul(mlp_hidden, up_t).sum(0),
-             elt * (mlp_hidden.numel() + up_t.numel()
-                    + mlp_hidden.numel() // n_mlp * up_t.shape[2]
-                    // mlp_hidden.shape[2]),
-             2 * mlp_hidden.numel() * up_t.shape[2])):
-        with torch.no_grad():
-            ms = timed_kernel(f"{name} kernel", fn, label)
-            timed(f"{name} whole call (flags, buffers, kernel)", fn)
-            plain_ms = timed(f"{name} plain", plain, iters=5)
-            lib_ms = timed(f"{name} yardstick {lib_label}", lib_fn)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
-        bound, bound_by = _bound(nbytes, flops, torch.bfloat16)
-        print(f"  {name} bound {bound:.6f} ms ({bound_by}: {nbytes} bytes "
-              f"{t_bytes:.6f} ms, {flops} operations {t_ops:.6f} ms)")
-        overlap_rows[name] = (ms, plain_ms, lib_ms, bound, bound_by)
+    overlap_rows = overlap_times(ov, mlp_mesh, x_b, up_b, down_b, mlp_hidden)
 
     overlap_probes(ov, make_mesh, gen, x_b, up_b)
 
@@ -4083,7 +4525,7 @@ def main():
     mlp_ms = event_ms(mlp_once, iters=20)
     mlp_dev, mlp_rows = device_profile(mlp_once, iters=10)
     busy = "not measured" if mlp_dev is None else f"{mlp_dev / mlp_ms:.3f}"
-    print(f"fused MLP forward + backward ({n_mlp} ranks x "
+    print(f"fused MLP forward + backward ({mlp_mesh.shape['x']} ranks x "
           f"{x_l.shape[1]} rows): {mlp_ms:.6f} ms per call, device time "
           f"{mlp_dev} ms, device busy share {busy}")
     for dev_ms, calls, kname in mlp_rows[:8]:
@@ -4148,7 +4590,7 @@ def main():
     parallel_times(tracing, fsdp, pp_paths, card)
 
     # Phases 26-28: the host plane in two processes on the card.
-    host_phases(card)
+    hier = host_phases(card)
 
     # Phase 29: elastic acceptance on the card.
     elastic_phase(card)
@@ -4160,6 +4602,10 @@ def main():
     # Phase 31: the flagship at one head of 256 in f16.
     d256_f16_phase(attn, ov, tp, ring, sp, spmd, make_mesh, entry_mod, gen,
                    card, rows, bwd_rows)
+
+    # Phase 32: phase 28's step, encrypted and traced, under a fault and
+    # the elected schedule and tuning table.
+    traced_phase(card, hier)
 
     # Launches on the main paths: B1 on the serving path, B2 on the
     # training path, B3 on the DDP path, B4a and B4b on the group path,

@@ -69,6 +69,16 @@ _PROTOTYPES = {
                            ctypes.c_char_p, _int, ctypes.c_char_p, _int,
                            ctypes.c_char_p, ctypes.c_char_p]),
     "tc_device_free": (None, [_c]),
+    "tc_device_engine_stats": (None, [_c, ctypes.POINTER(_u64),
+                                      ctypes.POINTER(_u64),
+                                      ctypes.POINTER(_u64)]),
+    # security, engines and the connect debug hook
+    "tc_derive_keyring": (_int, [ctypes.c_char_p, _int, _int,
+                                 ctypes.POINTER(
+                                     ctypes.POINTER(ctypes.c_uint8))]),
+    "tc_uring_available": (_int, []),
+    "tc_crypto_isa_tier": (_int, []),
+    "tc_set_connect_debug_logger": (None, [_c]),
     "tc_context_new": (_c, [_int, _int]),
     "tc_context_set_timeout": (None, [_c, _i64]),
     "tc_context_connect": (_int, [_c, _c, _c]),
@@ -141,10 +151,46 @@ _PROTOTYPES = {
     "tc_flightrec_json": (_int, [_c, *_bytes_out]),
     "tc_flightrec_dump": (_int, [_c, ctypes.c_char_p]),
     "tc_flightrec_seq": (_u64, [_c]),
+    "tc_flightrec_install_signal_handler": (None, []),
+    # span tracer, phase profiler, causal span recorder, fleet plane
+    "tc_debug_dump": (None, [_c]),
+    "tc_trace_start": (None, [_c]),
+    "tc_trace_stop": (None, [_c]),
+    "tc_trace_json": (_int, [_c, *_bytes_out]),
+    "tc_profile_json": (_int, [_c, *_bytes_out]),
+    "tc_profile_enable": (None, [_c, _int]),
+    "tc_profile_enabled": (_int, [_c]),
+    "tc_spans_json": (_int, [_c, *_bytes_out]),
+    "tc_spans_enable": (None, [_c, _int]),
+    "tc_spans_enabled": (_int, [_c]),
+    "tc_fleetobs_start": (_int, [_c]),
+    "tc_fleetobs_stop": (_int, [_c]),
+    "tc_fleetobs_running": (_int, [_c]),
+    "tc_fleetobs_set_aux": (_int, [_c, ctypes.c_char_p]),
+    "tc_fleet_json": (_int, [_c, *_bytes_out]),
+    # fault injection (a table per library, so per process)
+    "tc_fault_install": (_int, [ctypes.c_char_p]),
+    "tc_fault_clear": (None, []),
+    "tc_fault_report": (_int, [*_bytes_out]),
+    # tuning tables and schedules
+    "tc_tune": (_int, [_c, _sz, _sz, _int, _int, _u32, _i64, *_bytes_out]),
+    "tc_tuning_install": (_int, [_c, ctypes.c_char_p]),
+    "tc_tuning_json": (_int, [_c, *_bytes_out]),
+    "tc_schedule_install": (_int, [_c, ctypes.c_char_p]),
+    "tc_schedule_json": (_int, [_c, *_bytes_out]),
+    "tc_schedule_list": (_int, [_c, *_bytes_out]),
+    "tc_schedule_describe": (_int, [_c, ctypes.c_char_p, *_bytes_out]),
+    "tc_schedule_generate": (_int, [ctypes.c_char_p, _int,
+                                    ctypes.c_char_p, *_bytes_out]),
+    "tc_schedule_families": (_int, [*_bytes_out]),
+    "tc_schedule_verify": (_int, [ctypes.c_char_p]),
     # async engine and work handles
     "tc_async_new": (_c, [_c, _int, _u32]),
     "tc_async_shutdown": (_int, [_c]),
     "tc_async_free": (None, [_c]),
+    "tc_async_lanes": (_int, [_c]),
+    "tc_async_lane_context": (_c, [_c, _int]),
+    "tc_async_stats_json": (_int, [_c, *_bytes_out]),
     "tc_async_allreduce_inplace": (_c, [_c, _c, _sz, _int, _int, _int,
                                         _i64]),
     "tc_async_reduce_scatter": (_c, [_c, _c, _c, ctypes.POINTER(_sz),

@@ -63,6 +63,7 @@ __all__ = [
     "q8_decode",
     "q8_encode",
     "q8_wire_bytes",
+    "set_connect_debug_logger",
 ]
 
 # The native dtype codes (gloo_tpu/core.py:55-66). bfloat16 is its own code,
@@ -449,18 +450,51 @@ class TcpStore(Store):
 
 class Device:
     """Transport endpoint: event-engine loop thread + shared listener, on
-    `hostname` and `port` (0: any free port). The reference's security,
-    interface and engine arguments (gloo_tpu/core.py:434) are not ported:
-    no caller of the port sets them, so the device takes the core's
-    defaults (plain TCP, TPUCOLL_ENGINE)."""
+    `hostname` and `port` (0: any free port).
+
+    auth_key: a pre-shared key that turns on the mutual HMAC handshake on
+    every connection (every rank passes the same). keyring: the per-rank
+    tier instead, a string from derive_keyring(); a connection then
+    authenticates with the pairwise key only its two ends hold. The two
+    exclude each other. encrypt=True also encrypts the data plane with
+    per-connection ChaCha20-Poly1305 keys from the handshake (needs
+    auth_key or keyring; every rank agrees). iface binds by interface name
+    (its first address overrides hostname). busy_poll=True spins instead of
+    sleeping, in the loop thread and in blocking waits. engine picks the
+    event engine, "epoll", "uring" or "auto" (default: TPUCOLL_ENGINE,
+    else auto)."""
 
     _handle = None
     _free = staticmethod(lambda handle: None)
 
-    def __init__(self, hostname: str = "127.0.0.1", port: int = 0):
+    def __init__(self, hostname: str = "127.0.0.1", port: int = 0,
+                 auth_key: Optional[str] = None, encrypt: bool = False,
+                 iface: Optional[str] = None, busy_poll: bool = False,
+                 engine: Optional[str] = None,
+                 keyring: Optional[str] = None):
+        if encrypt and not (auth_key or keyring):
+            raise ValueError("encrypt=True requires auth_key or keyring")
+        if auth_key and keyring:
+            raise ValueError("auth_key and keyring are mutually exclusive")
         self._handle = check_handle(_lib.lib().tc_device_new(
-            hostname.encode(), port, None, 0, None, 0, None, None))
+            hostname.encode(), port,
+            auth_key.encode() if auth_key else None, 1 if encrypt else 0,
+            iface.encode() if iface else None, 1 if busy_poll else 0,
+            engine.encode() if engine else None,
+            keyring.encode() if keyring else None))
         self._free = _lib.lib().tc_device_free
+
+    def engine_stats(self) -> dict:
+        """Event-engine submission counters since the device was made:
+        {"enters": io_uring_enter calls, "sqes": ops submitted, "cqes":
+        completions drained}; zeros on the epoll engine."""
+        enters, sqes, cqes = (ctypes.c_uint64(), ctypes.c_uint64(),
+                              ctypes.c_uint64())
+        _lib.lib().tc_device_engine_stats(
+            self._handle, ctypes.byref(enters), ctypes.byref(sqes),
+            ctypes.byref(cqes))
+        return {"enters": enters.value, "sqes": sqes.value,
+                "cqes": cqes.value}
 
     def __del__(self):
         handle, self._handle = self._handle, None
@@ -573,6 +607,66 @@ def codec_pipeline() -> int:
     if n == 0:
         raise Error(_lib.last_error())
     return n
+
+
+def uring_available() -> bool:
+    """True when the io_uring event engine can run here (kernel and
+    sandbox); Device(engine="uring") raises when it cannot."""
+    return bool(_lib.lib().tc_uring_available())
+
+
+def derive_keyring(root_key: str, rank: int, size: int) -> str:
+    """Rank `rank`'s keyring of pairwise keys, derived from a root secret
+    the launcher keeps: hand only the returned string to that worker
+    (Device(keyring=...)), so a leaked keyring impersonates one rank, not
+    the mesh."""
+    out = ctypes.POINTER(ctypes.c_uint8)()
+    check(_lib.lib().tc_derive_keyring(root_key.encode(), rank, size,
+                                       ctypes.byref(out)))
+    s = ctypes.cast(out, ctypes.c_char_p).value.decode()
+    _lib.lib().tc_buf_free(out)
+    return s
+
+
+def crypto_isa_tier() -> int:
+    """The AEAD bulk tier this process dispatches to: 2 fused AVX-512, 1
+    AVX2 8-block, 0 scalar. Every tier is wire-compatible."""
+    return int(_lib.lib().tc_crypto_isa_tier())
+
+
+_CONNECT_LOGGER_CFUNC = ctypes.CFUNCTYPE(
+    None, ctypes.c_int, ctypes.c_int, ctypes.c_char_p, ctypes.c_char_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_char_p)
+# Every callback stays alive for the process's life: a connect in flight
+# on the loop thread may hold the one a later call replaced, and a
+# collected callback is a call into freed memory.
+_connect_logger_keepalive = []
+
+
+def set_connect_debug_logger(fn) -> None:
+    """Register a process-wide hook that receives a dict per outbound
+    connection attempt: {self_rank, peer_rank, remote, local, attempt, ok,
+    will_retry, error}. It runs on the connecting threads; keep it cheap.
+    None clears it. The hook is the port's library's own: a process that
+    also loads another build of the core has a hook per build."""
+    if fn is None:
+        _lib.lib().tc_set_connect_debug_logger(None)
+        return
+
+    def thunk(self_rank, peer_rank, remote, local, attempt, ok, will_retry,
+              error):
+        try:
+            fn({"self_rank": self_rank, "peer_rank": peer_rank,
+                "remote": (remote or b"").decode(),
+                "local": (local or b"").decode(), "attempt": attempt,
+                "ok": bool(ok), "will_retry": bool(will_retry),
+                "error": (error or b"").decode()})
+        except Exception:  # noqa: BLE001 - must not cross the C frame
+            pass
+
+    cb = _CONNECT_LOGGER_CFUNC(thunk)
+    _connect_logger_keepalive.append(cb)
+    _lib.lib().tc_set_connect_debug_logger(ctypes.cast(cb, ctypes.c_void_p))
 
 
 class UnboundBuffer:
@@ -818,6 +912,13 @@ class AsyncEngine:
             check(_lib.lib().tc_async_shutdown(self._handle))
             self._release_parked()
 
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.shutdown()
+        return False
+
     def _issue(self, op: str, call, result, *entries) -> Work:
         """Issue call(*hosts) (see :func:`_stage_in`): CUDA tensors are
         copied to pinned buffers here, before the op is issued, and back
@@ -897,6 +998,56 @@ class AsyncEngine:
                                code, Context._HIER_ALGORITHMS[algorithm],
                                _timeout_ms(timeout)),
                            out, (tensor, _IN), (out, _OUT))
+
+    def stats(self) -> dict:
+        """Engine counters: {"lanes", "in_flight", "submitted",
+        "completed", "errors", "per_lane": [{"submitted", "completed",
+        "errors", "queue_depth", "poisoned"}, ...]}."""
+        return json.loads(_lib.copy_out(_lib.lib().tc_async_stats_json,
+                                        self._handle))
+
+    def _lane_handle(self, lane: int) -> int:
+        return check_handle(
+            _lib.lib().tc_async_lane_context(self._handle, lane))
+
+    def lane_metrics(self, lane: int, drain: bool = False) -> dict:
+        """Context.metrics() of lane `lane`'s forked sub-context, where
+        the async ops are recorded."""
+        snap = json.loads(_lib.copy_out(_lib.lib().tc_metrics_json,
+                                        self._lane_handle(lane),
+                                        1 if drain else 0))
+        snap["transport"] = {int(k): v
+                             for k, v in snap["transport"].items()}
+        return snap
+
+    def lane_profile(self, lane: int) -> dict:
+        """Context.profile() of lane `lane`'s sub-context. Lane k's cseq
+        axis is comparable across ranks per lane: merge lane k with the
+        peers' lane k, never across lanes."""
+        return json.loads(_lib.copy_out(_lib.lib().tc_profile_json,
+                                        self._lane_handle(lane)))
+
+    def lane_flightrec(self, lane: int) -> dict:
+        """Context.flightrec() of lane `lane`'s sub-context; merge per
+        lane, never across lanes."""
+        return json.loads(_lib.copy_out(_lib.lib().tc_flightrec_json,
+                                        self._lane_handle(lane)))
+
+    def flightrec_dump(self, directory: str) -> dict:
+        """Dump every lane's flight recorder under `directory`, one
+        subdirectory per lane (``<directory>/lane<k>/flightrec-rank<r>
+        .json``) for utils.flightrec.merge() to read lane by lane.
+        Returns {lane: path}."""
+        paths = {}
+        for lane in range(self.lanes):
+            lane_dir = os.path.join(directory, f"lane{lane}")
+            os.makedirs(lane_dir, exist_ok=True)
+            path = os.path.join(
+                lane_dir, f"flightrec-rank{self._context.rank}.json")
+            check(_lib.lib().tc_flightrec_dump(self._lane_handle(lane),
+                                               path.encode()))
+            paths[lane] = path
+        return paths
 
 
 class CollectivePlan:
@@ -1073,15 +1224,23 @@ class Context:
 
     def metrics(self, drain: bool = False) -> dict:
         """The context's metrics registry as a dict (gloo_tpu/core.py's
-        Context.metrics: "rank", "size", "ops", "plan_hits",
-        "plan_misses", "transport" keyed by peer rank, "watchdog":
-        {"stalls", "last"}, "transport_failure", ...). drain=True resets
-        the counters after the snapshot. The reference's "async" gauges of
-        live engines are not ported."""
+        Context.metrics: "rank", "size", "ops", "phases", "faults",
+        "anomalies", "plan_hits", "plan_misses", "transport" keyed by peer
+        rank, "watchdog": {"stalls", "last"}, "transport_failure", ...).
+        drain=True resets the counters after the snapshot. With a live
+        async engine, "async" holds the engines' in-flight depth and
+        stats()."""
         snap = json.loads(_lib.copy_out(_lib.lib().tc_metrics_json,
                                         self._handle, 1 if drain else 0))
         snap["transport"] = {int(k): v
                              for k, v in snap["transport"].items()}
+        engines = [e() for e in self._engines]
+        engines = [e for e in engines if e is not None and e._handle]
+        if engines:
+            snap["async"] = {
+                "in_flight": sum(e.stats()["in_flight"] for e in engines),
+                "engines": [e.stats() for e in engines],
+            }
         return snap
 
     def metrics_enable(self, on: bool = True) -> None:
@@ -1117,6 +1276,102 @@ class Context:
         """Ops recorded so far (the next op's sequence number)."""
         return int(_lib.lib().tc_flightrec_seq(self._handle))
 
+    def debug_dump(self) -> None:
+        """Print the transport's state (posted receives, stash occupancy,
+        backpressure flags) to stderr: the deadlock diagnosis."""
+        _lib.lib().tc_debug_dump(self._handle)
+
+    # ---- span tracer ----
+
+    def trace_start(self) -> None:
+        """Begin recording one span per collective on this context."""
+        _lib.lib().tc_trace_start(self._handle)
+
+    def trace_stop(self) -> None:
+        _lib.lib().tc_trace_stop(self._handle)
+
+    def trace_json(self) -> str:
+        """Drain the recorded spans as Chrome trace-event JSON
+        (utils.tracing.merge_traces joins the ranks')."""
+        return _lib.copy_out(_lib.lib().tc_trace_json,
+                             self._handle).decode()
+
+    def trace_dump(self, path: str) -> None:
+        with open(path, "w") as f:
+            f.write(self.trace_json())
+
+    # ---- phase profiler ----
+
+    def profile(self) -> dict:
+        """The phase profiler's ring as a dict: {"rank", "size", "group",
+        "enabled", "now_us", "next_seq", "capacity", "dropped", "ops":
+        [{"seq", "cseq", "op", "algo", "bytes", "start_us", "total_us",
+        "phases": {"pack"|"post"|"wire_wait"|"reduce"|"unpack"|"intra"|
+        "inter"|"fanout": us}}, ...]}. The phases are those of the native
+        call: the staging of a CUDA tensor through pinned memory lies
+        outside them. utils.profile merges and attributes the ranks'."""
+        return json.loads(_lib.copy_out(_lib.lib().tc_profile_json,
+                                        self._handle))
+
+    def profile_enable(self, on: bool = True) -> None:
+        """Toggle the phase profiler (overrides TPUCOLL_PROFILE for this
+        context)."""
+        _lib.lib().tc_profile_enable(self._handle, 1 if on else 0)
+
+    def profile_enabled(self) -> bool:
+        return bool(_lib.lib().tc_profile_enabled(self._handle))
+
+    # ---- causal span recorder ----
+
+    def spans(self) -> dict:
+        """The causal span recorder's ring as a dict: {"rank", "size",
+        "group", "enabled", "now_us", "next_seq", "capacity", "dropped",
+        "spans": [{"seq", "cseq", "id", "kind": "send"|"recv"|"wait"|
+        "local", "phase", "peer", "slot", "bytes", "t0_us", "t1_us",
+        "op"}, ...]}. utils.critpath merges the ranks' and finds the
+        critical path. Off by default (TPUCOLL_SPANS)."""
+        return json.loads(_lib.copy_out(_lib.lib().tc_spans_json,
+                                        self._handle))
+
+    def spans_enable(self, on: bool = True) -> None:
+        """Toggle the causal span recorder (overrides TPUCOLL_SPANS for
+        this context)."""
+        _lib.lib().tc_spans_enable(self._handle, 1 if on else 0)
+
+    def spans_enabled(self) -> bool:
+        return bool(_lib.lib().tc_spans_enabled(self._handle))
+
+    # ---- fleet observability plane ----
+
+    def fleetobs_start(self) -> None:
+        """Start the in-band telemetry fold: members report to their host
+        leader over the transport, leaders relay one host document to rank
+        0, which merges the fleet view (fleet()) and runs the anomaly
+        detectors. Needs a connected context; a no-op under
+        TPUCOLL_FLEETOBS=0 or when running."""
+        check(_lib.lib().tc_fleetobs_start(self._handle))
+
+    def fleetobs_stop(self) -> None:
+        """Stop and join the aggregation thread (close() does too)."""
+        check(_lib.lib().tc_fleetobs_stop(self._handle))
+
+    def fleetobs_running(self) -> bool:
+        return bool(_lib.lib().tc_fleetobs_running(self._handle))
+
+    def fleetobs_set_aux(self, aux: dict) -> None:
+        """Attach a JSON-serializable dict to this rank's next fleet report
+        as its "aux" field. Raises if the plane was never started."""
+        check(_lib.lib().tc_fleetobs_set_aux(
+            self._handle, json.dumps(aux).encode()))
+
+    def fleet(self) -> dict:
+        """The merged fleet document on rank 0 with the plane running
+        (coverage, host summaries with the ranks' reports, the straggler
+        leaderboard, slow links, anomalies); elsewhere a stub whose
+        "role" and "note" say where the view lives."""
+        return json.loads(_lib.copy_out(_lib.lib().tc_fleet_json,
+                                        self._handle))
+
     def close(self) -> None:
         """Close the context, shutting down its async engines first."""
         for ref in self._engines:
@@ -1124,6 +1379,13 @@ class Context:
             if engine is not None:
                 engine.shutdown()
         check(_lib.lib().tc_context_close(self._handle))
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
 
     def async_engine(self, lanes: Optional[int] = None,
                      tag_base: int = 0) -> AsyncEngine:

@@ -494,12 +494,15 @@ def _host_context(rank: int, size: int, store_dir: str) -> Context:
     return ctx
 
 
-def hier_ddp_entry(rank: int, size: int, store_dir: str, device="cuda"):
+def hier_ddp_entry(rank: int, size: int, store_dir: str, device="cuda",
+                   context: Optional[Context] = None):
     """The two-level DDP path of one process ("host") `rank` of `size`:
     returns (step, (replicas, optimizers, (tokens, targets))) on `device`.
 
     The process's host-plane Context rendezvouses with the others over a
-    FileStore in `store_dir` (a directory every process sees). It holds a
+    FileStore in `store_dir` (a directory every process sees), or is
+    `context`, a Context of `size` ranks the caller connected (over a
+    Device with a key and encryption, say). It holds a
     mesh {"local": HIER_LOCAL} of ranks on `device`, each with a replica
     of train_entry()'s model and an Adam at ADAM_SETTINGS, and takes
     sequences [HOST_SEQS rank, HOST_SEQS (rank + 1)) of the entry batch,
@@ -514,8 +517,9 @@ def hier_ddp_entry(rank: int, size: int, store_dir: str, device="cuda"):
     batch = _host_part(rank, size, tokens)
     replicas = _replicas(model, HIER_LOCAL)
     optimizers = _adam(replicas)
-    group = HierarchicalGroup(_host_context(rank, size, store_dir),
-                              devices=[dev] * HIER_LOCAL)
+    if context is None:
+        context = _host_context(rank, size, store_dir)
+    group = HierarchicalGroup(context, devices=[dev] * HIER_LOCAL)
     step = make_hierarchical_ddp(_lm_loss, group)
     return step, (replicas, optimizers, batch)
 

@@ -293,22 +293,26 @@ def test_prototypes_are_the_references():
 
 
 def test_exports_follow_the_reference():
-    """core exports the reference core's tensor-taking names (the connect
-    debug logger takes no tensor and is not ported), the package exports
-    each of them, and Context has each tensor-taking method of the
-    reference's."""
+    """core exports what the reference core exports, no name left out;
+    the package and its utils export every name of the reference's; and
+    Context, AsyncEngine and Device have every public method of the
+    reference's classes."""
+    import gloo_tpu
+    import gloo_tpu.utils
     from gloo_tpu import core as ref_core
 
     import gloo_tpu_torch
+    import gloo_tpu_torch.utils
 
-    assert set(core.__all__) == set(ref_core.__all__) - {
-        "set_connect_debug_logger"}
+    assert set(core.__all__) == set(ref_core.__all__)
     assert set(core.__all__) <= set(gloo_tpu_torch.__all__)
-    for name in ("allreduce_multi", "reduce", "gather", "gatherv",
-                 "scatter", "allgatherv", "alltoall", "alltoallv",
-                 "reduce_scatter_inplace", "send", "recv", "register",
-                 "allreduce_plan", "reduce_scatter_plan", "allgather_plan",
-                 "plan_cache_size", "flightrec_dump", "next_slot",
-                 "set_watchdog", "metrics_enable", "metrics_enabled"):
-        assert hasattr(ref_core.Context, name) and \
-            hasattr(core.Context, name), name
+    assert set(gloo_tpu.__all__) <= set(gloo_tpu_torch.__all__)
+    assert set(gloo_tpu.utils.__all__) <= set(gloo_tpu_torch.utils.__all__)
+    for name in gloo_tpu_torch.__all__:
+        assert hasattr(gloo_tpu_torch, name), name
+    for cls in ("Context", "AsyncEngine", "Device"):
+        ref_cls, port_cls = getattr(ref_core, cls), getattr(core, cls)
+        for name in dir(ref_cls):
+            if not name.startswith("_"):
+                assert callable(getattr(port_cls, name, None)), \
+                    f"{cls}.{name}"

@@ -61,11 +61,13 @@ RS_ALGORITHMS = ("auto", "ring", "hd", "direct")
 COUNTS = (1, 5, 1000, 4096)
 
 
-def spawn(size, fn, timeout=60.0, context_timeout=30.0, host_of=None):
+def spawn(size, fn, timeout=60.0, context_timeout=30.0, host_of=None,
+          device_kwargs=None):
     """tests/harness.spawn for the port: fn(ctx, rank) on `size` threads,
-    each with its own gloo_tpu_torch Device and Context over one HashStore
-    (host fingerprint grp-host<host_of(rank)> when host_of is given).
-    Returns the per-rank results; re-raises the first rank's error."""
+    each with its own gloo_tpu_torch Device(**device_kwargs) and Context
+    over one HashStore (host fingerprint grp-host<host_of(rank)> when
+    host_of is given). Returns the per-rank results; re-raises the first
+    rank's error."""
     store = core.HashStore()
     results = [None] * size
     errors = []
@@ -73,7 +75,7 @@ def spawn(size, fn, timeout=60.0, context_timeout=30.0, host_of=None):
     def worker(rank):
         ctx = None
         try:
-            device = core.Device()
+            device = core.Device(**(device_kwargs or {}))
             ctx = core.Context(rank, size, timeout=context_timeout)
             if host_of is not None:
                 ctx.set_host_id(f"grp-host{host_of(rank)}")
