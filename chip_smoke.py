@@ -212,7 +212,20 @@ Phases, each of which raises on failure:
      hop under the elected table (and with its schedule forced at the
      buffer's size) bitwise equal to the native dispatch and to the
      CPU-tensor call; then ms per step with the planes off and on, the
-     busy share, and the encrypted hop beside a plaintext one.
+     busy share, and the encrypted hop beside a plaintext one;
+ 33. the tools and examples (tool_phase): tools/torch_bench.py --op all
+     over 8 ranks on the card at the reference tool's default flash,
+     overlap and tp_step shapes (tp_step 2048 x 4096 x 4096 over 8
+     ranks) and two element counts, exit 0 with every row and no skipped
+     one, B1, B2, B3, B5a, B5b and B9 each launching; its table and one
+     JSON line of its p50s; examples/torch_device_plane.py (B1, B2, B3)
+     and torch_fused_tp.py (B5a, B5b) in this process; B3 and B9 bitwise
+     and B5a and B5b within overlap_close against their plain versions
+     at the tool's shapes; torch_observability.py, torch_chaos.py,
+     torch_flightrec.py and torch_recovery.py on CUDA tensors, each with
+     its success lines; and the three viewers on dumps of the port's
+     contexts on the card, torch_flightrec_view.py also on the flight-
+     recorder example's dumps (a desync: exit 2 under --check).
 The line before the last is the JSON list of kernels; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or gloo_tpu.
 """
@@ -3760,6 +3773,298 @@ def traced_phase(card, hier):
     return res
 
 
+# ---- phase 33: the device-plane bench tool, the examples, the viewers ----
+# tools/torch_bench.py at the reference tool's default flash, overlap and
+# tp_step shapes (tp_step 2048 x 4096 x 4096 over 8 ranks: the slice's
+# full-width path), two element counts of the collectives.
+BENCH_ELEMENTS = (1048576, 16777216)
+BENCH_ARGV = ["--op", "all", "--ranks", "8", "--elements",
+              ",".join(map(str, BENCH_ELEMENTS)), "--min-time", "0.2"]
+# Rows the run must print: 7 collectives x 2 element counts, flash and
+# flash_bwd at t 1024 and 16384, 3 overlap shapes x 3, 2 tp_step arms.
+BENCH_ROWS = 7 * 2 + 2 * 2 + 3 * 3 + 2
+# The examples run as processes on the card, each with its success lines.
+CARD_EXAMPLES = {
+    "torch_observability.py": ("observability example OK",
+                               "[watchdog] rank0 was blocked",
+                               "labeled rank rows"),
+    "torch_chaos.py": ("chaos example: OK", "fault firing sequence:",
+                       "rebuilt OK", "merged chaos trace"),
+    "torch_flightrec.py": ("flightrec example: OK",
+                           "reason=stall blamed_peer=1",
+                           "desync verdict: collective desync"),
+    "torch_recovery.py": ("recovery example: OK",
+                          "finished 100 steps in world of 2"),
+}
+EXAMPLE_TIMEOUT = 240
+VIEWER_RANKS = 2
+
+
+def load_file(rel):
+    """A tool or example of this checkout, imported from its path."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), rel)
+    name = os.path.splitext(os.path.basename(path))[0]
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def viewer_dumps(directory):
+    """Flight-recorder, span and profile dumps of VIEWER_RANKS thread
+    ranks allreducing CUDA tensors (four ring allreduces of 1 MiB with
+    the profiler and the span recorder on), for the viewers."""
+    import threading
+
+    from gloo_tpu_torch import Context, Device, HashStore
+    from gloo_tpu_torch.utils import critpath, flightrec
+
+    store, errors = HashStore(), []
+
+    def rank_main(rank):
+        try:
+            ctx = Context(rank, VIEWER_RANKS, timeout=60.0)
+            ctx.connect_full_mesh(store, Device())
+            ctx.profile_enable(True)
+            ctx.spans_enable(True)
+            x = torch.ones(1 << 18, device="cuda")
+            for _ in range(4):
+                ctx.allreduce(x, algorithm="ring")
+                x.fill_(1.0)
+            ctx.barrier()
+            flightrec.dump(ctx, directory)
+            critpath.dump(ctx, directory)
+            with open(os.path.join(directory, f"profile-rank{rank}.json"),
+                      "w") as f:
+                json.dump(ctx.profile(), f)
+            ctx.close()
+        except BaseException as exc:  # noqa: BLE001 - raised below
+            errors.append((rank, exc))
+
+    threads = [threading.Thread(target=rank_main, args=(r,))
+               for r in range(VIEWER_RANKS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+        if t.is_alive():
+            raise AssertionError("phase 33: a viewer-dump rank hung")
+    if errors:
+        raise AssertionError(f"phase 33: viewer dumps failed: {errors}")
+
+
+def run_viewer(viewer, argv, want_code):
+    """tools/torch_<viewer>_view.py ARGV in this process, as `python
+    tools/torch_<viewer>_view.py ARGV` runs it (its directory first on
+    sys.path); its output, which must be non-empty, with exit status
+    want_code."""
+    import contextlib
+    import io
+    import runpy
+    import sys
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tools", f"torch_{viewer}_view.py")
+    out, argv_before, path_before = io.StringIO(), sys.argv, list(sys.path)
+    sys.argv = [path, *argv]
+    sys.path.insert(0, os.path.dirname(path))
+    try:
+        with contextlib.redirect_stdout(out):
+            runpy.run_path(path, run_name="__main__")
+        code = 0
+    except SystemExit as exc:
+        code = exc.code
+    finally:
+        sys.argv, sys.path[:] = argv_before, path_before
+    text = out.getvalue()
+    first = text.strip().splitlines()[:1]
+    print(f"  torch_{viewer}_view {' '.join(argv[1:])}: exit {code}; "
+          f"{first[0] if first else 'no output'}")
+    if code != want_code or not text.strip():
+        raise AssertionError(f"phase 33: torch_{viewer}_view exited {code} "
+                             f"(want {want_code}):\n{text[-3000:]}")
+    return text
+
+
+def start_card_examples(directory):
+    """Starts CARD_EXAMPLES as processes on the card, all at once (each
+    splits the cores between its workers); the flight-recorder example's
+    dumps go to `directory`/flightrec-demo. Returns what
+    finish_card_examples takes."""
+    import sys
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    fr_dir = os.path.join(directory, "flightrec-demo")
+    procs = {}
+    for name in CARD_EXAMPLES:
+        extra = ["--out", fr_dir] if name == "torch_flightrec.py" else \
+            ["--out", directory] if name == "torch_observability.py" else []
+        out = open(os.path.join(directory, f"{name}.out"), "w+")
+        procs[name] = (subprocess.Popen(
+            [sys.executable, os.path.join(root, "examples", name),
+             "--device", "cuda", *extra], stdout=out,
+            stderr=subprocess.STDOUT), out)
+    return procs, fr_dir, time.monotonic() + EXAMPLE_TIMEOUT
+
+
+def finish_card_examples(started):
+    """Waits for start_card_examples' processes (none outlives its
+    deadline); raises unless each exits 0 and prints its success lines.
+    Returns the flight-recorder example's dump directory."""
+    procs, fr_dir, deadline = started
+    try:
+        for p, _ in procs.values():
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p, _ in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    failed = []
+    for name, (p, out) in procs.items():
+        out.seek(0)
+        text = out.read()
+        out.close()
+        missing = [m for m in CARD_EXAMPLES[name] if m not in text]
+        lines = [ln for ln in text.splitlines()
+                 if not ln.startswith("[tpucoll")]
+        print(f"  {name} --device cuda: exit {p.returncode}; "
+              f"{lines[-1] if lines else 'no output'}")
+        if p.returncode != 0 or missing:
+            failed.append(name)
+            print(f"    missing {missing}:\n{text[-4000:]}")
+    if failed:
+        raise AssertionError(f"phase 33: examples failed on the card: "
+                             f"{failed}")
+    return fr_dir
+
+
+def tool_phase(attn, ov, ring, make_mesh, gen, card):
+    """Phase 33: tools/torch_bench.py BENCH_ARGV on the card, alone (exit
+    0, BENCH_ROWS rows, no skipped row), with the launch counts of B1, B2,
+    B3, B5a, B5b and B9 read around it (each must launch); then, while
+    the host-plane examples run as processes on CUDA tensors, the
+    device-plane and fused-TP examples in this process with their counts
+    (B1, B2 and B3; B5a and B5b), B3 and B9 bitwise against their plain
+    versions at the tool's pallas_ring shape and B5a and B5b within
+    overlap_close at its first overlap shape, and the three viewers on
+    dumps of the port's contexts on the card; last torch_flightrec_view
+    on the flight-recorder example's dumps (a desync: exit 2 under
+    --check). Prints the tool's table, one JSON line of its p50s and the
+    parts' seconds; returns the tool's launch counts."""
+    import contextlib
+    import io
+    import tempfile
+
+    t_phase = time.perf_counter()
+    parts = {}
+    counters = {"B1": attn.flash_attention_fwd,
+                "B2": attn.flash_attention_bwd, "B3": ring.ring_allreduce,
+                "B5a": ov.matmul_reduce_scatter,
+                "B5b": ov.allgather_matmul, "B9": ring.ring_allreduce_hbm}
+
+    def counted(fn):
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: c.launches for k, c in counters.items()}
+
+    bench = load_file(os.path.join("tools", "torch_bench.py"))
+    rows, table = [], io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(table):
+            code, tool_launches = counted(
+                lambda: bench.main(BENCH_ARGV, rows=rows))
+    finally:
+        print(table.getvalue(), end="")
+    parts["torch_bench"] = time.perf_counter() - t0
+    print(f"torch_bench {' '.join(BENCH_ARGV)}: exit {code}, {len(rows)} "
+          f"rows; launches {tool_launches} [{card}]")
+    failed = []
+    if code != 0 or "skipped" in table.getvalue() or len(rows) != BENCH_ROWS:
+        failed.append("torch_bench")
+    if not all(tool_launches.values()):
+        failed.append("torch_bench launches")
+    print(json.dumps({"torch_bench_p50_us": {
+        f"{r['op']}@{r['elements']}": r["p50_us"] for r in rows}}))
+
+    scratch = tempfile.mkdtemp(prefix="chip_smoke-33-")
+    t_examples = time.perf_counter()
+    started = start_card_examples(scratch)
+    try:
+        t0 = time.perf_counter()
+        plane = load_file(os.path.join("examples", "torch_device_plane.py"))
+        _, plane_launches = counted(lambda: plane.main(["--device", "cuda"]))
+        fused = load_file(os.path.join("examples", "torch_fused_tp.py"))
+        _, tp_launches = counted(lambda: fused.main(["--device", "cuda"]))
+        parts["device examples"] = time.perf_counter() - t0
+        print(f"examples in this process: torch_device_plane launches "
+              f"{plane_launches}, torch_fused_tp launches {tp_launches}")
+        if not (plane_launches["B1"] and plane_launches["B2"]
+                and plane_launches["B3"]):
+            failed.append("torch_device_plane launches")
+        if not (tp_launches["B5a"] and tp_launches["B5b"]):
+            failed.append("torch_fused_tp launches")
+
+        # The kernels against their plain versions at the tool's shapes.
+        t0 = time.perf_counter()
+        n = 8
+        mesh = make_mesh({"data": n}, devices=[torch.device("cuda")] * n)
+        rows_per = BENCH_ELEMENTS[0] // n // 128
+        x = torch.randn((n, rows_per, 128), generator=gen, device="cuda")
+        for fn, plain in ((ring.ring_allreduce, ring.ring_allreduce_plain),
+                          (ring.ring_allreduce_hbm,
+                           ring.ring_allreduce_hbm_plain)):
+            if ring_check("torch_bench pallas_ring shape", fn, plain, x,
+                          "data", mesh, runs=3)[2]:
+                failed.append(fn.__name__)
+        m, k = (int(v) for v in bench.parse_args([]).overlap_shapes
+                .split(",")[0].split("x"))
+        xo = torch.randn((n, m, k), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        wo = (torch.randn((n, k, k), generator=gen, device="cuda")
+              / math.sqrt(k)).to(torch.bfloat16)
+        with torch.no_grad():
+            a_err, a_ok = overlap_close(
+                ov.matmul_reduce_scatter(xo, wo, "data", mesh),
+                ov.matmul_reduce_scatter_plain(xo, wo, "data", mesh))
+            xs = xo[:, :m // n].contiguous()
+            b_err, b_ok = overlap_close(
+                ov.allgather_matmul_fwd(xs, wo, "data", mesh)[0],
+                ov.allgather_matmul_plain(xs, wo, "data", mesh)[0])
+        print(f"overlap at torch_bench's {m}x{k} over {n} ranks, bf16: max "
+              f"|kernel - plain| B5a {a_err:.3e} ({a_ok}), B5b "
+              f"{b_err:.3e} ({b_ok})")
+        if not (a_ok and b_ok):
+            failed.append("overlap at the tool's shape")
+        parts["kernel checks"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        dumps = os.path.join(scratch, "dumps")
+        viewer_dumps(dumps)
+        run_viewer("flightrec", [dumps, "--check"], 0)
+        run_viewer("critpath", [dumps], 0)
+        run_viewer("critpath", [dumps, "--json"], 0)
+        run_viewer("profile", [dumps, "--ops", "3"], 0)
+        parts["viewers"] = time.perf_counter() - t0
+    finally:
+        fr_dir = finish_card_examples(started)
+    parts["host examples, from their start"] = \
+        time.perf_counter() - t_examples
+    out = run_viewer("flightrec", [fr_dir, "--check"], 2)
+    if "verdict: DESYNC" not in out:
+        failed.append("torch_flightrec_view verdict")
+    print(f"phase 33: {time.perf_counter() - t_phase:.1f} s; parts (s) "
+          f"{ {k: round(v, 1) for k, v in parts.items()} }")
+    if failed:
+        raise AssertionError(f"phase 33 failed: {failed}")
+    return tool_launches
+
+
 WORKERS = {"26": worker_staging, "27": worker_host_sync, "28": worker_hier,
            "29": worker_elastic, "29b": worker_run_elastic,
            "30": worker_surface, "32": worker_traced}
@@ -4606,6 +4911,10 @@ def main():
     # Phase 32: phase 28's step, encrypted and traced, under a fault and
     # the elected schedule and tuning table.
     traced_phase(card, hier)
+
+    # Phase 33: the device-plane bench tool, the examples and the dump
+    # viewers on the card.
+    tool_phase(attn, ov, ring, make_mesh, gen, card)
 
     # Launches on the main paths: B1 on the serving path, B2 on the
     # training path, B3 on the DDP path, B4a and B4b on the group path,

@@ -139,18 +139,33 @@ def use_fused_overlap(m: int, k: int, cols: int, axis_size: int,
 
 
 _PROBE_CACHE: dict = {}
+PROBE_AXIS = "_probe"
+
+
+def fused_ratio_operands(m: int, k: int, axis_size: int,
+                         dtype: torch.dtype = torch.bfloat16,
+                         device="cuda"):
+    """The operands of measure_fused_ratio's A/B: (mesh, x, w), a world of
+    axis_size ranks on `device` along PROBE_AXIS, x (P, m, k) of ones and
+    w (P, k, k) of 1 / k (the square member of the shape family, as in
+    JAX)."""
+    dev = torch.device(device)
+    mesh = make_mesh({PROBE_AXIS: axis_size}, devices=[dev] * axis_size)
+    x = torch.ones((axis_size, m, k), dtype=dtype, device=dev)
+    w = torch.full((axis_size, k, k), 1.0 / k, dtype=dtype, device=dev)
+    return mesh, x, w
 
 
 def measure_fused_ratio(m: int, k: int, axis_size: int,
                         dtype: torch.dtype = torch.bfloat16, chain: int = 64,
                         reps: int = 3, device="cuda") -> float:
-    """The fused kernel's throughput relative to a plain product of the
-    same FLOPs, measured: B5a over a world of axis_size ranks on `device`
-    (x (P, m, k), w (P, k, k), the square member of the shape family as in
-    JAX) against one torch.matmul of the same world product, each timed
-    over `chain` calls, the best of `reps`. Cached per (m, k, axis_size,
-    dtype) for the process. On the CPU it runs the plain twin and returns
-    a number that says nothing about a card; that one is never cached."""
+    """The fused kernel's throughput relative to a plain product of the same
+    FLOPs, measured: B5a over a world of axis_size ranks on `device`
+    (fused_ratio_operands) against one torch.matmul of the same world
+    product, each timed over `chain` calls, the best of `reps`. Cached per
+    (m, k, axis_size, dtype) for the process. On the CPU it runs the plain
+    twin and returns a number that says nothing about a card; that one is
+    never cached."""
     key = (m, k, axis_size, str(dtype))
     dev = torch.device(device)
     if dev.type == "cuda" and key in _PROBE_CACHE:
@@ -159,12 +174,10 @@ def measure_fused_ratio(m: int, k: int, axis_size: int,
         raise ValueError(f"rows {m} not divisible by ring size {axis_size}")
     if chain < 2:
         raise ValueError(f"chain must be >= 2, got {chain}")
-    mesh = make_mesh({"_probe": axis_size}, devices=[dev] * axis_size)
-    x = torch.ones((axis_size, m, k), dtype=dtype, device=dev)
-    w = torch.full((axis_size, k, k), 1.0 / k, dtype=dtype, device=dev)
+    mesh, x, w = fused_ratio_operands(m, k, axis_size, dtype, dev)
 
     def fused():
-        matmul_reduce_scatter(x, w, "_probe", mesh)
+        matmul_reduce_scatter(x, w, PROBE_AXIS, mesh)
 
     def plain():
         _dot(x, w)

@@ -15,9 +15,12 @@ import torch
 from gloo_tpu_torch.ops.kernel_table import KERNELS
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((REPO / "gloo_tpu_torch").rglob("*.py")) + sorted(
-    (REPO / "examples").glob("torch_*.py")) + [
-    REPO / "chip_smoke.py", REPO / "host_times.py"]
+TOOL_FILES = sorted((REPO / "tools").glob("torch_*.py")) + [
+    REPO / "tools" / "_torch_telemetry_client.py"]
+EXAMPLE_FILES = sorted((REPO / "examples").glob("torch_*.py"))
+PORT_FILES = sorted((REPO / "gloo_tpu_torch").rglob("*.py")) + \
+    EXAMPLE_FILES + TOOL_FILES + [REPO / "chip_smoke.py",
+                                  REPO / "host_times.py"]
 
 
 def test_import_pulls_in_no_jax_and_no_gloo_tpu():
@@ -44,6 +47,27 @@ def test_recovery_modules_pull_in_no_jax_orbax_or_gloo_tpu():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120,
                          check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_tools_and_examples_pull_in_no_jax_and_no_gloo_tpu():
+    """Every port tool and example, imported as a module (each from its
+    own directory, as `python tools/x.py` runs it), leaves no jax or
+    gloo_tpu module loaded."""
+    assert len(TOOL_FILES) == 5 and len(EXAMPLE_FILES) >= 10
+    code = (
+        "import importlib.util, json, sys\n"
+        "for path in sys.argv[1:]:\n"
+        "    sys.path.insert(0, path.rsplit('/', 1)[0])\n"
+        "    name = path.rsplit('/', 1)[1][:-3]\n"
+        "    spec = importlib.util.spec_from_file_location(name, path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "print(json.dumps(sorted(m for m in sys.modules if "
+        "m.split('.')[0] in ('jax', 'jaxlib', 'orbax', 'gloo_tpu'))))\n")
+    out = subprocess.run(
+        [sys.executable, "-c", code] + [str(p) for p in
+                                        TOOL_FILES + EXAMPLE_FILES],
+        cwd=REPO, capture_output=True, text=True, timeout=120, check=True)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
