@@ -225,7 +225,20 @@ Phases, each of which raises on failure:
      torch_flightrec.py and torch_recovery.py on CUDA tensors, each with
      its success lines; and the three viewers on dumps of the port's
      contexts on the card, torch_flightrec_view.py also on the flight-
-     recorder example's dumps (a desync: exit 2 under --check).
+     recorder example's dumps (a desync: exit 2 under --check);
+ 34. the device plane across processes (peer_phase, worker "34"): 4
+     worker processes on the card, one rank each, the first 2, then the
+     first 3, then all 4 joined by init_multihost; at 2 the probe (two processes bounce a counter through
+     IPC-mapped .sys flags, one spinning thread each: round trips per
+     second, the card's context switch); B3, B4a and B4b (the cross-process
+     instances over the peer workspace) bitwise against their twins on the
+     world, f32 and bf16 at (P, 1024 up to a multiple of P, 128) and at 4
+     also the DDP buffer (4, 6912, 256) f32, each 10 calls back to back on
+     inputs that differ; their device ms at the DDP buffer; then 5 steps of
+     multihost_ddp_entry over 4 processes ((B1, B2, B3) = (2, 2, 1) per
+     step per process), losses within TRAIN_TOL of phase 10's world step,
+     first-step gradients and state_digest equal across the processes, and
+     the step's event and device ms.
 The line before the last is the JSON list of kernels; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or gloo_tpu.
 """
@@ -2750,14 +2763,27 @@ def run_workers(phase, timeout=WORKER_TIMEOUT, size=HOST_RANKS, killed=(),
              str(rank), str(size), os.path.join(store, "rdv")],
             stdout=out, stderr=err, env=dict(os.environ, **(env or {}))))
     deadline = time.monotonic() + timeout
+    late = []
     try:
-        for p in procs:
-            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        for rank, p in enumerate(procs):
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                late.append(rank)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
+    if late:
+        tails = []
+        for rank, (out, err) in enumerate(logs):
+            out.seek(0)
+            err.seek(0)
+            tails.append(f"worker {rank}: {out.read()[-1500:]}"
+                         f"{err.read()[-3000:]}")
+        raise AssertionError(f"phase {phase}: workers {late} outlived "
+                             f"{timeout} s:\n" + "\n".join(tails))
     results = []
     for rank, (p, (out, err)) in enumerate(zip(procs, logs)):
         out.seek(0)
@@ -4065,9 +4091,321 @@ def tool_phase(attn, ov, ring, make_mesh, gen, card):
     return tool_launches
 
 
+# Phase 34: the device plane across processes, in PEER_SIZES[-1] worker
+# processes on the card, one rank each. The first 2, then the first 3,
+# form a mesh of their own (init_multihost on a port of their own while
+# the rest wait at a barrier of the whole group), then all 4: at 2 the
+# probe (PROBE_ROUNDS round trips), at each size B3, B4a and B4b against
+# their twins at PEER_CASES (each PEER_BACK_TO_BACK calls back to back,
+# input k the case's world + k), at 4 also at the DDP buffer and timed;
+# then DDP_STEPS steps of multihost_ddp_entry over the 4 processes.
+PEER_SIZES = (2, 3, 4)
+# (dtype, rows per rank, cols): rows 1024, up to a multiple of P.
+PEER_CASES = ((torch.float32, 1024, 128), (torch.bfloat16, 1024, 128))
+# The DDP buffer as ring_variants_entry lays it out: (4, 6912, 256) f32.
+PEER_DDP_CASE = (torch.float32, 6912, 256)
+PEER_BACK_TO_BACK = 10
+PROBE_ROUNDS = (10, 100, 400)
+PEER_TIME_ITERS = 10
+PEER_TIMEOUT = 240
+PEER_NAMES = ("ring_allreduce", "ring_reduce_scatter", "ring_allgather")
+
+
+def peer_world(dtype, p, rows, cols, k, device):
+    """Input k of a case: the same (p, rows, cols) on every process, drawn
+    on the card from a seeded generator, plus k."""
+    gen = torch.Generator(device).manual_seed(34)
+    return (torch.randn((p, rows, cols), generator=gen, device=device)
+            + k).to(dtype)
+
+
+def same_calls(fn, rank, iters, want=()):
+    """Rank 0 profiles fn (device_profile: one call, then one session of
+    `iters`); the other ranks make the same iters + 1 calls, as every
+    process of a cross-process collective must."""
+    if rank == 0:
+        return device_profile(fn, iters=iters, want=want, sessions=1)
+    for _ in range(iters + 1):
+        fn()
+    torch.cuda.synchronize()
+    return None, []
+
+
+def kernel_ms(rows, name):
+    """Device ms per launch of the kernels whose names contain `name`."""
+    mine = [r for r in rows if name in r[2]]
+    return sum(r[0] / r[1] for r in mine) if mine else None
+
+
+def peer_bound(name, p, per_rank):
+    """Bytes of B3 (2 P S), B4a (P S + S) and B4b (S + P S, each rank's
+    input S / P) for S bytes per rank of output, as phase 11 counts
+    them."""
+    return {"ring_allreduce": 2 * p * per_rank,
+            "ring_reduce_scatter": p * per_rank + per_rank,
+            "ring_allgather": per_rank + p * per_rank}[name]
+
+
+def peer_cases(ring, mesh, size, device, note=print):
+    """B3, B4a and B4b on the process mesh against their twins on the
+    world on the card: {"wrong": [...], "err": {name: max |kernel -
+    plain|}, "launches": {name: count}, "cases": calls}."""
+    cases = list(PEER_CASES) + ([PEER_DDP_CASE] if size == 4 else [])
+    fns = {name: getattr(ring, name) for name in PEER_NAMES}
+    for fn in fns.values():
+        fn.launches = 0
+    wrong, err = [], dict.fromkeys(PEER_NAMES, 0.0)
+    mine = torch.tensor(mesh.local_ranks)
+    for dtype, rows, cols in cases:
+        rows = -(-rows // size) * size
+        worlds = [peer_world(dtype, size, rows, cols, k, device)
+                  for k in range(PEER_BACK_TO_BACK)]
+        for name, fn in fns.items():
+            plain = getattr(ring, name + "_plain")
+            xs = [w[:, :rows // size] if name == "ring_allgather" else w
+                  for w in worlds]
+            outs = [fn(x[mine], "data", mesh) for x in xs]
+            torch.cuda.synchronize()
+            note(f"{name} {str(dtype)[6:]} ({size}, {rows}, {cols})")
+            for k, (x, out) in enumerate(zip(xs, outs)):
+                ref = plain(x, "data", mesh)[mine]
+                err[name] = max(err[name], float(
+                    (out.float() - ref.float()).abs().max()))
+                if not same_bits(out, ref):
+                    wrong.append(f"{name} {str(dtype)[6:]} ({size}, {rows}, "
+                                 f"{cols}) call {k}")
+    return {"wrong": wrong, "err": err,
+            "launches": {n: f.launches for n, f in fns.items()},
+            "cases": len(cases) * len(PEER_NAMES) * PEER_BACK_TO_BACK}
+
+
+def peer_times(ring, mesh, ctx, rank, device):
+    """Device ms per launch of the cross-process B3, B4a and B4b at the DDP
+    buffer (rank 0's profile), each one's event ms on every rank, and on
+    rank 0 the twin's and the yardstick's device ms on the world."""
+    dtype, rows, cols = PEER_DDP_CASE
+    p = mesh.size
+    world = peer_world(dtype, p, rows, cols, 0, device)
+    mine = torch.tensor(mesh.local_ranks)
+    out = {}
+    for name in PEER_NAMES:
+        fn = getattr(ring, name)
+        x = world[:, :rows // p] if name == "ring_allgather" else world
+        local = x[mine].contiguous()
+        ctx.barrier()
+        _, rows_ = same_calls(lambda: fn(local, "data", mesh), rank,
+                              PEER_TIME_ITERS, want=("ring_peer_kernel",))
+        ctx.barrier()
+        ev = event_ms(lambda: fn(local, "data", mesh), iters=PEER_TIME_ITERS)
+        row = {"event_ms": ev}
+        if rank == 0:
+            plain = getattr(ring, name + "_plain")
+            row["ms"] = kernel_ms(rows_, "ring_peer_kernel")
+            row["plain_ms"] = timed(f"{name} plain on the world",
+                                    lambda: plain(x, "data", mesh), iters=5)
+            lib = {"ring_allreduce": lambda: x.sum(0).expand(p, -1, -1)
+                   .contiguous(),
+                   "ring_reduce_scatter": lambda: x.sum(0),
+                   "ring_allgather": lambda: x.reshape(1, p * x.shape[1], -1)
+                   .expand(p, -1, -1).contiguous()}[name]
+            row["library_ms"] = timed(f"{name} yardstick", lib)
+            row["per_rank"] = world[0].numel() * world.element_size()
+        out[name] = row
+    return out
+
+
+def worker_peer(rank, size, store, device="cuda"):
+    """Phase 34 on one of `size` processes: for each of PEER_SIZES below
+    `size`, the first processes' own init_multihost (at
+    CHIP_SMOKE_PEER_PORT_<P>) with the probe at 2 and the kernels against
+    their twins, the others waiting at a barrier of the whole group; then
+    the whole group's (CHIP_SMOKE_PEER_PORT_<size>): the kernels, their
+    times at the DDP buffer; then DDP_STEPS steps of multihost_ddp_entry
+    (a last init_multihost at CHIP_SMOKE_DDP_PORT) with the launch counts
+    read around them, and the step's times."""
+    import sys
+
+    from gloo_tpu_torch import entry as entry_mod
+    from gloo_tpu_torch.checkpoint import state_digest
+    from gloo_tpu_torch.ops import attention as attn
+    from gloo_tpu_torch.ops import ring
+    from gloo_tpu_torch.tpu import init_multihost
+    from gloo_tpu_torch.tpu.peer import pingpong
+
+    _share_cores(size)
+    t0 = time.perf_counter()
+
+    def note(what):
+        print(f"[{time.perf_counter() - t0:.1f} s] {what}", file=sys.stderr,
+              flush=True)
+
+    def plane(p):
+        return init_multihost(
+            rank, p, f"127.0.0.1:{os.environ[f'CHIP_SMOKE_PEER_PORT_{p}']}",
+            timeout=60.0, device_hostname="127.0.0.1",
+            devices=None if device == "cuda" else [device])
+
+    ctx, mesh = plane(size)
+    note("init_multihost")
+    out = {"sizes": {}}
+    for p in PEER_SIZES:
+        if p == size:
+            sub_ctx, sub_mesh = ctx, mesh
+        elif rank < p:
+            sub_ctx, sub_mesh = plane(p)
+        else:
+            ctx.barrier()
+            continue
+        part = {"process_of": sub_mesh.process_of}
+        if p == 2:
+            out["probe"] = [pingpong(sub_ctx, sub_mesh.store, r,
+                                     sub_mesh.device) for r in PROBE_ROUNDS]
+            note("probe")
+        part.update(peer_cases(ring, sub_mesh, p, sub_mesh.device, note))
+        out["sizes"][str(p)] = part
+        if p != size:
+            sub_ctx.close()
+            ctx.barrier()
+    out["times"] = peer_times(ring, mesh, ctx, rank, mesh.device)
+    note("times")
+    ctx.close()
+
+    # Phase 34c: the flagship's DDP step at one process per rank.
+    step, (replicas, optimizers, batch) = entry_mod.multihost_ddp_entry(
+        rank, size, f"127.0.0.1:{os.environ['CHIP_SMOKE_DDP_PORT']}",
+        device, device_hostname="127.0.0.1")
+    counters = (attn.flash_attention_fwd, attn.flash_attention_bwd,
+                ring.ring_allreduce, ring.ring_reduce_scatter,
+                ring.ring_allgather)
+    for c in counters:
+        c.launches = 0
+    note("multihost_ddp_entry")
+    losses = [step(replicas, optimizers, batch)]
+    first = digest(p.grad for p in replicas[0].parameters())
+    losses += [step(replicas, optimizers, batch)
+               for _ in range(DDP_STEPS - 1)]
+    torch.cuda.synchronize()
+    ddp = {"launches": [c.launches for c in counters],
+           "losses": [float(x) for x in losses], "first_grads": first,
+           "state": state_digest({"model": replicas[0].state_dict(),
+                                  "adam": optimizers[0].state_dict()})}
+
+    def once():
+        step(replicas, optimizers, batch)
+
+    step.context.barrier()
+    ddp["step_ms"] = event_ms(once, iters=10)
+    step.context.barrier()
+    ddp["device_ms"], rows = same_calls(once, rank, 5,
+                                        want=("ring_peer_kernel",))
+    ddp["b3_ms"] = kernel_ms(rows, "ring_peer_kernel")
+    ddp["device_rows"] = rows[:8]
+    note("DDP steps and times")
+    step.context.close()
+    out["ddp"] = ddp
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def peer_phase(card, ddp_losses):
+    """Phase 34: worker_peer in PEER_SIZES[-1] processes; the checks; the
+    rows of the cross-process kernels for the kernels line."""
+    from gloo_tpu_torch.entry import ENTRY_CONFIG
+
+    t_phase = time.perf_counter()
+    size = PEER_SIZES[-1]
+    env = {f"CHIP_SMOKE_PEER_PORT_{p}": str(_free_port())
+           for p in PEER_SIZES}
+    env["CHIP_SMOKE_DDP_PORT"] = str(_free_port())
+    res = run_workers("34", timeout=PEER_TIMEOUT, size=size, env=env)
+    failed = []
+    for pr in res[0]["probe"]:
+        print(f"probe: {pr['rounds']} round trips between 2 processes on the "
+              f"card over IPC-mapped .sys flags in {pr['ms']:.6f} ms (host "
+              f"{pr['host_s']:.6f} s): {pr['round_trips_per_s']:.3f} round "
+              f"trips/s [{card}]")
+    err = dict.fromkeys(PEER_NAMES, 0.0)
+    for p in PEER_SIZES:
+        parts = [r["sizes"][str(p)] for r in res[:p]]
+        wrong = [w for part in parts for w in part["wrong"]]
+        for n in PEER_NAMES:
+            err[n] = max([err[n]] + [part["err"][n] for part in parts])
+        launches = [part["launches"] for part in parts]
+        print(f"B3, B4a, B4b across {p} processes (process_of "
+              f"{parts[0]['process_of']}, {parts[0]['cases']} calls per "
+              f"process, {PEER_BACK_TO_BACK} back to back per case) against "
+              f"their twins on the card: "
+              f"{'all bitwise equal' if not wrong else 'DIFFER ' + str(wrong[:6])}"
+              f"; max |kernel - plain| "
+              f"{ {n: max(part['err'][n] for part in parts) for n in PEER_NAMES} }"
+              f"; launches per process {launches}")
+        if wrong or any(l != dict.fromkeys(
+                PEER_NAMES, parts[0]["cases"] // len(PEER_NAMES))
+                for l in launches):
+            failed.append(f"the kernels across {p} processes")
+    times = res[0]["times"]
+    for name in PEER_NAMES:
+        t = times[name]
+        print(f"  {name} across {size} processes at the DDP buffer: device "
+              f"{t['ms']} ms per launch (rank 0's profile), per call "
+              f"(events) {[r['times'][name]['event_ms'] for r in res]} ms, "
+              f"plain {t['plain_ms']} ms, yardstick {t['library_ms']} ms "
+              f"[{card}; one card, time-sliced]")
+    ddps = [r["ddp"] for r in res]
+    launches = [d["launches"] for d in ddps]
+    layers = ENTRY_CONFIG.n_layers
+    want = [DDP_STEPS * layers, DDP_STEPS * layers, DDP_STEPS, 0, 0]
+    diffs = [max(abs(a - b) for a, b in zip(d["losses"], ddp_losses))
+             for d in ddps]
+    rel = max(abs(a - b) / abs(b) for d in ddps
+              for a, b in zip(d["losses"], ddp_losses))
+    for rank, d in enumerate(ddps):
+        print(f"multihost_ddp_entry process {rank}: losses "
+              f"{', '.join(f'{x:.6f}' for x in d['losses'])}; launches "
+              f"(flash_fwd, flash_bwd, ring_allreduce, ring_reduce_scatter, "
+              f"ring_allgather) {d['launches']}; step {d['step_ms']:.6f} ms "
+              f"(events) [{card}]")
+    print(f"multihost DDP vs phase 10's world step: max |loss - loss_world| "
+          f"{max(diffs):.3e} (rel {rel:.3e}, tol {TRAIN_TOL['loss']}); "
+          f"first-step grads "
+          f"{'bitwise equal' if len({d['first_grads'] for d in ddps}) == 1 else 'DIFFER'}"
+          f" across processes; state_digest after {DDP_STEPS} steps "
+          f"{'equal' if len({d['state'] for d in ddps}) == 1 else 'DIFFER'}")
+    lead = ddps[0]
+    busy = "not measured" if lead["device_ms"] is None \
+        else f"{lead['device_ms'] / lead['step_ms']:.3f}"
+    print(f"multihost DDP step (process 0): {lead['step_ms']:.6f} ms "
+          f"(events), device {lead['device_ms']} ms, busy share {busy}, "
+          f"the cross-process B3 {lead['b3_ms']} ms of it [{card}; one "
+          f"card, time-sliced]")
+    for dev_ms, calls, kname in lead["device_rows"]:
+        print(f"  {dev_ms:.6f} ms in {calls:g} calls: {kname[:90]}")
+    if any(l != want for l in launches):
+        failed.append(f"DDP launches {launches}, expected {want}")
+    if rel > TRAIN_TOL["loss"] or len({d["state"] for d in ddps}) != 1 \
+            or len({d["first_grads"] for d in ddps}) != 1 \
+            or not all(np.isfinite(d["losses"]).all() for d in ddps):
+        failed.append("the multihost DDP step")
+    print(f"phase 34: {time.perf_counter() - t_phase:.1f} s (workers "
+          f"{max(r['wall_s'] for r in res):.1f} s)")
+    if failed:
+        raise AssertionError(f"phase 34 failed: {failed}")
+    rows = {}
+    for name in PEER_NAMES:
+        t = times[name]
+        bound, bound_by = _bound(peer_bound(name, size, t["per_rank"]), 0,
+                                 torch.float32)
+        n = lead["launches"][2] if name == "ring_allreduce" \
+            else res[0]["sizes"][str(size)]["launches"][name]
+        rows[name] = (n, err[name], (t["ms"], t["plain_ms"], t["library_ms"],
+                                     bound, bound_by))
+    return rows
+
+
 WORKERS = {"26": worker_staging, "27": worker_host_sync, "28": worker_hier,
            "29": worker_elastic, "29b": worker_run_elastic,
-           "30": worker_surface, "32": worker_traced}
+           "30": worker_surface, "32": worker_traced,
+           "34": worker_peer}
 
 
 def host_phases(card):
@@ -4916,6 +5254,11 @@ def main():
     # viewers on the card.
     tool_phase(attn, ov, ring, make_mesh, gen, card)
 
+    # Phase 34: the device plane across processes: the probe, B3, B4a and
+    # B4b across 2, 3 and 4 processes on the card, and the flagship's DDP
+    # step at one process per rank.
+    peer_rows = peer_phase(card, ddp_losses)
+
     # Launches on the main paths: B1 on the serving path, B2 on the
     # training path, B3 on the DDP path, B4a and B4b on the group path,
     # B5a and B5b on the fused MLP path, B6 and B7 on the ring-flash path
@@ -4973,6 +5316,23 @@ def main():
             "source": f"gloo_tpu_torch/csrc/{source}",
             "replaces": f"gloo_tpu/ops/{replaces}",
             "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": lib})
+    # The cross-process instances (phase 34): B3's launches on the DDP path
+    # at one process per rank, B4a's and B4b's in their held run; times at
+    # the DDP buffer across 4 processes on one card (time-sliced).
+    for name, replaces in (("ring_allreduce", "pallas_ring.py:63"),
+                           ("ring_reduce_scatter", "pallas_ring.py:876"),
+                           ("ring_allgather", "pallas_ring.py:995")):
+        n, err, (ms, plain, lib, bound, bound_by) = peer_rows[name]
+        if None in (ms, plain, lib):
+            raise AssertionError(
+                f"the profiler showed no device time for the cross-process "
+                f"{name}, its plain version or its library call")
+        kernels.append({
+            "name": f"{name}_across_processes", "route": "cuda",
+            "source": "gloo_tpu_torch/csrc/ring.cu",
+            "replaces": f"gloo_tpu/ops/{replaces}", "launches": n,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": bound, "bound_by": bound_by, "library_ms": lib})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

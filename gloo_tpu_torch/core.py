@@ -1121,6 +1121,7 @@ class Context:
         self._device = None
         self._engines = []
         self._pool = _PinnedPool()
+        self._close_hooks = []
         self._free = _lib.lib().tc_context_free
 
     def __del__(self):
@@ -1163,6 +1164,7 @@ class Context:
         obj._device = parent._device if parent is not None else device
         obj._engines = []
         obj._pool = _PinnedPool()
+        obj._close_hooks = []
         obj._parent = parent
         obj._free = _lib.lib().tc_context_free
         return obj
@@ -1372,8 +1374,17 @@ class Context:
         return json.loads(_lib.copy_out(_lib.lib().tc_fleet_json,
                                         self._handle))
 
+    def on_close(self, fn) -> None:
+        """Runs fn() when the context closes, before anything else closes
+        (tpu/multihost.py's peer workspace, whose release is collective)."""
+        self._close_hooks.append(fn)
+
     def close(self) -> None:
-        """Close the context, shutting down its async engines first."""
+        """Close the context, running its on_close hooks (once) and
+        shutting down its async engines first."""
+        hooks, self._close_hooks = self._close_hooks, []
+        for fn in hooks:
+            fn()
         for ref in self._engines:
             engine = ref()
             if engine is not None:

@@ -83,13 +83,28 @@
 // output unit is written by exactly one block.
 //
 // On one card the entry barrier is not needed for the result: stream order
-// completes every rank's input before the launch. Across cards (ROADMAP
-// A.7) a peer's input is complete only once that peer has entered, and the
-// launch must add: loads (B3, B4a) and stores (B3, B4b) through
-// peer-mapped pointers, flags at system scope (.sys in place of .gpu), one
-// cooperative launch per card, and an exit barrier among the members
-// before a rank may reuse its input (a peer may still be reading it) or
-// read B3's or B4b's output (peers write into it).
+// completes every rank's input before the launch. Across processes (the
+// cross-process instances, ring_peer_kernel, entry gtt_ring_peer) the
+// ranks' buffers live in each process's workspace (peer.cu), mapped into
+// every other process by CUDA IPC: Params holds a peer-mapped pointer for
+// every member's input, output and flags, and this process's own pointers
+// for its local ranks. Each process makes one cooperative launch of grid
+// (local ranks, slices); block (x, j) plays flat rank local[x]. Then a
+// peer's input is complete only once that peer has entered, so the entry
+// barrier is what orders the loads. Flags are at system scope (.sys), and
+// are counters that only grow: every call adds n - 1 to each flag of a
+// member, the wrapper passes each flag's count before the call (before),
+// and nothing zeroes them (a peer's add could land before an owner's
+// zeroing). An exit barrier among the members follows the last load and
+// store: a rank may not return while a peer can still read its input
+// (B3, B4a) or write its output (B3 stores n copies of every finished
+// chunk into the members, B4b one into each). Loads of the inputs stay
+// on the non-coherent path: no process writes an input during the
+// launch. B3's and B4b's outputs are written by peers, and nothing
+// reads them in the launch. On one card under time-slicing, a spin waits
+// until the card switches to a peer's context; across cards the loads and
+// stores ride NVLink. The one-card instances (ring_kernel) are the same
+// templates at Scope::kGpu with base 0 and no exit barrier.
 //
 // Types: B3 and B4a take bf16, f16, f32, f64, int8, uint8, int16, int32 and
 // int64; a 16-byte unit is unpacked into its lanes and each lane added in
@@ -134,9 +149,13 @@ struct Params {
 // B3 and B4a: block (r, j) sums slice j of the chunk rank r finishes over
 // the members of r's ring, in the ring's order, and stores it into rank r's
 // output (B4a) or into that chunk of every member's output (B3).
-template <typename T, typename U, int kMode>
-__device__ __forceinline__ void member_sum(const Params& p) {
-  const int r = blockIdx.x;
+// Block (x, j) plays flat rank r with its flags' count `before` the
+// call: r = x and before = 0 on one card (S = Scope::kGpu), the process's
+// local rank x across processes (S = Scope::kSys, followed by the exit
+// barrier).
+template <typename T, typename U, int kMode, Scope S>
+__device__ __forceinline__ void member_sum(const Params& p, int r,
+                                           int before) {
   const int n = p.n, my = p.my[r];
   const unsigned char* const ring = p.members[r];
   const long long chunk = p.chunk;
@@ -146,9 +165,9 @@ __device__ __forceinline__ void member_sum(const Params& p) {
       (kMode == kAllreduce ? wrap(my + 1, n) : my) * chunk;
   const long long flag = blockIdx.y * p.flag_stride + kBarrier;
 
-  members_barrier(p.flags[r] + flag, n, [&](int k) {
+  members_barrier<S>(p.flags[r] + flag, n, [&](int k) {
     return p.flags[ring[wrap(my + k, n)]] + flag;
-  });
+  }, before);
 
   for (long long base = lo + threadIdx.x; base < hi;
        base += kThreads * kUnroll) {
@@ -174,13 +193,18 @@ __device__ __forceinline__ void member_sum(const Params& p) {
       }
     }
   }
+  if constexpr (S == Scope::kSys) {
+    exit_barrier<S>(p.flags[r] + flag + kPeerExit, n, [&](int k) {
+      return p.flags[ring[wrap(my + k, n)]] + flag + kPeerExit;
+    }, before);
+  }
 }
 
 // B4b: block (r, j) reads slice j of rank r's chunk once and stores it at
 // offset my * chunk into the output of every member of r's ring.
-template <typename U>
-__device__ __forceinline__ void member_gather(const Params& p) {
-  const int r = blockIdx.x;
+template <typename U, Scope S>
+__device__ __forceinline__ void member_gather(const Params& p, int r,
+                                              int before) {
   const int n = p.n, my = p.my[r];
   const unsigned char* const ring = p.members[r];
   const long long chunk = p.chunk;
@@ -189,25 +213,30 @@ __device__ __forceinline__ void member_gather(const Params& p) {
   const long long off = my * chunk;
   const long long flag = blockIdx.y * p.flag_stride + kBarrier;
 
-  members_barrier(p.flags[r] + flag, n, [&](int k) {
+  members_barrier<S>(p.flags[r] + flag, n, [&](int k) {
     return p.flags[ring[wrap(my + k, n)]] + flag;
-  });
+  }, before);
 
   const U* const in = static_cast<const U*>(p.in[r]);
-  for (long long base = lo + threadIdx.x; base < hi;
-       base += kThreads * kGatherUnroll) {
+  for (long long u0 = lo + threadIdx.x; u0 < hi;
+       u0 += kThreads * kGatherUnroll) {
     U v[kGatherUnroll];
 #pragma unroll
     for (int i = 0; i < kGatherUnroll; ++i) {
-      if (base + i * kThreads < hi) v[i] = __ldg(in + base + i * kThreads);
+      if (u0 + i * kThreads < hi) v[i] = __ldg(in + u0 + i * kThreads);
     }
     for (int k = 0; k < n; ++k) {
-      U* const out = static_cast<U*>(p.out[ring[k]]) + off + base;
+      U* const out = static_cast<U*>(p.out[ring[k]]) + off + u0;
 #pragma unroll
       for (int i = 0; i < kGatherUnroll; ++i) {
-        if (base + i * kThreads < hi) out[i * kThreads] = v[i];
+        if (u0 + i * kThreads < hi) out[i * kThreads] = v[i];
       }
     }
+  }
+  if constexpr (S == Scope::kSys) {
+    exit_barrier<S>(p.flags[r] + flag + kPeerExit, n, [&](int k) {
+      return p.flags[ring[wrap(my + k, n)]] + flag + kPeerExit;
+    }, before);
   }
 }
 
@@ -215,13 +244,43 @@ __device__ __forceinline__ void member_gather(const Params& p) {
 // The allgather only copies units, and its instances take T = U. The peer
 // table stays in parameter space (__grid_constant__: indexing it takes no
 // copy into local memory).
+template <typename T, typename U, int kMode, Scope S>
+__device__ __forceinline__ void ring_body(const Params& p, int r,
+                                          int before) {
+  if constexpr (kMode == kAllgather) {
+    member_gather<U, S>(p, r, before);
+  } else {
+    member_sum<T, U, kMode, S>(p, r, before);
+  }
+}
+
 template <typename T, typename U, int kMode>
 __global__ void __launch_bounds__(kThreads)
 ring_kernel(const __grid_constant__ Params p) {
-  if constexpr (kMode == kAllgather) {
-    member_gather<U>(p);
+  ring_body<T, U, kMode, Scope::kGpu>(p, blockIdx.x, 0);
+}
+
+// The cross-process instances: Params over every member's peer-mapped
+// buffers, the flat rank each block row plays, and the flags' count
+// before the call.
+struct PeerParams {
+  Params p;
+  int local[kMaxRanks];  // block x plays flat rank local[x]
+  int before;
+};
+
+template <typename T, typename U, int kMode>
+__global__ void __launch_bounds__(kThreads)
+ring_peer_kernel(const __grid_constant__ PeerParams q) {
+  ring_body<T, U, kMode, Scope::kSys>(q.p, q.local[blockIdx.x], q.before);
+}
+
+template <typename T, typename U, int kMode, bool kPeer>
+void* instance() {
+  if constexpr (kPeer) {
+    return (void*)ring_peer_kernel<T, U, kMode>;
   } else {
-    member_sum<T, U, kMode>(p);
+    return (void*)ring_kernel<T, U, kMode>;
   }
 }
 
@@ -235,18 +294,18 @@ ring_kernel(const __grid_constant__ Params p) {
 
 // The kernel of one mode: for B3 and B4a by dtype code and vec, for B4b
 // by unit width (`dtype` then holds the unit's bytes, `vec` is unused).
-template <int kMode>
+template <int kMode, bool kPeer = false>
 void* kernel_for(int dtype, int vec) {
   if constexpr (kMode == kAllgather) {
 #define GTT_COPY_CASE(BYTES, U) \
-    if (dtype == BYTES) return (void*)ring_kernel<U, U, kMode>;
+    if (dtype == BYTES) return instance<U, U, kMode, kPeer>();
     GTT_COPY_UNITS(GTT_COPY_CASE)
 #undef GTT_COPY_CASE
   } else {
 #define GTT_SUM_CASE(CODE, T, SCALAR)                                  \
     if (dtype == CODE) {                                               \
-      return vec ? (void*)ring_kernel<T, uint4, kMode>                 \
-                 : (void*)ring_kernel<T, SCALAR, kMode>;               \
+      return vec ? instance<T, uint4, kMode, kPeer>()                  \
+                 : instance<T, SCALAR, kMode, kPeer>();                \
     }
     GTT_SUM_TYPES(GTT_SUM_CASE)
 #undef GTT_SUM_CASE
@@ -277,14 +336,23 @@ bool fill(Params& p, const void* in, long long in_stride, void* out,
   return true;
 }
 
-int launch(void* fn, const Params& p, int ranks, int slices, void* stream) {
+template <typename P>
+int launch(void* fn, const P& p, int ranks, int slices, void* stream) {
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  void* args[] = {const_cast<Params*>(&p)};
+  void* args[] = {const_cast<P*>(&p)};
   cudaError_t err = cudaLaunchCooperativeKernel(
       fn, dim3(ranks, slices), dim3(kThreads), args, 0,
       static_cast<cudaStream_t>(stream));
   if (err == cudaSuccess) err = cudaGetLastError();
   return static_cast<int>(err);
+}
+
+template <bool kPeer>
+void* mode_kernel(int mode, int dtype, int vec) {
+  return mode == kAllreduce ? kernel_for<kAllreduce, kPeer>(dtype, vec)
+         : mode == kReduceScatter
+             ? kernel_for<kReduceScatter, kPeer>(dtype, vec)
+             : kernel_for<kAllgather, kPeer>(dtype, vec);
 }
 
 // members is ranks x n flat ranks, row r the ring of rank r in ring order;
@@ -307,10 +375,55 @@ int run(int mode, const void* in, long long in_stride, void* out,
       p.members[r][k] = static_cast<unsigned char>(m);
     }
   }
-  void* fn = mode == kAllreduce       ? kernel_for<kAllreduce>(dtype, vec)
-             : mode == kReduceScatter ? kernel_for<kReduceScatter>(dtype, vec)
-                                      : kernel_for<kAllgather>(dtype, vec);
-  return launch(fn, p, ranks, slices, stream);
+  return launch(mode_kernel<false>(mode, dtype, vec), p, ranks, slices,
+                stream);
+}
+
+// The cross-process launch: in, out and flags hold every flat rank's
+// buffers (peer-mapped, or this process's own for its local ranks; flags
+// slices x kPeerFlags ints each), local the flat ranks this process
+// plays. Rows of members are read for the local ranks only.
+int run_peer(int mode, const void* const* in, void* const* out,
+             int* const* flags, const int* local, int local_ranks,
+             const int* my, const int* members, int ranks, int n,
+             int slices, long long chunk, int dtype, int vec, int before,
+             void* stream) {
+  if (ranks < 2 || ranks > kMaxRanks || n < 2 || n > ranks ||
+      local_ranks < 1 || local_ranks > ranks || slices < 1 ||
+      slices > 65535 || chunk < 1 || before < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  PeerParams q;
+  memset(&q, 0, sizeof(q));
+  Params& p = q.p;
+  for (int r = 0; r < ranks; ++r) {
+    if (my[r] < 0 || my[r] >= n || in[r] == nullptr || out[r] == nullptr ||
+        flags[r] == nullptr) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    p.in[r] = in[r];
+    p.out[r] = out[r];
+    p.flags[r] = flags[r];
+    p.my[r] = my[r];
+  }
+  for (int x = 0; x < local_ranks; ++x) {
+    const int r = local[x];
+    if (r < 0 || r >= ranks) return static_cast<int>(cudaErrorInvalidValue);
+    for (int k = 0; k < n; ++k) {
+      const int m = members[r * n + k];
+      if (m < 0 || m >= ranks || (k == my[r]) != (m == r)) {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
+      p.members[r][k] = static_cast<unsigned char>(m);
+    }
+    q.local[x] = r;
+  }
+  p.n = n;
+  p.flag_stride = kPeerFlags;
+  p.chunk = chunk;
+  q.before = before;
+  return launch(mode_kernel<true>(mode, dtype, vec), q, local_ranks, slices,
+                stream);
 }
 
 cudaError_t min_blocks(const void* fn, int* blocks) {
@@ -321,32 +434,24 @@ cudaError_t min_blocks(const void* fn, int* blocks) {
   return err;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Ints of flags each (rank, slice) needs for a ring of n: the members
-// barrier's one (ring_common.cuh's kBarrier), whatever n.
-int gtt_ring_flag_stride(int) { return kBarrier + 1; }
-
-// The most blocks of any ring kernel that can be resident at once on the
-// current device (the cooperative launch's limit), in *blocks.
-int gtt_ring_max_blocks(int* blocks) {
+template <bool kPeer>
+int max_blocks(int* blocks) {
   int per_sm = 1 << 30;
   cudaError_t err = cudaSuccess;
   for (int code = 0; code < kSumTypes; ++code) {
     for (int vec = 0; vec < 2; ++vec) {
       if (err == cudaSuccess) {
-        err = min_blocks(kernel_for<kAllreduce>(code, vec), &per_sm);
+        err = min_blocks(kernel_for<kAllreduce, kPeer>(code, vec), &per_sm);
       }
       if (err == cudaSuccess) {
-        err = min_blocks(kernel_for<kReduceScatter>(code, vec), &per_sm);
+        err = min_blocks(kernel_for<kReduceScatter, kPeer>(code, vec),
+                         &per_sm);
       }
     }
   }
   for (int bytes = 1; bytes <= 16; bytes *= 2) {
     if (err == cudaSuccess) {
-      err = min_blocks(kernel_for<kAllgather>(bytes, 0), &per_sm);
+      err = min_blocks(kernel_for<kAllgather, kPeer>(bytes, 0), &per_sm);
     }
   }
   int device = 0, sms = 0, coop = 0;
@@ -361,6 +466,25 @@ int gtt_ring_max_blocks(int* blocks) {
   *blocks = err == cudaSuccess ? per_sm * sms : 0;
   return static_cast<int>(err);
 }
+
+}  // namespace
+
+extern "C" {
+
+// Ints of flags each (rank, slice) needs for a ring of n: the members
+// barrier's one (ring_common.cuh's kBarrier), whatever n.
+int gtt_ring_flag_stride(int) { return kBarrier + 1; }
+
+// Ints of flags each (rank, slice) of the cross-process instances needs:
+// the members barrier's and the exit barrier's.
+int gtt_ring_peer_flag_stride() { return kPeerFlags; }
+
+// The most blocks of any one-card ring kernel that can be resident at once
+// on the current device (the cooperative launch's limit), in *blocks.
+int gtt_ring_max_blocks(int* blocks) { return max_blocks<false>(blocks); }
+
+// The same for the cross-process instances.
+int gtt_ring_peer_max_blocks(int* blocks) { return max_blocks<true>(blocks); }
 
 // Each returns a cudaError_t; 0 is success. dtype (B3, B4a): 0 = bf16,
 // 1 = f32, 2 = f16, 3 = f64, 4 = int32, 5 = int64, 6 = int8, 7 = uint8,
@@ -399,6 +523,25 @@ int gtt_ring_allgather(const void* x, long long in_stride, void* out,
                        void* stream) {
   return run(kAllgather, x, in_stride, out, out_stride, flags, flag_stride,
              my, members, ranks, n, slices, chunk, unit_bytes, 0, stream);
+}
+
+// The cross-process instances of B3 (mode 0), B4a (1) and B4b (2), one
+// cooperative launch of grid (local_ranks, slices) per process. in, out
+// and flags: `ranks` host arrays of device pointers by flat rank (each
+// member's input, output and slices x gtt_ring_peer_flag_stride() flag
+// ints, peer-mapped or this process's own); local: the flat ranks this
+// process plays; my and members as above (members' rows read for the
+// local ranks). dtype and vec as B3's and B4a's, or B4b's unit_bytes in
+// dtype. before: every flag's count before this call (each call adds
+// n - 1 to each); every process of the ring makes the same calls in the
+// same order with the same slices.
+int gtt_ring_peer(int mode, const void* const* in, void* const* out,
+                  int* const* flags, const int* local, int local_ranks,
+                  const int* my, const int* members, int ranks, int n,
+                  int slices, long long chunk, int dtype, int vec,
+                  int before, void* stream) {
+  return run_peer(mode, in, out, flags, local, local_ranks, my, members,
+                  ranks, n, slices, chunk, dtype, vec, before, stream);
 }
 
 const char* gtt_error_string(int err) {

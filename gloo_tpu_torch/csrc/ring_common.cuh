@@ -10,6 +10,14 @@
 // receiver's thread 0 spins on an acquire load, then __syncthreads().
 // Every spin is bounded: after ~2 s of clock64() the block traps, so a
 // protocol fault surfaces as a CUDA error, not a hung card.
+//
+// The scope is a template parameter of the flag helpers: Scope::kGpu (the
+// default, .gpu) for the ranks of a world on one card, Scope::kSys (.sys)
+// for flags that other processes read and write through peer-mapped
+// memory (ring.cu's cross-process instances, peer.cu's probe). Those
+// flags are not zeroed per call: each call adds n - 1 to every flag of a
+// member, and the caller passes the count before the call (`base`), so a
+// peer's add can never land before the owner resets it.
 
 #pragma once
 
@@ -33,29 +41,56 @@ constexpr int kBarrier = 0;  // + 1 from each other member
 constexpr int kFull = 1;     // [2]: + 1 each time the left fills slot k
 constexpr int kAck = 3;      // [2]: + 1 each time the right empties slot k
 constexpr int kGather = 5;   // [n - 1]: 1 when allgather step s landed
+// The cross-process instances of ring.cu: per (rank, slice) the members
+// barrier's flag (kBarrier), then the exit barrier's.
+constexpr int kPeerExit = 1;
+constexpr int kPeerFlags = 2;
 
+// The memory scope of a flag: the card (.gpu), or the system (.sys) for
+// flags in peer-mapped memory that other processes use.
+enum class Scope { kGpu, kSys };
+
+template <Scope S = Scope::kGpu>
 __device__ __forceinline__ int ld_acquire(const int* p) {
   int v;
-  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];"
-               : "=r"(v) : "l"(p) : "memory");
+  if constexpr (S == Scope::kGpu) {
+    asm volatile("ld.acquire.gpu.global.b32 %0, [%1];"
+                 : "=r"(v) : "l"(p) : "memory");
+  } else {
+    asm volatile("ld.acquire.sys.global.b32 %0, [%1];"
+                 : "=r"(v) : "l"(p) : "memory");
+  }
   return v;
 }
 
+template <Scope S = Scope::kGpu>
 __device__ __forceinline__ void add_release(int* p, int v) {
-  asm volatile("red.release.gpu.global.add.s32 [%0], %1;"
-               :: "l"(p), "r"(v) : "memory");
+  if constexpr (S == Scope::kGpu) {
+    asm volatile("red.release.gpu.global.add.s32 [%0], %1;"
+                 :: "l"(p), "r"(v) : "memory");
+  } else {
+    asm volatile("red.release.sys.global.add.s32 [%0], %1;"
+                 :: "l"(p), "r"(v) : "memory");
+  }
 }
 
+template <Scope S = Scope::kGpu>
 __device__ __forceinline__ void store_release(int* p, int v) {
-  asm volatile("st.release.gpu.global.b32 [%0], %1;"
-               :: "l"(p), "r"(v) : "memory");
+  if constexpr (S == Scope::kGpu) {
+    asm volatile("st.release.gpu.global.b32 [%0], %1;"
+                 :: "l"(p), "r"(v) : "memory");
+  } else {
+    asm volatile("st.release.sys.global.b32 [%0], %1;"
+                 :: "l"(p), "r"(v) : "memory");
+  }
 }
 
 // Thread 0 waits until *flag >= target, then the block goes on together.
+template <Scope S = Scope::kGpu>
 __device__ inline void wait_flag(const int* flag, int target) {
   if (threadIdx.x == 0) {
     const long long start = clock64();
-    while (ld_acquire(flag) < target) {
+    while (ld_acquire<S>(flag) < target) {
       if (clock64() - start > kSpinCycles) __trap();
     }
   }
@@ -66,14 +101,39 @@ __device__ inline void wait_flag(const int* flag, int target) {
 // B4b, ring_variants.cu's B9, B10 and B11, alltoall.cu's B8),
 // one flag per (rank, slice): thread 0 adds one to the flag `peer(k)` of
 // each other member, k = 1 .. n - 1, and the block waits until its own
-// reaches n - 1. The block has stored nothing before it, so nothing needs
-// to be published with the adds.
-template <typename Peer>
-__device__ inline void members_barrier(int* fl_me, int n, Peer peer) {
+// reaches base + n - 1 (base: its count before this call; 0 where the
+// flags are zeroed per call). The block has stored nothing before it; at
+// system scope a fence first orders the earlier kernels' writes of this
+// process (its input) before the adds, for peers that read it.
+template <Scope S = Scope::kGpu, typename Peer>
+__device__ inline void members_barrier(int* fl_me, int n, Peer peer,
+                                       int base = 0) {
   if (threadIdx.x == 0) {
-    for (int k = 1; k < n; ++k) add_release(peer(k), 1);
+    if constexpr (S == Scope::kSys) __threadfence_system();
+    for (int k = 1; k < n; ++k) add_release<S>(peer(k), 1);
   }
-  wait_flag(fl_me, n - 1);
+  wait_flag<S>(fl_me, base + n - 1);
+}
+
+// The exit barrier among the n members of a ring, for ranks in other
+// processes: once every thread of the block has made its last load of a
+// member's input and its last store into a member's output, thread 0
+// fences, adds one to the exit flag `peer(k)` of each other member, and
+// the block waits until its own reaches base + n - 1. A block that
+// returns then leaves no peer reading its rank's input or writing its
+// rank's output for this slice.
+template <Scope S, typename Peer>
+__device__ inline void exit_barrier(int* fl_me, int n, Peer peer, int base) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    if constexpr (S == Scope::kSys) {
+      __threadfence_system();
+    } else {
+      __threadfence();
+    }
+    for (int k = 1; k < n; ++k) add_release<S>(peer(k), 1);
+  }
+  wait_flag<S>(fl_me, base + n - 1);
 }
 
 // One add per element in the element type, as PyTorch adds on the CPU:

@@ -47,6 +47,9 @@ init_from_env, trains hier_ddp_entry()'s two-level step on batches drawn
 per process and step, checkpoints, and rebuilds and resumes after a peer
 dies. ``elastic_step_fn()`` is one flagship replica's step for
 elastic.run_elastic, its gradients averaged with the epoch's bucketer.
+``multihost_ddp_entry()`` is ddp_train_entry() at one process per rank:
+init_multihost's process mesh, one replica in each process, and the
+gradient mean on the cross-process ring allreduce over peer-mapped memory.
 """
 
 from __future__ import annotations
@@ -84,6 +87,7 @@ from gloo_tpu_torch.parallel.sp import (ring_attention, ring_flash_attention,
 from gloo_tpu_torch.tpu.hierarchical import (HierarchicalGroup,
                                              make_hierarchical_ddp)
 from gloo_tpu_torch.tpu.mesh import make_mesh
+from gloo_tpu_torch.tpu.multihost import init_multihost
 from gloo_tpu_torch.weights import (pipeline_stages_from_numpy,
                                     transformer_params_to_numpy)
 
@@ -252,6 +256,42 @@ def ddp_train_entry(device="cuda"):
     optimizers = _adam(replicas)
     step = make_ddp_train_step(_lm_loss, mesh, "data")
     return step, (replicas, optimizers, (tokens, _entry_targets(tokens)))
+
+
+def multihost_ddp_entry(rank: int, size: int, store_address: str,
+                        device="cuda", device_hostname: Optional[str] = None):
+    """ddp_train_entry() at one process per rank: process `rank` of `size`
+    returns (step, (replicas, optimizers, (tokens, targets))) on `device`.
+
+    init_multihost(rank, size, store_address) wires the host plane (rank
+    0 serves the TcpStore at store_address) and a process mesh {"data":
+    size}, one rank per process: on cuda:(rank % device_count) for
+    device="cuda", else on `device`. The process holds one replica of
+    train_entry()'s model with an Adam at ADAM_SETTINGS, and takes
+    sequences [ENTRY_BATCH / size rank, ENTRY_BATCH / size (rank + 1)) of
+    the entry batch. step is make_ddp_train_step's over the process mesh:
+    one cross-process B3 per step averages the gradients and the loss, and
+    it returns the loss mean (its context to close: step.context). At
+    size DDP_WORLD each step is ddp_train_entry()'s, split over
+    processes."""
+    dev = resolve_device(device)
+    if size < 1 or ENTRY_BATCH % size or not 0 <= rank < size:
+        raise ValueError(f"rank {rank} of {size}: the entry batch of "
+                         f"{ENTRY_BATCH} sequences splits evenly over 1, "
+                         f"2, 4 or 8 processes")
+    devices = None if dev == torch.device("cuda") else [dev]
+    ctx, mesh = init_multihost(rank, size, store_address, {"data": size},
+                               timeout=HOST_TIMEOUT,
+                               device_hostname=device_hostname,
+                               devices=devices)
+    _, (model, tokens) = entry(mesh.device)
+    per = ENTRY_BATCH // size
+    batch = (tokens[rank * per:(rank + 1) * per],
+             _entry_targets(tokens)[rank * per:(rank + 1) * per])
+    replicas = _replicas(model, len(mesh.local_ranks))
+    step = make_ddp_train_step(_lm_loss, mesh, "data")
+    step.context, step.mesh = ctx, mesh
+    return step, (replicas, _adam(replicas), batch)
 
 
 def dp_tp_train_entry(device="cuda"):

@@ -20,7 +20,9 @@ FSDP step (parallel/fsdp.py) launches B4b and B4a once per leaf (the
 allgather and its VJP), B3 once (the loss mean) and B1 and B2 once per
 rank and layer; a 1F1B step (parallel/pp.py) B1 twice per tick (the
 forward and the recompute) and B2 once; a GPipe forward B1 once per
-tick.
+tick. PR 21 added the cross-process instances of B3, B4a and B4b (one
+cooperative launch per process over CUDA IPC peer-mapped memory, for a
+process mesh of tpu/multihost.py); their statuses say so last.
 tests/test_torch_isolation.py holds this table against the JAX sources.
 """
 
@@ -69,7 +71,8 @@ KERNELS = (
            "ported: gloo_tpu_torch/csrc/overlap.cu; redesigned, PR 7; "
            "f16, PR 18"),
     Kernel("B3", _R, "_ring_allreduce_kernel", 63, 183, "ring_allreduce",
-           "ported: gloo_tpu_torch/csrc/ring.cu; redesigned, PR 8"),
+           "ported: gloo_tpu_torch/csrc/ring.cu; redesigned, PR 8; "
+           "across processes (CUDA IPC), PR 21"),
     Kernel("B9", _R, "_ring_allreduce_hbm_kernel", 246, 440,
            "ring_allreduce_hbm",
            "ported: gloo_tpu_torch/csrc/ring_variants.cu; redesigned, PR 9; "
@@ -83,9 +86,11 @@ KERNELS = (
            "every dtype of SUM_DTYPES"),
     Kernel("B4a", _R, "_ring_reduce_scatter_kernel", 876, 963,
            "ring_reduce_scatter",
-           "ported: gloo_tpu_torch/csrc/ring.cu; redesigned, PR 8"),
+           "ported: gloo_tpu_torch/csrc/ring.cu; redesigned, PR 8; "
+           "across processes (CUDA IPC), PR 21"),
     Kernel("B4b", _R, "_ring_allgather_kernel", 995, 1050, "ring_allgather",
-           "ported: gloo_tpu_torch/csrc/ring.cu; redesigned, PR 11"),
+           "ported: gloo_tpu_torch/csrc/ring.cu; redesigned, PR 11; "
+           "across processes (CUDA IPC), PR 21"),
     Kernel("B8", _R, "_alltoall_kernel", 1109, 1178, "pallas_alltoall",
            "ported: gloo_tpu_torch/csrc/alltoall.cu; redesigned, PR 10"),
 )

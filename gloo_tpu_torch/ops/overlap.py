@@ -148,6 +148,7 @@ def _overlap_lib() -> ctypes.CDLL:
 def _operands(x: torch.Tensor, w: torch.Tensor, axis_name: str,
               mesh: Mesh) -> int:
     """Checks that hold on every device; returns the ring size n."""
+    mesh.one_process("the collective matmuls (B5a, B5b)")
     n = _ring_size(x, axis_name, mesh)
     if w.dim() != 3 or w.shape[0] != x.shape[0] or w.shape[1] != x.shape[2]:
         raise ValueError(f"w must be (ranks={x.shape[0]}, k={x.shape[2]}, "

@@ -43,6 +43,17 @@ of every member of its ring; the all-to-all's twin moves the split axis
 to the front, makes the TPU kernel's block copies and concatenates, while
 its kernel pulls each rank's blocks from every member in one pass over
 strided blocks (csrc/alltoall.cu), the same bytes to the same places.
+
+On a process mesh (tpu/multihost.py's init_multihost: flat ranks spread
+over OS processes), ring_allreduce, ring_reduce_scatter and ring_allgather
+take this process's local tensor (local ranks, rows, cols), the rows of
+``mesh.local_ranks``, and return its local result. On CUDA tensors each
+launches the cross-process instance of its kernel (csrc/ring.cu's
+gtt_ring_peer, one cooperative launch per process over the peer-mapped
+workspace of tpu/peer.py) or raises; on CPU tensors it gathers the world
+through the mesh's host-plane Context, runs the twin and keeps the local
+rows, so the adds are the kernel's own. The variants and the all-to-all
+raise NotImplementedError on a process mesh (ROADMAP A.7).
 """
 
 from __future__ import annotations
@@ -90,8 +101,13 @@ KERNEL_MAX_RANKS = 32
 SUM_UNITS_PER_THREAD = 4
 
 _lib: ctypes.CDLL | None = None
-# Most co-resident ring blocks per device index (gtt_ring_max_blocks).
+# Most co-resident ring blocks per device index (gtt_ring_max_blocks), and
+# of the cross-process instances (gtt_ring_peer_max_blocks).
 _max_blocks: dict[int, int] = {}
+_peer_max_blocks: dict[int, int] = {}
+# gtt_ring_peer's modes.
+_PEER_MODES = {"ring_allreduce": 0, "ring_reduce_scatter": 1,
+               "ring_allgather": 2}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _IP = ctypes.POINTER(ctypes.c_int)
@@ -115,8 +131,12 @@ def _ring_lib() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        lib.gtt_ring_max_blocks.argtypes = [_IP]
-        lib.gtt_ring_max_blocks.restype = ctypes.c_int
+        lib.gtt_ring_peer.argtypes = [_I, _P, _P, _P, _IP, _I] + _MEMBERS \
+            + [_I, _I, _I, _P]
+        lib.gtt_ring_peer.restype = ctypes.c_int
+        for name in ("gtt_ring_max_blocks", "gtt_ring_peer_max_blocks"):
+            getattr(lib, name).argtypes = [_IP]
+            getattr(lib, name).restype = ctypes.c_int
         lib.gtt_ring_flag_stride.argtypes = [_I]
         lib.gtt_ring_flag_stride.restype = ctypes.c_int
         lib.gtt_error_string.argtypes = [_I]
@@ -133,16 +153,21 @@ def _raise_on(err: int, name: str, lib: ctypes.CDLL) -> None:
 
 
 def _ring_size(x: torch.Tensor, axis_name: Axis, mesh: Mesh,
-               local_dims: int | None = 2) -> int:
+               local_dims: int | None = 2,
+               local_rows: int | None = None) -> int:
     """Checks that hold on every device; returns the ring size n. x is a
     world tensor (P, *local) with `local_dims` local axes (None: any
-    number, at least one)."""
+    number, at least one), or on a process mesh this process's
+    (local_rows, *local)."""
     n = mesh.axis_size(axis_name)
     dims_ok = x.dim() >= 2 if local_dims is None \
         else x.dim() == 1 + local_dims
-    if not dims_ok or x.shape[0] != mesh.size:
+    ranks = mesh.size if local_rows is None else local_rows
+    if not dims_ok or x.shape[0] != ranks:
         want = "..." if local_dims is None else "rows, cols"
-        raise ValueError(f"x must be a world tensor (ranks={mesh.size}, "
+        what = "a world tensor" if local_rows is None else \
+            "this process's local tensor"
+        raise ValueError(f"x must be {what} (ranks={ranks}, "
                          f"{want}); got {tuple(x.shape)}")
     dev = mesh.device
     if x.device.type != dev.type or (
@@ -226,17 +251,17 @@ def cooperative_grid(x: torch.Tensor, mesh: Mesh, axis_name: Axis,
     return slices, flags, _ctypes_tables(mesh, _axis_key(axis_name))[:3]
 
 
-def _check_ranks(x: torch.Tensor, what: str) -> None:
-    if x.shape[0] > KERNEL_MAX_RANKS:
+def _check_ranks(ranks: int, what: str) -> None:
+    if ranks > KERNEL_MAX_RANKS:
         raise ValueError(f"{what} takes at most {KERNEL_MAX_RANKS} ranks, "
-                         f"got {x.shape[0]}")
+                         f"got {ranks}")
 
 
 def _launch_setup(x: torch.Tensor, mesh: Mesh, axis_name: Axis,
                   units: int, per_thread: int = 1):
     """(lib, slices, zeroed flags, flag stride, ctypes ring tables) for
     `units` per chunk, `per_thread` of them to each thread."""
-    _check_ranks(x, "the ring kernels")
+    _check_ranks(x.shape[0], "the ring kernels")
     lib = _ring_lib()
     stride = lib.gtt_ring_flag_stride(mesh.axis_size(axis_name))
     slices, flags, tables = cooperative_grid(
@@ -298,9 +323,128 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+# ---- B3, B4a and B4b across processes ----
+
+def _out_shape(name: str, rows: int, cols: int, n: int) -> tuple[int, int]:
+    return {"ring_allreduce": (rows, cols),
+            "ring_reduce_scatter": (rows // n, cols),
+            "ring_allgather": (n * rows, cols)}[name]
+
+
+def _local_table(mesh: Mesh):
+    return (ctypes.c_int * len(mesh.local_ranks))(*mesh.local_ranks)
+
+
+def _gather_world(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The world tensor (P, *local) of a process mesh on the CPU: every
+    process's local rows gathered as bytes through the mesh's host-plane
+    Context (padded to the most local ranks of any process), in flat-rank
+    order."""
+    counts = [mesh.process_of.count(q) for q in range(mesh.processes)]
+    rows = x.reshape(x.shape[0], -1).contiguous().view(torch.uint8)
+    padded = rows.new_zeros((max(counts), rows.shape[1]))
+    padded[:rows.shape[0]] = rows
+    gathered = mesh.context.allgather(padded)
+    world = torch.cat([gathered[q, :c] for q, c in enumerate(counts)])
+    return world.view(x.dtype).view(mesh.size, *x.shape[1:])
+
+
+def _peer_reserve(name: str, mesh: Mesh, axis_name: Axis,
+                  dtype: torch.dtype, rows: int, cols: int):
+    """(library, workspace) with room for a call of `name` on (rows, cols)
+    of dtype per local rank of a process mesh on the card (collective)."""
+    _check_ranks(mesh.size, name)
+    lib = _ring_lib()
+    local = len(mesh.local_ranks)
+    resident = resident_blocks(torch.empty(0, device=mesh.device), lib,
+                               lib.gtt_ring_peer_max_blocks,
+                               _peer_max_blocks)
+    if resident < local:
+        raise RuntimeError(f"{local} local ranks need {local} co-resident "
+                           f"blocks; the card holds {resident}")
+    out_rows, out_cols = _out_shape(name, rows, cols,
+                                    mesh.axis_size(axis_name))
+    elt = torch.tensor([], dtype=dtype).element_size()
+    ws = mesh.workspace
+    with torch.cuda.device(mesh.device):
+        ws.reserve(rows * cols * elt, out_rows * out_cols * elt,
+                   min(resident // local, 65535))
+    return lib, ws
+
+
+def peer_input(name: str, mesh: Mesh, axis_name: Axis, dtype: torch.dtype,
+               rows: int, cols: int) -> torch.Tensor:
+    """The input rows (local ranks, rows, cols) of the peer workspace of a
+    process mesh on the card, reserved for a call of `name`
+    ("ring_allreduce", "ring_reduce_scatter" or "ring_allgather") on that
+    shape: a call on this very tensor copies nothing in. Valid until the
+    workspace grows or closes."""
+    _, ws = _peer_reserve(name, mesh, axis_name, dtype, rows, cols)
+    return ws.inputs(dtype, (rows, cols))
+
+
+def _peer_launch(name: str, x: torch.Tensor, axis_name: Axis,
+                 mesh: Mesh) -> torch.Tensor:
+    """One cross-process launch of B3, B4a or B4b (`name`) on this
+    process's local tensor x (local ranks, rows, cols): x goes into the
+    workspace's input rows (unless it is them), every process of the mesh
+    launches gtt_ring_peer over the same tables, and a copy of the output
+    rows comes back. The flags' count before the call comes from the
+    workspace, which adds n - 1 for the call."""
+    n = mesh.axis_size(axis_name)
+    local, rows, cols = x.shape
+    lib, ws = _peer_reserve(name, mesh, axis_name, x.dtype, rows, cols)
+    out_shape = _out_shape(name, rows, cols, n)
+    elt = x.element_size()
+    in_bytes = rows * cols * elt
+    with torch.cuda.device(x.device):
+        if not ws.holds_input(x):
+            ws.inputs(x.dtype, (rows, cols)).copy_(x)
+        if name == "ring_allgather":
+            # The workspace's rows are ALIGN-aligned: the unit divides the
+            # chunk alone.
+            unit = _unit_bytes(in_bytes)
+            dtype, vec, units = unit, 0, in_bytes // unit
+        else:
+            per_vec = 16 // elt
+            chunk_elems = rows // n * cols
+            dtype, vec = SUM_DTYPES[x.dtype], int(chunk_elems % per_vec == 0)
+            units = chunk_elems // per_vec if vec else chunk_elems
+        my, _, _, members = _ctypes_tables(mesh, _axis_key(axis_name))
+        ws.start_together(torch.cuda.current_stream(x.device))
+        err = lib.gtt_ring_peer(
+            _PEER_MODES[name], *ws.tables, _local_table(mesh), local, my,
+            members, mesh.size, n, ws.slices, units, dtype, vec,
+            ws.advance(n), _stream(x))
+        _raise_on(err, name, lib)
+        return ws.outputs(x.dtype, out_shape).clone()
+
+
+def _across(wrapper, plain, x: torch.Tensor, axis_name: Axis,
+            mesh: Mesh) -> torch.Tensor:
+    """B3, B4a or B4b (`wrapper`, twin `plain`) on a process mesh: x is
+    this process's local tensor (local ranks, rows, cols)."""
+    name = wrapper.__name__
+    n = _ring_size(x, axis_name, mesh, local_rows=len(mesh.local_ranks))
+    if name != "ring_allgather":
+        _check_dtype(x, SUM_DTYPES, name)
+        _check_rows(x.shape[1], n)
+    if n == 1:
+        return x
+    if x.device.type == "cpu":
+        ranks = torch.tensor(mesh.local_ranks)
+        return plain(_gather_world(x, mesh), axis_name, mesh)[ranks]
+    out = _peer_launch(name, x, axis_name, mesh)
+    wrapper.launches += 1
+    return out
+
+
 # ---- B3: ring allreduce ----
 
 def _allreduce(x: torch.Tensor, axis_name: Axis, mesh: Mesh) -> torch.Tensor:
+    if mesh.processes > 1:
+        return _across(ring_allreduce, ring_allreduce_plain, x, axis_name,
+                       mesh)
     n = _ring_size(x, axis_name, mesh)
     _check_rows(x.shape[1], n)
     _check_dtype(x, SUM_DTYPES, "ring_allreduce")
@@ -334,7 +478,7 @@ class _SumAllreduce(torch.autograd.Function):
 def _differentiable(impl, x: torch.Tensor, axis_name: Axis,
                     mesh: Mesh) -> torch.Tensor:
     if torch.is_grad_enabled() and x.requires_grad \
-            and _ring_size(x, axis_name, mesh) > 1:
+            and mesh.axis_size(axis_name) > 1:
         return _SumAllreduce.apply(x, impl, axis_name, mesh)
     return impl(x, axis_name, mesh)
 
@@ -395,6 +539,9 @@ def ring_allreduce_plain(x: torch.Tensor, axis_name: Axis,
 
 def _reduce_scatter(x: torch.Tensor, axis_name: Axis,
                     mesh: Mesh) -> torch.Tensor:
+    if mesh.processes > 1:
+        return _across(ring_reduce_scatter, ring_reduce_scatter_plain, x,
+                       axis_name, mesh)
     n = _ring_size(x, axis_name, mesh)
     ranks, rows, cols = x.shape
     _check_dtype(x, SUM_DTYPES, "ring_reduce_scatter")
@@ -430,7 +577,7 @@ def ring_reduce_scatter(x: torch.Tensor, axis_name: Axis,
     `axis_name`: (P, rows / n, cols), rank r holding chunk (ring index of
     r) of its ring's sum. Differentiable (the VJP is B4b)."""
     if torch.is_grad_enabled() and x.requires_grad \
-            and _ring_size(x, axis_name, mesh) > 1:
+            and mesh.axis_size(axis_name) > 1:
         return _RingReduceScatter.apply(x, axis_name, mesh)
     return _reduce_scatter(x, axis_name, mesh)
 
@@ -459,6 +606,9 @@ def ring_reduce_scatter_plain(x: torch.Tensor, axis_name: Axis,
 # ---- B4b: ring allgather ----
 
 def _allgather(x: torch.Tensor, axis_name: Axis, mesh: Mesh) -> torch.Tensor:
+    if mesh.processes > 1:
+        return _across(ring_allgather, ring_allgather_plain, x, axis_name,
+                       mesh)
     n = _ring_size(x, axis_name, mesh)
     ranks, rows, cols = x.shape
     if n == 1:
@@ -503,7 +653,7 @@ def ring_allgather(x: torch.Tensor, axis_name: Axis,
     `axis_name`: (P, n rows, cols), every rank of a ring holding the ring's
     x rows stacked in ring order. Differentiable (the VJP is B4a)."""
     if torch.is_grad_enabled() and x.requires_grad \
-            and _ring_size(x, axis_name, mesh) > 1:
+            and mesh.axis_size(axis_name) > 1:
         return _RingAllgather.apply(x, axis_name, mesh)
     return _allgather(x, axis_name, mesh)
 
@@ -625,7 +775,7 @@ def _variant_setup(x: torch.Tensor, mesh: Mesh, axis_name: Axis,
     """(lib, slices, zeroed flags, flag stride, ctypes ring tables) for a
     launch of `variant`, its slices bounded by that kernel's own
     occupancy."""
-    _check_ranks(x, "the ring variant kernels")
+    _check_ranks(x.shape[0], "the ring variant kernels")
     lib = _variants_lib()
     stride = lib.gtt_ring_variants_flag_stride(mesh.axis_size(axis_name))
     slices, flags, tables = cooperative_grid(
@@ -636,6 +786,7 @@ def _variant_setup(x: torch.Tensor, mesh: Mesh, axis_name: Axis,
 
 def _allreduce_hbm(x: torch.Tensor, axis_name: Axis,
                    mesh: Mesh) -> torch.Tensor:
+    mesh.one_process("ring_allreduce_hbm")
     n = _ring_size(x, axis_name, mesh)
     ranks, rows, cols = x.shape
     _check_rows(rows, n)
@@ -683,6 +834,7 @@ def ring_allreduce_hbm_plain(x: torch.Tensor, axis_name: Axis,
 
 def _allreduce_q8(x: torch.Tensor, axis_name: Axis,
                   mesh: Mesh) -> torch.Tensor:
+    mesh.one_process("ring_allreduce_q8")
     n = _ring_size(x, axis_name, mesh)
     ranks, rows, cols = x.shape
     if x.dtype != torch.float32:
@@ -785,6 +937,7 @@ def ring_allreduce_q8_plain(x: torch.Tensor, axis_name: Axis,
 
 def _allreduce_bidir(x: torch.Tensor, axis_name: Axis,
                      mesh: Mesh) -> torch.Tensor:
+    mesh.one_process("ring_allreduce_bidir")
     n = _ring_size(x, axis_name, mesh)
     ranks, rows, cols = x.shape
     if n == 1:
@@ -932,13 +1085,14 @@ def alltoall_plan(local, elt: int, n: int, split: int, concat: int,
 
 def _alltoall(x: torch.Tensor, axis_name: Axis, mesh: Mesh, split: int,
               concat: int) -> torch.Tensor:
+    mesh.one_process("alltoall")
     n = _ring_size(x, axis_name, mesh, local_dims=None)
     _check_rows(x.shape[1 + split], n)
     if n == 1:
         return x
     if x.device.type == "cpu":
         return alltoall_plain(x, axis_name, mesh, split, concat)
-    _check_ranks(x, "the all-to-all kernel")
+    _check_ranks(x.shape[0], "the all-to-all kernel")
     x = x.contiguous()
     ranks = x.shape[0]
     # A new output starts on the allocator's 512-byte boundary: only x's
@@ -995,6 +1149,7 @@ def alltoall(x: torch.Tensor, axis_name: Axis, mesh: Mesh,
     One launch on the card, reading x as it lies (made contiguous first if
     it is not) into a new output. Differentiable (the VJP swaps the
     axes)."""
+    mesh.one_process("alltoall")
     n = _ring_size(x, axis_name, mesh, local_dims=None)
     split = split_axis % (x.dim() - 1)
     concat = concat_axis % (x.dim() - 1)

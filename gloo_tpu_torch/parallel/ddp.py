@@ -13,6 +13,16 @@ verbatim, so every rank's mean is bitwise the same and the replicas stay
 bitwise identical step after step. ``local_grad_mean`` is that stage
 alone, which the two-level step of gloo_tpu_torch.tpu.hierarchical shares.
 
+On a process mesh (tpu/multihost.py: one process per rank, or a few) the
+step takes the replicas and optimizers of this process's local ranks
+only, and this process's part of the batch, split among its local ranks
+in order. On the card the flat buffer is the input rows of the mesh's
+peer workspace (ops.ring.peer_input), so the gradients go straight into
+peer-visible memory, and the one B3 per step is the kernel's
+cross-process instance; on the CPU the allreduce runs the twin on the
+world gathered through the host plane. Either way the sums are the
+one-process step's, bit for bit.
+
 Host plane: ``HostGradSync`` averages gradient trees of torch tensors
 across OS processes with the C++ allreduce of gloo_tpu_torch.core, the
 role the reference plays as PyTorch's ProcessGroup backend for DDP.
@@ -24,7 +34,7 @@ from typing import Callable, Sequence
 
 import torch
 
-from gloo_tpu_torch.ops.ring import ring_allreduce
+from gloo_tpu_torch.ops.ring import peer_input, ring_allreduce
 from gloo_tpu_torch.tpu.mesh import Mesh
 from gloo_tpu_torch.utils.tracing import annotate
 
@@ -49,31 +59,45 @@ def local_grad_mean(loss_fn: Callable, mesh: Mesh, axis: str = "data"):
     and loss into row r of one flat f32 world buffer, and sums the rows of
     each ring with one ring allreduce (B3) divided by n. `mean` is that
     (ranks, buffer_width) buffer: numel gradient means, then the loss mean.
-    `params` lists each replica's parameters."""
+    `params` lists each replica's parameters.
+
+    On a process mesh, `replicas` and `optimizers` are those of
+    mesh.local_ranks, `batch` is this process's part (split along dim 0
+    among the local ranks, in order), and `mean` has the local rows."""
     n = mesh.shape[axis]
-    my = mesh.ring_index(axis)
+    across = mesh.processes > 1
+    # Each local rank's part of the batch: its ring index along `axis` of
+    # n parts, or on a process mesh its place among the local ranks.
+    part = list(range(len(mesh.local_ranks))) if across \
+        else mesh.ring_index(axis)
 
     def stage(replicas: Sequence[torch.nn.Module],
               optimizers: Sequence[torch.optim.Optimizer], batch):
-        ranks = mesh.size
+        ranks = len(mesh.local_ranks)
         if len(replicas) != ranks or len(optimizers) != ranks:
-            raise ValueError(f"need one replica and one optimizer per rank "
-                             f"({ranks}); got {len(replicas)} and "
-                             f"{len(optimizers)}")
+            raise ValueError(f"need one replica and one optimizer per "
+                             f"{'local ' if across else ''}rank ({ranks}); "
+                             f"got {len(replicas)} and {len(optimizers)}")
+        split = ranks if across else n
         for leaf in batch:
-            if leaf.shape[0] % n != 0:
+            if leaf.shape[0] % split != 0:
                 raise ValueError(f"batch dim {leaf.shape[0]} is not "
-                                 f"divisible by the axis size {n}")
-        parts = [leaf.chunk(n) for leaf in batch]
+                                 f"divisible by {split}, the "
+                                 f"{'local ranks' if across else 'axis size'}")
+        parts = [leaf.chunk(split) for leaf in batch]
         params = [list(m.parameters()) for m in replicas]
         numel = sum(p.numel() for p in params[0])
         width = buffer_width(numel, n)
-        buf = torch.empty((ranks, width), dtype=torch.float32,
-                          device=mesh.device)
+        if across and mesh.device.type != "cpu":
+            buf = peer_input("ring_allreduce", mesh, axis, torch.float32, n,
+                             width // n).view(ranks, width)
+        else:
+            buf = torch.empty((ranks, width), dtype=torch.float32,
+                              device=mesh.device)
         buf[:, numel + 1:] = 0
         for r, (model, opt) in enumerate(zip(replicas, optimizers)):
             opt.zero_grad(set_to_none=True)
-            loss = loss_fn(model, tuple(p[my[r]] for p in parts))
+            loss = loss_fn(model, tuple(p[part[r]] for p in parts))
             loss.backward()
             grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                      for p in params[r]]

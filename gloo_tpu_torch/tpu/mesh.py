@@ -11,6 +11,15 @@ virtual CPU devices; ``["cpu"] * 4`` is the world the CPU tests use.
 A world tensor has the flat rank as its leading axis: row r belongs to the
 device at row-major position r of the grid.
 
+A process mesh (tpu/multihost.py's init_multihost) spans OS processes:
+``process_of[r]`` is the process that owns flat rank r, flat ranks are
+process-major (each process's ranks are consecutive, processes in order,
+as ``jax.devices()`` orders hosts), and ``local_ranks`` are this
+process's. Its collectives take a local tensor, the rows of
+``local_ranks`` only, and run the ring kernels' cross-process instances
+over peer-mapped memory (tpu/peer.py); what has no such instance yet
+raises NotImplementedError naming MULTI_PROCESS_ITEM.
+
 The ring tables (``ring_members``, ``ring_index``, ``ring_neighbors``) are
 the host-side port of gloo_tpu/ops/pallas_ring.py's ``_peer_logical_id``
 and ``_ring_neighbors``: the kernels take them as tables, one entry per
@@ -30,6 +39,9 @@ import torch
 # Where a mesh over more than one card is taken up (peer-mapped memory,
 # one cooperative launch per card).
 MULTI_CARD_ITEM = "ROADMAP.md queue A, item 7 (the multi-card launch)"
+# Where the collectives still missing on a process mesh are taken up.
+MULTI_PROCESS_ITEM = ("ROADMAP.md queue A, item 7 (the rest of the device "
+                      "plane across processes)")
 
 # A mesh axis name, or a sequence of them for one ring over their product.
 Axis = Union[str, Sequence[str]]
@@ -40,10 +52,16 @@ class Mesh:
 
     ``devices`` is the flat list in row-major order, ``axis_names`` the
     names in grid order and ``shape`` maps each name to its size (in that
-    order, as ``jax.sharding.Mesh.shape``)."""
+    order, as ``jax.sharding.Mesh.shape``). ``process_of`` (default: every
+    rank in process 0) names the process of each flat rank, process-major,
+    and ``process`` is this one; ``local_ranks`` follow. init_multihost
+    also sets ``context`` (the host plane's Context), ``store`` and
+    ``workspace`` (tpu/peer.py's PeerWorkspace) on a process mesh."""
 
     def __init__(self, devices: Sequence, axis_names: Sequence[str],
-                 sizes: Sequence[int]):
+                 sizes: Sequence[int],
+                 process_of: Optional[Sequence[int]] = None,
+                 process: int = 0):
         self.devices = [torch.device(d) for d in devices]
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(self.axis_names, (int(s) for s in sizes)))
@@ -53,6 +71,20 @@ class Mesh:
             raise ValueError(f"mesh {self.shape} needs "
                              f"{math.prod(self.shape.values())} devices, "
                              f"have {len(self.devices)}")
+        owners = [0] * len(self.devices) if process_of is None \
+            else [int(q) for q in process_of]
+        if len(owners) != len(self.devices) or owners[0] != 0 or any(
+                b - a not in (0, 1) for a, b in zip(owners, owners[1:])):
+            raise ValueError(f"process_of must name a process for each of "
+                             f"the {len(self.devices)} ranks, process-major "
+                             f"from 0; got {owners}")
+        if not 0 <= process <= owners[-1]:
+            raise ValueError(f"process {process} is not one of the mesh's "
+                             f"{owners[-1] + 1}")
+        self.process_of = owners
+        self.process = int(process)
+        self.local_ranks = [r for r, q in enumerate(owners) if q == process]
+        self.context = self.store = self.workspace = None
         # Per tuple of axis names: (members, ring index, right, left).
         self._rings: dict[tuple[str, ...], tuple] = {}
 
@@ -62,17 +94,34 @@ class Mesh:
         return len(self.devices)
 
     @property
+    def processes(self) -> int:
+        """Number of OS processes the mesh spans."""
+        return self.process_of[-1] + 1
+
+    @property
     def device(self) -> torch.device:
-        """The one device every rank of the mesh lives on. A mesh over more
-        than one distinct device raises NotImplementedError: the port's
-        collectives run a world of ranks on one card so far."""
-        distinct = sorted({str(d) for d in self.devices})
+        """The one device every rank of the mesh lives on, or on a process
+        mesh the one device of this process's ranks. Ranks of one process
+        on more than one distinct device raise NotImplementedError: the
+        port's collectives run the ranks of a process on one card."""
+        mine = self.devices if self.processes == 1 else \
+            [self.devices[r] for r in self.local_ranks]
+        distinct = sorted({str(d) for d in mine})
         if len(distinct) != 1:
             raise NotImplementedError(
                 f"the mesh spans {len(distinct)} distinct devices "
-                f"({', '.join(distinct)}); collectives across cards are "
-                f"{MULTI_CARD_ITEM}")
-        return self.devices[0]
+                f"({', '.join(distinct)}) in one process; collectives "
+                f"across cards are {MULTI_CARD_ITEM}")
+        return mine[0]
+
+    def one_process(self, what: str) -> None:
+        """Raises NotImplementedError where `what` meets a process mesh:
+        it has no cross-process form yet."""
+        if self.processes > 1:
+            raise NotImplementedError(
+                f"{what} on a mesh over {self.processes} processes is "
+                f"{MULTI_PROCESS_ITEM}; the ring allreduce, reduce-scatter "
+                f"and allgather (ops.ring) and the DDP step take one")
 
     def _names(self, axis: Axis) -> tuple[str, ...]:
         names = (axis,) if isinstance(axis, str) else tuple(axis)
@@ -132,16 +181,22 @@ class Mesh:
         return list(my), list(right), list(left)
 
     def __repr__(self) -> str:
-        return f"Mesh({self.shape}, devices={[str(d) for d in self.devices]})"
+        owners = "" if self.processes == 1 else \
+            f", process {self.process} of {self.processes}"
+        return (f"Mesh({self.shape}, devices={[str(d) for d in self.devices]}"
+                f"{owners})")
 
 
 def make_mesh(axes: Optional[Mapping[str, int]] = None,
-              devices: Optional[Sequence] = None) -> Mesh:
+              devices: Optional[Sequence] = None, *,
+              process_of: Optional[Sequence[int]] = None,
+              process: int = 0) -> Mesh:
     """Build a named mesh over `devices` (default: every visible CUDA card).
 
     `axes` maps axis name -> size; one axis size may be -1 to absorb the
     remaining devices (like a reshape). Default: a single "data" axis over
-    everything. A device may repeat (a world of ranks on one card)."""
+    everything. A device may repeat (a world of ranks on one card).
+    `process_of` and `process` make a process mesh (Mesh)."""
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -164,4 +219,4 @@ def make_mesh(axes: Optional[Mapping[str, int]] = None,
             raise ValueError(
                 f"{len(devs)} devices not divisible by fixed axes {axes}")
         sizes[sizes.index(-1)] = len(devs) // known
-    return Mesh(devs, names, sizes)
+    return Mesh(devs, names, sizes, process_of, process)

@@ -1,0 +1,351 @@
+"""Peer-mapped device memory across the processes of a mesh (CUDA IPC).
+
+Counterpart of what ``jax.distributed`` gives the reference's ring
+kernels (gloo_tpu/tpu/multihost.py, gloo_tpu/ops/pallas_ring.py): chips
+that other processes own, addressable from inside a kernel. Here each
+process allocates one workspace with ``cudaMalloc`` (csrc/peer.cu),
+exports its IPC handle through the host plane's store, and opens every
+other process's handle; the ring kernels' cross-process instances
+(csrc/ring.cu, ``gtt_ring_peer``) then load and store through those
+pointers and signal through flags in them at system scope.
+
+A dedicated allocation, not PyTorch's caching allocator: its base is
+known (an IPC handle maps a whole allocation), it is not carved into
+expandable segments (``cudaIpcGetMemHandle`` refuses those), and it is
+freed only after every peer has closed its mapping. PyTorch sees it as a
+uint8 tensor through ``__cuda_array_interface__``.
+
+One process's workspace, per local rank in the order of
+``mesh.local_ranks``: the flags (slices x 2 int32: the members barrier's
+and the exit barrier's), the inputs (``in_cap`` bytes each) and the
+outputs (``out_cap`` bytes each), every piece 256-byte aligned. The flags
+are counters that only grow: a call on a ring of n adds n - 1 to each,
+and ``before`` is their count before the next call. They are never zeroed
+while mapped, since a peer's add may land at any time after it entered.
+
+Processes that share one card do not run side by side: the card
+time-slices their contexts, and a kernel that spins on a peer's flag
+holds the card for whole time slices while that peer still has work
+queued. So where two processes of the mesh map the same card
+(``shared_card``), a call first finishes this process's queued work and
+meets the others at a host-plane barrier, and the kernels start
+together; their flags still order everything, as they do across cards.
+
+``pingpong`` is the probe of the hand-off between two processes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import math
+import time
+
+import torch
+
+from gloo_tpu_torch import _build
+
+# Alignment of every piece of a workspace (bytes).
+ALIGN = 256
+# Ints of flags per (local rank, slice): ring.cu's kPeerFlags.
+FLAGS_PER_SLICE = 2
+
+_lib: ctypes.CDLL | None = None
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+def _peer_lib() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = _build.load("peer")
+        for name, argtypes in {
+                "gtt_peer_handle_bytes": [],
+                "gtt_peer_alloc": [_L, ctypes.POINTER(_P)],
+                "gtt_peer_free": [_P],
+                "gtt_peer_export": [_P, _P, _P, ctypes.POINTER(_L)],
+                "gtt_peer_open": [_P, ctypes.POINTER(_P)],
+                "gtt_peer_close": [_P],
+                "gtt_peer_pingpong": [_P, _P, _I, _I, _P]}.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.gtt_peer_error_string.argtypes = [_I]
+        lib.gtt_peer_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(
+            f"{what} failed: {_peer_lib().gtt_peer_error_string(err).decode()}"
+            f" (cudaError {err})")
+
+
+def _aligned(nbytes: int) -> int:
+    return -(-nbytes // ALIGN) * ALIGN
+
+
+def card_id(device: torch.device) -> str:
+    """The physical card behind a CUDA device: its UUID (or PCI address),
+    the same in every process whatever the device's index there."""
+    props = torch.cuda.get_device_properties(device)
+    uuid = getattr(props, "uuid", None)
+    if uuid is not None:
+        return str(uuid)
+    return f"{props.pci_domain_id}:{props.pci_bus_id}:{props.pci_device_id}"
+
+
+class _DeviceBytes:
+    """A raw device allocation as PyTorch's CUDA array interface sees it:
+    torch.as_tensor(obj, device=...) makes a uint8 tensor over it and keeps
+    obj alive."""
+
+    def __init__(self, ptr: int, nbytes: int):
+        self.ptr, self.nbytes = ptr, nbytes
+
+    @property
+    def __cuda_array_interface__(self):
+        return {"shape": (self.nbytes,), "typestr": "|u1",
+                "data": (self.ptr, False), "version": 2}
+
+
+class _Allocation:
+    """cudaMalloc'd, zeroed bytes on the current device; free() once."""
+
+    def __init__(self, nbytes: int, device: torch.device):
+        ptr = _P()
+        with torch.cuda.device(device):
+            _check(_peer_lib().gtt_peer_alloc(nbytes, ctypes.byref(ptr)),
+                   f"cudaMalloc of {nbytes} bytes")
+        self.ptr, self.nbytes, self.device = ptr.value, nbytes, device
+        self.bytes = torch.as_tensor(_DeviceBytes(self.ptr, nbytes),
+                                     device=device)
+
+    def handle(self) -> bytes:
+        lib = _peer_lib()
+        out = ctypes.create_string_buffer(lib.gtt_peer_handle_bytes())
+        offset = _L()
+        with torch.cuda.device(self.device):
+            _check(lib.gtt_peer_export(self.ptr, self.ptr, out,
+                                       ctypes.byref(offset)),
+                   "cudaIpcGetMemHandle")
+        return out.raw
+
+    def free(self) -> None:
+        if self.ptr:
+            self.bytes = None
+            with torch.cuda.device(self.device):
+                _check(_peer_lib().gtt_peer_free(self.ptr), "cudaFree")
+            self.ptr = 0
+
+
+class _Mappings:
+    """The peers' allocations this process has opened, by handle bytes: a
+    handle is opened once, never this process's own, and closed before
+    its owner frees it (close_all, then a host-plane barrier)."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.opened: dict[bytes, int] = {}
+
+    def open(self, handle: bytes) -> int:
+        if handle not in self.opened:
+            ptr = _P()
+            with torch.cuda.device(self.device):
+                _check(_peer_lib().gtt_peer_open(handle, ctypes.byref(ptr)),
+                       "cudaIpcOpenMemHandle")
+            self.opened[handle] = ptr.value
+        return self.opened[handle]
+
+    def close_all(self) -> None:
+        with torch.cuda.device(self.device):
+            while self.opened:
+                _, ptr = self.opened.popitem()
+                _check(_peer_lib().gtt_peer_close(ptr),
+                       "cudaIpcCloseMemHandle")
+
+
+def exchange(ctx, store, key: str, record) -> list:
+    """Every process's record (JSON) under `key`, by process index (the
+    host plane's rank): one set and size - 1 gets on the store. The k-th
+    exchange under a key on a context uses its own keys (every process
+    makes the same exchanges in the same order), so no process reads a
+    record of an earlier one; after a barrier each deletes its own."""
+    counts = ctx.__dict__.setdefault("_exchanges", {})
+    counts[key] = counts.get(key, 0) + 1
+    prefix = f"{key}/{counts[key]}"
+    store.set(f"{prefix}/{ctx.rank}", json.dumps(record).encode())
+    records = [record if q == ctx.rank else
+               json.loads(store.get(f"{prefix}/{q}", timeout=ctx._timeout))
+               for q in range(ctx.size)]
+    ctx.barrier()
+    store.delete(f"{prefix}/{ctx.rank}")
+    return records
+
+
+class PeerWorkspace:
+    """This process's symmetric region of a process mesh, mapped into
+    every other process of it.
+
+    Made by init_multihost (nothing is allocated until the first call
+    that needs it); ``reserve`` is collective, as the calls that use it
+    are: every process makes the same calls in the same order. ``close``
+    (also collective; the mesh's Context runs it before it closes) closes
+    the peers' mappings, meets the others at a host-plane barrier, and
+    frees this process's allocation."""
+
+    def __init__(self, mesh, ctx, store, device: torch.device):
+        self.mesh, self.ctx, self.store = mesh, ctx, store
+        self.device = torch.device(device)
+        self.local = len(mesh.local_ranks)
+        self.in_cap = self.out_cap = 0
+        self.slices = 0
+        # Whether two processes of the mesh share a card (time-sliced).
+        self.shared_card = False
+        # Every flag's count before the next call.
+        self.before = 0
+        self._alloc: _Allocation | None = None
+        self._offsets: dict[str, int] = {}
+        self._maps = _Mappings(self.device)
+        self.tables = None
+
+    def reserve(self, in_bytes: int, out_bytes: int, max_slices: int) -> None:
+        """Makes room for in_bytes of input and out_bytes of output per
+        local rank: a new allocation, exchanged and mapped anew, where the
+        present one is smaller (collective). `max_slices` is the most
+        slices of the launch this process's card holds resident beside
+        its other local ranks; the workspace takes the least over the
+        processes."""
+        if self._alloc is not None and in_bytes <= self.in_cap \
+                and out_bytes <= self.out_cap:
+            return
+        in_cap = _aligned(max(in_bytes, 2 * self.in_cap))
+        out_cap = _aligned(max(out_bytes, 2 * self.out_cap))
+        self._release()
+        flag_bytes = _aligned(self.local * max_slices * FLAGS_PER_SLICE * 4)
+        offsets = {"flags": 0, "in": flag_bytes,
+                   "out": flag_bytes + self.local * in_cap}
+        self._alloc = _Allocation(offsets["out"] + self.local * out_cap,
+                                  self.device)
+        record = dict(offsets, handle=self._alloc.handle().hex(),
+                      in_cap=in_cap, out_cap=out_cap, slices=max_slices,
+                      ranks=list(self.mesh.local_ranks),
+                      card=card_id(self.device))
+        records = exchange(self.ctx, self.store, "gloo_tpu_torch/peer",
+                           record)
+        self.in_cap, self.out_cap, self._offsets = in_cap, out_cap, offsets
+        self.slices = min(r["slices"] for r in records)
+        self.shared_card = len({r["card"] for r in records}) < len(records)
+        self.before = 0
+        size = self.mesh.size
+        ins, outs, flags = [0] * size, [0] * size, [0] * size
+        for q, rec in enumerate(records):
+            base = self._alloc.ptr if q == self.ctx.rank else \
+                self._maps.open(bytes.fromhex(rec["handle"]))
+            for i, r in enumerate(rec["ranks"]):
+                ins[r] = base + rec["in"] + i * rec["in_cap"]
+                outs[r] = base + rec["out"] + i * rec["out_cap"]
+                flags[r] = (base + rec["flags"]
+                            + i * rec["slices"] * FLAGS_PER_SLICE * 4)
+        self.tables = tuple((_P * size)(*t) for t in (ins, outs, flags))
+        # No peer may launch on this allocation before every process has
+        # mapped every other one.
+        self.ctx.barrier()
+
+    def inputs(self, dtype: torch.dtype, shape) -> torch.Tensor:
+        """The input rows as a (local ranks, *shape) tensor of dtype (each
+        rank's row contiguous, rows in_cap bytes apart): valid until the
+        next reserve that grows the workspace, or close."""
+        return self._view("in", self.in_cap, dtype, shape)
+
+    def outputs(self, dtype: torch.dtype, shape) -> torch.Tensor:
+        """The output rows, as inputs() the input rows."""
+        return self._view("out", self.out_cap, dtype, shape)
+
+    def _view(self, region: str, cap: int, dtype, shape) -> torch.Tensor:
+        nbytes = math.prod(shape) * torch.tensor([], dtype=dtype).element_size()
+        start = self._offsets[region]
+        rows = self._alloc.bytes[start:start + self.local * cap]
+        return rows.view(self.local, cap)[:, :nbytes].view(dtype).view(
+            self.local, *shape)
+
+    def holds_input(self, x: torch.Tensor) -> bool:
+        """Whether x is inputs(x.dtype, x.shape[1:]) itself: the rows of
+        the input region, so no copy into them is needed."""
+        if self._alloc is None or x.dim() < 2 or x.shape[0] != self.local:
+            return False
+        want = self.inputs(x.dtype, x.shape[1:])
+        return (x.data_ptr() == want.data_ptr()
+                and x.stride() == want.stride())
+
+    def start_together(self, stream) -> None:
+        """On a shared card: finish this process's queued work on
+        `stream`, then meet every process at a host-plane barrier, so that
+        no launch spins through time slices a peer still needs."""
+        if self.shared_card:
+            stream.synchronize()
+            self.ctx.barrier()
+
+    def advance(self, n: int) -> int:
+        """The flags' count before a call on rings of n, which then adds
+        n - 1 to each."""
+        before = self.before
+        self.before += n - 1
+        return before
+
+    def _release(self) -> None:
+        """Closes the peers' mappings, meets every process at a barrier
+        (then no peer maps this allocation), and frees it."""
+        if self._alloc is None:
+            return
+        torch.cuda.synchronize(self.device)
+        self._maps.close_all()
+        self.ctx.barrier()
+        self._alloc.free()
+        self._alloc = None
+        self.tables = None
+
+    def close(self) -> None:
+        """Collective: every process of the mesh closes its workspace."""
+        self._release()
+
+
+def pingpong(ctx, store, rounds: int, device="cuda") -> dict:
+    """The probe of the hand-off between processes: ranks 0 and 1 of the
+    host plane's Context `ctx` each map the other's flag (one int in a
+    workspace of their own) and bounce a counter through them `rounds`
+    times, one spinning thread each (csrc/peer.cu). Returns {"rounds",
+    "ms" (CUDA events around the launch), "round_trips_per_s"}; the other
+    ranks only meet the barriers."""
+    device = torch.device(device)
+    alloc = _Allocation(ALIGN, device)
+    maps = _Mappings(device)
+    records = exchange(ctx, store, "gloo_tpu_torch/pingpong",
+                       {"handle": alloc.handle().hex()})
+    out = {"rounds": rounds}
+    try:
+        if ctx.rank < 2:
+            peer = maps.open(bytes.fromhex(records[1 - ctx.rank]["handle"]))
+        ctx.barrier()
+        if ctx.rank < 2:
+            lib = _peer_lib()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            stream = torch.cuda.current_stream(device)
+            t0 = time.perf_counter()
+            start.record(stream)
+            _check(lib.gtt_peer_pingpong(alloc.ptr, peer, int(ctx.rank == 0),
+                                         rounds, stream.cuda_stream),
+                   "the ping-pong launch")
+            end.record(stream)
+            end.synchronize()
+            out["host_s"] = time.perf_counter() - t0
+            out["ms"] = start.elapsed_time(end)
+            out["round_trips_per_s"] = rounds / (out["ms"] / 1e3)
+    finally:
+        torch.cuda.synchronize(device)
+        maps.close_all()
+        ctx.barrier()
+        alloc.free()
+    return out

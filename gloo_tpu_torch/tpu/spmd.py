@@ -52,6 +52,8 @@ def _members(axis: Axis, mesh: Mesh) -> torch.Tensor:
 
 
 def _per_rank(x: torch.Tensor, mesh: Mesh) -> None:
+    # A process mesh's local tensor is not the world these functions take.
+    mesh.one_process("the spmd collectives (tpu/spmd.py)")
     if x.dim() < 1 or x.shape[0] != mesh.size:
         raise ValueError(f"x must be a world tensor with {mesh.size} rows "
                          f"(one per rank); got {tuple(x.shape)}")
