@@ -238,7 +238,22 @@ Phases, each of which raises on failure:
      multihost_ddp_entry over 4 processes ((B1, B2, B3) = (2, 2, 1) per
      step per process), losses within TRAIN_TOL of phase 10's world step,
      first-step gradients and state_digest equal across the processes, and
-     the step's event and device ms.
+     the step's event and device ms;
+ 35. tensor and expert parallelism across processes (tp_peer_phase, worker
+     "35"): 4 worker processes on the card, one rank each; B8 (the
+     cross-process instance) across 2, 3 and 4 processes bitwise against
+     its twin, leading-axis and strided (split 1, concat 2) blocks in bf16
+     and f32; B5a and B5b across 2 and 4 processes at the fused MLP's
+     shape and a ragged one in bf16 and f16, bitwise against the one-card
+     kernel on the same world and within overlap_close of the twin; each
+     case 10 calls back to back; multihost_fused_mlp_entry's forward and
+     backward (launches B5b 1, B5a 2, B4b 1 per process) and
+     multihost_ep_entry's step (B8 4) bitwise against their world runs in
+     one process; 5 multihost_dp_tp_entry steps ((B1, B2, B3) = (2, 2, 10)
+     per step per process) within TRAIN_TOL of phase 14's losses, the
+     replicated parameters bitwise across the processes and the shards
+     across data ranks; the cross-process kernels' device and event ms at
+     the paths' shapes and the dp x tp step's ms and busy share.
 The line before the last is the JSON list of kernels; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or gloo_tpu.
 """
@@ -4111,12 +4126,17 @@ PEER_TIMEOUT = 240
 PEER_NAMES = ("ring_allreduce", "ring_reduce_scatter", "ring_allgather")
 
 
+def peer_tensor(dtype, shape, k, device, seed=35):
+    """Input k of a case: the same world on every process, drawn on the
+    card from a seeded generator, plus k."""
+    gen = torch.Generator(device).manual_seed(seed)
+    return (torch.randn(shape, generator=gen, device=device) + k).to(dtype)
+
+
 def peer_world(dtype, p, rows, cols, k, device):
     """Input k of a case: the same (p, rows, cols) on every process, drawn
     on the card from a seeded generator, plus k."""
-    gen = torch.Generator(device).manual_seed(34)
-    return (torch.randn((p, rows, cols), generator=gen, device=device)
-            + k).to(dtype)
+    return peer_tensor(dtype, (p, rows, cols), k, device, seed=34)
 
 
 def same_calls(fn, rank, iters, want=()):
@@ -4402,10 +4422,484 @@ def peer_phase(card, ddp_losses):
     return rows
 
 
+# ---- phase 35: tensor and expert parallelism across processes ----
+# 4 worker processes on the card, one rank each, as phase 34. (a) B8
+# across 2, 3 and 4 processes (the first P joined by init_multihost at
+# CHIP_SMOKE_TP_PORT_<P>, the rest waiting at a barrier of the whole
+# group) against its twin, bitwise, at A2A_PEER_CASES; (b) B5a and B5b
+# across 2 and 4 processes at OV_PEER_CASES, bitwise against the one-card
+# kernel on the same world (launched in each process) and within
+# overlap_close of the twin; each case PEER_BACK_TO_BACK calls back to
+# back on inputs that differ; (c) multihost_fused_mlp_entry's forward and
+# backward, (d) DP_TP_STEPS multihost_dp_tp_entry steps, (e)
+# multihost_ep_entry's step, each over the 4 processes against its world
+# run in one process; (f) the cross-process kernels' times at the paths'
+# shapes and the dp x tp step's.
+TP_PEER_SIZES = (2, 3, 4)
+OV_PEER_SIZES = (2, 4)
+# (label, each rank's value, split, concat): the MoE exchange's leading
+# axis, and Ulysses' strided blocks (split 1, concat 2); 12 divides by 2,
+# 3 and 4.
+A2A_PEER_CASES = (("rows", (12, 64 * 64), 0, 0),
+                  ("strided", (2, 12, 64, 64), 1, 2))
+A2A_PEER_DTYPES = (torch.bfloat16, torch.float32)
+# (label, rows per chunk, k, cols): the fused MLP's shapes, and ragged
+# rows, depth and columns.
+OV_PEER_CASES = (("mlp", 256, 256, 256), ("ragged", 100, 72, 40))
+OV_PEER_DTYPES = (torch.bfloat16, torch.float16)
+TP_PEER_TIMEOUT = 300
+TP_PEER_PORTS = ("2", "3", "4", "mlp", "dp_tp", "ep")
+OV_PEER_NAMES = ("matmul_reduce_scatter", "allgather_matmul")
+
+
+def a2a_peer_cases(ring, mesh, size):
+    """B8 on the process mesh against its twin on the world:
+    {"wrong": [...], "err": max |kernel - twin|, "launches", "cases"}."""
+    mine = torch.tensor(mesh.local_ranks)
+    ring.alltoall.launches = 0
+    wrong, err, calls = [], 0.0, 0
+    for label, shape, split, concat in A2A_PEER_CASES:
+        for dtype in A2A_PEER_DTYPES:
+            worlds = [peer_tensor(dtype, (size, *shape), k, mesh.device)
+                      for k in range(PEER_BACK_TO_BACK)]
+            outs = [ring.alltoall(w[mine], "data", mesh, split, concat)
+                    for w in worlds]
+            torch.cuda.synchronize()
+            for k, (w, out) in enumerate(zip(worlds, outs)):
+                ref = ring.alltoall_plain(w, "data", mesh, split,
+                                          concat)[mine]
+                err = max(err, float((out.float() - ref.float()).abs()
+                                     .max()))
+                if not same_bits(out, ref):
+                    wrong.append(f"B8 {label} {str(dtype)[6:]} P {size} "
+                                 f"call {k}")
+            calls += len(worlds)
+    return {"wrong": wrong, "err": err, "launches": ring.alltoall.launches,
+            "cases": calls}
+
+
+def ov_peer_cases(ov, make_mesh, mesh, size):
+    """B5a and B5b on the process mesh against the one-card kernel on the
+    same world (a world of `size` ranks on this process's card, launched
+    first) and against the twin: {"wrong": [...], "far": [...], "err":
+    {name: max |kernel - twin|}, "launches", "cases"}."""
+    mine = torch.tensor(mesh.local_ranks)
+    world = make_mesh({"data": size}, devices=[mesh.device] * size)
+    wrong, far = [], []
+    err = dict.fromkeys(OV_PEER_NAMES, 0.0)
+    launches = dict.fromkeys(OV_PEER_NAMES, 0)
+    calls = 0
+    for label, rows, k, cols in OV_PEER_CASES:
+        for dtype in OV_PEER_DTYPES:
+            xs = [peer_tensor(dtype, (size, size * rows, k), j, mesh.device)
+                  for j in range(PEER_BACK_TO_BACK)]
+            w = (peer_tensor(torch.float32, (size, k, cols), 0, mesh.device,
+                             seed=36) / math.sqrt(k)).to(dtype)
+            with torch.no_grad():
+                refs = {"matmul_reduce_scatter": [
+                    ov.matmul_reduce_scatter(x, w, "data", world)
+                    for x in xs],
+                    "allgather_matmul": [
+                    ov.allgather_matmul_fwd(x[:, :rows].contiguous(), w,
+                                            "data", world) for x in xs]}
+                torch.cuda.synchronize()
+                for name in OV_PEER_NAMES:
+                    fn = getattr(ov, name)
+                    before = fn.launches
+                    if name == "matmul_reduce_scatter":
+                        outs = [ov.matmul_reduce_scatter(
+                            x[mine], w[mine], "data", mesh) for x in xs]
+                    else:
+                        outs = [ov.allgather_matmul_fwd(
+                            x[mine, :rows].contiguous(), w[mine], "data",
+                            mesh) for x in xs]
+                    torch.cuda.synchronize()
+                    launches[name] += fn.launches - before
+                    for j, (x, out, ref) in enumerate(zip(xs, outs,
+                                                          refs[name])):
+                        tag = f"{name} {label} {str(dtype)[6:]} P {size} " \
+                              f"call {j}"
+                        if name == "matmul_reduce_scatter":
+                            twin = ov.matmul_reduce_scatter_plain(
+                                x, w, "data", world)[mine]
+                            same = same_bits(out, ref[mine])
+                        else:
+                            twin = ov.allgather_matmul_plain(
+                                x[:, :rows].contiguous(), w, "data",
+                                world)[0][mine]
+                            same = same_bits(out[0], ref[0][mine]) and \
+                                same_bits(out[1], ref[1][mine])
+                            out = out[0]
+                        e, close = overlap_close(out, twin)
+                        err[name] = max(err[name], e)
+                        if not same:
+                            wrong.append(tag)
+                        if not close:
+                            far.append(tag)
+                    calls += len(xs)
+    return {"wrong": wrong, "far": far, "err": err, "launches": launches,
+            "cases": calls}
+
+
+def tp_peer_time(rank, label, fn, name, ctx):
+    """(device ms per launch of kernel `name` in rank 0's profile, event ms
+    per call on this rank) of the collective call fn."""
+    ctx.barrier()
+    _, rows = same_calls(fn, rank, PEER_TIME_ITERS, want=(name,))
+    ctx.barrier()
+    ev = event_ms(fn, iters=PEER_TIME_ITERS)
+    return {"ms": kernel_ms(rows, name) if rank == 0 else None,
+            "event_ms": ev, "label": label}
+
+
+def worker_tp_peer(rank, size, store, device="cuda"):
+    """Phase 35 on one of `size` processes (see the comment above
+    TP_PEER_SIZES): the kernels against their references at each size, the
+    three multihost entries, and the times. Returns a JSON-able dict of
+    checks, digests and times for tp_peer_phase."""
+    import sys
+
+    from gloo_tpu_torch import entry as entry_mod
+    from gloo_tpu_torch.checkpoint import state_digest
+    from gloo_tpu_torch.ops import attention as attn
+    from gloo_tpu_torch.ops import overlap as ov
+    from gloo_tpu_torch.ops import ring
+    from gloo_tpu_torch.parallel.dp_tp import SHARDED
+    from gloo_tpu_torch.tpu import init_multihost, make_mesh
+
+    _share_cores(size)
+    t0 = time.perf_counter()
+
+    def note(what):
+        print(f"[{time.perf_counter() - t0:.1f} s] {what}", file=sys.stderr,
+              flush=True)
+
+    def address(key):
+        return f"127.0.0.1:{os.environ[f'CHIP_SMOKE_TP_PORT_{key}']}"
+
+    def plane(p):
+        return init_multihost(
+            rank, p, address(str(p)), timeout=60.0,
+            device_hostname="127.0.0.1",
+            devices=None if device == "cuda" else [device])
+
+    ctx, mesh = plane(size)
+    note("init_multihost")
+    out = {"sizes": {}}
+    for p in sorted(set(TP_PEER_SIZES) | set(OV_PEER_SIZES)):
+        if p == size:
+            sub_ctx, sub_mesh = ctx, mesh
+        elif rank < p:
+            sub_ctx, sub_mesh = plane(p)
+        else:
+            ctx.barrier()
+            continue
+        part = {"process_of": sub_mesh.process_of}
+        if p in TP_PEER_SIZES:
+            part["a2a"] = a2a_peer_cases(ring, sub_mesh, p)
+            note(f"B8 across {p}")
+        if p in OV_PEER_SIZES:
+            part["ov"] = ov_peer_cases(ov, make_mesh, sub_mesh, p)
+            note(f"B5a, B5b across {p}")
+        out["sizes"][str(p)] = part
+        if p != size:
+            sub_ctx.close()
+            ctx.barrier()
+    ctx.close()
+    mine_digest = {}
+
+    # (c) The fused MLP, forward and backward.
+    counters = (ov.allgather_matmul, ov.matmul_reduce_scatter,
+                ring.ring_allgather, ring.ring_reduce_scatter,
+                ring.ring_allreduce)
+    step, args = entry_mod.multihost_fused_mlp_entry(
+        rank, size, address("mlp"), device, device_hostname="127.0.0.1")
+    for c in counters:
+        c.launches = 0
+    y, grads = step(*args)
+    torch.cuda.synchronize()
+    mlp = {"launches": [c.launches for c in counters],
+           "digests": [digest([t]) for t in (y, *grads)],
+           "finite": bool(all(torch.isfinite(t.float()).all()
+                              for t in (y, *grads)))}
+    x, w_up, w_down, dy, mlp_mesh = args
+    hidden = F.gelu(ov.allgather_matmul(x, w_up, "model", mlp_mesh),
+                    approximate="tanh")
+    times = {
+        "allgather_matmul": tp_peer_time(
+            rank, "B5b x (1, 256, 256) @ w_up shard (1, 256, 256)",
+            lambda: ov.allgather_matmul_fwd(x, w_up, "model", mlp_mesh),
+            "ag_matmul_peer_kernel", step.context),
+        "matmul_reduce_scatter": tp_peer_time(
+            rank, "B5a hidden (1, 1024, 256) @ w_down shard (1, 256, 256)",
+            lambda: ov.matmul_reduce_scatter(hidden, w_down, "model",
+                                             mlp_mesh),
+            "matmul_rs_peer_kernel", step.context)}
+    mlp["step_ms"] = event_ms(lambda: step(*args), iters=5)
+    note("fused MLP")
+    step.context.close()
+
+    # (d) The dp x tp step.
+    step, (model, opt, tokens, targets) = entry_mod.multihost_dp_tp_entry(
+        rank, size, address("dp_tp"), device, device_hostname="127.0.0.1")
+    counters = (attn.flash_attention_fwd, attn.flash_attention_bwd,
+                ring.ring_allreduce)
+    for c in counters:
+        c.launches = 0
+    losses = [float(step(model, opt, tokens, targets))
+              for _ in range(DP_TP_STEPS)]
+    torch.cuda.synchronize()
+    named = dict(model.named_parameters())
+    dp_tp = {"launches": [c.launches for c in counters], "losses": losses,
+             "model_index": step.mesh.ring_index("model")[rank],
+             "replicated": state_digest({n: p for n, p in named.items()
+                                         if n.split(".")[-1] not in SHARDED}),
+             "shards": state_digest({n: p for n, p in named.items()
+                                     if n.split(".")[-1] in SHARDED})}
+
+    def once():
+        step(model, opt, tokens, targets)
+
+    step.context.barrier()
+    dp_tp["step_ms"] = event_ms(once, iters=5)
+    step.context.barrier()
+    dp_tp["device_ms"], rows = same_calls(once, rank, 5,
+                                          want=("ring_peer_kernel",))
+    dp_tp["b3_ms"] = kernel_ms(rows, "ring_peer_kernel")
+    dp_tp["device_rows"] = rows[:8]
+    note("dp x tp")
+    step.context.close()
+
+    # (e) The MoE path.
+    step, args = entry_mod.multihost_ep_entry(
+        rank, size, address("ep"), device, device_hostname="127.0.0.1")
+    ring.alltoall.launches = 0
+    out_ep, grads = step(*args)
+    torch.cuda.synchronize()
+    ep = {"launches": ring.alltoall.launches,
+          "digests": [digest([t]) for t in (out_ep, *grads)]}
+    tokens = args[0]
+    n_exp = args[-1].shape["expert"]
+    send = tokens.new_empty((1, n_exp, entry_mod.EP_CAPACITY,
+                             tokens.shape[-1])).copy_(
+        tokens[:, :n_exp * entry_mod.EP_CAPACITY].view(
+            1, n_exp, entry_mod.EP_CAPACITY, -1))
+    times["alltoall"] = tp_peer_time(
+        rank, "B8 at the MoE dispatch (1, 4, 64, 256) bf16",
+        lambda: ring.alltoall(send, "expert", args[-1]),
+        "alltoall_peer_kernel", step.context)
+    ep["step_ms"] = event_ms(lambda: step(*args), iters=5)
+    note("MoE")
+    step.context.close()
+    out.update(mlp=mlp, dp_tp=dp_tp, ep=ep, times=times,
+               wall_s=time.perf_counter() - t0)
+    return out
+
+
+def tp_peer_reference(ov, ring, entry_mod):
+    """The world runs of phase 35's paths in this process on the card:
+    per flat rank, the digests of the fused MLP's (y, dx, dw_up, dw_down)
+    and of the MoE path's (out, d tokens, d w_up, d w_down); and the
+    twins' and yardsticks' times and the bounds of the cross-process
+    kernels at the paths' shapes (the world's work)."""
+    fn, (x, w_up, w_down, dy, mesh) = entry_mod.fused_mlp_entry()
+    y, grads = fn(x, w_up, w_down, dy, mesh)
+    mlp = [[digest([t[[r]]]) for t in (y, *grads)]
+           for r in range(mesh.size)]
+    efn, eargs = entry_mod.ep_entry()
+    out, egrads = efn(*eargs)
+    ep = [[digest([t[[r]]]) for t in (out, *egrads)]
+          for r in range(eargs[-1].size)]
+    torch.cuda.synchronize()
+    n, elt = mesh.size, x.element_size()
+    hidden = F.gelu(ov.allgather_matmul(x, w_up, "model", mesh),
+                    approximate="tanh")
+    gathered = x.reshape(1, -1, x.shape[2]).expand(n, -1, -1)
+    tokens = eargs[0]
+    cap = entry_mod.EP_CAPACITY
+    send = tokens[:, :n * cap].reshape(n, n, cap, -1).contiguous()
+    rows = {}
+    with torch.no_grad():
+        for name, plain, lib_label, lib, nbytes, flops in (
+                ("allgather_matmul",
+                 lambda: ov.allgather_matmul_plain(x, w_up, "model", mesh),
+                 "torch.matmul(expanded gathered x, w)",
+                 lambda: torch.matmul(gathered, w_up),
+                 elt * (x.numel() + w_up.numel() + n * x.numel()
+                        + n * x.shape[0] * x.shape[1] * w_up.shape[2]),
+                 2 * n * n * x.shape[1] * x.shape[2] * w_up.shape[2]),
+                ("matmul_reduce_scatter",
+                 lambda: ov.matmul_reduce_scatter_plain(hidden, w_down,
+                                                        "model", mesh),
+                 "torch.matmul(h, w).sum(0)",
+                 lambda: torch.matmul(hidden, w_down).sum(0),
+                 elt * (hidden.numel() + w_down.numel()
+                        + hidden.numel() // n * w_down.shape[2]
+                        // hidden.shape[2]),
+                 2 * hidden.numel() * w_down.shape[2]),
+                ("alltoall",
+                 lambda: ring.alltoall_plain(send, "expert", eargs[-1]),
+                 "send.view(n, n, c).transpose(0, 1).contiguous()",
+                 lambda: send.view(n, n, -1).transpose(0, 1).contiguous(),
+                 2 * send.numel() * send.element_size(), 0)):
+            plain_ms = timed(f"{name} plain on the world", plain, iters=5)
+            lib_ms = timed(f"{name} yardstick {lib_label}", lib)
+            bound, bound_by = _bound(nbytes, flops, x.dtype)
+            rows[name] = (plain_ms, lib_ms, bound, bound_by)
+    return mlp, ep, rows
+
+
+def tp_peer_phase(card, ov, ring, entry_mod, tp_losses):
+    """Phase 35: worker_tp_peer in TP_PEER_SIZES[-1] processes; the checks
+    against the world runs (this process) and phase 14's dp x tp losses;
+    the rows of the cross-process B5a, B5b and B8 for the kernels line."""
+    from gloo_tpu_torch.entry import ENTRY_CONFIG
+
+    t_phase = time.perf_counter()
+    size = TP_PEER_SIZES[-1]
+    env = {f"CHIP_SMOKE_TP_PORT_{key}": str(_free_port())
+           for key in TP_PEER_PORTS}
+    res = run_workers("35", timeout=TP_PEER_TIMEOUT, size=size, env=env)
+    t_workers = time.perf_counter() - t_phase
+    print(f"world runs of the fused MLP and the MoE path in one process, "
+          f"and the twins' and yardsticks' times [{card}]:")
+    mlp_ref, ep_ref, ref_rows = tp_peer_reference(ov, ring, entry_mod)
+    failed = []
+    a2a_err = 0.0
+    ov_err = dict.fromkeys(OV_PEER_NAMES, 0.0)
+    for p in sorted(set(TP_PEER_SIZES) | set(OV_PEER_SIZES)):
+        parts = [r["sizes"][str(p)] for r in res[:p]]
+        if p in TP_PEER_SIZES:
+            a2a = [part["a2a"] for part in parts]
+            wrong = [w for a in a2a for w in a["wrong"]]
+            a2a_err = max([a2a_err] + [a["err"] for a in a2a])
+            print(f"B8 across {p} processes (process_of "
+                  f"{parts[0]['process_of']}, {a2a[0]['cases']} calls per "
+                  f"process, {PEER_BACK_TO_BACK} back to back per case: "
+                  f"rows and strided, bf16 and f32) against its twin: "
+                  f"{'all bitwise equal' if not wrong else 'DIFFER ' + str(wrong[:6])}"
+                  f"; max |kernel - twin| {max(a['err'] for a in a2a)}; "
+                  f"launches per process {[a['launches'] for a in a2a]}")
+            if wrong or any(a["launches"] != a["cases"] for a in a2a):
+                failed.append(f"B8 across {p} processes")
+        if p in OV_PEER_SIZES:
+            ovs = [part["ov"] for part in parts]
+            wrong = [w for o in ovs for w in o["wrong"]]
+            far = [w for o in ovs for w in o["far"]]
+            for name in OV_PEER_NAMES:
+                ov_err[name] = max([ov_err[name]]
+                                   + [o["err"][name] for o in ovs])
+            print(f"B5a, B5b across {p} processes ({ovs[0]['cases']} calls "
+                  f"per process: {', '.join(c[0] for c in OV_PEER_CASES)} "
+                  f"in bf16 and f16, {PEER_BACK_TO_BACK} back to back) "
+                  f"against the one-card kernel on the same world: "
+                  f"{'all bitwise equal' if not wrong else 'DIFFER ' + str(wrong[:6])}"
+                  f"; against the twin {'all within overlap_close' if not far else 'FAR ' + str(far[:6])}"
+                  f" (max |kernel - twin| "
+                  f"{ {n: max(o['err'][n] for o in ovs) for n in OV_PEER_NAMES} }"
+                  f"); launches per process {[o['launches'] for o in ovs]}")
+            want = dict.fromkeys(OV_PEER_NAMES, ovs[0]["cases"] // 2)
+            if wrong or far or any(o["launches"] != want for o in ovs):
+                failed.append(f"B5a, B5b across {p} processes")
+
+    # (c) The fused MLP.
+    mlps = [r["mlp"] for r in res]
+    mlp_same = all(m["digests"] == mlp_ref[rank]
+                   for rank, m in enumerate(mlps))
+    print(f"fused MLP over {size} processes (1024 token rows, d_model 256, "
+          f"d_ff 1024 over 4, bf16), forward + backward: y, dx, dw_up, "
+          f"dw_down against the world run in one process "
+          f"{'bitwise equal' if mlp_same else 'DIFFER'}; launches "
+          f"(allgather_matmul, matmul_reduce_scatter, ring_allgather, "
+          f"ring_reduce_scatter, ring_allreduce) per process "
+          f"{[m['launches'] for m in mlps]}; step "
+          f"{[round(m['step_ms'], 6) for m in mlps]} ms (events) [{card}; "
+          f"one card, time-sliced]")
+    if not mlp_same or not all(m["finite"] for m in mlps) or any(
+            m["launches"] != [1, 2, 1, 0, 0] for m in mlps):
+        failed.append("the fused MLP across processes")
+
+    # (d) The dp x tp step.
+    dps = [r["dp_tp"] for r in res]
+    layers = ENTRY_CONFIG.n_layers
+    want = [DP_TP_STEPS * layers, DP_TP_STEPS * layers,
+            DP_TP_STEPS * (4 * layers + 2)]
+    diff = max(abs(a - b) for d in dps for a, b in zip(d["losses"],
+                                                        tp_losses))
+    rel = max(abs(a - b) / abs(b) for d in dps
+              for a, b in zip(d["losses"], tp_losses))
+    replicated = len({d["replicated"] for d in dps}) == 1
+    by_model = {}
+    for d in dps:
+        by_model.setdefault(d["model_index"], set()).add(d["shards"])
+    shards = all(len(v) == 1 for v in by_model.values())
+    for rank, d in enumerate(dps):
+        print(f"multihost_dp_tp_entry process {rank}: losses "
+              f"{', '.join(f'{x:.6f}' for x in d['losses'])}; launches "
+              f"(flash_fwd, flash_bwd, ring_allreduce) {d['launches']}; "
+              f"step {d['step_ms']:.6f} ms (events) [{card}]")
+    print(f"multihost dp x tp vs phase 14's world step: max |loss - "
+          f"loss_world| {diff:.3e} (rel {rel:.3e}, tol {TRAIN_TOL['loss']}; "
+          f"{'bitwise' if diff == 0 else 'not bitwise'}); after "
+          f"{DP_TP_STEPS} steps replicated parameters "
+          f"{'bitwise equal' if replicated else 'DIFFER'} across the "
+          f"{size} processes, shards {'bitwise equal' if shards else 'DIFFER'}"
+          f" across data ranks (state_digest)")
+    lead = dps[0]
+    busy = "not measured" if lead["device_ms"] is None \
+        else f"{lead['device_ms'] / lead['step_ms']:.3f}"
+    print(f"multihost dp x tp step (process 0): {lead['step_ms']:.6f} ms "
+          f"(events), device {lead['device_ms']} ms, busy share {busy}, the "
+          f"cross-process B3 {lead['b3_ms']} ms of it [{card}; one card, "
+          f"time-sliced]")
+    for dev_ms, calls, kname in lead["device_rows"]:
+        print(f"  {dev_ms:.6f} ms in {calls:g} calls: {kname[:90]}")
+    if any(d["launches"] != want for d in dps):
+        failed.append(f"dp x tp launches {[d['launches'] for d in dps]}, "
+                      f"expected {want}")
+    if rel > TRAIN_TOL["loss"] or not replicated or not shards \
+            or not all(np.isfinite(d["losses"]).all() for d in dps):
+        failed.append("the multihost dp x tp step")
+
+    # (e) The MoE path.
+    eps = [r["ep"] for r in res]
+    ep_same = all(e["digests"] == ep_ref[rank] for rank, e in enumerate(eps))
+    print(f"MoE path over {size} processes: out and the gradients (tokens, "
+          f"w_up, w_down) against the world run in one process "
+          f"{'bitwise equal' if ep_same else 'DIFFER'}; B8 launches per "
+          f"process {[e['launches'] for e in eps]}; step "
+          f"{[round(e['step_ms'], 6) for e in eps]} ms (events) [{card}; "
+          f"one card, time-sliced]")
+    if not ep_same or any(e["launches"] != 4 for e in eps):
+        failed.append("the MoE path across processes")
+
+    # (f) Times.
+    rows = {}
+    for name in ("matmul_reduce_scatter", "allgather_matmul", "alltoall"):
+        t = res[0]["times"][name]
+        plain_ms, lib_ms, bound, bound_by = ref_rows[name]
+        print(f"  {name} across {size} processes, {t['label']}: device "
+              f"{t['ms']} ms per launch (rank 0's profile), per call "
+              f"(events) {[round(r['times'][name]['event_ms'], 6) for r in res]}"
+              f" ms; the world's twin {plain_ms} ms, yardstick {lib_ms} ms, "
+              f"bound {bound:.6f} ms ({bound_by}) [{card}; one card, "
+              f"time-sliced]")
+        n = {"matmul_reduce_scatter": mlps[0]["launches"][1],
+             "allgather_matmul": mlps[0]["launches"][0],
+             "alltoall": eps[0]["launches"]}[name]
+        err = a2a_err if name == "alltoall" else ov_err[name]
+        rows[name] = (n, err, (t["ms"], plain_ms, lib_ms, bound, bound_by))
+    print(f"phase 35: {time.perf_counter() - t_phase:.1f} s (workers "
+          f"{t_workers:.1f} s, each {max(r['wall_s'] for r in res):.1f} s)")
+    if failed:
+        raise AssertionError(f"phase 35 failed: {failed}")
+    return rows
+
+
 WORKERS = {"26": worker_staging, "27": worker_host_sync, "28": worker_hier,
            "29": worker_elastic, "29b": worker_run_elastic,
            "30": worker_surface, "32": worker_traced,
-           "34": worker_peer}
+           "34": worker_peer, "35": worker_tp_peer}
 
 
 def host_phases(card):
@@ -5259,6 +5753,11 @@ def main():
     # step at one process per rank.
     peer_rows = peer_phase(card, ddp_losses)
 
+    # Phase 35: tensor and expert parallelism across processes: B8, B5a and
+    # B5b across 2-4 processes, the fused MLP, the dp x tp step and the
+    # MoE path at one process per rank.
+    tp_peer_rows = tp_peer_phase(card, ov, ring, entry_mod, tp_losses)
+
     # Launches on the main paths: B1 on the serving path, B2 on the
     # training path, B3 on the DDP path, B4a and B4b on the group path,
     # B5a and B5b on the fused MLP path, B6 and B7 on the ring-flash path
@@ -5331,6 +5830,24 @@ def main():
         kernels.append({
             "name": f"{name}_across_processes", "route": "cuda",
             "source": "gloo_tpu_torch/csrc/ring.cu",
+            "replaces": f"gloo_tpu/ops/{replaces}", "launches": n,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": lib})
+    # The cross-process instances of phase 35: B5a's and B5b's launches on
+    # the fused MLP path per process, B8's on the MoE path; times at those
+    # paths' shapes across 4 processes on one card (time-sliced).
+    for name, source, replaces in (
+            ("matmul_reduce_scatter", "overlap.cu", "overlap.py:38"),
+            ("allgather_matmul", "overlap.cu", "overlap.py:205"),
+            ("alltoall", "alltoall.cu", "pallas_ring.py:1109")):
+        n, err, (ms, plain, lib, bound, bound_by) = tp_peer_rows[name]
+        if None in (ms, plain, lib):
+            raise AssertionError(
+                f"the profiler showed no device time for the cross-process "
+                f"{name}, its plain version or its library call")
+        kernels.append({
+            "name": f"{name}_across_processes", "route": "cuda",
+            "source": f"gloo_tpu_torch/csrc/{source}",
             "replaces": f"gloo_tpu/ops/{replaces}", "launches": n,
             "max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": bound, "bound_by": bound_by, "library_ms": lib})

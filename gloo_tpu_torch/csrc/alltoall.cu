@@ -36,9 +36,19 @@
 // stores into a peer's buffer, so there are no receive flags and no
 // collisions to order; the one members barrier (ring_common.cuh) is what a
 // launch over several cards needs before it reads a peer's input (on one
-// card the launch's start already orders it). Over several cards each
-// rank's input must be peer-mapped, and a members barrier at exit must
-// come before a rank reuses its input (ROADMAP A.7).
+// card the launch's start already orders it).
+//
+// Across processes (alltoall_peer_kernel, entry gtt_alltoall_peer) each
+// rank's input lives in its process's peer workspace (peer.cu), mapped
+// into every other process by CUDA IPC; its output is its process's own
+// memory, since only the rank itself stores into it. Each process makes
+// one cooperative launch of grid (local ranks, slices). The barriers are
+// at system scope on one entry and one exit flag per rank, counters that
+// only grow: each block adds one to the flag of every other member of
+// its ring, and the wrapper passes the count before the call. The entry
+// barrier makes every member's input complete before any load; the exit
+// barrier keeps every rank from returning, and its process from writing
+// its next input, while a peer can still read it.
 //
 // What bounds it on an H100: bytes. Each rank's input is read once and its
 // output written once: 2 x the world's bytes (8 MiB at a Ulysses exchange
@@ -72,6 +82,8 @@ constexpr int kGroup = 4;
 // Flags of one (rank, slice), zeroed per call: + 1 from each member on
 // entry.
 constexpr int kFlagStride = 1;
+// Across processes, each rank's entry and exit flag (kPeerFlags ints).
+constexpr int kPeerEntry = kBarrier;
 
 struct Params {
   const void* in[kMaxRanks];
@@ -138,18 +150,25 @@ __device__ __forceinline__ void run_offsets(const Params& p, int my,
   *dst = j / p.out_runs * p.out_pitch + j % p.out_runs * p.run;
 }
 
-// U: the unit of access (16, 8, 4, 2 or 1 bytes). The peer table stays in
-// parameter space (__grid_constant__: indexing it takes no local copy).
-template <typename U>
-__global__ void __launch_bounds__(kThreads)
-alltoall_kernel(const __grid_constant__ Params p) {
-  const int r = blockIdx.x;
+// Block (x, s) plays rank r on slice s. One card (S = Scope::kGpu): r = x,
+// one zeroed flag per (rank, slice). Across processes (S = Scope::kSys):
+// r is the process's local rank x, and each rank has one entry and one
+// exit flag (kPeerEntry, kPeerExit) that every block of every other
+// member adds one to, so a call adds (n - 1) slices to each; `before` is
+// their count before the call, and each barrier waits for before +
+// (n - 1) slices.
+template <typename U, Scope S>
+__device__ __forceinline__ void alltoall_body(const Params& p, int r,
+                                              int before) {
   const int n = p.n, my = p.my[r];
   const unsigned char* const ring = p.members[r];
+  const int flag = S == Scope::kGpu ? blockIdx.y : kPeerEntry;
+  const int bar_base =
+      S == Scope::kGpu ? 0 : before + (n - 1) * (gridDim.y - 1);
 
-  members_barrier(p.flags[r] + blockIdx.y, n, [&](int k) {
-    return p.flags[ring[wrap(my + k, n)]] + blockIdx.y;
-  });
+  members_barrier<S>(p.flags[r] + flag, n, [&](int k) {
+    return p.flags[ring[wrap(my + k, n)]] + flag;
+  }, bar_base);
 
   long long src, dst;
   if (p.group == kThreads) {
@@ -174,34 +193,61 @@ alltoall_kernel(const __grid_constant__ Params p) {
       copy_run<U>(p, r, src, dst, threadIdx.x % p.group, p.run, p.group);
     }
   }
+  if constexpr (S == Scope::kSys) {
+    // No member may return, and reuse its input, while a peer can still
+    // read it.
+    exit_barrier<S>(p.flags[r] + kPeerExit, n, [&](int k) {
+      return p.flags[ring[wrap(my + k, n)]] + kPeerExit;
+    }, bar_base);
+  }
 }
+
+// U: the unit of access (16, 8, 4, 2 or 1 bytes). The peer table stays in
+// parameter space (__grid_constant__: indexing it takes no local copy).
+template <typename U>
+__global__ void __launch_bounds__(kThreads)
+alltoall_kernel(const __grid_constant__ Params p) {
+  alltoall_body<U, Scope::kGpu>(p, blockIdx.x, 0);
+}
+
+// The cross-process instance: Params over every member's peer-mapped
+// input and flags (and this process's outputs), the flat rank each block
+// row plays, and the flags' count before the call.
+struct PeerParams {
+  Params p;
+  int local[kMaxRanks];  // block x plays flat rank local[x]
+  int before;
+};
 
 template <typename U>
-void* kernel_for() {
-  return reinterpret_cast<void*>(alltoall_kernel<U>);
+__global__ void __launch_bounds__(kThreads)
+alltoall_peer_kernel(const __grid_constant__ PeerParams q) {
+  alltoall_body<U, Scope::kSys>(q.p, q.local[blockIdx.x], q.before);
 }
 
+template <typename U, bool kPeer>
+void* kernel_for() {
+  if constexpr (kPeer) {
+    return reinterpret_cast<void*>(alltoall_peer_kernel<U>);
+  } else {
+    return reinterpret_cast<void*>(alltoall_kernel<U>);
+  }
+}
+
+template <bool kPeer = false>
 void* kernel_of(int unit) {
   switch (unit) {
-    case 16: return kernel_for<uint4>();
-    case 8: return kernel_for<uint2>();
-    case 4: return kernel_for<unsigned int>();
-    case 2: return kernel_for<unsigned short>();
-    case 1: return kernel_for<unsigned char>();
+    case 16: return kernel_for<uint4, kPeer>();
+    case 8: return kernel_for<uint2, kPeer>();
+    case 4: return kernel_for<unsigned int, kPeer>();
+    case 2: return kernel_for<unsigned short, kPeer>();
+    case 1: return kernel_for<unsigned char, kPeer>();
     default: return nullptr;
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// Ints of flags each (rank, slice) needs.
-int gtt_alltoall_flag_stride() { return kFlagStride; }
-
-// The most all-to-all blocks that can be resident at once on the current
-// device (the cooperative launch's limit), in *blocks.
-int gtt_alltoall_max_blocks(int* blocks) {
+template <bool kPeer>
+int max_blocks(int* blocks) {
   int per_sm = 1 << 30;
   cudaError_t err = cudaSuccess;
   const int units[] = {16, 8, 4, 2, 1};
@@ -209,7 +255,7 @@ int gtt_alltoall_max_blocks(int* blocks) {
     int got = 0;
     if (err == cudaSuccess) {
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &got, kernel_of(unit), kThreads, 0);
+          &got, kernel_of<kPeer>(unit), kThreads, 0);
     }
     if (err == cudaSuccess && got < per_sm) per_sm = got;
   }
@@ -224,6 +270,53 @@ int gtt_alltoall_max_blocks(int* blocks) {
   if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
   *blocks = err == cudaSuccess ? per_sm * sms : 0;
   return static_cast<int>(err);
+}
+
+// The sizes every launch must meet, and the run geometry of Params.
+bool fill_geometry(Params& p, int unit, int n, int slices,
+                   long long block_bytes, long long in_run,
+                   long long in_pitch, long long out_run,
+                   long long out_pitch, long long run, int group) {
+  const auto divides = [](long long d, long long v) {
+    return d > 0 && v % d == 0;
+  };
+  const long long run_units = run > 0 ? run / unit : 0;
+  if (n < 2 || n > kMaxRanks || slices < 1 || slices > 65535 ||
+      block_bytes < 1 || !divides(run, in_run) || !divides(run, out_run) ||
+      !divides(in_run, block_bytes) || !divides(out_run, block_bytes) ||
+      !divides(unit, run) || in_pitch % unit || out_pitch % unit ||
+      in_pitch < n * in_run || out_pitch < n * out_run || group < 1 ||
+      group > kThreads || (group & (group - 1)) ||
+      (group < kThreads && group > run_units)) {
+    return false;
+  }
+  p.n = n;
+  p.group = group;
+  p.runs = block_bytes / run;
+  p.run = run_units;
+  p.in_runs = in_run / run;
+  p.out_runs = out_run / run;
+  p.in_pitch = in_pitch / unit;
+  p.out_pitch = out_pitch / unit;
+  p.in_block = in_run / unit;
+  p.out_block = out_run / unit;
+  return true;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Ints of flags each (rank, slice) needs.
+int gtt_alltoall_flag_stride() { return kFlagStride; }
+
+// The most all-to-all blocks that can be resident at once on the current
+// device (the cooperative launch's limit), in *blocks.
+int gtt_alltoall_max_blocks(int* blocks) { return max_blocks<false>(blocks); }
+
+// The same for the cross-process instances.
+int gtt_alltoall_peer_max_blocks(int* blocks) {
+  return max_blocks<true>(blocks);
 }
 
 // Returns a cudaError_t; 0 is success. Rank r's input is x + r * in_stride
@@ -244,26 +337,17 @@ int gtt_alltoall(const void* x, long long in_stride, void* out,
                  long long in_pitch, long long out_run, long long out_pitch,
                  long long run, int unit, int group, void* stream) {
   void* fn = kernel_of(unit);
-  const auto divides = [](long long d, long long v) {
-    return d > 0 && v % d == 0;
-  };
-  const long long run_units = run > 0 ? run / unit : 0;
-  if (fn == nullptr || ranks < 2 || ranks > kMaxRanks || n < 2 ||
-      n > ranks || slices < 1 || slices > 65535 || block_bytes < 1 ||
-      !divides(run, in_run) || !divides(run, out_run) ||
-      !divides(in_run, block_bytes) || !divides(out_run, block_bytes) ||
-      !divides(unit, run) || in_pitch % unit || out_pitch % unit ||
+  Params p;
+  memset(&p, 0, sizeof(p));
+  if (fn == nullptr || ranks < 2 || ranks > kMaxRanks || n > ranks ||
+      !fill_geometry(p, unit, n, slices, block_bytes, in_run, in_pitch,
+                     out_run, out_pitch, run, group) ||
       in_stride % unit || out_stride % unit ||
       reinterpret_cast<uintptr_t>(x) % unit ||
       reinterpret_cast<uintptr_t>(out) % unit ||
-      in_pitch < n * in_run || out_pitch < n * out_run || group < 1 ||
-      group > kThreads || (group & (group - 1)) ||
-      (group < kThreads && group > run_units) ||
       flag_stride != kFlagStride) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Params p;
-  memset(&p, 0, sizeof(p));
   for (int r = 0; r < ranks; ++r) {
     if (my[r] < 0 || my[r] >= n) {
       return static_cast<int>(cudaErrorInvalidValue);
@@ -278,19 +362,68 @@ int gtt_alltoall(const void* x, long long in_stride, void* out,
     p.flags[r] = flags + static_cast<long long>(r) * slices * flag_stride;
     p.my[r] = my[r];
   }
-  p.n = n;
-  p.group = group;
-  p.runs = block_bytes / run;
-  p.run = run_units;
-  p.in_runs = in_run / run;
-  p.out_runs = out_run / run;
-  p.in_pitch = in_pitch / unit;
-  p.out_pitch = out_pitch / unit;
-  p.in_block = in_run / unit;
-  p.out_block = out_run / unit;
   void* args[] = {&p};
   cudaError_t err = cudaLaunchCooperativeKernel(
       fn, dim3(ranks, slices), dim3(kThreads), args, 0,
+      static_cast<cudaStream_t>(stream));
+  if (err == cudaSuccess) err = cudaGetLastError();
+  return static_cast<int>(err);
+}
+
+// The cross-process instance: one cooperative launch of grid (local_ranks,
+// slices) per process. in and flags: `ranks` host arrays of device
+// pointers by flat rank (each member's input, peer-mapped or this
+// process's own, and its kPeerFlags flag ints); out: this process's
+// outputs, local rank x's at out + x * out_stride; local: the flat ranks
+// this process plays; my and members as gtt_alltoall's (members' rows read
+// for the local ranks); the block geometry as gtt_alltoall's. before: the
+// flags' count before this call (each call adds (n - 1) slices to each);
+// every process of the ring makes the same calls in the same order with
+// the same slices.
+int gtt_alltoall_peer(const void* const* in, void* out, long long out_stride,
+                      int* const* flags, const int* local, int local_ranks,
+                      const int* my, const int* members, int ranks, int n,
+                      int slices, long long block_bytes, long long in_run,
+                      long long in_pitch, long long out_run,
+                      long long out_pitch, long long run, int unit,
+                      int group, int before, void* stream) {
+  void* fn = kernel_of<true>(unit);
+  PeerParams q;
+  memset(&q, 0, sizeof(q));
+  Params& p = q.p;
+  if (fn == nullptr || ranks < 2 || ranks > kMaxRanks || n > ranks ||
+      local_ranks < 1 || local_ranks > ranks || before < 0 ||
+      !fill_geometry(p, unit, n, slices, block_bytes, in_run, in_pitch,
+                     out_run, out_pitch, run, group) ||
+      out_stride % unit || reinterpret_cast<uintptr_t>(out) % unit) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  for (int r = 0; r < ranks; ++r) {
+    if (my[r] < 0 || my[r] >= n || in[r] == nullptr || flags[r] == nullptr ||
+        reinterpret_cast<uintptr_t>(in[r]) % unit) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    p.in[r] = in[r];
+    p.flags[r] = flags[r];
+    p.my[r] = my[r];
+  }
+  for (int x = 0; x < local_ranks; ++x) {
+    const int r = local[x];
+    if (r < 0 || r >= ranks) return static_cast<int>(cudaErrorInvalidValue);
+    for (int k = 0; k < n; ++k) {
+      const int m = members[r * n + k];
+      if (m < 0 || m >= ranks || (k == my[r]) != (m == r)) {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
+      p.members[r][k] = static_cast<unsigned char>(m);
+    }
+    p.out[r] = static_cast<char*>(out) + x * out_stride;
+    q.local[x] = r;
+  }
+  q.before = before;
+  void* args[] = {&q};
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      fn, dim3(local_ranks, slices), dim3(kThreads), args, 0,
       static_cast<cudaStream_t>(stream));
   if (err == cudaSuccess) err = cudaGetLastError();
   return static_cast<int>(err);

@@ -68,6 +68,16 @@
 // x. Rows and depth past the operands' ends come in as zeros (TMA's
 // out-of-bounds fill) and are never stored.
 //
+// Across processes (the peer instances below, entry gtt_overlap_peer) the
+// ranks of a ring live in different processes, one cooperative launch
+// each: x, w and the outputs stay in each process's own memory, and what
+// a neighbour writes (B5a's comm slots and acks, B5b's gx and chunk flags)
+// lies in its process's peer workspace, mapped by CUDA IPC. B5b's TMA
+// store of a forwarded slab goes through a map of its own per local rank,
+// over the right neighbour's gx (each a separate allocation, so no common
+// base as on one card). Tags that only grow, at system scope, replace the
+// per-call zeroing: see "the cross-process instances" below.
+//
 // The TMA, mbarrier and wgmma helpers and the tensor-map encoder live in
 // hopper.cuh, shared with flash_fwd.cu's B1.
 //
@@ -153,27 +163,38 @@ __device__ __forceinline__ void store_cg(T* p, T v) {
 
 // ---- flags (ring_common.cuh's counters) ----
 
+template <Scope S = Scope::kGpu>
 __device__ __forceinline__ int ld_relaxed(const int* p) {
   int v;
-  asm volatile("ld.relaxed.gpu.global.b32 %0, [%1];"
-               : "=r"(v) : "l"(p) : "memory");
+  if constexpr (S == Scope::kGpu) {
+    asm volatile("ld.relaxed.gpu.global.b32 %0, [%1];"
+                 : "=r"(v) : "l"(p) : "memory");
+  } else {
+    asm volatile("ld.relaxed.sys.global.b32 %0, [%1];"
+                 : "=r"(v) : "l"(p) : "memory");
+  }
   return v;
 }
 
 // Thread 0 waits until *a >= ta and, where b is given, *b >= tb: both
 // polled by relaxed loads in flight together, then one acquire fence; the
 // block goes on together. Bounded like ring_common.cuh's wait_flag.
+template <Scope S = Scope::kGpu>
 __device__ __forceinline__ void wait_flags(const int* a, int ta,
                                            const int* b, int tb) {
   if (threadIdx.x == 0) {
     const long long start = clock64();
     while (true) {
-      const int va = ld_relaxed(a);
-      const int vb = b ? ld_relaxed(b) : tb;
+      const int va = ld_relaxed<S>(a);
+      const int vb = b ? ld_relaxed<S>(b) : tb;
       if (va >= ta && vb >= tb) break;
       if (clock64() - start > kSpinCycles) __trap();
     }
-    asm volatile("fence.acq_rel.gpu;" ::: "memory");
+    if constexpr (S == Scope::kGpu) {
+      asm volatile("fence.acq_rel.gpu;" ::: "memory");
+    } else {
+      asm volatile("fence.acq_rel.sys;" ::: "memory");
+    }
   }
   __syncthreads();
 }
@@ -187,6 +208,63 @@ __device__ __forceinline__ void publish(int* a, int* b) {
     add_release(a, 1);
     if (b) add_release(b, 1);
   }
+}
+
+// ---- the cross-process instances ----
+//
+// Across processes (matmul_rs_peer_kernel, ag_matmul_peer_kernel, entry
+// gtt_overlap_peer) each process makes one cooperative launch of grid
+// (local ranks, slices); block (x, j) plays flat rank local[x], and x is
+// its index into the maps of x, w and its own gx, which hold the local
+// ranks only. What peers write lives in their processes' workspaces
+// (peer.cu), mapped here by CUDA IPC: B5a's comm slots and acks, B5b's gx
+// and chunk flags, and each rank's entry and exit flags. Nothing of it is
+// zeroed per call: every value a call stores is a tag above all that
+// earlier calls stored, derived from the family's count `tag` (a call
+// adds n - 1): B5a's write j carries tag + j + 1, its ack of write s is
+// tag + s + 1 itself (so a writer waits for the ack of write j - 2 to
+// reach tag + j - 1), and B5b's chunk flags are released to tag + 1. The
+// barriers count: each block adds one to the flag of every other member
+// of its ring, and waits for bar_base + (n - 1) slices. All flags and
+// acks are at system scope.
+
+// Local ranks a process may play in one cross-process launch (each has
+// its own map of its right neighbour's gx in the parameters).
+constexpr int kMaxLocal = 8;
+// Ints of a rank's flag region before its tile flags: the entry and exit
+// flags, padded to 32 bytes.
+constexpr int kPeerTileFlags = 8;
+constexpr int kPeerEntry = 0;
+constexpr int kPeerExitFlag = 1;
+
+struct PeerParams {
+  Params p;
+  // Local rank x's map of its right neighbour's gx (k, rows, n, 1).
+  CUtensorMap gx_right[kMaxLocal];
+  int* barrier[kMaxRanks];  // rank r's entry and exit flags
+  int local[kMaxRanks];     // block x plays flat rank local[x]
+  int tag;                  // the family's tag before this call
+  int bar_base;             // the barrier flags' count before this call
+};
+
+// Across processes: the barrier on flag `which` among the n members of
+// rank r's ring (walked through `right`). Thread 0 fences, then adds one
+// to that flag of every other member; the block waits until its own has
+// every other member's blocks' adds of this call.
+__device__ __forceinline__ void peer_barrier(const PeerParams& q, int r,
+                                             int which) {
+  const Params& p = q.p;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence_system();
+    int m = r;
+    for (int k = 1; k < p.n; ++k) {
+      m = p.right[m];
+      add_release<Scope::kSys>(q.barrier[m] + which, 1);
+    }
+  }
+  wait_flag<Scope::kSys>(q.barrier[r] + which,
+                         q.bar_base + (p.n - 1) * static_cast<int>(gridDim.y));
 }
 
 // ---- the product of one slab ----
@@ -259,8 +337,10 @@ struct Block {
   bool w_pending = false, stores_pending = false;
   int row0 = 0, col0 = 0;
 
-  __device__ Block(const Params& params, uint8_t* smem)
-      : p(params), r(blockIdx.x), n(params.n), my(params.my[blockIdx.x]) {
+  // r: the block's index into the maps of x, w and its own gx
+  // (blockIdx.x); my: the ring index of the rank it plays.
+  __device__ Block(const Params& params, uint8_t* smem, int my_index)
+      : p(params), r(blockIdx.x), n(params.n), my(my_index) {
     w_sm = smem;
     a_sm = smem + (p.w_resident ? p.slabs : p.ring) * kBufBytes;
     full = reinterpret_cast<uint64_t*>(a_sm + p.ring * kBufBytes);
@@ -517,70 +597,113 @@ __device__ __forceinline__ void take_tile(float* acc, const uint64_t* src,
   }
 }
 
-// B5a.
-template <typename T, bool kKMajor>
-__global__ void __launch_bounds__(kThreads)
-    matmul_rs_kernel(const __grid_constant__ Params p) {
+// B5a. Block (x, j) plays rank r: x itself on one card (q unused),
+// q->local[x] across processes.
+template <typename T, bool kKMajor, bool kPeer>
+__device__ __forceinline__ void matmul_rs_body(const Params& p,
+                                               const PeerParams* q) {
   extern __shared__ uint8_t smem_raw[];
-  Block<T, true, kKMajor> b(p, aligned_smem(smem_raw));
-  const int r = blockIdx.x, n = p.n, right = p.right[r], left = p.left[r];
+  constexpr Scope S = kPeer ? Scope::kSys : Scope::kGpu;
+  const int r = kPeer ? q->local[blockIdx.x] : blockIdx.x;
+  Block<T, true, kKMajor> b(p, aligned_smem(smem_raw), p.my[r]);
+  const int n = p.n, right = p.right[r], left = p.left[r];
   const int rows = p.rows, cols = p.cols;
+  // Write j of this call carries tag0 + j + 1 (tag0 0 on one card, where
+  // the slots are zeroed per call).
+  const uint32_t tag0 = kPeer ? static_cast<uint32_t>(q->tag) : 0u;
   const long long slot = static_cast<long long>(p.tiles) * kTileWords<T>;
   T* const out = static_cast<T*>(p.out[r]);
   const uint64_t* const comm = static_cast<const uint64_t*>(p.comm[r]);
   uint64_t* const peer = static_cast<uint64_t*>(p.comm[right]);
   auto none = [](uint8_t*, int) {};
   float acc[32];
+  if constexpr (kPeer) peer_barrier(*q, r, kPeerEntry);
   for (int tile = blockIdx.y; tile < p.tiles; tile += gridDim.y) {
     const long long fo = static_cast<long long>(tile) * p.flag_stride;
     int* const fl_me = p.flags[r] + fo;
-    int* const fl_right = p.flags[right] + fo;
     int* const fl_left = p.flags[left] + fo;
     const long long to = static_cast<long long>(tile) * kTileWords<T>;
     b.begin_tile(tile, n);
     // partial(my - 1), rounded, into the right neighbour's slot 0:
     // write 0.
     b.product(acc, none);
-    put_tile<T>(peer + to, acc, 1);
+    put_tile<T>(peer + to, acc, tag0 + 1);
     for (int s = 0; s < n - 1; ++s) {
       const int j = s + 1;  // this step's write to the right neighbour
       const bool last = s == n - 2;
       // The right neighbour's slot j mod 2 is written again only after it
       // read write j - 2 there: known long before the write, so asked
-      // here, off the hand-off's path.
+      // here, off the hand-off's path. One card counts the acks; across
+      // processes an ack is the tag it read.
       if (!last && j >= 2) {
-        wait_flags(fl_me + kAck + (j & 1), j / 2, nullptr, 0);
+        wait_flags<S>(fl_me + kAck + (j & 1),
+                      kPeer ? static_cast<int>(tag0) + j - 1 : j / 2,
+                      nullptr, 0);
       }
       b.product(acc, none);  // partial(my - 2 - s), before the wait
       // The left neighbour's write s, in slot s mod 2.
-      take_tile<T>(acc, comm + (s & 1) * slot + to, s + 1);
+      take_tile<T>(acc, comm + (s & 1) * slot + to, tag0 + s + 1);
       // The ack's release orders the slot's reads, not this step's write,
       // which follows it and needs no fence.
-      publish(fl_left + kAck + (s & 1), nullptr);
+      if constexpr (kPeer) {
+        __syncthreads();
+        if (threadIdx.x == 0) {
+          store_release<S>(fl_left + kAck + (s & 1),
+                           static_cast<int>(tag0) + s + 1);
+        }
+      } else {
+        publish(fl_left + kAck + (s & 1), nullptr);
+      }
       if (last) {
         store_tile(out, b.row0, b.col0, rows, cols, acc);
       } else {
-        put_tile<T>(peer + (j & 1) * slot + to, acc, j + 1);
+        put_tile<T>(peer + (j & 1) * slot + to, acc, tag0 + j + 1);
       }
     }
     // Drain the acks of the last two writes.
-    wait_flags(fl_me + kAck + ((n - 2) & 1), (n - 2) / 2 + 1,
-               n >= 3 ? fl_me + kAck + ((n - 3) & 1) : nullptr,
-               (n - 3) / 2 + 1);
+    if constexpr (kPeer) {
+      wait_flags<S>(fl_me + kAck + ((n - 2) & 1),
+                    static_cast<int>(tag0) + n - 1,
+                    n >= 3 ? fl_me + kAck + ((n - 3) & 1) : nullptr,
+                    static_cast<int>(tag0) + n - 2);
+    } else {
+      wait_flags(fl_me + kAck + ((n - 2) & 1), (n - 2) / 2 + 1,
+                 n >= 3 ? fl_me + kAck + ((n - 3) & 1) : nullptr,
+                 (n - 3) / 2 + 1);
+    }
   }
+  if constexpr (kPeer) peer_barrier(*q, r, kPeerExitFlag);
 }
 
-// B5b.
 template <typename T, bool kKMajor>
 __global__ void __launch_bounds__(kThreads)
-    ag_matmul_kernel(const __grid_constant__ Params p) {
+    matmul_rs_kernel(const __grid_constant__ Params p) {
+  matmul_rs_body<T, kKMajor, false>(p, nullptr);
+}
+
+template <typename T, bool kKMajor>
+__global__ void __launch_bounds__(kThreads)
+    matmul_rs_peer_kernel(const __grid_constant__ PeerParams q) {
+  matmul_rs_body<T, kKMajor, true>(q.p, &q);
+}
+
+// B5b, with block (x, j) playing rank r as B5a's.
+template <typename T, bool kKMajor, bool kPeer>
+__device__ __forceinline__ void ag_matmul_body(const Params& p,
+                                               const PeerParams* q) {
   extern __shared__ uint8_t smem_raw[];
+  constexpr Scope S = kPeer ? Scope::kSys : Scope::kGpu;
   using B = Block<T, false, kKMajor>;
-  B b(p, aligned_smem(smem_raw));
-  const int r = blockIdx.x, n = p.n, my = b.my, right = p.right[r];
+  const int r = kPeer ? q->local[blockIdx.x] : blockIdx.x;
+  B b(p, aligned_smem(smem_raw), p.my[r]);
+  const int n = p.n, my = b.my, right = p.right[r];
   const int rows = p.rows, cols = p.cols;
+  // A chunk's flag is released to tag0 + 1 (1 on one card, where the
+  // flags are zeroed per call).
+  const int tag0 = kPeer ? q->tag : 0;
   T* const y = static_cast<T*>(p.out[r]);
   float acc[32];
+  if constexpr (kPeer) peer_barrier(*q, r, kPeerEntry);
   for (int tile = blockIdx.y; tile < p.tiles; tile += gridDim.y) {
     const int rt = tile / p.col_tiles;
     const bool forwards = tile % p.col_tiles == 0;
@@ -592,7 +715,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int t = 0; t < n; ++t) {
       if (t > 0) {
         // Chunk my - t landed in gx (the left neighbour's step t - 1).
-        wait_flags(fl_me + kGather + t - 1, 1, nullptr, 0);
+        wait_flags<S>(fl_me + kGather + t - 1, tag0 + 1, nullptr, 0);
         if (threadIdx.x == 0) fence_proxy_async();
         b.add_step();
       }
@@ -600,8 +723,13 @@ __global__ void __launch_bounds__(kThreads)
       const bool send = forwards && t < n - 1;
       b.product(acc, [&](uint8_t* slab, int s) {
         if (!send) return;
-        tma_store_4d(&p.gx, slab, s * B::kE, b.row0, c, right);
-        if (t == 0) tma_store_4d(&p.gx, slab, s * B::kE, b.row0, my, r);
+        if constexpr (kPeer) {
+          tma_store_4d(&q->gx_right[blockIdx.x], slab, s * B::kE, b.row0,
+                       c, 0);
+        } else {
+          tma_store_4d(&p.gx, slab, s * B::kE, b.row0, c, right);
+        }
+        if (t == 0) tma_store_4d(&p.gx, slab, s * B::kE, b.row0, my, b.r);
         bulk_commit();
         b.stores_pending = true;
         if (s == p.slabs - 1) {
@@ -611,39 +739,77 @@ __global__ void __launch_bounds__(kThreads)
           bulk_wait();
           fence_proxy_async();
           b.stores_pending = false;
-          store_release(fl_right + kGather + t, 1);
+          store_release<S>(fl_right + kGather + t, tag0 + 1);
         }
       });
       store_tile(y + static_cast<long long>(c) * rows * cols, b.row0,
                  b.col0, rows, cols, acc);
     }
   }
+  if constexpr (kPeer) peer_barrier(*q, r, kPeerExitFlag);
+}
+
+template <typename T, bool kKMajor>
+__global__ void __launch_bounds__(kThreads)
+    ag_matmul_kernel(const __grid_constant__ Params p) {
+  ag_matmul_body<T, kKMajor, false>(p, nullptr);
+}
+
+template <typename T, bool kKMajor>
+__global__ void __launch_bounds__(kThreads)
+    ag_matmul_peer_kernel(const __grid_constant__ PeerParams q) {
+  ag_matmul_body<T, kKMajor, true>(q.p, &q);
 }
 
 // ---- host side ----
 
 // Each kernel instance is allowed the card's whole opt-in shared memory
 // once per device; the launch then asks for what its plan needs.
-template <typename T, bool kRS, bool kKMajor>
+template <typename T, bool kRS, bool kKMajor, bool kPeer>
 void* kernel_fn(cudaError_t* err) {
   static std::atomic<bool> done[kMaxDevices];
-  void* fn = kRS ? reinterpret_cast<void*>(matmul_rs_kernel<T, kKMajor>)
-                 : reinterpret_cast<void*>(ag_matmul_kernel<T, kKMajor>);
+  void* fn;
+  if constexpr (kPeer) {
+    fn = kRS ? reinterpret_cast<void*>(matmul_rs_peer_kernel<T, kKMajor>)
+             : reinterpret_cast<void*>(ag_matmul_peer_kernel<T, kKMajor>);
+  } else {
+    fn = kRS ? reinterpret_cast<void*>(matmul_rs_kernel<T, kKMajor>)
+             : reinterpret_cast<void*>(ag_matmul_kernel<T, kKMajor>);
+  }
   *err = allow_dynamic_smem(fn, smem_limit(), done);
   return fn;
 }
 
-template <typename T, bool kKMajor>
-cudaError_t launch(bool rs, const Params& p, dim3 grid, int smem,
+// P: Params (one card) or PeerParams (across processes).
+template <typename T, bool kKMajor, bool kPeer, typename P>
+cudaError_t launch(bool rs, const P& p, dim3 grid, int smem,
                    cudaStream_t stream) {
   cudaError_t err = cudaSuccess;
-  void* fn = rs ? kernel_fn<T, true, kKMajor>(&err)
-                : kernel_fn<T, false, kKMajor>(&err);
+  void* fn = rs ? kernel_fn<T, true, kKMajor, kPeer>(&err)
+                : kernel_fn<T, false, kKMajor, kPeer>(&err);
   if (err != cudaSuccess) return err;
-  void* args[] = {const_cast<Params*>(&p)};
+  void* args[] = {const_cast<P*>(&p)};
   err = cudaLaunchCooperativeKernel(fn, grid, dim3(kThreads), args, smem,
                                     stream);
   return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// The instance for dtype (0 bf16, 1 f32, 2 f16) and W's layout.
+template <bool kPeer, typename P>
+int launch_for(int dtype, bool k_major, bool rs, const P& p, dim3 grid,
+               int smem, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    return static_cast<int>(launch<float, false, kPeer>(rs, p, grid, smem, s));
+  }
+  if (dtype == 2) {
+    return static_cast<int>(
+        k_major ? launch<__half, true, kPeer>(rs, p, grid, smem, s)
+                : launch<__half, false, kPeer>(rs, p, grid, smem, s));
+  }
+  return static_cast<int>(
+      k_major ? launch<__nv_bfloat16, true, kPeer>(rs, p, grid, smem, s)
+              : launch<__nv_bfloat16, false, kPeer>(rs, p, grid, smem, s));
 }
 
 // Shared memory of a plan: the W slabs, the x ring, its barriers and the
@@ -653,25 +819,32 @@ int smem_bytes(int slabs, int ring, int w_resident) {
          8 * (ring + 1) + 1024;
 }
 
-// x (ranks, chunks, rows, k) rows x_ld apart, gx (ranks, n, rows, k),
-// w: rank stride (bytes; 0 = shared), element strides w_sk, w_sn.
-int run(bool rs, const void* x, long long x_ld, const void* w,
-        long long w_stride, long long w_sk, long long w_sn, void* out,
-        void* gx, void* comm, int* flags, int flag_stride, const int* my,
-        const int* right, const int* left, int ranks, int n, int slices,
-        int rows, int k, int cols, int slabs, int ring, int w_resident,
-        int smem, int dtype, void* stream) {
-  const int elt = dtype == 0 || dtype == 2 ? 2 : dtype == 1 ? 4 : 0;
+int elt_of(int dtype) { return dtype == 0 || dtype == 2 ? 2 : dtype == 1 ? 4 : 0; }
+
+long long tiles_of(int rows, int cols) {
+  return static_cast<long long>((rows + kTileM - 1) / kTileM) *
+         ((cols + kTileN - 1) / kTileN);
+}
+
+// Checks what every launch must meet and fills Params but its per-rank
+// tables: the scalars and the maps of x (map_ranks ranks, (chunks, rows,
+// k), rows x_ld apart), of gx (B5b: (map_ranks, n, rows, k), gx_stride
+// bytes between ranks) and of w (rank stride w_stride bytes, 0 = shared;
+// element strides w_sk, w_sn). Returns a cudaError_t.
+int prepare(Params& p, bool rs, const void* x, long long x_ld, const void* w,
+            long long w_stride, long long w_sk, long long w_sn,
+            const void* gx, long long gx_stride, int map_ranks, int n,
+            int slices, int rows, int k, int cols, int slabs, int ring,
+            int w_resident, int smem, int flag_stride, int dtype) {
+  const int elt = elt_of(dtype);
   const int depth = elt ? kSlabBytes / elt : 1;
   const bool k_major = w_sn != 1 && w_sk == 1;
-  const long long tiles = static_cast<long long>((rows + kTileM - 1) /
-                                                 kTileM) *
-                          ((cols + kTileN - 1) / kTileN);
+  const long long tiles = tiles_of(rows, cols);
   const auto aligned = [](const void* a) {
     return (reinterpret_cast<uintptr_t>(a) & 15) == 0;
   };
-  if (elt == 0 || ranks < 2 || ranks > kMaxRanks || n < 2 || n > ranks ||
-      rows < 1 || k < 1 || cols < 1 || x_ld < k || (x_ld * elt) % 16 ||
+  if (elt == 0 || n < 2 || n > kMaxRanks || map_ranks < 1 || rows < 1 ||
+      k < 1 || cols < 1 || x_ld < k || (x_ld * elt) % 16 ||
       slabs != (k + depth - 1) / depth || ring < 1 || ring > kMaxRing ||
       slices < 1 || slices > tiles || slices > 65535 ||
       flag_stride < kGather + n - 1 || smem < smem_bytes(slabs, ring,
@@ -679,10 +852,9 @@ int run(bool rs, const void* x, long long x_ld, const void* w,
       (w_sn != 1 && !k_major) || (k_major && elt != 2) ||
       ((k_major ? w_sn : w_sk) * elt) % 16 || w_stride % 16 ||
       !aligned(x) || !aligned(w) ||
-      (!rs && (gx == nullptr || !aligned(gx))) || (rs && comm == nullptr)) {
+      (!rs && (gx == nullptr || !aligned(gx) || gx_stride % 16))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Params p;
   memset(&p, 0, sizeof(p));
   const cuuint64_t e = static_cast<cuuint64_t>(elt);
   const cuuint64_t line = static_cast<cuuint64_t>(x_ld) * e;
@@ -692,7 +864,7 @@ int run(bool rs, const void* x, long long x_ld, const void* w,
     const cuuint64_t dims[4] = {static_cast<cuuint64_t>(k),
                                 static_cast<cuuint64_t>(rows),
                                 static_cast<cuuint64_t>(chunks),
-                                static_cast<cuuint64_t>(ranks)};
+                                static_cast<cuuint64_t>(map_ranks)};
     const cuuint64_t strides[3] = {line, line * rows, line * rows * chunks};
     const cudaError_t err = encode(&p.x, dtype, 4, x, dims, strides, xbox);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -701,8 +873,9 @@ int run(bool rs, const void* x, long long x_ld, const void* w,
     const cuuint64_t dims[4] = {static_cast<cuuint64_t>(k),
                                 static_cast<cuuint64_t>(rows),
                                 static_cast<cuuint64_t>(n),
-                                static_cast<cuuint64_t>(ranks)};
-    const cuuint64_t strides[3] = {line, line * rows, line * rows * n};
+                                static_cast<cuuint64_t>(map_ranks)};
+    const cuuint64_t strides[3] = {line, line * rows,
+                                   static_cast<cuuint64_t>(gx_stride)};
     const cudaError_t err = encode(&p.gx, dtype, 4, gx, dims, strides, xbox);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -710,9 +883,9 @@ int run(bool rs, const void* x, long long x_ld, const void* w,
     const cuuint64_t lead =
         static_cast<cuuint64_t>(k_major ? w_sn : w_sk) * e;
     const cuuint64_t outer = static_cast<cuuint64_t>(k_major ? cols : k);
-    const cuuint64_t dims[3] = {static_cast<cuuint64_t>(k_major ? k : cols),
-                                outer,
-                                static_cast<cuuint64_t>(w_stride ? ranks : 1)};
+    const cuuint64_t dims[3] = {
+        static_cast<cuuint64_t>(k_major ? k : cols), outer,
+        static_cast<cuuint64_t>(w_stride ? map_ranks : 1)};
     const cuuint64_t strides[2] = {
         lead, w_stride ? static_cast<cuuint64_t>(w_stride) : lead * outer};
     const cuuint32_t box[3] = {static_cast<cuuint32_t>(depth),
@@ -721,21 +894,6 @@ int run(bool rs, const void* x, long long x_ld, const void* w,
                                1};
     const cudaError_t err = encode(&p.w, dtype, 3, w, dims, strides, box);
     if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  for (int i = 0; i < ranks; ++i) {
-    if (my[i] < 0 || my[i] >= n || right[i] < 0 || right[i] >= ranks ||
-        left[i] < 0 || left[i] >= ranks) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    const long long out_rows = rs ? rows : static_cast<long long>(n) * rows;
-    p.out[i] = static_cast<char*>(out) + i * out_rows * cols * elt;
-    const long long words = tiles * kThreads * (elt == 2 ? 16 : 32);
-    p.comm[i] = comm ? static_cast<char*>(comm) + i * 2 * words * 8
-                     : nullptr;
-    p.flags[i] = flags + i * tiles * flag_stride;
-    p.my[i] = my[i];
-    p.right[i] = right[i];
-    p.left[i] = left[i];
   }
   p.n = n;
   p.tiles = static_cast<int>(tiles);
@@ -747,25 +905,132 @@ int run(bool rs, const void* x, long long x_ld, const void* w,
   p.ring = ring;
   p.w_resident = w_resident;
   p.w_shared = w_stride == 0;
-  const dim3 grid(ranks, slices);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    return static_cast<int>(launch<float, false>(rs, p, grid, smem, s));
-  }
-  if (dtype == 2) {
-    return static_cast<int>(
-        k_major ? launch<__half, true>(rs, p, grid, smem, s)
-                : launch<__half, false>(rs, p, grid, smem, s));
-  }
-  return static_cast<int>(
-      k_major ? launch<__nv_bfloat16, true>(rs, p, grid, smem, s)
-              : launch<__nv_bfloat16, false>(rs, p, grid, smem, s));
+  return 0;
 }
 
-template <typename T, bool kRS, bool kKMajor>
+// Fills rank i's ring tables; false where they name no rank.
+bool fill_ring(Params& p, int i, int ranks, int n, const int* my,
+               const int* right, const int* left) {
+  if (my[i] < 0 || my[i] >= n || right[i] < 0 || right[i] >= ranks ||
+      left[i] < 0 || left[i] >= ranks) {
+    return false;
+  }
+  p.my[i] = my[i];
+  p.right[i] = right[i];
+  p.left[i] = left[i];
+  return true;
+}
+
+// One card: x (ranks, chunks, rows, k) rows x_ld apart, gx (ranks, n, rows,
+// k), every rank's buffers one world tensor.
+int run(bool rs, const void* x, long long x_ld, const void* w,
+        long long w_stride, long long w_sk, long long w_sn, void* out,
+        void* gx, void* comm, int* flags, int flag_stride, const int* my,
+        const int* right, const int* left, int ranks, int n, int slices,
+        int rows, int k, int cols, int slabs, int ring, int w_resident,
+        int smem, int dtype, void* stream) {
+  const int elt = elt_of(dtype);
+  if (ranks < 2 || ranks > kMaxRanks || n > ranks || (rs && comm == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Params p;
+  const long long line = x_ld * elt;
+  const int err = prepare(p, rs, x, x_ld, w, w_stride, w_sk, w_sn, gx,
+                          line * rows * n, ranks, n, slices, rows, k, cols,
+                          slabs, ring, w_resident, smem, flag_stride, dtype);
+  if (err != 0) return err;
+  const long long tiles = tiles_of(rows, cols);
+  for (int i = 0; i < ranks; ++i) {
+    if (!fill_ring(p, i, ranks, n, my, right, left)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const long long out_rows = rs ? rows : static_cast<long long>(n) * rows;
+    p.out[i] = static_cast<char*>(out) + i * out_rows * cols * elt;
+    const long long words = tiles * kThreads * (elt == 2 ? 16 : 32);
+    p.comm[i] = comm ? static_cast<char*>(comm) + i * 2 * words * 8
+                     : nullptr;
+    p.flags[i] = flags + i * tiles * flag_stride;
+  }
+  const bool k_major = w_sn != 1 && w_sk == 1;
+  return launch_for<false>(dtype, k_major, rs, p, dim3(ranks, slices), smem,
+                           stream);
+}
+
+// Across processes: x, w and out hold this process's local ranks (x
+// (local, chunks, rows, k), w by w_stride, out (local, out rows, cols));
+// gx, comm and flags are `ranks` host arrays of device pointers by flat
+// rank (each member's gathered x (n, rows, k), comm slots and flag region
+// of kPeerTileFlags ints then tiles x flag_stride; peer-mapped, or this
+// process's own for its local ranks, whose gx lie gx_stride bytes apart).
+int run_peer(bool rs, const void* x, long long x_ld, const void* w,
+             long long w_stride, long long w_sk, long long w_sn, void* out,
+             void* const* gx, long long gx_stride, void* const* comm,
+             int* const* flags, int flag_stride, const int* local,
+             int local_ranks, const int* my, const int* right,
+             const int* left, int ranks, int n, int slices, int rows, int k,
+             int cols, int slabs, int ring, int w_resident, int smem,
+             int dtype, int tag, int bar_base, void* stream) {
+  const int elt = elt_of(dtype);
+  if (ranks < 2 || ranks > kMaxRanks || n > ranks || local_ranks < 1 ||
+      local_ranks > kMaxLocal || local_ranks > ranks || tag < 0 ||
+      bar_base < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  PeerParams q;
+  memset(&q, 0, sizeof(q));
+  Params& p = q.p;
+  for (int x_i = 0; x_i < local_ranks; ++x_i) {
+    if (local[x_i] < 0 || local[x_i] >= ranks) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  const void* own_gx = rs ? nullptr : gx[local[0]];
+  const int err = prepare(p, rs, x, x_ld, w, w_stride, w_sk, w_sn, own_gx,
+                          gx_stride, local_ranks, n, slices, rows, k, cols,
+                          slabs, ring, w_resident, smem, flag_stride, dtype);
+  if (err != 0) return err;
+  for (int i = 0; i < ranks; ++i) {
+    if (!fill_ring(p, i, ranks, n, my, right, left) || flags[i] == nullptr ||
+        (rs && comm[i] == nullptr) || (!rs && gx[i] == nullptr)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    p.comm[i] = rs ? comm[i] : nullptr;
+    p.flags[i] = flags[i] + kPeerTileFlags;
+    q.barrier[i] = flags[i];
+  }
+  const long long out_rows = rs ? rows : static_cast<long long>(n) * rows;
+  const cuuint64_t line = static_cast<cuuint64_t>(x_ld) * elt;
+  const cuuint32_t xbox[4] = {static_cast<cuuint32_t>(kSlabBytes / elt),
+                              kTileM, 1, 1};
+  for (int x_i = 0; x_i < local_ranks; ++x_i) {
+    const int r = local[x_i];
+    q.local[x_i] = r;
+    p.out[r] = static_cast<char*>(out) + x_i * out_rows * cols * elt;
+    if (rs) continue;
+    if (static_cast<const char*>(gx[r]) !=
+        static_cast<const char*>(own_gx) + x_i * gx_stride) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    // The right neighbour's gx, as one rank of the own map's layout.
+    const cuuint64_t dims[4] = {static_cast<cuuint64_t>(k),
+                                static_cast<cuuint64_t>(rows),
+                                static_cast<cuuint64_t>(n), 1};
+    const cuuint64_t strides[3] = {line, line * rows, line * rows * n};
+    const cudaError_t e = encode(&q.gx_right[x_i], dtype, 4, gx[p.right[r]],
+                                 dims, strides, xbox);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  q.tag = tag;
+  q.bar_base = bar_base;
+  const bool k_major = w_sn != 1 && w_sk == 1;
+  return launch_for<true>(dtype, k_major, rs, q, dim3(local_ranks, slices),
+                          smem, stream);
+}
+
+template <typename T, bool kRS, bool kKMajor, bool kPeer>
 cudaError_t min_blocks(int smem, int* blocks) {
   cudaError_t err = cudaSuccess;
-  void* fn = kernel_fn<T, kRS, kKMajor>(&err);
+  void* fn = kernel_fn<T, kRS, kKMajor, kPeer>(&err);
   int per_sm = 0;
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads,
@@ -773,6 +1038,51 @@ cudaError_t min_blocks(int smem, int* blocks) {
   }
   if (err == cudaSuccess && per_sm < *blocks) *blocks = per_sm;
   return err;
+}
+
+template <bool kPeer>
+int max_blocks(int smem, int* blocks) {
+  using bf16 = __nv_bfloat16;
+  int per_sm = 1 << 30;
+  cudaError_t err = min_blocks<bf16, true, false, kPeer>(smem, &per_sm);
+  if (err == cudaSuccess) {
+    err = min_blocks<bf16, true, true, kPeer>(smem, &per_sm);
+  }
+  if (err == cudaSuccess) {
+    err = min_blocks<bf16, false, false, kPeer>(smem, &per_sm);
+  }
+  if (err == cudaSuccess) {
+    err = min_blocks<bf16, false, true, kPeer>(smem, &per_sm);
+  }
+  if (err == cudaSuccess) {
+    err = min_blocks<__half, true, false, kPeer>(smem, &per_sm);
+  }
+  if (err == cudaSuccess) {
+    err = min_blocks<__half, true, true, kPeer>(smem, &per_sm);
+  }
+  if (err == cudaSuccess) {
+    err = min_blocks<__half, false, false, kPeer>(smem, &per_sm);
+  }
+  if (err == cudaSuccess) {
+    err = min_blocks<__half, false, true, kPeer>(smem, &per_sm);
+  }
+  if (err == cudaSuccess) {
+    err = min_blocks<float, true, false, kPeer>(smem, &per_sm);
+  }
+  if (err == cudaSuccess) {
+    err = min_blocks<float, false, false, kPeer>(smem, &per_sm);
+  }
+  int device = 0, sms = 0, coop = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
+  }
+  if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
+  *blocks = err == cudaSuccess ? per_sm * sms : 0;
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -786,32 +1096,20 @@ int gtt_overlap_flag_stride(int n) { return kGather + (n > 1 ? n - 1 : 1); }
 // be resident at once on the current device with `smem` bytes of dynamic
 // shared memory each (the cooperative launch's limit), in *blocks.
 int gtt_overlap_max_blocks(int smem, int* blocks) {
-  using bf16 = __nv_bfloat16;
-  int per_sm = 1 << 30;
-  cudaError_t err = min_blocks<bf16, true, false>(smem, &per_sm);
-  if (err == cudaSuccess) err = min_blocks<bf16, true, true>(smem, &per_sm);
-  if (err == cudaSuccess) err = min_blocks<bf16, false, false>(smem, &per_sm);
-  if (err == cudaSuccess) err = min_blocks<bf16, false, true>(smem, &per_sm);
-  if (err == cudaSuccess) err = min_blocks<__half, true, false>(smem, &per_sm);
-  if (err == cudaSuccess) err = min_blocks<__half, true, true>(smem, &per_sm);
-  if (err == cudaSuccess) {
-    err = min_blocks<__half, false, false>(smem, &per_sm);
-  }
-  if (err == cudaSuccess) err = min_blocks<__half, false, true>(smem, &per_sm);
-  if (err == cudaSuccess) err = min_blocks<float, true, false>(smem, &per_sm);
-  if (err == cudaSuccess) err = min_blocks<float, false, false>(smem, &per_sm);
-  int device = 0, sms = 0, coop = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&device);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  }
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
-  }
-  if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
-  *blocks = err == cudaSuccess ? per_sm * sms : 0;
-  return static_cast<int>(err);
+  return max_blocks<false>(smem, blocks);
 }
+
+// The same for the cross-process instances.
+int gtt_overlap_peer_max_blocks(int smem, int* blocks) {
+  return max_blocks<true>(smem, blocks);
+}
+
+// Ints of a rank's flag region before its tile flags in the cross-process
+// instances (its entry and exit flags).
+int gtt_overlap_peer_tile_flags() { return kPeerTileFlags; }
+
+// Local ranks one process may play in a cross-process launch.
+int gtt_overlap_peer_max_local() { return kMaxLocal; }
 
 // Each returns a cudaError_t; 0 is success. dtype: 0 = bf16, 1 = f32, 2 =
 // f16.
@@ -850,6 +1148,33 @@ int gtt_ag_matmul(const void* x, long long x_ld, const void* w,
   return run(false, x, x_ld, w, w_stride, w_sk, w_sn, y, gx, nullptr, flags,
              flag_stride, my, right, left, ranks, n, slices, rows, k, cols,
              slabs, ring, w_resident, smem, dtype, stream);
+}
+
+// The cross-process instances of B5a (rs = 1) and B5b (rs = 0), one
+// cooperative launch of grid (local_ranks, slices) per process. x, w and
+// out (B5a's out, B5b's y) hold this process's local ranks, local rank i
+// at the i-th place; gx (B5b), comm (B5a) and flags are `ranks` host
+// arrays of device pointers by flat rank into the members' workspaces
+// (gx: (n, rows, k) rows x_ld apart, this process's own local ranks'
+// gx_stride bytes apart; comm: B5a's 2 slots; flags: gtt_overlap_peer_
+// tile_flags() ints, then tiles x flag_stride). local: the flat ranks
+// this process plays; my, right, left by flat rank. tag: the family's tag
+// before this call (a call adds n - 1), bar_base: the barrier flags'
+// count before it (a call adds (n - 1) slices). Every process of the ring
+// makes the same calls in the same order with the same slices.
+int gtt_overlap_peer(int rs, const void* x, long long x_ld, const void* w,
+                     long long w_stride, long long w_sk, long long w_sn,
+                     void* out, void* const* gx, long long gx_stride,
+                     void* const* comm, int* const* flags, int flag_stride,
+                     const int* local, int local_ranks, const int* my,
+                     const int* right, const int* left, int ranks, int n,
+                     int slices, int rows, int k, int cols, int slabs,
+                     int ring, int w_resident, int smem, int dtype, int tag,
+                     int bar_base, void* stream) {
+  return run_peer(rs != 0, x, x_ld, w, w_stride, w_sk, w_sn, out, gx,
+                  gx_stride, comm, flags, flag_stride, local, local_ranks,
+                  my, right, left, ranks, n, slices, rows, k, cols, slabs,
+                  ring, w_resident, smem, dtype, tag, bar_base, stream);
 }
 
 const char* gtt_error_string(int err) {

@@ -50,6 +50,14 @@ elastic.run_elastic, its gradients averaged with the epoch's bucketer.
 ``multihost_ddp_entry()`` is ddp_train_entry() at one process per rank:
 init_multihost's process mesh, one replica in each process, and the
 gradient mean on the cross-process ring allreduce over peer-mapped memory.
+``fused_mlp_entry()`` is the dry run's fused Megatron-SP pair (:286-338)
+at the flagship's full MLP width: FUSED_MLP_ROWS token rows over a ring
+of FUSED_MLP_MESH ranks on one card, forward and backward.
+``multihost_dp_tp_entry()``, ``multihost_fused_mlp_entry()`` and
+``multihost_ep_entry()`` are dp_tp_train_entry(), fused_mlp_entry() and
+ep_entry() split over processes (one rank each at their world's size):
+each process holds its local ranks' rows, and the collectives are the
+kernels' cross-process instances.
 """
 
 from __future__ import annotations
@@ -77,13 +85,16 @@ from gloo_tpu_torch.ops.ring import (ring_allreduce_bidir,
                                      ring_allreduce_hbm, ring_allreduce_q8)
 from gloo_tpu_torch.parallel.ddp import (HostGradSync, buffer_width,
                                          make_ddp_train_step)
-from gloo_tpu_torch.parallel.dp_tp import (make_dp_tp_train_step,
+from gloo_tpu_torch.parallel.dp_tp import (data_share,
+                                           make_dp_tp_train_step,
                                            shard_transformer, world_batch)
 from gloo_tpu_torch.parallel.ep import dispatch_combine
 from gloo_tpu_torch.parallel.fsdp import make_fsdp_train_step, shard_params
 from gloo_tpu_torch.parallel.pp import pipeline_apply, pipeline_train_1f1b
 from gloo_tpu_torch.parallel.sp import (ring_attention, ring_flash_attention,
                                         ulysses_attention)
+from gloo_tpu_torch.parallel.tp import (allgather_matmul_dense,
+                                        row_parallel_dense_scattered)
 from gloo_tpu_torch.tpu.hierarchical import (HierarchicalGroup,
                                              make_hierarchical_ddp)
 from gloo_tpu_torch.tpu.mesh import make_mesh
@@ -143,6 +154,11 @@ PP_MICROBATCHES = ENTRY_BATCH
 # processes split the batch 4 + 4, and two local ranks each take 2.
 HIER_LOCAL = 2
 HOST_SEQS = 4
+# fused_mlp_entry's ring, all on one card, and its token rows: the entry
+# batch's ENTRY_BATCH x max_seq_len rows, 256 per rank, through the
+# flagship's MLP (d_model 256, d_ff 1024: 256 columns per rank).
+FUSED_MLP_MESH = {"model": 4}
+FUSED_MLP_ROWS = ENTRY_BATCH * ENTRY_CONFIG.max_seq_len
 # Seconds the host plane's rendezvous and collectives wait for a peer.
 HOST_TIMEOUT = 120.0
 # elastic_train_entry's checkpoints: one every ELASTIC_CKPT_EVERY steps,
@@ -274,16 +290,12 @@ def multihost_ddp_entry(rank: int, size: int, store_address: str,
     it returns the loss mean (its context to close: step.context). At
     size DDP_WORLD each step is ddp_train_entry()'s, split over
     processes."""
-    dev = resolve_device(device)
     if size < 1 or ENTRY_BATCH % size or not 0 <= rank < size:
         raise ValueError(f"rank {rank} of {size}: the entry batch of "
                          f"{ENTRY_BATCH} sequences splits evenly over 1, "
                          f"2, 4 or 8 processes")
-    devices = None if dev == torch.device("cuda") else [dev]
-    ctx, mesh = init_multihost(rank, size, store_address, {"data": size},
-                               timeout=HOST_TIMEOUT,
-                               device_hostname=device_hostname,
-                               devices=devices)
+    ctx, mesh = _process_mesh(rank, size, store_address, {"data": size},
+                              device, device_hostname)
     _, (model, tokens) = entry(mesh.device)
     per = ENTRY_BATCH // size
     batch = (tokens[rank * per:(rank + 1) * per],
@@ -309,6 +321,113 @@ def dp_tp_train_entry(device="cuda"):
     optimizer = torch.optim.Adam(tp_model.parameters(), **ADAM_SETTINGS)
     step = make_dp_tp_train_step(mesh, "data", "model")
     return step, (tp_model, optimizer, tokens, _entry_targets(tokens))
+
+
+def _process_mesh(rank: int, size: int, store_address: str, axes: dict,
+                  device, device_hostname: Optional[str]):
+    """init_multihost for process `rank` of `size` over the mesh `axes`,
+    its ranks split evenly over the processes: (ctx, mesh), this
+    process's ranks on cuda:(rank % device_count) for device="cuda", else
+    on `device`."""
+    ranks = math.prod(axes.values())
+    if size < 1 or ranks % size or not 0 <= rank < size:
+        raise ValueError(f"rank {rank} of {size}: the mesh {axes} splits "
+                         f"its {ranks} ranks evenly over a number of "
+                         f"processes that divides {ranks}")
+    dev = resolve_device(device)
+    if dev == torch.device("cuda"):
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+    return init_multihost(rank, size, store_address, axes,
+                          timeout=HOST_TIMEOUT,
+                          device_hostname=device_hostname,
+                          devices=[dev] * (ranks // size))
+
+
+def multihost_dp_tp_entry(rank: int, size: int, store_address: str,
+                          device="cuda",
+                          device_hostname: Optional[str] = None):
+    """dp_tp_train_entry() split over processes: process `rank` of `size`
+    returns (step, (tp_model, optimizer, tokens, targets)) for its ranks
+    of a process mesh DP_TP_MESH (one rank per process at size 4; see
+    _process_mesh). tp_model holds train_entry()'s weights sharded along
+    "model" (shard_transformer) for the local ranks, the optimizer is an
+    Adam at ADAM_SETTINGS over them, and tokens and targets are the
+    process's share of the entry batch (data_share: its data ranks'
+    parts). step is make_dp_tp_train_step's over the process mesh: the
+    row-parallel and gradient sums are the cross-process B3. It returns
+    the global mean loss; its context to close is step.context."""
+    ctx, mesh = _process_mesh(rank, size, store_address, DP_TP_MESH, device,
+                              device_hostname)
+    _, (model, tokens) = entry(mesh.device)
+    tp_model = shard_transformer(model, mesh, "model")
+    optimizer = torch.optim.Adam(tp_model.parameters(), **ADAM_SETTINGS)
+    step = make_dp_tp_train_step(mesh, "data", "model")
+    step.context, step.mesh = ctx, mesh
+    return step, (tp_model, optimizer, data_share(tokens, mesh),
+                  data_share(_entry_targets(tokens), mesh))
+
+
+def fused_mlp_step(x, w_up, w_down, dy, mesh):
+    """Forward and backward of the fused Megatron-SP MLP along "model":
+    allgather_matmul_dense (B5b) up, the tanh GELU, row_parallel_dense_
+    scattered (B5a) down; (y, (dx, dw_up, dw_down)), the gradients those
+    of sum(y * dy) (B5a's VJP is B4b and two dots, B5b's is B5a with w
+    transposed and one dot)."""
+    leaves = [t.detach().requires_grad_() for t in (x, w_up, w_down)]
+    with torch.enable_grad():
+        h = allgather_matmul_dense(leaves[0], leaves[1], "model", mesh=mesh)
+        y = row_parallel_dense_scattered(F.gelu(h, approximate="tanh"),
+                                         leaves[2], "model", mesh=mesh)
+        grads = torch.autograd.grad(y, leaves, dy)
+    return y.detach(), grads
+
+
+def _fused_mlp_draws(dev: torch.device, ranks):
+    """fused_mlp_entry's x, w_up, w_down and dy for flat `ranks`: x (1024,
+    d_model), w_up (d_model, d_ff) / sqrt(d_model), w_down (d_ff, d_model) /
+    sqrt(d_ff) and dy (1024, d_model) drawn in that order from
+    np.random.RandomState(0); x and dy split by rows, w_up by columns and
+    w_down by rows over the ring; bf16."""
+    n = FUSED_MLP_MESH["model"]
+    d, f = ENTRY_CONFIG.d_model, ENTRY_CONFIG.d_ff
+    rng = np.random.RandomState(0)
+    x = rng.randn(FUSED_MLP_ROWS, d)
+    w_up = rng.randn(d, f) / math.sqrt(d)
+    w_down = rng.randn(f, d) / math.sqrt(f)
+    dy = rng.randn(FUSED_MLP_ROWS, d)
+    shards = (x.reshape(n, -1, d), w_up.reshape(d, n, -1).transpose(1, 0, 2),
+              w_down.reshape(n, -1, d), dy.reshape(n, -1, d))
+    return tuple(torch.as_tensor(np.ascontiguousarray(
+        t[list(ranks)]).astype(np.float32)).to(dev, torch.bfloat16)
+        for t in shards)
+
+
+def fused_mlp_entry(device="cuda"):
+    """The fused MLP path: (fused_mlp_step, (x, w_up, w_down, dy, mesh)) on
+    `device`, a mesh FUSED_MLP_MESH of ranks on that device and the world
+    tensors of _fused_mlp_draws: x and dy (4, 256, 256), w_up and w_down
+    shards (4, 256, 256), bf16."""
+    dev = resolve_device(device)
+    n = FUSED_MLP_MESH["model"]
+    mesh = make_mesh(FUSED_MLP_MESH, devices=[dev] * n)
+    return fused_mlp_step, (*_fused_mlp_draws(dev, range(n)), mesh)
+
+
+def multihost_fused_mlp_entry(rank: int, size: int, store_address: str,
+                              device="cuda",
+                              device_hostname: Optional[str] = None):
+    """fused_mlp_entry() split over processes: (step, (x, w_up, w_down, dy,
+    mesh)) for process `rank` of `size`, the tensors the rows of its ranks
+    of a process mesh FUSED_MLP_MESH; step is fused_mlp_step (B5b, B5a and
+    B4b across processes), its context to close step.context."""
+    ctx, mesh = _process_mesh(rank, size, store_address, FUSED_MLP_MESH,
+                              device, device_hostname)
+
+    def step(*args):
+        return fused_mlp_step(*args)
+
+    step.context, step.mesh = ctx, mesh
+    return step, (*_fused_mlp_draws(mesh.device, mesh.local_ranks), mesh)
 
 
 def sp_step(attn, q, k, v, mesh):
@@ -352,8 +471,12 @@ def expert_mlp(x: torch.Tensor, w_up: torch.Tensor,
                w_down: torch.Tensor) -> torch.Tensor:
     """Each rank's expert, the flagship's MLP: gelu(x @ w_up) @ w_down with
     the tanh GELU, over world tensors x (P, rows, d), w_up (P, d, d_ff),
-    w_down (P, d_ff, d) (cuBLAS products, as XLA's outside any kernel)."""
-    return torch.bmm(F.gelu(torch.bmm(x, w_up), approximate="tanh"), w_down)
+    w_down (P, d_ff, d) (cuBLAS products, as XLA's outside any kernel):
+    one 2D product per rank, so a process that holds some of the ranks
+    computes their rows bit for bit as the world does."""
+    return torch.stack([
+        F.gelu(x[r] @ w_up[r], approximate="tanh") @ w_down[r]
+        for r in range(x.shape[0])])
 
 
 def ep_step(tokens, expert_idx, w_up, w_down, mesh):
@@ -378,18 +501,44 @@ def ep_entry(device="cuda"):
     dev = resolve_device(device)
     n = EP_MESH["expert"]
     mesh = make_mesh(EP_MESH, devices=[dev] * n)
+    return ep_step, (*_ep_draws(dev, range(n)), mesh)
+
+
+def _ep_draws(dev: torch.device, ranks):
+    """ep_entry's tokens, expert_idx, w_up and w_down, the rows of flat
+    `ranks`."""
+    n = EP_MESH["expert"]
     d, f = ENTRY_CONFIG.d_model, ENTRY_CONFIG.d_ff
     rng = np.random.RandomState(0)
     tokens = rng.randn(n, EP_TOKENS, d)
     expert_idx = rng.randint(0, n, (n, EP_TOKENS))
     w_up = rng.randn(n, d, f) / math.sqrt(d)
     w_down = rng.randn(n, f, d) / math.sqrt(f)
+    rows = list(ranks)
 
     def bf16(x):
-        return torch.as_tensor(x.astype(np.float32)).to(dev, torch.bfloat16)
+        return torch.as_tensor(x[rows].astype(np.float32)).to(
+            dev, torch.bfloat16)
 
-    return ep_step, (bf16(tokens), torch.as_tensor(expert_idx, device=dev),
-                     bf16(w_up), bf16(w_down), mesh)
+    return (bf16(tokens), torch.as_tensor(expert_idx[rows], device=dev),
+            bf16(w_up), bf16(w_down))
+
+
+def multihost_ep_entry(rank: int, size: int, store_address: str,
+                       device="cuda", device_hostname: Optional[str] = None):
+    """ep_entry() split over processes: (step, (tokens, expert_idx, w_up,
+    w_down, mesh)) for process `rank` of `size`, the tensors ep_entry()'s
+    draws at the rows of its ranks of a process mesh EP_MESH; step is
+    ep_step (its dispatch and combine, and their VJPs, the cross-process
+    B8), its context to close step.context."""
+    ctx, mesh = _process_mesh(rank, size, store_address, EP_MESH, device,
+                              device_hostname)
+
+    def step(*args):
+        return ep_step(*args)
+
+    step.context, step.mesh = ctx, mesh
+    return step, (*_ep_draws(mesh.device, mesh.local_ranks), mesh)
 
 
 def ring_variant_step(variant, x, mesh):

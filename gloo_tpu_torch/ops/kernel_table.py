@@ -22,7 +22,8 @@ rank and layer; a 1F1B step (parallel/pp.py) B1 twice per tick (the
 forward and the recompute) and B2 once; a GPipe forward B1 once per
 tick. PR 21 added the cross-process instances of B3, B4a and B4b (one
 cooperative launch per process over CUDA IPC peer-mapped memory, for a
-process mesh of tpu/multihost.py); their statuses say so last.
+process mesh of tpu/multihost.py); their statuses say so last. PR 22
+added those of B5a, B5b and B8 in the same way.
 tests/test_torch_isolation.py holds this table against the JAX sources.
 """
 
@@ -66,10 +67,10 @@ KERNELS = (
            "redesigned, PR 12; f16, d 256, rows > 65535, PR 18"),
     Kernel("B5a", _O, "_matmul_rs_kernel", 38, 185, "matmul_reduce_scatter",
            "ported: gloo_tpu_torch/csrc/overlap.cu; redesigned, PR 7; "
-           "f16, PR 18"),
+           "f16, PR 18; across processes (CUDA IPC), PR 22"),
     Kernel("B5b", _O, "_ag_matmul_kernel", 205, 294, "allgather_matmul",
            "ported: gloo_tpu_torch/csrc/overlap.cu; redesigned, PR 7; "
-           "f16, PR 18"),
+           "f16, PR 18; across processes (CUDA IPC), PR 22"),
     Kernel("B3", _R, "_ring_allreduce_kernel", 63, 183, "ring_allreduce",
            "ported: gloo_tpu_torch/csrc/ring.cu; redesigned, PR 8; "
            "across processes (CUDA IPC), PR 21"),
@@ -92,5 +93,6 @@ KERNELS = (
            "ported: gloo_tpu_torch/csrc/ring.cu; redesigned, PR 11; "
            "across processes (CUDA IPC), PR 21"),
     Kernel("B8", _R, "_alltoall_kernel", 1109, 1178, "pallas_alltoall",
-           "ported: gloo_tpu_torch/csrc/alltoall.cu; redesigned, PR 10"),
+           "ported: gloo_tpu_torch/csrc/alltoall.cu; redesigned, PR 10; "
+           "across processes (CUDA IPC), PR 22"),
 )

@@ -21,7 +21,15 @@ no kernel runs.
 Both are differentiable and exactly dual, as in JAX: B5a's VJP is the ring
 allgather (B4b) of the cotangent and two dots, B5b's is B5a of the
 cotangent with w transposed and one dot (the gathered x is kept from the
-forward).
+forward). The dots are one 2D product per rank, so a process of a process
+mesh computes its rows bit for bit as the one-process world does.
+
+On a process mesh (tpu/multihost.py) both take this process's local x
+and w (local ranks, ...) and return its local result: on CUDA tensors
+one launch of the kernel's cross-process instance (csrc/overlap.cu's
+gtt_overlap_peer) or an error; on CPU tensors the twin on the world
+gathered through the host plane. The VJPs cross processes too: B5a's
+through the cross-process B4b, B5b's through the cross-process B5a.
 
 On CUDA tensors each wrapper launches its kernel or raises; on CPU tensors
 it runs its plain twin, which walks the ring step by step with the
@@ -33,23 +41,27 @@ step in the element type, as the TPU kernel rounds it.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import TYPE_CHECKING, NamedTuple
 
 import torch
 
 from gloo_tpu_torch import _build
 from gloo_tpu_torch.ops.ring import (KERNEL_DTYPES, KERNEL_MAX_RANKS,
-                                     _check_rows, _raise_on, _ring_size,
-                                     _stream, ring_allgather,
-                                     ring_allgather_plain)
+                                     _check_rows, _gather_world,
+                                     _local_table, _raise_on, _ring_size,
+                                     _stream, resident_blocks,
+                                     ring_allgather, ring_allgather_plain)
 
 if TYPE_CHECKING:
     from gloo_tpu_torch.tpu.mesh import Mesh
 
 _lib: ctypes.CDLL | None = None
-# Most co-resident blocks of the overlap kernels per (device index, bytes
-# of shared memory per block).
-_max_blocks: dict[tuple[int, int], int] = {}
+# Most co-resident blocks of the overlap kernels (and of their
+# cross-process instances) per bytes of shared memory per block, then per
+# device index.
+_max_blocks: dict[int, dict[int, int]] = {}
+_peer_max_blocks: dict[int, dict[int, int]] = {}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _IP = ctypes.POINTER(ctypes.c_int)
@@ -135,8 +147,19 @@ def _overlap_lib() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        lib.gtt_overlap_max_blocks.argtypes = [_I, _IP]
-        lib.gtt_overlap_max_blocks.restype = ctypes.c_int
+        for name in ("gtt_overlap_max_blocks",
+                     "gtt_overlap_peer_max_blocks"):
+            getattr(lib, name).argtypes = [_I, _IP]
+            getattr(lib, name).restype = ctypes.c_int
+        lib.gtt_overlap_peer.argtypes = [
+            _I, _P, _L, _P, _L, _L, _L, _P, _P, _L, _P, _P, _I, _IP, _I,
+            _IP, _IP, _IP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+            _I, _P]
+        lib.gtt_overlap_peer.restype = ctypes.c_int
+        for name in ("gtt_overlap_peer_tile_flags",
+                     "gtt_overlap_peer_max_local"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = ctypes.c_int
         lib.gtt_overlap_flag_stride.argtypes = [_I]
         lib.gtt_overlap_flag_stride.restype = ctypes.c_int
         lib.gtt_error_string.argtypes = [_I]
@@ -146,10 +169,12 @@ def _overlap_lib() -> ctypes.CDLL:
 
 
 def _operands(x: torch.Tensor, w: torch.Tensor, axis_name: str,
-              mesh: Mesh) -> int:
-    """Checks that hold on every device; returns the ring size n."""
-    mesh.one_process("the collective matmuls (B5a, B5b)")
-    n = _ring_size(x, axis_name, mesh)
+              mesh: Mesh, world: bool = False) -> int:
+    """Checks that hold on every device; returns the ring size n. On a
+    process mesh x and w are this process's local tensors, unless `world`
+    (the twins, which take the world on any mesh)."""
+    n = _ring_size(x, axis_name, mesh, local_rows=len(mesh.local_ranks)
+                   if mesh.processes > 1 and not world else None)
     if w.dim() != 3 or w.shape[0] != x.shape[0] or w.shape[1] != x.shape[2]:
         raise ValueError(f"w must be (ranks={x.shape[0]}, k={x.shape[2]}, "
                          f"cols); got {tuple(w.shape)}")
@@ -164,6 +189,14 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b accumulated in f32 and rounded once to a's dtype (JAX's
     jnp.dot(..., preferred_element_type=f32).astype(dtype))."""
     return torch.matmul(a.float(), b.float()).to(a.dtype)
+
+
+def _rank_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """_dot of each rank's rows, one 2D product per rank: a batched
+    product may split its sums another way for another number of ranks
+    (on the CPU and in cuBLAS alike), and this one is the same whether a
+    process holds the world or its local ranks only."""
+    return torch.stack([_dot(a[r], b[r]) for r in range(a.shape[0])])
 
 
 def _kernel_w(w: torch.Tensor) -> torch.Tensor:
@@ -203,35 +236,44 @@ def _plan(x: torch.Tensor, w: torch.Tensor, rows: int):
     return x, w, plan
 
 
+def _check_kernel(x: torch.Tensor, ranks: int) -> None:
+    """The same errors on every process before any launch: x's dtype, and
+    the ranks of the world the kernels' tables hold."""
+    if x.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"the overlap kernels take bf16, f16 or f32, got "
+                        f"{x.dtype}")
+    if ranks > KERNEL_MAX_RANKS:
+        raise ValueError(f"the overlap kernels take at most "
+                         f"{KERNEL_MAX_RANKS} ranks, got {ranks}")
+
+
+def _resident(x: torch.Tensor, lib: ctypes.CDLL, plan: LaunchPlan,
+              peer: bool = False) -> int:
+    """The most blocks of the one-card (or the cross-process) kernels, with
+    the plan's shared memory, resident at once on x's card."""
+    query = lib.gtt_overlap_peer_max_blocks if peer \
+        else lib.gtt_overlap_max_blocks
+    cache = (_peer_max_blocks if peer else _max_blocks).setdefault(
+        plan.smem, {})
+    return resident_blocks(x, lib, functools.partial(query, plan.smem),
+                           cache)
+
+
 def _launch_setup(x: torch.Tensor, mesh: Mesh, axis_name: str,
                   plan: LaunchPlan):
     """(lib, slices, flag stride, ctypes ring tables): each rank's tiles
     spread over as many slices as can be resident beside the other ranks'
     (all of them at the fused MLP's shape)."""
-    if x.dtype not in KERNEL_DTYPES:
-        raise TypeError(f"the overlap kernels take bf16, f16 or f32, got "
-                        f"{x.dtype}")
     ranks = x.shape[0]
-    if ranks > KERNEL_MAX_RANKS:
-        raise ValueError(f"the overlap kernels take at most "
-                         f"{KERNEL_MAX_RANKS} ranks, got {ranks}")
+    _check_kernel(x, ranks)
     lib = _overlap_lib()
     stride = lib.gtt_overlap_flag_stride(mesh.axis_size(axis_name))
-    index = x.device.index if x.device.index is not None \
-        else torch.cuda.current_device()
-    key = (index, plan.smem)
-    if key not in _max_blocks:
-        resident = ctypes.c_int(0)
-        with torch.cuda.device(index):
-            _raise_on(lib.gtt_overlap_max_blocks(plan.smem,
-                                                 ctypes.byref(resident)),
-                      "occupancy query", lib)
-        _max_blocks[key] = resident.value
-    per_rank = _max_blocks[key] // ranks
+    resident = _resident(x, lib, plan)
+    per_rank = resident // ranks
     if per_rank < 1:
         raise RuntimeError(f"{ranks} ranks need {ranks} co-resident blocks "
                            f"of {plan.smem} bytes of shared memory; the "
-                           f"card holds {_max_blocks[key]}")
+                           f"card holds {resident}")
     tables = [(ctypes.c_int * ranks)(*t)
               for t in mesh.ring_neighbors(axis_name)]
     return lib, min(per_rank, plan.tiles), stride, tables
@@ -239,6 +281,70 @@ def _launch_setup(x: torch.Tensor, mesh: Mesh, axis_name: str,
 
 def _plan_args(plan: LaunchPlan) -> tuple[int, int, int, int]:
     return plan.slabs, plan.ring, int(plan.w_resident), plan.smem
+
+
+# ---- B5a and B5b across processes ----
+
+def _peer_launch(rs: bool, x: torch.Tensor, w: torch.Tensor, axis_name: str,
+                 mesh: Mesh, rows: int):
+    """One cross-process launch of B5a (`rs`) or B5b on this process's
+    local x (local ranks, n rows or rows, k) and w (local ranks, k, cols),
+    `rows` the rows of one chunk: (out, None) for B5a, (y, gx) for B5b.
+    x, w and the outputs stay in this process's memory; what neighbours
+    write (B5a's comm slots, B5b's gx, both kernels' flags) lies in the
+    mesh's peer workspace. The family's tag and barrier counts before the
+    call come from the workspace ("overlap_tag", "overlap_barrier")."""
+    _check_kernel(x, mesh.size)
+    n = mesh.axis_size(axis_name)
+    local, _, k = x.shape
+    cols = w.shape[2]
+    x, w, plan = _plan(x, w, rows)
+    lib = _overlap_lib()
+    if local > lib.gtt_overlap_peer_max_local():
+        raise ValueError(f"the cross-process overlap kernels take at most "
+                         f"{lib.gtt_overlap_peer_max_local()} local ranks "
+                         f"per process, got {local}")
+    stride = lib.gtt_overlap_flag_stride(n)
+    resident = _resident(x, lib, plan, peer=True)
+    ws = mesh.workspace
+    elt = x.element_size()
+    with torch.cuda.device(x.device):
+        per_rank = ws.agree(f"overlap/{plan.smem}", resident // local)
+        if per_rank < 1:
+            raise RuntimeError(f"{local} local ranks need {local} "
+                               f"co-resident blocks of {plan.smem} bytes of "
+                               f"shared memory; the card holds {resident}")
+        slices = min(per_rank, plan.tiles)
+        regions = {"ov_flags": (lib.gtt_overlap_peer_tile_flags()
+                                + plan.tiles * stride) * 4}
+        if rs:
+            regions["comm"] = 2 * plan.tiles * 128 * (
+                16 if elt == 2 else 32) * 8
+        else:
+            regions["gx"] = n * rows * plan.x_ld * elt
+        ws.reserve(regions)
+        out = torch.empty((local, rows if rs else n * rows, cols),
+                          dtype=x.dtype, device=x.device)
+        my, right, left = ((ctypes.c_int * mesh.size)(*t)
+                           for t in mesh.ring_neighbors(axis_name))
+        empty = (_P * mesh.size)()
+        ws.start_together(torch.cuda.current_stream(x.device))
+        err = lib.gtt_overlap_peer(
+            int(rs), x.data_ptr(), plan.x_ld, w.data_ptr(), *_w_strides(w),
+            out.data_ptr(), empty if rs else ws.table("gx"),
+            0 if rs else ws.caps["gx"], ws.table("comm") if rs else empty,
+            ws.table("ov_flags"), stride, _local_table(mesh), local, my,
+            right, left, mesh.size, n, slices, rows, k, cols,
+            *_plan_args(plan), KERNEL_DTYPES[x.dtype],
+            ws.advance("overlap_tag", n - 1),
+            ws.advance("overlap_barrier", (n - 1) * slices), _stream(x))
+        _raise_on(err, "allgather_matmul" if not rs
+                  else "matmul_reduce_scatter", lib)
+        if rs:
+            return out, None
+        # gx is the workspace's until the next call: the caller's copy.
+        gx = ws.view("gx", x.dtype, (n * rows, plan.x_ld))
+        return out, (gx if plan.x_ld == k else gx[..., :k]).clone()
 
 
 # ---- B5a: matmul fused with the ring reduce-scatter ----
@@ -251,6 +357,14 @@ def _matmul_rs(x: torch.Tensor, w: torch.Tensor, axis_name: str,
     _check_rows(m, n)
     if n == 1:
         return _dot(x, w)
+    if mesh.processes > 1:
+        if x.device.type == "cpu":
+            return matmul_reduce_scatter_plain(
+                _gather_world(x, mesh), _gather_world(w, mesh), axis_name,
+                mesh)[torch.tensor(mesh.local_ranks)]
+        out = _peer_launch(True, x, w, axis_name, mesh, m // n)[0]
+        matmul_reduce_scatter.launches += 1
+        return out
     if x.device.type == "cpu":
         return matmul_reduce_scatter_plain(x, w, axis_name, mesh)
     rows = m // n
@@ -301,9 +415,9 @@ class _MatmulReduceScatter(torch.autograd.Function):
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         gfull = ring_allgather(g.contiguous(), ctx.axis_name, ctx.mesh)
-        dx = _dot(gfull, w.transpose(1, 2)) \
+        dx = _rank_dot(gfull, w.transpose(1, 2)) \
             if ctx.needs_input_grad[0] else None
-        dw = _dot(x.transpose(1, 2), gfull) \
+        dw = _rank_dot(x.transpose(1, 2), gfull) \
             if ctx.needs_input_grad[1] else None
         return dx, dw, None, None
 
@@ -330,7 +444,7 @@ def matmul_reduce_scatter_plain(x: torch.Tensor, w: torch.Tensor,
     """B5a's arithmetic in plain PyTorch: stage partial(my - 1), then at
     step s receive the left neighbour's running sum and add partial
     (my - 2 - s), one add in the element type per step."""
-    n = _operands(x, w, axis_name, mesh)
+    n = _operands(x, w, axis_name, mesh, world=True)
     ranks, m, k = x.shape
     _check_rows(m, n)
     my, _, left = (torch.tensor(t, device=x.device)
@@ -359,6 +473,16 @@ def allgather_matmul_fwd(x: torch.Tensor, w: torch.Tensor, axis_name: str,
     cols = w.shape[2]
     if n == 1:
         return _dot(x, w), x
+    if mesh.processes > 1:
+        if x.device.type == "cpu":
+            mine = torch.tensor(mesh.local_ranks)
+            y, gx = allgather_matmul_plain(
+                _gather_world(x, mesh), _gather_world(w, mesh), axis_name,
+                mesh)
+            return y[mine], gx[mine]
+        y, gx = _peer_launch(False, x, w, axis_name, mesh, rows)
+        allgather_matmul.launches += 1
+        return y, gx
     if x.device.type == "cpu":
         return allgather_matmul_plain(x, w, axis_name, mesh)
     x, w, plan = _plan(x, w, rows)
@@ -398,7 +522,7 @@ class _AllgatherMatmul(torch.autograd.Function):
         g = g.contiguous()
         dx = _matmul_rs(g, w.transpose(1, 2), ctx.axis_name, ctx.mesh) \
             if ctx.needs_input_grad[0] else None
-        dw = _dot(gx.transpose(1, 2), g) \
+        dw = _rank_dot(gx.transpose(1, 2), g) \
             if ctx.needs_input_grad[1] else None
         return dx, dw, None, None
 
@@ -425,6 +549,6 @@ def allgather_matmul_plain(x: torch.Tensor, w: torch.Tensor, axis_name: str,
     steps that forward chunk my - s), then each chunk's product rounded
     once; every y element is one product, so the order of the chunks does
     not change it."""
-    _operands(x, w, axis_name, mesh)
+    _operands(x, w, axis_name, mesh, world=True)
     gx = ring_allgather_plain(x, axis_name, mesh)
     return _dot(gx, w), gx

@@ -52,8 +52,10 @@ launches the cross-process instance of its kernel (csrc/ring.cu's
 gtt_ring_peer, one cooperative launch per process over the peer-mapped
 workspace of tpu/peer.py) or raises; on CPU tensors it gathers the world
 through the mesh's host-plane Context, runs the twin and keeps the local
-rows, so the adds are the kernel's own. The variants and the all-to-all
-raise NotImplementedError on a process mesh (ROADMAP A.7).
+rows, so the adds are the kernel's own. The all-to-all does the same
+(csrc/alltoall.cu's gtt_alltoall_peer: every member reads the inputs in
+the workspace, each rank stores into its own output); the variants raise
+NotImplementedError on a process mesh (ROADMAP A.7).
 """
 
 from __future__ import annotations
@@ -105,6 +107,9 @@ _lib: ctypes.CDLL | None = None
 # of the cross-process instances (gtt_ring_peer_max_blocks).
 _max_blocks: dict[int, int] = {}
 _peer_max_blocks: dict[int, int] = {}
+# Ints of flags per (local rank, slice) of gtt_ring_peer: ring.cu's
+# kPeerFlags (the members barrier's and the exit barrier's).
+PEER_FLAGS = 2
 # gtt_ring_peer's modes.
 _PEER_MODES = {"ring_allreduce": 0, "ring_reduce_scatter": 1,
                "ring_allgather": 2}
@@ -367,9 +372,11 @@ def _peer_reserve(name: str, mesh: Mesh, axis_name: Axis,
     elt = torch.tensor([], dtype=dtype).element_size()
     ws = mesh.workspace
     with torch.cuda.device(mesh.device):
-        ws.reserve(rows * cols * elt, out_rows * out_cols * elt,
-                   min(resident // local, 65535))
-    return lib, ws
+        slices = ws.agree("ring", min(resident // local, 65535))
+        ws.reserve({"in": rows * cols * elt,
+                    "out": out_rows * out_cols * elt,
+                    "ring_flags": slices * PEER_FLAGS * 4})
+    return lib, ws, slices
 
 
 def peer_input(name: str, mesh: Mesh, axis_name: Axis, dtype: torch.dtype,
@@ -379,8 +386,8 @@ def peer_input(name: str, mesh: Mesh, axis_name: Axis, dtype: torch.dtype,
     ("ring_allreduce", "ring_reduce_scatter" or "ring_allgather") on that
     shape: a call on this very tensor copies nothing in. Valid until the
     workspace grows or closes."""
-    _, ws = _peer_reserve(name, mesh, axis_name, dtype, rows, cols)
-    return ws.inputs(dtype, (rows, cols))
+    _, ws, _ = _peer_reserve(name, mesh, axis_name, dtype, rows, cols)
+    return ws.view("in", dtype, (rows, cols))
 
 
 def _peer_launch(name: str, x: torch.Tensor, axis_name: Axis,
@@ -390,16 +397,17 @@ def _peer_launch(name: str, x: torch.Tensor, axis_name: Axis,
     workspace's input rows (unless it is them), every process of the mesh
     launches gtt_ring_peer over the same tables, and a copy of the output
     rows comes back. The flags' count before the call comes from the
-    workspace, which adds n - 1 for the call."""
+    workspace's "ring" family, to which the call adds n - 1."""
     n = mesh.axis_size(axis_name)
     local, rows, cols = x.shape
-    lib, ws = _peer_reserve(name, mesh, axis_name, x.dtype, rows, cols)
+    lib, ws, slices = _peer_reserve(name, mesh, axis_name, x.dtype, rows,
+                                    cols)
     out_shape = _out_shape(name, rows, cols, n)
     elt = x.element_size()
     in_bytes = rows * cols * elt
     with torch.cuda.device(x.device):
-        if not ws.holds_input(x):
-            ws.inputs(x.dtype, (rows, cols)).copy_(x)
+        if not ws.holds("in", x):
+            ws.view("in", x.dtype, (rows, cols)).copy_(x)
         if name == "ring_allgather":
             # The workspace's rows are ALIGN-aligned: the unit divides the
             # chunk alone.
@@ -413,11 +421,12 @@ def _peer_launch(name: str, x: torch.Tensor, axis_name: Axis,
         my, _, _, members = _ctypes_tables(mesh, _axis_key(axis_name))
         ws.start_together(torch.cuda.current_stream(x.device))
         err = lib.gtt_ring_peer(
-            _PEER_MODES[name], *ws.tables, _local_table(mesh), local, my,
-            members, mesh.size, n, ws.slices, units, dtype, vec,
-            ws.advance(n), _stream(x))
+            _PEER_MODES[name], ws.table("in"), ws.table("out"),
+            ws.table("ring_flags"), _local_table(mesh), local, my, members,
+            mesh.size, n, slices, units, dtype, vec,
+            ws.advance("ring", n - 1), _stream(x))
         _raise_on(err, name, lib)
-        return ws.outputs(x.dtype, out_shape).clone()
+        return ws.view("out", x.dtype, out_shape).clone()
 
 
 def _across(wrapper, plain, x: torch.Tensor, axis_name: Axis,
@@ -1008,6 +1017,7 @@ def ring_allreduce_bidir_plain(x: torch.Tensor, axis_name: Axis,
 
 _a2a_lib: ctypes.CDLL | None = None
 _a2a_max_blocks: dict[int, int] = {}
+_a2a_peer_max_blocks: dict[int, int] = {}
 # Threads per block of csrc/alltoall.cu (kThreads), and units each thread
 # moves per member where runs are long: the wrapper asks for as many slices
 # as give every thread this many (one pass of the kernel's kUnroll), as far
@@ -1024,8 +1034,14 @@ def _alltoall_lib() -> ctypes.CDLL:
                                      _I, _I, _L, _L, _L, _L, _L, _L, _I, _I,
                                      _P]
         lib.gtt_alltoall.restype = ctypes.c_int
-        lib.gtt_alltoall_max_blocks.argtypes = [_IP]
-        lib.gtt_alltoall_max_blocks.restype = ctypes.c_int
+        lib.gtt_alltoall_peer.argtypes = [_P, _P, _L, _P, _IP, _I, _IP, _IP,
+                                          _I, _I, _I, _L, _L, _L, _L, _L,
+                                          _L, _I, _I, _I, _P]
+        lib.gtt_alltoall_peer.restype = ctypes.c_int
+        for name in ("gtt_alltoall_max_blocks",
+                     "gtt_alltoall_peer_max_blocks"):
+            getattr(lib, name).argtypes = [_IP]
+            getattr(lib, name).restype = ctypes.c_int
         lib.gtt_alltoall_flag_stride.argtypes = []
         lib.gtt_alltoall_flag_stride.restype = ctypes.c_int
         lib.gtt_error_string.argtypes = [_I]
@@ -1085,13 +1101,22 @@ def alltoall_plan(local, elt: int, n: int, split: int, concat: int,
 
 def _alltoall(x: torch.Tensor, axis_name: Axis, mesh: Mesh, split: int,
               concat: int) -> torch.Tensor:
-    mesh.one_process("alltoall")
-    n = _ring_size(x, axis_name, mesh, local_dims=None)
+    across = mesh.processes > 1
+    n = _ring_size(x, axis_name, mesh, local_dims=None,
+                   local_rows=len(mesh.local_ranks) if across else None)
     _check_rows(x.shape[1 + split], n)
     if n == 1:
         return x
     if x.device.type == "cpu":
+        if across:
+            ranks = torch.tensor(mesh.local_ranks)
+            return alltoall_plain(_gather_world(x, mesh), axis_name, mesh,
+                                  split, concat)[ranks]
         return alltoall_plain(x, axis_name, mesh, split, concat)
+    if across:
+        out = _alltoall_peer(x, axis_name, mesh, split, concat)
+        alltoall.launches += 1
+        return out
     _check_ranks(x.shape[0], "the all-to-all kernel")
     x = x.contiguous()
     ranks = x.shape[0]
@@ -1122,6 +1147,50 @@ def _alltoall(x: torch.Tensor, axis_name: Axis, mesh: Mesh, split: int,
     return out
 
 
+def _alltoall_peer(x: torch.Tensor, axis_name: Axis, mesh: Mesh, split: int,
+                   concat: int) -> torch.Tensor:
+    """One cross-process launch of B8 on this process's local tensor x
+    (local ranks, *local): x goes into the workspace's input rows, which
+    every member reads, and the result into a new local tensor. The flags'
+    count before the call comes from the workspace's "alltoall" family,
+    to which the call adds (n - 1) slices."""
+    _check_ranks(mesh.size, "the all-to-all kernel")
+    n = mesh.axis_size(axis_name)
+    lib = _alltoall_lib()
+    local = x.shape[0]
+    resident = resident_blocks(x, lib, lib.gtt_alltoall_peer_max_blocks,
+                               _a2a_peer_max_blocks)
+    if resident < local:
+        raise RuntimeError(f"{local} local ranks need {local} co-resident "
+                           f"blocks; the card holds {resident}")
+    ws = mesh.workspace
+    elt = x.element_size()
+    with torch.cuda.device(x.device):
+        per_rank = ws.agree("alltoall", min(resident // local, 65535))
+        ws.reserve({"in": x[0].numel() * elt, "a2a_flags": PEER_FLAGS * 4})
+        xin = ws.view("in", x.dtype, x.shape[1:])
+        if not ws.holds("in", x):
+            xin.copy_(x)
+        # The workspace's rows are ALIGN-aligned and a new output starts on
+        # the allocator's 512-byte boundary: the geometry limits the unit.
+        plan = alltoall_plan(x.shape[1:], elt, n, split, concat)
+        out = torch.empty((local, *plan.out_local), dtype=x.dtype,
+                          device=x.device)
+        if out.numel() == 0:
+            return out
+        slices = max(1, min(per_rank, plan.want))
+        my, _, _, members = _ctypes_tables(mesh, _axis_key(axis_name))
+        ws.start_together(torch.cuda.current_stream(x.device))
+        err = lib.gtt_alltoall_peer(
+            ws.table("in"), out.data_ptr(), out[0].numel() * elt,
+            ws.table("a2a_flags"), _local_table(mesh), local, my, members,
+            mesh.size, n, slices, plan.block, plan.in_run, plan.in_pitch,
+            plan.out_run, plan.out_pitch, plan.run, plan.unit, plan.group,
+            ws.advance("alltoall", (n - 1) * slices), _stream(x))
+    _raise_on(err, "alltoall", lib)
+    return out
+
+
 class _Alltoall(torch.autograd.Function):
     """lax.all_to_all's transpose: the VJP is the same all-to-all of the
     cotangent with the split and concat axes swapped (for the block swap
@@ -1149,8 +1218,9 @@ def alltoall(x: torch.Tensor, axis_name: Axis, mesh: Mesh,
     One launch on the card, reading x as it lies (made contiguous first if
     it is not) into a new output. Differentiable (the VJP swaps the
     axes)."""
-    mesh.one_process("alltoall")
-    n = _ring_size(x, axis_name, mesh, local_dims=None)
+    n = _ring_size(x, axis_name, mesh, local_dims=None,
+                   local_rows=len(mesh.local_ranks)
+                   if mesh.processes > 1 else None)
     split = split_axis % (x.dim() - 1)
     concat = concat_axis % (x.dim() - 1)
     if torch.is_grad_enabled() and x.requires_grad and n > 1:

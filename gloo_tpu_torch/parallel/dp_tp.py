@@ -44,6 +44,14 @@ After each step the replicated copies are bitwise equal on every rank and
 the shards bitwise equal across data ranks: B3 leaves every rank of a ring
 bitwise the same sum, both data rings add the same values in the same
 ring order, and Adam is elementwise.
+
+On a process mesh (tpu/multihost.py, e.g. one process per rank) every
+world tensor above holds the local ranks' rows only: the parameters,
+their gradients and the batch (``data_share``: the parts of the global
+batch of the local ranks' data indices). The row-parallel sums and the
+two gradient sums are then the cross-process B3, over the "model" and
+"data" rings alike; on the CPU they run the twin on the world gathered
+through the host plane.
 """
 
 from __future__ import annotations
@@ -110,7 +118,7 @@ class TPTransformer(nn.Module):
                 raise ValueError(f"{what} {count} is not divisible by the "
                                  f"{axis!r} axis size {m}")
         self.mesh, self.axis = mesh, axis
-        ranks, dev = mesh.size, mesh.device
+        ranks, dev = len(mesh.local_ranks), mesh.device
         self.embed = nn.Parameter(
             torch.empty(ranks, cfg.vocab_size, cfg.d_model, device=dev))
         if not cfg.use_rope:
@@ -122,7 +130,7 @@ class TPTransformer(nn.Module):
 
     def _attention(self, layer, x, b, t):
         """x (P, b t, d) -> the allreduced attention output (P, b t, d)."""
-        cfg, ranks = self.cfg, self.mesh.size
+        cfg, ranks = self.cfg, x.shape[0]
         m = self.mesh.shape[self.axis]
         hd, h, h_kv = cfg.head_dim, cfg.n_heads // m, cfg.kv_heads // m
         qkv = tp.column_parallel_dense(x, layer.wqkv.to(x.dtype), self.axis)
@@ -207,14 +215,15 @@ def _sharders(cfg: TransformerConfig, m: int):
 def shard_state(state: dict, cfg: TransformerConfig, mesh: Mesh,
                 axis: str = "model") -> dict:
     """One-card Transformer state -> world tensors: rank r's row is the
-    replicated parameter or its shard along `axis`."""
+    replicated parameter or its shard along `axis` (on a process mesh, the
+    local ranks' rows)."""
     sharders = _sharders(cfg, mesh.shape[axis])
     index = mesh.ring_index(axis)
     world = {}
     for name, full in state.items():
         split = sharders.get(name.split(".")[-1])
         rows = [full if split is None else split[0](full, index[r])
-                for r in range(mesh.size)]
+                for r in mesh.local_ranks]
         world[name] = torch.stack(rows).to(mesh.device)
     return world
 
@@ -223,7 +232,9 @@ def unshard_state(world: dict, cfg: TransformerConfig, mesh: Mesh,
                   axis: str = "model") -> dict:
     """The reverse, from flat rank 0's model ring: replicated tensors from
     rank 0, each sharded one joined from the ring's shards in ring
-    order. Takes parameters or their gradients."""
+    order. Takes parameters or their gradients. On a process mesh the
+    ring's shards lie in other processes: NotImplementedError."""
+    mesh.one_process("unshard_state")
     sharders = _sharders(cfg, mesh.shape[axis])
     ring = mesh.ring_members(axis)[0]
     state = {}
@@ -262,6 +273,8 @@ def make_dp_tp_train_step(mesh: Mesh, data_axis: str = "data",
     step of a TPTransformer on `mesh` (its `model_axis` the TP axis).
     tokens and targets are the global batch (B, seq), B divisible by the
     data axis size D; rank r takes part (its position along `data_axis`).
+    On a process mesh they are this process's share of it (data_share),
+    and the model holds the local ranks' rows.
     The optimizer runs over the world parameters (elementwise, so it is
     every rank's optimizer at once). Returns the global mean loss, a 0-d
     f32 tensor computed before the update."""
@@ -273,10 +286,11 @@ def make_dp_tp_train_step(mesh: Mesh, data_axis: str = "data",
             raise ValueError(f"the model is tensor parallel along "
                              f"{model.axis!r} of another mesh; the step "
                              f"takes {model_axis!r} of {mesh}")
-        if tokens.shape[0] % d_size:
+        parts = len(_data_parts(mesh, data_axis))
+        if tokens.shape[0] % parts:
             raise ValueError(f"batch dim {tokens.shape[0]} is not divisible "
-                             f"by the axis size {d_size}")
-        ranks, weight = mesh.size, 1.0 / (m_size * d_size)
+                             f"by the {parts} data parts it holds")
+        ranks, weight = len(mesh.local_ranks), 1.0 / (m_size * d_size)
         optimizer.zero_grad(set_to_none=True)
         losses = model.loss(world_batch(tokens, mesh, data_axis),
                             world_batch(targets, mesh, data_axis))
@@ -314,10 +328,34 @@ def make_dp_tp_train_step(mesh: Mesh, data_axis: str = "data",
     return step
 
 
+def _data_parts(mesh: Mesh, data_axis: str) -> list[int]:
+    """The data indices of this process's ranks, in order: every index on
+    a one-process mesh."""
+    index = mesh.ring_index(data_axis)
+    return sorted({index[r] for r in mesh.local_ranks})
+
+
+def data_share(x: torch.Tensor, mesh: Mesh,
+               data_axis: str = "data") -> torch.Tensor:
+    """This process's share of the global batch (B, ...): the parts of the
+    local ranks' positions along `data_axis`, of B / D rows each, in
+    order (the whole batch on a one-process mesh)."""
+    d_size = mesh.shape[data_axis]
+    if x.shape[0] % d_size:
+        raise ValueError(f"batch dim {x.shape[0]} is not divisible by the "
+                         f"axis size {d_size}")
+    parts = x.view(d_size, -1, *x.shape[1:])[_data_parts(mesh, data_axis)]
+    return parts.reshape(-1, *x.shape[1:])
+
+
 def world_batch(x: torch.Tensor, mesh: Mesh,
                 data_axis: str = "data") -> torch.Tensor:
     """The global batch (B, ...) as a world tensor (P, B / D, ...): rank r
-    holds the part of its position along `data_axis`."""
-    d_size = mesh.shape[data_axis]
-    idx = torch.tensor(mesh.ring_index(data_axis), device=x.device)
-    return x.view(d_size, -1, *x.shape[1:])[idx]
+    holds the part of its position along `data_axis`. On a process mesh x
+    is this process's share (data_share) and the result has the local
+    ranks' rows."""
+    parts = _data_parts(mesh, data_axis)
+    index = mesh.ring_index(data_axis)
+    idx = torch.tensor([parts.index(index[r]) for r in mesh.local_ranks],
+                       device=x.device)
+    return x.view(len(parts), -1, *x.shape[1:])[idx]

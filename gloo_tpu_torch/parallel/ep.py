@@ -7,6 +7,9 @@ the local expert and combined back with a second all-to-all. Both
 exchanges are ``spmd.alltoall``, one launch of B8 each (and one each in
 the backward). The routing around them is plain torch over world tensors.
 
+On a process mesh (tpu/multihost.py) tokens and expert_idx are this
+process's local rows, and both exchanges are the cross-process B8.
+
 Fixed capacity keeps shapes static, as in JAX: tokens past an expert's
 capacity, and tokens assigned to an expert that does not exist, are dropped
 (their output is zero).

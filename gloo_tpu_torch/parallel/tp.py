@@ -18,6 +18,16 @@ plain product of the same FLOPs) or the caller's. Where either is missing
 the ``*_auto`` wrappers take the unfused arm. ``TPUCOLL_TP_OVERLAP=
 fused|unfused|auto`` forces either arm, read at every call (PyTorch runs
 eagerly, so there is no trace-time capture to beware of).
+
+On a process mesh (tpu/multihost.py) every function takes this process's
+local tensors (one row per local rank) and the collectives are the
+kernels' cross-process instances. There the ``*_auto`` dispatch must
+agree in every process of a ring: one process in B5a while another is in
+B4a would hang the ring until the kernels' spin bound traps. So the
+inputs of the decision are made collective through the mesh's host
+plane: the processes exchange their TPUCOLL_TP_OVERLAP (raising in every
+process where they differ), their shares and their ratios, and decide on
+the least share and the least ratio (none where any process has none).
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ from gloo_tpu_torch.ops.overlap import (_dot, allgather_matmul,
                                         matmul_reduce_scatter)
 from gloo_tpu_torch.tpu import spmd
 from gloo_tpu_torch.tpu.mesh import Mesh, make_mesh
+from gloo_tpu_torch.tpu.peer import exchange
 from gloo_tpu_torch.utils.tracing import annotate
 
 
@@ -213,6 +224,36 @@ def _cached_ratio(m: int, k: int, axis_size: int, dtype) -> float | None:
     return _PROBE_CACHE.get((m, k, axis_size, str(dtype)))
 
 
+def _least(values):
+    return None if any(v is None for v in values) else min(values)
+
+
+def agreed_dispatch(mesh: Mesh, m: int, k: int, cols: int, axis_size: int,
+                    comm_share: float | None,
+                    ratio: float | None) -> bool:
+    """use_fused_overlap's decision, the same in every process of a
+    process mesh: every process's TPUCOLL_TP_OVERLAP, share and ratio go
+    through the mesh's host plane (collective), a mode that differs raises
+    ValueError in every process, and the decision takes the least share
+    and the least ratio. On a one-process mesh, use_fused_overlap
+    itself."""
+    if mesh.processes == 1:
+        return use_fused_overlap(m, k, cols, axis_size,
+                                 comm_share=comm_share, ratio=ratio)
+    mode = _overlap_mode() or "auto"
+    records = exchange(mesh.context, mesh.store,
+                       "gloo_tpu_torch/tp_dispatch",
+                       [mode, comm_share, ratio])
+    modes = [r[0] for r in records]
+    if len(set(modes)) > 1:
+        raise ValueError(f"TPUCOLL_TP_OVERLAP differs across the processes "
+                         f"of the mesh ({modes}, by process): the fused and "
+                         f"unfused arms cannot meet on one ring")
+    return use_fused_overlap(m, k, cols, axis_size,
+                             comm_share=_least([r[1] for r in records]),
+                             ratio=_least([r[2] for r in records]))
+
+
 def row_parallel_dense_scattered_auto(x_shard: torch.Tensor,
                                       w_shard: torch.Tensor, axis: str,
                                       comm_share: float | None = None,
@@ -222,13 +263,12 @@ def row_parallel_dense_scattered_auto(x_shard: torch.Tensor,
     use_fused_overlap: the fused B5a, or the plain dot with f32
     accumulation and spmd.reduce_scatter (B4a), the same (P, m / n, cols)
     result. The ratio defaults to this process's cached probe for
-    (m, k, n, dtype)."""
+    (m, k, n, dtype); on a process mesh the decision is agreed_dispatch's."""
     _, m, k = x_shard.shape
     p = spmd.size(axis, mesh=mesh)
     if ratio is None:
         ratio = _cached_ratio(m, k, p, x_shard.dtype)
-    if use_fused_overlap(m, k, w_shard.shape[2], p, comm_share=comm_share,
-                         ratio=ratio):
+    if agreed_dispatch(mesh, m, k, w_shard.shape[2], p, comm_share, ratio):
         return row_parallel_dense_scattered(x_shard, w_shard, axis,
                                             mesh=mesh)
     partial = _dot(x_shard, w_shard)
@@ -248,8 +288,7 @@ def allgather_matmul_dense_auto(x_rows_shard: torch.Tensor, w: torch.Tensor,
     p = spmd.size(axis, mesh=mesh)
     if ratio is None:
         ratio = _cached_ratio(rows * p, k, p, x_rows_shard.dtype)
-    if use_fused_overlap(rows * p, k, w.shape[2], p, comm_share=comm_share,
-                         ratio=ratio):
+    if agreed_dispatch(mesh, rows * p, k, w.shape[2], p, comm_share, ratio):
         return allgather_matmul_dense(x_rows_shard, w, axis, mesh=mesh)
     with annotate("gloo_tpu.tp.allgather_x"):
         gathered = spmd.allgather(x_rows_shard, axis, gather_axis=0,

@@ -12,6 +12,13 @@ counterpart.
 On a multi-axis mesh the group's P = mesh.shape[axis] rows are replicated
 over the other axes (as a P(axis) sharding is) and read back from the ring
 of flat rank 0.
+
+On a process mesh (tpu/multihost.py) every operand and result is this
+process's local tensor: one row per rank of ``mesh.local_ranks``, each
+its rank's value. The kernel-backed methods (allreduce and reduce with
+the sum, allgather, reduce_scatter with the sum, alltoall) run the
+kernels' cross-process instances; the rest raise NotImplementedError,
+as spmd's do there.
 """
 
 from __future__ import annotations
@@ -34,18 +41,25 @@ class CudaProcessGroup:
         self.mesh = mesh
         self.axis = axis
         self.size = mesh.shape[axis]
-        self._flat = len(mesh.axis_names) == 1
+        # The rows of an operand: the group's ranks, or on a process mesh
+        # the local ranks.
+        self._rows = self.size if mesh.processes == 1 \
+            else len(mesh.local_ranks)
+        self._flat = len(mesh.axis_names) == 1 or mesh.processes > 1
         self._ring_index = torch.tensor(mesh.ring_index(axis))
         self._ring0 = torch.tensor(mesh.ring_members(axis)[0])
 
     # ---- data movement helpers ----
 
     def shard(self, array) -> torch.Tensor:
-        """A (P, ...) host array as a tensor on the mesh's device."""
+        """A (P, ...) host array (on a process mesh, one row per local
+        rank) as a tensor on the mesh's device."""
         t = torch.as_tensor(np.asarray(array))
-        if t.shape[0] != self.size:
+        if t.shape[0] != self._rows:
             raise ValueError(
-                f"leading axis {t.shape[0]} != group size {self.size}")
+                f"leading axis {t.shape[0]} != "
+                f"{'group size' if self.mesh.processes == 1 else 'local ranks'}"
+                f" {self._rows}")
         return t.to(self.mesh.device)
 
     def unshard(self, tensor: torch.Tensor) -> np.ndarray:
@@ -53,7 +67,8 @@ class CudaProcessGroup:
 
     def _run(self, fn, x: torch.Tensor) -> torch.Tensor:
         """fn on the world tensor of x (the group's rows replicated over
-        the mesh's other axes), read back along the ring of flat rank 0."""
+        the mesh's other axes), read back along the ring of flat rank 0;
+        on a process mesh fn on the local tensor x itself."""
         if self._flat:
             return fn(x)
         out = fn(x[self._ring_index.to(x.device)])

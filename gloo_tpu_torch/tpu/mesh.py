@@ -18,6 +18,7 @@ as ``jax.devices()`` orders hosts), and ``local_ranks`` are this
 process's. Its collectives take a local tensor, the rows of
 ``local_ranks`` only, and run the ring kernels' cross-process instances
 over peer-mapped memory (tpu/peer.py); what has no such instance yet
+(the ring allreduce variants, spmd's collectives without a kernel)
 raises NotImplementedError naming MULTI_PROCESS_ITEM.
 
 The ring tables (``ring_members``, ``ring_index``, ``ring_neighbors``) are
@@ -120,8 +121,10 @@ class Mesh:
         if self.processes > 1:
             raise NotImplementedError(
                 f"{what} on a mesh over {self.processes} processes is "
-                f"{MULTI_PROCESS_ITEM}; the ring allreduce, reduce-scatter "
-                f"and allgather (ops.ring) and the DDP step take one")
+                f"{MULTI_PROCESS_ITEM}; the ring allreduce, reduce-scatter, "
+                f"allgather and all-to-all (ops.ring), the collective "
+                f"matmuls (ops.overlap), spmd's sum collectives, allgather "
+                f"and alltoall, and the DDP, dp x tp and MoE steps take one")
 
     def _names(self, axis: Axis) -> tuple[str, ...]:
         names = (axis,) if isinstance(axis, str) else tuple(axis)

@@ -6,8 +6,10 @@ that other processes own, addressable from inside a kernel. Here each
 process allocates one workspace with ``cudaMalloc`` (csrc/peer.cu),
 exports its IPC handle through the host plane's store, and opens every
 other process's handle; the ring kernels' cross-process instances
-(csrc/ring.cu, ``gtt_ring_peer``) then load and store through those
-pointers and signal through flags in them at system scope.
+(csrc/ring.cu's ``gtt_ring_peer``, csrc/alltoall.cu's
+``gtt_alltoall_peer``, csrc/overlap.cu's ``gtt_overlap_peer``) then load
+and store through those pointers and signal through flags in them at
+system scope.
 
 A dedicated allocation, not PyTorch's caching allocator: its base is
 known (an IPC handle maps a whole allocation), it is not carved into
@@ -15,13 +17,15 @@ expandable segments (``cudaIpcGetMemHandle`` refuses those), and it is
 freed only after every peer has closed its mapping. PyTorch sees it as a
 uint8 tensor through ``__cuda_array_interface__``.
 
-One process's workspace, per local rank in the order of
-``mesh.local_ranks``: the flags (slices x 2 int32: the members barrier's
-and the exit barrier's), the inputs (``in_cap`` bytes each) and the
-outputs (``out_cap`` bytes each), every piece 256-byte aligned. The flags
-are counters that only grow: a call on a ring of n adds n - 1 to each,
-and ``before`` is their count before the next call. They are never zeroed
-while mapped, since a peer's add may land at any time after it entered.
+One process's workspace holds named regions (REGIONS), each a piece per
+local rank in the order of ``mesh.local_ranks``, every piece 256-byte
+aligned: the ring kernels' inputs, outputs and flags, the all-to-all's
+flags, and the collective matmuls' flags, B5a's comm slots and B5b's
+gathered x. Flags are counters or tags that only grow: each kernel
+family keeps a count of its own (``advance``), the same in every
+process, from which a call derives the value every flag of the family
+had before it. They are never zeroed while mapped, since a peer's store
+may land at any time after it entered.
 
 Processes that share one card do not run side by side: the card
 time-slices their contexts, and a kernel that spins on a peer's flag
@@ -40,6 +44,7 @@ import ctypes
 import json
 import math
 import time
+from typing import Mapping
 
 import torch
 
@@ -47,8 +52,15 @@ from gloo_tpu_torch import _build
 
 # Alignment of every piece of a workspace (bytes).
 ALIGN = 256
-# Ints of flags per (local rank, slice): ring.cu's kPeerFlags.
-FLAGS_PER_SLICE = 2
+# The named regions of a workspace, each per local rank, in the order of
+# the allocation:
+#   "in", "out": the inputs and outputs of B3, B4a, B4b (ops/ring.py) and
+#     the inputs of B8, which every member of a ring reads;
+#   "ring_flags": slices x ops.ring.PEER_FLAGS ints of B3, B4a and B4b;
+#   "a2a_flags": B8's entry and exit barriers;
+#   "ov_flags": the collective matmuls' barriers and tile flags, "comm"
+#     B5a's slots, "gx" B5b's gathered x (ops/overlap.py).
+REGIONS = ("in", "out", "ring_flags", "a2a_flags", "ov_flags", "comm", "gx")
 
 _lib: ctypes.CDLL | None = None
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -189,95 +201,125 @@ class PeerWorkspace:
     every other process of it.
 
     Made by init_multihost (nothing is allocated until the first call
-    that needs it); ``reserve`` is collective, as the calls that use it
-    are: every process makes the same calls in the same order. ``close``
-    (also collective; the mesh's Context runs it before it closes) closes
-    the peers' mappings, meets the others at a host-plane barrier, and
-    frees this process's allocation."""
+    that needs it). The allocation holds named regions (REGIONS), each
+    ``caps[name]`` bytes per local rank, and each kernel family keeps its
+    own flags in a region of its own and its own count of them
+    (``advance``): a count that only grows cannot be shared by kernels
+    that add different amounts per call, or that touch a different part
+    of the flags. ``reserve`` and ``agree`` are collective, as the calls
+    that use them are: every process makes the same calls in the same
+    order. ``close`` (also collective; the mesh's Context runs it before
+    it closes) closes the peers' mappings, meets the others at a
+    host-plane barrier, and frees this process's allocation."""
 
     def __init__(self, mesh, ctx, store, device: torch.device):
         self.mesh, self.ctx, self.store = mesh, ctx, store
         self.device = torch.device(device)
         self.local = len(mesh.local_ranks)
-        self.in_cap = self.out_cap = 0
-        self.slices = 0
+        # Bytes per local rank of each named region, and where the
+        # region's first rank starts in this process's allocation.
+        self.caps: dict[str, int] = {}
+        self._offsets: dict[str, int] = {}
         # Whether two processes of the mesh share a card (time-sliced).
         self.shared_card = False
-        # Every flag's count before the next call.
-        self.before = 0
+        # Each family's count before its next call.
+        self.counts: dict[str, int] = {}
+        self._agreed: dict[str, int] = {}
         self._alloc: _Allocation | None = None
-        self._offsets: dict[str, int] = {}
         self._maps = _Mappings(self.device)
-        self.tables = None
+        self._tables: dict[str, ctypes.Array] = {}
 
-    def reserve(self, in_bytes: int, out_bytes: int, max_slices: int) -> None:
-        """Makes room for in_bytes of input and out_bytes of output per
-        local rank: a new allocation, exchanged and mapped anew, where the
-        present one is smaller (collective). `max_slices` is the most
-        slices of the launch this process's card holds resident beside
-        its other local ranks; the workspace takes the least over the
-        processes."""
-        if self._alloc is not None and in_bytes <= self.in_cap \
-                and out_bytes <= self.out_cap:
+    def reserve(self, regions: Mapping[str, int]) -> None:
+        """Makes room for regions[name] bytes per local rank in each named
+        region: a new allocation, exchanged and mapped anew, where a
+        region is missing or smaller (collective; it at least doubles a
+        region that grows). A new allocation is zeroed, so every family's
+        count restarts at 0."""
+        unknown = set(regions) - set(REGIONS)
+        if unknown:
+            raise ValueError(f"unknown workspace regions {sorted(unknown)}; "
+                             f"the regions are {REGIONS}")
+        if self._alloc is not None and all(
+                b <= self.caps.get(name, 0) for name, b in regions.items()):
             return
-        in_cap = _aligned(max(in_bytes, 2 * self.in_cap))
-        out_cap = _aligned(max(out_bytes, 2 * self.out_cap))
+        caps = dict(self.caps)
+        for name, b in regions.items():
+            if b > caps.get(name, 0):
+                caps[name] = _aligned(max(b, 2 * caps.get(name, 0)))
         self._release()
-        flag_bytes = _aligned(self.local * max_slices * FLAGS_PER_SLICE * 4)
-        offsets = {"flags": 0, "in": flag_bytes,
-                   "out": flag_bytes + self.local * in_cap}
-        self._alloc = _Allocation(offsets["out"] + self.local * out_cap,
-                                  self.device)
-        record = dict(offsets, handle=self._alloc.handle().hex(),
-                      in_cap=in_cap, out_cap=out_cap, slices=max_slices,
+        offsets, at = {}, 0
+        for name in REGIONS:
+            if name in caps:
+                offsets[name] = at
+                at += self.local * caps[name]
+        self._alloc = _Allocation(at, self.device)
+        record = dict(offsets=offsets, caps=caps,
+                      handle=self._alloc.handle().hex(),
                       ranks=list(self.mesh.local_ranks),
                       card=card_id(self.device))
         records = exchange(self.ctx, self.store, "gloo_tpu_torch/peer",
                            record)
-        self.in_cap, self.out_cap, self._offsets = in_cap, out_cap, offsets
-        self.slices = min(r["slices"] for r in records)
+        self.caps, self._offsets = caps, offsets
         self.shared_card = len({r["card"] for r in records}) < len(records)
-        self.before = 0
-        size = self.mesh.size
-        ins, outs, flags = [0] * size, [0] * size, [0] * size
+        self.counts = {}
+        tables = {name: [0] * self.mesh.size for name in caps}
         for q, rec in enumerate(records):
             base = self._alloc.ptr if q == self.ctx.rank else \
                 self._maps.open(bytes.fromhex(rec["handle"]))
             for i, r in enumerate(rec["ranks"]):
-                ins[r] = base + rec["in"] + i * rec["in_cap"]
-                outs[r] = base + rec["out"] + i * rec["out_cap"]
-                flags[r] = (base + rec["flags"]
-                            + i * rec["slices"] * FLAGS_PER_SLICE * 4)
-        self.tables = tuple((_P * size)(*t) for t in (ins, outs, flags))
+                for name in caps:
+                    tables[name][r] = (base + rec["offsets"][name]
+                                       + i * rec["caps"][name])
+        self._tables = {name: (_P * self.mesh.size)(*t)
+                        for name, t in tables.items()}
         # No peer may launch on this allocation before every process has
         # mapped every other one.
         self.ctx.barrier()
 
-    def inputs(self, dtype: torch.dtype, shape) -> torch.Tensor:
-        """The input rows as a (local ranks, *shape) tensor of dtype (each
-        rank's row contiguous, rows in_cap bytes apart): valid until the
-        next reserve that grows the workspace, or close."""
-        return self._view("in", self.in_cap, dtype, shape)
+    def table(self, region: str):
+        """Every flat rank's part of `region` as the ctypes array of
+        device pointers the kernels take (peer-mapped, or this process's
+        own for its local ranks)."""
+        return self._tables[region]
 
-    def outputs(self, dtype: torch.dtype, shape) -> torch.Tensor:
-        """The output rows, as inputs() the input rows."""
-        return self._view("out", self.out_cap, dtype, shape)
-
-    def _view(self, region: str, cap: int, dtype, shape) -> torch.Tensor:
+    def view(self, region: str, dtype: torch.dtype, shape) -> torch.Tensor:
+        """The local ranks' parts of `region` as a (local ranks, *shape)
+        tensor of dtype (each rank's part contiguous, caps[region] bytes
+        apart): valid until the next reserve that grows the workspace, or
+        close."""
         nbytes = math.prod(shape) * torch.tensor([], dtype=dtype).element_size()
+        cap = self.caps[region]
+        if nbytes > cap:
+            raise ValueError(f"{nbytes} bytes per rank do not fit the "
+                             f"{cap} of region {region!r}")
         start = self._offsets[region]
         rows = self._alloc.bytes[start:start + self.local * cap]
         return rows.view(self.local, cap)[:, :nbytes].view(dtype).view(
             self.local, *shape)
 
-    def holds_input(self, x: torch.Tensor) -> bool:
-        """Whether x is inputs(x.dtype, x.shape[1:]) itself: the rows of
-        the input region, so no copy into them is needed."""
-        if self._alloc is None or x.dim() < 2 or x.shape[0] != self.local:
+    def holds(self, region: str, x: torch.Tensor) -> bool:
+        """Whether x is view(region, x.dtype, x.shape[1:]) itself, so no
+        copy into it is needed."""
+        if self._alloc is None or region not in self.caps or x.dim() < 2 \
+                or x.shape[0] != self.local:
             return False
-        want = self.inputs(x.dtype, x.shape[1:])
+        nbytes = x[0].numel() * x.element_size()
+        if nbytes > self.caps[region]:
+            return False
+        want = self.view(region, x.dtype, x.shape[1:])
         return (x.data_ptr() == want.data_ptr()
                 and x.stride() == want.stride())
+
+    def agree(self, key: str, value: int) -> int:
+        """The least `value` over the processes under `key` (collective the
+        first time a key is asked for, then cached): a launch's slices,
+        which every process of a ring must take alike, from each card's
+        occupancy and each process's number of local ranks."""
+        if key not in self._agreed:
+            self._agreed[key] = min(int(v) for v in exchange(
+                self.ctx, self.store, f"gloo_tpu_torch/agree/{key}",
+                int(value)))
+        return self._agreed[key]
 
     def start_together(self, stream) -> None:
         """On a shared card: finish this process's queued work on
@@ -287,11 +329,12 @@ class PeerWorkspace:
             stream.synchronize()
             self.ctx.barrier()
 
-    def advance(self, n: int) -> int:
-        """The flags' count before a call on rings of n, which then adds
-        n - 1 to each."""
-        before = self.before
-        self.before += n - 1
+    def advance(self, family: str, amount: int) -> int:
+        """Family `family`'s count before its next call, which then adds
+        `amount` to it: the value every flag or tag of the family had
+        before the call, the same in every process."""
+        before = self.counts.get(family, 0)
+        self.counts[family] = before + amount
         return before
 
     def _release(self) -> None:
@@ -304,7 +347,7 @@ class PeerWorkspace:
         self.ctx.barrier()
         self._alloc.free()
         self._alloc = None
-        self.tables = None
+        self._tables = {}
 
     def close(self) -> None:
         """Collective: every process of the mesh closes its workspace."""

@@ -19,6 +19,18 @@ over strided blocks: no copy around it).
 ``shift`` and ``barrier`` are plain torch across the rank axis: the JAX
 package has no Pallas kernel for them (they are XLA collectives there).
 
+On a process mesh (tpu/multihost.py's init_multihost) a function takes
+this process's local tensor, the rows of ``mesh.local_ranks``, and
+returns its local result. The kernel collectives (``allreduce`` and
+``mean`` with the sum, ``reduce`` and ``reduce_scatter`` with the sum,
+``allgather``, ``alltoall``) run the kernels' cross-process instances on
+the card and their twins on the world gathered through the host plane on
+the CPU; ``rank`` and ``size`` answer for the local rows. The rest
+(``broadcast``, ``scatter``, ``ppermute``, ``shift``, ``barrier`` and
+the max/min/product reductions) raise NotImplementedError naming
+MULTI_PROCESS_ITEM: they were XLA collectives in the reference, and
+need a device transport across processes of their own.
+
 Every collective runs under ``annotate("gloo_tpu.<op>")``, the reference's
 ``jax.named_scope`` names (``shift`` under ``gloo_tpu.ppermute``), so a
 profile puts its device time under the collective.
@@ -38,8 +50,11 @@ from gloo_tpu_torch.utils.tracing import annotate
 
 
 def rank(axis: Axis, *, mesh: Mesh) -> torch.Tensor:
-    """Each rank's position along `axis` (P,) int64, on the mesh's device."""
-    return torch.tensor(mesh.ring_index(axis), device=mesh.device)
+    """Each rank's position along `axis` (P,) int64, on the mesh's device
+    (on a process mesh, the local ranks')."""
+    index = mesh.ring_index(axis)
+    return torch.tensor([index[r] for r in mesh.local_ranks],
+                        device=mesh.device)
 
 
 def size(axis: Axis, *, mesh: Mesh) -> int:
@@ -51,28 +66,35 @@ def _members(axis: Axis, mesh: Mesh) -> torch.Tensor:
     return torch.tensor(mesh.ring_members(axis), device=mesh.device)
 
 
-def _per_rank(x: torch.Tensor, mesh: Mesh) -> None:
-    # A process mesh's local tensor is not the world these functions take.
-    mesh.one_process("the spmd collectives (tpu/spmd.py)")
-    if x.dim() < 1 or x.shape[0] != mesh.size:
-        raise ValueError(f"x must be a world tensor with {mesh.size} rows "
-                         f"(one per rank); got {tuple(x.shape)}")
+def _per_rank(x: torch.Tensor, mesh: Mesh) -> int:
+    """The rows x must have: one per rank, or on a process mesh one per
+    local rank."""
+    rows = len(mesh.local_ranks)
+    if x.dim() < 1 or x.shape[0] != rows:
+        what = "a world tensor" if mesh.processes == 1 \
+            else "this process's local tensor"
+        raise ValueError(f"x must be {what} with {rows} rows (one per "
+                         f"{'local ' if mesh.processes > 1 else ''}rank); "
+                         f"got {tuple(x.shape)}")
+    return rows
 
 
 def allreduce(x: torch.Tensor, axis: Axis, op: str = "sum", *,
               mesh: Mesh) -> torch.Tensor:
-    _per_rank(x, mesh)
+    if op != "sum":
+        mesh.one_process(f"spmd.allreduce with op={op!r}")
+    rows = _per_rank(x, mesh)
     with annotate("gloo_tpu.allreduce"):
         if op == "sum":
             if x.dtype == torch.bool:
                 x = x.to(torch.int32)
             n = mesh.axis_size(axis)
-            flat = x.reshape(mesh.size, -1)
+            flat = x.reshape(rows, -1)
             pad = -flat.shape[1] % n
             if pad:
-                flat = torch.cat([flat, flat.new_zeros(mesh.size, pad)], 1)
-            out = ring_allreduce(flat.view(mesh.size, n, -1), axis, mesh)
-            out = out.reshape(mesh.size, -1)[:, :x[0].numel()]
+                flat = torch.cat([flat, flat.new_zeros(rows, pad)], 1)
+            out = ring_allreduce(flat.view(rows, n, -1), axis, mesh)
+            out = out.reshape(rows, -1)[:, :x[0].numel()]
             return out.reshape(x.shape)
         if op in ("max", "min"):
             # uint16 and uint32 have no amax/amin in this PyTorch: compared in
@@ -95,7 +117,9 @@ def reduce_scatter(x: torch.Tensor, axis: Axis, op: str = "sum",
                    scatter_axis: int = 0, *, mesh: Mesh) -> torch.Tensor:
     """Reduce across `axis` and leave each rank with its 1/n slice along
     `scatter_axis` of its local value."""
-    _per_rank(x, mesh)
+    if op != "sum":
+        mesh.one_process(f"spmd.reduce_scatter with op={op!r}")
+    rows = _per_rank(x, mesh)
     with annotate("gloo_tpu.reduce_scatter"):
         n = mesh.axis_size(axis)
         dim = 1 + scatter_axis % (x.dim() - 1)
@@ -114,21 +138,21 @@ def reduce_scatter(x: torch.Tensor, axis: Axis, op: str = "sum",
             return picked.movedim(1, dim)
         moved = x.movedim(dim, 1)
         rest = moved.shape[2:]
-        out = ring_reduce_scatter(moved.reshape(mesh.size, x.shape[dim], -1),
+        out = ring_reduce_scatter(moved.reshape(rows, x.shape[dim], -1),
                                   axis, mesh)
-        return out.reshape(mesh.size, chunk, *rest).movedim(1, dim)
+        return out.reshape(rows, chunk, *rest).movedim(1, dim)
 
 
 def allgather(x: torch.Tensor, axis: Axis, gather_axis: int = 0,
               tiled: bool = True, *, mesh: Mesh) -> torch.Tensor:
     """Every rank's local value along `gather_axis`: concatenated when
     `tiled`, else stacked on a new axis there (lax.all_gather)."""
-    _per_rank(x, mesh)
+    rows = _per_rank(x, mesh)
     with annotate("gloo_tpu.allgather"):
         n = mesh.axis_size(axis)
         local = x.shape[1:]
-        out = ring_allgather(x.reshape(mesh.size, 1, -1), axis, mesh)
-        out = out.reshape(mesh.size, n, *local)
+        out = ring_allgather(x.reshape(rows, 1, -1), axis, mesh)
+        out = out.reshape(rows, n, *local)
         if not tiled:
             return out.movedim(1, 1 + gather_axis % (len(local) + 1))
         dim = gather_axis % len(local)
@@ -160,6 +184,7 @@ def alltoall(x: torch.Tensor, axis: Axis, split_axis: int = 0,
 def broadcast(x: torch.Tensor, axis: Axis, root: int = 0, *,
               mesh: Mesh) -> torch.Tensor:
     """Every rank receives the value of its ring's rank `root`."""
+    mesh.one_process("spmd.broadcast")
     _per_rank(x, mesh)
     with annotate("gloo_tpu.broadcast"):
         return x[_members(axis, mesh)[:, root]]
@@ -177,6 +202,7 @@ def scatter(x: torch.Tensor, axis: Axis, root: int = 0,
             scatter_axis: int = 0, *, mesh: Mesh) -> torch.Tensor:
     """Root's value is split into n slices along `scatter_axis`; ring
     member i receives slice i."""
+    mesh.one_process("spmd.scatter")
     rooted = broadcast(x, axis, root, mesh=mesh)
     dim = 1 + scatter_axis % (x.dim() - 1)
     chunk = x.shape[dim] // mesh.axis_size(axis)
@@ -200,6 +226,7 @@ def ppermute(x: torch.Tensor, axis: Axis, perm: Sequence[tuple], *,
     """Point-to-point: pairs (source, destination) of ring indices, a tuple
     of axes numbered in the mesh's order as lax.ppermute numbers it; a rank
     that no pair names as destination receives zeros."""
+    mesh.one_process("spmd.ppermute")
     _per_rank(x, mesh)
     with annotate("gloo_tpu.ppermute"):
         source = {int(dst): int(src) for src, dst in perm}
@@ -214,6 +241,7 @@ def shift(x: torch.Tensor, axis: Axis, offset: int = 1, wrap: bool = True, *,
           mesh: Mesh) -> torch.Tensor:
     """Send each rank's value to ring index + offset (ppermute's
     numbering)."""
+    mesh.one_process("spmd.shift")
     p = mesh.axis_size(axis)
     if wrap:
         perm = [(i, (i + offset) % p) for i in range(p)]
@@ -225,6 +253,7 @@ def shift(x: torch.Tensor, axis: Axis, offset: int = 1, wrap: bool = True, *,
 def barrier(axis: Axis, *, mesh: Mesh) -> torch.Tensor:
     """A (P,) int32 world tensor whose value, the ring size, depends on
     every participant (the sum of ones over the ring)."""
+    mesh.one_process("spmd.barrier")
     with annotate("gloo_tpu.barrier"):
         ones = torch.ones(mesh.size, dtype=torch.int32, device=mesh.device)
         return ones[_members(axis, mesh)].sum(1, dtype=torch.int32)

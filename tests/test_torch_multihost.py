@@ -372,9 +372,10 @@ def test_peer_workspace_tables_views_and_growth(monkeypatch):
     """PeerWorkspace over stand-ins for the CUDA calls: each "process"'s
     allocation is a host tensor, and opening a peer's handle gives that
     tensor's address (the threads share an address space). Every
-    process's pointer tables then reach each rank's input, output and
-    flags where its owner's views put them; a larger call grows every
-    workspace at once, and the flags' count restarts there."""
+    process's pointer tables then reach each rank's part of every named
+    region where its owner's views put them; a larger call grows every
+    workspace at once, and every family's count restarts there; agree
+    takes the least value over the processes, once per key."""
     import ctypes
 
     from gloo_tpu_torch.tpu import peer
@@ -403,34 +404,41 @@ def test_peer_workspace_tables_views_and_growth(monkeypatch):
     def fn(ctx, mesh, rank):
         ws = peer.PeerWorkspace(mesh, ctx, mesh.store, "cpu")
         seen = []
-        for rows, slices in ((4, 6 + rank), (64, 3)):
-            ws.reserve(rows * 8 * 4, 2 * rows * 8 * 4, slices)
-            x = ws.inputs(torch.float32, (rows, 8))
+        slices = ws.agree("ring", 6 + rank)
+        assert ws.agree("ring", 100) == slices
+        for rows in (4, 64):
+            ws.reserve({"in": rows * 8 * 4, "out": 2 * rows * 8 * 4,
+                        "ring_flags": slices * 8})
+            x = ws.view("in", torch.float32, (rows, 8))
             x.copy_(torch.arange(x.numel(), dtype=torch.float32)
                     .view_as(x) + 1000 * rank)
-            ws.outputs(torch.float32, (2 * rows, 8)).fill_(-rank)
-            assert ws.holds_input(x)
-            assert not ws.holds_input(x.clone())
+            ws.view("out", torch.float32, (2 * rows, 8)).fill_(-rank)
+            assert ws.holds("in", x)
+            assert not ws.holds("in", x.clone())
+            assert not ws.holds("out", x)
             ctx.barrier()
             # Every rank's rows as the pointer tables reach them.
             ins = [torch.frombuffer(bytearray(ctypes.string_at(
-                ws.tables[0][r], rows * 8 * 4)), dtype=torch.float32)
+                ws.table("in")[r], rows * 8 * 4)), dtype=torch.float32)
                 for r in range(mesh.size)]
             outs = [torch.frombuffer(bytearray(ctypes.string_at(
-                ws.tables[1][r], 2 * rows * 8 * 4)), dtype=torch.float32)
+                ws.table("out")[r], 2 * rows * 8 * 4)), dtype=torch.float32)
                 for r in range(mesh.size)]
-            seen.append((ws.slices, ws.shared_card, ws.advance(4),
-                         ws.advance(4), ins, outs))
+            seen.append((slices, ws.shared_card, ws.advance("ring", 3),
+                         ws.advance("ring", 3), ws.advance("alltoall", 5),
+                         ins, outs))
             ctx.barrier()
+        with pytest.raises(ValueError, match="unknown workspace regions"):
+            ws.reserve({"bogus": 8})
         ws.close()
         return seen
 
     res = _processes(_cpus((1, 1, 1, 1)), fn)
     for seen in res:
-        for rows, (slices, shared, before0, before1, ins, outs) in zip(
-                (4, 64), seen):
-            assert slices == (6 if rows == 4 else 3) and shared
-            assert (before0, before1) == (0, 3)
+        for rows, (slices, shared, before0, before1, other, ins, outs) in \
+                zip((4, 64), seen):
+            assert slices == 6 and shared
+            assert (before0, before1, other) == (0, 3, 0)
             for r in range(4):
                 assert torch.equal(ins[r], torch.arange(
                     rows * 8, dtype=torch.float32) + 1000 * r)
@@ -447,21 +455,21 @@ def _pmesh(ranks=2, device="cpu", processes=2, axes=None):
 
 
 def test_what_has_no_cross_process_form_refuses_a_process_mesh():
+    """The allreduce variants and spmd's collectives without a kernel raise
+    on a process mesh; the all-to-all, the collective matmuls and spmd's
+    sum collectives take one (tests/test_torch_multihost_tp.py)."""
     mesh = _pmesh(4, axes={"data": 4})
     x = torch.zeros(2, 4, 8)
-    for call in (lambda: spmd.allreduce(x, "data", mesh=mesh),
-                 lambda: spmd.allgather(x, "data", mesh=mesh),
+    for call in (lambda: spmd.allreduce(x, "data", "max", mesh=mesh),
+                 lambda: spmd.broadcast(x, "data", mesh=mesh),
                  lambda: spmd.ppermute(x, "data", [(0, 1)], mesh=mesh),
                  lambda: ring.ring_allreduce_hbm(x, "data", mesh),
                  lambda: ring.ring_allreduce_q8(x, "data", mesh),
-                 lambda: ring.ring_allreduce_bidir(x, "data", mesh),
-                 lambda: ring.alltoall(x, "data", mesh)):
+                 lambda: ring.ring_allreduce_bidir(x, "data", mesh)):
         with pytest.raises(NotImplementedError, match="queue A, item 7"):
             call()
-    from gloo_tpu_torch.ops import overlap
-
     with pytest.raises(NotImplementedError, match=MULTI_PROCESS_ITEM[:20]):
-        overlap.matmul_reduce_scatter(x, torch.zeros(2, 8, 4), "data", mesh)
+        spmd.shift(x, "data", mesh=mesh)
 
 
 def test_process_mesh_checks():
