@@ -253,7 +253,31 @@ Phases, each of which raises on failure:
      per step per process) within TRAIN_TOL of phase 14's losses, the
      replicated parameters bitwise across the processes and the shards
      across data ranks; the cross-process kernels' device and event ms at
-     the paths' shapes and the dp x tp step's ms and busy share.
+     the paths' shapes and the dp x tp step's ms and busy share;
+ 36. the ring variants, spmd's point-to-point collectives, and sequence
+     and pipeline parallelism across processes (spp_peer_phase, worker
+     "36"): 4 worker processes on the card, one rank each; B9, B10 and
+     B11 (the cross-process instances) across 2, 3 and 4 processes at the
+     ring-variant buffer and a ragged shape (B9 and B11 in f32 and bf16,
+     B10 in f32 and at 4 past its register form), bitwise against the
+     one-card kernel on the same world and equal to the twin, each case
+     10 calls back to back; the transport (ppermute, shift +-1 with and
+     without wrap, broadcast, scatter; csrc/permute.cu), max/min/product
+     on the cross-process B4b, barrier on B3 and CudaProcessGroup's
+     broadcast, send_recv and barrier, bitwise against the world's spmd,
+     in f32, bf16 and int32, two rounds; shift by +-1 with wrap and +1
+     without at the ring-flash path's shapes (a K block in bf16 and a
+     dK/dV carrier in f32: the multi-slice launches that path makes),
+     bitwise against the world's shift; then, each
+     against its world run in this process (written to a file the
+     workers read): multihost_ring_variants_entry's three steps (2
+     launches each, bitwise), multihost_sp_entry's ring-flash and Ulysses
+     forward + backward and ring attention's forward (launches (B6, B7,
+     prep, finish, pull) = (4, 4, 1, 1, 20), (B8, B1, B2) = (8, 1, 1),
+     pull 6; ring attention bitwise, the other two within SP_TOL), 3
+     multihost_pp_entry 1F1B steps within TRAIN_TOL and a GPipe forward
+     bitwise; the cross-process kernels' and the transport's device ms
+     per launch and event ms per call, and each path's event ms.
 The line before the last is the JSON list of kernels; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or gloo_tpu.
 """
@@ -608,13 +632,14 @@ def event_ms(fn, iters=50):
     return start.elapsed_time(end) / iters
 
 
-def device_profile(fn, iters=20, want=(), sessions=6):
+def device_profile(fn, iters=20, want=(), sessions=6, kinds=0):
     """Per-call device time of fn from torch.profiler (CUPTI): (total ms or
     None where the trace shows no device time, [(ms, calls, name)] per
     kernel name, longest first). A session whose trace holds no device
-    time, or for one of the names in `want` no kernel whose name contains
-    it, is taken again, up to `sessions` times: now and then a session
-    records nothing, or only part of the launches."""
+    time, for one of the names in `want` no kernel whose name contains
+    it, or fewer than `kinds` kernel names, is taken again, up to
+    `sessions` times: now and then a session records nothing, or only
+    part of the launches."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -631,7 +656,8 @@ def device_profile(fn, iters=20, want=(), sessions=6):
             if us > 0:
                 rows.append((us / 1e3 / iters, ev.count / iters, ev.key))
         rows.sort(reverse=True)
-        if rows and all(any(w in r[2] for r in rows) for w in want):
+        if rows and all(any(w in r[2] for r in rows) for w in want) \
+                and len(rows) >= kinds:
             break
     total = sum(r[0] for r in rows)
     return (total if total > 0 else None), rows
@@ -675,11 +701,16 @@ def _bound_mixed(nbytes, bf16_flops, f32_flops):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def timed(label, fn, iters=20):
+def timed(label, fn, iters=20, kinds=0):
     """Device ms per call from the profiler, or None where its trace shows
     no device time; the per-call time between CUDA events is printed
-    beside it and never stands in for it."""
-    dev = device_profile(fn, iters)[0]
+    beside it and never stands in for it. Where fn launches `kinds`
+    kernels of different names once each, the time is the sum of each
+    one's mean per launch, so a record the trace drops does not lower it,
+    and None unless every one of them is seen."""
+    total, rows = device_profile(fn, iters, kinds=kinds)
+    dev = total if not kinds else (
+        sum(r[0] / r[1] for r in rows) if len(rows) >= kinds else None)
     ev = event_ms(fn, max(5, iters))
     shown = "not measured" if dev is None else f"{dev:.6f} ms"
     print(f"  {label}: device {shown}, per call (events) {ev:.6f} ms")
@@ -2050,7 +2081,8 @@ def variant_times(ring, paths, card):
                      "ring_kernel")
         lib = timed("yardstick x.sum(0) then expand(P).contiguous(), two "
                     "calls",
-                    lambda: x.sum(0).expand(ranks, -1, -1).contiguous())
+                    lambda: x.sum(0).expand(ranks, -1, -1).contiguous(),
+                    kinds=2)
         for name, label in (("hbm", "hbm_kernel"), ("q8", "q8_kernel"),
                             ("bidir", "bidir_kernel")):
             fn = getattr(ring, f"ring_allreduce_{name}")
@@ -4896,10 +4928,670 @@ def tp_peer_phase(card, ov, ring, entry_mod, tp_losses):
     return rows
 
 
+# ---- phase 36: the ring variants, spmd's point-to-point collectives, and
+# sequence and pipeline parallelism across processes ----
+# 4 worker processes on the card, one rank each, as phases 34-35. (a) B9,
+# B10 and B11 across 2, 3 and 4 processes (the first P joined by
+# init_multihost at CHIP_SMOKE_SPP_PORT_<P>, the rest waiting at a
+# barrier of the whole group) at VAR_PEER_CASES, bitwise against the
+# one-card kernel on the same world (launched in each process) and
+# against the twin, PEER_BACK_TO_BACK calls back to back on inputs that
+# differ, B10 at 4 processes also past its register form's reach; (b)
+# the transport
+# (ppermute, shift +-1 with and without wrap, broadcast, scatter) and
+# max/min/product and barrier at the same sizes, bitwise against the
+# world's spmd, and CudaProcessGroup's broadcast, send_recv and barrier;
+# (c) multihost_ring_variants_entry's three steps, (d)
+# multihost_sp_entry's three paths, (e) SPP_STEPS multihost_pp_entry
+# 1F1B steps and a GPipe forward, each over the 4 processes against its
+# world run in one process (written by the main process to
+# CHIP_SMOKE_SPP_REF); (f) the kernels' and the transport's times.
+SPP_PEER_SIZES = (2, 3, 4)
+# (label, rows per rank, cols) by variant: the ring-variant path's
+# buffer, and ragged rows and columns (B9's columns padded to whole
+# 16-byte units; B11 needs cols % 256, B10 rows / n % 32); 6912, 60 and
+# 384 divide by 2, 3 and 4 (and 6912 and 384 by 32 n).
+VAR_PEER_CASES = {"hbm": (("buffer", 6912, 256), ("ragged", 60, 99)),
+                  "q8": (("buffer", 6912, 256), ("ragged", 384, 100)),
+                  "bidir": (("buffer", 6912, 256), ("ragged", 60, 512))}
+VAR_PEER_DTYPES = {"hbm": (torch.float32, torch.bfloat16),
+                   "q8": (torch.float32,),
+                   "bidir": (torch.float32, torch.bfloat16)}
+VAR_PEER_KERNELS = {"hbm": "hbm_peer_kernel", "q8": "q8_peer_kernel",
+                    "bidir": "bidir_peer_kernel"}
+# Each rank's value of the transport's cases (scatter splits the 12 rows
+# over the ring), its dtypes and rounds on inputs that differ.
+PERM_PEER_SHAPE = (3, 12, 40)
+PERM_PEER_DTYPES = (torch.float32, torch.bfloat16, torch.int32)
+PERM_PEER_ROUNDS = 2
+SPP_STEPS = 3
+# The paths whose kernels and products give the world's bits on any rows
+# (B1, B6 and cuBLAS's products are deterministic per row); the others are
+# held within their tolerance: B2's and B7's dQ are summed by TMA
+# reduce-add in the order the blocks finish, which the grid and the
+# scheduler set, so the world run does not repeat its own bits either
+# (spp_peer_reference prints whether it does).
+SPP_BITWISE = ("ring_attention", "gpipe")
+# The workers took 47.9-52.7 s each (61.8-66.5 s from the first start to
+# the last exit) on an H100 with 4 processes time-slicing it.
+SPP_PEER_TIMEOUT = 300
+SPP_PEER_PORTS = ("2", "3", "4", "variants", "sp", "pp")
+
+
+def var_peer_cases(ring, make_mesh, mesh, size, note=print):
+    """B9, B10 and B11 on the process mesh against the one-card kernel on
+    the same world (bitwise) and against the twin (equal values):
+    {"wrong", "err", "launches", "cases", "past_cap_rows"}."""
+    mine = torch.tensor(mesh.local_ranks)
+    world = make_mesh({"data": size}, devices=[mesh.device] * size)
+    # B10's out-of-register form: a chunk past what the agreed slices of
+    # the register form hold, at 256 columns.
+    reach = ring._variant_peer_slices(ring._Q8, ring._variants_lib(), mesh,
+                                      1 << 30)
+    past = (reach * ring.KERNEL_THREADS * ring.Q8_REGISTER_UNITS * 4 // 256
+            + 32) * size
+    wrong, calls = [], 0
+    err = dict.fromkeys(VAR_PEER_CASES, 0.0)
+    launches = dict.fromkeys(VAR_PEER_CASES, 0)
+    for name, cases in VAR_PEER_CASES.items():
+        fn = getattr(ring, f"ring_allreduce_{name}")
+        plain = getattr(ring, f"ring_allreduce_{name}_plain")
+        if name == "q8" and size == SPP_PEER_SIZES[-1]:
+            cases = cases + (("past_cap", past, 256),)
+        for label, rows, cols in cases:
+            for dtype in VAR_PEER_DTYPES[name]:
+                xs = [peer_tensor(dtype, (size, rows, cols), k, mesh.device,
+                                  seed=37) for k in range(PEER_BACK_TO_BACK)]
+                with torch.no_grad():
+                    before = fn.launches
+                    outs = [fn(x[mine], "data", mesh) for x in xs]
+                    torch.cuda.synchronize()
+                    launches[name] += fn.launches - before
+                    for k, (x, out) in enumerate(zip(xs, outs)):
+                        ref = fn(x, "data", world)[mine]
+                        twin = plain(x, "data", world)[mine]
+                        err[name] = max(err[name], float(
+                            (out.float() - twin.float()).abs().max()))
+                        # Bitwise the one-card kernel; the twin's values
+                        # (B10's twin keeps the sign of a code rounded to
+                        # zero, -0.0, where the kernels decode +0.0).
+                        if not (same_bits(out, ref)
+                                and torch.equal(out, twin)):
+                            wrong.append(f"{name} {label} {str(dtype)[6:]} "
+                                         f"P {size} call {k}")
+                calls += len(xs)
+                note(f"{name} {label} {str(dtype)[6:]} ({size}, {rows}, "
+                     f"{cols})")
+    return {"wrong": wrong, "err": err, "launches": launches,
+            "cases": calls, "past_cap_rows": past}
+
+
+def perm_peer_ops(spmd, size):
+    """The transport's cases by name: fn(x, mesh) along "data"."""
+    return {
+        "ppermute": lambda x, m: spmd.ppermute(x, "data", [(0, 1), (1, 0)],
+                                               mesh=m),
+        "shift+1": lambda x, m: spmd.shift(x, "data", 1, mesh=m),
+        "shift-1": lambda x, m: spmd.shift(x, "data", -1, mesh=m),
+        "shift+1 no wrap": lambda x, m: spmd.shift(x, "data", 1, wrap=False,
+                                                   mesh=m),
+        "shift-1 no wrap": lambda x, m: spmd.shift(x, "data", -1,
+                                                   wrap=False, mesh=m),
+        "broadcast": lambda x, m: spmd.broadcast(x, "data", size - 1,
+                                                 mesh=m),
+        "scatter": lambda x, m: spmd.scatter(x, "data", 1, scatter_axis=1,
+                                             mesh=m),
+        "max": lambda x, m: spmd.allreduce(x, "data", "max", mesh=m),
+        "min": lambda x, m: spmd.allreduce(x, "data", "min", mesh=m),
+        "product": lambda x, m: spmd.allreduce(x, "data", "product", mesh=m),
+    }
+
+
+def perm_peer_cases(spmd, permute, ring, CudaProcessGroup, make_mesh, mesh,
+                    size):
+    """The transport, max/min/product and barrier on the process mesh, and
+    CudaProcessGroup's broadcast, send_recv and barrier, against the
+    world's spmd on the card: {"wrong", "err" (max |got - world|),
+    "launches" (pull, B4b, B3), "want", "cases"}."""
+    mine = torch.tensor(mesh.local_ranks)
+    world = make_mesh({"data": size}, devices=[mesh.device] * size)
+    ops = perm_peer_ops(spmd, size)
+    group, world_group = CudaProcessGroup(mesh), CudaProcessGroup(world)
+    counters = (permute.pull, ring.ring_allgather, ring.ring_allreduce)
+    launches = [0] * len(counters)
+
+    def counted(fn):
+        """fn() with its launches added to `launches` (the world's
+        references launch too, on the one-card kernels)."""
+        before = [c.launches for c in counters]
+        result = fn()
+        for i, (c, b) in enumerate(zip(counters, before)):
+            launches[i] += c.launches - b
+        return result
+
+    wrong, calls, err = [], 0, 0.0
+    for dtype in PERM_PEER_DTYPES:
+        for k in range(PERM_PEER_ROUNDS):
+            shape = (size, *PERM_PEER_SHAPE)
+            if dtype == torch.int32:
+                gen = torch.Generator(mesh.device).manual_seed(38 + k)
+                x = torch.randint(-9, 10, shape, generator=gen,
+                                  device=mesh.device, dtype=torch.int32)
+            else:
+                x = peer_tensor(dtype, shape, k, mesh.device, seed=38)
+            got = counted(lambda: {name: op(x[mine], mesh)
+                                   for name, op in ops.items()})
+            got["group broadcast"] = counted(
+                lambda: group.broadcast(x[mine], root=1))
+            got["group send_recv"] = counted(
+                lambda: group.send_recv(x[mine], [(0, 1), (1, 0)]))
+            torch.cuda.synchronize()
+            for name, out in got.items():
+                if name.startswith("group"):
+                    ref = (world_group.broadcast(x, root=1)
+                           if name == "group broadcast"
+                           else world_group.send_recv(x, [(0, 1), (1, 0)]))
+                else:
+                    ref = ops[name](x, world)
+                err = max(err, abs_err(out, ref[mine]))
+                if not same_bits(out, ref[mine]):
+                    wrong.append(f"{name} {str(dtype)[6:]} P {size} "
+                                 f"round {k}")
+            calls += len(got)
+    for k in range(PERM_PEER_ROUNDS):
+        out = counted(lambda: spmd.barrier("data", mesh=mesh))
+        counted(group.barrier)
+        if not same_bits(out, spmd.barrier("data", mesh=world)[mine]):
+            wrong.append(f"barrier P {size} round {k}")
+    torch.cuda.synchronize()
+    rounds = len(PERM_PEER_DTYPES) * PERM_PEER_ROUNDS
+    # Pulls: the seven point-to-point cases and the group's two; B4b:
+    # max, min, product; B3: the two barriers.
+    want = [9 * rounds, 3 * rounds, 2 * PERM_PEER_ROUNDS]
+    return {"wrong": wrong, "err": err, "launches": launches, "want": want,
+            "cases": calls + PERM_PEER_ROUNDS}
+
+
+def abs_err(a, b):
+    """max |a - b| in f64, 0 for empty tensors, inf where the shapes
+    differ."""
+    if a.shape != b.shape:
+        return math.inf
+    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def shift_peer_cases(spmd, make_mesh, k, axis, mesh, size, carrier):
+    """spmd.shift at the ring-flash path's own shapes, a K/V block like k
+    and an f32 dK/dV carrier of shape `carrier` per process (the
+    multi-slice launches that path makes), by +1 and -1 with wrap and +1
+    without, against the world's spmd.shift on the same inputs:
+    {"wrong", "err" (max |shift - world|), "cases"}."""
+    mine = torch.tensor(mesh.local_ranks)
+    world = make_mesh({axis: size}, devices=[mesh.device] * size)
+    wrong, err, cases = [], 0.0, 0
+    for j, (dtype, shape) in enumerate(((k.dtype, tuple(k.shape[1:])),
+                                        (torch.float32, carrier[1:]))):
+        x = peer_tensor(dtype, (size, *shape), j, mesh.device, seed=39)
+        for offset, wrap in ((1, True), (-1, True), (1, False)):
+            got = spmd.shift(x[mine], axis, offset, wrap, mesh=mesh)
+            want = spmd.shift(x, axis, offset, wrap, mesh=world)[mine]
+            torch.cuda.synchronize()
+            err = max(err, abs_err(got, want))
+            if not same_bits(got, want):
+                wrong.append(f"shift {offset:+d} wrap {wrap} "
+                             f"{str(dtype)[6:]} {shape}")
+            cases += 1
+    return {"wrong": wrong, "err": err, "cases": cases}
+
+
+def close_rel(a, b):
+    """|a - b| / |b| by norms, 0 where both are exactly zero."""
+    if not b.float().norm():
+        return 0.0 if not a.float().norm() else math.inf
+    return rel_norm(a, b)
+
+
+def held(got, want, tol):
+    """(bitwise, worst relative norm, within tol) of tensors against
+    their world rows."""
+    same = all(same_bits(g, w) for g, w in zip(got, want))
+    worst = max(close_rel(g, w) for g, w in zip(got, want))
+    return same, worst, worst <= tol
+
+
+def worker_spp_peer(rank, size, store, device="cuda"):
+    """Phase 36 on one of `size` processes (see the comment above
+    SPP_PEER_SIZES): the variants and the transport against their
+    references at each size, the three multihost entries against the
+    world runs in CHIP_SMOKE_SPP_REF, and the times."""
+    import sys
+
+    from gloo_tpu_torch import entry as entry_mod
+    from gloo_tpu_torch.ops import attention as attn
+    from gloo_tpu_torch.ops import permute, ring
+    from gloo_tpu_torch.tpu import (CudaProcessGroup, init_multihost,
+                                    make_mesh, spmd)
+
+    _share_cores(size)
+    t0 = time.perf_counter()
+
+    def note(what):
+        print(f"[{time.perf_counter() - t0:.1f} s] {what}", file=sys.stderr,
+              flush=True)
+
+    def address(key):
+        return f"127.0.0.1:{os.environ[f'CHIP_SMOKE_SPP_PORT_{key}']}"
+
+    def plane(p):
+        return init_multihost(
+            rank, p, address(str(p)), timeout=60.0,
+            device_hostname="127.0.0.1",
+            devices=None if device == "cuda" else [device])
+
+    ref = torch.load(os.environ["CHIP_SMOKE_SPP_REF"],
+                     map_location=torch.device(device))
+    ctx, mesh = plane(size)
+    note("init_multihost")
+    out = {"sizes": {}}
+    for p in SPP_PEER_SIZES:
+        if p == size:
+            sub_ctx, sub_mesh = ctx, mesh
+        elif rank < p:
+            sub_ctx, sub_mesh = plane(p)
+        else:
+            ctx.barrier()
+            continue
+        part = {"process_of": sub_mesh.process_of}
+        part["var"] = var_peer_cases(ring, make_mesh, sub_mesh, p, note)
+        note(f"B9, B10, B11 across {p}")
+        part["perm"] = perm_peer_cases(spmd, permute, ring,
+                                       CudaProcessGroup, make_mesh,
+                                       sub_mesh, p)
+        note(f"the transport across {p}")
+        out["sizes"][str(p)] = part
+        if p != size:
+            sub_ctx.close()
+            ctx.barrier()
+    ctx.close()
+    mine = mesh.local_ranks
+    times = {}
+
+    # (c) The ring-variant path: forward and VJP, bitwise the world's.
+    paths = entry_mod.multihost_ring_variants_entry(
+        rank, size, address("variants"), device, device_hostname="127.0.0.1")
+    step = paths["hbm"][0]
+    variants = {}
+    for name, (fn, args) in paths.items():
+        counter = args[0]
+        counter.launches = 0
+        y, g = fn(*args)
+        torch.cuda.synchronize()
+        variants[name] = {
+            "launches": counter.launches,
+            "bitwise": same_bits(y, ref["variants"][name][0][mine])
+            and same_bits(g, ref["variants"][name][1][mine])}
+    # One profile of the three variants' calls (each kernel's device ms
+    # per launch by its name), then each one's events per call.
+    _, x, vmesh = paths["hbm"][1]
+    with torch.no_grad():
+        step.context.barrier()
+        _, rows = same_calls(
+            lambda: [variant(x, "data", vmesh)
+                     for _, (variant, _, _) in paths.values()],
+            rank, PEER_TIME_ITERS, want=tuple(VAR_PEER_KERNELS.values()))
+        for name, (fn, (variant, _, _)) in paths.items():
+            step.context.barrier()
+            times[name] = {
+                "ms": kernel_ms(rows, VAR_PEER_KERNELS[name])
+                if rank == 0 else None,
+                "event_ms": event_ms(lambda variant=variant:
+                                     variant(x, "data", vmesh),
+                                     iters=PEER_TIME_ITERS),
+                "label": f"ring_allreduce_{name} at the buffer (1, "
+                         f"{x.shape[1]}, {x.shape[2]}) f32 per process"}
+    for name, (fn, args) in paths.items():
+        variants[name]["step_ms"] = event_ms(lambda fn=fn, args=args:
+                                             fn(*args), iters=2)
+    note("ring-variant path")
+    step.context.close()
+
+    # (d) The long-context path.
+    paths = entry_mod.multihost_sp_entry(rank, size, address("sp"), device,
+                                         device_hostname="127.0.0.1")
+    counters = (attn.flash_attention_step, attn.flash_attention_bwd_step,
+                attn.prepare_bwd_step, attn.flash_bwd_step_finish,
+                ring.alltoall, attn.flash_attention_fwd,
+                attn.flash_attention_bwd, permute.pull)
+    sp_res = {}
+    for name, (fn, args) in paths.items():
+        for c in counters:
+            c.launches = 0
+        res = fn(*args)
+        torch.cuda.synchronize()
+        got = [res] if name == "ring_attention" else [res[0], *res[1]]
+        want = [t[mine] for t in ref["sp"][name]]
+        same, worst, ok = held(got, want, SP_TOL)
+        sp_res[name] = {"launches": [c.launches for c in counters],
+                        "bitwise": same, "rel": worst, "ok": ok,
+                        "finite": all(bool(torch.isfinite(t.float()).all())
+                                      for t in got)}
+    ctx_sp = paths["ring_flash"][0].context
+    _, q, k, v, sp_mesh = paths["ring_flash"][1]
+    times["permute"] = tp_peer_time(
+        rank, f"spmd.shift of a K block {tuple(k.shape)} bf16 per process",
+        lambda: spmd.shift(k, "seq", 1, mesh=sp_mesh), "permute_peer_kernel",
+        ctx_sp)
+    b, h_kv, t_local, d = k.shape[1:]
+    out["shift"] = shift_peer_cases(
+        spmd, make_mesh, k, "seq", sp_mesh, size,
+        (k.shape[0], b * h_kv, t_local, attn.kernel_head_dim(d)))
+    for name, (fn, args) in paths.items():
+        ctx_sp.barrier()
+        sp_res[name]["ms"] = event_ms(lambda fn=fn, args=args: fn(*args),
+                                      iters=2)
+    note("long-context path")
+    ctx_sp.close()
+
+    # (e) The pipeline path.
+    paths = entry_mod.multihost_pp_entry(rank, size, address("pp"), device,
+                                         device_hostname="127.0.0.1")
+    counters = (attn.flash_attention_fwd, attn.flash_attention_bwd,
+                permute.pull)
+    pp_res = {}
+    fn, args = paths["gpipe"]
+    for c in counters:
+        c.launches = 0
+    y = fn(*args)
+    torch.cuda.synchronize()
+    same, worst, ok = held([y], [ref["pp"]["gpipe"][mine]], PP_TOL["out"])
+    pp_res["gpipe"] = {"launches": [c.launches for c in counters],
+                       "bitwise": same, "rel": worst, "ok": ok}
+    fn, args = paths["1f1b"]
+    steps = []
+    for c in counters:
+        c.launches = 0
+    for _ in range(SPP_STEPS):
+        steps.append(fn(*args))
+    torch.cuda.synchronize()
+    grads_ref, loss_ref = ref["pp"]["1f1b"]
+    names = sorted(grads_ref)
+    rels, same_all, repeat = [], True, True
+    for grads, loss_sum in steps:
+        got = [grads[n] for n in names]
+        want = [grads_ref[n][mine] for n in names]
+        same, worst, _ = held(got + [loss_sum], want + [loss_ref[mine]],
+                              math.inf)
+        same_all = same_all and same
+        loss_rel = close_rel(loss_sum, loss_ref[mine])
+        rels.append((loss_rel, max(close_rel(g, w)
+                                   for g, w in zip(got, want))))
+        repeat = repeat and all(same_bits(grads[n], steps[0][0][n])
+                                for n in names)
+    pp_res["1f1b"] = {
+        "launches": [c.launches for c in counters], "bitwise": same_all,
+        "loss_rel": max(r[0] for r in rels),
+        "grad_rel": max(r[1] for r in rels), "repeat": repeat,
+        "ok": all(r[0] <= TRAIN_TOL["loss"] and r[1] <= TRAIN_TOL["grad"]
+                  for r in rels),
+        "finite": all(bool(torch.isfinite(t.float()).all())
+                      for grads, loss in steps
+                      for t in (loss, *grads.values()))}
+    ctx_pp = paths["gpipe"][0].context
+    for name, (fn, args) in paths.items():
+        ctx_pp.barrier()
+        pp_res[name]["ms"] = event_ms(lambda fn=fn, args=args: fn(*args),
+                                      iters=1)
+    note("pipeline path")
+    ctx_pp.close()
+    out.update(variants=variants, sp=sp_res, pp=pp_res, times=times,
+               wall_s=time.perf_counter() - t0)
+    return out
+
+
+def spp_peer_reference(ring, permute, entry_mod, path):
+    """The world runs of phase 36's paths in this process on the card,
+    saved to `path` for the workers (the variants' (y, dx), the three SP
+    paths' outputs and gradients, GPipe's output and the 1F1B step's
+    grads and loss_sum); and the twins', yardsticks' times and bounds of
+    the cross-process kernels and the transport at the paths' shapes."""
+    ref = {"variants": {}, "sp": {}, "pp": {}}
+    vpaths = entry_mod.ring_variants_entry()
+    for name, (fn, args) in vpaths.items():
+        ref["variants"][name] = fn(*args)
+    for name, (fn, args) in entry_mod.sp_entry().items():
+        res = fn(*args)
+        ref["sp"][name] = [res] if name == "ring_attention" \
+            else [res[0], *res[1]]
+    ppaths = entry_mod.pp_entry()
+    for name, (fn, args) in ppaths.items():
+        ref["pp"][name] = fn(*args)
+    torch.cuda.synchronize()
+    torch.save(ref, path)
+    # Whether the world runs repeat their own bits.
+    spaths = entry_mod.sp_entry()
+    again = {name: spaths[name][0](*spaths[name][1])
+             for name in ("ring_flash", "ulysses")}
+    again["1f1b"] = ppaths["1f1b"][0](*ppaths["1f1b"][1])
+    grads, loss = ref["pp"]["1f1b"]
+    repeat = {name: all(same_bits(a, b) for a, b in zip(
+        [again[name][0], *again[name][1]], ref["sp"][name]))
+        for name in ("ring_flash", "ulysses")}
+    repeat["1f1b"] = same_bits(again["1f1b"][1], loss) and all(
+        same_bits(again["1f1b"][0][k], grads[k]) for k in grads)
+    print(f"  the world runs repeat their own bits: {repeat}")
+    rows = {}
+    _, x, mesh = vpaths["hbm"][1]
+    ranks, per_rank = x.shape[0], x[0].numel() * x.element_size()
+    bound, bound_by = _bound(2 * ranks * per_rank,
+                             (ranks - 1) * x[0].numel(), torch.float32)
+    with torch.no_grad():
+        lib = timed("variants' yardstick x.sum(0) then "
+                    "expand(P).contiguous()",
+                    lambda: x.sum(0).expand(ranks, -1, -1).contiguous(),
+                    kinds=2)
+        for name in VAR_PEER_CASES:
+            plain = getattr(ring, f"ring_allreduce_{name}_plain")
+            plain_ms = timed(f"ring_allreduce_{name} plain on the world",
+                             lambda plain=plain: plain(x, "data", mesh),
+                             iters=3)
+            rows[name] = (plain_ms, None if name == "q8" else lib, bound,
+                          bound_by)
+        _, q, k, v, sp_mesh = entry_mod.sp_entry()["ring_flash"][1]
+        n = k.shape[0]
+        perm = [(n - 1 + i) % n for i in range(n)]  # ring index k pulls k - 1
+        plain_ms = timed("the transport plain (pull_plain) on the world at "
+                         "a K block",
+                         lambda: permute.pull_plain(k, "seq", sp_mesh, perm,
+                                                    [0] * n, k[0].numel()))
+        lib_ms = timed("the transport's yardstick torch.roll(k, 1, 0)",
+                       lambda: torch.roll(k, 1, 0))
+        bound_p, by_p = _bound(2 * k.numel() * k.element_size(), 0,
+                               torch.bfloat16)
+        rows["permute"] = (plain_ms, lib_ms, bound_p, by_p)
+    return rows
+
+
+def spp_peer_phase(card, ring, permute, pp, entry_mod):
+    """Phase 36: worker_spp_peer in SPP_PEER_SIZES[-1] processes; the
+    checks; the rows of the cross-process B9, B10, B11 and the
+    transport for the kernels line."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    size = SPP_PEER_SIZES[-1]
+    env = {f"CHIP_SMOKE_SPP_PORT_{key}": str(_free_port())
+           for key in SPP_PEER_PORTS}
+    failed = []
+    with tempfile.TemporaryDirectory() as tmp:
+        env["CHIP_SMOKE_SPP_REF"] = os.path.join(tmp, "ref.pt")
+        print(f"world runs of the ring-variant, long-context and pipeline "
+              f"paths in one process, and the twins' and yardsticks' "
+              f"times [{card}]:")
+        ref_rows = spp_peer_reference(ring, permute, entry_mod,
+                                      env["CHIP_SMOKE_SPP_REF"])
+        t_ref = time.perf_counter() - t_phase
+        # The workers share the card with this process, whose allocator
+        # still caches what the earlier phases freed (~77 GiB after phase
+        # 33 in one run, where a worker then found no room for B10's
+        # past-cap case): give it back first.
+        import gc
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  this process holds "
+              f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB and "
+              f"reserves {torch.cuda.memory_reserved() / 2 ** 30:.3f} GiB "
+              f"of the card while the workers run")
+        res = run_workers("36", timeout=SPP_PEER_TIMEOUT, size=size, env=env)
+    t_workers = time.perf_counter() - t_phase - t_ref
+    var_err = dict.fromkeys(VAR_PEER_CASES, 0.0)
+    perm_err = 0.0
+    for p in SPP_PEER_SIZES:
+        parts = [r["sizes"][str(p)] for r in res[:p]]
+        var = [part["var"] for part in parts]
+        wrong = [w for v_ in var for w in v_["wrong"]]
+        past = f" also past its register form at ({p}, " \
+            f"{var[0]['past_cap_rows']}, 256)" if p == SPP_PEER_SIZES[-1] \
+            else ""
+        for name in VAR_PEER_CASES:
+            var_err[name] = max([var_err[name]]
+                                + [v_["err"][name] for v_ in var])
+        print(f"B9, B10, B11 across {p} processes (process_of "
+              f"{parts[0]['process_of']}, {var[0]['cases']} calls per "
+              f"process, {PEER_BACK_TO_BACK} back to back per case: the "
+              f"buffer and ragged shapes, B9 and B11 in f32 and bf16, B10 "
+              f"f32{past}) against the one-card "
+              f"kernel on the same world and the twin: "
+              f"{'all bitwise equal' if not wrong else 'DIFFER ' + str(wrong[:6])}"
+              f"; max |kernel - twin| "
+              f"{ {n: max(v_['err'][n] for v_ in var) for n in VAR_PEER_CASES} }"
+              f"; launches per process {[v_['launches'] for v_ in var]}")
+        per = {name: len(cases) * len(VAR_PEER_DTYPES[name])
+               * PEER_BACK_TO_BACK for name, cases in VAR_PEER_CASES.items()}
+        if p == SPP_PEER_SIZES[-1]:
+            per["q8"] += PEER_BACK_TO_BACK
+        if wrong or any(v_["launches"] != per for v_ in var):
+            failed.append(f"B9, B10, B11 across {p} processes")
+        perm = [part["perm"] for part in parts]
+        wrong = [w for pm in perm for w in pm["wrong"]]
+        perm_err = max([perm_err] + [pm["err"] for pm in perm])
+        print(f"the transport across {p} processes ({perm[0]['cases']} "
+              f"calls per process: {', '.join(perm_peer_ops(None, p))}, "
+              f"CudaProcessGroup's broadcast and send_recv in f32, bf16 and "
+              f"int32, barrier; {PERM_PEER_ROUNDS} rounds) against the "
+              f"world's spmd on the card: "
+              f"{'all bitwise equal' if not wrong else 'DIFFER ' + str(wrong[:6])}"
+              f"; launches (pull, B4b, B3) per process "
+              f"{[pm['launches'] for pm in perm]}, expected "
+              f"{perm[0]['want']}")
+        if wrong or any(pm["launches"] != pm["want"] for pm in perm):
+            failed.append(f"the transport across {p} processes")
+
+    # (c) The ring-variant path.
+    for name in VAR_PEER_CASES:
+        got = [r["variants"][name] for r in res]
+        print(f"multihost_ring_variants_entry {name} over {size} processes, "
+              f"forward + VJP: (y, dx) against the world run "
+              f"{'bitwise equal' if all(g['bitwise'] for g in got) else 'DIFFER'}"
+              f"; launches per process {[g['launches'] for g in got]}; step "
+              f"{[round(g['step_ms'], 6) for g in got]} ms (events) [{card}; "
+              f"one card, time-sliced]")
+        if not all(g["bitwise"] and g["launches"] == 2 for g in got):
+            failed.append(f"the ring-variant path {name} across processes")
+
+    # (d) The long-context path: the transport at its shapes, then the
+    # paths.
+    shift = [r["shift"] for r in res]
+    wrong = [w for sh in shift for w in sh["wrong"]]
+    perm_err = max([perm_err] + [sh["err"] for sh in shift])
+    print(f"spmd.shift at the ring-flash path's shapes over {size} processes "
+          f"({shift[0]['cases']} calls per process: a K block in bf16 and a "
+          f"dK/dV carrier in f32, by +1 and -1 with wrap and +1 without) "
+          f"against the world's spmd.shift on the card: "
+          f"{'all bitwise equal' if not wrong else 'DIFFER ' + str(wrong[:6])}"
+          f"; max |shift - world| {max(sh['err'] for sh in shift)}")
+    if wrong:
+        failed.append("the transport at the ring-flash path's shapes")
+    want = {"ring_flash": [4, 4, 1, 1, 0, 0, 0, 20],
+            "ulysses": [0, 0, 0, 0, 8, 1, 1, 0],
+            "ring_attention": [0, 0, 0, 0, 0, 0, 0, 6]}
+    for name in want:
+        got = [r["sp"][name] for r in res]
+        print(f"multihost_sp_entry {name} over {size} processes"
+              f"{', forward + backward' if name != 'ring_attention' else ', forward'}"
+              f": against the world run "
+              f"{'bitwise equal' if all(g['bitwise'] for g in got) else 'not bitwise'}"
+              f" (worst |a - b| / |b| {max(g['rel'] for g in got):.3e}, tol "
+              f"{SP_TOL}); launches (B6, B7, prep, finish, B8, B1, B2, pull) "
+              f"per process {[g['launches'] for g in got]}; "
+              f"{[round(g['ms'], 6) for g in got]} ms per call (events) "
+              f"[{card}; one card, time-sliced]")
+        if not all(g["ok"] and g["finite"] and g["launches"] == want[name]
+                   and (g["bitwise"] or name not in SPP_BITWISE)
+                   for g in got):
+            failed.append(f"the {name} path across processes")
+
+    # (e) The pipeline path: per 1F1B tick B1 twice (the forward and the
+    # recompute), B2 once, and two shifts; per GPipe tick B1 and a shift.
+    ticks = pp._build_1f1b_tables(entry_mod.PP_STAGES,
+                                  entry_mod.PP_MICROBATCHES)[0].shape[0]
+    gp = [r["pp"]["gpipe"] for r in res]
+    print(f"multihost_pp_entry GPipe forward over {size} processes: against "
+          f"the world run {'bitwise equal' if all(g['bitwise'] for g in gp) else 'not bitwise'}"
+          f" (worst |a - b| / |b| {max(g['rel'] for g in gp):.3e}, tol "
+          f"{PP_TOL['out']}); launches (B1, B2, pull) per process "
+          f"{[g['launches'] for g in gp]}; {[round(g['ms'], 6) for g in gp]} "
+          f"ms (events) [{card}; one card, time-sliced]")
+    gpipe_ticks = entry_mod.PP_STAGES + entry_mod.PP_MICROBATCHES - 1
+    if not all(g["ok"] and g["bitwise"]
+               and g["launches"] == [gpipe_ticks, 0, gpipe_ticks]
+               for g in gp):
+        failed.append("GPipe across processes")
+    fb = [r["pp"]["1f1b"] for r in res]
+    print(f"multihost_pp_entry {SPP_STEPS} 1F1B steps over {size} processes: "
+          f"grads and loss_sum against the world run "
+          f"{'bitwise equal' if all(f['bitwise'] for f in fb) else 'not bitwise'}"
+          f" (loss rel {max(f['loss_rel'] for f in fb):.3e}, tol "
+          f"{TRAIN_TOL['loss']}; grads |a - b| / |b| "
+          f"{max(f['grad_rel'] for f in fb):.3e}, tol {TRAIN_TOL['grad']}); "
+          f"the steps {'repeat bitwise' if all(f['repeat'] for f in fb) else 'DIFFER'}"
+          f"; launches (B1, B2, pull) per process "
+          f"{[f['launches'] for f in fb]}; "
+          f"{[round(f['ms'], 6) for f in fb]} ms per step (events) [{card}; "
+          f"one card, time-sliced]")
+    if not all(f["ok"] and f["finite"] and f["repeat"]
+               and f["launches"] == [2 * SPP_STEPS * ticks,
+                                     SPP_STEPS * ticks,
+                                     2 * SPP_STEPS * ticks] for f in fb):
+        failed.append("1F1B across processes")
+
+    # (f) Times.
+    rows = {}
+    for name in (*VAR_PEER_CASES, "permute"):
+        t = res[0]["times"][name]
+        plain_ms, lib_ms, bound, bound_by = ref_rows[name]
+        print(f"  {t['label']} across {size} processes: device {t['ms']} ms "
+              f"per launch (rank 0's profile), per call (events) "
+              f"{[round(r['times'][name]['event_ms'], 6) for r in res]} ms; "
+              f"the world's twin {plain_ms} ms, yardstick {lib_ms} ms, bound "
+              f"{bound:.6f} ms ({bound_by}) [{card}; one card, time-sliced]")
+        if name == "permute":
+            n, err = res[0]["sp"]["ring_flash"]["launches"][-1], perm_err
+        else:
+            n, err = res[0]["variants"][name]["launches"], var_err[name]
+        rows[name] = (n, err, (t["ms"], plain_ms, lib_ms, bound, bound_by))
+    print(f"phase 36: {time.perf_counter() - t_phase:.1f} s (world runs "
+          f"{t_ref:.1f} s, workers {t_workers:.1f} s, each "
+          f"{max(r['wall_s'] for r in res):.1f} s)")
+    if failed:
+        raise AssertionError(f"phase 36 failed: {failed}")
+    return rows
+
+
 WORKERS = {"26": worker_staging, "27": worker_host_sync, "28": worker_hier,
            "29": worker_elastic, "29b": worker_run_elastic,
            "30": worker_surface, "32": worker_traced,
-           "34": worker_peer, "35": worker_tp_peer}
+           "34": worker_peer, "35": worker_tp_peer, "36": worker_spp_peer}
 
 
 def host_phases(card):
@@ -5105,7 +5797,7 @@ def main():
     from gloo_tpu_torch.models import Transformer
     from gloo_tpu_torch.ops import attention as attn
     from gloo_tpu_torch.ops import overlap as ov
-    from gloo_tpu_torch.ops import ring
+    from gloo_tpu_torch.ops import permute, ring
     from gloo_tpu_torch.parallel import dp_tp, pp, sp, tp
     from gloo_tpu_torch.parallel.ddp import buffer_width
     from gloo_tpu_torch.parallel.fsdp import unshard_params
@@ -5758,6 +6450,12 @@ def main():
     # MoE path at one process per rank.
     tp_peer_rows = tp_peer_phase(card, ov, ring, entry_mod, tp_losses)
 
+    # Phase 36: the ring variants, spmd's point-to-point collectives, and
+    # sequence and pipeline parallelism across processes: B9, B10, B11 and
+    # the transport across 2-4 processes, the ring-variant, long-context
+    # and pipeline paths at one process per rank.
+    spp_peer_rows = spp_peer_phase(card, ring, permute, pp, entry_mod)
+
     # Launches on the main paths: B1 on the serving path, B2 on the
     # training path, B3 on the DDP path, B4a and B4b on the group path,
     # B5a and B5b on the fused MLP path, B6 and B7 on the ring-flash path
@@ -5849,6 +6547,31 @@ def main():
             "name": f"{name}_across_processes", "route": "cuda",
             "source": f"gloo_tpu_torch/csrc/{source}",
             "replaces": f"gloo_tpu/ops/{replaces}", "launches": n,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": lib})
+    # The cross-process instances of phase 36: B9's, B10's and B11's
+    # launches on the ring-variant path per process, the transport's on
+    # the ring-flash path (20 shifts of K, V and the dK/dV carriers); times
+    # at the variant buffer and a K block across 4 processes on one card
+    # (time-sliced). The transport replaces no Pallas kernel: its
+    # "replaces" is the XLA collective it stands for, lax.ppermute.
+    for name, kname, source, replaces in (
+            ("hbm", "ring_allreduce_hbm", "ring_variants.cu",
+             "ops/pallas_ring.py:246"),
+            ("q8", "ring_allreduce_q8", "ring_variants.cu",
+             "ops/pallas_ring.py:485"),
+            ("bidir", "ring_allreduce_bidir", "ring_variants.cu",
+             "ops/pallas_ring.py:691"),
+            ("permute", "permute", "permute.cu", "tpu/spmd.py:118")):
+        n, err, (ms, plain, lib, bound, bound_by) = spp_peer_rows[name]
+        if None in (ms, plain) or (lib is None and name != "q8"):
+            raise AssertionError(
+                f"the profiler showed no device time for the cross-process "
+                f"{kname}, its plain version or its library call")
+        kernels.append({
+            "name": f"{kname}_across_processes", "route": "cuda",
+            "source": f"gloo_tpu_torch/csrc/{source}",
+            "replaces": f"gloo_tpu/{replaces}", "launches": n,
             "max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": bound, "bound_by": bound_by, "library_ms": lib})
     print(json.dumps({"kernels": kernels}))

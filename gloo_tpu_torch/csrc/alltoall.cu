@@ -259,17 +259,7 @@ int max_blocks(int* blocks) {
     }
     if (err == cudaSuccess && got < per_sm) per_sm = got;
   }
-  int device = 0, sms = 0, coop = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&device);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  }
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
-  }
-  if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
-  *blocks = err == cudaSuccess ? per_sm * sms : 0;
-  return static_cast<int>(err);
+  return cooperative_blocks(err, per_sm, blocks);
 }
 
 // The sizes every launch must meet, and the run geometry of Params.
@@ -398,25 +388,20 @@ int gtt_alltoall_peer(const void* const* in, void* out, long long out_stride,
       out_stride % unit || reinterpret_cast<uintptr_t>(out) % unit) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (!fill_rings(p.my, p.members, my, members, local, local_ranks, ranks,
+                  n)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   for (int r = 0; r < ranks; ++r) {
-    if (my[r] < 0 || my[r] >= n || in[r] == nullptr || flags[r] == nullptr ||
+    if (in[r] == nullptr || flags[r] == nullptr ||
         reinterpret_cast<uintptr_t>(in[r]) % unit) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
     p.in[r] = in[r];
     p.flags[r] = flags[r];
-    p.my[r] = my[r];
   }
   for (int x = 0; x < local_ranks; ++x) {
     const int r = local[x];
-    if (r < 0 || r >= ranks) return static_cast<int>(cudaErrorInvalidValue);
-    for (int k = 0; k < n; ++k) {
-      const int m = members[r * n + k];
-      if (m < 0 || m >= ranks || (k == my[r]) != (m == r)) {
-        return static_cast<int>(cudaErrorInvalidValue);
-      }
-      p.members[r][k] = static_cast<unsigned char>(m);
-    }
     p.out[r] = static_cast<char*>(out) + x * out_stride;
     q.local[x] = r;
   }

@@ -1072,17 +1072,7 @@ int max_blocks(int smem, int* blocks) {
   if (err == cudaSuccess) {
     err = min_blocks<float, false, false, kPeer>(smem, &per_sm);
   }
-  int device = 0, sms = 0, coop = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&device);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  }
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
-  }
-  if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
-  *blocks = err == cudaSuccess ? per_sm * sms : 0;
-  return static_cast<int>(err);
+  return cooperative_blocks(err, per_sm, blocks);
 }
 
 }  // namespace

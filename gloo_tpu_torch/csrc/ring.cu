@@ -366,14 +366,8 @@ int run(int mode, const void* in, long long in_stride, void* out,
             ranks, n, slices, chunk)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  for (int r = 0; r < ranks; ++r) {
-    for (int k = 0; k < n; ++k) {
-      const int m = members[r * n + k];
-      if (m < 0 || m >= ranks || (k == my[r]) != (m == r)) {
-        return static_cast<int>(cudaErrorInvalidValue);
-      }
-      p.members[r][k] = static_cast<unsigned char>(m);
-    }
+  if (!fill_rings(p.my, p.members, my, members, nullptr, ranks, ranks, n)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   return launch(mode_kernel<false>(mode, dtype, vec), p, ranks, slices,
                 stream);
@@ -396,28 +390,19 @@ int run_peer(int mode, const void* const* in, void* const* out,
   PeerParams q;
   memset(&q, 0, sizeof(q));
   Params& p = q.p;
+  if (!fill_rings(p.my, p.members, my, members, local, local_ranks, ranks,
+                  n)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   for (int r = 0; r < ranks; ++r) {
-    if (my[r] < 0 || my[r] >= n || in[r] == nullptr || out[r] == nullptr ||
-        flags[r] == nullptr) {
+    if (in[r] == nullptr || out[r] == nullptr || flags[r] == nullptr) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
     p.in[r] = in[r];
     p.out[r] = out[r];
     p.flags[r] = flags[r];
-    p.my[r] = my[r];
   }
-  for (int x = 0; x < local_ranks; ++x) {
-    const int r = local[x];
-    if (r < 0 || r >= ranks) return static_cast<int>(cudaErrorInvalidValue);
-    for (int k = 0; k < n; ++k) {
-      const int m = members[r * n + k];
-      if (m < 0 || m >= ranks || (k == my[r]) != (m == r)) {
-        return static_cast<int>(cudaErrorInvalidValue);
-      }
-      p.members[r][k] = static_cast<unsigned char>(m);
-    }
-    q.local[x] = r;
-  }
+  for (int x = 0; x < local_ranks; ++x) q.local[x] = local[x];
   p.n = n;
   p.flag_stride = kPeerFlags;
   p.chunk = chunk;
@@ -454,17 +439,7 @@ int max_blocks(int* blocks) {
       err = min_blocks(kernel_for<kAllgather, kPeer>(bytes, 0), &per_sm);
     }
   }
-  int device = 0, sms = 0, coop = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&device);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  }
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
-  }
-  if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
-  *blocks = err == cudaSuccess ? per_sm * sms : 0;
-  return static_cast<int>(err);
+  return cooperative_blocks(err, per_sm, blocks);
 }
 
 }  // namespace

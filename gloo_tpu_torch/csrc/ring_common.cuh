@@ -265,4 +265,45 @@ __device__ __forceinline__ void fold_members(U (&acc)[kUnroll], int n,
 
 __device__ __forceinline__ int wrap(int i, int n) { return ((i % n) + n) % n; }
 
+// Host side of a launch's rank tables. my: every flat rank's ring index
+// (below n), copied into p_my; members: ranks x n flat ranks, row r the
+// ring of rank r in ring order, with r itself at entry my[r], copied into
+// p_members for the flat ranks in local (local_ranks of them; nullptr:
+// every rank). False where a table breaks that.
+inline bool fill_rings(int* p_my, unsigned char (*p_members)[kMaxRanks],
+                       const int* my, const int* members, const int* local,
+                       int local_ranks, int ranks, int n) {
+  for (int r = 0; r < ranks; ++r) {
+    if (my[r] < 0 || my[r] >= n) return false;
+    p_my[r] = my[r];
+  }
+  for (int x = 0; x < local_ranks; ++x) {
+    const int r = local == nullptr ? x : local[x];
+    if (r < 0 || r >= ranks) return false;
+    for (int k = 0; k < n; ++k) {
+      const int m = members[r * n + k];
+      if (m < 0 || m >= ranks || (k == my[r]) != (m == r)) return false;
+      p_members[r][k] = static_cast<unsigned char>(m);
+    }
+  }
+  return true;
+}
+
+// The cooperative launch's limit on the current device once the kernels'
+// occupancy queries have given err and the least blocks per SM, per_sm:
+// per_sm x SMs in *blocks (0 on an error). Returns a cudaError_t.
+inline int cooperative_blocks(cudaError_t err, int per_sm, int* blocks) {
+  int device = 0, sms = 0, coop = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
+  }
+  if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
+  *blocks = err == cudaSuccess ? per_sm * sms : 0;
+  return static_cast<int>(err);
+}
+
 }  // namespace gtt

@@ -117,18 +117,38 @@
 // arithmetic to speak of. B9, B11 and B10's register form move exactly
 // that; B10 adds n cross-block reductions per chain.
 //
-// Across cards (ROADMAP A.7) the launch must add: loads through
-// peer-mapped pointers (for B9, whether cp.async.bulk reads a peer-mapped
-// global address is to be checked there; else its loads become __ldg as
-// in B11; for B10 the int8 wire is the point across cards: the blocks
-// that read member c + k - 1 hand q_{k-1} and s_{k-1}, int8 codes and one
-// f32, to those that read member c + k, in place of reading f32 partials
-// over the link, with the same bits), flags at system scope (.sys in
-// place of .gpu), one cooperative launch per card, and an exit barrier
-// among the members before a rank reuses its input (peers may still read
-// it) or reads its output (peers write into it). On one card stream
-// order completes every input before the launch, so the entry barrier is
-// not needed for the result.
+// Across processes (the cross-process instances, entry
+// gtt_ring_variants_peer) each rank's input and output live in its
+// process's peer workspace (peer.cu, tpu/peer.py), mapped into every other
+// process by CUDA IPC: Params holds a peer-mapped pointer for every
+// member's input, output and flags, and this process's own for its local
+// ranks. Each process makes one cooperative launch of its local ranks'
+// blocks (grid (local ranks, S), B11 (local ranks, 2, S)); block x plays
+// flat rank local[x]. A peer's input is complete only once that peer has
+// entered, so the entry barrier now orders the loads; an exit barrier
+// follows the last load and store, since peers read a rank's input and
+// every kernel stores finished chunks into every member's output. Each
+// rank has one entry and one exit flag at system scope (.sys) that every
+// block of every other member adds one to, counters that only grow: the
+// wrapper passes their count before the call (`before`), a call adds
+// (n - 1) x the blocks per rank, and nothing zeroes them (a peer's add
+// could land before an owner's zeroing). B9's producer issues its bulk
+// loads from the peer-mapped inputs after a proxy fence
+// (fence.proxy.async.global: the acquire of the entry flags is a generic
+// access, the bulk copies are the async proxy's), and its stores into the
+// members' outputs are complete (cp.async.bulk.wait_group 0, then the
+// proxy fence) before it enters the exit barrier. B10's chain cells stay
+// this process's own: a chain's blocks all play the rank that starts it,
+// so its maxima and arrival counts are touched by no peer and are zeroed
+// in stream order before the launch; the out-of-register form's partial
+// stays in the owner's own output chunk, which no peer writes before the
+// chain's final store. On one card under time-slicing a spin waits until
+// the card switches to a peer's context; across cards the loads and
+// stores would ride NVLink, where B10's int8 hand-off (the blocks that
+// read member c + k - 1 handing q_{k-1} and s_{k-1} to those that read
+// member c + k, in place of f32 partials, with the same bits) is what
+// pays; it is not built (ROADMAP A.7). The one-card instances are the
+// same templates at Scope::kGpu with before 0 and no exit barrier.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -172,14 +192,40 @@ struct Params {
   long long half_units;  // B11: 16-byte units per row of one half
 };
 
-// The members barrier of flag set `set` of block rank r.
-__device__ __forceinline__ void enter(const Params& p, int r, int set) {
+// The members barrier on entry of block rank r. One card (S =
+// Scope::kGpu): flag set `set` of rank r, zeroed per call. Across
+// processes (Scope::kSys): rank r's entry flag, which every block of every
+// other member adds one to, so the wait is for before + (n - 1) x the
+// blocks per rank (gridDim.y x gridDim.z).
+template <Scope S>
+__device__ __forceinline__ void enter(const Params& p, int r, int set,
+                                      int before) {
   const int n = p.n, my = p.my[r];
-  const long long flag = static_cast<long long>(set) * p.flag_stride +
-                         kBarrier;
-  members_barrier(p.flags[r] + flag, n, [&](int k) {
+  const long long flag =
+      S == Scope::kGpu
+          ? static_cast<long long>(set) * p.flag_stride + kBarrier
+          : kBarrier;
+  const int base =
+      S == Scope::kGpu
+          ? 0
+          : before + (n - 1) * (static_cast<int>(gridDim.y * gridDim.z) - 1);
+  members_barrier<S>(p.flags[r] + flag, n, [&](int k) {
     return p.flags[p.members[r][wrap(my + k, n)]] + flag;
-  });
+  }, base);
+}
+
+// Across processes, the exit barrier of block rank r (its exit flag,
+// counted as the entry flag): no member returns, and reuses its input or
+// reads its output, while a peer can still read the one or write the
+// other. Nothing on one card.
+template <Scope S>
+__device__ __forceinline__ void leave(const Params& p, int r, int before) {
+  if constexpr (S == Scope::kSys) {
+    const int n = p.n, my = p.my[r];
+    exit_barrier<S>(p.flags[r] + kPeerExit, n, [&](int k) {
+      return p.flags[p.members[r][wrap(my + k, n)]] + kPeerExit;
+    }, before + (n - 1) * (static_cast<int>(gridDim.y * gridDim.z) - 1));
+  }
 }
 
 // ---- B9: shared memory, mbarriers, bulk copies ----
@@ -247,10 +293,11 @@ __device__ __forceinline__ void consumers_sync() {
 
 // T: element type; kPer: 16-byte units of a tile per consumer thread.
 // Dynamic shared memory: p.stages tiles, two output tiles, then the
-// stages' full and empty mbarriers.
-template <typename T, int kPer>
-__global__ void __launch_bounds__(kHbmThreads)
-hbm_kernel(const __grid_constant__ Params p) {
+// stages' full and empty mbarriers. Block (x, j) plays rank r with its
+// flags' count `before` the call (see enter).
+template <typename T, int kPer, Scope S>
+__device__ __forceinline__ void hbm_body(const Params& p, int r,
+                                         int before) {
   constexpr int kTileUnits = kThreads * kPer;
   extern __shared__ __align__(128) unsigned char smem[];
   const int stages = p.stages;
@@ -259,7 +306,7 @@ hbm_kernel(const __grid_constant__ Params p) {
   uint64_t* const full = reinterpret_cast<uint64_t*>(outbuf + 2 * kTileUnits);
   uint64_t* const empty = full + stages;
 
-  const int r = blockIdx.x, n = p.n, my = p.my[r];
+  const int n = p.n, my = p.my[r];
   const unsigned char* const ring = p.members[r];
   const long long chunk = p.chunk;
   const long long tiles = (chunk + kTileUnits - 1) / kTileUnits;
@@ -274,86 +321,104 @@ hbm_kernel(const __grid_constant__ Params p) {
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  enter(p, r, blockIdx.y);  // ends in __syncthreads: the mbarriers are set
+  // Ends in __syncthreads: the mbarriers are set.
+  enter<S>(p, r, blockIdx.y, before);
 
   if (threadIdx.x >= kThreads) {
-    if (threadIdx.x != kThreads) return;
-    // The producer: load i = (tile, member) into stage i mod K, phase
-    // i / K, once the stage's previous phase has been read.
+    if (threadIdx.x == kThreads) {
+      // The producer: load i = (tile, member) into stage i mod K, phase
+      // i / K, once the stage's previous phase has been read. Across
+      // processes the peers' inputs were released to the generic proxy.
+      if constexpr (S == Scope::kSys) {
+        asm volatile("fence.proxy.async.global;" ::: "memory");
+      }
+      int s = 0;
+      uint32_t phase = 0;
+      bool refill = false;
+      for (long long t = t_lo; t < t_hi; ++t) {
+        const long long u0 = t * kTileUnits;
+        const uint32_t bytes = static_cast<uint32_t>(
+            (chunk - u0 < kTileUnits ? chunk - u0 : kTileUnits) * 16);
+        for (int m = 0; m < n; ++m) {
+          if (refill) mbar_wait(empty + s, phase ^ 1);
+          mbar_expect(full + s, bytes);
+          bulk_load(stage + s * kTileUnits,
+                    static_cast<const uint4*>(
+                        p.in[ring[wrap(my + 1 + m, n)]]) + off + u0,
+                    bytes, full + s);
+          if (++s == stages) {
+            s = 0;
+            phase ^= 1;
+            refill = true;
+          }
+        }
+      }
+    }
+    // One card: the producer warp is done. Across processes it meets the
+    // exit barrier with the consumers.
+    if constexpr (S == Scope::kGpu) return;
+  } else {
+    // The consumers: thread x owns units x, x + 256, ... of every tile.
     int s = 0;
     uint32_t phase = 0;
-    bool refill = false;
     for (long long t = t_lo; t < t_hi; ++t) {
       const long long u0 = t * kTileUnits;
-      const uint32_t bytes = static_cast<uint32_t>(
-          (chunk - u0 < kTileUnits ? chunk - u0 : kTileUnits) * 16);
+      const int len = static_cast<int>(
+          chunk - u0 < kTileUnits ? chunk - u0 : kTileUnits);
+      uint4 acc[kPer];
       for (int m = 0; m < n; ++m) {
-        if (refill) mbar_wait(empty + s, phase ^ 1);
-        mbar_expect(full + s, bytes);
-        bulk_load(stage + s * kTileUnits,
-                  static_cast<const uint4*>(p.in[ring[wrap(my + 1 + m, n)]]) +
-                      off + u0,
-                  bytes, full + s);
+        mbar_wait(full + s, phase);
+        const uint4* const src = stage + s * kTileUnits;
+#pragma unroll
+        for (int k = 0; k < kPer; ++k) {
+          const int e = k * kThreads + threadIdx.x;
+          if (e < len) {
+            acc[k] = m == 0 ? src[e] : add_units<T>(src[e], acc[k]);
+          }
+        }
+        __syncwarp();
+        if ((threadIdx.x & 31) == 0) mbar_arrive(empty + s);
         if (++s == stages) {
           s = 0;
           phase ^= 1;
-          refill = true;
         }
       }
-    }
-    return;
-  }
-
-  // The consumers: thread x owns units x, x + 256, ... of every tile.
-  int s = 0;
-  uint32_t phase = 0;
-  for (long long t = t_lo; t < t_hi; ++t) {
-    const long long u0 = t * kTileUnits;
-    const int len = static_cast<int>(
-        chunk - u0 < kTileUnits ? chunk - u0 : kTileUnits);
-    uint4 acc[kPer];
-    for (int m = 0; m < n; ++m) {
-      mbar_wait(full + s, phase);
-      const uint4* const src = stage + s * kTileUnits;
+      // The output buffer of two tiles ago is free once its stores have
+      // read it.
+      uint4* const buf = outbuf + ((t - t_lo) & 1) * kTileUnits;
+      if (threadIdx.x == 0) {
+        asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
+      }
+      consumers_sync();
 #pragma unroll
       for (int k = 0; k < kPer; ++k) {
         const int e = k * kThreads + threadIdx.x;
-        if (e < len) {
-          acc[k] = m == 0 ? src[e] : add_units<T>(src[e], acc[k]);
+        if (e < len) buf[e] = acc[k];
+      }
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      consumers_sync();
+      if (threadIdx.x == 0) {
+        for (int k = 0; k < n; ++k) {
+          bulk_store(static_cast<uint4*>(p.out[ring[k]]) + off + u0, buf,
+                     static_cast<uint32_t>(len) * 16);
         }
-      }
-      __syncwarp();
-      if ((threadIdx.x & 31) == 0) mbar_arrive(empty + s);
-      if (++s == stages) {
-        s = 0;
-        phase ^= 1;
+        asm volatile("cp.async.bulk.commit_group;" ::: "memory");
       }
     }
-    // The output buffer of two tiles ago is free once its stores have
-    // read it.
-    uint4* const buf = outbuf + ((t - t_lo) & 1) * kTileUnits;
     if (threadIdx.x == 0) {
-      asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
-    }
-    consumers_sync();
-#pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      const int e = k * kThreads + threadIdx.x;
-      if (e < len) buf[e] = acc[k];
-    }
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-    consumers_sync();
-    if (threadIdx.x == 0) {
-      for (int k = 0; k < n; ++k) {
-        bulk_store(static_cast<uint4*>(p.out[ring[k]]) + off + u0, buf,
-                   static_cast<uint32_t>(len) * 16);
+      asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+      if constexpr (S == Scope::kSys) {
+        asm volatile("fence.proxy.async.global;" ::: "memory");
       }
-      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
     }
   }
-  if (threadIdx.x == 0) {
-    asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
-  }
+  leave<S>(p, r, before);
+}
+
+template <typename T, int kPer>
+__global__ void __launch_bounds__(kHbmThreads)
+hbm_kernel(const __grid_constant__ Params p) {
+  hbm_body<T, kPer, Scope::kGpu>(p, blockIdx.x, 0);
 }
 
 // ---- B10 ----
@@ -467,10 +532,9 @@ __device__ __forceinline__ float scale_of(float absmax) {
 // in this rank's own output chunk between hops, read and written by the
 // thread that owns the unit, kQ8Unroll units a pass with every load of
 // the pass issued before its first store.
-template <bool kRegs>
-__global__ void __launch_bounds__(kThreads)
-q8_kernel(const __grid_constant__ Params p) {
-  const int r = blockIdx.x, slices = gridDim.y;
+template <bool kRegs, Scope S>
+__device__ __forceinline__ void q8_body(const Params& p, int r, int before) {
+  const int slices = gridDim.y;
   const int n = p.n, my = p.my[r];
   const unsigned char* const ring = p.members[r];
   // The chain of chunk my: members my, my + 1, ..., my + n - 1.
@@ -493,7 +557,7 @@ q8_kernel(const __grid_constant__ Params p) {
       static_cast<uint4*>(p.out[ring[k]])[off + u] = y;
     }
   };
-  enter(p, r, blockIdx.y);
+  enter<S>(p, r, blockIdx.y, before);
 
   float m = 0.f;
   if constexpr (kRegs) {
@@ -585,14 +649,21 @@ q8_kernel(const __grid_constant__ Params p) {
       }
     }
   }
+  leave<S>(p, r, before);
+}
+
+template <bool kRegs>
+__global__ void __launch_bounds__(kThreads)
+q8_kernel(const __grid_constant__ Params p) {
+  q8_body<kRegs, Scope::kGpu>(p, blockIdx.x, 0);
 }
 
 // ---- B11 ----
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-bidir_kernel(const __grid_constant__ Params p) {
-  const int r = blockIdx.x, d = blockIdx.y;
+template <typename T, Scope S>
+__device__ __forceinline__ void bidir_body(const Params& p, int r,
+                                           int before) {
+  const int d = blockIdx.y;
   const int n = p.n, my = p.my[r];
   const unsigned char* const ring = p.members[r];
   // d = 0: chunk my + 1, members my + 1, ..., my + n (B3's order);
@@ -606,7 +677,7 @@ bidir_kernel(const __grid_constant__ Params p) {
   // from the half's first unit.
   const long long first = wrap(my + dir, n) * p.chunk_rows * pitch + d * hu;
 
-  enter(p, r, d * gridDim.z + blockIdx.z);
+  enter<S>(p, r, d * gridDim.z + blockIdx.z, before);
 
   // This thread's next unit as (row, unit in the row), stepped by kThreads
   // units without a divide.
@@ -642,29 +713,88 @@ bidir_kernel(const __grid_constant__ Params p) {
       }
     }
   }
+  leave<S>(p, r, before);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+bidir_kernel(const __grid_constant__ Params p) {
+  bidir_body<T, Scope::kGpu>(p, blockIdx.x, 0);
+}
+
+// The cross-process instances: Params over every member's peer-mapped
+// buffers, the flat rank each block row plays, and the flags' count
+// before the call.
+struct PeerParams {
+  Params p;
+  int local[kMaxRanks];  // block x plays flat rank local[x]
+  int before;
+};
+
+template <typename T, int kPer>
+__global__ void __launch_bounds__(kHbmThreads)
+hbm_peer_kernel(const __grid_constant__ PeerParams q) {
+  hbm_body<T, kPer, Scope::kSys>(q.p, q.local[blockIdx.x], q.before);
+}
+
+template <bool kRegs>
+__global__ void __launch_bounds__(kThreads)
+q8_peer_kernel(const __grid_constant__ PeerParams q) {
+  q8_body<kRegs, Scope::kSys>(q.p, q.local[blockIdx.x], q.before);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+bidir_peer_kernel(const __grid_constant__ PeerParams q) {
+  bidir_body<T, Scope::kSys>(q.p, q.local[blockIdx.x], q.before);
 }
 
 // The instances: B9 by dtype and tile (8, 16 or 32 KB) and B11 by dtype,
 // at every code of GTT_SUM_TYPES (ring.SUM_DTYPES); B10 f32 (code 1) in
-// its two forms.
-template <typename T>
+// its two forms; each on one card or, kPeer, across processes.
+template <typename T, int kPer, bool kPeer>
+void* hbm_instance() {
+  if constexpr (kPeer) {
+    return (void*)hbm_peer_kernel<T, kPer>;
+  } else {
+    return (void*)hbm_kernel<T, kPer>;
+  }
+}
+
+template <typename T, bool kPeer>
 void* hbm_for(int tile_bytes) {
-  if (tile_bytes == kThreads * 2 * 16) return (void*)hbm_kernel<T, 2>;
-  if (tile_bytes == kThreads * 4 * 16) return (void*)hbm_kernel<T, 4>;
-  if (tile_bytes == kThreads * 8 * 16) return (void*)hbm_kernel<T, 8>;
+  if (tile_bytes == kThreads * 2 * 16) return hbm_instance<T, 2, kPeer>();
+  if (tile_bytes == kThreads * 4 * 16) return hbm_instance<T, 4, kPeer>();
+  if (tile_bytes == kThreads * 8 * 16) return hbm_instance<T, 8, kPeer>();
   return nullptr;
 }
 
+template <typename T, bool kPeer>
+void* bidir_for() {
+  if constexpr (kPeer) {
+    return (void*)bidir_peer_kernel<T>;
+  } else {
+    return (void*)bidir_kernel<T>;
+  }
+}
+
+template <bool kPeer = false>
 void* kernel_for(int variant, int dtype, int tile_bytes) {
   if (variant == kQ8 || variant == kQ8Mem) {
     if (dtype != 1) return nullptr;
-    return variant == kQ8 ? (void*)q8_kernel<true> : (void*)q8_kernel<false>;
+    if constexpr (kPeer) {
+      return variant == kQ8 ? (void*)q8_peer_kernel<true>
+                            : (void*)q8_peer_kernel<false>;
+    } else {
+      return variant == kQ8 ? (void*)q8_kernel<true>
+                            : (void*)q8_kernel<false>;
+    }
   }
-#define GTT_VARIANT_CASE(CODE, T, SCALAR)                  \
-  if (dtype == CODE) {                                     \
-    return variant == kHbm     ? hbm_for<T>(tile_bytes)    \
-           : variant == kBidir ? (void*)bidir_kernel<T>    \
-                               : nullptr;                  \
+#define GTT_VARIANT_CASE(CODE, T, SCALAR)                         \
+  if (dtype == CODE) {                                            \
+    return variant == kHbm     ? hbm_for<T, kPeer>(tile_bytes)    \
+           : variant == kBidir ? bidir_for<T, kPeer>()            \
+                               : nullptr;                         \
   }
   GTT_SUM_TYPES(GTT_VARIANT_CASE)
 #undef GTT_VARIANT_CASE
@@ -710,32 +840,41 @@ bool fill(Params& p, const void* in, void* out, long long rank_stride,
   return true;
 }
 
-// members is ranks x n flat ranks, row r the ring of rank r in ring order;
-// rank r must be entry my[r] of its own row.
-bool fill_members(Params& p, const int* members, int ranks, int n) {
-  for (int r = 0; r < ranks; ++r) {
-    for (int k = 0; k < n; ++k) {
-      const int m = members[r * n + k];
-      if (m < 0 || m >= ranks || (k == p.my[r]) != (m == r)) return false;
-      p.members[r][k] = static_cast<unsigned char>(m);
-    }
-  }
-  return true;
-}
-
-int launch(int variant, void* fn, const Params& p, dim3 grid, int tile_bytes,
-           void* stream) {
+template <typename P>
+int launch(int variant, void* fn, const P& p, int stages, dim3 grid,
+           int tile_bytes, void* stream) {
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   int threads = 0, smem = 0;
-  cudaError_t err = shape_of(variant, fn, tile_bytes, p.stages, &threads,
+  cudaError_t err = shape_of(variant, fn, tile_bytes, stages, &threads,
                              &smem);
-  void* args[] = {const_cast<Params*>(&p)};
+  void* args[] = {const_cast<P*>(&p)};
   if (err == cudaSuccess) {
     err = cudaLaunchCooperativeKernel(fn, grid, dim3(threads), args, smem,
                                       static_cast<cudaStream_t>(stream));
   }
   if (err == cudaSuccess) err = cudaGetLastError();
   return static_cast<int>(err);
+}
+
+template <bool kPeer>
+int max_blocks(int variant, int tile_bytes, int stages, int* blocks) {
+  int per_sm = 1 << 30;
+  cudaError_t err = cudaSuccess;
+  bool any = false;
+  for (int dtype = 0; dtype < kSumTypes && err == cudaSuccess; ++dtype) {
+    void* fn = kernel_for<kPeer>(variant, dtype, tile_bytes);
+    if (fn == nullptr) continue;
+    any = true;
+    int threads = 0, smem = 0, n = 0;
+    err = shape_of(variant, fn, tile_bytes, stages, &threads, &smem);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, threads,
+                                                          smem);
+    }
+    if (err == cudaSuccess && n < per_sm) per_sm = n;
+  }
+  if (!any || (variant == kHbm && stages < 1)) err = cudaErrorInvalidValue;
+  return cooperative_blocks(err, per_sm, blocks);
 }
 
 }  // namespace
@@ -752,33 +891,13 @@ int gtt_ring_variants_flag_stride(int) { return 8; }
 // on the current device (the cooperative launch's limit), in *blocks.
 int gtt_ring_variants_max_blocks(int variant, int tile_bytes, int stages,
                                  int* blocks) {
-  int per_sm = 1 << 30;
-  cudaError_t err = cudaSuccess;
-  bool any = false;
-  for (int dtype = 0; dtype < kSumTypes && err == cudaSuccess; ++dtype) {
-    void* fn = kernel_for(variant, dtype, tile_bytes);
-    if (fn == nullptr) continue;
-    any = true;
-    int threads = 0, smem = 0, n = 0;
-    err = shape_of(variant, fn, tile_bytes, stages, &threads, &smem);
-    if (err == cudaSuccess) {
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, threads,
-                                                          smem);
-    }
-    if (err == cudaSuccess && n < per_sm) per_sm = n;
-  }
-  if (!any || (variant == kHbm && stages < 1)) err = cudaErrorInvalidValue;
-  int device = 0, sms = 0, coop = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&device);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  }
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
-  }
-  if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
-  *blocks = err == cudaSuccess ? per_sm * sms : 0;
-  return static_cast<int>(err);
+  return max_blocks<false>(variant, tile_bytes, stages, blocks);
+}
+
+// The same for the cross-process instances.
+int gtt_ring_variants_peer_max_blocks(int variant, int tile_bytes,
+                                      int stages, int* blocks) {
+  return max_blocks<true>(variant, tile_bytes, stages, blocks);
 }
 
 // Each returns a cudaError_t; 0 is success. x and out: P ranks of n
@@ -798,12 +917,13 @@ int gtt_ring_allreduce_hbm(const void* x, void* out, long long rank_stride,
   Params p;
   if (!fill(p, x, out, rank_stride, flags, flag_stride, slices, my, ranks,
             n, slices) ||
-      !fill_members(p, members, ranks, n) || chunk < 1 || stages < 1) {
+      !fill_rings(p.my, p.members, my, members, nullptr, ranks, ranks, n) ||
+      chunk < 1 || stages < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   p.chunk = chunk;
   p.stages = stages;
-  return launch(kHbm, kernel_for(kHbm, dtype, tile_bytes), p,
+  return launch(kHbm, kernel_for(kHbm, dtype, tile_bytes), p, stages,
                 dim3(ranks, slices), tile_bytes, stream);
 }
 
@@ -817,7 +937,8 @@ int gtt_ring_allreduce_q8(const void* x, void* out, long long rank_stride,
   Params p;
   if (!fill(p, x, out, rank_stride, flags, flag_stride, slices, my, ranks,
             n, slices) ||
-      !fill_members(p, members, ranks, n) || chunk < 1 ||
+      !fill_rings(p.my, p.members, my, members, nullptr, ranks, ranks, n) ||
+      chunk < 1 ||
       (in_registers &&
        (chunk + slices - 1) / slices > kThreads * kQ8Units)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -828,8 +949,8 @@ int gtt_ring_allreduce_q8(const void* x, void* out, long long rank_stride,
   for (int r = 0; r < ranks; ++r) p.cells[r] = cells + 2 * n * r;
   p.chunk = chunk;
   const int variant = in_registers ? kQ8 : kQ8Mem;
-  return launch(variant, kernel_for(variant, 1, 0), p, dim3(ranks, slices),
-                0, stream);
+  return launch(variant, kernel_for(variant, 1, 0), p, 0,
+                dim3(ranks, slices), 0, stream);
 }
 
 // B11: chunk_rows rows per chunk, half_units 16-byte units per row of one
@@ -842,14 +963,80 @@ int gtt_ring_allreduce_bidir(const void* x, void* out, long long rank_stride,
   Params p;
   if (!fill(p, x, out, rank_stride, flags, flag_stride, 2 * slices, my,
             ranks, n, slices) ||
-      !fill_members(p, members, ranks, n) || chunk_rows < 1 ||
-      half_units < 1) {
+      !fill_rings(p.my, p.members, my, members, nullptr, ranks, ranks, n) ||
+      chunk_rows < 1 || half_units < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   p.chunk_rows = chunk_rows;
   p.half_units = half_units;
-  return launch(kBidir, kernel_for(kBidir, dtype, 0), p,
+  return launch(kBidir, kernel_for(kBidir, dtype, 0), p, 0,
                 dim3(ranks, 2, slices), 0, stream);
+}
+
+// The cross-process instances, one cooperative launch per process of grid
+// (local_ranks, slices), B11 (local_ranks, 2, slices). variant: 0 B9, 1
+// B10 (register form), 2 B11, 3 B10 (out-of-register form). in, out and
+// flags: `ranks` host arrays of device pointers by flat rank (each
+// member's input and output of n chunks, 16-byte aligned, and its
+// kPeerFlags flag ints, peer-mapped or this process's own); cells (B10):
+// 2 n zeroed ints per local rank, this process's own; local: the flat
+// ranks this process plays; my and members as gtt_ring_allreduce_hbm's
+// (members' rows read for the local ranks). chunk (B9, B10), chunk_rows
+// and half_units (B11), tile_bytes and stages (B9) and dtype as the
+// one-card entries take them. before: every flag's count before this call
+// (each call adds (n - 1) x the blocks per rank to each); every process of
+// the ring makes the same calls in the same order with the same slices.
+int gtt_ring_variants_peer(int variant, const void* const* in,
+                           void* const* out, int* const* flags, int* cells,
+                           const int* local, int local_ranks, const int* my,
+                           const int* members, int ranks, int n, int slices,
+                           long long chunk, long long chunk_rows,
+                           long long half_units, int tile_bytes, int stages,
+                           int dtype, int before, void* stream) {
+  const bool q8 = variant == kQ8 || variant == kQ8Mem;
+  if (ranks < 2 || ranks > kMaxRanks || n < 2 || n > ranks ||
+      local_ranks < 1 || local_ranks > ranks || slices < 1 ||
+      slices > 65535 || before < 0 || (q8 && cells == nullptr) ||
+      (variant == kHbm && stages < 1) ||
+      (variant == kBidir ? chunk_rows < 1 || half_units < 1 : chunk < 1) ||
+      (variant == kQ8 &&
+       (chunk + slices - 1) / slices > kThreads * kQ8Units)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  PeerParams q;
+  memset(&q, 0, sizeof(q));
+  Params& p = q.p;
+  if (!fill_rings(p.my, p.members, my, members, local, local_ranks, ranks,
+                  n)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  for (int r = 0; r < ranks; ++r) {
+    if (in[r] == nullptr || out[r] == nullptr || flags[r] == nullptr ||
+        reinterpret_cast<uintptr_t>(in[r]) % 16 ||
+        reinterpret_cast<uintptr_t>(out[r]) % 16) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    p.in[r] = in[r];
+    p.out[r] = out[r];
+    p.flags[r] = flags[r];
+  }
+  for (int x = 0; x < local_ranks; ++x) {
+    const int r = local[x];
+    if (q8) p.cells[r] = cells + 2 * n * x;
+    q.local[x] = r;
+  }
+  p.n = n;
+  p.flag_stride = kPeerFlags;
+  p.stages = stages;
+  p.chunk = chunk;
+  p.chunk_rows = chunk_rows;
+  p.half_units = half_units;
+  q.before = before;
+  const dim3 grid = variant == kBidir ? dim3(local_ranks, 2, slices)
+                                      : dim3(local_ranks, slices);
+  return launch(variant, kernel_for<true>(variant, q8 ? 1 : dtype,
+                                          tile_bytes),
+                q, stages, grid, tile_bytes, stream);
 }
 
 const char* gtt_error_string(int err) {

@@ -53,11 +53,14 @@ gradient mean on the cross-process ring allreduce over peer-mapped memory.
 ``fused_mlp_entry()`` is the dry run's fused Megatron-SP pair (:286-338)
 at the flagship's full MLP width: FUSED_MLP_ROWS token rows over a ring
 of FUSED_MLP_MESH ranks on one card, forward and backward.
-``multihost_dp_tp_entry()``, ``multihost_fused_mlp_entry()`` and
-``multihost_ep_entry()`` are dp_tp_train_entry(), fused_mlp_entry() and
-ep_entry() split over processes (one rank each at their world's size):
-each process holds its local ranks' rows, and the collectives are the
-kernels' cross-process instances.
+``multihost_dp_tp_entry()``, ``multihost_fused_mlp_entry()``,
+``multihost_ep_entry()``, ``multihost_ring_variants_entry()``,
+``multihost_sp_entry()`` and ``multihost_pp_entry()`` are
+dp_tp_train_entry(), fused_mlp_entry(), ep_entry(),
+ring_variants_entry(), sp_entry() and pp_entry() split over processes
+(one rank each at their world's size): each process holds its local
+ranks' rows, the collectives are the kernels' cross-process instances,
+and spmd's shift is the transport over the peer workspace.
 """
 
 from __future__ import annotations
@@ -448,6 +451,23 @@ def sp_forward(attn, q, k, v, mesh):
         return attn(q, k, v, "seq", mesh=mesh)
 
 
+def _sp_draws(dev: torch.device, ranks, seq: int):
+    """sp_entry's q, k and v at the rows of flat `ranks`."""
+    n = SP_MESH["seq"]
+    cfg = ENTRY_CONFIG
+    shape = (n, SP_BATCH, cfg.n_heads, seq // n, cfg.d_model // cfg.n_heads)
+    rng = np.random.RandomState(0)
+    rows = list(ranks)
+    return tuple(torch.as_tensor(rng.randn(*shape).astype(np.float32)[rows])
+                 .to(dev, torch.bfloat16) for _ in range(3))
+
+
+def _sp_paths(step, forward, q, k, v, mesh):
+    return {"ring_flash": (step, (ring_flash_attention, q, k, v, mesh)),
+            "ulysses": (step, (ulysses_attention, q, k, v, mesh)),
+            "ring_attention": (forward, (ring_attention, q, k, v, mesh))}
+
+
 def sp_entry(device="cuda", seq: int = SP_SEQ):
     """The long-context path: {"ring_flash": (sp_step, args), "ulysses":
     (sp_step, args), "ring_attention": (sp_forward, args)}, each fn(*args).
@@ -457,14 +477,33 @@ def sp_entry(device="cuda", seq: int = SP_SEQ):
     dev = resolve_device(device)
     n = SP_MESH["seq"]
     mesh = make_mesh(SP_MESH, devices=[dev] * n)
-    cfg = ENTRY_CONFIG
-    shape = (n, SP_BATCH, cfg.n_heads, seq // n, cfg.d_model // cfg.n_heads)
-    rng = np.random.RandomState(0)
-    q, k, v = (torch.as_tensor(rng.randn(*shape).astype(np.float32))
-               .to(dev, torch.bfloat16) for _ in range(3))
-    return {"ring_flash": (sp_step, (ring_flash_attention, q, k, v, mesh)),
-            "ulysses": (sp_step, (ulysses_attention, q, k, v, mesh)),
-            "ring_attention": (sp_forward, (ring_attention, q, k, v, mesh))}
+    return _sp_paths(sp_step, sp_forward, *_sp_draws(dev, range(n), seq),
+                     mesh)
+
+
+def multihost_sp_entry(rank: int, size: int, store_address: str,
+                       device="cuda", device_hostname: Optional[str] = None,
+                       seq: int = SP_SEQ):
+    """sp_entry() split over processes: the same three paths for process
+    `rank` of `size`, q, k and v the rows of its ranks of a process mesh
+    SP_MESH (one rank per process at size 4; see _process_mesh). The
+    kernels (B6, B7; B8, B1, B2) run on the local rows, K/V move between
+    processes by spmd.shift (the transport) and Ulysses' exchanges by the
+    cross-process B8. The steps' context to close: step.context, the same
+    for the three paths."""
+    ctx, mesh = _process_mesh(rank, size, store_address, SP_MESH, device,
+                              device_hostname)
+
+    def step(*args):
+        return sp_step(*args)
+
+    def forward(*args):
+        return sp_forward(*args)
+
+    for fn in (step, forward):
+        fn.context, fn.mesh = ctx, mesh
+    return _sp_paths(step, forward,
+                     *_sp_draws(mesh.device, mesh.local_ranks, seq), mesh)
 
 
 def expert_mlp(x: torch.Tensor, w_up: torch.Tensor,
@@ -554,6 +593,26 @@ def ring_variant_step(variant, x, mesh):
     return y.detach(), grad
 
 
+def _variant_paths(step, x, mesh):
+    return {name: (step, (variant, x, mesh))
+            for name, variant in (("hbm", ring_allreduce_hbm),
+                                  ("q8", ring_allreduce_q8),
+                                  ("bidir", ring_allreduce_bidir))}
+
+
+def _variant_buffer(dev: torch.device, ranks) -> torch.Tensor:
+    """ring_variants_entry's x at the rows of flat `ranks`."""
+    numel = sum(p.numel() for p in
+                Transformer(ENTRY_CONFIG, device="meta").parameters())
+    width = buffer_width(numel, DDP_WORLD)
+    quantum = 32 * DDP_WORLD
+    rows = -(-width // (quantum * RING_VARIANT_COLS)) * quantum
+    buf = np.zeros((DDP_WORLD, rows * RING_VARIANT_COLS), np.float32)
+    buf[:, :width] = np.random.RandomState(7).randn(DDP_WORLD, width)
+    x = torch.as_tensor(buf.reshape(DDP_WORLD, rows, RING_VARIANT_COLS))
+    return x[list(ranks)].to(dev)
+
+
 def ring_variants_entry(device="cuda"):
     """The ring-variant path: {"hbm": (ring_variant_step, args), "q8": ...,
     "bidir": ...}, each fn(*args), args = (the variant, x, mesh): a mesh
@@ -564,19 +623,28 @@ def ring_variants_entry(device="cuda"):
     f32, 7.08 MB per rank."""
     dev = resolve_device(device)
     mesh = make_mesh({"data": DDP_WORLD}, devices=[dev] * DDP_WORLD)
-    numel = sum(p.numel() for p in
-                Transformer(ENTRY_CONFIG, device="meta").parameters())
-    width = buffer_width(numel, DDP_WORLD)
-    quantum = 32 * DDP_WORLD
-    rows = -(-width // (quantum * RING_VARIANT_COLS)) * quantum
-    buf = np.zeros((DDP_WORLD, rows * RING_VARIANT_COLS), np.float32)
-    buf[:, :width] = np.random.RandomState(7).randn(DDP_WORLD, width)
-    x = torch.as_tensor(buf.reshape(DDP_WORLD, rows, RING_VARIANT_COLS))
-    x = x.to(dev)
-    return {name: (ring_variant_step, (variant, x, mesh))
-            for name, variant in (("hbm", ring_allreduce_hbm),
-                                  ("q8", ring_allreduce_q8),
-                                  ("bidir", ring_allreduce_bidir))}
+    return _variant_paths(ring_variant_step,
+                          _variant_buffer(dev, range(DDP_WORLD)), mesh)
+
+
+def multihost_ring_variants_entry(rank: int, size: int, store_address: str,
+                                  device="cuda",
+                                  device_hostname: Optional[str] = None):
+    """ring_variants_entry() split over processes: the same three paths
+    for process `rank` of `size`, x the rows of its ranks of a process
+    mesh {"data": DDP_WORLD} (one rank per process at size 4; see
+    _process_mesh), each step ring_variant_step with the variants'
+    cross-process instances (its context to close: step.context, the same
+    for the three paths)."""
+    ctx, mesh = _process_mesh(rank, size, store_address,
+                              {"data": DDP_WORLD}, device, device_hostname)
+
+    def step(*args):
+        return ring_variant_step(*args)
+
+    step.context, step.mesh = ctx, mesh
+    return _variant_paths(step, _variant_buffer(mesh.device,
+                                                mesh.local_ranks), mesh)
 
 
 def fsdp_train_entry(device="cuda"):
@@ -640,9 +708,17 @@ def pp_entry(device="cuda"):
     through the fixed ln_f and the tied embedding, closed over (the
     reference's loss takes no parameters)."""
     dev = resolve_device(device)
-    cfg = dataclasses.replace(ENTRY_CONFIG, n_layers=PP_STAGES)
     n = PP_MESH["pipe"]
     mesh = make_mesh(PP_MESH, devices=[dev] * n)
+    return _pp_paths(pp_forward, pp_train, mesh)
+
+
+def _pp_paths(forward, train, mesh):
+    """pp_entry's two paths over `mesh` (a world, or a process mesh whose
+    tensors are its local ranks' rows)."""
+    dev = mesh.device
+    cfg = dataclasses.replace(ENTRY_CONFIG, n_layers=PP_STAGES)
+    rows = len(mesh.local_ranks)
     model = Transformer(cfg, device="cpu").init(
         torch.Generator().manual_seed(0))
     tree = transformer_params_to_numpy(model.state_dict(), cfg)
@@ -651,9 +727,10 @@ def pp_entry(device="cuda"):
     ln_f = torch.as_tensor(tree["ln_f"]["scale"], device=dev)
     tokens = torch.as_tensor(_entry_tokens(), device=dev)
     x = embed[tokens] + torch.as_tensor(tree["pos"], device=dev)
-    xs = x.to(cfg.dtype)[:, None].expand(n, *x.shape[:1], 1, *x.shape[1:])
+    xs = x.to(cfg.dtype)[:, None].expand(rows, *x.shape[:1], 1,
+                                         *x.shape[1:])
     ys = torch.as_tensor(np.roll(_entry_tokens(), -1, axis=1), device=dev)
-    ys = ys[:, None].expand(n, *ys.shape[:1], 1, *ys.shape[1:])
+    ys = ys[:, None].expand(rows, *ys.shape[:1], 1, *ys.shape[1:])
 
     def loss_fn(y, target):
         logits = _rmsnorm(y, ln_f).float() @ embed.T
@@ -662,8 +739,30 @@ def pp_entry(device="cuda"):
         return nll.view(y.shape[0], -1).mean(1)
 
     stage_fn = functools.partial(world_block, cfg)
-    return {"gpipe": (pp_forward, (stage_fn, stages, xs, mesh)),
-            "1f1b": (pp_train, (stage_fn, loss_fn, stages, xs, ys, mesh))}
+    return {"gpipe": (forward, (stage_fn, stages, xs, mesh)),
+            "1f1b": (train, (stage_fn, loss_fn, stages, xs, ys, mesh))}
+
+
+def multihost_pp_entry(rank: int, size: int, store_address: str,
+                       device="cuda", device_hostname: Optional[str] = None):
+    """pp_entry() split over processes: the same two paths for process
+    `rank` of `size`, over a process mesh PP_MESH (one stage per process
+    at size 4; see _process_mesh): its stages' weights, inputs and targets
+    at its ranks' rows, the activations and cotangents moving between
+    processes by spmd.shift (the transport). The paths' context to close:
+    the steps' .context."""
+    ctx, mesh = _process_mesh(rank, size, store_address, PP_MESH, device,
+                              device_hostname)
+
+    def forward(*args):
+        return pp_forward(*args)
+
+    def train(*args):
+        return pp_train(*args)
+
+    for fn in (forward, train):
+        fn.context, fn.mesh = ctx, mesh
+    return _pp_paths(forward, train, mesh)
 
 
 def _host_part(rank: int, size: int, tokens: torch.Tensor):

@@ -23,7 +23,8 @@ forward and the recompute) and B2 once; a GPipe forward B1 once per
 tick. PR 21 added the cross-process instances of B3, B4a and B4b (one
 cooperative launch per process over CUDA IPC peer-mapped memory, for a
 process mesh of tpu/multihost.py); their statuses say so last. PR 22
-added those of B5a, B5b and B8 in the same way.
+added those of B5a, B5b and B8 in the same way, PR 23 those of B9, B10
+and B11.
 tests/test_torch_isolation.py holds this table against the JAX sources.
 """
 
@@ -77,14 +78,15 @@ KERNELS = (
     Kernel("B9", _R, "_ring_allreduce_hbm_kernel", 246, 440,
            "ring_allreduce_hbm",
            "ported: gloo_tpu_torch/csrc/ring_variants.cu; redesigned, PR 9; "
-           "every dtype of SUM_DTYPES"),
+           "every dtype of SUM_DTYPES; across processes (CUDA IPC), PR 23"),
     Kernel("B10", _R, "_ring_allreduce_q8_kernel", 485, 654,
            "ring_allreduce_q8",
-           "ported: gloo_tpu_torch/csrc/ring_variants.cu; redesigned, PR 13"),
+           "ported: gloo_tpu_torch/csrc/ring_variants.cu; redesigned, PR 13; "
+           "across processes (CUDA IPC), PR 23"),
     Kernel("B11", _R, "_ring_allreduce_bidir_kernel", 691, 842,
            "ring_allreduce_bidir",
            "ported: gloo_tpu_torch/csrc/ring_variants.cu; redesigned, PR 9; "
-           "every dtype of SUM_DTYPES"),
+           "every dtype of SUM_DTYPES; across processes (CUDA IPC), PR 23"),
     Kernel("B4a", _R, "_ring_reduce_scatter_kernel", 876, 963,
            "ring_reduce_scatter",
            "ported: gloo_tpu_torch/csrc/ring.cu; redesigned, PR 8; "

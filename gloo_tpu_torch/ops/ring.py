@@ -54,8 +54,10 @@ workspace of tpu/peer.py) or raises; on CPU tensors it gathers the world
 through the mesh's host-plane Context, runs the twin and keeps the local
 rows, so the adds are the kernel's own. The all-to-all does the same
 (csrc/alltoall.cu's gtt_alltoall_peer: every member reads the inputs in
-the workspace, each rank stores into its own output); the variants raise
-NotImplementedError on a process mesh (ROADMAP A.7).
+the workspace, each rank stores into its own output), and so do the
+variants (csrc/ring_variants.cu's gtt_ring_variants_peer: the inputs and
+outputs in the workspace, every member's finished chunk stored into every
+member's output, as on one card).
 """
 
 from __future__ import annotations
@@ -354,6 +356,23 @@ def _gather_world(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return world.view(x.dtype).view(mesh.size, *x.shape[1:])
 
 
+def _local_rows(mesh: Mesh) -> int | None:
+    """The rows of a process mesh's local tensor, None on a one-process
+    mesh (a world tensor)."""
+    return len(mesh.local_ranks) if mesh.processes > 1 else None
+
+
+def _on_world(plain, x: torch.Tensor, axis_name: Axis, mesh: Mesh,
+              *args) -> torch.Tensor:
+    """The twin plain(x, axis_name, mesh, *args) on the CPU: on x itself,
+    or on a process mesh on the world gathered through the host plane,
+    keeping the local rows."""
+    if mesh.processes == 1:
+        return plain(x, axis_name, mesh, *args)
+    ranks = torch.tensor(mesh.local_ranks)
+    return plain(_gather_world(x, mesh), axis_name, mesh, *args)[ranks]
+
+
 def _peer_reserve(name: str, mesh: Mesh, axis_name: Axis,
                   dtype: torch.dtype, rows: int, cols: int):
     """(library, workspace) with room for a call of `name` on (rows, cols)
@@ -441,8 +460,7 @@ def _across(wrapper, plain, x: torch.Tensor, axis_name: Axis,
     if n == 1:
         return x
     if x.device.type == "cpu":
-        ranks = torch.tensor(mesh.local_ranks)
-        return plain(_gather_world(x, mesh), axis_name, mesh)[ranks]
+        return _on_world(plain, x, axis_name, mesh)
     out = _peer_launch(name, x, axis_name, mesh)
     wrapper.launches += 1
     return out
@@ -711,6 +729,9 @@ _var_lib: ctypes.CDLL | None = None
 # Most co-resident blocks per (variant, tile bytes, stages), then per
 # device index (gtt_ring_variants_max_blocks; each kernel its own query).
 _var_max_blocks: dict[tuple[int, int, int], dict[int, int]] = {}
+# The same for the cross-process instances
+# (gtt_ring_variants_peer_max_blocks).
+_var_peer_max_blocks: dict[tuple[int, int, int], dict[int, int]] = {}
 # csrc/ring_variants.cu's variant codes (B10's register form is _Q8).
 _HBM, _Q8, _BIDIR = 0, 1, 2
 # B9's stream: bytes per tile (8192, 16384 or 32768: 2, 4 or 8 16-byte
@@ -741,14 +762,29 @@ def _variants_lib() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        lib.gtt_ring_variants_max_blocks.argtypes = [_I, _I, _I, _IP]
-        lib.gtt_ring_variants_max_blocks.restype = ctypes.c_int
+        lib.gtt_ring_variants_peer.argtypes = [
+            _I, _P, _P, _P, _P, _IP, _I, _IP, _IP, _I, _I, _I, _L, _L, _L,
+            _I, _I, _I, _I, _P]
+        lib.gtt_ring_variants_peer.restype = ctypes.c_int
+        for name in ("gtt_ring_variants_max_blocks",
+                     "gtt_ring_variants_peer_max_blocks"):
+            getattr(lib, name).argtypes = [_I, _I, _I, _IP]
+            getattr(lib, name).restype = ctypes.c_int
         lib.gtt_ring_variants_flag_stride.argtypes = [_I]
         lib.gtt_ring_variants_flag_stride.restype = ctypes.c_int
         lib.gtt_error_string.argtypes = [_I]
         lib.gtt_error_string.restype = ctypes.c_char_p
         _var_lib = lib
     return _var_lib
+
+
+def _padded_cols(rows: int, cols: int, elt: int, n: int) -> int:
+    """The columns the variant kernels take for (rows, cols) of elt-byte
+    elements over a ring of n: cols where each chunk of rows / n rows is a
+    whole number of 16-byte units, else cols widened to whole units."""
+    per_vec = 16 // elt
+    return cols if rows // n * cols % per_vec == 0 \
+        else -(-cols // per_vec) * per_vec
 
 
 def _vector_input(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -758,24 +794,25 @@ def _vector_input(x: torch.Tensor, n: int) -> torch.Tensor:
     to zeros and is cut off again: no value changes)."""
     x = x.contiguous()
     ranks, rows, cols = x.shape
-    per_vec = 16 // x.element_size()
-    if rows // n * cols % per_vec == 0 and x.data_ptr() % 16 == 0:
+    wide = _padded_cols(rows, cols, x.element_size(), n)
+    if wide == cols and x.data_ptr() % 16 == 0:
         return x
-    wide = cols if rows // n * cols % per_vec == 0 \
-        else -(-cols // per_vec) * per_vec
     padded = x.new_zeros((ranks, rows, wide))
     padded[..., :cols] = x
     return padded
 
 
-def _variant_blocks(variant: int, lib: ctypes.CDLL):
+def _variant_blocks(variant: int, lib: ctypes.CDLL, peer: bool = False):
     """(the occupancy query of `variant`'s kernel, its per-device cache):
-    B9's at HBM_TILE_BYTES and HBM_STAGES, each other kernel its own."""
+    B9's at HBM_TILE_BYTES and HBM_STAGES, each other kernel its own; of
+    the cross-process instance where `peer`."""
     tile, stages = (HBM_TILE_BYTES, HBM_STAGES) if variant == _HBM \
         else (0, 0)
-    return (lambda ref: lib.gtt_ring_variants_max_blocks(variant, tile,
-                                                         stages, ref),
-            _var_max_blocks.setdefault((variant, tile, stages), {}))
+    query = lib.gtt_ring_variants_peer_max_blocks if peer \
+        else lib.gtt_ring_variants_max_blocks
+    cache = _var_peer_max_blocks if peer else _var_max_blocks
+    return (lambda ref: query(variant, tile, stages, ref),
+            cache.setdefault((variant, tile, stages), {}))
 
 
 def _variant_setup(x: torch.Tensor, mesh: Mesh, axis_name: Axis,
@@ -795,15 +832,18 @@ def _variant_setup(x: torch.Tensor, mesh: Mesh, axis_name: Axis,
 
 def _allreduce_hbm(x: torch.Tensor, axis_name: Axis,
                    mesh: Mesh) -> torch.Tensor:
-    mesh.one_process("ring_allreduce_hbm")
-    n = _ring_size(x, axis_name, mesh)
+    n = _ring_size(x, axis_name, mesh, local_rows=_local_rows(mesh))
     ranks, rows, cols = x.shape
     _check_rows(rows, n)
     _check_dtype(x, SUM_DTYPES, "ring_allreduce_hbm")
     if n == 1:
         return x
     if x.device.type == "cpu":
-        return ring_allreduce_hbm_plain(x, axis_name, mesh)
+        return _on_world(ring_allreduce_hbm_plain, x, axis_name, mesh)
+    if mesh.processes > 1:
+        out = _variant_peer(_HBM, x, axis_name, mesh)
+        ring_allreduce_hbm.launches += 1
+        return out
     xv = _vector_input(x, n)
     per_rank = xv[0].numel() * xv.element_size()
     units = per_rank // n // 16
@@ -843,8 +883,7 @@ def ring_allreduce_hbm_plain(x: torch.Tensor, axis_name: Axis,
 
 def _allreduce_q8(x: torch.Tensor, axis_name: Axis,
                   mesh: Mesh) -> torch.Tensor:
-    mesh.one_process("ring_allreduce_q8")
-    n = _ring_size(x, axis_name, mesh)
+    n = _ring_size(x, axis_name, mesh, local_rows=_local_rows(mesh))
     ranks, rows, cols = x.shape
     if x.dtype != torch.float32:
         raise TypeError(f"ring_allreduce_q8 quantizes f32 payloads; got "
@@ -856,7 +895,11 @@ def _allreduce_q8(x: torch.Tensor, axis_name: Axis,
         raise ValueError(f"chunk rows {rows // n} not divisible by 32 (the "
                          f"int8 tiling of the TPU kernel)")
     if x.device.type == "cpu":
-        return ring_allreduce_q8_plain(x, axis_name, mesh)
+        return _on_world(ring_allreduce_q8_plain, x, axis_name, mesh)
+    if mesh.processes > 1:
+        out = _variant_peer(_Q8, x, axis_name, mesh)
+        ring_allreduce_q8.launches += 1
+        return out
     xv = _vector_input(x, n)
     units = xv[0].numel() // n // 4  # 16-byte units per chunk
     out = torch.empty_like(xv)
@@ -946,8 +989,7 @@ def ring_allreduce_q8_plain(x: torch.Tensor, axis_name: Axis,
 
 def _allreduce_bidir(x: torch.Tensor, axis_name: Axis,
                      mesh: Mesh) -> torch.Tensor:
-    mesh.one_process("ring_allreduce_bidir")
-    n = _ring_size(x, axis_name, mesh)
+    n = _ring_size(x, axis_name, mesh, local_rows=_local_rows(mesh))
     ranks, rows, cols = x.shape
     if n == 1:
         return x
@@ -957,7 +999,11 @@ def _allreduce_bidir(x: torch.Tensor, axis_name: Axis,
                          f"got {cols}")
     _check_dtype(x, SUM_DTYPES, "ring_allreduce_bidir")
     if x.device.type == "cpu":
-        return ring_allreduce_bidir_plain(x, axis_name, mesh)
+        return _on_world(ring_allreduce_bidir_plain, x, axis_name, mesh)
+    if mesh.processes > 1:
+        out = _variant_peer(_BIDIR, x, axis_name, mesh)
+        ring_allreduce_bidir.launches += 1
+        return out
     xv = _vector_input(x, n)
     elt = x.element_size()
     half_units = cols // 2 * elt // 16
@@ -1011,6 +1057,93 @@ def ring_allreduce_bidir_plain(x: torch.Tensor, axis_name: Axis,
     _b3_walk(o1, (-my) % n, right, n)
     return torch.cat([o0.view(ranks, rows, h),
                       o1[:, mirror].reshape(ranks, rows, h)], -1).to(x.dtype)
+
+
+# ---- B9, B10, B11 across processes ----
+
+
+def _variant_peer_slices(variant: int, lib: ctypes.CDLL, mesh: Mesh,
+                         want: int, blocks_per_slice: int = 1) -> int:
+    """Slices of one cross-process launch of `variant`: at most `want`,
+    and no more than every process's card holds beside its other local
+    ranks' blocks (the least over the processes, agreed once per variant
+    and kept), so that every process of a ring launches alike."""
+    resident = resident_blocks(torch.empty(0, device=mesh.device), lib,
+                               *_variant_blocks(variant, lib, peer=True))
+    local = len(mesh.local_ranks) * blocks_per_slice
+    most = mesh.workspace.agree(f"variants/{variant}",
+                                min(resident // local, 65535))
+    if most < 1:
+        raise RuntimeError(f"{local} blocks per slice need {local} "
+                           f"co-resident blocks; a card holds fewer")
+    return max(1, min(most, want))
+
+
+def _variant_peer(variant: int, x: torch.Tensor, axis_name: Axis,
+                  mesh: Mesh) -> torch.Tensor:
+    """One cross-process launch of B9, B10 or B11 on this process's local
+    tensor x (local ranks, rows, cols), already checked: x goes into the
+    workspace's input rows (cols zero-padded to whole 16-byte units where
+    a chunk is not, as _vector_input does), every process launches
+    gtt_ring_variants_peer over the same tables, and a copy of the output
+    rows comes back. B10 takes its register form where the agreed slices
+    hold its chunk in registers, else the out-of-register form; its chain
+    cells are this process's own, zeroed before the launch. The flags'
+    count before the call comes from the workspace's "variants" family, to
+    which a call adds (n - 1) x the blocks per rank."""
+    _check_ranks(mesh.size, "the ring variant kernels")
+    n = mesh.axis_size(axis_name)
+    local, rows, cols = x.shape
+    lib = _variants_lib()
+    elt = x.element_size()
+    wide = _padded_cols(rows, cols, elt, n)
+    nbytes = rows * wide * elt
+    units = nbytes // n // 16  # 16-byte units per chunk
+    chunk_rows, half_units, bps, cells = 0, 0, 1, None
+    ws = mesh.workspace
+    with torch.cuda.device(x.device):
+        if variant == _HBM:
+            slices = _variant_peer_slices(
+                _HBM, lib, mesh, -(-units * 16 // HBM_TILE_BYTES))
+            code = _HBM
+        elif variant == _Q8:
+            slices = _variant_peer_slices(_Q8, lib, mesh,
+                                          -(-units // KERNEL_THREADS))
+            code = _Q8 if -(-units // slices) <= KERNEL_THREADS \
+                * Q8_REGISTER_UNITS else _Q8_MEM
+            if code == _Q8_MEM:
+                slices = _variant_peer_slices(_Q8_MEM, lib, mesh,
+                                              -(-units // KERNEL_THREADS))
+            cells = torch.zeros(local * 2 * n, dtype=torch.int32,
+                                device=x.device)
+        else:
+            chunk_rows, half_units, bps = rows // n, cols // 2 * elt // 16, 2
+            slices = _variant_peer_slices(
+                _BIDIR, lib, mesh,
+                -(-chunk_rows * half_units // (KERNEL_THREADS
+                                               * SUM_UNITS_PER_THREAD)),
+                blocks_per_slice=2)
+            code = _BIDIR
+        ws.reserve({"in": nbytes, "out": nbytes,
+                    "var_flags": PEER_FLAGS * 4})
+        xin = ws.view("in", x.dtype, (rows, wide))
+        if wide != cols:
+            xin[..., cols:] = 0
+            xin[..., :cols] = x
+        elif not ws.holds("in", x):
+            xin.copy_(x)
+        my, _, _, members = _ctypes_tables(mesh, _axis_key(axis_name))
+        ws.start_together(torch.cuda.current_stream(x.device))
+        err = lib.gtt_ring_variants_peer(
+            code, ws.table("in"), ws.table("out"), ws.table("var_flags"),
+            None if cells is None else cells.data_ptr(), _local_table(mesh),
+            local, my, members, mesh.size, n, slices, units, chunk_rows,
+            half_units, HBM_TILE_BYTES, HBM_STAGES, SUM_DTYPES[x.dtype],
+            ws.advance("variants", (n - 1) * slices * bps), _stream(x))
+        _raise_on(err, ("ring_allreduce_hbm", "ring_allreduce_q8",
+                        "ring_allreduce_bidir")[variant], lib)
+        out = ws.view("out", x.dtype, (rows, wide)).clone()
+    return out if wide == cols else out[..., :cols]
 
 
 # ---- B8: the all-to-all ----
@@ -1103,16 +1236,12 @@ def _alltoall(x: torch.Tensor, axis_name: Axis, mesh: Mesh, split: int,
               concat: int) -> torch.Tensor:
     across = mesh.processes > 1
     n = _ring_size(x, axis_name, mesh, local_dims=None,
-                   local_rows=len(mesh.local_ranks) if across else None)
+                   local_rows=_local_rows(mesh))
     _check_rows(x.shape[1 + split], n)
     if n == 1:
         return x
     if x.device.type == "cpu":
-        if across:
-            ranks = torch.tensor(mesh.local_ranks)
-            return alltoall_plain(_gather_world(x, mesh), axis_name, mesh,
-                                  split, concat)[ranks]
-        return alltoall_plain(x, axis_name, mesh, split, concat)
+        return _on_world(alltoall_plain, x, axis_name, mesh, split, concat)
     if across:
         out = _alltoall_peer(x, axis_name, mesh, split, concat)
         alltoall.launches += 1
@@ -1219,8 +1348,7 @@ def alltoall(x: torch.Tensor, axis_name: Axis, mesh: Mesh,
     it is not) into a new output. Differentiable (the VJP swaps the
     axes)."""
     n = _ring_size(x, axis_name, mesh, local_dims=None,
-                   local_rows=len(mesh.local_ranks)
-                   if mesh.processes > 1 else None)
+                   local_rows=_local_rows(mesh))
     split = split_axis % (x.dim() - 1)
     concat = concat_axis % (x.dim() - 1)
     if torch.is_grad_enabled() and x.requires_grad and n > 1:

@@ -33,7 +33,9 @@ from gloo_tpu_torch.utils.tracing import annotate
 def shard_params(params: dict, axis: Axis, *, mesh: Mesh) -> dict:
     """Flatten each leaf, zero-pad it to a multiple of the axis size n, and
     keep each rank's 1/n chunk at its ring index: {name: (P, chunk)} world
-    tensors on the mesh's device, in each leaf's dtype."""
+    tensors on the mesh's device, in each leaf's dtype. A process mesh
+    raises NotImplementedError (FSDP across processes is still to come)."""
+    mesh.one_process("parallel.fsdp.shard_params")
     n = mesh.axis_size(axis)
     my = torch.tensor(mesh.ring_index(axis), device=mesh.device)
     sharded = {}
@@ -50,6 +52,7 @@ def unshard_params(sharded: dict, template: dict, axis: Axis, *,
     world tensors, every rank of a ring holding the whole leaf in the
     template's dtype. `template` maps each name to anything with the
     original .shape and .dtype (the parameters, or meta tensors)."""
+    mesh.one_process("parallel.fsdp.unshard_params")
     full = {}
     for name, piece in sharded.items():
         ref = template[name]
@@ -75,6 +78,7 @@ def make_fsdp_train_step(loss_fn: Callable, template: dict, axis: Axis,
     """
     # Shapes and dtypes only (meta tensors): the step keeps no unsharded
     # copy of the model.
+    mesh.one_process("parallel.fsdp.make_fsdp_train_step")
     template = {name: torch.empty(p.shape, dtype=p.dtype, device="meta")
                 for name, p in template.items()}
     n = mesh.axis_size(axis)

@@ -13,7 +13,10 @@ Counterpart of gloo_tpu/parallel/pp.py: the same two schedules, with
   memory bound.
 
 There is no shard_map: rank r of the world is the stage at its ring index
-s along `axis`, and every per-rank value is a world tensor (P, ...). So
+s along `axis`, and every per-rank value is a world tensor (P, ...), or
+on a process mesh (tpu/multihost.py) this process's local tensor, the
+rows of ``mesh.local_ranks``, the activations and cotangents moving
+between processes by spmd's transport. So
 ``stage_fn(params_world, x_world)`` computes every stage in one call, and
 ``loss_fn(y_world, target_world)`` returns the (P,) losses. As in the
 reference, every tick computes on every stage and selects the results
@@ -42,9 +45,19 @@ def _select(cond: torch.Tensor, a: torch.Tensor,
 
 
 def _check_world(x: torch.Tensor, mesh: Mesh, what: str) -> None:
-    if x.dim() < 2 or x.shape[0] != mesh.size:
-        raise ValueError(f"{what} must be a world tensor ({mesh.size}, M, "
-                         f"...); got {tuple(x.shape)}")
+    rows = len(mesh.local_ranks)
+    if x.dim() < 2 or x.shape[0] != rows:
+        kind = "a world tensor" if mesh.processes == 1 \
+            else "this process's local tensor"
+        raise ValueError(f"{what} must be {kind} ({rows}, M, ...); got "
+                         f"{tuple(x.shape)}")
+
+
+def _local_index(axis: Axis, mesh: Mesh) -> np.ndarray:
+    """The ring index along `axis` of each rank whose row a tensor holds:
+    every rank, or on a process mesh the local ranks."""
+    index = mesh.ring_index(axis)
+    return np.asarray([index[r] for r in mesh.local_ranks])
 
 
 def pipeline_apply(stage_fn: Callable, stage_params, x_microbatches, axis,
@@ -59,7 +72,7 @@ def pipeline_apply(stage_fn: Callable, stage_params, x_microbatches, axis,
     shape-preserving so that activations can rotate."""
     _check_world(x_microbatches, mesh, "x_microbatches")
     stages = spmd.size(axis, mesh=mesh)
-    my = np.asarray(mesh.ring_index(axis))
+    my = _local_index(axis, mesh)
     m = x_microbatches.shape[1]
     ticks = stages + m - 1
     dev = x_microbatches.device
@@ -144,7 +157,7 @@ def _rank_tables(axis: Axis, mesh: Mesh, m: int, device):
     backwards, its stash slot, the slots it receives into, and the masks
     that select what it keeps) and the tick count T."""
     stages = spmd.size(axis, mesh=mesh)
-    my = np.asarray(mesh.ring_index(axis))
+    my = _local_index(axis, mesh)
     fwd, bwd = _build_1f1b_tables(stages, m)
     f_mb, b_mb = fwd[:, my], bwd[:, my]
     left_f = fwd[:, (my - 1) % stages]
@@ -202,7 +215,7 @@ def pipeline_train_1f1b(stage_fn: Callable, loss_fn: Callable, stage_params,
     _check_world(y_microbatches, mesh, "y_microbatches")
     stages = spmd.size(axis, mesh=mesh)
     m = x_microbatches.shape[1]
-    ranks = mesh.size
+    ranks = len(mesh.local_ranks)
     dev = x_microbatches.device
     tbl, ticks = _rank_tables(axis, mesh, m, dev)
     ar = torch.arange(ranks, device=dev)

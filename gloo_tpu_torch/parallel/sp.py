@@ -4,7 +4,12 @@ over a world of ranks.
 Counterpart of gloo_tpu/parallel/sp.py. There is no shard_map: q, k and v
 are world tensors (P, batch, heads, t_local, head_dim) whose row r is flat
 rank r's slice of the sequence, rank r holding global positions
-my * t_local .. (my + 1) * t_local - 1, my its index along `axis`.
+my * t_local .. (my + 1) * t_local - 1, my its index along `axis`. On a
+process mesh (tpu/multihost.py) they are this process's local tensors,
+the rows of ``mesh.local_ranks``: the kernels run on those rows as they
+are, the K/V blocks and the dK/dV carriers move between processes by
+spmd's transport (``spmd.shift``) and Ulysses' exchanges by the
+cross-process all-to-all.
 
 - ``ring_attention``: plain torch, the K/V blocks rotating with
   ``spmd.shift`` while each rank folds the arriving block into f32
@@ -40,11 +45,14 @@ from gloo_tpu_torch.utils.tracing import annotate
 
 
 def _check_world(q, k, v, mesh: Mesh):
+    rows = len(mesh.local_ranks)
     if q.dim() != 5 or k.dim() != 5 or v.dim() != 5 \
-            or not q.shape[0] == k.shape[0] == v.shape[0] == mesh.size:
+            or not q.shape[0] == k.shape[0] == v.shape[0] == rows:
+        what = "world tensors" if mesh.processes == 1 \
+            else "this process's local tensors"
         raise ValueError(
-            f"q, k and v must be world tensors (ranks={mesh.size}, batch, "
-            f"heads, t_local, head_dim); got {tuple(q.shape)}, "
+            f"q, k and v must be {what} (ranks={rows}, batch, heads, "
+            f"t_local, head_dim); got {tuple(q.shape)}, "
             f"{tuple(k.shape)}, {tuple(v.shape)}")
 
 
@@ -96,9 +104,12 @@ def _offset_tables(mesh: Mesh, axis: str, rows: int, t_local: int,
                    device: torch.device):
     """(q offsets (P rows,), k offsets (n, P rows)) int32 on `device`, all
     ring steps' tables in one copy: row (rank r, b, h) queries start at
-    my_r * t_local, and at step i its key block came from src = my_r - i."""
+    my_r * t_local, and at step i its key block came from src = my_r - i.
+    On a process mesh, the local ranks' rows."""
     n = mesh.shape[axis]
-    my = torch.tensor(mesh.ring_index(axis), dtype=torch.int32)
+    index = mesh.ring_index(axis)
+    my = torch.tensor([index[r] for r in mesh.local_ranks],
+                      dtype=torch.int32)
     steps = torch.arange(n, dtype=torch.int32)[:, None]
     src = (my[None, :] - steps) % n
     table = torch.cat([my[None, :], src]) * t_local

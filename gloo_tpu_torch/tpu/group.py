@@ -17,8 +17,10 @@ On a process mesh (tpu/multihost.py) every operand and result is this
 process's local tensor: one row per rank of ``mesh.local_ranks``, each
 its rank's value. The kernel-backed methods (allreduce and reduce with
 the sum, allgather, reduce_scatter with the sum, alltoall) run the
-kernels' cross-process instances; the rest raise NotImplementedError,
-as spmd's do there.
+kernels' cross-process instances; broadcast, scatter, send_recv and shift
+spmd's transport over the peer workspace (ops/permute.py); the max, min
+and product reductions the cross-process allgather; barrier the
+cross-process B3, as spmd's do there.
 """
 
 from __future__ import annotations

@@ -21,7 +21,7 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from gloo_tpu_torch.bucketer import scale_inplace
-from gloo_tpu_torch.tpu.mesh import make_mesh
+from gloo_tpu_torch.tpu.mesh import Mesh, make_mesh
 
 _COMBINE = {"sum": torch.add, "prod": torch.mul, "product": torch.mul,
             "max": torch.maximum, "min": torch.minimum}
@@ -32,7 +32,9 @@ class HierarchicalGroup:
 
     ctx: a connected gloo_tpu_torch.Context, one rank per host process.
     devices: the process-local devices (default [torch.device("cuda")]; a
-    world of ranks on one card repeats it, as make_mesh's devices do).
+    world of ranks on one card repeats it, as make_mesh's devices do), or
+    a one-process mesh over them (a process mesh raises
+    NotImplementedError).
 
     A collective takes either a list of per-device tensors (same shape and
     dtype), the local partials, reduced on devices[0] first; or one
@@ -44,6 +46,11 @@ class HierarchicalGroup:
 
     def __init__(self, ctx, devices: Optional[Sequence] = None,
                  tag: int = 0x51):
+        if isinstance(devices, Mesh):
+            # A mesh of the local devices; one over several processes is
+            # the device plane across processes, not a host's devices.
+            devices.one_process("HierarchicalGroup")
+            devices = devices.devices
         self.ctx = ctx
         self.devices = ([torch.device(d) for d in devices]
                         if devices is not None else [torch.device("cuda")])
@@ -181,6 +188,7 @@ def make_hierarchical_ddp(loss_fn: Callable, group: HierarchicalGroup,
 
     if mesh is None:
         mesh = make_mesh({axis: len(group.devices)}, devices=group.devices)
+    mesh.one_process("make_hierarchical_ddp")
     stage = local_grad_mean(loss_fn, mesh, mesh.axis_names[0])
 
     def step(replicas, optimizers, batch):

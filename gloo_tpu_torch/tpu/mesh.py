@@ -17,8 +17,9 @@ process-major (each process's ranks are consecutive, processes in order,
 as ``jax.devices()`` orders hosts), and ``local_ranks`` are this
 process's. Its collectives take a local tensor, the rows of
 ``local_ranks`` only, and run the ring kernels' cross-process instances
-over peer-mapped memory (tpu/peer.py); what has no such instance yet
-(the ring allreduce variants, spmd's collectives without a kernel)
+over peer-mapped memory (tpu/peer.py), and spmd's point-to-point
+collectives a transport over the same memory (ops/permute.py); what has
+no cross-process form yet (FSDP, the two-level DDP, dp_tp.unshard_state)
 raises NotImplementedError naming MULTI_PROCESS_ITEM.
 
 The ring tables (``ring_members``, ``ring_index``, ``ring_neighbors``) are
@@ -121,10 +122,11 @@ class Mesh:
         if self.processes > 1:
             raise NotImplementedError(
                 f"{what} on a mesh over {self.processes} processes is "
-                f"{MULTI_PROCESS_ITEM}; the ring allreduce, reduce-scatter, "
-                f"allgather and all-to-all (ops.ring), the collective "
-                f"matmuls (ops.overlap), spmd's sum collectives, allgather "
-                f"and alltoall, and the DDP, dp x tp and MoE steps take one")
+                f"{MULTI_PROCESS_ITEM}; the ring collectives, their "
+                f"variants and the all-to-all (ops.ring), the collective "
+                f"matmuls (ops.overlap), every collective of spmd and of "
+                f"CudaProcessGroup, and the DDP, dp x tp, MoE, sequence- "
+                f"and pipeline-parallel paths take one")
 
     def _names(self, axis: Axis) -> tuple[str, ...]:
         names = (axis,) if isinstance(axis, str) else tuple(axis)

@@ -7,7 +7,9 @@ process allocates one workspace with ``cudaMalloc`` (csrc/peer.cu),
 exports its IPC handle through the host plane's store, and opens every
 other process's handle; the ring kernels' cross-process instances
 (csrc/ring.cu's ``gtt_ring_peer``, csrc/alltoall.cu's
-``gtt_alltoall_peer``, csrc/overlap.cu's ``gtt_overlap_peer``) then load
+``gtt_alltoall_peer``, csrc/overlap.cu's ``gtt_overlap_peer``,
+csrc/ring_variants.cu's ``gtt_ring_variants_peer``) and the
+point-to-point transport (csrc/permute.cu's ``gtt_permute_peer``) then load
 and store through those pointers and signal through flags in them at
 system scope.
 
@@ -20,8 +22,8 @@ uint8 tensor through ``__cuda_array_interface__``.
 One process's workspace holds named regions (REGIONS), each a piece per
 local rank in the order of ``mesh.local_ranks``, every piece 256-byte
 aligned: the ring kernels' inputs, outputs and flags, the all-to-all's
-flags, and the collective matmuls' flags, B5a's comm slots and B5b's
-gathered x. Flags are counters or tags that only grow: each kernel
+flags, the collective matmuls' flags, B5a's comm slots and B5b's
+gathered x, the allreduce variants' flags and the transport's flags. Flags are counters or tags that only grow: each kernel
 family keeps a count of its own (``advance``), the same in every
 process, from which a call derives the value every flag of the family
 had before it. They are never zeroed while mapped, since a peer's store
@@ -54,13 +56,17 @@ from gloo_tpu_torch import _build
 ALIGN = 256
 # The named regions of a workspace, each per local rank, in the order of
 # the allocation:
-#   "in", "out": the inputs and outputs of B3, B4a, B4b (ops/ring.py) and
-#     the inputs of B8, which every member of a ring reads;
+#   "in", "out": the inputs and outputs of B3, B4a, B4b, B9, B10 and B11
+#     (ops/ring.py), and the inputs of B8 and of the point-to-point
+#     transport (ops/permute.py), which every member of a ring reads;
 #   "ring_flags": slices x ops.ring.PEER_FLAGS ints of B3, B4a and B4b;
 #   "a2a_flags": B8's entry and exit barriers;
 #   "ov_flags": the collective matmuls' barriers and tile flags, "comm"
-#     B5a's slots, "gx" B5b's gathered x (ops/overlap.py).
-REGIONS = ("in", "out", "ring_flags", "a2a_flags", "ov_flags", "comm", "gx")
+#     B5a's slots, "gx" B5b's gathered x (ops/overlap.py);
+#   "var_flags": B9's, B10's and B11's entry and exit barriers;
+#   "perm_flags": the transport's entry and exit barriers.
+REGIONS = ("in", "out", "ring_flags", "a2a_flags", "ov_flags", "comm", "gx",
+           "var_flags", "perm_flags")
 
 _lib: ctypes.CDLL | None = None
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -183,7 +189,10 @@ def exchange(ctx, store, key: str, record) -> list:
     host plane's rank): one set and size - 1 gets on the store. The k-th
     exchange under a key on a context uses its own keys (every process
     makes the same exchanges in the same order), so no process reads a
-    record of an earlier one; after a barrier each deletes its own."""
+    record of an earlier one. After a barrier, rank 0, which hosts the
+    store (init_multihost), deletes them all: a delete by another rank
+    could reach the store after rank 0 had gone on, closed its context
+    and with it the store's server."""
     counts = ctx.__dict__.setdefault("_exchanges", {})
     counts[key] = counts.get(key, 0) + 1
     prefix = f"{key}/{counts[key]}"
@@ -192,7 +201,9 @@ def exchange(ctx, store, key: str, record) -> list:
                json.loads(store.get(f"{prefix}/{q}", timeout=ctx._timeout))
                for q in range(ctx.size)]
     ctx.barrier()
-    store.delete(f"{prefix}/{ctx.rank}")
+    if ctx.rank == 0:
+        for q in range(ctx.size):
+            store.delete(f"{prefix}/{q}")
     return records
 
 

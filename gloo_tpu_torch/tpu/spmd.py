@@ -21,15 +21,17 @@ package has no Pallas kernel for them (they are XLA collectives there).
 
 On a process mesh (tpu/multihost.py's init_multihost) a function takes
 this process's local tensor, the rows of ``mesh.local_ranks``, and
-returns its local result. The kernel collectives (``allreduce`` and
-``mean`` with the sum, ``reduce`` and ``reduce_scatter`` with the sum,
-``allgather``, ``alltoall``) run the kernels' cross-process instances on
-the card and their twins on the world gathered through the host plane on
-the CPU; ``rank`` and ``size`` answer for the local rows. The rest
-(``broadcast``, ``scatter``, ``ppermute``, ``shift``, ``barrier`` and
-the max/min/product reductions) raise NotImplementedError naming
-MULTI_PROCESS_ITEM: they were XLA collectives in the reference, and
-need a device transport across processes of their own.
+returns its local result; ``rank`` and ``size`` answer for the local
+rows. The kernel collectives (``allreduce`` and ``mean`` with the sum,
+``reduce`` and ``reduce_scatter`` with the sum, ``allgather``,
+``alltoall``) run the kernels' cross-process instances on the card and
+their twins on the world gathered through the host plane on the CPU.
+The point-to-point ones (``ppermute``, ``shift``, ``broadcast``,
+``scatter``) ride the transport of ops/permute.py, one pull over the peer
+workspace (csrc/permute.cu; NCCL refuses two ranks of one group on one
+card); the max/min/product reductions the cross-process allgather (B4b)
+and a local reduction; ``barrier`` the cross-process B3 on int32 ones,
+which is the reference's psum of ones.
 
 Every collective runs under ``annotate("gloo_tpu.<op>")``, the reference's
 ``jax.named_scope`` names (``shift`` under ``gloo_tpu.ppermute``), so a
@@ -38,11 +40,13 @@ profile puts its device time under the collective.
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
 
 from gloo_tpu_torch.ops import ring
+from gloo_tpu_torch.ops.permute import pull
 from gloo_tpu_torch.ops.ring import (ring_allgather, ring_allreduce,
                                      ring_reduce_scatter)
 from gloo_tpu_torch.tpu.mesh import Axis, Mesh
@@ -81,8 +85,6 @@ def _per_rank(x: torch.Tensor, mesh: Mesh) -> int:
 
 def allreduce(x: torch.Tensor, axis: Axis, op: str = "sum", *,
               mesh: Mesh) -> torch.Tensor:
-    if op != "sum":
-        mesh.one_process(f"spmd.allreduce with op={op!r}")
     rows = _per_rank(x, mesh)
     with annotate("gloo_tpu.allreduce"):
         if op == "sum":
@@ -97,9 +99,13 @@ def allreduce(x: torch.Tensor, axis: Axis, op: str = "sum", *,
             out = out.reshape(rows, -1)[:, :x[0].numel()]
             return out.reshape(x.shape)
         if op in ("max", "min"):
-            # uint16 and uint32 have no amax/amin in this PyTorch: compared in
-            # ring.WIDENED's type, which holds every value exactly.
-            gathered = ring.widened(x)[_members(axis, mesh)]
+            # uint16 and uint32 have no amax/amin (nor, on the card, an
+            # index) in this PyTorch: compared in ring.WIDENED's type, which
+            # holds every value exactly. Across processes every member's
+            # value comes by B4b.
+            wide = ring.widened(x)
+            gathered = allgather(wide, axis, tiled=False, mesh=mesh) \
+                if mesh.processes > 1 else wide[_members(axis, mesh)]
             return (gathered.amax(1) if op == "max"
                     else gathered.amin(1)).to(x.dtype)
         if op in ("product", "prod"):
@@ -117,8 +123,6 @@ def reduce_scatter(x: torch.Tensor, axis: Axis, op: str = "sum",
                    scatter_axis: int = 0, *, mesh: Mesh) -> torch.Tensor:
     """Reduce across `axis` and leave each rank with its 1/n slice along
     `scatter_axis` of its local value."""
-    if op != "sum":
-        mesh.one_process(f"spmd.reduce_scatter with op={op!r}")
     rows = _per_rank(x, mesh)
     with annotate("gloo_tpu.reduce_scatter"):
         n = mesh.axis_size(axis)
@@ -133,7 +137,7 @@ def reduce_scatter(x: torch.Tensor, axis: Axis, op: str = "sum",
             idx = rank(axis, mesh=mesh)[:, None] * chunk + torch.arange(
                 chunk, device=x.device)
             moved = full.movedim(dim, 1)
-            picked = moved[torch.arange(mesh.size, device=x.device)[:, None],
+            picked = moved[torch.arange(rows, device=x.device)[:, None],
                            idx]
             return picked.movedim(1, dim)
         moved = x.movedim(dim, 1)
@@ -181,12 +185,46 @@ def alltoall(x: torch.Tensor, axis: Axis, split_axis: int = 0,
         return ring.alltoall(x, axis, mesh, split, concat_axis % len(local))
 
 
+def _pulled(x: torch.Tensor, axis: Axis, mesh: Mesh,
+            sources: Sequence[int]) -> torch.Tensor:
+    """Each local rank's value from the member at ring index sources[k]
+    (k its own ring index), or zeros for -1: the transport's pull of whole
+    values, in x's shape."""
+    n = mesh.axis_size(axis)
+    return pull(x, axis, mesh, sources, [0] * n,
+                x[0].numel()).view(x.shape)
+
+
+class _Permute(torch.autograd.Function):
+    """ppermute across processes: the VJP is the inverse permutation of
+    the cotangent (lax.ppermute's transpose), on the same transport."""
+
+    @staticmethod
+    def forward(ctx, x, axis, mesh, sources):
+        ctx.args = (axis, mesh, sources)
+        return _pulled(x, axis, mesh, sources)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, mesh, sources = ctx.args
+        inverse = [-1] * len(sources)
+        for dst, src in enumerate(sources):
+            if src >= 0:
+                if inverse[src] >= 0:
+                    raise ValueError(f"ring index {src} is the source of "
+                                     f"two pairs: no inverse permutation")
+                inverse[src] = dst
+        return _pulled(g.contiguous(), axis, mesh, inverse), None, None, \
+            None
+
+
 def broadcast(x: torch.Tensor, axis: Axis, root: int = 0, *,
               mesh: Mesh) -> torch.Tensor:
     """Every rank receives the value of its ring's rank `root`."""
-    mesh.one_process("spmd.broadcast")
     _per_rank(x, mesh)
     with annotate("gloo_tpu.broadcast"):
+        if mesh.processes > 1:
+            return _pulled(x, axis, mesh, [root] * mesh.axis_size(axis))
         return x[_members(axis, mesh)[:, root]]
 
 
@@ -201,11 +239,21 @@ def reduce(x: torch.Tensor, axis: Axis, root: int = 0, op: str = "sum", *,
 def scatter(x: torch.Tensor, axis: Axis, root: int = 0,
             scatter_axis: int = 0, *, mesh: Mesh) -> torch.Tensor:
     """Root's value is split into n slices along `scatter_axis`; ring
-    member i receives slice i."""
-    mesh.one_process("spmd.scatter")
-    rooted = broadcast(x, axis, root, mesh=mesh)
+    member i receives slice i. Across processes every member pulls its own
+    slice of the root's value (moved to the front), and nothing more."""
     dim = 1 + scatter_axis % (x.dim() - 1)
-    chunk = x.shape[dim] // mesh.axis_size(axis)
+    n = mesh.axis_size(axis)
+    chunk = x.shape[dim] // n
+    if mesh.processes > 1:
+        rows = _per_rank(x, mesh)
+        with annotate("gloo_tpu.broadcast"):
+            moved = x.movedim(dim, 1).contiguous()
+            rest = moved.shape[2:]
+            piece = chunk * math.prod(rest)
+            out = pull(moved, axis, mesh, [root] * n,
+                       [k * piece for k in range(n)], piece)
+        return out.view(rows, chunk, *rest).movedim(1, dim)
+    rooted = broadcast(x, axis, root, mesh=mesh)
     my = mesh.ring_index(axis)
     return torch.stack([rooted[r].narrow(dim - 1, my[r] * chunk, chunk)
                         for r in range(mesh.size)])
@@ -225,12 +273,19 @@ def ppermute(x: torch.Tensor, axis: Axis, perm: Sequence[tuple], *,
              mesh: Mesh) -> torch.Tensor:
     """Point-to-point: pairs (source, destination) of ring indices, a tuple
     of axes numbered in the mesh's order as lax.ppermute numbers it; a rank
-    that no pair names as destination receives zeros."""
-    mesh.one_process("spmd.ppermute")
+    that no pair names as destination receives zeros. Across processes one
+    launch of the transport (differentiable: the VJP is the inverse
+    permutation)."""
     _per_rank(x, mesh)
     with annotate("gloo_tpu.ppermute"):
         source = {int(dst): int(src) for src, dst in perm}
         axis = _mesh_order(axis, mesh)
+        if mesh.processes > 1:
+            sources = [source.get(k, -1)
+                       for k in range(mesh.axis_size(axis))]
+            if torch.is_grad_enabled() and x.requires_grad:
+                return _Permute.apply(x, axis, mesh, sources)
+            return _pulled(x, axis, mesh, sources)
         members, my = mesh.ring_members(axis), mesh.ring_index(axis)
         return torch.stack([
             x[members[r][source[my[r]]]] if my[r] in source
@@ -241,7 +296,6 @@ def shift(x: torch.Tensor, axis: Axis, offset: int = 1, wrap: bool = True, *,
           mesh: Mesh) -> torch.Tensor:
     """Send each rank's value to ring index + offset (ppermute's
     numbering)."""
-    mesh.one_process("spmd.shift")
     p = mesh.axis_size(axis)
     if wrap:
         perm = [(i, (i + offset) % p) for i in range(p)]
@@ -252,8 +306,13 @@ def shift(x: torch.Tensor, axis: Axis, offset: int = 1, wrap: bool = True, *,
 
 def barrier(axis: Axis, *, mesh: Mesh) -> torch.Tensor:
     """A (P,) int32 world tensor whose value, the ring size, depends on
-    every participant (the sum of ones over the ring)."""
-    mesh.one_process("spmd.barrier")
+    every participant (the sum of ones over the ring). Across processes
+    the local ranks' rows, from one cross-process B3 of int32 ones."""
     with annotate("gloo_tpu.barrier"):
+        if mesh.processes > 1:
+            return allreduce(torch.ones(len(mesh.local_ranks),
+                                        dtype=torch.int32,
+                                        device=mesh.device), axis,
+                             mesh=mesh)
         ones = torch.ones(mesh.size, dtype=torch.int32, device=mesh.device)
         return ones[_members(axis, mesh)].sum(1, dtype=torch.int32)

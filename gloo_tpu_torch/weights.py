@@ -116,7 +116,8 @@ def pipeline_stages_from_numpy(tree, cfg: TransformerConfig,
     flat rank i, so {"ln1.scale" (P, d), "ln2.scale", "wqkv", "wo", "w_up",
     "w_down"} f32 on the mesh's device, the parameters models.transformer.
     world_block takes. The tree needs one layer per rank; embed, pos and
-    ln_f stay in the tree."""
+    ln_f stay in the tree. On a process mesh, the rows of its local
+    ranks."""
     flat = _flatten(tree)
     _check(flat, cfg)
     if cfg.n_layers != mesh.size:
@@ -125,4 +126,4 @@ def pipeline_stages_from_numpy(tree, cfg: TransformerConfig,
     names = ("ln1.scale", "ln2.scale") + _DENSE
     return {name: torch.tensor(np.stack(
         [np.asarray(flat[f"layers.{i}.{name}"], dtype=np.float32)
-         for i in range(mesh.size)]), device=mesh.device) for name in names}
+         for i in mesh.local_ranks]), device=mesh.device) for name in names}

@@ -40,7 +40,6 @@ from gloo_tpu_torch.models import Transformer, TransformerConfig
 from gloo_tpu_torch.ops import ring
 from gloo_tpu_torch.parallel import make_ddp_train_step
 from gloo_tpu_torch.tpu import init_multihost, make_mesh, spmd
-from gloo_tpu_torch.tpu.mesh import MULTI_PROCESS_ITEM
 
 REPO = Path(__file__).resolve().parent.parent
 # The narrow flagship of tests/test_torch_ddp.py at one layer.
@@ -455,21 +454,29 @@ def _pmesh(ranks=2, device="cpu", processes=2, axes=None):
 
 
 def test_what_has_no_cross_process_form_refuses_a_process_mesh():
-    """The allreduce variants and spmd's collectives without a kernel raise
-    on a process mesh; the all-to-all, the collective matmuls and spmd's
-    sum collectives take one (tests/test_torch_multihost_tp.py)."""
-    mesh = _pmesh(4, axes={"data": 4})
-    x = torch.zeros(2, 4, 8)
-    for call in (lambda: spmd.allreduce(x, "data", "max", mesh=mesh),
-                 lambda: spmd.broadcast(x, "data", mesh=mesh),
-                 lambda: spmd.ppermute(x, "data", [(0, 1)], mesh=mesh),
-                 lambda: ring.ring_allreduce_hbm(x, "data", mesh),
-                 lambda: ring.ring_allreduce_q8(x, "data", mesh),
-                 lambda: ring.ring_allreduce_bidir(x, "data", mesh)):
-        with pytest.raises(NotImplementedError, match="queue A, item 7"):
-            call()
-    with pytest.raises(NotImplementedError, match=MULTI_PROCESS_ITEM[:20]):
-        spmd.shift(x, "data", mesh=mesh)
+    """The allreduce variants and spmd's collectives without a kernel
+    raised on a process mesh until they had a cross-process form (the test
+    keeps that name): each now gives, on each process's local rows of 2
+    processes of 2 ranks, the one-process world's rows bitwise. What still
+    has no cross-process form (FSDP, the two-level DDP, unshard_state)
+    raises: tests/test_torch_multihost_sp.py."""
+    world = _world(torch.float32, 4, 128, 256, seed=5)
+
+    def calls(x, mesh):
+        return [spmd.allreduce(x, "data", "max", mesh=mesh),
+                spmd.broadcast(x, "data", mesh=mesh),
+                spmd.ppermute(x, "data", [(0, 1)], mesh=mesh),
+                ring.ring_allreduce_hbm(x, "data", mesh),
+                ring.ring_allreduce_q8(x, "data", mesh),
+                ring.ring_allreduce_bidir(x, "data", mesh),
+                spmd.shift(x, "data", mesh=mesh)]
+
+    want = calls(world, make_mesh({"data": 4}, devices=["cpu"] * 4))
+    res = _processes(_cpus((2, 2)), lambda ctx, mesh, rank: (
+        mesh.local_ranks, calls(world[mesh.local_ranks], mesh)))
+    for local, got in res:
+        for g, w in zip(got, want):
+            assert torch.equal(g, w[local])
 
 
 def test_process_mesh_checks():

@@ -119,7 +119,8 @@ def test_spmd_kernel_collectives_across_processes(counts, axes, dtype):
                 assert torch.equal(got, ref), (a, name)
 
 
-def _refusals(mesh, x):
+def _xla_collectives(mesh, x):
+    """What was an XLA collective in the reference, by case id."""
     return {
         "broadcast": lambda: spmd.broadcast(x, "data", mesh=mesh),
         "scatter": lambda: spmd.scatter(x, "data", mesh=mesh),
@@ -140,17 +141,29 @@ def _refusals(mesh, x):
     }
 
 
-@pytest.mark.parametrize("call", sorted(_refusals(None, None)))
+@pytest.mark.parametrize("call", sorted(_xla_collectives(None, None)))
 def test_collectives_without_a_cross_process_form_raise(call):
-    """What was an XLA collective in the reference has no device transport
-    across processes yet: on a process mesh it raises, naming the ROADMAP
-    item, and never reads the local rows as the world (even where they
-    would have the world's shape)."""
-    mesh = make_mesh({"data": 4}, devices=["cpu"] * 4,
-                     process_of=[0, 0, 1, 1], process=1)
-    x = torch.zeros(4, 8)
-    with pytest.raises(NotImplementedError, match=MULTI_PROCESS_ITEM[:20]):
-        _refusals(mesh, x)[call]()
+    """What was an XLA collective in the reference raised on a process
+    mesh until it had a device transport across processes (the test keeps
+    that name); each now has one (the transport of ops/permute.py, the
+    cross-process B4b or B3) and gives, on each process's local rows of 2
+    processes of 2 ranks, the one-process world's rows bitwise (the group
+    barrier returns nothing). What still has no cross-process form raises:
+    tests/test_torch_multihost_sp.py."""
+    world = _world(torch.float32, (4, 8, 6), seed=9)
+    want = _xla_collectives(make_mesh({"data": 4}, devices=["cpu"] * 4),
+                            world)[call]()
+
+    def fn(ctx, mesh, rank):
+        return mesh.local_ranks, _xla_collectives(
+            mesh, world[mesh.local_ranks])[call]()
+
+    for local, got in _processes(_cpus((2, 2)), fn):
+        if want is None:
+            assert got is None
+        else:
+            assert got.dtype == want.dtype
+            assert torch.equal(got, want[local])
 
 
 def test_process_group_runs_its_kernel_methods_on_local_rows():
