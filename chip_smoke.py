@@ -277,7 +277,18 @@ Phases, each of which raises on failure:
      pull 6; ring attention bitwise, the other two within SP_TOL), 3
      multihost_pp_entry 1F1B steps within TRAIN_TOL and a GPipe forward
      bitwise; the cross-process kernels' and the transport's device ms
-     per launch and event ms per call, and each path's event ms.
+     per launch and event ms per call, and each path's event ms;
+ 37. FSDP across processes (fsdp_peer_phase, worker "37"): 4 worker
+     processes on the card, one rank each, run FSDP_PEER_STEPS steps of
+     multihost_fsdp_entry ((B4b, B4a, B3, B1, B2) = (15, 15, 1, 2, 2) per
+     step per process, B3, B4a and B4b the cross-process instances), the
+     losses equal on every process and within TRAIN_TOL of phase 23's
+     world steps, the gathered parameters' state_digest equal across the
+     processes after each step, and rank 0's rows of them held against
+     phase 23's world parameters after the same step (state_digest, and
+     the step's implied gradient within FSDP_PEER_GRAD_TOL of the
+     world's); the step's event and device ms and the device ms per
+     cross-process launch.
 The line before the last is the JSON list of kernels; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or gloo_tpu.
 """
@@ -2294,7 +2305,9 @@ def fsdp_path(attn, ring, entry_mod, unshard_params, make_mesh, cfg):
     """Phase 23: FSDP_STEPS steps of fsdp_train_entry() with the launch
     counts read around them; the first step against one model's SGD over
     the whole batch on the card and against the same step of the port on
-    the CPU. Returns (launches, the entry's (step, args))."""
+    the CPU. Returns (launches, the losses, rank 0's rows of the gathered
+    parameters on the CPU before the steps and after each of the first
+    FSDP_PEER_STEPS, the entry's (step, args))."""
     step, (sharded, batch) = entry_mod.fsdp_train_entry()
     ranks, lr = entry_mod.FSDP_MESH["data"], entry_mod.FSDP_LR
     counters = (ring.ring_allgather, ring.ring_reduce_scatter,
@@ -2302,12 +2315,13 @@ def fsdp_path(attn, ring, entry_mod, unshard_params, make_mesh, cfg):
                 attn.flash_attention_bwd)
     for c in counters:
         c.launches = 0
-    state, losses = sharded, []
+    state, losses, states = sharded, [], [sharded]
     for i in range(FSDP_STEPS):
         state, loss = step(state, batch)
         losses.append(loss)
-        if i == 0:
-            first = state
+        if i < FSDP_PEER_STEPS:
+            states.append(state)
+    first = states[1]
     torch.cuda.synchronize()
     launches = tuple(c.launches for c in counters)
     leaves = len(sharded)
@@ -2366,7 +2380,9 @@ def fsdp_path(attn, ring, entry_mod, unshard_params, make_mesh, cfg):
                 or grad_rel[worst] > TRAIN_TOL["grad"]:
             raise AssertionError(f"the first FSDP step disagrees with "
                                  f"{label}")
-    return launches, (step, (sharded, batch))
+    world = [{n: v[0].cpu() for n, v in unshard_params(
+        s, template, "data", mesh=mesh).items()} for s in states]
+    return launches, losses, world, (step, (sharded, batch))
 
 
 def sequential(stage_fn, stages, x, n_stages):
@@ -5588,10 +5604,218 @@ def spp_peer_phase(card, ring, permute, pp, entry_mod):
     return rows
 
 
+# ---- phase 37: FSDP across processes ----
+# 4 worker processes on the card, one rank each: FSDP_PEER_STEPS steps of
+# multihost_fsdp_entry with the launch counts read around each, then the
+# step's event ms and rank 0's device profile of it. After each step a
+# process gathers the parameters (not counted) and holds rank 0's rows
+# against phase 23's world parameters after the same step: its
+# state_digest, and as numbers the step's implied gradient (old - new) / lr
+# against the world's, |g - g_world| / |g_world| per leaf. The world and
+# the processes run the same per-rank computations, and the cross-process
+# B3/B4a/B4b are bitwise their one-card kernels (phase 34), so the steps
+# are expected to agree to the bit; only B2's dQ reduce-add, which lands
+# in no fixed order, may round otherwise, an f32 rounding (~1e-7) of the
+# gradient carried through FSDP_PEER_STEPS steps, and the implied gradient
+# adds ulp(p) / lr. FSDP_PEER_GRAD_TOL sits well above both and far below
+# any lost or doubled partial of the reduce-scatter (a whole rank's
+# share, ~1/4 of a leaf's gradient or more).
+FSDP_PEER_SIZE = 4
+FSDP_PEER_STEPS = 3
+FSDP_PEER_TIMING_STEPS = 3
+FSDP_PEER_TIMEOUT = 300
+FSDP_PEER_GRAD_TOL = 1e-3
+FSDP_PEER_NAMES = ("ring_allgather", "ring_reduce_scatter", "ring_allreduce",
+                   "flash_attention_fwd", "flash_attention_bwd")
+
+
+def worker_fsdp_peer(rank, size, store, device="cuda"):
+    """Phase 37 on one of `size` processes (see the comment above
+    FSDP_PEER_SIZE). CHIP_SMOKE_FSDP_WORLD names the file of phase 23's
+    world rows (fsdp_path's)."""
+    import sys
+
+    from gloo_tpu_torch import entry as entry_mod
+    from gloo_tpu_torch.checkpoint import state_digest
+    from gloo_tpu_torch.models import Transformer
+    from gloo_tpu_torch.ops import attention as attn
+    from gloo_tpu_torch.ops import ring
+    from gloo_tpu_torch.parallel.fsdp import unshard_params
+
+    _share_cores(size)
+    t0 = time.perf_counter()
+
+    def note(what):
+        print(f"[{time.perf_counter() - t0:.1f} s] {what}", file=sys.stderr,
+              flush=True)
+
+    world = torch.load(os.environ["CHIP_SMOKE_FSDP_WORLD"])
+    step, (state, batch) = entry_mod.multihost_fsdp_entry(
+        rank, size, f"127.0.0.1:{os.environ['CHIP_SMOKE_FSDP_PORT']}",
+        device, device_hostname="127.0.0.1")
+    note("multihost_fsdp_entry")
+    counters = (ring.ring_allgather, ring.ring_reduce_scatter,
+                ring.ring_allreduce, attn.flash_attention_fwd,
+                attn.flash_attention_bwd)
+    template = Transformer(entry_mod.ENTRY_CONFIG, device="meta").state_dict()
+    lr = entry_mod.FSDP_LR
+
+    def gathered():
+        full = unshard_params(state, template, "data", mesh=step.mesh)
+        return {k: v[0].cpu() for k, v in full.items()}
+
+    old = gathered()
+    out = {"local_ranks": step.mesh.local_ranks,
+           "shard_numel": {k: v.numel() for k, v in state.items()},
+           "start_is_world": state_digest(old) == state_digest(world[0]),
+           "launches": [], "losses": [], "digests": [], "world_digest": [],
+           "grad_rel": [], "max_abs": []}
+    for i in range(FSDP_PEER_STEPS):
+        for c in counters:
+            c.launches = 0
+        state, loss = step(state, batch)
+        torch.cuda.synchronize()
+        out["launches"].append([c.launches for c in counters])
+        out["losses"].append([float(x) for x in loss])
+        new = gathered()
+        out["digests"].append(state_digest(new))
+        out["world_digest"].append(out["digests"][-1]
+                                   == state_digest(world[i + 1]))
+        rel = {}
+        for k in new:
+            g = (old[k].float() - new[k].float()) / lr
+            gw = (world[i][k].float() - world[i + 1][k].float()) / lr
+            rel[k] = float((g - gw).norm() / gw.norm().clamp_min(1e-30))
+        out["grad_rel"].append(max(rel.values()))
+        out["max_abs"].append(max(float((new[k].float()
+                                         - world[i + 1][k].float())
+                                        .abs().max()) for k in new))
+        old = new
+    out["finite"] = all(bool(torch.isfinite(v).all())
+                        for v in state.values())
+    note("steps")
+
+    def once():
+        step(state, batch)
+
+    step.context.barrier()
+    out["step_ms"] = event_ms(once, iters=FSDP_PEER_TIMING_STEPS)
+    step.context.barrier()
+    out["device_ms"], rows = same_calls(once, rank, FSDP_PEER_TIMING_STEPS,
+                                        want=("ring_peer_kernel",))
+    peer = [r for r in rows if "ring_peer_kernel" in r[2]]
+    out["peer_ms"] = sum(r[0] for r in peer) if peer else None
+    out["peer_calls"] = sum(r[1] for r in peer)
+    out["device_rows"] = rows[:8]
+    note("times")
+    step.context.close()
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def fsdp_peer_phase(card, world_losses, world_params):
+    """Phase 37: worker_fsdp_peer in FSDP_PEER_SIZE processes; the checks
+    against phase 23's world losses and parameters (fsdp_path's). Returns
+    rank 0's launches of the cross-process B4b, B4a and B3 over the
+    steps."""
+    import gc
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    # The workers share the card with this process: give back what its
+    # allocator caches first, as phase 36 does.
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-37-world-")
+    try:
+        path = os.path.join(tmp, "world.pt")
+        torch.save(world_params, path)
+        env = {"CHIP_SMOKE_FSDP_PORT": str(_free_port()),
+               "CHIP_SMOKE_FSDP_WORLD": path}
+        res = run_workers("37", timeout=FSDP_PEER_TIMEOUT,
+                          size=FSDP_PEER_SIZE, env=env)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    from gloo_tpu_torch.entry import ENTRY_CONFIG, FSDP_MESH
+
+    failed = []
+    per_rank = FSDP_MESH["data"] // FSDP_PEER_SIZE
+    layers = ENTRY_CONFIG.n_layers
+    want = [15, 15, 1, per_rank * layers, per_rank * layers]
+    world = world_losses[:FSDP_PEER_STEPS]
+    for rank, r in enumerate(res):
+        print(f"multihost_fsdp_entry process {rank} (ranks "
+              f"{r['local_ranks']}, {len(r['shard_numel'])} leaves, "
+              f"{sum(r['shard_numel'].values())} shard elements): losses "
+              f"{', '.join(f'{x[0]:.6f}' for x in r['losses'])}; launches "
+              f"({', '.join(FSDP_PEER_NAMES)}) per step {r['launches']}; "
+              f"step {r['step_ms']:.6f} ms (events) [{card}; one card, "
+              f"time-sliced]")
+        print(f"  gathered parameters vs phase 23's world after each step: "
+              f"state_digest {'equal' if all(r['world_digest']) else 'not'}"
+              f" the world's ({r['world_digest']}), max |p - p_world| "
+              f"{', '.join(f'{x:.3e}' for x in r['max_abs'])}; implied "
+              f"grads |g - g_world| / |g_world| max over leaves "
+              f"{', '.join(f'{x:.3e}' for x in r['grad_rel'])} (tol "
+              f"{FSDP_PEER_GRAD_TOL}); the start "
+              f"{'is' if r['start_is_world'] else 'IS NOT'} the world's")
+        if any(l != want for l in r["launches"]) \
+                or len(r["shard_numel"]) != 15:
+            failed.append(f"process {rank}'s launches {r['launches']}, "
+                          f"expected {want} per step over 15 leaves")
+        if not r["start_is_world"] \
+                or not all(x <= FSDP_PEER_GRAD_TOL for x in r["grad_rel"]):
+            failed.append(f"process {rank}'s parameters against the "
+                          f"world's")
+    losses = [[x for row in r["losses"] for x in row] for r in res]
+    firsts = [row[0] for r in res for row in r["losses"]]
+    same = all(l == losses[0] for l in losses) and all(
+        x == row[0] for r in res for row in r["losses"] for x in row)
+    diffs = [abs(r["losses"][i][0] - world[i]) for r in res
+             for i in range(FSDP_PEER_STEPS)]
+    rel = max(abs(r["losses"][i][0] - world[i]) / abs(world[i])
+              for r in res for i in range(FSDP_PEER_STEPS))
+    digests = [r["digests"] for r in res]
+    print(f"multihost FSDP vs phase 23's world steps "
+          f"({', '.join(f'{x:.6f}' for x in world)}): max |loss - "
+          f"loss_world| {max(diffs):.3e} (rel {rel:.3e}, tol "
+          f"{TRAIN_TOL['loss']}; "
+          f"{'bitwise equal' if max(diffs) == 0 else 'not bitwise'}); "
+          f"losses {'equal' if same else 'DIFFER'} across the processes; "
+          f"state_digest of the gathered parameters after each step "
+          f"{'equal' if all(d == digests[0] for d in digests) else 'DIFFER'}"
+          f" across the processes")
+    if not same or rel > TRAIN_TOL["loss"] \
+            or not all(np.isfinite(firsts)) \
+            or not all(d == digests[0] for d in digests) \
+            or not all(r["finite"] for r in res):
+        failed.append("the multihost FSDP step")
+    lead = res[0]
+    busy = "not measured" if lead["device_ms"] is None \
+        else f"{lead['device_ms'] / lead['step_ms']:.3f}"
+    per_launch = None if not lead["peer_calls"] \
+        else lead["peer_ms"] / lead["peer_calls"]
+    print(f"multihost FSDP step (process 0): {lead['step_ms']:.6f} ms "
+          f"(events), device {lead['device_ms']} ms, busy share {busy}; "
+          f"the cross-process B4b, B4a and B3 {lead['peer_ms']} ms of it in "
+          f"{lead['peer_calls']:g} launches, {per_launch} ms per launch "
+          f"[{card}; one card, time-sliced]")
+    for dev_ms, calls, kname in lead["device_rows"]:
+        print(f"  {dev_ms:.6f} ms in {calls:g} calls: {kname[:90]}")
+    print(f"phase 37: {time.perf_counter() - t_phase:.1f} s (workers "
+          f"{max(r['wall_s'] for r in res):.1f} s)")
+    if failed:
+        raise AssertionError(f"phase 37 failed: {failed}")
+    total = [sum(col) for col in zip(*lead["launches"])]
+    return dict(zip(FSDP_PEER_NAMES[:3], total[:3]))
+
+
 WORKERS = {"26": worker_staging, "27": worker_host_sync, "28": worker_hier,
            "29": worker_elastic, "29b": worker_run_elastic,
            "30": worker_surface, "32": worker_traced,
-           "34": worker_peer, "35": worker_tp_peer, "36": worker_spp_peer}
+           "34": worker_peer, "35": worker_tp_peer, "36": worker_spp_peer,
+           "37": worker_fsdp_peer}
 
 
 def host_phases(card):
@@ -6408,8 +6632,8 @@ def main():
     variant_dtypes(ring, variant_paths, card, gen)
 
     # Phase 23: the FSDP path (B4b, B4a and B3 around each rank's B1/B2).
-    _, fsdp = fsdp_path(attn, ring, entry_mod, unshard_params, make_mesh,
-                        cfg)
+    _, fsdp_losses, fsdp_world, fsdp = fsdp_path(
+        attn, ring, entry_mod, unshard_params, make_mesh, cfg)
 
     # Phase 24: the pipeline path (B1 and B2 in every tick).
     _, pp_paths = pp_path(attn, pp, entry_mod)
@@ -6455,6 +6679,10 @@ def main():
     # the transport across 2-4 processes, the ring-variant, long-context
     # and pipeline paths at one process per rank.
     spp_peer_rows = spp_peer_phase(card, ring, permute, pp, entry_mod)
+
+    # Phase 37: FSDP across processes: the flagship's fully-sharded step at
+    # one process per rank over the cross-process B4b, B4a and B3.
+    fsdp_peer_launches = fsdp_peer_phase(card, fsdp_losses, fsdp_world)
 
     # Launches on the main paths: B1 on the serving path, B2 on the
     # training path, B3 on the DDP path, B4a and B4b on the group path,
@@ -6515,12 +6743,15 @@ def main():
             "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": bound, "bound_by": bound_by, "library_ms": lib})
     # The cross-process instances (phase 34): B3's launches on the DDP path
-    # at one process per rank, B4a's and B4b's in their held run; times at
-    # the DDP buffer across 4 processes on one card (time-sliced).
+    # at one process per rank, B4a's and B4b's on the FSDP path at one
+    # process per rank (phase 37); times at the DDP buffer across 4
+    # processes on one card (time-sliced).
     for name, replaces in (("ring_allreduce", "pallas_ring.py:63"),
                            ("ring_reduce_scatter", "pallas_ring.py:876"),
                            ("ring_allgather", "pallas_ring.py:995")):
         n, err, (ms, plain, lib, bound, bound_by) = peer_rows[name]
+        if name != "ring_allreduce":
+            n = fsdp_peer_launches[name]
         if None in (ms, plain, lib):
             raise AssertionError(
                 f"the profiler showed no device time for the cross-process "

@@ -55,9 +55,10 @@ at the flagship's full MLP width: FUSED_MLP_ROWS token rows over a ring
 of FUSED_MLP_MESH ranks on one card, forward and backward.
 ``multihost_dp_tp_entry()``, ``multihost_fused_mlp_entry()``,
 ``multihost_ep_entry()``, ``multihost_ring_variants_entry()``,
-``multihost_sp_entry()`` and ``multihost_pp_entry()`` are
-dp_tp_train_entry(), fused_mlp_entry(), ep_entry(),
-ring_variants_entry(), sp_entry() and pp_entry() split over processes
+``multihost_fsdp_entry()``, ``multihost_sp_entry()`` and
+``multihost_pp_entry()`` are dp_tp_train_entry(), fused_mlp_entry(),
+ep_entry(), ring_variants_entry(), fsdp_train_entry(), sp_entry() and
+pp_entry() split over processes
 (one rank each at their world's size): each process holds its local
 ranks' rows, the collectives are the kernels' cross-process instances,
 and spmd's shift is the transport over the peer workspace.
@@ -660,6 +661,13 @@ def fsdp_train_entry(device="cuda"):
     dev = tokens.device
     n = FSDP_MESH["data"]
     mesh = make_mesh(FSDP_MESH, devices=[dev] * n)
+    return _fsdp_step(model, tokens, mesh)
+
+
+def _fsdp_step(model: Transformer, tokens: torch.Tensor, mesh):
+    """make_fsdp_train_step over `mesh` for `model`'s weights, with their
+    shards and this process's share of `tokens` (the entry batch) and its
+    targets as world tensors of the local ranks' rows."""
     params = {name: p.detach() for name, p in model.named_parameters()}
     shell = Transformer(ENTRY_CONFIG, device="meta")
 
@@ -672,9 +680,31 @@ def fsdp_train_entry(device="cuda"):
 
     step = make_fsdp_train_step(loss_fn, params, "data", lr=FSDP_LR,
                                 mesh=mesh)
-    batch = (world_batch(tokens, mesh), world_batch(_entry_targets(tokens),
-                                                    mesh))
+    batch = tuple(world_batch(data_share(x, mesh), mesh)
+                  for x in (tokens, _entry_targets(tokens)))
     return step, (shard_params(params, "data", mesh=mesh), batch)
+
+
+def multihost_fsdp_entry(rank: int, size: int, store_address: str,
+                         device="cuda",
+                         device_hostname: Optional[str] = None):
+    """fsdp_train_entry() split over processes: process `rank` of `size`
+    returns (step, (sharded, (tokens, targets))) for its ranks of a
+    process mesh FSDP_MESH (one rank per process at size 4; see
+    _process_mesh). sharded holds train_entry()'s weights sharded over
+    "data" for the local ranks ((len(local_ranks), chunk) per leaf), and
+    tokens and targets are the process's share of the entry batch (2
+    sequences per rank) as world tensors of its rows. step is
+    make_fsdp_train_step's over the process mesh: each leaf's gather is
+    the cross-process B4b, its VJP the cross-process B4a, and the loss
+    mean the cross-process B3. Its context to close: step.context. At
+    size 4 each step is fsdp_train_entry()'s, split over processes."""
+    ctx, mesh = _process_mesh(rank, size, store_address, FSDP_MESH,
+                              device, device_hostname)
+    _, (model, tokens) = entry(mesh.device)
+    step, args = _fsdp_step(model, tokens, mesh)
+    step.context, step.mesh = ctx, mesh
+    return step, args
 
 
 def pp_forward(stage_fn, stages, xs, mesh):

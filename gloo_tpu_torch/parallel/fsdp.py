@@ -2,7 +2,10 @@
 
 Counterpart of gloo_tpu/parallel/fsdp.py. Every parameter lives flattened,
 zero-padded and sharded over a mesh axis: rank r holds chunk (r's ring
-index) of each leaf, a (P, chunk) world tensor. The step gathers each leaf
+index) of each leaf, a (P, chunk) world tensor. On a process mesh (the
+reference under multi-process JAX) a process holds its local ranks' rows
+only, (len(mesh.local_ranks), chunk), and the collectives below are their
+cross-process instances. The step gathers each leaf
 just in time with ``spmd.allgather`` (B4b, one launch per leaf), and the
 backward produces gradients that are already sharded: the allgather's VJP
 is the ring reduce-scatter (B4a, gloo_tpu_torch.ops.ring), the transpose
@@ -33,11 +36,12 @@ from gloo_tpu_torch.utils.tracing import annotate
 def shard_params(params: dict, axis: Axis, *, mesh: Mesh) -> dict:
     """Flatten each leaf, zero-pad it to a multiple of the axis size n, and
     keep each rank's 1/n chunk at its ring index: {name: (P, chunk)} world
-    tensors on the mesh's device, in each leaf's dtype. A process mesh
-    raises NotImplementedError (FSDP across processes is still to come)."""
-    mesh.one_process("parallel.fsdp.shard_params")
+    tensors on the mesh's device, in each leaf's dtype; on a process mesh
+    the local ranks' rows, (len(mesh.local_ranks), chunk)."""
     n = mesh.axis_size(axis)
-    my = torch.tensor(mesh.ring_index(axis), device=mesh.device)
+    index = mesh.ring_index(axis)
+    my = torch.tensor([index[r] for r in mesh.local_ranks],
+                      device=mesh.device)
     sharded = {}
     for name, p in params.items():
         flat = p.detach().reshape(-1).to(mesh.device)
@@ -49,17 +53,17 @@ def shard_params(params: dict, axis: Axis, *, mesh: Mesh) -> dict:
 def unshard_params(sharded: dict, template: dict, axis: Axis, *,
                    mesh: Mesh) -> dict:
     """All-gather every leaf back to its full shape: {name: (P, *shape)}
-    world tensors, every rank of a ring holding the whole leaf in the
-    template's dtype. `template` maps each name to anything with the
-    original .shape and .dtype (the parameters, or meta tensors)."""
-    mesh.one_process("parallel.fsdp.unshard_params")
+    world tensors (the local ranks' rows on a process mesh), every rank of
+    a ring holding the whole leaf in the template's dtype. `template` maps
+    each name to anything with the original .shape and .dtype (the
+    parameters, or meta tensors)."""
     full = {}
     for name, piece in sharded.items():
         ref = template[name]
         with annotate("gloo_tpu.fsdp.unshard"):
             gathered = spmd.allgather(piece, axis, mesh=mesh)
         full[name] = gathered[:, :ref.numel()].reshape(
-            mesh.size, *ref.shape).to(ref.dtype)
+            len(mesh.local_ranks), *ref.shape).to(ref.dtype)
     return full
 
 
@@ -70,15 +74,15 @@ def make_fsdp_train_step(loss_fn: Callable, template: dict, axis: Axis,
     loss_fn(params, batch) -> 0-d local loss, where params is one rank's
     row of the gathered parameters ({name: tensor of the leaf's shape}) and
     batch that rank's row of the world batch (a tuple of (P, ...) world
-    tensors, row r rank r's shard). step(sharded, batch, step_lr=lr)
-    returns (new sharded params, (P,) world tensor of the global mean
-    loss). The gradient of the summed local losses comes out of the
+    tensors, row r rank r's shard; on a process mesh the local ranks'
+    rows). step(sharded, batch, step_lr=lr) returns (new sharded params,
+    (P,) world tensor of the global mean loss, the local ranks' rows on a
+    process mesh). The gradient of the summed local losses comes out of the
     allgather's VJP already reduce-scattered; divided by n it is the
     global-mean gradient, and the update touches 1/n of each leaf per rank.
     """
     # Shapes and dtypes only (meta tensors): the step keeps no unsharded
     # copy of the model.
-    mesh.one_process("parallel.fsdp.make_fsdp_train_step")
     template = {name: torch.empty(p.shape, dtype=p.dtype, device="meta")
                 for name, p in template.items()}
     n = mesh.axis_size(axis)
@@ -90,7 +94,7 @@ def make_fsdp_train_step(loss_fn: Callable, template: dict, axis: Axis,
             losses = torch.stack([
                 loss_fn({k: v[r] for k, v in params.items()},
                         tuple(b[r] for b in batch))
-                for r in range(mesh.size)])
+                for r in range(len(mesh.local_ranks))])
             # The LOCAL losses only: an allreduce inside the differentiated
             # function would sum the cotangent again and scale the
             # gradients by n (the reference's ddp.py and fsdp.py pitfall).

@@ -19,8 +19,8 @@ process's. Its collectives take a local tensor, the rows of
 ``local_ranks`` only, and run the ring kernels' cross-process instances
 over peer-mapped memory (tpu/peer.py), and spmd's point-to-point
 collectives a transport over the same memory (ops/permute.py); what has
-no cross-process form yet (FSDP, the two-level DDP, dp_tp.unshard_state)
-raises NotImplementedError naming MULTI_PROCESS_ITEM.
+no cross-process form (the two-level DDP, dp_tp.unshard_state) raises
+NotImplementedError naming MULTI_PROCESS_ITEM.
 
 The ring tables (``ring_members``, ``ring_index``, ``ring_neighbors``) are
 the host-side port of gloo_tpu/ops/pallas_ring.py's ``_peer_logical_id``
@@ -125,8 +125,8 @@ class Mesh:
                 f"{MULTI_PROCESS_ITEM}; the ring collectives, their "
                 f"variants and the all-to-all (ops.ring), the collective "
                 f"matmuls (ops.overlap), every collective of spmd and of "
-                f"CudaProcessGroup, and the DDP, dp x tp, MoE, sequence- "
-                f"and pipeline-parallel paths take one")
+                f"CudaProcessGroup, and the DDP, FSDP, dp x tp, MoE, "
+                f"sequence- and pipeline-parallel paths take one")
 
     def _names(self, axis: Axis) -> tuple[str, ...]:
         names = (axis,) if isinstance(axis, str) else tuple(axis)

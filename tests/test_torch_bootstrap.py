@@ -11,7 +11,12 @@ import textwrap
 import pytest
 
 import gloo_tpu_torch
-from gloo_tpu_torch import bootstrap
+from gloo_tpu_torch import _lib, bootstrap
+
+# The host library, built (under its lock) while this file is collected,
+# so that no test's threads or processes meet its build inside their
+# timeouts.
+_lib.lib()
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -20,7 +20,12 @@ import sys
 import tempfile
 import textwrap
 
-from gloo_tpu_torch import core, elastic
+from gloo_tpu_torch import _lib, core, elastic
+
+# The host library, built (under its lock) while this file is collected,
+# so that no test's threads or processes meet its build inside their
+# timeouts.
+_lib.lib()
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

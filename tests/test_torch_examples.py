@@ -38,10 +38,15 @@ from gloo_tpu.parallel.tp import (  # noqa: E402
     row_parallel_dense_scattered as jax_rs_dense,
     row_parallel_dense_scattered_auto as jax_rs_dense_auto)
 from gloo_tpu.tpu import make_mesh as jax_make_mesh  # noqa: E402
-from gloo_tpu_torch import weights  # noqa: E402
+from gloo_tpu_torch import _lib, weights  # noqa: E402
 from gloo_tpu_torch.tpu import make_mesh  # noqa: E402
 from tests.test_torch_tools import (load_file, no_jax_env,  # noqa: E402
                                     run_viewer)
+
+# The host library, built (under its lock) while this file is collected,
+# so that no test's threads or processes meet its build inside their
+# timeouts.
+_lib.lib()
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 EXAMPLES = REPO / "examples"

@@ -21,9 +21,14 @@ import torch
 
 import gloo_tpu
 from gloo_tpu import fault as ref_fault
-from gloo_tpu_torch import Error, fault
+from gloo_tpu_torch import Error, _lib, fault
 from tests.harness import spawn as ref_spawn
 from tests.test_torch_host import spawn
+
+# The host library, built (under its lock) while this file is collected,
+# so that no test's threads or processes meet its build inside their
+# timeouts.
+_lib.lib()
 
 SIZE = 3
 ROUNDS = 3

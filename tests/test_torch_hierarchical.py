@@ -36,6 +36,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from gloo_tpu.tpu import HierarchicalGroup as JaxGroup  # noqa: E402
 from gloo_tpu.tpu import make_hierarchical_ddp as jax_hier_ddp  # noqa: E402
+from gloo_tpu_torch import _lib  # noqa: E402
 from gloo_tpu_torch.entry import (ddp_train_entry, hier_ddp_entry,  # noqa: E402,E501
                                   host_ddp_entry)
 from gloo_tpu_torch.tpu import (HierarchicalGroup,  # noqa: E402
@@ -43,6 +44,11 @@ from gloo_tpu_torch.tpu import (HierarchicalGroup,  # noqa: E402
 from tests.harness import spawn as jax_spawn  # noqa: E402
 from tests.test_group import spawn_topo as jax_spawn_topo  # noqa: E402
 from tests.test_torch_host import raw, spawn  # noqa: E402
+
+# The host library, built (under its lock) while this file is collected,
+# so that no test's threads or processes meet its build inside their
+# timeouts.
+_lib.lib()
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 

@@ -32,6 +32,11 @@ from gloo_tpu_torch import _lib, core  # noqa: E402
 from gloo_tpu_torch.parallel import HostGradSync  # noqa: E402
 from gloo_tpu_torch.tpu import HierarchicalGroup  # noqa: E402
 
+# The host library, built (under its lock) while this file is collected,
+# so that no test's threads or processes meet its build inside their
+# timeouts.
+_lib.lib()
+
 
 def _reference():
     """(gloo_tpu, its thread harness, its topology harness)."""

@@ -35,11 +35,17 @@ import numpy as np
 import pytest
 import torch
 
+from gloo_tpu_torch import _lib
 from gloo_tpu_torch import entry as entry_mod
 from gloo_tpu_torch.models import Transformer, TransformerConfig
 from gloo_tpu_torch.ops import ring
 from gloo_tpu_torch.parallel import make_ddp_train_step
 from gloo_tpu_torch.tpu import init_multihost, make_mesh, spmd
+
+# The host library, built (under its lock) while this file is collected,
+# so that no test's threads or processes meet its build inside their
+# timeouts.
+_lib.lib()
 
 REPO = Path(__file__).resolve().parent.parent
 # The narrow flagship of tests/test_torch_ddp.py at one layer.
@@ -458,8 +464,8 @@ def test_what_has_no_cross_process_form_refuses_a_process_mesh():
     raised on a process mesh until they had a cross-process form (the test
     keeps that name): each now gives, on each process's local rows of 2
     processes of 2 ranks, the one-process world's rows bitwise. What still
-    has no cross-process form (FSDP, the two-level DDP, unshard_state)
-    raises: tests/test_torch_multihost_sp.py."""
+    has no cross-process form (the two-level DDP, unshard_state) raises:
+    tests/test_torch_multihost_sp.py."""
     world = _world(torch.float32, 4, 128, 256, seed=5)
 
     def calls(x, mesh):

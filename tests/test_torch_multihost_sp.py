@@ -39,17 +39,23 @@ import numpy as np
 import pytest
 import torch
 
+from gloo_tpu_torch import _lib
 from gloo_tpu_torch import entry as entry_mod
 from gloo_tpu_torch import weights
 from gloo_tpu_torch.models import Transformer, TransformerConfig
 from gloo_tpu_torch.models.transformer import world_block
 from gloo_tpu_torch.ops import permute, ring
-from gloo_tpu_torch.parallel import dp_tp, fsdp, pp, sp
+from gloo_tpu_torch.parallel import dp_tp, pp, sp
 from gloo_tpu_torch.tpu import (CudaProcessGroup, HierarchicalGroup,
                                 make_hierarchical_ddp, make_mesh, spmd)
 from gloo_tpu_torch.tpu.mesh import MULTI_PROCESS_ITEM
 from test_torch_multihost import _cpus, _free_port, _processes
 from test_torch_multihost_tp import LAYOUT_IDS, LAYOUTS, _axes, _world
+
+# The host library, built (under its lock) while this file is collected,
+# so that no test's threads or processes meet its build inside their
+# timeouts.
+_lib.lib()
 
 REPO = Path(__file__).resolve().parent.parent
 VARIANTS = {"hbm": ring.ring_allreduce_hbm, "q8": ring.ring_allreduce_q8,
@@ -596,19 +602,14 @@ def test_new_multihost_entries_refuse_a_size_that_does_not_split_the_mesh():
 # ---- what stays world-only ----
 
 def test_what_stays_world_only_refuses_a_process_mesh():
-    """FSDP, the two-level DDP (HierarchicalGroup over a mesh,
+    """The two-level DDP (HierarchicalGroup over a mesh,
     make_hierarchical_ddp) and dp_tp.unshard_state have no cross-process
-    form yet: on a process mesh each raises NotImplementedError naming
-    the ROADMAP item before it reads the local rows as the world."""
+    form: on a process mesh each raises NotImplementedError naming the
+    ROADMAP item before it reads the local rows as the world. (FSDP took
+    a process mesh since: tests/test_torch_multihost_fsdp.py.)"""
     mesh = make_mesh({"data": 4}, devices=["cpu"] * 4,
                      process_of=[0, 0, 1, 1], process=1)
-    params = {"w": torch.zeros(4, 3)}
-    sharded = {"w": torch.zeros(2, 3)}
     for call in (
-            lambda: fsdp.shard_params(params, "data", mesh=mesh),
-            lambda: fsdp.unshard_params(sharded, params, "data", mesh=mesh),
-            lambda: fsdp.make_fsdp_train_step(lambda p, b: p["w"].sum(),
-                                              params, "data", mesh=mesh),
             lambda: HierarchicalGroup(None, mesh),
             lambda: make_hierarchical_ddp(lambda m, b: 0.0,
                                           HierarchicalGroup(None, ["cpu"]),

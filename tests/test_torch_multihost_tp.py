@@ -36,6 +36,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from gloo_tpu_torch import _lib
 from gloo_tpu_torch import entry as entry_mod
 from gloo_tpu_torch.models import Transformer, TransformerConfig
 from gloo_tpu_torch.ops import overlap, ring
@@ -43,6 +44,11 @@ from gloo_tpu_torch.parallel import dispatch_combine, dp_tp, tp
 from gloo_tpu_torch.tpu import CudaProcessGroup, make_mesh, spmd
 from gloo_tpu_torch.tpu.mesh import MULTI_PROCESS_ITEM
 from test_torch_multihost import _cpus, _free_port, _processes
+
+# The host library, built (under its lock) while this file is collected,
+# so that no test's threads or processes meet its build inside their
+# timeouts.
+_lib.lib()
 
 REPO = Path(__file__).resolve().parent.parent
 TP22 = {"data": 2, "model": 2}

@@ -18,8 +18,13 @@ import threading
 import pytest
 import torch
 
-from gloo_tpu_torch import core, resilience
+from gloo_tpu_torch import _lib, core, resilience
 from gloo_tpu_torch.utils import flightrec
+
+# The host library, built (under its lock) while this file is collected,
+# so that no test's threads or processes meet its build inside their
+# timeouts.
+_lib.lib()
 
 
 def _event(seq, cseq, fp, op="allreduce", dtype="float32", nbytes=4096,

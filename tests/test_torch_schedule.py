@@ -21,10 +21,15 @@ import torch
 import gloo_tpu
 from gloo_tpu import schedule as ref_schedule
 from gloo_tpu import tuning as ref_tuning
-from gloo_tpu_torch import Error, schedule, tuning
+from gloo_tpu_torch import Error, _lib, schedule, tuning
 from tests.harness import spawn as ref_spawn
 from tests.test_schedule import _GOOD_C0, RING, _elect, _fixture
 from tests.test_torch_host import raw, spawn, to_torch
+
+# The host library, built (under its lock) while this file is collected,
+# so that no test's threads or processes meet its build inside their
+# timeouts.
+_lib.lib()
 
 WORLDS = (2, 3, 4)
 

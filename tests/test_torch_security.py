@@ -18,8 +18,13 @@ import torch
 
 import gloo_tpu
 import gloo_tpu_torch
-from gloo_tpu_torch import core
+from gloo_tpu_torch import _lib, core
 from tests.test_torch_host import raw, spawn
+
+# The host library, built (under its lock) while this file is collected,
+# so that no test's threads or processes meet its build inside their
+# timeouts.
+_lib.lib()
 
 ROOT = "launcher-root-secret"
 ENC = {"auth_key": "wire-secret", "encrypt": True}

@@ -26,9 +26,14 @@ import textwrap
 import pytest
 import torch
 
-from gloo_tpu_torch import fault
+from gloo_tpu_torch import _lib, fault
 from gloo_tpu_torch.utils import critpath, flightrec
 from tests.test_torch_host import spawn
+
+# The host library, built (under its lock) while this file is collected,
+# so that no test's threads or processes meet its build inside their
+# timeouts.
+_lib.lib()
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 TOOLS = REPO / "tools"

@@ -31,7 +31,7 @@ from gloo_tpu.utils import flightrec as ref_flightrec
 from gloo_tpu.utils import metrics as ref_metrics
 from gloo_tpu.utils import profile as ref_profile
 from gloo_tpu.utils import telemetry as ref_telemetry
-from gloo_tpu_torch import fault
+from gloo_tpu_torch import _lib, fault
 from gloo_tpu_torch.utils import (critpath, fleet, flightrec, metrics,
                                   profile, telemetry)
 from tests.harness import spawn as ref_spawn
@@ -39,6 +39,11 @@ from tests.test_fleet import _SYNTH_FLEET
 from tests.test_prometheus_lint import _base_family, _parse
 from tests.test_prometheus_lint import _snapshot as hostile_snapshot
 from tests.test_torch_host import spawn
+
+# The host library, built (under its lock) while this file is collected,
+# so that no test's threads or processes meet its build inside their
+# timeouts.
+_lib.lib()
 
 SIZE = 3
 # tests/test_profile.py's attribution schedule: rank 1's data sends wait
