@@ -9,7 +9,8 @@ Phases, each of which raises on failure:
   3. hold each kernel against its plain PyTorch version on the card: the
      flash forward, and the flash backward (in f32 also against autograd
      through the materialized-scores reference), at FLASH_CASES, head dims
-     8, 32 and 96 (zero-padded to the kernels' 64 and 128) among them;
+     3 to 200 (zero-padded to the kernels' 64, 128 and 256) and 264 to
+     1024 (the wide kernels) among them;
   4. the serving path: the flagship forward of gloo_tpu_torch.entry at full
      width plus greedy serving, with the kernels' launch counts read around
      it, and its logits against the same model on the CPU (plain attention);
@@ -18,9 +19,10 @@ Phases, each of which raises on failure:
      width, with the launch counts read around them, a falling loss, and
      the first step's loss and gradients against the same model on the CPU;
   7. times of each kernel, its plain version and the library yardstick
-     at FLASH_CASES (the entry shape, larger ones, the other head dims and
-     the Ulysses path's whole-sequence shape; the backward's three launches
-     each, beside SDPA's backward), and of the forward and the training
+     at FLASH_CASES but UNTIMED_CASES (the entry shape, larger ones, the
+     other head dims and the Ulysses path's whole-sequence shape; the
+     backward's three launches each, beside SDPA's backward, named by the
+     backend SDPA's dispatcher chose), and of the forward and the training
      step;
   8. the ring kernels (allreduce, reduce-scatter, allgather) against their
      plain versions on the card, bitwise, over worlds of 2 to 8 ranks on
@@ -288,7 +290,19 @@ Phases, each of which raises on failure:
      phase 23's world parameters after the same step (state_digest, and
      the step's implied gradient within FSDP_PEER_GRAD_TOL of the
      world's); the step's event and device ms and the device ms per
-     cross-process launch.
+     cross-process launch;
+ 38. the flagship at head widths 36 and 512 (head_width_phase:
+     entry.D36_CONFIG, 8 heads of 36 on the zero-padded d 64 instances,
+     and entry.D512_CONFIG, one head of 512 on the wide kernels of
+     csrc/flash_wide.cuh), bf16: each configuration's forward and greedy
+     generate ((B1, B2) = (2, 0)), 5 training steps ((10, 10)) and
+     ring-flash at its heads and head width over 4 ranks of 4096 tokens,
+     batch 2 ((B6, B7, prep, finish) = (4, 4, 1, 1)), held against the
+     same model or ring on the CPU; then B6 and B7 per launch at D512's
+     ring (B7 beside aten's memory-efficient backward). The new head
+     widths (3 to 1024: odd, not multiples of 8, past 256) are held
+     against their twins in phases 3 and 16 (FLASH_CASES, STEP_CASES);
+     phase 7 times the two configurations' forward shapes among them.
 The line before the last is the JSON list of kernels; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or gloo_tpu.
 """
@@ -422,7 +436,10 @@ DP_TP_STEPS = 5
 # diagonal and hidden blocks, with the state carried from step to step).
 # "pathS" is the long-context path's shape; "d32_gqa" and
 # "d96_ragged_t200_full" run on the zero-padded d 64 and d 128 instances,
-# each step taking the d-wide acc view the step before returned.
+# each step taking the d-wide acc view the step before returned. The rows
+# from "d3_f32" on take head dims no instance has: odd widths of the
+# carried acc (25, 263), and the wide kernels past 256 at 4 chained steps
+# ("d512_pathS", phase 38's D512 ring) as at 2.
 STEP_CASES = [
     ("pathS", 4, 2, 4, 4, 1024, 64, torch.bfloat16, True),
     ("pathS_full", 4, 2, 4, 4, 1024, 64, torch.bfloat16, False),
@@ -436,6 +453,15 @@ STEP_CASES = [
     ("f16_gqa_h8_kv2", 4, 1, 8, 2, 256, 64, torch.float16, True),
     ("d256_f32_full", 2, 1, 2, 2, 100, 256, torch.float32, False),
     ("bh65540_step", 2, 16385, 4, 4, 64, 64, torch.bfloat16, True),
+    ("d3_f32", 2, 1, 2, 2, 64, 3, torch.float32, True),
+    ("d12_gqa", 4, 1, 4, 2, 128, 12, torch.bfloat16, True),
+    ("d25_ragged_t100_f16", 2, 1, 2, 2, 100, 25, torch.float16, True),
+    ("d36_gqa_t256", 4, 1, 8, 2, 256, 36, torch.bfloat16, True),
+    ("d263_odd", 2, 1, 2, 2, 64, 263, torch.bfloat16, True),
+    ("d264_gqa_f16", 2, 1, 4, 2, 128, 264, torch.float16, True),
+    ("d300_f32_full", 2, 1, 2, 2, 100, 300, torch.float32, False),
+    ("d512_pathS", 4, 2, 1, 1, 1024, 512, torch.bfloat16, True),
+    ("d1024", 2, 1, 1, 1, 128, 1024, torch.bfloat16, True),
 ]
 # The step kernels against their plain versions, (rtol, atol) with atol
 # relative to the largest |plain| of each tensor. bf16: p (B6) and ds (B7)
@@ -567,7 +593,10 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
 # the next instance, zero-padded: "dryrun_dp_tp_d8" is the dry run's dp x
 # tp attention (__graft_entry__.py:125-135: batch 2 x dp 2, 4 heads of
 # d_model 32, seq 16), "d32_gqa" the reference tests' GQA head_dim
-# (tests/test_flash_attention.py:131) at a longer sequence.
+# (tests/test_flash_attention.py:131) at a longer sequence. The rows from
+# "d3_f32_t72" on take head dims no instance has (odd, not multiples of 8,
+# past 256: the wide kernels); "d36_path" and "d512_path" are phase 38's
+# D36_CONFIG and D512_CONFIG forward shapes.
 FLASH_CASES = [
     ("entry", 8, 4, 4, 128, 64, torch.bfloat16, True),
     ("t1024_d128_causal", 4, 8, 8, 1024, 128, torch.bfloat16, True),
@@ -586,7 +615,21 @@ FLASH_CASES = [
     ("f32_d256_t100", 2, 2, 2, 100, 256, torch.float32, False),
     ("bh65540", 16385, 4, 4, 64, 64, torch.bfloat16, True),
     ("ulysses", 8, 1, 1, 4096, 64, torch.bfloat16, True),
+    ("d3_f32_t72", 2, 2, 2, 72, 3, torch.float32, True),
+    ("d12_bf16", 2, 4, 4, 128, 12, torch.bfloat16, True),
+    ("d25_gqa_f16_t100", 2, 4, 2, 100, 25, torch.float16, True),
+    ("d36_path", 8, 8, 8, 128, 36, torch.bfloat16, True),
+    ("d264_gqa_f16", 2, 4, 2, 256, 264, torch.float16, True),
+    ("d300_f32_t100_full", 2, 2, 2, 100, 300, torch.float32, False),
+    ("d512_path", 8, 1, 1, 128, 512, torch.bfloat16, True),
+    ("d1024_bf16", 2, 2, 2, 256, 1024, torch.bfloat16, True),
 ]
+# FLASH_CASES rows held against their twins in phase 3 and not timed in
+# phase 7, where each row costs seconds of profiler sessions: the path
+# shapes "d36_path" and "d512_path" stand for the padded and the wide
+# kernels there, and the kernels line reads them.
+UNTIMED_CASES = ("d3_f32_t72", "d12_bf16", "d25_gqa_f16_t100",
+                 "d264_gqa_f16", "d300_f32_t100_full", "d1024_bf16")
 
 
 def card_line() -> str:
@@ -672,6 +715,22 @@ def device_profile(fn, iters=20, want=(), sessions=6, kinds=0):
             break
     total = sum(r[0] for r in rows)
     return (total if total > 0 else None), rows
+
+
+def sdpa_backend(q, k, v, causal):
+    """The backend SDPA runs q, k, v on (flash, efficient, cudnn or math),
+    as its dispatcher chooses it (torch._fused_sdp_choice, which weighs
+    requires_grad too), confirmed by one call with only that backend
+    allowed: SDPA raises there if it cannot run on it."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    gqa = q.shape[1] != k.shape[1]
+    backend = SDPBackend(torch._fused_sdp_choice(q, k, v, is_causal=causal,
+                                                 enable_gqa=gqa))
+    with sdpa_kernel(backend):
+        F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                       enable_gqa=gqa)
+    return backend.name.lower().removesuffix("_attention")
 
 
 def flash_bound(b, h, h_kv, t, d, dtype, causal):
@@ -1607,41 +1666,59 @@ def b7_bound(qf, steps, q_off, pairs, cot_bytes, passes):
 
 
 def b7_library(qf, steps, q_off, out, lse, g, rows_per_rank):
-    """B7's library yardstick: per ring step one call of
-    aten._scaled_dot_product_flash_attention_backward on the global out and
-    lse and the bf16 cotangent g (step 0 causal over every row, step i > 0
-    full over the contiguous rows of the ranks whose block is visible; the
-    other rows' blocks are hidden), its philox seed and offset from one
-    _scaled_dot_product_flash_attention forward on the same shapes.
-    Returns (fn over the n steps, [(rows, dq, dk, dv) of each step])."""
+    """B7's library yardstick: per ring step one call of aten's fused
+    attention backward on the global out and lse and the cotangent g
+    (step 0 causal over every row, step i > 0 full over the contiguous
+    rows of the ranks whose block is visible; the other rows' blocks are
+    hidden): up to d 256 _scaled_dot_product_flash_attention_backward,
+    past it _scaled_dot_product_efficient_attention_backward (no head_dim
+    ceiling; lse zero-padded to the forward's rows of 32, and out laid
+    out as its forward lays it, (b, t, h, d) in memory: the kernel reads
+    out at a row stride of h d whatever its strides say), each with its
+    philox seed and offset from one forward of its kind on the same
+    shapes. Returns (the op's name, fn over the n steps, [(rows, dq, dk,
+    dv) of each step])."""
     bh, t, d = qf.shape
+    aten = torch.ops.aten
+    wide = d > 256
+    op = (aten._scaled_dot_product_efficient_attention_backward if wide
+          else aten._scaled_dot_product_flash_attention_backward)
     calls = []
     for i, (ks, vs, _) in enumerate(steps):
         r0 = i * rows_per_rank
         q4, k4, v4, o4, g4 = (x.reshape(1, bh, t, d)[:, r0:] for x in
                               (qf, ks, vs, out, g))
         l4 = lse.reshape(1, bh, t)[:, r0:].contiguous()
-        fwd = torch.ops.aten._scaled_dot_product_flash_attention(
-            q4, k4, v4, 0.0, i == 0)
-        calls.append((r0, (g4, q4, k4, v4, o4, l4, fwd[2], fwd[3], t, t,
-                           0.0, i == 0, fwd[6], fwd[7])))
+        if wide:
+            fwd = aten._scaled_dot_product_efficient_attention(
+                q4, k4, v4, None, True, 0.0, i == 0)
+            l4 = F.pad(l4, (0, fwd[1].shape[-1] - t))
+            o4 = o4.transpose(1, 2).contiguous().transpose(1, 2)
+            args = (g4, q4, k4, v4, None, o4, l4, fwd[2], fwd[3], 0.0,
+                    [True, True, True, False], i == 0)
+        else:
+            fwd = aten._scaled_dot_product_flash_attention(
+                q4, k4, v4, 0.0, i == 0)
+            args = (g4, q4, k4, v4, o4, l4, fwd[2], fwd[3], t, t, 0.0,
+                    i == 0, fwd[6], fwd[7])
+        calls.append((r0, args))
 
     def run():
-        return [torch.ops.aten._scaled_dot_product_flash_attention_backward(
-            *args) for _, args in calls]
+        return [op(*args)[:3] for _, args in calls]
 
-    return run, [(r0, *grads) for (r0, _), grads in zip(calls, run())]
+    return (op.__name__, run,
+            [(r0, *grads) for (r0, _), grads in zip(calls, run())])
 
 
-def b7_times(attn, qf, steps, q_off, out, lse, pairs, n):
-    """Phase 19's B7: the fused launch over the path's ring steps as the
-    ring backward makes it (prepare_bwd_step once, then
-    flash_attention_bwd_step_into into f32 carriers), with the path's own
-    cotangent (cos(out) in q's dtype, as sp_step's loss hands it over) and
-    with an f32 torch.randn one; the plain version; the library yardstick,
-    checked against the fresh step of the plain version. Returns the
-    kernels line's (ms, plain ms, library ms, bound, bound by) of the
-    path's cotangent."""
+def b7_times(attn, qf, steps, q_off, out, lse, pairs, n, kernel):
+    """Phase 19's B7: the fused launch (the kernel named `kernel`) over the
+    path's ring steps as the ring backward makes it (prepare_bwd_step once,
+    then flash_attention_bwd_step_into into f32 carriers), with the path's
+    own cotangent (cos(out) in q's dtype, as sp_step's loss hands it over)
+    and with an f32 torch.randn one; the plain version; the library
+    yardstick (b7_library), checked against the fresh step of the plain
+    version. Returns the kernels line's (ms, plain ms, library ms or None, bound,
+    bound by) of the path's cotangent."""
     bh, t, d = qf.shape
     kv_rows = steps[0][0].shape[0]
     outf = out.reshape(qf.shape)
@@ -1668,7 +1745,7 @@ def b7_times(attn, qf, steps, q_off, out, lse, pairs, n):
 
         with torch.no_grad():
             ms = timed_kernel(f"flash_bwd_step kernel, {label} cotangent",
-                              fused, "bwd_step_wgmma_kernel")
+                              fused, kernel)
             whole = timed(f"flash_bwd_step {n} whole calls, {label} "
                           f"cotangent", fused)
             plain_ms = timed(f"flash_bwd_step plain, {n} steps, {label} "
@@ -1685,8 +1762,8 @@ def b7_times(attn, qf, steps, q_off, out, lse, pairs, n):
         results[label] = (ms, plain_ms, bound, bound_by, g, delta)
     ms, plain_ms, bound, bound_by, g, delta = results[path]
     rows_per_rank = bh // len(steps)
-    lib_fn, lib_out = b7_library(qf, steps, q_off, out, lse, g,
-                                 rows_per_rank)
+    lib_name, lib_fn, lib_out = b7_library(qf, steps, q_off, out, lse, g,
+                                           rows_per_rank)
     worst, ok = 0.0, True
     for (r0, *grads), (ks, vs, k_off) in zip(lib_out, steps):
         ref = attn.flash_attention_bwd_step_plain(qf, ks, vs, g, delta, lse,
@@ -1696,8 +1773,7 @@ def b7_times(attn, qf, steps, q_off, out, lse, pairs, n):
             worst, ok = max(worst, err), ok and close
     with torch.no_grad():
         lib = timed(f"flash_bwd_step yardstick: {n} calls of "
-                    f"aten._scaled_dot_product_flash_attention_backward",
-                    lib_fn)
+                    f"aten.{lib_name}", lib_fn)
     lib = None if lib is None else lib / n
     print(f"  flash_bwd_step library: {lib} ms per step; its (dq, dk, dv) "
           f"against the plain step's on the visible rows: max err "
@@ -1713,13 +1789,15 @@ def step_kernel_times(attn, sp, spmd, q, k, v, mesh, card, label):
     the ring backward launches it, with the path's cotangent in q's dtype
     and with an f32 one) over the ring steps of ring_flash_attention on
     the world tensors q, k, v along "seq", causal: ms per launch
-    (averaged), bounds, plain versions and yardsticks. Returns {"flash_
-    step": row, "flash_bwd_step": row}, rows as the kernels line's (ms,
-    plain ms, library ms or None, bound ms, bound by)."""
+    (averaged), bounds, plain versions and yardsticks; the wgmma instances,
+    or past d 256 the wide kernels. Returns {"flash_step": row,
+    "flash_bwd_step": row}, rows as the kernels line's (ms, plain ms,
+    library ms or None, bound ms, bound by)."""
     qf, steps, q_off, group = ring_steps(sp, spmd, q, k, v, "seq", mesh,
                                          True)
     bh, t, d = qf.shape
     n = len(steps)
+    form = "wide" if d > attn.KERNEL_HEAD_DIMS[-1] else "wgmma"
     with torch.no_grad():
         out, lse = sp._ring_flash_forward(q, k, v, "seq", True, mesh)
     states, state = [], (torch.zeros((bh, t, d), device=qf.device),
@@ -1747,7 +1825,7 @@ def step_kernel_times(attn, sp, spmd, q, k, v, mesh, card, label):
     with torch.no_grad():
         ms = timed_kernel("flash_step kernel, in place (the path's form)",
                           b6_into(attn.flash_attention_step_into),
-                          "flash_step_wgmma_kernel")
+                          f"flash_step_{form}_kernel")
         whole = timed(f"flash_step_into {n} whole calls (wrapper, kernel)",
                       b6_into(attn.flash_attention_step_into))
         timed(f"flash_step {n} whole calls, out of place (state copies, "
@@ -1772,7 +1850,7 @@ def step_kernel_times(attn, sp, spmd, q, k, v, mesh, card, label):
           f"call folds one block into carried state)")
     rows["flash_step"] = (ms, plain_ms, None, bound, bound_by)
     rows["flash_bwd_step"] = b7_times(attn, qf, steps, q_off, out, lse,
-                                      pairs, n)
+                                      pairs, n, f"bwd_step_{form}_kernel")
     return rows
 
 
@@ -2518,21 +2596,23 @@ D256_LOGITS_TOL = (2.5e-3, 2.5e-3)
 D256_TRAIN_TOL = {"loss": 1.25e-4, "grad": 2e-2}
 D256_SP_TOL = 2.5e-3
 D256_MLP_TOL = 2.5e-3
-# The long-context shape of phase 31's ring-flash: the sp_entry's world of
-# SP_MESH ranks over a global sequence of SP_SEQ, batch 2, one head of 256.
-D256_SP_BATCH = 2
+# The long-context shape of phases 31's and 38's ring-flash: the
+# sp_entry's world of SP_MESH ranks over a global sequence of SP_SEQ, batch
+# 2, at the configuration's heads and head width.
+SP_CONFIG_BATCH = 2
 
 
-def d256_serving(attn, entry_mod, device="cuda"):
-    """Phase 31's serving path: d256_f16_entry()'s forward and greedy
-    generate, with B1/B2's launches read around them; logits against the
-    same model on the CPU. Returns (fn, model, tokens, prompts)."""
+def config_serving(attn, cfg, entry_fn, tol, label, device="cuda"):
+    """A configuration's serving path (phases 31, 38): entry_fn()'s forward
+    and greedy generate, with B1/B2's launches read around them; logits
+    against the same model on the CPU within `tol`. Returns (fn, model,
+    tokens, prompts)."""
+    from gloo_tpu_torch.entry import forward
     from gloo_tpu_torch.models import Transformer
 
-    cfg = entry_mod.D256_F16_CONFIG
     attn.flash_attention_fwd.launches = 0
     attn.flash_attention_bwd.launches = 0
-    fn, (model, tokens) = entry_mod.d256_f16_entry(device)
+    fn, (model, tokens) = entry_fn(device)
     logits = fn(model, tokens)
     prompts = tokens[:4, :16]
     served = model.generate(prompts, max_new=8)
@@ -2541,36 +2621,35 @@ def d256_serving(attn, entry_mod, device="cuda"):
                 attn.flash_attention_bwd.launches)
     cpu_model = Transformer(cfg, device="cpu")
     cpu_model.load_state_dict(model.state_dict())
-    ref = entry_mod.forward(cpu_model, tokens.cpu())
-    err, ok = max_err(logits.cpu(), ref, *D256_LOGITS_TOL)
-    print(f"d256 f16 serving path ({cfg.n_heads} head of "
+    ref = forward(cpu_model, tokens.cpu())
+    err, ok = max_err(logits.cpu(), ref, *tol)
+    print(f"{label} serving path ({cfg.n_heads} head(s) of "
           f"{cfg.head_dim}, {str(cfg.dtype)[6:]}): forward logits "
           f"{tuple(logits.shape)}, generate {tuple(served.shape)}; "
           f"launches flash_fwd, flash_bwd {launches}; logits vs the CPU "
-          f"model max_abs_err {err:.3e} (rtol, atol {D256_LOGITS_TOL}), "
+          f"model max_abs_err {err:.3e} (rtol, atol {tol}), "
           f"|logits| max {float(ref.abs().max()):.3f}")
     if launches != (cfg.n_layers, 0):
-        raise AssertionError(f"the d256 f16 serving path launched (B1, B2) "
+        raise AssertionError(f"the {label} serving path launched (B1, B2) "
                              f"{launches}, expected ({cfg.n_layers}, 0)")
     if logits.shape != (8, cfg.max_seq_len, cfg.vocab_size) \
             or not bool(torch.isfinite(logits).all()) or not ok:
-        raise AssertionError("the d256 f16 logits are malformed or disagree "
-                             "with the CPU model")
+        raise AssertionError(f"the {label} logits are malformed or "
+                             f"disagree with the CPU model")
     if not torch.equal(served[:, :16], prompts) \
             or int(served.min()) < 0 or int(served.max()) >= cfg.vocab_size:
-        raise AssertionError("d256 f16 generate returned malformed tokens")
+        raise AssertionError(f"{label} generate returned malformed tokens")
     return fn, model, tokens, prompts
 
 
-def d256_training(attn, entry_mod, device="cuda"):
-    """Phase 31's training path: TRAIN_STEPS steps of
-    d256_f16_train_entry(), B1/B2's launches read around them, a falling
-    loss, the first step against the CPU model. Returns the step's
+def config_training(attn, cfg, train_entry_fn, tol, label, device="cuda"):
+    """A configuration's training path (phases 31, 38): TRAIN_STEPS steps
+    of train_entry_fn(), B1/B2's launches read around them, a falling loss,
+    the first step against the CPU model within `tol`. Returns the step's
     (step, (model, optimizer, tokens, targets))."""
     from gloo_tpu_torch.models import Transformer
 
-    cfg = entry_mod.D256_F16_CONFIG
-    step, args = entry_mod.d256_f16_train_entry(device)
+    step, args = train_entry_fn(device)
     model, opt, tokens, targets = args
     cpu_model = Transformer(cfg, device="cpu")
     cpu_model.load_state_dict(model.state_dict())
@@ -2590,39 +2669,41 @@ def d256_training(attn, entry_mod, device="cuda"):
     grad_rel = {n: rel_norm(first[n].cpu(), p.grad)
                 for n, p in cpu_model.named_parameters()}
     worst = max(grad_rel, key=grad_rel.get)
-    print(f"d256 f16 training path: {TRAIN_STEPS} steps, losses "
+    print(f"{label} training path: {TRAIN_STEPS} steps, losses "
           f"{', '.join(f'{x:.6f}' for x in losses)}; launches flash_fwd, "
           f"flash_bwd {launches}; first step vs the CPU model: loss rel "
-          f"{loss_rel:.3e} (tol {D256_TRAIN_TOL['loss']}), grads |g - "
+          f"{loss_rel:.3e} (tol {tol['loss']}), grads |g - "
           f"g_cpu| / |g_cpu| max {grad_rel[worst]:.3e} at {worst} (tol "
-          f"{D256_TRAIN_TOL['grad']})")
+          f"{tol['grad']})")
     want = TRAIN_STEPS * cfg.n_layers
     if launches != (want, want):
-        raise AssertionError(f"d256 f16 training launched (B1, B2) "
+        raise AssertionError(f"{label} training launched (B1, B2) "
                              f"{launches}, expected ({want}, {want})")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < \
             losses[0]:
-        raise AssertionError(f"d256 f16 training loss is not finite and "
+        raise AssertionError(f"{label} training loss is not finite and "
                              f"falling: {losses}")
-    if loss_rel > D256_TRAIN_TOL["loss"] \
-            or grad_rel[worst] > D256_TRAIN_TOL["grad"]:
-        raise AssertionError("the first d256 f16 training step disagrees "
-                             "with the CPU model")
+    if loss_rel > tol["loss"] or grad_rel[worst] > tol["grad"]:
+        raise AssertionError(f"the first {label} training step disagrees "
+                             f"with the CPU model")
     return step, args
 
 
-def d256_ring_flash(attn, sp, make_mesh, entry_mod, device="cuda"):
-    """Phase 31's ring-flash: sp_step(ring_flash_attention) at one head of
-    256 in f16 over SP_MESH ranks of the global SP_SEQ, B6/B7's launches
-    (B6, B7, prep, finish) read around it, against the same ring on the
-    CPU. Returns (fn, args)."""
+def config_ring_flash(attn, sp, make_mesh, entry_mod, heads, d, dtype, tol,
+                      label, device="cuda"):
+    """A configuration's ring-flash (phases 31, 38):
+    sp_step(ring_flash_attention) at `heads` heads of d over SP_MESH ranks
+    of the global SP_SEQ, batch SP_CONFIG_BATCH, B6/B7's launches (B6, B7,
+    prep, finish) read around it, against the same ring on the CPU within
+    `tol` (|a - b| / |b| of the output and each gradient). Returns (fn,
+    args, the card's launches)."""
     from gloo_tpu_torch.entry import SP_MESH, SP_SEQ
 
     n = SP_MESH["seq"]
     dev = torch.device(device)
-    shape = (n, D256_SP_BATCH, 1, SP_SEQ // n, 256)
+    shape = (n, SP_CONFIG_BATCH, heads, SP_SEQ // n, d)
     rng = np.random.RandomState(0)
-    host = [torch.as_tensor(rng.randn(*shape).astype(np.float32)).half()
+    host = [torch.as_tensor(rng.randn(*shape).astype(np.float32)).to(dtype)
             for _ in range(3)]
     counters = (attn.flash_attention_step, attn.flash_attention_bwd_step,
                 attn.prepare_bwd_step, attn.flash_bwd_step_finish)
@@ -2640,20 +2721,21 @@ def d256_ring_flash(attn, sp, make_mesh, entry_mod, device="cuda"):
         results.append([x.cpu() for x in (out, *grads)])
     rels = {name: rel_norm(a, b) for name, a, b in
             zip(("out", "dq", "dk", "dv"), *results)}
-    print(f"d256 f16 ring-flash path: {n} ranks x (b {D256_SP_BATCH}, h 1, "
-          f"t {SP_SEQ // n}, d 256) f16 causal, forward + backward of "
-          f"sum(sin(out)); launches flash_step, flash_bwd_step, prepare, "
-          f"finish {launches}; against the same ring on the CPU |a - b| / "
-          f"|b|: {', '.join(f'{k} {v:.3e}' for k, v in rels.items())} (tol "
-          f"{D256_SP_TOL})")
+    print(f"{label} ring-flash path: {n} ranks x (b {SP_CONFIG_BATCH}, h "
+          f"{heads}, t {SP_SEQ // n}, d {d}) {str(dtype)[6:]} causal, "
+          f"forward + backward of sum(sin(out)); launches flash_step, "
+          f"flash_bwd_step, prepare, finish {launches}; against the same "
+          f"ring on the CPU |a - b| / |b|: "
+          f"{', '.join(f'{k} {v:.3e}' for k, v in rels.items())} (tol "
+          f"{tol})")
     if launches != (n, n, 1, 1):
-        raise AssertionError(f"the d256 f16 ring-flash launched {launches}, "
+        raise AssertionError(f"the {label} ring-flash launched {launches}, "
                              f"expected ({n}, {n}, 1, 1)")
-    if max(rels.values()) > D256_SP_TOL or not all(
+    if max(rels.values()) > tol or not all(
             bool(torch.isfinite(x.float()).all()) for x in results[0]):
-        raise AssertionError("the d256 f16 ring-flash disagrees with the "
-                             "CPU")
-    return entry_mod.sp_step, on_card
+        raise AssertionError(f"the {label} ring-flash disagrees with the "
+                             f"CPU")
+    return entry_mod.sp_step, on_card, launches
 
 
 def d256_fused_mlp(ov, tp, ring, make_mesh, gen, cfg):
@@ -2724,9 +2806,14 @@ def d256_f16_phase(attn, ov, tp, ring, sp, spmd, make_mesh, entry_mod, gen,
     shape; B5b and B5a in f16 at the fused MLP's shapes (overlap_times);
     B1/B2's phase 7 rows at d256_f16_path and bh65540 gathered. Prints
     one JSON line {"d256_f16_path": ...}."""
-    fn, model, tokens, prompts = d256_serving(attn, entry_mod)
-    step, targs = d256_training(attn, entry_mod)
-    sp_fn, sp_args = d256_ring_flash(attn, sp, make_mesh, entry_mod)
+    cfg = entry_mod.D256_F16_CONFIG
+    fn, model, tokens, prompts = config_serving(
+        attn, cfg, entry_mod.d256_f16_entry, D256_LOGITS_TOL, "d256 f16")
+    step, targs = config_training(attn, cfg, entry_mod.d256_f16_train_entry,
+                                  D256_TRAIN_TOL, "d256 f16")
+    sp_fn, sp_args, _ = config_ring_flash(attn, sp, make_mesh, entry_mod, 1,
+                                          256, torch.float16, D256_SP_TOL,
+                                          "d256 f16")
     mlp_fn, mlp_leaves, mlp_mesh = d256_fused_mlp(
         ov, tp, ring, make_mesh, gen, entry_mod.D256_F16_CONFIG)
     print(f"d256 f16 path times on {card}:")
@@ -2767,6 +2854,50 @@ def d256_f16_phase(attn, ov, tp, ring, sp, spmd, make_mesh, entry_mod, gen,
                     for name, row in f16_rows.items()})
     print(json.dumps({"d256_f16_path": {"paths": paths,
                                         "kernels": kernels}}))
+
+
+# ---- phase 38: the flagship at head widths 36 and 512 ----
+# entry.D36_CONFIG (8 heads of 36: the padded d 64 instances of B1, B2, B6
+# and B7) and entry.D512_CONFIG (one head of 512: the wide kernels), both
+# bf16, each on its serving path, 5 training steps and ring-flash at its
+# heads and head width over SP_MESH ranks of SP_SEQ, held as phases 4, 6
+# and 17 hold the bf16 flagship (LOGITS_TOL, TRAIN_TOL, SP_TOL) against the
+# same model or ring on the CPU; then B6 and B7 per launch at D512's ring.
+HEAD_WIDTH_CONFIGS = ("D36_CONFIG", "D512_CONFIG")
+
+
+def head_width_phase(attn, sp, spmd, make_mesh, entry_mod, card):
+    """Phase 38: serving, training and ring-flash of D36_CONFIG and
+    D512_CONFIG, each with its launch counts read around it and held
+    against the CPU; B6 and B7 timed at D512's ring. Returns {"launches":
+    D512's (B1 serving, B2 training, B6, B7 ring-flash), "steps":
+    step_kernel_times' rows}."""
+    t_phase = time.perf_counter()
+    launches = {}
+    for name in HEAD_WIDTH_CONFIGS:
+        cfg = getattr(entry_mod, name)
+        hd = cfg.head_dim
+        label = f"d{hd} bf16"
+        dim = attn.kernel_head_dim(hd)
+        print(f"{label} ({name}): the kernels run at head_dim {dim}"
+              + (" (the wide kernels)" if dim > attn.KERNEL_HEAD_DIMS[-1]
+                 else " (zero-padded instance)"))
+        config_serving(attn, cfg, getattr(entry_mod, f"d{hd}_entry"),
+                       LOGITS_TOL, label)
+        b1 = attn.flash_attention_fwd.launches
+        config_training(attn, cfg, getattr(entry_mod, f"d{hd}_train_entry"),
+                        TRAIN_TOL, label)
+        b2 = attn.flash_attention_bwd.launches
+        _, sp_args, ring = config_ring_flash(attn, sp, make_mesh, entry_mod,
+                                             cfg.n_heads, hd, cfg.dtype,
+                                             SP_TOL, label)
+        launches[name] = (b1, b2, *ring[:2])
+    _, q, k, v, mesh = sp_args
+    steps = step_kernel_times(attn, sp, spmd, q, k, v, mesh, card,
+                              "the d512 bf16 ring-flash's")
+    print(f"phase 38: {time.perf_counter() - t_phase:.1f} s; launches (B1 "
+          f"serving, B2 training, B6, B7 ring-flash) {launches}")
+    return {"launches": launches["D512_CONFIG"], "steps": steps}
 
 
 # ---- phases 26-28: the host plane, two processes on the card ----
@@ -6028,6 +6159,12 @@ def main():
     from gloo_tpu_torch.tpu import CudaProcessGroup, make_mesh, spmd
     from gloo_tpu_torch.utils import tracing
 
+    t_main = time.perf_counter()
+
+    def at_phase(n):
+        print(f"phase {n} starts at {time.perf_counter() - t_main:.1f} s",
+              flush=True)
+
     # Phase 1: the card.
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -6038,6 +6175,7 @@ def main():
     # f16 products accumulate in f32, as on the CPU and in the kernels.
     torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False
 
+    at_phase("2")
     # Phase 2: build every kernel and the host library, all at once
     # (set-up time, not part of any metric).
     import concurrent.futures
@@ -6060,9 +6198,10 @@ def main():
                 continue
             print(f"  ptxas {name}: {line.strip()}")
 
+    at_phase("3")
     # Phase 3: kernel against plain on the card.
     gen = torch.Generator(device="cuda").manual_seed(0)
-    entry_err = None
+    fwd_errs, bwd_errs = {}, {}
     for name, b, h, h_kv, t, d, dtype, causal in FLASH_CASES:
         q, k, v = make_qkv(b, h, h_kv, t, d, dtype, gen,
                            fused=dtype != torch.float32)
@@ -6085,20 +6224,19 @@ def main():
             raise AssertionError(
                 f"flash_fwd {name} disagrees with its plain version "
                 f"(finite {finite}; largest out / lse error at {worst})")
-        if name == "entry":
-            entry_err = out_err
-    failed, entry_bwd_err = [], None
+        fwd_errs[name] = out_err
+    failed = []
     with torch.enable_grad():
         for case in FLASH_CASES:
             err, ok = check_bwd(attn, *case, gen)
-            if case[0] == "entry":
-                entry_bwd_err = err
+            bwd_errs[case[0]] = err
             if not ok:
                 failed.append(case[0])
     if failed:
         raise AssertionError(f"flash_bwd disagrees with its plain version "
                              f"or the reference at {failed}")
 
+    at_phase("4")
     # Phase 4: the serving path, with the launch counts read around it.
     cfg = ENTRY_CONFIG
     attn.flash_attention_fwd.launches = 0
@@ -6134,6 +6272,7 @@ def main():
     if not ok:
         raise AssertionError("entry logits disagree with the CPU model")
 
+    at_phase("5")
     # Phase 5: greedy decode against the full forward, exactly, in f32.
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     model32 = Transformer(cfg32).init(torch.Generator().manual_seed(0))
@@ -6149,6 +6288,7 @@ def main():
                              "reproduce the greedy choices")
     print("greedy decode parity (f32): first token and re-scoring match")
 
+    at_phase("6")
     # Phase 6: the training path, with the launch counts read around it.
     step, (tmodel, opt, ttokens, ttargets) = train_entry()
     cpu_model = Transformer(cfg, device="cpu")
@@ -6194,24 +6334,35 @@ def main():
         raise AssertionError("the first training step disagrees with the "
                              "CPU model")
 
+    at_phase("7")
     # Phase 7: times. SDPA is a yardstick only; the port never calls it.
     print(f"times on {card}:")
+    t_phase = time.perf_counter()
+    timed_cases = [c for c in FLASH_CASES if c[0] not in UNTIMED_CASES]
     rows = {}
-    for name, b, h, h_kv, t, d, dtype, causal in FLASH_CASES:
+    for name, b, h, h_kv, t, d, dtype, causal in timed_cases:
+        t_row = time.perf_counter()
         fused = dtype != torch.float32
         q, k, v = make_qkv(b, h, h_kv, t, d, dtype, gen, fused)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=h != h_kv)
+
         with torch.inference_mode():
             ms = timed(f"{name} kernel",
                        lambda: attn.flash_attention_fwd(q, k, v, causal))
             plain = timed(f"{name} plain",
                           lambda: attn.flash_attention_plain(q, k, v, causal))
-            lib = timed(f"{name} sdpa", lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=causal, enable_gqa=h != h_kv))
+            backend = sdpa_backend(q, k, v, causal)
+            lib = timed(f"{name} sdpa ({backend} backend)", sdpa)
         bound, bound_by = flash_bound(b, h, h_kv, t, d, dtype, causal)
-        print(f"  {name} bound {bound:.6f} ms ({bound_by})")
+        print(f"  {name} bound {bound:.6f} ms ({bound_by}); row "
+              f"{time.perf_counter() - t_row:.1f} s")
         rows[name] = (ms, plain, lib, bound, bound_by)
     bwd_rows = {}
-    for name, b, h, h_kv, t, d, dtype, causal in FLASH_CASES:
+    for name, b, h, h_kv, t, d, dtype, causal in timed_cases:
+        t_row = time.perf_counter()
         fused = dtype != torch.float32
         leaves = [x.requires_grad_(True)
                   for x in make_qkv(b, h, h_kv, t, d, dtype, gen, fused)]
@@ -6226,7 +6377,9 @@ def main():
                 f"{name} bwd kernels (the three launches of one call)",
                 lambda: attn.flash_attention_bwd(q, k, v, out, lse, do,
                                                  causal), "flash_bwd",
-                attn.FLASH_BWD_KERNELS[dtype])
+                attn.FLASH_BWD_WIDE_KERNELS
+                if attn.kernel_head_dim(d) > attn.KERNEL_HEAD_DIMS[-1]
+                else attn.FLASH_BWD_KERNELS[dtype])
             timed(f"{name} bwd op (autograd: the three launches, and at "
                   f"a padded head_dim the pads and the slices' copies)",
                   lambda: torch.autograd.grad(op_out, leaves, do,
@@ -6235,12 +6388,16 @@ def main():
                 f"{name} bwd plain",
                 lambda: attn.flash_attention_bwd_plain(q, k, v, out, lse, do,
                                                        causal), iters=3)
-            lib = timed(f"{name} bwd sdpa",
+            backend = sdpa_backend(*leaves, causal)
+            lib = timed(f"{name} bwd sdpa ({backend} backend)",
                         lambda: torch.autograd.grad(sdpa_out, leaves, do,
                                                     retain_graph=True))
         bound, bound_by = flash_bwd_bound(b, h, h_kv, t, d, dtype, causal)
-        print(f"  {name} bwd bound {bound:.6f} ms ({bound_by})")
+        print(f"  {name} bwd bound {bound:.6f} ms ({bound_by}); row "
+              f"{time.perf_counter() - t_row:.1f} s")
         bwd_rows[name] = (ms, plain, lib, bound, bound_by)
+    print(f"phase 7, the FLASH_CASES rows: "
+          f"{time.perf_counter() - t_phase:.1f} s")
     fwd_ms = event_ms(lambda: fn(model, tokens), iters=20)
     fwd_dev, fwd_rows = device_profile(lambda: fn(model, tokens))
     busy = "not measured" if fwd_dev is None else f"{fwd_dev / fwd_ms:.3f}"
@@ -6264,6 +6421,7 @@ def main():
     for dev_ms, calls, kname in train_rows[:8]:
         print(f"  {dev_ms:.6f} ms in {calls:g} calls: {kname[:90]}")
 
+    at_phase("8")
     # Phase 8: the ring kernels against their plain versions, bitwise.
     dev = torch.device("cuda")
     failed = []
@@ -6331,6 +6489,7 @@ def main():
     if failed:
         raise AssertionError(f"ring kernels disagree: {failed}")
 
+    at_phase("9")
     # Phase 9: the group path, with the ring launch counts read around it.
     pg = CudaProcessGroup(ddp_mesh)
     p = pg.size
@@ -6378,6 +6537,7 @@ def main():
         raise AssertionError(f"the group path failed: {wrong}, launches "
                              f"{group_launches}, expected (2, 1, 1, 1)")
 
+    at_phase("10")
     # Phase 10: the data-parallel path, with the launch counts read around
     # it, against train_step over the whole batch on the same card.
     ddp_step, (replicas, optimizers, batch) = ddp_train_entry()
@@ -6437,6 +6597,7 @@ def main():
         raise AssertionError("the first DDP step disagrees with train_step "
                              "over the whole batch")
 
+    at_phase("11")
     # Phase 11: ring kernel times at the DDP shape. Bounds: each input byte
     # read once and each output byte written once at the HBM rate (B3 2 P S,
     # B4a P S + S, B4b S + P S for S bytes per rank), against the adds at
@@ -6483,9 +6644,11 @@ def main():
     for dev_ms, calls, kname in ddp_rows[:8]:
         print(f"  {dev_ms:.6f} ms in {calls:g} calls: {kname[:90]}")
 
+    at_phase("12")
     # Phase 12: the collective matmuls against their plain versions.
     overlap_errs = overlap_cases(ov, make_mesh, gen)
 
+    at_phase("13")
     # Phase 13: the fused Megatron-SP MLP (path B).
     slice4 = (ov.allgather_matmul, ov.matmul_reduce_scatter,
               ring.ring_allgather, ring.ring_reduce_scatter,
@@ -6493,6 +6656,7 @@ def main():
     mlp_launches, (mlp_mesh, mlp_args, mlp_hidden, mlp_leaves, mlp_dy) = \
         fused_mlp_path(ov, tp, slice4, make_mesh, gen, cfg)
 
+    at_phase("14")
     # Phase 14: the dp x tp path (path A), with the launch counts read
     # around it, against train_step over the whole batch on the same card.
     tp_step, (tp_model, tp_opt, tp_tokens, tp_targets) = dp_tp_train_entry()
@@ -6560,6 +6724,7 @@ def main():
         raise AssertionError("the first dp x tp step disagrees with "
                              "train_step over the whole batch")
 
+    at_phase("15")
     # Phase 15: times of B5a and B5b at the fused MLP's shapes.
     x_b, up_b, down_b = mlp_args
     print(f"collective matmul times at the fused MLP's shapes on {card}:")
@@ -6596,6 +6761,7 @@ def main():
     for dev_ms, calls, kname in tp_rows[:8]:
         print(f"  {dev_ms:.6f} ms in {calls:g} calls: {kname[:90]}")
 
+    at_phase("16")
     # Phase 16: the ring-attention step kernels and the all-to-all against
     # their plain versions.
     step_errs = step_cases(attn, sp, spmd, make_mesh, gen)
@@ -6603,86 +6769,112 @@ def main():
     unrounded_guard(attn, sp, spmd, make_mesh, gen)
     a2a_err = alltoall_cases(ring, make_mesh, gen)
 
+    at_phase("17")
     # Phase 17: the long-context path (path S).
     sp_launches, sp_paths = sp_path(attn, ring, sp_entry)
 
+    at_phase("18")
     # Phase 18: the MoE path (path E).
     ep_launches, ep = ep_path(ring, ep_entry, expert_mlp)
 
+    at_phase("19")
     # Phase 19: times of B6, B7a, B7b and B8 at the paths' shapes, and of
     # the three paths.
     slice5_rows = slice5_times(attn, sp, spmd, ring, sp_paths, ep, card)
     print(f"B8 launches: {sp_launches['ulysses'][4]} on the Ulysses path "
           f"(the kernels line), {ep_launches} on the MoE path")
 
+    at_phase("20")
     # Phase 20: the ring variants against their plain versions, and the
     # sum collectives at more dtypes.
     variant_errs = variant_cases(ring, make_mesh, gen)
     sum_dtype_cases(ring, spmd, make_mesh, gen)
 
+    at_phase("21")
     # Phase 21: the ring-variant path, and B10 on a DDP step's gradients.
     variant_launches, variant_paths = variants_path(ring,
                                                     ring_variants_entry)
     _, vx, vmesh = variant_paths["q8"][1]
     q8_on_ddp_grads(ring, ddp_train_entry, vx, vmesh)
 
+    at_phase("22")
     # Phase 22: times of B9, B10 and B11 at the path's shape; and phases
     # 21 and 22 at every sum dtype for B9 and B11.
     variant_rows = variant_times(ring, variant_paths, card)
     variant_dtypes(ring, variant_paths, card, gen)
 
+    at_phase("23")
     # Phase 23: the FSDP path (B4b, B4a and B3 around each rank's B1/B2).
     _, fsdp_losses, fsdp_world, fsdp = fsdp_path(
         attn, ring, entry_mod, unshard_params, make_mesh, cfg)
 
+    at_phase("24")
     # Phase 24: the pipeline path (B1 and B2 in every tick).
     _, pp_paths = pp_path(attn, pp, entry_mod)
 
+    at_phase("25")
     # Phase 25: times of the FSDP and pipeline paths, and the device time
     # under their scopes.
     parallel_times(tracing, fsdp, pp_paths, card)
 
+    at_phase("26")
     # Phases 26-28: the host plane in two processes on the card.
     hier = host_phases(card)
 
+    at_phase("29")
     # Phase 29: elastic acceptance on the card.
     elastic_phase(card)
 
+    at_phase("30")
     # Phase 30: the rest of the host plane's Context surface in three
     # processes on the card.
     surface_phase(card)
 
+    at_phase("31")
     # Phase 31: the flagship at one head of 256 in f16.
     d256_f16_phase(attn, ov, tp, ring, sp, spmd, make_mesh, entry_mod, gen,
                    card, rows, bwd_rows)
 
+    at_phase("32")
     # Phase 32: phase 28's step, encrypted and traced, under a fault and
     # the elected schedule and tuning table.
     traced_phase(card, hier)
 
+    at_phase("33")
     # Phase 33: the device-plane bench tool, the examples and the dump
     # viewers on the card.
     tool_phase(attn, ov, ring, make_mesh, gen, card)
 
+    at_phase("34")
     # Phase 34: the device plane across processes: the probe, B3, B4a and
     # B4b across 2, 3 and 4 processes on the card, and the flagship's DDP
     # step at one process per rank.
     peer_rows = peer_phase(card, ddp_losses)
 
+    at_phase("35")
     # Phase 35: tensor and expert parallelism across processes: B8, B5a and
     # B5b across 2-4 processes, the fused MLP, the dp x tp step and the
     # MoE path at one process per rank.
     tp_peer_rows = tp_peer_phase(card, ov, ring, entry_mod, tp_losses)
 
+    at_phase("36")
     # Phase 36: the ring variants, spmd's point-to-point collectives, and
     # sequence and pipeline parallelism across processes: B9, B10, B11 and
     # the transport across 2-4 processes, the ring-variant, long-context
     # and pipeline paths at one process per rank.
     spp_peer_rows = spp_peer_phase(card, ring, permute, pp, entry_mod)
 
+    at_phase("37")
     # Phase 37: FSDP across processes: the flagship's fully-sharded step at
     # one process per rank over the cross-process B4b, B4a and B3.
     fsdp_peer_launches = fsdp_peer_phase(card, fsdp_losses, fsdp_world)
+
+    at_phase("38")
+    # Phase 38: the flagship at head widths 36 and 512: the padded d 64
+    # instances and the wide kernels on its serving, training and
+    # ring-flash paths.
+    wide = head_width_phase(attn, sp, spmd, make_mesh, entry_mod, card)
+    at_phase("end")
 
     # Launches on the main paths: B1 on the serving path, B2 on the
     # training path, B3 on the DDP path, B4a and B4b on the group path,
@@ -6695,9 +6887,9 @@ def main():
     for kname, source, replaces, n, err, (ms, plain, lib, bound,
                                           bound_by) in (
             ("flash_fwd", "flash_fwd.cu", "attention.py:92", launches,
-             entry_err, rows["entry"]),
+             fwd_errs["entry"], rows["entry"]),
             ("flash_bwd", "flash_bwd.cu", "attention.py:313",
-             train_launches[1], entry_bwd_err, bwd_rows["entry"]),
+             train_launches[1], bwd_errs["entry"], bwd_rows["entry"]),
             ("ring_allreduce", "ring.cu", "pallas_ring.py:63",
              ddp_launches[2], ring_err["ring_allreduce"],
              ring_rows["ring_allreduce"]),
@@ -6730,8 +6922,26 @@ def main():
              variant_launches["q8"], variant_errs["q8"], variant_rows["q8"]),
             ("ring_allreduce_bidir", "ring_variants.cu",
              "pallas_ring.py:691", variant_launches["bidir"],
-             variant_errs["bidir"], variant_rows["bidir"])):
-        no_library = kname in ("flash_step", "ring_allreduce_q8")
+             variant_errs["bidir"], variant_rows["bidir"]),
+            # The wide kernels past d 256 (flash_wide.cuh in each source):
+            # their launches on the D512 flagship's paths (phase 38), their
+            # errors and times at its shapes (phases 3, 7, 16, 38).
+            ("flash_fwd_wide", "flash_fwd.cu", "attention.py:92",
+             wide["launches"][0], fwd_errs["d512_path"], rows["d512_path"]),
+            ("flash_bwd_wide", "flash_bwd.cu", "attention.py:313",
+             wide["launches"][1], bwd_errs["d512_path"],
+             bwd_rows["d512_path"]),
+            ("flash_step_wide", "flash_step.cu", "attention.py:477",
+             wide["launches"][2], step_errs["d512_pathS"][0],
+             wide["steps"]["flash_step"]),
+            ("flash_bwd_dq_step_wide", "flash_bwd_step.cu",
+             "attention.py:588", wide["launches"][3],
+             step_errs["d512_pathS"][1], wide["steps"]["flash_bwd_step"]),
+            ("flash_bwd_dkv_step_wide", "flash_bwd_step.cu",
+             "attention.py:635", wide["launches"][3],
+             step_errs["d512_pathS"][2], wide["steps"]["flash_bwd_step"])):
+        no_library = kname in ("flash_step", "flash_step_wide",
+                               "ring_allreduce_q8")
         if None in (ms, plain) or (lib is None and not no_library):
             raise AssertionError(
                 f"the profiler showed no device time for {kname}'s kernel, "

@@ -75,6 +75,12 @@
 // that k, v, q and dO fit in shared memory (213 KB) and dK, dV in
 // registers.
 //
+// d past 256 (any multiple of 8; the wrapper zero-pads the rest), in every
+// type: the main launch is flash_bwd_wide_kernel, flash_wide.cuh's
+// backward, one block per (flat kv head, 64-key tile, column part) walking
+// the query heads of its GQA group, dQ added into dq_acc with atomicAdd;
+// launches 1 and 3 are the ones above, which run over any d.
+//
 // Rows (b * h) past the grid's 65535 go on grid z where they lie on y
 // (rows_grid in flash_common.cuh); the main kernel has them on x.
 //
@@ -90,6 +96,7 @@
 // exp(-inf) = 0, so padded rows and keys add nothing anywhere.
 
 #include "flash_common.cuh"
+#include "flash_wide.cuh"
 #include "hopper.cuh"
 
 #include <atomic>
@@ -702,6 +709,20 @@ __global__ void __launch_bounds__(32 * kF32Warps<D>)
   }
 }
 
+// ---- launch 2, d past 256: flash_wide.cuh's backward ----
+
+template <typename T>
+__global__ void __launch_bounds__(wide::kThreads, 1)
+    flash_bwd_wide_kernel(const wide::BwdParams p) {
+  wide::bwd<T, T>(p);
+}
+
+template <typename T>
+cudaError_t launch_wide(const wide::BwdParams& p, cudaStream_t stream) {
+  static std::atomic<bool> smem_set[kMaxDevices];
+  return wide::launch_bwd(flash_bwd_wide_kernel<T>, p, stream, smem_set);
+}
+
 // dq = dq_acc * scale in the input type, two elements per thread and step.
 template <typename T>
 __global__ void flash_bwd_dq_kernel(const float* acc, T* dq,
@@ -803,8 +824,9 @@ cudaError_t launch_tma_d(TmaParams& p, int dtype, int d, const void* q,
 extern "C" {
 
 // Returns a cudaError_t; 0 is success. dtype: 0 = bf16, 1 = f32, 2 = f16;
-// d: 64, 128 or 256. scale is 1/sqrt(d) rounded to the input type (for
-// q * scale), dq_scale the same in f32 (for dQ). Strides in elements, d
+// d: 64, 128, 256, or a multiple of 8 above 256 (the wide kernel). scale
+// is 1/sqrt(d) rounded to the input type (for q * scale), dq_scale the
+// same in f32 (for dQ). Strides in elements, d
 // contiguous, in the order q, k, v, dO, out, each (b, heads, t); every
 // operand 16-byte aligned with strides that are multiples of 16 bytes
 // (TMA, and the f32 kernel's row loads). rows (b*h, ceil(t / 64), 128) f32
@@ -827,7 +849,8 @@ int gtt_flash_bwd(const void* q, const void* k, const void* v,
   const auto aligned = [](const void* a) {
     return (reinterpret_cast<uintptr_t>(a) & 15) == 0;
   };
-  bool ok = dtype >= 0 && dtype <= 2 && (d == 64 || d == 128 || d == 256) &&
+  bool ok = dtype >= 0 && dtype <= 2 &&
+            (d == 64 || d == 128 || d == 256 || wide::takes(d)) &&
             b >= 1 && h >= 1 && h_kv >= 1 && h % h_kv == 0 &&
             t >= 1 && static_cast<long long>(b) * h < (1LL << 31) &&
             aligned(q) && aligned(k) && aligned(v) && aligned(dout) &&
@@ -853,7 +876,43 @@ int gtt_flash_bwd(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return static_cast<int>(err);
 
   float* acc = static_cast<float*>(dq_acc);
-  if (dtype != 1) {
+  if (wide::takes(d)) {
+    wide::BwdParams p{};
+    p.q = q;
+    p.k = k;
+    p.v = v;
+    p.dout = dout;
+    p.rows = static_cast<const float*>(rows);
+    p.dq = acc;
+    p.dk = dk;
+    p.dv = dv;
+    p.out_rows = b * h_kv;
+    p.hpb = p.group = h / h_kv;
+    p.h = h;
+    p.h_kv = h_kv;
+    p.tq = p.tkv = t;
+    p.d = d;
+    p.n_q = n_q;
+    p.causal = causal;
+    p.round_p = 1;
+    p.scale = scale;
+    p.dq_mul = 1.f;
+    p.q_sb = q_sb;
+    p.q_sh = q_sh;
+    p.q_st = q_st;
+    p.k_sb = k_sb;
+    p.k_sh = k_sh;
+    p.k_st = k_st;
+    p.v_sb = v_sb;
+    p.v_sh = v_sh;
+    p.v_st = v_st;
+    p.o_sb = o_sb;
+    p.o_sh = o_sh;
+    p.o_st = o_st;
+    err = dtype == 0   ? launch_wide<__nv_bfloat16>(p, s)
+          : dtype == 2 ? launch_wide<__half>(p, s)
+                       : launch_wide<float>(p, s);
+  } else if (dtype != 1) {
     TmaParams p;
     memset(&p, 0, sizeof(p));
     p.rows = static_cast<const float*>(rows);

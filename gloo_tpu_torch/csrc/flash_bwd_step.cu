@@ -98,6 +98,15 @@
 // dkv_step_kernel owns one 128-column half, so that the tiles fit in
 // shared memory and dK, dV in registers.
 //
+// d past 256 (any multiple of 8; the wrapper zero-pads the rest), in every
+// type: one launch per step of bwd_step_wide_kernel, flash_wide.cuh's
+// backward at the rows' global offsets, one block per (output row, 64-key
+// tile, column part) walking its hpb query heads; dQ goes into the f32
+// buffer by atomicAdd (times dq_scale in the fresh form), and dK and dV are
+// written, or added to the carriers. bf16 and f16 read dO as dO_hi (+
+// dO_lo) and the packed rows of launch 1; f32 reads the f32 dO, lse and
+// delta as they are.
+//
 // Rows past the grid's 65535 go on grid z where they lie on y (rows_grid
 // in flash_common.cuh); the fused kernel has them on x.
 //
@@ -109,6 +118,7 @@
 // times the unrounded f32 1/sqrt(d).
 
 #include "flash_common.cuh"
+#include "flash_wide.cuh"
 #include "hopper.cuh"
 
 #include <atomic>
@@ -888,6 +898,20 @@ __global__ void __launch_bounds__(32 * kF32Warps<D>)
   }
 }
 
+// ---- launch 2, d past 256: flash_wide.cuh's backward ----
+
+template <typename T>
+__global__ void __launch_bounds__(wide::kThreads, 1)
+    bwd_step_wide_kernel(const wide::BwdParams p) {
+  wide::bwd<T, float>(p);
+}
+
+template <typename T>
+cudaError_t launch_wide(const wide::BwdParams& p, cudaStream_t stream) {
+  static std::atomic<bool> smem_set[kMaxDevices];
+  return wide::launch_bwd(bwd_step_wide_kernel<T>, p, stream, smem_set);
+}
+
 // ---- launch 3: dq = dq_acc * scale in the input type ----
 
 template <typename T>
@@ -1044,8 +1068,9 @@ int gtt_flash_bwd_step_prep(const void* lse, const void* delta, void* rows,
 }
 
 // Launch 2, one ring step. dtype (of q, k, v): 0 = bf16, 1 = f32, 2 = f16;
-// d: 64, 128 or 256. A block serves hpb query heads (1, or group: then its
-// output row is their kv head). 16-bit: dout is dO_hi and dout_lo dO_lo or
+// d: 64, 128, 256, or a multiple of 8 above 256 (the wide kernel). A
+// block serves hpb query heads (1, or group: then its output row is their
+// kv head). 16-bit: dout is dO_hi and dout_lo dO_lo or
 // null, both (bh, t_q, d) in q's type contiguous; rows from launch 1; lse
 // and delta unused. f32: dout (bh, t_q, d) f32 at o_sr / o_st; lse and
 // delta (bh, t_q) f32; rows and dout_lo unused. dq (bh, t_q, d) f32
@@ -1065,14 +1090,54 @@ int gtt_flash_bwd_step(const void* q, const void* k, const void* v,
                        long long k_st, long long v_sr, long long v_st,
                        long long o_sr, long long o_st, void* stream) {
   if (bh < 1 || group < 1 || bh % group != 0 || (hpb != 1 && hpb != group) ||
-      tq < 1 || tkv < 1 || (d != 64 && d != 128 && d != 256) || dtype < 0 ||
+      tq < 1 || tkv < 1 ||
+      (d != 64 && d != 128 && d != 256 && !wide::takes(d)) || dtype < 0 ||
       dtype > 2 || bh / hpb >= (1 << 30) || tkv > 65535 * kBlockK) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rows_out = bh / hpb;
   cudaError_t err;
-  if (dtype != 1) {
+  if (wide::takes(d)) {
+    wide::BwdParams p{};
+    p.q = q;
+    p.k = k;
+    p.v = v;
+    p.dout = dout;
+    p.dout_lo = dtype == 1 ? nullptr : dout_lo;
+    p.rows = dtype == 1 ? nullptr : static_cast<const float*>(rows);
+    p.lse = static_cast<const float*>(lse);
+    p.delta = static_cast<const float*>(delta);
+    p.q_off = static_cast<const int*>(q_off);
+    p.k_off = static_cast<const int*>(k_off);
+    p.dq = static_cast<float*>(dq);
+    p.dk = dk;
+    p.dv = dv;
+    p.out_rows = rows_out;
+    p.hpb = hpb;
+    p.h = bh;
+    p.h_kv = bh / group;
+    p.group = group;
+    p.tq = tq;
+    p.tkv = tkv;
+    p.d = d;
+    p.n_q = (tq + kBlockQ - 1) / kBlockQ;
+    p.causal = causal;
+    p.accumulate = accumulate;
+    p.scale = scale;
+    p.dq_mul = accumulate ? 1.f : dq_scale;
+    p.q_sh = q_sr;
+    p.q_st = q_st;
+    p.k_sh = k_sr;
+    p.k_st = k_st;
+    p.v_sh = v_sr;
+    p.v_st = v_st;
+    p.o_sh = o_sr;
+    p.o_st = o_st;
+    err = dtype == 0   ? launch_wide<__nv_bfloat16>(p, s)
+          : dtype == 2 ? launch_wide<__half>(p, s)
+                       : launch_wide<float>(p, s);
+  } else if (dtype != 1) {
     TmaParams p;
     memset(&p, 0, sizeof(p));
     p.rows = static_cast<const float*>(rows);

@@ -49,6 +49,10 @@
 // into padded shared memory, the products on the FMA units in the
 // m16n8 accumulator layout of mma.sync (flash_common.cuh).
 //
+// d past 256 (any multiple of 8; the wrapper zero-pads the rest), in every
+// type: flash_fwd_wide_kernel, flash_wide.cuh's forward with its column
+// parts on the grid beside the query tiles.
+//
 // Numerics follow the TPU kernel step by step: q * scale rounded to the
 // input type before QK^T (the wrapper passes scale already rounded to that
 // type), scores accumulated in f32 over key tiles of 64 (BLOCK_K, so the
@@ -59,6 +63,7 @@
 // SFU's 2^x (fast_exp), the f32 kernel from expf.
 
 #include "flash_common.cuh"
+#include "flash_wide.cuh"
 #include "hopper.cuh"
 
 #include <atomic>
@@ -496,6 +501,20 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---- d past 256: flash_wide.cuh's forward ----
+
+template <typename T>
+__global__ void __launch_bounds__(wide::kThreads)
+    flash_fwd_wide_kernel(const wide::FwdParams p) {
+  wide::fwd<T>(p);
+}
+
+template <typename T>
+cudaError_t launch_wide(const wide::FwdParams& p, cudaStream_t stream) {
+  static std::atomic<bool> smem_set[kMaxDevices];
+  return wide::launch_fwd(flash_fwd_wide_kernel<T>, p, stream, smem_set);
+}
+
 // ---- launches ----
 
 template <int D>
@@ -555,10 +574,11 @@ cudaError_t launch_tma_d(TmaParams& p, int dtype, int d, const void* q,
 extern "C" {
 
 // Returns a cudaError_t; 0 is success. dtype: 0 = bf16, 1 = f32, 2 = f16;
-// d: 64, 128 or 256. Strides in elements, d contiguous; bf16 and f16 take
-// 16-byte aligned q, k, v and strides that are multiples of 8 elements
-// (TMA). Any b * h below 2^31: past 65535 the grid spreads them over y
-// and z.
+// d: 64, 128, 256, or a multiple of 8 above 256 (the wide kernel). Strides
+// in elements, d contiguous; bf16 and f16 (and every type past 256) take
+// 16-byte aligned q, k, v and strides that are multiples of 16 bytes (TMA,
+// the wide kernel's 16-byte loads). Any b * h below 2^31: past 65535 the
+// grid spreads them over y and z.
 int gtt_flash_fwd(const void* q, const void* k, const void* v, void* out,
                   void* lse, int dtype, int b, int h, int h_kv, int t, int d,
                   int causal, float scale, long long q_sb,
@@ -567,10 +587,47 @@ int gtt_flash_fwd(const void* q, const void* k, const void* v, void* out,
                   long long v_sh, long long v_st, void* stream) {
   if (b < 1 || h < 1 || h_kv < 1 || h % h_kv != 0 || t < 1 ||
       static_cast<long long>(b) * h >= (1LL << 31) ||
-      (d != 64 && d != 128 && d != 256) || dtype < 0 || dtype > 2) {
+      (d != 64 && d != 128 && d != 256 && !wide::takes(d)) || dtype < 0 ||
+      dtype > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto aligned = [](const void* a) {
+    return (reinterpret_cast<uintptr_t>(a) & 15) == 0;
+  };
+  const long long st[] = {q_sb, q_sh, q_st, k_sb, k_sh,
+                          k_st, v_sb, v_sh, v_st};
+  if (wide::takes(d)) {
+    const int vec = dtype == 1 ? 4 : 8;
+    bool ok = aligned(q) && aligned(k) && aligned(v);
+    for (long long x : st) ok = ok && x > 0 && x % vec == 0;
+    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+    wide::FwdParams p{};
+    p.q = q;
+    p.k = k;
+    p.v = v;
+    p.out = out;
+    p.lse = static_cast<float*>(lse);
+    p.rows = b * h;
+    p.h = h;
+    p.group = h / h_kv;
+    p.tq = p.tkv = t;
+    p.d = d;
+    p.causal = causal;
+    p.scale = scale;
+    p.q_sb = q_sb;
+    p.q_sh = q_sh;
+    p.q_st = q_st;
+    p.k_sb = k_sb;
+    p.k_sh = k_sh;
+    p.k_st = k_st;
+    p.v_sb = v_sb;
+    p.v_sh = v_sh;
+    p.v_st = v_st;
+    return static_cast<int>(dtype == 0   ? launch_wide<__nv_bfloat16>(p, s)
+                            : dtype == 2 ? launch_wide<__half>(p, s)
+                                         : launch_wide<float>(p, s));
+  }
   if (dtype == 1) {
     Params p{static_cast<const float*>(q), static_cast<const float*>(k),
              static_cast<const float*>(v), static_cast<float*>(out),
@@ -580,11 +637,6 @@ int gtt_flash_fwd(const void* q, const void* k, const void* v, void* out,
                             : d == 128 ? launch_f32<128>(p, s)
                                        : launch_f32<256>(p, s));
   }
-  const auto aligned = [](const void* a) {
-    return (reinterpret_cast<uintptr_t>(a) & 15) == 0;
-  };
-  const long long st[] = {q_sb, q_sh, q_st, k_sb, k_sh,
-                          k_st, v_sb, v_sh, v_st};
   bool ok = aligned(q) && aligned(k) && aligned(v);
   for (long long x : st) ok = ok && x > 0 && x % 8 == 0;
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);

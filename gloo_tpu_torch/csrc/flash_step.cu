@@ -56,7 +56,15 @@
 // per (query-head row, 64-row query tile), 16-byte loads of the tiles
 // into padded shared memory, the products on the FMA units in the m16n8
 // accumulator layout of mma.sync (flash_common.cuh), which is wgmma's per
-// warp: both kernels share the state's loads and stores.
+// warp: both kernels share the state's loads and stores. The carried acc
+// keeps the caller's head_dim, any acc_ld: an even row width moves a
+// column pair as one float2, an odd one column by column.
+//
+// d past 256 (any multiple of 8; the wrapper zero-pads the rest), in every
+// type: flash_step_wide_kernel, flash_wide.cuh's forward on the carried
+// state, one block per (query-head row, 64-row query tile) walking its
+// column parts in turn, so that (m, l) are read once before any part and
+// written once after the last.
 //
 // Numerics follow the TPU kernel step by step: q * scale rounded to the
 // input type before QK^T (the wrapper passes scale already rounded), f32
@@ -66,6 +74,7 @@
 // (fast_exp), the f32 kernel from expf.
 
 #include "flash_common.cuh"
+#include "flash_wide.cuh"
 #include "hopper.cuh"
 
 #include <atomic>
@@ -123,12 +132,14 @@ __device__ __forceinline__ int kv_end_of(const State& s, int row, int q0) {
 // 8 of the row whose state starts at `base`), in the accumulator layout:
 // o[jj][2 i + e] holds column 8 jj + c2 + e of row q0 + r0 + 8 i. Rows past
 // t_q and the padding's columns start at 0 (and m at -inf) and are never
-// stored.
+// stored. An even acc_ld reads a column pair as one float2 (col is even, so
+// 8-byte aligned); an odd one column by column.
 template <int D>
 __device__ __forceinline__ void load_state(const State& s, long long base,
                                            int q0, int r0, int c2,
                                            float (*o)[4], float* m,
                                            float* l) {
+  const bool pairs = s.acc_ld % 2 == 0;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = q0 + r0 + 8 * i;
@@ -140,8 +151,13 @@ __device__ __forceinline__ void load_state(const State& s, long long base,
       const int col = j * 8 + c2;
       float2 a = make_float2(0.f, 0.f);
       if (in && col < s.acc_ld) {
-        a = *reinterpret_cast<const float2*>(s.acc + (base + r) * s.acc_ld +
-                                             col);
+        const float* const at = s.acc + (base + r) * s.acc_ld + col;
+        if (pairs) {
+          a = *reinterpret_cast<const float2*>(at);
+        } else {
+          a.x = at[0];
+          if (col + 1 < s.acc_ld) a.y = at[1];
+        }
       }
       o[j][2 * i] = a.x;
       o[j][2 * i + 1] = a.y;
@@ -154,6 +170,7 @@ __device__ __forceinline__ void store_state(const State& s, long long base,
                                             int q0, int r0, int c2,
                                             float (*o)[4], const float* m,
                                             const float* l) {
+  const bool pairs = s.acc_ld % 2 == 0;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = q0 + r0 + 8 * i;
@@ -161,9 +178,13 @@ __device__ __forceinline__ void store_state(const State& s, long long base,
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       const int col = j * 8 + c2;
-      if (col < s.acc_ld) {
-        store2(s.acc + (base + r) * s.acc_ld + col, o[j][2 * i],
-               o[j][2 * i + 1]);
+      if (col >= s.acc_ld) continue;
+      float* const at = s.acc + (base + r) * s.acc_ld + col;
+      if (pairs) {
+        store2(at, o[j][2 * i], o[j][2 * i + 1]);
+      } else {
+        at[0] = o[j][2 * i];
+        if (col + 1 < s.acc_ld) at[1] = o[j][2 * i + 1];
       }
     }
     if (c2 == 0) {
@@ -512,6 +533,20 @@ __global__ void __launch_bounds__(kThreads)
   store_state<D>(st, base, q0, r0, c2, o, m, l);
 }
 
+// ---- d past 256: flash_wide.cuh's forward on the carried state ----
+
+template <typename T>
+__global__ void __launch_bounds__(wide::kThreads)
+    flash_step_wide_kernel(const wide::FwdParams p) {
+  wide::fwd<T>(p);
+}
+
+template <typename T>
+cudaError_t launch_wide(const wide::FwdParams& p, cudaStream_t stream) {
+  static std::atomic<bool> smem_set[kMaxDevices];
+  return wide::launch_fwd(flash_step_wide_kernel<T>, p, stream, smem_set);
+}
+
 // ---- launches ----
 
 template <int D>
@@ -575,12 +610,13 @@ extern "C" {
 
 // Returns a cudaError_t; 0 is success. Folds k, v into the state in
 // place. dtype: 0 = bf16, 1 = f32, 2 = f16; d (the kernel's head_dim): 64,
-// 128 or 256. q (bh, t_q, d), k and v (bh / group, t_kv, d) at row and t
-// strides in elements, d contiguous, 16-byte aligned with strides that are
-// multiples of 16 bytes. acc (bh, t_q, acc_ld) f32 contiguous, acc_ld <= d
-// and a multiple of 2 (columns past it are the zero padding of q, k and
-// v); m, l (bh, t_q) f32 contiguous. q_off, k_off (bh,) int32. Any bh: past
-// 65535 rows the grid spreads them over y and z.
+// 128, 256, or a multiple of 8 above 256 (the wide kernel). q (bh, t_q,
+// d), k and v (bh / group, t_kv, d) at row and t strides in elements, d
+// contiguous, 16-byte aligned with strides that are multiples of 16 bytes.
+// acc (bh, t_q, acc_ld) f32 contiguous, 1 <= acc_ld <= d (columns past it
+// are the zero padding of q, k and v); m, l (bh, t_q) f32 contiguous.
+// q_off, k_off (bh,) int32. Any bh: past 65535 rows the grid spreads them
+// over y and z.
 int gtt_flash_step(const void* q, const void* k, const void* v, void* acc,
                    void* m, void* l, const void* q_off, const void* k_off,
                    int dtype, int bh, int group, int tq, int tkv, int d,
@@ -588,9 +624,38 @@ int gtt_flash_step(const void* q, const void* k, const void* v, void* acc,
                    long long q_st, long long k_sr, long long k_st,
                    long long v_sr, long long v_st, void* stream) {
   if (bh < 1 || group < 1 || bh % group != 0 || tq < 1 || tkv < 1 ||
-      (d != 64 && d != 128 && d != 256) || acc_ld < 2 || acc_ld > d ||
-      acc_ld % 2 || dtype < 0 || dtype > 2) {
+      (d != 64 && d != 128 && d != 256 && !wide::takes(d)) || acc_ld < 1 ||
+      acc_ld > d || dtype < 0 || dtype > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (wide::takes(d)) {
+    wide::FwdParams p{};
+    p.q = q;
+    p.k = k;
+    p.v = v;
+    p.acc = static_cast<float*>(acc);
+    p.m = static_cast<float*>(m);
+    p.l = static_cast<float*>(l);
+    p.q_off = static_cast<const int*>(q_off);
+    p.k_off = static_cast<const int*>(k_off);
+    p.rows = p.h = bh;
+    p.group = group;
+    p.tq = tq;
+    p.tkv = tkv;
+    p.d = d;
+    p.acc_ld = acc_ld;
+    p.causal = causal;
+    p.scale = scale;
+    p.q_sh = q_sr;
+    p.q_st = q_st;
+    p.k_sh = k_sr;
+    p.k_st = k_st;
+    p.v_sh = v_sr;
+    p.v_st = v_st;
+    cudaStream_t stm = static_cast<cudaStream_t>(stream);
+    return static_cast<int>(dtype == 0   ? launch_wide<__nv_bfloat16>(p, stm)
+                            : dtype == 2 ? launch_wide<__half>(p, stm)
+                                         : launch_wide<float>(p, stm));
   }
   const State s{static_cast<float*>(acc),
                 static_cast<float*>(m),

@@ -11,8 +11,12 @@ configuration (vocab 512, d_model 256, 4 heads, 2 layers, d_ff 1024, seq
 seeded with 0. ``d256_f16_entry()`` and ``d256_f16_train_entry()`` are
 ``entry()`` and ``train_entry()`` at D256_F16_CONFIG: the same flagship with
 one head of 256 in f16, whose serving and training path runs the flash kernels'
-d 256 and f16 instances. ``train_entry()`` is the one-device counterpart of the
-training step of ``__graft_entry__.dryrun_multichip``: the same model and
+d 256 and f16 instances; ``d36_entry()``, ``d36_train_entry()``,
+``d512_entry()`` and ``d512_train_entry()`` are the same at D36_CONFIG (8
+heads of 36: the zero-padded d 64 instances) and D512_CONFIG (one head of
+512: the wide kernels past 256). ``train_entry()`` is the one-device
+counterpart of the training step of ``__graft_entry__.dryrun_multichip``:
+the same model and
 tokens, next-token targets, and Adam at optax.adam(1e-3)'s settings.
 ``ddp_train_entry()`` is the data-parallel counterpart of that training
 step: DDP_WORLD ranks on one card, each with a replica of the same model,
@@ -116,6 +120,16 @@ ENTRY_BATCH = 8
 # depth, sequence, batch, tokens and weight seed as ENTRY_CONFIG.
 D256_F16_CONFIG = dataclasses.replace(ENTRY_CONFIG, n_heads=1,
                                       dtype=torch.float16)
+# The flagship at head widths the flash kernels have no instance of, in
+# bf16, with the same vocab, d_ff, depth, sequence, batch, tokens and
+# weight seed as ENTRY_CONFIG. D36_CONFIG: d_model 288 over 8 heads of 36,
+# a width 8 does not divide (the kernels zero-pad it to their d 64
+# instance); no model the repo names uses it, it stands for such widths.
+# D512_CONFIG: d_model 512 as one head of 512, past every instance (the
+# wide kernels); no reference model has a head wider than 256 (Gemma's
+# 256 is D256_F16_CONFIG's), and the reference's Transformer runs both.
+D36_CONFIG = dataclasses.replace(ENTRY_CONFIG, d_model=288, n_heads=8)
+D512_CONFIG = dataclasses.replace(ENTRY_CONFIG, d_model=512, n_heads=1)
 # optax.adam(1e-3): its defaults, eps outside the square root, no decay.
 ADAM_SETTINGS = dict(lr=1e-3, betas=(0.9, 0.999), eps=1e-8)
 # Ranks of ddp_train_entry's world, all on one card: ENTRY_BATCH / DDP_WORLD
@@ -196,6 +210,16 @@ def d256_f16_entry(device="cuda"):
     return _config_entry(D256_F16_CONFIG, device)
 
 
+def d36_entry(device="cuda"):
+    """entry() at D36_CONFIG: 8 heads of 36, bf16."""
+    return _config_entry(D36_CONFIG, device)
+
+
+def d512_entry(device="cuda"):
+    """entry() at D512_CONFIG: one head of 512, bf16."""
+    return _config_entry(D512_CONFIG, device)
+
+
 def _config_entry(cfg: TransformerConfig, device):
     dev = resolve_device(device)
     model = Transformer(cfg, device=dev).init(
@@ -227,6 +251,16 @@ def train_entry(device="cuda"):
 def d256_f16_train_entry(device="cuda"):
     """train_entry() at D256_F16_CONFIG: one head of 256, f16."""
     return _config_train_entry(D256_F16_CONFIG, device)
+
+
+def d36_train_entry(device="cuda"):
+    """train_entry() at D36_CONFIG: 8 heads of 36, bf16."""
+    return _config_train_entry(D36_CONFIG, device)
+
+
+def d512_train_entry(device="cuda"):
+    """train_entry() at D512_CONFIG: one head of 512, bf16."""
+    return _config_train_entry(D512_CONFIG, device)
 
 
 def _config_train_entry(cfg: TransformerConfig, device):

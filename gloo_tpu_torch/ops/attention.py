@@ -33,18 +33,21 @@ step by step (same tiles, same rounding points) and is the version the
 kernel is held against.
 
 Dtypes: KERNEL_DTYPES (bf16, f16 and f32: each kernel has an instance of
-each; bf16 and f16 share one template). Head dims: the kernels have
-instances for KERNEL_HEAD_DIMS (64, 128 and 256). Any other head_dim
-that is a multiple of 8 and at most 256 runs on the next instance up:
-the wrapper zero-pads q, k and v (and dO and out) along d and slices the
-results back, with the scale of the unpadded d (the step kernel reads
-and writes the d columns of the carried acc as it lies). That is exact:
-padded q and k columns add 0 to every score, padded v and dO columns
-fill only output columns that are cut off, and delta gains only 0 * 0
-terms. The twins on the CPU run unpadded. Any batch * heads (rows): past
-the grid's 65535 the kernels spread the rows over its y and z axes. The
-card refuses, with an error and no fallback, a head_dim above 256 and
-any other dtype.
+each; bf16 and f16 share one template). Head dims: every d >= 1
+(kernel_head_dim). The kernels have instances for KERNEL_HEAD_DIMS (64,
+128 and 256); any other d up to 256 runs on the next instance up. Past
+256 each source launches its wide kernel (csrc/flash_wide.cuh: FMA
+products over column parts of the outputs, scores recomputed per part),
+at d rounded up to a multiple of WIDE_UNIT. Where the kernel's
+width exceeds d, the wrapper zero-pads q, k and v (and dO and out) along
+d and slices the results back, with the scale of the unpadded d (the step
+kernel reads and writes the d columns of the carried acc as it lies, at
+any width, odd ones included). That is exact: padded q and k columns add
+0 to every score, padded v and dO columns fill only output columns that
+are cut off, and delta gains only 0 * 0 terms. The twins on the CPU run
+unpadded. Any batch * heads (rows): past the grid's 65535 the kernels
+spread the rows over its y and z axes. The card refuses, with an error
+and no fallback, any other dtype.
 """
 
 from __future__ import annotations
@@ -67,9 +70,12 @@ BLOCK_K = 64
 BLOCK_Q = 64
 # The kernels' dtype codes (csrc/hopper.cuh's: ring.SUM_DTYPES' codes).
 KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
-# The kernels' head_dim instances; a smaller multiple of 8 is zero-padded
-# up to the next one.
+# The kernels' head_dim instances; a smaller head_dim is zero-padded up to
+# the next one.
 KERNEL_HEAD_DIMS = (64, 128, 256)
+# Past the last instance, the wide kernels (csrc/flash_wide.cuh) run at d
+# rounded up to a multiple of WIDE_UNIT (16-byte rows in every dtype).
+WIDE_UNIT = 8
 # The three launches of one flash_attention_bwd call on the card, by dtype:
 # delta and the lse rows with dq_acc = 0, the main kernel, dQ's scale and
 # cast. Every name contains "flash_bwd".
@@ -81,6 +87,9 @@ FLASH_BWD_KERNELS = {
     torch.float32: ("flash_bwd_prep_kernel", "flash_bwd_f32_kernel",
                     "flash_bwd_dq_kernel"),
 }
+# The same three launches at a head_dim past the instances, every dtype.
+FLASH_BWD_WIDE_KERNELS = ("flash_bwd_prep_kernel", "flash_bwd_wide_kernel",
+                          "flash_bwd_dq_kernel")
 
 _libs: dict[str, ctypes.CDLL] = {}
 # ctypes signature of each source's entry points: (pointers, ints, floats,
@@ -137,14 +146,15 @@ def _check_heads(q, k, v):
 
 
 def kernel_head_dim(d: int) -> int:
-    """The kernel instance that head_dim d runs on: d itself or, zero-padded,
-    the next of KERNEL_HEAD_DIMS. Raises for what no instance takes."""
-    if d % 8 or not 0 < d <= KERNEL_HEAD_DIMS[-1]:
-        raise ValueError(
-            f"the kernels take a head_dim that is a multiple of 8 and at most "
-            f"{KERNEL_HEAD_DIMS[-1]} (instances {KERNEL_HEAD_DIMS}, smaller "
-            f"ones zero-padded); got {d}")
-    return next(D for D in KERNEL_HEAD_DIMS if d <= D)
+    """The head_dim the kernels run head_dim d at: up to 256, the first of
+    KERNEL_HEAD_DIMS that holds d (an instance); past it, d rounded up to a
+    multiple of WIDE_UNIT (the wide kernels). Zero-padded from d where
+    larger. Every d >= 1."""
+    if d < 1:
+        raise ValueError(f"a head_dim must be at least 1; got {d}")
+    if d <= KERNEL_HEAD_DIMS[-1]:
+        return next(D for D in KERNEL_HEAD_DIMS if d <= D)
+    return -(-d // WIDE_UNIT) * WIDE_UNIT
 
 
 def _pad_head_dim(dim: int, *xs: torch.Tensor):
@@ -168,8 +178,8 @@ def _check_device(named: dict) -> None:
 
 def _check_kernel_inputs(q, k, v, layout=True, **more) -> int:
     """What the CUDA kernels take: one CUDA device, one of KERNEL_DTYPES
-    (bf16, f16, f32) throughout, a head_dim that kernel_head_dim takes
-    (at most 256), any batch * heads and, with `layout`, contiguous
+    (bf16, f16, f32) throughout, any head_dim (kernel_head_dim), any
+    batch * heads and, with `layout`, contiguous
     head_dim rows on 16-byte boundaries (the flash forward and backward
     check their own: flash_fwd_plan, flash_bwd_plan). `more` names further
     operands held to the same rules (the backward's dO and out). Returns

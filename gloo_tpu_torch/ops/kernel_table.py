@@ -14,7 +14,10 @@ Hopper (PERF.md §6). B7a and B7b are one fused launch. B9 and B11 take
 every dtype of ring.SUM_DTYPES, as B3 and B4a do; their status says so
 after the redesign. PR 18 gave B1, B2, B6, B7a, B7b (f16, head dims up to
 256, any number of rows past the grid's 65535) and B5a, B5b (f16) the
-reference's domain on the card; their statuses say so last. The FSDP and
+reference's domain on the card; their statuses say so. PR 26 gave B1,
+B2, B6, B7a and B7b any head_dim: 1-255 zero-padded to an instance, and
+past 256 the wide kernels of csrc/flash_wide.cuh (FMA, column parts);
+their statuses say so last. The FSDP and
 pipeline slice ports no kernel and adds launches of five: an
 FSDP step (parallel/fsdp.py) launches B4b and B4a once per leaf (the
 allgather and its VJP), B3 once (the loss mean) and B1 and B2 once per
@@ -50,22 +53,24 @@ _R = "gloo_tpu/ops/pallas_ring.py"
 KERNELS = (
     Kernel("B1", _A, "_flash_kernel", 92, 237, "flash_attention",
            "ported: gloo_tpu_torch/csrc/flash_fwd.cu; redesigned, PR 10; "
-           "f16, d 256, rows > 65535, PR 18"),
+           "f16, d 256, rows > 65535, PR 18; any head_dim, PR 26"),
     Kernel("B2", _A, "_flash_bwd_fused_kernel", 313, 430,
            "flash_attention_bwd_fused",
            "ported: gloo_tpu_torch/csrc/flash_bwd.cu; redesigned, PR 11; "
-           "f16, d 256, rows > 65535, PR 18"),
+           "f16, d 256, rows > 65535, PR 18; any head_dim, PR 26"),
     Kernel("B6", _A, "_flash_step_kernel", 477, 534, "flash_attention_step",
            "ported: gloo_tpu_torch/csrc/flash_step.cu; redesigned, PR 13; "
-           "f16, d 256, rows > 65535, PR 18"),
+           "f16, d 256, rows > 65535, PR 18; any head_dim, PR 26"),
     Kernel("B7a", _A, "_flash_bwd_dq_step_kernel", 588, 730,
            "flash_attention_bwd_step",
            "ported: gloo_tpu_torch/csrc/flash_bwd_step.cu; "
-           "redesigned, PR 12; f16, d 256, rows > 65535, PR 18"),
+           "redesigned, PR 12; f16, d 256, rows > 65535, PR 18; "
+           "any head_dim, PR 26"),
     Kernel("B7b", _A, "_flash_bwd_dkv_step_kernel", 635, 765,
            "flash_attention_bwd_step",
            "ported: gloo_tpu_torch/csrc/flash_bwd_step.cu; "
-           "redesigned, PR 12; f16, d 256, rows > 65535, PR 18"),
+           "redesigned, PR 12; f16, d 256, rows > 65535, PR 18; "
+           "any head_dim, PR 26"),
     Kernel("B5a", _O, "_matmul_rs_kernel", 38, 185, "matmul_reduce_scatter",
            "ported: gloo_tpu_torch/csrc/overlap.cu; redesigned, PR 7; "
            "f16, PR 18; across processes (CUDA IPC), PR 22"),

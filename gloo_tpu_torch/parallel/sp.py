@@ -179,7 +179,8 @@ class _RingFlash(torch.autograd.Function):
             -1, keepdim=True)
         cot = prepare_bwd_step(qf, gf, delta, lse)
         q_off, k_offs = _offset_tables(mesh, axis, b * h, t_local, q.device)
-        # f32 carriers at the kernel's head_dim (padded columns stay 0).
+        # f32 carriers at the kernels' head_dim (kernel_head_dim: an
+        # instance's or the wide kernels' width; padded columns stay 0).
         width = kernel_head_dim(d)
         kv_shape = (ranks, b * h_kv, t_local, width)
         dk_c = torch.zeros(kv_shape, device=q.device)

@@ -371,7 +371,7 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="head_dim"):
         bad = torch.zeros((1, 2, 64, 264), device=cuda_device,
                           dtype=torch.bfloat16)
-        attn.flash_attention(bad, bad, bad)
+        attn.flash_attention(ok, bad, bad)
     with pytest.raises(ValueError, match="CUDA"):
         attn.flash_attention(ok, ok.cpu(), ok)
     # With grad on, the op trains through the backward kernel.

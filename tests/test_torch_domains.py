@@ -22,7 +22,8 @@ its own tests run it (Pallas in interpret mode, JAX's blocks at the twins'
 The card's path of the wrappers is followed on meta tensors with a fake
 library up to the launch (test_torch_head_dims.py's fixture): the d 256
 instance with the unpadded d's scale for d 136-256, dtype code 2 for f16,
-no refusal at b * h = 65 540, and refusals of d 264 and f64.
+no refusal at b * h = 65 540, and refusals of f64 and int32 at every
+head_dim (d 264 and 512 run on the wide kernels).
 
 Tolerances, as (rtol, atol). f32 (1e-4, 1e-5): the same arithmetic
 summed in another order. bf16: out (1.6e-2, 1e-2), gradients and step
@@ -416,13 +417,12 @@ def test_rows_past_65535_are_not_refused(fake_card):
 
 
 @pytest.mark.parametrize("d,dtype,error", [
-    (264, torch.float16, ValueError), (512, torch.bfloat16, ValueError),
+    (264, torch.float64, TypeError), (512, torch.int32, TypeError),
     (64, torch.float64, TypeError), (256, torch.float64, TypeError)])
 def test_the_card_refuses_past_its_domain(fake_card, d, dtype, error):
     q = _meta(1, 2, 64, d, dtype=dtype)
     lse = _meta(1, 2, 64, dtype=torch.float32)
-    with pytest.raises(error, match="head_dim" if error is ValueError
-                       else "bf16, f16 or f32"):
+    with pytest.raises(error, match="bf16, f16 or f32"):
         attn.flash_attention_fwd(q, q, q, True)
     with pytest.raises(error):
         attn.flash_attention_bwd(q, q, q, q, lse, q, True)

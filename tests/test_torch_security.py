@@ -79,6 +79,29 @@ def _both(size, device_fn, timeout=2.0):
     return out
 
 
+# Runs of a refused handshake (_both) before the error classes of the two
+# packages are compared on the last. Both packages build the native core
+# from the same csrc/ and map its codes the same way. That core often
+# closes a refused connection only as the listener's own connect deadline
+# fires (about half the diallers of either package get the close within
+# 50 ms of the 2.0 s deadline); the dialler raises IoError if the close
+# reaches it before its own deadline, TimeoutError if not. The two
+# deadlines start within ~1 ms of each other, so which fires first depends
+# on how the two rank threads were scheduled, on the reference as on the
+# port. A class the port gets wrong differs on every run.
+REFUSAL_RUNS = 3
+
+
+def _both_refused(size, device_fn):
+    """_both until the two packages' error classes agree, at most
+    REFUSAL_RUNS times; the last run's results."""
+    for _ in range(REFUSAL_RUNS):
+        ref, port = _both(size, device_fn)
+        if port[1] == ref[1]:
+            break
+    return ref, port
+
+
 @pytest.mark.parametrize("root,rank,size", [
     (ROOT, 0, 2), (ROOT, 1, 3), (ROOT, 3, 4), ("another root", 2, 8),
     ("r", 1, 2)])
@@ -154,7 +177,8 @@ def test_refused_handshakes_fail_as_the_reference(case):
     """A wrong key, a plaintext client, a keyring of another rank, two
     tiers or two roots, an encrypted against a plaintext peer: no rank
     gets a result, and each rank fails with the reference's class (the
-    listener by its connect deadline, the dialler on the refusal)."""
+    listener by its connect deadline, the dialler on the refusal, which
+    races its own deadline in both packages: _both_refused)."""
     ring1 = gloo_tpu.derive_keyring(ROOT, 1, 3)
     makers = {
         "wrong_key": lambda pkg, r: pkg.Device(
@@ -172,7 +196,7 @@ def test_refused_handshakes_fail_as_the_reference(case):
             auth_key="wire-secret", encrypt=(r == 0)),
     }
     size = 3 if case == "keyring_wrong_rank" else 2
-    ref, port = _both(size, makers[case])
+    ref, port = _both_refused(size, makers[case])
     assert ref[0] == [None] * size
     assert port[0] == [None] * size
     assert port[1] == ref[1]
