@@ -302,7 +302,18 @@ Phases, each of which raises on failure:
      ring (B7 beside aten's memory-efficient backward). The new head
      widths (3 to 1024: odd, not multiples of 8, past 256) are held
      against their twins in phases 3 and 16 (FLASH_CASES, STEP_CASES);
-     phase 7 times the two configurations' forward shapes among them.
+     phase 7 times the two configurations' forward shapes among them;
+ 39. worlds past 32 ranks (wide_world_phase): entry.dryrun_multichip at
+     WIDE_RANKS (64) ranks on the card with the reference's asserts and
+     the launch counts of every kernel it reaches (B3, B4a, B4b, B5a,
+     B5b, B8, B9, B10, B11, B1); the nine one-card collectives at 64 ranks
+     against their plain versions on WIDE_MESHES (bitwise; B5a/B5b within
+     overlap_close); ring_variants_entry(ranks=64) forward and backward
+     and B3 on that flagship buffer (64, 8192, 256) f32, bitwise their
+     plain versions; each kernel's device ms per launch at 64 ranks
+     beside its bytes bound; and the cross-process B3 over
+     WIDE_PEER_PROCESSES processes of 32 local ranks (worker "39"),
+     bitwise the world's plain rows.
 The line before the last is the JSON list of kernels; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX or gloo_tpu.
 """
@@ -5942,11 +5953,368 @@ def fsdp_peer_phase(card, world_losses, world_params):
     return dict(zip(FSDP_PEER_NAMES[:3], total[:3]))
 
 
+# ---- phase 39: worlds past 32 ranks ----
+#
+# The kernels' rank tables live in device memory (csrc/ring_common.cuh's
+# PerRank and Rings; ops/ring.py's ring_table), so a world on one card is
+# bounded by the residency of its cooperative launch alone. Phase 39 runs
+# the port's dry run at WIDE_RANKS ranks (entry.dryrun_multichip, the
+# reference's own scaling and asserts), holds each one-card kernel at that
+# world against its plain version (WIDE_MESHES), runs the ring-variant
+# path and B3 on the flagship's gradient buffer at WIDE_RANKS, times every
+# kernel there, and runs the cross-process B3 over WIDE_PEER_PROCESSES
+# processes of WIDE_RANKS / WIDE_PEER_PROCESSES local ranks each.
+WIDE_RANKS = 64
+# (label, mesh axes, ring axis): one ring of every rank, and the dry run's
+# dp x tp mesh along each of its axes.
+WIDE_MESHES = (("x64", {"x": WIDE_RANKS}, "x"),
+               ("2x32_model", {"data": 2, "model": WIDE_RANKS // 2}, "model"),
+               ("2x32_data", {"data": 2, "model": WIDE_RANKS // 2}, "data"))
+WIDE_PEER_PROCESSES = 2
+# Each rank's rows and columns of the cross-process B3 (f32).
+WIDE_PEER_SHAPE = (2 * WIDE_RANKS, 64)
+WIDE_PEER_CALLS = 3
+WIDE_PEER_TIMEOUT = 300
+# The dry run's kernels: the wrapper whose counter each one adds to.
+WIDE_KERNELS = ("ring_allreduce", "ring_reduce_scatter", "ring_allgather",
+                "matmul_reduce_scatter", "allgather_matmul", "alltoall",
+                "ring_allreduce_hbm", "ring_allreduce_q8",
+                "ring_allreduce_bidir", "flash_attention_fwd")
+
+
+def wide_counters(ring, ov, attn):
+    """{name: wrapper} of WIDE_KERNELS (each has its .launches)."""
+    mods = (ring, ov, attn)
+    return {name: next(getattr(m, name) for m in mods if hasattr(m, name))
+            for name in WIDE_KERNELS}
+
+
+def wide_bitwise(label, fn, plain, x, axis, mesh, same_ring=True):
+    """RING_RUNS calls of fn against one of its plain version, bitwise, and
+    (same_ring) every rank of a ring bitwise equal to the first of its ring.
+    Returns (max |kernel - plain|, list of what failed); prints one line."""
+    outs = [fn(x, axis, mesh) for _ in range(RING_RUNS)]
+    torch.cuda.synchronize()
+    ref = plain(x, axis, mesh)
+    diff = max(float((o.double() - ref.double()).abs().max()) for o in outs)
+    bad = [] if all(torch.equal(o, ref) for o in outs) \
+        else ["differs from its plain version"]
+    if same_ring and not torch.equal(
+            outs[0], outs[0][[m[0] for m in mesh.ring_members(axis)]]):
+        bad.append("ranks of a ring differ")
+    print(f"{fn.__name__} {label}: {x.shape[0]} ranks of "
+          f"{tuple(x.shape[1:])} {str(x.dtype)[6:]}, ring {axis!r} of "
+          f"{mesh.shape[axis]}, {RING_RUNS} runs: max |kernel - plain| "
+          f"{diff:.3e}{'; FAILED: ' + ', '.join(bad) if bad else ''}")
+    return diff, bad
+
+
+def wide_twins(ring, ov, make_mesh, gen):
+    """Each one-card kernel at WIDE_RANKS ranks against its plain version:
+    B3, B4a, B4b, B9, B11 and B8 bitwise, B10 bitwise and within Q8_REL of
+    the f64 sum, B5a and B5b within overlap_close. Returns {kernel: max
+    |kernel - plain|}."""
+    dev = gen.device
+    errs, failed = {}, []
+
+    def keep(name, diff, bad, label):
+        errs[name] = max(errs.get(name, 0.0), diff)
+        failed.extend(f"{name} {label}: {b}" for b in bad)
+
+    for label, axes, axis in WIDE_MESHES:
+        mesh = make_mesh(axes, devices=[dev] * WIDE_RANKS)
+        n = axes[axis]
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((WIDE_RANKS, n * 4, 40), generator=gen,
+                            device=dev).to(dtype)
+            for fn, plain in (
+                    (ring.ring_allreduce, ring.ring_allreduce_plain),
+                    (ring.ring_reduce_scatter,
+                     ring.ring_reduce_scatter_plain),
+                    (ring.ring_allgather, ring.ring_allgather_plain)):
+                diff, bad = wide_bitwise(
+                    f"{label} {str(dtype)[6:]}", fn, plain, x, axis, mesh,
+                    same_ring=fn is not ring.ring_reduce_scatter)
+                keep(fn.__name__, diff, bad, label)
+        for variant, per, cols in (("hbm", n * 8, 128), ("q8", n * 32, 128),
+                                   ("bidir", n * 8, 256)):
+            x = torch.randn((WIDE_RANKS, per, cols), generator=gen,
+                            device=dev)
+            fn = getattr(ring, f"ring_allreduce_{variant}")
+            diff, bad = wide_bitwise(
+                label, fn, getattr(ring, f"ring_allreduce_{variant}_plain"),
+                x, axis, mesh)
+            if variant == "q8":
+                exact = torch.stack([x[row].double().sum(0)
+                                     for row in mesh.ring_members(axis)])
+                out = fn(x, axis, mesh)
+                rel = float((out.double() - exact).abs().max()
+                            / exact.abs().max())
+                print(f"  q8 {label}: max |out - sum| / max |sum| {rel:.3e}")
+                if not rel < Q8_REL:
+                    bad.append(f"rel {rel:.3e} to the sum")
+            keep(fn.__name__, diff, bad, label)
+        x = torch.randint(-2 ** 20, 2 ** 20, (WIDE_RANKS, n * 4, 24),
+                          generator=gen, device=dev).to(torch.bfloat16)
+        diff, bad = wide_bitwise(label, ring.alltoall, ring.alltoall_plain,
+                                 x, axis, mesh, same_ring=False)
+        keep("alltoall", diff, bad, label)
+        for dtype in (torch.float32, torch.bfloat16):
+            rows, k, cols = 8, 64, 64
+            x = torch.randn((WIDE_RANKS, n * rows, k), generator=gen,
+                            device=dev).to(dtype)
+            w = (torch.randn((WIDE_RANKS, k, cols), generator=gen,
+                             device=dev) / math.sqrt(k)).to(dtype)
+            xs = x[:, :rows].contiguous()
+            a_err = b_err = 0.0
+            ok = True
+            for _ in range(RING_RUNS):
+                out = ov.matmul_reduce_scatter(x, w, axis, mesh)
+                y, _ = ov.allgather_matmul_fwd(xs, w, axis, mesh)
+                torch.cuda.synchronize()
+                err, a_ok = overlap_close(
+                    out, ov.matmul_reduce_scatter_plain(x, w, axis, mesh))
+                a_err = max(a_err, err)
+                err, b_ok = overlap_close(
+                    y, ov.allgather_matmul_plain(xs, w, axis, mesh)[0])
+                b_err = max(b_err, err)
+                ok = ok and a_ok and b_ok
+            print(f"overlap {label} {str(dtype)[6:]}: {WIDE_RANKS} ranks, "
+                  f"ring {axis!r} of {n}, {RING_RUNS} runs: max |kernel - "
+                  f"plain| B5a {a_err:.3e}, B5b {b_err:.3e}"
+                  f"{'' if ok else '; FAILED'}")
+            keep("matmul_reduce_scatter", a_err,
+                 [] if ok else ["outside its tolerance"], label)
+            keep("allgather_matmul", b_err, [], label)
+    if failed:
+        raise AssertionError(f"the kernels disagree at {WIDE_RANKS} ranks: "
+                             f"{failed}")
+    return errs
+
+
+def wide_dry_run(entry_mod, counters):
+    """entry.dryrun_multichip(WIDE_RANKS) on the card, the counters set to 0
+    just before it and read just after. Returns ({kernel: launches},
+    seconds)."""
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    out = entry_mod.dryrun_multichip(WIDE_RANKS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    grads, loss = out["1f1b"]
+    print(f"dryrun_multichip({WIDE_RANKS}) on the card in {seconds:.2f} s: "
+          f"dp x tp loss {float(out['dp_tp']):.6f}, FSDP loss "
+          f"{float(out['fsdp'][0]):.6f}, 1F1B loss {float(loss.sum()):.6f}, "
+          f"dispatch_combine all 2.0 "
+          f"{bool((out['dispatch_combine'] == 2.0).all())}; launches "
+          f"{launches}")
+    missing = [name for name, n in launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"dryrun_multichip({WIDE_RANKS}) launched no "
+                             f"{missing}")
+    finite = all(bool(torch.isfinite(t).all()) for key, t in out.items()
+                 if key != "1f1b")
+    if not finite or not bool((out["dispatch_combine"] == 2.0).all()):
+        raise AssertionError(f"dryrun_multichip({WIDE_RANKS}) gave a "
+                             f"non-finite section or dropped a token")
+    return launches, seconds
+
+
+def wide_buffer(ring, entry_mod):
+    """The ring-variant path at WIDE_RANKS (ring_variants_entry(ranks=)):
+    each variant's forward and backward of sum(y ** 2) on the flagship's
+    gradient buffer, the launch counts read around it (2 of its own, no
+    other), y and dx bitwise their plain versions' and the same on every
+    rank; B9 and B11 also within VARIANT_RTOL of the f64 sum (dx of 2 n
+    sum). B10 is held to its plain version only: its int8 error grows with
+    the ring (phase 21 holds it within Q8_REL at 4 ranks; here it is
+    printed). Then B3 on the same buffer, bitwise its plain version.
+    Returns (x, mesh)."""
+    paths = entry_mod.ring_variants_entry(ranks=WIDE_RANKS)
+    counters = {"hbm": ring.ring_allreduce_hbm, "q8": ring.ring_allreduce_q8,
+                "bidir": ring.ring_allreduce_bidir, "b3": ring.ring_allreduce}
+    failed = []
+    for name, (fn, args) in paths.items():
+        variant, x, mesh = args
+        for c in counters.values():
+            c.launches = 0
+        y, g = fn(*args)
+        torch.cuda.synchronize()
+        got = {k: c.launches for k, c in counters.items()}
+        plain = getattr(ring, f"{variant.__name__}_plain")
+        y_ref = plain(x, "data", mesh)
+        g_ref = plain(2 * y_ref, "data", mesh)
+        n = x.shape[0]
+        exact = x.double().sum(0)
+        rels = [float((t[0].double() - w).abs().max() / w.abs().max())
+                for t, w in ((y, exact), (g, 2 * n * exact))]
+        bitwise = torch.equal(y, y_ref) and torch.equal(g, g_ref)
+        same = all(torch.equal(t[r], t[0]) for t in (y, g)
+                   for r in range(n))
+        print(f"ring-variant path {name} at {n} ranks: {tuple(x.shape[1:])} "
+              f"f32 a rank, forward + backward of sum(y ** 2): launches "
+              f"{got}; y and dx bitwise their plain versions {bitwise}; "
+              f"every rank bitwise equal {same}; max |y - sum| / max |sum| "
+              f"{rels[0]:.3e}, max |dx - 2 n sum| / max |2 n sum| "
+              f"{rels[1]:.3e}")
+        if got != {k: 2 if k == name else 0 for k in counters} \
+                or not bitwise or not same \
+                or (name != "q8" and max(rels) >= VARIANT_RTOL):
+            failed.append(name)
+        del y, g, y_ref, g_ref
+    if failed:
+        raise AssertionError(f"the ring-variant path at {WIDE_RANKS} ranks "
+                             f"failed: {failed}")
+    _, x, mesh = paths["hbm"][1]
+    print(f"flagship buffer at {WIDE_RANKS} ranks: {tuple(x.shape)} f32, "
+          f"{x[0].numel() * 4 / 1e6:.2f} MB a rank")
+    _, bad = wide_bitwise("flagship buffer", ring.ring_allreduce,
+                          ring.ring_allreduce_plain, x, "data", mesh)
+    if bad:
+        raise AssertionError(f"B3 on the flagship buffer at {WIDE_RANKS} "
+                             f"ranks: {bad}")
+    return x, mesh
+
+
+def wide_times(ring, ov, make_mesh, gen, x, mesh, card):
+    """Device ms per launch of every kernel at WIDE_RANKS ranks, beside the
+    bytes bound (each input read once, each output written once at
+    HBM_BYTES_PER_S): B3, B4a, B4b, B9, B10, B11 and B8 on the flagship
+    buffer x (P, 8192, 256) f32 along "data", B5a and B5b at 64-row bf16
+    chunks of the flagship's width. Returns {kernel: (ms, bound ms)}."""
+    p = x.shape[0]
+    s = x[0].numel() * 4
+    chunk = x[:, : x.shape[1] // p].contiguous()
+    d = x.shape[2]  # the flagship's d_model
+    dev = x.device
+    xa = torch.randn((p, p * 64, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    w = (torch.randn((p, d, d), generator=gen, device=dev)
+         / math.sqrt(d)).to(torch.bfloat16)
+    xb = xa[:, :64].contiguous()
+    cases = (
+        ("ring_allreduce", "ring_kernel",
+         lambda: ring.ring_allreduce(x, "data", mesh), 2 * p * s),
+        ("ring_reduce_scatter", "ring_kernel",
+         lambda: ring.ring_reduce_scatter(x, "data", mesh), p * s + s),
+        ("ring_allgather", "ring_kernel",
+         lambda: ring.ring_allgather(chunk, "data", mesh), s + p * s),
+        ("ring_allreduce_hbm", "hbm_kernel",
+         lambda: ring.ring_allreduce_hbm(x, "data", mesh), 2 * p * s),
+        ("ring_allreduce_q8", "q8_kernel",
+         lambda: ring.ring_allreduce_q8(x, "data", mesh), 2 * p * s),
+        ("ring_allreduce_bidir", "bidir_kernel",
+         lambda: ring.ring_allreduce_bidir(x, "data", mesh), 2 * p * s),
+        ("alltoall", "alltoall_kernel",
+         lambda: ring.alltoall(x, "data", mesh), 2 * p * s),
+        ("matmul_reduce_scatter", "matmul_rs_kernel",
+         lambda: ov.matmul_reduce_scatter(xa, w, "data", mesh),
+         2 * (xa.numel() + w.numel() + p * 64 * d)),
+        ("allgather_matmul", "ag_matmul_kernel",
+         lambda: ov.allgather_matmul_fwd(xb, w, "data", mesh),
+         2 * (xb.numel() + w.numel() + 2 * p * p * 64 * d)))
+    times = {}
+    for name, kernel, fn, nbytes in cases:
+        ms = timed_kernel(f"{name} at {p} ranks", fn, kernel)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        times[name] = (ms, bound)
+        print(f"  {name} at {p} ranks: bound {bound:.6f} ms (bytes, "
+              f"{nbytes / 1e6:.1f} MB), {card}")
+    missing = [name for name, (ms, _) in times.items() if ms is None]
+    if missing:
+        raise AssertionError(f"the profiler showed no device time at "
+                             f"{p} ranks for {missing}")
+    return times
+
+
+def worker_wide_peer(rank, size, store, device="cuda"):
+    """Phase 39 on one of WIDE_PEER_PROCESSES processes: a process mesh
+    {"data": WIDE_RANKS} of WIDE_RANKS / size local ranks on the card each,
+    the cross-process B3 WIDE_PEER_CALLS times on this process's rows of a
+    world drawn from a seed, each bitwise the rows of B3's plain version
+    on the whole world; its launches and event ms per call."""
+    from gloo_tpu_torch.ops import ring
+    from gloo_tpu_torch.tpu import init_multihost, make_mesh
+
+    _share_cores(size)
+    local = WIDE_RANKS // size
+    ctx, mesh = init_multihost(
+        rank, size, f"127.0.0.1:{os.environ['CHIP_SMOKE_WIDE_PORT']}",
+        {"data": WIDE_RANKS}, device_hostname="127.0.0.1",
+        devices=[device] * local)
+    world = torch.randn((WIDE_RANKS, *WIDE_PEER_SHAPE),
+                        generator=torch.Generator().manual_seed(39))
+    cpu = make_mesh({"data": WIDE_RANKS}, devices=["cpu"] * WIDE_RANKS)
+    want = ring.ring_allreduce_plain(world, "data", cpu)[mesh.local_ranks]
+    x = world[mesh.local_ranks].to(mesh.device)
+    ring.ring_allreduce.launches = 0
+    same = []
+    for _ in range(WIDE_PEER_CALLS):
+        out = ring.ring_allreduce(x, "data", mesh)
+        torch.cuda.synchronize()
+        same.append(torch.equal(out.cpu(), want))
+    launches = ring.ring_allreduce.launches
+    ctx.barrier()
+    ms = event_ms(lambda: ring.ring_allreduce(x, "data", mesh), iters=5)
+    ctx.barrier()
+    result = {"local_ranks": mesh.local_ranks, "bitwise": same,
+              "launches": launches, "event_ms": ms}
+    ctx.close()
+    return result
+
+
+def wide_peer_phase(card):
+    """Phase 39's cross-process B3: worker_wide_peer in WIDE_PEER_PROCESSES
+    processes on the card. Returns rank 0's event ms per call."""
+    env = {"CHIP_SMOKE_WIDE_PORT": str(_free_port())}
+    res = run_workers("39", timeout=WIDE_PEER_TIMEOUT,
+                      size=WIDE_PEER_PROCESSES, env=env)
+    for rank, r in enumerate(res):
+        print(f"cross-process ring_allreduce, process {rank} of "
+              f"{WIDE_PEER_PROCESSES}: {len(r['local_ranks'])} local ranks "
+              f"of {WIDE_RANKS} ({r['local_ranks'][0]}..."
+              f"{r['local_ranks'][-1]}), {WIDE_PEER_SHAPE} f32 each; "
+              f"launches {r['launches']}, bitwise the world's plain rows "
+              f"{r['bitwise']}; {r['event_ms']:.3f} ms per call (events, "
+              f"time-sliced), {card}")
+        if not all(r["bitwise"]) or r["launches"] != WIDE_PEER_CALLS:
+            raise AssertionError(f"the cross-process ring_allreduce at "
+                                 f"{WIDE_RANKS} ranks failed on process "
+                                 f"{rank}: {r}")
+    return res[0]["event_ms"]
+
+
+def wide_world_phase(ring, ov, attn, entry_mod, make_mesh, gen, card):
+    """Phase 39 (see the comment above WIDE_RANKS). Returns {kernel:
+    (launches in the dry run, max |kernel - plain| at WIDE_RANKS, device
+    ms, bound ms)}."""
+    t0 = time.perf_counter()
+    counters = wide_counters(ring, ov, attn)
+    launches, _ = wide_dry_run(entry_mod, counters)
+    errs = wide_twins(ring, ov, make_mesh, gen)
+    x, mesh = wide_buffer(ring, entry_mod)
+    times = wide_times(ring, ov, make_mesh, gen, x, mesh, card)
+    del x
+    torch.cuda.empty_cache()
+    wide_peer_phase(card)
+    rows = {name: (launches[name], errs[name], *times[name])
+            for name in times}
+    print(json.dumps({"wide_world": {
+        "ranks": WIDE_RANKS, "card": card,
+        "kernels": {k: dict(zip(("launches", "max_abs_err", "ms",
+                                 "bound_ms"), v)) for k, v in rows.items()},
+        "flash_fwd_launches": launches["flash_attention_fwd"],
+        "seconds": time.perf_counter() - t0}}))
+    return rows
+
+
 WORKERS = {"26": worker_staging, "27": worker_host_sync, "28": worker_hier,
            "29": worker_elastic, "29b": worker_run_elastic,
            "30": worker_surface, "32": worker_traced,
            "34": worker_peer, "35": worker_tp_peer, "36": worker_spp_peer,
-           "37": worker_fsdp_peer}
+           "37": worker_fsdp_peer, "39": worker_wide_peer}
 
 
 def host_phases(card):
@@ -6874,6 +7242,14 @@ def main():
     # instances and the wide kernels on its serving, training and
     # ring-flash paths.
     wide = head_width_phase(attn, sp, spmd, make_mesh, entry_mod, card)
+
+    at_phase("39")
+    # Phase 39: worlds past 32 ranks: the dry run at WIDE_RANKS ranks on
+    # the card, every one-card kernel there against its plain version, the
+    # flagship's gradient buffer through B3, B9, B10 and B11, each kernel's
+    # device ms per launch, and the cross-process B3 at WIDE_RANKS ranks
+    # over WIDE_PEER_PROCESSES processes.
+    wide_world_phase(ring, ov, attn, entry_mod, make_mesh, gen, card)
     at_phase("end")
 
     # Launches on the main paths: B1 on the serving path, B2 on the

@@ -8,9 +8,10 @@
 // rank's local value. Any element type: the kernel copies bytes.
 //
 // The ranks are a world on one card, as in ring.cu: rank r's input, output
-// and flags are its own buffers, reached through a table of per-rank
-// pointers, and its part of the exchange runs as its own thread blocks. A
-// (rank, ring index) -> flat rank table names each rank's peers.
+// and flags are its own buffers, at base + r x stride, and its part of
+// the exchange runs as its own thread blocks. A (rank, ring index) -> flat
+// rank table in device memory names each rank's peers (ring_common.cuh's
+// Rings; no rank ceiling).
 //
 // Blocks as strided slabs (lax.all_to_all's split and concat axes). Write
 // a rank's contiguous local value as (A, n c, B) around the split axis and
@@ -86,11 +87,12 @@ constexpr int kFlagStride = 1;
 constexpr int kPeerEntry = kBarrier;
 
 struct Params {
-  const void* in[kMaxRanks];
-  void* out[kMaxRanks];
-  int* flags[kMaxRanks];
-  int my[kMaxRanks];
-  unsigned char members[kMaxRanks][kMaxRanks];  // ring index -> flat rank
+  // Rank r's input and flags; block row x's output (x = r on one card,
+  // local rank x across processes).
+  PerRank<const void> in;
+  PerRank<void> out;
+  PerRank<int> flags;
+  Rings rings;  // in device memory
   int n;
   int group;           // threads per run
   long long runs;      // runs per block
@@ -105,14 +107,15 @@ struct Params {
 
 // Units [w0, w1) of one run, step `step` apart from this thread's first:
 // the run starts at unit `src` of block my of every member's input and at
-// unit `dst` of block 0 of rank r's output.
-template <typename U>
-__device__ __forceinline__ void copy_run(const Params& p, int r,
+// unit `dst` of block 0 of the output of the rank whose ring row is
+// `ring` (block row blockIdx.x's).
+template <typename U, Scope S>
+__device__ __forceinline__ void copy_run(const Params& p, const int* ring,
                                          long long src, long long dst,
                                          long long w0, long long w1,
                                          int step) {
   const int n = p.n;
-  U* const out = static_cast<U*>(p.out[r]) + dst;
+  U* const out = static_cast<U*>(p.out.at(blockIdx.x)) + dst;
   for (long long w = w0; w < w1; w += static_cast<long long>(step) * kUnroll) {
     for (int k0 = 0; k0 < n; k0 += kGroup) {
       U v[kGroup][kUnroll];
@@ -120,7 +123,7 @@ __device__ __forceinline__ void copy_run(const Params& p, int r,
       for (int g = 0; g < kGroup; ++g) {
         if (k0 + g < n) {
           const U* const in =
-              static_cast<const U*>(p.in[p.members[r][k0 + g]]) + src;
+              static_cast<const U*>(p.in.at<S>(ring[k0 + g])) + src;
 #pragma unroll
           for (int i = 0; i < kUnroll; ++i) {
             if (w + i * step < w1) v[g][i] = __ldg(in + w + i * step);
@@ -160,14 +163,14 @@ __device__ __forceinline__ void run_offsets(const Params& p, int my,
 template <typename U, Scope S>
 __device__ __forceinline__ void alltoall_body(const Params& p, int r,
                                               int before) {
-  const int n = p.n, my = p.my[r];
-  const unsigned char* const ring = p.members[r];
+  const int n = p.n, my = p.rings.my[r];
+  const int* const ring = p.rings.ring(r, n);
   const int flag = S == Scope::kGpu ? blockIdx.y : kPeerEntry;
   const int bar_base =
       S == Scope::kGpu ? 0 : before + (n - 1) * (gridDim.y - 1);
 
-  members_barrier<S>(p.flags[r] + flag, n, [&](int k) {
-    return p.flags[ring[wrap(my + k, n)]] + flag;
+  members_barrier<S>(p.flags.at<S>(r) + flag, ring, n, r, [&](int m) {
+    return p.flags.at<S>(m) + flag;
   }, bar_base);
 
   long long src, dst;
@@ -179,9 +182,9 @@ __device__ __forceinline__ void alltoall_body(const Params& p, int r,
     for (long long j = lo / p.run; j * p.run < hi; ++j) {
       run_offsets(p, my, j, &src, &dst);
       const long long base = j * p.run;
-      copy_run<U>(p, r, src, dst,
-                  (lo > base ? lo - base : 0) + threadIdx.x,
-                  hi - base < p.run ? hi - base : p.run, kThreads);
+      copy_run<U, S>(p, ring, src, dst,
+                     (lo > base ? lo - base : 0) + threadIdx.x,
+                     hi - base < p.run ? hi - base : p.run, kThreads);
     }
   } else {
     // Short runs: this slice's runs [lo, hi), one per group of threads.
@@ -190,39 +193,38 @@ __device__ __forceinline__ void alltoall_body(const Params& p, int r,
     const int groups = kThreads / p.group;
     for (long long j = lo + threadIdx.x / p.group; j < hi; j += groups) {
       run_offsets(p, my, j, &src, &dst);
-      copy_run<U>(p, r, src, dst, threadIdx.x % p.group, p.run, p.group);
+      copy_run<U, S>(p, ring, src, dst, threadIdx.x % p.group, p.run, p.group);
     }
   }
   if constexpr (S == Scope::kSys) {
     // No member may return, and reuse its input, while a peer can still
     // read it.
-    exit_barrier<S>(p.flags[r] + kPeerExit, n, [&](int k) {
-      return p.flags[ring[wrap(my + k, n)]] + kPeerExit;
+    exit_barrier<S>(p.flags.at<S>(r) + kPeerExit, ring, n, r, [&](int m) {
+      return p.flags.at<S>(m) + kPeerExit;
     }, bar_base);
   }
 }
 
-// U: the unit of access (16, 8, 4, 2 or 1 bytes). The peer table stays in
-// parameter space (__grid_constant__: indexing it takes no local copy).
+// U: the unit of access (16, 8, 4, 2 or 1 bytes).
 template <typename U>
 __global__ void __launch_bounds__(kThreads)
 alltoall_kernel(const __grid_constant__ Params p) {
   alltoall_body<U, Scope::kGpu>(p, blockIdx.x, 0);
 }
 
-// The cross-process instance: Params over every member's peer-mapped
-// input and flags (and this process's outputs), the flat rank each block
-// row plays, and the flags' count before the call.
+// The cross-process instance: Params over device tables of every
+// member's peer-mapped input and flags (and this process's outputs; block
+// x plays flat rank rings.local[x]), and the flags' count before the call.
 struct PeerParams {
   Params p;
-  int local[kMaxRanks];  // block x plays flat rank local[x]
   int before;
 };
 
 template <typename U>
 __global__ void __launch_bounds__(kThreads)
 alltoall_peer_kernel(const __grid_constant__ PeerParams q) {
-  alltoall_body<U, Scope::kSys>(q.p, q.local[blockIdx.x], q.before);
+  alltoall_body<U, Scope::kSys>(q.p, q.p.rings.local[blockIdx.x],
+                                q.before);
 }
 
 template <typename U, bool kPeer>
@@ -271,7 +273,7 @@ bool fill_geometry(Params& p, int unit, int n, int slices,
     return d > 0 && v % d == 0;
   };
   const long long run_units = run > 0 ? run / unit : 0;
-  if (n < 2 || n > kMaxRanks || slices < 1 || slices > 65535 ||
+  if (n < 2 || slices < 1 || slices > 65535 ||
       block_bytes < 1 || !divides(run, in_run) || !divides(run, out_run) ||
       !divides(in_run, block_bytes) || !divides(out_run, block_bytes) ||
       !divides(unit, run) || in_pitch % unit || out_pitch % unit ||
@@ -312,7 +314,9 @@ int gtt_alltoall_peer_max_blocks(int* blocks) {
 // Returns a cudaError_t; 0 is success. Rank r's input is x + r * in_stride
 // and its output out + r * out_stride (bytes); flags: ranks x slices x
 // flag_stride zeroed ints. my: each rank's ring index; members: ranks x n
-// flat ranks, row r the ring of rank r in ring order. A block is
+// flat ranks, row r the ring of rank r in ring order (host arrays, checked
+// before the launch); table: the same tables in device memory
+// (ring_common.cuh's Rings), which the kernel reads. A block is
 // block_bytes: rows of in_run bytes in_pitch apart on the input (block k
 // at k in_run along a row), rows of out_run bytes out_pitch apart on the
 // output (block k at k out_run). run: the bytes copied as one contiguous
@@ -322,36 +326,29 @@ int gtt_alltoall_peer_max_blocks(int* blocks) {
 // larger than run / unit.
 int gtt_alltoall(const void* x, long long in_stride, void* out,
                  long long out_stride, int* flags, int flag_stride,
-                 const int* my, const int* members, int ranks, int n,
-                 int slices, long long block_bytes, long long in_run,
-                 long long in_pitch, long long out_run, long long out_pitch,
-                 long long run, int unit, int group, void* stream) {
+                 const int* my, const int* members, const int* table,
+                 int ranks, int n, int slices, long long block_bytes,
+                 long long in_run, long long in_pitch, long long out_run,
+                 long long out_pitch, long long run, int unit, int group,
+                 void* stream) {
   void* fn = kernel_of(unit);
   Params p;
   memset(&p, 0, sizeof(p));
-  if (fn == nullptr || ranks < 2 || ranks > kMaxRanks || n > ranks ||
+  if (fn == nullptr || ranks < 2 || n > ranks ||
       !fill_geometry(p, unit, n, slices, block_bytes, in_run, in_pitch,
                      out_run, out_pitch, run, group) ||
       in_stride % unit || out_stride % unit ||
       reinterpret_cast<uintptr_t>(x) % unit ||
       reinterpret_cast<uintptr_t>(out) % unit ||
-      flag_stride != kFlagStride) {
+      flag_stride != kFlagStride ||
+      !check_rings(my, members, nullptr, ranks, ranks, n, table)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  for (int r = 0; r < ranks; ++r) {
-    if (my[r] < 0 || my[r] >= n) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    for (int k = 0; k < n; ++k) {
-      const int m = members[r * n + k];
-      if (m < 0 || m >= ranks) return static_cast<int>(cudaErrorInvalidValue);
-      p.members[r][k] = static_cast<unsigned char>(m);
-    }
-    p.in[r] = static_cast<const char*>(x) + r * in_stride;
-    p.out[r] = static_cast<char*>(out) + r * out_stride;
-    p.flags[r] = flags + static_cast<long long>(r) * slices * flag_stride;
-    p.my[r] = my[r];
-  }
+  p.in = strided(x, in_stride);
+  p.out = strided(out, out_stride);
+  p.flags = strided(flags, static_cast<long long>(slices) * flag_stride *
+                               static_cast<long long>(sizeof(int)));
+  p.rings = rings_at(table, ranks, ranks);
   void* args[] = {&p};
   cudaError_t err = cudaLaunchCooperativeKernel(
       fn, dim3(ranks, slices), dim3(kThreads), args, 0,
@@ -363,48 +360,41 @@ int gtt_alltoall(const void* x, long long in_stride, void* out,
 // The cross-process instance: one cooperative launch of grid (local_ranks,
 // slices) per process. in and flags: `ranks` host arrays of device
 // pointers by flat rank (each member's input, peer-mapped or this
-// process's own, and its kPeerFlags flag ints); out: this process's
-// outputs, local rank x's at out + x * out_stride; local: the flat ranks
-// this process plays; my and members as gtt_alltoall's (members' rows read
-// for the local ranks); the block geometry as gtt_alltoall's. before: the
+// process's own, and its kPeerFlags flag ints), d_in and d_flags the same
+// arrays in device memory (tpu/peer.py's PeerWorkspace.device_table); out:
+// this process's outputs, local rank x's at out + x * out_stride; local:
+// the flat ranks this process plays; my, members and table as
+// gtt_alltoall's (members' rows read for the local ranks; table's local
+// part is this process's); the block geometry as gtt_alltoall's. before: the
 // flags' count before this call (each call adds (n - 1) slices to each);
 // every process of the ring makes the same calls in the same order with
 // the same slices.
 int gtt_alltoall_peer(const void* const* in, void* out, long long out_stride,
-                      int* const* flags, const int* local, int local_ranks,
-                      const int* my, const int* members, int ranks, int n,
-                      int slices, long long block_bytes, long long in_run,
-                      long long in_pitch, long long out_run,
+                      int* const* flags, const void* const* d_in,
+                      int* const* d_flags, const int* local, int local_ranks,
+                      const int* my, const int* members, const int* table,
+                      int ranks, int n, int slices, long long block_bytes,
+                      long long in_run, long long in_pitch, long long out_run,
                       long long out_pitch, long long run, int unit,
                       int group, int before, void* stream) {
   void* fn = kernel_of<true>(unit);
   PeerParams q;
   memset(&q, 0, sizeof(q));
   Params& p = q.p;
-  if (fn == nullptr || ranks < 2 || ranks > kMaxRanks || n > ranks ||
-      local_ranks < 1 || local_ranks > ranks || before < 0 ||
+  if (fn == nullptr || ranks < 2 || n > ranks || local_ranks < 1 ||
+      local_ranks > ranks || before < 0 || d_in == nullptr ||
+      d_flags == nullptr ||
       !fill_geometry(p, unit, n, slices, block_bytes, in_run, in_pitch,
                      out_run, out_pitch, run, group) ||
-      out_stride % unit || reinterpret_cast<uintptr_t>(out) % unit) {
+      out_stride % unit || reinterpret_cast<uintptr_t>(out) % unit ||
+      !check_rings(my, members, local, local_ranks, ranks, n, table) ||
+      !check_pointers(in, ranks, unit) || !check_pointers(flags, ranks)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (!fill_rings(p.my, p.members, my, members, local, local_ranks, ranks,
-                  n)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  for (int r = 0; r < ranks; ++r) {
-    if (in[r] == nullptr || flags[r] == nullptr ||
-        reinterpret_cast<uintptr_t>(in[r]) % unit) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    p.in[r] = in[r];
-    p.flags[r] = flags[r];
-  }
-  for (int x = 0; x < local_ranks; ++x) {
-    const int r = local[x];
-    p.out[r] = static_cast<char*>(out) + x * out_stride;
-    q.local[x] = r;
-  }
+  p.in = tabled(d_in);
+  p.out = strided(out, out_stride);
+  p.flags = tabled(d_flags);
+  p.rings = rings_at(table, ranks, local_ranks);
   q.before = before;
   void* args[] = {&q};
   cudaError_t err = cudaLaunchCooperativeKernel(

@@ -128,15 +128,15 @@ struct Params {
   CUtensorMap x;
   CUtensorMap gx;
   CUtensorMap w;
-  // The peer table: out B5a (rows, cols), B5b y (n rows, cols); comm B5a
-  // 2 slots of tiles x kTileWords 8-byte words, zeroed; flags tiles x
-  // flag_stride ints, zeroed.
-  void* out[kMaxRanks];
-  void* comm[kMaxRanks];
-  int* flags[kMaxRanks];
-  int my[kMaxRanks];
-  int right[kMaxRanks];
-  int left[kMaxRanks];
+  // Block row x's output: B5a (rows, cols), B5b y (n rows, cols) (x = r
+  // on one card, local rank x across processes). Rank r's comm (B5a: 2
+  // slots of tiles x kTileWords 8-byte words, zeroed) and flags (tiles x
+  // flag_stride ints, zeroed; across processes its flag region, whose
+  // tile flags start kPeerTileFlags ints in).
+  PerRank<void> out;
+  PerRank<void> comm;
+  PerRank<int> flags;
+  Rings rings;  // my, right, left (and local) in device memory
   int n;
   int tiles;
   int col_tiles;
@@ -238,13 +238,11 @@ constexpr int kPeerEntry = 0;
 constexpr int kPeerExitFlag = 1;
 
 struct PeerParams {
-  Params p;
+  Params p;  // p.flags: rank r's entry and exit flags, then its tiles'
   // Local rank x's map of its right neighbour's gx (k, rows, n, 1).
   CUtensorMap gx_right[kMaxLocal];
-  int* barrier[kMaxRanks];  // rank r's entry and exit flags
-  int local[kMaxRanks];     // block x plays flat rank local[x]
-  int tag;                  // the family's tag before this call
-  int bar_base;             // the barrier flags' count before this call
+  int tag;       // the family's tag before this call
+  int bar_base;  // the barrier flags' count before this call
 };
 
 // Across processes: the barrier on flag `which` among the n members of
@@ -259,11 +257,11 @@ __device__ __forceinline__ void peer_barrier(const PeerParams& q, int r,
     __threadfence_system();
     int m = r;
     for (int k = 1; k < p.n; ++k) {
-      m = p.right[m];
-      add_release<Scope::kSys>(q.barrier[m] + which, 1);
+      m = p.rings.right[m];
+      add_release<Scope::kSys>(p.flags.at<Scope::kSys>(m) + which, 1);
     }
   }
-  wait_flag<Scope::kSys>(q.barrier[r] + which,
+  wait_flag<Scope::kSys>(p.flags.at<Scope::kSys>(r) + which,
                          q.bar_base + (p.n - 1) * static_cast<int>(gridDim.y));
 }
 
@@ -598,30 +596,33 @@ __device__ __forceinline__ void take_tile(float* acc, const uint64_t* src,
 }
 
 // B5a. Block (x, j) plays rank r: x itself on one card (q unused),
-// q->local[x] across processes.
+// rings.local[x] across processes.
 template <typename T, bool kKMajor, bool kPeer>
 __device__ __forceinline__ void matmul_rs_body(const Params& p,
                                                const PeerParams* q) {
   extern __shared__ uint8_t smem_raw[];
   constexpr Scope S = kPeer ? Scope::kSys : Scope::kGpu;
-  const int r = kPeer ? q->local[blockIdx.x] : blockIdx.x;
-  Block<T, true, kKMajor> b(p, aligned_smem(smem_raw), p.my[r]);
-  const int n = p.n, right = p.right[r], left = p.left[r];
+  const int r = kPeer ? p.rings.local[blockIdx.x] : blockIdx.x;
+  Block<T, true, kKMajor> b(p, aligned_smem(smem_raw), p.rings.my[r]);
+  const int n = p.n, right = p.rings.right[r], left = p.rings.left[r];
+  // Ints of a rank's flags before its tile flags.
+  constexpr int kTileFlags = kPeer ? kPeerTileFlags : 0;
   const int rows = p.rows, cols = p.cols;
   // Write j of this call carries tag0 + j + 1 (tag0 0 on one card, where
   // the slots are zeroed per call).
   const uint32_t tag0 = kPeer ? static_cast<uint32_t>(q->tag) : 0u;
   const long long slot = static_cast<long long>(p.tiles) * kTileWords<T>;
-  T* const out = static_cast<T*>(p.out[r]);
-  const uint64_t* const comm = static_cast<const uint64_t*>(p.comm[r]);
-  uint64_t* const peer = static_cast<uint64_t*>(p.comm[right]);
+  T* const out = static_cast<T*>(p.out.at(blockIdx.x));
+  const uint64_t* const comm =
+      static_cast<const uint64_t*>(p.comm.at<S>(r));
+  uint64_t* const peer = static_cast<uint64_t*>(p.comm.at<S>(right));
   auto none = [](uint8_t*, int) {};
   float acc[32];
   if constexpr (kPeer) peer_barrier(*q, r, kPeerEntry);
   for (int tile = blockIdx.y; tile < p.tiles; tile += gridDim.y) {
     const long long fo = static_cast<long long>(tile) * p.flag_stride;
-    int* const fl_me = p.flags[r] + fo;
-    int* const fl_left = p.flags[left] + fo;
+    int* const fl_me = p.flags.at<S>(r) + kTileFlags + fo;
+    int* const fl_left = p.flags.at<S>(left) + kTileFlags + fo;
     const long long to = static_cast<long long>(tile) * kTileWords<T>;
     b.begin_tile(tile, n);
     // partial(my - 1), rounded, into the right neighbour's slot 0:
@@ -694,14 +695,15 @@ __device__ __forceinline__ void ag_matmul_body(const Params& p,
   extern __shared__ uint8_t smem_raw[];
   constexpr Scope S = kPeer ? Scope::kSys : Scope::kGpu;
   using B = Block<T, false, kKMajor>;
-  const int r = kPeer ? q->local[blockIdx.x] : blockIdx.x;
-  B b(p, aligned_smem(smem_raw), p.my[r]);
-  const int n = p.n, my = b.my, right = p.right[r];
+  const int r = kPeer ? p.rings.local[blockIdx.x] : blockIdx.x;
+  B b(p, aligned_smem(smem_raw), p.rings.my[r]);
+  const int n = p.n, my = b.my, right = p.rings.right[r];
+  constexpr int kTileFlags = kPeer ? kPeerTileFlags : 0;
   const int rows = p.rows, cols = p.cols;
   // A chunk's flag is released to tag0 + 1 (1 on one card, where the
   // flags are zeroed per call).
   const int tag0 = kPeer ? q->tag : 0;
-  T* const y = static_cast<T*>(p.out[r]);
+  T* const y = static_cast<T*>(p.out.at(blockIdx.x));
   float acc[32];
   if constexpr (kPeer) peer_barrier(*q, r, kPeerEntry);
   for (int tile = blockIdx.y; tile < p.tiles; tile += gridDim.y) {
@@ -709,8 +711,8 @@ __device__ __forceinline__ void ag_matmul_body(const Params& p,
     const bool forwards = tile % p.col_tiles == 0;
     const long long fo = static_cast<long long>(rt) * p.col_tiles *
                          p.flag_stride;
-    int* const fl_me = p.flags[r] + fo;
-    int* const fl_right = p.flags[right] + fo;
+    int* const fl_me = p.flags.at<S>(r) + kTileFlags + fo;
+    int* const fl_right = p.flags.at<S>(right) + kTileFlags + fo;
     b.begin_tile(tile, 1);
     for (int t = 0; t < n; ++t) {
       if (t > 0) {
@@ -843,7 +845,7 @@ int prepare(Params& p, bool rs, const void* x, long long x_ld, const void* w,
   const auto aligned = [](const void* a) {
     return (reinterpret_cast<uintptr_t>(a) & 15) == 0;
   };
-  if (elt == 0 || n < 2 || n > kMaxRanks || map_ranks < 1 || rows < 1 ||
+  if (elt == 0 || n < 2 || map_ranks < 1 || rows < 1 ||
       k < 1 || cols < 1 || x_ld < k || (x_ld * elt) % 16 ||
       slabs != (k + depth - 1) / depth || ring < 1 || ring > kMaxRing ||
       slices < 1 || slices > tiles || slices > 65535 ||
@@ -908,16 +910,19 @@ int prepare(Params& p, bool rs, const void* x, long long x_ld, const void* w,
   return 0;
 }
 
-// Fills rank i's ring tables; false where they name no rank.
-bool fill_ring(Params& p, int i, int ranks, int n, const int* my,
-               const int* right, const int* left) {
-  if (my[i] < 0 || my[i] >= n || right[i] < 0 || right[i] >= ranks ||
-      left[i] < 0 || left[i] >= ranks) {
+// Checks every rank's ring tables (host arrays; the kernel reads their
+// device copy `table`, 4-byte aligned): false where they name no rank.
+bool check_ring(int ranks, int n, const int* my, const int* right,
+                const int* left, const void* table) {
+  if (table == nullptr || reinterpret_cast<uintptr_t>(table) % 4) {
     return false;
   }
-  p.my[i] = my[i];
-  p.right[i] = right[i];
-  p.left[i] = left[i];
+  for (int i = 0; i < ranks; ++i) {
+    if (my[i] < 0 || my[i] >= n || right[i] < 0 || right[i] >= ranks ||
+        left[i] < 0 || left[i] >= ranks) {
+      return false;
+    }
+  }
   return true;
 }
 
@@ -926,11 +931,12 @@ bool fill_ring(Params& p, int i, int ranks, int n, const int* my,
 int run(bool rs, const void* x, long long x_ld, const void* w,
         long long w_stride, long long w_sk, long long w_sn, void* out,
         void* gx, void* comm, int* flags, int flag_stride, const int* my,
-        const int* right, const int* left, int ranks, int n, int slices,
-        int rows, int k, int cols, int slabs, int ring, int w_resident,
-        int smem, int dtype, void* stream) {
+        const int* right, const int* left, const int* table, int ranks,
+        int n, int slices, int rows, int k, int cols, int slabs, int ring,
+        int w_resident, int smem, int dtype, void* stream) {
   const int elt = elt_of(dtype);
-  if (ranks < 2 || ranks > kMaxRanks || n > ranks || (rs && comm == nullptr)) {
+  if (ranks < 2 || n > ranks || (rs && comm == nullptr) ||
+      !check_ring(ranks, n, my, right, left, table)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;
@@ -940,17 +946,13 @@ int run(bool rs, const void* x, long long x_ld, const void* w,
                           slabs, ring, w_resident, smem, flag_stride, dtype);
   if (err != 0) return err;
   const long long tiles = tiles_of(rows, cols);
-  for (int i = 0; i < ranks; ++i) {
-    if (!fill_ring(p, i, ranks, n, my, right, left)) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    const long long out_rows = rs ? rows : static_cast<long long>(n) * rows;
-    p.out[i] = static_cast<char*>(out) + i * out_rows * cols * elt;
-    const long long words = tiles * kThreads * (elt == 2 ? 16 : 32);
-    p.comm[i] = comm ? static_cast<char*>(comm) + i * 2 * words * 8
-                     : nullptr;
-    p.flags[i] = flags + i * tiles * flag_stride;
-  }
+  const long long out_rows = rs ? rows : static_cast<long long>(n) * rows;
+  const long long words = tiles * kThreads * (elt == 2 ? 16 : 32);
+  p.out = strided(out, out_rows * cols * elt);
+  p.comm = strided(comm, comm ? 2 * words * 8 : 0);
+  p.flags = strided(flags, tiles * flag_stride *
+                               static_cast<long long>(sizeof(int)));
+  p.rings = rings_at(table, ranks, ranks);
   const bool k_major = w_sn != 1 && w_sk == 1;
   return launch_for<false>(dtype, k_major, rs, p, dim3(ranks, slices), smem,
                            stream);
@@ -961,19 +963,23 @@ int run(bool rs, const void* x, long long x_ld, const void* w,
 // gx, comm and flags are `ranks` host arrays of device pointers by flat
 // rank (each member's gathered x (n, rows, k), comm slots and flag region
 // of kPeerTileFlags ints then tiles x flag_stride; peer-mapped, or this
-// process's own for its local ranks, whose gx lie gx_stride bytes apart).
+// process's own for its local ranks, whose gx lie gx_stride bytes apart),
+// d_comm and d_flags the device copies of comm and flags that the kernel
+// reads.
 int run_peer(bool rs, const void* x, long long x_ld, const void* w,
              long long w_stride, long long w_sk, long long w_sn, void* out,
              void* const* gx, long long gx_stride, void* const* comm,
-             int* const* flags, int flag_stride, const int* local,
-             int local_ranks, const int* my, const int* right,
-             const int* left, int ranks, int n, int slices, int rows, int k,
+             int* const* flags, void* const* d_comm, int* const* d_flags,
+             int flag_stride, const int* local, int local_ranks,
+             const int* my, const int* right, const int* left,
+             const int* table, int ranks, int n, int slices, int rows, int k,
              int cols, int slabs, int ring, int w_resident, int smem,
              int dtype, int tag, int bar_base, void* stream) {
   const int elt = elt_of(dtype);
-  if (ranks < 2 || ranks > kMaxRanks || n > ranks || local_ranks < 1 ||
+  if (ranks < 2 || n > ranks || local_ranks < 1 ||
       local_ranks > kMaxLocal || local_ranks > ranks || tag < 0 ||
-      bar_base < 0) {
+      bar_base < 0 || d_flags == nullptr || (rs && d_comm == nullptr) ||
+      !check_ring(ranks, n, my, right, left, table)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   PeerParams q;
@@ -990,22 +996,21 @@ int run_peer(bool rs, const void* x, long long x_ld, const void* w,
                           slabs, ring, w_resident, smem, flag_stride, dtype);
   if (err != 0) return err;
   for (int i = 0; i < ranks; ++i) {
-    if (!fill_ring(p, i, ranks, n, my, right, left) || flags[i] == nullptr ||
-        (rs && comm[i] == nullptr) || (!rs && gx[i] == nullptr)) {
+    if (flags[i] == nullptr || (rs && comm[i] == nullptr) ||
+        (!rs && gx[i] == nullptr)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    p.comm[i] = rs ? comm[i] : nullptr;
-    p.flags[i] = flags[i] + kPeerTileFlags;
-    q.barrier[i] = flags[i];
   }
   const long long out_rows = rs ? rows : static_cast<long long>(n) * rows;
+  p.out = strided(out, out_rows * cols * elt);
+  p.comm = rs ? tabled(d_comm) : strided<void>(nullptr, 0);
+  p.flags = tabled(d_flags);
+  p.rings = rings_at(table, ranks, local_ranks);
   const cuuint64_t line = static_cast<cuuint64_t>(x_ld) * elt;
   const cuuint32_t xbox[4] = {static_cast<cuuint32_t>(kSlabBytes / elt),
                               kTileM, 1, 1};
   for (int x_i = 0; x_i < local_ranks; ++x_i) {
     const int r = local[x_i];
-    q.local[x_i] = r;
-    p.out[r] = static_cast<char*>(out) + x_i * out_rows * cols * elt;
     if (rs) continue;
     if (static_cast<const char*>(gx[r]) !=
         static_cast<const char*>(own_gx) + x_i * gx_stride) {
@@ -1016,7 +1021,7 @@ int run_peer(bool rs, const void* x, long long x_ld, const void* w,
                                 static_cast<cuuint64_t>(rows),
                                 static_cast<cuuint64_t>(n), 1};
     const cuuint64_t strides[3] = {line, line * rows, line * rows * n};
-    const cudaError_t e = encode(&q.gx_right[x_i], dtype, 4, gx[p.right[r]],
+    const cudaError_t e = encode(&q.gx_right[x_i], dtype, 4, gx[right[r]],
                                  dims, strides, xbox);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
@@ -1109,8 +1114,10 @@ int gtt_overlap_peer_max_local() { return kMaxLocal; }
 // depth)), ring the slab buffers, w_resident whether W's column tile stays
 // in shared memory, smem the bytes of dynamic shared memory per block
 // (at least what the plan needs; LaunchPlan.smem in ops/overlap.py).
-// my/right/left: host arrays of `ranks` ints. flags: (ranks, tiles,
-// flag_stride) zeroed ints.
+// my/right/left: host arrays of `ranks` ints, checked before the launch;
+// table: the same tables in device memory (ring_common.cuh's Rings), which
+// the kernel reads. Any number of ranks whose blocks the card holds at
+// once. flags: (ranks, tiles, flag_stride) zeroed ints.
 
 // B5a: x (n rows, k) per rank -> out (rows, cols) per rank; comm holds 2
 // zeroed slots per rank of tiles x 128 x 16 (bf16, f16) or x 32 (f32)
@@ -1118,13 +1125,13 @@ int gtt_overlap_peer_max_local() { return kMaxLocal; }
 int gtt_matmul_rs(const void* x, long long x_ld, const void* w,
                   long long w_stride, long long w_sk, long long w_sn,
                   void* out, void* comm, int* flags, int flag_stride,
-                  const int* my, const int* right, const int* left, int ranks,
-                  int n, int slices, int rows, int k, int cols, int slabs,
-                  int ring, int w_resident, int smem, int dtype,
-                  void* stream) {
+                  const int* my, const int* right, const int* left,
+                  const int* table, int ranks, int n, int slices, int rows,
+                  int k, int cols, int slabs, int ring, int w_resident,
+                  int smem, int dtype, void* stream) {
   return run(true, x, x_ld, w, w_stride, w_sk, w_sn, out, nullptr, comm,
-             flags, flag_stride, my, right, left, ranks, n, slices, rows, k,
-             cols, slabs, ring, w_resident, smem, dtype, stream);
+             flags, flag_stride, my, right, left, table, ranks, n, slices,
+             rows, k, cols, slabs, ring, w_resident, smem, dtype, stream);
 }
 
 // B5b: x (rows, k) per rank -> y (n rows, cols) and gx (n rows, k; rows
@@ -1132,12 +1139,13 @@ int gtt_matmul_rs(const void* x, long long x_ld, const void* w,
 int gtt_ag_matmul(const void* x, long long x_ld, const void* w,
                   long long w_stride, long long w_sk, long long w_sn, void* y,
                   void* gx, int* flags, int flag_stride, const int* my,
-                  const int* right, const int* left, int ranks, int n,
-                  int slices, int rows, int k, int cols, int slabs, int ring,
-                  int w_resident, int smem, int dtype, void* stream) {
+                  const int* right, const int* left, const int* table,
+                  int ranks, int n, int slices, int rows, int k, int cols,
+                  int slabs, int ring, int w_resident, int smem, int dtype,
+                  void* stream) {
   return run(false, x, x_ld, w, w_stride, w_sk, w_sn, y, gx, nullptr, flags,
-             flag_stride, my, right, left, ranks, n, slices, rows, k, cols,
-             slabs, ring, w_resident, smem, dtype, stream);
+             flag_stride, my, right, left, table, ranks, n, slices, rows, k,
+             cols, slabs, ring, w_resident, smem, dtype, stream);
 }
 
 // The cross-process instances of B5a (rs = 1) and B5b (rs = 0), one
@@ -1147,24 +1155,30 @@ int gtt_ag_matmul(const void* x, long long x_ld, const void* w,
 // arrays of device pointers by flat rank into the members' workspaces
 // (gx: (n, rows, k) rows x_ld apart, this process's own local ranks'
 // gx_stride bytes apart; comm: B5a's 2 slots; flags: gtt_overlap_peer_
-// tile_flags() ints, then tiles x flag_stride). local: the flat ranks
-// this process plays; my, right, left by flat rank. tag: the family's tag
+// tile_flags() ints, then tiles x flag_stride); d_comm and d_flags the
+// device copies of comm and flags (tpu/peer.py's
+// PeerWorkspace.device_table). local: the flat ranks this process plays;
+// my, right, left by flat rank, and table their device copy (with this
+// process's local ranks). tag: the family's tag
 // before this call (a call adds n - 1), bar_base: the barrier flags'
 // count before it (a call adds (n - 1) slices). Every process of the ring
 // makes the same calls in the same order with the same slices.
 int gtt_overlap_peer(int rs, const void* x, long long x_ld, const void* w,
                      long long w_stride, long long w_sk, long long w_sn,
                      void* out, void* const* gx, long long gx_stride,
-                     void* const* comm, int* const* flags, int flag_stride,
-                     const int* local, int local_ranks, const int* my,
-                     const int* right, const int* left, int ranks, int n,
-                     int slices, int rows, int k, int cols, int slabs,
-                     int ring, int w_resident, int smem, int dtype, int tag,
+                     void* const* comm, int* const* flags,
+                     void* const* d_comm, int* const* d_flags,
+                     int flag_stride, const int* local, int local_ranks,
+                     const int* my, const int* right, const int* left,
+                     const int* table, int ranks, int n, int slices,
+                     int rows, int k, int cols, int slabs, int ring,
+                     int w_resident, int smem, int dtype, int tag,
                      int bar_base, void* stream) {
   return run_peer(rs != 0, x, x_ld, w, w_stride, w_sk, w_sn, out, gx,
-                  gx_stride, comm, flags, flag_stride, local, local_ranks,
-                  my, right, left, ranks, n, slices, rows, k, cols, slabs,
-                  ring, w_resident, smem, dtype, tag, bar_base, stream);
+                  gx_stride, comm, flags, d_comm, d_flags, flag_stride,
+                  local, local_ranks, my, right, left, table, ranks, n,
+                  slices, rows, k, cols, slabs, ring, w_resident, smem,
+                  dtype, tag, bar_base, stream);
 }
 
 const char* gtt_error_string(int err) {

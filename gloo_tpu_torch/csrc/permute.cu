@@ -13,8 +13,9 @@
 // What it does: every rank's value lies in its row of the workspace's
 // "in" region (tpu/peer.py), where every member of its ring can read it.
 // Block (x, j) plays the process's local rank local[x] = r on slice j of
-// its output: after an entry barrier among the members of r's ring (no
-// peer's value is complete before its owner has entered), it copies
+// its output (the tables in device memory: no rank ceiling): after an
+// entry barrier among the members of r's ring (no peer's value is
+// complete before its owner has entered), it copies
 // `count` units from flat rank src[r]'s row, starting `offset[r]` units
 // in, into r's output, or writes zeros where no pair names r as a
 // destination (src[r] = -1). An exit barrier among the same members then
@@ -54,46 +55,48 @@ constexpr int kThreads = 256;
 constexpr int kUnroll = 4;
 
 struct Params {
-  // Every flat rank's row of "in" and its two flag ints; each local
-  // rank's output, source (flat rank or -1) and offset into the source's
-  // row, in units.
-  const void* in[kMaxRanks];
-  int* flags[kMaxRanks];
-  void* out[kMaxRanks];
-  int src[kMaxRanks];
-  long long offset[kMaxRanks];
-  int my[kMaxRanks];
-  unsigned char members[kMaxRanks][kMaxRanks];  // ring index -> flat rank
-  int local[kMaxRanks];                         // block x plays local[x]
+  // Every flat rank's row of "in" and its two flag ints (device tables);
+  // local rank x's output; pairs (in device memory): local rank x's source
+  // (flat rank or -1) at pairs[x] and its offset into the source's row, in
+  // units, at pairs[local ranks + x].
+  PerRank<const void> in;
+  PerRank<int> flags;
+  PerRank<void> out;
+  const long long* pairs;
+  Rings rings;  // in device memory; block x plays rings.local[x]
   int n;
+  int local_ranks;
   int before;
   long long count;  // units per output
 };
 
-// U: the unit of access (16, 8, 4, 2 or 1 bytes). The tables stay in
-// parameter space (__grid_constant__).
+// U: the unit of access (16, 8, 4, 2 or 1 bytes).
 template <typename U>
 __global__ void __launch_bounds__(kThreads)
 permute_peer_kernel(const __grid_constant__ Params p) {
-  const int r = p.local[blockIdx.x];
-  const int n = p.n, my = p.my[r];
-  const unsigned char* const ring = p.members[r];
+  const int r = p.rings.local[blockIdx.x];
+  const int n = p.n;
+  const int* const ring = p.rings.ring(r, n);
+  const int src = static_cast<int>(p.pairs[blockIdx.x]);
+  const long long offset = p.pairs[p.local_ranks + blockIdx.x];
   const int base = p.before + (n - 1) * (static_cast<int>(gridDim.y) - 1);
-  members_barrier<Scope::kSys>(p.flags[r] + kBarrier, n, [&](int k) {
-    return p.flags[ring[wrap(my + k, n)]] + kBarrier;
+  const auto flags = [&](int m) { return p.flags.at<Scope::kSys>(m); };
+  members_barrier<Scope::kSys>(flags(r) + kBarrier, ring, n, r, [&](int m) {
+    return flags(m) + kBarrier;
   }, base);
 
   const long long lo = p.count * blockIdx.y / gridDim.y;
   const long long hi = p.count * (blockIdx.y + 1) / gridDim.y;
-  U* const out = static_cast<U*>(p.out[r]);
-  if (p.src[r] < 0) {
+  U* const out = static_cast<U*>(p.out.at(blockIdx.x));
+  if (src < 0) {
     U zero;
     memset(&zero, 0, sizeof(zero));
     for (long long u = lo + threadIdx.x; u < hi; u += kThreads) {
       out[u] = zero;
     }
   } else {
-    const U* const in = static_cast<const U*>(p.in[p.src[r]]) + p.offset[r];
+    const U* const in =
+        static_cast<const U*>(p.in.at<Scope::kSys>(src)) + offset;
     for (long long u0 = lo + threadIdx.x; u0 < hi;
          u0 += kThreads * kUnroll) {
       U v[kUnroll];
@@ -108,8 +111,8 @@ permute_peer_kernel(const __grid_constant__ Params p) {
     }
   }
   // No source reuses its row while a member can still read it.
-  exit_barrier<Scope::kSys>(p.flags[r] + kPeerExit, n, [&](int k) {
-    return p.flags[ring[wrap(my + k, n)]] + kPeerExit;
+  exit_barrier<Scope::kSys>(flags(r) + kPeerExit, ring, n, r, [&](int m) {
+    return flags(m) + kPeerExit;
   }, base);
 }
 
@@ -149,56 +152,60 @@ int gtt_permute_peer_max_blocks(int* blocks) {
 // Returns a cudaError_t; 0 is success. One cooperative launch of grid
 // (local_ranks, slices) per process. in and flags: `ranks` host arrays of
 // device pointers by flat rank (each rank's row of "in", peer-mapped or
-// this process's own, and its kPeerFlags flag ints); out: this process's
-// outputs, local rank x's at out + x * out_stride bytes; local: the flat
-// ranks this process plays; my: each rank's ring index; members: ranks x
-// n flat ranks, row r the ring of rank r in ring order (read for the local
-// ranks); src and offset: per local rank, the flat rank of its ring it
-// pulls from (-1: zeros) and the offset into that rank's row, in units;
+// this process's own, and its kPeerFlags flag ints), d_in and d_flags the
+// same arrays in device memory (tpu/peer.py's PeerWorkspace.device_table);
+// out: this process's outputs, local rank x's at out + x * out_stride
+// bytes; local: the flat ranks this process plays; my: each rank's ring
+// index; members: ranks x n flat ranks, row r the ring of rank r in ring
+// order (read for the local ranks); table: the ring tables in device
+// memory (ring_common.cuh's Rings, with this process's local ranks); src
+// and offset: host arrays per local rank, the flat rank of its ring it
+// pulls from (-1: zeros) and the offset into that rank's row, in units,
+// and pairs their device copy (local_ranks sources, then as many offsets,
+// as int64);
 // count: units per output; unit: bytes per access (16, 8, 4, 2 or 1),
 // dividing every row's and output's address. before: the flags' count
 // before this call (each call adds (n - 1) x slices to each); every
 // process of the ring makes the same calls in the same order with the
 // same slices.
 int gtt_permute_peer(const void* const* in, void* out, long long out_stride,
-                     int* const* flags, const int* local, int local_ranks,
-                     const int* my, const int* members, int ranks, int n,
-                     const int* src, const long long* offset, int slices,
-                     long long count, int unit, int before, void* stream) {
+                     int* const* flags, const void* const* d_in,
+                     int* const* d_flags, const int* local, int local_ranks,
+                     const int* my, const int* members, const int* table,
+                     int ranks, int n, const int* src,
+                     const long long* offset, const long long* pairs,
+                     int slices, long long count, int unit, int before,
+                     void* stream) {
   void* fn = kernel_of(unit);
-  if (fn == nullptr || ranks < 2 || ranks > kMaxRanks || n < 2 ||
-      n > ranks || local_ranks < 1 || local_ranks > ranks || slices < 1 ||
-      slices > 65535 || count < 1 || before < 0 || out_stride % unit ||
-      reinterpret_cast<uintptr_t>(out) % unit) {
+  if (fn == nullptr || ranks < 2 || n < 2 || n > ranks || local_ranks < 1 ||
+      local_ranks > ranks || slices < 1 || slices > 65535 || count < 1 ||
+      before < 0 || out_stride % unit ||
+      reinterpret_cast<uintptr_t>(out) % unit || d_in == nullptr ||
+      d_flags == nullptr || pairs == nullptr ||
+      reinterpret_cast<uintptr_t>(pairs) % 8 ||
+      !check_rings(my, members, local, local_ranks, ranks, n, table) ||
+      !check_pointers(in, ranks, unit) || !check_pointers(flags, ranks)) {
     return static_cast<int>(cudaErrorInvalidValue);
-  }
-  Params p;
-  memset(&p, 0, sizeof(p));
-  if (!fill_rings(p.my, p.members, my, members, local, local_ranks, ranks,
-                  n)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  for (int r = 0; r < ranks; ++r) {
-    if (in[r] == nullptr || flags[r] == nullptr ||
-        reinterpret_cast<uintptr_t>(in[r]) % unit) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    p.in[r] = in[r];
-    p.flags[r] = flags[r];
   }
   for (int x = 0; x < local_ranks; ++x) {
     const int r = local[x];
     // A source is a member of the destination's ring.
     bool member = src[x] == -1;
-    for (int k = 0; k < n; ++k) member = member || p.members[r][k] == src[x];
+    for (int k = 0; k < n; ++k) {
+      member = member || members[static_cast<long long>(r) * n + k] == src[x];
+    }
     if (!member || offset[x] < 0) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    p.out[r] = static_cast<char*>(out) + x * out_stride;
-    p.src[r] = src[x];
-    p.offset[r] = offset[x];
-    p.local[x] = r;
   }
+  Params p;
+  memset(&p, 0, sizeof(p));
+  p.in = tabled(d_in);
+  p.flags = tabled(d_flags);
+  p.out = strided(out, out_stride);
+  p.pairs = pairs;
+  p.rings = rings_at(table, ranks, local_ranks);
+  p.local_ranks = local_ranks;
   p.n = n;
   p.before = before;
   p.count = count;

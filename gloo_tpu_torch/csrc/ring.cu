@@ -8,10 +8,11 @@
 //
 // The ranks are a world on one card: rank r's input, output and flags are
 // its own buffers in device memory, and its part of the collective runs as
-// its own thread blocks. The kernel sees them only through a table of
-// per-rank pointers and the members table, so a launch over more than one
-// card needs a table built from peer-mapped memory (and more: see the end
-// of this note).
+// its own thread blocks. The kernel sees them only as base + r x stride
+// and through the ring tables in device memory (ring_common.cuh's PerRank
+// and Rings; no rank ceiling), so a launch over more than one card needs
+// a device table of peer-mapped pointers (and more: see the end of this
+// note).
 //
 // B3 and B4a: one pass in member order. The TPU kernels are shaped for a
 // torus of chips, where a chip reaches only its neighbours: they copy the
@@ -86,10 +87,11 @@
 // completes every rank's input before the launch. Across processes (the
 // cross-process instances, ring_peer_kernel, entry gtt_ring_peer) the
 // ranks' buffers live in each process's workspace (peer.cu), mapped into
-// every other process by CUDA IPC: Params holds a peer-mapped pointer for
-// every member's input, output and flags, and this process's own pointers
-// for its local ranks. Each process makes one cooperative launch of grid
-// (local ranks, slices); block (x, j) plays flat rank local[x]. Then a
+// every other process by CUDA IPC: Params points at device tables of a
+// peer-mapped pointer for every member's input, output and flags, and
+// this process's own pointers for its local ranks. Each process makes
+// one cooperative launch of grid (local ranks, slices); block (x, j) plays
+// flat rank local[x]. Then a
 // peer's input is complete only once that peer has entered, so the entry
 // barrier is what orders the loads. Flags are at system scope (.sys), and
 // are counters that only grow: every call adds n - 1 to each flag of a
@@ -134,13 +136,12 @@ constexpr int kGatherUnroll = 4;
 enum Mode { kAllreduce = 0, kReduceScatter = 1, kAllgather = 2 };
 
 struct Params {
-  // The peer table: rank r's buffers. in: n chunks (B3, B4a) or one (B4b);
-  // out: n chunks (B3, B4b) or one (B4a); flags: slices x flag_stride ints.
-  const void* in[kMaxRanks];
-  void* out[kMaxRanks];
-  int* flags[kMaxRanks];
-  int my[kMaxRanks];
-  unsigned char members[kMaxRanks][kMaxRanks];  // ring index -> flat rank
+  // Rank r's buffers. in: n chunks (B3, B4a) or one (B4b); out: n chunks
+  // (B3, B4b) or one (B4a); flags: slices x flag_stride ints.
+  PerRank<const void> in;
+  PerRank<void> out;
+  PerRank<int> flags;
+  Rings rings;  // in device memory
   int n;
   int flag_stride;
   long long chunk;  // units (16-byte vectors or single elements) per chunk
@@ -156,8 +157,8 @@ struct Params {
 template <typename T, typename U, int kMode, Scope S>
 __device__ __forceinline__ void member_sum(const Params& p, int r,
                                            int before) {
-  const int n = p.n, my = p.my[r];
-  const unsigned char* const ring = p.members[r];
+  const int n = p.n, my = p.rings.my[r];
+  const int* const ring = p.rings.ring(r, n);
   const long long chunk = p.chunk;
   const long long lo = chunk * blockIdx.y / gridDim.y;
   const long long hi = chunk * (blockIdx.y + 1) / gridDim.y;
@@ -165,8 +166,8 @@ __device__ __forceinline__ void member_sum(const Params& p, int r,
       (kMode == kAllreduce ? wrap(my + 1, n) : my) * chunk;
   const long long flag = blockIdx.y * p.flag_stride + kBarrier;
 
-  members_barrier<S>(p.flags[r] + flag, n, [&](int k) {
-    return p.flags[ring[wrap(my + k, n)]] + flag;
+  members_barrier<S>(p.flags.at<S>(r) + flag, ring, n, r, [&](int m) {
+    return p.flags.at<S>(m) + flag;
   }, before);
 
   for (long long base = lo + threadIdx.x; base < hi;
@@ -175,7 +176,8 @@ __device__ __forceinline__ void member_sum(const Params& p, int r,
     fold_members<T, kUnroll, kGroup>(
         acc, n,
         [&](int k) {
-          return static_cast<const U*>(p.in[ring[wrap(my + 1 + k, n)]]) +
+          return static_cast<const U*>(
+                     p.in.at<S>(ring[wrap(my + 1 + k, n)])) +
                  off + base;
         },
         [](int i) { return i * kThreads; },
@@ -185,18 +187,18 @@ __device__ __forceinline__ void member_sum(const Params& p, int r,
       const long long u = base + i * kThreads;
       if (u >= hi) continue;
       if (kMode == kReduceScatter) {
-        static_cast<U*>(p.out[r])[u] = acc[i];
+        static_cast<U*>(p.out.at<S>(r))[u] = acc[i];
       } else {
         for (int k = 0; k < n; ++k) {
-          static_cast<U*>(p.out[ring[k]])[off + u] = acc[i];
+          static_cast<U*>(p.out.at<S>(ring[k]))[off + u] = acc[i];
         }
       }
     }
   }
   if constexpr (S == Scope::kSys) {
-    exit_barrier<S>(p.flags[r] + flag + kPeerExit, n, [&](int k) {
-      return p.flags[ring[wrap(my + k, n)]] + flag + kPeerExit;
-    }, before);
+    exit_barrier<S>(p.flags.at<S>(r) + flag + kPeerExit, ring, n, r,
+                    [&](int m) { return p.flags.at<S>(m) + flag + kPeerExit; },
+                    before);
   }
 }
 
@@ -205,19 +207,19 @@ __device__ __forceinline__ void member_sum(const Params& p, int r,
 template <typename U, Scope S>
 __device__ __forceinline__ void member_gather(const Params& p, int r,
                                               int before) {
-  const int n = p.n, my = p.my[r];
-  const unsigned char* const ring = p.members[r];
+  const int n = p.n, my = p.rings.my[r];
+  const int* const ring = p.rings.ring(r, n);
   const long long chunk = p.chunk;
   const long long lo = chunk * blockIdx.y / gridDim.y;
   const long long hi = chunk * (blockIdx.y + 1) / gridDim.y;
   const long long off = my * chunk;
   const long long flag = blockIdx.y * p.flag_stride + kBarrier;
 
-  members_barrier<S>(p.flags[r] + flag, n, [&](int k) {
-    return p.flags[ring[wrap(my + k, n)]] + flag;
+  members_barrier<S>(p.flags.at<S>(r) + flag, ring, n, r, [&](int m) {
+    return p.flags.at<S>(m) + flag;
   }, before);
 
-  const U* const in = static_cast<const U*>(p.in[r]);
+  const U* const in = static_cast<const U*>(p.in.at<S>(r));
   for (long long u0 = lo + threadIdx.x; u0 < hi;
        u0 += kThreads * kGatherUnroll) {
     U v[kGatherUnroll];
@@ -226,7 +228,7 @@ __device__ __forceinline__ void member_gather(const Params& p, int r,
       if (u0 + i * kThreads < hi) v[i] = __ldg(in + u0 + i * kThreads);
     }
     for (int k = 0; k < n; ++k) {
-      U* const out = static_cast<U*>(p.out[ring[k]]) + off + u0;
+      U* const out = static_cast<U*>(p.out.at<S>(ring[k])) + off + u0;
 #pragma unroll
       for (int i = 0; i < kGatherUnroll; ++i) {
         if (u0 + i * kThreads < hi) out[i * kThreads] = v[i];
@@ -234,16 +236,14 @@ __device__ __forceinline__ void member_gather(const Params& p, int r,
     }
   }
   if constexpr (S == Scope::kSys) {
-    exit_barrier<S>(p.flags[r] + flag + kPeerExit, n, [&](int k) {
-      return p.flags[ring[wrap(my + k, n)]] + flag + kPeerExit;
-    }, before);
+    exit_barrier<S>(p.flags.at<S>(r) + flag + kPeerExit, ring, n, r,
+                    [&](int m) { return p.flags.at<S>(m) + flag + kPeerExit; },
+                    before);
   }
 }
 
 // T: element type; U: the unit of access (uint4, or the element's bits).
-// The allgather only copies units, and its instances take T = U. The peer
-// table stays in parameter space (__grid_constant__: indexing it takes no
-// copy into local memory).
+// The allgather only copies units, and its instances take T = U.
 template <typename T, typename U, int kMode, Scope S>
 __device__ __forceinline__ void ring_body(const Params& p, int r,
                                           int before) {
@@ -254,25 +254,28 @@ __device__ __forceinline__ void ring_body(const Params& p, int r,
   }
 }
 
+// Four blocks per SM (at most 64 registers), as with the rank tables in
+// the parameters: unbounded, reading them from device memory took 69
+// registers, and so three blocks per SM (PERF.md, PR 27).
 template <typename T, typename U, int kMode>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 4)
 ring_kernel(const __grid_constant__ Params p) {
   ring_body<T, U, kMode, Scope::kGpu>(p, blockIdx.x, 0);
 }
 
-// The cross-process instances: Params over every member's peer-mapped
-// buffers, the flat rank each block row plays, and the flags' count
-// before the call.
+// The cross-process instances: Params over device tables of every
+// member's peer-mapped buffers (block x plays flat rank rings.local[x]),
+// and the flags' count before the call.
 struct PeerParams {
   Params p;
-  int local[kMaxRanks];  // block x plays flat rank local[x]
   int before;
 };
 
 template <typename T, typename U, int kMode>
 __global__ void __launch_bounds__(kThreads)
 ring_peer_kernel(const __grid_constant__ PeerParams q) {
-  ring_body<T, U, kMode, Scope::kSys>(q.p, q.local[blockIdx.x], q.before);
+  ring_body<T, U, kMode, Scope::kSys>(q.p, q.p.rings.local[blockIdx.x],
+                                      q.before);
 }
 
 template <typename T, typename U, int kMode, bool kPeer>
@@ -313,23 +316,20 @@ void* kernel_for(int dtype, int vec) {
   return nullptr;
 }
 
-// Checks the sizes and fills the per-rank part of the peer table: rank r's
-// buffers are base + r * stride (bytes), the layout of one world tensor.
+// Checks the sizes and fills the per-rank buffers: rank r's are base +
+// r * stride (bytes), the layout of one world tensor.
 bool fill(Params& p, const void* in, long long in_stride, void* out,
-          long long out_stride, int* flags, int flag_stride, const int* my,
-          int ranks, int n, int slices, long long chunk) {
-  if (ranks < 2 || ranks > kMaxRanks || n < 2 || n > ranks || slices < 1 ||
-      slices > 65535 || chunk < 1 || flag_stride < 1) {
+          long long out_stride, int* flags, int flag_stride, int ranks,
+          int n, int slices, long long chunk) {
+  if (ranks < 2 || n < 2 || n > ranks || slices < 1 || slices > 65535 ||
+      chunk < 1 || flag_stride < 1) {
     return false;
   }
   memset(&p, 0, sizeof(p));
-  for (int r = 0; r < ranks; ++r) {
-    if (my[r] < 0 || my[r] >= n) return false;
-    p.in[r] = static_cast<const char*>(in) + r * in_stride;
-    p.out[r] = static_cast<char*>(out) + r * out_stride;
-    p.flags[r] = flags + static_cast<long long>(r) * slices * flag_stride;
-    p.my[r] = my[r];
-  }
+  p.in = strided(in, in_stride);
+  p.out = strided(out, out_stride);
+  p.flags = strided(flags, static_cast<long long>(slices) * flag_stride *
+                               static_cast<long long>(sizeof(int)));
   p.n = n;
   p.flag_stride = flag_stride;
   p.chunk = chunk;
@@ -356,53 +356,50 @@ void* mode_kernel(int mode, int dtype, int vec) {
 }
 
 // members is ranks x n flat ranks, row r the ring of rank r in ring order;
-// rank r must be entry my[r] of its own row.
+// rank r must be entry my[r] of its own row. table: the same tables in
+// device memory (ring_common.cuh's Rings, every rank local).
 int run(int mode, const void* in, long long in_stride, void* out,
         long long out_stride, int* flags, int flag_stride, const int* my,
-        const int* members, int ranks, int n, int slices, long long chunk,
-        int dtype, int vec, void* stream) {
+        const int* members, const int* table, int ranks, int n, int slices,
+        long long chunk, int dtype, int vec, void* stream) {
   Params p;
-  if (!fill(p, in, in_stride, out, out_stride, flags, flag_stride, my,
-            ranks, n, slices, chunk)) {
+  if (!fill(p, in, in_stride, out, out_stride, flags, flag_stride, ranks,
+            n, slices, chunk) ||
+      !check_rings(my, members, nullptr, ranks, ranks, n, table)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (!fill_rings(p.my, p.members, my, members, nullptr, ranks, ranks, n)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  p.rings = rings_at(table, ranks, ranks);
   return launch(mode_kernel<false>(mode, dtype, vec), p, ranks, slices,
                 stream);
 }
 
 // The cross-process launch: in, out and flags hold every flat rank's
 // buffers (peer-mapped, or this process's own for its local ranks; flags
-// slices x kPeerFlags ints each), local the flat ranks this process
-// plays. Rows of members are read for the local ranks only.
+// slices x kPeerFlags ints each) as host arrays, checked, and d_in, d_out
+// and d_flags as the device arrays the kernel reads; local the flat ranks
+// this process plays. Rows of members are read for the local ranks only.
 int run_peer(int mode, const void* const* in, void* const* out,
-             int* const* flags, const int* local, int local_ranks,
-             const int* my, const int* members, int ranks, int n,
-             int slices, long long chunk, int dtype, int vec, int before,
-             void* stream) {
-  if (ranks < 2 || ranks > kMaxRanks || n < 2 || n > ranks ||
-      local_ranks < 1 || local_ranks > ranks || slices < 1 ||
-      slices > 65535 || chunk < 1 || before < 0) {
+             int* const* flags, const void* const* d_in, void* const* d_out,
+             int* const* d_flags, const int* local, int local_ranks,
+             const int* my, const int* members, const int* table, int ranks,
+             int n, int slices, long long chunk, int dtype, int vec,
+             int before, void* stream) {
+  if (ranks < 2 || n < 2 || n > ranks || local_ranks < 1 ||
+      local_ranks > ranks || slices < 1 || slices > 65535 || chunk < 1 ||
+      before < 0 || d_in == nullptr || d_out == nullptr ||
+      d_flags == nullptr ||
+      !check_rings(my, members, local, local_ranks, ranks, n, table) ||
+      !check_pointers(in, ranks) || !check_pointers(out, ranks) ||
+      !check_pointers(flags, ranks)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   PeerParams q;
   memset(&q, 0, sizeof(q));
   Params& p = q.p;
-  if (!fill_rings(p.my, p.members, my, members, local, local_ranks, ranks,
-                  n)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  for (int r = 0; r < ranks; ++r) {
-    if (in[r] == nullptr || out[r] == nullptr || flags[r] == nullptr) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    p.in[r] = in[r];
-    p.out[r] = out[r];
-    p.flags[r] = flags[r];
-  }
-  for (int x = 0; x < local_ranks; ++x) q.local[x] = local[x];
+  p.in = tabled(d_in);
+  p.out = tabled(d_out);
+  p.flags = tabled(d_flags);
+  p.rings = rings_at(table, ranks, local_ranks);
   p.n = n;
   p.flag_stride = kPeerFlags;
   p.chunk = chunk;
@@ -469,54 +466,64 @@ int gtt_ring_peer_max_blocks(int* blocks) { return max_blocks<true>(blocks); }
 // chunk and every buffer's start) in their place. chunk counts units.
 // Strides are in bytes. flags: ranks x slices x flag_stride zeroed ints.
 // my: each rank's ring index; members: ranks x n flat ranks, row r the
-// ring of rank r in ring order. All tables are host arrays.
+// ring of rank r in ring order: host arrays, checked before the launch.
+// table: the same tables in device memory, the layout of ring_common.cuh's
+// Rings (ops/ring.py's ring_table), which the kernel reads. Any number of
+// ranks whose blocks the card holds at once.
 
 int gtt_ring_allreduce(const void* x, void* out, long long rank_stride,
                        int* flags, int flag_stride, const int* my,
-                       const int* members, int ranks, int n, int slices,
-                       long long chunk, int dtype, int vec, void* stream) {
+                       const int* members, const int* table, int ranks,
+                       int n, int slices, long long chunk, int dtype,
+                       int vec, void* stream) {
   return run(kAllreduce, x, rank_stride, out, rank_stride, flags,
-             flag_stride, my, members, ranks, n, slices, chunk, dtype, vec,
-             stream);
+             flag_stride, my, members, table, ranks, n, slices, chunk, dtype,
+             vec, stream);
 }
 
 int gtt_ring_reduce_scatter(const void* x, long long in_stride, void* out,
                             long long out_stride, int* flags,
                             int flag_stride, const int* my,
-                            const int* members, int ranks, int n,
-                            int slices, long long chunk, int dtype, int vec,
-                            void* stream) {
+                            const int* members, const int* table, int ranks,
+                            int n, int slices, long long chunk, int dtype,
+                            int vec, void* stream) {
   return run(kReduceScatter, x, in_stride, out, out_stride, flags,
-             flag_stride, my, members, ranks, n, slices, chunk, dtype, vec,
-             stream);
+             flag_stride, my, members, table, ranks, n, slices, chunk, dtype,
+             vec, stream);
 }
 
 int gtt_ring_allgather(const void* x, long long in_stride, void* out,
                        long long out_stride, int* flags, int flag_stride,
-                       const int* my, const int* members, int ranks, int n,
-                       int slices, long long chunk, int unit_bytes,
-                       void* stream) {
+                       const int* my, const int* members, const int* table,
+                       int ranks, int n, int slices, long long chunk,
+                       int unit_bytes, void* stream) {
   return run(kAllgather, x, in_stride, out, out_stride, flags, flag_stride,
-             my, members, ranks, n, slices, chunk, unit_bytes, 0, stream);
+             my, members, table, ranks, n, slices, chunk, unit_bytes, 0,
+             stream);
 }
 
 // The cross-process instances of B3 (mode 0), B4a (1) and B4b (2), one
 // cooperative launch of grid (local_ranks, slices) per process. in, out
 // and flags: `ranks` host arrays of device pointers by flat rank (each
 // member's input, output and slices x gtt_ring_peer_flag_stride() flag
-// ints, peer-mapped or this process's own); local: the flat ranks this
-// process plays; my and members as above (members' rows read for the
-// local ranks). dtype and vec as B3's and B4a's, or B4b's unit_bytes in
+// ints, peer-mapped or this process's own), and d_in, d_out, d_flags the
+// same arrays in device memory (tpu/peer.py's PeerWorkspace.device_table);
+// local: the flat ranks this process plays; my, members and table as
+// above (members' rows read for the local ranks; table's local part is
+// this process's). dtype and vec as B3's and B4a's, or B4b's unit_bytes in
 // dtype. before: every flag's count before this call (each call adds
 // n - 1 to each); every process of the ring makes the same calls in the
 // same order with the same slices.
 int gtt_ring_peer(int mode, const void* const* in, void* const* out,
-                  int* const* flags, const int* local, int local_ranks,
-                  const int* my, const int* members, int ranks, int n,
-                  int slices, long long chunk, int dtype, int vec,
-                  int before, void* stream) {
-  return run_peer(mode, in, out, flags, local, local_ranks, my, members,
-                  ranks, n, slices, chunk, dtype, vec, before, stream);
+                  int* const* flags, const void* const* d_in,
+                  void* const* d_out, int* const* d_flags, const int* local,
+                  int local_ranks, const int* my, const int* members,
+                  const int* table, int ranks, int n, int slices,
+                  long long chunk, int dtype, int vec, int before,
+                  void* stream) {
+  return run_peer(mode, in, out, flags, d_in, d_out, d_flags, local,
+                  local_ranks, my, members, table, ranks, n, slices, chunk,
+                  dtype, vec, before, stream);
 }
 
 const char* gtt_error_string(int err) {

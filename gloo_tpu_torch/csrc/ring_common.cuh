@@ -18,6 +18,21 @@
 // flags are not zeroed per call: each call adds n - 1 to every flag of a
 // member, and the caller passes the count before the call (`base`), so a
 // peer's add can never land before the owner resets it.
+//
+// No rank ceiling: a launch's per-rank tables live in device memory, not
+// in its parameters. Rank r's buffers are base + r x stride on one card
+// (PerRank), or entry r of a device array of peer-mapped pointers across
+// processes (tpu/peer.py fills it where it maps the peers); the ring
+// tables are one int32 tensor per (mesh, axes) that ops/ring.py's
+// ring_table builds once (Rings), so a launch copies no table. The host
+// entries check the same tables, as host arrays, before any launch. What
+// bounds a world on one card is the cooperative launch's residency (every
+// block of every rank resident at once), which each wrapper checks. The
+// counts that grow with n fit at any n the card can hold (at most 132 SMs
+// x 32 blocks = 4224 ranks): a members barrier's flag reaches base + n - 1,
+// a chain's arrival count n slices, and B5's flag stride kGather + n - 1
+// ints per tile; ops/ring.py's WIDENED sums of n uint16 (uint32) values fit
+// int32 (int64) up to n = 32768 (2^32).
 
 #pragma once
 
@@ -25,12 +40,11 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
 #include <cstring>
 
 namespace gtt {
 
-// The most ranks a peer table holds.
-constexpr int kMaxRanks = 32;
 // ~2 s at the H100's clocks (1.98 GHz boost; longer when it runs slower).
 constexpr long long kSpinCycles = 4000000000LL;
 
@@ -97,20 +111,42 @@ __device__ inline void wait_flag(const int* flag, int target) {
   __syncthreads();
 }
 
+// Thread 0's adds of a barrier: one to the flag flag_of(m) of every
+// member m of the ring row `row` (n flat ranks) but `self`, in any order.
+// The row's entries are loaded kBatch at a time, all before the batch's
+// adds (whose release asm would otherwise hold each next load back): a
+// few round trips to the device table, not one per member.
+template <Scope S, typename FlagOf>
+__device__ __forceinline__ void add_to_others(const int* row, int n,
+                                              int self, FlagOf flag_of) {
+  constexpr int kBatch = 8;
+  for (int k0 = 0; k0 < n; k0 += kBatch) {
+    int m[kBatch];
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) m[i] = k0 + i < n ? row[k0 + i] : self;
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      if (m[i] != self) add_release<S>(flag_of(m[i]), 1);
+    }
+  }
+}
+
 // The entry barrier among the n members of a ring (ring.cu's B3, B4a and
-// B4b, ring_variants.cu's B9, B10 and B11, alltoall.cu's B8),
-// one flag per (rank, slice): thread 0 adds one to the flag `peer(k)` of
-// each other member, k = 1 .. n - 1, and the block waits until its own
-// reaches base + n - 1 (base: its count before this call; 0 where the
-// flags are zeroed per call). The block has stored nothing before it; at
-// system scope a fence first orders the earlier kernels' writes of this
-// process (its input) before the adds, for peers that read it.
-template <Scope S = Scope::kGpu, typename Peer>
-__device__ inline void members_barrier(int* fl_me, int n, Peer peer,
+// B4b, ring_variants.cu's B9, B10 and B11, alltoall.cu's B8, permute.cu's
+// transport), one flag per (rank, slice): thread 0 adds one to the flag
+// flag_of(m) of each other member m of the block's ring row `row` (flat
+// rank `self` is its own), and the block waits until its own flag reaches
+// base + n - 1 (base: its count before this call; 0 where the flags are
+// zeroed per call). The block has stored nothing before it; at system
+// scope a fence first orders the earlier kernels' writes of this process
+// (its input) before the adds, for peers that read it.
+template <Scope S = Scope::kGpu, typename FlagOf>
+__device__ inline void members_barrier(int* fl_me, const int* row, int n,
+                                       int self, FlagOf flag_of,
                                        int base = 0) {
   if (threadIdx.x == 0) {
     if constexpr (S == Scope::kSys) __threadfence_system();
-    for (int k = 1; k < n; ++k) add_release<S>(peer(k), 1);
+    add_to_others<S>(row, n, self, flag_of);
   }
   wait_flag<S>(fl_me, base + n - 1);
 }
@@ -118,12 +154,13 @@ __device__ inline void members_barrier(int* fl_me, int n, Peer peer,
 // The exit barrier among the n members of a ring, for ranks in other
 // processes: once every thread of the block has made its last load of a
 // member's input and its last store into a member's output, thread 0
-// fences, adds one to the exit flag `peer(k)` of each other member, and
-// the block waits until its own reaches base + n - 1. A block that
-// returns then leaves no peer reading its rank's input or writing its
-// rank's output for this slice.
-template <Scope S, typename Peer>
-__device__ inline void exit_barrier(int* fl_me, int n, Peer peer, int base) {
+// fences, adds one to the exit flag flag_of(m) of each other member m of
+// the ring row, and the block waits until its own reaches base + n - 1. A
+// block that returns then leaves no peer reading its rank's input or
+// writing its rank's output for this slice.
+template <Scope S, typename FlagOf>
+__device__ inline void exit_barrier(int* fl_me, const int* row, int n,
+                                    int self, FlagOf flag_of, int base) {
   __syncthreads();
   if (threadIdx.x == 0) {
     if constexpr (S == Scope::kSys) {
@@ -131,7 +168,7 @@ __device__ inline void exit_barrier(int* fl_me, int n, Peer peer, int base) {
     } else {
       __threadfence();
     }
-    for (int k = 1; k < n; ++k) add_release<S>(peer(k), 1);
+    add_to_others<S>(row, n, self, flag_of);
   }
   wait_flag<S>(fl_me, base + n - 1);
 }
@@ -265,25 +302,97 @@ __device__ __forceinline__ void fold_members(U (&acc)[kUnroll], int n,
 
 __device__ __forceinline__ int wrap(int i, int n) { return ((i % n) + n) % n; }
 
-// Host side of a launch's rank tables. my: every flat rank's ring index
-// (below n), copied into p_my; members: ranks x n flat ranks, row r the
-// ring of rank r in ring order, with r itself at entry my[r], copied into
-// p_members for the flat ranks in local (local_ranks of them; nullptr:
-// every rank). False where a table breaks that.
-inline bool fill_rings(int* p_my, unsigned char (*p_members)[kMaxRanks],
-                       const int* my, const int* members, const int* local,
-                       int local_ranks, int ranks, int n) {
+// Every rank's buffer of one kind. On one card rank r's lies at base +
+// r x stride bytes (the layout of one world tensor); across processes at
+// table[r], a device array of pointers by flat rank (peer-mapped, or this
+// process's own for its local ranks). at<S>(r) picks the form by the
+// instance's scope at compile time (no branch and no unused fields in the
+// loops); at(x) is the strided form, for buffers laid out by block row x
+// in both instances.
+template <typename T>
+struct PerRank {
+  T* base;
+  long long stride;
+  T* const* table;
+  template <Scope S = Scope::kGpu>
+  __device__ __forceinline__ T* at(int r) const {
+    if constexpr (S == Scope::kGpu) {
+      return (T*)((const char*)base + static_cast<long long>(r) * stride);
+    } else {
+      return table[r];
+    }
+  }
+};
+
+// One card: rank r's buffer at base + r x stride bytes.
+template <typename T>
+inline PerRank<T> strided(T* base, long long stride) {
+  return {base, stride, nullptr};
+}
+
+// Across processes: rank r's buffer at table[r] (a device array).
+template <typename T>
+inline PerRank<T> tabled(T* const* table) {
+  return {nullptr, 0, table};
+}
+
+// A launch's ring tables in device memory: one int32 array (ops/ring.py's
+// ring_table), built once per (mesh, axes) and laid out as
+//   my[ranks] right[ranks] left[ranks] local[local_ranks] members[ranks n]:
+// each flat rank's ring index, right and left neighbours, the flat ranks
+// this process plays (block x plays local[x]; every rank on one card), and
+// row r of members rank r's ring in ring order.
+struct Rings {
+  const int* my;
+  const int* right;
+  const int* left;
+  const int* local;
+  const int* members;
+  // Row r of members: ring index -> flat rank.
+  __device__ __forceinline__ const int* ring(int r, int n) const {
+    return members + static_cast<long long>(r) * n;
+  }
+};
+
+inline Rings rings_at(const int* table, int ranks, int local_ranks) {
+  return {table, table + ranks, table + 2 * ranks, table + 3 * ranks,
+          table + 3 * ranks + local_ranks};
+}
+
+// Host checks of a launch's rank tables, the host arrays of the device
+// table the launch reads. my: every flat rank's ring index (below n);
+// members: ranks x n flat ranks, row r the ring of rank r in ring order
+// with r itself at entry my[r] and nowhere else, checked for the flat
+// ranks in local (local_ranks of them; nullptr: every rank); table: the
+// device copy, 4-byte aligned. False where a table breaks that.
+inline bool check_rings(const int* my, const int* members, const int* local,
+                        int local_ranks, int ranks, int n,
+                        const void* table) {
+  if (table == nullptr || reinterpret_cast<uintptr_t>(table) % 4) {
+    return false;
+  }
   for (int r = 0; r < ranks; ++r) {
     if (my[r] < 0 || my[r] >= n) return false;
-    p_my[r] = my[r];
   }
   for (int x = 0; x < local_ranks; ++x) {
     const int r = local == nullptr ? x : local[x];
     if (r < 0 || r >= ranks) return false;
     for (int k = 0; k < n; ++k) {
-      const int m = members[r * n + k];
+      const long long m = members[static_cast<long long>(r) * n + k];
       if (m < 0 || m >= ranks || (k == my[r]) != (m == r)) return false;
-      p_members[r][k] = static_cast<unsigned char>(m);
+    }
+  }
+  return true;
+}
+
+// Host check of a table of `ranks` device pointers: none null, each a
+// multiple of `align` bytes.
+template <typename T>
+inline bool check_pointers(T* const* table, int ranks, int align = 1) {
+  for (int r = 0; r < ranks; ++r) {
+    if (table[r] == nullptr ||
+        reinterpret_cast<uintptr_t>(table[r]) % align) {
+      return false;
     }
   }
   return true;

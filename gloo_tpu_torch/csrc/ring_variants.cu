@@ -10,8 +10,9 @@
 //       gtt_ring_allreduce_bidir
 //
 // The model is ring.cu's: the ranks are a world on one card, each rank's
-// buffers its own, seen through a table of per-rank pointers (passed as a
-// __grid_constant__ parameter) and the ring tables. Every block spins on
+// buffers its own, seen as base + r x stride and through the ring tables
+// in device memory (ring_common.cuh's PerRank and Rings; no rank
+// ceiling). Every block spins on
 // flags other blocks set, so the launches are cooperative and the wrapper
 // takes the slice count S from the occupancy that
 // gtt_ring_variants_max_blocks reports for each kernel. Every spin, the
@@ -175,15 +176,15 @@ constexpr int kGroup = 4;
 enum Variant { kHbm = 0, kQ8 = 1, kBidir = 2, kQ8Mem = 3 };
 
 struct Params {
-  // The peer table: rank r's buffers. in/out: n chunks; flags: S sets (B11
-  // 2 S) of flag_stride ints, each set's first the members barrier; cells
-  // (B10): n maxima then n arrival counts of rank r's chain.
-  const void* in[kMaxRanks];
-  void* out[kMaxRanks];
-  int* flags[kMaxRanks];
-  int* cells[kMaxRanks];
-  int my[kMaxRanks];
-  unsigned char members[kMaxRanks][kMaxRanks];  // ring index -> rank
+  // Rank r's buffers. in/out: n chunks; flags: S sets (B11 2 S) of
+  // flag_stride ints, each set's first the members barrier. cells (B10):
+  // block row x's n maxima then n arrival counts of its rank's chain (x =
+  // r on one card, local rank x across processes).
+  PerRank<const void> in;
+  PerRank<void> out;
+  PerRank<int> flags;
+  PerRank<int> cells;
+  Rings rings;  // in device memory
   int n;
   int flag_stride;
   int stages;            // B9: shared-memory stages of one tile each
@@ -192,15 +193,15 @@ struct Params {
   long long half_units;  // B11: 16-byte units per row of one half
 };
 
-// The members barrier on entry of block rank r. One card (S =
-// Scope::kGpu): flag set `set` of rank r, zeroed per call. Across
-// processes (Scope::kSys): rank r's entry flag, which every block of every
-// other member adds one to, so the wait is for before + (n - 1) x the
-// blocks per rank (gridDim.y x gridDim.z).
+// The members barrier on entry of block rank r, whose ring row is `ring`.
+// One card (S = Scope::kGpu): flag set `set` of rank r, zeroed per call.
+// Across processes (Scope::kSys): rank r's entry flag, which every block of
+// every other member adds one to, so the wait is for before + (n - 1) x
+// the blocks per rank (gridDim.y x gridDim.z).
 template <Scope S>
-__device__ __forceinline__ void enter(const Params& p, int r, int set,
-                                      int before) {
-  const int n = p.n, my = p.my[r];
+__device__ __forceinline__ void enter(const Params& p, int r,
+                                      const int* ring, int set, int before) {
+  const int n = p.n;
   const long long flag =
       S == Scope::kGpu
           ? static_cast<long long>(set) * p.flag_stride + kBarrier
@@ -209,8 +210,8 @@ __device__ __forceinline__ void enter(const Params& p, int r, int set,
       S == Scope::kGpu
           ? 0
           : before + (n - 1) * (static_cast<int>(gridDim.y * gridDim.z) - 1);
-  members_barrier<S>(p.flags[r] + flag, n, [&](int k) {
-    return p.flags[p.members[r][wrap(my + k, n)]] + flag;
+  members_barrier<S>(p.flags.at<S>(r) + flag, ring, n, r, [&](int m) {
+    return p.flags.at<S>(m) + flag;
   }, base);
 }
 
@@ -219,11 +220,12 @@ __device__ __forceinline__ void enter(const Params& p, int r, int set,
 // reads its output, while a peer can still read the one or write the
 // other. Nothing on one card.
 template <Scope S>
-__device__ __forceinline__ void leave(const Params& p, int r, int before) {
+__device__ __forceinline__ void leave(const Params& p, int r,
+                                      const int* ring, int before) {
   if constexpr (S == Scope::kSys) {
-    const int n = p.n, my = p.my[r];
-    exit_barrier<S>(p.flags[r] + kPeerExit, n, [&](int k) {
-      return p.flags[p.members[r][wrap(my + k, n)]] + kPeerExit;
+    const int n = p.n;
+    exit_barrier<S>(p.flags.at<S>(r) + kPeerExit, ring, n, r, [&](int m) {
+      return p.flags.at<S>(m) + kPeerExit;
     }, before + (n - 1) * (static_cast<int>(gridDim.y * gridDim.z) - 1));
   }
 }
@@ -306,8 +308,8 @@ __device__ __forceinline__ void hbm_body(const Params& p, int r,
   uint64_t* const full = reinterpret_cast<uint64_t*>(outbuf + 2 * kTileUnits);
   uint64_t* const empty = full + stages;
 
-  const int n = p.n, my = p.my[r];
-  const unsigned char* const ring = p.members[r];
+  const int n = p.n, my = p.rings.my[r];
+  const int* const ring = p.rings.ring(r, n);
   const long long chunk = p.chunk;
   const long long tiles = (chunk + kTileUnits - 1) / kTileUnits;
   const long long t_lo = tiles * blockIdx.y / gridDim.y;
@@ -322,7 +324,7 @@ __device__ __forceinline__ void hbm_body(const Params& p, int r,
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   // Ends in __syncthreads: the mbarriers are set.
-  enter<S>(p, r, blockIdx.y, before);
+  enter<S>(p, r, ring, blockIdx.y, before);
 
   if (threadIdx.x >= kThreads) {
     if (threadIdx.x == kThreads) {
@@ -344,7 +346,7 @@ __device__ __forceinline__ void hbm_body(const Params& p, int r,
           mbar_expect(full + s, bytes);
           bulk_load(stage + s * kTileUnits,
                     static_cast<const uint4*>(
-                        p.in[ring[wrap(my + 1 + m, n)]]) + off + u0,
+                        p.in.at<S>(ring[wrap(my + 1 + m, n)])) + off + u0,
                     bytes, full + s);
           if (++s == stages) {
             s = 0;
@@ -399,8 +401,8 @@ __device__ __forceinline__ void hbm_body(const Params& p, int r,
       consumers_sync();
       if (threadIdx.x == 0) {
         for (int k = 0; k < n; ++k) {
-          bulk_store(static_cast<uint4*>(p.out[ring[k]]) + off + u0, buf,
-                     static_cast<uint32_t>(len) * 16);
+          bulk_store(static_cast<uint4*>(p.out.at<S>(ring[k])) + off + u0,
+                     buf, static_cast<uint32_t>(len) * 16);
         }
         asm volatile("cp.async.bulk.commit_group;" ::: "memory");
       }
@@ -412,7 +414,7 @@ __device__ __forceinline__ void hbm_body(const Params& p, int r,
       }
     }
   }
-  leave<S>(p, r, before);
+  leave<S>(p, r, ring, before);
 }
 
 template <typename T, int kPer>
@@ -535,16 +537,17 @@ __device__ __forceinline__ float scale_of(float absmax) {
 template <bool kRegs, Scope S>
 __device__ __forceinline__ void q8_body(const Params& p, int r, int before) {
   const int slices = gridDim.y;
-  const int n = p.n, my = p.my[r];
-  const unsigned char* const ring = p.members[r];
+  const int n = p.n, my = p.rings.my[r];
+  const int* const ring = p.rings.ring(r, n);
   // The chain of chunk my: members my, my + 1, ..., my + n - 1.
   const long long off = my * p.chunk;
   long long lo, hi;
   slice_of(p.chunk, &lo, &hi);
   const long long t0 = lo + threadIdx.x;
-  int* const cells = p.cells[r];  // n maxima, then n arrival counts
+  int* const cells = p.cells.at(blockIdx.x);  // n maxima, n arrival counts
   const auto member = [&](int k) {
-    return static_cast<const uint4*>(p.in[ring[wrap(my + k, n)]]) + off;
+    return static_cast<const uint4*>(p.in.at<S>(ring[wrap(my + k, n)])) +
+           off;
   };
   const auto arrive = [&](float m, int hop) {
     chain_arrive(m, cells + hop, cells + n + hop);
@@ -554,10 +557,10 @@ __device__ __forceinline__ void q8_body(const Params& p, int r, int before) {
   };
   const auto store_all = [&](long long u, uint4 y) {
     for (int k = 0; k < n; ++k) {
-      static_cast<uint4*>(p.out[ring[k]])[off + u] = y;
+      static_cast<uint4*>(p.out.at<S>(ring[k]))[off + u] = y;
     }
   };
-  enter<S>(p, r, blockIdx.y, before);
+  enter<S>(p, r, ring, blockIdx.y, before);
 
   float m = 0.f;
   if constexpr (kRegs) {
@@ -600,7 +603,7 @@ __device__ __forceinline__ void q8_body(const Params& p, int r, int before) {
       if (u < hi) store_all(u, decode4(quantize4(part[i], safe), scale));
     }
   } else {
-    uint4* const stash = static_cast<uint4*>(p.out[r]) + off;
+    uint4* const stash = static_cast<uint4*>(p.out.at<S>(r)) + off;
     for (long long u = t0; u < hi; u += kThreads) {
       m = fmaxf(m, absmax4(__ldg(member(0) + u)));
     }
@@ -649,7 +652,7 @@ __device__ __forceinline__ void q8_body(const Params& p, int r, int before) {
       }
     }
   }
-  leave<S>(p, r, before);
+  leave<S>(p, r, ring, before);
 }
 
 template <bool kRegs>
@@ -664,8 +667,8 @@ template <typename T, Scope S>
 __device__ __forceinline__ void bidir_body(const Params& p, int r,
                                            int before) {
   const int d = blockIdx.y;
-  const int n = p.n, my = p.my[r];
-  const unsigned char* const ring = p.members[r];
+  const int n = p.n, my = p.rings.my[r];
+  const int* const ring = p.rings.ring(r, n);
   // d = 0: chunk my + 1, members my + 1, ..., my + n (B3's order);
   // d = 1: chunk my - 1, members my - 1, ..., my - n (the mirrored ring's).
   const int dir = d ? -1 : 1;
@@ -677,7 +680,7 @@ __device__ __forceinline__ void bidir_body(const Params& p, int r,
   // from the half's first unit.
   const long long first = wrap(my + dir, n) * p.chunk_rows * pitch + d * hu;
 
-  enter<S>(p, r, d * gridDim.z + blockIdx.z, before);
+  enter<S>(p, r, ring, d * gridDim.z + blockIdx.z, before);
 
   // This thread's next unit as (row, unit in the row), stepped by kThreads
   // units without a divide.
@@ -701,7 +704,7 @@ __device__ __forceinline__ void bidir_body(const Params& p, int r,
         acc, n,
         [&](int k) {
           return static_cast<const uint4*>(
-              p.in[ring[wrap(my + dir * (1 + k), n)]]);
+              p.in.at<S>(ring[wrap(my + dir * (1 + k), n)]));
         },
         [&](int i) { return at[i]; },
         [&](int i) { return base + i * kThreads < hi; });
@@ -709,44 +712,46 @@ __device__ __forceinline__ void bidir_body(const Params& p, int r,
     for (int i = 0; i < kUnroll; ++i) {
       if (base + i * kThreads >= hi) continue;
       for (int k = 0; k < n; ++k) {
-        static_cast<uint4*>(p.out[ring[k]])[at[i]] = acc[i];
+        static_cast<uint4*>(p.out.at<S>(ring[k]))[at[i]] = acc[i];
       }
     }
   }
-  leave<S>(p, r, before);
+  leave<S>(p, r, ring, before);
 }
 
+// Three blocks per SM (at most 80 registers), as with the rank tables in
+// the parameters (unbounded: 88-90 registers, two; see ring.cu's
+// ring_kernel).
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 3)
 bidir_kernel(const __grid_constant__ Params p) {
   bidir_body<T, Scope::kGpu>(p, blockIdx.x, 0);
 }
 
-// The cross-process instances: Params over every member's peer-mapped
-// buffers, the flat rank each block row plays, and the flags' count
-// before the call.
+// The cross-process instances: Params over device tables of every
+// member's peer-mapped buffers (block x plays flat rank rings.local[x]),
+// and the flags' count before the call.
 struct PeerParams {
   Params p;
-  int local[kMaxRanks];  // block x plays flat rank local[x]
   int before;
 };
 
 template <typename T, int kPer>
 __global__ void __launch_bounds__(kHbmThreads)
 hbm_peer_kernel(const __grid_constant__ PeerParams q) {
-  hbm_body<T, kPer, Scope::kSys>(q.p, q.local[blockIdx.x], q.before);
+  hbm_body<T, kPer, Scope::kSys>(q.p, q.p.rings.local[blockIdx.x], q.before);
 }
 
 template <bool kRegs>
 __global__ void __launch_bounds__(kThreads)
 q8_peer_kernel(const __grid_constant__ PeerParams q) {
-  q8_body<kRegs, Scope::kSys>(q.p, q.local[blockIdx.x], q.before);
+  q8_body<kRegs, Scope::kSys>(q.p, q.p.rings.local[blockIdx.x], q.before);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 bidir_peer_kernel(const __grid_constant__ PeerParams q) {
-  bidir_body<T, Scope::kSys>(q.p, q.local[blockIdx.x], q.before);
+  bidir_body<T, Scope::kSys>(q.p, q.p.rings.local[blockIdx.x], q.before);
 }
 
 // The instances: B9 by dtype and tile (8, 16 or 32 KB) and B11 by dtype,
@@ -817,24 +822,25 @@ cudaError_t shape_of(int variant, void* fn, int tile_bytes, int stages,
                               *smem);
 }
 
-// Checks the sizes and fills the per-rank part of the peer table: rank r's
-// input and output are base + r * rank_stride (bytes), its flags `sets`
-// sets of flag_stride ints.
+// Checks the sizes and the ring tables (host arrays my and members, their
+// device copy `table`) and fills the per-rank buffers: rank r's input and
+// output are base + r * rank_stride (bytes), its flags `sets` sets of
+// flag_stride ints.
 bool fill(Params& p, const void* in, void* out, long long rank_stride,
-          int* flags, int flag_stride, int sets, const int* my, int ranks,
-          int n, int slices) {
-  if (ranks < 2 || ranks > kMaxRanks || n < 2 || n > ranks || slices < 1 ||
-      slices > 65535 || flag_stride < 1) {
+          int* flags, int flag_stride, int sets, const int* my,
+          const int* members, const int* table, int ranks, int n,
+          int slices) {
+  if (ranks < 2 || n < 2 || n > ranks || slices < 1 || slices > 65535 ||
+      flag_stride < 1 ||
+      !check_rings(my, members, nullptr, ranks, ranks, n, table)) {
     return false;
   }
   memset(&p, 0, sizeof(p));
-  for (int r = 0; r < ranks; ++r) {
-    if (my[r] < 0 || my[r] >= n) return false;
-    p.in[r] = static_cast<const char*>(in) + r * rank_stride;
-    p.out[r] = static_cast<char*>(out) + r * rank_stride;
-    p.flags[r] = flags + static_cast<long long>(r) * sets * flag_stride;
-    p.my[r] = my[r];
-  }
+  p.in = strided(in, rank_stride);
+  p.out = strided(out, rank_stride);
+  p.flags = strided(flags, static_cast<long long>(sets) * flag_stride *
+                               static_cast<long long>(sizeof(int)));
+  p.rings = rings_at(table, ranks, ranks);
   p.n = n;
   p.flag_stride = flag_stride;
   return true;
@@ -905,19 +911,21 @@ int gtt_ring_variants_peer_max_blocks(int variant, int tile_bytes,
 // of GTT_SUM_TYPES (B10: 1, f32 only). flags: zeroed, P x S x flag_stride
 // ints (B11: P x 2 x S x flag_stride), and for B10 then 2 n P more. my:
 // each rank's ring index; members: ranks x n flat ranks, row r the ring of
-// rank r in ring order. All tables are host arrays.
+// rank r in ring order: host arrays, checked before the launch. table: the
+// same tables in device memory (ring_common.cuh's Rings), which the kernel
+// reads. Any number of ranks whose blocks the card holds at once.
 
 // B9: chunk = 16-byte units per chunk; tile_bytes 8192, 16384 or 32768;
 // stages >= 1 (the launch takes (stages + 2) tiles of shared memory).
 int gtt_ring_allreduce_hbm(const void* x, void* out, long long rank_stride,
                            int* flags, int flag_stride, const int* my,
-                           const int* members, int ranks, int n, int slices,
-                           long long chunk, int tile_bytes, int stages,
-                           int dtype, void* stream) {
+                           const int* members, const int* table, int ranks,
+                           int n, int slices, long long chunk,
+                           int tile_bytes, int stages, int dtype,
+                           void* stream) {
   Params p;
-  if (!fill(p, x, out, rank_stride, flags, flag_stride, slices, my, ranks,
-            n, slices) ||
-      !fill_rings(p.my, p.members, my, members, nullptr, ranks, ranks, n) ||
+  if (!fill(p, x, out, rank_stride, flags, flag_stride, slices, my, members,
+            table, ranks, n, slices) ||
       chunk < 1 || stages < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -932,12 +940,12 @@ int gtt_ring_allreduce_hbm(const void* x, void* out, long long rank_stride,
 // >= chunk / (kThreads kQ8Units)), 0 for the out-of-register form.
 int gtt_ring_allreduce_q8(const void* x, void* out, long long rank_stride,
                           int* flags, int flag_stride, const int* my,
-                          const int* members, int ranks, int n, int slices,
-                          long long chunk, int in_registers, void* stream) {
+                          const int* members, const int* table, int ranks,
+                          int n, int slices, long long chunk,
+                          int in_registers, void* stream) {
   Params p;
-  if (!fill(p, x, out, rank_stride, flags, flag_stride, slices, my, ranks,
-            n, slices) ||
-      !fill_rings(p.my, p.members, my, members, nullptr, ranks, ranks, n) ||
+  if (!fill(p, x, out, rank_stride, flags, flag_stride, slices, my, members,
+            table, ranks, n, slices) ||
       chunk < 1 ||
       (in_registers &&
        (chunk + slices - 1) / slices > kThreads * kQ8Units)) {
@@ -946,7 +954,7 @@ int gtt_ring_allreduce_q8(const void* x, void* out, long long rank_stride,
   // The cells follow every rank's flag sets.
   int* const cells =
       flags + static_cast<long long>(ranks) * slices * flag_stride;
-  for (int r = 0; r < ranks; ++r) p.cells[r] = cells + 2 * n * r;
+  p.cells = strided(cells, 2LL * n * static_cast<long long>(sizeof(int)));
   p.chunk = chunk;
   const int variant = in_registers ? kQ8 : kQ8Mem;
   return launch(variant, kernel_for(variant, 1, 0), p, 0,
@@ -957,13 +965,12 @@ int gtt_ring_allreduce_q8(const void* x, void* out, long long rank_stride,
 // column half (a row is 2 half_units).
 int gtt_ring_allreduce_bidir(const void* x, void* out, long long rank_stride,
                              int* flags, int flag_stride, const int* my,
-                             const int* members, int ranks, int n,
-                             int slices, long long chunk_rows,
+                             const int* members, const int* table, int ranks,
+                             int n, int slices, long long chunk_rows,
                              long long half_units, int dtype, void* stream) {
   Params p;
   if (!fill(p, x, out, rank_stride, flags, flag_stride, 2 * slices, my,
-            ranks, n, slices) ||
-      !fill_rings(p.my, p.members, my, members, nullptr, ranks, ranks, n) ||
+            members, table, ranks, n, slices) ||
       chunk_rows < 1 || half_units < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -978,23 +985,30 @@ int gtt_ring_allreduce_bidir(const void* x, void* out, long long rank_stride,
 // B10 (register form), 2 B11, 3 B10 (out-of-register form). in, out and
 // flags: `ranks` host arrays of device pointers by flat rank (each
 // member's input and output of n chunks, 16-byte aligned, and its
-// kPeerFlags flag ints, peer-mapped or this process's own); cells (B10):
-// 2 n zeroed ints per local rank, this process's own; local: the flat
-// ranks this process plays; my and members as gtt_ring_allreduce_hbm's
-// (members' rows read for the local ranks). chunk (B9, B10), chunk_rows
-// and half_units (B11), tile_bytes and stages (B9) and dtype as the
-// one-card entries take them. before: every flag's count before this call
-// (each call adds (n - 1) x the blocks per rank to each); every process of
-// the ring makes the same calls in the same order with the same slices.
+// kPeerFlags flag ints, peer-mapped or this process's own), and d_in,
+// d_out, d_flags the same arrays in device memory (tpu/peer.py's
+// PeerWorkspace.device_table); cells (B10): 2 n zeroed ints per local
+// rank, this process's own; local: the flat ranks this process plays; my,
+// members and table as gtt_ring_allreduce_hbm's (members' rows read for
+// the local ranks; table's local part is this process's). chunk (B9,
+// B10), chunk_rows and half_units (B11), tile_bytes and stages (B9) and
+// dtype as the one-card entries take them. before: every flag's count
+// before this call (each call adds (n - 1) x the blocks per rank to each);
+// every process of the ring makes the same calls in the same order with
+// the same slices.
 int gtt_ring_variants_peer(int variant, const void* const* in,
-                           void* const* out, int* const* flags, int* cells,
+                           void* const* out, int* const* flags,
+                           const void* const* d_in, void* const* d_out,
+                           int* const* d_flags, int* cells,
                            const int* local, int local_ranks, const int* my,
-                           const int* members, int ranks, int n, int slices,
-                           long long chunk, long long chunk_rows,
-                           long long half_units, int tile_bytes, int stages,
-                           int dtype, int before, void* stream) {
+                           const int* members, const int* table, int ranks,
+                           int n, int slices, long long chunk,
+                           long long chunk_rows, long long half_units,
+                           int tile_bytes, int stages, int dtype, int before,
+                           void* stream) {
   const bool q8 = variant == kQ8 || variant == kQ8Mem;
-  if (ranks < 2 || ranks > kMaxRanks || n < 2 || n > ranks ||
+  if (ranks < 2 || n < 2 || n > ranks || d_in == nullptr ||
+      d_out == nullptr || d_flags == nullptr ||
       local_ranks < 1 || local_ranks > ranks || slices < 1 ||
       slices > 65535 || before < 0 || (q8 && cells == nullptr) ||
       (variant == kHbm && stages < 1) ||
@@ -1003,28 +1017,21 @@ int gtt_ring_variants_peer(int variant, const void* const* in,
        (chunk + slices - 1) / slices > kThreads * kQ8Units)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (!check_rings(my, members, local, local_ranks, ranks, n, table) ||
+      !check_pointers(in, ranks, 16) || !check_pointers(out, ranks, 16) ||
+      !check_pointers(flags, ranks)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   PeerParams q;
   memset(&q, 0, sizeof(q));
   Params& p = q.p;
-  if (!fill_rings(p.my, p.members, my, members, local, local_ranks, ranks,
-                  n)) {
-    return static_cast<int>(cudaErrorInvalidValue);
+  p.in = tabled(d_in);
+  p.out = tabled(d_out);
+  p.flags = tabled(d_flags);
+  if (q8) {
+    p.cells = strided(cells, 2LL * n * static_cast<long long>(sizeof(int)));
   }
-  for (int r = 0; r < ranks; ++r) {
-    if (in[r] == nullptr || out[r] == nullptr || flags[r] == nullptr ||
-        reinterpret_cast<uintptr_t>(in[r]) % 16 ||
-        reinterpret_cast<uintptr_t>(out[r]) % 16) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    p.in[r] = in[r];
-    p.out[r] = out[r];
-    p.flags[r] = flags[r];
-  }
-  for (int x = 0; x < local_ranks; ++x) {
-    const int r = local[x];
-    if (q8) p.cells[r] = cells + 2 * n * x;
-    q.local[x] = r;
-  }
+  p.rings = rings_at(table, ranks, local_ranks);
   p.n = n;
   p.flag_stride = kPeerFlags;
   p.stages = stages;

@@ -102,12 +102,15 @@ from gloo_tpu_torch.parallel.pp import pipeline_apply, pipeline_train_1f1b
 from gloo_tpu_torch.parallel.sp import (ring_attention, ring_flash_attention,
                                         ulysses_attention)
 from gloo_tpu_torch.parallel.tp import (allgather_matmul_dense,
-                                        row_parallel_dense_scattered)
+                                        allgather_matmul_dense_auto,
+                                        row_parallel_dense_scattered,
+                                        row_parallel_dense_scattered_auto)
 from gloo_tpu_torch.tpu.hierarchical import (HierarchicalGroup,
                                              make_hierarchical_ddp)
 from gloo_tpu_torch.tpu.mesh import make_mesh
 from gloo_tpu_torch.tpu.multihost import init_multihost
 from gloo_tpu_torch.weights import (pipeline_stages_from_numpy,
+                                    tp_transformer_from_numpy,
                                     transformer_params_to_numpy)
 
 ENTRY_CONFIG = TransformerConfig(vocab_size=512, d_model=256, n_heads=4,
@@ -635,31 +638,39 @@ def _variant_paths(step, x, mesh):
                                   ("bidir", ring_allreduce_bidir))}
 
 
-def _variant_buffer(dev: torch.device, ranks) -> torch.Tensor:
-    """ring_variants_entry's x at the rows of flat `ranks`."""
+def _variant_buffer(dev: torch.device, ranks,
+                    world: int = DDP_WORLD) -> torch.Tensor:
+    """ring_variants_entry's x over a world of `world` ranks, at the rows
+    of flat `ranks`: each rank's buffer_width(numel, world) values drawn
+    in rank order from one np.random.RandomState(7) (row by row, the
+    stream of randn(world, width)), rows zero-padded to a multiple of
+    32 x world."""
     numel = sum(p.numel() for p in
                 Transformer(ENTRY_CONFIG, device="meta").parameters())
-    width = buffer_width(numel, DDP_WORLD)
-    quantum = 32 * DDP_WORLD
+    width = buffer_width(numel, world)
+    quantum = 32 * world
     rows = -(-width // (quantum * RING_VARIANT_COLS)) * quantum
-    buf = np.zeros((DDP_WORLD, rows * RING_VARIANT_COLS), np.float32)
-    buf[:, :width] = np.random.RandomState(7).randn(DDP_WORLD, width)
-    x = torch.as_tensor(buf.reshape(DDP_WORLD, rows, RING_VARIANT_COLS))
+    rng = np.random.RandomState(7)
+    buf = np.zeros((world, rows * RING_VARIANT_COLS), np.float32)
+    for r in range(world):
+        buf[r, :width] = rng.randn(width)
+    x = torch.as_tensor(buf.reshape(world, rows, RING_VARIANT_COLS))
     return x[list(ranks)].to(dev)
 
 
-def ring_variants_entry(device="cuda"):
+def ring_variants_entry(device="cuda", ranks: int = DDP_WORLD):
     """The ring-variant path: {"hbm": (ring_variant_step, args), "q8": ...,
     "bidir": ...}, each fn(*args), args = (the variant, x, mesh): a mesh
-    {"data": DDP_WORLD} of ranks on `device` and x the flagship's gradient
+    {"data": ranks} of ranks on `device` and x the flagship's gradient
     buffer on each rank (buffer_width f32: every parameter's gradient and
     the loss, here np.random.RandomState(7).randn, the dry run's ring_rng),
-    zero-padded to (DDP_WORLD, rows, RING_VARIANT_COLS): (4, 6912, 256)
-    f32, 7.08 MB per rank."""
+    zero-padded to (ranks, rows, RING_VARIANT_COLS), rows a multiple of
+    32 x ranks: (4, 6912, 256) f32, 7.08 MB per rank, at DDP_WORLD; (64,
+    8192, 256), 8.39 MB per rank and 537 MB per world tensor, at 64."""
     dev = resolve_device(device)
-    mesh = make_mesh({"data": DDP_WORLD}, devices=[dev] * DDP_WORLD)
+    mesh = make_mesh({"data": ranks}, devices=[dev] * ranks)
     return _variant_paths(ring_variant_step,
-                          _variant_buffer(dev, range(DDP_WORLD)), mesh)
+                          _variant_buffer(dev, range(ranks), ranks), mesh)
 
 
 def multihost_ring_variants_entry(rank: int, size: int, store_address: str,
@@ -1080,3 +1091,198 @@ def elastic_step_fn(launch_rank: int, checkpointer: StepCheckpointer,
 
     step_fn.model = model
     return step_fn, {"model": model.state_dict(), "adam": None}
+
+
+# ---- the dry run at any n_devices ----
+
+def dryrun_config(n_devices: int):
+    """The dp x tp step's mesh axes and model at n_devices, scaled as
+    __graft_entry__.dryrun_multichip scales them (:125-135): "data" 2 where
+    n is even (else 1), "model" the rest, heads doubled from 4 until they
+    reach the model axis, d_model 8 and d_ff 16 x max(model, 4), 2 layers,
+    vocab 128, 16 tokens a sequence, bf16 (the JAX config's default)."""
+    dp = 2 if n_devices % 2 == 0 else 1
+    tp = n_devices // dp
+    n_heads = 4
+    while tp > n_heads:
+        n_heads *= 2
+    cfg = TransformerConfig(vocab_size=128, d_model=8 * max(tp, 4),
+                            n_heads=n_heads, n_layers=2,
+                            d_ff=16 * max(tp, 4), max_seq_len=16)
+    return {"data": dp, "model": tp}, cfg
+
+
+def dryrun_dp_tp(n_devices: int, device="cuda", params=None,
+                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The dry run's dp x tp step (:118-180) at n_devices ranks on one
+    device: dryrun_config's mesh and model, its weights split over "model"
+    (wqkv and w_up by columns, wo and w_down by rows), one Adam step at
+    ADAM_SETTINGS (optax.adam(1e-3)) on 2 x data sequences from
+    np.random.RandomState(0) and their next-token targets. The weights are
+    `params` (the JAX tree as numpy arrays) where given, else
+    Transformer.init with a generator seeded 0; `dtype` overrides the
+    config's. Returns the global mean loss (0-d f32), asserted finite. The
+    gradients cross the ranks on B3, along "data" and along "model"."""
+    axes, cfg = dryrun_config(n_devices)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    dev = resolve_device(device)
+    mesh = make_mesh(axes, devices=[dev] * n_devices)
+    if params is None:
+        model = Transformer(cfg, device=dev).init(
+            torch.Generator().manual_seed(0))
+        tp_model = shard_transformer(model, mesh, "model")
+    else:
+        tp_model = tp_transformer_from_numpy(params, cfg, mesh)
+    optimizer = torch.optim.Adam(tp_model.parameters(), **ADAM_SETTINGS)
+    tokens = np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (2 * axes["data"], cfg.max_seq_len)).astype(
+            np.int32)
+    targets = np.roll(tokens, -1, axis=1)
+    loss = make_dp_tp_train_step(mesh, "data", "model")(
+        tp_model, optimizer, torch.as_tensor(tokens, device=dev),
+        torch.as_tensor(targets, device=dev))
+    assert torch.isfinite(loss).item(), \
+        "training step produced non-finite loss"
+    return loss
+
+
+def _tanh_stage(p: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    return torch.tanh(h @ p)
+
+
+def _mse(o: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Each rank's mean squared error: (P,) over world tensors."""
+    return ((o - t) ** 2).flatten(1).mean(1)
+
+
+def _fsdp_dryrun_loss(p: dict, batch) -> torch.Tensor:
+    x, y = batch
+    return torch.mean((x @ p["w"] + p["b"] - y) ** 2)
+
+
+def _fused_pair(x, wu, wd, mesh, auto: bool = False) -> torch.Tensor:
+    up = allgather_matmul_dense_auto if auto else allgather_matmul_dense
+    down = row_parallel_dense_scattered_auto if auto \
+        else row_parallel_dense_scattered
+    return down(up(x, wu, "x", mesh=mesh), wd, "x", mesh=mesh)
+
+
+def _ring_variant(variant, rng, mesh, per_rows: int, cols: int,
+                  lossy: bool = False) -> torch.Tensor:
+    """The dry run's _ring_variant (:350-370): (n, per_rows, cols) f32 from
+    rng, one call along "x", held to the sum over the ranks: q8 (lossy)
+    within 5% of its largest value and bitwise the same on every rank,
+    the others within rtol 1e-5 of it on every rank. The reference holds
+    those with an elementwise rtol and no atol, which its own kernels miss
+    on its own draws (sums near zero keep no relative precision in any
+    add order: 45 of 16384 elements of B11's at n 8); here the rtol is
+    relative to the sum's largest value."""
+    n = mesh.size
+    xs = rng.randn(n, per_rows, cols).astype(np.float32)
+    out = variant(torch.as_tensor(xs, device=mesh.device), "x", mesh).cpu()
+    expected = torch.as_tensor(xs.sum(axis=0))
+    if lossy:
+        rel = float((out[0] - expected).abs().max() / expected.abs().max())
+        assert rel < 0.05, f"{variant.__name__}: rel err {rel}"
+        for i in range(1, n):
+            # Consensus: the quantized stream decodes identically on every
+            # rank.
+            assert torch.equal(out[i], out[0]), variant.__name__
+    else:
+        atol = 1e-5 * float(expected.abs().max())
+        for i in range(n):
+            torch.testing.assert_close(out[i], expected, rtol=0, atol=atol)
+    return out
+
+
+def dryrun_multichip(n_devices: int, device="cuda") -> dict:
+    """The counterpart of __graft_entry__.dryrun_multichip(n_devices): a
+    world of n_devices ranks on one device, each section of the reference
+    at its own scaling, shapes, inputs and asserts, on the port's modules.
+    Returns each section's result by name (tensors on the device):
+
+      "dp_tp": dryrun_dp_tp's loss (B3 along "data" and "model");
+      "ring_attention": ring_attention of q = k = v = ones (1, 1, 8 n, 4)
+        split over the sequence, causal;
+      "gpipe": pipeline_apply of tanh(h @ w), w = 0.1 ones (4, 4) a stage,
+        over 3 microbatches of ones (2, 4);
+      "1f1b": pipeline_train_1f1b's (grads, loss) of the same stages, mean
+        squared error to zeros, n + 2 microbatches;
+      "dispatch_combine": 4 tokens of ones (8) a rank, all to expert 0,
+        capacity 8, each expert doubling (B8);
+      "ulysses": ulysses_attention of ones (1, n, 8 n, 4) split over the
+        sequence (B8 around B1);
+      "fsdp": one FSDP step's loss of x @ w + b against ones, w = 0.1 ones
+        (8, 4), b zeros (4), 2 rows of ones (8) a rank (B4b, B4a, B3),
+        asserted finite;
+      "fused": the Megatron-SP pair, allgather_matmul_dense (B5b) then
+        row_parallel_dense_scattered (B5a), of x = 0.01 ones (8 n, 16),
+        w_up = 0.02 ones (16, 16 n) by columns, w_down = 0.03 ones
+        (16 n, 128) by rows; "fused_auto" and "unfused_auto" the *_auto
+        pair with TPUCOLL_TP_OVERLAP forced to each arm, within rtol 1e-5
+        of it (the variable restored after);
+      "q8", "bidir", "hbm": the ring variants (B10, B11, B9) at (n, 32 n,
+        128), (n, 8 n, 256) and (n, 8 n, 128) from one
+        np.random.RandomState(7), held as _ring_variant holds them.
+
+    The reference skips the fused and ring-variant sections where its JAX
+    has no distributed Pallas interpreter; the port has its kernels (or
+    their plain versions on CPU tensors) and runs them always."""
+    dev = resolve_device(device)
+    n = n_devices
+    out = {"dp_tp": dryrun_dp_tp(n, dev)}
+    flat = make_mesh({"x": n}, devices=[dev] * n)
+
+    q = torch.ones((n, 1, 1, 8, 4), device=dev)
+    out["ring_attention"] = ring_attention(q, q, q, "x", mesh=flat)
+
+    ws = torch.full((n, 4, 4), 0.1, device=dev)
+    xs = torch.ones((3, 2, 4), device=dev).expand(n, -1, -1, -1)
+    out["gpipe"] = pipeline_apply(_tanh_stage, ws, xs, "x", mesh=flat)
+    xs_t = torch.ones((n + 2, 2, 4), device=dev).expand(n, -1, -1, -1)
+    ys_t = torch.zeros((n + 2, 2, 4), device=dev).expand(n, -1, -1, -1)
+    out["1f1b"] = pipeline_train_1f1b(_tanh_stage, _mse, ws, xs_t, ys_t,
+                                      "x", mesh=flat)
+
+    toks = torch.ones((n, 4, 8), device=dev)
+    idx = torch.zeros((n, 4), dtype=torch.int32, device=dev)
+    out["dispatch_combine"] = dispatch_combine(lambda x: x * 2.0, toks, idx,
+                                               8, "x", mesh=flat)
+
+    qh = torch.ones((n, 1, n, 8, 4), device=dev)
+    out["ulysses"] = ulysses_attention(qh, qh, qh, "x", mesh=flat)
+
+    params = {"w": torch.full((8, 4), 0.1, device=dev),
+              "b": torch.zeros((4,), device=dev)}
+    step = make_fsdp_train_step(_fsdp_dryrun_loss, params, "x", mesh=flat)
+    batch = (torch.ones((n, 2, 8), device=dev),
+             torch.ones((n, 2, 4), device=dev))
+    _, out["fsdp"] = step(shard_params(params, "x", mesh=flat), batch)
+    assert torch.isfinite(out["fsdp"]).all().item()
+
+    ov_x = torch.full((n, 8, 16), 0.01, device=dev)
+    ov_wu = torch.full((n, 16, 16), 0.02, device=dev)
+    ov_wd = torch.full((n, 16, 128), 0.03, device=dev)
+    out["fused"] = _fused_pair(ov_x, ov_wu, ov_wd, flat)
+    saved = os.environ.get("TPUCOLL_TP_OVERLAP")
+    try:
+        for arm in ("fused", "unfused"):
+            os.environ["TPUCOLL_TP_OVERLAP"] = arm
+            got = _fused_pair(ov_x, ov_wu, ov_wd, flat, auto=True)
+            torch.testing.assert_close(got.cpu(), out["fused"].cpu(),
+                                       rtol=1e-5, atol=0)
+            out[f"{arm}_auto"] = got
+    finally:
+        # An operator's forced dispatch mode survives the dry run.
+        if saved is None:
+            os.environ.pop("TPUCOLL_TP_OVERLAP", None)
+        else:
+            os.environ["TPUCOLL_TP_OVERLAP"] = saved
+
+    rng = np.random.RandomState(7)
+    out["q8"] = _ring_variant(ring_allreduce_q8, rng, flat, n * 32, 128,
+                              lossy=True)
+    out["bidir"] = _ring_variant(ring_allreduce_bidir, rng, flat, n * 8, 256)
+    out["hbm"] = _ring_variant(ring_allreduce_hbm, rng, flat, n * 8, 128)
+    return out

@@ -27,7 +27,11 @@ tick. PR 21 added the cross-process instances of B3, B4a and B4b (one
 cooperative launch per process over CUDA IPC peer-mapped memory, for a
 process mesh of tpu/multihost.py); their statuses say so last. PR 22
 added those of B5a, B5b and B8 in the same way, PR 23 those of B9, B10
-and B11.
+and B11. Until PR 27 the collective kernels (B3-B5b, B8-B11) took at most
+32 ranks, the size of the per-rank tables in their parameters; PR 27
+moved those tables into device memory, so they take any world whose
+blocks the card holds at once (ops/ring.py's residency), and their
+statuses say so last.
 tests/test_torch_isolation.py holds this table against the JAX sources.
 """
 
@@ -73,33 +77,42 @@ KERNELS = (
            "any head_dim, PR 26"),
     Kernel("B5a", _O, "_matmul_rs_kernel", 38, 185, "matmul_reduce_scatter",
            "ported: gloo_tpu_torch/csrc/overlap.cu; redesigned, PR 7; "
-           "f16, PR 18; across processes (CUDA IPC), PR 22"),
+           "f16, PR 18; across processes (CUDA IPC), PR 22; any ranks up "
+           "to the card's residency, PR 27"),
     Kernel("B5b", _O, "_ag_matmul_kernel", 205, 294, "allgather_matmul",
            "ported: gloo_tpu_torch/csrc/overlap.cu; redesigned, PR 7; "
-           "f16, PR 18; across processes (CUDA IPC), PR 22"),
+           "f16, PR 18; across processes (CUDA IPC), PR 22; any ranks up "
+           "to the card's residency, PR 27"),
     Kernel("B3", _R, "_ring_allreduce_kernel", 63, 183, "ring_allreduce",
            "ported: gloo_tpu_torch/csrc/ring.cu; redesigned, PR 8; "
-           "across processes (CUDA IPC), PR 21"),
+           "across processes (CUDA IPC), PR 21; any ranks up to the card's "
+           "residency, PR 27"),
     Kernel("B9", _R, "_ring_allreduce_hbm_kernel", 246, 440,
            "ring_allreduce_hbm",
            "ported: gloo_tpu_torch/csrc/ring_variants.cu; redesigned, PR 9; "
-           "every dtype of SUM_DTYPES; across processes (CUDA IPC), PR 23"),
+           "every dtype of SUM_DTYPES; across processes (CUDA IPC), PR 23; "
+           "any ranks up to the card's residency, PR 27"),
     Kernel("B10", _R, "_ring_allreduce_q8_kernel", 485, 654,
            "ring_allreduce_q8",
            "ported: gloo_tpu_torch/csrc/ring_variants.cu; redesigned, PR 13; "
-           "across processes (CUDA IPC), PR 23"),
+           "across processes (CUDA IPC), PR 23; any ranks up to the card's "
+           "residency, PR 27"),
     Kernel("B11", _R, "_ring_allreduce_bidir_kernel", 691, 842,
            "ring_allreduce_bidir",
            "ported: gloo_tpu_torch/csrc/ring_variants.cu; redesigned, PR 9; "
-           "every dtype of SUM_DTYPES; across processes (CUDA IPC), PR 23"),
+           "every dtype of SUM_DTYPES; across processes (CUDA IPC), PR 23; "
+           "any ranks up to the card's residency, PR 27"),
     Kernel("B4a", _R, "_ring_reduce_scatter_kernel", 876, 963,
            "ring_reduce_scatter",
            "ported: gloo_tpu_torch/csrc/ring.cu; redesigned, PR 8; "
-           "across processes (CUDA IPC), PR 21"),
+           "across processes (CUDA IPC), PR 21; any ranks up to the card's "
+           "residency, PR 27"),
     Kernel("B4b", _R, "_ring_allgather_kernel", 995, 1050, "ring_allgather",
            "ported: gloo_tpu_torch/csrc/ring.cu; redesigned, PR 11; "
-           "across processes (CUDA IPC), PR 21"),
+           "across processes (CUDA IPC), PR 21; any ranks up to the card's "
+           "residency, PR 27"),
     Kernel("B8", _R, "_alltoall_kernel", 1109, 1178, "pallas_alltoall",
            "ported: gloo_tpu_torch/csrc/alltoall.cu; redesigned, PR 10; "
-           "across processes (CUDA IPC), PR 22"),
+           "across processes (CUDA IPC), PR 22; any ranks up to the card's "
+           "residency, PR 27"),
 )

@@ -47,11 +47,12 @@ from typing import TYPE_CHECKING, NamedTuple
 import torch
 
 from gloo_tpu_torch import _build
-from gloo_tpu_torch.ops.ring import (KERNEL_DTYPES, KERNEL_MAX_RANKS,
-                                     _check_rows, _gather_world,
-                                     _local_table, _raise_on, _ring_size,
-                                     _stream, resident_blocks,
-                                     ring_allgather, ring_allgather_plain)
+from gloo_tpu_torch.ops.ring import (KERNEL_DTYPES, _axis_key, _check_rows,
+                                     _ctypes_tables, _gather_world,
+                                     _raise_on, _ring_size, _stream,
+                                     resident_blocks, residency,
+                                     ring_allgather, ring_allgather_plain,
+                                     ring_table)
 
 if TYPE_CHECKING:
     from gloo_tpu_torch.tpu.mesh import Mesh
@@ -66,7 +67,9 @@ _peer_max_blocks: dict[int, dict[int, int]] = {}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _IP = ctypes.POINTER(ctypes.c_int)
 _W = [_P, _L, _P, _L, _L, _L]  # x, its row stride, w, its three strides
-_TAIL = [_IP, _IP, _IP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+# my, right, left (host arrays), the device ring table, ranks, n, slices,
+# rows, k, cols, slabs, ring, w_resident, smem, dtype, stream
+_TAIL = [_IP, _IP, _IP, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 _SIGNATURES = {
     "gtt_matmul_rs": _W + [_P, _P, _P, _I] + _TAIL,
     "gtt_ag_matmul": _W + [_P, _P, _P, _I] + _TAIL,
@@ -152,9 +155,8 @@ def _overlap_lib() -> ctypes.CDLL:
             getattr(lib, name).argtypes = [_I, _IP]
             getattr(lib, name).restype = ctypes.c_int
         lib.gtt_overlap_peer.argtypes = [
-            _I, _P, _L, _P, _L, _L, _L, _P, _P, _L, _P, _P, _I, _IP, _I,
-            _IP, _IP, _IP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-            _I, _P]
+            _I, _P, _L, _P, _L, _L, _L, _P, _P, _L, _P, _P, _P, _P, _I, _IP,
+            _I, _IP, _IP, _IP, _P] + [_I] * 13 + [_P]
         lib.gtt_overlap_peer.restype = ctypes.c_int
         for name in ("gtt_overlap_peer_tile_flags",
                      "gtt_overlap_peer_max_local"):
@@ -236,15 +238,11 @@ def _plan(x: torch.Tensor, w: torch.Tensor, rows: int):
     return x, w, plan
 
 
-def _check_kernel(x: torch.Tensor, ranks: int) -> None:
-    """The same errors on every process before any launch: x's dtype, and
-    the ranks of the world the kernels' tables hold."""
+def _check_kernel(x: torch.Tensor) -> None:
+    """The same error on every process before any launch: x's dtype."""
     if x.dtype not in KERNEL_DTYPES:
         raise TypeError(f"the overlap kernels take bf16, f16 or f32, got "
                         f"{x.dtype}")
-    if ranks > KERNEL_MAX_RANKS:
-        raise ValueError(f"the overlap kernels take at most "
-                         f"{KERNEL_MAX_RANKS} ranks, got {ranks}")
 
 
 def _resident(x: torch.Tensor, lib: ctypes.CDLL, plan: LaunchPlan,
@@ -260,23 +258,17 @@ def _resident(x: torch.Tensor, lib: ctypes.CDLL, plan: LaunchPlan,
 
 
 def _launch_setup(x: torch.Tensor, mesh: Mesh, axis_name: str,
-                  plan: LaunchPlan):
-    """(lib, slices, flag stride, ctypes ring tables): each rank's tiles
-    spread over as many slices as can be resident beside the other ranks'
-    (all of them at the fused MLP's shape)."""
-    ranks = x.shape[0]
-    _check_kernel(x, ranks)
+                  plan: LaunchPlan, kernel: str):
+    """(lib, slices, flag stride, ctypes ring tables, device ring table):
+    each rank's tiles spread over as many slices as can be resident beside
+    the other ranks' (all of them at the fused MLP's shape)."""
+    _check_kernel(x)
     lib = _overlap_lib()
     stride = lib.gtt_overlap_flag_stride(mesh.axis_size(axis_name))
-    resident = _resident(x, lib, plan)
-    per_rank = resident // ranks
-    if per_rank < 1:
-        raise RuntimeError(f"{ranks} ranks need {ranks} co-resident blocks "
-                           f"of {plan.smem} bytes of shared memory; the "
-                           f"card holds {resident}")
-    tables = [(ctypes.c_int * ranks)(*t)
-              for t in mesh.ring_neighbors(axis_name)]
-    return lib, min(per_rank, plan.tiles), stride, tables
+    per_rank = residency(kernel, x.shape[0], _resident(x, lib, plan))
+    names = _axis_key(axis_name)
+    return (lib, min(per_rank, plan.tiles), stride,
+            _ctypes_tables(mesh, names), ring_table(mesh, names).data_ptr())
 
 
 def _plan_args(plan: LaunchPlan) -> tuple[int, int, int, int]:
@@ -294,7 +286,7 @@ def _peer_launch(rs: bool, x: torch.Tensor, w: torch.Tensor, axis_name: str,
     write (B5a's comm slots, B5b's gx, both kernels' flags) lies in the
     mesh's peer workspace. The family's tag and barrier counts before the
     call come from the workspace ("overlap_tag", "overlap_barrier")."""
-    _check_kernel(x, mesh.size)
+    _check_kernel(x)
     n = mesh.axis_size(axis_name)
     local, _, k = x.shape
     cols = w.shape[2]
@@ -308,12 +300,10 @@ def _peer_launch(rs: bool, x: torch.Tensor, w: torch.Tensor, axis_name: str,
     resident = _resident(x, lib, plan, peer=True)
     ws = mesh.workspace
     elt = x.element_size()
+    name = "matmul_reduce_scatter" if rs else "allgather_matmul"
     with torch.cuda.device(x.device):
-        per_rank = ws.agree(f"overlap/{plan.smem}", resident // local)
-        if per_rank < 1:
-            raise RuntimeError(f"{local} local ranks need {local} "
-                               f"co-resident blocks of {plan.smem} bytes of "
-                               f"shared memory; the card holds {resident}")
+        per_rank = residency(name, local, resident, functools.partial(
+            ws.agree, f"overlap/{plan.smem}"))
         slices = min(per_rank, plan.tiles)
         regions = {"ov_flags": (lib.gtt_overlap_peer_tile_flags()
                                 + plan.tiles * stride) * 4}
@@ -325,21 +315,22 @@ def _peer_launch(rs: bool, x: torch.Tensor, w: torch.Tensor, axis_name: str,
         ws.reserve(regions)
         out = torch.empty((local, rows if rs else n * rows, cols),
                           dtype=x.dtype, device=x.device)
-        my, right, left = ((ctypes.c_int * mesh.size)(*t)
-                           for t in mesh.ring_neighbors(axis_name))
+        names = _axis_key(axis_name)
+        tables = _ctypes_tables(mesh, names)
         empty = (_P * mesh.size)()
         ws.start_together(torch.cuda.current_stream(x.device))
         err = lib.gtt_overlap_peer(
             int(rs), x.data_ptr(), plan.x_ld, w.data_ptr(), *_w_strides(w),
             out.data_ptr(), empty if rs else ws.table("gx"),
             0 if rs else ws.caps["gx"], ws.table("comm") if rs else empty,
-            ws.table("ov_flags"), stride, _local_table(mesh), local, my,
-            right, left, mesh.size, n, slices, rows, k, cols,
-            *_plan_args(plan), KERNEL_DTYPES[x.dtype],
+            ws.table("ov_flags"), ws.device_table("comm") if rs else None,
+            ws.device_table("ov_flags"), stride, tables.local, local,
+            tables.my, tables.right, tables.left,
+            ring_table(mesh, names).data_ptr(), mesh.size, n, slices, rows,
+            k, cols, *_plan_args(plan), KERNEL_DTYPES[x.dtype],
             ws.advance("overlap_tag", n - 1),
             ws.advance("overlap_barrier", (n - 1) * slices), _stream(x))
-        _raise_on(err, "allgather_matmul" if not rs
-                  else "matmul_reduce_scatter", lib)
+        _raise_on(err, name, lib)
         if rs:
             return out, None
         # gx is the workspace's until the next call: the caller's copy.
@@ -369,15 +360,16 @@ def _matmul_rs(x: torch.Tensor, w: torch.Tensor, axis_name: str,
         return matmul_reduce_scatter_plain(x, w, axis_name, mesh)
     rows = m // n
     x, w, plan = _plan(x, w, rows)
-    lib, slices, stride, (my, right, left) = _launch_setup(
-        x, mesh, axis_name, plan)
+    lib, slices, stride, tables, table = _launch_setup(
+        x, mesh, axis_name, plan, "matmul_reduce_scatter")
     out, comm, flags = _rs_buffers(x, rows, cols, plan.tiles,
                                    plan.tiles * stride)
     with torch.cuda.device(x.device):
         err = lib.gtt_matmul_rs(
             x.data_ptr(), plan.x_ld, w.data_ptr(), *_w_strides(w),
             out.data_ptr(), comm.data_ptr(), flags.data_ptr(), stride,
-            my, right, left, ranks, n, slices, rows, k, cols,
+            tables.my, tables.right, tables.left, table, ranks, n, slices,
+            rows, k, cols,
             *_plan_args(plan), KERNEL_DTYPES[x.dtype], _stream(x))
     _raise_on(err, "matmul_reduce_scatter", lib)
     matmul_reduce_scatter.launches += 1
@@ -489,15 +481,16 @@ def allgather_matmul_fwd(x: torch.Tensor, w: torch.Tensor, axis_name: str,
     y = torch.empty((ranks, n * rows, cols), dtype=x.dtype, device=x.device)
     gx = torch.empty((ranks, n * rows, plan.x_ld), dtype=x.dtype,
                      device=x.device)
-    lib, slices, stride, (my, right, left) = _launch_setup(
-        x, mesh, axis_name, plan)
+    lib, slices, stride, tables, table = _launch_setup(
+        x, mesh, axis_name, plan, "allgather_matmul")
     flags = torch.zeros(ranks * plan.tiles * stride, dtype=torch.int32,
                         device=x.device)
     with torch.cuda.device(x.device):
         err = lib.gtt_ag_matmul(
             x.data_ptr(), plan.x_ld, w.data_ptr(), *_w_strides(w),
-            y.data_ptr(), gx.data_ptr(), flags.data_ptr(), stride, my,
-            right, left, ranks, n, slices, rows, k, cols, *_plan_args(plan),
+            y.data_ptr(), gx.data_ptr(), flags.data_ptr(), stride,
+            tables.my, tables.right, tables.left, table, ranks, n, slices,
+            rows, k, cols, *_plan_args(plan),
             KERNEL_DTYPES[x.dtype], _stream(x))
     _raise_on(err, "allgather_matmul", lib)
     allgather_matmul.launches += 1

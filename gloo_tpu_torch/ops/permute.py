@@ -27,15 +27,16 @@ byte copy either way, so the two agree bit for bit in any dtype.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import TYPE_CHECKING, NamedTuple, Sequence
 
 import torch
 
 from gloo_tpu_torch import _build
-from gloo_tpu_torch.ops.ring import (PEER_FLAGS, _axis_key, _check_ranks,
-                                     _ctypes_tables, _local_table, _on_world,
-                                     _raise_on, _stream, _unit_bytes,
-                                     resident_blocks)
+from gloo_tpu_torch.ops.ring import (PEER_FLAGS, _axis_key, _ctypes_tables,
+                                     _on_world, _raise_on, _stream,
+                                     _unit_bytes, resident_blocks, residency,
+                                     ring_table)
 
 if TYPE_CHECKING:
     # gloo_tpu_torch.tpu imports this module; the mesh is only read here.
@@ -57,9 +58,13 @@ def _permute_lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = _build.load("permute")
+        # in, out, out stride, flags (host), in, flags (device), local,
+        # local ranks, my, members, the device ring table, ranks, n, src,
+        # offset (host), the pairs (device), slices, count, unit, before,
+        # stream
         lib.gtt_permute_peer.argtypes = [
-            _P, _P, _L, _P, _IP, _I, _IP, _IP, _I, _I, _IP,
-            ctypes.POINTER(_L), _I, _L, _I, _I, _P]
+            _P, _P, _L, _P, _P, _P, _IP, _I, _IP, _IP, _P, _I, _I, _IP,
+            ctypes.POINTER(_L), _P, _I, _L, _I, _I, _P]
         lib.gtt_permute_peer.restype = ctypes.c_int
         lib.gtt_permute_peer_max_blocks.argtypes = [_IP]
         lib.gtt_permute_peer_max_blocks.restype = ctypes.c_int
@@ -182,7 +187,6 @@ def _pull_peer(x: torch.Tensor, axis_name: Axis, mesh: Mesh,
     same tables, and the local outputs are new tensors. The flags' count
     before the call comes from the workspace's "permute" family, to which
     the call adds (n - 1) slices."""
-    _check_ranks(mesh.size, "the transport kernel")
     n = mesh.axis_size(axis_name)
     local = x.shape[0]
     elt = x.element_size()
@@ -192,10 +196,8 @@ def _pull_peer(x: torch.Tensor, axis_name: Axis, mesh: Mesh,
     with torch.cuda.device(x.device):
         resident = resident_blocks(x, lib, lib.gtt_permute_peer_max_blocks,
                                    _max_blocks)
-        most = ws.agree("permute", min(resident // local, 65535))
-        if most < 1:
-            raise RuntimeError(f"{local} local ranks need {local} "
-                               f"co-resident blocks; a card holds fewer")
+        most = residency("the transport", local, resident,
+                         functools.partial(ws.agree, "permute"))
         ws.reserve({"in": max(value * elt, 1), "perm_flags": PEER_FLAGS * 4})
         out = torch.empty((local, count), dtype=x.dtype, device=x.device)
         if count == 0:
@@ -206,14 +208,20 @@ def _pull_peer(x: torch.Tensor, axis_name: Axis, mesh: Mesh,
             xin.copy_(flat)
         plan = pull_plan(mesh, axis_name, sources, offsets, count, elt,
                          most)
-        my, _, _, table = _ctypes_tables(mesh, _axis_key(axis_name))
+        names = _axis_key(axis_name)
+        tables = _ctypes_tables(mesh, names)
+        # The sources, then the offsets, as the kernel reads them.
+        pairs = torch.tensor([*plan.src, *plan.offset], dtype=torch.int64,
+                             device=x.device)
         ws.start_together(torch.cuda.current_stream(x.device))
         err = lib.gtt_permute_peer(
             ws.table("in"), out.data_ptr(), count * elt,
-            ws.table("perm_flags"), _local_table(mesh), local, my, table,
-            mesh.size, n, (ctypes.c_int * local)(*plan.src),
-            (ctypes.c_longlong * local)(*plan.offset), plan.slices,
-            plan.units, plan.unit,
+            ws.table("perm_flags"), ws.device_table("in"),
+            ws.device_table("perm_flags"), tables.local, local, tables.my,
+            tables.members, ring_table(mesh, names).data_ptr(), mesh.size,
+            n, (ctypes.c_int * local)(*plan.src),
+            (ctypes.c_longlong * local)(*plan.offset), pairs.data_ptr(),
+            plan.slices, plan.units, plan.unit,
             ws.advance("permute", (n - 1) * plan.slices), _stream(x))
     _raise_on(err, "the transport", lib)
     return out

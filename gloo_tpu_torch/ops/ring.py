@@ -44,6 +44,13 @@ to the front, makes the TPU kernel's block copies and concatenates, while
 its kernel pulls each rank's blocks from every member in one pass over
 strided blocks (csrc/alltoall.cu), the same bytes to the same places.
 
+No kernel bounds the world's ranks: each reads its rank tables from
+device memory (ring_table: one int32 tensor per mesh and axes, built once;
+across processes the workspace's device_table of peer pointers). What
+bounds a world on one card is the cooperative launch: one slice of every
+rank's blocks must be resident at once (residency), or the wrapper raises
+naming the kernel.
+
 On a process mesh (tpu/multihost.py's init_multihost: flat ranks spread
 over OS processes), ring_allreduce, ring_reduce_scatter and ring_allgather
 take this process's local tensor (local ranks, rows, cols), the rows of
@@ -89,15 +96,18 @@ SUM_DTYPES = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2,
               torch.int8: 6, torch.uint8: 7, torch.int16: 8,
               torch.uint16: 9, torch.uint32: 10}
 # The unsigned types this PyTorch has no add, max or index_put for on the
-# CPU, by the signed type that holds any sum of KERNEL_MAX_RANKS of them.
-# The twins add in that type and cast back once: a sum mod 2**bits has the
-# same bits in any order, so that is the kernels' one wrapping add per
-# member in the type, bit for bit.
+# CPU, by the signed type that holds their sums over any ring a card can
+# hold: n uint16 values fit int32 up to n = 32768, n uint32 values int64 up
+# to n = 2**32, and one card holds at most 132 SMs x 32 blocks = 4224 ranks
+# of a cooperative launch. The twins add in that type and cast back once: a
+# sum mod 2**bits has the same bits in any order, so that is the kernels'
+# one wrapping add per member in the type, bit for bit.
 WIDENED = {torch.uint16: torch.int32, torch.uint32: torch.int64}
-# Threads per block of csrc/ring.cu (kThreads) and the most ranks its peer
-# table holds (kMaxRanks).
+# Threads per block of csrc/ring.cu (kThreads). No kernel has a rank
+# ceiling: their rank tables live in device memory (ring_table), and what
+# bounds a world on one card is the residency of its cooperative launch
+# (residency).
 KERNEL_THREADS = 256
-KERNEL_MAX_RANKS = 32
 # Units (16-byte vectors or elements) of its chunk that each thread of B3
 # and B4a sums: the wrapper asks for as many slices as give every thread
 # this many (two passes of csrc/ring.cu's kUnroll), as far as the card
@@ -118,8 +128,8 @@ _PEER_MODES = {"ring_allreduce": 0, "ring_reduce_scatter": 1,
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _IP = ctypes.POINTER(ctypes.c_int)
-# my, members, ranks, n, slices, chunk
-_MEMBERS = [_IP, _IP, _I, _I, _I, _L]
+# my, members (host arrays), the device ring table, ranks, n, slices, chunk
+_MEMBERS = [_IP, _IP, _P, _I, _I, _I, _L]
 _SIGNATURES = {
     # ... dtype, vec, stream
     "gtt_ring_allreduce": [_P, _P, _L, _P, _I] + _MEMBERS + [_I, _I, _P],
@@ -138,8 +148,9 @@ def _ring_lib() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        lib.gtt_ring_peer.argtypes = [_I, _P, _P, _P, _IP, _I] + _MEMBERS \
-            + [_I, _I, _I, _P]
+        # mode, in, out, flags (host), the same (device), local, local ranks
+        lib.gtt_ring_peer.argtypes = [_I, _P, _P, _P, _P, _P, _P, _IP, _I] \
+            + _MEMBERS + [_I, _I, _I, _P]
         lib.gtt_ring_peer.restype = ctypes.c_int
         for name in ("gtt_ring_max_blocks", "gtt_ring_peer_max_blocks"):
             getattr(lib, name).argtypes = [_IP]
@@ -236,69 +247,109 @@ def resident_blocks(x: torch.Tensor, lib: ctypes.CDLL, max_blocks,
     return cache[index]
 
 
+def residency(kernel: str, blocks: int, resident: int, agree=None) -> int:
+    """How many times `blocks` blocks (one slice of a launch of `kernel`
+    over all its ranks) fit beside each other in the `resident` blocks a
+    card holds at once (resident_blocks): the slices per rank a
+    cooperative launch may take, at most 65535 where `agree` is given (a
+    collective that returns the least over a process mesh's processes, so
+    that every process launches alike). Raises a RuntimeError naming the
+    kernel when not even one slice fits: this is the only limit on the
+    ranks of a world, on one card or across processes."""
+    per = resident // blocks
+    if agree is not None:
+        per = agree(min(per, 65535))
+    if per < 1:
+        where = f"the card holds {resident}" if agree is None \
+            else "a card of the mesh holds fewer"
+        raise RuntimeError(f"{kernel}: {blocks} blocks must be resident at "
+                           f"once (one slice of every rank of the launch); "
+                           f"{where}")
+    return per
+
+
 def cooperative_grid(x: torch.Tensor, mesh: Mesh, axis_name: Axis,
                      lib: ctypes.CDLL, max_blocks, cache: dict[int, int],
-                     want: int, stride: int, blocks_per_slice: int = 1,
-                     extra: int = 0):
-    """(slices, zeroed flags, ctypes ring tables) for a cooperative launch
-    of `blocks_per_slice` blocks per (rank, slice), each with its own
-    `stride` flags: at most `want` slices, and no more than can be resident
-    beside the other ranks' blocks (resident_blocks). `extra` zeroed ints
-    follow the flags. Raises when not even one slice per rank fits."""
+                     want: int, stride: int, kernel: str,
+                     blocks_per_slice: int = 1, extra: int = 0):
+    """(slices, zeroed flags, ctypes ring tables, device ring table) for a
+    cooperative launch of `kernel`, `blocks_per_slice` blocks per (rank,
+    slice), each with its own `stride` flags: at most `want` slices, and no
+    more than can be resident beside the other ranks' blocks (residency).
+    `extra` zeroed ints follow the flags."""
     ranks = x.shape[0]
     blocks = ranks * blocks_per_slice  # per slice of the world
-    resident = resident_blocks(x, lib, max_blocks, cache)
-    per_rank = resident // blocks
-    if per_rank < 1:
-        raise RuntimeError(f"{ranks} ranks need {blocks} co-resident "
-                           f"blocks; the card holds {resident}")
+    per_rank = residency(kernel, blocks,
+                         resident_blocks(x, lib, max_blocks, cache))
     slices = max(1, min(per_rank, want))
     flags = torch.zeros(blocks * slices * stride + extra, dtype=torch.int32,
                         device=x.device)
-    return slices, flags, _ctypes_tables(mesh, _axis_key(axis_name))[:3]
-
-
-def _check_ranks(ranks: int, what: str) -> None:
-    if ranks > KERNEL_MAX_RANKS:
-        raise ValueError(f"{what} takes at most {KERNEL_MAX_RANKS} ranks, "
-                         f"got {ranks}")
+    names = _axis_key(axis_name)
+    return (slices, flags, _ctypes_tables(mesh, names),
+            ring_table(mesh, names).data_ptr())
 
 
 def _launch_setup(x: torch.Tensor, mesh: Mesh, axis_name: Axis,
-                  units: int, per_thread: int = 1):
-    """(lib, slices, zeroed flags, flag stride, ctypes ring tables) for
-    `units` per chunk, `per_thread` of them to each thread."""
-    _check_ranks(x.shape[0], "the ring kernels")
+                  units: int, kernel: str, per_thread: int = 1):
+    """(lib, slices, zeroed flags, flag stride, ctypes ring tables, device
+    ring table) for `units` per chunk, `per_thread` of them to each
+    thread."""
     lib = _ring_lib()
     stride = lib.gtt_ring_flag_stride(mesh.axis_size(axis_name))
-    slices, flags, tables = cooperative_grid(
+    slices, flags, tables, table = cooperative_grid(
         x, mesh, axis_name, lib, lib.gtt_ring_max_blocks, _max_blocks,
-        -(-units // (KERNEL_THREADS * per_thread)), stride)
-    return lib, slices, flags, stride, tables
+        -(-units // (KERNEL_THREADS * per_thread)), stride, kernel)
+    return lib, slices, flags, stride, tables, table
 
 
 def _axis_key(axis_name: Axis) -> tuple[str, ...]:
     return (axis_name,) if isinstance(axis_name, str) else tuple(axis_name)
 
 
+class RingTables(NamedTuple):
+    """The ring tables along some axes as ctypes int arrays, the host
+    copies that the C entries check before a launch: each flat rank's ring
+    index, right and left neighbours, the members table (ranks x n, each
+    rank's ring in ring order), and this process's local ranks."""
+    my: ctypes.Array
+    right: ctypes.Array
+    left: ctypes.Array
+    members: ctypes.Array
+    local: ctypes.Array
+
+
 @functools.lru_cache(maxsize=64)
-def _ctypes_tables(mesh: Mesh, names: tuple[str, ...]):
-    """The ring tables along `names` as the ctypes int arrays the kernels
-    take: each flat rank's ring index, right and left neighbours, and the
-    members table (ranks x n, each rank's ring in ring order). A launch
-    copies them into its parameters, so one set serves every call on the
-    mesh."""
+def _ctypes_tables(mesh: Mesh, names: tuple[str, ...]) -> RingTables:
+    """The ring tables along `names` as ctypes int arrays (RingTables): one
+    set serves every call on the mesh."""
     ranks = mesh.size
     rows = mesh.ring_members(names)
-    return (*((ctypes.c_int * ranks)(*t) for t in mesh.ring_neighbors(names)),
-            (ctypes.c_int * (ranks * len(rows[0])))(
-                *(m for row in rows for m in row)))
+    local = mesh.local_ranks
+    return RingTables(
+        *((ctypes.c_int * ranks)(*t) for t in mesh.ring_neighbors(names)),
+        (ctypes.c_int * (ranks * len(rows[0])))(
+            *(m for row in rows for m in row)),
+        (ctypes.c_int * len(local))(*local))
 
 
-def _members_table(mesh: Mesh, axis_name: Axis):
-    """Each flat rank's ring along `axis_name` in ring order, as the ctypes
-    int array (ranks x n) the kernels index."""
-    return _ctypes_tables(mesh, _axis_key(axis_name))[3]
+def ring_table_values(mesh: Mesh, names: tuple[str, ...]) -> list[int]:
+    """The device ring table's int32 values (csrc/ring_common.cuh's Rings):
+    my (ranks), right (ranks), left (ranks), local (this process's flat
+    ranks), then members (ranks x n), row r rank r's ring in ring order."""
+    my, right, left = mesh.ring_neighbors(names)
+    members = [m for row in mesh.ring_members(names) for m in row]
+    return [*my, *right, *left, *mesh.local_ranks, *members]
+
+
+@functools.lru_cache(maxsize=64)
+def ring_table(mesh: Mesh, names: tuple[str, ...]) -> torch.Tensor:
+    """The ring tables along `names` as one int32 tensor on the mesh's
+    device (ring_table_values), built once per (mesh, axes) and kept: the
+    kernels read it where they read their rank tables, so a launch copies
+    no table, and a world's ranks are bounded by nothing but the card's
+    residency. A mesh is never changed once made."""
+    return torch.tensor(ring_table_values(mesh, names), dtype=torch.int32,
+                        device=mesh.device)
 
 
 def _sum_launch(x: torch.Tensor, out: torch.Tensor, axis_name: Axis,
@@ -309,9 +360,10 @@ def _sum_launch(x: torch.Tensor, out: torch.Tensor, axis_name: Axis,
     n = mesh.axis_size(axis_name)
     ranks, rows, cols = x.shape
     dtype, vec, units = _kernel_layout(x, rows // n * cols, out)
-    lib, slices, flags, stride, (my, _, _) = _launch_setup(
-        x, mesh, axis_name, units, SUM_UNITS_PER_THREAD)
-    tail = (flags.data_ptr(), stride, my, _members_table(mesh, axis_name),
+    name = "ring_reduce_scatter" if reduce_scatter else "ring_allreduce"
+    lib, slices, flags, stride, tables, table = _launch_setup(
+        x, mesh, axis_name, units, name, SUM_UNITS_PER_THREAD)
+    tail = (flags.data_ptr(), stride, tables.my, tables.members, table,
             ranks, n, slices, units, dtype, vec, _stream(x))
     in_stride = x[0].numel() * x.element_size()
     with torch.cuda.device(x.device):
@@ -322,8 +374,7 @@ def _sum_launch(x: torch.Tensor, out: torch.Tensor, axis_name: Axis,
         else:
             err = lib.gtt_ring_allreduce(x.data_ptr(), out.data_ptr(),
                                          in_stride, *tail)
-    _raise_on(err, "ring_reduce_scatter" if reduce_scatter
-              else "ring_allreduce", lib)
+    _raise_on(err, name, lib)
 
 
 def _stream(x: torch.Tensor) -> int:
@@ -336,10 +387,6 @@ def _out_shape(name: str, rows: int, cols: int, n: int) -> tuple[int, int]:
     return {"ring_allreduce": (rows, cols),
             "ring_reduce_scatter": (rows // n, cols),
             "ring_allgather": (n * rows, cols)}[name]
-
-
-def _local_table(mesh: Mesh):
-    return (ctypes.c_int * len(mesh.local_ranks))(*mesh.local_ranks)
 
 
 def _gather_world(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -377,21 +424,18 @@ def _peer_reserve(name: str, mesh: Mesh, axis_name: Axis,
                   dtype: torch.dtype, rows: int, cols: int):
     """(library, workspace) with room for a call of `name` on (rows, cols)
     of dtype per local rank of a process mesh on the card (collective)."""
-    _check_ranks(mesh.size, name)
     lib = _ring_lib()
     local = len(mesh.local_ranks)
     resident = resident_blocks(torch.empty(0, device=mesh.device), lib,
                                lib.gtt_ring_peer_max_blocks,
                                _peer_max_blocks)
-    if resident < local:
-        raise RuntimeError(f"{local} local ranks need {local} co-resident "
-                           f"blocks; the card holds {resident}")
     out_rows, out_cols = _out_shape(name, rows, cols,
                                     mesh.axis_size(axis_name))
     elt = torch.tensor([], dtype=dtype).element_size()
     ws = mesh.workspace
     with torch.cuda.device(mesh.device):
-        slices = ws.agree("ring", min(resident // local, 65535))
+        slices = residency(name, local, resident,
+                           functools.partial(ws.agree, "ring"))
         ws.reserve({"in": rows * cols * elt,
                     "out": out_rows * out_cols * elt,
                     "ring_flags": slices * PEER_FLAGS * 4})
@@ -437,15 +481,24 @@ def _peer_launch(name: str, x: torch.Tensor, axis_name: Axis,
             chunk_elems = rows // n * cols
             dtype, vec = SUM_DTYPES[x.dtype], int(chunk_elems % per_vec == 0)
             units = chunk_elems // per_vec if vec else chunk_elems
-        my, _, _, members = _ctypes_tables(mesh, _axis_key(axis_name))
+        names = _axis_key(axis_name)
+        tables = _ctypes_tables(mesh, names)
         ws.start_together(torch.cuda.current_stream(x.device))
         err = lib.gtt_ring_peer(
-            _PEER_MODES[name], ws.table("in"), ws.table("out"),
-            ws.table("ring_flags"), _local_table(mesh), local, my, members,
-            mesh.size, n, slices, units, dtype, vec,
-            ws.advance("ring", n - 1), _stream(x))
+            _PEER_MODES[name], *_peer_tables(ws, "in", "out", "ring_flags"),
+            tables.local, local, tables.my, tables.members,
+            ring_table(mesh, names).data_ptr(), mesh.size, n, slices, units,
+            dtype, vec, ws.advance("ring", n - 1), _stream(x))
         _raise_on(err, name, lib)
         return ws.view("out", x.dtype, out_shape).clone()
+
+
+def _peer_tables(ws, *regions: str) -> tuple:
+    """The workspace's pointer tables of `regions`: the host arrays (which
+    the C entries check), then the device arrays (which the kernels read),
+    in the order of the regions."""
+    return (*(ws.table(r) for r in regions),
+            *(ws.device_table(r) for r in regions))
 
 
 def _across(wrapper, plain, x: torch.Tensor, axis_name: Axis,
@@ -648,12 +701,13 @@ def _allgather(x: torch.Tensor, axis_name: Axis, mesh: Mesh) -> torch.Tensor:
                       device=x.device)
     # A copy: any dtype, moved in the widest unit that fits.
     unit = _unit_bytes(chunk_bytes, x.data_ptr(), out.data_ptr())
-    lib, slices, flags, stride, (my, _, _) = _launch_setup(
-        x, mesh, axis_name, chunk_bytes // unit, SUM_UNITS_PER_THREAD)
+    lib, slices, flags, stride, tables, table = _launch_setup(
+        x, mesh, axis_name, chunk_bytes // unit, "ring_allgather",
+        SUM_UNITS_PER_THREAD)
     with torch.cuda.device(x.device):
         err = lib.gtt_ring_allgather(
             x.data_ptr(), chunk_bytes, out.data_ptr(), n * chunk_bytes,
-            flags.data_ptr(), stride, my, _members_table(mesh, axis_name),
+            flags.data_ptr(), stride, tables.my, tables.members, table,
             ranks, n, slices, chunk_bytes // unit, unit, _stream(x))
     _raise_on(err, "ring_allgather", lib)
     ring_allgather.launches += 1
@@ -752,9 +806,9 @@ def _variants_lib() -> ctypes.CDLL:
     global _var_lib
     if _var_lib is None:
         lib = _build.load("ring_variants")
-        # x, out, rank stride, flags, flag stride, my, members, ranks, n,
-        # slices
-        head = [_P, _P, _L, _P, _I, _IP, _IP, _I, _I, _I]
+        # x, out, rank stride, flags, flag stride, my, members, device ring
+        # table, ranks, n, slices
+        head = [_P, _P, _L, _P, _I, _IP, _IP, _P, _I, _I, _I]
         for name, argtypes in (
                 ("gtt_ring_allreduce_hbm", head + [_L, _I, _I, _I, _P]),
                 ("gtt_ring_allreduce_q8", head + [_L, _I, _P]),
@@ -763,8 +817,8 @@ def _variants_lib() -> ctypes.CDLL:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         lib.gtt_ring_variants_peer.argtypes = [
-            _I, _P, _P, _P, _P, _IP, _I, _IP, _IP, _I, _I, _I, _L, _L, _L,
-            _I, _I, _I, _I, _P]
+            _I, _P, _P, _P, _P, _P, _P, _P, _IP, _I, _IP, _IP, _P, _I, _I,
+            _I, _L, _L, _L, _I, _I, _I, _I, _P]
         lib.gtt_ring_variants_peer.restype = ctypes.c_int
         for name in ("gtt_ring_variants_max_blocks",
                      "gtt_ring_variants_peer_max_blocks"):
@@ -815,19 +869,23 @@ def _variant_blocks(variant: int, lib: ctypes.CDLL, peer: bool = False):
             cache.setdefault((variant, tile, stages), {}))
 
 
+# The wrapper of each variant code, by which a launch is named.
+_VARIANT_NAMES = {_HBM: "ring_allreduce_hbm", _Q8: "ring_allreduce_q8",
+                  _BIDIR: "ring_allreduce_bidir", _Q8_MEM: "ring_allreduce_q8"}
+
+
 def _variant_setup(x: torch.Tensor, mesh: Mesh, axis_name: Axis,
                    variant: int, want: int, blocks_per_slice: int = 1,
                    extra: int = 0):
-    """(lib, slices, zeroed flags, flag stride, ctypes ring tables) for a
-    launch of `variant`, its slices bounded by that kernel's own
-    occupancy."""
-    _check_ranks(x.shape[0], "the ring variant kernels")
+    """(lib, slices, zeroed flags, flag stride, ctypes ring tables, device
+    ring table) for a launch of `variant`, its slices bounded by that
+    kernel's own occupancy."""
     lib = _variants_lib()
     stride = lib.gtt_ring_variants_flag_stride(mesh.axis_size(axis_name))
-    slices, flags, tables = cooperative_grid(
+    slices, flags, tables, table = cooperative_grid(
         x, mesh, axis_name, lib, *_variant_blocks(variant, lib), want,
-        stride, blocks_per_slice, extra)
-    return lib, slices, flags, stride, tables
+        stride, _VARIANT_NAMES[variant], blocks_per_slice, extra)
+    return lib, slices, flags, stride, tables, table
 
 
 def _allreduce_hbm(x: torch.Tensor, axis_name: Axis,
@@ -849,12 +907,12 @@ def _allreduce_hbm(x: torch.Tensor, axis_name: Axis,
     units = per_rank // n // 16
     out = torch.empty_like(xv)
     # At most one slice per tile; each block streams a run of whole tiles.
-    lib, slices, flags, stride, (my, _, _) = _variant_setup(
+    lib, slices, flags, stride, tables, table = _variant_setup(
         xv, mesh, axis_name, _HBM, -(-units * 16 // HBM_TILE_BYTES))
     with torch.cuda.device(x.device):
         err = lib.gtt_ring_allreduce_hbm(
             xv.data_ptr(), out.data_ptr(), per_rank, flags.data_ptr(),
-            stride, my, _members_table(mesh, axis_name), ranks, n, slices,
+            stride, tables.my, tables.members, table, ranks, n, slices,
             units, HBM_TILE_BYTES, HBM_STAGES, SUM_DTYPES[x.dtype],
             _stream(x))
     _raise_on(err, "ring_allreduce_hbm", lib)
@@ -908,13 +966,13 @@ def _allreduce_q8(x: torch.Tensor, axis_name: Axis,
         units, ranks, resident_blocks(xv, lib, *_variant_blocks(_Q8, lib)))
     # As many slices as give each thread one unit, as far as the card holds
     # them; the cells of each chain's maxima follow the flags.
-    _, slices, flags, stride, (my, _, _) = _variant_setup(
+    _, slices, flags, stride, tables, table = _variant_setup(
         xv, mesh, axis_name, _Q8 if in_registers else _Q8_MEM,
         -(-units // KERNEL_THREADS), extra=2 * n * ranks)
     with torch.cuda.device(x.device):
         err = lib.gtt_ring_allreduce_q8(
             xv.data_ptr(), out.data_ptr(), n * units * 16, flags.data_ptr(),
-            stride, my, _members_table(mesh, axis_name), ranks, n, slices,
+            stride, tables.my, tables.members, table, ranks, n, slices,
             units, int(in_registers), _stream(x))
     _raise_on(err, "ring_allreduce_q8", lib)
     ring_allreduce_q8.launches += 1
@@ -1009,7 +1067,7 @@ def _allreduce_bidir(x: torch.Tensor, axis_name: Axis,
     half_units = cols // 2 * elt // 16
     chunk_rows = rows // n
     out = torch.empty_like(xv)
-    lib, slices, flags, stride, (my, _, _) = _variant_setup(
+    lib, slices, flags, stride, tables, table = _variant_setup(
         xv, mesh, axis_name, _BIDIR,
         -(-chunk_rows * half_units // (KERNEL_THREADS
                                        * SUM_UNITS_PER_THREAD)),
@@ -1017,7 +1075,7 @@ def _allreduce_bidir(x: torch.Tensor, axis_name: Axis,
     with torch.cuda.device(x.device):
         err = lib.gtt_ring_allreduce_bidir(
             xv.data_ptr(), out.data_ptr(), rows * cols * elt,
-            flags.data_ptr(), stride, my, _members_table(mesh, axis_name),
+            flags.data_ptr(), stride, tables.my, tables.members, table,
             ranks, n, slices, chunk_rows, half_units,
             SUM_DTYPES[x.dtype], _stream(x))
     _raise_on(err, "ring_allreduce_bidir", lib)
@@ -1070,12 +1128,10 @@ def _variant_peer_slices(variant: int, lib: ctypes.CDLL, mesh: Mesh,
     and kept), so that every process of a ring launches alike."""
     resident = resident_blocks(torch.empty(0, device=mesh.device), lib,
                                *_variant_blocks(variant, lib, peer=True))
-    local = len(mesh.local_ranks) * blocks_per_slice
-    most = mesh.workspace.agree(f"variants/{variant}",
-                                min(resident // local, 65535))
-    if most < 1:
-        raise RuntimeError(f"{local} blocks per slice need {local} "
-                           f"co-resident blocks; a card holds fewer")
+    most = residency(_VARIANT_NAMES[variant],
+                     len(mesh.local_ranks) * blocks_per_slice, resident,
+                     functools.partial(mesh.workspace.agree,
+                                       f"variants/{variant}"))
     return max(1, min(most, want))
 
 
@@ -1091,7 +1147,6 @@ def _variant_peer(variant: int, x: torch.Tensor, axis_name: Axis,
     cells are this process's own, zeroed before the launch. The flags'
     count before the call comes from the workspace's "variants" family, to
     which a call adds (n - 1) x the blocks per rank."""
-    _check_ranks(mesh.size, "the ring variant kernels")
     n = mesh.axis_size(axis_name)
     local, rows, cols = x.shape
     lib = _variants_lib()
@@ -1132,16 +1187,18 @@ def _variant_peer(variant: int, x: torch.Tensor, axis_name: Axis,
             xin[..., :cols] = x
         elif not ws.holds("in", x):
             xin.copy_(x)
-        my, _, _, members = _ctypes_tables(mesh, _axis_key(axis_name))
+        names = _axis_key(axis_name)
+        tables = _ctypes_tables(mesh, names)
         ws.start_together(torch.cuda.current_stream(x.device))
         err = lib.gtt_ring_variants_peer(
-            code, ws.table("in"), ws.table("out"), ws.table("var_flags"),
-            None if cells is None else cells.data_ptr(), _local_table(mesh),
-            local, my, members, mesh.size, n, slices, units, chunk_rows,
-            half_units, HBM_TILE_BYTES, HBM_STAGES, SUM_DTYPES[x.dtype],
+            code, *_peer_tables(ws, "in", "out", "var_flags"),
+            None if cells is None else cells.data_ptr(), tables.local,
+            local, tables.my, tables.members,
+            ring_table(mesh, names).data_ptr(), mesh.size, n, slices, units,
+            chunk_rows, half_units, HBM_TILE_BYTES, HBM_STAGES,
+            SUM_DTYPES[x.dtype],
             ws.advance("variants", (n - 1) * slices * bps), _stream(x))
-        _raise_on(err, ("ring_allreduce_hbm", "ring_allreduce_q8",
-                        "ring_allreduce_bidir")[variant], lib)
+        _raise_on(err, _VARIANT_NAMES[variant], lib)
         out = ws.view("out", x.dtype, (rows, wide)).clone()
     return out if wide == cols else out[..., :cols]
 
@@ -1163,13 +1220,13 @@ def _alltoall_lib() -> ctypes.CDLL:
     global _a2a_lib
     if _a2a_lib is None:
         lib = _build.load("alltoall")
-        lib.gtt_alltoall.argtypes = [_P, _L, _P, _L, _P, _I, _IP, _IP, _I,
-                                     _I, _I, _L, _L, _L, _L, _L, _L, _I, _I,
-                                     _P]
+        lib.gtt_alltoall.argtypes = [_P, _L, _P, _L, _P, _I, _IP, _IP, _P,
+                                     _I, _I, _I, _L, _L, _L, _L, _L, _L, _I,
+                                     _I, _P]
         lib.gtt_alltoall.restype = ctypes.c_int
-        lib.gtt_alltoall_peer.argtypes = [_P, _P, _L, _P, _IP, _I, _IP, _IP,
-                                          _I, _I, _I, _L, _L, _L, _L, _L,
-                                          _L, _I, _I, _I, _P]
+        lib.gtt_alltoall_peer.argtypes = [_P, _P, _L, _P, _P, _P, _IP, _I,
+                                          _IP, _IP, _P, _I, _I, _I, _L, _L,
+                                          _L, _L, _L, _L, _I, _I, _I, _P]
         lib.gtt_alltoall_peer.restype = ctypes.c_int
         for name in ("gtt_alltoall_max_blocks",
                      "gtt_alltoall_peer_max_blocks"):
@@ -1246,7 +1303,6 @@ def _alltoall(x: torch.Tensor, axis_name: Axis, mesh: Mesh, split: int,
         out = _alltoall_peer(x, axis_name, mesh, split, concat)
         alltoall.launches += 1
         return out
-    _check_ranks(x.shape[0], "the all-to-all kernel")
     x = x.contiguous()
     ranks = x.shape[0]
     # A new output starts on the allocator's 512-byte boundary: only x's
@@ -1259,15 +1315,15 @@ def _alltoall(x: torch.Tensor, axis_name: Axis, mesh: Mesh, split: int,
         return out
     lib = _alltoall_lib()
     stride = lib.gtt_alltoall_flag_stride()
-    slices, flags, (my, _, _) = cooperative_grid(
+    slices, flags, tables, table = cooperative_grid(
         x, mesh, axis_name, lib, lib.gtt_alltoall_max_blocks,
-        _a2a_max_blocks, plan.want, stride)
+        _a2a_max_blocks, plan.want, stride, "alltoall")
     rank_bytes = n * plan.block
     with torch.cuda.device(x.device):
         err = lib.gtt_alltoall(
             x.data_ptr(), rank_bytes, out.data_ptr(), rank_bytes,
-            flags.data_ptr(), stride,
-            my, _members_table(mesh, axis_name), ranks, n, slices,
+            flags.data_ptr(), stride, tables.my, tables.members, table,
+            ranks, n, slices,
             plan.block,
             plan.in_run, plan.in_pitch, plan.out_run, plan.out_pitch,
             plan.run, plan.unit, plan.group, _stream(x))
@@ -1283,19 +1339,16 @@ def _alltoall_peer(x: torch.Tensor, axis_name: Axis, mesh: Mesh, split: int,
     every member reads, and the result into a new local tensor. The flags'
     count before the call comes from the workspace's "alltoall" family,
     to which the call adds (n - 1) slices."""
-    _check_ranks(mesh.size, "the all-to-all kernel")
     n = mesh.axis_size(axis_name)
     lib = _alltoall_lib()
     local = x.shape[0]
     resident = resident_blocks(x, lib, lib.gtt_alltoall_peer_max_blocks,
                                _a2a_peer_max_blocks)
-    if resident < local:
-        raise RuntimeError(f"{local} local ranks need {local} co-resident "
-                           f"blocks; the card holds {resident}")
     ws = mesh.workspace
     elt = x.element_size()
     with torch.cuda.device(x.device):
-        per_rank = ws.agree("alltoall", min(resident // local, 65535))
+        per_rank = residency("alltoall", local, resident,
+                             functools.partial(ws.agree, "alltoall"))
         ws.reserve({"in": x[0].numel() * elt, "a2a_flags": PEER_FLAGS * 4})
         xin = ws.view("in", x.dtype, x.shape[1:])
         if not ws.holds("in", x):
@@ -1308,12 +1361,15 @@ def _alltoall_peer(x: torch.Tensor, axis_name: Axis, mesh: Mesh, split: int,
         if out.numel() == 0:
             return out
         slices = max(1, min(per_rank, plan.want))
-        my, _, _, members = _ctypes_tables(mesh, _axis_key(axis_name))
+        names = _axis_key(axis_name)
+        tables = _ctypes_tables(mesh, names)
         ws.start_together(torch.cuda.current_stream(x.device))
         err = lib.gtt_alltoall_peer(
             ws.table("in"), out.data_ptr(), out[0].numel() * elt,
-            ws.table("a2a_flags"), _local_table(mesh), local, my, members,
-            mesh.size, n, slices, plan.block, plan.in_run, plan.in_pitch,
+            ws.table("a2a_flags"), ws.device_table("in"),
+            ws.device_table("a2a_flags"), tables.local, local, tables.my,
+            tables.members, ring_table(mesh, names).data_ptr(), mesh.size,
+            n, slices, plan.block, plan.in_run, plan.in_pitch,
             plan.out_run, plan.out_pitch, plan.run, plan.unit, plan.group,
             ws.advance("alltoall", (n - 1) * slices), _stream(x))
     _raise_on(err, "alltoall", lib)

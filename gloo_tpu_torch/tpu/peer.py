@@ -11,7 +11,9 @@ other process's handle; the ring kernels' cross-process instances
 csrc/ring_variants.cu's ``gtt_ring_variants_peer``) and the
 point-to-point transport (csrc/permute.cu's ``gtt_permute_peer``) then load
 and store through those pointers and signal through flags in them at
-system scope.
+system scope. The pointer tables live in device memory (``device_table``),
+filled where the peers are mapped, so no kernel parameter bounds the
+world's ranks.
 
 A dedicated allocation, not PyTorch's caching allocator: its base is
 known (an IPC handle maps a whole allocation), it is not carved into
@@ -239,6 +241,9 @@ class PeerWorkspace:
         self._alloc: _Allocation | None = None
         self._maps = _Mappings(self.device)
         self._tables: dict[str, ctypes.Array] = {}
+        # The same tables in device memory, one int64 row per region.
+        self._device_tables: torch.Tensor | None = None
+        self._device_rows: dict[str, int] = {}
 
     def reserve(self, regions: Mapping[str, int]) -> None:
         """Makes room for regions[name] bytes per local rank in each named
@@ -283,6 +288,10 @@ class PeerWorkspace:
                                        + i * rec["caps"][name])
         self._tables = {name: (_P * self.mesh.size)(*t)
                         for name, t in tables.items()}
+        self._device_rows = {name: i for i, name in enumerate(tables)}
+        self._device_tables = torch.tensor(list(tables.values()),
+                                           dtype=torch.int64,
+                                           device=self.device)
         # No peer may launch on this allocation before every process has
         # mapped every other one.
         self.ctx.barrier()
@@ -292,6 +301,13 @@ class PeerWorkspace:
         device pointers the kernels take (peer-mapped, or this process's
         own for its local ranks)."""
         return self._tables[region]
+
+    def device_table(self, region: str) -> int:
+        """The address of table(region) in device memory, where the kernels
+        read it (a kernel's parameters hold no per-rank table, so a world
+        has no rank ceiling): valid until the next reserve that grows the
+        workspace, or close."""
+        return self._device_tables[self._device_rows[region]].data_ptr()
 
     def view(self, region: str, dtype: torch.dtype, shape) -> torch.Tensor:
         """The local ranks' parts of `region` as a (local ranks, *shape)
@@ -359,6 +375,8 @@ class PeerWorkspace:
         self._alloc.free()
         self._alloc = None
         self._tables = {}
+        self._device_tables = None
+        self._device_rows = {}
 
     def close(self) -> None:
         """Collective: every process of the mesh closes its workspace."""

@@ -39,9 +39,11 @@ Prints, for the gloo_tpu_torch found beside this script:
     DDP and dp x tp step, Ulysses and MoE forward + backward, the q8
     variant's forward + backward), and per launch (chip_smoke.timed_kernel)
     of B6 at the ring-flash path's four ring steps as that path launches
-    it (in place where the tree has flash_attention_step_into), of B3, B9,
-    B10 and B11 at the ring-variant path's shape and of B10 at 64 MiB per
-    rank.
+    it (in place where the tree has flash_attention_step_into), of B3,
+    B4a, B9, B10 and B11 at the ring-variant path's shape (B4b gathering
+    its chunks back to that shape), of B10 at 64 MiB per rank, of B8 at the
+    Ulysses path's first exchange, and of B5b and B5a at the fused MLP's
+    up and down products (fused_mlp_entry).
 
 It uses only the entry points, wrappers and chip_smoke helpers whose
 signatures earlier versions of the port share, so that the same script
@@ -131,10 +133,12 @@ def forward_times(attn, args):
 
 
 def device_times(attn, ring, paths, variants):
-    """Device ms of the paths' calls and of B6, B3, B9, B10 and B11 per
-    launch, as listed in the module's docstring."""
+    """Device ms of the paths' calls and of B6, B3, B4a, B4b, B5a, B5b, B8,
+    B9, B10 and B11 per launch, as listed in the module's docstring."""
+    from gloo_tpu_torch.entry import fused_mlp_entry
+    from gloo_tpu_torch.ops import overlap as ov
     from gloo_tpu_torch.parallel import sp
-    from gloo_tpu_torch.tpu import spmd
+    from gloo_tpu_torch.tpu import make_mesh, spmd
 
     out = {}
     for key, (fn, args) in paths.items():
@@ -170,6 +174,30 @@ def device_times(attn, ring, paths, variants):
         out["ring_allreduce_q8_64mib_ms"] = timed_kernel(
             "ring_allreduce_q8 at 64 MiB per rank",
             lambda: ring.ring_allreduce_q8(big, "data", vmesh), "q8_kernel")
+        chunk = x[:, :x.shape[1] // x.shape[0]].contiguous()
+        out["ring_reduce_scatter_ms"] = timed_kernel(
+            "ring_reduce_scatter at the ring-variant path's shape",
+            lambda: ring.ring_reduce_scatter(x, "data", vmesh), "ring_kernel")
+        out["ring_allgather_ms"] = timed_kernel(
+            "ring_allgather to the ring-variant path's shape",
+            lambda: ring.ring_allgather(chunk, "data", vmesh), "ring_kernel")
+        seq = make_mesh({"seq": 4}, devices=[x.device] * 4)
+        xu = torch.randn((4, 2, 4, 1024, 64), device="cuda").to(
+            torch.bfloat16)
+        out["alltoall_ms"] = timed_kernel(
+            "alltoall at the Ulysses path's first exchange",
+            lambda: spmd.alltoall(xu, "seq", 1, 2, mesh=seq),
+            "alltoall_kernel")
+        _, (xm, w_up, w_down, _, mmesh) = fused_mlp_entry()
+        hidden = ov.allgather_matmul_fwd(xm, w_up, "model", mmesh)[0]
+        out["allgather_matmul_ms"] = timed_kernel(
+            "allgather_matmul at the fused MLP's up product",
+            lambda: ov.allgather_matmul_fwd(xm, w_up, "model", mmesh),
+            "ag_matmul_kernel")
+        out["matmul_reduce_scatter_ms"] = timed_kernel(
+            "matmul_reduce_scatter at the fused MLP's down product",
+            lambda: ov.matmul_reduce_scatter(hidden, w_down, "model", mmesh),
+            "matmul_rs_kernel")
     fn, args = variants["q8"]
     out["q8_variant_path_device_ms"] = device_profile(lambda: fn(*args),
                                                       10)[0]

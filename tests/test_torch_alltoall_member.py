@@ -311,10 +311,11 @@ def test_wrapper_launches_once_on_x_as_it_lies(monkeypatch, case):
     assert list(args[6]) == mesh.ring_index(axis)
     assert list(args[7]) == [m for row in mesh.ring_members(axis)
                              for m in row]
-    assert args[8:11] == (size, n, slices)
+    assert args[8] == ring.ring_table(mesh, ring._axis_key(axis)).data_ptr()
+    assert args[9:12] == (size, n, slices)
     in_run = shape[1 + split] // n * math.prod(shape[2 + split:]) * elt
     out_run = local[concat] // n * math.prod(local[concat + 1:]) * elt
-    assert args[11:19] == (rank_bytes // n, in_run, n * in_run, out_run,
+    assert args[12:20] == (rank_bytes // n, in_run, n * in_run, out_run,
                            n * out_run, run, unit, group)
     assert math.gcd(in_run, out_run) == run
 

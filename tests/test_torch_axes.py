@@ -114,7 +114,12 @@ def test_kernel_tables_are_made_once_per_mesh_and_axis(axes, axis):
     mesh = _ours(axes)
     tables = ring._ctypes_tables(mesh, ring._axis_key(axis))
     assert ring._ctypes_tables(mesh, ring._axis_key(list(axis))) is tables
-    assert ring._members_table(mesh, axis) is tables[3]
+    assert tables.members is tables[3]
+    table = ring.ring_table(mesh, ring._axis_key(axis))
+    assert ring.ring_table(mesh, ring._axis_key(list(axis))) is table
+    assert table.dtype == torch.int32 and table.tolist() == [
+        *(m for t in mesh.ring_neighbors(axis) for m in t),
+        *mesh.local_ranks, *tables[3]]
     assert [list(t) for t in tables[:3]] == list(mesh.ring_neighbors(axis))
     assert list(tables[3]) == [m for row in mesh.ring_members(axis)
                                for m in row]

@@ -24,11 +24,13 @@ kernels in real processes on the card and skip without one; they import
 no JAX.
 """
 
+import contextlib
 import socket
 import subprocess
 import sys
 import textwrap
 import threading
+import types
 from pathlib import Path
 
 import numpy as np
@@ -513,18 +515,37 @@ def test_a_cuda_mesh_without_a_card_raises(monkeypatch):
         entry_mod.multihost_ddp_entry(0, 1, f"127.0.0.1:{_free_port()}")
 
 
-def test_more_ranks_than_the_kernels_peer_table_raise():
-    """The card's path (a meta tensor takes it) refuses a world past
-    KERNEL_MAX_RANKS before it builds or launches anything; the CPU's
-    twins take any size."""
-    ranks = ring.KERNEL_MAX_RANKS + 2
+def test_more_ranks_than_the_kernels_peer_table_raise(monkeypatch):
+    """The kernels' rank tables live in device memory, so the card's path
+    (a meta tensor takes it) refuses a world of 34 ranks in 2 processes
+    only where a card cannot hold the 17 local ranks' blocks at once (a
+    fake library that reports 16), and then names the kernel, before it
+    reserves or launches anything; the CPU's twins take any size."""
+    ranks = 34
+
+    class FakeLib:
+        def gtt_ring_peer_max_blocks(self, ref):
+            ref._obj.value = 16
+            return 0
+
+    monkeypatch.setattr(ring, "_ring_lib", lambda: FakeLib())
+    monkeypatch.setattr(ring, "_peer_max_blocks", {})
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda index: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     mesh = _pmesh(ranks, device="meta")
+    agreed = []
+    mesh.workspace = types.SimpleNamespace(
+        agree=lambda key, value: agreed.append((key, value)) or value,
+        reserve=lambda regions: pytest.fail("reserved past residency"))
     x = torch.empty(ranks // 2, ranks, 4, device="meta")
     for fn in (ring.ring_allreduce, ring.ring_reduce_scatter,
                ring.ring_allgather):
-        with pytest.raises(ValueError, match=f"at most "
-                           f"{ring.KERNEL_MAX_RANKS} ranks"):
+        with pytest.raises(RuntimeError, match=f"{fn.__name__}: 17 blocks "
+                           "must be resident at once"):
             fn(x, "data", mesh)
+    # The processes agree on the slices before any of them raises.
+    assert agreed == [("ring", 0)] * 3
     world = _world(torch.float32, ranks, ranks, 2)
     res = _processes(_cpus((ranks // 2, ranks // 2)),
                      lambda ctx, m, r: ring.ring_allreduce(

@@ -415,10 +415,10 @@ def test_matmul_reduce_scatter_allocates_no_stage():
     f32 = overlap._rs_buffers(x.float(), 20, 99, 2, 7)
     assert f32[1].shape == (4, 2, 2 * 128 * 32) and f32[2].shape == (28,)
     # x, x_ld, w and its strides, out, comm, flags, stride, the ring
-    # tables, ranks, n, slices, rows, k, cols, the plan's four, dtype,
-    # stream.
-    assert len(overlap._SIGNATURES["gtt_matmul_rs"]) == 25
-    assert len(overlap._SIGNATURES["gtt_ag_matmul"]) == 25
+    # tables (host) and their device copy, ranks, n, slices, rows, k,
+    # cols, the plan's four, dtype, stream.
+    assert len(overlap._SIGNATURES["gtt_matmul_rs"]) == 26
+    assert len(overlap._SIGNATURES["gtt_ag_matmul"]) == 26
 
 
 # ---- on the card ----

@@ -291,8 +291,9 @@ def test_sum_kernels_take_the_same_dtypes_on_every_device(dtype):
 def test_cooperative_grid_sizes_the_launch(monkeypatch):
     """Slices: as many as `want`, no more than fit beside the other ranks'
     blocks (blocks_per_slice per rank and slice); zeroed flags for every
-    block plus `extra`; the ring tables of every rank. The occupancy query
-    is asked once per device."""
+    block plus `extra`; the ring tables of every rank, on the host and in
+    device memory. The occupancy query is asked once per device; a launch
+    that does not fit names its kernel."""
     import contextlib
 
     monkeypatch.setattr(torch.cuda, "device",
@@ -310,17 +311,21 @@ def test_cooperative_grid_sizes_the_launch(monkeypatch):
     cache = {}
     for want, per_slice, extra, slices in ((7, 1, 0, 7), (99, 1, 0, 25),
                                            (99, 2, 5, 12), (0, 1, 0, 1)):
-        got, flags, tables = ring.cooperative_grid(
-            x, mesh, "x", None, max_blocks, cache, want, 6, per_slice, extra)
+        got, flags, tables, table = ring.cooperative_grid(
+            x, mesh, "x", None, max_blocks, cache, want, 6, "ring_allreduce",
+            per_slice, extra)
         assert got == slices
         assert flags.shape == (4 * per_slice * slices * 6 + extra,)
-        assert [list(t) for t in tables] == [list(t) for t in
-                                             mesh.ring_neighbors("x")]
+        assert [list(t) for t in tables[:3]] == [list(t) for t in
+                                                 mesh.ring_neighbors("x")]
+        assert table == ring.ring_table(mesh, ("x",)).data_ptr()
     assert asked == [1] and cache == {0: 100}
-    with pytest.raises(RuntimeError, match="co-resident"):
+    with pytest.raises(RuntimeError, match="ring_allgather: 4 blocks must "
+                       "be resident at once.*the card holds 3"):
         ring.cooperative_grid(torch.zeros((2, 8, 8), device="meta"),
                               make_mesh({"x": 2}, devices=["meta"] * 2),
-                              "x", None, max_blocks, {0: 3}, 1, 6, 2)
+                              "x", None, max_blocks, {0: 3}, 1, 6,
+                              "ring_allgather", 2)
 
 
 # ---- on the card ----

@@ -330,11 +330,14 @@ def test_sum_wrappers_launch_with_members_and_no_buffers(monkeypatch, axes,
             ("zeros", (4 * slices * stride,), torch.int32)])
         name, args = lib.calls[-1]
         assert name == kind
-        tail = args[-11:]  # flags .. stream
+        tail = args[-12:]  # flags .. stream
         assert tail[1] == stride
         assert list(tail[2]) == mesh.ring_index(axis)
         assert list(tail[3]) == members
-        assert tail[4:10] == (4, n, slices, units, ring.SUM_DTYPES[x.dtype],
+        # The same tables in device memory, made once per (mesh, axis).
+        assert tail[4] == ring.ring_table(mesh, ring._axis_key(axis)) \
+            .data_ptr()
+        assert tail[5:11] == (4, n, slices, units, ring.SUM_DTYPES[x.dtype],
                               1)
 
 
@@ -372,7 +375,8 @@ def test_gather_wrapper_launches_with_members_and_no_buffers(
     assert list(args[6]) == mesh.ring_index(axis)
     assert list(args[7]) == [m for row in mesh.ring_members(axis)
                              for m in row]
-    assert args[8:13] == (4, n, slices, units, unit)
+    assert args[8] == ring.ring_table(mesh, ring._axis_key(axis)).data_ptr()
+    assert args[9:14] == (4, n, slices, units, unit)
 
 
 # ---- on the card ----

@@ -459,12 +459,14 @@ def test_hbm_and_bidir_launch_with_members_and_no_buffers(monkeypatch, axes,
         assert args[2] == rows * cols * 4  # each rank's stride in bytes
         assert args[4] == stride
         assert list(args[5]) == my and list(args[6]) == members
-        assert args[7:10] == (4, n, slices)
+        assert args[7] == ring.ring_table(mesh, ring._axis_key(axis)) \
+            .data_ptr()
+        assert args[8:11] == (4, n, slices)
         if kind == "hbm":
-            assert args[10:14] == (units, ring.HBM_TILE_BYTES,
+            assert args[11:15] == (units, ring.HBM_TILE_BYTES,
                                    ring.HBM_STAGES, 1)
         else:
-            assert args[10:13] == (rows // n, half_units, 1)
+            assert args[11:14] == (rows // n, half_units, 1)
     assert lib.queries == [(0, ring.HBM_TILE_BYTES, ring.HBM_STAGES),
                            (2, 0, 0)]
 
@@ -521,7 +523,9 @@ def test_q8_launches_with_members_and_no_wire(monkeypatch, axes, axis):
         assert args[4] == 8
         assert list(args[5]) == mesh.ring_index(axis)
         assert list(args[6]) == members
-        assert args[7:12] == (4, n, slices, units, form)
+        assert args[7] == ring.ring_table(mesh, ring._axis_key(axis)) \
+            .data_ptr()
+        assert args[8:13] == (4, n, slices, units, form)
     assert lib.queries == [(1, 0, 0), (3, 0, 0)]
 
 
